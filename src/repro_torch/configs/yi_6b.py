@@ -1,0 +1,11 @@
+"""yi-6b — llama-arch GQA with kv=4.  [arXiv:2403.04652; hf]
+
+32L d_model=4096 32H (kv=4) d_ff=11008 vocab=64000.
+"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="yi-6b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=4,
+    d_ff=11008, vocab_size=64000, rope_theta=5000000.0,
+)

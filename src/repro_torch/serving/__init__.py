@@ -1,0 +1,22 @@
+"""Serving stack of the port, on the dense KV path: scheduler-driven
+continuous batching over fixed decode lanes.
+
+* :mod:`.scheduler` — FIFO admission + time-slice preemption;
+* :mod:`.kvcache` — the dense per-lane KV backend;
+* :mod:`.buckets` — the shared length-bucket ladders;
+* :mod:`.sampling` — per-request temperature / top-k / top-p;
+* :mod:`.metrics` — TTFT / inter-token latency / throughput;
+* :mod:`.engine` — the orchestrator, each tick split into ``schedule`` /
+  ``dispatch`` / ``emit``.
+"""
+from .buckets import LENGTH_BUCKETS, REDUCED_BUCKETS
+from .engine import LaneState, Request, ServingEngine, TickWork, length_bucket
+from .kvcache import DenseKVCache, make_kv_cache
+from .metrics import ServingMetrics
+from .sampling import SamplingParams
+from .scheduler import Scheduler
+
+__all__ = ["ServingEngine", "Request", "LaneState", "TickWork",
+           "length_bucket", "LENGTH_BUCKETS", "REDUCED_BUCKETS",
+           "DenseKVCache", "make_kv_cache", "ServingMetrics",
+           "SamplingParams", "Scheduler"]

@@ -1,0 +1,100 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+These tests need a CUDA device: the kernels are built by nvcc for sm_90a
+and have no CPU mode, so without a card every test here skips.  No JAX
+import, so the file runs on a machine that has only the port's
+dependencies::
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
+
+Tolerance 2e-4 in float32; 2e-2 in bfloat16, where the kernel and the
+plain version round their outputs to bf16 from float32 sums taken in
+different orders.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+       torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: the CUDA kernels have no CPU mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels build with nvcc for "
+                    "sm_90a and run only there)")
+    return torch.device("cuda")
+
+
+def rand(shape, seed, device, dtype, scale=1.0):
+    x = np.random.default_rng(seed).standard_normal(shape) * scale
+    return torch.from_numpy(x.astype(np.float32)).to(device, dtype)
+
+
+def close(got, want, dtype):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,s,d,causal,window", [
+    (8, 2, 128, 32, True, None), (8, 8, 100, 64, False, None),
+    (4, 1, 192, 16, True, 16), (32, 4, 300, 128, True, None),
+    (32, 4, 200, 128, True, 64)])
+def test_attention_kernel_matches_plain(cuda_device, dtype, h, hkv, s, d,
+                                        causal, window):
+    q = rand((2, h, s, d), 20, cuda_device, dtype, 0.3)
+    k = rand((2, hkv, s, d), 21, cuda_device, dtype, 0.3)
+    v = rand((2, hkv, s, d), 22, cuda_device, dtype)
+    n = fa.flash_attention.launches
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1
+    assert got.dtype == dtype
+    close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d", [(32, 4, 128), (32, 32, 128), (4, 2, 16),
+                                     (12, 4, 64), (16, 1, 32)])
+def test_decode_kernel_matches_plain(cuda_device, dtype, h, hkv, d):
+    q = rand((3, h, 1, d), 23, cuda_device, dtype, 0.4)
+    k = rand((3, hkv, 300, d), 24, cuda_device, dtype, 0.4)
+    v = rand((3, hkv, 300, d), 25, cuda_device, dtype)
+    kv_len = torch.tensor([1, 257, 300], dtype=torch.int32,
+                          device=cuda_device)
+    n = fa.flash_decode.launches
+    got = ops.decode_attention(q, k, v, kv_len)
+    want = ref.decode_ref(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert fa.flash_decode.launches == n + 1
+    close(got, want, dtype)
+
+
+def test_decode_kernel_kv_len_zero_row_is_exactly_zero(cuda_device):
+    q = rand((2, 8, 1, 64), 26, cuda_device, torch.float32)
+    k = rand((2, 2, 64, 64), 27, cuda_device, torch.float32)
+    kv_len = torch.tensor([0, 64], dtype=torch.int32, device=cuda_device)
+    out = fa.flash_decode(q, k, k, kv_len)
+    assert torch.all(out[0] == 0)
+    close(out[1], ref.decode_ref(q, k, k, kv_len)[1], torch.float32)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q = rand((1, 2, 8, 48), 28, cuda_device, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    q = rand((1, 2, 8, 32), 29, cuda_device, torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q, q, q)
+    q = rand((1, 8, 2, 32), 30, cuda_device, torch.float32).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, q, q)
