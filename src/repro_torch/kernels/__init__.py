@@ -1,3 +1,4 @@
 """Attention kernels of the port: CUDA sources in ``csrc``, their ctypes
-wrappers (:mod:`.flash_attention`), plain PyTorch versions (:mod:`.ref`)
-and the device dispatch the model calls (:mod:`.ops`)."""
+wrappers (:mod:`.flash_attention` for the dense K1/K2,
+:mod:`.paged_attention` for the paged K3/K4), plain PyTorch versions
+(:mod:`.ref`) and the device dispatch the model calls (:mod:`.ops`)."""

@@ -2,9 +2,9 @@
 
 Each ``csrc/*.cu`` file is compiled on its own into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes), named by a hash of its source and flags, under
-``<checkout>/build/repro_torch_kernels/``.  A library is rebuilt when its
-source or the flags change and is reused otherwise.  Sources that need a
+minutes), named by a hash of its source, the shared ``csrc/*.cuh``
+headers and the flags, under ``<checkout>/build/repro_torch_kernels/``.
+A library is rebuilt when any of those change and is reused otherwise.  Sources that need a
 build are compiled in parallel, one nvcc process each.
 
 Nothing here runs at import: the CPU tests import every module of the
@@ -37,9 +37,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source, every
+    header of ``csrc`` (a source may include any of them) and the flags."""
+    data = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        data += header.name.encode() + header.read_bytes()
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

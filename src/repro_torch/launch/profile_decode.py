@@ -1,16 +1,19 @@
 """Where a decode tick's time goes: trace engine ticks with torch.profiler.
 
-Fills every lane of a dense-lane engine with a request (one prefill
-each), runs a few warm-up ticks, then traces ``--steps`` ticks and
-prints: the host time per tick, the device time per tick (sum of the
-kernels' own times), the device busy share (device time / host time),
-and the kernels that take the most device time.  With ``--trace`` it
-also writes a Chrome trace.
+Fills every lane of the engine with a request (one prefill each, or
+chunk by chunk with ``--prefill-chunk``), runs ticks until every lane is
+decoding and one more, then traces ``--steps`` decode ticks and prints:
+the host time per tick, the device time per tick (sum of the kernels'
+own times), the device busy share (device time / host time), and the
+kernels that take the most device time.  ``--cache paged`` traces the
+paged decode tick.  With ``--trace`` it also writes a Chrome trace.
 
 Usage (on the card)::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode --full \
         --trace decode_trace.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode --full \
+        --cache paged --prefill-chunk 128
 """
 from __future__ import annotations
 
@@ -38,20 +41,25 @@ def _device_us(event) -> float:
 def profile_decode(arch: str = "yi-6b", reduced: bool = True,
                    n_lanes: int = 4, max_len: int = 1024,
                    prompt_len: int = 512, steps: int = 8, top: int = 12,
-                   device: str = "cuda", trace: str | None = None) -> dict:
+                   device: str = "cuda", trace: str | None = None,
+                   cache: str = "dense",
+                   prefill_chunk: int | None = None) -> dict:
     dev = resolve(device)
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
     engine = ServingEngine(model, model.init(0, dev), n_lanes=n_lanes,
-                           max_len=max_len)
+                           max_len=max_len, cache=cache,
+                           prefill_chunk=prefill_chunk)
     rng = np.random.default_rng(0)
     for rid in range(n_lanes):
         prompt = rng.integers(0, cfg.vocab_size, size=prompt_len - 1)
         engine.submit(Request(rid=rid, prompt=prompt.tolist(),
                               max_new_tokens=steps + 4))
     engine.step()                  # admissions (prefill) + the first tick
+    while engine.scheduler.prefill_lanes():
+        engine.step()              # the rest of a chunked prefill
     engine.step()
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -85,15 +93,18 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-len", type=int, default=1024)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--cache", choices=("dense", "paged"), default="dense")
+    ap.add_argument("--prefill-chunk", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the traced ticks here")
     args = ap.parse_args(argv)
     out = profile_decode(args.arch, args.reduced, args.lanes, args.max_len,
                          args.prompt_len, args.steps, device=args.device,
-                         trace=args.trace)
+                         trace=args.trace, cache=args.cache,
+                         prefill_chunk=args.prefill_chunk)
     print(f"[profile] {args.arch} {'reduced' if args.reduced else 'full'}, "
-          f"{args.lanes} lanes: host {out['host_ms_per_tick']:.3f} ms/tick, "
+          f"{args.lanes} lanes, {args.cache} cache: host {out['host_ms_per_tick']:.3f} ms/tick, "
           f"device {out['device_ms_per_tick']:.3f} ms/tick, busy share "
           f"{out['busy_share']:.3f}")
     for name, ms, count in out["kernels"]:

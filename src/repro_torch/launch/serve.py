@@ -1,16 +1,21 @@
-"""Serve entry point of the port: the dense-lane engine on synthetic requests.
+"""Serve entry point of the port: the serving engine on synthetic requests.
 
 Builds the arch with random weights from ``--seed`` on ``--device``
 (default ``cuda``; it raises without a card), submits ``--requests``
 synthetic prompts, runs the engine to completion and reports throughput
 and latency percentiles.  ``--full`` serves the published widths of the
 arch; ``--reduced`` (the default, as in the JAX package's serve) serves the
-small test config.
+small test config.  ``--cache paged`` serves from the paged KV pool
+(``--pages``, ``--page-size``), and ``--prefill-chunk N`` streams prompts
+into it N tokens per tick.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 8
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
+        --prefill-chunk 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --cache paged --prefill-chunk 8
 """
 from __future__ import annotations
 
@@ -40,7 +45,10 @@ class ServeConfig:
     max_new: int = 12
     seed: int = 0
     cache: str = "dense"
+    n_pages: int | None = None
+    page_size: int = 16
     timeslice: int | None = None
+    prefill_chunk: int | None = None
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
@@ -48,7 +56,8 @@ class ServeConfig:
     device: str = "cuda"
 
     #: argparse dest -> field, for the names that differ
-    _ARG_FIELDS = {"requests": "n_requests", "lanes": "n_lanes"}
+    _ARG_FIELDS = {"requests": "n_requests", "lanes": "n_lanes",
+                   "pages": "n_pages"}
 
     @classmethod
     def from_args(cls, args: argparse.Namespace) -> "ServeConfig":
@@ -74,7 +83,9 @@ def serve_config(scfg: ServeConfig) -> dict:
     params = model.init(scfg.seed, dev)
     engine = ServingEngine(model, params, n_lanes=scfg.n_lanes,
                            max_len=scfg.max_len, cache=scfg.cache,
-                           timeslice=scfg.timeslice)
+                           n_pages=scfg.n_pages, page_size=scfg.page_size,
+                           timeslice=scfg.timeslice,
+                           prefill_chunk=scfg.prefill_chunk)
     rng = np.random.default_rng(scfg.seed)
     prompts = [rng.integers(0, cfg.vocab_size,
                             size=rng.integers(4, scfg.prompt_len)).tolist()
@@ -96,6 +107,7 @@ def serve_config(scfg: ServeConfig) -> dict:
                     for r in finished},
         "finished": len(finished), "requests": scfg.n_requests,
         "decode_steps": engine.steps,
+        "prefill_chunks": engine.prefill_chunks,
         "generated_tokens": summary["generated_tokens"],
         "tokens_per_s": summary["tokens_per_s"],
         "p50_queue_wait_s": summary["queue_wait_s"]["p50"],
@@ -123,10 +135,18 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cache", choices=("dense", "paged"), default="dense",
-                    help="KV backend (paged is not ported yet)")
+                    help="KV backend: per-lane strips or the paged pool")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="paged pool size (default: every lane at max-len, "
+                         "plus the null page)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page")
     ap.add_argument("--timeslice", type=int, default=None,
                     help="preempt a lane after N decode steps when work is "
                          "queued (serve more requests than lanes)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="stream prompts into the paged cache N tokens per "
+                         "tick (needs --cache paged)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,

@@ -1,10 +1,14 @@
-"""GQA attention: the prefill path and the decode path with a dense KV cache.
+"""GQA attention: prefill, and decode against a dense or a paged KV cache.
 
 * ``full(params, x, cfg)`` — prefill over a whole sequence (kernel K1 on
   CUDA, the plain version on CPU), causal with an optional sliding
   window; returns the attention output and optionally the K/V it made.
 * ``decode(params, x, cache_k, cache_v, pos, cfg)`` — one new token per
   sequence against its cache (kernel K2 on CUDA).
+* ``paged_decode`` / ``paged_prefill`` — one new token, or one prompt
+  chunk, per sequence against page pools shared by every sequence
+  (kernels K3 / K4 on CUDA).  Both write the new K/V into the pools in
+  place before they read.
 
 Layouts follow the JAX package: projections are ``x @ W`` with W of shape
 (in, out), heads are (B, H, S, D) after the projection.
@@ -109,6 +113,86 @@ def decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                                use_kernel=use_kernel)
     out = out.transpose(1, 2).reshape(b, one, cfg.n_heads * cfg.d_head)
     return out @ p["wo"], cache_k, cache_v
+
+
+def paged_decode(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
+                 v_pool: torch.Tensor, page_table: torch.Tensor,
+                 pos: torch.Tensor, cfg: AttnConfig,
+                 use_kernel: bool | None = None) -> torch.Tensor:
+    """One-token decode against a paged KV cache.  x: (B, 1, d); pools
+    (P, Hkv, psz, Dh); ``page_table`` (B, nblk) int; ``pos`` (B,) the new
+    token's absolute position.
+
+    The new token's K/V is written IN PLACE into page ``table[b, pos //
+    psz]`` at slot ``pos % psz`` before the read (the allocator keeps
+    pages lane-exclusive; idle and masked lanes all write the null page
+    0, whose content nobody reads unmasked).  Returns the output only:
+    the pools passed in are the updated ones.  No sliding window: the
+    paged pool serves only archs without one (``supports_paged_cache``)."""
+    b, one, _ = x.shape
+    psz = k_pool.shape[2]
+    q, k, v = _project_qkv(p, x, cfg, pos[:, None])
+    phys = page_table.long().gather(1, (pos // psz)[:, None].long())[:, 0]
+    slot = (pos % psz).long()
+    k_pool[phys, :, slot] = k[:, :, 0].to(k_pool.dtype)
+    v_pool[phys, :, slot] = v[:, :, 0].to(v_pool.dtype)
+    out = ops.paged_decode(q, ops.PagedPools(k_pool, v_pool), page_table,
+                           pos + 1, use_kernel=use_kernel)
+    out = out.transpose(1, 2).reshape(b, one, cfg.n_heads * cfg.d_head)
+    return out @ p["wo"]
+
+
+def _paged_chunk_scatter(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor, page_table: torch.Tensor,
+                         start: torch.Tensor, kv_len: torch.Tensor,
+                         cfg: AttnConfig) -> torch.Tensor:
+    """Project a chunk's QKV at absolute positions ``start[b] + i`` and
+    write its K/V into the pages in place; returns q.
+
+    Padded tail positions (``pos >= kv_len``) go to the null page 0, so a
+    ragged chunk never touches a live page.  A padded position may also
+    lie past the table's last block (a chunk longer than what is left of
+    ``max_len``); its block index is clamped before the lookup, since
+    ``torch.gather`` raises where the JAX gather returns a junk index
+    that the same null-page redirect then discards."""
+    b, c, _ = x.shape
+    psz = k_pool.shape[2]
+    positions = start[:, None] + torch.arange(c, device=x.device)   # (B, C)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    blk = (positions // psz).clamp(max=page_table.shape[1] - 1).long()
+    phys = page_table.long().gather(1, blk)
+    phys = torch.where(positions < kv_len[:, None], phys, 0)   # null sink
+    slot = (positions % psz).long()
+    k_pool[phys, :, slot] = k.transpose(1, 2).to(k_pool.dtype)
+    v_pool[phys, :, slot] = v.transpose(1, 2).to(v_pool.dtype)
+    return q
+
+
+def paged_prefill(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
+                  v_pool: torch.Tensor, page_table: torch.Tensor,
+                  start: torch.Tensor, kv_len: torch.Tensor, cfg: AttnConfig,
+                  use_kernel: bool | None = None) -> torch.Tensor:
+    """One prompt chunk against a paged KV cache.  x: (B, C, d), first
+    token at absolute position ``start[b]``; ``kv_len`` (B,) = ``start +
+    valid chunk length``.  The chunk's K/V is scattered into the pools in
+    place, then it attends to the committed prefix plus its own causal
+    triangle.  Returns the output only."""
+    q = _paged_chunk_scatter(p, x, k_pool, v_pool, page_table, start,
+                             kv_len, cfg)
+    out = ops.paged_prefill(q, ops.PagedPools(k_pool, v_pool), page_table,
+                            start, kv_len, use_kernel=use_kernel)
+    b, c, _ = x.shape
+    out = out.transpose(1, 2).reshape(b, c, cfg.n_heads * cfg.d_head)
+    return out @ p["wo"]
+
+
+def init_paged_pool(n_pages: int, cfg: AttnConfig, page_size: int,
+                    dtype=torch.bfloat16, device="cpu",
+                    lead: tuple[int, ...] = ()):
+    """Zeroed physical page pools: lead + (P, Hkv, psz, Dh) k and v."""
+    shape = lead + (n_pages, cfg.n_kv_heads, page_size, cfg.d_head)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_cache(batch: int, cfg: AttnConfig, max_len: int,

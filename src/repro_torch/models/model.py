@@ -37,6 +37,33 @@ class Model:
         return transformer.init_caches(self.cfg, batch, max_len,
                                        resolve(device))
 
+    # -- paged KV (serving) ------------------------------------------------
+    @property
+    def supports_paged_cache(self) -> bool:
+        return transformer.supports_paged_cache(self.cfg)
+
+    def init_paged_caches(self, n_pages: int, page_size: int,
+                          device: str | torch.device = "cuda") -> dict:
+        return transformer.init_paged_caches(self.cfg, n_pages, page_size,
+                                             resolve(device))
+
+    def paged_decode_step(self, params: dict, caches: dict,
+                          page_table: torch.Tensor, token: torch.Tensor,
+                          pos: torch.Tensor, use_kernel: bool | None = None):
+        return transformer.paged_decode_step(params, caches, page_table,
+                                             token, pos, self.cfg,
+                                             use_kernel=use_kernel)
+
+    def paged_prefill_step(self, params: dict, caches: dict,
+                           page_table: torch.Tensor, tokens: torch.Tensor,
+                           start: torch.Tensor, kv_len: torch.Tensor,
+                           logit_idx: torch.Tensor,
+                           use_kernel: bool | None = None):
+        return transformer.paged_prefill_step(params, caches, page_table,
+                                              tokens, start, kv_len,
+                                              logit_idx, self.cfg,
+                                              use_kernel=use_kernel)
+
 
 def build_model(cfg: ArchConfig) -> Model:
     transformer.check_supported(cfg)

@@ -13,7 +13,9 @@ do) is the same arithmetic at half the memory for bf16.
 
 Modes: ``prefill`` (whole prompt, K/V collected into caches padded to
 ``max_len``) and ``decode_step`` (one token per lane against the caches,
-written in place).  Other layer kinds are not ported yet.
+written in place); on the paged KV pool ``paged_prefill_step`` (one
+prompt chunk per lane) and ``paged_decode_step``, which write into the
+layer-stacked page pools in place.  Other layer kinds are not ported yet.
 """
 from __future__ import annotations
 
@@ -163,3 +165,72 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         x = x + h
         x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["norm2_w"]))
     return _logits(params, x[:, -1], cfg), caches
+
+
+def supports_paged_cache(cfg: ArchConfig) -> bool:
+    """Paged KV applies to plain attention stacks (no SSM state, no
+    sliding-window ring buffer, no shared-attention block)."""
+    return (cfg.layer_kinds()[0] in ("attn_mlp", "attn_moe")
+            and cfg.attn_period == 0 and cfg.window is None)
+
+
+def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
+                      device="cpu") -> dict:
+    """Layer-stacked page pools {"kv": (K, V)}, each (L, P, Hkv, psz, Dh)
+    in ``cache_dtype``: O(n_pages * page_size) tokens of KV in total,
+    which lanes borrow through their page tables."""
+    if not supports_paged_cache(cfg):
+        raise ValueError(
+            f"arch {cfg.name!r} does not support the paged KV cache "
+            "(needs a plain attention stack: no SSM/SWA/shared-attn)")
+    check_supported(cfg)
+    return {"kv": attn.init_paged_pool(n_pages, attn_config(cfg), page_size,
+                                       torch_dtype(cfg.cache_dtype), device,
+                                       lead=(cfg.n_layers,))}
+
+
+def paged_decode_step(params: dict, caches: dict, page_table: torch.Tensor,
+                      token: torch.Tensor, pos: torch.Tensor,
+                      cfg: ArchConfig, use_kernel: bool | None = None):
+    """One decode step over the page pools.  token (B, 1) int, pos (B,)
+    int, page_table (B, nblk) int32 shared by every layer.  Returns
+    (logits (B, V), caches); the pools are updated in place."""
+    check_supported(cfg)
+    x = embed_tokens(params, token, cfg)
+    acfg = attn_config(cfg)
+    layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
+    kp, vp = caches["kv"]
+    for i in range(cfg.n_layers):
+        lp = _layer(layers, i)
+        x = x + attn.paged_decode(lp["attn"], rms_norm(x, lp["norm1_w"]),
+                                  kp[i], vp[i], page_table, pos, acfg,
+                                  use_kernel=use_kernel)
+        x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["norm2_w"]))
+    return _logits(params, x[:, 0], cfg), caches
+
+
+def paged_prefill_step(params: dict, caches: dict, page_table: torch.Tensor,
+                       tokens: torch.Tensor, start: torch.Tensor,
+                       kv_len: torch.Tensor, logit_idx: torch.Tensor,
+                       cfg: ArchConfig, use_kernel: bool | None = None):
+    """One prompt chunk of prefill over the page pools.
+
+    tokens (B, C) int, a fixed-size chunk whose ragged tail is padding
+    (masked by ``kv_len``, its K/V sunk into the null page); start (B,)
+    the absolute position of the chunk's first token; kv_len (B,) =
+    start + valid chunk length; ``logit_idx`` (B,) the chunk row whose
+    logits come back (the last valid prompt token on the final chunk).
+    Returns (logits (B, V), caches); the pools are updated in place."""
+    check_supported(cfg)
+    x = embed_tokens(params, tokens, cfg)
+    acfg = attn_config(cfg)
+    layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
+    kp, vp = caches["kv"]
+    for i in range(cfg.n_layers):
+        lp = _layer(layers, i)
+        x = x + attn.paged_prefill(lp["attn"], rms_norm(x, lp["norm1_w"]),
+                                   kp[i], vp[i], page_table, start, kv_len,
+                                   acfg, use_kernel=use_kernel)
+        x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["norm2_w"]))
+    rows = torch.arange(x.shape[0], device=x.device)
+    return _logits(params, x[rows, logit_idx.long()], cfg), caches

@@ -1,21 +1,44 @@
-"""KV-cache backend of the serving engine: dense per-lane strips.
+"""KV-cache backends of the serving engine: dense lanes and paged blocks.
 
-:class:`DenseKVCache` is the JAX package's dense layout: every decode lane
-owns a contiguous ``max_len`` strip in the stacked ``(L, n_lanes, Hkv,
-max_len, Dh)`` caches.  Memory is O(n_lanes * max_len) however many
-tokens are live.  Admission copies the prefill strip into the lane in
-place, and the model's decode step appends to the caches in place.  A
-preempted lane swaps out to host numpy and back.
+* :class:`DenseKVCache` — the JAX package's dense layout: every decode
+  lane owns a contiguous ``max_len`` strip in the stacked ``(L, n_lanes,
+  Hkv, max_len, Dh)`` caches.  Memory is O(n_lanes * max_len) however
+  many tokens are live.
+* :class:`PagedKVCache` — a shared pool of ``n_pages`` pages of
+  ``page_size`` tokens (per layer) with a per-lane page table mapping
+  logical KV blocks to physical pages.  Memory scales with live tokens,
+  admission is page allocation, and a preempted sequence's pages swap out
+  to host memory and back without re-running prefill.
 
-The paged pool is the next slice of the port (ROADMAP queue 1, item 3).
+Page 0 of the pool is the *null page*: idle lanes decode with ``pos = 0``
+and a zeroed table row, and padded chunk positions are redirected there,
+so their discarded K/V writes never land in a live page.
+
+Both backends are written in place: admission copies into the caches,
+and the model's steps append to them.  Swap handles are host float32
+numpy copies (exact for bf16 and fp32 caches; numpy has no bfloat16).
+The prefix index, int8 pages and compressed swaps of the JAX cache are
+not ported (ROADMAP queue 1, items 4 and 5).
+
+The engine talks to both through the same methods::
+
+    admit(lane, prefill_caches, prompt_len) -> bool
+    ensure_capacity(lane, pos) -> bool        # page alloc on boundary
+    ensure_tokens(lane, n_tokens) -> bool     # chunk-granular (paged)
+    swap_out(lane) -> handle                  # preemption
+    swap_in(lane, handle) -> bool
+    release(lane)
+    decode_extra(mask_lanes) -> tuple         # (page_table,) when paged
 """
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-_PAGED = ("the paged KV pool is not ported yet: ROADMAP queue 1, item 3 "
-          "(paged KV serving)")
+NULL_PAGE = 0
 
 
 class DenseKVCache:
@@ -53,6 +76,9 @@ class DenseKVCache:
     def release(self, lane: int) -> None:
         pass
 
+    def decode_extra(self, mask_lanes=()) -> tuple:
+        return ()
+
     def swap_out(self, lane: int) -> tuple[np.ndarray, ...]:
         """Copies of the lane's strips as host float32 numpy (exact for
         bf16 and fp32 caches; numpy has no bfloat16)."""
@@ -87,10 +113,231 @@ class DenseKVCache:
                 "capacity_tokens": self.capacity_tokens()}
 
 
+@dataclass
+class PageHandle:
+    """Host copy of a swapped-out sequence's pages: one float32 array per
+    pool, (L, n_blocks, Hkv, psz, Dh)."""
+
+    chunks: tuple[np.ndarray, ...]
+    n_blocks: int
+
+
+class PagedKVCache:
+    """Paged KV cache: a free-page pool, per-lane page tables and host
+    swap space.
+
+    Lane ``i``'s logical block ``b`` lives in physical page ``table[i,
+    b]`` of every layer's pool.  Pages are lane-exclusive while allocated
+    (refcount 0 or 1: the prefix index that shares pages is not ported),
+    so the in-place writes of two lanes never meet outside the null page.
+    """
+
+    kind = "paged"
+    kv_dtype = "fp"
+
+    def __init__(self, model, n_lanes: int, max_len: int, n_pages: int,
+                 page_size: int, device: str | torch.device):
+        if not model.supports_paged_cache:
+            raise ValueError(
+                f"arch {model.cfg.name!r} does not support the paged KV "
+                "cache; use cache='dense'")
+        if n_pages < 2:
+            raise ValueError("need at least 2 pages (page 0 is reserved)")
+        self.n_lanes = n_lanes
+        self.max_len = max_len
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self.max_blocks = math.ceil(max_len / page_size)
+        self.caches = model.init_paged_caches(n_pages, page_size,
+                                              device=device)
+        self.device = self.caches["kv"][0].device
+        self.table = np.zeros((n_lanes, self.max_blocks), np.int32)
+        self.n_blocks = [0] * n_lanes
+        # page 0 is the null page (idle-lane write sink), never allocated
+        self._free = list(range(n_pages - 1, 0, -1))
+        self.refcount = np.zeros(n_pages, np.int32)
+        self.swap_outs = 0
+        self.swap_ins = 0
+
+    def _leaves(self) -> tuple[torch.Tensor, ...]:
+        return self.caches["kv"]
+
+    # -- page pool ----------------------------------------------------------
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return (self.n_pages - 1) - len(self._free)
+
+    def _alloc(self, n: int) -> list[int] | None:
+        """``n`` pages off the free list, or None (nothing taken)."""
+        if n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        self.refcount[pages] = 1
+        return pages
+
+    def _free_lane(self, lane: int) -> None:
+        for p in self.table[lane, :self.n_blocks[lane]]:
+            p = int(p)
+            if p != NULL_PAGE:
+                self.refcount[p] = 0
+                self._free.append(p)
+        self.table[lane, :] = NULL_PAGE
+        self.n_blocks[lane] = 0
+
+    def _pages_tensor(self, pages) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(pages, np.int64),
+                               device=self.device)
+
+    # -- engine interface ---------------------------------------------------
+    def prefill_len(self, prompt_len: int) -> int:
+        """Page-aligned prefill cache length (tight, not max_len)."""
+        return math.ceil(prompt_len / self.page_size) * self.page_size
+
+    def can_admit(self, prompt_len: int) -> bool:
+        return math.ceil(prompt_len / self.page_size) <= len(self._free)
+
+    def admit(self, lane: int, prefill_caches: dict, prompt_len: int) -> bool:
+        """Allocate the prompt's pages and copy batch entry 0 of the
+        (L, 1, Hkv, nblk * psz, Dh) prefill caches into them."""
+        nblk = math.ceil(prompt_len / self.page_size)
+        pages = self._alloc(nblk)
+        if pages is None:
+            return False
+        idx = self._pages_tensor(pages)
+        for pool, dense in zip(self._leaves(), prefill_caches["kv"]):
+            l, _, hkv, _, d = dense.shape
+            pool[:, idx] = dense[:, 0, :, :nblk * self.page_size].reshape(
+                l, hkv, nblk, self.page_size, d).transpose(1, 2).to(
+                pool.dtype)
+        self.table[lane, :nblk] = pages
+        self.n_blocks[lane] = nblk
+        return True
+
+    def ensure_capacity(self, lane: int, pos: int) -> bool:
+        """Make sure the page holding ``pos`` is allocated (called before
+        every decode step; allocation happens on page-boundary crossings)."""
+        if pos >= self.max_len:
+            return False
+        return self.ensure_tokens(lane, pos + 1)
+
+    def ensure_tokens(self, lane: int, n_tokens: int) -> bool:
+        """Chunk-granular growth: allocate pages until the lane covers
+        positions ``[0, n_tokens)``.  Pages taken before a failure stay
+        with the lane (a retry uses them; release or swap-out frees
+        them)."""
+        if n_tokens > self.max_len:
+            return False
+        need = math.ceil(n_tokens / self.page_size)
+        while self.n_blocks[lane] < need:
+            page = self._alloc(1)
+            if page is None:
+                return False
+            self.table[lane, self.n_blocks[lane]] = page[0]
+            self.n_blocks[lane] += 1
+        return True
+
+    def truncate_to(self, lane: int, committed_len: int) -> int:
+        """Keep the pages covering ``[0, committed_len)`` and free the rest
+        (K/V past ``committed_len`` in the last kept page is masked by
+        ``kv_len``).  Returns the number of pages freed."""
+        keep = math.ceil(committed_len / self.page_size)
+        nblk = self.n_blocks[lane]
+        if keep >= nblk:
+            return 0
+        for p in self.table[lane, keep:nblk]:
+            self.refcount[int(p)] = 0
+            self._free.append(int(p))
+        self.table[lane, keep:nblk] = NULL_PAGE
+        self.n_blocks[lane] = keep
+        return nblk - keep
+
+    def release(self, lane: int) -> None:
+        self._free_lane(lane)
+
+    def swap_out(self, lane: int) -> PageHandle:
+        """Copy the lane's pages to host memory, then free them.  The copy
+        is complete before the pages return to the free list (the pools
+        are written in place, so a later admission may reuse them)."""
+        nblk = self.n_blocks[lane]
+        idx = self._pages_tensor(self.table[lane, :nblk])
+        chunks = tuple(pool[:, idx].to("cpu", torch.float32).numpy()
+                       for pool in self._leaves())
+        self._free_lane(lane)
+        self.swap_outs += 1
+        return PageHandle(chunks=chunks, n_blocks=nblk)
+
+    def swap_in(self, lane: int, handle: PageHandle) -> bool:
+        pages = self._alloc(handle.n_blocks)
+        if pages is None:
+            return False
+        idx = self._pages_tensor(pages)
+        for pool, chunk in zip(self._leaves(), handle.chunks):
+            pool[:, idx] = torch.from_numpy(chunk).to(pool.device, pool.dtype)
+        self.table[lane, :handle.n_blocks] = pages
+        self.table[lane, handle.n_blocks:] = NULL_PAGE
+        self.n_blocks[lane] = handle.n_blocks
+        self.swap_ins += 1
+        return True
+
+    def decode_extra(self, mask_lanes=()) -> tuple[torch.Tensor]:
+        """The page table for the batched decode step, on the pools'
+        device.  ``mask_lanes`` (mid-prefill lanes) get a zeroed row, so
+        their dummy decode writes land in the null page, not in their
+        live prefill pages."""
+        tbl = self.table
+        if mask_lanes:
+            tbl = tbl.copy()
+            tbl[list(mask_lanes), :] = NULL_PAGE
+        return (torch.from_numpy(tbl).to(self.device),)
+
+    def table_row(self, lane: int) -> torch.Tensor:
+        """This lane's logical->physical mapping, (1, nblk), on the pools'
+        device, for the single-sequence prefill-chunk step."""
+        return torch.from_numpy(self.table[lane:lane + 1].copy()).to(
+            self.device)
+
+    # -- accounting ---------------------------------------------------------
+    def cache_tokens(self) -> int:
+        """Token capacity currently held by live sequences."""
+        return self.used_pages * self.page_size
+
+    def pool_bytes(self) -> int:
+        """Device bytes held by the pools, from the actual tensor dtypes."""
+        return int(sum(t.numel() * t.element_size() for t in self._leaves()))
+
+    def kv_bytes_per_token(self) -> float:
+        return self.pool_bytes() / float(self.n_pages * self.page_size)
+
+    def capacity_tokens(self) -> int:
+        """Allocatable token capacity (page 0 is the reserved null page)."""
+        return (self.n_pages - 1) * self.page_size
+
+    def stats(self) -> dict:
+        return {"kind": self.kind, "page_size": self.page_size,
+                "n_pages": self.n_pages, "used_pages": self.used_pages,
+                "free_pages": self.free_pages,
+                "cache_tokens": self.cache_tokens(),
+                "kv_dtype": self.kv_dtype,
+                "pool_bytes": self.pool_bytes(),
+                "kv_bytes_per_token": self.kv_bytes_per_token(),
+                "capacity_tokens": self.capacity_tokens(),
+                "swap_outs": self.swap_outs, "swap_ins": self.swap_ins}
+
+
 def make_kv_cache(model, cache: str, n_lanes: int, max_len: int,
-                  device: str | torch.device) -> DenseKVCache:
+                  device: str | torch.device, n_pages: int | None = None,
+                  page_size: int = 16) -> DenseKVCache | PagedKVCache:
+    """Build a KV-cache backend by name (``dense`` | ``paged``)."""
     if cache == "dense":
         return DenseKVCache(model, n_lanes, max_len, device)
     if cache == "paged":
-        raise NotImplementedError(_PAGED)
+        if n_pages is None:
+            # default pool: every lane at full length (parity with dense)
+            n_pages = n_lanes * math.ceil(max_len / page_size) + 1
+        return PagedKVCache(model, n_lanes, max_len, n_pages, page_size,
+                            device)
     raise ValueError(f"unknown cache backend {cache!r} (dense | paged)")

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as pa
 
 pytestmark = pytest.mark.gpu
 
@@ -98,3 +99,100 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = rand((1, 8, 2, 32), 30, cuda_device, torch.float32).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, q, q)
+
+
+def paged_inputs(b, h, hkv, d, psz, nblk, kv_len, dtype, device, seed, c=1):
+    """q (B, H, c, D), pools with one spare page per sequence, and a table
+    of shuffled distinct pages whose entries past kv_len point at page 0."""
+    n_pages = b * nblk + 1
+    q = rand((b, h, c, d), seed, device, dtype, 0.4)
+    kp = rand((n_pages, hkv, psz, d), seed + 1, device, dtype, 0.4)
+    vp = rand((n_pages, hkv, psz, d), seed + 2, device, dtype)
+    pages = np.random.default_rng(seed + 3).permutation(
+        np.arange(1, n_pages)).reshape(b, nblk).astype(np.int32)
+    for i, n in enumerate(kv_len):
+        pages[i, -(-n // psz):] = 0
+    table = torch.from_numpy(pages).to(device)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=device)
+    return q, kp, vp, table, lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d,psz", [(32, 4, 128, 16), (32, 32, 128, 16),
+                                         (8, 2, 16, 8), (12, 4, 64, 8),
+                                         (16, 1, 32, 16)])
+def test_paged_decode_kernel_matches_plain(cuda_device, dtype, h, hkv, d,
+                                           psz):
+    q, kp, vp, table, kv_len = paged_inputs(3, h, hkv, d, psz, 20,
+                                            [1, 157, 20 * psz], dtype,
+                                            cuda_device, 40)
+    n = pa.flash_paged_decode.launches
+    got = ops.paged_decode(q, ops.PagedPools(kp, vp), table, kv_len)
+    want = ref.paged_decode_ref(q, kp, vp, table, kv_len)
+    torch.cuda.synchronize()
+    assert pa.flash_paged_decode.launches == n + 1
+    assert got.dtype == dtype
+    close(got, want, dtype)
+
+
+def test_paged_decode_kernel_kv_len_zero_row_is_exactly_zero(cuda_device):
+    q, kp, vp, table, kv_len = paged_inputs(2, 8, 2, 64, 16, 4, [0, 50],
+                                            torch.float32, cuda_device, 50)
+    out = pa.flash_paged_decode(q, kp, vp, table, kv_len)
+    assert torch.all(out[0] == 0)
+    close(out[1], ref.paged_decode_ref(q, kp, vp, table, kv_len)[1],
+          torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d,psz,c,start,valid", [
+    (32, 4, 128, 16, 128, 0, 128), (32, 4, 128, 16, 128, 384, 128),
+    (32, 4, 128, 16, 128, 200, 128), (32, 4, 128, 16, 128, 256, 44),
+    (32, 32, 128, 16, 64, 100, 64), (8, 2, 16, 8, 8, 12, 5),
+    (4, 1, 32, 8, 100, 30, 100)])
+def test_paged_prefill_kernel_matches_plain(cuda_device, dtype, h, hkv, d,
+                                            psz, c, start, valid):
+    """Two sequences: one chunk at ``start`` with ``valid`` real rows, one
+    at 0; rows at positions >= kv_len are padding and not compared."""
+    kv_len = [start + valid, valid]
+    nblk = -(-(start + c) // psz)
+    q, kp, vp, table, lens = paged_inputs(2, h, hkv, d, psz, nblk, kv_len,
+                                          dtype, cuda_device, 60, c=c)
+    starts = torch.tensor([start, 0], dtype=torch.int32, device=cuda_device)
+    n = pa.flash_paged_prefill.launches
+    got = ops.paged_prefill(q, ops.PagedPools(kp, vp), table, starts, lens)
+    want = ref.paged_prefill_ref(q, kp, vp, table, starts, lens)
+    torch.cuda.synchronize()
+    assert pa.flash_paged_prefill.launches == n + 1
+    close(got[:, :, :valid], want[:, :, :valid], dtype)
+
+
+def test_paged_prefill_kernel_row_without_keys_is_exactly_zero(cuda_device):
+    q, kp, vp, table, lens = paged_inputs(2, 4, 2, 32, 8, 2, [0, 9],
+                                          torch.float32, cuda_device, 70,
+                                          c=4)
+    starts = torch.tensor([0, 5], dtype=torch.int32, device=cuda_device)
+    out = pa.flash_paged_prefill(q, kp, vp, table, starts, lens)
+    assert torch.all(out[0] == 0)
+    close(out[1], ref.paged_prefill_ref(q, kp, vp, table, starts, lens)[1],
+          torch.float32)
+
+
+def test_paged_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q, kp, vp, table, lens = paged_inputs(2, 4, 2, 32, 8, 2, [3, 9],
+                                          torch.float32, cuda_device, 80)
+    with pytest.raises(ValueError, match="CUDA"):
+        pa.flash_paged_decode(q.cpu(), kp, vp, table, lens)
+    with pytest.raises(ValueError, match="int32"):
+        pa.flash_paged_decode(q, kp, vp, table.long(), lens)
+    with pytest.raises(ValueError, match="page_table"):
+        pa.flash_paged_decode(q, kp, vp, table[:1], lens)
+    with pytest.raises(ValueError, match="dtype"):
+        pa.flash_paged_decode(q, kp.bfloat16(), vp.bfloat16(), table, lens)
+    with pytest.raises(ValueError, match="one query token"):
+        pa.flash_paged_decode(torch.cat([q, q], 2), kp, vp, table, lens)
+    with pytest.raises(ValueError, match="head dim"):
+        pa.flash_paged_decode(q[..., :24].contiguous(), kp[..., :24].contiguous(),
+                              vp[..., :24].contiguous(), table, lens)
+    with pytest.raises(ValueError, match="start and kv_len"):
+        pa.flash_paged_prefill(q, kp, vp, table, lens[:1], lens)

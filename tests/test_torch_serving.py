@@ -252,11 +252,13 @@ def test_sampling_matches_jax_sampler(seed):
 
 def test_engine_rejects_the_paths_of_later_slices(pair):
     _, _, model, params = pair
-    for kw in ({"prefill_chunk": 8}, {"spec_k": 2}, {"prefix_cache": True},
-               {"kv_dtype": "int8"}, {"autotuner": object()},
-               {"cache": "paged"}):
+    for kw in ({"spec_k": 2}, {"prefix_cache": True}, {"kv_dtype": "int8"},
+               {"autotuner": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(model, params, n_lanes=2, max_len=32, **kw)
+    # chunked prefill streams into the paged pool only, as in JAX
+    with pytest.raises(ValueError, match="paged"):
+        ServingEngine(model, params, n_lanes=2, max_len=32, prefill_chunk=8)
 
 
 # --------------------------------------------------------------------------
@@ -286,6 +288,26 @@ def test_profile_decode_runs_the_engine_on_cpu():
                          device="cpu")
     assert out["host_ms_per_tick"] > 0
     assert out["device_ms_per_tick"] == 0.0      # no card, no device time
+
+
+def test_profile_decode_traces_the_paged_tick_on_cpu():
+    from repro_torch.launch.profile_decode import profile_decode
+    out = profile_decode(n_lanes=2, max_len=32, prompt_len=12, steps=2,
+                         device="cpu", cache="paged", prefill_chunk=4)
+    assert out["host_ms_per_tick"] > 0
+    assert out["device_ms_per_tick"] == 0.0
+
+
+def test_serve_config_paged_chunked_on_cpu_reports_the_pool():
+    out = serve_config(ServeConfig(n_requests=4, n_lanes=2, max_new=4,
+                                   cache="paged", page_size=8,
+                                   prefill_chunk=4, device="cpu"))
+    assert out["finished"] == 4
+    assert all(len(t) == 4 for t in out["outputs"].values())
+    assert out["prefill_chunks"] >= 4
+    assert out["cache"]["kind"] == "paged"
+    assert out["cache"]["n_pages"] == 2 * 12 + 1     # ceil(96 / 8) per lane
+    assert out["cache"]["used_pages"] == 0           # all released
 
 
 def test_tick_split_dispatch_then_emit_equals_step(pair):
