@@ -1,6 +1,6 @@
 // Device helpers shared by the port's attention kernels (flash_attention.cu,
-// paged_attention.cu): fp32 conversion of the storage types, warp
-// reductions and vector loads.  Each .cu file builds into its own library,
+// paged_attention.cu): fp32 conversion of the storage types (float, bf16,
+// and the int8 codes of quantized pages), warp reductions and vector loads.  Each .cu file builds into its own library,
 // so everything here has internal linkage.  kernels/build.py hashes this
 // header together with every source, so a change here rebuilds both.
 #pragma once
@@ -8,6 +8,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -17,6 +19,9 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -83,6 +88,23 @@ __device__ __forceinline__ void load_f32(const __nv_bfloat16* p, float* out) {
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) out[i] = __bfloat162float(p[i]);
+  }
+}
+
+// N consecutive int8 codes starting at p (aligned to N bytes) -> fp32.
+template <int N>
+__device__ __forceinline__ void load_f32(const int8_t* p, float* out) {
+  if constexpr (N == 16 || N == 8 || N == 4 || N == 2) {
+    using V = std::conditional_t<N == 16, uint4,
+              std::conditional_t<N == 8, uint2,
+              std::conditional_t<N == 4, uint32_t, uint16_t>>>;
+    const V t = *reinterpret_cast<const V*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&t);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = static_cast<float>(c[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = static_cast<float>(p[i]);
   }
 }
 

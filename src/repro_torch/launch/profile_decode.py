@@ -6,7 +6,9 @@ decoding and one more, then traces ``--steps`` decode ticks and prints:
 the host time per tick, the device time per tick (sum of the kernels'
 own times), the device busy share (device time / host time), and the
 kernels that take the most device time.  ``--cache paged`` traces the
-paged decode tick.  With ``--trace`` it also writes a Chrome trace.
+paged decode tick, ``--kv-dtype int8`` over int8 pages and
+``--num-splits N`` with split-KV decode.  With ``--trace`` it also writes
+a Chrome trace.
 
 Usage (on the card)::
 
@@ -14,6 +16,8 @@ Usage (on the card)::
         --trace decode_trace.json
     PYTHONPATH=src python -m repro_torch.launch.profile_decode --full \
         --cache paged --prefill-chunk 128
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode --full \
+        --cache paged --prefill-chunk 128 --kv-dtype int8 --num-splits 8
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ def profile_decode(arch: str = "yi-6b", reduced: bool = True,
                    prompt_len: int = 512, steps: int = 8, top: int = 12,
                    device: str = "cuda", trace: str | None = None,
                    cache: str = "dense",
-                   prefill_chunk: int | None = None) -> dict:
+                   prefill_chunk: int | None = None, kv_dtype: str = "fp",
+                   num_splits: int | None = None) -> dict:
     dev = resolve(device)
     cfg = get_arch(arch)
     if reduced:
@@ -51,7 +56,8 @@ def profile_decode(arch: str = "yi-6b", reduced: bool = True,
     model = build_model(cfg)
     engine = ServingEngine(model, model.init(0, dev), n_lanes=n_lanes,
                            max_len=max_len, cache=cache,
-                           prefill_chunk=prefill_chunk)
+                           prefill_chunk=prefill_chunk, kv_dtype=kv_dtype,
+                           num_splits=num_splits)
     rng = np.random.default_rng(0)
     for rid in range(n_lanes):
         prompt = rng.integers(0, cfg.vocab_size, size=prompt_len - 1)
@@ -95,6 +101,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--cache", choices=("dense", "paged"), default="dense")
     ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--kv-dtype", choices=("fp", "int8"), default="fp")
+    ap.add_argument("--num-splits", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the traced ticks here")
@@ -102,9 +110,11 @@ def main(argv: list[str] | None = None) -> None:
     out = profile_decode(args.arch, args.reduced, args.lanes, args.max_len,
                          args.prompt_len, args.steps, device=args.device,
                          trace=args.trace, cache=args.cache,
-                         prefill_chunk=args.prefill_chunk)
+                         prefill_chunk=args.prefill_chunk,
+                         kv_dtype=args.kv_dtype, num_splits=args.num_splits)
     print(f"[profile] {args.arch} {'reduced' if args.reduced else 'full'}, "
-          f"{args.lanes} lanes, {args.cache} cache: host {out['host_ms_per_tick']:.3f} ms/tick, "
+          f"{args.lanes} lanes, {args.cache} cache, kv {args.kv_dtype}, "
+          f"num_splits {args.num_splits}: host {out['host_ms_per_tick']:.3f} ms/tick, "
           f"device {out['device_ms_per_tick']:.3f} ms/tick, busy share "
           f"{out['busy_share']:.3f}")
     for name, ms, count in out["kernels"]:

@@ -7,13 +7,17 @@ and latency percentiles.  ``--full`` serves the published widths of the
 arch; ``--reduced`` (the default, as in the JAX package's serve) serves the
 small test config.  ``--cache paged`` serves from the paged KV pool
 (``--pages``, ``--page-size``), and ``--prefill-chunk N`` streams prompts
-into it N tokens per tick.
+into it N tokens per tick.  ``--kv-dtype int8`` stores the pool's pages
+as int8 with per-row float32 scales, and ``--num-splits N`` splits each
+paged decode step's page walk into N parallel segments (split-KV).
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
         --prefill-chunk 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
+        --prefill-chunk 128 --kv-dtype int8 --num-splits 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --cache paged --prefill-chunk 8
 """
@@ -49,6 +53,8 @@ class ServeConfig:
     page_size: int = 16
     timeslice: int | None = None
     prefill_chunk: int | None = None
+    kv_dtype: str = "fp"
+    num_splits: int | None = None
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
@@ -75,6 +81,12 @@ class ServeConfig:
 
 def serve_config(scfg: ServeConfig) -> dict:
     """Serve ``scfg.n_requests`` synthetic requests; returns the report."""
+    if scfg.kv_dtype == "auto":
+        raise NotImplementedError(
+            "--kv-dtype auto picks the pool dtype by run-time tuning, which "
+            "is not ported yet: ROADMAP queue 1, item 11")
+    if scfg.kv_dtype not in ("fp", "int8"):
+        raise ValueError(f"unknown kv_dtype {scfg.kv_dtype!r}")
     dev = resolve(scfg.device)
     cfg = get_arch(scfg.arch)
     if scfg.reduced:
@@ -85,7 +97,12 @@ def serve_config(scfg: ServeConfig) -> dict:
                            max_len=scfg.max_len, cache=scfg.cache,
                            n_pages=scfg.n_pages, page_size=scfg.page_size,
                            timeslice=scfg.timeslice,
-                           prefill_chunk=scfg.prefill_chunk)
+                           prefill_chunk=scfg.prefill_chunk,
+                           kv_dtype=scfg.kv_dtype,
+                           # split-KV applies to the paged decode only, as
+                           # in the JAX package's serve
+                           num_splits=(scfg.num_splits
+                                       if scfg.cache == "paged" else None))
     rng = np.random.default_rng(scfg.seed)
     prompts = [rng.integers(0, cfg.vocab_size,
                             size=rng.integers(4, scfg.prompt_len)).tolist()
@@ -147,6 +164,14 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="stream prompts into the paged cache N tokens per "
                          "tick (needs --cache paged)")
+    ap.add_argument("--kv-dtype", choices=("fp", "int8", "auto"),
+                    default="fp",
+                    help="paged pool storage: the cache dtype, or int8 pages "
+                         "with per-row float32 scales (auto needs run-time "
+                         "tuning, not ported)")
+    ap.add_argument("--num-splits", type=int, default=None,
+                    help="split each paged decode step's page walk into N "
+                         "parallel segments (split-KV; paged cache only)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -170,7 +195,8 @@ def main(argv: list[str] | None = None) -> None:
           f"ttft p50 {fmt(out['p50_ttft_s'], '.4f')}s "
           f"p99 {fmt(out['p99_ttft_s'], '.4f')}s, "
           f"itl p50 {fmt(out['p50_itl_s'], '.4f')}s, "
-          f"preemptions {out['preemptions']}) on {out['device']}")
+          f"preemptions {out['preemptions']}, kv {out['kv_dtype']}) on "
+          f"{out['device']}")
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@
   sequence against its cache (kernel K2 on CUDA).
 * ``paged_decode`` / ``paged_prefill`` — one new token, or one prompt
   chunk, per sequence against page pools shared by every sequence
-  (kernels K3 / K4 on CUDA).  Both write the new K/V into the pools in
-  place before they read.
+  (kernels K3 / K4 on CUDA, K5 with split-KV decode, K6 over int8
+  pools).  Both write the new K/V into the pools in place before they
+  read; int8 pools (``scales`` given) get it quantized per row, codes
+  into the pools and fp32 scales beside them.
 
 Layouts follow the JAX package: projections are ``x @ W`` with W of shape
 (in, out), heads are (B, H, S, D) after the projection.
@@ -19,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..distributed.compression import quantize_int8_rows
 from ..kernels import ops
 from .layers import apply_rope, dense_init
 
@@ -117,37 +120,60 @@ def decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
 
 def paged_decode(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
                  v_pool: torch.Tensor, page_table: torch.Tensor,
-                 pos: torch.Tensor, cfg: AttnConfig,
+                 pos: torch.Tensor, cfg: AttnConfig, scales=None,
+                 num_splits: int | None = None,
                  use_kernel: bool | None = None) -> torch.Tensor:
     """One-token decode against a paged KV cache.  x: (B, 1, d); pools
     (P, Hkv, psz, Dh); ``page_table`` (B, nblk) int; ``pos`` (B,) the new
-    token's absolute position.
+    token's absolute position; ``scales`` the (k_scale, v_scale) float32
+    (P, Hkv, psz) of int8 pools, None for fp pools; ``num_splits`` the
+    split-KV degree of the attention (None or 1: one pass).
 
     The new token's K/V is written IN PLACE into page ``table[b, pos //
-    psz]`` at slot ``pos % psz`` before the read (the allocator keeps
-    pages lane-exclusive; idle and masked lanes all write the null page
-    0, whose content nobody reads unmasked).  Returns the output only:
-    the pools passed in are the updated ones.  No sliding window: the
-    paged pool serves only archs without one (``supports_paged_cache``)."""
+    psz]`` at slot ``pos % psz`` before the read, quantized per row into
+    codes and scales for int8 pools (the allocator keeps pages
+    lane-exclusive; idle and masked lanes all write the null page 0,
+    whose content nobody reads unmasked).  Returns the output only: the
+    pools passed in are the updated ones.  No sliding window: the paged
+    pool serves only archs without one (``supports_paged_cache``)."""
     b, one, _ = x.shape
     psz = k_pool.shape[2]
     q, k, v = _project_qkv(p, x, cfg, pos[:, None])
     phys = page_table.long().gather(1, (pos // psz)[:, None].long())[:, 0]
     slot = (pos % psz).long()
-    k_pool[phys, :, slot] = k[:, :, 0].to(k_pool.dtype)
-    v_pool[phys, :, slot] = v[:, :, 0].to(v_pool.dtype)
-    out = ops.paged_decode(q, ops.PagedPools(k_pool, v_pool), page_table,
-                           pos + 1, use_kernel=use_kernel)
+    pools = _write_rows(k_pool, v_pool, scales, phys, slot, k[:, :, 0],
+                        v[:, :, 0])
+    out = ops.paged_decode(q, pools, page_table, pos + 1,
+                           num_splits=num_splits, use_kernel=use_kernel)
     out = out.transpose(1, 2).reshape(b, one, cfg.n_heads * cfg.d_head)
     return out @ p["wo"]
+
+
+def _write_rows(k_pool: torch.Tensor, v_pool: torch.Tensor, scales,
+                phys: torch.Tensor, slot: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> ops.PagedPools:
+    """Write K/V rows (..., Hkv, Dh) into ``pool[phys, :, slot]`` in place,
+    quantized per row for int8 pools (codes into the pools, scales into
+    ``scales[i][phys, :, slot]``); returns the layer's pools bundle."""
+    if scales is None:
+        k_pool[phys, :, slot] = k.to(k_pool.dtype)
+        v_pool[phys, :, slot] = v.to(v_pool.dtype)
+        return ops.PagedPools(k_pool, v_pool)
+    k_scale, v_scale = scales
+    for pool, scale, rows in ((k_pool, k_scale, k), (v_pool, v_scale, v)):
+        codes, row_scale = quantize_int8_rows(rows)
+        pool[phys, :, slot] = codes
+        scale[phys, :, slot] = row_scale
+    return ops.PagedPools(k_pool, v_pool, k_scale, v_scale)
 
 
 def _paged_chunk_scatter(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, page_table: torch.Tensor,
                          start: torch.Tensor, kv_len: torch.Tensor,
-                         cfg: AttnConfig) -> torch.Tensor:
+                         cfg: AttnConfig, scales=None):
     """Project a chunk's QKV at absolute positions ``start[b] + i`` and
-    write its K/V into the pages in place; returns q.
+    write its K/V into the pages in place (quantized per row for int8
+    pools); returns (q, the layer's pools bundle).
 
     Padded tail positions (``pos >= kv_len``) go to the null page 0, so a
     ragged chunk never touches a live page.  A padded position may also
@@ -163,24 +189,25 @@ def _paged_chunk_scatter(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
     phys = page_table.long().gather(1, blk)
     phys = torch.where(positions < kv_len[:, None], phys, 0)   # null sink
     slot = (positions % psz).long()
-    k_pool[phys, :, slot] = k.transpose(1, 2).to(k_pool.dtype)
-    v_pool[phys, :, slot] = v.transpose(1, 2).to(v_pool.dtype)
-    return q
+    pools = _write_rows(k_pool, v_pool, scales, phys, slot, k.transpose(1, 2),
+                        v.transpose(1, 2))
+    return q, pools
 
 
 def paged_prefill(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
                   v_pool: torch.Tensor, page_table: torch.Tensor,
                   start: torch.Tensor, kv_len: torch.Tensor, cfg: AttnConfig,
-                  use_kernel: bool | None = None) -> torch.Tensor:
+                  scales=None, use_kernel: bool | None = None) -> torch.Tensor:
     """One prompt chunk against a paged KV cache.  x: (B, C, d), first
     token at absolute position ``start[b]``; ``kv_len`` (B,) = ``start +
-    valid chunk length``.  The chunk's K/V is scattered into the pools in
-    place, then it attends to the committed prefix plus its own causal
-    triangle.  Returns the output only."""
-    q = _paged_chunk_scatter(p, x, k_pool, v_pool, page_table, start,
-                             kv_len, cfg)
-    out = ops.paged_prefill(q, ops.PagedPools(k_pool, v_pool), page_table,
-                            start, kv_len, use_kernel=use_kernel)
+    valid chunk length``; ``scales`` as in :func:`paged_decode`.  The
+    chunk's K/V is scattered into the pools in place, then it attends to
+    the committed prefix plus its own causal triangle.  Returns the
+    output only."""
+    q, pools = _paged_chunk_scatter(p, x, k_pool, v_pool, page_table, start,
+                                    kv_len, cfg, scales)
+    out = ops.paged_prefill(q, pools, page_table, start, kv_len,
+                            use_kernel=use_kernel)
     b, c, _ = x.shape
     out = out.transpose(1, 2).reshape(b, c, cfg.n_heads * cfg.d_head)
     return out @ p["wo"]
@@ -193,6 +220,16 @@ def init_paged_pool(n_pages: int, cfg: AttnConfig, page_size: int,
     shape = lead + (n_pages, cfg.n_kv_heads, page_size, cfg.d_head)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_paged_scales(n_pages: int, cfg: AttnConfig, page_size: int,
+                      device="cpu", lead: tuple[int, ...] = ()):
+    """Per-row float32 scales of int8 page pools: lead + (P, Hkv, psz) for
+    k and v.  Zeros, so an untouched row dequantizes to exactly 0, as in
+    the zeroed fp pool."""
+    shape = lead + (n_pages, cfg.n_kv_heads, page_size)
+    return (torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=torch.float32, device=device))
 
 
 def init_cache(batch: int, cfg: AttnConfig, max_len: int,

@@ -43,16 +43,19 @@ class Model:
         return transformer.supports_paged_cache(self.cfg)
 
     def init_paged_caches(self, n_pages: int, page_size: int,
-                          device: str | torch.device = "cuda") -> dict:
+                          device: str | torch.device = "cuda",
+                          quantized: bool = False) -> dict:
         return transformer.init_paged_caches(self.cfg, n_pages, page_size,
-                                             resolve(device))
+                                             resolve(device), quantized)
 
     def paged_decode_step(self, params: dict, caches: dict,
                           page_table: torch.Tensor, token: torch.Tensor,
-                          pos: torch.Tensor, use_kernel: bool | None = None):
+                          pos: torch.Tensor, use_kernel: bool | None = None,
+                          num_splits: int | None = None):
         return transformer.paged_decode_step(params, caches, page_table,
                                              token, pos, self.cfg,
-                                             use_kernel=use_kernel)
+                                             use_kernel=use_kernel,
+                                             num_splits=num_splits)
 
     def paged_prefill_step(self, params: dict, caches: dict,
                            page_table: torch.Tensor, tokens: torch.Tensor,

@@ -15,7 +15,8 @@ Modes: ``prefill`` (whole prompt, K/V collected into caches padded to
 ``max_len``) and ``decode_step`` (one token per lane against the caches,
 written in place); on the paged KV pool ``paged_prefill_step`` (one
 prompt chunk per lane) and ``paged_decode_step``, which write into the
-layer-stacked page pools in place.  Other layer kinds are not ported yet.
+layer-stacked page pools in place (and into their per-row scales, for
+int8 pools).  Other layer kinds are not ported yet.
 """
 from __future__ import annotations
 
@@ -175,26 +176,47 @@ def supports_paged_cache(cfg: ArchConfig) -> bool:
 
 
 def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
-                      device="cpu") -> dict:
+                      device="cpu", quantized: bool = False) -> dict:
     """Layer-stacked page pools {"kv": (K, V)}, each (L, P, Hkv, psz, Dh)
     in ``cache_dtype``: O(n_pages * page_size) tokens of KV in total,
-    which lanes borrow through their page tables."""
+    which lanes borrow through their page tables.
+
+    ``quantized=True`` makes int8 pools and adds ``"kv_scale"``: (L, P,
+    Hkv, psz) float32 per-row scales for k and v, zeros, with the page
+    axis at position 1 like the pools', so page-indexed copies (admit,
+    swap) treat scales and pools alike."""
     if not supports_paged_cache(cfg):
         raise ValueError(
             f"arch {cfg.name!r} does not support the paged KV cache "
             "(needs a plain attention stack: no SSM/SWA/shared-attn)")
     check_supported(cfg)
-    return {"kv": attn.init_paged_pool(n_pages, attn_config(cfg), page_size,
+    acfg, lead = attn_config(cfg), (cfg.n_layers,)
+    if quantized:
+        return {"kv": attn.init_paged_pool(n_pages, acfg, page_size,
+                                           torch.int8, device, lead=lead),
+                "kv_scale": attn.init_paged_scales(n_pages, acfg, page_size,
+                                                   device, lead=lead)}
+    return {"kv": attn.init_paged_pool(n_pages, acfg, page_size,
                                        torch_dtype(cfg.cache_dtype), device,
-                                       lead=(cfg.n_layers,))}
+                                       lead=lead)}
+
+
+def _layer_scales(caches: dict, i: int):
+    """Layer ``i``'s (k_scale, v_scale) of int8 pools, None for fp pools."""
+    if "kv_scale" not in caches:
+        return None
+    ks, vs = caches["kv_scale"]
+    return ks[i], vs[i]
 
 
 def paged_decode_step(params: dict, caches: dict, page_table: torch.Tensor,
                       token: torch.Tensor, pos: torch.Tensor,
-                      cfg: ArchConfig, use_kernel: bool | None = None):
+                      cfg: ArchConfig, use_kernel: bool | None = None,
+                      num_splits: int | None = None):
     """One decode step over the page pools.  token (B, 1) int, pos (B,)
-    int, page_table (B, nblk) int32 shared by every layer.  Returns
-    (logits (B, V), caches); the pools are updated in place."""
+    int, page_table (B, nblk) int32 shared by every layer; ``num_splits``
+    the split-KV degree of every layer's attention (None or 1: one pass).
+    Returns (logits (B, V), caches); the pools are updated in place."""
     check_supported(cfg)
     x = embed_tokens(params, token, cfg)
     acfg = attn_config(cfg)
@@ -204,6 +226,8 @@ def paged_decode_step(params: dict, caches: dict, page_table: torch.Tensor,
         lp = _layer(layers, i)
         x = x + attn.paged_decode(lp["attn"], rms_norm(x, lp["norm1_w"]),
                                   kp[i], vp[i], page_table, pos, acfg,
+                                  _layer_scales(caches, i),
+                                  num_splits=num_splits,
                                   use_kernel=use_kernel)
         x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["norm2_w"]))
     return _logits(params, x[:, 0], cfg), caches
@@ -230,7 +254,8 @@ def paged_prefill_step(params: dict, caches: dict, page_table: torch.Tensor,
         lp = _layer(layers, i)
         x = x + attn.paged_prefill(lp["attn"], rms_norm(x, lp["norm1_w"]),
                                    kp[i], vp[i], page_table, start, kv_len,
-                                   acfg, use_kernel=use_kernel)
+                                   acfg, _layer_scales(caches, i),
+                                   use_kernel=use_kernel)
         x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["norm2_w"]))
     rows = torch.arange(x.shape[0], device=x.device)
     return _logits(params, x[rows, logit_idx.long()], cfg), caches

@@ -11,8 +11,9 @@ model's steps, as the JAX package's engine does:
   and streams its prompt in chunk by chunk, one chunk per tick (kernel
   K4), so a long prompt never stalls the lanes that are decoding;
 * every tick runs one batched decode step over all lanes (K2 on dense
-  lanes, K3 on pages), idle lanes riding along at position 0 and
-  mid-prefill lanes with their table rows masked to the null page;
+  lanes, K3 on pages, K5 with ``num_splits``, K6 on int8 pages), idle
+  lanes riding along at position 0 and mid-prefill lanes with their
+  table rows masked to the null page;
 * under page pressure an admission waits at the head of the queue and a
   lane that cannot grow is preempted: its pages swap out to the host and
   it resumes first, by swap-in, where it stopped (mid-prefill too);
@@ -21,12 +22,15 @@ model's steps, as the JAX package's engine does:
   (:class:`TickWork`), ``emit`` is the first host-device sync.
 
 Greedy output is token-for-token the JAX engine's on the same weights
-and requests.  Speculative decoding, prefix caching, int8 KV, run-time
-tuning and meshes belong to later slices (ROADMAP queue 1) and raise
-here.
+and requests, int8 pages included.  ``num_splits`` stands in for the
+JAX package's ``at.publish("flash_paged_decode", num_splits=...)`` until
+the tuning layer is ported: it is handed to every paged decode step.
+Speculative decoding, prefix caching, run-time tuning and meshes belong
+to later slices (ROADMAP queue 1) and raise here.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 
@@ -84,7 +88,8 @@ class ServingEngine:
                  page_size: int = 16, timeslice: int | None = None,
                  autotuner=None, prefill_chunk: int | None = None,
                  spec_k: int | None = None, prefix_cache: bool = False,
-                 kv_dtype: str = "fp", mesh=None):
+                 kv_dtype: str = "fp", swap_compress: bool = False,
+                 num_splits: int | None = None, mesh=None):
         for name, value in (("autotuner", autotuner),
                             ("spec_k", spec_k),
                             ("prefix_cache", prefix_cache or None),
@@ -92,10 +97,6 @@ class ServingEngine:
             if value is not None:
                 raise NotImplementedError(
                     f"{name}: {_NOT_PORTED[name]} is not ported yet")
-        if kv_dtype != "fp":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: int8 KV pages are not ported yet "
-                "(ROADMAP queue 1, item 4)")
         self.model = model
         self.params = params
         self.device = params["embed"].device
@@ -103,7 +104,13 @@ class ServingEngine:
         self.max_len = max_len
         self.eos_id = eos_id
         self.kv = make_kv_cache(model, cache, n_lanes, max_len, self.device,
-                                n_pages=n_pages, page_size=page_size)
+                                n_pages=n_pages, page_size=page_size,
+                                kv_dtype=kv_dtype,
+                                swap_compress=swap_compress)
+        if num_splits is not None and self.kv.kind != "paged":
+            raise ValueError(
+                "num_splits splits the paged decode's page walk; use "
+                "cache='paged'")
         if prefill_chunk is not None and self.kv.kind != "paged":
             raise ValueError(
                 "chunked prefill streams the prompt into the paged KV "
@@ -111,8 +118,9 @@ class ServingEngine:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.prefill_chunk = prefill_chunk
-        self._decode = (model.paged_decode_step if self.kv.kind == "paged"
-                        else model.decode_step)
+        self._decode = (
+            functools.partial(model.paged_decode_step, num_splits=num_splits)
+            if self.kv.kind == "paged" else model.decode_step)
         self.scheduler = Scheduler(n_lanes, timeslice=timeslice)
         self.metrics = ServingMetrics()
         self.active: dict[int, Request] = {}

@@ -14,11 +14,22 @@ Page 0 of the pool is the *null page*: idle lanes decode with ``pos = 0``
 and a zeroed table row, and padded chunk positions are redirected there,
 so their discarded K/V writes never land in a live page.
 
+The paged pool can hold **int8 pages** (``kv_dtype="int8"``): int8 K/V
+pools plus float32 per-(page, head, slot)-row scales in
+``caches["kv_scale"]``, (L, P, Hkv, psz) with the page axis at position 1
+like the pools', so every page-indexed copy (admit, swap) treats scales
+and pools alike.  Writes quantize on the way in (admission here, the
+chunk scatter and decode append in the model) and the attention kernels
+dequantize next to their loads.
+
 Both backends are written in place: admission copies into the caches,
-and the model's steps append to them.  Swap handles are host float32
-numpy copies (exact for bf16 and fp32 caches; numpy has no bfloat16).
-The prefix index, int8 pages and compressed swaps of the JAX cache are
-not ported (ROADMAP queue 1, items 4 and 5).
+and the model's steps append to them.  Swap handles are host numpy
+copies: float32 for fp caches (exact for bf16 and fp32; numpy has no
+bfloat16), the native int8 codes plus float32 scales for int8 pools
+(bit-exact, half the bytes).  ``swap_compress=True`` packs an fp cache's
+swap through :func:`quantize_int8` instead (a quarter of the float32
+bytes, int8-round-trip accurate); an int8 pool ignores it.  The prefix
+index of the JAX cache is not ported (ROADMAP queue 1, item 5).
 
 The engine talks to both through the same methods::
 
@@ -38,7 +49,46 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..distributed.compression import (dequantize_int8, quantize_int8,
+                                       quantize_int8_rows)
+
 NULL_PAGE = 0
+
+KV_DTYPES = ("fp", "int8")
+
+
+@dataclass
+class PackedTree:
+    """int8 host copy of a swap handle's arrays, one float32 scale per
+    array: the lossy host swap of fp caches (``swap_compress=True``).
+    int8 pools never need it: their payload is already int8 + per-row
+    scales and round-trips bit-exactly."""
+
+    payload: list[tuple[np.ndarray, float]]
+
+    def host_bytes(self) -> int:
+        return sum(q.nbytes + 4 for q, _ in self.payload)
+
+
+def _pack_tree(arrays) -> PackedTree:
+    payload = []
+    for a in arrays:
+        q, scale = quantize_int8(torch.from_numpy(a))
+        payload.append((q.numpy(), float(scale)))
+    return PackedTree(payload)
+
+
+def _unpack_tree(packed: PackedTree) -> tuple[np.ndarray, ...]:
+    return tuple(dequantize_int8(torch.from_numpy(q), scale).numpy()
+                 for q, scale in packed.payload)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy: int8 stays int8, float32 stays float32, other
+    floats (bf16) widen to float32 exactly (numpy has no bfloat16)."""
+    if t.dtype not in (torch.int8, torch.float32):
+        t = t.float()
+    return t.to("cpu", copy=True).numpy()
 
 
 class DenseKVCache:
@@ -48,9 +98,10 @@ class DenseKVCache:
     kv_dtype = "fp"
 
     def __init__(self, model, n_lanes: int, max_len: int,
-                 device: str | torch.device):
+                 device: str | torch.device, swap_compress: bool = False):
         self.n_lanes = n_lanes
         self.max_len = max_len
+        self.swap_compress = swap_compress
         self.caches = model.init_caches(n_lanes, max_len, device=device)
 
     def _leaves(self) -> tuple[torch.Tensor, ...]:
@@ -79,13 +130,16 @@ class DenseKVCache:
     def decode_extra(self, mask_lanes=()) -> tuple:
         return ()
 
-    def swap_out(self, lane: int) -> tuple[np.ndarray, ...]:
+    def swap_out(self, lane: int) -> tuple[np.ndarray, ...] | PackedTree:
         """Copies of the lane's strips as host float32 numpy (exact for
-        bf16 and fp32 caches; numpy has no bfloat16)."""
-        return tuple(full[:, lane].to("cpu", torch.float32, copy=True).numpy()
-                     for full in self._leaves())
+        bf16 and fp32 caches; numpy has no bfloat16), packed to int8 with
+        ``swap_compress``."""
+        handle = tuple(_host(full[:, lane]) for full in self._leaves())
+        return _pack_tree(handle) if self.swap_compress else handle
 
-    def swap_in(self, lane: int, handle: tuple[np.ndarray, ...]) -> bool:
+    def swap_in(self, lane: int, handle) -> bool:
+        if isinstance(handle, PackedTree):
+            handle = _unpack_tree(handle)
         for full, host in zip(self._leaves(), handle):
             full[:, lane].copy_(torch.from_numpy(host))
         return True
@@ -115,11 +169,20 @@ class DenseKVCache:
 
 @dataclass
 class PageHandle:
-    """Host copy of a swapped-out sequence's pages: one float32 array per
-    pool, (L, n_blocks, Hkv, psz, Dh)."""
+    """Host copy of a swapped-out sequence's pages, page axis at position
+    1: ``chunks`` holds one array per cache leaf (float32 (L, n_blocks,
+    Hkv, psz, Dh) per fp pool; int8 codes and float32 (L, n_blocks, Hkv,
+    psz) scales for int8 pools), or ``packed`` their int8 packing
+    (``swap_compress``); exactly one of the two is set."""
 
-    chunks: tuple[np.ndarray, ...]
+    chunks: tuple[np.ndarray, ...] | None
     n_blocks: int
+    packed: PackedTree | None = None
+
+    def host_bytes(self) -> int:
+        if self.packed is not None:
+            return self.packed.host_bytes()
+        return int(sum(c.nbytes for c in self.chunks))
 
 
 class PagedKVCache:
@@ -133,23 +196,32 @@ class PagedKVCache:
     """
 
     kind = "paged"
-    kv_dtype = "fp"
 
     def __init__(self, model, n_lanes: int, max_len: int, n_pages: int,
-                 page_size: int, device: str | torch.device):
+                 page_size: int, device: str | torch.device,
+                 kv_dtype: str = "fp", swap_compress: bool = False):
         if not model.supports_paged_cache:
             raise ValueError(
                 f"arch {model.cfg.name!r} does not support the paged KV "
                 "cache; use cache='dense'")
         if n_pages < 2:
             raise ValueError("need at least 2 pages (page 0 is reserved)")
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
+                             f"(choose from {KV_DTYPES})")
         self.n_lanes = n_lanes
         self.max_len = max_len
         self.page_size = page_size
         self.n_pages = n_pages
+        self.kv_dtype = kv_dtype
+        self.quantized = kv_dtype == "int8"
+        # int8 pools swap their compact payload losslessly; the flag packs
+        # fp pools' swaps only (lossy)
+        self.swap_compress = swap_compress and not self.quantized
         self.max_blocks = math.ceil(max_len / page_size)
         self.caches = model.init_paged_caches(n_pages, page_size,
-                                              device=device)
+                                              device=device,
+                                              quantized=self.quantized)
         self.device = self.caches["kv"][0].device
         self.table = np.zeros((n_lanes, self.max_blocks), np.int32)
         self.n_blocks = [0] * n_lanes
@@ -160,7 +232,8 @@ class PagedKVCache:
         self.swap_ins = 0
 
     def _leaves(self) -> tuple[torch.Tensor, ...]:
-        return self.caches["kv"]
+        """Every page-indexed leaf: the pools, then an int8 pool's scales."""
+        return self.caches["kv"] + self.caches.get("kv_scale", ())
 
     # -- page pool ----------------------------------------------------------
     @property
@@ -202,17 +275,23 @@ class PagedKVCache:
 
     def admit(self, lane: int, prefill_caches: dict, prompt_len: int) -> bool:
         """Allocate the prompt's pages and copy batch entry 0 of the
-        (L, 1, Hkv, nblk * psz, Dh) prefill caches into them."""
+        (L, 1, Hkv, nblk * psz, Dh) prefill caches into them (quantized
+        per row, codes and scales, into int8 pools)."""
         nblk = math.ceil(prompt_len / self.page_size)
         pages = self._alloc(nblk)
         if pages is None:
             return False
         idx = self._pages_tensor(pages)
-        for pool, dense in zip(self._leaves(), prefill_caches["kv"]):
+        scales = self.caches.get("kv_scale", (None, None))
+        for pool, scale, dense in zip(self.caches["kv"], scales,
+                                      prefill_caches["kv"]):
             l, _, hkv, _, d = dense.shape
-            pool[:, idx] = dense[:, 0, :, :nblk * self.page_size].reshape(
-                l, hkv, nblk, self.page_size, d).transpose(1, 2).to(
-                pool.dtype)
+            rows = dense[:, 0, :, :nblk * self.page_size].reshape(
+                l, hkv, nblk, self.page_size, d).transpose(1, 2)
+            if scale is None:
+                pool[:, idx] = rows.to(pool.dtype)
+            else:
+                pool[:, idx], scale[:, idx] = quantize_int8_rows(rows)
         self.table[lane, :nblk] = pages
         self.n_blocks[lane] = nblk
         return True
@@ -261,13 +340,17 @@ class PagedKVCache:
     def swap_out(self, lane: int) -> PageHandle:
         """Copy the lane's pages to host memory, then free them.  The copy
         is complete before the pages return to the free list (the pools
-        are written in place, so a later admission may reuse them)."""
+        are written in place, so a later admission may reuse them).  int8
+        pools copy their codes and scales as they are; fp pools copy
+        float32, or pack it to int8 with ``swap_compress``."""
         nblk = self.n_blocks[lane]
         idx = self._pages_tensor(self.table[lane, :nblk])
-        chunks = tuple(pool[:, idx].to("cpu", torch.float32).numpy()
-                       for pool in self._leaves())
+        chunks = tuple(_host(leaf[:, idx]) for leaf in self._leaves())
         self._free_lane(lane)
         self.swap_outs += 1
+        if self.swap_compress:
+            return PageHandle(chunks=None, n_blocks=nblk,
+                              packed=_pack_tree(chunks))
         return PageHandle(chunks=chunks, n_blocks=nblk)
 
     def swap_in(self, lane: int, handle: PageHandle) -> bool:
@@ -275,7 +358,9 @@ class PagedKVCache:
         if pages is None:
             return False
         idx = self._pages_tensor(pages)
-        for pool, chunk in zip(self._leaves(), handle.chunks):
+        chunks = handle.chunks if handle.packed is None \
+            else _unpack_tree(handle.packed)
+        for pool, chunk in zip(self._leaves(), chunks):
             pool[:, idx] = torch.from_numpy(chunk).to(pool.device, pool.dtype)
         self.table[lane, :handle.n_blocks] = pages
         self.table[lane, handle.n_blocks:] = NULL_PAGE
@@ -306,7 +391,8 @@ class PagedKVCache:
         return self.used_pages * self.page_size
 
     def pool_bytes(self) -> int:
-        """Device bytes held by the pools, from the actual tensor dtypes."""
+        """Device bytes held by the pools, from the actual tensor dtypes
+        (an int8 pool counts its codes and its float32 scales)."""
         return int(sum(t.numel() * t.element_size() for t in self._leaves()))
 
     def kv_bytes_per_token(self) -> float:
@@ -330,14 +416,20 @@ class PagedKVCache:
 
 def make_kv_cache(model, cache: str, n_lanes: int, max_len: int,
                   device: str | torch.device, n_pages: int | None = None,
-                  page_size: int = 16) -> DenseKVCache | PagedKVCache:
+                  page_size: int = 16, kv_dtype: str = "fp",
+                  swap_compress: bool = False) -> DenseKVCache | PagedKVCache:
     """Build a KV-cache backend by name (``dense`` | ``paged``)."""
     if cache == "dense":
-        return DenseKVCache(model, n_lanes, max_len, device)
+        if kv_dtype != "fp":
+            raise ValueError("quantized KV storage is a paged-pool feature; "
+                             "use cache='paged'")
+        return DenseKVCache(model, n_lanes, max_len, device,
+                            swap_compress=swap_compress)
     if cache == "paged":
         if n_pages is None:
             # default pool: every lane at full length (parity with dense)
             n_pages = n_lanes * math.ceil(max_len / page_size) + 1
         return PagedKVCache(model, n_lanes, max_len, n_pages, page_size,
-                            device)
+                            device, kv_dtype=kv_dtype,
+                            swap_compress=swap_compress)
     raise ValueError(f"unknown cache backend {cache!r} (dense | paged)")

@@ -196,3 +196,143 @@ def test_paged_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                               vp[..., :24].contiguous(), table, lens)
     with pytest.raises(ValueError, match="start and kv_len"):
         pa.flash_paged_prefill(q, kp, vp, table, lens[:1], lens)
+
+
+# --------------------------------------------------------------------------
+# split-KV decode (K5a + K5c) and int8 pages (K6a, K6b, K6c)
+# --------------------------------------------------------------------------
+
+
+def quantize(pool):
+    """int8 codes and float32 per-row scales of a pool, on its device."""
+    from repro_torch.distributed.compression import quantize_int8_rows
+    return quantize_int8_rows(pool)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d,psz", [(32, 4, 128, 16), (32, 32, 128, 16),
+                                         (8, 2, 16, 8), (12, 4, 64, 8)])
+@pytest.mark.parametrize("ns", [2, 3, 8])
+def test_split_decode_kernels_match_plain(cuda_device, dtype, h, hkv, d, psz,
+                                          ns):
+    """K5a + K5c against the split and the one-pass plain versions; a lane
+    of 33 keys leaves most of its splits empty."""
+    q, kp, vp, table, kv_len = paged_inputs(3, h, hkv, d, psz, 20,
+                                            [33, 157, 20 * psz], dtype,
+                                            cuda_device, 90)
+    n = (pa.paged_decode_split.launches, pa.split_combine.launches,
+         pa.flash_paged_decode.launches)
+    got = ops.paged_decode(q, ops.PagedPools(kp, vp), table, kv_len,
+                           num_splits=ns)
+    torch.cuda.synchronize()
+    assert (pa.paged_decode_split.launches, pa.split_combine.launches,
+            pa.flash_paged_decode.launches) == (n[0] + 1, n[1] + 1, n[2])
+    assert got.dtype == dtype
+    close(got, ref.paged_decode_split_ref(q, kp, vp, table, kv_len, ns), dtype)
+    close(got, ref.paged_decode_ref(q, kp, vp, table, kv_len), dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_decode_ns1_is_the_one_pass_kernel_and_zero_rows(cuda_device,
+                                                               quant):
+    q, kp, vp, table, kv_len = paged_inputs(3, 32, 4, 128, 16, 8, [0, 77, 128],
+                                            torch.bfloat16, cuda_device, 95)
+    if quant:
+        (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+        run = lambda ns: pa.flash_paged_decode_quant(  # noqa: E731
+            q, k8, v8, ks, vs, table, kv_len, num_splits=ns)
+    else:
+        run = lambda ns: pa.flash_paged_decode(  # noqa: E731
+            q, kp, vp, table, kv_len, num_splits=ns)
+    assert torch.equal(run(None), run(1))
+    for ns in (None, 2, 8, 64):                   # 64 clamps to the 8 pages
+        out = run(ns)
+        torch.cuda.synchronize()
+        assert torch.all(out[0] == 0)             # kv_len 0: exactly 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d,psz", [(32, 4, 128, 16), (32, 32, 128, 16),
+                                         (8, 2, 16, 8), (16, 1, 32, 16)])
+@pytest.mark.parametrize("ns", [1, 8])
+def test_int8_decode_kernels_match_plain(cuda_device, dtype, h, hkv, d, psz,
+                                         ns):
+    """K6a (ns 1) and K6b + K5c (ns 8) against the plain int8 versions."""
+    q, kp, vp, table, kv_len = paged_inputs(3, h, hkv, d, psz, 20,
+                                            [1, 157, 20 * psz], dtype,
+                                            cuda_device, 100)
+    (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+    kernel = pa.flash_paged_decode_quant if ns == 1 \
+        else pa.paged_decode_split_quant
+    n = kernel.launches
+    got = ops.paged_decode(q, ops.PagedPools(k8, v8, ks, vs), table, kv_len,
+                           num_splits=ns)
+    torch.cuda.synchronize()
+    assert kernel.launches == n + 1
+    assert got.dtype == dtype
+    close(got, ref.paged_decode_ref(q, k8, v8, table, kv_len, k_scale=ks,
+                                    v_scale=vs), dtype)
+    close(got, ref.paged_decode_split_ref(q, k8, v8, table, kv_len, ns,
+                                          k_scale=ks, v_scale=vs), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d,psz,c,start,valid", [
+    (32, 4, 128, 16, 128, 0, 128), (32, 4, 128, 16, 128, 384, 128),
+    (32, 4, 128, 16, 128, 200, 128), (32, 4, 128, 16, 128, 256, 44),
+    (8, 2, 16, 8, 8, 12, 5)])
+def test_int8_prefill_kernel_matches_plain(cuda_device, dtype, h, hkv, d, psz,
+                                           c, start, valid):
+    kv_len = [start + valid, valid]
+    nblk = -(-(start + c) // psz)
+    q, kp, vp, table, lens = paged_inputs(2, h, hkv, d, psz, nblk, kv_len,
+                                          dtype, cuda_device, 110, c=c)
+    (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+    starts = torch.tensor([start, 0], dtype=torch.int32, device=cuda_device)
+    n = pa.flash_paged_prefill_quant.launches
+    got = ops.paged_prefill(q, ops.PagedPools(k8, v8, ks, vs), table, starts,
+                            lens)
+    want = ref.paged_prefill_ref(q, k8, v8, table, starts, lens, k_scale=ks,
+                                 v_scale=vs)
+    torch.cuda.synchronize()
+    assert pa.flash_paged_prefill_quant.launches == n + 1
+    close(got[:, :, :valid], want[:, :, :valid], dtype)
+
+
+def test_int8_prefill_kernel_row_without_keys_is_exactly_zero(cuda_device):
+    q, kp, vp, table, lens = paged_inputs(2, 4, 2, 32, 8, 2, [0, 9],
+                                          torch.float32, cuda_device, 120,
+                                          c=4)
+    (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+    starts = torch.tensor([0, 5], dtype=torch.int32, device=cuda_device)
+    out = pa.flash_paged_prefill_quant(q, k8, v8, ks, vs, table, starts, lens)
+    assert torch.all(out[0] == 0)
+    close(out[1], ref.paged_prefill_ref(q, k8, v8, table, starts, lens,
+                                        k_scale=ks, v_scale=vs)[1],
+          torch.float32)
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q, kp, vp, table, lens = paged_inputs(2, 4, 2, 32, 8, 2, [3, 9],
+                                          torch.bfloat16, cuda_device, 130)
+    (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+    dec = pa.flash_paged_decode_quant
+    with pytest.raises(ValueError, match="int8"):
+        dec(q, kp, vp, ks, vs, table, lens)               # bf16 pools
+    with pytest.raises(ValueError, match="float32"):
+        dec(q, k8, v8, ks.bfloat16(), vs, table, lens)
+    with pytest.raises(ValueError, match="float32"):
+        dec(q, k8, v8, ks[:, :, :4].contiguous(), vs, table, lens)
+    with pytest.raises(ValueError, match="float32"):
+        dec(q, k8, v8, ks.cpu(), vs, table, lens)
+    with pytest.raises(ValueError, match="float32"):
+        dec(q, k8, v8, ks.transpose(1, 2).contiguous().transpose(1, 2), vs,
+            table, lens)
+    with pytest.raises(ValueError, match="CUDA"):
+        dec(q, k8.cpu(), v8, ks, vs, table, lens)
+    with pytest.raises(ValueError, match="q dtype"):
+        dec(q.half(), k8, v8, ks, vs, table, lens)
+    with pytest.raises(ValueError, match="dtype"):
+        pa.flash_paged_decode(q, k8, v8, table, lens)      # fp wrapper
+    with pytest.raises(ValueError, match="start and kv_len"):
+        pa.flash_paged_prefill_quant(q, k8, v8, ks, vs, table, lens[:1], lens)

@@ -150,12 +150,17 @@ def test_paged_dispatch_on_cpu_and_what_it_rejects():
         ref.paged_decode_ref(q, pools.k, pools.v, table, kv_len).numpy())
     with pytest.raises(ValueError, match="CUDA"):
         ops.paged_decode(q, pools, table, kv_len, use_kernel=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ops.paged_decode(q, pools, table, kv_len, num_splits=2)
+    # split-KV decode is the same function: the plain version ignores it
+    np.testing.assert_array_equal(
+        ops.paged_decode(q, pools, table, kv_len, num_splits=2).numpy(),
+        ref.paged_decode_ref(q, pools.k, pools.v, table, kv_len).numpy())
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ops.paged_prefill(q, pools, table, kv_len - 1, kv_len, num_splits=2)
     with pytest.raises(NotImplementedError, match="item 10"):
         ops.paged_prefill(q, pools, table, kv_len - 1, kv_len, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ops.PagedPools(pools.k, pools.v, pools.k[..., 0], pools.v[..., 0])
+    with pytest.raises(ValueError, match="k_scale without v_scale"):
+        ops.paged_decode(q, ops.PagedPools(pools.k, pools.v,
+                                           pools.k[..., 0]), table, kv_len)
 
 
 # --------------------------------------------------------------------------

@@ -252,13 +252,16 @@ def test_sampling_matches_jax_sampler(seed):
 
 def test_engine_rejects_the_paths_of_later_slices(pair):
     _, _, model, params = pair
-    for kw in ({"spec_k": 2}, {"prefix_cache": True}, {"kv_dtype": "int8"},
+    for kw in ({"spec_k": 2}, {"prefix_cache": True},
                {"autotuner": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(model, params, n_lanes=2, max_len=32, **kw)
-    # chunked prefill streams into the paged pool only, as in JAX
-    with pytest.raises(ValueError, match="paged"):
-        ServingEngine(model, params, n_lanes=2, max_len=32, prefill_chunk=8)
+    # chunked prefill, int8 pages and split-KV are paged-pool features,
+    # as in JAX
+    for kw in ({"prefill_chunk": 8}, {"kv_dtype": "int8"},
+               {"num_splits": 2}):
+        with pytest.raises(ValueError, match="paged"):
+            ServingEngine(model, params, n_lanes=2, max_len=32, **kw)
 
 
 # --------------------------------------------------------------------------
