@@ -46,7 +46,31 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    counters must show its kernels once per layer per chunk or decode
    step, and no other kernel;
 14. int8 paged logits: phase 10's prompt and decode steps (two in one
-   pass, two with 8 splits) over int8 pools, kernels against plain.
+   pass, two with 8 splits) over int8 pools, kernels against plain;
+15. split prefill/verify, K5b (phase 1) + K5c, against the split plain
+   version (partials and output) and the one-pass plain version at the
+   verify shapes of yi-6b and deepseek-7b (4 lanes with chunks of 5 and
+   an idle lane with no key, which must come out exactly 0) and at the
+   phase-8 chunk, for 2, 3 and 8 splits; a sweep of the split count at
+   both timing shapes (``num_splits=1`` is K4's own launch), phase 1 and
+   the combine timed apart;
+16. K6d + K5c, the same over pools quantized from the phase-15 cases;
+17. serves of yi-6b at full width from the paged pool in chunks of 128:
+   (a) speculative, a self-speculative draft of 16 layers proposing 4
+   tokens per tick, verify with 8 splits; (b) the same over int8 pages;
+   (c) the prefix cache with a shared 256-token system prompt; (d) (c)
+   with the cache off; (e) (a) on an engine built here with a draft of
+   all 32 layers, which is the target, so its greedy drafts must be
+   accepted (near-ties apart).  Every request must finish with 32 tokens
+   and the
+   counters must show each serve's kernels exactly (K5b or K6d, and K5c,
+   once per layer per verify; the draft's K1 and K2 once per draft layer
+   per draft prefill and decode step, counted here by wrapping the
+   draft's methods), and (c) must save prefill chunks against (d);
+18. verify logits: phase 10's prompt, then one speculative verify of 5
+   tokens in one pass and with 8 splits, over bf16 and int8 pools,
+   kernels against plain, and a one-token verify against the paged
+   decode step.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
@@ -63,6 +87,7 @@ import re
 import subprocess
 import sys
 import time
+from collections.abc import Callable
 from pathlib import Path
 
 import torch
@@ -75,8 +100,11 @@ from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
-from repro_torch.launch.serve import ServeConfig, serve_config  # noqa: E402
+from repro_torch.launch.serve import (ServeConfig, draw_prompts,  # noqa: E402
+                                      serve_config, serve_engine)
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.serving import ServingEngine  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): the least
 # time a kernel could take is the larger of bytes / HBM rate and
@@ -295,12 +323,16 @@ def phase_k2() -> dict:
             **{k: d for k, (d, _) in times.items()}}
 
 
-def serve_with_counts(**kw) -> tuple[dict, dict[str, int]]:
-    """One ``serve_config`` run of the phase-5 requests, with every
-    kernel's launch counter zeroed just before and read just after."""
+def serve_with_counts(engine: ServingEngine | None = None,
+                      **kw) -> tuple[dict, dict[str, int]]:
+    """One run of the phase-5 requests, through ``serve_config`` or on
+    ``engine`` when one is given, with every kernel's launch counter
+    zeroed just before and read just after."""
     for kernel in KERNELS:
         kernel.launches = 0
-    report = serve_config(ServeConfig(**SERVE, **kw))
+    scfg = ServeConfig(**SERVE, **kw)
+    report = (serve_config(scfg) if engine is None
+              else serve_engine(engine, scfg))
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in KERNELS}
     n_requests, max_new = SERVE["n_requests"], SERVE["max_new"]
@@ -637,13 +669,14 @@ def fmt_times(times: dict) -> str:
 
 
 def decode_bytes(kv_len, b, h, hkv, d, psz, kv_elem: int, q_elem: int,
-                 scale_bytes: int = 0) -> float:
+                 scale_bytes: int = 0, writes_o: bool = True) -> float:
     """Bytes a paged decode must move: every live K/V row (and its scales)
-    once, q in and o out, the live table entries and kv_len."""
+    once, q in and (unless it writes split partials instead) o out, the
+    live table entries and kv_len."""
     keys = sum(kv_len)
     live_pages = sum(-(-n // psz) for n in kv_len)
     return (2 * keys * hkv * (d * kv_elem + scale_bytes)
-            + 2 * b * h * d * q_elem + 4 * (live_pages + b))
+            + (1 + writes_o) * b * h * d * q_elem + 4 * (live_pages + b))
 
 
 def phase_k5() -> list[dict]:
@@ -727,7 +760,8 @@ def phase_k5() -> list[dict]:
                *ref.combine_split_states(m, l, acc)[1:]).to(BF16)),
            "library_ms": None}
     rows = [row("paged_decode_split", PAGED_SOURCE, f"{FLASH}:535", err1,
-                decode_bytes(kv_len, b, h, hkv, d, psz, 2, 2) + partial_bytes,
+                decode_bytes(kv_len, b, h, hkv, d, psz, 2, 2, writes_o=False)
+                + partial_bytes,
                 4 * h * keys * d, k5a),
             row("split_combine", PAGED_SOURCE, f"{FLASH}:315", err2,
                 partial_bytes + 2 * b * h * d, 4 * b * h * ns * d, k5c)]
@@ -832,8 +866,9 @@ def phase_k6() -> list[dict]:
                 compare(pa.flash_paged_decode_quant(q, k8, v8, ks, vs, table,
                                                     lens, num_splits=ns),
                         want, BF16),
-                n_bytes + 4 * b * hkv * ns * g * (2 + d), 4 * h * keys * d,
-                k6b)]
+                decode_bytes(kv_len, b, h, hkv, d, psz, 1, 2, scale_bytes=4,
+                             writes_o=False)
+                + 4 * b * hkv * ns * g * (2 + d), 4 * h * keys * d, k6b)]
     print(f"[12 K6 int8 pages] yi-6b decode B=4 H=32 Hkv=4 D=128 psz=16 "
           f"nblk=64 bf16 q, int8 pools, kv_len={kv_len}, device ms (ms per "
           f"call incl. host): K6a {fmt_times(k6a)}, bound "
@@ -876,10 +911,12 @@ def phase_k6() -> list[dict]:
     return rows
 
 
-def phase_split_int8_serves(smi: str, paged: dict) -> dict[str, int]:
+def phase_split_int8_serves(smi: str, paged: dict
+                            ) -> tuple[dict[str, int], dict[str, dict]]:
     """The phase-9 serve with int8 pages and split-KV: (a) int8 with 8
     splits, (b) int8 in one pass, (c) fp with 8 splits.  Returns each new
-    kernel's launches from the serve that runs it (K5c from (a))."""
+    kernel's launches from the serve that runs it (K5c from (a)), and the
+    serves' reports by label."""
     n_layers = 32
     serves = [("int8, 8 splits", dict(kv_dtype="int8", num_splits=8),
                (pa.flash_paged_prefill_quant, pa.paged_decode_split_quant,
@@ -889,10 +926,11 @@ def phase_split_int8_serves(smi: str, paged: dict) -> dict[str, int]:
               ("fp, 8 splits", dict(num_splits=8),
                (pa.flash_paged_prefill, pa.paged_decode_split,
                 pa.split_combine))]
-    counts, lines = {}, []
+    counts, lines, reports = {}, [], {}
     for label, kw, (prefill, *decode) in serves:
         report, launches = serve_with_counts(cache="paged", page_size=16,
                                              prefill_chunk=128, **kw)
+        reports[label] = report
         what = f"the {label} serve"
         only_launched(launches, (prefill, *decode), what)
         check(launches[prefill.__name__]
@@ -925,7 +963,7 @@ def phase_split_int8_serves(smi: str, paged: dict) -> dict[str, int]:
     return {k.__name__: counts[k.__name__] for k in
             (pa.paged_decode_split, pa.split_combine,
              pa.flash_paged_decode_quant, pa.paged_decode_split_quant,
-             pa.flash_paged_prefill_quant)}
+             pa.flash_paged_prefill_quant)}, reports
 
 
 def phase_int8_logits(model, params) -> None:
@@ -935,6 +973,372 @@ def phase_int8_logits(model, params) -> None:
           f"as chunks of 128 + 2 decode steps in one pass + 2 with 8 splits: "
           + check_logits(plain, kern, model.cfg.padded_vocab,
                          "int8 paged logits"))
+
+
+# --------------------------------------------------------------------------
+# phases 15-18: split prefill/verify, speculative and prefix-cache serves
+# --------------------------------------------------------------------------
+
+# (label, H, Hkv, D, psz, nblk, starts, valid rows, C, dtype): verify
+# chunks of k + 1 = 5 rows with an idle lane (no key), and the phase-8
+# prefill chunk
+SPLIT_CASES = [
+    ("yi-6b verify", 32, 4, 128, 16, 64, [839, 720, 190, 544, 0],
+     [5, 5, 5, 5, 0], 5, BF16),
+    ("deepseek-7b verify", 32, 32, 128, 16, 64, [839, 720, 190, 544, 0],
+     [5, 5, 5, 5, 0], 5, BF16),
+    ("yi-6b chunk at 384", 32, 4, 128, 16, 32, [384], [128], 128, BF16),
+    ("fp32 reduced", 4, 2, 16, 8, 12, [12, 0, 40], [5, 0, 3], 8,
+     torch.float32),
+]
+VERIFY_SHAPE = SPLIT_CASES[0]
+CHUNK_SHAPE = SPLIT_CASES[2]
+
+
+def split_case(case, seed: int, quant: bool):
+    """q, pools (fp, or int8 quantized from them), table, start, kv_len."""
+    _, h, hkv, d, psz, nblk, starts, valid, c, dtype = case
+    kv_len = [s + v for s, v in zip(starts, valid)]
+    q, kp, vp, table, lens = paged_case(len(starts), h, hkv, d, psz, nblk,
+                                        kv_len, dtype, seed, c=c)
+    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    if quant:
+        (k8, ks), (v8, vs) = quantize_int8_rows(kp), quantize_int8_rows(vp)
+        return q, ops.PagedPools(k8, v8, ks, vs), table, start, lens
+    return q, ops.PagedPools(kp, vp), table, start, lens
+
+
+def split_phase(quant: bool) -> tuple[dict, dict]:
+    """Checks of K5b (or K6d) + K5c against the plain versions over the
+    split cases; returns the verify-shape and chunk-shape timings."""
+    kernel = pa.paged_prefill_split_quant if quant else pa.paged_prefill_split
+    one_pass = pa.flash_paged_prefill_quant if quant else pa.flash_paged_prefill
+    errs = []
+    for i, case in enumerate(SPLIT_CASES):
+        label, *_, valid, c, dtype = case
+        q, pools, table, start, lens = split_case(case, 600 + 10 * i, quant)
+        sc = (pools.k_scale, pools.v_scale) if quant else ()
+        kw = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
+        args = (q, pools.k, pools.v, *sc, table, start, lens)
+        plain = ref.paged_prefill_ref(q, pools.k, pools.v, table, start, lens,
+                                      **kw)
+        for ns in (2, 3, 8):
+            got = one_pass(*args, num_splits=ns)
+            want, parts = ref.paged_prefill_split_ref(
+                q, pools.k, pools.v, table, start, lens, ns, **kw)
+            # the partials are fp32 sums of the same fp32-converted inputs
+            # on both sides, so they are held to the fp32 tolerance
+            err = max(compare(got_p, want_p, torch.float32)
+                      for got_p, want_p in zip(kernel(*args, ns), parts))
+            for b, v in enumerate(valid):
+                if v == 0:
+                    torch.cuda.synchronize()
+                    check(bool((got[b] == 0).all()),
+                          f"{label} ns={ns}: a lane with no key is not "
+                          "exactly 0")
+                    continue
+                err = max(err, compare(got[b, :, :v], want[b, :, :v], dtype),
+                          compare(got[b, :, :v], plain[b, :, :v], dtype))
+            errs.append(f"{label} ns={ns} {err:.2e}")
+    name = "K6d" if quant else "K5b"
+    print(f"[{16 if quant else 15} {name} split {'int8 ' if quant else ''}"
+          f"prefill/verify] max abs err vs plain, partials and output (tol "
+          f"bf16 {TOL[BF16]}, fp32 {TOL[torch.float32]}): " + "; ".join(errs)
+          + "; idle lanes exactly 0; ns=1 equal to the one-pass kernel")
+
+    timings = {}
+    sweep_ns = (1, 8) if quant else (1, 2, 4, 8, 16)
+    for shape_name, case, seed in (("verify", VERIFY_SHAPE, 650),
+                                   ("chunk", CHUNK_SHAPE, 660)):
+        q, pools, table, start, lens = split_case(case, seed, quant)
+        sc = (pools.k_scale, pools.v_scale) if quant else ()
+        args = (q, pools.k, pools.v, *sc, table, start, lens)
+        sweep = []
+        for ns in sweep_ns:
+            if ns == 1:
+                t1 = time_ms(lambda: one_pass(*args))
+                sweep.append(f"ns=1 (one pass) {t1[0]:.4f}")
+                timings[(shape_name, 1)] = (t1, None, None)
+                continue
+            parts = kernel(*args, ns)
+            p1 = time_ms(lambda: kernel(*args, ns))
+            p2 = time_ms(lambda: pa.split_combine(*parts, q.dtype))
+            whole = time_ms(lambda: one_pass(*args, num_splits=ns))
+            sweep.append(f"ns={ns} phase 1 {p1[0]:.4f} + combine "
+                         f"{p2[0]:.4f} = {p1[0] + p2[0]:.4f} (one call "
+                         f"{whole[0]:.4f})")
+            timings[(shape_name, ns)] = (p1, p2, whole)
+        print(f"[{16 if quant else 15} {name}] {case[0]} shape, device ms by "
+              f"split count: " + "; ".join(sweep))
+    return timings
+
+
+def chunk_work(case, kv_elem: int, scale_bytes: int = 0,
+               writes_o: bool = True):
+    """(bytes, operations) of one chunk's attention: every committed key
+    row (and its scales) read once, q read and (unless it writes split
+    partials instead) o written, the live table entries, start and kv_len;
+    4 flops per visible (query, key) pair and head dim."""
+    _, h, hkv, d, psz, _, starts, valid, c, dtype = case
+    keys = sum(s + v for s, v in zip(starts, valid))
+    pages = sum(-(-(s + v) // psz) for s, v in zip(starts, valid))
+    pairs = sum(s + i + 1 for s, v in zip(starts, valid) for i in range(v))
+    q_bytes = len(starts) * h * c * d * torch.finfo(dtype).bits // 8
+    n_bytes = (2 * keys * hkv * (d * kv_elem + scale_bytes)
+               + (1 + writes_o) * q_bytes
+               + 4 * (pages + 2 * len(starts)))
+    return n_bytes, 4 * h * pairs * d
+
+
+def split_rows(quant: bool, timings: dict) -> list[dict]:
+    """The K5b (or K6d) row of the kernels line: the verify shape at 8
+    splits, phase 1 alone, beside the split plain version and SDPA on the
+    pre-gathered (for int8, pre-dequantized bf16) K/V with the causal
+    offset mask."""
+    ns = 8
+    q, pools, table, start, lens = split_case(VERIFY_SHAPE, 650, quant)
+    kw = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
+    _, h, hkv, d, psz, nblk, starts, valid, c, _ = VERIFY_SHAPE
+    one_pass = pa.flash_paged_prefill_quant if quant else pa.flash_paged_prefill
+    sc = (pools.k_scale, pools.v_scale) if quant else ()
+    got = one_pass(q, pools.k, pools.v, *sc, table, start, lens,
+                   num_splits=ns)
+    want = ref.paged_prefill_ref(q, pools.k, pools.v, table, start, lens,
+                                 **kw)
+    live = [b for b, v in enumerate(valid) if v]
+    err = compare(got[live], want[live], BF16)
+    k_pool, v_pool = pools.k, pools.v
+    if quant:
+        k_pool = pools.k.to(BF16) * pools.k_scale[..., None].to(BF16)
+        v_pool = pools.v.to(BF16) * pools.v_scale[..., None].to(BF16)
+    k_dense = ref.gather_pages(k_pool, table)       # gathered once, untimed
+    v_dense = ref.gather_pages(v_pool, table)
+    kj = torch.arange(nblk * psz, device="cuda")
+    qi = start[:, None] + torch.arange(c, device="cuda")
+    mask = ((kj <= qi[..., None]) & (kj < lens[:, None, None]))[:, None]
+    times = {"ms": timings[("verify", ns)][0],
+             "plain_ms": time_ms(lambda: ref.paged_prefill_split_ref(
+                 q, pools.k, pools.v, table, start, lens, ns, **kw)),
+             "library_ms": time_ms(
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q, k_dense, v_dense, attn_mask=mask, enable_gqa=True))}
+    # phase 1 writes fp32 partials, not o: the combine writes o
+    n_bytes, n_ops = chunk_work(VERIFY_SHAPE, 1 if quant else 2,
+                                4 if quant else 0, writes_o=False)
+    partial_bytes = 4 * len(starts) * h * ns * c * (2 + d)
+    name = "paged_prefill_split_quant" if quant else "paged_prefill_split"
+    r = row(name, PAGED_SOURCE, f"{FLASH}:{1239 if quant else 779}", err,
+            n_bytes + partial_bytes, n_ops, times)
+    combine = timings[("verify", ns)][1][0]
+    k4 = timings.get(("verify", 1))
+    print(f"[{16 if quant else 15} {'K6d' if quant else 'K5b'}] verify shape "
+          f"(yi-6b B=5 H=32 Hkv=4 C=5 D=128 psz=16 nblk=64 starts "
+          f"{starts}), 8 splits, device ms (ms per call incl. host): "
+          f"phase 1 {fmt_times(times)}, bound {r['bound_ms']:.5f} ms "
+          f"({r['bound_by']}); combine {combine:.4f} ms; with the combine "
+          f"the whole verify attention is {r['ms'] + combine:.4f} ms"
+          + (f" against K4's {k4[0][0]:.4f} ms in one pass" if k4 else "")
+          + "; plain = the split plain version (both phases); library = "
+          "SDPA with the causal-offset mask on the pre-gathered "
+          + ("pre-dequantized bf16 " if quant else "") + "K/V (not timed: "
+          "the gather)")
+    return [r]
+
+
+def phase_k5b() -> list[dict]:
+    return split_rows(False, split_phase(False))
+
+
+def phase_k6d() -> list[dict]:
+    return split_rows(True, split_phase(True))
+
+
+def count_draft_calls() -> tuple[dict, Callable[[], None]]:
+    """Wrap ``Model.prefill`` and ``Model.decode_step`` to count the calls
+    made on a draft model (config name ending in ``-draft``); returns the
+    counts and a function that restores the methods."""
+    counts = {"prefill": 0, "decode_step": 0}
+    originals = {name: getattr(Model, name) for name in counts}
+
+    def wrap(name):
+        def method(self, *args, **kw):
+            if self.cfg.name.endswith("-draft"):
+                counts[name] += 1
+            return originals[name](self, *args, **kw)
+        return method
+
+    for name in counts:
+        setattr(Model, name, wrap(name))
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(Model, name, fn)
+    return counts, restore
+
+
+def self_draft_engine(model, params) -> ServingEngine:
+    """The engine of serve (a) with a draft of all the target's layers."""
+    draft = model.draft_model(depth_frac=1.0)
+    return ServingEngine(
+        model, params, n_lanes=SERVE["n_lanes"], max_len=SERVE["max_len"],
+        cache="paged", page_size=16, prefill_chunk=128, draft_model=draft,
+        draft_params=model.slice_draft_params(params, draft), spec_k=4,
+        num_splits=8)
+
+
+def phase_spec_prefix_serves(smi: str, paged: dict, int8_reports: dict,
+                             model, params) -> dict[str, int]:
+    n_layers = 32
+    lines, counts = [], {}
+    spec = dict(cache="paged", page_size=16, prefill_chunk=128, draft=True,
+                spec_k=4, num_splits=8)
+    for label, kw, n_draft, verify, prefill in (
+            ("(a) speculative, 8 splits", spec, 16,
+             pa.paged_prefill_split, pa.flash_paged_prefill),
+            ("(b) speculative, int8, 8 splits", dict(spec, kv_dtype="int8"),
+             16, pa.paged_prefill_split_quant, pa.flash_paged_prefill_quant),
+            ("(e) speculative, 8 splits, a draft of all 32 layers",
+             dict(spec, engine=self_draft_engine(model, params)), n_layers,
+             pa.paged_prefill_split, pa.flash_paged_prefill)):
+        drafts, restore = count_draft_calls()
+        try:
+            report, launches = serve_with_counts(**kw)
+        finally:
+            restore()
+        spec = report["spec"]
+        what, verifies = f"serve {label}", spec["spec_ticks"]
+        check(verifies > 0 and verifies == report["decode_steps"],
+              f"{what}: {verifies} verify calls, {report['decode_steps']} "
+              "ticks")
+        for kernel, want in (
+                (verify, n_layers * verifies),
+                (pa.split_combine, n_layers * verifies),
+                (prefill, n_layers * report["prefill_chunks"]),
+                (fa.flash_attention, n_draft * drafts["prefill"]),
+                (fa.flash_decode, n_draft * drafts["decode_step"])):
+            check(launches[kernel.__name__] == want > 0,
+                  f"{what}: {kernel.__name__} launched "
+                  f"{launches[kernel.__name__]} times, expected {want}")
+        only_launched(launches, (verify, pa.split_combine, prefill,
+                                 fa.flash_attention, fa.flash_decode), what)
+        if n_draft == n_layers:
+            check(spec["accepted_tokens"] > 0,
+                  f"{what}: the target as its own draft had no draft "
+                  "token accepted")
+        counts.setdefault(verify.__name__, launches[verify.__name__])
+        other = int8_reports["int8, one pass"] if "int8" in label else paged
+        emitted = report["generated_tokens"] - SERVE["n_requests"]
+        lines.append(
+            f"{label}: {report['tokens_per_s']:.1f} tok/s, p50 ttft "
+            f"{report['p50_ttft_s']:.4f}s, p50 itl {report['p50_itl_s']:.4f}s,"
+            f" {verifies} verify calls emitting {emitted / verifies:.2f} tokens"
+            f" each (over the lanes), spec {json.dumps(spec)}, draft "
+            f"prefills {drafts['prefill']}, draft decode steps "
+            f"{drafts['decode_step']}, {report['prefill_chunks']} chunks, "
+            f"launches { {k: n for k, n in launches.items() if n} }, greedy "
+            f"tokens equal to the {'13b' if 'int8' in label else 'phase-9'} "
+            f"serve's {greedy_agreement(report, other)}")
+    reports = {}
+    for cache in (True, False):
+        report, launches = serve_with_counts(
+            cache="paged", page_size=16, prefill_chunk=128,
+            prefix_cache=cache, shared_prefix=256)
+        what = f"the prefix-cache {'on' if cache else 'off'} serve"
+        for kernel, want in ((pa.flash_paged_prefill,
+                              n_layers * report["prefill_chunks"]),
+                             (pa.flash_paged_decode,
+                              n_layers * report["decode_steps"])):
+            check(launches[kernel.__name__] == want > 0,
+                  f"{what}: {kernel.__name__} launched "
+                  f"{launches[kernel.__name__]} times, expected {want}")
+        only_launched(launches, (pa.flash_paged_prefill,
+                                 pa.flash_paged_decode), what)
+        reports[cache] = report
+    on, off = reports[True], reports[False]
+    prompts = draw_prompts(ServeConfig(**SERVE, shared_prefix=256),
+                           model.cfg.vocab_size)
+    no_cache = sum(-(-len(p) // 128) for p in prompts)
+    check(off["prefill_chunks"] == no_cache,
+          f"cache off: {off['prefill_chunks']} chunks, expected {no_cache}")
+    check(on["prefix_cache"]["hit_requests"] >= 1
+          and on["cache"]["prefix"]["hits"] >= 1, "no prefix-cache hit")
+    check(on["prefill_chunks"] < no_cache,
+          f"the prefix cache saved no chunk: {on['prefill_chunks']} against "
+          f"{no_cache}")
+    for label, report in (("(c) prefix cache on", on),
+                          ("(d) prefix cache off", off)):
+        lines.append(
+            f"{label}: {report['tokens_per_s']:.1f} tok/s, p50 ttft "
+            f"{report['p50_ttft_s']:.4f}s, mean ttft "
+            f"{report['mean_ttft_s']:.4f}s, p50 itl "
+            f"{report['p50_itl_s']:.4f}s, {report['prefill_chunks']} chunks, "
+            f"{report['decode_steps']} decode steps"
+            + (f", prefix {json.dumps(report['cache']['prefix'])}, hit rate "
+               f"{report['prefix_cache']['hit_rate']:.3f}, greedy tokens "
+               f"equal to (d)'s {greedy_agreement(on, off)}"
+               if report is on else ""))
+    print(f"[17 speculative and prefix-cache serves] yi-6b full, pages of "
+          f"16, chunks of 128, on {smi}: " + "; ".join(lines))
+    return counts
+
+
+def phase_verify_logits(model, params) -> None:
+    """Phase 10's prompt, then one verify of a 5-token chunk (the argmax
+    continuation and 4 seeded tokens) in one pass and with 8 splits, over
+    bf16 and int8 pools, through the kernels and the plain versions; and
+    a one-token verify against the paged decode step on the kernels."""
+    cfg = model.cfg
+    psz, c, plen, max_len = 16, 128, 300, 320
+    nblk = max_len // psz
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    prompt = torch.randint(0, cfg.vocab_size, (1, plen), generator=gen,
+                           device="cuda")
+    table = (torch.randperm(nblk, generator=gen, device="cuda") + 1)
+    table = table.to(torch.int32)[None]
+    extra = torch.randint(0, cfg.vocab_size, (4,), generator=gen,
+                          device="cuda")
+    dev = lambda *x: torch.tensor(x, device="cuda")  # noqa: E731
+    lines = []
+    for quantized in (False, True):
+        runs = {}
+        for use_kernel in (False, True):
+            caches = model.init_paged_caches(nblk + 1, psz, device="cuda",
+                                             quantized=quantized)
+            for start in range(0, plen, c):
+                end = min(start + c, plen)
+                chunk = torch.zeros((1, c), dtype=torch.long, device="cuda")
+                chunk[0, :end - start] = prompt[0, start:end]
+                logits, caches = model.paged_prefill_step(
+                    params, caches, table, chunk, dev(start), dev(end),
+                    dev(end - start - 1), use_kernel=use_kernel)
+            if not use_kernel:
+                first = int(logits[0].argmax())
+            tokens = torch.cat([dev(first), extra])[None]
+            for ns in (None, 8):
+                runs[use_kernel, ns], caches = model.speculative_step(
+                    params, caches, table, tokens, dev(plen), dev(plen + 5),
+                    num_splits=ns, use_kernel=use_kernel)
+            if use_kernel:
+                one, caches = model.speculative_step(
+                    params, caches, table, tokens[:, :1], dev(plen),
+                    dev(plen + 1), num_splits=8, use_kernel=True)
+                dec, caches = model.paged_decode_step(
+                    params, caches, table, tokens[:, :1], dev(plen),
+                    use_kernel=True)
+        torch.cuda.synchronize()
+        kind = "int8" if quantized else "bf16"
+        for ns in (None, 8):
+            lines.append(f"{kind} pools, {'8 splits' if ns else 'one pass'}: "
+                         + check_logits(runs[False, ns][0, :, None],
+                                        runs[True, ns][0, :, None],
+                                        cfg.padded_vocab,
+                                        f"{kind} verify logits"))
+        lines.append(f"{kind} one-token verify vs paged decode step: "
+                     + check_logits(dec[:, None], one[:, 0][:, None],
+                                    cfg.padded_vocab,
+                                    f"{kind} one-token verify"))
+    print("[18 verify logits] yi-6b full, 300-token prompt as chunks of 128, "
+          "then a verify of 5 tokens: " + "; ".join(lines))
 
 
 def main() -> int:
@@ -957,8 +1361,14 @@ def main() -> int:
                      ("flash_paged_decode", "flash_paged_prefill")})
     phase_paged_logits(model, params)
     rows += phase_k5() + phase_k6()
-    launches.update(phase_split_int8_serves(smi, paged))
+    counts, int8_reports = phase_split_int8_serves(smi, paged)
+    launches.update(counts)
     phase_int8_logits(model, params)
+    rows += phase_k5b() + phase_k6d()
+    launches.update(phase_spec_prefix_serves(smi, paged, int8_reports,
+                                             model, params))
+    phase_verify_logits(model, params)
+    check(len(rows) == 11, f"{len(rows)} kernel rows, expected 11")
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}))

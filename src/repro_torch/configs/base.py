@@ -2,8 +2,9 @@
 
 The fields and derived properties follow the JAX package's ``ArchConfig``
 exactly, so a config built here describes the same network; only the
-parts the dense serving path reads are kept as methods.  ``reduced()``
-returns the CPU test configuration of the same family.
+parts the serving path reads are kept as methods.  ``reduced()``
+returns the CPU test configuration of the same family, ``draft_config()``
+the speculative draft.
 """
 from __future__ import annotations
 
@@ -83,6 +84,30 @@ class ArchConfig:
         if self.family == "encdec":
             return ["encdec_layer"] * self.n_layers
         raise ValueError(self.family)
+
+    def draft_config(self, depth_frac: float = 0.5,
+                     width_frac: float = 1.0) -> "ArchConfig":
+        """Speculative-decoding draft: the same family at reduced depth
+        (and optionally width), sharing the target's vocabulary.
+
+        The default keeps the width, so the draft can be self-speculative:
+        its weights are the target's leading layers
+        (:func:`repro_torch.models.transformer.slice_draft_params`) with
+        the embedding and head shared.  ``width_frac < 1`` describes an
+        independently initialised draft (its own geometry, nothing
+        shared)."""
+        def scale(n: int, frac: float, floor: int = 1) -> int:
+            return max(floor, int(n * frac))
+
+        kw: dict = {"name": f"{self.name}-draft",
+                    "n_layers": scale(self.n_layers, depth_frac)}
+        if width_frac < 1.0:
+            kw.update(d_model=scale(self.d_model, width_frac, 32),
+                      n_heads=scale(self.n_heads, width_frac),
+                      d_ff=scale(self.d_ff, width_frac, 32),
+                      d_head=self.head_dim)       # keep head geometry
+            kw["n_kv_heads"] = max(1, min(self.n_kv_heads, kw["n_heads"]))
+        return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ArchConfig":
         """CPU test config of the same family (float32 compute and cache,

@@ -14,10 +14,12 @@
 // K6a paged_decode_kernel<int8, normalise> flash_paged_decode_quant /
 //                                          _paged_decode_quant_kernel
 // K6b paged_decode_kernel<int8, partials>  _paged_decode_split_quant_kernel
-// K4  paged_prefill_kernel<fp>             flash_paged_prefill /
+// K4  paged_prefill_kernel<fp, one pass>   flash_paged_prefill /
 //                                          _paged_prefill_kernel (num_splits=1)
-// K6c paged_prefill_kernel<int8>           flash_paged_prefill_quant /
+// K5b paged_prefill_kernel<fp, partials>   _paged_prefill_split_kernel
+// K6c paged_prefill_kernel<int8, one pass> flash_paged_prefill_quant /
 //                                          _paged_prefill_quant_kernel
+// K6d paged_prefill_kernel<int8, partials> _paged_prefill_split_quant_kernel
 //
 // Semantics kept from the TPU kernels: key j of sequence b lives in page
 // table[b, j / psz] at slot j % psz; only keys j < kv_len[b] are read (table
@@ -56,8 +58,19 @@
 //    row fetched through the table and dequantised on the way in for int8
 //    pools; a tile is skipped when it starts at or past kv_len or past the
 //    tile's last query.  Rows past the chunk are padding: loaded as 0,
-//    never stored.
-//    Tensor cores (wgmma), TMA and prefill split-KV are left for later PRs.
+//    never stored.  Split prefill/verify (K5b/K6d) folds the split into
+//    the grid's x axis (q_tile * ns + split, as the TPU kernel folds rows
+//    at iq * ns + isp); split s walks the contiguous share [s * per,
+//    min((s + 1) * per, t_hi)) of the block's live tiles, per = ceil(t_hi
+//    / ns), and writes fp32 partials m, l (B, H, ns, C) and acc (B, H,
+//    ns, C, D) for the chunk's C rows only (not the padded 64-row tile:
+//    a 5-row verify chunk writes 5 rows), merged by K5c.  A split with
+//    no tile, or a row that sees no key of its split, writes (-1e30, 0,
+//    0).  What bounds split verify: the K/V walk of the lane's prefix
+//    (one 32-key tile's load latency per tile and warp, as K4); the
+//    split cuts the tiles each block walks by ns, for ns blocks per
+//    (head, q tile) and a partials round trip of C rows.
+//    Tensor cores (wgmma) and TMA are left for later PRs.
 
 #include "common.cuh"
 
@@ -287,9 +300,11 @@ __global__ void split_combine_kernel(const float* __restrict__ pm,
 }
 
 // ---------------------------------------------------------------------------
-// K4 / K6c: paged chunked prefill, q (B, H, C, D) of type T, pools
-// (P, Hkv, psz, D) of type S (T, or int8_t with scales (P, Hkv, psz)),
-// table (B, nblk), start and kv_len (B,) int32, o like q.
+// K4 / K5b / K6c / K6d: paged chunked prefill, q (B, H, C, D) of type T,
+// pools (P, Hkv, psz, D) of type S (T, or int8_t with scales (P, Hkv,
+// psz)), table (B, nblk), start and kv_len (B,) int32.  SPLIT = false:
+// normalise and store o like q; SPLIT = true: blockIdx.x = q_tile * ns +
+// split, partials m, l (B, H, ns, C) and acc (B, H, ns, C, D) fp32.
 // ---------------------------------------------------------------------------
 
 namespace k4 {
@@ -307,7 +322,7 @@ constexpr size_t smem_bytes() {
 }
 }  // namespace k4
 
-template <typename T, typename S, int D>
+template <typename T, typename S, int D, bool SPLIT>
 __global__ void __launch_bounds__(k4::THREADS)
 paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
                      const S* __restrict__ vp, const float* __restrict__ ksc,
@@ -315,7 +330,9 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
                      const int* __restrict__ table,
                      const int* __restrict__ start,
                      const int* __restrict__ kv_len, T* __restrict__ o,
-                     int H, int Hkv, int C, int psz, int nblk, float scale) {
+                     float* __restrict__ pm, float* __restrict__ pl,
+                     float* __restrict__ pacc, int H, int Hkv, int C,
+                     int psz, int nblk, int ns, float scale) {
   using namespace k4;
   constexpr bool QUANT = std::is_same_v<S, int8_t>;
   constexpr int NC = (D + 31) / 32;  // output columns per lane
@@ -329,7 +346,10 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
   __shared__ float k_scales[BK];     // and their scales (int8 pools)
   __shared__ float v_scales[BK];
 
-  const int i0 = blockIdx.x * BQ;    // first chunk row of the tile
+  // the q tile and, split, which share of its key tiles this block walks
+  const int tile = SPLIT ? blockIdx.x / ns : blockIdx.x;
+  const int split = SPLIT ? blockIdx.x - tile * ns : 0;
+  const int i0 = tile * BQ;          // first chunk row of the tile
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -349,7 +369,13 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
   // live key tiles: committed (k_start < kv_len) and causally visible to
   // the tile's last query (k_start <= q_start + BQ - 1)
   const int last = q_start + BQ - 1;
-  const int t_hi = last < 0 ? 0 : min((len + BK - 1) / BK, last / BK + 1);
+  int t_lo = 0;
+  int t_hi = last < 0 ? 0 : min((len + BK - 1) / BK, last / BK + 1);
+  if constexpr (SPLIT) {
+    const int per = (t_hi + ns - 1) / ns;
+    t_lo = min(split * per, t_hi);
+    t_hi = min(t_hi, t_lo + per);
+  }
 
   float m[RPW], l[RPW], acc[RPW][NC];
 #pragma unroll
@@ -360,7 +386,7 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
     for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   }
 
-  for (int t = 0; t < t_hi; ++t) {
+  for (int t = t_lo; t < t_hi; ++t) {
     const int k_start = t * BK;
     __syncthreads();  // the previous tile is consumed (and Q is staged)
     if (tid < BK) {
@@ -410,7 +436,13 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
       const bool live = kj < len && kj <= qi;
       const float x = live ? s[r] * scale : kNegInf;
       const float m_cur = fmaxf(m[r], warp_max(x));
-      const float p = expf(x - m_cur);
+      // a split may start past a row's last visible key: with nothing
+      // seen, m_cur is -1e30 and exp(x - m_cur) would weigh masked keys
+      // 1, so split partials weigh them 0 (from tile 0 on, key 0 is
+      // visible to every row, and the one-pass kernel never meets this)
+      float p;
+      if constexpr (SPLIT) p = live ? expf(x - m_cur) : 0.f;
+      else p = expf(x - m_cur);
       const float alpha = expf(m[r] - m_cur);
       l[r] = l[r] * alpha + warp_sum(p);
       m[r] = m_cur;
@@ -445,11 +477,25 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
   for (int r = 0; r < RPW; ++r) {
     const int i = i0 + r0 + r;
     if (i >= C) continue;              // padding of the last q tile
-    const float denom = l[r] == 0.f ? 1.f : l[r];
+    if constexpr (SPLIT) {
+      // unnormalised state of (b, h, split, row i)
+      const size_t prow = (((size_t)b * H + h) * ns + split) * C + i;
+      if (lane == 0) {
+        pm[prow] = m[r];
+        pl[prow] = l[r];
+      }
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) o[qoff + (size_t)i * D + col] = from_float<T>(acc[r][c] / denom);
+      for (int c = 0; c < NC; ++c) {
+        const int col = lane + 32 * c;
+        if (col < D) pacc[prow * D + col] = acc[r][c];
+      }
+    } else {
+      const float denom = l[r] == 0.f ? 1.f : l[r];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int col = lane + 32 * c;
+        if (col < D) o[qoff + (size_t)i * D + col] = from_float<T>(acc[r][c] / denom);
+      }
     }
   }
 }
@@ -532,45 +578,53 @@ struct PrefillArgs {
   const int* table;
   const int* start;
   const int* kv_len;
-  void* o;
-  int B, H, Hkv, C, psz, nblk, D;
+  void* o;               // normalised output (one pass)
+  float* pm;             // partials (split)
+  float* pl;
+  float* pacc;
+  int B, H, Hkv, C, psz, nblk, ns, D;
   float scale;
   cudaStream_t st;
 };
 
-template <typename T, typename S, int D>
+template <typename T, typename S, int D, bool SPLIT>
 cudaError_t launch_prefill(const PrefillArgs& a) {
   constexpr size_t smem = k4::smem_bytes<D>();
-  auto kern = paged_prefill_kernel<T, S, D>;
+  auto kern = paged_prefill_kernel<T, S, D, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.C + k4::BQ - 1) / k4::BQ, a.H, a.B);
+  const int n_tiles = (a.C + k4::BQ - 1) / k4::BQ;
+  const dim3 grid(n_tiles * (SPLIT ? a.ns : 1), a.H, a.B);
   kern<<<grid, k4::THREADS, smem, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const S*>(a.kp),
       static_cast<const S*>(a.vp), a.ksc, a.vsc, a.table, a.start, a.kv_len,
-      static_cast<T*>(a.o), a.H, a.Hkv, a.C, a.psz, a.nblk, a.scale);
+      static_cast<T*>(a.o), a.pm, a.pl, a.pacc, a.H, a.Hkv, a.C, a.psz,
+      a.nblk, SPLIT ? a.ns : 1, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, typename S>
+template <typename T, typename S, bool SPLIT>
 cudaError_t prefill_by_dim(const PrefillArgs& a) {
   switch (a.D) {
-    case 16: return launch_prefill<T, S, 16>(a);
-    case 32: return launch_prefill<T, S, 32>(a);
-    case 64: return launch_prefill<T, S, 64>(a);
-    case 128: return launch_prefill<T, S, 128>(a);
+    case 16: return launch_prefill<T, S, 16, SPLIT>(a);
+    case 32: return launch_prefill<T, S, 32, SPLIT>(a);
+    case 64: return launch_prefill<T, S, 64, SPLIT>(a);
+    case 128: return launch_prefill<T, S, 128, SPLIT>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool QUANT>
+template <bool QUANT, bool SPLIT>
 cudaError_t prefill(const PrefillArgs& a, int dtype) {
+  if (SPLIT && a.ns < 1) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return prefill_by_dim<float, std::conditional_t<QUANT, int8_t, float>>(a);
+    return prefill_by_dim<float, std::conditional_t<QUANT, int8_t, float>,
+                          SPLIT>(a);
   if (dtype == 1)
     return prefill_by_dim<__nv_bfloat16,
-                          std::conditional_t<QUANT, int8_t, __nv_bfloat16>>(a);
+                          std::conditional_t<QUANT, int8_t, __nv_bfloat16>,
+                          SPLIT>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -679,9 +733,10 @@ extern "C" int repro_flash_paged_prefill(const void* q, const void* k_pool,
   const PrefillArgs a{q, k_pool, v_pool, nullptr, nullptr,
                       static_cast<const int*>(page_table),
                       static_cast<const int*>(start),
-                      static_cast<const int*>(kv_len), o, B, H, Hkv, C, psz,
-                      nblk, D, scale, static_cast<cudaStream_t>(stream)};
-  return prefill<false>(a, dtype);
+                      static_cast<const int*>(kv_len), o, nullptr, nullptr,
+                      nullptr, B, H, Hkv, C, psz, nblk, 1, D, scale,
+                      static_cast<cudaStream_t>(stream)};
+  return prefill<false, false>(a, dtype);
 }
 
 // K6c: int8 pools with scales (P, Hkv, psz).
@@ -694,7 +749,42 @@ extern "C" int repro_flash_paged_prefill_quant(
                       static_cast<const float*>(v_scale),
                       static_cast<const int*>(page_table),
                       static_cast<const int*>(start),
-                      static_cast<const int*>(kv_len), o, B, H, Hkv, C, psz,
-                      nblk, D, scale, static_cast<cudaStream_t>(stream)};
-  return prefill<true>(a, dtype);
+                      static_cast<const int*>(kv_len), o, nullptr, nullptr,
+                      nullptr, B, H, Hkv, C, psz, nblk, 1, D, scale,
+                      static_cast<cudaStream_t>(stream)};
+  return prefill<true, false>(a, dtype);
+}
+
+// K5b: fp pools, ns splits, partials m, l (B, H, ns, C), acc (.., D).
+extern "C" int repro_paged_prefill_split(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* page_table, const void* start, const void* kv_len, void* m,
+    void* l, void* acc, int B, int H, int Hkv, int C, int psz, int nblk,
+    int ns, int D, int dtype, float scale, void* stream) {
+  const PrefillArgs a{q, k_pool, v_pool, nullptr, nullptr,
+                      static_cast<const int*>(page_table),
+                      static_cast<const int*>(start),
+                      static_cast<const int*>(kv_len), nullptr,
+                      static_cast<float*>(m), static_cast<float*>(l),
+                      static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns,
+                      D, scale, static_cast<cudaStream_t>(stream)};
+  return prefill<false, true>(a, dtype);
+}
+
+// K6d: int8 pools with scales, ns splits, partials as K5b.
+extern "C" int repro_paged_prefill_split_quant(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* page_table,
+    const void* start, const void* kv_len, void* m, void* l, void* acc,
+    int B, int H, int Hkv, int C, int psz, int nblk, int ns, int D,
+    int dtype, float scale, void* stream) {
+  const PrefillArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+                      static_cast<const float*>(v_scale),
+                      static_cast<const int*>(page_table),
+                      static_cast<const int*>(start),
+                      static_cast<const int*>(kv_len), nullptr,
+                      static_cast<float*>(m), static_cast<float*>(l),
+                      static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns,
+                      D, scale, static_cast<cudaStream_t>(stream)};
+  return prefill<true, true>(a, dtype);
 }

@@ -110,29 +110,52 @@ def paged_decode(q: torch.Tensor, pools: PagedPools, page_table: torch.Tensor,
                                 k_scale=pools.k_scale, v_scale=pools.v_scale)
 
 
-def paged_prefill(q: torch.Tensor, pools: PagedPools,
-                  page_table: torch.Tensor, start: torch.Tensor,
-                  kv_len: torch.Tensor, *, mesh=None,
-                  num_splits: int | None = None,
-                  use_kernel: bool | None = None) -> torch.Tensor:
-    """Chunked-prefill attention over a paged KV cache (K4 on the card,
-    K6c over int8 pools).  q (B, H, C, D) with its first token at absolute
-    position ``start``; the chunk's K/V must already be in the pages
-    (write before read)."""
+def _paged_chunk(q: torch.Tensor, pools: PagedPools,
+                 page_table: torch.Tensor, start: torch.Tensor,
+                 kv_len: torch.Tensor, mesh, num_splits: int | None,
+                 use_kernel: bool | None) -> torch.Tensor:
+    """The body shared by prefill and verify: on the card K4 over fp
+    pools, K6c over int8 ones, or with ``num_splits`` above 1 their split
+    forms (K5b / K6d) and the combine K5c; the plain version ignores
+    ``num_splits``, as the JAX package's does on the CPU."""
     _check_mesh(mesh)
-    if num_splits not in (None, 1):
-        raise NotImplementedError(
-            f"split-KV prefill (num_splits={num_splits}) is not ported yet: "
-            "it comes with speculative verify, ROADMAP queue 1, item 5")
     _check_pools(pools)
     if _use_kernel(q, use_kernel):
         args = (_int32(page_table, q.device), _int32(start, q.device),
                 _int32(kv_len, q.device))
         if pools.quantized:
-            return flash_paged_prefill_quant(q.contiguous(), pools.k, pools.v,
-                                             pools.k_scale, pools.v_scale,
-                                             *args)
-        return flash_paged_prefill(q.contiguous(), pools.k, pools.v, *args)
+            return flash_paged_prefill_quant(
+                q.contiguous(), pools.k, pools.v, pools.k_scale,
+                pools.v_scale, *args, num_splits=num_splits)
+        return flash_paged_prefill(q.contiguous(), pools.k, pools.v, *args,
+                                   num_splits=num_splits)
     return ref.paged_prefill_ref(q, pools.k, pools.v, page_table, start,
                                  kv_len, k_scale=pools.k_scale,
                                  v_scale=pools.v_scale)
+
+
+def paged_prefill(q: torch.Tensor, pools: PagedPools,
+                  page_table: torch.Tensor, start: torch.Tensor,
+                  kv_len: torch.Tensor, *, mesh=None,
+                  num_splits: int | None = None,
+                  use_kernel: bool | None = None) -> torch.Tensor:
+    """Chunked-prefill attention over a paged KV cache.  q (B, H, C, D)
+    with its first token at absolute position ``start``; the chunk's K/V
+    must already be in the pages (write before read)."""
+    return _paged_chunk(q, pools, page_table, start, kv_len, mesh,
+                        num_splits, use_kernel)
+
+
+def paged_verify(q: torch.Tensor, pools: PagedPools,
+                 page_table: torch.Tensor, start: torch.Tensor,
+                 kv_len: torch.Tensor, *, mesh=None,
+                 num_splits: int | None = None,
+                 use_kernel: bool | None = None) -> torch.Tensor:
+    """Speculative-verify attention over a paged KV cache: the chunk is
+    ``[last committed token, draft_1 .. draft_k]`` (q (B, H, k+1, D) at
+    absolute positions from ``start``), the same math through the same
+    kernels as :func:`paged_prefill`.  Its own entry point, as in the
+    JAX package, whose tuning layer gives verify its own tile space; the
+    engine hands ``num_splits`` here and to decode, never to prefill."""
+    return _paged_chunk(q, pools, page_table, start, kv_len, mesh,
+                        num_splits, use_kernel)

@@ -14,8 +14,11 @@
   sequence at absolute positions ``start[b] + i``, causal over the
   committed paged prefix plus the chunk's own triangle; key ``j`` is
   valid iff ``j < kv_len[b]``.  The chunk's K/V must already be in the
-  pages (write before read).  :func:`flash_paged_prefill_quant` (K6c) is
-  the same over int8 pools.
+  pages (write before read).  ``num_splits`` above 1 launches K5b
+  (:func:`paged_prefill_split`, the chunk's live key tiles cut into
+  splits, fp32 partials of the chunk's C rows) and K5c.
+  :func:`flash_paged_prefill_quant` is the same over int8 pools: K6c, or
+  K6d (:func:`paged_prefill_split_quant`) + K5c.
 
 Table entries past ``ceil(kv_len / psz)`` are never read and may point
 anywhere (page 0 by convention); entries below it must name pages of the
@@ -50,6 +53,8 @@ def _lib() -> ctypes.CDLL:
         "repro_split_combine": [_P] * 4 + [_I] * 5 + [_P],
         "repro_flash_paged_prefill": [_P] * 7 + [_I] * 8 + [_F, _P],
         "repro_flash_paged_prefill_quant": [_P] * 9 + [_I] * 8 + [_F, _P],
+        "repro_paged_prefill_split": [_P] * 9 + [_I] * 9 + [_F, _P],
+        "repro_paged_prefill_split_quant": [_P] * 11 + [_I] * 9 + [_F, _P],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -130,6 +135,12 @@ def _num_splits(num_splits: int | None, nblk: int) -> int:
     return max(1, min(int(num_splits or 1), nblk))
 
 
+def _check_splits(name: str, num_splits: int) -> None:
+    if not isinstance(num_splits, int) or num_splits < 1:
+        raise ValueError(f"{name}: num_splits must be an int >= 1, got "
+                         f"{num_splits!r}")
+
+
 def _decode_shape(name: str, q: torch.Tensor, k_pool: torch.Tensor,
                   scale: float | None):
     b, h, one, d = q.shape
@@ -145,6 +156,23 @@ def _partials(q: torch.Tensor, hkv: int, ns: int):
     kw = dict(dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, ns, h // hkv), **kw)
     return m, torch.empty_like(m), torch.empty((b, hkv, ns, h // hkv, d), **kw)
+
+
+def _prefill_shape(q: torch.Tensor, k_pool: torch.Tensor,
+                   scale: float | None):
+    b, h, c, d = q.shape
+    _, hkv, psz, _ = k_pool.shape
+    return b, h, hkv, c, psz, d, float(scale if scale is not None
+                                       else d ** -0.5)
+
+
+def _prefill_partials(q: torch.Tensor, ns: int):
+    """fp32 (m, l, acc) of every split of a chunk: (B, H, ns, C) and
+    (.., D), the chunk's C rows only."""
+    b, h, c, d = q.shape
+    kw = dict(dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, ns, c), **kw)
+    return m, torch.empty_like(m), torch.empty((b, h, ns, c, d), **kw)
 
 
 def split_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
@@ -264,18 +292,70 @@ def flash_paged_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+def paged_prefill_split(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, page_table: torch.Tensor,
+                        start: torch.Tensor, kv_len: torch.Tensor,
+                        num_splits: int, *, scale: float | None = None):
+    """K5b: phase 1 of split prefill/verify over fp pools; returns the
+    fp32 partials (m, l, acc) of ``num_splits`` splits, (B, H, ns, C) and
+    (.., D)."""
+    _check("paged_prefill_split", q, k_pool, v_pool, page_table,
+           (start, kv_len))
+    _check_splits("paged_prefill_split", num_splits)
+    b, h, hkv, c, psz, d, scale = _prefill_shape(q, k_pool, scale)
+    m, l, acc = _prefill_partials(q, num_splits)
+    with torch.cuda.device(q.device):
+        err = _lib().repro_paged_prefill_split(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), start.data_ptr(), kv_len.data_ptr(),
+            m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, h, hkv, c, psz,
+            page_table.shape[1], num_splits, d, _DTYPES[q.dtype], scale,
+            _stream(q))
+    _raise_on("paged_prefill_split", err)
+    paged_prefill_split.launches += 1
+    return m, l, acc
+
+
+def paged_prefill_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor, page_table: torch.Tensor,
+                              start: torch.Tensor, kv_len: torch.Tensor,
+                              num_splits: int, *, scale: float | None = None):
+    """K6d: :func:`paged_prefill_split` over int8 pools and their scales."""
+    _check("paged_prefill_split_quant", q, k_pool, v_pool, page_table,
+           (start, kv_len), (k_scale, v_scale))
+    _check_splits("paged_prefill_split_quant", num_splits)
+    b, h, hkv, c, psz, d, scale = _prefill_shape(q, k_pool, scale)
+    m, l, acc = _prefill_partials(q, num_splits)
+    with torch.cuda.device(q.device):
+        err = _lib().repro_paged_prefill_split_quant(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
+            start.data_ptr(), kv_len.data_ptr(), m.data_ptr(), l.data_ptr(),
+            acc.data_ptr(), b, h, hkv, c, psz, page_table.shape[1],
+            num_splits, d, _DTYPES[q.dtype], scale, _stream(q))
+    _raise_on("paged_prefill_split_quant", err)
+    paged_prefill_split_quant.launches += 1
+    return m, l, acc
+
+
 def flash_paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, page_table: torch.Tensor,
                         start: torch.Tensor, kv_len: torch.Tensor, *,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None,
+                        num_splits: int | None = None) -> torch.Tensor:
     """Paged chunked prefill: q (B, H, C, D), pools (P, Hkv, psz, D),
     page_table (B, nblk), start and kv_len (B,) int32 on q's device.
-    Output like q; rows at positions ``>= kv_len`` are padding."""
+    Output like q; rows at positions ``>= kv_len`` are padding.
+    ``num_splits`` (clamped to nblk) above 1 runs K5b + K5c, else K4."""
+    ns = _num_splits(num_splits, page_table.shape[-1])
+    if ns > 1:              # K5b checks its inputs
+        m, l, acc = paged_prefill_split(q, k_pool, v_pool, page_table, start,
+                                        kv_len, ns, scale=scale)
+        return split_combine(m, l, acc, q.dtype)
     _check("flash_paged_prefill", q, k_pool, v_pool, page_table,
            (start, kv_len))
-    b, h, c, d = q.shape
-    _, hkv, psz, _ = k_pool.shape
-    scale = float(scale if scale is not None else d ** -0.5)
+    b, h, hkv, c, psz, d, scale = _prefill_shape(q, k_pool, scale)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _lib().repro_flash_paged_prefill(
@@ -292,14 +372,20 @@ def flash_paged_prefill_quant(q: torch.Tensor, k_pool: torch.Tensor,
                               v_pool: torch.Tensor, k_scale: torch.Tensor,
                               v_scale: torch.Tensor, page_table: torch.Tensor,
                               start: torch.Tensor, kv_len: torch.Tensor, *,
-                              scale: float | None = None) -> torch.Tensor:
-    """K6c: :func:`flash_paged_prefill` over int8 pools with float32
-    per-row scales (P, Hkv, psz); q float32 or bfloat16, output like q."""
+                              scale: float | None = None,
+                              num_splits: int | None = None) -> torch.Tensor:
+    """:func:`flash_paged_prefill` over int8 pools with float32 per-row
+    scales (P, Hkv, psz); q float32 or bfloat16, output like q.  K6c, or
+    K6d + K5c for ``num_splits`` above 1."""
+    ns = _num_splits(num_splits, page_table.shape[-1])
+    if ns > 1:              # K6d checks its inputs
+        m, l, acc = paged_prefill_split_quant(q, k_pool, v_pool, k_scale,
+                                              v_scale, page_table, start,
+                                              kv_len, ns, scale=scale)
+        return split_combine(m, l, acc, q.dtype)
     _check("flash_paged_prefill_quant", q, k_pool, v_pool, page_table,
            (start, kv_len), (k_scale, v_scale))
-    b, h, c, d = q.shape
-    _, hkv, psz, _ = k_pool.shape
-    scale = float(scale if scale is not None else d ** -0.5)
+    b, h, hkv, c, psz, d, scale = _prefill_shape(q, k_pool, scale)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _lib().repro_flash_paged_prefill_quant(
@@ -314,9 +400,10 @@ def flash_paged_prefill_quant(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 #: the kernels of this module, one launch counter each, for counters and
-#: reports: K3, K5a, K5c, K6a, K6b, K4, K6c
+#: reports: K3, K5a, K5c, K6a, K6b, K4, K6c, K5b, K6d
 KERNELS = (flash_paged_decode, paged_decode_split, split_combine,
            flash_paged_decode_quant, paged_decode_split_quant,
-           flash_paged_prefill, flash_paged_prefill_quant)
+           flash_paged_prefill, flash_paged_prefill_quant,
+           paged_prefill_split, paged_prefill_split_quant)
 for _kernel in KERNELS:
     _kernel.launches = 0

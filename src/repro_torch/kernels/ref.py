@@ -9,7 +9,10 @@ versions gather the pages through the page table into a dense view first
 and then run the same math; given ``k_scale``/``v_scale`` (int8 pools
 with per-row fp32 scales (P, Hkv, psz)) they dequantize the pools first.
 :func:`paged_decode_split_ref` is the split-KV decode: per-segment
-softmax states merged by :func:`combine_split_states`.
+softmax states merged by :func:`combine_split_states`;
+:func:`paged_prefill_split_ref` the split chunked prefill (and verify),
+cutting each query tile's live key tiles exactly as the kernels K5b/K6d
+do, so their partials compare as well as their output.
 
 A row that sees no key at all (``kv_len == 0``) gets a uniform softmax
 over the ``-1e30`` scores here, i.e. the mean of ``v``; the kernels give
@@ -182,3 +185,62 @@ def paged_prefill_ref(q: torch.Tensor, k_pool: torch.Tensor,
     s = torch.where(mask[:, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def paged_prefill_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, page_table: torch.Tensor,
+                            start: torch.Tensor, kv_len: torch.Tensor,
+                            num_splits: int, *, scale: float | None = None,
+                            k_scale: torch.Tensor | None = None,
+                            v_scale: torch.Tensor | None = None,
+                            block_q: int = 64, block_k: int = 32):
+    """Chunked prefill as ``num_splits`` segments of each query tile's
+    live key tiles: the two phases of K5b/K6d + K5c, in plain PyTorch.
+
+    Row ``i`` sits in query tile ``i // block_q``, whose live key tiles
+    are ``t < t_hi = min(ceil(kv_len / block_k), last // block_k + 1)``
+    with ``last = start + (i // block_q + 1) * block_q - 1`` the tile's
+    last query position; split ``s`` takes tiles ``[s * per, min((s + 1)
+    * per, t_hi))``, ``per = ceil(t_hi / num_splits)``, masked causally
+    and by ``kv_len`` as :func:`paged_prefill_ref`.  A split with no key
+    visible to a row gives that row (m, l, acc) = (-1e30, 0, 0).
+
+    Returns ``(out, (m, l, acc))``: the merged output like q (a row with
+    no key at all gives exactly 0) and the fp32 partials, (B, H, ns, C)
+    and (B, H, ns, C, D)."""
+    b, h, c, d = q.shape
+    ns = num_splits
+    k_pool, v_pool = _dequantize_pools(k_pool, v_pool, k_scale, v_scale)
+    k = gather_pages(k_pool, page_table).float()
+    v = gather_pages(v_pool, page_table).float()
+    g = h // k.shape[1]
+    sk = k.shape[2]
+    scale = float(scale if scale is not None else d ** -0.5)
+    kk = torch.repeat_interleave(k, g, dim=1)
+    vv = torch.repeat_interleave(v, g, dim=1)
+    dev = q.device
+    start, kv_len = start.to(dev).long(), kv_len.to(dev).long()
+    rows = torch.arange(c, device=dev)
+    qi = start[:, None] + rows                                   # (B, C)
+    last = start[:, None] + (rows // block_q + 1) * block_q - 1
+    n_live = -(-kv_len.clamp(min=0, max=sk) // block_k)           # (B,)
+    t_hi = torch.minimum(n_live[:, None],
+                         torch.div(last, block_k, rounding_mode="floor") + 1)
+    t_hi = torch.where(last < 0, 0, t_hi)                        # (B, C)
+    per = -(-t_hi // ns)
+    split = torch.arange(ns, device=dev)[:, None, None]          # (ns,1,1)
+    lo = torch.minimum(split * per, t_hi) * block_k              # (ns, B, C)
+    hi = torch.minimum(t_hi, split * per + per) * block_k
+    kj = torch.arange(sk, device=dev)
+    visible = (kj <= qi[..., None]) & (kj < kv_len[:, None, None])  # (B,C,S)
+    mask = visible & (kj >= lo[..., None]) & (kj < hi[..., None])   # (ns,B,C,S)
+    mask = mask.permute(1, 0, 2, 3)[:, None]                     # (B,1,ns,C,S)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    s = torch.where(mask, s[:, :, None], NEG_INF)                # (B,H,ns,C,S)
+    m = s.amax(dim=-1)              # -1e30 where the split sees no key
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhnqk,bhkd->bhnqd", p, vv)
+    _, l_star, acc_star = combine_split_states(m, l, acc)
+    out = finalize_split_states(l_star, acc_star).to(q.dtype)
+    return out, (m, l, acc)

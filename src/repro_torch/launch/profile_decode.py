@@ -7,8 +7,10 @@ the host time per tick, the device time per tick (sum of the kernels'
 own times), the device busy share (device time / host time), and the
 kernels that take the most device time.  ``--cache paged`` traces the
 paged decode tick, ``--kv-dtype int8`` over int8 pages and
-``--num-splits N`` with split-KV decode.  With ``--trace`` it also writes
-a Chrome trace.
+``--num-splits N`` with split-KV decode (and verify); ``--draft --spec-k
+K`` traces speculative ticks (draft proposals, one verify, the accept
+rule) and adds the tokens they emitted per tick.  With ``--trace`` it
+also writes a Chrome trace.
 
 Usage (on the card)::
 
@@ -18,6 +20,8 @@ Usage (on the card)::
         --cache paged --prefill-chunk 128
     PYTHONPATH=src python -m repro_torch.launch.profile_decode --full \
         --cache paged --prefill-chunk 128 --kv-dtype int8 --num-splits 8
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode --full \
+        --cache paged --prefill-chunk 128 --draft --spec-k 4 --num-splits 8
 """
 from __future__ import annotations
 
@@ -48,21 +52,29 @@ def profile_decode(arch: str = "yi-6b", reduced: bool = True,
                    device: str = "cuda", trace: str | None = None,
                    cache: str = "dense",
                    prefill_chunk: int | None = None, kv_dtype: str = "fp",
-                   num_splits: int | None = None) -> dict:
+                   num_splits: int | None = None,
+                   spec_k: int | None = None) -> dict:
     dev = resolve(device)
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
-    engine = ServingEngine(model, model.init(0, dev), n_lanes=n_lanes,
+    params = model.init(0, dev)
+    draft = {}
+    if spec_k is not None:
+        dmodel = model.draft_model()
+        draft = dict(draft_model=dmodel, spec_k=spec_k,
+                     draft_params=model.slice_draft_params(params, dmodel))
+    engine = ServingEngine(model, params, n_lanes=n_lanes,
                            max_len=max_len, cache=cache,
                            prefill_chunk=prefill_chunk, kv_dtype=kv_dtype,
-                           num_splits=num_splits)
+                           num_splits=num_splits, **draft)
     rng = np.random.default_rng(0)
     for rid in range(n_lanes):
         prompt = rng.integers(0, cfg.vocab_size, size=prompt_len - 1)
+        # room for every traced tick to emit its most tokens
         engine.submit(Request(rid=rid, prompt=prompt.tolist(),
-                              max_new_tokens=steps + 4))
+                              max_new_tokens=(steps + 4) * (1 + (spec_k or 0))))
     engine.step()                  # admissions (prefill) + the first tick
     while engine.scheduler.prefill_lanes():
         engine.step()              # the rest of a chunked prefill
@@ -72,11 +84,17 @@ def profile_decode(arch: str = "yi-6b", reduced: bool = True,
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+    def emitted() -> int:
+        return sum(len(r.out_tokens)
+                   for r in [*engine.active.values(), *engine.finished])
+
+    tokens0 = emitted()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             engine.step()
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    tokens = emitted() - tokens0
     if trace:
         prof.export_chrome_trace(trace)
     kernels = [e for e in prof.key_averages()
@@ -87,6 +105,7 @@ def profile_decode(arch: str = "yi-6b", reduced: bool = True,
             for e in kernels[:top]]
     return {"host_ms_per_tick": host_ms, "device_ms_per_tick": device_ms,
             "busy_share": device_ms / host_ms if host_ms else 0.0,
+            "tokens_per_tick": tokens / steps, "spec": engine.spec_stats(),
             "kernels": rows}
 
 
@@ -103,6 +122,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=None)
     ap.add_argument("--kv-dtype", choices=("fp", "int8"), default="fp")
     ap.add_argument("--num-splits", type=int, default=None)
+    ap.add_argument("--draft", action="store_true",
+                    help="trace speculative ticks (self-speculative draft)")
+    ap.add_argument("--spec-k", type=int, default=4)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the traced ticks here")
@@ -111,12 +133,15 @@ def main(argv: list[str] | None = None) -> None:
                          args.prompt_len, args.steps, device=args.device,
                          trace=args.trace, cache=args.cache,
                          prefill_chunk=args.prefill_chunk,
-                         kv_dtype=args.kv_dtype, num_splits=args.num_splits)
+                         kv_dtype=args.kv_dtype, num_splits=args.num_splits,
+                         spec_k=args.spec_k if args.draft else None)
     print(f"[profile] {args.arch} {'reduced' if args.reduced else 'full'}, "
           f"{args.lanes} lanes, {args.cache} cache, kv {args.kv_dtype}, "
           f"num_splits {args.num_splits}: host {out['host_ms_per_tick']:.3f} ms/tick, "
           f"device {out['device_ms_per_tick']:.3f} ms/tick, busy share "
-          f"{out['busy_share']:.3f}")
+          f"{out['busy_share']:.3f}, {out['tokens_per_tick']:.2f} tokens "
+          f"per tick" + (f", speculative {out['spec']}" if args.draft
+                         else ""))
     for name, ms, count in out["kernels"]:
         print(f"  {ms:9.4f} ms/tick  x{count:5.1f}  {name[:100]}")
 

@@ -9,7 +9,13 @@ small test config.  ``--cache paged`` serves from the paged KV pool
 (``--pages``, ``--page-size``), and ``--prefill-chunk N`` streams prompts
 into it N tokens per tick.  ``--kv-dtype int8`` stores the pool's pages
 as int8 with per-row float32 scales, and ``--num-splits N`` splits each
-paged decode step's page walk into N parallel segments (split-KV).
+paged decode and verify step's page walk into N parallel segments
+(split-KV).  ``--draft`` decodes speculatively (paged only): a draft made
+of the target's leading half of layers proposes ``--spec-k`` tokens per
+tick and the target verifies them in one chunk.  ``--prefix-cache``
+(paged + chunked prefill) seeds admissions with indexed pages of earlier
+prompts, and ``--shared-prefix N`` puts one common N-token system prompt
+in front of every request.
 
 Usage::
 
@@ -18,6 +24,10 @@ Usage::
         --prefill-chunk 128
     PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
         --prefill-chunk 128 --kv-dtype int8 --num-splits 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
+        --prefill-chunk 128 --draft --spec-k 4 --num-splits 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
+        --prefill-chunk 128 --prefix-cache --shared-prefix 256
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --cache paged --prefill-chunk 8
 """
@@ -55,6 +65,10 @@ class ServeConfig:
     prefill_chunk: int | None = None
     kv_dtype: str = "fp"
     num_splits: int | None = None
+    draft: bool = False
+    spec_k: int = 4
+    prefix_cache: bool = False
+    shared_prefix: int = 0
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
@@ -93,20 +107,44 @@ def serve_config(scfg: ServeConfig) -> dict:
         cfg = cfg.reduced()
     model = build_model(cfg)
     params = model.init(scfg.seed, dev)
+    draft_model = draft_params = None
+    if scfg.draft:
+        # self-speculative draft: the target's leading layers (views) with
+        # the embedding and head shared
+        draft_model = model.draft_model()
+        draft_params = model.slice_draft_params(params, draft_model)
     engine = ServingEngine(model, params, n_lanes=scfg.n_lanes,
                            max_len=scfg.max_len, cache=scfg.cache,
                            n_pages=scfg.n_pages, page_size=scfg.page_size,
                            timeslice=scfg.timeslice,
                            prefill_chunk=scfg.prefill_chunk,
+                           draft_model=draft_model,
+                           draft_params=draft_params,
+                           spec_k=scfg.spec_k if scfg.draft else None,
+                           prefix_cache=scfg.prefix_cache,
                            kv_dtype=scfg.kv_dtype,
-                           # split-KV applies to the paged decode only, as
-                           # in the JAX package's serve
+                           # split-KV applies to the paged decode and
+                           # verify only, as in the JAX package's serve
                            num_splits=(scfg.num_splits
                                        if scfg.cache == "paged" else None))
+    return serve_engine(engine, scfg)
+
+
+def draw_prompts(scfg: ServeConfig, vocab_size: int) -> list[list[int]]:
+    """The synthetic prompts, drawn from ``scfg.seed``: the shared system
+    prompt first, then each request's own tokens behind it."""
     rng = np.random.default_rng(scfg.seed)
-    prompts = [rng.integers(0, cfg.vocab_size,
-                            size=rng.integers(4, scfg.prompt_len)).tolist()
-               for _ in range(scfg.n_requests)]
+    prefix = (rng.integers(0, vocab_size, size=scfg.shared_prefix)
+              .tolist() if scfg.shared_prefix else [])
+    return [prefix + rng.integers(
+        0, vocab_size, size=rng.integers(4, scfg.prompt_len)).tolist()
+        for _ in range(scfg.n_requests)]
+
+
+def serve_engine(engine: ServingEngine, scfg: ServeConfig) -> dict:
+    """Submit the requests ``scfg`` describes to ``engine``, run them to
+    the end and return the report."""
+    prompts = draw_prompts(scfg, engine.model.cfg.vocab_size)
     for rid, prompt in enumerate(prompts):
         engine.submit(Request(rid=rid, prompt=prompt,
                               max_new_tokens=scfg.max_new,
@@ -114,12 +152,19 @@ def serve_config(scfg: ServeConfig) -> dict:
                                   temperature=scfg.temperature,
                                   top_k=scfg.top_k, top_p=scfg.top_p,
                                   seed=scfg.seed + rid)))
-    finished = engine.run(max_steps=scfg.n_requests * (scfg.max_new + 4))
+    finished = engine.run(max_steps=scfg.n_requests
+                          * (scfg.max_new + 4 + scfg.shared_prefix))
     summary = engine.metrics.summary()
+    prefix_stats = None
+    if engine.kv.prefix_cache:
+        kvp = engine.kv.stats()["prefix"]
+        prefix_stats = {**summary["prefix_cache"],
+                        **{k: kvp[k] for k in ("pages_saved", "cow_copies",
+                                               "evictions", "cached_pages")}}
     return {
         "config": scfg.to_dict(),
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
+        "device": (torch.cuda.get_device_name(engine.device)
+                   if engine.device.type == "cuda" else "cpu"),
         "outputs": {int(r.rid): [int(t) for t in r.out_tokens]
                     for r in finished},
         "finished": len(finished), "requests": scfg.n_requests,
@@ -136,7 +181,9 @@ def serve_config(scfg: ServeConfig) -> dict:
         "p99_itl_s": summary["itl_s"]["p99"],
         "wall_s": summary["wall_s"],
         "preemptions": summary["preemptions"],
+        "spec": engine.spec_stats() if engine.spec_k else None,
         "cache": engine.kv.stats(),
+        "prefix_cache": prefix_stats,
         "kv_dtype": engine.kv.kv_dtype,
     }
 
@@ -170,8 +217,20 @@ def main(argv: list[str] | None = None) -> None:
                          "with per-row float32 scales (auto needs run-time "
                          "tuning, not ported)")
     ap.add_argument("--num-splits", type=int, default=None,
-                    help="split each paged decode step's page walk into N "
-                         "parallel segments (split-KV; paged cache only)")
+                    help="split each paged decode and verify step's page "
+                         "walk into N parallel segments (split-KV; paged "
+                         "cache only)")
+    ap.add_argument("--draft", action="store_true",
+                    help="paged: speculative decoding with a self-"
+                         "speculative draft (the target's leading layers)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per speculative tick")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="paged + chunked: seed admissions with the indexed "
+                         "pages of earlier prompts (copy-on-write)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend one common N-token system prompt to every "
+                         "request")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -197,6 +256,10 @@ def main(argv: list[str] | None = None) -> None:
           f"itl p50 {fmt(out['p50_itl_s'], '.4f')}s, "
           f"preemptions {out['preemptions']}, kv {out['kv_dtype']}) on "
           f"{out['device']}")
+    if out["spec"] is not None:
+        print(f"[serve] speculative: {out['spec']}")
+    if out["prefix_cache"] is not None:
+        print(f"[serve] prefix cache: {out['prefix_cache']}")
 
 
 if __name__ == "__main__":

@@ -5,18 +5,20 @@
   window; returns the attention output and optionally the K/V it made.
 * ``decode(params, x, cache_k, cache_v, pos, cfg)`` — one new token per
   sequence against its cache (kernel K2 on CUDA).
-* ``paged_decode`` / ``paged_prefill`` — one new token, or one prompt
-  chunk, per sequence against page pools shared by every sequence
-  (kernels K3 / K4 on CUDA, K5 with split-KV decode, K6 over int8
-  pools).  Both write the new K/V into the pools in place before they
-  read; int8 pools (``scales`` given) get it quantized per row, codes
-  into the pools and fp32 scales beside them.
+* ``paged_decode`` / ``paged_prefill`` / ``paged_verify`` — one new
+  token, one prompt chunk, or one speculative candidate chunk per
+  sequence against page pools shared by every sequence (kernels K3 / K4
+  on CUDA, K5 with split-KV, K6 over int8 pools).  All write the new
+  K/V into the pools in place before they read; int8 pools (``scales``
+  given) get it quantized per row, codes into the pools and fp32 scales
+  beside them.
 
 Layouts follow the JAX package: projections are ``x @ W`` with W of shape
 (in, out), heads are (B, H, S, D) after the projection.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -194,6 +196,20 @@ def _paged_chunk_scatter(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
     return q, pools
 
 
+def _paged_chunk(attend, p: dict, x: torch.Tensor, k_pool: torch.Tensor,
+                 v_pool: torch.Tensor, page_table: torch.Tensor,
+                 start: torch.Tensor, kv_len: torch.Tensor, cfg: AttnConfig,
+                 scales) -> torch.Tensor:
+    """Scatter a chunk's K/V into the pages, attend with ``attend`` (an
+    ops entry point), project out."""
+    q, pools = _paged_chunk_scatter(p, x, k_pool, v_pool, page_table, start,
+                                    kv_len, cfg, scales)
+    out = attend(q, pools, page_table, start, kv_len)
+    b, c, _ = x.shape
+    out = out.transpose(1, 2).reshape(b, c, cfg.n_heads * cfg.d_head)
+    return out @ p["wo"]
+
+
 def paged_prefill(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
                   v_pool: torch.Tensor, page_table: torch.Tensor,
                   start: torch.Tensor, kv_len: torch.Tensor, cfg: AttnConfig,
@@ -204,13 +220,27 @@ def paged_prefill(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
     chunk's K/V is scattered into the pools in place, then it attends to
     the committed prefix plus its own causal triangle.  Returns the
     output only."""
-    q, pools = _paged_chunk_scatter(p, x, k_pool, v_pool, page_table, start,
-                                    kv_len, cfg, scales)
-    out = ops.paged_prefill(q, pools, page_table, start, kv_len,
-                            use_kernel=use_kernel)
-    b, c, _ = x.shape
-    out = out.transpose(1, 2).reshape(b, c, cfg.n_heads * cfg.d_head)
-    return out @ p["wo"]
+    return _paged_chunk(
+        functools.partial(ops.paged_prefill, use_kernel=use_kernel), p, x,
+        k_pool, v_pool, page_table, start, kv_len, cfg, scales)
+
+
+def paged_verify(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
+                 v_pool: torch.Tensor, page_table: torch.Tensor,
+                 start: torch.Tensor, kv_len: torch.Tensor, cfg: AttnConfig,
+                 scales=None, num_splits: int | None = None,
+                 use_kernel: bool | None = None) -> torch.Tensor:
+    """Speculative-verify attention: one candidate chunk ``[last committed
+    token, draft_1 .. draft_k]`` per sequence against a paged KV cache,
+    the math of :func:`paged_prefill` through :func:`ops.paged_verify`
+    with ``num_splits`` (split-KV verify on the card).  Rejected drafts'
+    K/V lands in the pages and the cache layer rolls it back
+    (``truncate_to``); padded rows (``pos >= kv_len``) sink to page 0.
+    Returns the output only."""
+    return _paged_chunk(
+        functools.partial(ops.paged_verify, num_splits=num_splits,
+                          use_kernel=use_kernel), p, x, k_pool, v_pool,
+        page_table, start, kv_len, cfg, scales)
 
 
 def init_paged_pool(n_pages: int, cfg: AttnConfig, page_size: int,

@@ -68,6 +68,30 @@ class Model:
                                               use_kernel=use_kernel)
 
 
+    # -- speculative decoding (serving) ------------------------------------
+    def speculative_step(self, params: dict, caches: dict,
+                         page_table: torch.Tensor, tokens: torch.Tensor,
+                         start: torch.Tensor, kv_len: torch.Tensor,
+                         num_splits: int | None = None,
+                         use_kernel: bool | None = None):
+        """Verify one candidate chunk per lane; full (B, C, V) logits."""
+        return transformer.speculative_step(params, caches, page_table,
+                                            tokens, start, kv_len, self.cfg,
+                                            num_splits=num_splits,
+                                            use_kernel=use_kernel)
+
+    def draft_model(self, depth_frac: float = 0.5,
+                    width_frac: float = 1.0) -> "Model":
+        """The reduced-depth (and optionally width) draft of this arch."""
+        return build_model(self.cfg.draft_config(depth_frac, width_frac))
+
+    def slice_draft_params(self, params: dict, draft_model: "Model") -> dict:
+        """Self-speculative draft weights: views of the target's leading
+        layers."""
+        return transformer.slice_draft_params(params, self.cfg,
+                                              draft_model.cfg)
+
+
 def build_model(cfg: ArchConfig) -> Model:
     transformer.check_supported(cfg)
     return Model(cfg)

@@ -14,11 +14,16 @@ do) is the same arithmetic at half the memory for bf16.
 Modes: ``prefill`` (whole prompt, K/V collected into caches padded to
 ``max_len``) and ``decode_step`` (one token per lane against the caches,
 written in place); on the paged KV pool ``paged_prefill_step`` (one
-prompt chunk per lane) and ``paged_decode_step``, which write into the
-layer-stacked page pools in place (and into their per-row scales, for
-int8 pools).  Other layer kinds are not ported yet.
+prompt chunk per lane), ``paged_decode_step`` and ``speculative_step``
+(one candidate chunk per lane, logits at every position), which write
+into the layer-stacked page pools in place (and into their per-row
+scales, for int8 pools).  ``slice_draft_params`` gives the
+self-speculative draft its weights as views of the target's leading
+layers.  Other layer kinds are not ported yet.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -233,6 +238,27 @@ def paged_decode_step(params: dict, caches: dict, page_table: torch.Tensor,
     return _logits(params, x[:, 0], cfg), caches
 
 
+def _paged_chunk_layers(params: dict, caches: dict, page_table: torch.Tensor,
+                        tokens: torch.Tensor, start: torch.Tensor,
+                        kv_len: torch.Tensor, cfg: ArchConfig,
+                        attend) -> torch.Tensor:
+    """Every layer over one chunk per lane, the chunk's attention through
+    ``attend`` (:func:`attn.paged_prefill` or :func:`attn.paged_verify`
+    with its keywords bound); returns the last hidden states (B, C, d)."""
+    check_supported(cfg)
+    x = embed_tokens(params, tokens, cfg)
+    acfg = attn_config(cfg)
+    layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
+    kp, vp = caches["kv"]
+    for i in range(cfg.n_layers):
+        lp = _layer(layers, i)
+        x = x + attend(lp["attn"], rms_norm(x, lp["norm1_w"]), kp[i], vp[i],
+                       page_table, start, kv_len, acfg,
+                       _layer_scales(caches, i))
+        x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["norm2_w"]))
+    return x
+
+
 def paged_prefill_step(params: dict, caches: dict, page_table: torch.Tensor,
                        tokens: torch.Tensor, start: torch.Tensor,
                        kv_len: torch.Tensor, logit_idx: torch.Tensor,
@@ -245,17 +271,55 @@ def paged_prefill_step(params: dict, caches: dict, page_table: torch.Tensor,
     start + valid chunk length; ``logit_idx`` (B,) the chunk row whose
     logits come back (the last valid prompt token on the final chunk).
     Returns (logits (B, V), caches); the pools are updated in place."""
-    check_supported(cfg)
-    x = embed_tokens(params, tokens, cfg)
-    acfg = attn_config(cfg)
-    layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
-    kp, vp = caches["kv"]
-    for i in range(cfg.n_layers):
-        lp = _layer(layers, i)
-        x = x + attn.paged_prefill(lp["attn"], rms_norm(x, lp["norm1_w"]),
-                                   kp[i], vp[i], page_table, start, kv_len,
-                                   acfg, _layer_scales(caches, i),
-                                   use_kernel=use_kernel)
-        x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["norm2_w"]))
+    x = _paged_chunk_layers(
+        params, caches, page_table, tokens, start, kv_len, cfg,
+        functools.partial(attn.paged_prefill, use_kernel=use_kernel))
     rows = torch.arange(x.shape[0], device=x.device)
     return _logits(params, x[rows, logit_idx.long()], cfg), caches
+
+
+def speculative_step(params: dict, caches: dict, page_table: torch.Tensor,
+                     tokens: torch.Tensor, start: torch.Tensor,
+                     kv_len: torch.Tensor, cfg: ArchConfig,
+                     num_splits: int | None = None,
+                     use_kernel: bool | None = None):
+    """Speculative verify: score every position of one candidate chunk
+    per lane in one call.
+
+    tokens (B, C) int, ``[last committed token, draft_1 .. draft_k]`` at
+    absolute positions ``start .. start + C - 1`` (rows at positions
+    ``>= kv_len`` are padding, their K/V sunk into the null page); start
+    and kv_len (B,); ``num_splits`` the split-KV degree of every layer's
+    verify attention.  The math of :func:`paged_prefill_step`, but the
+    full logits come back: the accept rule needs the target's
+    distribution at every drafted position.  Returns (logits (B, C, V)
+    float32, caches); the pools are updated in place."""
+    x = _paged_chunk_layers(
+        params, caches, page_table, tokens, start, kv_len, cfg,
+        functools.partial(attn.paged_verify, num_splits=num_splits,
+                          use_kernel=use_kernel))
+    return _logits(params, x, cfg), caches
+
+
+def slice_draft_params(params: dict, cfg: ArchConfig,
+                       draft_cfg: ArchConfig) -> dict:
+    """Self-speculative draft weights: the target's leading
+    ``draft_cfg.n_layers`` layers, as views of the stacked (L, ...)
+    leaves (no copy: at full width the draft costs no weight memory),
+    sharing the embedding, final norm and head.  Needs the target's
+    width (``draft_config(width_frac=1.0)``): a narrower draft has its
+    own geometry and takes its own weights."""
+    if (draft_cfg.d_model, draft_cfg.n_heads, draft_cfg.head_dim) != \
+            (cfg.d_model, cfg.n_heads, cfg.head_dim):
+        raise ValueError(
+            "slice_draft_params needs a same-width draft config; "
+            "width-reduced drafts take independently initialised params")
+    if draft_cfg.n_layers > cfg.n_layers:
+        raise ValueError("draft is deeper than the target")
+
+    def head(tree):
+        if isinstance(tree, dict):
+            return {k: head(v) for k, v in tree.items()}
+        return tree[:draft_cfg.n_layers]
+
+    return {**params, "layers": head(params["layers"])}

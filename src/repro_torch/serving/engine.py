@@ -14,6 +14,18 @@ model's steps, as the JAX package's engine does:
   lanes, K3 on pages, K5 with ``num_splits``, K6 on int8 pages), idle
   lanes riding along at position 0 and mid-prefill lanes with their
   table rows masked to the null page;
+* with ``spec_k`` and a draft model (paged only) the tick is
+  speculative: the draft (dense lanes, K1 catch-up prefill and K2
+  decode) proposes up to ``spec_k`` tokens per lane, the target scores
+  every candidate in one verify step over the pages (K4, or K5b + K5c
+  with ``num_splits``; K6c / K6d over int8 pages), the accept/reject rule
+  emits 1 .. k+1 tokens, and ``truncate_to`` rolls back the rejected
+  drafts' pages;
+* with ``prefix_cache`` (paged + chunked prefill) an admission is seeded
+  with the indexed pages of its prompt's prefix and prefills from the
+  first uncached token; every full prompt page a chunk commits is
+  published back into the index, and a write into a shared page copies
+  it first;
 * under page pressure an admission waits at the head of the queue and a
   lane that cannot grow is preempted: its pages swap out to the host and
   it resumes first, by swap-in, where it stopped (mid-prefill too);
@@ -22,11 +34,14 @@ model's steps, as the JAX package's engine does:
   (:class:`TickWork`), ``emit`` is the first host-device sync.
 
 Greedy output is token-for-token the JAX engine's on the same weights
-and requests, int8 pages included.  ``num_splits`` stands in for the
-JAX package's ``at.publish("flash_paged_decode", num_splits=...)`` until
-the tuning layer is ported: it is handed to every paged decode step.
-Speculative decoding, prefix caching, run-time tuning and meshes belong
-to later slices (ROADMAP queue 1) and raise here.
+and requests, int8 pages, speculation and the prefix cache included.
+``num_splits`` stands in for the JAX serve's ``at.publish`` of
+``num_splits`` to ``flash_paged_decode`` and ``flash_paged_verify``
+until the tuning layer is ported: it is handed to every paged decode and
+verify step, never to prefill.  ``prefix_min_match`` and
+``prefix_eviction`` are the ``PrefixPolicy`` knobs as plain arguments.
+Run-time tuning and meshes belong to later slices (ROADMAP queue 1) and
+raise here.
 """
 from __future__ import annotations
 
@@ -39,7 +54,7 @@ import torch
 
 from . import sampling
 from .buckets import LENGTH_BUCKETS
-from .kvcache import make_kv_cache
+from .kvcache import DenseKVCache, make_kv_cache
 from .metrics import ServingMetrics
 from .scheduler import LaneState, Request, Scheduler
 
@@ -48,8 +63,6 @@ __all__ = ["ServingEngine", "Request", "LaneState", "TickWork",
 
 _NOT_PORTED = {
     "autotuner": "run-time tuning (ROADMAP queue 1, item 11)",
-    "spec_k": "speculative decoding (ROADMAP queue 1, item 5)",
-    "prefix_cache": "prefix caching (ROADMAP queue 1, item 5)",
     "mesh": "tensor-parallel serving (ROADMAP queue 1, item 10)",
 }
 
@@ -87,13 +100,12 @@ class ServingEngine:
                  cache: str = "dense", n_pages: int | None = None,
                  page_size: int = 16, timeslice: int | None = None,
                  autotuner=None, prefill_chunk: int | None = None,
+                 draft_model=None, draft_params: dict | None = None,
                  spec_k: int | None = None, prefix_cache: bool = False,
+                 prefix_min_match: int = 1, prefix_eviction: str = "lru",
                  kv_dtype: str = "fp", swap_compress: bool = False,
                  num_splits: int | None = None, mesh=None):
-        for name, value in (("autotuner", autotuner),
-                            ("spec_k", spec_k),
-                            ("prefix_cache", prefix_cache or None),
-                            ("mesh", mesh)):
+        for name, value in (("autotuner", autotuner), ("mesh", mesh)):
             if value is not None:
                 raise NotImplementedError(
                     f"{name}: {_NOT_PORTED[name]} is not ported yet")
@@ -106,7 +118,10 @@ class ServingEngine:
         self.kv = make_kv_cache(model, cache, n_lanes, max_len, self.device,
                                 n_pages=n_pages, page_size=page_size,
                                 kv_dtype=kv_dtype,
-                                swap_compress=swap_compress)
+                                swap_compress=swap_compress,
+                                prefix_cache=prefix_cache,
+                                prefix_min_match=prefix_min_match,
+                                prefix_eviction=prefix_eviction)
         if num_splits is not None and self.kv.kind != "paged":
             raise ValueError(
                 "num_splits splits the paged decode's page walk; use "
@@ -117,16 +132,48 @@ class ServingEngine:
                 "cache; use cache='paged' (dense keeps monolithic prefill)")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if prefix_cache and prefill_chunk is None:
+            raise ValueError(
+                "prefix caching admits at the first uncached token via "
+                "chunked prefill; pass prefill_chunk")
         self.prefill_chunk = prefill_chunk
         self._decode = (
             functools.partial(model.paged_decode_step, num_splits=num_splits)
             if self.kv.kind == "paged" else model.decode_step)
+        # -- speculative decoding ------------------------------------------
+        self.spec_k = spec_k
+        self.draft_model = draft_model
+        self.draft_params = draft_params
+        if spec_k is not None:
+            if spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            if draft_model is None or draft_params is None:
+                raise ValueError(
+                    "speculative decoding needs a draft model: pass "
+                    "draft_model + draft_params (see ArchConfig."
+                    "draft_config / Model.slice_draft_params)")
+            if self.kv.kind != "paged":
+                raise ValueError(
+                    "speculative decoding verifies drafts through the "
+                    "paged chunk kernels; use cache='paged'")
+            # the draft keeps dense per-lane strips: rollback is a position
+            # reset (stale K/V past the committed point is masked by kv_len
+            # and overwritten by the next draft), and a preempted or new
+            # lane rebuilds it with one draft prefill
+            self.draft_kv = DenseKVCache(draft_model, n_lanes, max_len,
+                                         self.device)
+            self.draft_pos = [0] * n_lanes   # tokens in the draft's cache
+            self._verify = functools.partial(model.speculative_step,
+                                             num_splits=num_splits)
         self.scheduler = Scheduler(n_lanes, timeslice=timeslice)
         self.metrics = ServingMetrics()
         self.active: dict[int, Request] = {}
         self.finished: list[Request] = []
         self.steps = 0
         self.prefill_chunks = 0          # chunk steps run (chunked prefill)
+        self.spec_ticks = 0              # speculative ticks run
+        self.drafted_tokens = 0          # draft tokens offered to verify
+        self.accepted_tokens = 0         # draft tokens accepted
 
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -151,6 +198,23 @@ class ServingEngine:
         return sampling.sample_token(logits.cpu().numpy(), req.sampling,
                                      len(req.out_tokens))
 
+    def _reset_draft(self, lane_id: int) -> None:
+        """Invalidate the draft's cache for a (re)occupied lane; the next
+        speculative tick rebuilds it with one draft prefill."""
+        if self.spec_k is not None:
+            self.draft_pos[lane_id] = 0
+
+    def _seed_prefix(self, lane_id: int, req: Request) -> int:
+        """Match and seed one admission through the prefix cache (the
+        JAX engine's route through a tuner's ``PrefixPolicy`` region
+        comes with run-time tuning, item 11).  Returns the prefill start
+        position and stamps the request."""
+        if not self.kv.prefix_cache:
+            return 0
+        cached = self.kv.seed_prefix(lane_id, req.prompt)
+        req.cached_tokens = cached
+        return cached
+
     def _preempt_lane(self, lane_id: int, priority: bool = False) -> None:
         lane = self.scheduler.lanes[lane_id]
         req = self.active.pop(lane.rid)
@@ -169,6 +233,7 @@ class ServingEngine:
                     return                 # no pages yet; retry next tick
                 self.scheduler.occupy(lane_id, item.req, item.pos,
                                       item.remaining, phase=item.phase)
+                self._reset_draft(lane_id)
                 self.active[item.req.rid] = item.req
                 continue
             req = item
@@ -180,10 +245,15 @@ class ServingEngine:
                                              len(req.prompt))):
                     self.scheduler.push_back(kind, req)
                     return                 # page pressure; stay queued
+                # prefix caching: the lane's leading table rows take the
+                # indexed pages of the prompt's prefix, and prefill starts
+                # at the first uncached token
+                cached = self._seed_prefix(lane_id, req)
                 if req.admit_t is None:
                     req.admit_t = time.monotonic()   # queue wait ends here
-                self.scheduler.occupy(lane_id, req, 0, req.max_new_tokens,
-                                      phase="prefill")
+                self.scheduler.occupy(lane_id, req, cached,
+                                      req.max_new_tokens, phase="prefill")
+                self._reset_draft(lane_id)
                 self.active[req.rid] = req
                 continue
             if self.kv.kind == "paged" and not self.kv.can_admit(
@@ -206,6 +276,7 @@ class ServingEngine:
             req.token_ts.append(now)
             self.scheduler.occupy(lane_id, req, len(req.prompt),
                                   req.max_new_tokens - 1)
+            self._reset_draft(lane_id)
             self.active[req.rid] = req
             if req.max_new_tokens <= 1 or self._is_eos(tok):
                 self._finish(lane_id, req, now)
@@ -217,8 +288,10 @@ class ServingEngine:
         per tick (pages allocated chunk by chunk, the ragged last chunk
         padded into the null page).  The final chunk's last valid row
         gives the request's first token (TTFT stamps here).  A lane that
-        cannot get the chunk's pages is preempted mid-prefill and resumes
-        where it stopped."""
+        cannot get the chunk's pages (or the copy of a shared page its
+        first write lands in) is preempted mid-prefill and resumes where
+        it stopped.  Every prompt page a chunk fills is published into
+        the prefix index."""
         if self.prefill_chunk is None:
             return
         c = self.prefill_chunk
@@ -227,7 +300,10 @@ class ServingEngine:
             req = self.active[lane.rid]
             plen = len(req.prompt)
             start, end = lane.pos, min(lane.pos + c, plen)
-            if not self.kv.ensure_tokens(lane_id, end):
+            # copy-on-write: a fully cached page-aligned prompt starts
+            # prefill at plen - 1, inside its last shared page
+            if not self.kv.ensure_tokens(lane_id, end) \
+                    or not self.kv.cow_writable(lane_id, start):
                 if len(self.active) == 1:
                     raise RuntimeError(
                         f"page pool too small: sequence {lane.rid} needs "
@@ -244,6 +320,7 @@ class ServingEngine:
                 torch.tensor([end - start - 1], device=self.device))
             self.prefill_chunks += 1
             lane.pos = end
+            self.kv.publish_prefix(lane_id, req.prompt, end)
             if end < plen:
                 continue                   # prompt still streaming in
             tok = self._next_token(req, logits[0])
@@ -277,6 +354,168 @@ class ServingEngine:
                     "can be evicted")
             self._preempt_lane(lane_id, priority=True)
 
+    # -- speculative decode: draft, verify, accept, roll back ---------------
+    def _spec_capacity(self) -> dict[int, int]:
+        """Each decoding lane's draft length for this tick: ``spec_k``
+        clamped by the lane's remaining budget, by ``max_len`` (verify
+        writes K/V at ``pos .. pos + k``) and by the pages it can get; a
+        lane that cannot get even the page of one token is preempted."""
+        k_eff: dict[int, int] = {}
+        for i in list(self.scheduler.decode_lanes()):
+            lane = self.scheduler.lanes[i]
+            ke = max(0, min(self.spec_k, lane.remaining - 1,
+                            self.max_len - 1 - lane.pos))
+            while ke >= 0 and not self.kv.ensure_tokens(i, lane.pos + ke + 1):
+                ke -= 1
+            if ke < 0:
+                if len(self.active) == 1:
+                    raise RuntimeError(
+                        f"page pool too small: sequence {lane.rid} needs "
+                        f"another page at pos {lane.pos} and no other "
+                        "lane can be evicted")
+                self._preempt_lane(i, priority=True)
+                continue
+            k_eff[i] = ke
+        return k_eff
+
+    def _draft_propose(self, k_eff: dict[int, int]) -> tuple[dict, dict]:
+        """Up to ``k_eff[i]`` draft tokens per decoding lane.
+
+        The draft's cache trails the committed sequence: a lane whose
+        cache is empty or more than two tokens behind (new admission,
+        resume) catches up with one draft prefill over the committed
+        tokens (K1 at that length); otherwise the missing 1-2 tokens feed
+        through the batched draft decode steps (K2) with the proposals.
+        Lanes with nothing to feed ride the batch at the dead slot
+        ``max_len - 1`` (never read: live lanes finish at ``max_len -
+        2``).  Returns ({lane: draft tokens}, {lane: draft probs})."""
+        drafts: dict[int, list[int]] = {i: [] for i in k_eff}
+        dprobs: dict[int, list] = {i: [] for i in k_eff}
+        pending: dict[int, list[int]] = {}
+        rngs, sps = {}, {}
+        for i, ke in k_eff.items():
+            if ke == 0:
+                continue
+            req = self.active[self.scheduler.lanes[i].rid]
+            sps[i] = req.sampling
+            rngs[i] = sampling.draft_rng(req.sampling, len(req.out_tokens))
+            all_toks = req.prompt + req.out_tokens   # len == lane.pos + 1
+            if self.draft_pos[i] == 0 or len(all_toks) - self.draft_pos[i] > 2:
+                logits_d, dcache = self.draft_model.prefill(
+                    self.draft_params,
+                    torch.tensor([all_toks], dtype=torch.long,
+                                 device=self.device), self.max_len)
+                self.draft_kv.admit(i, dcache, len(all_toks))
+                self.draft_pos[i] = len(all_toks)
+                tok, q = sampling.propose_token(logits_d[0].cpu().numpy(),
+                                                sps[i], rngs[i])
+                drafts[i].append(tok)
+                dprobs[i].append(q)
+                pending[i] = []
+            else:
+                pending[i] = all_toks[self.draft_pos[i]:]
+        while True:
+            feed: dict[int, int] = {}
+            for i, ke in k_eff.items():
+                if ke == 0:
+                    continue
+                if pending[i]:
+                    feed[i] = pending[i][0]
+                elif 0 < len(drafts[i]) < ke:
+                    feed[i] = drafts[i][-1]   # extend the draft chain
+            if not feed:
+                break
+            token = np.zeros((self.n_lanes, 1), np.int64)
+            pos = np.full((self.n_lanes,), self.max_len - 1, np.int64)
+            for i, t in feed.items():
+                token[i, 0] = t
+                pos[i] = self.draft_pos[i]
+            logits_d, _ = self.draft_model.decode_step(
+                self.draft_params, self.draft_kv.caches,
+                torch.from_numpy(token).to(self.device),
+                torch.from_numpy(pos).to(self.device))
+            logits_np = logits_d.cpu().numpy()
+            for i in feed:
+                self.draft_pos[i] += 1
+                if pending[i]:
+                    pending[i].pop(0)
+                    if pending[i]:
+                        continue           # still catching up
+                tok, q = sampling.propose_token(logits_np[i], sps[i], rngs[i])
+                drafts[i].append(tok)
+                dprobs[i].append(q)
+        return drafts, dprobs
+
+    def _spec_tick(self) -> None:
+        """One speculative decode tick over the decoding lanes: draft,
+        one batched verify of every lane's candidate chunk (its K/V
+        written into the pages), the accept rule, and ``truncate_to`` of
+        the pages past each lane's committed point.  Idle and mid-prefill
+        lanes ride the verify with ``kv_len`` 0 and, mid-prefill, their
+        table rows masked, so their chunk sinks into the null page."""
+        k_eff = self._spec_capacity()
+        decoding = self.scheduler.decode_lanes()
+        if not decoding:
+            return
+        drafts, dprobs = self._draft_propose(k_eff)
+        c = self.spec_k + 1
+        tokens = np.zeros((self.n_lanes, c), np.int64)
+        start = np.zeros((self.n_lanes,), np.int64)
+        kv_len = np.zeros((self.n_lanes,), np.int64)
+        for i in decoding:
+            lane = self.scheduler.lanes[i]
+            row = [self.active[lane.rid].out_tokens[-1]] + drafts[i]
+            tokens[i, :len(row)] = row
+            start[i] = lane.pos
+            kv_len[i] = lane.pos + len(row)
+        extra = self.kv.decode_extra(
+            mask_lanes=self.scheduler.prefill_lanes())
+        logits, _ = self._verify(
+            self.params, self.kv.caches, *extra,
+            *(torch.from_numpy(a).to(self.device)
+              for a in (tokens, start, kv_len)))
+        logits_np = logits.cpu().numpy()
+        now = time.monotonic()
+        self.steps += 1
+        self.spec_ticks += 1
+        for i in decoding:
+            lane = self.scheduler.lanes[i]
+            req = self.active[lane.rid]
+            w = len(drafts[i])
+            emitted, n_acc = sampling.speculative_accept(
+                drafts[i], dprobs[i], logits_np[i, :w + 1], req.sampling,
+                len(req.out_tokens))
+            self.drafted_tokens += w
+            self.accepted_tokens += n_acc
+            committed = lane.pos + n_acc + 1
+            self.kv.truncate_to(i, committed)
+            emit = []
+            for tok in emitted:
+                emit.append(tok)
+                if self._is_eos(tok):
+                    break
+            req.out_tokens.extend(emit)
+            req.token_ts.extend([now] * len(emit))
+            lane.pos = committed
+            lane.remaining -= len(emit)
+            lane.steps_served += 1
+            lane.tokens_served += len(emit)
+            self.draft_pos[i] = min(self.draft_pos[i], committed)
+            if lane.remaining <= 0 or self._is_eos(emit[-1]) \
+                    or lane.pos >= self.max_len - 1:
+                self._finish(i, req, now)
+
+    def spec_stats(self) -> dict:
+        """Speculation counters (zeros when speculation is off)."""
+        return {
+            "spec_k": self.spec_k,
+            "spec_ticks": self.spec_ticks,
+            "drafted_tokens": self.drafted_tokens,
+            "accepted_tokens": self.accepted_tokens,
+            "accept_rate": (self.accepted_tokens / self.drafted_tokens
+                            if self.drafted_tokens else 0.0),
+        }
+
     # -- one scheduler tick: schedule -> dispatch -> emit --------------------
     def schedule(self) -> None:
         """Host-side half of a tick: time-slice victim, admissions (each
@@ -292,7 +531,12 @@ class ServingEngine:
         """Launch the tick's batched decode step without waiting on it.
         The caches are updated in place by the step; the logits stay on
         the device inside the returned :class:`TickWork` until
-        :meth:`emit`.  None when no lane is decoding."""
+        :meth:`emit`.  Speculative ticks run here whole (their accept
+        rule is host-side) and return None, as does a tick with no lane
+        decoding."""
+        if self.spec_k is not None:
+            self._spec_tick()
+            return None
         self._ensure_capacity()
         decoding = self.scheduler.decode_lanes()
         if not decoding:

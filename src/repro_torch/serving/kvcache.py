@@ -22,28 +22,47 @@ and pools alike.  Writes quantize on the way in (admission here, the
 chunk scatter and decode append in the model) and the attention kernels
 dequantize next to their loads.
 
+With ``prefix_cache=True`` the paged pool is also **content-addressed
+and refcounted**, as the JAX package's: every committed full prompt page
+carries a chained hash key (:func:`chain_hash`), an index maps key ->
+physical page, and an admission whose leading pages hash to indexed
+entries is seeded with those pages instead of prefilling them again.
+``refcount[p]`` counts the lanes holding page ``p``; a shared or indexed
+page is copy-on-write (:meth:`PagedKVCache.cow_writable`).  The pool is
+three-state: used (refcount >= 1), cached (refcount 0 but indexed,
+reclaimed by the allocator under pressure, LRU by last hit or FIFO by
+publish order) and free.  Every release of a page goes through
+``_unref``, so a shared page is never freed under another lane.
+
 Both backends are written in place: admission copies into the caches,
-and the model's steps append to them.  Swap handles are host numpy
-copies: float32 for fp caches (exact for bf16 and fp32; numpy has no
-bfloat16), the native int8 codes plus float32 scales for int8 pools
-(bit-exact, half the bytes).  ``swap_compress=True`` packs an fp cache's
-swap through :func:`quantize_int8` instead (a quarter of the float32
-bytes, int8-round-trip accurate); an int8 pool ignores it.  The prefix
-index of the JAX cache is not ported (ROADMAP queue 1, item 5).
+the model's steps append to them, and a copy-on-write copies one page of
+every pool leaf in place.  Swap handles are host numpy copies: float32
+for fp caches (exact for bf16 and fp32; numpy has no bfloat16), the
+native int8 codes plus float32 scales for int8 pools (bit-exact, half
+the bytes).  ``swap_compress=True`` packs an fp cache's swap through
+:func:`quantize_int8` instead (a quarter of the float32 bytes,
+int8-round-trip accurate); an int8 pool ignores it.
 
 The engine talks to both through the same methods::
 
     admit(lane, prefill_caches, prompt_len) -> bool
     ensure_capacity(lane, pos) -> bool        # page alloc on boundary
-    ensure_tokens(lane, n_tokens) -> bool     # chunk-granular (paged)
     swap_out(lane) -> handle                  # preemption
     swap_in(lane, handle) -> bool
     release(lane)
     decode_extra(mask_lanes) -> tuple         # (page_table,) when paged
+
+and, since chunked prefill and speculation need the paged pool, to it
+alone through::
+
+    ensure_tokens(lane, n_tokens) -> bool     # chunk-granular growth
+    truncate_to(lane, committed_len) -> int   # speculative rollback
 """
 from __future__ import annotations
 
+import hashlib
 import math
+from collections.abc import Sequence
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,7 +73,17 @@ from ..distributed.compression import (dequantize_int8, quantize_int8,
 
 NULL_PAGE = 0
 
+PREFIX_EVICTION_POLICIES = ("lru", "fifo")
+
 KV_DTYPES = ("fp", "int8")
+
+
+def chain_hash(parent: str, tokens: Sequence[int]) -> str:
+    """Rolling page key: the page's token ids chained with the parent
+    page's key, so a hit on page *b* implies the whole prefix through *b*
+    matches (the JAX package's digest, byte for byte)."""
+    data = parent + "|" + ",".join(str(int(t)) for t in tokens)
+    return hashlib.sha1(data.encode()).hexdigest()
 
 
 @dataclass
@@ -96,6 +125,7 @@ class DenseKVCache:
 
     kind = "dense"
     kv_dtype = "fp"
+    prefix_cache = False
 
     def __init__(self, model, n_lanes: int, max_len: int,
                  device: str | torch.device, swap_compress: bool = False):
@@ -186,12 +216,14 @@ class PageHandle:
 
 
 class PagedKVCache:
-    """Paged KV cache: a free-page pool, per-lane page tables and host
-    swap space.
+    """Paged KV cache: a refcounted page pool, per-lane page tables, host
+    swap space and an optional content-addressed prefix index.
 
     Lane ``i``'s logical block ``b`` lives in physical page ``table[i,
-    b]`` of every layer's pool.  Pages are lane-exclusive while allocated
-    (refcount 0 or 1: the prefix index that shares pages is not ported),
+    b]`` of every layer's pool.  Without the prefix cache pages are
+    lane-exclusive while allocated; with it, full committed prompt pages
+    publish into the index and may be held by several lanes at once, and
+    every write into such a page goes through :meth:`cow_writable` first,
     so the in-place writes of two lanes never meet outside the null page.
     """
 
@@ -199,7 +231,9 @@ class PagedKVCache:
 
     def __init__(self, model, n_lanes: int, max_len: int, n_pages: int,
                  page_size: int, device: str | torch.device,
-                 kv_dtype: str = "fp", swap_compress: bool = False):
+                 kv_dtype: str = "fp", swap_compress: bool = False,
+                 prefix_cache: bool = False, prefix_min_match: int = 1,
+                 prefix_eviction: str = "lru"):
         if not model.supports_paged_cache:
             raise ValueError(
                 f"arch {model.cfg.name!r} does not support the paged KV "
@@ -227,9 +261,26 @@ class PagedKVCache:
         self.n_blocks = [0] * n_lanes
         # page 0 is the null page (idle-lane write sink), never allocated
         self._free = list(range(n_pages - 1, 0, -1))
-        self.refcount = np.zeros(n_pages, np.int32)
+        self.refcount = np.zeros(n_pages, np.int32)   # lane refs per page
         self.swap_outs = 0
         self.swap_ins = 0
+        # -- prefix cache (content-addressed index over full pages) --------
+        self.prefix_cache = prefix_cache
+        self.prefix_min_match = max(1, int(prefix_min_match))
+        self.set_prefix_policy(eviction=prefix_eviction)
+        self._index: dict[str, int] = {}      # chain hash -> physical page
+        self._page_key: dict[int, str] = {}   # physical page -> chain hash
+        self._last_hit: dict[int, int] = {}   # page -> last match/publish
+        self._pub_order: dict[int, int] = {}  # page -> publish tick (FIFO)
+        self._chain: list[tuple[str, int]] = [("", 0)] * n_lanes
+        self._tick = 0
+        self._n_cached = 0
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.hit_tokens = 0                   # prompt tokens never re-run
+        self.pages_saved = 0                  # seeded, not prefilled again
+        self.cow_copies = 0
+        self.index_evictions = 0
 
     def _leaves(self) -> tuple[torch.Tensor, ...]:
         """Every page-indexed leaf: the pools, then an int8 pool's scales."""
@@ -241,25 +292,70 @@ class PagedKVCache:
         return len(self._free)
 
     @property
+    def cached_pages(self) -> int:
+        """Refcount-zero pages kept resident by the prefix index: the
+        reclaimable state between used and free (a maintained counter)."""
+        return self._n_cached
+
+    @property
     def used_pages(self) -> int:
-        return (self.n_pages - 1) - len(self._free)
+        """Pages held by at least one lane (a shared page counts once)."""
+        return (self.n_pages - 1) - len(self._free) - self._n_cached
 
     def _alloc(self, n: int) -> list[int] | None:
-        """``n`` pages off the free list, or None (nothing taken)."""
-        if n > len(self._free):
+        """``n`` private pages (refcount 1 each): free pages first, then
+        refcount-zero index entries evicted by the reuse policy; None
+        (nothing taken) when the pool cannot supply them."""
+        if n > len(self._free) + self._n_cached:
             return None
-        pages = [self._free.pop() for _ in range(n)]
-        self.refcount[pages] = 1
+        pages = []
+        for _ in range(n):
+            p = self._free.pop() if self._free else self._evict_one()
+            self.refcount[p] = 1
+            pages.append(p)
         return pages
+
+    def _evict_one(self) -> int:
+        """Reclaim one refcount-zero index entry: ``lru`` evicts the page
+        hit longest ago, ``fifo`` the oldest published."""
+        order = self._last_hit if self.prefix_eviction == "lru" \
+            else self._pub_order
+        victim = min((p for p in self._page_key if self.refcount[p] == 0),
+                     key=lambda p: order.get(p, 0))
+        self._unpublish(victim)
+        self.index_evictions += 1
+        return victim
+
+    def _unpublish(self, p: int) -> None:
+        key = self._page_key.pop(p, None)
+        if key is not None:
+            if self._index.get(key) == p:
+                del self._index[key]
+            if self.refcount[p] == 0:
+                self._n_cached -= 1
+        self._last_hit.pop(p, None)
+        self._pub_order.pop(p, None)
+
+    def _unref(self, p: int) -> None:
+        """Drop one lane's reference.  A page returns to the free list only
+        at refcount zero and outside the index; an indexed one stays
+        resident as cached capacity until the allocator evicts it."""
+        p = int(p)
+        if p == NULL_PAGE:
+            return
+        self.refcount[p] -= 1
+        if self.refcount[p] <= 0:
+            if p in self._page_key:
+                self._n_cached += 1
+            else:
+                self._free.append(p)
 
     def _free_lane(self, lane: int) -> None:
         for p in self.table[lane, :self.n_blocks[lane]]:
-            p = int(p)
-            if p != NULL_PAGE:
-                self.refcount[p] = 0
-                self._free.append(p)
+            self._unref(p)
         self.table[lane, :] = NULL_PAGE
         self.n_blocks[lane] = 0
+        self._chain[lane] = ("", 0)
 
     def _pages_tensor(self, pages) -> torch.Tensor:
         return torch.as_tensor(np.asarray(pages, np.int64),
@@ -271,7 +367,8 @@ class PagedKVCache:
         return math.ceil(prompt_len / self.page_size) * self.page_size
 
     def can_admit(self, prompt_len: int) -> bool:
-        return math.ceil(prompt_len / self.page_size) <= len(self._free)
+        return math.ceil(prompt_len / self.page_size) \
+            <= len(self._free) + self._n_cached
 
     def admit(self, lane: int, prefill_caches: dict, prompt_len: int) -> bool:
         """Allocate the prompt's pages and copy batch entry 0 of the
@@ -320,16 +417,18 @@ class PagedKVCache:
         return True
 
     def truncate_to(self, lane: int, committed_len: int) -> int:
-        """Keep the pages covering ``[0, committed_len)`` and free the rest
-        (K/V past ``committed_len`` in the last kept page is masked by
-        ``kv_len``).  Returns the number of pages freed."""
+        """Speculative rollback: keep the pages covering ``[0,
+        committed_len)`` and drop the lane's reference to the rest (K/V
+        past ``committed_len`` in the last kept page is masked by
+        ``kv_len`` and overwritten by the next accepted token).  A page
+        another lane or the index still holds is not freed.  Returns the
+        number of pages the lane gave up."""
         keep = math.ceil(committed_len / self.page_size)
         nblk = self.n_blocks[lane]
         if keep >= nblk:
             return 0
         for p in self.table[lane, keep:nblk]:
-            self.refcount[int(p)] = 0
-            self._free.append(int(p))
+            self._unref(p)
         self.table[lane, keep:nblk] = NULL_PAGE
         self.n_blocks[lane] = keep
         return nblk - keep
@@ -338,9 +437,10 @@ class PagedKVCache:
         self._free_lane(lane)
 
     def swap_out(self, lane: int) -> PageHandle:
-        """Copy the lane's pages to host memory, then free them.  The copy
-        is complete before the pages return to the free list (the pools
-        are written in place, so a later admission may reuse them).  int8
+        """Copy the lane's pages to host memory, then drop its references
+        (shared pages stay with their other holders).  The copy is
+        complete before the pages return to the pool (the pools are
+        written in place, so a later admission may reuse them).  int8
         pools copy their codes and scales as they are; fp pools copy
         float32, or pack it to int8 with ``swap_compress``."""
         nblk = self.n_blocks[lane]
@@ -365,6 +465,7 @@ class PagedKVCache:
         self.table[lane, :handle.n_blocks] = pages
         self.table[lane, handle.n_blocks:] = NULL_PAGE
         self.n_blocks[lane] = handle.n_blocks
+        self._chain[lane] = ("", 0)   # resumed prefill re-walks the chain
         self.swap_ins += 1
         return True
 
@@ -385,6 +486,130 @@ class PagedKVCache:
         return torch.from_numpy(self.table[lane:lane + 1].copy()).to(
             self.device)
 
+    # -- prefix cache: match / seed / publish / copy-on-write --------------
+    def set_prefix_policy(self, min_match: int | None = None,
+                          eviction: str | None = None) -> None:
+        """Reuse-policy knobs (the JAX package tunes them in its
+        ``PrefixPolicy`` region; here they are plain arguments):
+        ``min_match`` — the fewest consecutive page hits a match needs to
+        be used; ``eviction`` — ``lru`` | ``fifo`` reclaim order of
+        refcount-zero index entries."""
+        if min_match is not None:
+            self.prefix_min_match = max(1, int(min_match))
+        if eviction is not None:
+            if eviction not in PREFIX_EVICTION_POLICIES:
+                raise ValueError(
+                    f"unknown prefix eviction policy {eviction!r} "
+                    f"(choose from {PREFIX_EVICTION_POLICIES})")
+            self.prefix_eviction = eviction
+
+    def match_prefix(self, prompt: Sequence[int]) -> tuple[list[int], str]:
+        """The prompt's full pages walked through the chained-hash index:
+        (matched physical pages, chain key of the last hit), cut to empty
+        below ``min_match`` pages.  A pure lookup: no refcount moves."""
+        pages: list[int] = []
+        chain = ""
+        if not self.prefix_cache:
+            return pages, chain
+        psz = self.page_size
+        for b in range(len(prompt) // psz):
+            key = chain_hash(chain, prompt[b * psz:(b + 1) * psz])
+            p = self._index.get(key)
+            if p is None:
+                break
+            pages.append(p)
+            chain = key
+        if len(pages) < self.prefix_min_match:
+            return [], ""
+        return pages, chain
+
+    def seed_prefix(self, lane: int, prompt: Sequence[int]) -> int:
+        """Admission-time reuse: point the lane's leading table rows at
+        the matched shared pages (refcount + 1 each) instead of prefilling
+        them.  Returns the position prefill starts at: the cached token
+        count, capped at ``len(prompt) - 1`` so the last prompt position
+        is always recomputed (its logits give the first token).  For a
+        fully cached page-aligned prompt that position lies inside the
+        last shared page, and the write goes through the copy-on-write
+        of :meth:`cow_writable`."""
+        if not self.prefix_cache:
+            return 0
+        self._tick += 1
+        self.prefix_lookups += 1
+        pages, chain = self.match_prefix(prompt)
+        if not pages:
+            self._chain[lane] = ("", 0)
+            return 0
+        for p in pages:
+            if self.refcount[p] == 0:         # cached -> used
+                self._n_cached -= 1
+            self.refcount[p] += 1
+            self._last_hit[p] = self._tick
+        self.table[lane, :len(pages)] = np.asarray(pages, np.int32)
+        self.table[lane, len(pages):] = NULL_PAGE
+        self.n_blocks[lane] = len(pages)
+        self._chain[lane] = (chain, len(pages))
+        start = min(len(pages) * self.page_size, len(prompt) - 1)
+        self.prefix_hits += 1
+        self.hit_tokens += start
+        self.pages_saved += len(pages)
+        return start
+
+    def publish_prefix(self, lane: int, prompt: Sequence[int],
+                       upto: int) -> None:
+        """Publish the lane's newly full committed prompt pages (``upto``
+        prompt tokens are committed) into the index.  Only full pages
+        publish; a key already indexed (another lane published the same
+        prefix first) keeps its entry and this lane's copy stays
+        private."""
+        if not self.prefix_cache:
+            return
+        psz = self.page_size
+        chain, done = self._chain[lane]
+        n_full = min(int(upto), len(prompt)) // psz
+        for b in range(done, n_full):
+            key = chain_hash(chain, prompt[b * psz:(b + 1) * psz])
+            self._tick += 1
+            p = self._index.get(key)
+            if p is None:
+                p = int(self.table[lane, b])
+                if p != NULL_PAGE:
+                    self._index[key] = p
+                    self._page_key[p] = key
+                    self._pub_order[p] = self._tick
+            self._last_hit[p] = self._tick
+            chain = key
+        self._chain[lane] = (chain, max(done, n_full))
+
+    def cow_writable(self, lane: int, pos: int) -> bool:
+        """Copy-on-write guard: make the page holding ``pos`` private to
+        the lane before a K/V write lands there.  A page another lane
+        holds, or one backing an index entry (a write would make its
+        content disagree with its key), is copied into a fresh page, in
+        place on every pool leaf (k, v and an int8 pool's scales), and
+        the lane drops its reference to the original.  Returns False only
+        when the pool cannot supply the copy (page pressure)."""
+        if not self.prefix_cache:
+            return True
+        blk = int(pos) // self.page_size
+        if blk >= self.n_blocks[lane]:
+            return True                  # not allocated yet: fresh
+        p = int(self.table[lane, blk])
+        if p == NULL_PAGE:
+            return True
+        if self.refcount[p] <= 1 and p not in self._page_key:
+            return True                  # already private
+        fresh = self._alloc(1)
+        if fresh is None:
+            return False
+        q = fresh[0]
+        for leaf in self._leaves():
+            leaf[:, q] = leaf[:, p]
+        self._unref(p)
+        self.table[lane, blk] = q
+        self.cow_copies += 1
+        return True
+
     # -- accounting ---------------------------------------------------------
     def cache_tokens(self) -> int:
         """Token capacity currently held by live sequences."""
@@ -403,23 +628,42 @@ class PagedKVCache:
         return (self.n_pages - 1) * self.page_size
 
     def stats(self) -> dict:
-        return {"kind": self.kind, "page_size": self.page_size,
-                "n_pages": self.n_pages, "used_pages": self.used_pages,
-                "free_pages": self.free_pages,
-                "cache_tokens": self.cache_tokens(),
-                "kv_dtype": self.kv_dtype,
-                "pool_bytes": self.pool_bytes(),
-                "kv_bytes_per_token": self.kv_bytes_per_token(),
-                "capacity_tokens": self.capacity_tokens(),
-                "swap_outs": self.swap_outs, "swap_ins": self.swap_ins}
+        out = {"kind": self.kind, "page_size": self.page_size,
+               "n_pages": self.n_pages, "used_pages": self.used_pages,
+               "free_pages": self.free_pages,
+               "cached_pages": self.cached_pages,
+               "cache_tokens": self.cache_tokens(),
+               "kv_dtype": self.kv_dtype,
+               "pool_bytes": self.pool_bytes(),
+               "kv_bytes_per_token": self.kv_bytes_per_token(),
+               "capacity_tokens": self.capacity_tokens(),
+               "swap_outs": self.swap_outs, "swap_ins": self.swap_ins}
+        if self.prefix_cache:
+            out["prefix"] = {
+                "lookups": self.prefix_lookups,
+                "hits": self.prefix_hits,
+                "hit_tokens": self.hit_tokens,
+                "pages_saved": self.pages_saved,
+                "cached_pages": self.cached_pages,
+                "cow_copies": self.cow_copies,
+                "evictions": self.index_evictions,
+                "min_match": self.prefix_min_match,
+                "eviction": self.prefix_eviction,
+            }
+        return out
 
 
 def make_kv_cache(model, cache: str, n_lanes: int, max_len: int,
                   device: str | torch.device, n_pages: int | None = None,
                   page_size: int = 16, kv_dtype: str = "fp",
-                  swap_compress: bool = False) -> DenseKVCache | PagedKVCache:
+                  swap_compress: bool = False, prefix_cache: bool = False,
+                  prefix_min_match: int = 1,
+                  prefix_eviction: str = "lru") -> DenseKVCache | PagedKVCache:
     """Build a KV-cache backend by name (``dense`` | ``paged``)."""
     if cache == "dense":
+        if prefix_cache:
+            raise ValueError("prefix caching shares pages of the paged "
+                             "pool; use cache='paged'")
         if kv_dtype != "fp":
             raise ValueError("quantized KV storage is a paged-pool feature; "
                              "use cache='paged'")
@@ -431,5 +675,8 @@ def make_kv_cache(model, cache: str, n_lanes: int, max_len: int,
             n_pages = n_lanes * math.ceil(max_len / page_size) + 1
         return PagedKVCache(model, n_lanes, max_len, n_pages, page_size,
                             device, kv_dtype=kv_dtype,
-                            swap_compress=swap_compress)
+                            swap_compress=swap_compress,
+                            prefix_cache=prefix_cache,
+                            prefix_min_match=prefix_min_match,
+                            prefix_eviction=prefix_eviction)
     raise ValueError(f"unknown cache backend {cache!r} (dense | paged)")

@@ -1,5 +1,6 @@
 """Per-request sampling for the serving engine: temperature / top-k /
-top-p and explicit seeds (numpy, a copy of the JAX package's sampler).
+top-p, explicit seeds and the speculative accept/reject rule (numpy, a
+copy of the JAX package's sampler).
 
 Every request carries a :class:`SamplingParams`; the engine never calls
 ``argmax`` directly.  Three properties the tests pin down:
@@ -15,9 +16,16 @@ Every request carries a :class:`SamplingParams`; the engine never calls
   on or what else is batched alongside it, and the same tokens as the
   JAX package's engine for the same logits.
 
+Speculative decoding uses the standard accept/reject rule (Leviathan et
+al. 2023; Chen et al. 2023): draft token ``d_i`` is accepted with
+probability ``min(1, p_i(d_i) / q_i(d_i))``; on rejection the correction
+token is drawn from ``norm(max(p_i - q_i, 0))``; if every draft is
+accepted a bonus token is drawn from the target's next distribution.  In
+the greedy limit it is "accept while the draft equals the target
+argmax", so greedy speculative output equals plain greedy decode.
+
 Sampling runs host-side in float64 numpy: the logits are copied to the
-host between scheduler ticks anyway.  The speculative accept/reject rule
-is not ported yet (ROADMAP queue 1, item 5).
+host between scheduler ticks anyway.
 """
 from __future__ import annotations
 
@@ -26,11 +34,13 @@ from dataclasses import dataclass
 import numpy as np
 
 __all__ = ["SamplingParams", "filtered_probs", "sample_token",
-           "sample_batch"]
+           "sample_batch", "draft_rng", "propose_token",
+           "speculative_accept"]
 
-# independent deterministic streams per (seed, counter); the draft (1)
-# and accept (2) streams of speculative decoding keep their numbers
+# independent deterministic streams per (seed, counter)
 _STREAM_SAMPLE = 0     # plain (non-speculative) token draws
+_STREAM_DRAFT = 1      # draft proposals within one speculative tick
+_STREAM_ACCEPT = 2     # accept/reject coins + correction/bonus draws
 
 
 @dataclass(frozen=True)
@@ -120,3 +130,60 @@ def sample_batch(logits, params, counters) -> list[int]:
     logits = np.asarray(logits)
     return [sample_token(logits[i], sp, int(c))
             for i, (sp, c) in enumerate(zip(params, counters))]
+
+
+# --------------------------------------------------------------------------
+# speculative decoding
+# --------------------------------------------------------------------------
+
+
+def draft_rng(sp: SamplingParams, counter: int) -> np.random.Generator:
+    """The proposal stream for one speculative tick (first emission index
+    ``counter``); draw :func:`propose_token` from it k times."""
+    return _rng(sp.seed, counter, _STREAM_DRAFT)
+
+
+def propose_token(logits, sp: SamplingParams,
+                  rng: np.random.Generator) -> tuple[int, np.ndarray]:
+    """Draft proposal: ``(token, q)`` where ``q`` is the filtered draft
+    distribution the accept rule divides by."""
+    q = filtered_probs(logits, sp)
+    if sp.greedy:
+        return int(np.argmax(q)), q
+    return _draw(q, rng), q
+
+
+def speculative_accept(drafts, draft_probs, target_logits,
+                       sp: SamplingParams, counter: int
+                       ) -> tuple[list[int], int]:
+    """The accept/reject rule over one verified chunk.
+
+    ``drafts`` — k proposed tokens; ``draft_probs`` — their filtered draft
+    distributions ``q_i``; ``target_logits`` — (k+1, V) target logits
+    where row ``i`` scores the position of ``drafts[i]`` and row ``k`` is
+    the all-accepted bonus position.  Returns ``(emitted, n_accepted)``
+    with ``len(emitted) == n_accepted + 1``: the accepted prefix plus one
+    correction (on rejection) or bonus (all accepted) token.
+    """
+    target_logits = np.asarray(target_logits)
+    k = len(drafts)
+    if sp.greedy:
+        a = 0
+        while a < k and drafts[a] == int(np.argmax(target_logits[a])):
+            a += 1
+        return list(drafts[:a]) + [int(np.argmax(target_logits[a]))], a
+    rng = _rng(sp.seed, counter, _STREAM_ACCEPT)
+    emitted: list[int] = []
+    for i in range(k):
+        p = filtered_probs(target_logits[i], sp)
+        q = np.asarray(draft_probs[i], np.float64)
+        d = int(drafts[i])
+        if rng.random() < min(1.0, p[d] / max(q[d], 1e-300)):
+            emitted.append(d)
+            continue
+        resid = np.maximum(p - q, 0.0)
+        total = resid.sum()
+        resid = resid / total if total > 0.0 else p
+        return emitted + [_draw(resid, rng)], i
+    p = filtered_probs(target_logits[k], sp)
+    return emitted + [_draw(p, rng)], k

@@ -336,3 +336,133 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         pa.flash_paged_decode(q, k8, v8, table, lens)      # fp wrapper
     with pytest.raises(ValueError, match="start and kv_len"):
         pa.flash_paged_prefill_quant(q, k8, v8, ks, vs, table, lens[:1], lens)
+
+
+# --------------------------------------------------------------------------
+# split prefill / verify (K5b + K5c) and its int8 form (K6d + K5c)
+# --------------------------------------------------------------------------
+
+
+def chunk_inputs(b, h, hkv, d, psz, nblk, starts, valid, dtype, device, seed,
+                 c, quant):
+    """A chunk of c rows per sequence at ``starts`` with ``valid`` rows
+    committed (kv_len = start + valid; 0 valid and start 0 is an idle
+    lane); fp pools, or int8 pools with their scales."""
+    kv_len = [s + v for s, v in zip(starts, valid)]
+    q, kp, vp, table, lens = paged_inputs(b, h, hkv, d, psz, nblk, kv_len,
+                                          dtype, device, seed, c=c)
+    start = torch.tensor(starts, dtype=torch.int32, device=device)
+    if quant:
+        (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+        return q, ops.PagedPools(k8, v8, ks, vs), table, start, lens
+    return q, ops.PagedPools(kp, vp), table, start, lens
+
+
+SPLIT_CASES = {
+    # verify: 4 lanes of k + 1 = 5 rows and an idle lane (kv_len 0)
+    "verify yi-6b": (32, 4, 128, 16, 64, [839, 720, 190, 544, 0],
+                     [5, 5, 5, 5, 0], 5),
+    "verify deepseek-7b": (32, 32, 128, 16, 64, [839, 720, 190, 544, 0],
+                           [5, 5, 5, 5, 0], 5),
+    # prefill chunks: at 384, mid-page and ragged, two q tiles of 64
+    "chunk at 384": (32, 4, 128, 16, 32, [384, 0], [128, 128], 128),
+    "ragged mid-page": (8, 2, 16, 8, 40, [200, 3], [44, 77], 80),
+    "verify reduced": (8, 2, 64, 8, 20, [33, 100, 0], [3, 5, 0], 5),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+@pytest.mark.parametrize("ns", [2, 3, 8])
+def test_split_prefill_kernels_match_plain(cuda_device, dtype, quant, case,
+                                           ns):
+    """K5b / K6d partials against ``paged_prefill_split_ref``'s, and with
+    K5c the output against the split and the one-pass plain versions;
+    rows of a lane with no key exactly 0."""
+    h, hkv, d, psz, nblk, starts, valid, c = SPLIT_CASES[case]
+    q, pools, table, start, kv_len = chunk_inputs(
+        len(starts), h, hkv, d, psz, nblk, starts, valid, dtype, cuda_device,
+        140, c, quant)
+    scales = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
+    split = pa.paged_prefill_split_quant if quant else pa.paged_prefill_split
+    n = (split.launches, pa.split_combine.launches)
+    got = ops.paged_verify(q, pools, table, start, kv_len, num_splits=ns)
+    torch.cuda.synchronize()
+    assert (split.launches, pa.split_combine.launches) == (n[0] + 1, n[1] + 1)
+    assert got.dtype == dtype and got.shape == q.shape
+    want, (m, l, acc) = ref.paged_prefill_split_ref(
+        q, pools.k, pools.v, table, start, kv_len, ns, **scales)
+    one_pass = ref.paged_prefill_ref(q, pools.k, pools.v, table, start,
+                                     kv_len, **scales)
+    args = (q, pools.k, pools.v) + ((pools.k_scale, pools.v_scale)
+                                    if quant else ())
+    gm, gl, gacc = split(*args, table, start, kv_len, ns)
+    close(gm, m, torch.float32)
+    close(gl, l, dtype)
+    close(gacc, acc, dtype)
+    for i, v in enumerate(valid):
+        if v == 0:
+            assert torch.all(got[i] == 0)
+            assert torch.all(gl[i] == 0) and torch.all(gacc[i] == 0)
+            continue
+        close(got[i, :, :v], want[i, :, :v], dtype)
+        close(got[i, :, :v], one_pass[i, :, :v], dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_prefill_ns1_is_the_one_pass_kernel(cuda_device, quant):
+    """num_splits 1 (and None) take K4 / K6c's own launch alone: no split
+    kernel and no combine."""
+    q, pools, table, start, kv_len = chunk_inputs(
+        3, 32, 4, 128, 16, 20, [100, 0, 0], [5, 5, 0], torch.bfloat16,
+        cuda_device, 150, 5, quant)
+    one = pa.flash_paged_prefill_quant if quant else pa.flash_paged_prefill
+    split = pa.paged_prefill_split_quant if quant else pa.paged_prefill_split
+    n = (one.launches, split.launches, pa.split_combine.launches)
+    base = ops.paged_verify(q, pools, table, start, kv_len)
+    ns1 = ops.paged_verify(q, pools, table, start, kv_len, num_splits=1)
+    torch.cuda.synchronize()
+    assert (one.launches, split.launches, pa.split_combine.launches) == \
+        (n[0] + 2, n[1], n[2])
+    assert torch.equal(base, ns1)
+    assert torch.all(base[2] == 0)
+    # 64 splits clamp to the table's 20 pages
+    wide = ops.paged_verify(q, pools, table, start, kv_len, num_splits=64)
+    torch.cuda.synchronize()
+    assert torch.all(wide[2] == 0)
+    close(wide[:2], base[:2], torch.bfloat16)
+
+
+def test_split_prefill_wrappers_reject_what_the_kernels_do_not_take(
+        cuda_device):
+    q, pools, table, start, kv_len = chunk_inputs(
+        2, 4, 2, 32, 8, 4, [3, 0], [4, 2], torch.bfloat16, cuda_device, 160,
+        4, False)
+    kp, vp = pools.k, pools.v
+    split = pa.paged_prefill_split
+    with pytest.raises(ValueError, match="CUDA"):
+        split(q.cpu(), kp, vp, table, start, kv_len, 2)
+    with pytest.raises(ValueError, match="dtype"):
+        split(q.float(), kp, vp, table, start, kv_len, 2)
+    with pytest.raises(ValueError, match="start and kv_len"):
+        split(q, kp, vp, table, start[:1], kv_len, 2)
+    with pytest.raises(ValueError, match="page_table"):
+        split(q, kp, vp, table[:1], start, kv_len, 2)
+    with pytest.raises(ValueError, match="num_splits"):
+        split(q, kp, vp, table, start, kv_len, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        split(q[..., :24].contiguous(), kp[..., :24].contiguous(),
+              vp[..., :24].contiguous(), table, start, kv_len, 2)
+    (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+    quant = pa.paged_prefill_split_quant
+    with pytest.raises(ValueError, match="int8"):
+        quant(q, kp, vp, ks, vs, table, start, kv_len, 2)
+    with pytest.raises(ValueError, match="float32"):
+        quant(q, k8, v8, ks.cpu(), vs, table, start, kv_len, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant(q, k8.cpu(), v8, ks, vs, table, start, kv_len, 2)
+    with pytest.raises(ValueError, match="q dtype"):
+        quant(q.half(), k8, v8, ks, vs, table, start, kv_len, 2)
+    with pytest.raises(ValueError, match="dtype"):
+        pa.flash_paged_prefill(q, k8, v8, table, start, kv_len, num_splits=2)

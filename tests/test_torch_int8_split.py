@@ -270,8 +270,11 @@ def test_int8_dispatch_on_cpu_and_what_it_rejects():
     pools = ops.PagedPools(k8, v8, ks, vs)
     with pytest.raises(ValueError, match="CUDA"):
         ops.paged_decode(q, pools, table, kv_len, use_kernel=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ops.paged_prefill(q, pools, table, kv_len - 1, kv_len, num_splits=2)
+    np.testing.assert_array_equal(
+        ops.paged_prefill(q, pools, table, kv_len - 1, kv_len,
+                          num_splits=2).numpy(),
+        ref.paged_prefill_ref(q, k8, v8, table, kv_len - 1, kv_len,
+                              k_scale=ks, v_scale=vs).numpy())
     np.testing.assert_array_equal(
         ops.paged_decode(q, pools, table, kv_len, num_splits=4).numpy(),
         ref.paged_decode_ref(q, k8, v8, table, kv_len, k_scale=ks,

@@ -154,8 +154,13 @@ def test_paged_dispatch_on_cpu_and_what_it_rejects():
     np.testing.assert_array_equal(
         ops.paged_decode(q, pools, table, kv_len, num_splits=2).numpy(),
         ref.paged_decode_ref(q, pools.k, pools.v, table, kv_len).numpy())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ops.paged_prefill(q, pools, table, kv_len - 1, kv_len, num_splits=2)
+    # split-KV prefill is the same function too: the plain version ignores
+    # it, as the JAX package's does on the CPU
+    np.testing.assert_array_equal(
+        ops.paged_prefill(q, pools, table, kv_len - 1, kv_len,
+                          num_splits=2).numpy(),
+        ref.paged_prefill_ref(q, pools.k, pools.v, table, kv_len - 1,
+                              kv_len).numpy())
     with pytest.raises(NotImplementedError, match="item 10"):
         ops.paged_prefill(q, pools, table, kv_len - 1, kv_len, mesh=object())
     with pytest.raises(ValueError, match="k_scale without v_scale"):
