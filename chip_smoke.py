@@ -71,6 +71,23 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    tokens in one pass and with 8 splits, over bf16 and int8 pools,
    kernels against plain, and a one-token verify against the paged
    decode step.
+19. K8 ``matmul`` against its plain version: float32 and bfloat16, with
+   and without bias, all four epilogues, ragged shapes, every
+   instantiated tile; the shared-memory formula of the install-time
+   cost model against the kernel's; every bf16 tile timed at yi-6b's MLP
+   projection of a 512-token prefill (M=512, K=4096, N=11008), beside
+   its bound, its plain version and ``torch.matmul``;
+20. K7 ``fdm_stress``, fused and split, against its plain version on a
+   ragged 60x50x130 grid and a 256^3 one, over several tiles, and both
+   variants timed over those tiles at 256^3 with their bounds;
+21. the install path: in a fresh workdir ``register_kernel_regions`` at
+   the phase-19 shape and ``run_install_tuning(wall_clock=True)``, whose
+   CUDA-event executor times K8 on every candidate tile; the trajectory,
+   the winner and the record file (whose fingerprint must name the card);
+   ``ops.mm`` must then launch K8 with the winner's tiles, and a second
+   session on the workdir must measure nothing; then Sample 8 at both
+   levels (``examples/autotune_fdm_torch.py``'s ``main``).  The launch
+   counters are zeroed before this phase and read after it.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
@@ -82,10 +99,12 @@ Usage::
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections.abc import Callable
 from pathlib import Path
@@ -94,10 +113,13 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import repro_torch.at as at  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.distributed.compression import quantize_int8_rows  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import fdm_stress as fk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import matmul as mmk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.launch.serve import (ServeConfig, draw_prompts,  # noqa: E402
@@ -105,6 +127,8 @@ from repro_torch.launch.serve import (ServeConfig, draw_prompts,  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.tuning import (register_kernel_regions,  # noqa: E402
+                                run_install_tuning)
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): the least
 # time a kernel could take is the larger of bytes / HBM rate and
@@ -114,7 +138,7 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}   # rtol = atol
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
-KERNELS = fa.KERNELS + pa.KERNELS
+KERNELS = fa.KERNELS + pa.KERNELS + mmk.KERNELS + fk.KERNELS
 FLASH = "src/repro/kernels/flash_attention.py"
 BF16 = torch.bfloat16
 SERVE = dict(arch="yi-6b", reduced=False, n_requests=8, n_lanes=4,
@@ -202,6 +226,8 @@ def phase_build() -> None:
     paths = build.build_all()
     fa._lib()
     pa._lib()
+    mmk._lib()
+    fk._lib()
     dt = time.perf_counter() - t0
     print(f"[2 build] {len(paths)} source(s) built and loaded in {dt:.1f}s: "
           + ", ".join(p.name for p in paths.values()))
@@ -1341,6 +1367,241 @@ def phase_verify_logits(model, params) -> None:
           "then a verify of 5 tokens: " + "; ".join(lines))
 
 
+# --------------------------------------------------------------------------
+# the install path: K8 matmul, K7 fdm_stress, install-time AT, Sample 8
+# --------------------------------------------------------------------------
+
+MM_SOURCE = "src/repro_torch/kernels/csrc/matmul.cu"
+FDM_SOURCE = "src/repro_torch/kernels/csrc/fdm_stress.cu"
+MM_SHAPE = (512, 4096, 11008)        # yi-6b MLP projection, 512-token prefill
+# float32 operations per grid point of the stress update (divisions
+# counted as one): fused 54, split 57 (QG formed twice)
+FDM_OPS = {"fused": 54, "split": 57}
+FDM_ARRAYS = {"fused": 24, "split": 26}   # grid arrays read + written
+
+
+def phase_k8() -> dict:
+    """K8 against its plain version; every bf16 tile timed at MM_SHAPE.
+    Returns the row's numbers and the sweep's device ms by tile."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def operands(m, k, n, dtype):
+        x = torch.randn((m, k), generator=gen, device="cuda") * k ** -0.5
+        y = torch.randn((k, n), generator=gen, device="cuda")
+        b = torch.randn((n,), generator=gen, device="cuda")
+        return x.to(dtype), y.to(dtype), b.to(dtype)
+
+    errs = []
+    for dtype in (torch.float32, BF16):
+        worst = 0.0
+        for m, k, n in ((77, 300, 200), (128, 1024, 256), (1, 8, 24)):
+            x, y, b = operands(m, k, n, dtype)
+            for epilogue in mmk.EPILOGUES:
+                for bias in (None, b):
+                    worst = max(worst, compare(
+                        ops.mm(x, y, bias, epilogue=epilogue),
+                        ref.matmul_ref(x, y, bias, epilogue), dtype))
+        x, y, b = operands(77, 300, 200, dtype)
+        want = ref.matmul_ref(x, y, b, "gelu")
+        for tiles in sorted(mmk.TILES):
+            worst = max(worst, compare(
+                mmk.matmul(x, y, b, block_m=tiles[0], block_n=tiles[1],
+                           block_k=tiles[2], epilogue="gelu"), want, dtype))
+            elem = 4 if dtype == torch.float32 else 2
+            check(mmk.kernel_smem_bytes(dtype, *tiles)
+                  == mmk.smem_bytes(*tiles, elem),
+                  f"shared-memory formula differs from the kernel's at "
+                  f"{tiles} {dtype}")
+        errs.append(f"{dtype} {worst:.2e}")
+    # float32 at the timing depth (K=4096): the kernel's and torch's fp32
+    # sums against a float64 product, the kernel held to the fp32 tolerance
+    x, y, _ = operands(512, 4096, 1000, torch.float32)
+    exact = (x.double() @ y.double()).float()
+    deep = (compare(mmk.matmul(x, y), exact, torch.float32),
+            compare(torch.matmul(x, y), exact, torch.float32))
+    errs.append(f"fp32 512x4096x1000 against float64: kernel {deep[0]:.2e}, "
+                f"torch.matmul {deep[1]:.2e}")
+    limit = mmk.smem_per_block_limit("cuda")
+    print(f"[19 K8 matmul] max abs err vs plain over 3 shapes (77x300x200, "
+          f"128x1024x256, 1x8x24) x 4 epilogues x bias on/off and all "
+          f"{len(mmk.TILES)} tiles at 77x300x200 (tol bf16 {TOL[BF16]}, "
+          f"fp32 {TOL[torch.float32]}): " + "; ".join(errs)
+          + f"; smem formula equal to the kernel's for every tile; "
+          f"per-block shared-memory limit {limit} bytes")
+
+    m, k, n = MM_SHAPE
+    x, y, _ = operands(m, k, n, BF16)
+    sweep = {}
+    for tiles in sorted(mmk.TILES):
+        kw = dict(block_m=tiles[0], block_n=tiles[1], block_k=tiles[2])
+        sweep[tiles] = time_ms(lambda: mmk.matmul(x, y, **kw))[0]
+    best = min(sweep, key=sweep.get)
+    err = compare(mmk.matmul(x, y, block_m=best[0], block_n=best[1],
+                             block_k=best[2]), ref.matmul_ref(x, y), BF16)
+    n_bytes = 2 * (m * k + k * n + m * n)
+    bound_ms, bound_by = bound(n_bytes, 2 * m * n * k, BF16)
+    times = {"plain_ms": time_ms(lambda: ref.matmul_ref(x, y)),
+             "library_ms": time_ms(lambda: torch.matmul(x, y))}
+    order = sorted(sweep, key=sweep.get)
+    print(f"[19 K8 matmul] M={m} K={k} N={n} bf16, device ms by tile "
+          f"(bm, bn, bk), fastest first: "
+          + ", ".join(f"{t} {sweep[t]:.4f}" for t in order)
+          + "; " + ", ".join(f"{k} {d:.4f} ({c:.4f})"
+                             for k, (d, c) in times.items())
+          + f" (ms per call incl. host in brackets), bound {bound_ms:.4f} ms "
+          f"({bound_by}); library = torch.matmul")
+    row = {"name": "matmul", "route": "cuda", "source": MM_SOURCE,
+           "replaces": "src/repro/kernels/matmul.py:73", "max_abs_err": err,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           **{k: d for k, (d, _) in times.items()}}
+    return row, sweep
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_k7(sample) -> dict:
+    """K7 fused and split against the plain version; both timed at 256^3
+    over Sample 8's tiles.  The row carries the fastest fused tile."""
+    errs, sweep = [], {}
+    for shape in ((60, 50, 130), (256, 256, 256)):
+        arrays, state = sample.fdm_grid(shape, "cuda", seed=20)
+        want = ref.fdm_stress_ref(arrays, state, 0.1)
+        worst = 0.0
+        for variant in fk.VARIANTS:
+            for tiles in sample.TILES:
+                got = fk.fdm_stress(arrays, state, 0.1, variant=variant,
+                                    bx=tiles[0], by=tiles[1], bz=tiles[2])
+                worst = max(worst, max(compare(got[k], want[k],
+                                               torch.float32)
+                                       for k in fk.STATE))
+        errs.append(f"{'x'.join(map(str, shape))} {worst:.2e}")
+    # arrays, state, want are the 256^3 grid's
+    points = 256 ** 3
+    for variant in fk.VARIANTS:
+        for tiles in sample.TILES:
+            kw = dict(variant=variant, bx=tiles[0], by=tiles[1], bz=tiles[2])
+            sweep[variant, tiles] = time_ms(
+                lambda: fk.fdm_stress(arrays, state, 0.1, **kw))[0]
+    bounds = {v: bound(4 * (FDM_ARRAYS[v] * points + 3 * 256),
+                       FDM_OPS[v] * points, torch.float32)
+              for v in fk.VARIANTS}
+    plain = time_ms(lambda: ref.fdm_stress_ref(arrays, state, 0.1))
+    best = min((key for key in sweep if key[0] == "fused"), key=sweep.get)
+    err = max(compare(fk.fdm_stress(arrays, state, 0.1, bx=best[1][0],
+                                    by=best[1][1], bz=best[1][2])[k],
+                      want[k], torch.float32) for k in fk.STATE)
+    print(f"[20 K7 fdm_stress] max abs err vs plain, fused and split over "
+          f"tiles {sample.TILES} (tol fp32 {TOL[torch.float32]}): "
+          + "; ".join(errs))
+    print("[20 K7 fdm_stress] 256^3 float32, device ms by variant and tile: "
+          + ", ".join(f"{v} {t} {ms:.4f}" for (v, t), ms in sweep.items())
+          + "; bounds " + ", ".join(f"{v} {b:.4f} ms ({by})"
+                                    for v, (b, by) in bounds.items())
+          + f"; plain {plain[0]:.4f} ({plain[1]:.4f} per call incl. host); "
+          f"library none (no one PyTorch call)")
+    bound_ms, bound_by = bounds["fused"]
+    return {"name": "fdm_stress", "route": "cuda", "source": FDM_SOURCE,
+            "replaces": "src/repro/kernels/fdm_stress.py:139",
+            "max_abs_err": err, "ms": sweep[best], "plain_ms": plain[0],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_install(smi: str, sample) -> tuple[dict[str, int], tuple]:
+    """Install-time AT of K8 on the card, ops.mm with the winner, the warm
+    path, and Sample 8 at both levels; returns the launch counts of K8
+    and K7 and the winner's tiles."""
+    for kernel in KERNELS:
+        kernel.launches = 0
+    at.clear_published()
+    m, k, n = MM_SHAPE
+    workdir = tempfile.mkdtemp(prefix="oat_install_")
+    timed = at.executors.get("cuda-event")
+    trajectory = []
+
+    def logged(region, bp_env):
+        measure = timed(region, bp_env)
+
+        def run(assignment):
+            cost = measure(assignment)
+            trajectory.append((dict(assignment), cost))
+            return cost
+        return run
+
+    at.executors.register("cuda-event", logged, overwrite=True)
+    try:
+        session = at.AutoTuner(workdir)
+        register_kernel_regions(session, m=m, n=n, k=k)
+        tuned = run_install_tuning(session, wall_clock=True)
+    finally:
+        at.executors.register("cuda-event", timed, overwrite=True)
+    winner = tuned["MatmulBlocks"]
+    tiles = (winner["block_m"], winner["block_n"], winner["block_k"])
+    check(tiles in mmk.TILES, f"winner {tiles} is not an instantiated tile")
+    check(session.executor_calls == len(trajectory) > 0,
+          f"{session.executor_calls} evaluations, {len(trajectory)} timed")
+    check(at.tuned("matmul") == winner, "the winner was not published")
+    path = at.ATRecordStore(workdir).path
+    with open(path) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    card = torch.cuda.get_device_name(0).replace(" ", "-").lower()
+    check(any(r["region"] == "MatmulBlocks" and card in r["machine"]
+              for r in records), f"no MatmulBlocks record names {card}")
+    print(f"[21 install] MatmulBlocks at M={m} N={n} K={k} bf16, CUDA-event "
+          f"executor (min of 10 launches), trajectory (bm, bn, bk) -> ms: "
+          + ", ".join(f"({a['MatmulBlocks_BM']}, {a['MatmulBlocks_BN']}, "
+                      f"{a['MatmulBlocks_BK']}) {c * 1e3:.4f}"
+                      for a, c in trajectory)
+          + f"; winner {winner}; record file {path}: {json.dumps(records)}")
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = (torch.randn((m, k), generator=gen, device="cuda") * k ** -0.5).to(BF16)
+    y = torch.randn((k, n), generator=gen, device="cuda").to(BF16)
+    before = mmk.matmul.launches
+    out = ops.mm(x, y, epilogue="silu")
+    err = compare(out, ref.matmul_ref(x, y, None, "silu"), BF16)
+    check(mmk.matmul.launches == before + 1 and mmk.matmul.last_tiles == tiles,
+          f"ops.mm launched {mmk.matmul.launches - before} times with "
+          f"{mmk.matmul.last_tiles}, expected once with {tiles}")
+
+    again = at.AutoTuner(workdir)
+    register_kernel_regions(again, m=m, n=n, k=k)
+    check(run_install_tuning(again, wall_clock=True) == tuned,
+          "the second session loaded another winner")
+    check(again.executor_calls == 0,
+          f"the second session measured {again.executor_calls} times")
+    print(f"[21 install] ops.mm launched K8 with the winner's tiles {tiles} "
+          f"(max abs err vs plain {err:.2e}); a second session on the "
+          f"workdir warm-loaded {again.ctx.store.entry('MatmulBlocks_BM').value}"
+          f"/{again.ctx.store.entry('MatmulBlocks_BN').value}/"
+          f"{again.ctx.store.entry('MatmulBlocks_BK').value} with 0 "
+          f"measurements, on {smi}")
+
+    result = sample.main(["--device", "cuda"])
+    check(result["level1"]["candidates"] == 8
+          and result["level1"]["measured"] == 8, "Sample 8 level 1")
+    check(len(result["level2"]["results"]) == 2 * len(sample.TILES),
+          "Sample 8 level 2")
+    torch.cuda.synchronize()
+    launches = {kern.__name__: kern.launches for kern in KERNELS}
+    only_launched(launches, (mmk.matmul, fk.fdm_stress), "the install phase")
+    check(launches["matmul"] > 0 and launches["fdm_stress"] > 0,
+          f"the install phase launched {launches}")
+    print(f"[21 install] Sample 8 level 1: winner #{result['level1']['winner'] + 1} "
+          f"of 8; level 2 fastest {result['level2']['fastest']}; launches "
+          f"{launches}")
+    at.clear_published()
+    return {k: launches[k] for k in ("matmul", "fdm_stress")}, tiles
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1368,7 +1629,15 @@ def main() -> int:
     launches.update(phase_spec_prefix_serves(smi, paged, int8_reports,
                                              model, params))
     phase_verify_logits(model, params)
-    check(len(rows) == 11, f"{len(rows)} kernel rows, expected 11")
+    del model, params
+    torch.cuda.empty_cache()
+    sample = load_example("autotune_fdm_torch")
+    mm_row, mm_sweep = phase_k8()
+    rows += [mm_row, phase_k7(sample)]
+    install_launches, winner = phase_install(smi, sample)
+    launches.update(install_launches)
+    mm_row["ms"] = mm_sweep[winner]     # the tile the install path published
+    check(len(rows) == 13, f"{len(rows)} kernel rows, expected 13")
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}))

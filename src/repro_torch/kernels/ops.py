@@ -1,4 +1,4 @@
-"""Attention entry points of the model: kernel on CUDA, plain on CPU.
+"""Entry points of the kernels: kernel on CUDA, plain on CPU.
 
 The model calls these, never the kernels directly.  A CUDA tensor goes
 to the hand-written kernel, a CPU tensor to its plain PyTorch version;
@@ -15,8 +15,10 @@ import dataclasses
 
 import torch
 
+from .. import at
 from . import ref
 from .flash_attention import flash_attention, flash_decode
+from .matmul import matmul
 from .paged_attention import (flash_paged_decode, flash_paged_decode_quant,
                               flash_paged_prefill, flash_paged_prefill_quant)
 
@@ -28,6 +30,22 @@ def _use_kernel(x: torch.Tensor, use_kernel: bool | None) -> bool:
         raise ValueError("use_kernel=True needs CUDA tensors; the CUDA "
                          f"kernels do not run on {x.device}")
     return use_kernel
+
+
+def mm(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None = None,
+       *, epilogue: str = "none", use_kernel: bool | None = None,
+       **pps) -> torch.Tensor:
+    """GEMM entry point: ``epilogue(x @ y + bias)``.  On the card K8 runs
+    with the tiles install-time AT published (``at.tuned("matmul")``),
+    overridden by any ``block_m``/``block_n``/``block_k`` in ``pps``; on
+    the CPU the plain version.  As in the JAX package, no model code
+    calls it: the projections stay on ``@``."""
+    if _use_kernel(x, use_kernel):
+        kw = at.tuned("matmul")
+        kw.update(pps)
+        return matmul(x.contiguous(), y.contiguous(), bias,
+                      epilogue=epilogue, **kw)
+    return ref.matmul_ref(x, y, bias, epilogue)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -17,6 +17,9 @@ do, so their partials compare as well as their output.
 A row that sees no key at all (``kv_len == 0``) gets a uniform softmax
 over the ``-1e30`` scores here, i.e. the mean of ``v``; the kernels give
 exactly 0 for such a row.  The engine never sends one.
+
+:func:`matmul_ref` (K8's plain version) and :func:`fdm_stress_ref` (K7's)
+follow the JAX package's oracles of the same names.
 """
 from __future__ import annotations
 
@@ -244,3 +247,60 @@ def paged_prefill_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
     _, l_star, acc_star = combine_split_states(m, l, acc)
     out = finalize_split_states(l_star, acc_star).to(q.dtype)
     return out, (m, l, acc)
+
+
+def matmul_ref(x: torch.Tensor, y: torch.Tensor,
+               bias: torch.Tensor | None = None, epilogue: str = "none",
+               out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``epilogue(x @ y + bias)`` in float32, cast to ``out_dtype`` (default
+    x's dtype); gelu is the tanh form, as ``jax.nn.gelu``'s default."""
+    out = x.float() @ y.float()
+    if bias is not None:
+        out = out + bias.float()
+    if epilogue == "gelu":
+        out = torch.nn.functional.gelu(out, approximate="tanh")
+    elif epilogue == "silu":
+        out = torch.nn.functional.silu(out)
+    elif epilogue == "relu":
+        out = torch.clamp_min(out, 0)
+    elif epilogue != "none":
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    return out.to(out_dtype or x.dtype)
+
+
+def _next(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """``a`` shifted by one along ``dim``, the last plane repeated: the
+    edge-clamped ``[i + 1]`` neighbour."""
+    n = a.shape[dim]
+    return torch.cat([a.narrow(dim, 1, n - 1), a.narrow(dim, n - 1, 1)], dim)
+
+
+def fdm_stress_ref(arrays: dict, state: dict, dt: float) -> dict:
+    """Vectorised Sample-8 stress update with edge-clamped (i+1/j+1/k+1)
+    neighbour reads (the kernel's convention)."""
+    lam, rig, q = arrays["lam"], arrays["rig"], arrays["q"]
+    absx, absy, absz = arrays["absx"], arrays["absy"], arrays["absz"]
+    r_ip1, r_jp1, r_kp1 = _next(rig, 0), _next(rig, 1), _next(rig, 2)
+    r_ip1jp1, r_ip1kp1 = _next(r_ip1, 1), _next(r_ip1, 2)
+    r_jp1kp1 = _next(r_jp1, 2)
+    qg = absx[:, None, None] * absy[None, :, None] * absz[None, None, :] * q
+    rm2 = rig + rig
+    rltheta = (arrays["dxvx"] + arrays["dyvy"] + arrays["dzvz"]) * lam
+    out = {}
+    out["sxx"] = (state["sxx"] + (rltheta + rm2 * arrays["dxvx"]) * dt) * qg
+    out["syy"] = (state["syy"] + (rltheta + rm2 * arrays["dyvy"]) * dt) * qg
+    out["szz"] = (state["szz"] + (rltheta + rm2 * arrays["dzvz"]) * dt) * qg
+    stmp1 = 1.0 / rig
+    stmp2 = 1.0 / r_ip1
+    stmp4 = 1.0 / r_kp1
+    stmp3 = stmp1 + stmp2
+    rmaxy = 4.0 / (stmp3 + 1.0 / r_jp1 + 1.0 / r_ip1jp1)
+    rmaxz = 4.0 / (stmp3 + stmp4 + 1.0 / r_ip1kp1)
+    rmayz = 4.0 / (stmp3 + stmp4 + 1.0 / r_jp1kp1)
+    out["sxy"] = (state["sxy"]
+                  + (rmaxy * (arrays["dxvy"] + arrays["dyvx"])) * dt) * qg
+    out["sxz"] = (state["sxz"]
+                  + (rmaxz * (arrays["dxvz"] + arrays["dzvx"])) * dt) * qg
+    out["syz"] = (state["syz"]
+                  + (rmayz * (arrays["dyvz"] + arrays["dzvy"])) * dt) * qg
+    return out

@@ -15,7 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch.at as at
+from repro_torch.core.executor import CudaEventExecutor, WallClockExecutor
+from repro_torch.kernels import fdm_stress as fk
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import matmul as mmk
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa
 
@@ -466,3 +470,142 @@ def test_split_prefill_wrappers_reject_what_the_kernels_do_not_take(
         quant(q.half(), k8, v8, ks, vs, table, start, kv_len, 2)
     with pytest.raises(ValueError, match="dtype"):
         pa.flash_paged_prefill(q, k8, v8, table, start, kv_len, num_splits=2)
+
+
+# --------------------------------------------------------------------------
+# K8 matmul, K7 fdm_stress, and the install path's executors
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", ["none", "gelu", "silu", "relu"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("m,k,n", [(77, 300, 200), (128, 1024, 256),
+                                   (1, 8, 24), (130, 72, 9)])
+def test_matmul_kernel_matches_plain(cuda_device, dtype, epilogue, with_bias,
+                                     m, k, n):
+    x = rand((m, k), 30, cuda_device, dtype, k ** -0.5)
+    y = rand((k, n), 31, cuda_device, dtype)
+    bias = rand((n,), 32, cuda_device, dtype) if with_bias else None
+    launches = mmk.matmul.launches
+    got = ops.mm(x, y, bias, epilogue=epilogue, block_m=32, block_n=64,
+                 block_k=32)
+    want = ref.matmul_ref(x, y, bias, epilogue)
+    torch.cuda.synchronize()
+    assert mmk.matmul.launches == launches + 1
+    assert mmk.matmul.last_tiles == (32, 64, 32)
+    assert got.dtype == dtype and got.shape == (m, n)
+    close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_every_tile_matches_plain(cuda_device, dtype):
+    x = rand((77, 300), 33, cuda_device, dtype, 300 ** -0.5)
+    y = rand((300, 200), 34, cuda_device, dtype)
+    bias = rand((200,), 35, cuda_device, torch.float32)
+    want = ref.matmul_ref(x, y, bias, "gelu", torch.float32)
+    for tiles in sorted(mmk.TILES):
+        got = mmk.matmul(x, y, bias, block_m=tiles[0], block_n=tiles[1],
+                         block_k=tiles[2], epilogue="gelu",
+                         out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        close(got, want, dtype)
+        assert mmk.kernel_smem_bytes(dtype, *tiles) == mmk.smem_bytes(
+            *tiles, 4 if dtype == torch.float32 else 2)
+
+
+def test_mm_launches_the_published_tiles(cuda_device):
+    x = rand((64, 128), 36, cuda_device, torch.bfloat16)
+    y = rand((128, 96), 37, cuda_device, torch.bfloat16)
+    at.clear_published()
+    try:
+        at.publish("matmul", block_m=128, block_n=32, block_k=64)
+        ops.mm(x, y)
+        assert mmk.matmul.last_tiles == (128, 32, 64)
+        ops.mm(x, y, block_k=32)
+        assert mmk.matmul.last_tiles == (128, 32, 32)
+    finally:
+        at.clear_published()
+    assert mmk.smem_per_block_limit(cuda_device) >= 48 * 1024
+
+
+def test_matmul_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x = rand((16, 32), 38, cuda_device, torch.bfloat16)
+    y = rand((32, 8), 39, cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        mmk.matmul(x.cpu(), y.cpu())
+    with pytest.raises(ValueError, match="both be float32"):
+        mmk.matmul(x, y.float())
+    with pytest.raises(ValueError, match="inner dims"):
+        mmk.matmul(x, y[:16])
+    with pytest.raises(ValueError, match="contiguous"):
+        mmk.matmul(x.t(), x)
+    with pytest.raises(ValueError, match="not instantiated"):
+        mmk.matmul(x, y, block_m=256)
+    with pytest.raises(ValueError, match="bias"):
+        mmk.matmul(x, y, x[0])
+    with pytest.raises(ValueError, match="out_dtype"):
+        mmk.matmul(x, y, out_dtype=torch.float16)
+
+
+def fdm_case(shape, seed, device):
+    rng = np.random.default_rng(seed)
+    nx, ny, nz = shape
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    arrays = {n: t(rng.standard_normal(shape)) for n in fk.ARRAYS
+              if n not in ("rig", "absx", "absy", "absz")}
+    arrays.update(rig=t(rng.uniform(0.5, 2.0, shape)),
+                  absx=t(rng.standard_normal(nx)),
+                  absy=t(rng.standard_normal(ny)),
+                  absz=t(rng.standard_normal(nz)))
+    state = {n: t(rng.standard_normal(shape)) for n in fk.STATE}
+    return arrays, state
+
+
+@pytest.mark.parametrize("variant", ["fused", "split"])
+@pytest.mark.parametrize("tiles", [(8, 8, 128), (4, 16, 8), (1, 1, 1),
+                                   (64, 64, 64)])
+@pytest.mark.parametrize("shape", [(12, 10, 16), (60, 50, 130)])
+def test_fdm_stress_kernel_matches_plain(cuda_device, variant, tiles, shape):
+    arrays, state = fdm_case(shape, 40, cuda_device)
+    launches = fk.fdm_stress.launches
+    got = fk.fdm_stress(arrays, state, 0.1, variant=variant, bx=tiles[0],
+                        by=tiles[1], bz=tiles[2])
+    want = ref.fdm_stress_ref(arrays, state, 0.1)
+    torch.cuda.synchronize()
+    assert fk.fdm_stress.launches == launches + (1 if variant == "fused"
+                                                 else 2)
+    for name in fk.STATE:
+        close(got[name], want[name], torch.float32)
+
+
+def test_fdm_stress_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    arrays, state = fdm_case((6, 5, 4), 41, cuda_device)
+    with pytest.raises(ValueError, match="float32 only"):
+        fk.fdm_stress({**arrays, "lam": arrays["lam"].double()}, state, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fk.fdm_stress({**arrays, "q": arrays["q"].cpu()}, state, 0.1)
+    with pytest.raises(ValueError, match="absy"):
+        fk.fdm_stress({**arrays, "absy": arrays["absx"]}, state, 0.1)
+    with pytest.raises(ValueError, match="unknown variant"):
+        fk.fdm_stress(arrays, state, 0.1, variant="fission")
+    with pytest.raises(ValueError, match="missing"):
+        fk.fdm_stress({k: v for k, v in arrays.items() if k != "dzvy"},
+                      state, 0.1)
+
+
+def test_cuda_executors_time_completion(cuda_device):
+    """A variant that spins the card for ~10 ms (20M cycles at the H100's
+    ~2 GHz) costs at least 8 ms in both executors: they time the work,
+    not its launch."""
+    def spin(_):
+        def run():
+            torch.cuda._sleep(20_000_000)
+            return torch.empty(1, device=cuda_device)
+        return run
+
+    assert CudaEventExecutor(spin, repeats=3, device=cuda_device)({}) >= 8e-3
+    assert WallClockExecutor(spin, repeats=3)({}) >= 8e-3
