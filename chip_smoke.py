@@ -87,9 +87,32 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    ``ops.mm`` must then launch K8 with the winner's tiles, and a second
    session on the workdir must measure nothing; then Sample 8 at both
    levels (``examples/autotune_fdm_torch.py``'s ``main``).  The launch
-   counters are zeroed before this phase and read after it.
+   counters are zeroed before this phase and read after it (the
+   ``SsmChunk`` region, declared beside ``MatmulBlocks``, launches K9
+   here too; phase 25 reports it);
+22. K9 ``selective_scan`` against its plain version: float32 and
+   bfloat16, ragged L and Di, every ``SsmChunk`` candidate, with and
+   without the final state, at small widths and at falcon-mamba-7b's
+   (Di 8192, N 16, L 512, B 1 and 4); the shared-memory formula of the
+   cost model against the kernel's; the chunk sweep timed at the
+   prefill shape (B 1, L 512, bf16, with the final state) beside its
+   bound and the plain version;
+23. serve: ``serve_config`` on falcon-mamba-7b at full width (64 Mamba-1
+   layers, d_inner 8192, random weights from a seed), phase 5's 8
+   requests over 4 dense lanes; every request must finish with 32
+   tokens, and the counters must show K9 exactly once per layer per
+   admission and no K1-K8;
+24. falcon-mamba logits: a 300-token prompt and 4 decode steps at the
+   full config, kernels against plain, and ``forward``'s last-position
+   logits against prefill's;
+25. the ``SsmChunk`` install run: in a fresh workdir at (seq 512, d_inner
+   8192, d_state 16), the CUDA-event executor times K9 at the chunks the
+   d-spline samples; the trajectory, the fit beside the measured chunks
+   and the winner; ``ops.ssm_scan`` must then launch K9 with the
+   winner's chunk, and a second session must measure nothing.
 
-Then one JSON line with every kernel's numbers, and as the last line
+Then the script's run time, one JSON line with every kernel's numbers,
+and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
 when no CUDA device is present.
 
@@ -109,6 +132,7 @@ import time
 from collections.abc import Callable
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -122,13 +146,16 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import matmul as mmk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ssm_scan as k9  # noqa: E402
 from repro_torch.launch.serve import (ServeConfig, draw_prompts,  # noqa: E402
                                       serve_config, serve_engine)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.core.fitting import fit_dspline  # noqa: E402
 from repro_torch.tuning import (register_kernel_regions,  # noqa: E402
                                 run_install_tuning)
+from repro_torch.tuning.install import CHUNK_VALUES  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): the least
 # time a kernel could take is the larger of bytes / HBM rate and
@@ -138,7 +165,7 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}   # rtol = atol
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
-KERNELS = fa.KERNELS + pa.KERNELS + mmk.KERNELS + fk.KERNELS
+KERNELS = fa.KERNELS + pa.KERNELS + mmk.KERNELS + fk.KERNELS + k9.KERNELS
 FLASH = "src/repro/kernels/flash_attention.py"
 BF16 = torch.bfloat16
 SERVE = dict(arch="yi-6b", reduced=False, n_requests=8, n_lanes=4,
@@ -228,6 +255,7 @@ def phase_build() -> None:
     pa._lib()
     mmk._lib()
     fk._lib()
+    k9._lib()
     dt = time.perf_counter() - t0
     print(f"[2 build] {len(paths)} source(s) built and loaded in {dt:.1f}s: "
           + ", ".join(p.name for p in paths.values()))
@@ -356,7 +384,7 @@ def serve_with_counts(engine: ServingEngine | None = None,
     zeroed just before and read just after."""
     for kernel in KERNELS:
         kernel.launches = 0
-    scfg = ServeConfig(**SERVE, **kw)
+    scfg = ServeConfig(**{**SERVE, **kw})
     report = (serve_config(scfg) if engine is None
               else serve_engine(engine, scfg))
     torch.cuda.synchronize()
@@ -1537,7 +1565,7 @@ def phase_install(smi: str, sample) -> tuple[dict[str, int], tuple]:
     at.executors.register("cuda-event", logged, overwrite=True)
     try:
         session = at.AutoTuner(workdir)
-        register_kernel_regions(session, m=m, n=n, k=k)
+        register_kernel_regions(session, m=m, n=n, k=k, **SSM_SHAPE)
         tuned = run_install_tuning(session, wall_clock=True)
     finally:
         at.executors.register("cuda-event", timed, overwrite=True)
@@ -1557,7 +1585,7 @@ def phase_install(smi: str, sample) -> tuple[dict[str, int], tuple]:
           f"executor (min of 10 launches), trajectory (bm, bn, bk) -> ms: "
           + ", ".join(f"({a['MatmulBlocks_BM']}, {a['MatmulBlocks_BN']}, "
                       f"{a['MatmulBlocks_BK']}) {c * 1e3:.4f}"
-                      for a, c in trajectory)
+                      for a, c in trajectory if "MatmulBlocks_BM" in a)
           + f"; winner {winner}; record file {path}: {json.dumps(records)}")
 
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -1571,7 +1599,7 @@ def phase_install(smi: str, sample) -> tuple[dict[str, int], tuple]:
           f"{mmk.matmul.last_tiles}, expected once with {tiles}")
 
     again = at.AutoTuner(workdir)
-    register_kernel_regions(again, m=m, n=n, k=k)
+    register_kernel_regions(again, m=m, n=n, k=k, **SSM_SHAPE)
     check(run_install_tuning(again, wall_clock=True) == tuned,
           "the second session loaded another winner")
     check(again.executor_calls == 0,
@@ -1590,7 +1618,8 @@ def phase_install(smi: str, sample) -> tuple[dict[str, int], tuple]:
           "Sample 8 level 2")
     torch.cuda.synchronize()
     launches = {kern.__name__: kern.launches for kern in KERNELS}
-    only_launched(launches, (mmk.matmul, fk.fdm_stress), "the install phase")
+    only_launched(launches, (mmk.matmul, fk.fdm_stress, k9.selective_scan),
+                  "the install phase")
     check(launches["matmul"] > 0 and launches["fdm_stress"] > 0,
           f"the install phase launched {launches}")
     print(f"[21 install] Sample 8 level 1: winner #{result['level1']['winner'] + 1} "
@@ -1601,6 +1630,249 @@ def phase_install(smi: str, sample) -> tuple[dict[str, int], tuple]:
 
 
 
+# --------------------------------------------------------------------------
+# falcon-mamba-7b: K9 selective_scan, the Mamba-1 serve, SsmChunk
+# --------------------------------------------------------------------------
+
+SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
+FM = "falcon-mamba-7b"
+FM_LAYERS = 64
+# the SsmChunk region at falcon-mamba's prefill shape (phases 21 and 25)
+SSM_SHAPE = dict(seq=512, d_inner=8192, d_state=16)
+
+
+def ssm_case(bsz, length, di, n, seed, dtype):
+    """x, dt (softplus, positive), a (-1 .. -N for every channel, as
+    falcon-mamba's a_log gives), b, c, d (ones) on the card."""
+    x = randn((bsz, length, di), seed, dtype)
+    dt = torch.nn.functional.softplus(
+        randn((bsz, length, di), seed + 1, torch.float32) - 2.0).to(dtype)
+    a = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device="cuda").expand(di, n).contiguous()
+    return (x, dt, a, randn((bsz, length, n), seed + 2, dtype),
+            randn((bsz, length, n), seed + 3, dtype),
+            torch.ones((di,), dtype=dtype, device="cuda"))
+
+
+def ssm_work(bsz, length, di, n, elem: int) -> tuple[float, float]:
+    """(bytes, float32 operations) of one scan with the final state: x, dt
+    and y (B L Di each) and b, c (B L N each) in the input type, d, a and
+    the final state; per (b, t, d, n) the exp, its product, two multiplies,
+    an add and the C product and sum (6), per (b, t, d) D x + its add."""
+    n_bytes = (elem * (3 * bsz * length * di + 2 * bsz * length * n + di)
+               + 4 * di * n + 4 * bsz * di * n)
+    return n_bytes, bsz * length * di * (6 * n + 2)
+
+
+def phase_k9() -> tuple[dict, dict]:
+    """K9 against its plain version over dtypes, ragged shapes, every
+    chunk and both outputs; the chunk sweep timed at the prefill shape.
+    Returns the row's numbers and the sweep's device ms by chunk."""
+    # (label, B, L, Di, N, dtype)
+    cases = [("fp32 reduced", 2, 96, 128, 8, torch.float32),
+             ("fp32 ragged L and Di", 3, 90, 100, 16, torch.float32),
+             ("bf16 ragged L", 2, 33, 256, 16, BF16),
+             ("fp32 falcon-mamba width", 1, 300, 8192, 16, torch.float32),
+             ("falcon-mamba B=1", 1, 512, 8192, 16, BF16),
+             ("falcon-mamba B=4", 4, 512, 8192, 16, BF16)]
+    errs = []
+    for i, (label, b, length, di, n, dtype) in enumerate(cases):
+        args = ssm_case(b, length, di, n, 220 + 10 * i, dtype)
+        want_y, want_h = ref.selective_scan_ref(*args,
+                                                return_final_state=True)
+        worst = 0.0
+        for chunk in CHUNK_VALUES:
+            y, h = k9.selective_scan(*args, chunk=chunk,
+                                     return_final_state=True)
+            worst = max(worst, compare(y, want_y, dtype),
+                        compare(h, want_h, dtype),
+                        compare(k9.selective_scan(*args, chunk=chunk),
+                                want_y, dtype))
+        errs.append(f"{label} {worst:.2e}")
+    for n in k9.STATES:
+        for chunk in CHUNK_VALUES:
+            check(k9.kernel_smem_bytes(n, chunk) == k9.smem_bytes(n, chunk),
+                  f"shared-memory formula differs from the kernel's at "
+                  f"N={n} chunk={chunk}")
+    print(f"[22 K9 selective_scan] max abs err vs plain over chunks "
+          f"{CHUNK_VALUES}, y and final state, with and without the state "
+          f"(tol bf16 {TOL[BF16]}, fp32 {TOL[torch.float32]}): "
+          + "; ".join(errs) + "; smem formula equal to the kernel's")
+
+    # timing at the main path's shape: one falcon-mamba prefill layer of
+    # 512 tokens, with the final state
+    b, length, di, n = 1, SSM_SHAPE["seq"], SSM_SHAPE["d_inner"], \
+        SSM_SHAPE["d_state"]
+    args = ssm_case(b, length, di, n, 290, BF16)
+    sweep = {chunk: time_ms(lambda: k9.selective_scan(
+        *args, chunk=chunk, return_final_state=True))[0]
+        for chunk in CHUNK_VALUES}
+    best = min(sweep, key=sweep.get)
+    want = ref.selective_scan_ref(*args, return_final_state=True)
+    got = k9.selective_scan(*args, chunk=best, return_final_state=True)
+    err = max(compare(got[0], want[0], BF16), compare(got[1], want[1], BF16))
+    n_bytes, n_ops = ssm_work(b, length, di, n, 2)
+    bound_ms, bound_by = bound(n_bytes, n_ops, torch.float32)
+    plain = time_ms(lambda: ref.selective_scan_ref(*args,
+                                                   return_final_state=True))
+    args4 = ssm_case(4, length, di, n, 295, BF16)
+    b4 = time_ms(lambda: k9.selective_scan(*args4, chunk=best,
+                                           return_final_state=True))
+    bound4 = bound(*ssm_work(4, length, di, n, 2), torch.float32)
+    print(f"[22 K9 selective_scan] falcon-mamba prefill layer B=1 L={length} "
+          f"Di={di} N={n} bf16 with the final state, device ms by chunk: "
+          + ", ".join(f"{c} {ms:.4f}" for c, ms in sweep.items())
+          + f"; bound {bound_ms:.4f} ms ({bound_by}); plain {plain[0]:.4f} "
+          f"({plain[1]:.4f} per call incl. host); library none (no one "
+          f"PyTorch call); B=4 at chunk {best}: {b4[0]:.4f} ms, bound "
+          f"{bound4[0]:.4f} ms ({bound4[1]})")
+    return {"name": "selective_scan", "route": "cuda", "source": SSM_SOURCE,
+            "replaces": "src/repro/kernels/ssm_scan.py:74",
+            "max_abs_err": err, "ms": sweep[best], "plain_ms": plain[0],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}, sweep
+
+
+def phase_fm_serve(smi: str) -> int:
+    """falcon-mamba-7b at full width through ``serve_config`` on dense
+    lanes; returns K9's launches."""
+    report, launches = serve_with_counts(arch=FM)
+    admissions = SERVE["n_requests"] + report["preemptions"]
+    check(launches["selective_scan"] == FM_LAYERS * admissions,
+          f"K9 launched {launches['selective_scan']} times, expected "
+          f"{FM_LAYERS} x {admissions} admissions")
+    only_launched(launches, (k9.selective_scan,), "the falcon-mamba serve")
+    print(f"[23 serve] falcon-mamba-7b full (64 Mamba-1 layers, d_model "
+          f"4096, d_inner 8192, d_state 16), 4 dense lanes: "
+          f"{report['finished']}/{SERVE['n_requests']} requests, "
+          f"{report['generated_tokens']} tokens in {report['wall_s']:.3f}s = "
+          f"{report['tokens_per_s']:.1f} tok/s, ttft p50 "
+          f"{report['p50_ttft_s']:.4f}s p99 {report['p99_ttft_s']:.4f}s, itl "
+          f"p50 {report['p50_itl_s']:.4f}s p99 {report['p99_itl_s']:.4f}s, "
+          f"{report['decode_steps']} decode steps, {admissions} admissions, "
+          f"launches {launches}, lane state "
+          f"{report['cache']['pool_bytes']} bytes, on {smi}")
+    return launches["selective_scan"]
+
+
+def phase_fm_logits(model, params) -> None:
+    """A 300-token prompt, prefill + 4 decode steps at the full config,
+    kernels against plain; and ``forward``'s last-position logits (one K9
+    launch per layer, without the state) against prefill's."""
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 300), generator=gen,
+                           device="cuda")
+    tokens: list[int] = []
+    runs = {}
+    for use_kernel in (False, True):
+        logits, caches = model.prefill(params, prompt, use_kernel=use_kernel)
+        steps = [logits]
+        for i in range(4):
+            if not use_kernel:
+                tokens.append(int(steps[-1][0].argmax()))
+            logits, caches = model.decode_step(
+                params, caches, torch.tensor([[tokens[i]]], device="cuda"),
+                torch.tensor([prompt.shape[1] + i], device="cuda"),
+                use_kernel=use_kernel)
+            steps.append(logits)
+        runs[use_kernel] = torch.stack(steps)
+    before = k9.selective_scan.launches
+    hidden, _ = model.forward(params, prompt)
+    full = model.head_logits(params, hidden[:, -1])
+    torch.cuda.synchronize()
+    check(k9.selective_scan.launches == before + FM_LAYERS,
+          f"forward launched K9 {k9.selective_scan.launches - before} times")
+    print(f"[24 falcon-mamba logits] prefill 300 + 4 decode steps: "
+          + check_logits(runs[False], runs[True], cfg.padded_vocab,
+                         "falcon-mamba logits")
+          + "; forward's last position against prefill's: "
+          + check_logits(runs[True][:1], full[None], cfg.padded_vocab,
+                         "forward logits"))
+
+
+def phase_ssm_install(smi: str, sweep: dict) -> int:
+    """Install-time AT of K9's chunk on the card in a fresh workdir; the
+    d-spline fit beside the measured chunks; ops.ssm_scan with the winner;
+    the warm path.  Returns the winner's chunk."""
+    at.clear_published()
+    m, k, n = MM_SHAPE
+    workdir = tempfile.mkdtemp(prefix="oat_ssm_install_")
+    timed = at.executors.get("cuda-event")
+    trajectory = []
+
+    def logged(region, bp_env):
+        measure = timed(region, bp_env)
+
+        def run(assignment):
+            cost = measure(assignment)
+            trajectory.append((dict(assignment), cost))
+            return cost
+        return run
+
+    at.executors.register("cuda-event", logged, overwrite=True)
+    try:
+        session = at.AutoTuner(workdir)
+        register_kernel_regions(session, m=m, n=n, k=k, **SSM_SHAPE)
+        tuned = run_install_tuning(session, wall_clock=True)
+    finally:
+        at.executors.register("cuda-event", timed, overwrite=True)
+    winner = tuned["SsmChunk"]["chunk"]
+    check(winner in CHUNK_VALUES, f"winner {winner} is not a candidate")
+    check(at.tuned("ssm_scan") == {"chunk": winner},
+          "the winner was not published")
+    measured = [(a["SsmChunk_CHUNK"], c) for a, c in trajectory
+                if "SsmChunk_CHUNK" in a]
+    check(len(measured) == 8 and all(c < float("inf") for _, c in measured),
+          f"SsmChunk measured {measured}")
+    xs = [float(x) for x, _ in measured]
+    fit = fit_dspline(xs, [c for _, c in measured])(
+        np.asarray(CHUNK_VALUES, dtype=np.float64))
+    check(CHUNK_VALUES[int(fit.argmin())] == winner,
+          "the winner is not the fit's minimum")
+    path = at.ATRecordStore(workdir).path
+    with open(path) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    card = torch.cuda.get_device_name(0).replace(" ", "-").lower()
+    check(any(r["region"] == "SsmChunk" and card in r["machine"]
+              for r in records), f"no SsmChunk record names {card}")
+    print(f"[25 install] SsmChunk at seq {SSM_SHAPE['seq']} d_inner "
+          f"{SSM_SHAPE['d_inner']} d_state {SSM_SHAPE['d_state']} bf16, "
+          f"CUDA-event executor (min of 10 launches), measured chunk -> ms: "
+          + ", ".join(f"{x} {c * 1e3:.4f}" for x, c in measured)
+          + "; d-spline fit at the candidates: "
+          + ", ".join(f"{x} {p * 1e3:.4f}" for x, p in zip(CHUNK_VALUES, fit))
+          + f"; winner {winner} (phase 22's sweep: {sweep[winner]:.4f} ms "
+          f"at the winner, fastest chunk {min(sweep, key=sweep.get)}); "
+          f"record file {path}")
+
+    b, length, di, n_state = 1, SSM_SHAPE["seq"], SSM_SHAPE["d_inner"], \
+        SSM_SHAPE["d_state"]
+    args = ssm_case(b, length, di, n_state, 250, BF16)
+    before = k9.selective_scan.launches
+    y, h = ops.ssm_scan(*args, return_final_state=True)
+    want = ref.selective_scan_ref(*args, return_final_state=True)
+    err = max(compare(y, want[0], BF16), compare(h, want[1], BF16))
+    check(k9.selective_scan.launches == before + 1
+          and k9.selective_scan.last_chunk == min(winner, length),
+          f"ops.ssm_scan launched {k9.selective_scan.launches - before} "
+          f"times with chunk {k9.selective_scan.last_chunk}, expected once "
+          f"with {winner}")
+    again = at.AutoTuner(workdir)
+    register_kernel_regions(again, m=m, n=n, k=k, **SSM_SHAPE)
+    check(run_install_tuning(again, wall_clock=True) == tuned,
+          "the second session loaded another winner")
+    check(again.executor_calls == 0,
+          f"the second session measured {again.executor_calls} times")
+    print(f"[25 install] ops.ssm_scan launched K9 with the winner's chunk "
+          f"{winner} (max abs err vs plain {err:.2e}); a second session on "
+          f"the workdir warm-loaded chunk "
+          f"{again.ctx.store.entry('SsmChunk_CHUNK').value} with 0 "
+          f"measurements, on {smi}")
+    at.clear_published()
+    return winner
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1609,6 +1881,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     smi = phase_card()
     phase_build()
     rows = [phase_k1(), phase_k2()]
@@ -1637,9 +1910,20 @@ def main() -> int:
     install_launches, winner = phase_install(smi, sample)
     launches.update(install_launches)
     mm_row["ms"] = mm_sweep[winner]     # the tile the install path published
-    check(len(rows) == 13, f"{len(rows)} kernel rows, expected 13")
+    k9_row, k9_sweep = phase_k9()
+    rows.append(k9_row)
+    launches["selective_scan"] = phase_fm_serve(smi)
+    fm_model = build_model(get_arch(FM))
+    fm_params = fm_model.init(0, "cuda")
+    phase_fm_logits(fm_model, fm_params)
+    del fm_model, fm_params
+    torch.cuda.empty_cache()
+    chunk = phase_ssm_install(smi, k9_sweep)
+    k9_row["ms"] = k9_sweep[chunk]      # the chunk the install path published
+    check(len(rows) == 14, f"{len(rows)} kernel rows, expected 14")
     for row in rows:
         row["launches"] = launches[row["name"]]
+    print(f"[done] phases 1-25 in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

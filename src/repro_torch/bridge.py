@@ -6,7 +6,10 @@ nested-dict layout: weights are (in, out) and used as ``x @ W``, and the
 layer leaves are stacked (L, ...).  So no leaf is transposed; this is the
 one place a layout change would go.  Float leaves are cast to the
 config's ``compute_dtype`` (the JAX model casts every leaf to it before
-use, so the arithmetic is the same).
+use, so the arithmetic is the same).  That holds for the Mamba-1 leaves
+too: the conv taps keep their (d_conv, Di) layout, and ``a_log`` goes to
+``compute_dtype`` like the rest, to be upcast to float32 at use
+(``-exp(a_log.float())``), where the JAX model upcasts it.
 """
 from __future__ import annotations
 

@@ -64,6 +64,14 @@ class ArchConfig:
         return self.d_head or self.d_model // self.n_heads
 
     @property
+    def ssm_d_inner(self) -> int:
+        return self.d_inner or 2 * self.d_model
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
     def padded_vocab(self) -> int:
         return pad_to(self.vocab_size, 128)
 

@@ -8,9 +8,11 @@ from __future__ import annotations
 
 from .base import ArchConfig
 from .deepseek_7b import CONFIG as deepseek_7b
+from .falcon_mamba_7b import CONFIG as falcon_mamba_7b
 from .yi_6b import CONFIG as yi_6b
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in [yi_6b, deepseek_7b]}
+ARCHS: dict[str, ArchConfig] = {c.name: c for c in [yi_6b, deepseek_7b,
+                                                    falcon_mamba_7b]}
 
 _OTHER_FAMILIES = "ROADMAP queue 1, item 8 (the other model families)"
 
@@ -22,7 +24,6 @@ NOT_PORTED: dict[str, str] = {
     "pixtral-12b": _OTHER_FAMILIES + ": the vision frontend",
     "moonshot-v1-16b-a3b": _OTHER_FAMILIES + ": MoE",
     "llama4-scout-17b-a16e": _OTHER_FAMILIES + ": MoE",
-    "falcon-mamba-7b": _OTHER_FAMILIES + ": Mamba-1 and kernel K9",
     "zamba2-7b": _OTHER_FAMILIES + ": Mamba-2 and the shared block",
     "whisper-tiny": _OTHER_FAMILIES + ": encoder-decoder",
 }

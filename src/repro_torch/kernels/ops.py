@@ -21,6 +21,7 @@ from .flash_attention import flash_attention, flash_decode
 from .matmul import matmul
 from .paged_attention import (flash_paged_decode, flash_paged_decode_quant,
                               flash_paged_prefill, flash_paged_prefill_quant)
+from .ssm_scan import selective_scan
 
 
 def _use_kernel(x: torch.Tensor, use_kernel: bool | None) -> bool:
@@ -177,3 +178,26 @@ def paged_verify(q: torch.Tensor, pools: PagedPools,
     engine hands ``num_splits`` here and to decode, never to prefill."""
     return _paged_chunk(q, pools, page_table, start, kv_len, mesh,
                         num_splits, use_kernel)
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
+             use_kernel: bool | None = None,
+             return_final_state: bool = False, **pps):
+    """Mamba-1 selective scan: x, dt (B, L, Di), a (Di, N), b, c (B, L,
+    N), d (Di,) -> y (B, L, Di) [, final state (B, Di, N) float32].
+
+    On the card K9 runs, with or without the final state, with the chunk
+    install-time AT published (``at.tuned("ssm_scan")``), overridden by a
+    ``chunk`` in ``pps``; on the CPU the plain scan.  Unlike the JAX
+    package's entry, which sends a call that asks for the final state to
+    its plain scan, the kernel returns the state itself, so prefill runs
+    on it too."""
+    if _use_kernel(x, use_kernel):
+        kw = at.tuned("ssm_scan")
+        kw.update(pps)
+        return selective_scan(
+            x.contiguous(), dt.contiguous(), a.contiguous(),
+            b.contiguous(), c.contiguous(), d.contiguous(),
+            return_final_state=return_final_state, **kw)
+    return ref.selective_scan_ref(x, dt, a, b, c, d, return_final_state)

@@ -18,8 +18,9 @@ A row that sees no key at all (``kv_len == 0``) gets a uniform softmax
 over the ``-1e30`` scores here, i.e. the mean of ``v``; the kernels give
 exactly 0 for such a row.  The engine never sends one.
 
-:func:`matmul_ref` (K8's plain version) and :func:`fdm_stress_ref` (K7's)
-follow the JAX package's oracles of the same names.
+:func:`matmul_ref` (K8's plain version), :func:`fdm_stress_ref` (K7's)
+and :func:`selective_scan_ref` (K9's) follow the JAX package's oracles of
+the same names.
 """
 from __future__ import annotations
 
@@ -304,3 +305,31 @@ def fdm_stress_ref(arrays: dict, state: dict, dt: float) -> dict:
     out["syz"] = (state["syz"]
                   + (rmayz * (arrays["dyvz"] + arrays["dzvy"])) * dt) * qg
     return out
+
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+                       return_final_state: bool = False):
+    """The Mamba-1 recurrence, one time step at a time, in float32::
+
+        h[t] = exp(dt[t] * A) * h[t-1] + (dt[t] * x[t]) * B[t]
+        y[t] = sum_n C[t] * h[t] + D * x[t]
+
+    x, dt (Bt, L, Di); a (Di, N); b, c (Bt, L, N); d (Di,).  Returns y in
+    x's dtype and, with ``return_final_state``, the state after the last
+    step, (Bt, Di, N) float32."""
+    bsz, length, di = x.shape
+    a32, d32 = a.float(), d.float()
+    xs, dts, bs, cs = x.float(), dt.float(), b.float(), c.float()
+    h = torch.zeros((bsz, di, a.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(length):
+        xt, dtt = xs[:, t], dts[:, t]                     # (Bt, Di)
+        da = torch.exp(dtt[..., None] * a32[None])        # (Bt, Di, N)
+        h = da * h + (dtt * xt)[..., None] * bs[:, t, None, :]
+        ys.append((h * cs[:, t, None, :]).sum(-1) + d32[None] * xt)
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    if return_final_state:
+        return y, h
+    return y

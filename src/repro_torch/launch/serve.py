@@ -15,7 +15,10 @@ of the target's leading half of layers proposes ``--spec-k`` tokens per
 tick and the target verifies them in one chunk.  ``--prefix-cache``
 (paged + chunked prefill) seeds admissions with indexed pages of earlier
 prompts, and ``--shared-prefix N`` puts one common N-token system prompt
-in front of every request.
+in front of every request.  ``--arch falcon-mamba-7b`` serves the
+Mamba-1 stack from dense lanes that hold its recurrent state; the paged
+pool, and with it ``--cache paged``, ``--draft`` and ``--prefix-cache``,
+does not apply to it and raises.
 
 Usage::
 
@@ -28,8 +31,12 @@ Usage::
         --prefill-chunk 128 --draft --spec-k 4 --num-splits 8
     PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
         --prefill-chunk 128 --prefix-cache --shared-prefix 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+        --full
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --cache paged --prefill-chunk 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch falcon-mamba-7b
 """
 from __future__ import annotations
 
@@ -106,6 +113,15 @@ def serve_config(scfg: ServeConfig) -> dict:
     if scfg.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
+    if not model.supports_paged_cache:
+        for flag, asked in (("--cache paged", scfg.cache == "paged"),
+                            ("--draft", scfg.draft),
+                            ("--prefix-cache", scfg.prefix_cache)):
+            if asked:
+                raise ValueError(
+                    f"{flag} needs the paged KV pool, which arch "
+                    f"{cfg.name!r} does not use: it keeps recurrent SSM "
+                    "state in dense lanes (serve it with --cache dense)")
     params = model.init(scfg.seed, dev)
     draft_model = draft_params = None
     if scfg.draft:

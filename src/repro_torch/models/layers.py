@@ -1,4 +1,5 @@
-"""Shared model layers: init helpers, RMS norm, RoPE, gated MLP.
+"""Shared model layers: init helpers, RMS norm, RoPE, gated MLP, causal
+conv.
 
 Plain functions on tensors; parameters are nested dicts.  The arithmetic
 follows the JAX package's layers: the norm and the rotary angles are
@@ -74,3 +75,18 @@ def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     up = x @ p["w_up"]
     gate = x @ p["w_gate"]
     return (F.silu(gate) * up) @ p["w_down"]
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv over the sequence.  x (B, L, C), w (K, C) as
+    in the JAX package: ``K - 1`` zeros in front, then output ``t`` is
+    ``sum_k w[k] * x[t - K + 1 + k]`` (a cross-correlation, as both
+    frameworks' convolutions compute, so the taps are not flipped)."""
+    k, c = w.shape
+    xp = F.pad(x.transpose(1, 2), (k - 1, 0))          # (B, C, K-1+L)
+    out = F.conv1d(xp, w.T.reshape(c, 1, k), groups=c)
+    out = out.transpose(1, 2)
+    if b is not None:
+        out = out + b
+    return out

@@ -22,6 +22,16 @@ class Model:
         :func:`repro_torch.bridge.params_from_jax`)."""
         return transformer.init_params(self.cfg, seed, resolve(device))
 
+    def forward(self, params: dict, tokens: torch.Tensor,
+                use_kernel: bool | None = None):
+        """tokens (B, S) -> (final-normed hidden (B, S, d), aux_loss)."""
+        return transformer.forward(params, tokens, self.cfg,
+                                   use_kernel=use_kernel)
+
+    def head_logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+        """float32 logits of :meth:`forward`'s hidden states."""
+        return transformer.head_logits(params, hidden, self.cfg)
+
     def prefill(self, params: dict, tokens: torch.Tensor,
                 max_len: int | None = None, use_kernel: bool | None = None):
         return transformer.prefill(params, tokens, self.cfg, max_len,
@@ -66,7 +76,6 @@ class Model:
                                               tokens, start, kv_len,
                                               logit_idx, self.cfg,
                                               use_kernel=use_kernel)
-
 
     # -- speculative decoding (serving) ------------------------------------
     def speculative_step(self, params: dict, caches: dict,

@@ -1,19 +1,24 @@
-"""Decoder LM assembly for the ``attn_mlp`` layer kind (the dense archs).
+"""Decoder LM assembly for the ``attn_mlp`` (dense archs) and ``mamba1``
+(falcon-mamba) layer kinds.
 
 Layers are stacked along a leading axis as in the JAX package (every
 leaf of ``params["layers"]`` is (L, ...)), and the JAX ``lax.scan`` over
-them is a Python loop here.  Per layer: ``rms_norm`` -> attention ->
-residual -> ``rms_norm`` -> gated-SiLU MLP -> residual; then the final
-norm and the LM head, whose logits are float32 over ``padded_vocab``.
+them is a Python loop here.  Per ``attn_mlp`` layer: ``rms_norm`` ->
+attention -> residual -> ``rms_norm`` -> gated-SiLU MLP -> residual; per
+``mamba1`` layer: ``rms_norm`` -> Mamba-1 block -> residual; then the
+final norm and the LM head, whose logits are float32 over
+``padded_vocab``.
 
 Weights may be held in any float dtype: every use casts them to
 ``compute_dtype`` first, which is what the JAX package does, so holding
 them in ``compute_dtype`` already (as :func:`init_params` and the bridge
 do) is the same arithmetic at half the memory for bf16.
 
-Modes: ``prefill`` (whole prompt, K/V collected into caches padded to
-``max_len``) and ``decode_step`` (one token per lane against the caches,
-written in place); on the paged KV pool ``paged_prefill_step`` (one
+Modes: ``forward`` (tokens -> final-normed hidden states), ``prefill``
+(whole prompt, K/V collected into caches padded to ``max_len``, or each
+Mamba-1 layer's final conv and recurrent state) and ``decode_step`` (one
+token per lane against the caches, written in place); on the paged KV
+pool, which the attention stacks alone use, ``paged_prefill_step`` (one
 prompt chunk per lane), ``paged_decode_step`` and ``speculative_step``
 (one candidate chunk per lane, logits at every position), which write
 into the layer-stacked page pools in place (and into their per-row
@@ -29,6 +34,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as attn
+from . import ssm
 from .layers import apply_mlp, dense_init, embed_init, init_mlp, rms_norm
 
 _OTHER_FAMILIES = "ROADMAP queue 1, item 8 (the other model families)"
@@ -41,7 +47,7 @@ def torch_dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for what this slice of the port does not run."""
     kind = cfg.layer_kinds()[0]
-    if kind != "attn_mlp":
+    if kind not in ("attn_mlp", "mamba1"):
         raise NotImplementedError(
             f"layer kind {kind!r} ({cfg.name}) is not ported yet: "
             f"{_OTHER_FAMILIES}")
@@ -60,6 +66,10 @@ def attn_config(cfg: ArchConfig) -> attn.AttnConfig:
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         d_head=cfg.head_dim, rope_theta=cfg.rope_theta, window=cfg.window,
         causal=True, use_rope=cfg.use_rope, qkv_bias=cfg.qkv_bias)
+
+
+def mamba1_config(cfg: ArchConfig) -> ssm.Mamba1Config:
+    return ssm.Mamba1Config(cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state)
 
 
 def _cast(tree, dtype: torch.dtype):
@@ -85,12 +95,18 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cpu") -> dict:
     gen = torch.Generator(device=device).manual_seed(seed)
     lead, d = (cfg.n_layers,), cfg.d_model
     kw = dict(dtype=dtype, device=device)
-    layers = {
-        "norm1_w": torch.ones(lead + (d,), **kw),
-        "norm2_w": torch.ones(lead + (d,), **kw),
-        "attn": attn.init_attention(gen, attn_config(cfg), lead=lead, **kw),
-        "mlp": init_mlp(gen, d, cfg.d_ff, lead=lead, **kw),
-    }
+    if cfg.layer_kinds()[0] == "mamba1":
+        layers = {"norm1_w": torch.ones(lead + (d,), **kw),
+                  "ssm": ssm.init_mamba1(gen, mamba1_config(cfg), lead=lead,
+                                         **kw)}
+    else:
+        layers = {
+            "norm1_w": torch.ones(lead + (d,), **kw),
+            "norm2_w": torch.ones(lead + (d,), **kw),
+            "attn": attn.init_attention(gen, attn_config(cfg), lead=lead,
+                                        **kw),
+            "mlp": init_mlp(gen, d, cfg.d_ff, lead=lead, **kw),
+        }
     p = {"embed": embed_init(gen, cfg.padded_vocab, d, **kw),
          "layers": layers,
          "final_norm_w": torch.ones((d,), **kw)}
@@ -109,18 +125,70 @@ def lm_head_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _final_norm(params: dict, x: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    return rms_norm(x, params["final_norm_w"].to(torch_dtype(
+        cfg.compute_dtype)))
+
+
+def head_logits(params: dict, hidden: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    """LM head on final-normed hidden states (``forward``'s output) ->
+    float32 logits over ``padded_vocab``."""
+    w = lm_head_weight(params, cfg).to(torch_dtype(cfg.compute_dtype))
+    return (hidden @ w).float()
+
+
 def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Final norm + LM head on (B, d) hidden states -> float32 (B, V)."""
-    dtype = torch_dtype(cfg.compute_dtype)
-    x = rms_norm(x, params["final_norm_w"].to(dtype))
-    return (x @ lm_head_weight(params, cfg).to(dtype)).float()
+    return head_logits(params, _final_norm(params, x, cfg), cfg)
+
+
+def apply_layer(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
+                use_kernel: bool | None = None):
+    """Whole-sequence application of one layer (weights in compute dtype).
+    Returns (x, aux_loss); the ported kinds have no auxiliary loss."""
+    if kind == "attn_mlp":
+        x = x + attn.full(p["attn"], rms_norm(x, p["norm1_w"]),
+                          attn_config(cfg), use_kernel=use_kernel)
+        x = x + apply_mlp(p["mlp"], rms_norm(x, p["norm2_w"]))
+    elif kind == "mamba1":
+        x = x + ssm.apply_mamba1(p["ssm"], rms_norm(x, p["norm1_w"]),
+                                 mamba1_config(cfg), use_kernel=use_kernel)
+    else:
+        raise ValueError(kind)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+            use_kernel: bool | None = None):
+    """tokens (B, S) -> (final-normed hidden (B, S, d), aux_loss): the
+    train/prefill forward without the caches.  A ``mamba1`` stack runs
+    one selective scan (K9 on the card) per layer, without the final
+    state."""
+    check_supported(cfg)
+    x = embed_tokens(params, tokens, cfg)
+    kind = cfg.layer_kinds()[0]
+    layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a = apply_layer(_layer(layers, i), x, cfg, kind, use_kernel)
+        aux = aux + a
+    return _final_norm(params, x, cfg), aux
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 device="cpu") -> dict:
-    """Stacked per-layer KV caches {"kv": (K, V)}, each
-    (L, batch, Hkv, max_len, Dh) in ``cache_dtype``."""
+    """Stacked per-layer decode state: for attention stacks KV caches
+    {"kv": (K, V)}, each (L, batch, Hkv, max_len, Dh) in ``cache_dtype``;
+    for ``mamba1`` {"ssm": {"conv": (L, batch, d_conv - 1, Di), "h": (L,
+    batch, Di, N)}}, both float32 as in the JAX package (``max_len`` does
+    not size it)."""
     check_supported(cfg)
+    if cfg.layer_kinds()[0] == "mamba1":
+        return {"ssm": ssm.init_mamba1_state(batch, mamba1_config(cfg),
+                                             lead=(cfg.n_layers,),
+                                             device=device)}
     return {"kv": attn.init_cache(batch, attn_config(cfg), max_len,
                                   torch_dtype(cfg.cache_dtype), device,
                                   lead=(cfg.n_layers,))}
@@ -131,12 +199,23 @@ def decode_step(params: dict, caches: dict, token: torch.Tensor,
                 use_kernel: bool | None = None):
     """token (B, 1) int, pos (B,) int -> (logits (B, V), caches).
 
-    The caches are updated in place (slot ``pos`` of every layer) and
+    The caches are updated in place (slot ``pos`` of every layer, or every
+    Mamba-1 layer's conv and recurrent state, which ignore ``pos``) and
     returned."""
     check_supported(cfg)
     x = embed_tokens(params, token, cfg)
-    acfg = attn_config(cfg)
     layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
+    if cfg.layer_kinds()[0] == "mamba1":
+        mcfg, state = mamba1_config(cfg), caches["ssm"]
+        for i in range(cfg.n_layers):
+            lp = _layer(layers, i)
+            h, new = ssm.step_mamba1(lp["ssm"], rms_norm(x, lp["norm1_w"]),
+                                     _layer(state, i), mcfg)
+            for key, t in new.items():
+                state[key][i].copy_(t)
+            x = x + h
+        return _logits(params, x[:, 0], cfg), caches
+    acfg = attn_config(cfg)
     ck, cv = caches["kv"]
     for i in range(cfg.n_layers):
         lp = _layer(layers, i)
@@ -153,9 +232,14 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
     ``max_len`` sizes the returned KV caches (>= prompt length; the
     positions past the prompt are zero) so decode steps have room to
-    append."""
+    append.  A ``mamba1`` stack returns each layer's final state instead,
+    {"ssm": {"conv": (L, B, d_conv - 1, Di) in compute dtype, "h": (L, B,
+    Di, N) float32}}, from one selective scan per layer (K9 on the card,
+    which returns the state itself)."""
     check_supported(cfg)
     x = embed_tokens(params, tokens, cfg)
+    if cfg.layer_kinds()[0] == "mamba1":
+        return _prefill_mamba1(params, x, cfg, use_kernel)
     b, s, _ = x.shape
     acfg = attn_config(cfg)
     max_len = max(max_len or s, s)
@@ -170,6 +254,22 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         cv[i, :, :, :s] = v
         x = x + h
         x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["norm2_w"]))
+    return _logits(params, x[:, -1], cfg), caches
+
+
+def _prefill_mamba1(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                    use_kernel: bool | None):
+    mcfg = mamba1_config(cfg)
+    layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
+    states = []
+    for i in range(cfg.n_layers):
+        lp = _layer(layers, i)
+        h, st = ssm.apply_mamba1(lp["ssm"], rms_norm(x, lp["norm1_w"]), mcfg,
+                                 return_state=True, use_kernel=use_kernel)
+        x = x + h
+        states.append(st)
+    caches = {"ssm": {key: torch.stack([st[key] for st in states])
+                      for key in ("conv", "h")}}
     return _logits(params, x[:, -1], cfg), caches
 
 

@@ -2,7 +2,8 @@
 fixed decode lanes, on dense KV lanes or the paged KV pool.
 
 * :mod:`.scheduler` — FIFO admission + time-slice preemption;
-* :mod:`.kvcache` — the dense per-lane and the paged KV backends;
+* :mod:`.kvcache` — the dense per-lane (KV or SSM state) and the paged
+  KV backends;
 * :mod:`.buckets` — the shared length-bucket ladders;
 * :mod:`.sampling` — per-request temperature / top-k / top-p;
 * :mod:`.metrics` — TTFT / inter-token latency / throughput;

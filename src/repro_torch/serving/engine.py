@@ -6,12 +6,14 @@ backend (:mod:`.kvcache`), the sampler and the metrics layer to the
 model's steps, as the JAX package's engine does:
 
 * admission runs one monolithic prefill per request (kernel K1 on the
-  card) and copies its K/V into the lane's strip or pages; with
+  card; K9 for a Mamba-1 stack, whose lane holds recurrent state) and
+  copies its K/V (or state) into the lane's strip or pages; with
   ``prefill_chunk`` (paged only) a request is admitted with no compute
   and streams its prompt in chunk by chunk, one chunk per tick (kernel
   K4), so a long prompt never stalls the lanes that are decoding;
 * every tick runs one batched decode step over all lanes (K2 on dense
-  lanes, K3 on pages, K5 with ``num_splits``, K6 on int8 pages), idle
+  lanes, K3 on pages, K5 with ``num_splits``, K6 on int8 pages; plain
+  tensor ops for a Mamba-1 stack), idle
   lanes riding along at position 0 and mid-prefill lanes with their
   table rows masked to the null page;
 * with ``spec_k`` and a draft model (paged only) the tick is

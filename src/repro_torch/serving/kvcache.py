@@ -3,7 +3,9 @@
 * :class:`DenseKVCache` — the JAX package's dense layout: every decode
   lane owns a contiguous ``max_len`` strip in the stacked ``(L, n_lanes,
   Hkv, max_len, Dh)`` caches.  Memory is O(n_lanes * max_len) however
-  many tokens are live.
+  many tokens are live.  For a Mamba-1 stack a lane owns its layers'
+  conv and recurrent state instead, O(n_lanes) whatever ``max_len``; the
+  paged pool does not apply to it.
 * :class:`PagedKVCache` — a shared pool of ``n_pages`` pages of
   ``page_size`` tokens (per layer) with a per-lane page table mapping
   logical KV blocks to physical pages.  Memory scales with live tokens,
@@ -120,8 +122,37 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.to("cpu", copy=True).numpy()
 
 
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a nested dict/tuple cache tree, in a fixed order
+    (dict insertion order, then tuple order), as ``jax.tree.leaves``."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def lane_set(full: torch.Tensor, one: torch.Tensor, lane: int) -> None:
+    """Write batch entry 0 of ``one`` into lane ``lane`` of the stacked
+    ``full`` (batch axis 1), in place and cast to ``full``'s dtype; every
+    trailing axis is cropped to the lane's size or zero-padded up to it
+    (only the KV sequence axis ever differs), as the JAX package's
+    ``_lane_set``.  Other lanes are never written."""
+    dst, src = full[:, lane], one[:, 0]
+    if tuple(src.shape) != tuple(dst.shape):
+        cut = (slice(None),) + tuple(
+            slice(0, min(s, d)) for s, d in zip(src.shape[1:],
+                                                 dst.shape[1:]))
+        dst.zero_()
+        dst, src = dst[cut], src[cut]
+    dst.copy_(src)
+
+
 class DenseKVCache:
-    """Per-lane contiguous KV strips."""
+    """Per-lane contiguous decode state: KV strips for attention stacks,
+    the conv and recurrent state of every Mamba-1 layer for SSM stacks.
+    Every method works leaf by leaf over the cache tree, whatever it
+    holds."""
 
     kind = "dense"
     kv_dtype = "fp"
@@ -134,8 +165,8 @@ class DenseKVCache:
         self.swap_compress = swap_compress
         self.caches = model.init_caches(n_lanes, max_len, device=device)
 
-    def _leaves(self) -> tuple[torch.Tensor, ...]:
-        return self.caches["kv"]
+    def _leaves(self) -> list[torch.Tensor]:
+        return tree_leaves(self.caches)
 
     # -- engine interface ---------------------------------------------------
     def prefill_len(self, prompt_len: int) -> int:
@@ -144,11 +175,9 @@ class DenseKVCache:
     def admit(self, lane: int, prefill_caches: dict, prompt_len: int) -> bool:
         """Copy batch entry 0 of the prefill caches into ``lane`` (in place;
         positions past the source's length are zeroed)."""
-        for full, one in zip(self._leaves(), prefill_caches["kv"]):
-            dst, src = full[:, lane], one[:, 0]
-            n = min(dst.shape[-2], src.shape[-2])
-            dst[..., :n, :].copy_(src[..., :n, :])
-            dst[..., n:, :].zero_()
+        for full, one in zip(self._leaves(), tree_leaves(prefill_caches),
+                             strict=True):
+            lane_set(full, one, lane)
         return True
 
     def ensure_capacity(self, lane: int, pos: int) -> bool:
@@ -161,9 +190,9 @@ class DenseKVCache:
         return ()
 
     def swap_out(self, lane: int) -> tuple[np.ndarray, ...] | PackedTree:
-        """Copies of the lane's strips as host float32 numpy (exact for
-        bf16 and fp32 caches; numpy has no bfloat16), packed to int8 with
-        ``swap_compress``."""
+        """Copies of the lane's leaves (KV strips or SSM state) as host
+        float32 numpy (exact for bf16 and fp32 caches; numpy has no
+        bfloat16), packed to int8 with ``swap_compress``."""
         handle = tuple(_host(full[:, lane]) for full in self._leaves())
         return _pack_tree(handle) if self.swap_compress else handle
 

@@ -2,31 +2,37 @@
 
 The paper's install-time phase tunes PPs that depend only on the machine
 (Sample 1: unroll depth).  Here those are the tile shapes of the GEMM K8
-(``kernels/matmul.py``): the ``MatmulBlocks`` region, with the JAX
-package's region and PP names so the two tuning DBs stay comparable.
-Its ``varied`` values are Hopper's, :data:`~..kernels.matmul.TILE_VALUES`
-(32, 64, 128): the kernel keeps a ``bm x bn`` float32 sum in registers,
-and a 256 x 256 one would take the whole register file of an SM.
+(``kernels/matmul.py``), the ``MatmulBlocks`` region, and the chunk of
+the selective scan K9 (``kernels/ssm_scan.py``), the ``SsmChunk`` region,
+with the JAX package's region and PP names so the two tuning DBs stay
+comparable.  ``MatmulBlocks``' ``varied`` values are Hopper's,
+:data:`~..kernels.matmul.TILE_VALUES` (32, 64, 128): the kernel keeps a
+``bm x bn`` float32 sum in registers, and a 256 x 256 one would take the
+whole register file of an SM.  ``SsmChunk`` keeps the JAX package's
+values (32 .. 512) and its d-spline fit (``Fitting.dspline()``): it
+measures the chunks the fit samples and infers the optimum among the
+candidates.
 
 Declared through the ``repro_torch.at`` session API.  Executor backends
 (``at.executors``):
 
-* ``analytic-cost`` (default here) — :func:`matmul_blocks_cost`: grid
-  steps, with a penalty for tiles whose shared memory leaves room for
-  only one block on an SM, and ``inf`` for a tile over the per-block
-  shared-memory limit;
+* ``analytic-cost`` (default here) — :func:`matmul_blocks_cost` and
+  :func:`ssm_chunk_cost`: block steps, with a penalty for a block whose
+  shared memory leaves room for only one block on an SM, and ``inf`` for
+  one over the per-block shared-memory limit;
 * ``cuda-event`` (registered by this module) — CUDA-event device time of
-  the real K8 on the card at the registered (m, n, k) in bfloat16; with
-  ``device="cpu"`` (tests) the host-clock time of the plain version.
+  the real K8 at the registered (m, n, k), or of the real K9 at (1, seq,
+  d_inner, d_state), on the card in bfloat16; with ``device="cpu"``
+  (tests) the host-clock time of the plain versions.
 
 Results are published to :func:`repro_torch.at.tuned` under ``matmul``
-— :func:`..kernels.ops.mm` launches K8 with them — and persist in the
+and ``ssm_scan`` — :func:`..kernels.ops.mm` launches K8 and
+:func:`..kernels.ops.ssm_scan` K9 with them — and persist in the
 session's record store, so a second process on the same machine
 warm-loads them without re-timing.
 
 ``FlashBlocks`` waits until the port's K1 takes ``block_q``/``block_k``
-tiles and ``SsmChunk`` until K9 is ported: no region is declared whose
-PPs reach no kernel.
+tiles: no region is declared whose PPs reach no kernel.
 """
 from __future__ import annotations
 
@@ -35,14 +41,24 @@ import math
 import torch
 
 from .. import at
-from ..core import ATContext, Varied
+from ..core import ATContext, Fitting, Varied
 from ..core.executor import CudaEventExecutor, WallClockExecutor
 from ..device import resolve
 from ..kernels import ref
+from ..kernels import ssm_scan as k9
 from ..kernels.matmul import TILE_VALUES, matmul, smem_bytes, \
     smem_per_block_limit
 
 BF16_BYTES = 2
+#: the JAX package's SsmChunk candidates
+CHUNK_VALUES = (32, 64, 128, 256, 512)
+
+
+def _occupancy_penalty(used: int, smem_limit: int) -> float:
+    """1, raised 4x per unit by which a block's shared memory passes half
+    the per-block limit, where only one block fits on an SM and nothing
+    hides its loads."""
+    return 1.0 + 4.0 * max(0.0, used / (smem_limit / 2) - 1.0)
 
 
 def matmul_blocks_cost(bm: int, bn: int, bk: int, *, m: int, n: int, k: int,
@@ -61,9 +77,30 @@ def matmul_blocks_cost(bm: int, bn: int, bk: int, *, m: int, n: int, k: int,
     used = smem_bytes(bm, bn, bk, BF16_BYTES)
     if used > smem_limit:
         return math.inf
-    over = max(0.0, used / (smem_limit / 2) - 1.0)
     steps = math.ceil(m / bm) * math.ceil(n / bn) * math.ceil(k / bk)
-    return steps * (1.0 + 4.0 * over)
+    return steps * _occupancy_penalty(used, smem_limit)
+
+
+def ssm_chunk_cost(chunk: int, *, seq: int, d_inner: int, d_state: int,
+                   smem_limit: int) -> float:
+    """Analytic install-time cost of K9's ``chunk`` at (seq, d_inner,
+    d_state).
+
+    The footprint is K9's own shared memory per block
+    (:func:`..kernels.ssm_scan.smem_bytes`, which stages float32 whatever
+    the input type) for the chunk the kernel runs, cut to ``seq``.  Over
+    ``smem_limit`` the chunk cannot be launched: ``inf``, never timed.
+    Otherwise the cost is the staging rounds of all blocks (blocks x
+    chunks of the sequence, each a load and two barriers) times the
+    occupancy penalty."""
+    if d_state not in k9.STATES:
+        return math.inf
+    used = k9.smem_bytes(d_state, min(chunk, seq))
+    if used > smem_limit:
+        return math.inf
+    blocks = math.ceil(d_inner / (k9.THREADS // d_state))
+    return blocks * math.ceil(seq / chunk) * _occupancy_penalty(
+        used, smem_limit)
 
 
 def register_kernel_regions(session: "at.AutoTuner | ATContext", *,
@@ -74,12 +111,13 @@ def register_kernel_regions(session: "at.AutoTuner | ATContext", *,
     """Declare the install-time regions for every kernel PP.
 
     ``(m, n, k)`` is the GEMM shape the ``MatmulBlocks`` region is costed
-    and timed at.  ``smem_limit`` is the per-block shared-memory limit in
-    bytes; ``None`` reads it from the card (the opt-in limit, 232,448 on
-    an H100).  ``seq``, ``d_head``, ``d_inner`` and ``d_state`` size the
-    JAX package's ``FlashBlocks`` and ``SsmChunk`` regions, which wait
-    for their kernels' tiles here; they are accepted so that callers of
-    either package pass the same arguments.
+    and timed at, ``(seq, d_inner, d_state)`` the selective scan's of the
+    ``SsmChunk`` region (batch 1).  ``smem_limit`` is the per-block
+    shared-memory limit in bytes; ``None`` reads it from the card (the
+    opt-in limit, 232,448 on an H100).  ``d_head`` sizes the JAX
+    package's ``FlashBlocks`` region, which waits for K1's tiles here; it
+    is accepted so that callers of either package pass the same
+    arguments.
     """
     session = at.AutoTuner.for_context(session)
     if smem_limit is None:
@@ -96,8 +134,19 @@ def register_kernel_regions(session: "at.AutoTuner | ATContext", *,
         return matmul_blocks_cost(bm, bn, bk, m=m, n=n, k=k,
                                   smem_limit=smem_limit)
 
+    @session.autotune(
+        "install", "variable", name="SsmChunk",
+        varied=Varied(("chunk",), values=CHUNK_VALUES),
+        fitting=Fitting.dspline(), executor="analytic-cost",
+        publish=("ssm_scan", {"chunk": "chunk"}),
+        metadata={"shape": (seq, d_inner, d_state),
+                  "smem_limit": smem_limit})
+    def ssm_chunk(chunk=64):
+        return ssm_chunk_cost(chunk, seq=seq, d_inner=d_inner,
+                              d_state=d_state, smem_limit=smem_limit)
 
-_KERNEL_REGIONS = ("MatmulBlocks",)
+
+_KERNEL_REGIONS = ("MatmulBlocks", "SsmChunk")
 
 
 def run_install_tuning(session: "at.AutoTuner | ATContext",
@@ -106,8 +155,8 @@ def run_install_tuning(session: "at.AutoTuner | ATContext",
     """Execute install-time AT and publish tuned PPs to the kernel layer.
 
     ``wall_clock=True`` switches the kernel regions to the ``cuda-event``
-    executor, which times K8 on ``device`` (the card; ``"cpu"`` times the
-    plain version with the host clock, for tests).  A session whose
+    executor, which times K8 and K9 on ``device`` (the card; ``"cpu"``
+    times the plain versions with the host clock, for tests).  A session whose
     record store already holds results for this machine re-loads them
     without invoking any executor.
     """
@@ -139,34 +188,74 @@ def run_install_tuning(session: "at.AutoTuner | ATContext",
 
 @at.executors.register("cuda-event")
 def _cuda_event_executor(region, bp_env):
-    """Device time of K8 at the region's (m, n, k) in bfloat16, from CUDA
-    events (minimum over 10 launches after 2 untimed ones); on a CPU
-    device, the host-clock time of the plain version."""
-    m, n, k = region.metadata["shape"]
-    limit = region.metadata["smem_limit"]
+    """Device time of the region's kernel from CUDA events (minimum over
+    10 launches after 2 untimed ones): K8 at the region's (m, n, k), K9 at
+    (1, seq, d_inner, d_state), in bfloat16.  On a CPU device, the
+    host-clock time of the plain version.  A candidate over the per-block
+    shared-memory limit is never launched: it costs ``inf``."""
     device = resolve(region.metadata.get("device", "cuda"))
     gen = torch.Generator(device=device).manual_seed(0)
-    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
-    y = torch.randn((k, n), generator=gen, device=device).to(torch.bfloat16)
+    make = {"MatmulBlocks": _matmul_variants,
+            "SsmChunk": _ssm_variants}[region.name]
+    run, plain, fits = make(region.metadata, gen, device)
 
-    def tiles(assignment):
-        bare = {key.split("_", 1)[1].lower(): v
+    def bare(assignment):
+        return {key.split("_", 1)[1].lower(): v
                 for key, v in assignment.items()}
-        return dict(block_m=bare["bm"], block_n=bare["bn"],
-                    block_k=bare["bk"])
 
     if device.type == "cuda":
-        timer = CudaEventExecutor(
-            lambda asg: lambda: matmul(x, y, **tiles(asg)), repeats=10,
-            warmup=2, device=device)
+        timer = CudaEventExecutor(lambda asg: run(**bare(asg)), repeats=10,
+                                  warmup=2, device=device)
     else:
-        timer = WallClockExecutor(lambda asg: lambda: ref.matmul_ref(x, y),
-                                  repeats=1, warmup=1)
+        timer = WallClockExecutor(lambda asg: plain, repeats=1, warmup=1)
 
     def measure(assignment):
-        t = tiles(assignment)
-        if smem_bytes(t["block_m"], t["block_n"], t["block_k"],
-                      BF16_BYTES) > limit:
+        if not fits(**bare(assignment)):
             return math.inf     # the card cannot launch it: never timed
         return timer(assignment)
     return measure
+
+
+def _matmul_variants(metadata: dict, gen: torch.Generator,
+                     device: torch.device):
+    """(K8 launcher by tile, plain call, does-the-tile-fit) at the
+    region's (m, n, k)."""
+    m, n, k = metadata["shape"]
+    limit = metadata["smem_limit"]
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    y = torch.randn((k, n), generator=gen, device=device).to(torch.bfloat16)
+
+    def run(bm, bn, bk):
+        return lambda: matmul(x, y, block_m=bm, block_n=bn, block_k=bk)
+
+    def fits(bm, bn, bk):
+        return smem_bytes(bm, bn, bk, BF16_BYTES) <= limit
+
+    return run, lambda: ref.matmul_ref(x, y), fits
+
+
+def _ssm_variants(metadata: dict, gen: torch.Generator,
+                  device: torch.device):
+    """(K9 launcher by chunk, plain call, does-the-chunk-fit) at batch 1
+    and the region's (seq, d_inner, d_state), with falcon-mamba's A
+    (-1 .. -N for every channel) and a positive dt."""
+    seq, di, n = metadata["shape"]
+    limit = metadata["smem_limit"]
+
+    def draw(*shape, scale=1.0):
+        t = torch.randn(shape, generator=gen, device=device) * scale
+        return t.to(torch.bfloat16)
+
+    x, b, c = draw(1, seq, di), draw(1, seq, n), draw(1, seq, n)
+    dt = torch.nn.functional.softplus(draw(1, seq, di) - 2.0)
+    a = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device=device).expand(di, n).contiguous()
+    d = torch.ones((di,), dtype=torch.bfloat16, device=device)
+
+    def run(chunk):
+        return lambda: k9.selective_scan(x, dt, a, b, c, d, chunk=chunk)
+
+    def fits(chunk):
+        return k9.smem_bytes(n, min(chunk, seq)) <= limit
+
+    return run, lambda: ref.selective_scan_ref(x, dt, a, b, c, d), fits

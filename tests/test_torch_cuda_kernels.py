@@ -22,6 +22,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mmk
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssm_scan as k9
 
 pytestmark = pytest.mark.gpu
 
@@ -609,3 +610,102 @@ def test_cuda_executors_time_completion(cuda_device):
 
     assert CudaEventExecutor(spin, repeats=3, device=cuda_device)({}) >= 8e-3
     assert WallClockExecutor(spin, repeats=3)({}) >= 8e-3
+
+
+# --------------------------------------------------------------------------
+# K9 selective_scan
+# --------------------------------------------------------------------------
+
+SSM_CHUNKS = (32, 64, 128, 256, 512)     # the SsmChunk candidates
+
+
+def ssm_case(bsz, length, di, n, seed, device, dtype):
+    """x, dt (positive), a (negative, float32), b, c, d on ``device``."""
+    x = rand((bsz, length, di), seed, device, dtype)
+    dt = torch.nn.functional.softplus(
+        rand((bsz, length, di), seed + 1, device, torch.float32)).to(dtype)
+    a = -torch.exp(rand((di, n), seed + 2, device, torch.float32))
+    return (x, dt, a, rand((bsz, length, n), seed + 3, device, dtype),
+            rand((bsz, length, n), seed + 4, device, dtype),
+            rand((di,), seed + 5, device, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("final_state", [False, True])
+@pytest.mark.parametrize("bsz,length,di,n", [
+    (2, 96, 16, 8), (3, 90, 100, 16), (2, 33, 64, 4), (1, 257, 512, 16),
+    (2, 5, 40, 32), (1, 64, 8192, 16)])
+def test_ssm_scan_kernel_matches_plain(cuda_device, dtype, final_state, bsz,
+                                       length, di, n):
+    args = ssm_case(bsz, length, di, n, 40, cuda_device, dtype)
+    launches = k9.selective_scan.launches
+    got = ops.ssm_scan(*args, chunk=32, return_final_state=final_state)
+    want = ref.selective_scan_ref(*args, return_final_state=True)
+    torch.cuda.synchronize()
+    assert k9.selective_scan.launches == launches + 1
+    assert k9.selective_scan.last_chunk == min(32, length)
+    y = got[0] if final_state else got
+    assert y.dtype == dtype and y.shape == (bsz, length, di)
+    close(y, want[0], dtype)
+    if final_state:
+        assert got[1].dtype == torch.float32
+        assert got[1].shape == (bsz, di, n)
+        close(got[1], want[1], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_every_chunk_matches_plain(cuda_device, dtype):
+    """Every SsmChunk candidate, over a ragged L (the last chunk masked;
+    512 is cut to L), with and without the final state; the shared-memory
+    formula of the cost model equals the kernel's."""
+    args = ssm_case(2, 300, 256, 16, 50, cuda_device, dtype)
+    want_y, want_h = ref.selective_scan_ref(*args, return_final_state=True)
+    for chunk in SSM_CHUNKS:
+        y, h = k9.selective_scan(*args, chunk=chunk, return_final_state=True)
+        torch.cuda.synchronize()
+        assert k9.selective_scan.last_chunk == min(chunk, 300)
+        close(y, want_y, dtype)
+        close(h, want_h, dtype)
+        close(k9.selective_scan(*args, chunk=chunk), want_y, dtype)
+    for n in k9.STATES:
+        for chunk in SSM_CHUNKS:
+            assert k9.kernel_smem_bytes(n, chunk) == k9.smem_bytes(n, chunk)
+
+
+def test_ssm_scan_launches_the_published_chunk(cuda_device):
+    args = ssm_case(1, 200, 64, 16, 60, cuda_device, torch.bfloat16)
+    at.clear_published()
+    try:
+        at.publish("ssm_scan", chunk=128)
+        ops.ssm_scan(*args)
+        assert k9.selective_scan.last_chunk == 128
+        ops.ssm_scan(*args, return_final_state=True, chunk=64)
+        assert k9.selective_scan.last_chunk == 64
+    finally:
+        at.clear_published()
+
+
+def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x, dt, a, b, c, d = ssm_case(1, 16, 32, 8, 70, cuda_device,
+                                 torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        k9.selective_scan(x.cpu(), dt, a, b, c, d)
+    with pytest.raises(ValueError, match="share one type"):
+        k9.selective_scan(x, dt.float(), a, b, c, d)
+    with pytest.raises(ValueError, match="float32"):
+        k9.selective_scan(x, dt, a.to(torch.bfloat16), b, c, d)
+    with pytest.raises(ValueError, match="d_state"):
+        k9.selective_scan(x, dt, a[:, :3].contiguous(), b[..., :3]
+                          .contiguous(), c[..., :3].contiguous(), d)
+    with pytest.raises(ValueError, match="contiguous"):
+        k9.selective_scan(x, dt, a, b.transpose(1, 2).contiguous()
+                          .transpose(1, 2), c, d)
+    with pytest.raises(ValueError, match="shape"):
+        k9.selective_scan(x, dt, a, b, c, d[:8].contiguous())
+    with pytest.raises(ValueError, match="chunk"):
+        k9.selective_scan(x, dt, a, b, c, d, chunk=0)
+    # a chunk whose shared memory the card cannot give fails at launch
+    x1, dt1, a1, b1, c1, d1 = ssm_case(1, 4096, 32, 1, 71, cuda_device,
+                                       torch.float32)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k9.selective_scan(x1, dt1, a1, b1, c1, d1, chunk=4096)

@@ -161,7 +161,9 @@ def test_analytic_install_tuning_publishes_a_feasible_tile(tmp_path):
     assert (tiles["block_m"], tiles["block_n"], tiles["block_k"]) in TILES
     assert smem_bytes(*tiles.values()) <= H100_SMEM_PER_BLOCK
     assert at.tuned("matmul") == tiles
-    assert session.executor_calls == 9        # ad-hoc: 3 axes x 3 values
+    # MatmulBlocks ad-hoc: 3 axes x 3 values; SsmChunk: its d-spline's 8
+    # sample points
+    assert session.executor_calls == 9 + 8
     record = session.records.lookup("install", "MatmulBlocks", {})
     assert record is not None and record.machine == at.machine_fingerprint()
     # a second session on the workdir warm-loads: no measurement
@@ -182,13 +184,13 @@ def test_infeasible_tiles_are_never_chosen(tmp_path):
 
 def test_wall_clock_install_tuning_on_cpu_times_the_plain_version(tmp_path):
     session = at.AutoTuner(str(tmp_path))
-    register_kernel_regions(session, m=48, n=80, k=64,
-                            smem_limit=H100_SMEM_PER_BLOCK)
+    register_kernel_regions(session, m=48, n=80, k=64, seq=24, d_inner=32,
+                            d_state=8, smem_limit=H100_SMEM_PER_BLOCK)
     tuned = run_install_tuning(session, wall_clock=True, device="cpu")
     region = session.ctx.registry.get("MatmulBlocks")
     assert region.metadata["executor"] == "cuda-event"
     assert tuple(tuned["MatmulBlocks"].values()) in TILES
-    assert session.executor_calls == 9
+    assert session.executor_calls == 9 + 8      # MatmulBlocks + SsmChunk
     # the analytic setting is restored by the next call
     run_install_tuning(session)
     assert region.metadata["executor"] == "analytic-cost"

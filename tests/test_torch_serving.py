@@ -69,7 +69,7 @@ def _leaves(tree):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ARCH_IDS + ["falcon-mamba-7b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_copy_matches_jax(arch, reduced):
     want, got = JAX_ARCHS[arch], ARCHS[arch]
@@ -77,7 +77,8 @@ def test_config_copy_matches_jax(arch, reduced):
         want, got = want.reduced(), got.reduced()
     for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
                   "vocab_size", "rope_theta", "window", "compute_dtype",
-                  "cache_dtype", "tie_embeddings", "qkv_bias"):
+                  "cache_dtype", "tie_embeddings", "qkv_bias",
+                  "ssm_version", "ssm_state", "ssm_d_inner", "d_inner"):
         assert getattr(got, field) == getattr(want, field), field
     assert got.head_dim == want.head_dim
     assert got.padded_vocab == want.padded_vocab
@@ -86,7 +87,7 @@ def test_config_copy_matches_jax(arch, reduced):
 
 def test_get_arch_names_the_roadmap_item_for_unported_archs():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("falcon-mamba-7b")
+        get_arch("zamba2-7b")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
