@@ -6,7 +6,9 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
-   all in parallel;
+   all in parallel; the tensor-core prefill kernel's instances
+   (``paged_prefill.cu``) with their registers and spills from the
+   ``-Xptxas -v`` log, their shared memory and resident blocks per SM;
 3. K1 ``flash_attention`` against its plain version at the prefill shapes
    of yi-6b and deepseek-7b and a few edge shapes, with its time, bound,
    plain time and the time of torch's SDPA on the same inputs;
@@ -24,7 +26,11 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    0), plus a ``kv_len == 0`` row that must come out exactly 0, with its
    time, bound, plain time and the time of SDPA on the pre-gathered K/V;
 8. K4 ``flash_paged_prefill`` likewise at the prefill-chunk shapes (a
-   chunk at 0, at 384, starting mid-page, a ragged last chunk);
+   chunk at 0, at 384, starting mid-page, a ragged last chunk): bf16 on
+   the tensor-core kernel, float32 on the SIMT template; timed at the
+   main path's chunk and at the verify shape (``num_splits=1``) beside
+   the SIMT template's walk of the same work (K5b with one split + K5c),
+   the plain version, SDPA and the bound;
 9. paged serve: the same requests through the paged KV pool with chunked
    prefill (chunks of 128, pages of 16); every request must finish with
    32 tokens and the counters must show K4 once per layer per chunk, K3
@@ -39,7 +45,8 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 12. int8 pages: K6a (decode), K6b + K5c (split decode, 8 splits) and K6c
    (prefill chunk) against their plain versions on pools quantized from
    the phase-7 and phase-8 cases, rows without keys exactly 0, with
-   times at the phase-7 and phase-8 timing shapes;
+   times at the phase-7 and phase-8 timing shapes (K6c beside the SIMT
+   template's walk, K6d with one split + K5c);
 13. serves of the phase-5 requests from the paged pool in chunks of 128:
    int8 pages with 8 splits, int8 pages in one pass, and fp pages with 8
    splits; every request must finish with 32 tokens and each serve's
@@ -165,6 +172,8 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}   # rtol = atol
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+PREFILL_SOURCE = "src/repro_torch/kernels/csrc/paged_prefill.cu"
+TC_KERNEL = "paged_prefill_tc_kernel"
 KERNELS = fa.KERNELS + pa.KERNELS + mmk.KERNELS + fk.KERNELS + k9.KERNELS
 FLASH = "src/repro/kernels/flash_attention.py"
 BF16 = torch.bfloat16
@@ -253,6 +262,7 @@ def phase_build() -> None:
     paths = build.build_all()
     fa._lib()
     pa._lib()
+    pa._tc_lib()
     mmk._lib()
     fk._lib()
     k9._lib()
@@ -270,6 +280,36 @@ def phase_build() -> None:
                   f"max {max(regs, default=0)}, spill stores "
                   f"{sum(spills)} bytes in {sum(1 for x in spills if x)} "
                   f"kernels (full report in {log.name})")
+    log = paths["paged_prefill"].with_suffix(".log")
+    if log.exists():
+        lines = []
+        for kind, d, regs, spill in tc_instances(log.read_text()):
+            info = pa.tc_info(d, kind == "int8", 64)
+            lines.append(f"{kind} D={d}: {regs} registers, "
+                         f"{spill} B spill stores, {info['smem_bytes']} B "
+                         f"shared at 64 table entries, "
+                         f"{info['blocks_per_sm']} block(s)/SM")
+        check(len(lines) == 8, f"{len(lines)} tensor-core prefill "
+              "instances in the ptxas log, expected 8")
+        print(f"    {TC_KERNEL} instances (ptxas -v and the card's "
+              f"occupancy): " + "; ".join(lines))
+
+
+def tc_instances(log: str) -> list[tuple[str, int, int, int]]:
+    """(pool type, D, registers, spill-store bytes) of every
+    instance of the tensor-core prefill kernel in an ``-Xptxas -v`` log."""
+    out = []
+    for chunk in log.split("Compiling entry function")[1:]:
+        m = re.search(TC_KERNEL + r"I(13__nv_bfloat16|a)Li(\d+)EE",
+                      chunk.split("\n", 1)[0])
+        if not m:
+            continue
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        out.append(("int8" if m.group(1) == "a" else "bf16", int(m.group(2)),
+                    int(regs.group(1)) if regs else -1,
+                    int(spill.group(1)) if spill else 0))
+    return out
 
 
 def phase_k1() -> dict:
@@ -384,6 +424,8 @@ def serve_with_counts(engine: ServingEngine | None = None,
     zeroed just before and read just after."""
     for kernel in KERNELS:
         kernel.launches = 0
+    pa.flash_paged_prefill.last_kernel = None
+    pa.flash_paged_prefill_quant.last_kernel = None
     scfg = ServeConfig(**{**SERVE, **kw})
     report = (serve_config(scfg) if engine is None
               else serve_engine(engine, scfg))
@@ -539,6 +581,9 @@ def phase_k4() -> dict:
                                             300 + 10 * i, c=c)
         starts = torch.tensor([start, 0], dtype=torch.int32, device="cuda")
         got = pa.flash_paged_prefill(q, kp, vp, table, starts, lens)
+        check(pa.flash_paged_prefill.last_kernel
+              == (TC_KERNEL if dtype == BF16 else "paged_prefill_kernel"),
+              f"K4 {label}: launched {pa.flash_paged_prefill.last_kernel}")
         want = ref.paged_prefill_ref(q, kp, vp, table, starts, lens)
         # rows at positions >= kv_len are padding: not compared
         err = max(compare(got[:1, :, :valid], want[:1, :, :valid], dtype),
@@ -580,17 +625,55 @@ def phase_k4() -> dict:
         "library_ms": time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k_dense, v_dense, attn_mask=causal, enable_gqa=True))}
+    simt = time_ms(lambda: simt_walk(q, kp, vp, table, starts, lens))
     print(f"[8 K4 flash_paged_prefill] yi-6b B=1 H=32 Hkv=4 C=128 D=128 "
           f"psz=16 bf16 start=384 kv_len=512 ({pairs} causal pairs per "
-          f"head), device ms (ms per call incl. host): "
+          f"head, 32-row query tiles), device ms (ms "
+          f"per call incl. host): "
           + ", ".join(f"{k} {d:.4f} ({c:.4f})" for k, (d, c) in times.items())
-          + f", bound {bound_ms:.5f} ms ({bound_by}); library = SDPA with "
-          f"the causal mask on the pre-gathered dense K/V (gather not timed)")
+          + f", bound {bound_ms:.5f} ms ({bound_by}); before: the SIMT "
+          f"template's walk (K5b, one split, + K5c) {simt[0]:.4f} "
+          f"({simt[1]:.4f}); library = SDPA with the causal mask on the "
+          f"pre-gathered dense K/V (gather not timed)")
+    print(f"[8 K4 flash_paged_prefill] verify shape, num_splits=1, device "
+          f"ms: " + verify_one_pass(False))
     return {"name": "flash_paged_prefill", "route": "cuda",
-            "source": PAGED_SOURCE,
+            "source": PREFILL_SOURCE,
             "replaces": "src/repro/kernels/flash_attention.py:668",
             "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
             **{k: d for k, (d, _) in times.items()}}
+
+
+def simt_walk(q, k_pool, v_pool, table, start, kv_len, k_scale=None,
+              v_scale=None) -> torch.Tensor:
+    """The one-pass chunk through the SIMT template that the tensor-core
+    kernel replaced for bf16: K5b (K6d) with one split, then K5c."""
+    if k_scale is None:
+        parts = pa.paged_prefill_split(q, k_pool, v_pool, table, start,
+                                       kv_len, 1)
+    else:
+        parts = pa.paged_prefill_split_quant(q, k_pool, v_pool, k_scale,
+                                             v_scale, table, start, kv_len, 1)
+    return pa.split_combine(*parts, q.dtype)
+
+
+def verify_one_pass(quant: bool) -> str:
+    """K4 (K6c) at phase 15's verify shape with ``num_splits=1``, beside
+    the SIMT template's walk; both checked against plain first."""
+    q, pools, table, start, lens = split_case(VERIFY_SHAPE, 650, quant)
+    sc = (pools.k_scale, pools.v_scale) if quant else ()
+    one_pass = pa.flash_paged_prefill_quant if quant else pa.flash_paged_prefill
+    args = (q, pools.k, pools.v, *sc, table, start, lens)
+    live = [b for b, v in enumerate(VERIFY_SHAPE[7]) if v]
+    want = ref.paged_prefill_ref(q, pools.k, pools.v, table, start, lens,
+                                 k_scale=pools.k_scale, v_scale=pools.v_scale)
+    walk = (q, pools.k, pools.v, table, start, lens, *sc)
+    for got in (one_pass(*args, num_splits=1), simt_walk(*walk)):
+        compare(got[live], want[live], BF16)
+    new = time_ms(lambda: one_pass(*args, num_splits=1))
+    old = time_ms(lambda: simt_walk(*walk))
+    return (f"{'K6c' if quant else 'K4'} {new[0]:.4f} ({new[1]:.4f}) against "
+            f"the SIMT template's walk {old[0]:.4f} ({old[1]:.4f})")
 
 
 def greedy_agreement(report: dict, other: dict) -> str:
@@ -619,6 +702,8 @@ def phase_paged_serve(smi: str, dense: dict) -> tuple[dict, dict[str, int]]:
           f"{n_layers} x {report['decode_steps']} decode steps")
     only_launched(launches, (pa.flash_paged_prefill, pa.flash_paged_decode),
                   "the paged serve")
+    check(pa.flash_paged_prefill.last_kernel == TC_KERNEL,
+          f"the paged serve's K4 ran {pa.flash_paged_prefill.last_kernel}")
     check(report["cache"]["n_pages"] == 257, "default pool is not 257 pages")
     print(f"[9 paged serve] yi-6b full, pages of 16 (257), chunks of 128: "
           f"{report['finished']}/{SERVE['n_requests']} requests, "
@@ -678,15 +763,19 @@ def paged_logits(model, params, quantized: bool = False,
 
 def check_logits(plain: torch.Tensor, kern: torch.Tensor, vocab: int,
                  what: str) -> str:
-    """Kernel against plain logits of the same steps (phases 6, 10, 14).
+    """Kernel against plain logits of the same steps (phases 6, 10, 14,
+    18).
 
-    Tolerance: both paths compute attention in float32 from the same bf16
-    inputs and round the output to bf16, so they differ by at most an ulp
-    of bf16 (2^-8 relative) per attention output element (int8 pages:
-    the same codes and scales on both paths); 32 layers of bf16 matmuls
-    carry that into the logits.  The check allows 5e-2 of the logits' own
-    scale (their max magnitude), and reports the argmax agreement beside
-    it."""
+    Tolerance: both paths take the same bf16 inputs (int8 pages: the same
+    codes and scales) and round the attention output to bf16.  The plain
+    versions compute in float32; the kernels sum in float32 too, but the
+    prefill chunk with a bf16 query (K4, K6c on the tensor cores) also
+    rounds P (for int8 pages P times the value scale) to bf16 before P.V,
+    which moves an output by at most 2^-9 of the largest |v|.  So they
+    differ by about an ulp of bf16 (2^-8 relative) per attention output
+    element, and 32 layers of bf16 matmuls carry that into the logits.
+    The check allows 5e-2 of the logits' own scale (their max magnitude),
+    and reports the argmax agreement beside it."""
     check(tuple(kern.shape) == (plain.shape[0], 1, vocab), f"{what} shape")
     check(bool(torch.isfinite(kern).all() and torch.isfinite(plain).all()),
           f"{what} are not finite")
@@ -870,6 +959,10 @@ def phase_k6() -> list[dict]:
         starts = torch.tensor([start, 0], dtype=torch.int32, device="cuda")
         got = pa.flash_paged_prefill_quant(q, k8, v8, ks, vs, table, starts,
                                            lens)
+        check(pa.flash_paged_prefill_quant.last_kernel
+              == (TC_KERNEL if dtype == BF16 else "paged_prefill_kernel"),
+              f"K6c {label}: launched "
+              f"{pa.flash_paged_prefill_quant.last_kernel}")
         want = ref.paged_prefill_ref(q, k8, v8, table, starts, lens,
                                      k_scale=ks, v_scale=vs)
         err = max(compare(got[:1, :, :valid], want[:1, :, :valid], dtype),
@@ -953,15 +1046,19 @@ def phase_k6() -> list[dict]:
            "library_ms": time_ms(
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    q, k_dense, v_dense, attn_mask=causal, enable_gqa=True))}
+    simt = time_ms(lambda: simt_walk(q, k8, v8, table, starts, lens, ks, vs))
     n_bytes = 2 * 2 * q.numel() + 2 * kv * hkv * (d + 4) + 4 * (kv // psz + 2)
-    rows.append(row("flash_paged_prefill_quant", PAGED_SOURCE, f"{FLASH}:1186",
-                    err, n_bytes, 4 * h * pairs * d, k6c))
+    rows.append(row("flash_paged_prefill_quant", PREFILL_SOURCE,
+                    f"{FLASH}:1186", err, n_bytes, 4 * h * pairs * d, k6c))
     print(f"[12 K6 int8 pages] yi-6b chunk B=1 H=32 Hkv=4 C=128 D=128 psz=16 "
           f"bf16 q, int8 pools, start=384 kv_len=512, device ms (ms per call "
           f"incl. host): K6c {fmt_times(k6c)}, bound "
-          f"{rows[2]['bound_ms']:.5f} ms ({rows[2]['bound_by']}); library = "
-          f"SDPA on the pre-gathered, pre-dequantized bf16 K/V (gather and "
-          f"dequant not timed)")
+          f"{rows[2]['bound_ms']:.5f} ms ({rows[2]['bound_by']}); before: "
+          f"the SIMT template's walk (K6d, one split, + K5c) {simt[0]:.4f} "
+          f"({simt[1]:.4f}); library = SDPA on the pre-gathered, "
+          f"pre-dequantized bf16 K/V (gather and dequant not timed)")
+    print(f"[12 K6 int8 pages] verify shape, num_splits=1, device ms: "
+          + verify_one_pass(True))
     return rows
 
 
@@ -987,6 +1084,8 @@ def phase_split_int8_serves(smi: str, paged: dict
         reports[label] = report
         what = f"the {label} serve"
         only_launched(launches, (prefill, *decode), what)
+        check(prefill.last_kernel == TC_KERNEL,
+              f"{what}: {prefill.__name__} ran {prefill.last_kernel}")
         check(launches[prefill.__name__]
               == n_layers * report["prefill_chunks"],
               f"{what}: {prefill.__name__} launched "

@@ -14,12 +14,17 @@
 // K6a paged_decode_kernel<int8, normalise> flash_paged_decode_quant /
 //                                          _paged_decode_quant_kernel
 // K6b paged_decode_kernel<int8, partials>  _paged_decode_split_quant_kernel
-// K4  paged_prefill_kernel<fp, one pass>   flash_paged_prefill /
-//                                          _paged_prefill_kernel (num_splits=1)
+// K4  paged_prefill_kernel<float, one pass>       flash_paged_prefill /
+//                                          _paged_prefill_kernel (num_splits=1),
+//                                          float32 query only
 // K5b paged_prefill_kernel<fp, partials>   _paged_prefill_split_kernel
-// K6c paged_prefill_kernel<int8, one pass> flash_paged_prefill_quant /
-//                                          _paged_prefill_quant_kernel
+// K6c paged_prefill_kernel<float, int8, one pass> flash_paged_prefill_quant /
+//                                          _paged_prefill_quant_kernel,
+//                                          float32 query only
 // K6d paged_prefill_kernel<int8, partials> _paged_prefill_split_quant_kernel
+// K4 and K6c with a bf16 query, the main path, run on the tensor cores in
+// paged_prefill.cu; the one-pass instances here take float32 only (a TF32
+// product would break the fp32 tolerance).
 //
 // Semantics kept from the TPU kernels: key j of sequence b lives in page
 // table[b, j / psz] at slot j % psz; only keys j < kv_len[b] are read (table
@@ -37,7 +42,7 @@
 // shapes: a decode step must read every live K/V row once (4.2 MB of bf16
 // at four yi-6b lanes of ~520 tokens, half that in int8), a prefill chunk
 // reads its Q and the committed K/V prefix once.  These versions keep the
-// structure of K2 and K1:
+// structure of K2 and K1, SIMT fp32 products from shared memory:
 //  * decode: one block of 8 warps per (lane, kv head[, split]) holding the
 //    G grouped query rows, so each K/V row is read from device memory once
 //    for all G rows.  The block stages the lane's live page-table entries
@@ -67,10 +72,12 @@
 //    a 5-row verify chunk writes 5 rows), merged by K5c.  A split with
 //    no tile, or a row that sees no key of its split, writes (-1e30, 0,
 //    0).  What bounds split verify: the K/V walk of the lane's prefix
-//    (one 32-key tile's load latency per tile and warp, as K4); the
-//    split cuts the tiles each block walks by ns, for ns blocks per
-//    (head, q tile) and a partials round trip of C rows.
-//    Tensor cores (wgmma) and TMA are left for later PRs.
+//    (one 32-key tile's load latency per tile and warp); the split cuts
+//    the tiles each block walks by ns, for ns blocks per (head, q tile)
+//    and a partials round trip of C rows.  With ns = 1 and K5c it is
+//    the walk of the one-pass template that paged_prefill.cu replaced
+//    for bf16 queries.
+//    Tensor cores and asynchronous copies: paged_prefill.cu.
 
 #include "common.cuh"
 
@@ -615,16 +622,20 @@ cudaError_t prefill_by_dim(const PrefillArgs& a) {
   }
 }
 
+// one pass takes a float32 query only (bf16: paged_prefill.cu); the
+// split forms take both
 template <bool QUANT, bool SPLIT>
 cudaError_t prefill(const PrefillArgs& a, int dtype) {
   if (SPLIT && a.ns < 1) return cudaErrorInvalidValue;
   if (dtype == 0)
     return prefill_by_dim<float, std::conditional_t<QUANT, int8_t, float>,
                           SPLIT>(a);
-  if (dtype == 1)
-    return prefill_by_dim<__nv_bfloat16,
-                          std::conditional_t<QUANT, int8_t, __nv_bfloat16>,
-                          SPLIT>(a);
+  if constexpr (SPLIT) {
+    if (dtype == 1)
+      return prefill_by_dim<__nv_bfloat16,
+                            std::conditional_t<QUANT, int8_t, __nv_bfloat16>,
+                            SPLIT>(a);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -721,15 +732,14 @@ extern "C" int repro_split_combine(const void* m, const void* l,
   return cudaGetLastError();
 }
 
-// K4: fp pools.
-extern "C" int repro_flash_paged_prefill(const void* q, const void* k_pool,
-                                         const void* v_pool,
-                                         const void* page_table,
-                                         const void* start,
-                                         const void* kv_len, void* o, int B,
-                                         int H, int Hkv, int C, int psz,
-                                         int nblk, int D, int dtype,
-                                         float scale, void* stream) {
+// K4 with a float32 query (dtype 0 only): float32 pools.
+extern "C" int repro_paged_prefill_f32(const void* q, const void* k_pool,
+                                       const void* v_pool,
+                                       const void* page_table,
+                                       const void* start, const void* kv_len,
+                                       void* o, int B, int H, int Hkv, int C,
+                                       int psz, int nblk, int D, int dtype,
+                                       float scale, void* stream) {
   const PrefillArgs a{q, k_pool, v_pool, nullptr, nullptr,
                       static_cast<const int*>(page_table),
                       static_cast<const int*>(start),
@@ -739,8 +749,9 @@ extern "C" int repro_flash_paged_prefill(const void* q, const void* k_pool,
   return prefill<false, false>(a, dtype);
 }
 
-// K6c: int8 pools with scales (P, Hkv, psz).
-extern "C" int repro_flash_paged_prefill_quant(
+// K6c with a float32 query (dtype 0 only): int8 pools with scales
+// (P, Hkv, psz).
+extern "C" int repro_paged_prefill_f32_quant(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* start, const void* kv_len, void* o, int B, int H, int Hkv,

@@ -1,4 +1,5 @@
-"""Python wrappers of the paged CUDA attention kernels (``csrc/paged_attention.cu``).
+"""Python wrappers of the paged CUDA attention kernels (``csrc/paged_attention.cu``
+and, for the one-pass prefill chunk with a bf16 query, ``csrc/paged_prefill.cu``).
 
 * :func:`flash_paged_decode` — one query token per sequence against K/V
   page pools (P, Hkv, psz, D), each sequence reaching its pages through a
@@ -14,7 +15,12 @@
   sequence at absolute positions ``start[b] + i``, causal over the
   committed paged prefix plus the chunk's own triangle; key ``j`` is
   valid iff ``j < kv_len[b]``.  The chunk's K/V must already be in the
-  pages (write before read).  ``num_splits`` above 1 launches K5b
+  pages (write before read).  A bf16 query runs on the tensor cores
+  (``paged_prefill.cu``: GQA folded into 32-row query tiles, ``cp.async``
+  page copies, P rounded to bf16 for P.V); a float32 query on the SIMT
+  template of ``paged_attention.cu``, whose fp32 products keep the fp32
+  tolerance.  The choice is the query's type; ``last_kernel`` on the
+  function names the one launched last.  ``num_splits`` above 1 launches K5b
   (:func:`paged_prefill_split`, the chunk's live key tiles cut into
   splits, fp32 partials of the chunk's C rows) and K5c.
   :func:`flash_paged_prefill_quant` is the same over int8 pools: K6c, or
@@ -22,7 +28,9 @@
 
 Table entries past ``ceil(kv_len / psz)`` are never read and may point
 anywhere (page 0 by convention); entries below it must name pages of the
-pools.  The wrappers follow the contract of :mod:`.flash_attention`:
+pools.  The tensor-core kernel takes a group size G = H / Hkv that
+divides its 32-row tile (a power of two up to 32) and raises otherwise.
+The wrappers follow the contract of :mod:`.flash_attention`:
 CUDA tensors only, checked; outputs and partials from ``torch.empty``;
 launch on the current stream without syncing; raise on a launch error;
 each kernel counts its own launches in ``.launches`` on the function
@@ -40,6 +48,10 @@ from .flash_attention import _DTYPES, HEAD_DIMS, _raise_on, _stream
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+#: query rows of the tensor-core prefill kernel's tile: the G query heads
+#: of a kv head are stacked into it, so G must divide it
+TC_TILE_ROWS = 32
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
@@ -51,8 +63,8 @@ def _lib() -> ctypes.CDLL:
         "repro_paged_decode_split": [_P] * 8 + [_I] * 8 + [_F, _P],
         "repro_paged_decode_split_quant": [_P] * 10 + [_I] * 8 + [_F, _P],
         "repro_split_combine": [_P] * 4 + [_I] * 5 + [_P],
-        "repro_flash_paged_prefill": [_P] * 7 + [_I] * 8 + [_F, _P],
-        "repro_flash_paged_prefill_quant": [_P] * 9 + [_I] * 8 + [_F, _P],
+        "repro_paged_prefill_f32": [_P] * 7 + [_I] * 8 + [_F, _P],
+        "repro_paged_prefill_f32_quant": [_P] * 9 + [_I] * 8 + [_F, _P],
         "repro_paged_prefill_split": [_P] * 9 + [_I] * 9 + [_F, _P],
         "repro_paged_prefill_split_quant": [_P] * 11 + [_I] * 9 + [_F, _P],
     }
@@ -61,6 +73,61 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = _I
     return lib
+
+
+@functools.cache
+def _tc_lib() -> ctypes.CDLL:
+    """The tensor-core prefill library (``csrc/paged_prefill.cu``)."""
+    lib = build.load("paged_prefill")
+    for name, argtypes in (
+            ("repro_flash_paged_prefill", [_P] * 7 + [_I] * 8 + [_F, _P]),
+            ("repro_flash_paged_prefill_quant",
+             [_P] * 9 + [_I] * 8 + [_F, _P]),
+            ("repro_paged_prefill_tc_info", [_I] * 3 + [_P])):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    return lib
+
+
+def check_tc_shape(name: str, h: int, hkv: int, d: int) -> None:
+    """Raise on a shape the tensor-core prefill kernel does not take: a
+    head dim outside :data:`HEAD_DIMS`, or a group size G = H / Hkv that
+    does not divide its 32-row query tile."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    g = h // hkv if hkv and h % hkv == 0 else 0
+    if g < 1 or TC_TILE_ROWS % g:
+        raise ValueError(f"{name}: {h} query heads over {hkv} kv heads: the "
+                         f"group size must divide the {TC_TILE_ROWS}-row "
+                         "query tile of the tensor-core kernel")
+
+
+def _prefill_entry(name: str, q: torch.Tensor, hkv: int, quant: bool):
+    """The C entry of K4 (K6c with ``quant``) for q's type, and the name
+    of the kernel it launches: the tensor-core kernel for bfloat16 (its
+    shape checked), the SIMT template for float32."""
+    if q.dtype == torch.bfloat16:
+        check_tc_shape(name, q.shape[1], hkv, q.shape[3])
+        lib, entry = _tc_lib(), "repro_flash_paged_prefill"
+        kernel = "paged_prefill_tc_kernel"
+    else:
+        lib, entry = _lib(), "repro_paged_prefill_f32"
+        kernel = "paged_prefill_kernel"
+    return getattr(lib, entry + ("_quant" if quant else "")), kernel
+
+
+def tc_info(d: int, quant: bool, nblk: int = 0) -> dict[str, int]:
+    """What the card makes of the tensor-core prefill instance for head
+    dim ``d`` over bf16 (or int8) pools: registers per thread, local
+    (spill) bytes, dynamic shared memory at ``nblk`` table entries, and
+    resident blocks per SM.  Needs the card."""
+    out = (ctypes.c_int * 4)()
+    err = _tc_lib().repro_paged_prefill_tc_info(d, int(quant), nblk,
+                                                ctypes.addressof(out))
+    _raise_on("tc_info", err)
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), out))
 
 
 def _check(name: str, q: torch.Tensor, k_pool: torch.Tensor,
@@ -347,7 +414,9 @@ def flash_paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
     """Paged chunked prefill: q (B, H, C, D), pools (P, Hkv, psz, D),
     page_table (B, nblk), start and kv_len (B,) int32 on q's device.
     Output like q; rows at positions ``>= kv_len`` are padding.
-    ``num_splits`` (clamped to nblk) above 1 runs K5b + K5c, else K4."""
+    ``num_splits`` (clamped to nblk) above 1 runs K5b + K5c, else K4: on
+    the tensor cores for a bfloat16 q (G = H / Hkv must divide 32), the
+    SIMT template for float32."""
     ns = _num_splits(num_splits, page_table.shape[-1])
     if ns > 1:              # K5b checks its inputs
         m, l, acc = paged_prefill_split(q, k_pool, v_pool, page_table, start,
@@ -356,15 +425,16 @@ def flash_paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
     _check("flash_paged_prefill", q, k_pool, v_pool, page_table,
            (start, kv_len))
     b, h, hkv, c, psz, d, scale = _prefill_shape(q, k_pool, scale)
+    fn, kernel = _prefill_entry("flash_paged_prefill", q, hkv, quant=False)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _lib().repro_flash_paged_prefill(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), start.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), b, h, hkv, c, psz, page_table.shape[1], d,
-            _DTYPES[q.dtype], scale, _stream(q))
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 page_table.data_ptr(), start.data_ptr(), kv_len.data_ptr(),
+                 out.data_ptr(), b, h, hkv, c, psz, page_table.shape[1], d,
+                 _DTYPES[q.dtype], scale, _stream(q))
     _raise_on("flash_paged_prefill", err)
     flash_paged_prefill.launches += 1
+    flash_paged_prefill.last_kernel = kernel
     return out
 
 
@@ -375,8 +445,9 @@ def flash_paged_prefill_quant(q: torch.Tensor, k_pool: torch.Tensor,
                               scale: float | None = None,
                               num_splits: int | None = None) -> torch.Tensor:
     """:func:`flash_paged_prefill` over int8 pools with float32 per-row
-    scales (P, Hkv, psz); q float32 or bfloat16, output like q.  K6c, or
-    K6d + K5c for ``num_splits`` above 1."""
+    scales (P, Hkv, psz); q float32 or bfloat16, output like q.  K6c (on
+    the tensor cores for bfloat16, as K4), or K6d + K5c for
+    ``num_splits`` above 1."""
     ns = _num_splits(num_splits, page_table.shape[-1])
     if ns > 1:              # K6d checks its inputs
         m, l, acc = paged_prefill_split_quant(q, k_pool, v_pool, k_scale,
@@ -386,16 +457,18 @@ def flash_paged_prefill_quant(q: torch.Tensor, k_pool: torch.Tensor,
     _check("flash_paged_prefill_quant", q, k_pool, v_pool, page_table,
            (start, kv_len), (k_scale, v_scale))
     b, h, hkv, c, psz, d, scale = _prefill_shape(q, k_pool, scale)
+    fn, kernel = _prefill_entry("flash_paged_prefill_quant", q, hkv,
+                                quant=True)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _lib().repro_flash_paged_prefill_quant(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-            start.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, h, hkv,
-            c, psz, page_table.shape[1], d, _DTYPES[q.dtype], scale,
-            _stream(q))
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
+                 start.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, h,
+                 hkv, c, psz, page_table.shape[1], d, _DTYPES[q.dtype], scale,
+                 _stream(q))
     _raise_on("flash_paged_prefill_quant", err)
     flash_paged_prefill_quant.launches += 1
+    flash_paged_prefill_quant.last_kernel = kernel
     return out
 
 
@@ -407,3 +480,4 @@ KERNELS = (flash_paged_decode, paged_decode_split, split_combine,
            paged_prefill_split, paged_prefill_split_quant)
 for _kernel in KERNELS:
     _kernel.launches = 0
+flash_paged_prefill.last_kernel = flash_paged_prefill_quant.last_kernel = None

@@ -169,6 +169,9 @@ def test_paged_prefill_kernel_matches_plain(cuda_device, dtype, h, hkv, d,
     want = ref.paged_prefill_ref(q, kp, vp, table, starts, lens)
     torch.cuda.synchronize()
     assert pa.flash_paged_prefill.launches == n + 1
+    assert pa.flash_paged_prefill.last_kernel == (
+        "paged_prefill_tc_kernel" if dtype == torch.bfloat16
+        else "paged_prefill_kernel")
     close(got[:, :, :valid], want[:, :, :valid], dtype)
 
 
@@ -301,6 +304,9 @@ def test_int8_prefill_kernel_matches_plain(cuda_device, dtype, h, hkv, d, psz,
                                  v_scale=vs)
     torch.cuda.synchronize()
     assert pa.flash_paged_prefill_quant.launches == n + 1
+    assert pa.flash_paged_prefill_quant.last_kernel == (
+        "paged_prefill_tc_kernel" if dtype == torch.bfloat16
+        else "paged_prefill_kernel")
     close(got[:, :, :valid], want[:, :, :valid], dtype)
 
 
@@ -709,3 +715,107 @@ def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                                        torch.float32)
     with pytest.raises(RuntimeError, match="launch failed"):
         k9.selective_scan(x1, dt1, a1, b1, c1, d1, chunk=4096)
+
+
+# --------------------------------------------------------------------------
+# K4 / K6c with a bf16 query: the tensor-core kernel (csrc/paged_prefill.cu)
+# --------------------------------------------------------------------------
+
+TC_KERNEL = "paged_prefill_tc_kernel"
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("psz", [8, 16, 32])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("h,hkv", [(32, 32), (32, 4), (8, 2), (32, 1)])
+def test_tc_prefill_kernel_matches_plain(cuda_device, h, hkv, d, psz, quant):
+    """G 1, 8, 4 and 32 (one chunk row a tile); for each chunk size C (5, 8, 44, 128, 200) three
+    lanes: a chunk whose start falls mid-page, a ragged chunk at 0 (its
+    last key tile part-filled) and an idle lane (kv_len 0) that must come
+    out exactly 0.  One launch of the tensor-core kernel per call."""
+    for i, c in enumerate((5, 8, 44, 128, 200)):
+        start = 3 * psz + psz // 2 + i
+        valid = [c, max(1, c - 3), 0]
+        kv_len = [start + c, valid[1], 0]
+        nblk = -(-(start + c) // psz)
+        q, kp, vp, table, lens = paged_inputs(
+            3, h, hkv, d, psz, nblk, kv_len, torch.bfloat16, cuda_device,
+            200 + d + psz + c, c=c)
+        starts = torch.tensor([start, 0, 0], dtype=torch.int32,
+                              device=cuda_device)
+        if quant:
+            (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+            pools = ops.PagedPools(k8, v8, ks, vs)
+            kernel = pa.flash_paged_prefill_quant
+        else:
+            pools = ops.PagedPools(kp, vp)
+            kernel = pa.flash_paged_prefill
+        n = kernel.launches
+        got = ops.paged_prefill(q, pools, table, starts, lens)
+        want = ref.paged_prefill_ref(q, pools.k, pools.v, table, starts, lens,
+                                     k_scale=pools.k_scale,
+                                     v_scale=pools.v_scale)
+        torch.cuda.synchronize()
+        assert kernel.launches == n + 1
+        assert kernel.last_kernel == TC_KERNEL
+        assert got.dtype == torch.bfloat16
+        for lane, v in enumerate(valid[:2]):
+            close(got[lane, :, :v], want[lane, :, :v], torch.bfloat16)
+        assert torch.all(got[2] == 0)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_tc_prefill_kernel_at_the_verify_shape(cuda_device, quant):
+    """yi-6b verify chunks of 5 at four lanes' ends and an idle lane,
+    ``num_splits=1``: the tensor-core kernel, the idle lane exactly 0."""
+    starts = [839, 720, 190, 544, 0]
+    kv_len = [s + 5 for s in starts[:4]] + [0]
+    q, kp, vp, table, lens = paged_inputs(5, 32, 4, 128, 16, 64, kv_len,
+                                          torch.bfloat16, cuda_device, 300,
+                                          c=5)
+    start = torch.tensor(starts, dtype=torch.int32, device=cuda_device)
+    pools = ops.PagedPools(kp, vp)
+    if quant:
+        (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+        pools = ops.PagedPools(k8, v8, ks, vs)
+    kernel = pa.flash_paged_prefill_quant if quant else pa.flash_paged_prefill
+    n = kernel.launches
+    got = ops.paged_verify(q, pools, table, start, lens, num_splits=1)
+    torch.cuda.synchronize()
+    assert kernel.launches == n + 1 and kernel.last_kernel == TC_KERNEL
+    assert torch.all(got[4] == 0)
+    close(got[:4], ref.paged_prefill_ref(q, pools.k, pools.v, table, start,
+                                         lens, k_scale=pools.k_scale,
+                                         v_scale=pools.v_scale)[:4],
+          torch.bfloat16)
+
+
+def test_tc_prefill_wrappers_reject_group_sizes_the_tile_does_not_take(
+        cuda_device):
+    """G = H / Hkv must divide the 32-row query tile (G 3 does not); the
+    float32 query of the same shape goes to the SIMT template instead."""
+    q, kp, vp, table, lens = paged_inputs(1, 12, 4, 64, 8, 2, [9],
+                                          torch.bfloat16, cuda_device, 310,
+                                          c=4)
+    start = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="group size"):
+        pa.flash_paged_prefill(q, kp, vp, table, start, lens)
+    (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+    with pytest.raises(ValueError, match="group size"):
+        pa.flash_paged_prefill_quant(q, k8, v8, ks, vs, table, start, lens)
+    out = pa.flash_paged_prefill(q.float(), kp.float(), vp.float(), table,
+                                 start, lens)
+    assert pa.flash_paged_prefill.last_kernel == "paged_prefill_kernel"
+    close(out, ref.paged_prefill_ref(q.float(), kp.float(), vp.float(),
+                                     table, start, lens), torch.float32)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_tc_prefill_instances_fit_the_card(cuda_device, d, quant):
+    """Every instance fits one block per SM at a 64-entry table, and
+    builds without spilling at the main path's width (D 128)."""
+    info = pa.tc_info(d, quant, 64)
+    assert info["blocks_per_sm"] >= 1
+    if d == 128:
+        assert info["local_bytes"] == 0
