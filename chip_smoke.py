@@ -6,19 +6,23 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
-   all in parallel; the tensor-core prefill kernel's instances
-   (``paged_prefill.cu``) with their registers and spills from the
+   all in parallel; the instances of the tensor-core kernels (K1 in
+   ``flash_attention.cu``; K4, K6c and K5b's partials mode in
+   ``paged_prefill.cu``) with their registers and spills from the
    ``-Xptxas -v`` log, their shared memory and resident blocks per SM;
 3. K1 ``flash_attention`` against its plain version at the prefill shapes
-   of yi-6b and deepseek-7b and a few edge shapes, with its time, bound,
-   plain time and the time of torch's SDPA on the same inputs;
+   of yi-6b (G=8) and deepseek-7b (G=1), at G=3 and G=2 and a few edge
+   shapes (S=300, a window, non-causal): bf16 on the tensor-core kernel,
+   float32 on the SIMT template; with its time at the yi-6b prefill,
+   bound, plain time and the time of torch's SDPA on the same inputs;
 4. K2 ``flash_decode`` likewise at the decode shapes, plus a
    ``kv_len == 0`` row that must come out exactly 0;
 5. serve: ``serve_config`` on yi-6b at full width (32 layers, d_model
    4096, random weights from a seed), 8 requests over 4 dense lanes;
    every request must finish with 32 tokens, and the kernels' launch
    counters, zeroed just before, must show K1 once per layer per
-   admission, K2 once per layer per decode step, and no K3 or K4;
+   admission (on the tensor-core kernel), K2 once per layer per decode
+   step, and no K3 or K4;
 6. logits: prefill + 4 decode steps at the full config, through the
    kernels and through the plain versions, must agree;
 7. K3 ``flash_paged_decode`` against its plain version at the paged
@@ -28,9 +32,7 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 8. K4 ``flash_paged_prefill`` likewise at the prefill-chunk shapes (a
    chunk at 0, at 384, starting mid-page, a ragged last chunk): bf16 on
    the tensor-core kernel, float32 on the SIMT template; timed at the
-   main path's chunk and at the verify shape (``num_splits=1``) beside
-   the SIMT template's walk of the same work (K5b with one split + K5c),
-   the plain version, SDPA and the bound;
+   main path's chunk beside the plain version, SDPA and the bound;
 9. paged serve: the same requests through the paged KV pool with chunked
    prefill (chunks of 128, pages of 16); every request must finish with
    32 tokens and the counters must show K4 once per layer per chunk, K3
@@ -58,9 +60,12 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    version (partials and output) and the one-pass plain version at the
    verify shapes of yi-6b and deepseek-7b (4 lanes with chunks of 5 and
    an idle lane with no key, which must come out exactly 0) and at the
-   phase-8 chunk, for 2, 3 and 8 splits; a sweep of the split count at
-   both timing shapes (``num_splits=1`` is K4's own launch), phase 1 and
-   the combine timed apart;
+   phase-8 chunk, for 2, 3 and 8 splits: bf16 on the tensor-core
+   kernel's partials mode, its partials against the split plain version
+   cut at its own tiles, rows without a key in a split exactly (-1e30,
+   0, 0); a sweep of the split count at both timing shapes
+   (``num_splits=1`` is K4's own launch), phase 1 and the combine timed
+   apart, beside SDPA;
 16. K6d + K5c, the same over pools quantized from the phase-15 cases;
 17. serves of yi-6b at full width from the paged pool in chunks of 128:
    (a) speculative, a self-speculative draft of 16 layers proposing 4
@@ -173,7 +178,7 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}   # rtol = atol
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 PREFILL_SOURCE = "src/repro_torch/kernels/csrc/paged_prefill.cu"
-TC_KERNEL = "paged_prefill_tc_kernel"
+TC_KERNEL = pa.TC_KERNEL
 KERNELS = fa.KERNELS + pa.KERNELS + mmk.KERNELS + fk.KERNELS + k9.KERNELS
 FLASH = "src/repro/kernels/flash_attention.py"
 BF16 = torch.bfloat16
@@ -280,45 +285,63 @@ def phase_build() -> None:
                   f"max {max(regs, default=0)}, spill stores "
                   f"{sum(spills)} bytes in {sum(1 for x in spills if x)} "
                   f"kernels (full report in {log.name})")
-    log = paths["paged_prefill"].with_suffix(".log")
-    if log.exists():
+    for source, kernel, pattern, info, n in (
+            ("flash_attention", fa.TC_KERNEL, r"ILi(?P<d>\d+)EE",
+             lambda d, kind: fa.tc_info(d), 4),
+            ("paged_prefill", TC_KERNEL,
+             r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELb(?P<split>[01])EE",
+             lambda d, kind: pa.tc_info(d, kind, 64), 12)):
+        log = paths[source].with_suffix(".log")
+        if not log.exists():
+            continue
         lines = []
-        for kind, d, regs, spill in tc_instances(log.read_text()):
-            info = pa.tc_info(d, kind == "int8", 64)
-            lines.append(f"{kind} D={d}: {regs} registers, "
-                         f"{spill} B spill stores, {info['smem_bytes']} B "
-                         f"shared at 64 table entries, "
-                         f"{info['blocks_per_sm']} block(s)/SM")
-        check(len(lines) == 8, f"{len(lines)} tensor-core prefill "
-              "instances in the ptxas log, expected 8")
-        print(f"    {TC_KERNEL} instances (ptxas -v and the card's "
+        for kind, d, regs, spill in tc_instances(log.read_text(), kernel,
+                                                 pattern):
+            card = info(d, kind)
+            lines.append(f"{kind + ' ' if kind else ''}D={d}: {regs} "
+                         f"registers, {spill} B spill stores, "
+                         f"{card['smem_bytes']} B shared"
+                         + (" at 64 table entries" if kind else "")
+                         + f", {card['blocks_per_sm']} block(s)/SM")
+        check(len(lines) == n, f"{len(lines)} {kernel} instances in the "
+              f"ptxas log, expected {n}")
+        print(f"    {kernel} instances (ptxas -v and the card's "
               f"occupancy): " + "; ".join(lines))
 
 
-def tc_instances(log: str) -> list[tuple[str, int, int, int]]:
-    """(pool type, D, registers, spill-store bytes) of every
-    instance of the tensor-core prefill kernel in an ``-Xptxas -v`` log."""
+def tc_instances(log: str, kernel: str,
+                 pattern: str) -> list[tuple[str, int, int, int]]:
+    """(kind, D, registers, spill-store bytes) of every instance of a
+    tensor-core kernel in an ``-Xptxas -v`` log.  ``pattern`` matches the
+    template arguments of its mangled name: the head dim ``d`` and, for
+    the paged prefill kernel, ``int8`` pools and the ``split`` flag, whose
+    kind is then one of ``pa.TC_KINDS``; K1's kind is empty."""
     out = []
     for chunk in log.split("Compiling entry function")[1:]:
-        m = re.search(TC_KERNEL + r"I(13__nv_bfloat16|a)Li(\d+)EE",
-                      chunk.split("\n", 1)[0])
+        m = re.search(kernel + pattern, chunk.split("\n", 1)[0])
         if not m:
             continue
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
-        out.append(("int8" if m.group(1) == "a" else "bf16", int(m.group(2)),
-                    int(regs.group(1)) if regs else -1,
+        args = m.groupdict()
+        kind = ("" if "split" not in args else "int8" if args["int8"]
+                else "bf16 split" if args["split"] == "1" else "bf16")
+        out.append((kind, int(args["d"]), int(regs.group(1)) if regs else -1,
                     int(spill.group(1)) if spill else 0))
     return out
 
 
 def phase_k1() -> dict:
     # (label, B, H, Hkv, S, D, dtype, causal, window)
-    cases = [("yi-6b prefill", 1, 32, 4, 512, 128, BF16, True, None),
-             ("deepseek-7b prefill", 1, 32, 32, 512, 128, BF16, True, None),
+    cases = [("yi-6b prefill (G=8)", 1, 32, 4, 512, 128, BF16, True, None),
+             ("deepseek-7b prefill (G=1)", 1, 32, 32, 512, 128, BF16, True,
+              None),
+             ("G=3 (24 q / 8 kv heads)", 1, 24, 8, 512, 128, BF16, True, None),
              ("S=300", 1, 32, 4, 300, 128, BF16, True, None),
              ("window=64", 1, 32, 4, 512, 128, BF16, True, 64),
              ("non-causal", 1, 32, 4, 512, 128, BF16, False, None),
+             ("G=2 D=64 S=200 non-causal window=32", 2, 8, 4, 200, 64, BF16,
+              False, 32),
              ("fp32 reduced", 2, 4, 2, 100, 16, torch.float32, True, None)]
     errs = []
     for i, (label, b, h, hkv, s, d, dtype, causal, window) in enumerate(cases):
@@ -328,9 +351,13 @@ def phase_k1() -> dict:
         err = compare(fa.flash_attention(q, k, v, causal=causal, window=window),
                       ref.attention_ref(q, k, v, causal=causal, window=window),
                       dtype)
+        check(fa.flash_attention.last_kernel
+              == (fa.TC_KERNEL if dtype == BF16 else "flash_attention_kernel"),
+              f"K1 {label}: launched {fa.flash_attention.last_kernel}")
         errs.append(f"{label} {err:.2e}")
     print(f"[3 K1 flash_attention] max abs err vs plain (tol bf16 "
-          f"{TOL[BF16]}, fp32 {TOL[torch.float32]}): " + "; ".join(errs))
+          f"{TOL[BF16]}, fp32 {TOL[torch.float32]}; bf16 on "
+          f"{fa.TC_KERNEL}, fp32 on the SIMT template): " + "; ".join(errs))
 
     # timing at the main path's shape: a yi-6b prefill of 512 tokens
     b, h, hkv, s, d = 1, 32, 4, 512, 128
@@ -347,7 +374,8 @@ def phase_k1() -> dict:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True))}
     print(f"[3 K1 flash_attention] yi-6b prefill B=1 H=32 Hkv=4 S=512 D=128 "
-          f"bf16, device ms (ms per call incl. host): "
+          f"bf16 causal on {fa.TC_KERNEL}, device ms (ms per call incl. "
+          f"host): "
           + ", ".join(f"{k} {d:.4f} ({c:.4f})" for k, (d, c) in times.items())
           + f", bound {bound_ms:.4f} ms ({bound_by})")
     return {"name": "flash_attention", "route": "cuda", "source": SOURCE,
@@ -424,8 +452,10 @@ def serve_with_counts(engine: ServingEngine | None = None,
     zeroed just before and read just after."""
     for kernel in KERNELS:
         kernel.launches = 0
+    fa.flash_attention.last_kernel = None
     pa.flash_paged_prefill.last_kernel = None
     pa.flash_paged_prefill_quant.last_kernel = None
+    pa.paged_prefill_split.last_kernel = None
     scfg = ServeConfig(**{**SERVE, **kw})
     report = (serve_config(scfg) if engine is None
               else serve_engine(engine, scfg))
@@ -447,6 +477,8 @@ def phase_serve(smi: str) -> tuple[dict, dict[str, int]]:
     check(launches["flash_attention"] == n_layers * n_requests,
           f"K1 launched {launches['flash_attention']} times, expected "
           f"{n_layers * n_requests} (one per layer per admission)")
+    check(fa.flash_attention.last_kernel == fa.TC_KERNEL,
+          f"the dense serve's K1 ran {fa.flash_attention.last_kernel}")
     check(launches["flash_decode"] == n_layers * report["decode_steps"],
           f"K2 launched {launches['flash_decode']} times, expected "
           f"{n_layers} x {report['decode_steps']} decode steps")
@@ -625,18 +657,13 @@ def phase_k4() -> dict:
         "library_ms": time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k_dense, v_dense, attn_mask=causal, enable_gqa=True))}
-    simt = time_ms(lambda: simt_walk(q, kp, vp, table, starts, lens))
     print(f"[8 K4 flash_paged_prefill] yi-6b B=1 H=32 Hkv=4 C=128 D=128 "
           f"psz=16 bf16 start=384 kv_len=512 ({pairs} causal pairs per "
           f"head, 32-row query tiles), device ms (ms "
           f"per call incl. host): "
           + ", ".join(f"{k} {d:.4f} ({c:.4f})" for k, (d, c) in times.items())
-          + f", bound {bound_ms:.5f} ms ({bound_by}); before: the SIMT "
-          f"template's walk (K5b, one split, + K5c) {simt[0]:.4f} "
-          f"({simt[1]:.4f}); library = SDPA with the causal mask on the "
-          f"pre-gathered dense K/V (gather not timed)")
-    print(f"[8 K4 flash_paged_prefill] verify shape, num_splits=1, device "
-          f"ms: " + verify_one_pass(False))
+          + f", bound {bound_ms:.5f} ms ({bound_by}); library = SDPA with "
+          f"the causal mask on the pre-gathered dense K/V (gather not timed)")
     return {"name": "flash_paged_prefill", "route": "cuda",
             "source": PREFILL_SOURCE,
             "replaces": "src/repro/kernels/flash_attention.py:668",
@@ -644,36 +671,31 @@ def phase_k4() -> dict:
             **{k: d for k, (d, _) in times.items()}}
 
 
-def simt_walk(q, k_pool, v_pool, table, start, kv_len, k_scale=None,
-              v_scale=None) -> torch.Tensor:
-    """The one-pass chunk through the SIMT template that the tensor-core
-    kernel replaced for bf16: K5b (K6d) with one split, then K5c."""
-    if k_scale is None:
-        parts = pa.paged_prefill_split(q, k_pool, v_pool, table, start,
-                                       kv_len, 1)
-    else:
-        parts = pa.paged_prefill_split_quant(q, k_pool, v_pool, k_scale,
-                                             v_scale, table, start, kv_len, 1)
+def simt_walk(q, k8, v8, k_scale, v_scale, table, start,
+              kv_len) -> torch.Tensor:
+    """The one-pass int8 chunk through the SIMT template that the
+    tensor-core K6c replaced: K6d with one split, then K5c."""
+    parts = pa.paged_prefill_split_quant(q, k8, v8, k_scale, v_scale, table,
+                                         start, kv_len, 1)
     return pa.split_combine(*parts, q.dtype)
 
 
-def verify_one_pass(quant: bool) -> str:
-    """K4 (K6c) at phase 15's verify shape with ``num_splits=1``, beside
-    the SIMT template's walk; both checked against plain first."""
-    q, pools, table, start, lens = split_case(VERIFY_SHAPE, 650, quant)
-    sc = (pools.k_scale, pools.v_scale) if quant else ()
-    one_pass = pa.flash_paged_prefill_quant if quant else pa.flash_paged_prefill
-    args = (q, pools.k, pools.v, *sc, table, start, lens)
+def verify_one_pass() -> str:
+    """K6c at phase 15's verify shape with ``num_splits=1``, beside
+    :func:`simt_walk`; both checked against plain first."""
+    q, pools, table, start, lens = split_case(VERIFY_SHAPE, 650, True)
+    args = (q, pools.k, pools.v, pools.k_scale, pools.v_scale, table, start,
+            lens)
     live = [b for b, v in enumerate(VERIFY_SHAPE[7]) if v]
     want = ref.paged_prefill_ref(q, pools.k, pools.v, table, start, lens,
                                  k_scale=pools.k_scale, v_scale=pools.v_scale)
-    walk = (q, pools.k, pools.v, table, start, lens, *sc)
-    for got in (one_pass(*args, num_splits=1), simt_walk(*walk)):
+    k6c = pa.flash_paged_prefill_quant
+    for got in (k6c(*args, num_splits=1), simt_walk(*args)):
         compare(got[live], want[live], BF16)
-    new = time_ms(lambda: one_pass(*args, num_splits=1))
-    old = time_ms(lambda: simt_walk(*walk))
-    return (f"{'K6c' if quant else 'K4'} {new[0]:.4f} ({new[1]:.4f}) against "
-            f"the SIMT template's walk {old[0]:.4f} ({old[1]:.4f})")
+    new = time_ms(lambda: k6c(*args, num_splits=1))
+    old = time_ms(lambda: simt_walk(*args))
+    return (f"K6c {new[0]:.4f} ({new[1]:.4f}) against the SIMT template's "
+            f"walk {old[0]:.4f} ({old[1]:.4f})")
 
 
 def greedy_agreement(report: dict, other: dict) -> str:
@@ -769,9 +791,10 @@ def check_logits(plain: torch.Tensor, kern: torch.Tensor, vocab: int,
     Tolerance: both paths take the same bf16 inputs (int8 pages: the same
     codes and scales) and round the attention output to bf16.  The plain
     versions compute in float32; the kernels sum in float32 too, but the
-    prefill chunk with a bf16 query (K4, K6c on the tensor cores) also
-    rounds P (for int8 pages P times the value scale) to bf16 before P.V,
-    which moves an output by at most 2^-9 of the largest |v|.  So they
+    tensor-core kernels (K1, K4, K5b and K6c with a bf16 query) also
+    round P (for int8 pages P times the value scale) to bf16 before P.V,
+    which moves an output by at most 2^-8 (bf16's unit roundoff) of the
+    largest |v|.  So they
     differ by about an ulp of bf16 (2^-8 relative) per attention output
     element, and 32 layers of bf16 matmuls carry that into the logits.
     The check allows 5e-2 of the logits' own scale (their max magnitude),
@@ -1046,7 +1069,7 @@ def phase_k6() -> list[dict]:
            "library_ms": time_ms(
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    q, k_dense, v_dense, attn_mask=causal, enable_gqa=True))}
-    simt = time_ms(lambda: simt_walk(q, k8, v8, table, starts, lens, ks, vs))
+    simt = time_ms(lambda: simt_walk(q, k8, v8, ks, vs, table, starts, lens))
     n_bytes = 2 * 2 * q.numel() + 2 * kv * hkv * (d + 4) + 4 * (kv // psz + 2)
     rows.append(row("flash_paged_prefill_quant", PREFILL_SOURCE,
                     f"{FLASH}:1186", err, n_bytes, 4 * h * pairs * d, k6c))
@@ -1058,7 +1081,7 @@ def phase_k6() -> list[dict]:
           f"({simt[1]:.4f}); library = SDPA on the pre-gathered, "
           f"pre-dequantized bf16 K/V (gather and dequant not timed)")
     print(f"[12 K6 int8 pages] verify shape, num_splits=1, device ms: "
-          + verify_one_pass(True))
+          + verify_one_pass())
     return rows
 
 
@@ -1161,28 +1184,76 @@ def split_case(case, seed: int, quant: bool):
     return q, ops.PagedPools(kp, vp), table, start, lens
 
 
+def compare_partials(got, want, acc_abs=None) -> tuple[float, float]:
+    """(max abs error, acc's worst ratio to the bf16 tolerance) of split
+    partials (m, l, acc) against the plain version's cut at the same
+    partition.  The SIMT template's are fp32 sums of the same
+    fp32-converted inputs: all three at the fp32 tolerance.  The
+    tensor-core partials mode (``acc_abs`` given: the plain acc over |v|,
+    sum_j p_j |v_j|) rounds P to bf16 for P.V: m and l at the fp32
+    tolerance, acc within what P's rounding can move it by, 2^-8 sum_j
+    p_j |v_j|, plus 2e-4 (1 + |acc|) for fp32 sums taken in another
+    order.  The ratio of acc's error to the bf16 tolerance, 2e-2 + 2e-2
+    |acc|, is returned for the record: where acc's terms cancel, P's
+    roundings add up to more.  Either way a row that saw no key of a
+    split must be exactly (-1e30, 0, 0)."""
+    (gm, gl, gacc), (m, l, acc) = got, want
+    err = max(compare(gm, m, torch.float32), compare(gl, l, torch.float32))
+    ratio = 0.0
+    if acc_abs is not None:
+        acc_err = (gacc - acc).abs()
+        bound = 2.0 ** -8 * acc_abs + 2e-4 * (1 + acc.abs())
+        check(bool(torch.isfinite(gacc).all() and (acc_err <= bound).all()),
+              "acc moved by more than P's bf16 rounding allows")
+        err = max(err, float(acc_err.max()))
+        ratio = float((acc_err / (TOL[BF16] * (1 + acc.abs()))).max())
+    else:
+        err = max(err, compare(gacc, acc, torch.float32))
+    empty = m == ref.NEG_INF
+    check(bool((gm[empty] == ref.NEG_INF).all() and (gl[empty] == 0).all()
+               and (gacc[empty] == 0).all()),
+          "a row that saw no key of its split is not exactly (-1e30, 0, 0)")
+    return err, ratio
+
+
 def split_phase(quant: bool) -> tuple[dict, dict]:
     """Checks of K5b (or K6d) + K5c against the plain versions over the
-    split cases; returns the verify-shape and chunk-shape timings."""
+    split cases; returns the verify-shape and chunk-shape timings.  The
+    bf16 K5b is the tensor-core kernel's partials mode: its partials are
+    held to the plain version cut at its own tiles (32 // G chunk rows,
+    128 keys); the SIMT template's (fp32 K5b, K6d) at 64 rows, 32 keys."""
     kernel = pa.paged_prefill_split_quant if quant else pa.paged_prefill_split
     one_pass = pa.flash_paged_prefill_quant if quant else pa.flash_paged_prefill
-    errs = []
+    errs, out_errs, ratio = [], [], 0.0
     for i, case in enumerate(SPLIT_CASES):
-        label, *_, valid, c, dtype = case
+        label, h, hkv, *_, valid, c, dtype = case
         q, pools, table, start, lens = split_case(case, 600 + 10 * i, quant)
         sc = (pools.k_scale, pools.v_scale) if quant else ()
         kw = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
+        tc = dtype == BF16 and not quant
+        if tc:
+            kw.update(block_q=pa.TC_TILE_ROWS // (h // hkv),
+                      block_k=pa.TC_TILE_KEYS)
         args = (q, pools.k, pools.v, *sc, table, start, lens)
         plain = ref.paged_prefill_ref(q, pools.k, pools.v, table, start, lens,
-                                      **kw)
+                                      k_scale=pools.k_scale,
+                                      v_scale=pools.v_scale)
         for ns in (2, 3, 8):
             got = one_pass(*args, num_splits=ns)
             want, parts = ref.paged_prefill_split_ref(
                 q, pools.k, pools.v, table, start, lens, ns, **kw)
-            # the partials are fp32 sums of the same fp32-converted inputs
-            # on both sides, so they are held to the fp32 tolerance
-            err = max(compare(got_p, want_p, torch.float32)
-                      for got_p, want_p in zip(kernel(*args, ns), parts))
+            acc_abs = None
+            if tc:      # sum_j p_j |v_j| of every split
+                _, (_, _, acc_abs) = ref.paged_prefill_split_ref(
+                    q, pools.k, pools.v.float().abs(), table, start, lens,
+                    ns, **kw)
+            err, r = compare_partials(kernel(*args, ns), parts, acc_abs)
+            ratio = max(ratio, r)
+            out_err = 0.0
+            if not quant:
+                check(kernel.last_kernel == (TC_KERNEL if tc
+                                             else "paged_prefill_kernel"),
+                      f"K5b {label}: launched {kernel.last_kernel}")
             for b, v in enumerate(valid):
                 if v == 0:
                     torch.cuda.synchronize()
@@ -1190,14 +1261,23 @@ def split_phase(quant: bool) -> tuple[dict, dict]:
                           f"{label} ns={ns}: a lane with no key is not "
                           "exactly 0")
                     continue
-                err = max(err, compare(got[b, :, :v], want[b, :, :v], dtype),
-                          compare(got[b, :, :v], plain[b, :, :v], dtype))
+                out_err = max(out_err,
+                              compare(got[b, :, :v], want[b, :, :v], dtype),
+                              compare(got[b, :, :v], plain[b, :, :v], dtype))
             errs.append(f"{label} ns={ns} {err:.2e}")
+            out_errs.append(f"{label} ns={ns} {out_err:.2e}")
     name = "K6d" if quant else "K5b"
     print(f"[{16 if quant else 15} {name} split {'int8 ' if quant else ''}"
-          f"prefill/verify] max abs err vs plain, partials and output (tol "
-          f"bf16 {TOL[BF16]}, fp32 {TOL[torch.float32]}): " + "; ".join(errs)
-          + "; idle lanes exactly 0; ns=1 equal to the one-pass kernel")
+          f"prefill/verify] max abs err vs plain (tol bf16 {TOL[BF16]}, "
+          f"fp32 {TOL[torch.float32]}"
+          + ("" if quant else f"; bf16 on {TC_KERNEL}'s partials mode, its "
+             f"partials against the plain version at its own tiles, acc "
+             f"within 2^-8 sum p|v| + 2e-4 (1 + |acc|); its worst error is "
+             f"{ratio:.3f}x the bf16 tolerance 2e-2 (1 + |acc|)")
+          + "): partials (m, l, acc), fp32: " + "; ".join(errs)
+          + "; merged output (K5c): " + "; ".join(out_errs)
+          + "; idle lanes exactly 0; rows without a key in a split exactly "
+          "(-1e30, 0, 0)")
 
     timings = {}
     sweep_ns = (1, 8) if quant else (1, 2, 4, 8, 16)
@@ -1259,7 +1339,7 @@ def split_rows(quant: bool, timings: dict) -> list[dict]:
     want = ref.paged_prefill_ref(q, pools.k, pools.v, table, start, lens,
                                  **kw)
     live = [b for b, v in enumerate(valid) if v]
-    err = compare(got[live], want[live], BF16)
+    err = compare(got[live], want[live], BF16)   # the merged output's
     k_pool, v_pool = pools.k, pools.v
     if quant:
         k_pool = pools.k.to(BF16) * pools.k_scale[..., None].to(BF16)
@@ -1271,7 +1351,10 @@ def split_rows(quant: bool, timings: dict) -> list[dict]:
     mask = ((kj <= qi[..., None]) & (kj < lens[:, None, None]))[:, None]
     times = {"ms": timings[("verify", ns)][0],
              "plain_ms": time_ms(lambda: ref.paged_prefill_split_ref(
-                 q, pools.k, pools.v, table, start, lens, ns, **kw)),
+                 q, pools.k, pools.v, table, start, lens, ns, **kw,
+                 **({} if quant else dict(
+                     block_q=pa.TC_TILE_ROWS // (h // hkv),
+                     block_k=pa.TC_TILE_KEYS)))),
              "library_ms": time_ms(
                  lambda: torch.nn.functional.scaled_dot_product_attention(
                      q, k_dense, v_dense, attn_mask=mask, enable_gqa=True))}
@@ -1280,7 +1363,8 @@ def split_rows(quant: bool, timings: dict) -> list[dict]:
                                 4 if quant else 0, writes_o=False)
     partial_bytes = 4 * len(starts) * h * ns * c * (2 + d)
     name = "paged_prefill_split_quant" if quant else "paged_prefill_split"
-    r = row(name, PAGED_SOURCE, f"{FLASH}:{1239 if quant else 779}", err,
+    r = row(name, PAGED_SOURCE if quant else PREFILL_SOURCE,
+            f"{FLASH}:{1239 if quant else 779}", err,
             n_bytes + partial_bytes, n_ops, times)
     combine = timings[("verify", ns)][1][0]
     k4 = timings.get(("verify", 1))
@@ -1374,6 +1458,11 @@ def phase_spec_prefix_serves(smi: str, paged: dict, int8_reports: dict,
                   f"{launches[kernel.__name__]} times, expected {want}")
         only_launched(launches, (verify, pa.split_combine, prefill,
                                  fa.flash_attention, fa.flash_decode), what)
+        check(fa.flash_attention.last_kernel == fa.TC_KERNEL,
+              f"{what}: the draft's K1 ran {fa.flash_attention.last_kernel}")
+        if verify is pa.paged_prefill_split:
+            check(verify.last_kernel == TC_KERNEL,
+                  f"{what}: K5b ran {verify.last_kernel}")
         if n_draft == n_layers:
             check(spec["accepted_tokens"] > 0,
                   f"{what}: the target as its own draft had no draft "

@@ -2,39 +2,86 @@
 // one-token decode against a dense KV cache (K2).  Plain C interface, bound
 // from Python with ctypes (kernels/flash_attention.py); no PyTorch headers.
 //
-// K1  flash_attention_kernel  replaces the TPU kernel
-//     src/repro/kernels/flash_attention.py: flash_attention / _attn_kernel.
-// K2  flash_decode_kernel     replaces the TPU kernel
+// K1  flash_attention_tc_kernel  (bf16) and flash_attention_kernel (float32)
+//     replace the TPU kernel src/repro/kernels/flash_attention.py:
+//     flash_attention / _attn_kernel.
+// K2  flash_decode_kernel        replaces the TPU kernel
 //     src/repro/kernels/flash_attention.py: flash_decode / _decode_kernel.
 //
-// Semantics kept from the TPU kernels: inputs are upcast to fp32 before
-// every product, the online softmax runs in fp32, masked scores are
-// -1e30 (not -inf), fully masked key tiles are skipped, and a row whose
-// denominator is 0 (no key visible, e.g. kv_len == 0 in K2) yields exactly
-// 0.  GQA maps query head h to kv head h / (H / Hkv).
+// Semantics kept from the TPU kernels: the online softmax runs in fp32,
+// masked scores are -1e30 (not -inf), fully masked key tiles are skipped,
+// and a row whose denominator is 0 (no key visible, e.g. kv_len == 0 in
+// K2) yields exactly 0.  GQA maps query head h to kv head h / (H / Hkv),
+// for any H % Hkv == 0.  The float32 kernels take every product in fp32;
+// the bf16 K1 takes Q.K^T and P.V as bf16 products summed in fp32, so its
+// one rounding the plain fp32 version does not make is P to bf16 before
+// P.V: at most 2^-8 (bf16's unit roundoff) of max |v| on an output (the
+// row sums l come from the fp32 P).
 //
-// What bounds them on an H100.  K1 at a prefill of 512 tokens and K2 at
-// every decode step are both memory-bound at their minimum: K2 must read
-// B*Hkv*kv_len*D*2 (K and V) elements once per step, and K1 reads Q, K, V
-// once.  These first versions are plain SIMT fp32 code, right before fast:
-//  * K1: one block of 4 warps per (batch, head, 64-row query tile); K/V
-//    tiles of 32 keys staged in shared memory as fp32 (lane j of a warp
-//    owns key j of the tile, so the row max and sum are warp shuffles);
-//    each warp owns 16 query rows and keeps their output rows in registers.
-//    The Q tile and one K/V tile need 72 KB at D=128, above the 48 KB
-//    static limit, so the kernel takes dynamic shared memory.
+// What bounds them on an H100.  K1 at a yi-6b prefill of 512 tokens (H 32,
+// Hkv 4, D 128, causal) must read Q, K, V and write O once, 9.4 MB: 2.8 us
+// at 3.35 TB/s; its 2.2 GFLOP of causal QK^T and P.V take 2.2 us at 989
+// TFLOP/s.  Both are microseconds, so what the kernel pays is latency and
+// balance.  K2 at every decode step is memory-bound: it must read
+// B*Hkv*kv_len*D*2 (K and V) elements once per step.
+//  * K1 bf16 (flash_attention_tc_kernel), the tensor-core design of
+//    paged_prefill.cu on dense K/V, in place of a SIMT kernel that ran at
+//    73x its bound and 11x torch's SDPA:
+//     - Q.K^T and P.V are mma.sync.m16n8k16 bf16 with fp32 accumulators,
+//       fed by ldmatrix (.trans for V) from shared rows padded by 16 bytes
+//       (conflict-free); S and the online softmax stay in fp32 registers
+//       (exp2 of scores scaled by scale * log2 e, row max by quad
+//       shuffles); P is packed to bf16 in registers as the A operand of
+//       P.V;
+//     - one block of 4 warps per (batch, head, 64-row query tile), each
+//       warp a 16-row slab walking every live 64-key tile; a warp skips a
+//       tile none of whose keys its slab sees (the diagonal, the window's
+//       edge).  A row that has seen no visible key yet keeps m = -1e30
+//       and subtracts 0, so its masked keys weigh 0, not 1: the window can
+//       hide a whole tile from some rows of a slab whose other rows see it;
+//     - K/V tiles arrive by 16-byte cp.async copies into a ring of 2
+//       stages (tile t + 1 in flight while tile t is multiplied; keys past
+//       S zero-filled, masked); Q's fragments are loaded once a block.
+//       At D=128 that is 87 KB of shared memory and ~210 registers a
+//       thread, 2 blocks and 8 warps an SM: at S=512, H=32 the 256 blocks
+//       fit in one wave on 132 SMs;
+//     - K/V are contiguous per kv head, so there is no GQA fold: the G
+//       query heads of a kv head are G blocks that read the same K/V
+//       rows, from L2 after the first (one head's K and V at S=512 are
+//       256 KB), and any G works (phi4-mini's G = 3 too);
+//     - the causal walk is unbalanced (query tile i walks i + 1 key
+//       tiles), so blockIdx.x runs over query tiles in reverse: the heavy
+//       tiles start first, as in FlashAttention-2.
+//    Measured against variants of the block (8 warps in 2 key groups as
+//    K4 has, 128-row tiles, 32- and 128-key tiles, 3 and 4 stages, Q
+//    read from shared memory at each tile), this shape was the fastest at
+//    every size timed.  Taking parts out in turn at S=512, the products,
+//    the K/V copies and the rest (the launch, Q's read, the softmax, the
+//    store) each take about a third of the kernel's time; the copies'
+//    third stays whatever the ring's depth (each 64-row tile copies its
+//    kv head's causal prefix again, ~38 MB from L2 in all; 128-row tiles
+//    halve that but fit one block of 8 warps an SM and were no faster),
+//    and torch's SDPA pulls further ahead as the work grows.  Left for
+//    later: wgmma, whose warpgroup tiles take their operands from shared
+//    memory, so a block can hold more rows per copied key tile, and TMA.
+//  * K1 float32 (flash_attention_kernel): SIMT fp32, one block of 4 warps
+//    per (batch, head, 64-row query tile); K/V tiles of 32 keys staged in
+//    shared memory as fp32 (lane j of a warp owns key j of the tile, so
+//    the row max and sum are warp shuffles); each warp owns 16 query rows
+//    and keeps their output rows in registers.  A TF32 product would break
+//    the fp32 tolerance.
 //  * K2: one block of 8 warps per (batch, kv head) holding the G grouped
 //    query rows (the same fold as the TPU kernel), so each K/V element is
 //    read from device memory once for all G rows (a group of more than 8
 //    rows is split into blocks of 8, 4 or 2 along blockIdx.y).  The warps
 //    split the cache into interleaved 32-key tiles up to kv_len[b] only,
 //    each with its own online softmax state, merged at the end by a
-//    max-shift in shared memory.  At 4 lanes of yi-6b that is 16 blocks on 132 SMs:
-//    the card is mostly idle, and split-KV (K5) is where that gets fixed.
-//    Tensor cores (wgmma) and TMA are left for the PRs that make these
-//    kernels fast.
+//    max-shift in shared memory.  At 4 lanes of yi-6b that is 16 blocks on
+//    132 SMs: the card is mostly idle, and split-KV (K5) is where that gets
+//    fixed.  Tensor cores (wgmma) and TMA are left for the PR that makes
+//    this kernel fast.
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -182,6 +229,245 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = lane + 32 * c;
       if (col < D) o[qoff + (size_t)qi * D + col] = from_float<T>(acc[r][c] / denom);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1 on the tensor cores: q (B, H, S, D), k/v (B, Hkv, S, D), o like q,
+// all bf16.  Grid (ceil(S / BM), H, B), query tile gridDim.x - 1 -
+// blockIdx.x; scale_log2 = scale * log2(e), so the softmax runs on exp2.
+// ---------------------------------------------------------------------------
+
+namespace k1tc {
+constexpr int NWARPS = 4;               // one 16-row mma slab each
+constexpr int THREADS = NWARPS * 32;
+constexpr int MIN_BLOCKS = 2;           // resident blocks per SM
+constexpr int BM = 16 * NWARPS;         // query rows per block
+constexpr int BN = 64;                  // keys per K/V tile
+constexpr int STAGES = 2;               // ring of K/V tiles in flight
+
+// Dynamic shared memory of one block: the Q tile and the ring of K and V
+// tiles, bf16 rows of D + 8 elements.
+template <int D>
+struct Smem {
+  static constexpr int ROW = D + 8;
+  static constexpr size_t q_bytes = (size_t)BM * ROW * 2;
+  static constexpr size_t stage_bytes = (size_t)BN * ROW * 2;
+  static constexpr size_t k_off = q_bytes;
+  static constexpr size_t v_off = k_off + STAGES * stage_bytes;
+  static constexpr size_t bytes = v_off + STAGES * stage_bytes;
+};
+}  // namespace k1tc
+
+template <int D>
+__global__ void __launch_bounds__(k1tc::THREADS, k1tc::MIN_BLOCKS)
+flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          __nv_bfloat16* __restrict__ o, int H, int Hkv,
+                          int S, int causal, int window, float scale_log2) {
+  using namespace k1tc;
+  using L = Smem<D>;
+  constexpr int ROW = L::ROW;
+  constexpr int CPR = D * 2 / 16;   // 16-byte copies per row
+  constexpr int NT = BN / 8;        // 8-key column tiles of S
+  constexpr int DT = D / 8;         // 8-wide column tiles of O
+  constexpr int KT = D / 16;        // 16-deep steps of QK^T
+  static_assert(D % 16 == 0 && BN % 16 == 0, "tile shape");
+
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* k_ring = reinterpret_cast<__nv_bfloat16*>(tc_smem + L::k_off);
+  __nv_bfloat16* v_ring = reinterpret_cast<__nv_bfloat16*>(tc_smem + L::v_off);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // heavy tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const __nv_bfloat16* qh = q + ((size_t)b * H + h) * S * D;
+  const size_t kv_off = ((size_t)b * Hkv + h / (H / Hkv)) * S * D;
+  const __nv_bfloat16* kh = k + kv_off;
+  const __nv_bfloat16* vh = v + kv_off;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // live key tiles: causal needs k_start <= the tile's last query; the
+  // window needs the tile's last key inside the first query's window
+  const int n_k = (S + BN - 1) / BN;
+  int t_lo = 0, t_hi = n_k;
+  if (causal) t_hi = min(n_k, (q0 + BM - 1) / BN + 1);
+  if (window > 0) {
+    const int lo = q0 - window - BN + 2;   // first live k_start
+    if (lo > 0) t_lo = (lo + BN - 1) / BN;
+  }
+  const int n_tiles = max(t_hi - t_lo, 0);
+
+  // Q tile; rows past S are zeros, never stored
+  for (int i = tid; i < BM * CPR; i += THREADS) {
+    const int r = i / CPR;
+    const int c = i - r * CPR;
+    const bool in = q0 + r < S;
+    cp_async16(smem_addr(qs + r * ROW + c * 8),
+               in ? qh + (size_t)(q0 + r) * D + c * 8 : qh, in ? 16 : 0);
+  }
+
+  // key tile t into ring stage `stage`; keys past S are zero-filled
+  auto load_tile = [&](int t, int stage) {
+    const int k0 = t * BN;
+    __nv_bfloat16* kd = k_ring + stage * BN * ROW;
+    __nv_bfloat16* vd = v_ring + stage * BN * ROW;
+    for (int i = tid; i < BN * CPR; i += THREADS) {
+      const int j = i / CPR;
+      const int c = i - j * CPR;
+      const bool in = k0 + j < S;
+      const size_t off = in ? (size_t)(k0 + j) * D + c * 8 : 0;
+      cp_async16(smem_addr(kd + j * ROW + c * 8), kh + off, in ? 16 : 0);
+      cp_async16(smem_addr(vd + j * ROW + c * 8), vh + off, in ? 16 : 0);
+    }
+  };
+
+  // group s holds tile t_lo + s (group 0 also Q); one group is committed
+  // per tile even when empty, so wait_group counts stay uniform
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_tile(t_lo + s, s);
+    cp_async_commit();
+  }
+
+  const int row0 = warp * 16;           // the warp's 16-row slab
+  const int g = lane >> 2;              // the thread's rows: row0 + g, + 8
+  const int t4 = lane & 3;              // and columns 2 * t4, + 1 of each tile
+  const int r_lo = q0 + row0;           // the slab's first and last rows
+  const int r_hi = r_lo + 15;
+  const int pos0 = r_lo + g;
+  const int pos1 = pos0 + 8;
+
+  float m[2] = {kNegInf, kNegInf};      // running max, log2 domain
+  float l[2] = {0.f, 0.f};              // this thread's share of the row sums
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  uint32_t qf[KT][4];                   // the slab's Q fragments
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t = t_lo + i;
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile t has landed; the stage of tile t - 1 is free
+    if (i + STAGES - 1 < n_tiles) load_tile(t + STAGES - 1, (i + STAGES - 1) % STAGES);
+    cp_async_commit();
+    if (i == 0) {   // Q landed with the first tile: its fragments, once
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+        ldsm4(smem_addr(qs + (row0 + (lane & 15)) * ROW + kk * 16 + (lane >> 4) * 8),
+              qf[kk]);
+    }
+
+    // a tile none of whose keys the warp's slab sees is skipped
+    const int k_lo = t * BN;
+    const int k_hi = k_lo + BN - 1;
+    if (k_lo >= S || (causal && k_lo > r_hi) ||
+        (window > 0 && r_lo - k_hi >= window))
+      continue;
+    const bool need_mask = k_hi >= S || (causal && k_hi > r_lo) ||
+                           (window > 0 && r_hi - k_lo >= window);
+    const int stage = i % STAGES;
+    const __nv_bfloat16* kt = k_ring + stage * BN * ROW;
+    const __nv_bfloat16* vt = v_ring + stage * BN * ROW;
+
+    // S = Q K^T for the slab's 16 rows and the tile's BN keys
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bk[4];
+        const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int col = kk * 16 + (((lane >> 3) & 1) << 3);
+        ldsm4(smem_addr(kt + key * ROW + col), bk);
+        mma16816(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+
+    // scale, mask, online softmax in fp32
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (need_mask) {
+          const int key = k_lo + n * 8 + 2 * t4 + (e & 1);
+          const int pos = e < 2 ? pos0 : pos1;
+          if (key >= S || (causal && key > pos) ||
+              (window > 0 && pos - key >= window))
+            x = kNegInf;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      // a row that has seen no key yet keeps m = -1e30 and subtracts 0,
+      // so its masked keys weigh exp2(-1e30) = 0, not 1
+      const float m_use = mx[r] == kNegInf ? 0.f : mx[r];
+      const float alpha = exp2f(m[r] - m_use);
+      m[r] = mx[r];
+      mx[r] = m_use;
+      l[r] *= alpha;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        acc[dt][2 * r] *= alpha;
+        acc[dt][2 * r + 1] *= alpha;
+      }
+    }
+
+    // P in bf16 as the A operand of P.V
+    uint32_t pa[NT / 2][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float p0 = exp2f(s[n][0] - mx[0]);
+      const float p1 = exp2f(s[n][1] - mx[0]);
+      const float p2 = exp2f(s[n][2] - mx[1]);
+      const float p3 = exp2f(s[n][3] - mx[1]);
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+
+    // O += P V
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bv[4];
+        const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+        const int col = dp * 16 + ((lane >> 4) << 3);
+        ldsm4_trans(smem_addr(vt + key * ROW + col), bv);
+        mma16816(acc[2 * dp], pa[kk], bv[0], bv[1]);
+        mma16816(acc[2 * dp + 1], pa[kk], bv[2], bv[3]);
+      }
+    }
+  }
+  // normalise and store the rows below S
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    const int qi = q0 + row0 + g + 8 * r;
+    if (qi >= S) continue;
+    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+    __nv_bfloat16* dst = o + (((size_t)b * H + h) * S + qi) * D + 2 * t4;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(dst + dt * 8) =
+          pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
   }
 }
 
@@ -367,17 +653,54 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
   return launch_decode_gr<T, D, 1>(q, k, v, kv_len, o, B, H, Hkv, S, scale, stream);
 }
 
+template <int D>
+cudaError_t launch_attention_tc(const void* q, const void* k, const void* v,
+                                void* o, int B, int H, int Hkv, int S,
+                                int causal, int window, float scale,
+                                cudaStream_t stream) {
+  constexpr size_t smem = k1tc::Smem<D>::bytes;
+  auto kern = flash_attention_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + k1tc::BM - 1) / k1tc::BM, H, B);
+  kern<<<grid, k1tc::THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      H, Hkv, S, causal, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t attention_tc_info(int* out) {
+  return instance_info(flash_attention_tc_kernel<D>, k1tc::THREADS,
+                       k1tc::Smem<D>::bytes, out);
+}
+
+// K1 over float32 (T = float, the SIMT template) or bf16 (T =
+// __nv_bfloat16, the tensor cores)
 template <typename T>
 cudaError_t attention_by_dim(const void* q, const void* k, const void* v,
                              void* o, int B, int H, int Hkv, int S, int D,
                              int causal, int window, float scale,
                              cudaStream_t st) {
-  switch (D) {
-    case 16: return launch_attention<T, 16>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
-    case 32: return launch_attention<T, 32>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
-    case 64: return launch_attention<T, 64>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
-    case 128: return launch_attention<T, 128>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
-    default: return cudaErrorInvalidValue;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    switch (D) {
+      case 16: return launch_attention_tc<16>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
+      case 32: return launch_attention_tc<32>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
+      case 64: return launch_attention_tc<64>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
+      case 128: return launch_attention_tc<128>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (D) {
+      case 16: return launch_attention<T, 16>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
+      case 32: return launch_attention<T, 32>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
+      case 64: return launch_attention<T, 64>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
+      case 128: return launch_attention<T, 128>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -396,7 +719,9 @@ cudaError_t decode_by_dim(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no sliding window.
+// dtype: 0 = float32, 1 = bfloat16 (K1 of bfloat16 runs on the tensor
+// cores, of float32 on the SIMT template).  window <= 0 means no sliding
+// window.
 // Returns the launch's cudaError_t (0 = success).  The caller validates
 // shapes, contiguity and alignment; the kernels never allocate or sync.
 extern "C" int repro_flash_attention(const void* q, const void* k,
@@ -423,4 +748,17 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return decode_by_dim<__nv_bfloat16>(q, k, v, lens, o, B, H, Hkv, S, D, scale, st);
   return cudaErrorInvalidValue;
+}
+
+// The bf16 K1 instance for head dim D: out[0..3] = registers per thread,
+// local-memory (spill) bytes, dynamic shared memory in bytes, resident
+// blocks per SM.
+extern "C" int repro_flash_attention_tc_info(int D, int* out) {
+  switch (D) {
+    case 16: return attention_tc_info<16>(out);
+    case 32: return attention_tc_info<32>(out);
+    case 64: return attention_tc_info<64>(out);
+    case 128: return attention_tc_info<128>(out);
+    default: return cudaErrorInvalidValue;
+  }
 }

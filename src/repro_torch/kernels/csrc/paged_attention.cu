@@ -17,14 +17,16 @@
 // K4  paged_prefill_kernel<float, one pass>       flash_paged_prefill /
 //                                          _paged_prefill_kernel (num_splits=1),
 //                                          float32 query only
-// K5b paged_prefill_kernel<fp, partials>   _paged_prefill_split_kernel
+// K5b paged_prefill_kernel<float, partials> _paged_prefill_split_kernel,
+//                                          float32 query only
 // K6c paged_prefill_kernel<float, int8, one pass> flash_paged_prefill_quant /
 //                                          _paged_prefill_quant_kernel,
 //                                          float32 query only
 // K6d paged_prefill_kernel<int8, partials> _paged_prefill_split_quant_kernel
-// K4 and K6c with a bf16 query, the main path, run on the tensor cores in
-// paged_prefill.cu; the one-pass instances here take float32 only (a TF32
-// product would break the fp32 tolerance).
+// K4, K5b and K6c with a bf16 query, the main path, run on the tensor
+// cores in paged_prefill.cu; their instances here take float32 only (a
+// TF32 product would break the fp32 tolerance).  K6d keeps both query
+// types here.
 //
 // Semantics kept from the TPU kernels: key j of sequence b lives in page
 // table[b, j / psz] at slot j % psz; only keys j < kv_len[b] are read (table
@@ -74,9 +76,7 @@
 //    0).  What bounds split verify: the K/V walk of the lane's prefix
 //    (one 32-key tile's load latency per tile and warp); the split cuts
 //    the tiles each block walks by ns, for ns blocks per (head, q tile)
-//    and a partials round trip of C rows.  With ns = 1 and K5c it is
-//    the walk of the one-pass template that paged_prefill.cu replaced
-//    for bf16 queries.
+//    and a partials round trip of C rows.
 //    Tensor cores and asynchronous copies: paged_prefill.cu.
 
 #include "common.cuh"
@@ -622,15 +622,15 @@ cudaError_t prefill_by_dim(const PrefillArgs& a) {
   }
 }
 
-// one pass takes a float32 query only (bf16: paged_prefill.cu); the
-// split forms take both
+// K4, K5b and K6c take a float32 query only (bf16: paged_prefill.cu);
+// K6d takes both
 template <bool QUANT, bool SPLIT>
 cudaError_t prefill(const PrefillArgs& a, int dtype) {
   if (SPLIT && a.ns < 1) return cudaErrorInvalidValue;
   if (dtype == 0)
     return prefill_by_dim<float, std::conditional_t<QUANT, int8_t, float>,
                           SPLIT>(a);
-  if constexpr (SPLIT) {
+  if constexpr (SPLIT && QUANT) {
     if (dtype == 1)
       return prefill_by_dim<__nv_bfloat16,
                             std::conditional_t<QUANT, int8_t, __nv_bfloat16>,
@@ -766,7 +766,8 @@ extern "C" int repro_paged_prefill_f32_quant(
   return prefill<true, false>(a, dtype);
 }
 
-// K5b: fp pools, ns splits, partials m, l (B, H, ns, C), acc (.., D).
+// K5b with a float32 query (dtype 0 only): float32 pools, ns splits,
+// partials m, l (B, H, ns, C), acc (.., D).
 extern "C" int repro_paged_prefill_split(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* start, const void* kv_len, void* m,

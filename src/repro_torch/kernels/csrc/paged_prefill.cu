@@ -1,18 +1,21 @@
-// Paged chunked prefill on Hopper's tensor cores (sm_90a): the one-pass
-// (num_splits <= 1) attention of a prefill or verify chunk with a bf16
-// query, against bf16 K/V page pools (P, Hkv, psz, D) or int8 pools with
-// per-row fp32 scales (P, Hkv, psz), each sequence reaching its pages
-// through a row of a page table (B, nblk) int32.  Plain C interface, bound
-// from Python with ctypes (kernels/paged_attention.py); no PyTorch headers.
+// Paged chunked prefill on Hopper's tensor cores (sm_90a): the attention
+// of a prefill or verify chunk with a bf16 query, in one pass against bf16
+// K/V page pools (P, Hkv, psz, D) or int8 pools with per-row fp32 scales
+// (P, Hkv, psz), or as the split partials (num_splits > 1) against bf16
+// pools; each sequence reaches its pages through a row of a page table
+// (B, nblk) int32.  Plain C interface, bound from Python with ctypes
+// (kernels/paged_attention.py); no PyTorch headers.
 //
-// Replaces the one-pass Pallas kernels of src/repro/kernels/flash_attention.py:
-// K4  paged_prefill_tc_kernel<bf16>  flash_paged_prefill (:668) /
+// Replaces the Pallas kernels of src/repro/kernels/flash_attention.py:
+// K4  paged_prefill_tc_kernel<bf16, one pass>  flash_paged_prefill (:668) /
 //                                    _paged_prefill_kernel (pallas_call :733)
-// K6c paged_prefill_tc_kernel<int8>  flash_paged_prefill_quant (:1126) /
-//                                    _paged_prefill_quant_kernel (:1186)
+// K6c paged_prefill_tc_kernel<int8, one pass>  flash_paged_prefill_quant
+//                                    (:1126) / _paged_prefill_quant_kernel (:1186)
+// K5b paged_prefill_tc_kernel<bf16, partials>  _paged_prefill_split_kernel
+//                                    (pallas_call :779, body :607)
 // A float32 query keeps paged_attention.cu's SIMT template (a TF32 product
 // would break the fp32 tolerance); the wrapper picks by the query's type.
-// The split forms K5b/K6d stay on that template too.
+// The int8 split form K6d stays on that template too.
 //
 // Semantics of the TPU kernels: query row i of sequence b sits at absolute
 // position start[b] + i; key j is visible iff j <= start[b] + i and
@@ -24,8 +27,9 @@
 // fp32 after the product, S_ij = k_scale_j * sum_d q_id code_jd, and the
 // value scale is folded into P before P is rounded to bf16,
 // sum_j bf16(p_ij * v_scale_j) * code_j.  So the one rounding the plain
-// fp32 version does not make is P (or P * v_scale) to bf16: at most 2^-9
-// of max |v| on an output; the row sums l are taken from the fp32 P.
+// fp32 version does not make is P (or P * v_scale) to bf16: each term
+// moves by at most 2^-8 (bf16's unit roundoff), an output by at most 2^-8
+// of max |v|; the row sums l are taken from the fp32 P.
 //
 // What bounds it on an H100.  At the main path's shape (a yi-6b chunk of
 // 128 rows at start 384, kv_len 512: H 32, Hkv 4, D 128, psz 16, bf16):
@@ -65,11 +69,23 @@
 //     a warp's serial chain of mma, shuffles and exp2 is that much
 //     shorter, and the groups' (m, l, acc) states merge once at the end by
 //     a max-shift through shared memory.
-// Left for later: splitting one query tile's key walk over blocks (K5b's
-// partials mode) for grids far below the SM count (the verify shape has
-// 40 blocks), wgmma and TMA.
+// K5b, the partials mode (SPLIT): for grids far below the SM count (the
+// verify shape, chunks of 5 rows over 4 lanes, has 40 blocks) the key walk
+// of each query tile is cut into ns splits, one block each along
+// blockIdx.x = tile * ns + split.  Split s walks the tiles [s * per,
+// min((s + 1) * per, t_live)) of the tile's t_live live key tiles, per =
+// ceil(t_live / ns), which is ref.paged_prefill_split_ref's partition at
+// block_q = 32 / G chunk rows and block_k = 128 keys; trailing splits may
+// get none.  Instead of acc / l it writes the merged key groups'
+// unnormalised (m, l, acc) in fp32 for the chunk's rows (row r of the
+// folded tile is chunk row r / G of head hk * G + r % G; padding rows are
+// never written), m converted from the log2 domain to natural units,
+// which K5c's expf takes; a row that saw no key of its split writes
+// exactly (-1e30, 0, 0).  At the verify shape with 8 splits: 320 blocks,
+// each walking at most one 128-key tile.
+// Left for later: the int8 partials mode (K6d), wgmma and TMA.
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -78,7 +94,6 @@ constexpr int NWARPS = 8;
 constexpr int THREADS = NWARPS * 32;
 constexpr int BN = 128;           // keys per K/V tile
 constexpr int STAGES = 2;         // ring of K/V tiles in flight
-constexpr float kLog2e = 1.4426950408889634f;
 
 // The warps of a block: SLABS 16-row mma slabs of the BM-row query tile
 // times KGROUPS key groups, group kg taking keys kg * KN .. kg * KN + KN - 1
@@ -118,68 +133,6 @@ struct Smem {
 };
 }  // namespace tc
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared without the registers; src_bytes 0
-// writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> one register of two bf16, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // four int8 codes of one word -> two registers of two bf16, exactly and on
 // the full-rate ALUs: code c sits as byte c + 128 in the float 2^23 + c +
 // 128, so subtracting 2^23 + 128 leaves c; |c| <= 127 has at most 8
@@ -207,14 +160,18 @@ __device__ __forceinline__ void widen8(const int8_t* src, __nv_bfloat16* dst) {
 }
 
 // ---------------------------------------------------------------------------
-// K4 / K6c: q (B, H, C, D) bf16, pools (P, Hkv, psz, D) of S (bf16, or int8
-// with scales (P, Hkv, psz) fp32), table (B, nblk), start and kv_len (B,)
-// int32 -> o (B, H, C, D) bf16.  Grid (ceil(C / (BM >> gshift)), Hkv, B);
-// G = 1 << gshift query heads per kv head, dividing BM = 32;
-// scale_log2 = scale * log2(e), so the softmax runs on exp2.
+// K4 / K6c / K5b: q (B, H, C, D) bf16, pools (P, Hkv, psz, D) of S (bf16, or
+// int8 with scales (P, Hkv, psz) fp32), table (B, nblk), start and kv_len
+// (B,) int32.  SPLIT = false: o (B, H, C, D) bf16, grid (ceil(C / (BM >>
+// gshift)), Hkv, B).  SPLIT = true: blockIdx.x = q_tile * ns + split, the
+// block walks its split of the tile's live key tiles and writes the
+// unnormalised fp32 partials m, l (B, H, ns, C) and acc (B, H, ns, C, D),
+// m in natural-log units.  G = 1 << gshift query heads per kv head,
+// dividing BM = 32; scale_log2 = scale * log2(e), so the softmax runs on
+// exp2.
 // ---------------------------------------------------------------------------
 
-template <typename S, int D>
+template <typename S, int D, bool SPLIT>
 __global__ void __launch_bounds__(tc::THREADS)
 paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const S* __restrict__ kp, const S* __restrict__ vp,
@@ -223,8 +180,10 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const int* __restrict__ table,
                         const int* __restrict__ start,
                         const int* __restrict__ kv_len,
-                        __nv_bfloat16* __restrict__ o, int H, int Hkv, int C,
-                        int psz, int nblk, int gshift, float scale_log2) {
+                        __nv_bfloat16* __restrict__ o, float* __restrict__ pm,
+                        float* __restrict__ pl, float* __restrict__ pacc,
+                        int H, int Hkv, int C, int psz, int nblk, int ns,
+                        int gshift, float scale_log2) {
   using namespace tc;
   using L = Smem<S, D>;
   constexpr bool QUANT = L::QUANT;
@@ -247,7 +206,9 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int G = 1 << gshift;
   const int RQ = BM >> gshift;          // chunk rows per tile
-  const int i0 = blockIdx.x * RQ;       // the tile's first chunk row
+  const int tile = SPLIT ? blockIdx.x / ns : blockIdx.x;
+  const int split = SPLIT ? blockIdx.x - tile * ns : 0;
+  const int i0 = tile * RQ;             // the tile's first chunk row
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -255,10 +216,20 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp = tid >> 5;
   const int len = min(max(kv_len[b], 0), nblk * psz);
   const int q_start = start[b] + i0;    // absolute position of row i0
-  // live key tiles: committed and causally visible to the tile's last row
+  // live key tiles: committed and causally visible to the tile's last
+  // row; a split walks tiles t_lo .. t_end - 1, ceil(live / ns) of them
+  // (the partition of ref.paged_prefill_split_ref at block_q = RQ,
+  // block_k = BN), the last splits possibly none
   const int last = q_start + RQ - 1;
-  const int n_tiles = last < 0 ? 0 : min((len + BN - 1) / BN, last / BN + 1);
-  const int n_pages = (min(len, n_tiles * BN) + psz - 1) / psz;
+  const int t_live = last < 0 ? 0 : min((len + BN - 1) / BN, last / BN + 1);
+  int t_lo = 0, t_end = t_live;
+  if constexpr (SPLIT) {
+    const int per = (t_live + ns - 1) / ns;
+    t_lo = min(split * per, t_live);
+    t_end = min(t_live, t_lo + per);
+  }
+  const int n_tiles = t_end - t_lo;
+  const int n_pages = (min(len, t_end * BN) + psz - 1) / psz;
 
   // Q tile: row r is chunk row i0 + (r >> gshift) of head hk * G + (r & (G-1));
   // rows past the chunk are zeros, never stored
@@ -310,11 +281,11 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  // group s holds tile s (group 0 also Q); one group is committed per
-  // tile even when empty, so wait_group counts stay uniform
+  // group s holds tile t_lo + s (group 0 also Q); one group is committed
+  // per tile even when empty, so wait_group counts stay uniform
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_tiles) load_tile(s, s);
+    if (s < n_tiles) load_tile(t_lo + s, s);
     cp_async_commit();
   }
 
@@ -333,12 +304,13 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
   uint32_t qf[KT][4];
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t = t_lo + i;
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // tile t has landed; the stage of tile t - 1 is free
-    if (t + STAGES - 1 < n_tiles) load_tile(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+    if (i + STAGES - 1 < n_tiles) load_tile(t + STAGES - 1, (i + STAGES - 1) % STAGES);
     cp_async_commit();
-    const int stage = t % STAGES;
+    const int stage = i % STAGES;
 
     const __nv_bfloat16* kt;
     const __nv_bfloat16* vt;
@@ -363,7 +335,7 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
       vt = reinterpret_cast<const __nv_bfloat16*>(v_ring + stage * L::stage_bytes);
     }
 
-    if (t == 0) {
+    if (i == 0) {
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk)
         ldsm4(smem_addr(qs + (row0 + (lane & 15)) * ROW + kk * 16 + (lane >> 4) * 8),
@@ -505,9 +477,12 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
         acc[dt][2 * r + 1] += theirs[4 + dt * 4 + 2 * r + 1] * a;
       }
     }
+    m[r] = m_star;
   }
 
-  // normalise and store the chunk's rows; no key seen leaves acc = 0
+  // store the chunk's rows: normalised (no key seen leaves acc = 0), or
+  // the split's partials, where a row that saw no key of the split stores
+  // exactly (-1e30, 0, 0) and m leaves the log2 domain
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(kFull, l[r], 1);
@@ -515,6 +490,20 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = row0 + g + 8 * r;
     const int qi = i0 + (row >> gshift);
     if (qi >= C) continue;
+    if constexpr (SPLIT) {
+      const size_t prow =
+          (((size_t)b * H + hk * G + (row & (G - 1))) * ns + split) * C + qi;
+      if (t4 == 0) {
+        pm[prow] = m[r] == kNegInf ? kNegInf : m[r] * (1.f / kLog2e);
+        pl[prow] = l[r];
+      }
+      float* dst = pacc + prow * D + 2 * t4;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+        *reinterpret_cast<float2*>(dst + dt * 8) =
+            make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
+      continue;
+    }
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
     __nv_bfloat16* dst =
         o + (((size_t)b * H + hk * G + (row & (G - 1))) * C + qi) * D + 2 * t4;
@@ -540,8 +529,11 @@ struct Args {
   const int* table;
   const int* start;
   const int* kv_len;
-  void* o;
-  int B, H, Hkv, C, psz, nblk, D;
+  void* o;               // normalised output (one pass)
+  float* pm;             // partials (split)
+  float* pl;
+  float* pacc;
+  int B, H, Hkv, C, psz, nblk, ns, D;
   float scale;
   cudaStream_t st;
 };
@@ -561,57 +553,50 @@ size_t smem_bytes(int nblk) {
   return Smem<S, D>::tbl_off + (size_t)nblk * sizeof(int);
 }
 
-template <typename S, int D>
+template <typename S, int D, bool SPLIT>
 cudaError_t launch(const Args& a) {
   const int gshift = group_shift(a.H, a.Hkv);
-  if (gshift < 0 || a.B < 1 || a.C < 1 || a.psz < 1 || a.nblk < 1)
+  if (gshift < 0 || a.B < 1 || a.C < 1 || a.psz < 1 || a.nblk < 1 ||
+      (SPLIT && a.ns < 1))
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes<S, D>(a.nblk);
-  auto kern = paged_prefill_tc_kernel<S, D>;
+  auto kern = paged_prefill_tc_kernel<S, D, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int rows = BM >> gshift;
-  const dim3 grid((a.C + rows - 1) / rows, a.Hkv, a.B);
+  const int ns = SPLIT ? a.ns : 1;
+  const dim3 grid((a.C + rows - 1) / rows * ns, a.Hkv, a.B);
   kern<<<grid, THREADS, smem, a.st>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const S*>(a.kp),
       static_cast<const S*>(a.vp), a.ksc, a.vsc, a.table, a.start, a.kv_len,
-      static_cast<__nv_bfloat16*>(a.o), a.H, a.Hkv, a.C, a.psz, a.nblk,
-      gshift, a.scale * kLog2e);
+      static_cast<__nv_bfloat16*>(a.o), a.pm, a.pl, a.pacc, a.H, a.Hkv, a.C,
+      a.psz, a.nblk, ns, gshift, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <typename S>
+template <typename S, bool SPLIT>
 cudaError_t by_dim(const Args& a) {
   switch (a.D) {
-    case 16: return launch<S, 16>(a);
-    case 32: return launch<S, 32>(a);
-    case 64: return launch<S, 64>(a);
-    case 128: return launch<S, 128>(a);
+    case 16: return launch<S, 16, SPLIT>(a);
+    case 32: return launch<S, 32, SPLIT>(a);
+    case 64: return launch<S, 64, SPLIT>(a);
+    case 128: return launch<S, 128, SPLIT>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// what the card makes of one instance: registers, local (spill) bytes,
-// dynamic shared memory at nblk table entries, resident blocks per SM
-template <typename S, int D>
-cudaError_t info(int nblk, int* out) {
-  cudaFuncAttributes attr;
-  auto kern = paged_prefill_tc_kernel<S, D>;
-  const size_t smem = smem_bytes<S, D>(nblk);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
-                                                        THREADS, smem);
-  if (err != cudaSuccess) return err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)smem;
-  out[3] = blocks;
-  return cudaSuccess;
+template <int D>
+cudaError_t info_by_kind(int kind, int nblk, int* out) {
+  switch (kind) {
+    case 0: return instance_info(paged_prefill_tc_kernel<__nv_bfloat16, D, false>,
+                                 THREADS, smem_bytes<__nv_bfloat16, D>(nblk), out);
+    case 1: return instance_info(paged_prefill_tc_kernel<int8_t, D, false>,
+                                 THREADS, smem_bytes<int8_t, D>(nblk), out);
+    case 2: return instance_info(paged_prefill_tc_kernel<__nv_bfloat16, D, true>,
+                                 THREADS, smem_bytes<__nv_bfloat16, D>(nblk), out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -620,8 +605,8 @@ cudaError_t info(int nblk, int* out) {
 // (float32 goes to paged_attention.cu).  Each entry point returns the
 // launch's cudaError_t (0 = success).  The caller validates shapes,
 // contiguity, alignment and that every table entry below ceil(kv_len /
-// psz) names a page of the pools, and allocates o; the kernels never
-// allocate or sync.
+// psz) names a page of the pools, and allocates o or the partials; the
+// kernels never allocate or sync.
 
 // K4: bf16 pools.
 extern "C" int repro_flash_paged_prefill(const void* q, const void* k_pool,
@@ -636,9 +621,9 @@ extern "C" int repro_flash_paged_prefill(const void* q, const void* k_pool,
   const Args a{q, k_pool, v_pool, nullptr, nullptr,
                static_cast<const int*>(page_table),
                static_cast<const int*>(start), static_cast<const int*>(kv_len),
-               o, B, H, Hkv, C, psz, nblk, D, scale,
-               static_cast<cudaStream_t>(stream)};
-  return by_dim<__nv_bfloat16>(a);
+               o, nullptr, nullptr, nullptr, B, H, Hkv, C, psz, nblk, 1, D,
+               scale, static_cast<cudaStream_t>(stream)};
+  return by_dim<__nv_bfloat16, false>(a);
 }
 
 // K6c: int8 pools with scales (P, Hkv, psz).
@@ -652,25 +637,39 @@ extern "C" int repro_flash_paged_prefill_quant(
                static_cast<const float*>(v_scale),
                static_cast<const int*>(page_table),
                static_cast<const int*>(start), static_cast<const int*>(kv_len),
-               o, B, H, Hkv, C, psz, nblk, D, scale,
-               static_cast<cudaStream_t>(stream)};
-  return by_dim<int8_t>(a);
+               o, nullptr, nullptr, nullptr, B, H, Hkv, C, psz, nblk, 1, D,
+               scale, static_cast<cudaStream_t>(stream)};
+  return by_dim<int8_t, false>(a);
 }
 
-// The instance for head dim D over bf16 (quant 0) or int8 (1) pools:
-// out[0..3] = registers per thread, local-memory (spill) bytes, dynamic
-// shared memory in bytes at nblk table entries, resident blocks per SM.
-extern "C" int repro_paged_prefill_tc_info(int D, int quant, int nblk,
+// K5b: bf16 pools, ns splits, partials m, l (B, H, ns, C), acc (.., D);
+// the signature of paged_attention.cu's repro_paged_prefill_split.
+extern "C" int repro_paged_prefill_split_tc(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* page_table, const void* start, const void* kv_len, void* m,
+    void* l, void* acc, int B, int H, int Hkv, int C, int psz, int nblk,
+    int ns, int D, int dtype, float scale, void* stream) {
+  if (dtype != 1) return cudaErrorInvalidValue;
+  const Args a{q, k_pool, v_pool, nullptr, nullptr,
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(start), static_cast<const int*>(kv_len),
+               nullptr, static_cast<float*>(m), static_cast<float*>(l),
+               static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns, D,
+               scale, static_cast<cudaStream_t>(stream)};
+  return by_dim<__nv_bfloat16, true>(a);
+}
+
+// The instance for head dim D of kind 0 (K4: bf16 pools, one pass), 1
+// (K6c: int8 pools) or 2 (K5b: bf16 pools, partials): out[0..3] =
+// registers per thread, local-memory (spill) bytes, dynamic shared memory
+// in bytes at nblk table entries, resident blocks per SM.
+extern "C" int repro_paged_prefill_tc_info(int D, int kind, int nblk,
                                            int* out) {
-  switch (D * 2 + (quant ? 1 : 0)) {
-    case 32: return info<__nv_bfloat16, 16>(nblk, out);
-    case 33: return info<int8_t, 16>(nblk, out);
-    case 64: return info<__nv_bfloat16, 32>(nblk, out);
-    case 65: return info<int8_t, 32>(nblk, out);
-    case 128: return info<__nv_bfloat16, 64>(nblk, out);
-    case 129: return info<int8_t, 64>(nblk, out);
-    case 256: return info<__nv_bfloat16, 128>(nblk, out);
-    case 257: return info<int8_t, 128>(nblk, out);
+  switch (D) {
+    case 16: return info_by_kind<16>(kind, nblk, out);
+    case 32: return info_by_kind<32>(kind, nblk, out);
+    case 64: return info_by_kind<64>(kind, nblk, out);
+    case 128: return info_by_kind<128>(kind, nblk, out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,12 @@
 """Python wrappers of the CUDA attention kernels (``csrc/flash_attention.cu``).
 
 * :func:`flash_attention` (K1) — self-attention over (B, H, S, D) with
-  causal and/or sliding-window masks and GQA (kv head ``h // G``).
+  causal and/or sliding-window masks and GQA (kv head ``h // G``, any
+  G).  A bf16 query runs on the tensor cores (64-row query tiles, 64-key
+  tiles by ``cp.async``, P rounded to bf16 for P.V), a float32 one on the
+  SIMT template, whose fp32 products keep the fp32 tolerance; the choice
+  is the query's type, and ``last_kernel`` on the function names the
+  kernel launched last.
 * :func:`flash_decode` (K2) — one query token per sequence against a
   dense (B, Hkv, S, D) cache, masked to ``kv_len[b]`` keys; a row with
   ``kv_len == 0`` gives exactly 0.
@@ -24,6 +29,8 @@ from . import build
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: the bf16 K1 kernel's name, as ``flash_attention.last_kernel`` gives it
+TC_KERNEL = "flash_attention_tc_kernel"
 
 
 @functools.cache
@@ -36,6 +43,8 @@ def _lib() -> ctypes.CDLL:
     lib.repro_flash_decode.argtypes = [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
     lib.repro_flash_decode.restype = _I
+    lib.repro_flash_attention_tc_info.argtypes = [_I, _P]
+    lib.repro_flash_attention_tc_info.restype = _I
     return lib
 
 
@@ -83,7 +92,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """Self-attention.  q: (B, H, S, D); k, v: (B, Hkv, S, D), H % Hkv == 0.
-    Output in q's dtype."""
+    Output in q's dtype: bfloat16 on the tensor cores, float32 on the SIMT
+    template."""
     _check("flash_attention", q, k, v)
     b, h, s, d = q.shape
     if k.shape[2] != s:
@@ -99,7 +109,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             -1 if window is None else int(window), scale, _stream(q))
     _raise_on("flash_attention", err)
     flash_attention.launches += 1
+    flash_attention.last_kernel = (TC_KERNEL if q.dtype == torch.bfloat16
+                                   else "flash_attention_kernel")
     return out
+
+
+def tc_info(d: int) -> dict[str, int]:
+    """What the card makes of the tensor-core K1 instance for head dim
+    ``d``: registers per thread, local (spill) bytes, dynamic shared
+    memory, and resident blocks per SM.  Needs the card."""
+    out = (ctypes.c_int * 4)()
+    _raise_on("tc_info", _lib().repro_flash_attention_tc_info(
+        d, ctypes.addressof(out)))
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), out))
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,6 +155,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.last_kernel = None
 flash_decode.launches = 0
 
 #: the kernels of this module, for counters and reports

@@ -1,5 +1,6 @@
 """Python wrappers of the paged CUDA attention kernels (``csrc/paged_attention.cu``
-and, for the one-pass prefill chunk with a bf16 query, ``csrc/paged_prefill.cu``).
+and, for the prefill chunk with a bf16 query over bf16 pools (one pass
+and split) or int8 pools (one pass), ``csrc/paged_prefill.cu``).
 
 * :func:`flash_paged_decode` — one query token per sequence against K/V
   page pools (P, Hkv, psz, D), each sequence reaching its pages through a
@@ -21,15 +22,19 @@ and, for the one-pass prefill chunk with a bf16 query, ``csrc/paged_prefill.cu``
   template of ``paged_attention.cu``, whose fp32 products keep the fp32
   tolerance.  The choice is the query's type; ``last_kernel`` on the
   function names the one launched last.  ``num_splits`` above 1 launches K5b
-  (:func:`paged_prefill_split`, the chunk's live key tiles cut into
-  splits, fp32 partials of the chunk's C rows) and K5c.
+  (:func:`paged_prefill_split`, each query tile's live key tiles cut into
+  splits, fp32 partials of the chunk's C rows; for a bf16 query the
+  tensor-core kernel's partials mode, whose tiles are 32 // G chunk rows
+  and 128 keys, for float32 the SIMT template's 64 rows and 32 keys) and
+  K5c.
   :func:`flash_paged_prefill_quant` is the same over int8 pools: K6c, or
   K6d (:func:`paged_prefill_split_quant`) + K5c.
 
 Table entries past ``ceil(kv_len / psz)`` are never read and may point
 anywhere (page 0 by convention); entries below it must name pages of the
-pools.  The tensor-core kernel takes a group size G = H / Hkv that
-divides its 32-row tile (a power of two up to 32) and raises otherwise.
+pools.  The tensor-core kernel (K4, K5b and K6c with a bf16 query) takes
+a group size G = H / Hkv that divides its 32-row tile (a power of two up
+to 32); its wrappers raise otherwise.
 The wrappers follow the contract of :mod:`.flash_attention`:
 CUDA tensors only, checked; outputs and partials from ``torch.empty``;
 launch on the current stream without syncing; raise on a launch error;
@@ -51,6 +56,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: query rows of the tensor-core prefill kernel's tile: the G query heads
 #: of a kv head are stacked into it, so G must divide it
 TC_TILE_ROWS = 32
+#: keys per K/V tile of the tensor-core kernel
+TC_TILE_KEYS = 128
+#: its name, as ``last_kernel`` on the wrappers gives it
+TC_KERNEL = "paged_prefill_tc_kernel"
 
 
 @functools.cache
@@ -83,6 +92,7 @@ def _tc_lib() -> ctypes.CDLL:
             ("repro_flash_paged_prefill", [_P] * 7 + [_I] * 8 + [_F, _P]),
             ("repro_flash_paged_prefill_quant",
              [_P] * 9 + [_I] * 8 + [_F, _P]),
+            ("repro_paged_prefill_split_tc", [_P] * 9 + [_I] * 9 + [_F, _P]),
             ("repro_paged_prefill_tc_info", [_I] * 3 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -110,20 +120,25 @@ def _prefill_entry(name: str, q: torch.Tensor, hkv: int, quant: bool):
     if q.dtype == torch.bfloat16:
         check_tc_shape(name, q.shape[1], hkv, q.shape[3])
         lib, entry = _tc_lib(), "repro_flash_paged_prefill"
-        kernel = "paged_prefill_tc_kernel"
+        kernel = TC_KERNEL
     else:
         lib, entry = _lib(), "repro_paged_prefill_f32"
         kernel = "paged_prefill_kernel"
     return getattr(lib, entry + ("_quant" if quant else "")), kernel
 
 
-def tc_info(d: int, quant: bool, nblk: int = 0) -> dict[str, int]:
+#: the instances of the tensor-core prefill kernel, by kind: K4 (bf16
+#: pools, one pass), K6c (int8 pools) and K5b (bf16 pools, partials)
+TC_KINDS = ("bf16", "int8", "bf16 split")
+
+
+def tc_info(d: int, kind: str, nblk: int = 0) -> dict[str, int]:
     """What the card makes of the tensor-core prefill instance for head
-    dim ``d`` over bf16 (or int8) pools: registers per thread, local
-    (spill) bytes, dynamic shared memory at ``nblk`` table entries, and
-    resident blocks per SM.  Needs the card."""
+    dim ``d`` of ``kind`` (one of :data:`TC_KINDS`): registers per thread,
+    local (spill) bytes, dynamic shared memory at ``nblk`` table entries,
+    and resident blocks per SM.  Needs the card."""
     out = (ctypes.c_int * 4)()
-    err = _tc_lib().repro_paged_prefill_tc_info(d, int(quant), nblk,
+    err = _tc_lib().repro_paged_prefill_tc_info(d, TC_KINDS.index(kind), nblk,
                                                 ctypes.addressof(out))
     _raise_on("tc_info", err)
     return dict(zip(("registers", "local_bytes", "smem_bytes",
@@ -365,14 +380,21 @@ def paged_prefill_split(q: torch.Tensor, k_pool: torch.Tensor,
                         num_splits: int, *, scale: float | None = None):
     """K5b: phase 1 of split prefill/verify over fp pools; returns the
     fp32 partials (m, l, acc) of ``num_splits`` splits, (B, H, ns, C) and
-    (.., D)."""
+    (.., D).  A bfloat16 q runs the tensor-core kernel's partials mode
+    (its shape checked as K4's), a float32 q the SIMT template;
+    ``last_kernel`` names the one launched last."""
     _check("paged_prefill_split", q, k_pool, v_pool, page_table,
            (start, kv_len))
     _check_splits("paged_prefill_split", num_splits)
     b, h, hkv, c, psz, d, scale = _prefill_shape(q, k_pool, scale)
+    if q.dtype == torch.bfloat16:
+        check_tc_shape("paged_prefill_split", h, hkv, d)
+        fn, kernel = _tc_lib().repro_paged_prefill_split_tc, TC_KERNEL
+    else:
+        fn, kernel = _lib().repro_paged_prefill_split, "paged_prefill_kernel"
     m, l, acc = _prefill_partials(q, num_splits)
     with torch.cuda.device(q.device):
-        err = _lib().repro_paged_prefill_split(
+        err = fn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), start.data_ptr(), kv_len.data_ptr(),
             m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, h, hkv, c, psz,
@@ -380,6 +402,7 @@ def paged_prefill_split(q: torch.Tensor, k_pool: torch.Tensor,
             _stream(q))
     _raise_on("paged_prefill_split", err)
     paged_prefill_split.launches += 1
+    paged_prefill_split.last_kernel = kernel
     return m, l, acc
 
 
@@ -481,3 +504,4 @@ KERNELS = (flash_paged_decode, paged_decode_split, split_combine,
 for _kernel in KERNELS:
     _kernel.launches = 0
 flash_paged_prefill.last_kernel = flash_paged_prefill_quant.last_kernel = None
+paged_prefill_split.last_kernel = None

@@ -64,8 +64,43 @@ def test_attention_kernel_matches_plain(cuda_device, dtype, h, hkv, s, d,
     want = ref.attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == n + 1
+    assert fa.flash_attention.last_kernel == (
+        fa.TC_KERNEL if dtype == torch.bfloat16 else "flash_attention_kernel")
     assert got.dtype == dtype
     close(got, want, dtype)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,hkv", [(8, 8), (8, 4), (24, 8), (32, 4)])
+@pytest.mark.parametrize("s,causal,window", [
+    (512, True, None), (300, True, None), (129, True, 64), (200, False, None),
+    (77, False, 16), (1, True, None)])
+def test_tc_attention_kernel_matches_plain(cuda_device, h, hkv, d, s, causal,
+                                           window):
+    """The bf16 K1 on the tensor cores: G 1, 2, 3 and 8; ragged S (300,
+    129, 77, one token), a window with and without the causal mask, and
+    non-causal; one launch of the tensor-core kernel per call."""
+    q = rand((2, h, s, d), 40 + d, cuda_device, torch.bfloat16)
+    k = rand((2, hkv, s, d), 41 + d, cuda_device, torch.bfloat16)
+    v = rand((2, hkv, s, d), 42 + d, cuda_device, torch.bfloat16)
+    n = fa.flash_attention.launches
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1
+    assert fa.flash_attention.last_kernel == fa.TC_KERNEL
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_tc_attention_instances_fit_the_card(cuda_device, d):
+    """Every bf16 K1 instance keeps the 2 blocks per SM its launch bounds
+    ask for, and builds without spilling at the main path's width."""
+    info = fa.tc_info(d)
+    assert info["blocks_per_sm"] >= 2
+    if d == 128:
+        assert info["local_bytes"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -390,28 +425,55 @@ def test_split_prefill_kernels_match_plain(cuda_device, dtype, quant, case,
                                            ns):
     """K5b / K6d partials against ``paged_prefill_split_ref``'s, and with
     K5c the output against the split and the one-pass plain versions;
-    rows of a lane with no key exactly 0."""
+    rows of a lane with no key exactly 0, and every row that sees no key
+    of a split exactly (-1e30, 0, 0) there.  The bf16 K5b is the
+    tensor-core kernel's partials mode: its partials are compared with
+    the plain version cut at the kernel's own tiles (32 // G chunk rows,
+    128 keys), m and l at the fp32 tolerance, and acc within what rounding
+    P to bf16 can move it by, 2^-8 sum_j p_j |v_j|, plus 2e-4 (1 + |acc|)
+    for fp32 sums taken in another order.  The bf16 tolerance on acc
+    itself cannot hold there: acc is unnormalised, and where its terms
+    cancel, the roundings of hundreds of p_j add up to more than
+    2e-2 + 2e-2 |acc| (the fp32 K5b's and K6d's acc stay at it)."""
     h, hkv, d, psz, nblk, starts, valid, c = SPLIT_CASES[case]
     q, pools, table, start, kv_len = chunk_inputs(
         len(starts), h, hkv, d, psz, nblk, starts, valid, dtype, cuda_device,
         140, c, quant)
     scales = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
     split = pa.paged_prefill_split_quant if quant else pa.paged_prefill_split
+    tc = dtype == torch.bfloat16 and not quant
+    tiles = (dict(block_q=pa.TC_TILE_ROWS // (h // hkv),
+                  block_k=pa.TC_TILE_KEYS) if tc else {})
     n = (split.launches, pa.split_combine.launches)
     got = ops.paged_verify(q, pools, table, start, kv_len, num_splits=ns)
     torch.cuda.synchronize()
     assert (split.launches, pa.split_combine.launches) == (n[0] + 1, n[1] + 1)
     assert got.dtype == dtype and got.shape == q.shape
     want, (m, l, acc) = ref.paged_prefill_split_ref(
-        q, pools.k, pools.v, table, start, kv_len, ns, **scales)
+        q, pools.k, pools.v, table, start, kv_len, ns, **scales, **tiles)
     one_pass = ref.paged_prefill_ref(q, pools.k, pools.v, table, start,
                                      kv_len, **scales)
     args = (q, pools.k, pools.v) + ((pools.k_scale, pools.v_scale)
                                     if quant else ())
     gm, gl, gacc = split(*args, table, start, kv_len, ns)
+    torch.cuda.synchronize()
+    if not quant:
+        assert split.last_kernel == (pa.TC_KERNEL if tc
+                                     else "paged_prefill_kernel")
     close(gm, m, torch.float32)
-    close(gl, l, dtype)
-    close(gacc, acc, dtype)
+    close(gl, l, torch.float32 if tc else dtype)
+    if not tc:
+        close(gacc, acc, dtype)
+    else:
+        # sum_j p_j |v_j| of every split: the plain version over |v|
+        _, (_, _, acc_abs) = ref.paged_prefill_split_ref(
+            q, pools.k, pools.v.float().abs(), table, start, kv_len, ns,
+            **tiles)
+        bound = 2.0 ** -8 * acc_abs + 2e-4 * (1 + acc.abs())
+        assert bool(((gacc - acc).abs() <= bound).all())
+    empty = m == ref.NEG_INF
+    assert torch.all(gm[empty] == ref.NEG_INF)
+    assert torch.all(gl[empty] == 0) and torch.all(gacc[empty] == 0)
     for i, v in enumerate(valid):
         if v == 0:
             assert torch.all(got[i] == 0)
@@ -721,7 +783,7 @@ def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 # K4 / K6c with a bf16 query: the tensor-core kernel (csrc/paged_prefill.cu)
 # --------------------------------------------------------------------------
 
-TC_KERNEL = "paged_prefill_tc_kernel"
+TC_KERNEL = pa.TC_KERNEL
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
@@ -811,11 +873,12 @@ def test_tc_prefill_wrappers_reject_group_sizes_the_tile_does_not_take(
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-def test_tc_prefill_instances_fit_the_card(cuda_device, d, quant):
-    """Every instance fits one block per SM at a 64-entry table, and
-    builds without spilling at the main path's width (D 128)."""
-    info = pa.tc_info(d, quant, 64)
+@pytest.mark.parametrize("kind", pa.TC_KINDS)
+def test_tc_prefill_instances_fit_the_card(cuda_device, d, kind):
+    """Every instance (K4, K6c, and K5b's partials mode) fits one block
+    per SM at a 64-entry table, and builds without spilling at the main
+    path's width (D 128)."""
+    info = pa.tc_info(d, kind, 64)
     assert info["blocks_per_sm"] >= 1
     if d == 128:
         assert info["local_bytes"] == 0

@@ -74,7 +74,7 @@ def test_entry_points_raise_on_cuda_without_a_card():
 
 def test_cuda_kernel_sources_ship_with_the_package():
     for name in ("flash_attention.cu", "paged_attention.cu", "paged_prefill.cu",
-                 "common.cuh"):
+                 "common.cuh", "mma.cuh"):
         assert (PORT / "kernels" / "csrc" / name).is_file()
     text = (ROOT / "pyproject.toml").read_text()
     assert 'repro_torch = ["kernels/csrc/*.cu", "kernels/csrc/*.cuh"]' in text
