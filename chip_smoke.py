@@ -7,7 +7,7 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
    all in parallel; the instances of the tensor-core kernels (K1 in
-   ``flash_attention.cu``; K4, K6c and K5b's partials mode in
+   ``flash_attention.cu``; K4, K6c and the partials modes K5b and K6d in
    ``paged_prefill.cu``) with their registers and spills from the
    ``-Xptxas -v`` log, their shared memory and resident blocks per SM;
 3. K1 ``flash_attention`` against its plain version at the prefill shapes
@@ -47,8 +47,7 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 12. int8 pages: K6a (decode), K6b + K5c (split decode, 8 splits) and K6c
    (prefill chunk) against their plain versions on pools quantized from
    the phase-7 and phase-8 cases, rows without keys exactly 0, with
-   times at the phase-7 and phase-8 timing shapes (K6c beside the SIMT
-   template's walk, K6d with one split + K5c);
+   times at the phase-7 and phase-8 timing shapes;
 13. serves of the phase-5 requests from the paged pool in chunks of 128:
    int8 pages with 8 splits, int8 pages in one pass, and fp pages with 8
    splits; every request must finish with 32 tokens and each serve's
@@ -66,7 +65,8 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    0, 0); a sweep of the split count at both timing shapes
    (``num_splits=1`` is K4's own launch), phase 1 and the combine timed
    apart, beside SDPA;
-16. K6d + K5c, the same over pools quantized from the phase-15 cases;
+16. K6d + K5c, the same over pools quantized from the phase-15 cases:
+   bf16 on the same partials mode over int8 pools, held as K5b is;
 17. serves of yi-6b at full width from the paged pool in chunks of 128:
    (a) speculative, a self-speculative draft of 16 layers proposing 4
    tokens per tick, verify with 8 splits; (b) the same over int8 pages;
@@ -84,9 +84,13 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    kernels against plain, and a one-token verify against the paged
    decode step.
 19. K8 ``matmul`` against its plain version: float32 and bfloat16, with
-   and without bias, all four epilogues, ragged shapes, every
-   instantiated tile; the shared-memory formula of the install-time
-   cost model against the kernel's; every bf16 tile timed at yi-6b's MLP
+   and without bias, all four epilogues, ragged shapes aligned for TMA
+   and not, every instantiated tile, each launch on the kernel
+   ``matmul.route`` names (bf16 ``block_m`` 64 and 128 on aligned
+   shapes: the wgmma kernel; otherwise ``mma.sync`` at ``block_m`` 32);
+   the shared-memory formula of the install-time cost model against the
+   kernel's; the wgmma instances' registers, spills, ring stages and
+   resident blocks per SM; every bf16 tile timed at yi-6b's MLP
    projection of a 512-token prefill (M=512, K=4096, N=11008), beside
    its bound, its plain version and ``torch.matmul``;
 20. K7 ``fdm_stress``, fused and split, against its plain version on a
@@ -290,7 +294,7 @@ def phase_build() -> None:
              lambda d, kind: fa.tc_info(d), 4),
             ("paged_prefill", TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELb(?P<split>[01])EE",
-             lambda d, kind: pa.tc_info(d, kind, 64), 12)):
+             lambda d, kind: pa.tc_info(d, kind, 64), 16)):
         log = paths[source].with_suffix(".log")
         if not log.exists():
             continue
@@ -324,8 +328,9 @@ def tc_instances(log: str, kernel: str,
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
         args = m.groupdict()
-        kind = ("" if "split" not in args else "int8" if args["int8"]
-                else "bf16 split" if args["split"] == "1" else "bf16")
+        kind = ("" if "split" not in args else
+                ("int8" if args["int8"] else "bf16")
+                + (" split" if args["split"] == "1" else ""))
         out.append((kind, int(args["d"]), int(regs.group(1)) if regs else -1,
                     int(spill.group(1)) if spill else 0))
     return out
@@ -456,6 +461,7 @@ def serve_with_counts(engine: ServingEngine | None = None,
     pa.flash_paged_prefill.last_kernel = None
     pa.flash_paged_prefill_quant.last_kernel = None
     pa.paged_prefill_split.last_kernel = None
+    pa.paged_prefill_split_quant.last_kernel = None
     scfg = ServeConfig(**{**SERVE, **kw})
     report = (serve_config(scfg) if engine is None
               else serve_engine(engine, scfg))
@@ -669,33 +675,6 @@ def phase_k4() -> dict:
             "replaces": "src/repro/kernels/flash_attention.py:668",
             "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
             **{k: d for k, (d, _) in times.items()}}
-
-
-def simt_walk(q, k8, v8, k_scale, v_scale, table, start,
-              kv_len) -> torch.Tensor:
-    """The one-pass int8 chunk through the SIMT template that the
-    tensor-core K6c replaced: K6d with one split, then K5c."""
-    parts = pa.paged_prefill_split_quant(q, k8, v8, k_scale, v_scale, table,
-                                         start, kv_len, 1)
-    return pa.split_combine(*parts, q.dtype)
-
-
-def verify_one_pass() -> str:
-    """K6c at phase 15's verify shape with ``num_splits=1``, beside
-    :func:`simt_walk`; both checked against plain first."""
-    q, pools, table, start, lens = split_case(VERIFY_SHAPE, 650, True)
-    args = (q, pools.k, pools.v, pools.k_scale, pools.v_scale, table, start,
-            lens)
-    live = [b for b, v in enumerate(VERIFY_SHAPE[7]) if v]
-    want = ref.paged_prefill_ref(q, pools.k, pools.v, table, start, lens,
-                                 k_scale=pools.k_scale, v_scale=pools.v_scale)
-    k6c = pa.flash_paged_prefill_quant
-    for got in (k6c(*args, num_splits=1), simt_walk(*args)):
-        compare(got[live], want[live], BF16)
-    new = time_ms(lambda: k6c(*args, num_splits=1))
-    old = time_ms(lambda: simt_walk(*args))
-    return (f"K6c {new[0]:.4f} ({new[1]:.4f}) against the SIMT template's "
-            f"walk {old[0]:.4f} ({old[1]:.4f})")
 
 
 def greedy_agreement(report: dict, other: dict) -> str:
@@ -1069,19 +1048,15 @@ def phase_k6() -> list[dict]:
            "library_ms": time_ms(
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    q, k_dense, v_dense, attn_mask=causal, enable_gqa=True))}
-    simt = time_ms(lambda: simt_walk(q, k8, v8, ks, vs, table, starts, lens))
     n_bytes = 2 * 2 * q.numel() + 2 * kv * hkv * (d + 4) + 4 * (kv // psz + 2)
     rows.append(row("flash_paged_prefill_quant", PREFILL_SOURCE,
                     f"{FLASH}:1186", err, n_bytes, 4 * h * pairs * d, k6c))
     print(f"[12 K6 int8 pages] yi-6b chunk B=1 H=32 Hkv=4 C=128 D=128 psz=16 "
           f"bf16 q, int8 pools, start=384 kv_len=512, device ms (ms per call "
           f"incl. host): K6c {fmt_times(k6c)}, bound "
-          f"{rows[2]['bound_ms']:.5f} ms ({rows[2]['bound_by']}); before: "
-          f"the SIMT template's walk (K6d, one split, + K5c) {simt[0]:.4f} "
-          f"({simt[1]:.4f}); library = SDPA on the pre-gathered, "
-          f"pre-dequantized bf16 K/V (gather and dequant not timed)")
-    print(f"[12 K6 int8 pages] verify shape, num_splits=1, device ms: "
-          + verify_one_pass())
+          f"{rows[2]['bound_ms']:.5f} ms ({rows[2]['bound_by']}); library "
+          f"= SDPA on the pre-gathered, pre-dequantized bf16 K/V (gather "
+          f"and dequant not timed)")
     return rows
 
 
@@ -1219,9 +1194,10 @@ def compare_partials(got, want, acc_abs=None) -> tuple[float, float]:
 def split_phase(quant: bool) -> tuple[dict, dict]:
     """Checks of K5b (or K6d) + K5c against the plain versions over the
     split cases; returns the verify-shape and chunk-shape timings.  The
-    bf16 K5b is the tensor-core kernel's partials mode: its partials are
-    held to the plain version cut at its own tiles (32 // G chunk rows,
-    128 keys); the SIMT template's (fp32 K5b, K6d) at 64 rows, 32 keys."""
+    bf16 K5b and K6d are the tensor-core kernel's partials mode: their
+    partials are held to the plain version cut at its own tiles (32 // G
+    chunk rows, 128 keys); the SIMT template's (fp32) at 64 rows, 32
+    keys."""
     kernel = pa.paged_prefill_split_quant if quant else pa.paged_prefill_split
     one_pass = pa.flash_paged_prefill_quant if quant else pa.flash_paged_prefill
     errs, out_errs, ratio = [], [], 0.0
@@ -1230,7 +1206,7 @@ def split_phase(quant: bool) -> tuple[dict, dict]:
         q, pools, table, start, lens = split_case(case, 600 + 10 * i, quant)
         sc = (pools.k_scale, pools.v_scale) if quant else ()
         kw = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
-        tc = dtype == BF16 and not quant
+        tc = dtype == BF16
         if tc:
             kw.update(block_q=pa.TC_TILE_ROWS // (h // hkv),
                       block_k=pa.TC_TILE_KEYS)
@@ -1243,17 +1219,17 @@ def split_phase(quant: bool) -> tuple[dict, dict]:
             want, parts = ref.paged_prefill_split_ref(
                 q, pools.k, pools.v, table, start, lens, ns, **kw)
             acc_abs = None
-            if tc:      # sum_j p_j |v_j| of every split
+            if tc:      # sum_j p_j |v_j| of every split (|v| dequantized)
                 _, (_, _, acc_abs) = ref.paged_prefill_split_ref(
                     q, pools.k, pools.v.float().abs(), table, start, lens,
                     ns, **kw)
             err, r = compare_partials(kernel(*args, ns), parts, acc_abs)
             ratio = max(ratio, r)
             out_err = 0.0
-            if not quant:
-                check(kernel.last_kernel == (TC_KERNEL if tc
-                                             else "paged_prefill_kernel"),
-                      f"K5b {label}: launched {kernel.last_kernel}")
+            check(kernel.last_kernel == (TC_KERNEL if tc
+                                         else "paged_prefill_kernel"),
+                  f"{'K6d' if quant else 'K5b'} {label}: launched "
+                  f"{kernel.last_kernel}")
             for b, v in enumerate(valid):
                 if v == 0:
                     torch.cuda.synchronize()
@@ -1269,11 +1245,11 @@ def split_phase(quant: bool) -> tuple[dict, dict]:
     name = "K6d" if quant else "K5b"
     print(f"[{16 if quant else 15} {name} split {'int8 ' if quant else ''}"
           f"prefill/verify] max abs err vs plain (tol bf16 {TOL[BF16]}, "
-          f"fp32 {TOL[torch.float32]}"
-          + ("" if quant else f"; bf16 on {TC_KERNEL}'s partials mode, its "
-             f"partials against the plain version at its own tiles, acc "
-             f"within 2^-8 sum p|v| + 2e-4 (1 + |acc|); its worst error is "
-             f"{ratio:.3f}x the bf16 tolerance 2e-2 (1 + |acc|)")
+          f"fp32 {TOL[torch.float32]}; bf16 on {TC_KERNEL}'s partials mode"
+          + (" over int8 pools" if quant else "")
+          + f", its partials against the plain version at its own tiles, "
+          f"acc within 2^-8 sum p|v| + 2e-4 (1 + |acc|); its worst error is "
+          f"{ratio:.3f}x the bf16 tolerance 2e-2 (1 + |acc|)"
           + "): partials (m, l, acc), fp32: " + "; ".join(errs)
           + "; merged output (K5c): " + "; ".join(out_errs)
           + "; idle lanes exactly 0; rows without a key in a split exactly "
@@ -1289,8 +1265,28 @@ def split_phase(quant: bool) -> tuple[dict, dict]:
         sweep = []
         for ns in sweep_ns:
             if ns == 1:
+                # the one pass held to the plain version at this shape
+                # (live lanes) before it is timed; an idle lane exactly 0
+                got = one_pass(*args)
+                check(one_pass.last_kernel == TC_KERNEL,
+                      f"{one_pass.__name__} {shape_name}: launched "
+                      f"{one_pass.last_kernel}")
+                want = ref.paged_prefill_ref(
+                    q, pools.k, pools.v, table, start, lens,
+                    k_scale=pools.k_scale, v_scale=pools.v_scale)
+                lane_errs = []
+                for b, v in enumerate(case[7]):
+                    if v == 0:
+                        torch.cuda.synchronize()
+                        check(bool((got[b] == 0).all()),
+                              f"{shape_name} ns=1: a lane with no key is "
+                              "not exactly 0")
+                    else:
+                        lane_errs.append(compare(got[b, :, :v],
+                                                 want[b, :, :v], case[-1]))
                 t1 = time_ms(lambda: one_pass(*args))
-                sweep.append(f"ns=1 (one pass) {t1[0]:.4f}")
+                sweep.append(f"ns=1 (one pass) {t1[0]:.4f} (max abs err "
+                             f"vs plain {max(lane_errs):.2e})")
                 timings[(shape_name, 1)] = (t1, None, None)
                 continue
             parts = kernel(*args, ns)
@@ -1352,9 +1348,8 @@ def split_rows(quant: bool, timings: dict) -> list[dict]:
     times = {"ms": timings[("verify", ns)][0],
              "plain_ms": time_ms(lambda: ref.paged_prefill_split_ref(
                  q, pools.k, pools.v, table, start, lens, ns, **kw,
-                 **({} if quant else dict(
-                     block_q=pa.TC_TILE_ROWS // (h // hkv),
-                     block_k=pa.TC_TILE_KEYS)))),
+                 block_q=pa.TC_TILE_ROWS // (h // hkv),
+                 block_k=pa.TC_TILE_KEYS)),
              "library_ms": time_ms(
                  lambda: torch.nn.functional.scaled_dot_product_attention(
                      q, k_dense, v_dense, attn_mask=mask, enable_gqa=True))}
@@ -1363,7 +1358,7 @@ def split_rows(quant: bool, timings: dict) -> list[dict]:
                                 4 if quant else 0, writes_o=False)
     partial_bytes = 4 * len(starts) * h * ns * c * (2 + d)
     name = "paged_prefill_split_quant" if quant else "paged_prefill_split"
-    r = row(name, PAGED_SOURCE if quant else PREFILL_SOURCE,
+    r = row(name, PREFILL_SOURCE,
             f"{FLASH}:{1239 if quant else 779}", err,
             n_bytes + partial_bytes, n_ops, times)
     combine = timings[("verify", ns)][1][0]
@@ -1460,9 +1455,8 @@ def phase_spec_prefix_serves(smi: str, paged: dict, int8_reports: dict,
                                  fa.flash_attention, fa.flash_decode), what)
         check(fa.flash_attention.last_kernel == fa.TC_KERNEL,
               f"{what}: the draft's K1 ran {fa.flash_attention.last_kernel}")
-        if verify is pa.paged_prefill_split:
-            check(verify.last_kernel == TC_KERNEL,
-                  f"{what}: K5b ran {verify.last_kernel}")
+        check(verify.last_kernel == TC_KERNEL,
+              f"{what}: {verify.__name__} ran {verify.last_kernel}")
         if n_draft == n_layers:
             check(spec["accepted_tokens"] > 0,
                   f"{what}: the target as its own draft had no draft "
@@ -1596,6 +1590,35 @@ FDM_OPS = {"fused": 54, "split": 57}
 FDM_ARRAYS = {"fused": 24, "split": 26}   # grid arrays read + written
 
 
+def wgmma_instances() -> str:
+    """The wgmma instances of K8: ptxas registers and spill stores from
+    the build log, and the card's shared memory, ring stages and resident
+    blocks per SM."""
+    log = build.library_path("matmul").with_suffix(".log").read_text()
+    ptxas = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        m = re.search(r"mm_bf16_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                      chunk.split("\n", 1)[0])
+        if m:
+            regs = re.search(r"Used (\d+) registers", chunk)
+            spill = re.search(r"(\d+) bytes spill stores", chunk)
+            ptxas[tuple(map(int, m.groups()))] = (
+                int(regs.group(1)) if regs else -1,
+                int(spill.group(1)) if spill else 0)
+    tiles = sorted(t for t in mmk.TILES if t[0] >= 64)
+    check(sorted(ptxas) == tiles, f"wgmma instances in the ptxas log: "
+          f"{sorted(ptxas)}, expected {tiles}")
+    parts = []
+    for t in tiles:
+        card = mmk.wgmma_info(*t)
+        check(card["blocks_per_sm"] >= 1 and card["smem_bytes"]
+              == mmk.smem_bytes(*t), f"wgmma instance {t}: {card}")
+        parts.append(f"{t} {ptxas[t][0]} registers, {ptxas[t][1]} B spill "
+                     f"stores, {card['stages']} stages, {card['smem_bytes']} "
+                     f"B shared, {card['blocks_per_sm']} block(s)/SM")
+    return "; ".join(parts)
+
+
 def phase_k8() -> dict:
     """K8 against its plain version; every bf16 tile timed at MM_SHAPE.
     Returns the row's numbers and the sweep's device ms by tile."""
@@ -1607,22 +1630,41 @@ def phase_k8() -> dict:
         b = torch.randn((n,), generator=gen, device="cuda")
         return x.to(dtype), y.to(dtype), b.to(dtype)
 
+    def run(x, y, tiles, *args, **kw):
+        """K8 at ``tiles``; checks that the kernel the library reports
+        launching is the one ``route`` names."""
+        got = mmk.matmul(x, y, *args, block_m=tiles[0], block_n=tiles[1],
+                         block_k=tiles[2], **kw)
+        want = mmk.route(x.dtype, y.shape[1], x.shape[1], tiles,
+                         x.data_ptr(), y.data_ptr())
+        check((mmk.matmul.last_kernel, mmk.matmul.last_tiles) == want,
+              f"K8 {tuple(x.shape)} @ {tuple(y.shape)} at {tiles} ran "
+              f"{mmk.matmul.last_kernel} {mmk.matmul.last_tiles}, expected "
+              f"{want}")
+        return got
+
     errs = []
+    # 200x328x136: aligned for TMA, ragged against every tile; 77x300x200
+    # (K % 8) and 1x8x24 as well: the wgmma kernel takes the first and
+    # the last, the mma.sync kernel the second (block_m 32)
+    shapes = ((77, 300, 200), (128, 1024, 256), (1, 8, 24), (200, 328, 136))
     for dtype in (torch.float32, BF16):
         worst = 0.0
-        for m, k, n in ((77, 300, 200), (128, 1024, 256), (1, 8, 24)):
+        for m, k, n in shapes:
             x, y, b = operands(m, k, n, dtype)
             for epilogue in mmk.EPILOGUES:
                 for bias in (None, b):
-                    worst = max(worst, compare(
-                        ops.mm(x, y, bias, epilogue=epilogue),
-                        ref.matmul_ref(x, y, bias, epilogue), dtype))
-        x, y, b = operands(77, 300, 200, dtype)
-        want = ref.matmul_ref(x, y, b, "gelu")
+                    for tiles in ((128, 128, 64), (32, 64, 32)):
+                        worst = max(worst, compare(
+                            run(x, y, tiles, bias, epilogue=epilogue),
+                            ref.matmul_ref(x, y, bias, epilogue), dtype))
+        for m, k, n in ((77, 300, 200), (200, 328, 136)):
+            x, y, b = operands(m, k, n, dtype)
+            want = ref.matmul_ref(x, y, b, "gelu")
+            for tiles in sorted(mmk.TILES):
+                worst = max(worst, compare(
+                    run(x, y, tiles, b, epilogue="gelu"), want, dtype))
         for tiles in sorted(mmk.TILES):
-            worst = max(worst, compare(
-                mmk.matmul(x, y, b, block_m=tiles[0], block_n=tiles[1],
-                           block_k=tiles[2], epilogue="gelu"), want, dtype))
             elem = 4 if dtype == torch.float32 else 2
             check(mmk.kernel_smem_bytes(dtype, *tiles)
                   == mmk.smem_bytes(*tiles, elem),
@@ -1638,36 +1680,44 @@ def phase_k8() -> dict:
     errs.append(f"fp32 512x4096x1000 against float64: kernel {deep[0]:.2e}, "
                 f"torch.matmul {deep[1]:.2e}")
     limit = mmk.smem_per_block_limit("cuda")
-    print(f"[19 K8 matmul] max abs err vs plain over 3 shapes (77x300x200, "
-          f"128x1024x256, 1x8x24) x 4 epilogues x bias on/off and all "
-          f"{len(mmk.TILES)} tiles at 77x300x200 (tol bf16 {TOL[BF16]}, "
+    print(f"[19 K8 matmul] max abs err vs plain over 4 shapes (77x300x200, "
+          f"128x1024x256, 1x8x24, 200x328x136) x 4 epilogues x bias on/off "
+          f"at tiles (128, 128, 64) and (32, 64, 32), and all "
+          f"{len(mmk.TILES)} tiles at 77x300x200 and 200x328x136, each "
+          f"launch on the kernel route() names (tol bf16 {TOL[BF16]}, "
           f"fp32 {TOL[torch.float32]}): " + "; ".join(errs)
           + f"; smem formula equal to the kernel's for every tile; "
           f"per-block shared-memory limit {limit} bytes")
+    print(f"[19 K8 matmul] {mmk.WGMMA_KERNEL} instances (ptxas -v and the "
+          f"card's occupancy): " + wgmma_instances())
 
     m, k, n = MM_SHAPE
     x, y, _ = operands(m, k, n, BF16)
     sweep = {}
     for tiles in sorted(mmk.TILES):
+        run(x, y, tiles)
+        check(tiles[0] < 64 or mmk.matmul.last_kernel == mmk.WGMMA_KERNEL,
+              f"K8 at the yi-6b shape and {tiles} ran "
+              f"{mmk.matmul.last_kernel}")
         kw = dict(block_m=tiles[0], block_n=tiles[1], block_k=tiles[2])
         sweep[tiles] = time_ms(lambda: mmk.matmul(x, y, **kw))[0]
     best = min(sweep, key=sweep.get)
-    err = compare(mmk.matmul(x, y, block_m=best[0], block_n=best[1],
-                             block_k=best[2]), ref.matmul_ref(x, y), BF16)
+    err = compare(run(x, y, best), ref.matmul_ref(x, y), BF16)
     n_bytes = 2 * (m * k + k * n + m * n)
     bound_ms, bound_by = bound(n_bytes, 2 * m * n * k, BF16)
     times = {"plain_ms": time_ms(lambda: ref.matmul_ref(x, y)),
              "library_ms": time_ms(lambda: torch.matmul(x, y))}
     order = sorted(sweep, key=sweep.get)
     print(f"[19 K8 matmul] M={m} K={k} N={n} bf16, device ms by tile "
-          f"(bm, bn, bk), fastest first: "
+          f"(bm, bn, bk), fastest first (block_m 64 and 128: "
+          f"{mmk.WGMMA_KERNEL}; 32: {mmk.MMA_KERNEL}): "
           + ", ".join(f"{t} {sweep[t]:.4f}" for t in order)
           + "; " + ", ".join(f"{k} {d:.4f} ({c:.4f})"
                              for k, (d, c) in times.items())
           + f" (ms per call incl. host in brackets), bound {bound_ms:.4f} ms "
           f"({bound_by}); library = torch.matmul")
     row = {"name": "matmul", "route": "cuda", "source": MM_SOURCE,
-           "replaces": "src/repro/kernels/matmul.py:73", "max_abs_err": err,
+           "replaces": "src/repro/kernels/matmul.py:111", "max_abs_err": err,
            "bound_ms": bound_ms, "bound_by": bound_by,
            **{k: d for k, (d, _) in times.items()}}
     return row, sweep
@@ -1782,9 +1832,15 @@ def phase_install(smi: str, sample) -> tuple[dict[str, int], tuple]:
     before = mmk.matmul.launches
     out = ops.mm(x, y, epilogue="silu")
     err = compare(out, ref.matmul_ref(x, y, None, "silu"), BF16)
-    check(mmk.matmul.launches == before + 1 and mmk.matmul.last_tiles == tiles,
+    want = mmk.route(BF16, n, k, tiles, x.data_ptr(), y.data_ptr())
+    check(mmk.matmul.launches == before + 1
+          and (mmk.matmul.last_kernel, mmk.matmul.last_tiles) == want,
           f"ops.mm launched {mmk.matmul.launches - before} times with "
-          f"{mmk.matmul.last_tiles}, expected once with {tiles}")
+          f"{mmk.matmul.last_kernel} {mmk.matmul.last_tiles}, expected once "
+          f"with {want}")
+    check(tiles[0] < 64 or mmk.matmul.last_kernel == mmk.WGMMA_KERNEL,
+          f"the winner {tiles} ran {mmk.matmul.last_kernel}, not "
+          f"{mmk.WGMMA_KERNEL}")
 
     again = at.AutoTuner(workdir)
     register_kernel_regions(again, m=m, n=n, k=k, **SSM_SHAPE)
@@ -1793,7 +1849,8 @@ def phase_install(smi: str, sample) -> tuple[dict[str, int], tuple]:
     check(again.executor_calls == 0,
           f"the second session measured {again.executor_calls} times")
     print(f"[21 install] ops.mm launched K8 with the winner's tiles {tiles} "
-          f"(max abs err vs plain {err:.2e}); a second session on the "
+          f"on {mmk.matmul.last_kernel} (max abs err vs plain {err:.2e}); a "
+          f"second session on the "
           f"workdir warm-loaded {again.ctx.store.entry('MatmulBlocks_BM').value}"
           f"/{again.ctx.store.entry('MatmulBlocks_BN').value}/"
           f"{again.ctx.store.entry('MatmulBlocks_BK').value} with 0 "

@@ -22,11 +22,12 @@
 // K6c paged_prefill_kernel<float, int8, one pass> flash_paged_prefill_quant /
 //                                          _paged_prefill_quant_kernel,
 //                                          float32 query only
-// K6d paged_prefill_kernel<int8, partials> _paged_prefill_split_quant_kernel
-// K4, K5b and K6c with a bf16 query, the main path, run on the tensor
+// K6d paged_prefill_kernel<float, int8, partials>
+//                                          _paged_prefill_split_quant_kernel,
+//                                          float32 query only
+// K4, K5b, K6c and K6d with a bf16 query, the main path, run on the tensor
 // cores in paged_prefill.cu; their instances here take float32 only (a
-// TF32 product would break the fp32 tolerance).  K6d keeps both query
-// types here.
+// TF32 product would break the fp32 tolerance).
 //
 // Semantics kept from the TPU kernels: key j of sequence b lives in page
 // table[b, j / psz] at slot j % psz; only keys j < kv_len[b] are read (table
@@ -622,20 +623,13 @@ cudaError_t prefill_by_dim(const PrefillArgs& a) {
   }
 }
 
-// K4, K5b and K6c take a float32 query only (bf16: paged_prefill.cu);
-// K6d takes both
+// K4, K5b, K6c and K6d take a float32 query only (bf16: paged_prefill.cu)
 template <bool QUANT, bool SPLIT>
 cudaError_t prefill(const PrefillArgs& a, int dtype) {
   if (SPLIT && a.ns < 1) return cudaErrorInvalidValue;
   if (dtype == 0)
     return prefill_by_dim<float, std::conditional_t<QUANT, int8_t, float>,
                           SPLIT>(a);
-  if constexpr (SPLIT && QUANT) {
-    if (dtype == 1)
-      return prefill_by_dim<__nv_bfloat16,
-                            std::conditional_t<QUANT, int8_t, __nv_bfloat16>,
-                            SPLIT>(a);
-  }
   return cudaErrorInvalidValue;
 }
 
@@ -783,7 +777,8 @@ extern "C" int repro_paged_prefill_split(
   return prefill<false, true>(a, dtype);
 }
 
-// K6d: int8 pools with scales, ns splits, partials as K5b.
+// K6d with a float32 query (dtype 0 only): int8 pools with scales, ns
+// splits, partials as K5b.
 extern "C" int repro_paged_prefill_split_quant(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,

@@ -1,8 +1,8 @@
 // Paged chunked prefill on Hopper's tensor cores (sm_90a): the attention
 // of a prefill or verify chunk with a bf16 query, in one pass against bf16
 // K/V page pools (P, Hkv, psz, D) or int8 pools with per-row fp32 scales
-// (P, Hkv, psz), or as the split partials (num_splits > 1) against bf16
-// pools; each sequence reaches its pages through a row of a page table
+// (P, Hkv, psz), or as the split partials (num_splits > 1) against either;
+// each sequence reaches its pages through a row of a page table
 // (B, nblk) int32.  Plain C interface, bound from Python with ctypes
 // (kernels/paged_attention.py); no PyTorch headers.
 //
@@ -13,9 +13,10 @@
 //                                    (:1126) / _paged_prefill_quant_kernel (:1186)
 // K5b paged_prefill_tc_kernel<bf16, partials>  _paged_prefill_split_kernel
 //                                    (pallas_call :779, body :607)
+// K6d paged_prefill_tc_kernel<int8, partials>  _paged_prefill_split_quant_
+//                                    kernel (pallas_call :1239)
 // A float32 query keeps paged_attention.cu's SIMT template (a TF32 product
 // would break the fp32 tolerance); the wrapper picks by the query's type.
-// The int8 split form K6d stays on that template too.
 //
 // Semantics of the TPU kernels: query row i of sequence b sits at absolute
 // position start[b] + i; key j is visible iff j <= start[b] + i and
@@ -83,7 +84,13 @@
 // which K5c's expf takes; a row that saw no key of its split writes
 // exactly (-1e30, 0, 0).  At the verify shape with 8 splits: 320 blocks,
 // each walking at most one 128-key tile.
-// Left for later: the int8 partials mode (K6d), wgmma and TMA.
+// K6d is the same partials mode over int8 pools: K6c's widening and scales
+// (the key scale on S's column after the code product, the value scale
+// folded into P before P is packed to bf16, l from the fp32 P), so acc is
+// K5b's sum over the dequantized values, within 2^-8 sum_j p_j |v_j| of
+// the fp32 one.  It adds nothing to K6c's shared memory (the partials are
+// stored from registers).
+// Left for later: wgmma and TMA.
 
 #include "mma.cuh"
 
@@ -160,10 +167,10 @@ __device__ __forceinline__ void widen8(const int8_t* src, __nv_bfloat16* dst) {
 }
 
 // ---------------------------------------------------------------------------
-// K4 / K6c / K5b: q (B, H, C, D) bf16, pools (P, Hkv, psz, D) of S (bf16, or
-// int8 with scales (P, Hkv, psz) fp32), table (B, nblk), start and kv_len
-// (B,) int32.  SPLIT = false: o (B, H, C, D) bf16, grid (ceil(C / (BM >>
-// gshift)), Hkv, B).  SPLIT = true: blockIdx.x = q_tile * ns + split, the
+// K4 / K6c / K5b / K6d: q (B, H, C, D) bf16, pools (P, Hkv, psz, D) of S
+// (bf16, or int8 with scales (P, Hkv, psz) fp32), table (B, nblk), start
+// and kv_len (B,) int32.  SPLIT = false: o (B, H, C, D) bf16, grid
+// (ceil(C / (BM >> gshift)), Hkv, B).  SPLIT = true: blockIdx.x = q_tile * ns + split, the
 // block walks its split of the tile's live key tiles and writes the
 // unnormalised fp32 partials m, l (B, H, ns, C) and acc (B, H, ns, C, D),
 // m in natural-log units.  G = 1 << gshift query heads per kv head,
@@ -595,6 +602,8 @@ cudaError_t info_by_kind(int kind, int nblk, int* out) {
                                  THREADS, smem_bytes<int8_t, D>(nblk), out);
     case 2: return instance_info(paged_prefill_tc_kernel<__nv_bfloat16, D, true>,
                                  THREADS, smem_bytes<__nv_bfloat16, D>(nblk), out);
+    case 3: return instance_info(paged_prefill_tc_kernel<int8_t, D, true>,
+                                 THREADS, smem_bytes<int8_t, D>(nblk), out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -659,8 +668,28 @@ extern "C" int repro_paged_prefill_split_tc(
   return by_dim<__nv_bfloat16, true>(a);
 }
 
+// K6d: int8 pools with scales (P, Hkv, psz), ns splits, partials as K5b's;
+// the signature of paged_attention.cu's repro_paged_prefill_split_quant.
+extern "C" int repro_paged_prefill_split_quant_tc(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* page_table,
+    const void* start, const void* kv_len, void* m, void* l, void* acc,
+    int B, int H, int Hkv, int C, int psz, int nblk, int ns, int D,
+    int dtype, float scale, void* stream) {
+  if (dtype != 1) return cudaErrorInvalidValue;
+  const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(start), static_cast<const int*>(kv_len),
+               nullptr, static_cast<float*>(m), static_cast<float*>(l),
+               static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns, D,
+               scale, static_cast<cudaStream_t>(stream)};
+  return by_dim<int8_t, true>(a);
+}
+
 // The instance for head dim D of kind 0 (K4: bf16 pools, one pass), 1
-// (K6c: int8 pools) or 2 (K5b: bf16 pools, partials): out[0..3] =
+// (K6c: int8 pools), 2 (K5b: bf16 pools, partials) or 3 (K6d: int8 pools,
+// partials): out[0..3] =
 // registers per thread, local-memory (spill) bytes, dynamic shared memory
 // in bytes at nblk table entries, resident blocks per SM.
 extern "C" int repro_paged_prefill_tc_info(int D, int kind, int nblk,

@@ -1,6 +1,6 @@
 """Python wrappers of the paged CUDA attention kernels (``csrc/paged_attention.cu``
-and, for the prefill chunk with a bf16 query over bf16 pools (one pass
-and split) or int8 pools (one pass), ``csrc/paged_prefill.cu``).
+and, for the prefill chunk with a bf16 query over bf16 or int8 pools, in
+one pass or split, ``csrc/paged_prefill.cu``).
 
 * :func:`flash_paged_decode` — one query token per sequence against K/V
   page pools (P, Hkv, psz, D), each sequence reaching its pages through a
@@ -28,13 +28,14 @@ and split) or int8 pools (one pass), ``csrc/paged_prefill.cu``).
   and 128 keys, for float32 the SIMT template's 64 rows and 32 keys) and
   K5c.
   :func:`flash_paged_prefill_quant` is the same over int8 pools: K6c, or
-  K6d (:func:`paged_prefill_split_quant`) + K5c.
+  K6d (:func:`paged_prefill_split_quant`, for a bf16 query the same
+  tensor-core partials mode over int8 pools) + K5c.
 
 Table entries past ``ceil(kv_len / psz)`` are never read and may point
 anywhere (page 0 by convention); entries below it must name pages of the
-pools.  The tensor-core kernel (K4, K5b and K6c with a bf16 query) takes
-a group size G = H / Hkv that divides its 32-row tile (a power of two up
-to 32); its wrappers raise otherwise.
+pools.  The tensor-core kernel (K4, K5b, K6c and K6d with a bf16 query)
+takes a group size G = H / Hkv that divides its 32-row tile (a power of
+two up to 32); its wrappers raise otherwise.
 The wrappers follow the contract of :mod:`.flash_attention`:
 CUDA tensors only, checked; outputs and partials from ``torch.empty``;
 launch on the current stream without syncing; raise on a launch error;
@@ -93,6 +94,8 @@ def _tc_lib() -> ctypes.CDLL:
             ("repro_flash_paged_prefill_quant",
              [_P] * 9 + [_I] * 8 + [_F, _P]),
             ("repro_paged_prefill_split_tc", [_P] * 9 + [_I] * 9 + [_F, _P]),
+            ("repro_paged_prefill_split_quant_tc",
+             [_P] * 11 + [_I] * 9 + [_F, _P]),
             ("repro_paged_prefill_tc_info", [_I] * 3 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -128,8 +131,9 @@ def _prefill_entry(name: str, q: torch.Tensor, hkv: int, quant: bool):
 
 
 #: the instances of the tensor-core prefill kernel, by kind: K4 (bf16
-#: pools, one pass), K6c (int8 pools) and K5b (bf16 pools, partials)
-TC_KINDS = ("bf16", "int8", "bf16 split")
+#: pools, one pass), K6c (int8 pools), K5b (bf16 pools, partials) and K6d
+#: (int8 pools, partials)
+TC_KINDS = ("bf16", "int8", "bf16 split", "int8 split")
 
 
 def tc_info(d: int, kind: str, nblk: int = 0) -> dict[str, int]:
@@ -411,14 +415,23 @@ def paged_prefill_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
                               v_scale: torch.Tensor, page_table: torch.Tensor,
                               start: torch.Tensor, kv_len: torch.Tensor,
                               num_splits: int, *, scale: float | None = None):
-    """K6d: :func:`paged_prefill_split` over int8 pools and their scales."""
+    """K6d: :func:`paged_prefill_split` over int8 pools and their scales.
+    A bfloat16 q runs the tensor-core kernel's partials mode over int8
+    pools (its shape checked as K6c's), a float32 q the SIMT template;
+    ``last_kernel`` names the one launched last."""
     _check("paged_prefill_split_quant", q, k_pool, v_pool, page_table,
            (start, kv_len), (k_scale, v_scale))
     _check_splits("paged_prefill_split_quant", num_splits)
     b, h, hkv, c, psz, d, scale = _prefill_shape(q, k_pool, scale)
+    if q.dtype == torch.bfloat16:
+        check_tc_shape("paged_prefill_split_quant", h, hkv, d)
+        fn, kernel = _tc_lib().repro_paged_prefill_split_quant_tc, TC_KERNEL
+    else:
+        fn, kernel = (_lib().repro_paged_prefill_split_quant,
+                      "paged_prefill_kernel")
     m, l, acc = _prefill_partials(q, num_splits)
     with torch.cuda.device(q.device):
-        err = _lib().repro_paged_prefill_split_quant(
+        err = fn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
             start.data_ptr(), kv_len.data_ptr(), m.data_ptr(), l.data_ptr(),
@@ -426,6 +439,7 @@ def paged_prefill_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
             num_splits, d, _DTYPES[q.dtype], scale, _stream(q))
     _raise_on("paged_prefill_split_quant", err)
     paged_prefill_split_quant.launches += 1
+    paged_prefill_split_quant.last_kernel = kernel
     return m, l, acc
 
 
@@ -504,4 +518,4 @@ KERNELS = (flash_paged_decode, paged_decode_split, split_combine,
 for _kernel in KERNELS:
     _kernel.launches = 0
 flash_paged_prefill.last_kernel = flash_paged_prefill_quant.last_kernel = None
-paged_prefill_split.last_kernel = None
+paged_prefill_split.last_kernel = paged_prefill_split_quant.last_kernel = None

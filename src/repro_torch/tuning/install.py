@@ -18,8 +18,9 @@ Declared through the ``repro_torch.at`` session API.  Executor backends
 
 * ``analytic-cost`` (default here) — :func:`matmul_blocks_cost` and
   :func:`ssm_chunk_cost`: block steps, with a penalty for a block whose
-  shared memory leaves room for only one block on an SM, and ``inf`` for
-  one over the per-block shared-memory limit;
+  loads nothing hides (its shared memory leaves room for only one block
+  on an SM, and it has no ring of stages), and ``inf`` for one over the
+  per-block shared-memory limit;
 * ``cuda-event`` (registered by this module) — CUDA-event device time of
   the real K8 at the registered (m, n, k), or of the real K9 at (1, seq,
   d_inner, d_state), on the card in bfloat16; with ``device="cpu"``
@@ -46,8 +47,8 @@ from ..core.executor import CudaEventExecutor, WallClockExecutor
 from ..device import resolve
 from ..kernels import ref
 from ..kernels import ssm_scan as k9
-from ..kernels.matmul import TILE_VALUES, matmul, smem_bytes, \
-    smem_per_block_limit
+from ..kernels.matmul import TILE_VALUES, WGMMA_KERNEL, matmul, route, \
+    smem_bytes, smem_per_block_limit, stage_bytes
 
 BF16_BYTES = 2
 #: the JAX package's SsmChunk candidates
@@ -65,18 +66,25 @@ def matmul_blocks_cost(bm: int, bn: int, bk: int, *, m: int, n: int, k: int,
                        smem_limit: int) -> float:
     """Analytic install-time cost of K8's tile (bm, bn, bk) in bfloat16.
 
-    A tile whose block needs more shared memory than ``smem_limit`` bytes
-    cannot be launched on the card at all: it costs ``inf`` and no
-    executor ever launches it (a candidate the card cannot run, not a
-    fallback).  Otherwise the cost is the number of block-steps (blocks x
-    K steps; fewer, larger tiles amortise the per-step load and sync),
-    raised 4x per unit by which the block's shared memory passes half the
-    limit, where only one block fits on an SM and nothing hides its
-    loads.
+    The tile is the one :func:`~..kernels.matmul.route` runs at (m, n, k)
+    on fresh, hence 16-byte aligned, operands.  A tile whose block needs
+    more shared memory than ``smem_limit`` bytes cannot be launched on the
+    card at all: it costs ``inf`` and no executor ever launches it (a
+    candidate the card cannot run, not a fallback).  Otherwise the cost
+    is the number of block-steps (blocks x K steps; fewer, larger tiles
+    amortise the per-step load and sync), raised 4x per unit by which the
+    shared memory the block's loads leave exposed passes half the limit,
+    where only one block fits on an SM and nothing hides its loads.  The
+    ``mma.sync`` kernel's single stage is all exposed; the wgmma kernel's
+    ring loads later stages while the products of one run, so only one
+    stage counts.
     """
+    kernel, (bm, bn, bk) = route(torch.bfloat16, n, k, (bm, bn, bk), 0, 0)
     used = smem_bytes(bm, bn, bk, BF16_BYTES)
     if used > smem_limit:
         return math.inf
+    if kernel == WGMMA_KERNEL:
+        used = stage_bytes(bm, bn, bk)
     steps = math.ceil(m / bm) * math.ceil(n / bn) * math.ceil(k / bk)
     return steps * _occupancy_penalty(used, smem_limit)
 

@@ -1,7 +1,8 @@
-"""The error budget and partition of two tensor-core kernels, on the CPU:
+"""The error budget and partition of the tensor-core kernels, on the CPU:
 K1 with a bf16 query (``flash_attention_tc_kernel``,
-``csrc/flash_attention.cu``) and K5b, the split partials mode of the
-paged prefill kernel (``paged_prefill_tc_kernel<bf16, partials>``,
+``csrc/flash_attention.cu``) and K5b and K6d, the split partials mode of
+the paged prefill kernel over bf16 and int8 pools
+(``paged_prefill_tc_kernel<bf16 | int8, partials>``,
 ``csrc/paged_prefill.cu``).
 
 The kernels cannot run here, so plain-torch emulations of their
@@ -21,6 +22,10 @@ one mma differs from the card.
   keys whose states merge at the end; the split writes its unnormalised
   (m, l, acc), m in natural-log units, and a row that saw no key of the
   split writes exactly (-1e30, 0, 0).
+* K6d: K5b over int8 codes (exact in bf16): the key scale multiplies S's
+  column after the code product, the value scale folds into P before P's
+  rounding, and l is taken from the fp32 P, as ``tc_emulate`` of
+  ``test_torch_prefill_tc.py`` does for K6c.
 
 They are held to
 
@@ -30,9 +35,10 @@ They are held to
   within the card's bf16 tolerance 2e-2 (rtol = atol) and, before the
   output's own bf16 rounding, within 2^-9 max |v|, the budget
   ``test_torch_prefill_tc.py`` holds K4 to; unnormalised partials acc
-  within the worst case of P's rounding, 2^-8 sum_j p_j |v_j| (2^-8 is
-  bf16's unit roundoff: rounding p_j moves it by at most 2^-8 p_j, and
-  by at most 2^-9 absolute since p_j <= 1; over many keys the roundings
+  within the worst case of P's rounding, 2^-8 sum_j p_j |v_j| (|v|
+  dequantized for int8 pools; 2^-8 is bf16's unit roundoff: rounding p_j
+  moves it by at most 2^-8 p_j, and by at most 2^-9 absolute since
+  p_j <= 1; over many keys the roundings
   cancel, which is why outputs keep within the tighter budget); m and l,
   which P's rounding does not touch, within 1e-5;
 * the JAX package's Pallas kernels in interpret mode at reduced float32
@@ -51,6 +57,9 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_attention
 from repro.kernels.flash_attention import flash_paged_prefill as jax_paged_prefill
+from repro.kernels.flash_attention import \
+    flash_paged_prefill_quant as jax_paged_prefill_quant
+from repro_torch.distributed.compression import quantize_int8_rows
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 
@@ -70,11 +79,13 @@ def rand(shape, seed, scale=1.0):
     return torch.from_numpy(x.astype(np.float32))
 
 
-def online_softmax(s, v, key_tiles):
+def online_softmax(s, v, key_tiles, v_scale=None):
     """The kernels' fp32 online softmax over log2-domain scores ``s``
     (..., rows, keys) with -1e30 at masked keys, walking ``key_tiles``
-    (slices of the key axis) in order; P rounded to bf16 for P.V.
-    Returns the unnormalised (m, l, acc), m in the log2 domain."""
+    (slices of the key axis) in order; P (times ``v_scale`` (..., 1,
+    keys), the value scales of int8 codes ``v``, if given) rounded to
+    bf16 for P.V.  Returns the unnormalised (m, l, acc), m in the log2
+    domain."""
     m = torch.full(s.shape[:-1], ref.NEG_INF)
     l = torch.zeros(s.shape[:-1])
     acc = torch.zeros(*s.shape[:-1], v.shape[-1])
@@ -87,6 +98,8 @@ def online_softmax(s, v, key_tiles):
         alpha = torch.exp2(m - m_use)
         p = torch.exp2(st - m_use[..., None])
         l = l * alpha + p.sum(-1)
+        if v_scale is not None:
+            p = p * v_scale[..., keys]
         acc = (acc * alpha[..., None]
                + p.to(torch.bfloat16).float() @ v[..., keys, :])
         m = mx
@@ -188,10 +201,19 @@ def test_k1_emulation_against_jax_kernel_in_interpret_mode(h, hkv, s_len,
 # --------------------------------------------------------------------------
 
 
-def split_emulate(q, k_pool, v_pool, table, start, kv_len, ns):
+def gathered_scales(scale, table, g):
+    """Per-row scales (P, Hkv, psz) of int8 pools gathered through the
+    table and repeated for the G query heads: (B, H, 1, keys)."""
+    rows = ref.gather_pages(scale[..., None], table)[..., 0]
+    return torch.repeat_interleave(rows, g, 1)[:, :, None, :]
+
+
+def split_emulate(q, k_pool, v_pool, table, start, kv_len, ns, k_scale=None,
+                  v_scale=None):
     """The partials mode's partition, arithmetic and tiling in plain
     torch: fp32 (m, l, acc) of every split, (B, H, ns, C) and (.., D), m
-    in natural-log units, exactly (-1e30, 0, 0) where a row saw no key."""
+    in natural-log units, exactly (-1e30, 0, 0) where a row saw no key.
+    With ``k_scale`` and ``v_scale`` the pools hold int8 codes (K6d)."""
     b, h, c, d = q.shape
     g = h // k_pool.shape[1]
     rows, keys = pa.TC_TILE_ROWS // g, pa.TC_TILE_KEYS
@@ -199,6 +221,9 @@ def split_emulate(q, k_pool, v_pool, table, start, kv_len, ns):
     v = torch.repeat_interleave(ref.gather_pages(v_pool, table).float(), g, 1)
     sk = k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k)
+    if k_scale is not None:     # the key scale on S's column, in fp32
+        s = s * gathered_scales(k_scale, table, g)
+    vs = None if v_scale is None else gathered_scales(v_scale, table, g)
     s = s * np.float32(d ** -0.5 * LOG2E)
     start, kv_len = start.long(), kv_len.long()
     i = torch.arange(c)
@@ -219,7 +244,7 @@ def split_emulate(q, k_pool, v_pool, table, start, kv_len, ns):
         mask = visible & (kj >= lo[..., None]) & (kj < hi[..., None])
         ss = torch.where(mask[:, None], s, ref.NEG_INF)
         groups = [online_softmax(ss, v, [slice(t0, t0 + kn) for t0 in
-                                         range(group * kn, sk, keys)])
+                                         range(group * kn, sk, keys)], vs)
                   for group in range(SPLIT_KEY_GROUPS)]
         m, l, acc = merge_groups(groups)
         parts.append((torch.where(m == ref.NEG_INF, ref.NEG_INF, m / LOG2E),
@@ -325,6 +350,92 @@ def test_split_emulation_against_jax_kernel_in_interpret_mode(h, hkv, ns):
         jnp.asarray(start.numpy()), jnp.asarray(kv_len.numpy()),
         num_splits=ns, interpret=True))
     atol = P_ROUNDING * float(vp.abs().max()) + FP32_SUMS
+    for lane, n in enumerate(valid):       # rows past kv_len are padding
+        np.testing.assert_allclose(got[lane, :, :n], want[lane, :, :n],
+                                   rtol=0, atol=atol)
+
+
+# --------------------------------------------------------------------------
+# K6d: the same partials mode over int8 pools
+# --------------------------------------------------------------------------
+
+
+def quantized(kp, vp):
+    """Per-row int8 codes and fp32 scales of bf16 pools, as the serve's
+    write path quantizes them."""
+    (k8, ks), (v8, vs) = quantize_int8_rows(kp), quantize_int8_rows(vp)
+    return k8, v8, ks, vs
+
+
+@pytest.mark.parametrize("ns", [2, 3, 8])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_int8_split_emulation_partials_match_plain_at_the_kernel_tiles(case,
+                                                                       ns):
+    """K6d's partials against ``paged_prefill_split_ref`` over the same
+    int8 pools, cut at the kernel's tiles: the same empty splits, exactly
+    (-1e30, 0, 0); m and l within 1e-5; acc within 2^-8 sum_j p_j |v_j|
+    with |v| dequantized; merged by K5c's rule, the output within 2e-2 of
+    the one-pass plain version and the idle lane exactly 0."""
+    h, hkv, d, psz, nblk, starts, valid, c = SPLIT_CASES[case]
+    q, kp, vp, table, start, kv_len = chunk_case(h, hkv, d, psz, nblk,
+                                                 starts, valid, c, 45)
+    k8, v8, ks, vs = quantized(kp, vp)
+    scales = dict(k_scale=ks, v_scale=vs)
+    tiles = dict(block_q=pa.TC_TILE_ROWS // (h // hkv),
+                 block_k=pa.TC_TILE_KEYS)
+    gm, gl, gacc = split_emulate(q, k8, v8, table, start, kv_len, ns, **scales)
+    _, (m, l, acc) = ref.paged_prefill_split_ref(
+        q, k8, v8, table, start, kv_len, ns, **scales, **tiles)
+    # sum_j p_j |v_j|: the plain version over |codes| times their scales
+    _, (_, _, acc_abs) = ref.paged_prefill_split_ref(
+        q, k8, v8.float().abs(), table, start, kv_len, ns, **scales, **tiles)
+    empty = m == ref.NEG_INF
+    assert torch.equal(gm == ref.NEG_INF, empty)
+    assert torch.all(gl[empty] == 0) and torch.all(gacc[empty] == 0)
+    np.testing.assert_allclose(gm.numpy(), m.numpy(), rtol=1e-5,
+                               atol=FP32_SUMS)
+    np.testing.assert_allclose(gl.numpy(), l.numpy(), rtol=1e-5,
+                               atol=FP32_SUMS)
+    bound = BF16_ROUNDOFF * acc_abs + FP32_SUMS * (1 + acc.abs())
+    assert bool(((gacc - acc).abs() <= bound).all())
+    _, l_star, acc_star = ref.combine_split_states(gm, gl, gacc)
+    out = ref.finalize_split_states(l_star, acc_star).to(q.dtype)
+    want = ref.paged_prefill_ref(q, k8, v8, table, start, kv_len, **scales)
+    for lane, n in enumerate(valid):
+        if n == 0:
+            assert torch.all(out[lane] == 0)
+            continue
+        np.testing.assert_allclose(out[lane, :, :n].float().numpy(),
+                                   want[lane, :, :n].float().numpy(),
+                                   **BF16_TOL)
+
+
+@pytest.mark.parametrize("ns", [2, 3])
+@pytest.mark.parametrize("h,hkv", [(8, 2), (4, 1), (8, 8)])
+def test_int8_split_emulation_against_jax_kernel_in_interpret_mode(h, hkv,
+                                                                   ns):
+    """Merged K6d partials against the JAX int8 split kernel's output,
+    ``flash_paged_prefill_quant(..., num_splits=ns, interpret=True)``, in
+    float32 over the same codes and scales: three lanes, chunks of 8 at a
+    mid-page start, at 0, and a ragged chunk, pages of 8.  The only
+    difference is P's rounding: 2^-9 of the largest dequantized |v|, plus
+    1e-5 for fp32 sums taken in another order."""
+    c, d, psz, nblk = 8, 16, 8, 20
+    starts, valid = [70, 0, 140], [8, 8, 5]
+    q, kp, vp, table, start, kv_len = chunk_case(h, hkv, d, psz, nblk,
+                                                 starts, valid, c, 47)
+    k8, v8, ks, vs = quantized(kp, vp)
+    q = q.float()
+    gm, gl, gacc = split_emulate(q, k8, v8, table, start, kv_len, ns,
+                                 k_scale=ks, v_scale=vs)
+    _, l_star, acc_star = ref.combine_split_states(gm, gl, gacc)
+    got = ref.finalize_split_states(l_star, acc_star).numpy()
+    want = np.asarray(jax_paged_prefill_quant(
+        q.numpy(), k8.numpy(), v8.numpy(), ks.numpy(), vs.numpy(),
+        jnp.asarray(table.numpy()), jnp.asarray(start.numpy()),
+        jnp.asarray(kv_len.numpy()), num_splits=ns, interpret=True))
+    v_max = float((v8.float() * vs[..., None]).abs().max())
+    atol = P_ROUNDING * v_max + FP32_SUMS
     for lane, n in enumerate(valid):       # rows past kv_len are padding
         np.testing.assert_allclose(got[lane, :, :n], want[lane, :, :n],
                                    rtol=0, atol=atol)

@@ -426,22 +426,23 @@ def test_split_prefill_kernels_match_plain(cuda_device, dtype, quant, case,
     """K5b / K6d partials against ``paged_prefill_split_ref``'s, and with
     K5c the output against the split and the one-pass plain versions;
     rows of a lane with no key exactly 0, and every row that sees no key
-    of a split exactly (-1e30, 0, 0) there.  The bf16 K5b is the
-    tensor-core kernel's partials mode: its partials are compared with
+    of a split exactly (-1e30, 0, 0) there.  The bf16 K5b and K6d are the
+    tensor-core kernel's partials mode: their partials are compared with
     the plain version cut at the kernel's own tiles (32 // G chunk rows,
     128 keys), m and l at the fp32 tolerance, and acc within what rounding
-    P to bf16 can move it by, 2^-8 sum_j p_j |v_j|, plus 2e-4 (1 + |acc|)
-    for fp32 sums taken in another order.  The bf16 tolerance on acc
-    itself cannot hold there: acc is unnormalised, and where its terms
-    cancel, the roundings of hundreds of p_j add up to more than
-    2e-2 + 2e-2 |acc| (the fp32 K5b's and K6d's acc stay at it)."""
+    P to bf16 can move it by, 2^-8 sum_j p_j |v_j| (|v| dequantized for
+    int8 pools), plus 2e-4 (1 + |acc|) for fp32 sums taken in another
+    order.  The bf16 tolerance on acc itself cannot hold there: acc is
+    unnormalised, and where its terms cancel, the roundings of hundreds of
+    p_j add up to more than 2e-2 + 2e-2 |acc| (the fp32 K5b's and K6d's
+    acc stay at it)."""
     h, hkv, d, psz, nblk, starts, valid, c = SPLIT_CASES[case]
     q, pools, table, start, kv_len = chunk_inputs(
         len(starts), h, hkv, d, psz, nblk, starts, valid, dtype, cuda_device,
         140, c, quant)
     scales = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
     split = pa.paged_prefill_split_quant if quant else pa.paged_prefill_split
-    tc = dtype == torch.bfloat16 and not quant
+    tc = dtype == torch.bfloat16
     tiles = (dict(block_q=pa.TC_TILE_ROWS // (h // hkv),
                   block_k=pa.TC_TILE_KEYS) if tc else {})
     n = (split.launches, pa.split_combine.launches)
@@ -457,18 +458,18 @@ def test_split_prefill_kernels_match_plain(cuda_device, dtype, quant, case,
                                     if quant else ())
     gm, gl, gacc = split(*args, table, start, kv_len, ns)
     torch.cuda.synchronize()
-    if not quant:
-        assert split.last_kernel == (pa.TC_KERNEL if tc
-                                     else "paged_prefill_kernel")
+    assert split.last_kernel == (pa.TC_KERNEL if tc
+                                 else "paged_prefill_kernel")
     close(gm, m, torch.float32)
     close(gl, l, torch.float32 if tc else dtype)
     if not tc:
         close(gacc, acc, dtype)
     else:
-        # sum_j p_j |v_j| of every split: the plain version over |v|
+        # sum_j p_j |v_j| of every split: the plain version over |v| (the
+        # codes' magnitudes times their positive scales for int8 pools)
         _, (_, _, acc_abs) = ref.paged_prefill_split_ref(
             q, pools.k, pools.v.float().abs(), table, start, kv_len, ns,
-            **tiles)
+            **scales, **tiles)
         bound = 2.0 ** -8 * acc_abs + 2e-4 * (1 + acc.abs())
         assert bool(((gacc - acc).abs() <= bound).all())
     empty = m == ref.NEG_INF
@@ -582,6 +583,44 @@ def test_matmul_every_tile_matches_plain(cuda_device, dtype):
             *tiles, 4 if dtype == torch.float32 else 2)
 
 
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("epilogue", ["none", "gelu", "silu", "relu"])
+@pytest.mark.parametrize("m,k,n", [(200, 328, 136), (77, 300, 200)],
+                         ids=["aligned", "unaligned"])
+def test_matmul_bf16_tiles_run_the_routed_kernel(cuda_device, m, k, n,
+                                                 epilogue, with_bias):
+    """Every bf16 tile on a shape TMA can describe (K, N multiples of 8)
+    and on one it cannot (K 300): block_m 64 and 128 run the wgmma kernel
+    on the first, every other call the mma.sync kernel at block_m 32, as
+    ``route`` says; each within the bf16 tolerance of the plain version."""
+    x = rand((m, k), 40, cuda_device, torch.bfloat16, k ** -0.5)
+    y = rand((k, n), 41, cuda_device, torch.bfloat16)
+    bias = rand((n,), 42, cuda_device, torch.float32) if with_bias else None
+    want = ref.matmul_ref(x, y, bias, epilogue)
+    aligned = k % 8 == 0 and n % 8 == 0
+    for tiles in sorted(mmk.TILES):
+        got = mmk.matmul(x, y, bias, block_m=tiles[0], block_n=tiles[1],
+                         block_k=tiles[2], epilogue=epilogue)
+        torch.cuda.synchronize()
+        if aligned and tiles[0] >= 64:
+            assert mmk.matmul.last_kernel == mmk.WGMMA_KERNEL
+            assert mmk.matmul.last_tiles == tiles
+        else:
+            assert mmk.matmul.last_kernel == mmk.MMA_KERNEL
+            assert mmk.matmul.last_tiles == (32,) + tiles[1:]
+        close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("tiles", sorted(t for t in mmk.TILES if t[0] >= 64))
+def test_matmul_wgmma_instances_fit_the_card(cuda_device, tiles):
+    """Each wgmma instance launches at its shared memory (the cost
+    model's formula) without spilling."""
+    info = mmk.wgmma_info(*tiles)
+    assert info["blocks_per_sm"] >= 1
+    assert info["smem_bytes"] == mmk.smem_bytes(*tiles)
+    assert info["local_bytes"] == 0
+
+
 def test_mm_launches_the_published_tiles(cuda_device):
     x = rand((64, 128), 36, cuda_device, torch.bfloat16)
     y = rand((128, 96), 37, cuda_device, torch.bfloat16)
@@ -590,6 +629,7 @@ def test_mm_launches_the_published_tiles(cuda_device):
         at.publish("matmul", block_m=128, block_n=32, block_k=64)
         ops.mm(x, y)
         assert mmk.matmul.last_tiles == (128, 32, 64)
+        assert mmk.matmul.last_kernel == mmk.WGMMA_KERNEL
         ops.mm(x, y, block_k=32)
         assert mmk.matmul.last_tiles == (128, 32, 32)
     finally:
@@ -865,6 +905,8 @@ def test_tc_prefill_wrappers_reject_group_sizes_the_tile_does_not_take(
     (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
     with pytest.raises(ValueError, match="group size"):
         pa.flash_paged_prefill_quant(q, k8, v8, ks, vs, table, start, lens)
+    with pytest.raises(ValueError, match="group size"):
+        pa.paged_prefill_split_quant(q, k8, v8, ks, vs, table, start, lens, 2)
     out = pa.flash_paged_prefill(q.float(), kp.float(), vp.float(), table,
                                  start, lens)
     assert pa.flash_paged_prefill.last_kernel == "paged_prefill_kernel"
@@ -875,8 +917,8 @@ def test_tc_prefill_wrappers_reject_group_sizes_the_tile_does_not_take(
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("kind", pa.TC_KINDS)
 def test_tc_prefill_instances_fit_the_card(cuda_device, d, kind):
-    """Every instance (K4, K6c, and K5b's partials mode) fits one block
-    per SM at a 64-entry table, and builds without spilling at the main
+    """Every instance (K4, K6c, and the partials modes K5b and K6d) fits
+    one block per SM at a 64-entry table, and builds without spilling at the main
     path's width (D 128)."""
     info = pa.tc_info(d, kind, 64)
     assert info["blocks_per_sm"] >= 1
