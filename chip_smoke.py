@@ -8,8 +8,10 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
    all in parallel; the instances of the tensor-core kernels (K1 in
    ``flash_attention.cu``; K4, K6c and the partials modes K5b and K6d in
-   ``paged_prefill.cu``) with their registers and spills from the
-   ``-Xptxas -v`` log, their shared memory and resident blocks per SM;
+   ``paged_prefill.cu``; K3 and K6a in ``paged_decode.cu``) with their
+   registers and spills from the ``-Xptxas -v`` log, their shared memory
+   and resident blocks per SM, and for the decode kernel the clusters of
+   1, 2, 4 and 8 CTAs the card holds at once;
 3. K1 ``flash_attention`` against its plain version at the prefill shapes
    of yi-6b (G=8) and deepseek-7b (G=1), at G=3 and G=2 and a few edge
    shapes (S=300, a window, non-causal): bf16 on the tensor-core kernel,
@@ -27,8 +29,13 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    kernels and through the plain versions, must agree;
 7. K3 ``flash_paged_decode`` against its plain version at the paged
    decode shapes (shuffled pages, table entries past ``kv_len`` on page
-   0), plus a ``kv_len == 0`` row that must come out exactly 0, with its
-   time, bound, plain time and the time of SDPA on the pre-gathered K/V;
+   0): bf16 on the cluster kernel of ``paged_decode.cu`` (at every
+   cluster size, and with NaN in the slots past ``kv_len`` of the last
+   live pages), float32 on the SIMT template; a ``kv_len == 0`` row that
+   must come out exactly 0; its cluster size, time, bound, plain time and
+   the time of SDPA on the pre-gathered K/V at the yi-6b and the
+   deepseek-7b (G = 1) decode shapes, with its time at every cluster size
+   and with every lane empty, and the timing method's floor;
 8. K4 ``flash_paged_prefill`` likewise at the prefill-chunk shapes (a
    chunk at 0, at 384, starting mid-page, a ragged last chunk): bf16 on
    the tensor-core kernel, float32 on the SIMT template; timed at the
@@ -44,10 +51,11 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    splits, ``num_splits=1`` equal to K3 exactly, a ``kv_len == 0`` row
    exactly 0, and a sweep of the split count at the phase-7 timing shape
    with phase 1 and the combine timed apart;
-12. int8 pages: K6a (decode), K6b + K5c (split decode, 8 splits) and K6c
-   (prefill chunk) against their plain versions on pools quantized from
-   the phase-7 and phase-8 cases, rows without keys exactly 0, with
-   times at the phase-7 and phase-8 timing shapes;
+12. int8 pages: K6a (decode; bf16 on the cluster kernel, at every
+   cluster size and with NaN scales past ``kv_len``), K6b + K5c (split
+   decode, 8 splits) and K6c (prefill chunk) against their plain versions
+   on pools quantized from the phase-7 and phase-8 cases, rows without
+   keys exactly 0, with times at the phase-7 and phase-8 timing shapes;
 13. serves of the phase-5 requests from the paged pool in chunks of 128:
    int8 pages with 8 splits, int8 pages in one pass, and fp pages with 8
    splits; every request must finish with 32 tokens and each serve's
@@ -182,6 +190,7 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}   # rtol = atol
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 PREFILL_SOURCE = "src/repro_torch/kernels/csrc/paged_prefill.cu"
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/paged_decode.cu"
 TC_KERNEL = pa.TC_KERNEL
 KERNELS = fa.KERNELS + pa.KERNELS + mmk.KERNELS + fk.KERNELS + k9.KERNELS
 FLASH = "src/repro/kernels/flash_attention.py"
@@ -272,6 +281,7 @@ def phase_build() -> None:
     fa._lib()
     pa._lib()
     pa._tc_lib()
+    pa._dec_lib()
     mmk._lib()
     fk._lib()
     k9._lib()
@@ -294,7 +304,10 @@ def phase_build() -> None:
              lambda d, kind: fa.tc_info(d), 4),
             ("paged_prefill", TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELb(?P<split>[01])EE",
-             lambda d, kind: pa.tc_info(d, kind, 64), 16)):
+             lambda d, kind: pa.tc_info(d, kind, 64), 16),
+            ("paged_decode", pa.DECODE_TC_KERNEL,
+             r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)EE",
+             lambda d, kind: pa.decode_tc_info(d, kind, 64), 8)):
         log = paths[source].with_suffix(".log")
         if not log.exists():
             continue
@@ -306,7 +319,10 @@ def phase_build() -> None:
                          f"registers, {spill} B spill stores, "
                          f"{card['smem_bytes']} B shared"
                          + (" at 64 table entries" if kind else "")
-                         + f", {card['blocks_per_sm']} block(s)/SM")
+                         + f", {card['blocks_per_sm']} block(s)/SM"
+                         + (f", clusters of c held at once (c: n) "
+                            f"{card['clusters']}" if "clusters" in card
+                            else ""))
         check(len(lines) == n, f"{len(lines)} {kernel} instances in the "
               f"ptxas log, expected {n}")
         print(f"    {kernel} instances (ptxas -v and the card's "
@@ -318,8 +334,9 @@ def tc_instances(log: str, kernel: str,
     """(kind, D, registers, spill-store bytes) of every instance of a
     tensor-core kernel in an ``-Xptxas -v`` log.  ``pattern`` matches the
     template arguments of its mangled name: the head dim ``d`` and, for
-    the paged prefill kernel, ``int8`` pools and the ``split`` flag, whose
-    kind is then one of ``pa.TC_KINDS``; K1's kind is empty."""
+    the paged kernels, ``int8`` pools and (prefill) the ``split`` flag,
+    whose kind is then one of ``pa.TC_KINDS`` (prefill) or
+    ``pa.DECODE_KINDS`` (decode); K1's kind is empty."""
     out = []
     for chunk in log.split("Compiling entry function")[1:]:
         m = re.search(kernel + pattern, chunk.split("\n", 1)[0])
@@ -328,9 +345,9 @@ def tc_instances(log: str, kernel: str,
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
         args = m.groupdict()
-        kind = ("" if "split" not in args else
+        kind = ("" if "int8" not in args else
                 ("int8" if args["int8"] else "bf16")
-                + (" split" if args["split"] == "1" else ""))
+                + (" split" if args.get("split") == "1" else ""))
         out.append((kind, int(args["d"]), int(regs.group(1)) if regs else -1,
                     int(spill.group(1)) if spill else 0))
     return out
@@ -458,6 +475,8 @@ def serve_with_counts(engine: ServingEngine | None = None,
     for kernel in KERNELS:
         kernel.launches = 0
     fa.flash_attention.last_kernel = None
+    pa.flash_paged_decode.last_kernel = None
+    pa.flash_paged_decode_quant.last_kernel = None
     pa.flash_paged_prefill.last_kernel = None
     pa.flash_paged_prefill_quant.last_kernel = None
     pa.paged_prefill_split.last_kernel = None
@@ -542,6 +561,58 @@ def paged_case(b, h, hkv, d, psz, nblk, kv_len, dtype, seed, c=1):
     return q, kp, vp, table, lens
 
 
+def decode_pools(kp, vp, quant: bool):
+    """The pools (and scales) a one-pass decode reads, and its wrapper."""
+    if quant:
+        (k8, ks), (v8, vs) = quantize_int8_rows(kp), quantize_int8_rows(vp)
+        return (k8, v8, ks, vs), pa.flash_paged_decode_quant
+    return (kp, vp), pa.flash_paged_decode
+
+
+def plain_decode(q, pools, table, lens) -> torch.Tensor:
+    k, v, *scales = pools
+    ks, vs = scales if scales else (None, None)
+    return ref.paged_decode_ref(q, k, v, table, lens, k_scale=ks, v_scale=vs)
+
+
+def tc_decode_checks(quant: bool) -> str:
+    """The bf16 decode kernel (K3, or K6a with ``quant``) at the yi-6b
+    decode case against plain for every cluster size, and with NaN (int8:
+    codes 127, NaN scales) in the slots past kv_len of each lane's last
+    live page: finite, equal to its run on the pools with those slots
+    zeroed, within tolerance of plain there."""
+    kv_len, psz = [1024, 517, 33, 300], 16
+    q, kp, vp, table, lens = paged_case(4, 32, 4, 128, psz, 64, kv_len, BF16,
+                                        260)
+    pools, kernel = decode_pools(kp, vp, quant)
+    want = plain_decode(q, pools, table, lens)
+    errs = []
+    for c in pa.CLUSTER_SIZES:
+        got = kernel(q, *pools, table, lens, _cluster=c)
+        check(kernel.last_kernel == pa.DECODE_TC_KERNEL,
+              f"{kernel.__name__} c={c} ran {kernel.last_kernel}")
+        errs.append(f"c={c} {compare(got, want, BF16):.2e}")
+    dirty = [t.clone() for t in pools]
+    zeroed = [t.clone() for t in pools]
+    for i, n in enumerate(kv_len):
+        if n % psz:
+            page = int(table[i, n // psz])
+            for t, z in zip(dirty, zeroed):
+                t[page, :, n % psz:] = (127 if t.dtype == torch.int8
+                                        else float("nan"))
+                z[page, :, n % psz:] = 0
+    got = kernel(q, *dirty, table, lens)
+    clean = kernel(q, *zeroed, table, lens)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()),
+          f"{kernel.__name__}: NaN past kv_len reached the output")
+    check(torch.equal(got, clean), f"{kernel.__name__}: the slots past "
+          "kv_len changed the output")
+    err = compare(got, plain_decode(q, zeroed, table, lens), BF16)
+    return ("; ".join(errs) + f"; NaN past kv_len in the last live pages: "
+            f"finite, equal to the zeroed pools' run, {err:.2e} vs plain")
+
+
 def phase_k3() -> dict:
     # (label, B, H, Hkv, D, psz, nblk, kv_len, dtype)
     cases = [("yi-6b paged decode", 4, 32, 4, 128, 16, 64,
@@ -555,7 +626,11 @@ def phase_k3() -> dict:
                                             dtype, 200 + 10 * i)
         err = compare(pa.flash_paged_decode(q, kp, vp, table, lens),
                       ref.paged_decode_ref(q, kp, vp, table, lens), dtype)
-        errs.append(f"{label} {err:.2e}")
+        kernel = pa.flash_paged_decode.last_kernel
+        check(kernel == (pa.DECODE_TC_KERNEL if dtype == BF16
+                         else pa.DECODE_SIMT_KERNEL),
+              f"K3 {label} ran {kernel}")
+        errs.append(f"{label} {err:.2e} ({kernel})")
     q, kp, vp, table, lens = paged_case(2, 32, 4, 128, 16, 8, [0, 77], BF16,
                                         240)
     out = pa.flash_paged_decode(q, kp, vp, table, lens)
@@ -563,43 +638,66 @@ def phase_k3() -> dict:
     check(bool((out[0] == 0).all()), "K3: kv_len == 0 row is not exactly 0")
     compare(out[1:], ref.paged_decode_ref(q, kp, vp, table, lens)[1:], BF16)
     errs.append("kv_len==0 row exactly 0")
+    errs.append("yi-6b by cluster size " + tc_decode_checks(False))
     print(f"[7 K3 flash_paged_decode] max abs err vs plain (tol bf16 "
           f"{TOL[BF16]}, fp32 {TOL[torch.float32]}): " + "; ".join(errs))
 
     # timing at the main path's shape: yi-6b, 4 lanes of max_len 1024 in
-    # pages of 16 (the pool of the paged serve phase)
-    b, h, hkv, d, psz, nblk = 4, 32, 4, 128, 16, 64
-    kv_len = [839, 720, 190, 544]
-    q, kp, vp, table, lens = paged_case(b, h, hkv, d, psz, nblk, kv_len,
-                                        BF16, 250)
-    err = compare(pa.flash_paged_decode(q, kp, vp, table, lens),
-                  ref.paged_decode_ref(q, kp, vp, table, lens), BF16)
-    keys = sum(kv_len)
-    live_pages = sum(-(-n // psz) for n in kv_len)
-    n_bytes = 2 * (2 * keys * hkv * d + 2 * b * h * d) + 4 * (live_pages + b)
-    bound_ms, bound_by = bound(n_bytes, 4 * h * keys * d, BF16)
-    k_dense = ref.gather_pages(kp, table)          # gathered once, untimed
-    v_dense = ref.gather_pages(vp, table)
-    mask = (torch.arange(nblk * psz, device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]
-    times = {
-        "ms": time_ms(lambda: pa.flash_paged_decode(q, kp, vp, table, lens)),
-        "plain_ms": time_ms(
-            lambda: ref.paged_decode_ref(q, kp, vp, table, lens)),
-        "library_ms": time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k_dense, v_dense, attn_mask=mask, enable_gqa=True))}
-    print(f"[7 K3 flash_paged_decode] yi-6b B=4 H=32 Hkv=4 D=128 psz=16 "
-          f"nblk=64 bf16 kv_len={kv_len}, device ms (ms per call incl. "
-          f"host): "
-          + ", ".join(f"{k} {d:.4f} ({c:.4f})" for k, (d, c) in times.items())
-          + f", bound {bound_ms:.5f} ms ({bound_by}); library = SDPA with a "
-          f"kv_len mask on the pre-gathered dense K/V (gather not timed)")
-    return {"name": "flash_paged_decode", "route": "cuda",
-            "source": PAGED_SOURCE,
-            "replaces": "src/repro/kernels/flash_attention.py:434",
-            "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
-            **{k: d for k, (d, _) in times.items()}}
+    # pages of 16 (the pool of the paged serve phase); then deepseek-7b's
+    # kv heads (G = 1) on the same lanes
+    rows = {}
+    for label, hkv, seed in (("yi-6b", 4, 250), ("deepseek-7b", 32, 270)):
+        b, h, d, psz, nblk = 4, 32, 128, 16, 64
+        kv_len = [839, 720, 190, 544]
+        q, kp, vp, table, lens = paged_case(b, h, hkv, d, psz, nblk, kv_len,
+                                            BF16, seed)
+        err = compare(pa.flash_paged_decode(q, kp, vp, table, lens),
+                      ref.paged_decode_ref(q, kp, vp, table, lens), BF16)
+        keys = sum(kv_len)
+        bound_ms, bound_by = bound(
+            decode_bytes(kv_len, b, h, hkv, d, psz, 2, 2),
+            4 * h * keys * d, BF16)
+        k_dense = ref.gather_pages(kp, table)          # gathered once, untimed
+        v_dense = ref.gather_pages(vp, table)
+        mask = (torch.arange(nblk * psz, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        times = {
+            "ms": time_ms(lambda: pa.flash_paged_decode(q, kp, vp, table,
+                                                        lens)),
+            "plain_ms": time_ms(
+                lambda: ref.paged_decode_ref(q, kp, vp, table, lens)),
+            "library_ms": time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k_dense, v_dense, attn_mask=mask, enable_gqa=True))}
+        c = pa.cluster_size(b, hkv, pa.sm_count(0))
+        # the same lanes at every cluster size, and with every lane empty
+        # (the kernel's fixed cost: launch, setup, merges, cluster barriers)
+        by_c = {n: time_ms(lambda: pa.flash_paged_decode(
+            q, kp, vp, table, lens, _cluster=n))[0] for n in pa.CLUSTER_SIZES}
+        idle = torch.zeros_like(lens)
+        empty = time_ms(lambda: pa.flash_paged_decode(q, kp, vp, table,
+                                                      idle))[0]
+        print(f"[7 K3 flash_paged_decode] {label} B=4 H=32 Hkv={hkv} D=128 "
+              f"psz=16 nblk=64 bf16 kv_len={kv_len}, "
+              f"{pa.flash_paged_decode.last_kernel} in clusters of c={c} "
+              f"({b * hkv * c} CTAs), device ms (ms per call incl. host): "
+              + ", ".join(f"{k} {dev:.4f} ({call:.4f})"
+                          for k, (dev, call) in times.items())
+              + f", bound {bound_ms:.5f} ms ({bound_by}); library = SDPA "
+              f"with a kv_len mask on the pre-gathered dense K/V (gather "
+              f"not timed); by cluster size "
+              + ", ".join(f"c={n} {t:.4f}" for n, t in by_c.items())
+              + f"; every lane empty (kv_len 0) {empty:.4f}")
+        rows[label] = {"name": "flash_paged_decode", "route": "cuda",
+                       "source": DECODE_SOURCE,
+                       "replaces": f"{FLASH}:491",
+                       "max_abs_err": err, "bound_ms": bound_ms,
+                       "bound_by": bound_by,
+                       **{k: d for k, (d, _) in times.items()}}
+    one = torch.zeros(1, device="cuda")
+    print(f"[7 K3 flash_paged_decode] the timing method's floor, a "
+          f"one-element add: {time_ms(lambda: one.add_(1))[0]:.4f} ms")
+    return rows["yi-6b"]
 
 
 def phase_k4() -> dict:
@@ -705,6 +803,8 @@ def phase_paged_serve(smi: str, dense: dict) -> tuple[dict, dict[str, int]]:
                   "the paged serve")
     check(pa.flash_paged_prefill.last_kernel == TC_KERNEL,
           f"the paged serve's K4 ran {pa.flash_paged_prefill.last_kernel}")
+    check(pa.flash_paged_decode.last_kernel == pa.DECODE_TC_KERNEL,
+          f"the paged serve's K3 ran {pa.flash_paged_decode.last_kernel}")
     check(report["cache"]["n_pages"] == 257, "default pool is not 257 pages")
     print(f"[9 paged serve] yi-6b full, pages of 16 (257), chunks of 128: "
           f"{report['finished']}/{SERVE['n_requests']} requests, "
@@ -939,6 +1039,12 @@ def phase_k6() -> list[dict]:
         for ns in (1, 8):
             got = pa.flash_paged_decode_quant(q, k8, v8, ks, vs, table, lens,
                                               num_splits=ns)
+            if ns == 1:
+                check(pa.flash_paged_decode_quant.last_kernel
+                      == (pa.DECODE_TC_KERNEL if dtype == BF16
+                          else pa.DECODE_SIMT_KERNEL),
+                      f"K6a {label} ran "
+                      f"{pa.flash_paged_decode_quant.last_kernel}")
             live = torch.tensor(kv_len, device="cuda") > 0
             if not bool(live.all()):
                 torch.cuda.synchronize()
@@ -978,6 +1084,7 @@ def phase_k6() -> list[dict]:
     torch.cuda.synchronize()
     check(bool((out[0] == 0).all()), "K6c: rows with no key are not exactly 0")
     errs.append("rows without keys exactly 0")
+    errs.append("K6a yi-6b by cluster size " + tc_decode_checks(True))
     print(f"[12 K6 int8 pages] max abs err vs plain (tol bf16 {TOL[BF16]}, "
           f"fp32 {TOL[torch.float32]}): " + "; ".join(errs))
 
@@ -1007,7 +1114,7 @@ def phase_k6() -> list[dict]:
            "plain_ms": time_ms(lambda: ref.paged_decode_split_ref(
                q, k8, v8, table, lens, ns, k_scale=ks, v_scale=vs)),
            "library_ms": sdpa}
-    rows = [row("flash_paged_decode_quant", PAGED_SOURCE, f"{FLASH}:951",
+    rows = [row("flash_paged_decode_quant", DECODE_SOURCE, f"{FLASH}:951",
                 compare(pa.flash_paged_decode_quant(q, k8, v8, ks, vs, table,
                                                     lens), want, BF16),
                 n_bytes, 4 * h * keys * d, k6a),
@@ -1020,7 +1127,9 @@ def phase_k6() -> list[dict]:
                 + 4 * b * hkv * ns * g * (2 + d), 4 * h * keys * d, k6b)]
     print(f"[12 K6 int8 pages] yi-6b decode B=4 H=32 Hkv=4 D=128 psz=16 "
           f"nblk=64 bf16 q, int8 pools, kv_len={kv_len}, device ms (ms per "
-          f"call incl. host): K6a {fmt_times(k6a)}, bound "
+          f"call incl. host): K6a ({pa.flash_paged_decode_quant.last_kernel} "
+          f"in clusters of c={pa.cluster_size(b, hkv, pa.sm_count(0))}) "
+          f"{fmt_times(k6a)}, bound "
           f"{rows[0]['bound_ms']:.5f} ms ({rows[0]['bound_by']}); K6b (8 "
           f"splits, phase 1) {fmt_times(k6b)}, bound "
           f"{rows[1]['bound_ms']:.5f} ms ({rows[1]['bound_by']})")
@@ -1094,6 +1203,11 @@ def phase_split_int8_serves(smi: str, paged: dict
                   f"{what}: {kernel.__name__} launched "
                   f"{launches[kernel.__name__]} times, expected {n_layers} x "
                   f"{report['decode_steps']} decode steps")
+        if pa.flash_paged_decode_quant in decode:
+            check(pa.flash_paged_decode_quant.last_kernel
+                  == pa.DECODE_TC_KERNEL,
+                  f"{what}: K6a ran "
+                  f"{pa.flash_paged_decode_quant.last_kernel}")
         check(report["kv_dtype"] == kw.get("kv_dtype", "fp"), "kv_dtype")
         for name, n in launches.items():
             if n:

@@ -1,10 +1,11 @@
-// Helpers of the port's tensor-core kernels (flash_attention.cu's K1 and
-// paged_prefill.cu's K4/K5b/K6c): on the device, 16-byte asynchronous
-// copies from device to shared memory, ldmatrix fragment loads, the bf16
-// mma.sync with fp32 accumulators, and bf16 packing; on the host, what
+// Helpers of the port's tensor-core kernels (flash_attention.cu's K1,
+// paged_prefill.cu's K4/K5b/K6c/K6d and paged_decode.cu's K3/K6a): on the
+// device, 16-byte asynchronous copies from device to shared memory,
+// ldmatrix fragment loads, the bf16 mma.sync with fp32 accumulators, bf16
+// packing and the exact widening of int8 codes to bf16; on the host, what
 // the card makes of a kernel instance.  Each .cu file builds into its own
 // library, so everything here has internal linkage; kernels/build.py
-// hashes every header with each source, so a change here rebuilds both.
+// hashes every header with each source, so a change here rebuilds all.
 #pragma once
 
 #include "common.cuh"
@@ -73,6 +74,32 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// four int8 codes of one word -> two registers of two bf16, exactly and on
+// the full-rate ALUs: code c sits as byte c + 128 in the float 2^23 + c +
+// 128, so subtracting 2^23 + 128 leaves c; |c| <= 127 has at most 8
+// significant bits, so the float's low 16 bits are 0 and its high half is
+// bf16(c)
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  constexpr float kMagic = 8388736.f;   // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - kMagic;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - kMagic;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - kMagic;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - kMagic;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// 8 int8 codes (8-byte aligned) -> 8 bf16 (16-byte aligned)
+__device__ __forceinline__ void widen8(const int8_t* src, __nv_bfloat16* dst) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  uint4 out;
+  widen4(raw.x, out.x, out.y);
+  widen4(raw.y, out.z, out.w);
+  *reinterpret_cast<uint4*>(dst) = out;
 }
 
 // What the card makes of one kernel instance launched with `threads`

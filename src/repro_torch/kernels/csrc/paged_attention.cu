@@ -6,13 +6,15 @@
 // with ctypes (kernels/paged_attention.py); no PyTorch headers.
 //
 // Each kernel replaces a Pallas kernel of src/repro/kernels/flash_attention.py:
-// K3  paged_decode_kernel<fp, normalise>   flash_paged_decode /
-//                                          _paged_decode_kernel (num_splits=1)
+// K3  paged_decode_kernel<float, normalise> flash_paged_decode /
+//                                          _paged_decode_kernel (num_splits=1),
+//                                          float32 query only
 // K5a paged_decode_kernel<fp, partials>    _paged_decode_split_kernel
 // K5c split_combine_kernel                 _combine_splits /
 //                                          _split_combine_kernel
-// K6a paged_decode_kernel<int8, normalise> flash_paged_decode_quant /
-//                                          _paged_decode_quant_kernel
+// K6a paged_decode_kernel<float, int8, normalise> flash_paged_decode_quant /
+//                                          _paged_decode_quant_kernel,
+//                                          float32 query only
 // K6b paged_decode_kernel<int8, partials>  _paged_decode_split_quant_kernel
 // K4  paged_prefill_kernel<float, one pass>       flash_paged_prefill /
 //                                          _paged_prefill_kernel (num_splits=1),
@@ -25,9 +27,11 @@
 // K6d paged_prefill_kernel<float, int8, partials>
 //                                          _paged_prefill_split_quant_kernel,
 //                                          float32 query only
-// K4, K5b, K6c and K6d with a bf16 query, the main path, run on the tensor
-// cores in paged_prefill.cu; their instances here take float32 only (a
-// TF32 product would break the fp32 tolerance).
+// With a bf16 query, the main path, K3 and K6a run in paged_decode.cu (a
+// thread-block cluster per lane and kv head, bulk page copies, tensor
+// cores) and K4, K5b, K6c and K6d on the tensor cores in paged_prefill.cu;
+// their instances here take float32 only (a TF32 product would break the
+// fp32 tolerance).  K5a and K6b keep their bf16 instances.
 //
 // Semantics kept from the TPU kernels: key j of sequence b lives in page
 // table[b, j / psz] at slot j % psz; only keys j < kv_len[b] are read (table
@@ -46,9 +50,10 @@
 // at four yi-6b lanes of ~520 tokens, half that in int8), a prefill chunk
 // reads its Q and the committed K/V prefix once.  These versions keep the
 // structure of K2 and K1, SIMT fp32 products from shared memory:
-//  * decode: one block of 8 warps per (lane, kv head[, split]) holding the
-//    G grouped query rows, so each K/V row is read from device memory once
-//    for all G rows.  The block stages the lane's live page-table entries
+//  * decode (K3/K6a with a float32 query, K5a/K6b with either; a bf16
+//    query's one pass is paged_decode.cu's): one block of 8 warps per
+//    (lane, kv head[, split]) holding the G grouped query rows, so each K/V
+//    row is read from device memory once for all G rows.  The block stages the lane's live page-table entries
 //    in shared memory once; each lane of a warp owns one key of a 32-key
 //    tile, finds its row through the staged table, and the warps split the
 //    tiles and merge their (m, l, acc) states by a max-shift in shared
@@ -566,14 +571,17 @@ cudaError_t decode_by_dim(const DecodeArgs& a) {
   }
 }
 
-// dtype of q (and of fp pools): 0 = float32, 1 = bfloat16
+// dtype of q (and of fp pools): 0 = float32, 1 = bfloat16; K3 and K6a take
+// float32 only (bf16: paged_decode.cu), K5a and K6b both
 template <bool QUANT, bool SPLIT>
 cudaError_t decode(const DecodeArgs& a, int dtype) {
   if (dtype == 0)
     return decode_by_dim<float, std::conditional_t<QUANT, int8_t, float>, SPLIT>(a);
-  if (dtype == 1)
-    return decode_by_dim<__nv_bfloat16,
-                         std::conditional_t<QUANT, int8_t, __nv_bfloat16>, SPLIT>(a);
+  if constexpr (SPLIT) {
+    if (dtype == 1)
+      return decode_by_dim<__nv_bfloat16,
+                           std::conditional_t<QUANT, int8_t, __nv_bfloat16>, SPLIT>(a);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -642,7 +650,8 @@ cudaError_t prefill(const PrefillArgs& a, int dtype) {
 // pools, and allocates the outputs and partials; the kernels never
 // allocate or sync.
 
-// K3: fp pools, normalised output o (B, H, 1, D).
+// K3 with a float32 query (dtype 0 only): float32 pools, normalised output
+// o (B, H, 1, D).
 extern "C" int repro_flash_paged_decode(const void* q, const void* k_pool,
                                         const void* v_pool,
                                         const void* page_table,
@@ -658,7 +667,8 @@ extern "C" int repro_flash_paged_decode(const void* q, const void* k_pool,
   return decode<false, false>(a, dtype);
 }
 
-// K6a: int8 pools with scales (P, Hkv, psz), normalised output.
+// K6a with a float32 query (dtype 0 only): int8 pools with scales (P, Hkv,
+// psz), normalised output.
 extern "C" int repro_flash_paged_decode_quant(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,

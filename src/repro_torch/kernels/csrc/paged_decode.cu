@@ -1,0 +1,632 @@
+// Paged decode on Hopper (sm_90a) with a bf16 query: one query token per
+// sequence against bf16 K/V page pools (P, Hkv, psz, D), or int8 pools with
+// per-row fp32 scales (P, Hkv, psz), each sequence reaching its pages
+// through a row of a page table (B, nblk) int32.  Plain C interface, bound
+// from Python with ctypes (kernels/paged_attention.py); no PyTorch headers.
+//
+// Replaces the Pallas kernels of src/repro/kernels/flash_attention.py:
+// K3  paged_decode_tc_kernel<bf16>  flash_paged_decode (:434) /
+//                                   _paged_decode_kernel (pallas_call :491)
+// K6a paged_decode_tc_kernel<int8>  flash_paged_decode_quant (:897) /
+//                                   _paged_decode_quant_kernel (:951)
+// both at num_splits = 1.  A float32 query keeps paged_attention.cu's SIMT
+// template (a TF32 product would break the fp32 tolerance), as do the split
+// partials K5a/K6b; the wrapper picks by the query's type.
+//
+// Semantics of the TPU kernels: key j of sequence b lives in page
+// table[b, j / psz] at slot j % psz; only keys j < kv_len[b] are read
+// (table entries past ceil(kv_len / psz) are never read); masked scores
+// are -1e30; the softmax statistics are fp32; a lane with kv_len == 0
+// gives exactly 0; GQA maps query head h to kv head h / (H / Hkv).
+// Rounding, as paged_prefill.cu's: Q.K^T and P.V are bf16 products summed
+// in fp32 (int8 codes are exact in bf16); for int8 pools the key scale
+// multiplies column j of S after the product and the value scale is folded
+// into P before P is rounded to bf16; the row sums l come from the fp32 P.
+// So an output moves by at most 2^-8 sum_j p_j |v_j| / l from the plain
+// fp32 version's.
+//
+// What bounds it on an H100.  At the serve's shape (yi-6b: four lanes of
+// 839, 720, 190 and 544 keys, H 32, Hkv 4, D 128, pages of 16) a decode
+// step must read 4.7 MB of bf16 K/V once (half in int8): 0.0014 ms at 3.35
+// TB/s; its products take 0.00004 ms at 989 TFLOP/s.  So it is bound by
+// bytes, and what a kernel pays above that is latency: the launch, the
+// dependent loads of kv_len, the page table and the pages, the serial
+// walk over key tiles.  The SIMT template ran at 66x that bound for three
+// reasons; the design answers each:
+//  1. too few blocks (one per lane and kv head: 16 of 132 SMs) -> one
+//     thread-block cluster of c CTAs per (lane, kv head, 16 query rows),
+//     c chosen on the host from the shapes alone (kernels/paged_attention.py
+//     cluster_size: the largest of 1, 2, 4, 8 with B * Hkv * c <= the SM
+//     count; 8 at yi-6b's four lanes, 128 CTAs).  CTA rank r walks the
+//     r-th contiguous share of the lane's live 64-key tiles, ceil(tiles /
+//     c) of them (the last ranks possibly none), and merges its warps'
+//     (m, l, acc) in its own shared memory; after a cluster barrier each
+//     rank reads every rank's (m, l) through distributed shared memory,
+//     takes each rank's weight e^(m_k - m*) / l* per row once, and stores
+//     its share of the G x D outputs as the weighted sum of the ranks' acc
+//     rows (4 columns a thread); a second cluster barrier keeps every CTA's
+//     shared memory alive until its peers have read it.  One launch, one
+//     pass, no partials in device memory, no combine kernel;
+//  2. synchronous loads, one key row per lane -> each warp owns 16 keys of
+//     every 64-key tile (its key group) and brings them itself: 16-byte
+//     cp.async copies of its K and V rows, each row found through the
+//     page-table entries staged in shared memory once, into rows padded
+//     by 16 bytes (conflict-free ldmatrix), keys past kv_len zero-filled
+//     by the copy (so slots past kv_len are never read, and a masked
+//     key's P of 0 meets a zero row, never a stale one); int8 codes are
+//     widened to bf16 in shared memory by the warp, and their row scales
+//     arrive by 4-byte copies beside them.  A ring of 3 stages keeps the
+//     next 2 tiles in flight while one is multiplied (at yi-6b's lanes a
+//     rank's whole share).  A warp reads only the rows it copied, so the
+//     walk has no block-wide barrier.  Whole pages by bulk copies
+//     (cp.async.bulk, one thread issuing a copy per page run, counted on
+//     an mbarrier) were built and measured first: their unpadded rows
+//     need a restaging pass, and they were slower at the serve's shape
+//     (PERF.md, the K3/K6a redesign);
+//  3. SIMT fp32 products with a shuffle per key -> mma.sync.m16n8k16 bf16
+//     with fp32 accumulators, the G query rows of the kv head padded to one
+//     16-row slab (G > 16: one cluster per 16 rows, grid y), Q's fragments
+//     loaded once; each of the 4 warps takes 16 keys of every tile (its key
+//     group), S and the online softmax in fp32 registers (exp2, row max by
+//     quad shuffles), P packed to bf16 in registers as the A operand of P.V
+//     (V by ldmatrix.trans).  Not wgmma: its 64-row minimum would waste at
+//     least 4x the products on G <= 16 rows, and decode is bound by bytes.
+
+#include <cooperative_groups.h>
+
+#include "mma.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+namespace dec {
+constexpr int NWARPS = 4;            // key groups of a tile
+constexpr int THREADS = NWARPS * 32;
+constexpr int BN = 64;               // keys per tile (a ring stage)
+constexpr int KN = BN / NWARPS;      // keys per key group
+constexpr int STAGES = 3;
+constexpr int ROWS = 16;             // query rows per CTA: one mma slab
+constexpr int MAX_CLUSTER = 8;
+
+// Dynamic shared memory of one CTA, in bytes: the ring of K and V stages
+// as the copies land them (rows of D * sizeof(S) + 16 bytes), for int8
+// pools the K and V tiles widened to bf16 rows of D + 8, the Q slab, for
+// int8 pools the ring's key and value scales, then the page-table entries
+// of the rank's share.  After the walk the space below the table holds the
+// softmax states of the 4 warps and then the CTA's merged one, each
+// m[ROWS], l[ROWS], acc[ROWS][SROW] in fp32, then the ranks' weights
+// [MAX_CLUSTER][ROWS].
+template <typename S, int D>
+struct Smem {
+  static constexpr bool QUANT = std::is_same_v<S, int8_t>;
+  static constexpr int ROW = D + 8;                          // bf16 elements
+  static constexpr int KV_ROW = D * (int)sizeof(S) + 16;     // bytes
+  static constexpr size_t stage_bytes = (size_t)BN * KV_ROW; // K or V
+  static constexpr size_t wide_bytes = QUANT ? (size_t)BN * ROW * 2 : 0;
+  static constexpr size_t kw_off = 2 * STAGES * stage_bytes;
+  static constexpr size_t vw_off = kw_off + wide_bytes;
+  static constexpr size_t q_off = vw_off + wide_bytes;
+  static constexpr size_t sc_off = q_off + (size_t)ROWS * ROW * 2;
+  static constexpr size_t tbl_off = sc_off + (QUANT ? STAGES * 2 * BN * 4 : 0);
+  static constexpr int SROW = D + 4;
+  static constexpr int STATE = ROWS * (2 + SROW);            // floats
+  static_assert(((size_t)(NWARPS + 1) * STATE + MAX_CLUSTER * ROWS) * 4 <=
+                    tbl_off,
+                "merge space");
+};
+}  // namespace dec
+
+// ---------------------------------------------------------------------------
+// K3 / K6a: q (B, H, 1, D) bf16, pools (P, Hkv, psz, D) of S (bf16, or int8
+// with scales (P, Hkv, psz) fp32), table (B, nblk), kv_len (B,) int32;
+// o (B, H, 1, D) bf16.  Grid (B * Hkv * c, ceil(G / 16)) in clusters of
+// (c, 1, 1): cluster blockIdx.x / c is (lane, kv head), its rank the
+// share of the key tiles; blockIdx.y the 16 query rows.  scale_log2 =
+// scale * log2(e), so the softmax runs on exp2.
+// ---------------------------------------------------------------------------
+
+template <typename S, int D>
+__global__ void __launch_bounds__(dec::THREADS)
+paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const S* __restrict__ kp, const S* __restrict__ vp,
+                       const float* __restrict__ ksc,
+                       const float* __restrict__ vsc,
+                       const int* __restrict__ table,
+                       const int* __restrict__ kv_len,
+                       __nv_bfloat16* __restrict__ o, int H, int Hkv, int psz,
+                       int nblk, float scale_log2) {
+  using namespace dec;
+  using L = Smem<S, D>;
+  constexpr bool QUANT = L::QUANT;
+  constexpr int ROW = L::ROW;
+  constexpr int SROW = L::SROW;
+  constexpr int CH = D / 8;          // 8-element chunks of a row
+  constexpr int DT = D / 8;          // 8-wide column tiles of O
+  constexpr int KT = D / 16;         // 16-deep steps of Q.K^T
+  static_assert(D % 16 == 0 && KN == 16, "tile shape");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
+  float* sc = reinterpret_cast<float*>(smem + L::sc_off);
+  int* tbl = reinterpret_cast<int*>(smem + L::tbl_off);
+  constexpr int KV_ROW = L::KV_ROW;
+  constexpr int CPR = D * (int)sizeof(S) / 16;   // 16-byte copies per row
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int bh = blockIdx.x / c;
+  const int b = bh / Hkv;
+  const int hk = bh - b * Hkv;
+  const int G = H / Hkv;
+  const int r0 = blockIdx.y * ROWS;            // the CTA's first query row
+  const int rows = min(ROWS, G - r0);
+  const size_t qoff = ((size_t)b * H + hk * G + r0) * D;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // the rank's share of the lane's live tiles, and the pages they touch
+  const int len = min(max(kv_len[b], 0), nblk * psz);
+  const int n_all = (len + BN - 1) / BN;
+  const int per = (n_all + c - 1) / c;
+  const int t_lo = min(rank * per, n_all);
+  const int t_hi = min(n_all, t_lo + per);
+  const int n_tiles = t_hi - t_lo;
+  const int p_lo = t_lo * BN / psz;
+  const int p_hi = n_tiles ? (min(t_hi * BN, len) + psz - 1) / psz : p_lo;
+
+  for (int i = tid; i < p_hi - p_lo; i += THREADS)
+    tbl[i] = table[(size_t)b * nblk + p_lo + i];
+  // the Q slab: rows past the group are zeros, never stored
+  for (int i = tid; i < ROWS * CH; i += THREADS) {
+    const int r = i / CH;
+    const int cc = i - r * CH;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows) v = *reinterpret_cast<const uint4*>(q + qoff + (size_t)r * D + cc * 8);
+    *reinterpret_cast<uint4*>(qs + r * ROW + cc * 8) = v;
+  }
+  __syncthreads();
+
+  // pool row of key `key` (a key of the rank's share)
+  auto pool_row = [&](int key) -> size_t {
+    const int p = key / psz;
+    return ((size_t)tbl[p - p_lo] * Hkv + hk) * psz + (key - p * psz);
+  };
+  uint32_t qf[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+    ldsm4(smem_addr(qs + (lane & 15) * ROW + kk * 16 + (lane >> 4) * 8), qf[kk]);
+
+  const int g = lane >> 2;           // the thread's rows g, g + 8
+  const int t4 = lane & 3;           // and columns 2 * t4, + 1 of each tile
+  const int kb = warp * KN;          // the warp's keys kb .. kb + 15 of a tile
+  float m[2] = {kNegInf, kNegInf};   // running max, log2 domain
+  float l[2] = {0.f, 0.f};           // this thread's share of the row sums
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+  // the warp's 16 keys of tile t into ring stage `stage`, 16 bytes a copy,
+  // keys past kv_len zero-filled (and their scales 0)
+  auto load = [&](int t, int stage) {
+    const int k0 = t * BN + kb;
+    unsigned char* kd = smem + (size_t)(2 * stage) * L::stage_bytes + kb * KV_ROW;
+    unsigned char* vd = kd + L::stage_bytes;
+    for (int e = lane; e < KN * CPR; e += 32) {
+      const int j = e / CPR;
+      const int cc = e - j * CPR;
+      const int key = k0 + j;
+      const bool in = key < len;
+      const size_t off = in ? pool_row(key) * D + cc * (16 / (int)sizeof(S)) : 0;
+      cp_async16(smem_addr(kd + j * KV_ROW + cc * 16), kp + off, in ? 16 : 0);
+      cp_async16(smem_addr(vd + j * KV_ROW + cc * 16), vp + off, in ? 16 : 0);
+    }
+    if constexpr (QUANT) {
+      if (lane < KN) {
+        const int key = k0 + lane;
+        const bool in = key < len;
+        const size_t row = in ? pool_row(key) : 0;
+        cp_async4(smem_addr(sc + (2 * stage) * BN + kb + lane), ksc + row, in ? 4 : 0);
+        cp_async4(smem_addr(sc + (2 * stage + 1) * BN + kb + lane), vsc + row, in ? 4 : 0);
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load(t_lo + s, s);
+    cp_async_commit();
+  }
+
+  // a warp reads only the rows it copied itself: the walk waits on the
+  // warp's own copy groups, never on a block-wide barrier
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t = t_lo + i;
+    const int stage = i % STAGES;
+    const int k0 = t * BN;
+    const int kw = k0 + kb;            // the warp's first key
+    cp_async_wait<STAGES - 2>();
+    __syncwarp();      // the warp's rows of tile t have landed
+    // tile t + 2 into the stage of tile t - 1, which the warp is done with
+    if (i + STAGES - 1 < n_tiles) load(t + STAGES - 1, (i + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const __nv_bfloat16* kt;
+    const __nv_bfloat16* vt;
+    const unsigned char* kr = smem + (size_t)(2 * stage) * L::stage_bytes;
+    const unsigned char* vr = kr + L::stage_bytes;
+    const float* k_sc = sc + (2 * stage) * BN;
+    const float* v_sc = k_sc + BN;
+    if constexpr (QUANT) {
+      __nv_bfloat16* kw8 = reinterpret_cast<__nv_bfloat16*>(smem + L::kw_off);
+      __nv_bfloat16* vw8 = reinterpret_cast<__nv_bfloat16*>(smem + L::vw_off);
+#pragma unroll
+      for (int e = lane; e < KN * CH; e += 32) {
+        const int j = kb + e / CH;
+        const int cc = e % CH;
+        widen8(reinterpret_cast<const int8_t*>(kr + j * KV_ROW + cc * 8), kw8 + j * ROW + cc * 8);
+        widen8(reinterpret_cast<const int8_t*>(vr + j * KV_ROW + cc * 8), vw8 + j * ROW + cc * 8);
+      }
+      __syncwarp();
+      kt = kw8;
+      vt = vw8;
+    } else {
+      kt = reinterpret_cast<const __nv_bfloat16*>(kr);
+      vt = reinterpret_cast<const __nv_bfloat16*>(vr);
+    }
+
+    // S = Q K^T for the slab's 16 rows and the warp's 16 keys
+    float s[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t bk[4];
+      const int key = kb + (lane & 7) + ((lane >> 4) << 3);
+      const int col = kk * 16 + (((lane >> 3) & 1) << 3);
+      ldsm4(smem_addr(kt + key * ROW + col), bk);
+      mma16816(s[0], qf[kk], bk[0], bk[1]);
+      mma16816(s[1], qf[kk], bk[2], bk[3]);
+    }
+
+    // scale (and key scales), mask past kv_len, online softmax in fp32
+    const bool need_mask = kw + KN > len;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = n * 8 + 2 * t4 + (e & 1);
+        float x = s[n][e];
+        if constexpr (QUANT) x *= k_sc[kb + j];
+        x *= scale_log2;
+        if (need_mask && kw + j >= len) x = kNegInf;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      // a row that has seen no key yet keeps m = -1e30 and subtracts 0,
+      // so its masked keys weigh exp2(-1e30) = 0, not 1
+      const float m_use = mx[r] == kNegInf ? 0.f : mx[r];
+      const float alpha = exp2f(m[r] - m_use);
+      m[r] = mx[r];
+      mx[r] = m_use;
+      l[r] *= alpha;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        acc[dt][2 * r] *= alpha;
+        acc[dt][2 * r + 1] *= alpha;
+      }
+    }
+
+    // P in bf16 as the A operand of P.V (value scales folded in first)
+    uint32_t pa[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      float p0 = exp2f(s[n][0] - mx[0]);
+      float p1 = exp2f(s[n][1] - mx[0]);
+      float p2 = exp2f(s[n][2] - mx[1]);
+      float p3 = exp2f(s[n][3] - mx[1]);
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      if constexpr (QUANT) {
+        const float v0 = v_sc[kb + n * 8 + 2 * t4];
+        const float v1 = v_sc[kb + n * 8 + 2 * t4 + 1];
+        p0 *= v0;
+        p1 *= v1;
+        p2 *= v0;
+        p3 *= v1;
+      }
+      pa[n * 2] = pack_bf16(p0, p1);
+      pa[n * 2 + 1] = pack_bf16(p2, p3);
+    }
+
+    // O += P V
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bv[4];
+      const int key = kb + (lane & 7) + (((lane >> 3) & 1) << 3);
+      const int col = dp * 16 + ((lane >> 4) << 3);
+      ldsm4_trans(smem_addr(vt + key * ROW + col), bv);
+      mma16816(acc[2 * dp], pa, bv[0], bv[1]);
+      mma16816(acc[2 * dp + 1], pa, bv[2], bv[3]);
+    }
+  }
+
+  cp_async_wait<0>();
+  // every warp's state, plain rows: m[ROWS], l[ROWS], acc[ROWS][SROW]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+  float* st = reinterpret_cast<float*>(smem);
+  __syncthreads();   // every warp is done with the tiles (the space is reused)
+  {
+    float* mine = st + warp * L::STATE;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = g + 8 * r;
+      if (t4 == 0) {
+        mine[row] = m[r];
+        mine[ROWS + row] = l[r];
+      }
+      float* ar = mine + 2 * ROWS + row * SROW + 2 * t4;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+        *reinterpret_cast<float2*>(ar + dt * 8) =
+            make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
+    }
+  }
+  __syncthreads();
+
+  // the CTA's state: the warps' merged by a max-shift, 4 columns a thread
+  constexpr int C4 = D / 4;
+  float* cst = st + NWARPS * L::STATE;
+  for (int e = tid; e < rows * C4; e += THREADS) {
+    const int row = e / C4;
+    const int col = (e - row * C4) * 4;
+    float m_star = kNegInf;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) m_star = fmaxf(m_star, st[w * L::STATE + row]);
+    float l_star = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+      const float* ws = st + w * L::STATE;
+      const float f = exp2f(ws[row] - m_star);
+      l_star += ws[ROWS + row] * f;
+      const float4 v = *reinterpret_cast<const float4*>(ws + 2 * ROWS + row * SROW + col);
+      a.x += v.x * f;
+      a.y += v.y * f;
+      a.z += v.z * f;
+      a.w += v.w * f;
+    }
+    *reinterpret_cast<float4*>(cst + 2 * ROWS + row * SROW + col) = a;
+    if (col == 0) {
+      cst[row] = m_star;
+      cst[ROWS + row] = l_star;
+    }
+  }
+  cluster.sync();    // every rank's state is in its shared memory
+
+  // each rank's weight per row, e^(m_k - m*) / l*, through distributed
+  // shared memory (an empty lane: m* = -1e30, l* = 0 and acc = 0: o = 0)
+  float* wts = cst + L::STATE;       // [MAX_CLUSTER][ROWS]
+  if (tid < rows) {
+    float mk[MAX_CLUSTER], lk[MAX_CLUSTER];
+    float m_star = kNegInf;
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k) {
+      if (k < c) {
+        const float* ps = cluster.map_shared_rank(cst, k);
+        mk[k] = ps[tid];
+        lk[k] = ps[ROWS + tid];
+        m_star = fmaxf(m_star, mk[k]);
+      }
+    }
+    float l_star = 0.f;
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k) {
+      if (k < c) {
+        mk[k] = exp2f(mk[k] - m_star);
+        l_star += lk[k] * mk[k];
+      }
+    }
+    const float inv = 1.f / (l_star == 0.f ? 1.f : l_star);
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k)
+      if (k < c) wts[k * ROWS + tid] = mk[k] * inv;
+  }
+  __syncthreads();
+
+  // rank r stores the 4-column chunks r * THREADS + tid, + c * THREADS,
+  // ... of the G x D outputs
+  for (int e = rank * THREADS + tid; e < rows * C4; e += c * THREADS) {
+    const int row = e / C4;
+    const int col = (e - row * C4) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k) {
+      if (k < c) {
+        const float w = wts[k * ROWS + row];
+        const float4 v = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(cst, k) + 2 * ROWS + row * SROW + col);
+        a.x += v.x * w;
+        a.y += v.y * w;
+        a.z += v.z * w;
+        a.w += v.w * w;
+      }
+    }
+    uint2 out;
+    out.x = pack_bf16(a.x, a.y);
+    out.y = pack_bf16(a.z, a.w);
+    *reinterpret_cast<uint2*>(o + qoff + (size_t)row * D + col) = out;
+  }
+  cluster.sync();    // no CTA leaves while a peer still reads its state
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+using namespace dec;
+
+struct Args {
+  const void* q;
+  const void* kp;
+  const void* vp;
+  const float* ksc;      // int8 pools only
+  const float* vsc;
+  const int* table;
+  const int* kv_len;
+  void* o;
+  int B, H, Hkv, psz, nblk, D, cluster;
+  float scale;
+  cudaStream_t st;
+};
+
+template <typename S, int D>
+size_t smem_bytes(int nblk) {
+  return Smem<S, D>::tbl_off + (size_t)nblk * sizeof(int);
+}
+
+// a launch of `kern` with clusters of c CTAs along x
+cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, int c,
+                                  cudaLaunchAttribute* attr,
+                                  cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+bool cluster_ok(int c) { return c == 1 || c == 2 || c == 4 || c == 8; }
+
+template <typename S, int D>
+cudaError_t launch(const Args& a) {
+  if (a.B < 1 || a.Hkv < 1 || a.H < a.Hkv || a.H % a.Hkv || a.psz < 1 ||
+      a.nblk < 1 || !cluster_ok(a.cluster))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<S, D>(a.nblk);
+  auto kern = paged_decode_tc_kernel<S, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int G = a.H / a.Hkv;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3(a.B * a.Hkv * a.cluster, (G + ROWS - 1) / ROWS), smem, a.cluster,
+      &attr, a.st);
+  err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const S*>(a.kp), static_cast<const S*>(a.vp), a.ksc, a.vsc,
+      a.table, a.kv_len, static_cast<__nv_bfloat16*>(a.o), a.H, a.Hkv, a.psz,
+      a.nblk, a.scale * kLog2e);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename S>
+cudaError_t by_dim(const Args& a) {
+  switch (a.D) {
+    case 16: return launch<S, 16>(a);
+    case 32: return launch<S, 32>(a);
+    case 64: return launch<S, 64>(a);
+    case 128: return launch<S, 128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// out[0..3] as instance_info; out[4..7] the clusters of 1, 2, 4 and 8
+// CTAs the card co-schedules (cudaOccupancyMaxActiveClusters)
+template <typename S, int D>
+cudaError_t info(int nblk, int* out) {
+  auto kern = paged_decode_tc_kernel<S, D>;
+  const size_t smem = smem_bytes<S, D>(nblk);
+  cudaError_t err = instance_info(kern, THREADS, smem, out);
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
+    const int c = 1 << i;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(dim3(c * 16), smem, c, &attr, nullptr);
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+    out[4 + i] = n;
+  }
+  return err;
+}
+
+template <int D>
+cudaError_t info_by_kind(int kind, int nblk, int* out) {
+  switch (kind) {
+    case 0: return info<__nv_bfloat16, D>(nblk, out);
+    case 1: return info<int8_t, D>(nblk, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// A bf16 query and output only (float32 goes to paged_attention.cu).
+// `cluster` is c, the CTAs per (lane, kv head): 1, 2, 4 or 8.  Each entry
+// point returns the launch's cudaError_t (0 = success).  The caller
+// validates shapes, contiguity, alignment and that every table entry below
+// ceil(kv_len / psz) names a page of the pools, and allocates o; the
+// kernel never allocates or syncs.
+
+// K3: bf16 pools.
+extern "C" int repro_flash_paged_decode_tc(const void* q, const void* k_pool,
+                                           const void* v_pool,
+                                           const void* page_table,
+                                           const void* kv_len, void* o, int B,
+                                           int H, int Hkv, int psz, int nblk,
+                                           int D, int cluster, float scale,
+                                           void* stream) {
+  const Args a{q, k_pool, v_pool, nullptr, nullptr,
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(kv_len), o, B, H, Hkv, psz, nblk, D,
+               cluster, scale, static_cast<cudaStream_t>(stream)};
+  return by_dim<__nv_bfloat16>(a);
+}
+
+// K6a: int8 pools with scales (P, Hkv, psz).
+extern "C" int repro_flash_paged_decode_quant_tc(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* page_table,
+    const void* kv_len, void* o, int B, int H, int Hkv, int psz, int nblk,
+    int D, int cluster, float scale, void* stream) {
+  const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(kv_len), o, B, H, Hkv, psz, nblk, D,
+               cluster, scale, static_cast<cudaStream_t>(stream)};
+  return by_dim<int8_t>(a);
+}
+
+// The instance for head dim D of kind 0 (K3: bf16 pools) or 1 (K6a: int8
+// pools): out[0..7] = registers per thread, local-memory (spill) bytes,
+// dynamic shared memory in bytes at nblk table entries, resident CTAs per
+// SM, and the clusters of 1, 2, 4 and 8 CTAs the card holds at once.
+extern "C" int repro_paged_decode_tc_info(int D, int kind, int nblk,
+                                          int* out) {
+  switch (D) {
+    case 16: return info_by_kind<16>(kind, nblk, out);
+    case 32: return info_by_kind<32>(kind, nblk, out);
+    case 64: return info_by_kind<64>(kind, nblk, out);
+    case 128: return info_by_kind<128>(kind, nblk, out);
+    default: return cudaErrorInvalidValue;
+  }
+}

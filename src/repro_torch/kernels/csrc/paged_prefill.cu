@@ -140,32 +140,6 @@ struct Smem {
 };
 }  // namespace tc
 
-// four int8 codes of one word -> two registers of two bf16, exactly and on
-// the full-rate ALUs: code c sits as byte c + 128 in the float 2^23 + c +
-// 128, so subtracting 2^23 + 128 leaves c; |c| <= 127 has at most 8
-// significant bits, so the float's low 16 bits are 0 and its high half is
-// bf16(c)
-__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
-                                       uint32_t& hi) {
-  const uint32_t u = w ^ 0x80808080u;
-  constexpr float kMagic = 8388736.f;   // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - kMagic;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - kMagic;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - kMagic;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - kMagic;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
-}
-
-// 8 int8 codes (8-byte aligned) -> 8 bf16 (16-byte aligned)
-__device__ __forceinline__ void widen8(const int8_t* src, __nv_bfloat16* dst) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(src);
-  uint4 out;
-  widen4(raw.x, out.x, out.y);
-  widen4(raw.y, out.z, out.w);
-  *reinterpret_cast<uint4*>(dst) = out;
-}
-
 // ---------------------------------------------------------------------------
 // K4 / K6c / K5b / K6d: q (B, H, C, D) bf16, pools (P, Hkv, psz, D) of S
 // (bf16, or int8 with scales (P, Hkv, psz) fp32), table (B, nblk), start

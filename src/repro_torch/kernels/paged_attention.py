@@ -1,17 +1,27 @@
-"""Python wrappers of the paged CUDA attention kernels (``csrc/paged_attention.cu``
-and, for the prefill chunk with a bf16 query over bf16 or int8 pools, in
-one pass or split, ``csrc/paged_prefill.cu``).
+"""Python wrappers of the paged CUDA attention kernels (``csrc/paged_attention.cu``;
+``csrc/paged_decode.cu`` for the one-pass decode with a bf16 query over
+bf16 or int8 pools; ``csrc/paged_prefill.cu`` for the prefill chunk with a
+bf16 query over bf16 or int8 pools, in one pass or split).
 
 * :func:`flash_paged_decode` — one query token per sequence against K/V
   page pools (P, Hkv, psz, D), each sequence reaching its pages through a
   row of ``page_table`` (B, nblk) int32, masked to ``kv_len[b]`` keys; a
   row with ``kv_len == 0`` gives exactly 0.  ``num_splits`` 1 (the
-  default) launches K3; more launches K5a (:func:`paged_decode_split`, one
-  block per split of the lane's live keys, fp32 partial softmax states)
-  and K5c (:func:`split_combine`, the merge).
+  default) launches K3: for a bf16 query ``paged_decode.cu``'s kernel, one
+  thread-block cluster of :func:`cluster_size` CTAs per (lane, kv head),
+  each CTA walking a contiguous share of the lane's key tiles (rows by
+  16-byte ``cp.async`` copies, products on the tensor cores with P rounded
+  to bf16) and the CTAs merging their softmax states through distributed
+  shared memory; for a float32 query the SIMT template of
+  ``paged_attention.cu``, whose fp32 products keep the fp32 tolerance.
+  ``last_kernel`` on the function names the one launched last.  More
+  splits launch K5a (:func:`paged_decode_split`, one block per split of
+  the lane's live keys, fp32 partial softmax states, SIMT for both query
+  types) and K5c (:func:`split_combine`, the merge).
 * :func:`flash_paged_decode_quant` — the same over int8 pools with fp32
-  per-row scales (P, Hkv, psz): K6a, or K6b
-  (:func:`paged_decode_split_quant`) + K5c.
+  per-row scales (P, Hkv, psz): K6a (the cluster kernel for a bf16 query,
+  the SIMT template for float32), or K6b (:func:`paged_decode_split_quant`)
+  + K5c.
 * :func:`flash_paged_prefill` (K4) — a chunk of C query tokens per
   sequence at absolute positions ``start[b] + i``, causal over the
   committed paged prefix plus the chunk's own triangle; key ``j`` is
@@ -35,7 +45,8 @@ Table entries past ``ceil(kv_len / psz)`` are never read and may point
 anywhere (page 0 by convention); entries below it must name pages of the
 pools.  The tensor-core kernel (K4, K5b, K6c and K6d with a bf16 query)
 takes a group size G = H / Hkv that divides its 32-row tile (a power of
-two up to 32); its wrappers raise otherwise.
+two up to 32); its wrappers raise otherwise.  The decode kernel of a bf16
+query takes any G: its query rows come in 16-row slabs, one cluster each.
 The wrappers follow the contract of :mod:`.flash_attention`:
 CUDA tensors only, checked; outputs and partials from ``torch.empty``;
 launch on the current stream without syncing; raise on a launch error;
@@ -61,6 +72,31 @@ TC_TILE_ROWS = 32
 TC_TILE_KEYS = 128
 #: its name, as ``last_kernel`` on the wrappers gives it
 TC_KERNEL = "paged_prefill_tc_kernel"
+#: the one-pass decode kernel of a bf16 query (K3, K6a) and its float32
+#: counterpart, as ``last_kernel`` on the decode wrappers gives them
+DECODE_TC_KERNEL = "paged_decode_tc_kernel"
+DECODE_SIMT_KERNEL = "paged_decode_kernel"
+#: the CTAs of one cluster of the decode kernel, per (lane, kv head)
+CLUSTER_SIZES = (1, 2, 4, 8)
+#: keys per tile of the decode kernel (a stage of its ring); a cluster's
+#: rank walks a contiguous share of the lane's tiles
+DECODE_TILE_KEYS = 64
+
+
+def cluster_size(b: int, hkv: int, sm_count: int) -> int:
+    """The CTAs per (lane, kv head) cluster of the bf16 decode kernel: the
+    largest of :data:`CLUSTER_SIZES` with ``b * hkv * c <= sm_count``, so
+    that every CTA has an SM of its own in one wave (1 when even that does
+    not fit).  From the shapes alone: it never reads ``kv_len``, which
+    would sync the decode step with the host."""
+    fits = [c for c in CLUSTER_SIZES if b * hkv * c <= sm_count]
+    return max(fits, default=1)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (a host query, cached)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
@@ -97,6 +133,21 @@ def _tc_lib() -> ctypes.CDLL:
             ("repro_paged_prefill_split_quant_tc",
              [_P] * 11 + [_I] * 9 + [_F, _P]),
             ("repro_paged_prefill_tc_info", [_I] * 3 + [_P])):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    return lib
+
+
+@functools.cache
+def _dec_lib() -> ctypes.CDLL:
+    """The one-pass decode library of a bf16 query (``csrc/paged_decode.cu``)."""
+    lib = build.load("paged_decode")
+    for name, argtypes in (
+            ("repro_flash_paged_decode_tc", [_P] * 6 + [_I] * 7 + [_F, _P]),
+            ("repro_flash_paged_decode_quant_tc",
+             [_P] * 8 + [_I] * 7 + [_F, _P]),
+            ("repro_paged_decode_tc_info", [_I] * 3 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _I
@@ -147,6 +198,49 @@ def tc_info(d: int, kind: str, nblk: int = 0) -> dict[str, int]:
     _raise_on("tc_info", err)
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
+
+
+#: the instances of the decode kernel, by kind: K3 (bf16 pools) and K6a
+#: (int8 pools)
+DECODE_KINDS = ("bf16", "int8")
+
+
+def decode_tc_info(d: int, kind: str, nblk: int = 0) -> dict:
+    """What the card makes of the bf16 decode instance for head dim ``d``
+    of ``kind`` (one of :data:`DECODE_KINDS`): registers per thread, local
+    (spill) bytes, dynamic shared memory at ``nblk`` table entries,
+    resident CTAs per SM, and under ``clusters`` the clusters of each of
+    :data:`CLUSTER_SIZES` CTAs the card holds at once.  Needs the card."""
+    out = (ctypes.c_int * 8)()
+    err = _dec_lib().repro_paged_decode_tc_info(
+        d, DECODE_KINDS.index(kind), nblk, ctypes.addressof(out))
+    _raise_on("decode_tc_info", err)
+    info = dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), out[:4]))
+    info["clusters"] = dict(zip(CLUSTER_SIZES, out[4:]))
+    return info
+
+
+def _decode_entry(name: str, q: torch.Tensor, b: int, hkv: int, quant: bool,
+                  cluster: int | None):
+    """The C entry of K3 (K6a with ``quant``) for q's type, the name of the
+    kernel it launches and its trailing arguments: for bfloat16 the
+    cluster kernel and its cluster size (``cluster``, one of
+    :data:`CLUSTER_SIZES`, else :func:`cluster_size` of the card), for
+    float32 the SIMT template and the dtype code."""
+    suffix = "_quant" if quant else ""
+    if q.dtype == torch.bfloat16:
+        if cluster is None:
+            index = q.device.index
+            cluster = cluster_size(b, hkv, sm_count(
+                torch.cuda.current_device() if index is None else index))
+        if cluster not in CLUSTER_SIZES:
+            raise ValueError(f"{name}: cluster size {cluster!r} not in "
+                             f"{CLUSTER_SIZES}")
+        fn = getattr(_dec_lib(), f"repro_flash_paged_decode{suffix}_tc")
+        return fn, DECODE_TC_KERNEL, cluster
+    fn = getattr(_lib(), f"repro_flash_paged_decode{suffix}")
+    return fn, DECODE_SIMT_KERNEL, _DTYPES[q.dtype]
 
 
 def _check(name: str, q: torch.Tensor, k_pool: torch.Tensor,
@@ -322,11 +416,14 @@ def paged_decode_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
 def flash_paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, page_table: torch.Tensor,
                        kv_len: torch.Tensor, *, scale: float | None = None,
-                       num_splits: int | None = None) -> torch.Tensor:
+                       num_splits: int | None = None,
+                       _cluster: int | None = None) -> torch.Tensor:
     """Paged decode: q (B, H, 1, D), pools (P, Hkv, psz, D), page_table
     (B, nblk) and kv_len (B,) int32 on q's device (kv_len is clamped to
     [0, nblk * psz] on the card).  Output like q.  ``num_splits`` (clamped
-    to nblk) above 1 runs K5a + K5c, else K3."""
+    to nblk) above 1 runs K5a + K5c, else K3: the cluster kernel for a
+    bfloat16 q, the SIMT template for float32.  ``_cluster`` overrides
+    :func:`cluster_size` (tests only)."""
     _check("flash_paged_decode", q, k_pool, v_pool, page_table, (kv_len,))
     b, h, hkv, psz, d, scale = _decode_shape("flash_paged_decode", q, k_pool,
                                              scale)
@@ -335,15 +432,16 @@ def flash_paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
         m, l, acc = paged_decode_split(q, k_pool, v_pool, page_table, kv_len,
                                        ns, scale=scale)
         return split_combine(m, l, acc, q.dtype).reshape(b, h, 1, d)
+    fn, kernel, last = _decode_entry("flash_paged_decode", q, b, hkv, False,
+                                     _cluster)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _lib().repro_flash_paged_decode(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, h,
-            hkv, psz, page_table.shape[1], d, _DTYPES[q.dtype], scale,
-            _stream(q))
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b,
+                 h, hkv, psz, page_table.shape[1], d, last, scale, _stream(q))
     _raise_on("flash_paged_decode", err)
     flash_paged_decode.launches += 1
+    flash_paged_decode.last_kernel = kernel
     return out
 
 
@@ -352,10 +450,12 @@ def flash_paged_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
                              v_scale: torch.Tensor, page_table: torch.Tensor,
                              kv_len: torch.Tensor, *,
                              scale: float | None = None,
-                             num_splits: int | None = None) -> torch.Tensor:
+                             num_splits: int | None = None,
+                             _cluster: int | None = None) -> torch.Tensor:
     """:func:`flash_paged_decode` over int8 pools (P, Hkv, psz, D) with
     float32 per-row scales (P, Hkv, psz); q float32 or bfloat16, output
-    like q.  K6a, or K6b + K5c for ``num_splits`` above 1."""
+    like q.  K6a (the cluster kernel for bfloat16, as K3), or K6b + K5c
+    for ``num_splits`` above 1."""
     _check("flash_paged_decode_quant", q, k_pool, v_pool, page_table,
            (kv_len,), (k_scale, v_scale))
     b, h, hkv, psz, d, scale = _decode_shape("flash_paged_decode_quant", q,
@@ -366,15 +466,17 @@ def flash_paged_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
                                              v_scale, page_table, kv_len, ns,
                                              scale=scale)
         return split_combine(m, l, acc, q.dtype).reshape(b, h, 1, d)
+    fn, kernel, last = _decode_entry("flash_paged_decode_quant", q, b, hkv,
+                                     True, _cluster)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _lib().repro_flash_paged_decode_quant(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), b, h, hkv, psz,
-            page_table.shape[1], d, _DTYPES[q.dtype], scale, _stream(q))
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 k_scale.data_ptr(), v_scale.data_ptr(),
+                 page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b,
+                 h, hkv, psz, page_table.shape[1], d, last, scale, _stream(q))
     _raise_on("flash_paged_decode_quant", err)
     flash_paged_decode_quant.launches += 1
+    flash_paged_decode_quant.last_kernel = kernel
     return out
 
 
@@ -517,5 +619,6 @@ KERNELS = (flash_paged_decode, paged_decode_split, split_combine,
            paged_prefill_split, paged_prefill_split_quant)
 for _kernel in KERNELS:
     _kernel.launches = 0
+flash_paged_decode.last_kernel = flash_paged_decode_quant.last_kernel = None
 flash_paged_prefill.last_kernel = flash_paged_prefill_quant.last_kernel = None
 paged_prefill_split.last_kernel = paged_prefill_split_quant.last_kernel = None

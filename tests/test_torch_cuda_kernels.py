@@ -171,6 +171,9 @@ def test_paged_decode_kernel_matches_plain(cuda_device, dtype, h, hkv, d,
     want = ref.paged_decode_ref(q, kp, vp, table, kv_len)
     torch.cuda.synchronize()
     assert pa.flash_paged_decode.launches == n + 1
+    assert pa.flash_paged_decode.last_kernel == (
+        pa.DECODE_TC_KERNEL if dtype == torch.bfloat16
+        else pa.DECODE_SIMT_KERNEL)
     assert got.dtype == dtype
     close(got, want, dtype)
 
@@ -312,6 +315,10 @@ def test_int8_decode_kernels_match_plain(cuda_device, dtype, h, hkv, d, psz,
                            num_splits=ns)
     torch.cuda.synchronize()
     assert kernel.launches == n + 1
+    if ns == 1:
+        assert kernel.last_kernel == (
+            pa.DECODE_TC_KERNEL if dtype == torch.bfloat16
+            else pa.DECODE_SIMT_KERNEL)
     assert got.dtype == dtype
     close(got, ref.paged_decode_ref(q, k8, v8, table, kv_len, k_scale=ks,
                                     v_scale=vs), dtype)
@@ -817,6 +824,92 @@ def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                                        torch.float32)
     with pytest.raises(RuntimeError, match="launch failed"):
         k9.selective_scan(x1, dt1, a1, b1, c1, d1, chunk=4096)
+
+
+# --------------------------------------------------------------------------
+# K3 / K6a with a bf16 query: the cluster kernel (csrc/paged_decode.cu)
+# --------------------------------------------------------------------------
+
+
+def decode_pools(kp, vp, quant):
+    """The pools (and scales) a decode kernel reads, and its wrapper."""
+    if quant:
+        (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+        return (k8, v8, ks, vs), pa.flash_paged_decode_quant
+    return (kp, vp), pa.flash_paged_decode
+
+
+def plain_decode(q, pools, table, lens):
+    k, v, *scales = pools
+    ks, vs = scales if scales else (None, None)
+    return ref.paged_decode_ref(q, k, v, table, lens, k_scale=ks,
+                                v_scale=vs)
+
+
+@pytest.mark.parametrize("cluster", pa.CLUSTER_SIZES)
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("h,hkv,d,psz", [(32, 4, 128, 16), (32, 32, 128, 16),
+                                         (12, 4, 64, 8), (16, 1, 32, 16),
+                                         (40, 1, 16, 12)])
+def test_tc_decode_every_cluster_size_matches_plain(cuda_device, h, hkv, d,
+                                                    psz, quant, cluster):
+    """Every cluster size through the wrapper's private keyword: G 8, 1,
+    3, 16 and 40 (three 16-row slabs), pages of 12 (runs that straddle a
+    tile), a lane of kv_len 0 (exactly 0), one shorter than a tile (empty
+    ranks), one mid-page and one full."""
+    kv_len = [0, 37, 157, 20 * psz]
+    q, kp, vp, table, lens = paged_inputs(4, h, hkv, d, psz, 20, kv_len,
+                                          torch.bfloat16, cuda_device, 120)
+    pools, kernel = decode_pools(kp, vp, quant)
+    n = kernel.launches
+    got = kernel(q, *pools, table, lens, _cluster=cluster)
+    torch.cuda.synchronize()
+    assert kernel.launches == n + 1
+    assert kernel.last_kernel == pa.DECODE_TC_KERNEL
+    assert torch.all(got[0] == 0)
+    close(got[1:], plain_decode(q, pools, table, lens)[1:], torch.bfloat16)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("psz", [8, 16, 12])
+def test_tc_decode_never_uses_the_slots_past_kv_len(cuda_device, psz, quant):
+    """The slots past kv_len in each lane's last live page hold NaN (int8
+    pools: codes 127 and NaN scales): the output is finite, equals the
+    kernel's on the same pools with those slots zeroed, and matches the
+    plain version there."""
+    kv_len = [37, 157, 5, 300]
+    q, kp, vp, table, lens = paged_inputs(4, 32, 4, 128, psz, 40, kv_len,
+                                          torch.bfloat16, cuda_device, 130)
+    pools, kernel = decode_pools(kp, vp, quant)
+    dirty = [t.clone() for t in pools]
+    zeroed = [t.clone() for t in pools]
+    for i, n in enumerate(kv_len):
+        if n % psz:
+            page = int(table[i, n // psz])
+            for t, z in zip(dirty, zeroed):
+                t[page, :, n % psz:] = (
+                    127 if t.dtype == torch.int8 else float("nan"))
+                z[page, :, n % psz:] = 0
+    got = kernel(q, *dirty, table, lens)
+    want = kernel(q, *zeroed, table, lens)
+    torch.cuda.synchronize()
+    assert kernel.last_kernel == pa.DECODE_TC_KERNEL
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    close(got, plain_decode(q, zeroed, table, lens), torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("kind", pa.DECODE_KINDS)
+def test_tc_decode_instances_fit_the_card(cuda_device, d, kind):
+    """Every instance (K3 and K6a) fits two CTAs an SM at a 64-entry table,
+    the card holds clusters of every size, and D 128 builds without
+    spilling."""
+    info = pa.decode_tc_info(d, kind, 64)
+    assert info["blocks_per_sm"] >= 2
+    assert all(n >= 1 for n in info["clusters"].values())
+    if d == 128:
+        assert info["local_bytes"] == 0
 
 
 # --------------------------------------------------------------------------
