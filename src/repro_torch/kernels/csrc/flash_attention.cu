@@ -5,8 +5,10 @@
 // K1  flash_attention_tc_kernel  (bf16) and flash_attention_kernel (float32)
 //     replace the TPU kernel src/repro/kernels/flash_attention.py:
 //     flash_attention / _attn_kernel.
-// K2  flash_decode_kernel        replaces the TPU kernel
-//     src/repro/kernels/flash_attention.py: flash_decode / _decode_kernel.
+// K2  flash_decode_kernel        (float32) replaces the TPU kernel
+//     src/repro/kernels/flash_attention.py: flash_decode / _decode_kernel;
+//     a bf16 query runs the DENSE mode of paged_decode.cu's cluster
+//     kernel instead (the wrapper picks by the query's type).
 //
 // Semantics kept from the TPU kernels: the online softmax runs in fp32,
 // masked scores are -1e30 (not -inf), fully masked key tiles are skipped,
@@ -70,16 +72,17 @@
 //    the row max and sum are warp shuffles); each warp owns 16 query rows
 //    and keeps their output rows in registers.  A TF32 product would break
 //    the fp32 tolerance.
-//  * K2: one block of 8 warps per (batch, kv head) holding the G grouped
-//    query rows (the same fold as the TPU kernel), so each K/V element is
-//    read from device memory once for all G rows (a group of more than 8
-//    rows is split into blocks of 8, 4 or 2 along blockIdx.y).  The warps
-//    split the cache into interleaved 32-key tiles up to kv_len[b] only,
-//    each with its own online softmax state, merged at the end by a
-//    max-shift in shared memory.  At 4 lanes of yi-6b that is 16 blocks on
-//    132 SMs: the card is mostly idle, and split-KV (K5) is where that gets
-//    fixed.  Tensor cores (wgmma) and TMA are left for the PR that makes
-//    this kernel fast.
+//  * K2 float32: one block of 8 warps per (batch, kv head) holding the G
+//    grouped query rows (the same fold as the TPU kernel), so each K/V
+//    element is read from device memory once for all G rows (a group of
+//    more than 8 rows is split into blocks of 8, 4 or 2 along
+//    blockIdx.y).  The warps split the cache into interleaved 32-key
+//    tiles up to kv_len[b] only, each with its own online softmax state,
+//    merged at the end by a max-shift in shared memory.  At 4 lanes of yi-6b that is 16 blocks on
+//    132 SMs: the card is mostly idle.  The bf16 K2 of the main path is
+//    therefore paged_decode.cu's cluster kernel (c CTAs per lane and kv
+//    head, cp.async rows, mma.sync); this one keeps the fp32 products the
+//    float32 tolerance needs.
 
 #include "mma.cuh"
 
@@ -743,10 +746,8 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_len);
-  if (dtype == 0)
+  if (dtype == 0)   // bf16: paged_decode.cu's repro_flash_decode_tc
     return decode_by_dim<float>(q, k, v, lens, o, B, H, Hkv, S, D, scale, st);
-  if (dtype == 1)
-    return decode_by_dim<__nv_bfloat16>(q, k, v, lens, o, B, H, Hkv, S, D, scale, st);
   return cudaErrorInvalidValue;
 }
 

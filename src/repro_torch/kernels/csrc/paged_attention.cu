@@ -9,7 +9,8 @@
 // K3  paged_decode_kernel<float, normalise> flash_paged_decode /
 //                                          _paged_decode_kernel (num_splits=1),
 //                                          float32 query only
-// K5a paged_decode_kernel<fp, partials>    _paged_decode_split_kernel
+// K5a paged_decode_kernel<float, partials> _paged_decode_split_kernel,
+//                                          float32 query only
 // K5c split_combine_kernel                 _combine_splits /
 //                                          _split_combine_kernel
 // K6a paged_decode_kernel<float, int8, normalise> flash_paged_decode_quant /
@@ -27,11 +28,12 @@
 // K6d paged_prefill_kernel<float, int8, partials>
 //                                          _paged_prefill_split_quant_kernel,
 //                                          float32 query only
-// With a bf16 query, the main path, K3 and K6a run in paged_decode.cu (a
-// thread-block cluster per lane and kv head, bulk page copies, tensor
-// cores) and K4, K5b, K6c and K6d on the tensor cores in paged_prefill.cu;
-// their instances here take float32 only (a TF32 product would break the
-// fp32 tolerance).  K5a and K6b keep their bf16 instances.
+// With a bf16 query, the main path, K3, K6a and K5a run in paged_decode.cu
+// (a thread-block cluster per lane and kv head, cp.async row copies,
+// tensor cores; K5a as its partials mode) and K4, K5b, K6c and K6d on the
+// tensor cores in paged_prefill.cu; their instances here take float32
+// only (a TF32 product would break the fp32 tolerance).  K6b keeps its
+// bf16 instance.
 //
 // Semantics kept from the TPU kernels: key j of sequence b lives in page
 // table[b, j / psz] at slot j % psz; only keys j < kv_len[b] are read (table
@@ -50,8 +52,8 @@
 // at four yi-6b lanes of ~520 tokens, half that in int8), a prefill chunk
 // reads its Q and the committed K/V prefix once.  These versions keep the
 // structure of K2 and K1, SIMT fp32 products from shared memory:
-//  * decode (K3/K6a with a float32 query, K5a/K6b with either; a bf16
-//    query's one pass is paged_decode.cu's): one block of 8 warps per
+//  * decode (K3/K6a/K5a with a float32 query, K6b with either; a bf16
+//    query's one pass and K5a are paged_decode.cu's): one block of 8 warps per
 //    (lane, kv head[, split]) holding the G grouped query rows, so each K/V
 //    row is read from device memory once for all G rows.  The block stages the lane's live page-table entries
 //    in shared memory once; each lane of a warp owns one key of a 32-key
@@ -571,13 +573,13 @@ cudaError_t decode_by_dim(const DecodeArgs& a) {
   }
 }
 
-// dtype of q (and of fp pools): 0 = float32, 1 = bfloat16; K3 and K6a take
-// float32 only (bf16: paged_decode.cu), K5a and K6b both
+// dtype of q (and of fp pools): 0 = float32, 1 = bfloat16; K3, K6a and K5a
+// take float32 only (bf16: paged_decode.cu), K6b both
 template <bool QUANT, bool SPLIT>
 cudaError_t decode(const DecodeArgs& a, int dtype) {
   if (dtype == 0)
     return decode_by_dim<float, std::conditional_t<QUANT, int8_t, float>, SPLIT>(a);
-  if constexpr (SPLIT) {
+  if constexpr (QUANT && SPLIT) {
     if (dtype == 1)
       return decode_by_dim<__nv_bfloat16,
                            std::conditional_t<QUANT, int8_t, __nv_bfloat16>, SPLIT>(a);
@@ -683,7 +685,8 @@ extern "C" int repro_flash_paged_decode_quant(
   return decode<true, false>(a, dtype);
 }
 
-// K5a: fp pools, ns splits, partials m, l (B, Hkv, ns, G), acc (.., D).
+// K5a with a float32 query (dtype 0 only): float32 pools, ns splits,
+// partials m, l (B, Hkv, ns, G), acc (.., D).
 extern "C" int repro_paged_decode_split(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* kv_len, void* m, void* l, void* acc,

@@ -1,17 +1,45 @@
-// Paged decode on Hopper (sm_90a) with a bf16 query: one query token per
+// Decode on Hopper (sm_90a) with a bf16 query: one query token per
 // sequence against bf16 K/V page pools (P, Hkv, psz, D), or int8 pools with
 // per-row fp32 scales (P, Hkv, psz), each sequence reaching its pages
-// through a row of a page table (B, nblk) int32.  Plain C interface, bound
-// from Python with ctypes (kernels/paged_attention.py); no PyTorch headers.
+// through a row of a page table (B, nblk) int32; or against dense bf16
+// strips (B, Hkv, S, D).  Plain C interface, bound from Python with ctypes
+// (kernels/paged_attention.py, kernels/flash_attention.py); no PyTorch
+// headers.
 //
 // Replaces the Pallas kernels of src/repro/kernels/flash_attention.py:
-// K3  paged_decode_tc_kernel<bf16>  flash_paged_decode (:434) /
+// K3  paged_decode_tc_kernel<bf16, D, PAGED>     flash_paged_decode (:434) /
 //                                   _paged_decode_kernel (pallas_call :491)
-// K6a paged_decode_tc_kernel<int8>  flash_paged_decode_quant (:897) /
-//                                   _paged_decode_quant_kernel (:951)
-// both at num_splits = 1.  A float32 query keeps paged_attention.cu's SIMT
-// template (a TF32 product would break the fp32 tolerance), as do the split
-// partials K5a/K6b; the wrapper picks by the query's type.
+// K6a paged_decode_tc_kernel<int8, D, PAGED>     flash_paged_decode_quant
+//                                   (:897) / _paged_decode_quant_kernel (:951)
+//     both at num_splits = 1;
+// K2  paged_decode_tc_kernel<bf16, D, DENSE>     flash_decode (:203) /
+//                                   _decode_kernel (pallas_call :233);
+// K5a paged_decode_tc_kernel<bf16, D, PARTIALS>  flash_paged_decode (:434,
+//                                   num_splits > 1) /
+//                                   _paged_decode_split_kernel (:535).
+// A float32 query keeps the SIMT templates of paged_attention.cu and
+// flash_attention.cu (a TF32 product would break the fp32 tolerance), as
+// does K6b (the int8 split partials) for now; the wrappers pick by the
+// query's type.
+//
+// The three modes share every mechanism below and differ only where the
+// rows come from and where the state goes:
+//  PAGED     rows through the page table, the cluster merges its ranks'
+//            states through distributed shared memory and stores o;
+//  DENSE     a strip (B, Hkv, S, D) is a pool of B pages of S keys with
+//            table[b] = b, so row (b, hk, key) is (b * Hkv + hk) * S + key
+//            and no table is staged; kv_len is clamped to [0, S] and S
+//            need not be a multiple of the 64-key tile (the copies
+//            zero-fill the tail);
+//  PARTIALS  paged rows, one CTA per split in a cluster of one (grid
+//            B * Hkv * ns): split s walks the s-th contiguous share,
+//            ceil(tiles / ns), of the lane's live 64-key tiles (the rank
+//            rule with c replaced by ns); after the in-CTA warp merge it
+//            stores its (m, l, acc) as fp32 partials m, l (B, Hkv, ns, G),
+//            acc (.., D), m in natural-log units as K5c
+//            (paged_attention.cu's split_combine_kernel) reads them, and
+//            skips both cluster barriers.  An empty split stores (-1e30,
+//            0, 0); only the G live rows of a slab are stored.
 //
 // Semantics of the TPU kernels: key j of sequence b lives in page
 // table[b, j / psz] at slot j % psz; only keys j < kv_len[b] are read
@@ -36,8 +64,9 @@
 //  1. too few blocks (one per lane and kv head: 16 of 132 SMs) -> one
 //     thread-block cluster of c CTAs per (lane, kv head, 16 query rows),
 //     c chosen on the host from the shapes alone (kernels/paged_attention.py
-//     cluster_size: the largest of 1, 2, 4, 8 with B * Hkv * c <= the SM
-//     count; 8 at yi-6b's four lanes, 128 CTAs).  CTA rank r walks the
+//     cluster_size: the largest of 1, 2, 4, 8 with B * Hkv * c <= the CTAs
+//     the card holds at once, two an SM; 8 at yi-6b's four lanes, 128
+//     CTAs; 2 at deepseek-7b's, 256).  CTA rank r walks the
 //     r-th contiguous share of the lane's live 64-key tiles, ceil(tiles /
 //     c) of them (the last ranks possibly none), and merges its warps'
 //     (m, l, acc) in its own shared memory; after a cluster barrier each
@@ -71,6 +100,12 @@
 //     quad shuffles), P packed to bf16 in registers as the A operand of P.V
 //     (V by ldmatrix.trans).  Not wgmma: its 64-row minimum would waste at
 //     least 4x the products on G <= 16 rows, and decode is bound by bytes.
+// K2 (the SIMT flash_decode_kernel of flash_attention.cu, 16 blocks at
+// yi-6b's four dense lanes) and K5a (the SIMT template of
+// paged_attention.cu with a split axis) had the same three faults; they
+// are now the DENSE and PARTIALS modes of this kernel, with no new body:
+// K2 launches exactly as K3 does, with no table and no extra allocation,
+// and K5a is K3's walk with its splits in place of a cluster's ranks.
 
 #include <cooperative_groups.h>
 
@@ -88,6 +123,9 @@ constexpr int KN = BN / NWARPS;      // keys per key group
 constexpr int STAGES = 3;
 constexpr int ROWS = 16;             // query rows per CTA: one mma slab
 constexpr int MAX_CLUSTER = 8;
+constexpr float kLn2 = 0.6931471805599453f;
+// what a launch computes (the kernel's MODE; see the head of this file)
+constexpr int PAGED = 0, DENSE = 1, PARTIALS = 2;
 
 // Dynamic shared memory of one CTA, in bytes: the ring of K and V stages
 // as the copies land them (rows of D * sizeof(S) + 16 bytes), for int8
@@ -118,15 +156,18 @@ struct Smem {
 }  // namespace dec
 
 // ---------------------------------------------------------------------------
-// K3 / K6a: q (B, H, 1, D) bf16, pools (P, Hkv, psz, D) of S (bf16, or int8
-// with scales (P, Hkv, psz) fp32), table (B, nblk), kv_len (B,) int32;
-// o (B, H, 1, D) bf16.  Grid (B * Hkv * c, ceil(G / 16)) in clusters of
-// (c, 1, 1): cluster blockIdx.x / c is (lane, kv head), its rank the
-// share of the key tiles; blockIdx.y the 16 query rows.  scale_log2 =
-// scale * log2(e), so the softmax runs on exp2.
+// K3 / K6a / K2 / K5a: q (B, H, 1, D) bf16, pools (P, Hkv, psz, D) of S
+// (bf16, or int8 with scales (P, Hkv, psz) fp32), table (B, nblk), kv_len
+// (B,) int32; o (B, H, 1, D) bf16.  DENSE: the pools are the strips (B,
+// Hkv, S, D), psz = S, nblk = 1, no table.  Grid (B * Hkv * c, ceil(G /
+// 16)) in clusters of (c, 1, 1): cluster blockIdx.x / c is (lane, kv
+// head), its rank the share of the key tiles; blockIdx.y the 16 query
+// rows.  PARTIALS: c = ns in clusters of one, blockIdx.x % ns the split,
+// partials pm, pl, pacc in place of o.  scale_log2 = scale * log2(e), so
+// the softmax runs on exp2.
 // ---------------------------------------------------------------------------
 
-template <typename S, int D>
+template <typename S, int D, int MODE>
 __global__ void __launch_bounds__(dec::THREADS)
 paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const S* __restrict__ kp, const S* __restrict__ vp,
@@ -134,8 +175,10 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const float* __restrict__ vsc,
                        const int* __restrict__ table,
                        const int* __restrict__ kv_len,
-                       __nv_bfloat16* __restrict__ o, int H, int Hkv, int psz,
-                       int nblk, float scale_log2) {
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ pm,
+                       float* __restrict__ pl, float* __restrict__ pacc,
+                       int H, int Hkv, int psz, int nblk, int ns,
+                       float scale_log2) {
   using namespace dec;
   using L = Smem<S, D>;
   constexpr bool QUANT = L::QUANT;
@@ -154,8 +197,11 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int CPR = D * (int)sizeof(S) / 16;   // 16-byte copies per row
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int c = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
+  // the CTAs that share a (lane, kv head) and this one's share: a
+  // cluster's ranks, or the ns splits
+  const int c = MODE == PARTIALS ? ns : (int)cluster.num_blocks();
+  const int rank = MODE == PARTIALS ? (int)(blockIdx.x % ns)
+                                    : (int)cluster.block_rank();
   const int bh = blockIdx.x / c;
   const int b = bh / Hkv;
   const int hk = bh - b * Hkv;
@@ -177,8 +223,10 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int p_lo = t_lo * BN / psz;
   const int p_hi = n_tiles ? (min(t_hi * BN, len) + psz - 1) / psz : p_lo;
 
-  for (int i = tid; i < p_hi - p_lo; i += THREADS)
-    tbl[i] = table[(size_t)b * nblk + p_lo + i];
+  if constexpr (MODE != DENSE) {
+    for (int i = tid; i < p_hi - p_lo; i += THREADS)
+      tbl[i] = table[(size_t)b * nblk + p_lo + i];
+  }
   // the Q slab: rows past the group are zeros, never stored
   for (int i = tid; i < ROWS * CH; i += THREADS) {
     const int r = i / CH;
@@ -191,8 +239,12 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   // pool row of key `key` (a key of the rank's share)
   auto pool_row = [&](int key) -> size_t {
-    const int p = key / psz;
-    return ((size_t)tbl[p - p_lo] * Hkv + hk) * psz + (key - p * psz);
+    if constexpr (MODE == DENSE) {
+      return (size_t)bh * psz + key;   // (b * Hkv + hk) * S + key
+    } else {
+      const int p = key / psz;
+      return ((size_t)tbl[p - p_lo] * Hkv + hk) * psz + (key - p * psz);
+    }
   };
   uint32_t qf[KT][4];
 #pragma unroll
@@ -406,12 +458,23 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
       a.z += v.z * f;
       a.w += v.w * f;
     }
-    *reinterpret_cast<float4*>(cst + 2 * ROWS + row * SROW + col) = a;
-    if (col == 0) {
-      cst[row] = m_star;
-      cst[ROWS + row] = l_star;
+    if constexpr (MODE == PARTIALS) {
+      // the split's state of query row r0 + row: (B, Hkv, ns, G) rows
+      const size_t prow = (size_t)blockIdx.x * G + r0 + row;
+      *reinterpret_cast<float4*>(pacc + prow * D + col) = a;
+      if (col == 0) {
+        pm[prow] = m_star == kNegInf ? kNegInf : m_star * kLn2;
+        pl[prow] = l_star;
+      }
+    } else {
+      *reinterpret_cast<float4*>(cst + 2 * ROWS + row * SROW + col) = a;
+      if (col == 0) {
+        cst[row] = m_star;
+        cst[ROWS + row] = l_star;
+      }
     }
   }
+  if constexpr (MODE == PARTIALS) return;   // K5c merges the splits
   cluster.sync();    // every rank's state is in its shared memory
 
   // each rank's weight per row, e^(m_k - m*) / l*, through distributed
@@ -478,21 +541,24 @@ using namespace dec;
 
 struct Args {
   const void* q;
-  const void* kp;
+  const void* kp;        // pools, or (DENSE) strips
   const void* vp;
   const float* ksc;      // int8 pools only
   const float* vsc;
-  const int* table;
+  const int* table;      // not DENSE
   const int* kv_len;
-  void* o;
-  int B, H, Hkv, psz, nblk, D, cluster;
+  void* o;               // not PARTIALS
+  float* pm;             // PARTIALS only
+  float* pl;
+  float* pacc;
+  int B, H, Hkv, psz, nblk, D, cluster, ns;
   float scale;
   cudaStream_t st;
 };
 
-template <typename S, int D>
+template <typename S, int D, int MODE>
 size_t smem_bytes(int nblk) {
-  return Smem<S, D>::tbl_off + (size_t)nblk * sizeof(int);
+  return Smem<S, D>::tbl_off + (MODE == DENSE ? 0 : (size_t)nblk * sizeof(int));
 }
 
 // a launch of `kern` with clusters of c CTAs along x
@@ -515,47 +581,49 @@ cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, int c,
 
 bool cluster_ok(int c) { return c == 1 || c == 2 || c == 4 || c == 8; }
 
-template <typename S, int D>
+template <typename S, int D, int MODE>
 cudaError_t launch(const Args& a) {
   if (a.B < 1 || a.Hkv < 1 || a.H < a.Hkv || a.H % a.Hkv || a.psz < 1 ||
-      a.nblk < 1 || !cluster_ok(a.cluster))
+      a.nblk < 1 || (MODE == PARTIALS ? a.ns < 1 : !cluster_ok(a.cluster)))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<S, D>(a.nblk);
-  auto kern = paged_decode_tc_kernel<S, D>;
+  const size_t smem = smem_bytes<S, D, MODE>(a.nblk);
+  auto kern = paged_decode_tc_kernel<S, D, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int G = a.H / a.Hkv;
+  // PARTIALS: one CTA per split, in clusters of one
+  const int per = MODE == PARTIALS ? a.ns : a.cluster;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
-      dim3(a.B * a.Hkv * a.cluster, (G + ROWS - 1) / ROWS), smem, a.cluster,
-      &attr, a.st);
+      dim3(a.B * a.Hkv * per, (G + ROWS - 1) / ROWS), smem,
+      MODE == PARTIALS ? 1 : a.cluster, &attr, a.st);
   err = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const S*>(a.kp), static_cast<const S*>(a.vp), a.ksc, a.vsc,
-      a.table, a.kv_len, static_cast<__nv_bfloat16*>(a.o), a.H, a.Hkv, a.psz,
-      a.nblk, a.scale * kLog2e);
+      a.table, a.kv_len, static_cast<__nv_bfloat16*>(a.o), a.pm, a.pl,
+      a.pacc, a.H, a.Hkv, a.psz, a.nblk, a.ns, a.scale * kLog2e);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename S>
+template <typename S, int MODE>
 cudaError_t by_dim(const Args& a) {
   switch (a.D) {
-    case 16: return launch<S, 16>(a);
-    case 32: return launch<S, 32>(a);
-    case 64: return launch<S, 64>(a);
-    case 128: return launch<S, 128>(a);
+    case 16: return launch<S, 16, MODE>(a);
+    case 32: return launch<S, 32, MODE>(a);
+    case 64: return launch<S, 64, MODE>(a);
+    case 128: return launch<S, 128, MODE>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // out[0..3] as instance_info; out[4..7] the clusters of 1, 2, 4 and 8
 // CTAs the card co-schedules (cudaOccupancyMaxActiveClusters)
-template <typename S, int D>
+template <typename S, int D, int MODE>
 cudaError_t info(int nblk, int* out) {
-  auto kern = paged_decode_tc_kernel<S, D>;
-  const size_t smem = smem_bytes<S, D>(nblk);
+  auto kern = paged_decode_tc_kernel<S, D, MODE>;
+  const size_t smem = smem_bytes<S, D, MODE>(nblk);
   cudaError_t err = instance_info(kern, THREADS, smem, out);
   for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
     const int c = 1 << i;
@@ -572,20 +640,22 @@ cudaError_t info(int nblk, int* out) {
 template <int D>
 cudaError_t info_by_kind(int kind, int nblk, int* out) {
   switch (kind) {
-    case 0: return info<__nv_bfloat16, D>(nblk, out);
-    case 1: return info<int8_t, D>(nblk, out);
+    case 0: return info<__nv_bfloat16, D, PAGED>(nblk, out);
+    case 1: return info<int8_t, D, PAGED>(nblk, out);
+    case 2: return info<__nv_bfloat16, D, DENSE>(nblk, out);
+    case 3: return info<__nv_bfloat16, D, PARTIALS>(nblk, out);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// A bf16 query and output only (float32 goes to paged_attention.cu).
-// `cluster` is c, the CTAs per (lane, kv head): 1, 2, 4 or 8.  Each entry
-// point returns the launch's cudaError_t (0 = success).  The caller
-// validates shapes, contiguity, alignment and that every table entry below
-// ceil(kv_len / psz) names a page of the pools, and allocates o; the
-// kernel never allocates or syncs.
+// A bf16 query and output only (float32 goes to paged_attention.cu and
+// flash_attention.cu).  `cluster` is c, the CTAs per (lane, kv head): 1,
+// 2, 4 or 8.  Each entry point returns the launch's cudaError_t (0 =
+// success).  The caller validates shapes, contiguity, alignment and that
+// every table entry below ceil(kv_len / psz) names a page of the pools,
+// and allocates o or the partials; the kernel never allocates or syncs.
 
 // K3: bf16 pools.
 extern "C" int repro_flash_paged_decode_tc(const void* q, const void* k_pool,
@@ -597,9 +667,10 @@ extern "C" int repro_flash_paged_decode_tc(const void* q, const void* k_pool,
                                            void* stream) {
   const Args a{q, k_pool, v_pool, nullptr, nullptr,
                static_cast<const int*>(page_table),
-               static_cast<const int*>(kv_len), o, B, H, Hkv, psz, nblk, D,
-               cluster, scale, static_cast<cudaStream_t>(stream)};
-  return by_dim<__nv_bfloat16>(a);
+               static_cast<const int*>(kv_len), o, nullptr, nullptr, nullptr,
+               B, H, Hkv, psz, nblk, D, cluster, 1, scale,
+               static_cast<cudaStream_t>(stream)};
+  return by_dim<__nv_bfloat16, PAGED>(a);
 }
 
 // K6a: int8 pools with scales (P, Hkv, psz).
@@ -611,15 +682,46 @@ extern "C" int repro_flash_paged_decode_quant_tc(
   const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
                static_cast<const int*>(page_table),
-               static_cast<const int*>(kv_len), o, B, H, Hkv, psz, nblk, D,
-               cluster, scale, static_cast<cudaStream_t>(stream)};
-  return by_dim<int8_t>(a);
+               static_cast<const int*>(kv_len), o, nullptr, nullptr, nullptr,
+               B, H, Hkv, psz, nblk, D, cluster, 1, scale,
+               static_cast<cudaStream_t>(stream)};
+  return by_dim<int8_t, PAGED>(a);
 }
 
-// The instance for head dim D of kind 0 (K3: bf16 pools) or 1 (K6a: int8
-// pools): out[0..7] = registers per thread, local-memory (spill) bytes,
-// dynamic shared memory in bytes at nblk table entries, resident CTAs per
-// SM, and the clusters of 1, 2, 4 and 8 CTAs the card holds at once.
+// K2: dense bf16 strips k, v (B, Hkv, S, D); kv_len clamped to [0, S].
+extern "C" int repro_flash_decode_tc(const void* q, const void* k,
+                                     const void* v, const void* kv_len,
+                                     void* o, int B, int H, int Hkv, int S,
+                                     int D, int cluster, float scale,
+                                     void* stream) {
+  const Args a{q, k, v, nullptr, nullptr, nullptr,
+               static_cast<const int*>(kv_len), o, nullptr, nullptr, nullptr,
+               B, H, Hkv, S, 1, D, cluster, 1, scale,
+               static_cast<cudaStream_t>(stream)};
+  return by_dim<__nv_bfloat16, DENSE>(a);
+}
+
+// K5a: bf16 pools, ns splits, partials m, l (B, Hkv, ns, G) and acc (..,
+// D) fp32 (m in natural-log units), merged by K5c.
+extern "C" int repro_paged_decode_split_tc(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* page_table, const void* kv_len, void* m, void* l, void* acc,
+    int B, int H, int Hkv, int psz, int nblk, int ns, int D, float scale,
+    void* stream) {
+  const Args a{q, k_pool, v_pool, nullptr, nullptr,
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(kv_len), nullptr,
+               static_cast<float*>(m), static_cast<float*>(l),
+               static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
+               static_cast<cudaStream_t>(stream)};
+  return by_dim<__nv_bfloat16, PARTIALS>(a);
+}
+
+// The instance for head dim D of kind 0 (K3: bf16 pools), 1 (K6a: int8
+// pools), 2 (K2: bf16 strips) or 3 (K5a: bf16 pools, partials): out[0..7]
+// = registers per thread, local-memory (spill) bytes, dynamic shared
+// memory in bytes at nblk table entries (K2: none), resident CTAs per SM,
+// and the clusters of 1, 2, 4 and 8 CTAs the card holds at once.
 extern "C" int repro_paged_decode_tc_info(int D, int kind, int nblk,
                                           int* out) {
   switch (D) {

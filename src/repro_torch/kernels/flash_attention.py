@@ -9,7 +9,11 @@
   kernel launched last.
 * :func:`flash_decode` (K2) — one query token per sequence against a
   dense (B, Hkv, S, D) cache, masked to ``kv_len[b]`` keys; a row with
-  ``kv_len == 0`` gives exactly 0.
+  ``kv_len == 0`` gives exactly 0.  A bf16 query runs the dense mode of
+  ``csrc/paged_decode.cu``'s cluster kernel (K3's: a strip is a pool of
+  B pages of S keys), a float32 one the SIMT template of
+  ``csrc/flash_attention.cu``; ``last_kernel`` names the one launched
+  last.
 
 Each wrapper takes CUDA tensors only, checks them, allocates its output
 with ``torch.empty``, launches on the current stream without syncing,
@@ -31,6 +35,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the bf16 K1 kernel's name, as ``flash_attention.last_kernel`` gives it
 TC_KERNEL = "flash_attention_tc_kernel"
+#: the float32 K2 kernel's name, as ``flash_decode.last_kernel`` gives it
+#: (a bf16 K2 runs ``paged_attention.DECODE_TC_KERNEL``)
+DECODE_SIMT_KERNEL = "flash_decode_kernel"
 
 
 @functools.cache
@@ -127,10 +134,14 @@ def tc_info(d: int) -> dict[str, int]:
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_len: torch.Tensor | None = None, *,
-                 scale: float | None = None) -> torch.Tensor:
+                 scale: float | None = None,
+                 _cluster: int | None = None) -> torch.Tensor:
     """Decode attention: q (B, H, 1, D) against caches (B, Hkv, S, D);
     ``kv_len`` (B,) int32 on the same device masks each cache's valid
-    prefix (values are clamped to [0, S] on the card)."""
+    prefix (values are clamped to [0, S] on the card).  A bfloat16 q runs
+    the cluster kernel's dense mode in clusters of
+    ``paged_attention.cluster_size`` CTAs per (lane, kv head), which
+    ``_cluster`` overrides (tests only); a float32 q the SIMT template."""
     _check("flash_decode", q, k, v)
     b, h, one, d = q.shape
     if one != 1:
@@ -143,20 +154,31 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("kv_len must be a contiguous (B,) int32 tensor on "
                          "q's device")
     scale = float(scale if scale is not None else d ** -0.5)
+    hkv = k.shape[1]
     out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), b, h, hkv, s, d)
     with torch.cuda.device(q.device):
-        err = _lib().repro_flash_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), b, h, k.shape[1], s, d, _DTYPES[q.dtype], scale,
-            _stream(q))
+        if q.dtype == torch.bfloat16:
+            from . import paged_attention as pa    # it imports this module
+            c = pa.decode_cluster("flash_decode", q, b, hkv, _cluster)
+            err = pa._dec_lib().repro_flash_decode_tc(*args, c, scale,
+                                                      _stream(q))
+            kernel = pa.DECODE_TC_KERNEL
+        else:
+            err = _lib().repro_flash_decode(*args, _DTYPES[q.dtype], scale,
+                                            _stream(q))
+            kernel = DECODE_SIMT_KERNEL
     _raise_on("flash_decode", err)
     flash_decode.launches += 1
+    flash_decode.last_kernel = kernel
     return out
 
 
 flash_attention.launches = 0
 flash_attention.last_kernel = None
 flash_decode.launches = 0
+flash_decode.last_kernel = None
 
 #: the kernels of this module, for counters and reports
 KERNELS = (flash_attention, flash_decode)

@@ -1,7 +1,8 @@
 """Python wrappers of the paged CUDA attention kernels (``csrc/paged_attention.cu``;
-``csrc/paged_decode.cu`` for the one-pass decode with a bf16 query over
-bf16 or int8 pools; ``csrc/paged_prefill.cu`` for the prefill chunk with a
-bf16 query over bf16 or int8 pools, in one pass or split).
+``csrc/paged_decode.cu`` for the decode with a bf16 query over bf16 or
+int8 pools in one pass, and over bf16 pools split; ``csrc/paged_prefill.cu``
+for the prefill chunk with a bf16 query over bf16 or int8 pools, in one
+pass or split).
 
 * :func:`flash_paged_decode` — one query token per sequence against K/V
   page pools (P, Hkv, psz, D), each sequence reaching its pages through a
@@ -15,9 +16,11 @@ bf16 query over bf16 or int8 pools, in one pass or split).
   shared memory; for a float32 query the SIMT template of
   ``paged_attention.cu``, whose fp32 products keep the fp32 tolerance.
   ``last_kernel`` on the function names the one launched last.  More
-  splits launch K5a (:func:`paged_decode_split`, one block per split of
-  the lane's live keys, fp32 partial softmax states, SIMT for both query
-  types) and K5c (:func:`split_combine`, the merge).
+  splits launch K5a (:func:`paged_decode_split`, one CTA per split of the
+  lane's live keys writing fp32 partial softmax states: for a bf16 query
+  the cluster kernel's partials mode, each split a contiguous share of
+  the lane's 64-key tiles; for float32 the SIMT template's 32-key tiles)
+  and K5c (:func:`split_combine`, the merge).
 * :func:`flash_paged_decode_quant` — the same over int8 pools with fp32
   per-row scales (P, Hkv, psz): K6a (the cluster kernel for a bf16 query,
   the SIMT template for float32), or K6b (:func:`paged_decode_split_quant`)
@@ -76,20 +79,28 @@ TC_KERNEL = "paged_prefill_tc_kernel"
 #: counterpart, as ``last_kernel`` on the decode wrappers gives them
 DECODE_TC_KERNEL = "paged_decode_tc_kernel"
 DECODE_SIMT_KERNEL = "paged_decode_kernel"
-#: the CTAs of one cluster of the decode kernel, per (lane, kv head)
+#: the CTAs of one cluster of the decode kernel, per (lane, kv head); K2
+#: (:func:`.flash_attention.flash_decode`) takes the same
 CLUSTER_SIZES = (1, 2, 4, 8)
 #: keys per tile of the decode kernel (a stage of its ring); a cluster's
 #: rank walks a contiguous share of the lane's tiles
 DECODE_TILE_KEYS = 64
 
 
+#: the CTAs an SM holds at once of the decode kernel's D = 128 instances
+#: (``decode_tc_info``'s ``blocks_per_sm``, shared memory bound)
+DECODE_CTAS_PER_SM = 2
+
+
 def cluster_size(b: int, hkv: int, sm_count: int) -> int:
     """The CTAs per (lane, kv head) cluster of the bf16 decode kernel: the
-    largest of :data:`CLUSTER_SIZES` with ``b * hkv * c <= sm_count``, so
-    that every CTA has an SM of its own in one wave (1 when even that does
-    not fit).  From the shapes alone: it never reads ``kv_len``, which
-    would sync the decode step with the host."""
-    fits = [c for c in CLUSTER_SIZES if b * hkv * c <= sm_count]
+    largest of :data:`CLUSTER_SIZES` with ``b * hkv * c`` at most the CTAs
+    the card holds at once (:data:`DECODE_CTAS_PER_SM` an SM), so that
+    every CTA runs in one wave (1 when even that does not fit).  From the
+    shapes alone: it never reads ``kv_len``, which would sync the decode
+    step with the host."""
+    fits = [c for c in CLUSTER_SIZES
+            if b * hkv * c <= DECODE_CTAS_PER_SM * sm_count]
     return max(fits, default=1)
 
 
@@ -147,6 +158,8 @@ def _dec_lib() -> ctypes.CDLL:
             ("repro_flash_paged_decode_tc", [_P] * 6 + [_I] * 7 + [_F, _P]),
             ("repro_flash_paged_decode_quant_tc",
              [_P] * 8 + [_I] * 7 + [_F, _P]),
+            ("repro_flash_decode_tc", [_P] * 5 + [_I] * 6 + [_F, _P]),
+            ("repro_paged_decode_split_tc", [_P] * 8 + [_I] * 7 + [_F, _P]),
             ("repro_paged_decode_tc_info", [_I] * 3 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -200,15 +213,17 @@ def tc_info(d: int, kind: str, nblk: int = 0) -> dict[str, int]:
                      "blocks_per_sm"), out))
 
 
-#: the instances of the decode kernel, by kind: K3 (bf16 pools) and K6a
-#: (int8 pools)
-DECODE_KINDS = ("bf16", "int8")
+#: the instances of the decode kernel, by kind: K3 (bf16 pools), K6a
+#: (int8 pools), K2 (its dense mode: bf16 strips) and K5a (its partials
+#: mode: bf16 pools)
+DECODE_KINDS = ("bf16", "int8", "bf16 dense", "bf16 split")
 
 
 def decode_tc_info(d: int, kind: str, nblk: int = 0) -> dict:
     """What the card makes of the bf16 decode instance for head dim ``d``
     of ``kind`` (one of :data:`DECODE_KINDS`): registers per thread, local
-    (spill) bytes, dynamic shared memory at ``nblk`` table entries,
+    (spill) bytes, dynamic shared memory at ``nblk`` table entries (the
+    dense mode stages none),
     resident CTAs per SM, and under ``clusters`` the clusters of each of
     :data:`CLUSTER_SIZES` CTAs the card holds at once.  Needs the card."""
     out = (ctypes.c_int * 8)()
@@ -221,24 +236,31 @@ def decode_tc_info(d: int, kind: str, nblk: int = 0) -> dict:
     return info
 
 
+def decode_cluster(name: str, q: torch.Tensor, b: int, hkv: int,
+                   cluster: int | None) -> int:
+    """The cluster size of a bf16 decode launch (K3, K6a, K2) on q's card:
+    ``cluster`` if given (one of :data:`CLUSTER_SIZES`, else raise), else
+    :func:`cluster_size` of the card."""
+    if cluster is None:
+        index = q.device.index
+        cluster = cluster_size(b, hkv, sm_count(
+            torch.cuda.current_device() if index is None else index))
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"{name}: cluster size {cluster!r} not in "
+                         f"{CLUSTER_SIZES}")
+    return cluster
+
+
 def _decode_entry(name: str, q: torch.Tensor, b: int, hkv: int, quant: bool,
                   cluster: int | None):
     """The C entry of K3 (K6a with ``quant``) for q's type, the name of the
     kernel it launches and its trailing arguments: for bfloat16 the
-    cluster kernel and its cluster size (``cluster``, one of
-    :data:`CLUSTER_SIZES`, else :func:`cluster_size` of the card), for
+    cluster kernel and its cluster size (:func:`decode_cluster`), for
     float32 the SIMT template and the dtype code."""
     suffix = "_quant" if quant else ""
     if q.dtype == torch.bfloat16:
-        if cluster is None:
-            index = q.device.index
-            cluster = cluster_size(b, hkv, sm_count(
-                torch.cuda.current_device() if index is None else index))
-        if cluster not in CLUSTER_SIZES:
-            raise ValueError(f"{name}: cluster size {cluster!r} not in "
-                             f"{CLUSTER_SIZES}")
         fn = getattr(_dec_lib(), f"repro_flash_paged_decode{suffix}_tc")
-        return fn, DECODE_TC_KERNEL, cluster
+        return fn, DECODE_TC_KERNEL, decode_cluster(name, q, b, hkv, cluster)
     fn = getattr(_lib(), f"repro_flash_paged_decode{suffix}")
     return fn, DECODE_SIMT_KERNEL, _DTYPES[q.dtype]
 
@@ -377,18 +399,28 @@ def paged_decode_split(q: torch.Tensor, k_pool: torch.Tensor,
                        kv_len: torch.Tensor, num_splits: int, *,
                        scale: float | None = None):
     """K5a: phase 1 of split decode over fp pools; returns the fp32
-    partials (m, l, acc) of ``num_splits`` splits (checked by the caller)."""
+    partials (m, l, acc) of ``num_splits`` splits (checked by the caller),
+    (B, Hkv, ns, G) and (.., D).  A bfloat16 q runs the cluster kernel's
+    partials mode (split s takes the s-th contiguous share of the lane's
+    live 64-key tiles), a float32 q the SIMT template (32-key tiles);
+    ``last_kernel`` names the one launched last."""
     b, h, hkv, psz, d, scale = _decode_shape("paged_decode_split", q, k_pool,
                                              scale)
     m, l, acc = _partials(q, hkv, num_splits)
-    with torch.cuda.device(q.device):
-        err = _lib().repro_paged_decode_split(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+    args = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), kv_len.data_ptr(), m.data_ptr(),
             l.data_ptr(), acc.data_ptr(), b, h, hkv, psz, page_table.shape[1],
-            num_splits, d, _DTYPES[q.dtype], scale, _stream(q))
+            num_splits, d]
+    if q.dtype == torch.bfloat16:
+        fn, kernel = _dec_lib().repro_paged_decode_split_tc, DECODE_TC_KERNEL
+    else:
+        fn, kernel = _lib().repro_paged_decode_split, DECODE_SIMT_KERNEL
+        args.append(_DTYPES[q.dtype])
+    with torch.cuda.device(q.device):
+        err = fn(*args, scale, _stream(q))
     _raise_on("paged_decode_split", err)
     paged_decode_split.launches += 1
+    paged_decode_split.last_kernel = kernel
     return m, l, acc
 
 
@@ -421,9 +453,9 @@ def flash_paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
     """Paged decode: q (B, H, 1, D), pools (P, Hkv, psz, D), page_table
     (B, nblk) and kv_len (B,) int32 on q's device (kv_len is clamped to
     [0, nblk * psz] on the card).  Output like q.  ``num_splits`` (clamped
-    to nblk) above 1 runs K5a + K5c, else K3: the cluster kernel for a
-    bfloat16 q, the SIMT template for float32.  ``_cluster`` overrides
-    :func:`cluster_size` (tests only)."""
+    to nblk) above 1 runs K5a + K5c, else K3: the cluster kernel (K5a:
+    its partials mode) for a bfloat16 q, the SIMT template for float32.
+    ``_cluster`` overrides :func:`cluster_size` (tests only)."""
     _check("flash_paged_decode", q, k_pool, v_pool, page_table, (kv_len,))
     b, h, hkv, psz, d, scale = _decode_shape("flash_paged_decode", q, k_pool,
                                              scale)
@@ -620,5 +652,6 @@ KERNELS = (flash_paged_decode, paged_decode_split, split_combine,
 for _kernel in KERNELS:
     _kernel.launches = 0
 flash_paged_decode.last_kernel = flash_paged_decode_quant.last_kernel = None
+paged_decode_split.last_kernel = None
 flash_paged_prefill.last_kernel = flash_paged_prefill_quant.last_kernel = None
 paged_prefill_split.last_kernel = paged_prefill_split_quant.last_kernel = None

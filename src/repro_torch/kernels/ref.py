@@ -12,7 +12,8 @@ with per-row fp32 scales (P, Hkv, psz)) they dequantize the pools first.
 softmax states merged by :func:`combine_split_states`;
 :func:`paged_prefill_split_ref` the split chunked prefill (and verify),
 cutting each query tile's live key tiles exactly as the kernels K5b/K6d
-do, so their partials compare as well as their output.
+do, so their partials compare as well as their output;
+:func:`paged_decode_split_tiles_ref` the split decode cut as K5a cuts it.
 
 A row that sees no key at all (``kv_len == 0``) gets a uniform softmax
 over the ``-1e30`` scores here, i.e. the mean of ``v``; the kernels give
@@ -161,6 +162,35 @@ def paged_decode_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
         acc_i.transpose(-2, -3))
     out = finalize_split_states(l_star, acc_star)               # (B,Hkv,G,D)
     return out.reshape(b, h, 1, d).to(q.dtype)
+
+
+def paged_decode_split_tiles_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 kv_len: torch.Tensor, num_splits: int, *,
+                                 scale: float | None = None,
+                                 k_scale: torch.Tensor | None = None,
+                                 v_scale: torch.Tensor | None = None,
+                                 block_k: int = 64):
+    """Split decode cut at a kernel's own partition: split ``s`` takes the
+    ``s``-th contiguous share, ``ceil(tiles / num_splits)``, of the lane's
+    ``tiles = ceil(kv_len / block_k)`` live key tiles (64-key tiles for
+    the bf16 K5a of ``paged_decode.cu``, 32 for the SIMT template).  A
+    decode is a one-row chunk at position ``kv_len - 1``, so this is
+    :func:`paged_prefill_split_ref` with ``block_q`` 1.
+
+    Returns ``(out, (m, l, acc))``: the merged output like q and the fp32
+    partials in K5a's layout, (B, Hkv, ns, G) and (B, Hkv, ns, G, D); a
+    split with no key gives (-1e30, 0, 0)."""
+    b, h, _, d = q.shape
+    hkv, ns = k_pool.shape[1], num_splits
+    kv_len = kv_len.to(q.device)
+    out, (m, l, acc) = paged_prefill_split_ref(
+        q, k_pool, v_pool, page_table, kv_len - 1, kv_len, ns, scale=scale,
+        k_scale=k_scale, v_scale=v_scale, block_q=1, block_k=block_k)
+    g = h // hkv
+    m, l = (x.reshape(b, hkv, g, ns).transpose(2, 3) for x in (m, l))
+    return out, (m, l, acc.reshape(b, hkv, g, ns, d).transpose(2, 3))
 
 
 def paged_prefill_ref(q: torch.Tensor, k_pool: torch.Tensor,

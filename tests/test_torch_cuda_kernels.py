@@ -117,6 +117,9 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, h, hkv, d):
     want = ref.decode_ref(q, k, v, kv_len)
     torch.cuda.synchronize()
     assert fa.flash_decode.launches == n + 1
+    assert fa.flash_decode.last_kernel == (
+        pa.DECODE_TC_KERNEL if dtype == torch.bfloat16
+        else fa.DECODE_SIMT_KERNEL)
     close(got, want, dtype)
 
 
@@ -902,14 +905,118 @@ def test_tc_decode_never_uses_the_slots_past_kv_len(cuda_device, psz, quant):
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("kind", pa.DECODE_KINDS)
 def test_tc_decode_instances_fit_the_card(cuda_device, d, kind):
-    """Every instance (K3 and K6a) fits two CTAs an SM at a 64-entry table,
-    the card holds clusters of every size, and D 128 builds without
-    spilling."""
+    """Every instance (K3, K6a, and K2 and K5a as the dense and partials
+    modes) fits the two CTAs an SM that ``cluster_size`` counts on at a
+    64-entry table, the card holds clusters of every size, and D 128
+    builds without spilling."""
     info = pa.decode_tc_info(d, kind, 64)
-    assert info["blocks_per_sm"] >= 2
+    assert info["blocks_per_sm"] >= pa.DECODE_CTAS_PER_SM == 2
     assert all(n >= 1 for n in info["clusters"].values())
     if d == 128:
         assert info["local_bytes"] == 0
+
+
+# --------------------------------------------------------------------------
+# K2 and K5a with a bf16 query: the dense and partials modes of the cluster
+# kernel (csrc/paged_decode.cu)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cluster", pa.CLUSTER_SIZES)
+@pytest.mark.parametrize("h,hkv,d,s", [(32, 4, 128, 1024), (32, 32, 128, 1000),
+                                       (12, 4, 64, 300), (16, 1, 32, 77),
+                                       (40, 1, 16, 130)])
+def test_tc_dense_decode_every_cluster_size_matches_plain(cuda_device, h,
+                                                          hkv, d, s, cluster):
+    """K2 on the dense mode at every cluster size: G 8, 1, 3, 16 and 40, S
+    not always a multiple of the 64-key tile, a lane of kv_len 0 (exactly
+    0), one shorter than a tile, one of S and one past S (clamped)."""
+    kv_len = [0, 37, s, s + 5]
+    q = rand((4, h, 1, d), 140, cuda_device, torch.bfloat16)
+    k = rand((4, hkv, s, d), 141, cuda_device, torch.bfloat16)
+    v = rand((4, hkv, s, d), 142, cuda_device, torch.bfloat16)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+    n = fa.flash_decode.launches
+    got = fa.flash_decode(q, k, v, lens, _cluster=cluster)
+    torch.cuda.synchronize()
+    assert fa.flash_decode.launches == n + 1
+    assert fa.flash_decode.last_kernel == pa.DECODE_TC_KERNEL
+    assert torch.all(got[0] == 0)
+    close(got[1:], ref.decode_ref(q, k, v, lens)[1:], torch.bfloat16)
+
+
+def test_tc_dense_decode_never_uses_the_rows_past_kv_len(cuda_device):
+    """NaN in every strip row past kv_len: the output is finite and equal
+    to the kernel's on the strips with those rows zeroed."""
+    kv_len = [37, 157, 5, 300]
+    q = rand((4, 32, 1, 128), 143, cuda_device, torch.bfloat16)
+    k = rand((4, 4, 300, 128), 144, cuda_device, torch.bfloat16)
+    v = rand((4, 4, 300, 128), 145, cuda_device, torch.bfloat16)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+    dirty, zeroed = (k.clone(), v.clone()), (k.clone(), v.clone())
+    for i, n in enumerate(kv_len):
+        for t, z in zip(dirty, zeroed):
+            t[i, :, n:] = float("nan")
+            z[i, :, n:] = 0
+    got = fa.flash_decode(q, *dirty, lens)
+    want = fa.flash_decode(q, *zeroed, lens)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    close(got, ref.decode_ref(q, *zeroed, lens), torch.bfloat16)
+
+
+def test_decode_wrappers_route_by_query_type(cuda_device):
+    """bf16: K2 and K5a on the cluster kernel; float32: the SIMT templates."""
+    for dtype, dense, split in (
+            (torch.bfloat16, pa.DECODE_TC_KERNEL, pa.DECODE_TC_KERNEL),
+            (torch.float32, fa.DECODE_SIMT_KERNEL, pa.DECODE_SIMT_KERNEL)):
+        q = rand((2, 8, 1, 64), 146, cuda_device, dtype)
+        k = rand((2, 2, 100, 64), 147, cuda_device, dtype)
+        fa.flash_decode(q, k, k)
+        assert fa.flash_decode.last_kernel == dense
+        q, kp, vp, table, kv_len = paged_inputs(2, 8, 2, 64, 16, 8, [77, 128],
+                                                dtype, cuda_device, 148)
+        pa.paged_decode_split(q, kp, vp, table, kv_len, 4)
+        assert pa.paged_decode_split.last_kernel == split
+
+
+@pytest.mark.parametrize("ns", [2, 3, 8, 16])
+@pytest.mark.parametrize("h,hkv,d,psz", [(32, 4, 128, 16), (32, 32, 128, 16),
+                                         (12, 4, 64, 8), (40, 1, 16, 12)])
+def test_tc_split_decode_partials_match_plain(cuda_device, h, hkv, d, psz,
+                                              ns):
+    """K5a's partials against the plain version cut at its 64-key tiles:
+    m and l at the fp32 tolerance, acc within 2^-8 sum_j p_j |v_j| + 2e-4
+    (1 + |acc|) (P rounded to bf16), splits with no key exactly (-1e30,
+    0, 0); and the merged output against both plain versions."""
+    kv_len = [0, 37, 157, 20 * psz]
+    q, kp, vp, table, lens = paged_inputs(4, h, hkv, d, psz, 20, kv_len,
+                                          torch.bfloat16, cuda_device, 150)
+    n = pa.paged_decode_split.launches
+    m, l, acc = pa.paged_decode_split(q, kp, vp, table, lens, ns)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_split.launches == n + 1
+    assert pa.paged_decode_split.last_kernel == pa.DECODE_TC_KERNEL
+    _, (wm, wl, wacc) = ref.paged_decode_split_tiles_ref(
+        q, kp, vp, table, lens, ns, block_k=pa.DECODE_TILE_KEYS)
+    _, (_, _, acc_abs) = ref.paged_decode_split_tiles_ref(
+        q, kp, vp.float().abs(), table, lens, ns,
+        block_k=pa.DECODE_TILE_KEYS)
+    close(m, wm, torch.float32)
+    close(l, wl, torch.float32)
+    assert bool(((acc - wacc).abs()
+                 <= 2.0 ** -8 * acc_abs + 2e-4 * (1 + wacc.abs())).all())
+    empty = wm == ref.NEG_INF
+    assert bool((m[empty] == ref.NEG_INF).all() and (l[empty] == 0).all()
+                and (acc[empty] == 0).all())
+    out = pa.flash_paged_decode(q, kp, vp, table, lens, num_splits=ns)
+    torch.cuda.synchronize()
+    assert torch.all(out[0] == 0)
+    close(out[1:], ref.paged_decode_ref(q, kp, vp, table, lens)[1:],
+          torch.bfloat16)
+    close(out[1:], ref.paged_decode_split_ref(q, kp, vp, table, lens,
+                                              ns)[1:], torch.bfloat16)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The arithmetic and partition of the bf16 paged decode kernel (K3 and K6a
-with a bf16 query, ``csrc/paged_decode.cu``), on the CPU.
+"""The arithmetic and partition of the bf16 decode kernel (K3 and K6a with a
+bf16 query, ``csrc/paged_decode.cu``; K2 and K5a as its dense and partials
+modes), on the CPU.
 
 The kernel cannot run here, so a plain-torch emulation of it stands in: one
 cluster of ``c`` CTAs per (lane, kv head), rank r walking the r-th
@@ -26,6 +27,20 @@ order of fp32 sums differs from the card.  The emulation is held to
   float32 with q and the bf16 pools holding bf16 values, within the same
   bound.
 
+The dense mode (K2) walks dense strips (B, Hkv, S, D) with the same
+partition, rows found without a table and kv_len clamped to [0, S]; it is
+held to ``ref.decode_ref`` and the JAX ``flash_decode`` (interpret mode) in
+the same way, at G 1, 2, 3, 8 and 40, every cluster size and an S that is
+not a multiple of the 64-key tile.  The partials mode (K5a) is the walk
+with one CTA per split in place of a cluster's ranks, each CTA's merged
+state stored (m in natural-log units, as K5c reads it): its partials are
+held to ``ref.paged_decode_split_tiles_ref`` cut at the same 64-key
+tiles, m and l at the fp32 tolerance 2e-4, acc within 2^-8 sum_j p_j |v_j|
++ 2e-4 (1 + |acc|) (the bound the card's ``compare_partials`` applies),
+empty splits exactly (-1e30, 0, 0); merged by ``ref.combine_split_states``
+they are held to ``ref.paged_decode_ref`` and the JAX
+``flash_paged_decode(num_splits=ns)`` within the one-pass bound.
+
 Inputs come from numpy with a seed; table entries past a lane's live pages
 point at page 0.
 """
@@ -38,6 +53,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention import flash_decode as jax_flash_decode
 from repro.kernels.flash_attention import flash_paged_decode as jax_paged_decode
 from repro.kernels.flash_attention import \
     flash_paged_decode_quant as jax_paged_decode_quant
@@ -65,21 +81,22 @@ def _merge(states):
     return m_star, l, acc
 
 
-def decode_tc_emulate(q, k_pool, v_pool, table, kv_len, k_scale=None,
-                      v_scale=None, cluster=1):
-    """The decode kernel's arithmetic and partition in plain torch at
-    ``cluster`` CTAs per (lane, kv head); output like q."""
+def emulate_strips(q, k, v, ks, vs, kv_len, parts, partials=False):
+    """The decode kernel's arithmetic and partition in plain torch over
+    strips k, v (B, Hkv, S, D) (bf16 values or int8 codes) with row
+    scales ks, vs (B, Hkv, S) or None: ``parts`` CTAs per (lane, kv head),
+    CTA r walking the r-th contiguous share of the lane's live tiles.
+    Returns the states merged across the CTAs (output like q) or, with
+    ``partials``, each CTA's state (m in natural-log units, l, acc) as
+    (B, Hkv, parts, G) and (.., D)."""
     b, h, _, d = q.shape
-    hkv = k_pool.shape[1]
+    hkv = k.shape[1]
     g = h // hkv
-    k = ref.gather_pages(k_pool, table).float()     # bf16 values or codes
-    v = ref.gather_pages(v_pool, table).float()
+    k, v = k.float(), v.float()
     sk = k.shape[2]
     ones = torch.ones(b, hkv, sk)
-    ks = ones if k_scale is None else ref.gather_pages(
-        k_scale[..., None], table)[..., 0]
-    vs = ones if v_scale is None else ref.gather_pages(
-        v_scale[..., None], table)[..., 0]
+    ks = ones if ks is None else ks
+    vs = ones if vs is None else vs
     # pad the keys to whole tiles: a tile's keys past kv_len are masked
     # scores and zero rows
     pad = -sk % TILE
@@ -95,11 +112,12 @@ def decode_tc_emulate(q, k_pool, v_pool, table, kv_len, k_scale=None,
     s = torch.where(torch.arange(sk) < lens[:, None, None], s, ref.NEG_INF)
     s = torch.nn.functional.pad(s, (0, pad), value=ref.NEG_INF)
     out = torch.zeros(b, h, d)
+    states = []
     for i in range(b):
         n_all = -(-int(lens[i]) // TILE)
-        per = -(-n_all // cluster)
+        per = -(-n_all // parts)
         ranks = []
-        for rank in range(cluster):
+        for rank in range(parts):
             t_lo = min(rank * per, n_all)
             t_hi = min(n_all, t_lo + per)
             warps = []
@@ -123,9 +141,42 @@ def decode_tc_emulate(q, k_pool, v_pool, table, kv_len, k_scale=None,
                     m = mx
                 warps.append((m, l, acc))
             ranks.append(_merge(warps))              # the CTA's state
+        states.append(ranks)
         _, l, acc = _merge(ranks)                    # across the cluster
         out[i] = acc / torch.where(l == 0, 1.0, l)[:, None]
-    return out[:, :, None].to(q.dtype)
+    if not partials:
+        return out[:, :, None].to(q.dtype)
+    m, l, acc = (torch.stack([torch.stack([st[j] for st in ranks])
+                              for ranks in states]) for j in range(3))
+    m = torch.where(m == ref.NEG_INF, ref.NEG_INF, m * math.log(2.0))
+    # (B, parts, H[, D]) -> (B, Hkv, parts, G[, D])
+    m, l = (x.reshape(b, parts, hkv, g).transpose(1, 2) for x in (m, l))
+    return m, l, acc.reshape(b, parts, hkv, g, d).transpose(1, 2)
+
+
+def decode_tc_emulate(q, k_pool, v_pool, table, kv_len, k_scale=None,
+                      v_scale=None, cluster=1):
+    """K3 / K6a: the pools seen through the table, ``cluster`` CTAs per
+    (lane, kv head); output like q."""
+    ks, vs = (None if sc is None else ref.gather_pages(sc[..., None],
+                                                       table)[..., 0]
+              for sc in (k_scale, v_scale))
+    return emulate_strips(q, ref.gather_pages(k_pool, table),
+                          ref.gather_pages(v_pool, table), ks, vs, kv_len,
+                          cluster)
+
+
+def dense_tc_emulate(q, k, v, kv_len, cluster=1):
+    """K2, the dense mode: the strips (B, Hkv, S, D) themselves."""
+    return emulate_strips(q, k, v, None, None, kv_len, cluster)
+
+
+def split_tc_emulate(q, k_pool, v_pool, table, kv_len, num_splits):
+    """K5a, the partials mode over bf16 pools: the fp32 partials (m, l,
+    acc) of ``num_splits`` splits."""
+    return emulate_strips(q, ref.gather_pages(k_pool, table),
+                          ref.gather_pages(v_pool, table), None, None,
+                          kv_len, num_splits, partials=True)
 
 
 def shuffled_table(b, nblk, kv_len, psz, seed):
@@ -242,24 +293,172 @@ def test_emulated_kernel_against_jax_kernels_in_interpret_mode(h, hkv, quant):
         assert np.all(np.abs(got[1:] - want[1:]) <= bound[1:])
 
 
+# --------------------------------------------------------------------------
+# K2: the dense mode
+# --------------------------------------------------------------------------
+
+# (H, Hkv, D, S, kv_len): G 8 (yi-6b), 1 (deepseek-7b), 2, 3 and 40 (three
+# 16-row slabs); S not a multiple of the 64-key tile, a lane of kv_len 0,
+# one shorter than a tile, and (yi-6b) one past S, which clamps to S
+DENSE_SHAPES = {
+    "yi-6b G8": (32, 4, 128, 1000, [1200, 517, 0, 37]),
+    "deepseek-7b G1": (32, 32, 128, 300, [300, 0, 129]),
+    "G2": (8, 4, 64, 200, [0, 200, 65]),
+    "G3": (12, 4, 64, 100, [0, 37, 100]),
+    "G40": (40, 1, 16, 130, [0, 130, 64]),
+}
+
+
+def dense_inputs(h, hkv, d, s, kv_len, seed):
+    """q and the strips (B, Hkv, S, D) in bf16, kv_len int32."""
+    b = len(kv_len)
+    q = rand((b, h, 1, d), seed).to(torch.bfloat16)
+    k = rand((b, hkv, s, d), seed + 1).to(torch.bfloat16)
+    v = rand((b, hkv, s, d), seed + 2).to(torch.bfloat16)
+    return q, k, v, torch.tensor(kv_len, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("cluster", pa.CLUSTER_SIZES)
+@pytest.mark.parametrize("shape", list(DENSE_SHAPES))
+def test_dense_mode_within_bound_of_plain(shape, cluster):
+    h, hkv, d, s, kv_len = DENSE_SHAPES[shape]
+    q, k, v, lens = dense_inputs(h, hkv, d, s, kv_len, 61)
+    got = dense_tc_emulate(q, k, v, lens, cluster)
+    want = ref.decode_ref(q, k, v, lens)
+    got32 = dense_tc_emulate(q.float(), k, v, lens, cluster)
+    want32 = ref.decode_ref(q.float(), k.float(), v.float(), lens)
+    bound = P_BOUND * ref.decode_ref(q.float(), k.float(), v.float().abs(),
+                                     lens)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    for i, n in enumerate(kv_len):
+        if n == 0:                                # exactly 0
+            assert torch.all(got[i] == 0) and torch.all(got32[i] == 0)
+            continue
+        np.testing.assert_allclose(got[i].float().numpy(),
+                                   want[i].float().numpy(), **BF16_TOL)
+        err = (got32[i] - want32[i]).abs()
+        assert torch.all(err <= bound[i] + FP32_TERM), float(
+            (err - bound[i]).max())
+
+
+def test_dense_mode_is_the_paged_kernel_on_one_page_per_lane():
+    """A strip is a pool of B pages of S keys with table[b] = b: the dense
+    mode and the paged walk over that pool give the same bits."""
+    h, hkv, d, s, kv_len = DENSE_SHAPES["G3"]
+    q, k, v, lens = dense_inputs(h, hkv, d, s, kv_len, 67)
+    table = torch.arange(len(kv_len), dtype=torch.int32)[:, None]
+    for cluster in pa.CLUSTER_SIZES:
+        torch.testing.assert_close(
+            dense_tc_emulate(q, k, v, lens, cluster),
+            decode_tc_emulate(q, k, v, table, lens, cluster=cluster),
+            rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (6, 2), (8, 1), (40, 1)],
+                         ids=["G1", "G2", "G3", "G8", "G40"])
+def test_dense_mode_against_jax_flash_decode_in_interpret_mode(h, hkv):
+    """Three lanes (kv_len 0, 11 and 100 over S = 100, padded by the JAX
+    kernel to its 32-key blocks) in float32 holding bf16 values; every
+    cluster size against the one JAX result."""
+    q, k, v, lens = dense_inputs(h, hkv, 16, 100, [0, 11, 100], 71)
+    q, k, v = q.float(), k.float(), v.float()
+    want = np.asarray(jax_flash_decode(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v, lens)), block_k=32,
+        interpret=True))
+    bound = (P_BOUND * ref.decode_ref(q, k, v.abs(), lens)
+             + FP32_TERM).numpy()
+    for cluster in pa.CLUSTER_SIZES:
+        got = dense_tc_emulate(q, k, v, lens, cluster).numpy()
+        assert np.all(got[0] == 0)              # kv_len 0: exactly 0
+        assert np.all(np.abs(got[1:] - want[1:]) <= bound[1:])
+
+
+# --------------------------------------------------------------------------
+# K5a: the partials mode
+# --------------------------------------------------------------------------
+
+def split_partials_bound(q, kp, vp, table, lens, ns):
+    """The plain partials at the kernel's 64-key tiles, and sum_j p_j
+    |v_j| of every split (its acc over |v|)."""
+    _, want = ref.paged_decode_split_tiles_ref(q, kp, vp, table, lens, ns,
+                                               block_k=TILE)
+    _, (_, _, acc_abs) = ref.paged_decode_split_tiles_ref(
+        q, kp, vp.float().abs(), table, lens, ns, block_k=TILE)
+    return want, acc_abs
+
+
+@pytest.mark.parametrize("ns", [2, 3, 8, 16])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_partials_mode_within_bound_of_plain_partials(shape, ns):
+    """Every split's (m, l, acc) against the plain version cut at the same
+    tiles; ns 16 leaves the short lanes' trailing splits empty, which must
+    be exactly (-1e30, 0, 0)."""
+    h, hkv, d, psz, nblk, kv_len = SHAPES[shape]
+    q, (kp, vp, _, _), table, lens = case_inputs(h, hkv, d, psz, nblk,
+                                                 kv_len, 73, False)
+    q = q.float()
+    m, l, acc = split_tc_emulate(q, kp, vp, table, lens, ns)
+    (wm, wl, wacc), acc_abs = split_partials_bound(q, kp, vp, table, lens, ns)
+    g = h // hkv
+    assert m.shape == l.shape == (len(kv_len), hkv, ns, g)
+    assert acc.shape == (len(kv_len), hkv, ns, g, d)
+    np.testing.assert_allclose(m.numpy(), wm.numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(l.numpy(), wl.numpy(), rtol=2e-4, atol=2e-4)
+    err = (acc - wacc).abs()
+    assert torch.all(err <= P_BOUND * acc_abs + 2e-4 * (1 + wacc.abs()))
+    empty = wm == ref.NEG_INF
+    assert bool(empty.any())                  # the kv_len 0 lane at least
+    assert torch.all(m[empty] == ref.NEG_INF) and torch.all(l[empty] == 0)
+    assert torch.all(acc[empty] == 0)
+
+
+@pytest.mark.parametrize("ns", [2, 3, 8])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (6, 2), (8, 1), (16, 1)],
+                         ids=["G1", "G3", "G8", "G16"])
+def test_merged_partials_against_plain_and_jax(h, hkv, ns):
+    """The partials merged as K5c merges them (``combine_split_states``,
+    then acc / l) against the one-pass plain version and the JAX
+    ``flash_paged_decode(num_splits=ns)`` in interpret mode, float32
+    holding bf16 values; a lane of kv_len 0 exactly 0."""
+    d, psz, nblk, kv_len = 16, 8, 12, [0, 11, 45, 96]
+    q, (kp, vp, _, _), table, lens = case_inputs(h, hkv, d, psz, nblk,
+                                                 kv_len, 79, False)
+    q, kp, vp = q.float(), kp.float(), vp.float()
+    _, l, acc = ref.combine_split_states(
+        *split_tc_emulate(q, kp, vp, table, lens, ns))
+    got = ref.finalize_split_states(l, acc).reshape(q.shape)
+    plain = ref.paged_decode_ref(q, kp, vp, table, lens)
+    want = np.asarray(jax_paged_decode(
+        *(jnp.asarray(x.numpy()) for x in (q, kp, vp, table, lens)),
+        num_splits=ns, interpret=True))
+    bound = P_BOUND * weighted_abs_v(q, kp, vp, table, lens, None, None)
+    bound = bound + FP32_TERM
+    assert torch.all(got[0] == 0)
+    assert torch.all((got[1:] - plain[1:]).abs() <= bound[1:])
+    assert np.all(np.abs(got[1:].numpy() - want[1:]) <= bound[1:].numpy())
+
+
 @pytest.mark.parametrize("b,hkv,sms,want", [
     (4, 4, 132, 8),       # yi-6b's four lanes: 16 clusters of 8
-    (4, 32, 132, 1),      # deepseek-7b: 128 CTAs at one each
-    (1, 4, 132, 8), (8, 4, 132, 4), (4, 8, 132, 4), (16, 4, 132, 2),
-    (64, 8, 132, 1), (1, 1, 1, 1), (2, 4, 16, 2)])
+    (4, 32, 132, 2),      # deepseek-7b: 256 CTAs, two an SM
+    (1, 4, 132, 8), (8, 4, 132, 8), (4, 8, 132, 8), (16, 4, 132, 4),
+    (33, 4, 132, 2), (64, 8, 132, 1), (1, 1, 1, 2), (2, 4, 16, 4)])
 def test_cluster_size_from_shapes(b, hkv, sms, want):
     assert pa.cluster_size(b, hkv, sms) == want
 
 
 def test_cluster_size_is_bounded_and_takes_no_device_argument():
-    """Never more than 8, every CTA an SM of its own where a cluster of one
-    fits, and the shapes and the SM count its only inputs: nothing of
-    kv_len, so the decode step never waits on the host."""
+    """Never more than 8, every CTA in the one wave of the CTAs the card
+    holds at once (two an SM) where a cluster of one fits, and the shapes
+    and the SM count its only inputs: nothing of kv_len, so the decode
+    step never waits on the host."""
     assert list(inspect.signature(pa.cluster_size).parameters) == [
         "b", "hkv", "sm_count"]
+    assert pa.DECODE_CTAS_PER_SM == 2
     for b, hkv, sms in itertools.product((1, 2, 3, 4, 8, 33), (1, 2, 4, 8, 32),
                                          (8, 78, 114, 132)):
         c = pa.cluster_size(b, hkv, sms)
+        held = pa.DECODE_CTAS_PER_SM * sms
         assert c in pa.CLUSTER_SIZES and c <= 8
-        assert b * hkv * c <= sms or c == 1
-        assert c == 8 or b * hkv * 2 * c > sms
+        assert b * hkv * c <= held or c == 1
+        assert c == 8 or b * hkv * 2 * c > held
