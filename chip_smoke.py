@@ -8,8 +8,9 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
    all in parallel; the instances of the tensor-core kernels (K1 in
    ``flash_attention.cu``; K4, K6c and the partials modes K5b and K6d in
-   ``paged_prefill.cu``; K3, K6a and the dense (K2) and partials (K5a)
-   modes in ``paged_decode.cu``) with their registers and spills from the
+   ``paged_prefill.cu``; K3, K6a and the dense (K2) and partials (K5a over
+   bf16 pools, K6b over int8 pools) modes in ``paged_decode.cu``) with
+   their registers and spills from the
    ``-Xptxas -v`` log, their shared memory and resident blocks per SM, and
    for the decode kernel the clusters of 1, 2, 4 and 8 CTAs the card holds
    at once;
@@ -67,14 +68,21 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    phase-7 timing shape with phase 1 and the combine timed apart;
 12. int8 pages: K6a (decode; bf16 on the cluster kernel, at every
    cluster size and with NaN scales past ``kv_len``), K6b + K5c (split
-   decode, 8 splits) and K6c (prefill chunk) against their plain versions
-   on pools quantized from the phase-7 and phase-8 cases, rows without
-   keys exactly 0, with times at the phase-7 and phase-8 timing shapes;
+   decode, 8 splits; bf16 on the cluster kernel's partials mode, its
+   partials held to the plain version cut at its own 64-key tiles with
+   the pools' scales at 2, 3, 8 and 16 splits, float32 on the SIMT
+   template at its 32-key tiles, each launch's kernel checked, NaN scales
+   past ``kv_len`` leaving every partial bit-equal) and K6c (prefill
+   chunk) against their plain versions on pools quantized from the
+   phase-7 and phase-8 cases, rows without keys exactly 0, with times at
+   the phase-7 and phase-8 timing shapes and K6b's split-count sweep
+   with K5c beside each count;
 13. serves of the phase-5 requests from the paged pool in chunks of 128:
    int8 pages with 8 splits, int8 pages in one pass, and fp pages with 8
    splits; every request must finish with 32 tokens and each serve's
    counters must show its kernels once per layer per chunk or decode
-   step (K5a's launches all on the cluster kernel), and no other kernel;
+   step (K5a's and K6b's launches all on the cluster kernel), and no
+   other kernel;
 14. int8 paged logits: phase 10's prompt and decode steps (two in one
    pass, two with 8 splits) over int8 pools, kernels against plain;
 15. split prefill/verify, K5b (phase 1) + K5c, against the split plain
@@ -129,13 +137,15 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    counters are zeroed before this phase and read after it (the
    ``SsmChunk`` region, declared beside ``MatmulBlocks``, launches K9
    here too; phase 25 reports it);
-22. K9 ``selective_scan`` against its plain version: float32 and
-   bfloat16, ragged L and Di, every ``SsmChunk`` candidate, with and
-   without the final state, at small widths and at falcon-mamba-7b's
-   (Di 8192, N 16, L 512, B 1 and 4); the shared-memory formula of the
-   cost model against the kernel's; the chunk sweep timed at the
-   prefill shape (B 1, L 512, bf16, with the final state) beside its
-   bound and the plain version;
+22. K9 ``selective_scan`` (the time-parallel chunked scan) against its
+   plain version: float32 and bfloat16, ragged L and Di, every
+   ``SsmChunk`` candidate, with and without the final state, at small
+   widths and at falcon-mamba-7b's (Di 8192, N 16, L 512, B 1 and 4);
+   the shared-memory formula of the cost model against the kernel's, for
+   both input types; the chunk sweep timed at the prefill shape (B 1, L
+   512, bf16, with the final state) beside its bound (the largest of the
+   byte, float32-operation and exp floors, each printed) and the plain
+   version;
 23. serve: ``serve_config`` on falcon-mamba-7b at full width (64 Mamba-1
    layers, d_inner 8192, random weights from a seed), phase 5's 8
    requests over 4 dense lanes; every request must finish with 32
@@ -324,7 +334,7 @@ def phase_build() -> None:
              lambda d, kind: pa.tc_info(d, kind, 64), 16),
             ("paged_decode", pa.DECODE_TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELi(?P<mode>\d)EE",
-             lambda d, kind: pa.decode_tc_info(d, kind, 64), 16)):
+             lambda d, kind: pa.decode_tc_info(d, kind, 64), 20)):
         log = paths[source].with_suffix(".log")
         if not log.exists():
             continue
@@ -364,9 +374,9 @@ def tc_instances(log: str, kernel: str,
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
         args = m.groupdict()
-        if "mode" in args:          # the decode kernel: int8 is paged only
-            kind = ("int8" if args["int8"] else
-                    ("bf16", "bf16 dense", "bf16 split")[int(args["mode"])])
+        if "mode" in args:          # the decode kernel: paged, dense, split
+            kind = ("int8" if args["int8"] else "bf16") + (
+                "", " dense", " split")[int(args["mode"])]
         else:
             kind = ("" if "int8" not in args else
                     ("int8" if args["int8"] else "bf16")
@@ -594,6 +604,7 @@ def serve_with_counts(engine: ServingEngine | None = None,
         kernel.launches = 0
     fa.flash_attention.last_kernel = fa.flash_decode.last_kernel = None
     pa.paged_decode_split.last_kernel = None
+    pa.paged_decode_split_quant.last_kernel = None
     pa.flash_paged_decode.last_kernel = None
     pa.flash_paged_decode_quant.last_kernel = None
     pa.flash_paged_prefill.last_kernel = None
@@ -697,6 +708,22 @@ def plain_decode(q, pools, table, lens) -> torch.Tensor:
     return ref.paged_decode_ref(q, k, v, table, lens, k_scale=ks, v_scale=vs)
 
 
+def nan_past_kv_len(pools, table, kv_len, psz):
+    """Copies of ``pools`` (codes and scales, or bf16 pools) with the slots
+    past kv_len of each lane's last live page set to NaN (int8 codes:
+    127), and with them set to 0."""
+    dirty = [t.clone() for t in pools]
+    zeroed = [t.clone() for t in pools]
+    for i, n in enumerate(kv_len):
+        if n % psz:
+            page = int(table[i, n // psz])
+            for t, z in zip(dirty, zeroed):
+                t[page, :, n % psz:] = (127 if t.dtype == torch.int8
+                                        else float("nan"))
+                z[page, :, n % psz:] = 0
+    return dirty, zeroed
+
+
 def tc_decode_checks(quant: bool) -> str:
     """The bf16 decode kernel (K3, or K6a with ``quant``) at the yi-6b
     decode case against plain for every cluster size, and with NaN (int8:
@@ -714,15 +741,7 @@ def tc_decode_checks(quant: bool) -> str:
         check(kernel.last_kernel == pa.DECODE_TC_KERNEL,
               f"{kernel.__name__} c={c} ran {kernel.last_kernel}")
         errs.append(f"c={c} {compare(got, want, BF16):.2e}")
-    dirty = [t.clone() for t in pools]
-    zeroed = [t.clone() for t in pools]
-    for i, n in enumerate(kv_len):
-        if n % psz:
-            page = int(table[i, n // psz])
-            for t, z in zip(dirty, zeroed):
-                t[page, :, n % psz:] = (127 if t.dtype == torch.int8
-                                        else float("nan"))
-                z[page, :, n % psz:] = 0
+    dirty, zeroed = nan_past_kv_len(pools, table, kv_len, psz)
     got = kernel(q, *dirty, table, lens)
     clean = kernel(q, *zeroed, table, lens)
     torch.cuda.synchronize()
@@ -1190,12 +1209,11 @@ def phase_k6() -> list[dict]:
         for ns in (1, 8):
             got = pa.flash_paged_decode_quant(q, k8, v8, ks, vs, table, lens,
                                               num_splits=ns)
-            if ns == 1:
-                check(pa.flash_paged_decode_quant.last_kernel
-                      == (pa.DECODE_TC_KERNEL if dtype == BF16
-                          else pa.DECODE_SIMT_KERNEL),
-                      f"K6a {label} ran "
-                      f"{pa.flash_paged_decode_quant.last_kernel}")
+            launched = (pa.flash_paged_decode_quant if ns == 1
+                        else pa.paged_decode_split_quant).last_kernel
+            check(launched == (pa.DECODE_TC_KERNEL if dtype == BF16
+                               else pa.DECODE_SIMT_KERNEL),
+                  f"{'K6a' if ns == 1 else 'K6b'} {label} ran {launched}")
             live = torch.tensor(kv_len, device="cuda") > 0
             if not bool(live.all()):
                 torch.cuda.synchronize()
@@ -1236,6 +1254,7 @@ def phase_k6() -> list[dict]:
     check(bool((out[0] == 0).all()), "K6c: rows with no key are not exactly 0")
     errs.append("rows without keys exactly 0")
     errs.append("K6a yi-6b by cluster size " + tc_decode_checks(True))
+    errs.append("K6b partials " + k6b_checks())
     print(f"[12 K6 int8 pages] max abs err vs plain (tol bf16 {TOL[BF16]}, "
           f"fp32 {TOL[torch.float32]}): " + "; ".join(errs))
 
@@ -1262,14 +1281,25 @@ def phase_k6() -> list[dict]:
            "library_ms": sdpa}
     k6b = {"ms": time_ms(lambda: pa.paged_decode_split_quant(
                q, k8, v8, ks, vs, table, lens, ns)),
-           "plain_ms": time_ms(lambda: ref.paged_decode_split_ref(
-               q, k8, v8, table, lens, ns, k_scale=ks, v_scale=vs)),
+           "plain_ms": time_ms(lambda: ref.paged_decode_split_tiles_ref(
+               q, k8, v8, table, lens, ns, k_scale=ks, v_scale=vs,
+               block_k=pa.DECODE_TILE_KEYS)),
            "library_ms": sdpa}
+    k6b_kernel = pa.paged_decode_split_quant.last_kernel
+    sweep = []
+    for n_sp in (2, 4, 8, 16):
+        parts = pa.paged_decode_split_quant(q, k8, v8, ks, vs, table, lens,
+                                            n_sp)
+        p1 = time_ms(lambda: pa.paged_decode_split_quant(
+            q, k8, v8, ks, vs, table, lens, n_sp))
+        p2 = time_ms(lambda: pa.split_combine(*parts, BF16))
+        sweep.append(f"ns={n_sp} phase 1 {p1[0]:.4f} + K5c {p2[0]:.4f} = "
+                     f"{p1[0] + p2[0]:.4f}")
     rows = [row("flash_paged_decode_quant", DECODE_SOURCE, f"{FLASH}:951",
                 compare(pa.flash_paged_decode_quant(q, k8, v8, ks, vs, table,
                                                     lens), want, BF16),
                 n_bytes, 4 * h * keys * d, k6a),
-            row("paged_decode_split_quant", PAGED_SOURCE, f"{FLASH}:1001",
+            row("paged_decode_split_quant", DECODE_SOURCE, f"{FLASH}:1001",
                 compare(pa.flash_paged_decode_quant(q, k8, v8, ks, vs, table,
                                                     lens, num_splits=ns),
                         want, BF16),
@@ -1282,8 +1312,11 @@ def phase_k6() -> list[dict]:
           f"in clusters of c={pa.cluster_size(b, hkv, pa.sm_count(0))}) "
           f"{fmt_times(k6a)}, bound "
           f"{rows[0]['bound_ms']:.5f} ms ({rows[0]['bound_by']}); K6b (8 "
-          f"splits, phase 1) {fmt_times(k6b)}, bound "
-          f"{rows[1]['bound_ms']:.5f} ms ({rows[1]['bound_by']})")
+          f"splits, phase 1, on {k6b_kernel}'s partials mode over int8 "
+          f"pools) {fmt_times(k6b)}, bound "
+          f"{rows[1]['bound_ms']:.5f} ms ({rows[1]['bound_by']}), plain = "
+          f"the split plain version cut at its 64-key tiles; by split "
+          f"count: " + "; ".join(sweep))
 
     # prefill timing at the phase-8 timing shape: a chunk of 128 at 384
     h, hkv, d, psz, c, start = 32, 4, 128, 16, 128, 384
@@ -1320,6 +1353,60 @@ def phase_k6() -> list[dict]:
     return rows
 
 
+def k6b_checks() -> str:
+    """K6b's partials on int8 pools quantized from the phase-7 cases: bf16
+    on the cluster kernel's partials mode, held to the plain version cut
+    at its 64-key tiles with the pools' scales (float32: the SIMT
+    template's 32-key tiles), at 2, 3, 8 and 16 splits (16: more splits
+    than a short lane's tiles); and with codes 127 and NaN scales in the
+    slots past kv_len of each lane's last live page, every partial finite
+    and bit-equal to the run on the pools with those slots zeroed."""
+    cases = [("yi-6b", 4, 32, 4, 128, 16, 64, [1024, 517, 33, 300], BF16),
+             ("deepseek-7b", 4, 32, 32, 128, 16, 64, [700, 1024, 16, 1],
+              BF16),
+             ("fp32 reduced", 2, 4, 2, 16, 8, 8, [61, 7], torch.float32)]
+    out, ratio = [], 0.0
+    for i, (label, b, h, hkv, d, psz, nblk, kv_len, dtype) in enumerate(cases):
+        q, kp, vp, table, lens = paged_case(b, h, hkv, d, psz, nblk, kv_len,
+                                            dtype, 600 + 10 * i)
+        (k8, ks), (v8, vs) = quantize_int8_rows(kp), quantize_int8_rows(vp)
+        tc = dtype == BF16
+        kw = dict(k_scale=ks, v_scale=vs,
+                  block_k=pa.DECODE_TILE_KEYS if tc else 32)
+        for ns in (2, 3, 8, 16) if tc else (2, 3, 8):
+            parts = pa.paged_decode_split_quant(q, k8, v8, ks, vs, table,
+                                                lens, ns)
+            launched = pa.paged_decode_split_quant.last_kernel
+            check(launched == (pa.DECODE_TC_KERNEL if tc
+                               else pa.DECODE_SIMT_KERNEL),
+                  f"K6b {label} ns={ns} ran {launched}")
+            _, want = ref.paged_decode_split_tiles_ref(q, k8, v8, table, lens,
+                                                       ns, **kw)
+            acc_abs = None
+            if tc:      # sum_j p_j |v_j| of every split
+                _, (_, _, acc_abs) = ref.paged_decode_split_tiles_ref(
+                    q, k8, v8.float().abs(), table, lens, ns, **kw)
+            err, r = compare_partials(parts, want, acc_abs)
+            ratio = max(ratio, r)
+            out.append(f"{label} ns={ns} {err:.2e}")
+    kv_len, psz = [1024, 517, 33, 300], 16
+    q, kp, vp, table, lens = paged_case(4, 32, 4, 128, psz, 64, kv_len, BF16,
+                                        660)
+    pools = [*quantize_int8_rows(kp), *quantize_int8_rows(vp)]
+    dirty, zeroed = nan_past_kv_len(pools, table, kv_len, psz)
+    got, clean = (pa.paged_decode_split_quant(q, k8, v8, ks, vs, table, lens,
+                                              8)
+                  for k8, ks, v8, vs in (dirty, zeroed))
+    torch.cuda.synchronize()
+    for g, c in zip(got, clean):
+        check(bool(torch.isfinite(g).all()) and torch.equal(g, c),
+              "K6b: the slots past kv_len changed a partial")
+    return ("; ".join(out) + f"; acc's worst error {ratio:.3f}x the bf16 "
+            f"tolerance 2e-2 (1 + |acc|); codes 127 and NaN scales past "
+            f"kv_len: every partial finite and bit-equal to the zeroed "
+            f"pools' run")
+
+
 def phase_split_int8_serves(smi: str, paged: dict
                             ) -> tuple[dict[str, int], dict[str, dict]]:
     """The phase-9 serve with int8 pages and split-KV: (a) int8 with 8
@@ -1337,16 +1424,20 @@ def phase_split_int8_serves(smi: str, paged: dict
                 pa.split_combine))]
     counts, lines, reports = {}, [], {}
     for label, kw, (prefill, *decode) in serves:
-        with kernels_by_route(pa, "paged_decode_split") as k5a_routes:
+        with kernels_by_route(pa, "paged_decode_split") as k5a_routes, \
+                kernels_by_route(pa, "paged_decode_split_quant") as k6b_routes:
             report, launches = serve_with_counts(cache="paged", page_size=16,
                                                  prefill_chunk=128, **kw)
         reports[label] = report
         what = f"the {label} serve"
         only_launched(launches, (prefill, *decode), what)
-        if pa.paged_decode_split in decode:
-            check(dict(k5a_routes)
-                  == {pa.DECODE_TC_KERNEL: launches["paged_decode_split"]},
-                  f"{what}: K5a launches by kernel {dict(k5a_routes)}")
+        for kernel, routes in ((pa.paged_decode_split, k5a_routes),
+                               (pa.paged_decode_split_quant, k6b_routes)):
+            if kernel in decode:
+                check(dict(routes) == {pa.DECODE_TC_KERNEL:
+                                       launches[kernel.__name__]},
+                      f"{what}: {kernel.__name__} launches by kernel "
+                      f"{dict(routes)}")
         check(prefill.last_kernel == TC_KERNEL,
               f"{what}: {prefill.__name__} ran {prefill.last_kernel}")
         check(launches[prefill.__name__]
@@ -1376,6 +1467,7 @@ def phase_split_int8_serves(smi: str, paged: dict
             f"decode steps, launches "
             f"{ {k: n for k, n in launches.items() if n} }"
             + (f" (K5a by kernel {dict(k5a_routes)})" if k5a_routes else "")
+            + (f" (K6b by kernel {dict(k6b_routes)})" if k6b_routes else "")
             + f", pool_bytes "
             f"{cache['pool_bytes']} ({cache['kv_bytes_per_token']:.1f} B per "
             f"token) against fp {paged['cache']['pool_bytes']}, kv "
@@ -2176,6 +2268,40 @@ def ssm_case(bsz, length, di, n, seed, dtype):
             torch.ones((di,), dtype=dtype, device="cuda"))
 
 
+#: exp results an SM's special-function units give a clock (Hopper)
+SFU_EXP_PER_CLOCK = 16
+
+
+def exp_floor_ms(n_exp: float) -> tuple[float, str]:
+    """The least time ``n_exp`` float32 exps take on the card's SFUs: 16 a
+    clock an SM at the card's maximum SM clock (``nvidia-smi``'s
+    ``clocks.max.sm``), and that clock for the record."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (n_exp / (SFU_EXP_PER_CLOCK * sms * mhz * 1e6) * 1e3,
+            f"{SFU_EXP_PER_CLOCK}/clock x {sms} SMs x {mhz:.0f} MHz")
+
+
+def ssm_bound(bsz, length, di, n) -> tuple[float, str, str]:
+    """K9's bound at bf16 inputs with the final state: the largest of its
+    bytes over the HBM rate, its float32 operations over the float32 peak
+    and its exps (one per (b, t, d, n) item) over the SFUs' rate; the
+    exps are operations, so they bound it as "operations".  Returns (ms,
+    bound_by, the three floors as text)."""
+    n_bytes, n_ops = ssm_work(bsz, length, di, n, 2)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    t_exp, rate = exp_floor_ms(bsz * length * di * n)
+    text = (f"bytes {t_bytes:.5f} ms, float32 operations {t_ops:.5f} ms, "
+            f"exps {t_exp:.5f} ms ({rate})")
+    if t_bytes >= max(t_ops, t_exp):
+        return t_bytes, "bytes", text
+    return max(t_ops, t_exp), "operations", text
+
+
 def ssm_work(bsz, length, di, n, elem: int) -> tuple[float, float]:
     """(bytes, float32 operations) of one scan with the final state: x, dt
     and y (B L Di each) and b, c (B L N each) in the input type, d, a and
@@ -2213,9 +2339,11 @@ def phase_k9() -> tuple[dict, dict]:
         errs.append(f"{label} {worst:.2e}")
     for n in k9.STATES:
         for chunk in CHUNK_VALUES:
-            check(k9.kernel_smem_bytes(n, chunk) == k9.smem_bytes(n, chunk),
-                  f"shared-memory formula differs from the kernel's at "
-                  f"N={n} chunk={chunk}")
+            for elem in (2, 4):
+                check(k9.kernel_smem_bytes(n, chunk, elem)
+                      == k9.smem_bytes(n, chunk, elem),
+                      f"shared-memory formula differs from the kernel's at "
+                      f"N={n} chunk={chunk} elem={elem}")
     print(f"[22 K9 selective_scan] max abs err vs plain over chunks "
           f"{CHUNK_VALUES}, y and final state, with and without the state "
           f"(tol bf16 {TOL[BF16]}, fp32 {TOL[torch.float32]}): "
@@ -2233,21 +2361,21 @@ def phase_k9() -> tuple[dict, dict]:
     want = ref.selective_scan_ref(*args, return_final_state=True)
     got = k9.selective_scan(*args, chunk=best, return_final_state=True)
     err = max(compare(got[0], want[0], BF16), compare(got[1], want[1], BF16))
-    n_bytes, n_ops = ssm_work(b, length, di, n, 2)
-    bound_ms, bound_by = bound(n_bytes, n_ops, torch.float32)
+    bound_ms, bound_by, floors = ssm_bound(b, length, di, n)
     plain = time_ms(lambda: ref.selective_scan_ref(*args,
                                                    return_final_state=True))
     args4 = ssm_case(4, length, di, n, 295, BF16)
     b4 = time_ms(lambda: k9.selective_scan(*args4, chunk=best,
                                            return_final_state=True))
-    bound4 = bound(*ssm_work(4, length, di, n, 2), torch.float32)
+    bound4 = ssm_bound(4, length, di, n)
     print(f"[22 K9 selective_scan] falcon-mamba prefill layer B=1 L={length} "
           f"Di={di} N={n} bf16 with the final state, device ms by chunk: "
           + ", ".join(f"{c} {ms:.4f}" for c, ms in sweep.items())
-          + f"; bound {bound_ms:.4f} ms ({bound_by}); plain {plain[0]:.4f} "
-          f"({plain[1]:.4f} per call incl. host); library none (no one "
-          f"PyTorch call); B=4 at chunk {best}: {b4[0]:.4f} ms, bound "
-          f"{bound4[0]:.4f} ms ({bound4[1]})")
+          + f"; bound {bound_ms:.5f} ms ({bound_by}; the floors: {floors}); "
+          f"plain {plain[0]:.4f} ({plain[1]:.4f} per call incl. host); "
+          f"library none (no one PyTorch call); B=4 at chunk {best}: "
+          f"{b4[0]:.4f} ms, bound {bound4[0]:.5f} ms ({bound4[1]}; "
+          f"{bound4[2]})")
     return {"name": "selective_scan", "route": "cuda", "source": SSM_SOURCE,
             "replaces": "src/repro/kernels/ssm_scan.py:74",
             "max_abs_err": err, "ms": sweep[best], "plain_ms": plain[0],

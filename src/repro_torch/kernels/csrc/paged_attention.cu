@@ -16,7 +16,9 @@
 // K6a paged_decode_kernel<float, int8, normalise> flash_paged_decode_quant /
 //                                          _paged_decode_quant_kernel,
 //                                          float32 query only
-// K6b paged_decode_kernel<int8, partials>  _paged_decode_split_quant_kernel
+// K6b paged_decode_kernel<float, int8, partials>
+//                                          _paged_decode_split_quant_kernel,
+//                                          float32 query only
 // K4  paged_prefill_kernel<float, one pass>       flash_paged_prefill /
 //                                          _paged_prefill_kernel (num_splits=1),
 //                                          float32 query only
@@ -28,12 +30,11 @@
 // K6d paged_prefill_kernel<float, int8, partials>
 //                                          _paged_prefill_split_quant_kernel,
 //                                          float32 query only
-// With a bf16 query, the main path, K3, K6a and K5a run in paged_decode.cu
-// (a thread-block cluster per lane and kv head, cp.async row copies,
-// tensor cores; K5a as its partials mode) and K4, K5b, K6c and K6d on the
-// tensor cores in paged_prefill.cu; their instances here take float32
-// only (a TF32 product would break the fp32 tolerance).  K6b keeps its
-// bf16 instance.
+// With a bf16 query, the main path, K3, K6a, K5a and K6b run in
+// paged_decode.cu (a thread-block cluster per lane and kv head, cp.async
+// row copies, tensor cores; K5a and K6b as its partials mode) and K4, K5b,
+// K6c and K6d on the tensor cores in paged_prefill.cu; their instances
+// here take float32 only (a TF32 product would break the fp32 tolerance).
 //
 // Semantics kept from the TPU kernels: key j of sequence b lives in page
 // table[b, j / psz] at slot j % psz; only keys j < kv_len[b] are read (table
@@ -52,8 +53,8 @@
 // at four yi-6b lanes of ~520 tokens, half that in int8), a prefill chunk
 // reads its Q and the committed K/V prefix once.  These versions keep the
 // structure of K2 and K1, SIMT fp32 products from shared memory:
-//  * decode (K3/K6a/K5a with a float32 query, K6b with either; a bf16
-//    query's one pass and K5a are paged_decode.cu's): one block of 8 warps per
+//  * decode (K3/K6a/K5a/K6b with a float32 query; a bf16 query's are
+//    paged_decode.cu's): one block of 8 warps per
 //    (lane, kv head[, split]) holding the G grouped query rows, so each K/V
 //    row is read from device memory once for all G rows.  The block stages the lane's live page-table entries
 //    in shared memory once; each lane of a warp owns one key of a 32-key
@@ -573,17 +574,11 @@ cudaError_t decode_by_dim(const DecodeArgs& a) {
   }
 }
 
-// dtype of q (and of fp pools): 0 = float32, 1 = bfloat16; K3, K6a and K5a
-// take float32 only (bf16: paged_decode.cu), K6b both
+// dtype of q (and of fp pools): 0 = float32 only (bf16: paged_decode.cu)
 template <bool QUANT, bool SPLIT>
 cudaError_t decode(const DecodeArgs& a, int dtype) {
   if (dtype == 0)
     return decode_by_dim<float, std::conditional_t<QUANT, int8_t, float>, SPLIT>(a);
-  if constexpr (QUANT && SPLIT) {
-    if (dtype == 1)
-      return decode_by_dim<__nv_bfloat16,
-                           std::conditional_t<QUANT, int8_t, __nv_bfloat16>, SPLIT>(a);
-  }
   return cudaErrorInvalidValue;
 }
 
@@ -701,7 +696,8 @@ extern "C" int repro_paged_decode_split(
   return decode<false, true>(a, dtype);
 }
 
-// K6b: int8 pools with scales, ns splits, partials as K5a.
+// K6b with a float32 query (dtype 0 only): int8 pools with scales, ns
+// splits, partials as K5a.
 extern "C" int repro_paged_decode_split_quant(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,

@@ -16,11 +16,14 @@
 //                                   _decode_kernel (pallas_call :233);
 // K5a paged_decode_tc_kernel<bf16, D, PARTIALS>  flash_paged_decode (:434,
 //                                   num_splits > 1) /
-//                                   _paged_decode_split_kernel (:535).
+//                                   _paged_decode_split_kernel (:535);
+// K6b paged_decode_tc_kernel<int8, D, PARTIALS>  flash_paged_decode_quant
+//                                   (:897, num_splits > 1) /
+//                                   _paged_decode_split_quant_kernel
+//                                   (pallas_call :1001, body :850).
 // A float32 query keeps the SIMT templates of paged_attention.cu and
-// flash_attention.cu (a TF32 product would break the fp32 tolerance), as
-// does K6b (the int8 split partials) for now; the wrappers pick by the
-// query's type.
+// flash_attention.cu (a TF32 product would break the fp32 tolerance); the
+// wrappers pick by the query's type.
 //
 // The three modes share every mechanism below and differ only where the
 // rows come from and where the state goes:
@@ -31,7 +34,8 @@
 //            and no table is staged; kv_len is clamped to [0, S] and S
 //            need not be a multiple of the 64-key tile (the copies
 //            zero-fill the tail);
-//  PARTIALS  paged rows, one CTA per split in a cluster of one (grid
+//  PARTIALS  paged rows (bf16 pools: K5a; int8 pools with their scales:
+//            K6b), one CTA per split in a cluster of one (grid
 //            B * Hkv * ns): split s walks the s-th contiguous share,
 //            ceil(tiles / ns), of the lane's live 64-key tiles (the rank
 //            rule with c replaced by ns); after the in-CTA warp merge it
@@ -101,11 +105,17 @@
 //     (V by ldmatrix.trans).  Not wgmma: its 64-row minimum would waste at
 //     least 4x the products on G <= 16 rows, and decode is bound by bytes.
 // K2 (the SIMT flash_decode_kernel of flash_attention.cu, 16 blocks at
-// yi-6b's four dense lanes) and K5a (the SIMT template of
+// yi-6b's four dense lanes) and K5a and K6b (the SIMT template of
 // paged_attention.cu with a split axis) had the same three faults; they
 // are now the DENSE and PARTIALS modes of this kernel, with no new body:
 // K2 launches exactly as K3 does, with no table and no extra allocation,
-// and K5a is K3's walk with its splits in place of a cluster's ranks.
+// and K5a is K3's walk with its splits in place of a cluster's ranks, K6b
+// the same walk over K6a's int8 rows (widened in shared memory, scales by
+// 4-byte copies; a key past kv_len has its scales zero-filled by the
+// copy, so a NaN scale there is never read).  The int8 PARTIALS instance
+// needs 96,000 bytes of shared memory before the table at D = 128 (the
+// int8 ring, the widened tiles, the Q slab and the scales), less than
+// the bf16 one's 108,800, so it keeps two CTAs an SM.
 
 #include <cooperative_groups.h>
 
@@ -156,7 +166,7 @@ struct Smem {
 }  // namespace dec
 
 // ---------------------------------------------------------------------------
-// K3 / K6a / K2 / K5a: q (B, H, 1, D) bf16, pools (P, Hkv, psz, D) of S
+// K3 / K6a / K2 / K5a / K6b: q (B, H, 1, D) bf16, pools (P, Hkv, psz, D) of S
 // (bf16, or int8 with scales (P, Hkv, psz) fp32), table (B, nblk), kv_len
 // (B,) int32; o (B, H, 1, D) bf16.  DENSE: the pools are the strips (B,
 // Hkv, S, D), psz = S, nblk = 1, no table.  Grid (B * Hkv * c, ceil(G /
@@ -644,6 +654,7 @@ cudaError_t info_by_kind(int kind, int nblk, int* out) {
     case 1: return info<int8_t, D, PAGED>(nblk, out);
     case 2: return info<__nv_bfloat16, D, DENSE>(nblk, out);
     case 3: return info<__nv_bfloat16, D, PARTIALS>(nblk, out);
+    case 4: return info<int8_t, D, PARTIALS>(nblk, out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -717,8 +728,25 @@ extern "C" int repro_paged_decode_split_tc(
   return by_dim<__nv_bfloat16, PARTIALS>(a);
 }
 
+// K6b: int8 pools with scales (P, Hkv, psz), ns splits, partials as K5a.
+extern "C" int repro_paged_decode_split_quant_tc(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* page_table,
+    const void* kv_len, void* m, void* l, void* acc, int B, int H, int Hkv,
+    int psz, int nblk, int ns, int D, float scale, void* stream) {
+  const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(kv_len), nullptr,
+               static_cast<float*>(m), static_cast<float*>(l),
+               static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
+               static_cast<cudaStream_t>(stream)};
+  return by_dim<int8_t, PARTIALS>(a);
+}
+
 // The instance for head dim D of kind 0 (K3: bf16 pools), 1 (K6a: int8
-// pools), 2 (K2: bf16 strips) or 3 (K5a: bf16 pools, partials): out[0..7]
+// pools), 2 (K2: bf16 strips), 3 (K5a: bf16 pools, partials) or 4 (K6b:
+// int8 pools, partials): out[0..7]
 // = registers per thread, local-memory (spill) bytes, dynamic shared
 // memory in bytes at nblk table entries (K2: none), resident CTAs per SM,
 // and the clusters of 1, 2, 4 and 8 CTAs the card holds at once.

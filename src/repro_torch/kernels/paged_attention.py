@@ -1,6 +1,6 @@
 """Python wrappers of the paged CUDA attention kernels (``csrc/paged_attention.cu``;
 ``csrc/paged_decode.cu`` for the decode with a bf16 query over bf16 or
-int8 pools in one pass, and over bf16 pools split; ``csrc/paged_prefill.cu``
+int8 pools, in one pass or split; ``csrc/paged_prefill.cu``
 for the prefill chunk with a bf16 query over bf16 or int8 pools, in one
 pass or split).
 
@@ -23,8 +23,9 @@ pass or split).
   and K5c (:func:`split_combine`, the merge).
 * :func:`flash_paged_decode_quant` — the same over int8 pools with fp32
   per-row scales (P, Hkv, psz): K6a (the cluster kernel for a bf16 query,
-  the SIMT template for float32), or K6b (:func:`paged_decode_split_quant`)
-  + K5c.
+  the SIMT template for float32), or K6b (:func:`paged_decode_split_quant`:
+  for a bf16 query the cluster kernel's partials mode over int8 pools, for
+  float32 the SIMT template) + K5c.
 * :func:`flash_paged_prefill` (K4) — a chunk of C query tokens per
   sequence at absolute positions ``start[b] + i``, causal over the
   committed paged prefix plus the chunk's own triangle; key ``j`` is
@@ -160,6 +161,8 @@ def _dec_lib() -> ctypes.CDLL:
              [_P] * 8 + [_I] * 7 + [_F, _P]),
             ("repro_flash_decode_tc", [_P] * 5 + [_I] * 6 + [_F, _P]),
             ("repro_paged_decode_split_tc", [_P] * 8 + [_I] * 7 + [_F, _P]),
+            ("repro_paged_decode_split_quant_tc",
+             [_P] * 10 + [_I] * 7 + [_F, _P]),
             ("repro_paged_decode_tc_info", [_I] * 3 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -214,9 +217,9 @@ def tc_info(d: int, kind: str, nblk: int = 0) -> dict[str, int]:
 
 
 #: the instances of the decode kernel, by kind: K3 (bf16 pools), K6a
-#: (int8 pools), K2 (its dense mode: bf16 strips) and K5a (its partials
-#: mode: bf16 pools)
-DECODE_KINDS = ("bf16", "int8", "bf16 dense", "bf16 split")
+#: (int8 pools), K2 (its dense mode: bf16 strips), K5a (its partials
+#: mode: bf16 pools) and K6b (its partials mode: int8 pools)
+DECODE_KINDS = ("bf16", "int8", "bf16 dense", "bf16 split", "int8 split")
 
 
 def decode_tc_info(d: int, kind: str, nblk: int = 0) -> dict:
@@ -263,6 +266,19 @@ def _decode_entry(name: str, q: torch.Tensor, b: int, hkv: int, quant: bool,
         return fn, DECODE_TC_KERNEL, decode_cluster(name, q, b, hkv, cluster)
     fn = getattr(_lib(), f"repro_flash_paged_decode{suffix}")
     return fn, DECODE_SIMT_KERNEL, _DTYPES[q.dtype]
+
+
+def _split_decode_entry(q: torch.Tensor, quant: bool):
+    """The C entry of K5a (K6b with ``quant``) for q's type, the name of the
+    kernel it launches and its extra trailing arguments: for bfloat16 the
+    cluster kernel's partials mode, for float32 the SIMT template and the
+    dtype code."""
+    suffix = "_quant" if quant else ""
+    if q.dtype == torch.bfloat16:
+        return (getattr(_dec_lib(), f"repro_paged_decode_split{suffix}_tc"),
+                DECODE_TC_KERNEL, ())
+    return (getattr(_lib(), f"repro_paged_decode_split{suffix}"),
+            DECODE_SIMT_KERNEL, (_DTYPES[q.dtype],))
 
 
 def _check(name: str, q: torch.Tensor, k_pool: torch.Tensor,
@@ -407,17 +423,13 @@ def paged_decode_split(q: torch.Tensor, k_pool: torch.Tensor,
     b, h, hkv, psz, d, scale = _decode_shape("paged_decode_split", q, k_pool,
                                              scale)
     m, l, acc = _partials(q, hkv, num_splits)
-    args = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), kv_len.data_ptr(), m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), b, h, hkv, psz, page_table.shape[1],
-            num_splits, d]
-    if q.dtype == torch.bfloat16:
-        fn, kernel = _dec_lib().repro_paged_decode_split_tc, DECODE_TC_KERNEL
-    else:
-        fn, kernel = _lib().repro_paged_decode_split, DECODE_SIMT_KERNEL
-        args.append(_DTYPES[q.dtype])
+    fn, kernel, extra = _split_decode_entry(q, quant=False)
     with torch.cuda.device(q.device):
-        err = fn(*args, scale, _stream(q))
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 page_table.data_ptr(), kv_len.data_ptr(), m.data_ptr(),
+                 l.data_ptr(), acc.data_ptr(), b, h, hkv, psz,
+                 page_table.shape[1], num_splits, d, *extra, scale,
+                 _stream(q))
     _raise_on("paged_decode_split", err)
     paged_decode_split.launches += 1
     paged_decode_split.last_kernel = kernel
@@ -429,19 +441,25 @@ def paged_decode_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
                              v_scale: torch.Tensor, page_table: torch.Tensor,
                              kv_len: torch.Tensor, num_splits: int, *,
                              scale: float | None = None):
-    """K6b: :func:`paged_decode_split` over int8 pools and their scales."""
+    """K6b: :func:`paged_decode_split` over int8 pools and their scales.
+    A bfloat16 q runs the cluster kernel's partials mode over int8 pools
+    (split s the s-th contiguous share of the lane's live 64-key tiles, as
+    K5a), a float32 q the SIMT template (32-key tiles); ``last_kernel``
+    names the one launched last."""
     b, h, hkv, psz, d, scale = _decode_shape("paged_decode_split_quant", q,
                                              k_pool, scale)
     m, l, acc = _partials(q, hkv, num_splits)
+    fn, kernel, extra = _split_decode_entry(q, quant=True)
     with torch.cuda.device(q.device):
-        err = _lib().repro_paged_decode_split_quant(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-            kv_len.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(), b,
-            h, hkv, psz, page_table.shape[1], num_splits, d, _DTYPES[q.dtype],
-            scale, _stream(q))
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 k_scale.data_ptr(), v_scale.data_ptr(),
+                 page_table.data_ptr(), kv_len.data_ptr(), m.data_ptr(),
+                 l.data_ptr(), acc.data_ptr(), b, h, hkv, psz,
+                 page_table.shape[1], num_splits, d, *extra, scale,
+                 _stream(q))
     _raise_on("paged_decode_split_quant", err)
     paged_decode_split_quant.launches += 1
+    paged_decode_split_quant.last_kernel = kernel
     return m, l, acc
 
 
@@ -487,7 +505,8 @@ def flash_paged_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
     """:func:`flash_paged_decode` over int8 pools (P, Hkv, psz, D) with
     float32 per-row scales (P, Hkv, psz); q float32 or bfloat16, output
     like q.  K6a (the cluster kernel for bfloat16, as K3), or K6b + K5c
-    for ``num_splits`` above 1."""
+    for ``num_splits`` above 1 (K6b: the cluster kernel's partials mode
+    for bfloat16, as K5a)."""
     _check("flash_paged_decode_quant", q, k_pool, v_pool, page_table,
            (kv_len,), (k_scale, v_scale))
     b, h, hkv, psz, d, scale = _decode_shape("flash_paged_decode_quant", q,
@@ -652,6 +671,6 @@ KERNELS = (flash_paged_decode, paged_decode_split, split_combine,
 for _kernel in KERNELS:
     _kernel.launches = 0
 flash_paged_decode.last_kernel = flash_paged_decode_quant.last_kernel = None
-paged_decode_split.last_kernel = None
+paged_decode_split.last_kernel = paged_decode_split_quant.last_kernel = None
 flash_paged_prefill.last_kernel = flash_paged_prefill_quant.last_kernel = None
 paged_prefill_split.last_kernel = paged_prefill_split_quant.last_kernel = None

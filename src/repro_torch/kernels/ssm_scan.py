@@ -2,11 +2,22 @@
 
 :func:`selective_scan` runs the Mamba-1 recurrence of falcon-mamba-7b
 over x, dt (B, L, Di), A (Di, N) float32, B, C (B, L, N) and D (Di,),
-with the JAX package's keyword ``chunk``: the time steps one block stages
-in shared memory at once, the install-time PP of the ``SsmChunk`` region.
-A chunk longer than L is cut to L, as the JAX wrapper does.  With
-``return_final_state`` it also returns the state after the last step,
-(B, Di, N) float32, which prefill hands to decode.
+with the JAX package's keyword ``chunk``: the time steps of one tile, the
+install-time PP of the ``SsmChunk`` region.  A chunk longer than L is cut
+to L, as the JAX wrapper does.  With ``return_final_state`` it also
+returns the state after the last step, (B, Di, N) float32, which prefill
+hands to decode.
+
+The kernel is a time-parallel chunked scan: a block of 16 warps takes 16
+channels of one batch entry, one warp each; lane j of a warp owns
+:func:`items_per_lane` consecutive steps of the tile, composes their
+affine maps per state, and a warp scan joins the lanes.  The tile's rows
+are staged in shared memory in the input type and transposed into
+lane-major float rows (:func:`row_floats`); :func:`smem_bytes` is the
+block's whole footprint, the formula of the C library's
+``repro_ssm_scan_smem_bytes``.  The grid holds as many blocks as the
+card runs at once, each walking the (batch entry, 16 channels) work
+items in turn.
 
 The wrapper takes contiguous CUDA tensors only: x, dt, B, C and D all
 float32 or all bfloat16, A float32, N a power of two up to 32.  It
@@ -27,18 +38,51 @@ import torch
 
 from . import build
 
-THREADS = 256           # threads per block: 256 // N channels x N states
+CHANNELS = 16           # channels per block, one warp each
+ITEMS_MAX = 16          # steps a lane owns at most: a warp pass of 512
 STATES = (1, 2, 4, 8, 16, 32)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def smem_bytes(d_state: int, chunk: int) -> int:
-    """Shared memory one block of K9 takes: x, dt and y staging for
-    ``chunk`` steps of its ``256 // d_state`` channels, and B and C
-    staging for ``chunk`` steps, all float32 (the formula of
+def items_per_lane(chunk: int) -> int:
+    """The steps a lane owns for a tile of ``chunk`` steps:
+    ``ceil(chunk / 32)`` rounded up to a power of two, at most
+    :data:`ITEMS_MAX` (a longer tile is scanned in passes of 512 steps)."""
+    need = -(-min(chunk, 32 * ITEMS_MAX) // 32)
+    return next(i for i in (1, 2, 4, 8, ITEMS_MAX) if i >= need)
+
+
+def lane_stride(items: int) -> int:
+    """Floats from one lane's steps to the next lane's in a lane-major row:
+    4 mod 8 for ``items`` >= 4, so that 16-byte reads by 8 lanes at a time
+    fall in distinct banks."""
+    if items < 4:
+        return items
+    return items if (items // 4) % 2 else items + 4
+
+
+def row_floats(chunk: int) -> int:
+    """Floats of one lane-major row (a channel's x or dt, a state's B or C
+    over one warp pass): the lanes that own steps, padded to 4 mod 32."""
+    items = items_per_lane(chunk)
+    w = min(chunk, 32 * ITEMS_MAX)
+    f = -(-w // items) * lane_stride(items)
+    return f + (36 - f % 32) % 32
+
+
+def smem_bytes(d_state: int, chunk: int, elem_bytes: int = 2) -> int:
+    """Shared memory one block of K9 takes for inputs of ``elem_bytes``
+    (2: bfloat16, the served type; 4: float32): the lane-major float rows
+    of its 16 channels' x and dt and of the ``d_state`` states' B and C,
+    then the raw tile of ``chunk`` steps in the input type, each of its
+    four regions rounded up to 16 bytes (the formula of
     ``csrc/ssm_scan.cu``)."""
-    return 4 * chunk * (3 * (THREADS // d_state) + 2 * d_state)
+    def round16(n: int) -> int:
+        return -(-n // 16) * 16
+    return (4 * (2 * CHANNELS + 2 * d_state) * row_floats(chunk)
+            + 2 * round16(chunk * CHANNELS * elem_bytes)
+            + 2 * round16(chunk * d_state * elem_bytes))
 
 
 @functools.cache
@@ -47,14 +91,14 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("ssm_scan")
     lib.repro_ssm_scan.argtypes = [_P] * 8 + [_I] * 6 + [_P]
     lib.repro_ssm_scan.restype = _I
-    lib.repro_ssm_scan_smem_bytes.argtypes = [_I, _I]
+    lib.repro_ssm_scan_smem_bytes.argtypes = [_I, _I, _I]
     lib.repro_ssm_scan_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def kernel_smem_bytes(d_state: int, chunk: int) -> int:
+def kernel_smem_bytes(d_state: int, chunk: int, elem_bytes: int = 2) -> int:
     """Shared memory of one block as the built library computes it."""
-    return int(_lib().repro_ssm_scan_smem_bytes(d_state, chunk))
+    return int(_lib().repro_ssm_scan_smem_bytes(d_state, chunk, elem_bytes))
 
 
 def _check(x, dt, a, b, c, d) -> tuple[int, int, int, int]:
@@ -122,7 +166,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if err:
         raise RuntimeError(f"selective_scan: kernel launch failed with CUDA "
                            f"error {err} (chunk {chunk}, d_state {n}: "
-                           f"{smem_bytes(n, chunk)} bytes of shared memory)")
+                           f"{smem_bytes(n, chunk, x.element_size())} "
+                           "bytes of shared memory)")
     selective_scan.launches += 1
     selective_scan.last_chunk = chunk
     return (y, h) if return_final_state else y

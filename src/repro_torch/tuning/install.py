@@ -95,18 +95,19 @@ def ssm_chunk_cost(chunk: int, *, seq: int, d_inner: int, d_state: int,
     d_state).
 
     The footprint is K9's own shared memory per block
-    (:func:`..kernels.ssm_scan.smem_bytes`, which stages float32 whatever
-    the input type) for the chunk the kernel runs, cut to ``seq``.  Over
+    (:func:`..kernels.ssm_scan.smem_bytes` for bfloat16 inputs, the type
+    the region times) for the chunk the kernel runs, cut to ``seq``.  Over
     ``smem_limit`` the chunk cannot be launched: ``inf``, never timed.
-    Otherwise the cost is the staging rounds of all blocks (blocks x
-    chunks of the sequence, each a load and two barriers) times the
+    Otherwise the cost is the staging rounds of all work items (groups
+    of :data:`~..kernels.ssm_scan.CHANNELS` channels x tiles of the
+    sequence, each a load, a transpose and three barriers) times the
     occupancy penalty."""
     if d_state not in k9.STATES:
         return math.inf
     used = k9.smem_bytes(d_state, min(chunk, seq))
     if used > smem_limit:
         return math.inf
-    blocks = math.ceil(d_inner / (k9.THREADS // d_state))
+    blocks = math.ceil(d_inner / k9.CHANNELS)
     return blocks * math.ceil(seq / chunk) * _occupancy_penalty(
         used, smem_limit)
 

@@ -318,10 +318,9 @@ def test_int8_decode_kernels_match_plain(cuda_device, dtype, h, hkv, d, psz,
                            num_splits=ns)
     torch.cuda.synchronize()
     assert kernel.launches == n + 1
-    if ns == 1:
-        assert kernel.last_kernel == (
-            pa.DECODE_TC_KERNEL if dtype == torch.bfloat16
-            else pa.DECODE_SIMT_KERNEL)
+    assert kernel.last_kernel == (
+        pa.DECODE_TC_KERNEL if dtype == torch.bfloat16
+        else pa.DECODE_SIMT_KERNEL)
     assert got.dtype == dtype
     close(got, ref.paged_decode_ref(q, k8, v8, table, kv_len, k_scale=ks,
                                     v_scale=vs), dtype)
@@ -775,7 +774,7 @@ def test_ssm_scan_kernel_matches_plain(cuda_device, dtype, final_state, bsz,
 def test_ssm_scan_every_chunk_matches_plain(cuda_device, dtype):
     """Every SsmChunk candidate, over a ragged L (the last chunk masked;
     512 is cut to L), with and without the final state; the shared-memory
-    formula of the cost model equals the kernel's."""
+    formula of the cost model equals the kernel's for both input types."""
     args = ssm_case(2, 300, 256, 16, 50, cuda_device, dtype)
     want_y, want_h = ref.selective_scan_ref(*args, return_final_state=True)
     for chunk in SSM_CHUNKS:
@@ -787,7 +786,9 @@ def test_ssm_scan_every_chunk_matches_plain(cuda_device, dtype):
         close(k9.selective_scan(*args, chunk=chunk), want_y, dtype)
     for n in k9.STATES:
         for chunk in SSM_CHUNKS:
-            assert k9.kernel_smem_bytes(n, chunk) == k9.smem_bytes(n, chunk)
+            for elem in (2, 4):
+                assert (k9.kernel_smem_bytes(n, chunk, elem)
+                        == k9.smem_bytes(n, chunk, elem))
 
 
 def test_ssm_scan_launches_the_published_chunk(cuda_device):
@@ -1017,6 +1018,89 @@ def test_tc_split_decode_partials_match_plain(cuda_device, h, hkv, d, psz,
           torch.bfloat16)
     close(out[1:], ref.paged_decode_split_ref(q, kp, vp, table, lens,
                                               ns)[1:], torch.bfloat16)
+
+
+@pytest.mark.parametrize("ns", [1, 2, 8, 16])
+@pytest.mark.parametrize("h,hkv,d,psz", [(32, 4, 128, 16), (32, 32, 128, 16),
+                                         (8, 4, 64, 8), (40, 1, 16, 12)])
+def test_tc_int8_split_decode_partials_match_plain(cuda_device, h, hkv, d,
+                                                   psz, ns):
+    """K6b (bf16 q, int8 pools) on the cluster kernel's partials mode: its
+    partials against the plain version with the pools' scales cut at its
+    64-key tiles, m and l at the fp32 tolerance, acc within 2^-8 sum_j p_j
+    |v_j| + 2e-4 (1 + |acc|), splits with no key exactly (-1e30, 0, 0);
+    merged, against both plain versions."""
+    kv_len = [0, 37, 157, 20 * psz]
+    q, kp, vp, table, lens = paged_inputs(4, h, hkv, d, psz, 20, kv_len,
+                                          torch.bfloat16, cuda_device, 160)
+    (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+    n = pa.paged_decode_split_quant.launches
+    m, l, acc = pa.paged_decode_split_quant(q, k8, v8, ks, vs, table, lens,
+                                            ns)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_split_quant.launches == n + 1
+    assert pa.paged_decode_split_quant.last_kernel == pa.DECODE_TC_KERNEL
+    tiles = dict(k_scale=ks, v_scale=vs, block_k=pa.DECODE_TILE_KEYS)
+    _, (wm, wl, wacc) = ref.paged_decode_split_tiles_ref(
+        q, k8, v8, table, lens, ns, **tiles)
+    _, (_, _, acc_abs) = ref.paged_decode_split_tiles_ref(
+        q, k8, v8.float().abs(), table, lens, ns, **tiles)
+    close(m, wm, torch.float32)
+    close(l, wl, torch.float32)
+    assert bool(((acc - wacc).abs()
+                 <= 2.0 ** -8 * acc_abs + 2e-4 * (1 + wacc.abs())).all())
+    empty = wm == ref.NEG_INF
+    assert bool((m[empty] == ref.NEG_INF).all() and (l[empty] == 0).all()
+                and (acc[empty] == 0).all())
+    if ns > 1:
+        out = pa.flash_paged_decode_quant(q, k8, v8, ks, vs, table, lens,
+                                          num_splits=ns)
+        torch.cuda.synchronize()
+        assert torch.all(out[0] == 0)
+        want = ref.paged_decode_ref(q, k8, v8, table, lens, k_scale=ks,
+                                    v_scale=vs)
+        close(out[1:], want[1:], torch.bfloat16)
+
+
+def test_int8_split_decode_routes_by_query_type(cuda_device):
+    """K6b: bf16 on the cluster kernel's partials mode, float32 on the
+    SIMT template."""
+    for dtype, kernel in ((torch.bfloat16, pa.DECODE_TC_KERNEL),
+                          (torch.float32, pa.DECODE_SIMT_KERNEL)):
+        q, kp, vp, table, kv_len = paged_inputs(2, 8, 2, 64, 16, 8, [77, 128],
+                                                dtype, cuda_device, 165)
+        (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+        pa.paged_decode_split_quant(q, k8, v8, ks, vs, table, kv_len, 4)
+        assert pa.paged_decode_split_quant.last_kernel == kernel
+
+
+@pytest.mark.parametrize("psz", [8, 16, 12])
+def test_tc_int8_split_decode_never_uses_the_slots_past_kv_len(cuda_device,
+                                                               psz):
+    """K6b with codes 127 and NaN scales in the slots past kv_len of each
+    lane's last live page: every partial is finite and bit-equal to the
+    kernel's on the same pools with those slots zeroed."""
+    kv_len = [37, 157, 5, 300]
+    q, kp, vp, table, lens = paged_inputs(4, 32, 4, 128, psz, 40, kv_len,
+                                          torch.bfloat16, cuda_device, 170)
+    pools = [*quantize(kp), *quantize(vp)]       # k8, ks, v8, vs
+    dirty = [t.clone() for t in pools]
+    zeroed = [t.clone() for t in pools]
+    for i, n in enumerate(kv_len):
+        if n % psz:
+            page = int(table[i, n // psz])
+            for t, z in zip(dirty, zeroed):
+                t[page, :, n % psz:] = (
+                    127 if t.dtype == torch.int8 else float("nan"))
+                z[page, :, n % psz:] = 0
+    got, want = (pa.paged_decode_split_quant(q, k8, v8, ks, vs, table, lens,
+                                             8)
+                 for k8, ks, v8, vs in (dirty, zeroed))
+    torch.cuda.synchronize()
+    assert pa.paged_decode_split_quant.last_kernel == pa.DECODE_TC_KERNEL
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
 
 
 # --------------------------------------------------------------------------

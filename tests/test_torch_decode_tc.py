@@ -1,6 +1,6 @@
 """The arithmetic and partition of the bf16 decode kernel (K3 and K6a with a
-bf16 query, ``csrc/paged_decode.cu``; K2 and K5a as its dense and partials
-modes), on the CPU.
+bf16 query, ``csrc/paged_decode.cu``; K2 as its dense mode, K5a and K6b
+as its partials mode), on the CPU.
 
 The kernel cannot run here, so a plain-torch emulation of it stands in: one
 cluster of ``c`` CTAs per (lane, kv head), rank r walking the r-th
@@ -39,7 +39,12 @@ tiles, m and l at the fp32 tolerance 2e-4, acc within 2^-8 sum_j p_j |v_j|
 + 2e-4 (1 + |acc|) (the bound the card's ``compare_partials`` applies),
 empty splits exactly (-1e30, 0, 0); merged by ``ref.combine_split_states``
 they are held to ``ref.paged_decode_ref`` and the JAX
-``flash_paged_decode(num_splits=ns)`` within the one-pass bound.
+``flash_paged_decode(num_splits=ns)`` within the one-pass bound.  Over
+int8 pools the partials mode is K6b: its partials are held to
+``ref.paged_decode_split_tiles_ref`` with the pools' scales within the
+same bound (G 1, 2 and 8, ragged lanes with an empty one, 1, 2 and 8
+splits and more splits than tiles), and merged to ``ref.paged_decode_ref``
+and the JAX ``flash_paged_decode_quant(num_splits=ns)``.
 
 Inputs come from numpy with a seed; table entries past a lane's live pages
 point at page 0.
@@ -171,12 +176,17 @@ def dense_tc_emulate(q, k, v, kv_len, cluster=1):
     return emulate_strips(q, k, v, None, None, kv_len, cluster)
 
 
-def split_tc_emulate(q, k_pool, v_pool, table, kv_len, num_splits):
-    """K5a, the partials mode over bf16 pools: the fp32 partials (m, l,
-    acc) of ``num_splits`` splits."""
+def split_tc_emulate(q, k_pool, v_pool, table, kv_len, num_splits,
+                     k_scale=None, v_scale=None):
+    """K5a, the partials mode over bf16 pools (K6b: over int8 pools with
+    their scales): the fp32 partials (m, l, acc) of ``num_splits``
+    splits."""
+    ks, vs = (None if sc is None else ref.gather_pages(sc[..., None],
+                                                       table)[..., 0]
+              for sc in (k_scale, v_scale))
     return emulate_strips(q, ref.gather_pages(k_pool, table),
-                          ref.gather_pages(v_pool, table), None, None,
-                          kv_len, num_splits, partials=True)
+                          ref.gather_pages(v_pool, table), ks, vs, kv_len,
+                          num_splits, partials=True)
 
 
 def shuffled_table(b, nblk, kv_len, psz, seed):
@@ -377,14 +387,32 @@ def test_dense_mode_against_jax_flash_decode_in_interpret_mode(h, hkv):
 # K5a: the partials mode
 # --------------------------------------------------------------------------
 
-def split_partials_bound(q, kp, vp, table, lens, ns):
+def split_partials_bound(q, kp, vp, table, lens, ns, ks=None, vs=None):
     """The plain partials at the kernel's 64-key tiles, and sum_j p_j
-    |v_j| of every split (its acc over |v|)."""
+    |v_j| of every split (its acc over |v|; int8 pools: over |code| times
+    the row's scale)."""
     _, want = ref.paged_decode_split_tiles_ref(q, kp, vp, table, lens, ns,
+                                               k_scale=ks, v_scale=vs,
                                                block_k=TILE)
     _, (_, _, acc_abs) = ref.paged_decode_split_tiles_ref(
-        q, kp, vp.float().abs(), table, lens, ns, block_k=TILE)
+        q, kp, vp.float().abs(), table, lens, ns, k_scale=ks, v_scale=vs,
+        block_k=TILE)
     return want, acc_abs
+
+
+def check_partials(got, want, acc_abs, shape):
+    """m and l at the fp32 tolerance, acc within 2^-8 sum_j p_j |v_j| +
+    2e-4 (1 + |acc|), rows that saw no key exactly (-1e30, 0, 0)."""
+    (m, l, acc), (wm, wl, wacc) = got, want
+    assert m.shape == l.shape == shape[:4] and acc.shape == shape
+    np.testing.assert_allclose(m.numpy(), wm.numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(l.numpy(), wl.numpy(), rtol=2e-4, atol=2e-4)
+    err = (acc - wacc).abs()
+    assert torch.all(err <= P_BOUND * acc_abs + 2e-4 * (1 + wacc.abs()))
+    empty = wm == ref.NEG_INF
+    assert torch.all(m[empty] == ref.NEG_INF) and torch.all(l[empty] == 0)
+    assert torch.all(acc[empty] == 0)
+    return empty
 
 
 @pytest.mark.parametrize("ns", [2, 3, 8, 16])
@@ -397,19 +425,11 @@ def test_partials_mode_within_bound_of_plain_partials(shape, ns):
     q, (kp, vp, _, _), table, lens = case_inputs(h, hkv, d, psz, nblk,
                                                  kv_len, 73, False)
     q = q.float()
-    m, l, acc = split_tc_emulate(q, kp, vp, table, lens, ns)
-    (wm, wl, wacc), acc_abs = split_partials_bound(q, kp, vp, table, lens, ns)
-    g = h // hkv
-    assert m.shape == l.shape == (len(kv_len), hkv, ns, g)
-    assert acc.shape == (len(kv_len), hkv, ns, g, d)
-    np.testing.assert_allclose(m.numpy(), wm.numpy(), rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(l.numpy(), wl.numpy(), rtol=2e-4, atol=2e-4)
-    err = (acc - wacc).abs()
-    assert torch.all(err <= P_BOUND * acc_abs + 2e-4 * (1 + wacc.abs()))
-    empty = wm == ref.NEG_INF
+    got = split_tc_emulate(q, kp, vp, table, lens, ns)
+    want, acc_abs = split_partials_bound(q, kp, vp, table, lens, ns)
+    empty = check_partials(got, want, acc_abs,
+                           (len(kv_len), hkv, ns, h // hkv, d))
     assert bool(empty.any())                  # the kv_len 0 lane at least
-    assert torch.all(m[empty] == ref.NEG_INF) and torch.all(l[empty] == 0)
-    assert torch.all(acc[empty] == 0)
 
 
 @pytest.mark.parametrize("ns", [2, 3, 8])
@@ -432,6 +452,68 @@ def test_merged_partials_against_plain_and_jax(h, hkv, ns):
         *(jnp.asarray(x.numpy()) for x in (q, kp, vp, table, lens)),
         num_splits=ns, interpret=True))
     bound = P_BOUND * weighted_abs_v(q, kp, vp, table, lens, None, None)
+    bound = bound + FP32_TERM
+    assert torch.all(got[0] == 0)
+    assert torch.all((got[1:] - plain[1:]).abs() <= bound[1:])
+    assert np.all(np.abs(got[1:].numpy() - want[1:]) <= bound[1:].numpy())
+
+
+# --------------------------------------------------------------------------
+# K6b: the partials mode over int8 pools
+# --------------------------------------------------------------------------
+
+# (H, Hkv, D, psz, nblk, kv_len): G 8 (yi-6b), 1 (deepseek-7b) and 2; each
+# with a lane of kv_len 0 and one shorter than a tile
+INT8_SPLIT_SHAPES = {
+    "yi-6b G8": SHAPES["yi-6b G8"],
+    "deepseek-7b G1": SHAPES["deepseek-7b G1"],
+    "G2": (8, 4, 64, 16, 20, [0, 37, 157, 320]),
+}
+
+
+@pytest.mark.parametrize("ns", [1, 2, 8, 32])
+@pytest.mark.parametrize("shape", list(INT8_SPLIT_SHAPES))
+def test_int8_partials_mode_within_bound_of_plain_partials(shape, ns):
+    """K6b's partials over int8 pools (key scale on S's column, value scale
+    folded into P before its bf16 rounding) against the plain version with
+    the same scales cut at the same 64-key tiles, within K5a's bound; ns
+    32 is more splits than any lane's tiles, whose trailing splits must be
+    exactly (-1e30, 0, 0)."""
+    h, hkv, d, psz, nblk, kv_len = INT8_SPLIT_SHAPES[shape]
+    q, (k8, v8, ks, vs), table, lens = case_inputs(h, hkv, d, psz, nblk,
+                                                   kv_len, 83, True)
+    q = q.float()
+    got = split_tc_emulate(q, k8, v8, table, lens, ns, ks, vs)
+    want, acc_abs = split_partials_bound(q, k8, v8, table, lens, ns, ks, vs)
+    empty = check_partials(got, want, acc_abs,
+                           (len(kv_len), hkv, ns, h // hkv, d))
+    assert bool(empty[kv_len.index(0)].all())  # the kv_len 0 lane
+    if ns == 32:                              # more splits than tiles
+        assert bool(empty[:, :, -1].all())
+
+
+@pytest.mark.parametrize("ns", [1, 2, 8, 16])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 4), (8, 1)],
+                         ids=["G1", "G2", "G8"])
+def test_int8_merged_partials_against_plain_and_jax(h, hkv, ns):
+    """K6b's partials merged as K5c merges them against the one-pass plain
+    version with scales and the JAX ``flash_paged_decode_quant(num_splits=
+    ns)`` in interpret mode, float32 q holding bf16 values, within the
+    one-pass bound; ns 16 is more splits than the longest lane's two
+    tiles; a lane of kv_len 0 exactly 0."""
+    d, psz, nblk, kv_len = 16, 8, 12, [0, 11, 45, 96]
+    q, (k8, v8, ks, vs), table, lens = case_inputs(h, hkv, d, psz, nblk,
+                                                   kv_len, 89, True)
+    q = q.float()
+    _, l, acc = ref.combine_split_states(
+        *split_tc_emulate(q, k8, v8, table, lens, ns, ks, vs))
+    got = ref.finalize_split_states(l, acc).reshape(q.shape)
+    plain = ref.paged_decode_ref(q, k8, v8, table, lens, k_scale=ks,
+                                 v_scale=vs)
+    want = np.asarray(jax_paged_decode_quant(
+        *(jnp.asarray(x.numpy()) for x in (q, k8, v8, ks, vs, table, lens)),
+        num_splits=ns, interpret=True))
+    bound = P_BOUND * weighted_abs_v(q, k8, v8, table, lens, ks, vs)
     bound = bound + FP32_TERM
     assert torch.all(got[0] == 0)
     assert torch.all((got[1:] - plain[1:]).abs() <= bound[1:])

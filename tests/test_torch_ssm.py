@@ -126,9 +126,12 @@ def test_ssm_scan_use_kernel_on_cpu_raises():
 
 
 def test_kernel_smem_formula_and_wrapper_checks():
-    # falcon-mamba's d_state 16: 16 channels a block, every SsmChunk
-    # candidate within an H100's per-block limit
-    assert k9.smem_bytes(16, 512) == 4 * 512 * (3 * 16 + 2 * 16)
+    # falcon-mamba's d_state 16: 16 channels a block, lane-major float rows
+    # of 32 lanes x 16 steps at a lane stride of 20 floats (644 with the
+    # row's pad) for x, dt, B and C, and the raw bf16 tile of 512 steps;
+    # every SsmChunk candidate within an H100's per-block limit
+    assert k9.smem_bytes(16, 512) == (4 * (2 * 16 + 2 * 16) * 644
+                                      + 2 * 2 * 512 * 16 + 2 * 2 * 512 * 16)
     assert all(k9.smem_bytes(16, ch) <= H100_SMEM_PER_BLOCK
                for ch in (32, 64, 128, 256, 512))
     x, dt, a, b, c, d = _torch(*scan_inputs(1, 4, 8, 4, seed=0))
