@@ -63,26 +63,34 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    SIMT template, each launch's kernel checked; the partials against the
    plain version cut at the kernel's own tiles (rows without a key in a
    split exactly (-1e30, 0, 0)), the merged output against the split and
-   the one-pass plain versions; ``num_splits=1`` equal to K3 exactly, a
-   ``kv_len == 0`` row exactly 0, and a sweep of the split count at the
-   phase-7 timing shape with phase 1 and the combine timed apart;
+   the one-pass plain versions (bf16: the merged route, K5c in K5a's
+   epilogue, one launch, also bit-equal to standalone K5c over the
+   partials of its own launch, every arrival counter 0 after each call);
+   ``num_splits=1`` equal to K3 exactly, a ``kv_len == 0`` row exactly 0,
+   and a sweep of 2, 4, 8 and 16 splits at the phase-7 timing shape, the
+   merged route beside phase 1 + standalone K5c;
 12. int8 pages: K6a (decode; bf16 on the cluster kernel, at every
    cluster size and with NaN scales past ``kv_len``), K6b + K5c (split
    decode, 8 splits; bf16 on the cluster kernel's partials mode, its
    partials held to the plain version cut at its own 64-key tiles with
    the pools' scales at 2, 3, 8 and 16 splits, float32 on the SIMT
    template at its 32-key tiles, each launch's kernel checked, NaN scales
-   past ``kv_len`` leaving every partial bit-equal) and K6c (prefill
-   chunk) against their plain versions on pools quantized from the
-   phase-7 and phase-8 cases, rows without keys exactly 0, with times at
-   the phase-7 and phase-8 timing shapes and K6b's split-count sweep
-   with K5c beside each count;
+   past ``kv_len`` leaving every partial bit-equal; bf16 with K5c in its
+   epilogue, held bit-equal to standalone K5c at 2, 3, 8 and 16 splits)
+   and K6c (prefill chunk) against their plain versions on pools
+   quantized from the phase-7 and phase-8 cases, rows without keys
+   exactly 0, with times at the phase-7 and phase-8 timing shapes and
+   K6b's split-count sweep, the merged route beside phase 1 + K5c;
 13. serves of the phase-5 requests from the paged pool in chunks of 128:
    int8 pages with 8 splits, int8 pages in one pass, and fp pages with 8
    splits; every request must finish with 32 tokens and each serve's
    counters must show its kernels once per layer per chunk or decode
-   step (K5a's and K6b's launches all on the cluster kernel), and no
-   other kernel;
+   step (the split serves: K5a or K6b with K5c in the epilogue, all on
+   the cluster kernel), and no other kernel (no standalone K5c); every
+   arrival counter 0 after each serve; (d) the fp 8-split serve with
+   float32 compute and caches at full width, depth cut to 8 layers: a
+   float32 query keeps K5a on the SIMT template and standalone K5c, once
+   per layer per decode step (the launches of K5c's row);
 14. int8 paged logits: phase 10's prompt and decode steps (two in one
    pass, two with 8 splits) over int8 pools, kernels against plain;
 15. split prefill/verify, K5b (phase 1) + K5c, against the split plain
@@ -92,9 +100,11 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    phase-8 chunk, for 2, 3 and 8 splits: bf16 on the tensor-core
    kernel's partials mode, its partials against the split plain version
    cut at its own tiles, rows without a key in a split exactly (-1e30,
-   0, 0); a sweep of the split count at both timing shapes
-   (``num_splits=1`` is K4's own launch), phase 1 and the combine timed
-   apart, beside SDPA;
+   0, 0), its output the merged route's (K5c in the epilogue, one
+   launch), bit-equal to standalone K5c over its launch's partials at 2,
+   3, 8 and 16 splits; a sweep of 2, 4, 8 and 16 splits at both timing
+   shapes (``num_splits=1`` is K4's own launch), the merged route beside
+   phase 1 + standalone K5c, and SDPA;
 16. K6d + K5c, the same over pools quantized from the phase-15 cases:
    bf16 on the same partials mode over int8 pools, held as K5b is;
 17. serves of yi-6b at full width from the paged pool in chunks of 128:
@@ -105,8 +115,9 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    all 32 layers, which is the target, so its greedy drafts must be
    accepted (near-ties apart).  Every request must finish with 32 tokens
    and the
-   counters must show each serve's kernels exactly (K5b or K6d, and K5c,
-   once per layer per verify; the draft's K1 and K2 once per draft layer
+   counters must show each serve's kernels exactly (K5b or K6d with K5c
+   in the epilogue once per layer per verify, no standalone K5c, every
+   arrival counter 0 after the serve; the draft's K1 and K2 once per draft layer
    per draft prefill and decode step, counted here by wrapping the
    draft's methods, the draft's K2 all on the cluster kernel), and (c)
    must save prefill chunks against (d);
@@ -173,6 +184,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import importlib.util
 import json
 import re
@@ -603,14 +615,9 @@ def serve_with_counts(engine: ServingEngine | None = None,
     for kernel in KERNELS:
         kernel.launches = 0
     fa.flash_attention.last_kernel = fa.flash_decode.last_kernel = None
-    pa.paged_decode_split.last_kernel = None
-    pa.paged_decode_split_quant.last_kernel = None
-    pa.flash_paged_decode.last_kernel = None
-    pa.flash_paged_decode_quant.last_kernel = None
-    pa.flash_paged_prefill.last_kernel = None
-    pa.flash_paged_prefill_quant.last_kernel = None
-    pa.paged_prefill_split.last_kernel = None
-    pa.paged_prefill_split_quant.last_kernel = None
+    for kernel in pa.KERNELS:
+        if kernel is not pa.split_combine:    # one kernel: no route to name
+            kernel.last_kernel = None
     scfg = ServeConfig(**{**SERVE, **kw})
     report = (serve_config(scfg) if engine is None
               else serve_engine(engine, scfg))
@@ -1065,11 +1072,31 @@ def decode_bytes(kv_len, b, h, hkv, d, psz, kv_elem: int, q_elem: int,
             + (1 + writes_o) * b * h * d * q_elem + 4 * (live_pages + b))
 
 
+def counters_zero() -> bool:
+    """Every arrival counter of the merged split routes is 0."""
+    torch.cuda.synchronize()
+    return all(int(c.count_nonzero()) == 0 for c in pa.arrival_counters())
+
+
+def merged_bit_equal(merged, args, ns: int, what: str) -> None:
+    """K5c's merged route (``merged``, one launch) against standalone K5c
+    over the partials that same launch wrote: bit-equal, and every arrival
+    counter 0 afterwards."""
+    o, parts = merged(*args, ns, return_partials=True)
+    want = pa.split_combine(*parts, BF16).reshape(o.shape)
+    torch.cuda.synchronize()
+    check(torch.equal(o, want), f"{what} ns={ns}: the merged output is not "
+          "bit-equal to K5c over the partials of its launch")
+    check(counters_zero(), f"{what} ns={ns}: an arrival counter is not 0")
+
+
 def phase_k5() -> list[dict]:
     """K5a + K5c: bf16 on the cluster kernel's partials mode, its partials
     held to the plain version cut at its own 64-key tiles (float32: the
     SIMT template's, at 32-key tiles), the merged output to the split and
-    the one-pass plain versions; ns=1 is K3; the split sweep."""
+    the one-pass plain versions (bf16: the merged route, K5c in K5a's
+    epilogue, also bit-equal to standalone K5c over its own partials);
+    ns=1 is K3; the split sweep, the merged route beside phase 1 + K5c."""
     # (label, B, H, Hkv, D, psz, nblk, kv_len, dtype): the phase-7 cases
     cases = [("yi-6b paged decode", 4, 32, 4, 128, 16, 64,
               [1024, 517, 33, 300], BF16),
@@ -1102,18 +1129,28 @@ def phase_k5() -> list[dict]:
             err, r = compare_partials(parts, want, acc_abs)
             ratio = max(ratio, r)
             part_errs.append(f"{label} ns={ns} {err:.2e}")
+            n_merged = pa.paged_decode_split_merged.launches
             got = pa.flash_paged_decode(q, kp, vp, table, lens, num_splits=ns)
+            check(pa.paged_decode_split_merged.launches == n_merged + tc,
+                  f"K5 {label}: the bf16 split decode did not take the "
+                  "merged route (or the float32 one did)")
             err = max(compare(got, ref.paged_decode_split_ref(
                 q, kp, vp, table, lens, ns), dtype),
                 compare(got, one_pass, dtype))
             errs.append(f"{label} ns={ns} {err:.2e}")
+            if tc:
+                merged_bit_equal(pa.paged_decode_split_merged,
+                                 (q, kp, vp, table, lens), ns,
+                                 f"K5a+K5c {label}")
     q, kp, vp, table, lens = paged_case(2, 32, 4, 128, 16, 8, [0, 77], BF16,
                                         240)
     out = pa.flash_paged_decode(q, kp, vp, table, lens, num_splits=8)
     torch.cuda.synchronize()
     check(bool((out[0] == 0).all()), "K5: kv_len == 0 row is not exactly 0")
     compare(out[1:], ref.paged_decode_ref(q, kp, vp, table, lens)[1:], BF16)
-    errs.append("kv_len==0 row exactly 0; ns=1 equal to K3")
+    errs.append("kv_len==0 row exactly 0; ns=1 equal to K3; the merged "
+                "route bit-equal to K5c over its launch's partials at "
+                "2/3/8/16 splits, every arrival counter 0 after each call")
     print(f"[11 K5 split-KV decode] max abs err vs plain (tol bf16 "
           f"{TOL[BF16]}, fp32 {TOL[torch.float32]}; bf16 on "
           f"{pa.DECODE_TC_KERNEL}'s partials mode, fp32 on the SIMT "
@@ -1122,8 +1159,9 @@ def phase_k5() -> list[dict]:
           f"2^-8 sum p|v| + 2e-4 (1 + |acc|), its worst error {ratio:.3f}x "
           f"the bf16 tolerance 2e-2 (1 + |acc|), rows without a key in a "
           f"split exactly (-1e30, 0, 0): " + "; ".join(part_errs)
-          + "; merged output (K5c) against the split and the one-pass "
-          "plain versions: " + "; ".join(errs))
+          + "; merged output (bf16: K5c in K5a's epilogue; fp32: K5c) "
+          "against the split and the one-pass plain versions: "
+          + "; ".join(errs))
 
     # the split-count sweep at the phase-7 timing shape
     b, h, hkv, d, psz, nblk = 4, 32, 4, 128, 16, 64
@@ -1140,49 +1178,62 @@ def phase_k5() -> list[dict]:
         parts = pa.paged_decode_split(q, kp, vp, table, lens, ns)
         p1 = time_ms(lambda: pa.paged_decode_split(q, kp, vp, table, lens, ns))
         p2 = time_ms(lambda: pa.split_combine(*parts, BF16))
-        whole = time_ms(lambda: pa.flash_paged_decode(q, kp, vp, table, lens,
-                                                      num_splits=ns))
-        sweep.append(f"ns={ns} phase 1 {p1[0]:.4f} + combine {p2[0]:.4f} = "
-                     f"{p1[0] + p2[0]:.4f} (one call {whole[0]:.4f})")
+        both = time_ms(lambda: pa.split_combine(
+            *pa.paged_decode_split(q, kp, vp, table, lens, ns), BF16))
+        merged = time_ms(lambda: pa.flash_paged_decode(q, kp, vp, table, lens,
+                                                       num_splits=ns))
+        check(pa.paged_decode_split_merged.last_kernel == pa.DECODE_TC_KERNEL,
+              "the bf16 split decode did not take the merged route")
+        sweep.append(f"ns={ns} merged {merged[0]:.4f} against phase 1 + K5c "
+                     f"{both[0]:.4f} timed together (apart: {p1[0]:.4f} + "
+                     f"{p2[0]:.4f})")
         if ns == 8:
-            parts8, t1, t2 = parts, p1, p2
+            parts8, t1, t2, t12, tb = parts, p1, p2, merged, both
     print(f"[11 K5 split-KV decode] yi-6b B=4 H=32 Hkv=4 D=128 psz=16 "
-          f"nblk=64 bf16 kv_len={kv_len}, device ms by split count: "
-          + "; ".join(sweep))
+          f"nblk=64 bf16 kv_len={kv_len}, device ms by split count (merged: "
+          f"one launch, K5c in K5a's epilogue): " + "; ".join(sweep))
 
     ns, g = 8, h // hkv
     err1 = compare(pa.flash_paged_decode(q, kp, vp, table, lens, num_splits=ns),
                    want, BF16)
     m, l, acc = parts8
     _, l_star, acc_star = ref.combine_split_states(m, l, acc)
-    err2 = compare(pa.split_combine(m, l, acc, BF16),
-                   ref.finalize_split_states(l_star, acc_star).to(BF16), BF16)
+    # standalone K5c as the float32 route (13d) calls it: a float32 output
+    f32 = torch.float32
+    err2 = compare(pa.split_combine(m, l, acc, f32),
+                   ref.finalize_split_states(l_star, acc_star), f32)
     partial_bytes = 4 * b * hkv * ns * g * (2 + d)
     k_dense = ref.gather_pages(kp, table)          # gathered once, untimed
     v_dense = ref.gather_pages(vp, table)
     mask = (torch.arange(nblk * psz, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
     keys = sum(kv_len)
-    k5a = {"ms": t1,
+    k5a = {"ms": t12,
            "plain_ms": time_ms(lambda: ref.paged_decode_split_tiles_ref(
                q, kp, vp, table, lens, ns, block_k=pa.DECODE_TILE_KEYS)),
            "library_ms": time_ms(
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    q, k_dense, v_dense, attn_mask=mask, enable_gqa=True))}
-    k5c = {"ms": t2,
+    k5c = {"ms": time_ms(lambda: pa.split_combine(m, l, acc, f32)),
            "plain_ms": time_ms(lambda: ref.finalize_split_states(
-               *ref.combine_split_states(m, l, acc)[1:]).to(BF16)),
+               *ref.combine_split_states(m, l, acc)[1:])),
            "library_ms": None}
-    rows = [row("paged_decode_split", DECODE_SOURCE, f"{FLASH}:535", err1,
-                decode_bytes(kv_len, b, h, hkv, d, psz, 2, 2, writes_o=False)
-                + partial_bytes,
-                4 * h * keys * d, k5a),
+    # the merged route moves what K3 must (the partials stay in L2): K/V
+    # once, q in and o out, the live table entries and kv_len
+    rows = [dict(row("paged_decode_split_merged", DECODE_SOURCE,
+                     f"{FLASH}:535", err1,
+                     decode_bytes(kv_len, b, h, hkv, d, psz, 2, 2),
+                     4 * h * keys * d, k5a), merges=f"{FLASH}:315"),
             row("split_combine", PAGED_SOURCE, f"{FLASH}:315", err2,
-                partial_bytes + 2 * b * h * d, 4 * b * h * ns * d, k5c)]
+                partial_bytes + 4 * b * h * d, 4 * b * h * ns * d, k5c, f32)]
     print(f"[11 K5 split-KV decode] ns=8 at that shape, device ms (ms per "
-          f"call incl. host): K5a {fmt_times(k5a)}, bound "
-          f"{rows[0]['bound_ms']:.5f} ms ({rows[0]['bound_by']}); K5c "
-          f"{fmt_times(k5c)}, bound {rows[1]['bound_ms']:.5f} ms "
+          f"call incl. host): K5a with K5c in its epilogue (one launch) "
+          f"{fmt_times(k5a)}, bound {rows[0]['bound_ms']:.5f} ms "
+          f"({rows[0]['bound_by']}: K/V, q and o once, the partials in L2); "
+          f"against phase 1 + standalone K5c {tb[0]:.4f} timed together "
+          f"(apart: {t1[0]:.4f} + {t2[0]:.4f}); standalone K5c (the "
+          f"float32 route's, float32 out) {fmt_times(k5c)}, bound "
+          f"{rows[1]['bound_ms']:.5f} ms "
           f"({rows[1]['bound_by']}); plain K5a = the split plain version "
           f"cut at the kernel's 64-key tiles (both phases), K5c = combine "
           f"+ finalize on the same partials; "
@@ -1210,6 +1261,8 @@ def phase_k6() -> list[dict]:
             got = pa.flash_paged_decode_quant(q, k8, v8, ks, vs, table, lens,
                                               num_splits=ns)
             launched = (pa.flash_paged_decode_quant if ns == 1
+                        else pa.paged_decode_split_quant_merged
+                        if dtype == BF16
                         else pa.paged_decode_split_quant).last_kernel
             check(launched == (pa.DECODE_TC_KERNEL if dtype == BF16
                                else pa.DECODE_SIMT_KERNEL),
@@ -1279,13 +1332,15 @@ def phase_k6() -> list[dict]:
            "plain_ms": time_ms(lambda: ref.paged_decode_ref(
                q, k8, v8, table, lens, k_scale=ks, v_scale=vs)),
            "library_ms": sdpa}
-    k6b = {"ms": time_ms(lambda: pa.paged_decode_split_quant(
-               q, k8, v8, ks, vs, table, lens, ns)),
+    k6b = {"ms": time_ms(lambda: pa.flash_paged_decode_quant(
+               q, k8, v8, ks, vs, table, lens, num_splits=ns)),
            "plain_ms": time_ms(lambda: ref.paged_decode_split_tiles_ref(
                q, k8, v8, table, lens, ns, k_scale=ks, v_scale=vs,
                block_k=pa.DECODE_TILE_KEYS)),
            "library_ms": sdpa}
-    k6b_kernel = pa.paged_decode_split_quant.last_kernel
+    k6b_kernel = pa.paged_decode_split_quant_merged.last_kernel
+    check(k6b_kernel == pa.DECODE_TC_KERNEL,
+          f"the bf16 int8 split decode ran {k6b_kernel}")
     sweep = []
     for n_sp in (2, 4, 8, 16):
         parts = pa.paged_decode_split_quant(q, k8, v8, ks, vs, table, lens,
@@ -1293,30 +1348,34 @@ def phase_k6() -> list[dict]:
         p1 = time_ms(lambda: pa.paged_decode_split_quant(
             q, k8, v8, ks, vs, table, lens, n_sp))
         p2 = time_ms(lambda: pa.split_combine(*parts, BF16))
-        sweep.append(f"ns={n_sp} phase 1 {p1[0]:.4f} + K5c {p2[0]:.4f} = "
-                     f"{p1[0] + p2[0]:.4f}")
+        both = time_ms(lambda: pa.split_combine(*pa.paged_decode_split_quant(
+            q, k8, v8, ks, vs, table, lens, n_sp), BF16))
+        merged = time_ms(lambda: pa.paged_decode_split_quant_merged(
+            q, k8, v8, ks, vs, table, lens, n_sp))
+        sweep.append(f"ns={n_sp} merged {merged[0]:.4f} against phase 1 + "
+                     f"K5c {both[0]:.4f} timed together (apart: {p1[0]:.4f} "
+                     f"+ {p2[0]:.4f})")
     rows = [row("flash_paged_decode_quant", DECODE_SOURCE, f"{FLASH}:951",
                 compare(pa.flash_paged_decode_quant(q, k8, v8, ks, vs, table,
                                                     lens), want, BF16),
                 n_bytes, 4 * h * keys * d, k6a),
-            row("paged_decode_split_quant", DECODE_SOURCE, f"{FLASH}:1001",
-                compare(pa.flash_paged_decode_quant(q, k8, v8, ks, vs, table,
-                                                    lens, num_splits=ns),
-                        want, BF16),
-                decode_bytes(kv_len, b, h, hkv, d, psz, 1, 2, scale_bytes=4,
-                             writes_o=False)
-                + 4 * b * hkv * ns * g * (2 + d), 4 * h * keys * d, k6b)]
+            dict(row("paged_decode_split_quant_merged", DECODE_SOURCE,
+                     f"{FLASH}:1001",
+                     compare(pa.flash_paged_decode_quant(
+                         q, k8, v8, ks, vs, table, lens, num_splits=ns),
+                         want, BF16),
+                     n_bytes, 4 * h * keys * d, k6b), merges=f"{FLASH}:315")]
     print(f"[12 K6 int8 pages] yi-6b decode B=4 H=32 Hkv=4 D=128 psz=16 "
           f"nblk=64 bf16 q, int8 pools, kv_len={kv_len}, device ms (ms per "
           f"call incl. host): K6a ({pa.flash_paged_decode_quant.last_kernel} "
           f"in clusters of c={pa.cluster_size(b, hkv, pa.sm_count(0))}) "
           f"{fmt_times(k6a)}, bound "
-          f"{rows[0]['bound_ms']:.5f} ms ({rows[0]['bound_by']}); K6b (8 "
-          f"splits, phase 1, on {k6b_kernel}'s partials mode over int8 "
-          f"pools) {fmt_times(k6b)}, bound "
-          f"{rows[1]['bound_ms']:.5f} ms ({rows[1]['bound_by']}), plain = "
-          f"the split plain version cut at its 64-key tiles; by split "
-          f"count: " + "; ".join(sweep))
+          f"{rows[0]['bound_ms']:.5f} ms ({rows[0]['bound_by']}); K6b with "
+          f"K5c in its epilogue (8 splits, one launch of {k6b_kernel}'s "
+          f"partials mode over int8 pools) {fmt_times(k6b)}, bound "
+          f"{rows[1]['bound_ms']:.5f} ms ({rows[1]['bound_by']}: the "
+          f"partials in L2), plain = the split plain version cut at its "
+          f"64-key tiles; by split count: " + "; ".join(sweep))
 
     # prefill timing at the phase-8 timing shape: a chunk of 128 at 384
     h, hkv, d, psz, c, start = 32, 4, 128, 16, 128, 384
@@ -1389,6 +1448,10 @@ def k6b_checks() -> str:
             err, r = compare_partials(parts, want, acc_abs)
             ratio = max(ratio, r)
             out.append(f"{label} ns={ns} {err:.2e}")
+            if tc:
+                merged_bit_equal(pa.paged_decode_split_quant_merged,
+                                 (q, k8, v8, ks, vs, table, lens), ns,
+                                 f"K6b+K5c {label}")
     kv_len, psz = [1024, 517, 33, 300], 16
     q, kp, vp, table, lens = paged_case(4, 32, 4, 128, psz, 64, kv_len, BF16,
                                         660)
@@ -1404,35 +1467,41 @@ def k6b_checks() -> str:
     return ("; ".join(out) + f"; acc's worst error {ratio:.3f}x the bf16 "
             f"tolerance 2e-2 (1 + |acc|); codes 127 and NaN scales past "
             f"kv_len: every partial finite and bit-equal to the zeroed "
-            f"pools' run")
+            f"pools' run; the merged route (K5c in K6b's epilogue) "
+            f"bit-equal to K5c over its launch's partials at 2/3/8/16 "
+            f"splits, every arrival counter 0 after each call")
 
 
 def phase_split_int8_serves(smi: str, paged: dict
                             ) -> tuple[dict[str, int], dict[str, dict]]:
     """The phase-9 serve with int8 pages and split-KV: (a) int8 with 8
-    splits, (b) int8 in one pass, (c) fp with 8 splits.  Returns each new
-    kernel's launches from the serve that runs it (K5c from (a)), and the
-    serves' reports by label."""
+    splits, (b) int8 in one pass, (c) fp with 8 splits.  The split serves
+    run K6b / K5a with K5c in their epilogue, one launch a layer a step,
+    and no standalone K5c (``only_launched``).  Returns each new kernel's
+    launches from the serve that runs it, and the serves' reports by
+    label."""
     n_layers = 32
     serves = [("int8, 8 splits", dict(kv_dtype="int8", num_splits=8),
-               (pa.flash_paged_prefill_quant, pa.paged_decode_split_quant,
-                pa.split_combine)),
+               (pa.flash_paged_prefill_quant,
+                pa.paged_decode_split_quant_merged)),
               ("int8, one pass", dict(kv_dtype="int8"),
                (pa.flash_paged_prefill_quant, pa.flash_paged_decode_quant)),
               ("fp, 8 splits", dict(num_splits=8),
-               (pa.flash_paged_prefill, pa.paged_decode_split,
-                pa.split_combine))]
+               (pa.flash_paged_prefill, pa.paged_decode_split_merged))]
     counts, lines, reports = {}, [], {}
     for label, kw, (prefill, *decode) in serves:
-        with kernels_by_route(pa, "paged_decode_split") as k5a_routes, \
-                kernels_by_route(pa, "paged_decode_split_quant") as k6b_routes:
+        with kernels_by_route(pa, "paged_decode_split_merged") as k5a_routes, \
+                kernels_by_route(pa, "paged_decode_split_quant_merged") \
+                as k6b_routes:
             report, launches = serve_with_counts(cache="paged", page_size=16,
                                                  prefill_chunk=128, **kw)
         reports[label] = report
         what = f"the {label} serve"
         only_launched(launches, (prefill, *decode), what)
-        for kernel, routes in ((pa.paged_decode_split, k5a_routes),
-                               (pa.paged_decode_split_quant, k6b_routes)):
+        check(counters_zero(), f"{what}: an arrival counter is not 0")
+        for kernel, routes in ((pa.paged_decode_split_merged, k5a_routes),
+                               (pa.paged_decode_split_quant_merged,
+                                k6b_routes)):
             if kernel in decode:
                 check(dict(routes) == {pa.DECODE_TC_KERNEL:
                                        launches[kernel.__name__]},
@@ -1466,8 +1535,10 @@ def phase_split_int8_serves(smi: str, paged: dict
             f"{report['prefill_chunks']} chunks, {report['decode_steps']} "
             f"decode steps, launches "
             f"{ {k: n for k, n in launches.items() if n} }"
-            + (f" (K5a by kernel {dict(k5a_routes)})" if k5a_routes else "")
-            + (f" (K6b by kernel {dict(k6b_routes)})" if k6b_routes else "")
+            + (f" (K5a+K5c by kernel {dict(k5a_routes)})" if k5a_routes
+               else "")
+            + (f" (K6b+K5c by kernel {dict(k6b_routes)})" if k6b_routes
+               else "")
             + f", pool_bytes "
             f"{cache['pool_bytes']} ({cache['kv_bytes_per_token']:.1f} B per "
             f"token) against fp {paged['cache']['pool_bytes']}, kv "
@@ -1476,9 +1547,55 @@ def phase_split_int8_serves(smi: str, paged: dict
     print(f"[13 split-KV and int8 serves] yi-6b full, pages of 16, chunks of "
           f"128, on {smi}: " + "; ".join(lines))
     return {k.__name__: counts[k.__name__] for k in
-            (pa.paged_decode_split, pa.split_combine,
-             pa.flash_paged_decode_quant, pa.paged_decode_split_quant,
+            (pa.paged_decode_split_merged, pa.flash_paged_decode_quant,
+             pa.paged_decode_split_quant_merged,
              pa.flash_paged_prefill_quant)}, reports
+
+
+FP32_LAYERS = 8      # depth of the float32-compute serve (13d)
+
+
+def phase_fp32_split_serve(smi: str, cfg) -> dict[str, int]:
+    """13d: the 13c serve (fp pages, 8 splits) of yi-6b at full width with
+    float32 compute and caches, depth cut to :data:`FP32_LAYERS` layers
+    (random weights from seed 0): a float32 query keeps the two-launch
+    split route, K5a on the SIMT template then standalone K5c, once per
+    layer per decode step; K4 on the SIMT template per chunk.  Returns
+    standalone K5c's launches."""
+    fp32 = build_model(dataclasses.replace(
+        cfg, n_layers=FP32_LAYERS, compute_dtype="float32",
+        cache_dtype="float32"))
+    engine = ServingEngine(fp32, fp32.init(0, "cuda"),
+                           n_lanes=SERVE["n_lanes"], max_len=SERVE["max_len"],
+                           cache="paged", page_size=16, prefill_chunk=128,
+                           num_splits=8)
+    with kernels_by_route(pa, "paged_decode_split") as routes:
+        report, launches = serve_with_counts(engine, cache="paged",
+                                             page_size=16, prefill_chunk=128,
+                                             num_splits=8)
+    what = "the float32 split serve"
+    decode = (pa.paged_decode_split, pa.split_combine)
+    only_launched(launches, (pa.flash_paged_prefill, *decode), what)
+    for kernel, want in ((pa.flash_paged_prefill, report["prefill_chunks"]),
+                         *((k, report["decode_steps"]) for k in decode)):
+        check(launches[kernel.__name__] == FP32_LAYERS * want > 0,
+              f"{what}: {kernel.__name__} launched "
+              f"{launches[kernel.__name__]} times, expected {FP32_LAYERS} "
+              f"x {want}")
+    check(dict(routes) == {pa.DECODE_SIMT_KERNEL:
+                           launches["paged_decode_split"]},
+          f"{what}: K5a launches by kernel {dict(routes)}")
+    check(pa.flash_paged_prefill.last_kernel == "paged_prefill_kernel",
+          f"{what}: K4 ran {pa.flash_paged_prefill.last_kernel}")
+    print(f"[13d float32 split serve] yi-6b at full width, {FP32_LAYERS} "
+          f"layers, float32 compute and pages of 16, chunks of 128, 8 "
+          f"splits, on {smi}: {report['finished']}/{SERVE['n_requests']} "
+          f"requests, {report['tokens_per_s']:.1f} tok/s, "
+          f"{report['prefill_chunks']} chunks, {report['decode_steps']} "
+          f"decode steps, launches "
+          f"{ {k: n for k, n in launches.items() if n} } (K5a by kernel "
+          f"{dict(routes)}): a float32 query keeps K5a + standalone K5c")
+    return {"split_combine": launches["split_combine"]}
 
 
 def phase_int8_logits(model, params) -> None:
@@ -1561,9 +1678,13 @@ def split_phase(quant: bool) -> tuple[dict, dict]:
     bf16 K5b and K6d are the tensor-core kernel's partials mode: their
     partials are held to the plain version cut at its own tiles (32 // G
     chunk rows, 128 keys); the SIMT template's (fp32) at 64 rows, 32
-    keys."""
+    keys.  A bf16 split call is the merged route (K5c in the epilogue, one
+    launch), held bit-equal to standalone K5c over its launch's partials
+    at 2, 3, 8 and 16 splits."""
     kernel = pa.paged_prefill_split_quant if quant else pa.paged_prefill_split
     one_pass = pa.flash_paged_prefill_quant if quant else pa.flash_paged_prefill
+    merged = (pa.paged_prefill_split_quant_merged if quant
+              else pa.paged_prefill_split_merged)
     errs, out_errs, ratio = [], [], 0.0
     for i, case in enumerate(SPLIT_CASES):
         label, h, hkv, *_, valid, c, dtype = case
@@ -1578,8 +1699,15 @@ def split_phase(quant: bool) -> tuple[dict, dict]:
         plain = ref.paged_prefill_ref(q, pools.k, pools.v, table, start, lens,
                                       k_scale=pools.k_scale,
                                       v_scale=pools.v_scale)
-        for ns in (2, 3, 8):
+        for ns in (2, 3, 8, 16) if tc else (2, 3, 8):
+            n_merged = merged.launches
             got = one_pass(*args, num_splits=ns)
+            check(merged.launches == n_merged + tc,
+                  f"{label} ns={ns}: the bf16 split verify did not take the "
+                  "merged route (or the float32 one did)")
+            if tc:
+                merged_bit_equal(merged, args, ns,
+                                 f"{'K6d' if quant else 'K5b'}+K5c {label}")
             want, parts = ref.paged_prefill_split_ref(
                 q, pools.k, pools.v, table, start, lens, ns, **kw)
             acc_abs = None
@@ -1615,12 +1743,15 @@ def split_phase(quant: bool) -> tuple[dict, dict]:
           f"acc within 2^-8 sum p|v| + 2e-4 (1 + |acc|); its worst error is "
           f"{ratio:.3f}x the bf16 tolerance 2e-2 (1 + |acc|)"
           + "): partials (m, l, acc), fp32: " + "; ".join(errs)
-          + "; merged output (K5c): " + "; ".join(out_errs)
+          + "; merged output (bf16: K5c in the epilogue; fp32: K5c): "
+          + "; ".join(out_errs)
           + "; idle lanes exactly 0; rows without a key in a split exactly "
-          "(-1e30, 0, 0)")
+          "(-1e30, 0, 0); the merged route bit-equal to K5c over its "
+          "launch's partials at 2/3/8/16 splits, every arrival counter 0 "
+          "after each call")
 
     timings = {}
-    sweep_ns = (1, 8) if quant else (1, 2, 4, 8, 16)
+    sweep_ns = (1, 2, 4, 8, 16)
     for shape_name, case, seed in (("verify", VERIFY_SHAPE, 650),
                                    ("chunk", CHUNK_SHAPE, 660)):
         q, pools, table, start, lens = split_case(case, seed, quant)
@@ -1656,13 +1787,16 @@ def split_phase(quant: bool) -> tuple[dict, dict]:
             parts = kernel(*args, ns)
             p1 = time_ms(lambda: kernel(*args, ns))
             p2 = time_ms(lambda: pa.split_combine(*parts, q.dtype))
-            whole = time_ms(lambda: one_pass(*args, num_splits=ns))
-            sweep.append(f"ns={ns} phase 1 {p1[0]:.4f} + combine "
-                         f"{p2[0]:.4f} = {p1[0] + p2[0]:.4f} (one call "
-                         f"{whole[0]:.4f})")
-            timings[(shape_name, ns)] = (p1, p2, whole)
+            both = time_ms(lambda: pa.split_combine(*kernel(*args, ns),
+                                                    q.dtype))
+            whole = time_ms(lambda: merged(*args, ns))
+            sweep.append(f"ns={ns} merged {whole[0]:.4f} against phase 1 + "
+                         f"K5c {both[0]:.4f} timed together (apart: "
+                         f"{p1[0]:.4f} + {p2[0]:.4f})")
+            timings[(shape_name, ns)] = (p1, p2, whole, both)
         print(f"[{16 if quant else 15} {name}] {case[0]} shape, device ms by "
-              f"split count: " + "; ".join(sweep))
+              f"split count (merged: one launch, K5c in {name}'s epilogue): "
+              + "; ".join(sweep))
     return timings
 
 
@@ -1685,9 +1819,9 @@ def chunk_work(case, kv_elem: int, scale_bytes: int = 0,
 
 def split_rows(quant: bool, timings: dict) -> list[dict]:
     """The K5b (or K6d) row of the kernels line: the verify shape at 8
-    splits, phase 1 alone, beside the split plain version and SDPA on the
-    pre-gathered (for int8, pre-dequantized bf16) K/V with the causal
-    offset mask."""
+    splits, the merged route (K5c in the epilogue, one launch), beside the
+    split plain version and SDPA on the pre-gathered (for int8,
+    pre-dequantized bf16) K/V with the causal offset mask."""
     ns = 8
     q, pools, table, start, lens = split_case(VERIFY_SHAPE, 650, quant)
     kw = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
@@ -1709,7 +1843,7 @@ def split_rows(quant: bool, timings: dict) -> list[dict]:
     kj = torch.arange(nblk * psz, device="cuda")
     qi = start[:, None] + torch.arange(c, device="cuda")
     mask = ((kj <= qi[..., None]) & (kj < lens[:, None, None]))[:, None]
-    times = {"ms": timings[("verify", ns)][0],
+    times = {"ms": timings[("verify", ns)][2],
              "plain_ms": time_ms(lambda: ref.paged_prefill_split_ref(
                  q, pools.k, pools.v, table, start, lens, ns, **kw,
                  block_q=pa.TC_TILE_ROWS // (h // hkv),
@@ -1717,23 +1851,26 @@ def split_rows(quant: bool, timings: dict) -> list[dict]:
              "library_ms": time_ms(
                  lambda: torch.nn.functional.scaled_dot_product_attention(
                      q, k_dense, v_dense, attn_mask=mask, enable_gqa=True))}
-    # phase 1 writes fp32 partials, not o: the combine writes o
+    # the merged route moves what K4 must (the partials stay in L2): K/V
+    # once, q in and o out, the live table entries, start and kv_len
     n_bytes, n_ops = chunk_work(VERIFY_SHAPE, 1 if quant else 2,
-                                4 if quant else 0, writes_o=False)
-    partial_bytes = 4 * len(starts) * h * ns * c * (2 + d)
-    name = "paged_prefill_split_quant" if quant else "paged_prefill_split"
-    r = row(name, PREFILL_SOURCE,
-            f"{FLASH}:{1239 if quant else 779}", err,
-            n_bytes + partial_bytes, n_ops, times)
-    combine = timings[("verify", ns)][1][0]
+                                4 if quant else 0)
+    name = ("paged_prefill_split_quant_merged" if quant
+            else "paged_prefill_split_merged")
+    r = dict(row(name, PREFILL_SOURCE,
+                 f"{FLASH}:{1239 if quant else 779}", err,
+                 n_bytes, n_ops, times), merges=f"{FLASH}:315")
+    phase1, combine, _, both = (t[0] for t in timings[("verify", ns)])
     k4 = timings.get(("verify", 1))
     print(f"[{16 if quant else 15} {'K6d' if quant else 'K5b'}] verify shape "
           f"(yi-6b B=5 H=32 Hkv=4 C=5 D=128 psz=16 nblk=64 starts "
           f"{starts}), 8 splits, device ms (ms per call incl. host): "
-          f"phase 1 {fmt_times(times)}, bound {r['bound_ms']:.5f} ms "
-          f"({r['bound_by']}); combine {combine:.4f} ms; with the combine "
-          f"the whole verify attention is {r['ms'] + combine:.4f} ms"
-          + (f" against K4's {k4[0][0]:.4f} ms in one pass" if k4 else "")
+          f"merged (K5c in the epilogue, one launch) {fmt_times(times)}, "
+          f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: K/V, q and o "
+          f"once, the partials in L2); against phase 1 + standalone K5c "
+          f"{both:.4f} ms timed together (apart: {phase1:.4f} + "
+          f"{combine:.4f})"
+          + (f"; K4's {k4[0][0]:.4f} ms in one pass" if k4 else "")
           + "; plain = the split plain version (both phases); library = "
           "SDPA with the causal-offset mask on the pre-gathered "
           + ("pre-dequantized bf16 " if quant else "") + "K/V (not timed: "
@@ -1790,12 +1927,13 @@ def phase_spec_prefix_serves(smi: str, paged: dict, int8_reports: dict,
                 spec_k=4, num_splits=8)
     for label, kw, n_draft, verify, prefill in (
             ("(a) speculative, 8 splits", spec, 16,
-             pa.paged_prefill_split, pa.flash_paged_prefill),
+             pa.paged_prefill_split_merged, pa.flash_paged_prefill),
             ("(b) speculative, int8, 8 splits", dict(spec, kv_dtype="int8"),
-             16, pa.paged_prefill_split_quant, pa.flash_paged_prefill_quant),
+             16, pa.paged_prefill_split_quant_merged,
+             pa.flash_paged_prefill_quant),
             ("(e) speculative, 8 splits, a draft of all 32 layers",
              dict(spec, engine=self_draft_engine(model, params)), n_layers,
-             pa.paged_prefill_split, pa.flash_paged_prefill)):
+             pa.paged_prefill_split_merged, pa.flash_paged_prefill)):
         drafts, restore = count_draft_calls()
         try:
             with kernels_by_route(ops, "flash_decode") as k2_routes:
@@ -1807,17 +1945,19 @@ def phase_spec_prefix_serves(smi: str, paged: dict, int8_reports: dict,
         check(verifies > 0 and verifies == report["decode_steps"],
               f"{what}: {verifies} verify calls, {report['decode_steps']} "
               "ticks")
+        # K5b / K6d with K5c in their epilogue: one launch a layer a verify,
+        # and no standalone K5c (only_launched)
         for kernel, want in (
                 (verify, n_layers * verifies),
-                (pa.split_combine, n_layers * verifies),
                 (prefill, n_layers * report["prefill_chunks"]),
                 (fa.flash_attention, n_draft * drafts["prefill"]),
                 (fa.flash_decode, n_draft * drafts["decode_step"])):
             check(launches[kernel.__name__] == want > 0,
                   f"{what}: {kernel.__name__} launched "
                   f"{launches[kernel.__name__]} times, expected {want}")
-        only_launched(launches, (verify, pa.split_combine, prefill,
-                                 fa.flash_attention, fa.flash_decode), what)
+        only_launched(launches, (verify, prefill, fa.flash_attention,
+                                 fa.flash_decode), what)
+        check(counters_zero(), f"{what}: an arrival counter is not 0")
         check(fa.flash_attention.last_kernel == fa.TC_KERNEL,
               f"{what}: the draft's K1 ran {fa.flash_attention.last_kernel}")
         check(dict(k2_routes)
@@ -2547,6 +2687,7 @@ def main() -> int:
     rows += phase_k5() + phase_k6()
     counts, int8_reports = phase_split_int8_serves(smi, paged)
     launches.update(counts)
+    launches.update(phase_fp32_split_serve(smi, model.cfg))
     phase_int8_logits(model, params)
     rows += phase_k5b() + phase_k6d()
     launches.update(phase_spec_prefix_serves(smi, paged, int8_reports,

@@ -1,6 +1,8 @@
 // Device helpers shared by the port's attention kernels (flash_attention.cu,
 // paged_attention.cu): fp32 conversion of the storage types (float, bf16,
-// and the int8 codes of quantized pages), warp reductions and vector loads.  Each .cu file builds into its own library,
+// and the int8 codes of quantized pages), warp reductions, vector loads,
+// and K5c's split merge with the last-arrival protocol that puts it in the
+// split phase-1 kernels' epilogue.  Each .cu file builds into its own library,
 // so everything here has internal linkage.  kernels/build.py hashes this
 // header together with every source, so a change here rebuilds both.
 #pragma once
@@ -46,6 +48,182 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(kFull, x, off);
   return x;
+}
+
+// K5c's merge of the ns split states (m_s, l_s, acc_s) of one row, the
+// steps every caller shares (paged_attention.cu's split_combine_kernel and
+// the last-arrival merge of the split phase-1 kernels below):
+//   m* = max_s m_s;  for s = 0 .. ns - 1 in that order: alpha = e^(m_s - m*),
+//   l* += l_s * alpha, a += acc_s * alpha;  o = a / (l* == 0 ? 1 : l*).
+// Each step is pinned (round-to-nearest subtract, fused multiply-add,
+// division), so that both call sites compile to the same operations and
+// give bit-equal outputs from the same partials.  The max does not depend
+// on the order; the sums do, and stay in split order.  A row whose splits
+// are all empty (-1e30, 0, 0) gives exactly 0.
+__device__ __forceinline__ float split_alpha(float m_s, float m_star) {
+  return expf(__fsub_rn(m_s, m_star));
+}
+__device__ __forceinline__ float split_fma(float sum, float x, float alpha) {
+  return __fmaf_rn(x, alpha, sum);
+}
+__device__ __forceinline__ float split_out(float a, float l_star) {
+  return __fdiv_rn(a, l_star == 0.f ? 1.f : l_star);
+}
+
+// The last-arrival merge: K5c inside a split phase-1 kernel.  Every thread
+// of the CTA calls it once the CTA's partials are stored.  The ns CTAs of
+// one output tile count their arrivals on *cnt (after a fence that makes
+// their stores visible device-wide); the last to arrive merges the ns
+// states of each of the tile's `rows` rows (split s of row r at index
+// prow(r) + s * sstride of pm and pl, times D of pacc, read through L2)
+// into the bf16 output row orow(r), as K5c does, then resets *cnt to 0.  No
+// CTA waits on another, so nothing depends on which CTAs are co-resident
+// or in what order they run.  What the merge costs is rounds of dependent
+// L2 loads, so each round issues all it can: one warp a row (a warp's
+// rows loaded together), 32 splits at a time, lane j holding split s0 + j
+// (m* is taken over the first 32 and, past them, the rest), the lanes'
+// weights and l* in split order through shuffles; then the CTA's threads own 4 columns of a row each and load
+// the acc rows of U splits of all their rows at once before summing them
+// in split order.  `scratch` holds 1 + 33 * MAXR words of shared memory
+// that no thread reads or writes after it has called this function.
+template <int D, int THREADS, int MAXR, typename RowFn, typename OutFn>
+__device__ __forceinline__ void merge_splits_if_last(
+    int* cnt, int ns, int rows, const float* pm, const float* pl,
+    const float* pacc, size_t sstride, RowFn prow, OutFn orow,
+    float* scratch) {
+  constexpr int C4 = D / 4;                            // 4-column chunks
+  constexpr int PER = (MAXR * C4 + THREADS - 1) / THREADS;
+  constexpr int NW = THREADS / 32;
+  constexpr int RPW = (MAXR + NW - 1) / NW;            // rows per warp
+  constexpr int U = PER >= 4 ? 4 : 16 / PER;           // splits per round
+  int* last = reinterpret_cast<int*>(scratch);
+  float* lst = scratch + 1;                            // l* per row
+  float* wts = lst + MAXR;                             // [MAXR][32] weights
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // the CTA's stores, ordered before thread 0's count by the barrier, are
+  // released by that count, an acquire-release add at GPU scope (CUTLASS's
+  // barrier takes the same steps: a barrier, then one thread's release);
+  // the last to count acquires every other CTA's stores with it, and its
+  // barrier passes them on to the CTA's threads
+  __syncthreads();
+  if (tid == 0) {
+    int prev;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+                 : "=r"(prev)
+                 : "l"(cnt)
+                 : "memory");
+    *last = prev == ns - 1;
+  }
+  __syncthreads();
+  if (!*last) return;
+
+  // the thread's output chunks: (row, 4 columns) e = tid + k * THREADS;
+  // the warp's rows: warp + i * NW, their m* and l*
+  float4 a[PER];
+  float mx[RPW], ls[RPW];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) ls[i] = 0.f;
+  for (int s0 = 0; s0 < ns; s0 += 32) {
+    const int n = min(32, ns - s0);
+    float mv[RPW], lv[RPW];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int r = warp + i * NW;
+      mv[i] = kNegInf;
+      lv[i] = 0.f;
+      if (r < rows && lane < n) {
+        const size_t j = prow(r) + (size_t)(s0 + lane) * sstride;
+        mv[i] = __ldcg(pm + j);
+        lv[i] = __ldcg(pl + j);
+      }
+    }
+    if (s0 == 0) {     // m* over these splits and, past 32, the others
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) mx[i] = mv[i];
+      for (int s = 32 + lane; s < ns; s += 32) {
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) {
+          const int r = warp + i * NW;
+          if (r < rows)
+            mx[i] = fmaxf(mx[i], __ldcg(pm + prow(r) + (size_t)s * sstride));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) mx[i] = warp_max(mx[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int r = warp + i * NW;
+      if (r < rows) {                                  // the whole warp
+        const float alpha = lane < n ? split_alpha(mv[i], mx[i]) : 0.f;
+        wts[r * 32 + lane] = alpha;
+        for (int j = 0; j < n; ++j)
+          ls[i] = split_fma(ls[i], __shfl_sync(kFull, lv[i], j),
+                            __shfl_sync(kFull, alpha, j));
+      }
+    }
+    __syncthreads();   // every row's weights of splits s0 ..
+    const float* src[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int e = tid + k * THREADS;
+      const int r = e / C4;
+      src[k] = e < rows * C4
+                   ? pacc + (prow(r) + (size_t)s0 * sstride) * D + (e - r * C4) * 4
+                   : nullptr;
+    }
+    for (int j0 = 0; j0 < n; j0 += U) {
+      float4 v[U][PER];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < PER; ++k)
+          if (src[k] && j0 + u < n)
+            v[u][k] = __ldcg(reinterpret_cast<const float4*>(
+                src[k] + (size_t)(j0 + u) * sstride * D));
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < PER; ++k)
+          if (src[k] && j0 + u < n) {
+            const float w = wts[(tid + k * THREADS) / C4 * 32 + j0 + u];
+            a[k].x = split_fma(a[k].x, v[u][k].x, w);
+            a[k].y = split_fma(a[k].y, v[u][k].y, w);
+            a[k].z = split_fma(a[k].z, v[u][k].z, w);
+            a[k].w = split_fma(a[k].w, v[u][k].w, w);
+          }
+    }
+    __syncthreads();   // the weights are rewritten by the next splits
+  }
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int r = warp + i * NW;
+    if (r < rows && lane == 0) lst[r] = ls[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int e = tid + k * THREADS;
+    if (e < rows * C4) {
+      const int r = e / C4;
+      const int col = (e - r * C4) * 4;
+      const float l_star = lst[r];
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(
+          split_out(a[k].x, l_star), split_out(a[k].y, l_star));
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(
+          split_out(a[k].z, l_star), split_out(a[k].w, l_star));
+      uint2 out;
+      out.x = *reinterpret_cast<const uint32_t*>(&lo);
+      out.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(orow(r) + col) = out;
+    }
+  }
+  if (tid == 0) *cnt = 0;   // every split has arrived: ready for the next launch
 }
 
 // N consecutive elements starting at p (aligned to N elements) -> fp32.

@@ -289,7 +289,11 @@ paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ kp,
 // ---------------------------------------------------------------------------
 // K5c: merge split partials m, l (BR, ns, rows) and acc (BR, ns, rows, D)
 // fp32 into o (BR, rows, D) of type T.  One block per (br, row), one thread
-// per column.  A row whose splits are all empty gives exactly 0.
+// per column.  A row whose splits are all empty gives exactly 0.  The steps
+// are common.cuh's split_alpha / split_fma / split_out, which the merge in
+// the epilogue of the bf16 split phase-1 kernels (paged_decode.cu,
+// paged_prefill.cu) shares, so that route is bit-equal to this one over
+// the same partials.  Since that merge, this kernel serves a float32 query.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -307,12 +311,11 @@ __global__ void split_combine_kernel(const float* __restrict__ pm,
   float l_star = 0.f, a = 0.f;
   for (int s = 0; s < ns; ++s) {
     const size_t i = base + (size_t)s * rows;
-    const float alpha = expf(pm[i] - m_star);
-    l_star += pl[i] * alpha;
-    a += pacc[i * D + d] * alpha;
+    const float alpha = split_alpha(pm[i], m_star);
+    l_star = split_fma(l_star, pl[i], alpha);
+    a = split_fma(a, pacc[i * D + d], alpha);
   }
-  o[((size_t)br * rows + r) * D + d] =
-      from_float<T>(a / (l_star == 0.f ? 1.f : l_star));
+  o[((size_t)br * rows + r) * D + d] = from_float<T>(split_out(a, l_star));
 }
 
 // ---------------------------------------------------------------------------

@@ -20,7 +20,9 @@
 // K6b paged_decode_tc_kernel<int8, D, PARTIALS>  flash_paged_decode_quant
 //                                   (:897, num_splits > 1) /
 //                                   _paged_decode_split_quant_kernel
-//                                   (pallas_call :1001, body :850).
+//                                   (pallas_call :1001, body :850);
+// K5c, in the PARTIALS epilogue of the merged entries: _combine_splits
+//                                   (:304) / _split_combine_kernel (:315).
 // A float32 query keeps the SIMT templates of paged_attention.cu and
 // flash_attention.cu (a TF32 product would break the fp32 tolerance); the
 // wrappers pick by the query's type.
@@ -43,7 +45,12 @@
 //            acc (.., D), m in natural-log units as K5c
 //            (paged_attention.cu's split_combine_kernel) reads them, and
 //            skips both cluster barriers.  An empty split stores (-1e30,
-//            0, 0); only the G live rows of a slab are stored.
+//            0, 0); only the G live rows of a slab are stored.  Given the
+//            arrival counters (the merged entries), K5c's merge follows in
+//            the epilogue: the last of the ns splits of a (lane, kv head,
+//            slab) to finish, counted by an atomic, merges them as K5c
+//            does (common.cuh's merge_splits_if_last) and stores o, so a
+//            split decode is one launch.
 //
 // Semantics of the TPU kernels: key j of sequence b lives in page
 // table[b, j / psz] at slot j % psz; only keys j < kv_len[b] are read
@@ -112,7 +119,17 @@
 // and K5a is K3's walk with its splits in place of a cluster's ranks, K6b
 // the same walk over K6a's int8 rows (widened in shared memory, scales by
 // 4-byte copies; a key past kv_len has its scales zero-filled by the
-// copy, so a NaN scale there is never read).  The int8 PARTIALS instance
+// copy, so a NaN scale there is never read).
+// K5c (paged_attention.cu's split_combine_kernel, a launch of its own
+// after K5a or K6b: one block per row, each of its 128 threads repeating
+// the row's ns exps) ran at 54x its bound, 0.009 ms at 8 splits, 43% of a
+// split decode: a second launch, two dependent rounds of loads of
+// partials phase 1 had just written.  Those partials are still in L2, so
+// the merge moved into the PARTIALS epilogue behind an arrival counter per
+// (lane, kv head, slab): no CTA waits (no co-residency is assumed), the
+// last one merges (one warp a row for m*, the weights and l*; 4 columns a
+// thread for acc, in split order) and resets its counter, so the
+// workspace is all zeros between launches and no launch clears it.  The int8 PARTIALS instance
 // needs 96,000 bytes of shared memory before the table at D = 128 (the
 // int8 ring, the widened tiles, the Q slab and the scales), less than
 // the bf16 one's 108,800, so it keeps two CTAs an SM.
@@ -173,8 +190,10 @@ struct Smem {
 // 16)) in clusters of (c, 1, 1): cluster blockIdx.x / c is (lane, kv
 // head), its rank the share of the key tiles; blockIdx.y the 16 query
 // rows.  PARTIALS: c = ns in clusters of one, blockIdx.x % ns the split,
-// partials pm, pl, pacc in place of o.  scale_log2 = scale * log2(e), so
-// the softmax runs on exp2.
+// partials pm, pl, pacc in place of o; with cnt (B * Hkv * ceil(G / 16)
+// int32 arrival counters, zero on entry and left zero) also o, K5c's merge
+// of the splits.  scale_log2 = scale * log2(e), so the softmax runs on
+// exp2.
 // ---------------------------------------------------------------------------
 
 template <typename S, int D, int MODE>
@@ -187,8 +206,8 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ kv_len,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ pm,
                        float* __restrict__ pl, float* __restrict__ pacc,
-                       int H, int Hkv, int psz, int nblk, int ns,
-                       float scale_log2) {
+                       int* __restrict__ cnt, int H, int Hkv, int psz,
+                       int nblk, int ns, float scale_log2) {
   using namespace dec;
   using L = Smem<S, D>;
   constexpr bool QUANT = L::QUANT;
@@ -484,7 +503,16 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  if constexpr (MODE == PARTIALS) return;   // K5c merges the splits
+  if constexpr (MODE == PARTIALS) {
+    // K5c: with the arrival counters, the last of the ns splits of this
+    // (lane, kv head, slab) to finish merges their partials into o
+    if (cnt != nullptr)
+      merge_splits_if_last<D, THREADS, ROWS>(
+          cnt + (size_t)bh * gridDim.y + blockIdx.y, ns, rows, pm, pl, pacc,
+          (size_t)G, [&](int r) { return (size_t)bh * ns * G + r0 + r; },
+          [&](int r) { return o + qoff + (size_t)r * D; }, st);
+    return;
+  }
   cluster.sync();    // every rank's state is in its shared memory
 
   // each rank's weight per row, e^(m_k - m*) / l*, through distributed
@@ -564,6 +592,7 @@ struct Args {
   int B, H, Hkv, psz, nblk, D, cluster, ns;
   float scale;
   cudaStream_t st;
+  int* cnt = nullptr;    // PARTIALS with K5c's merge: arrival counters
 };
 
 template <typename S, int D, int MODE>
@@ -594,7 +623,8 @@ bool cluster_ok(int c) { return c == 1 || c == 2 || c == 4 || c == 8; }
 template <typename S, int D, int MODE>
 cudaError_t launch(const Args& a) {
   if (a.B < 1 || a.Hkv < 1 || a.H < a.Hkv || a.H % a.Hkv || a.psz < 1 ||
-      a.nblk < 1 || (MODE == PARTIALS ? a.ns < 1 : !cluster_ok(a.cluster)))
+      a.nblk < 1 || (MODE == PARTIALS ? a.ns < 1 : !cluster_ok(a.cluster)) ||
+      (a.cnt != nullptr && a.o == nullptr))
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes<S, D, MODE>(a.nblk);
   auto kern = paged_decode_tc_kernel<S, D, MODE>;
@@ -612,7 +642,7 @@ cudaError_t launch(const Args& a) {
       &cfg, kern, static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const S*>(a.kp), static_cast<const S*>(a.vp), a.ksc, a.vsc,
       a.table, a.kv_len, static_cast<__nv_bfloat16*>(a.o), a.pm, a.pl,
-      a.pacc, a.H, a.Hkv, a.psz, a.nblk, a.ns, a.scale * kLog2e);
+      a.pacc, a.cnt, a.H, a.Hkv, a.psz, a.nblk, a.ns, a.scale * kLog2e);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -741,6 +771,44 @@ extern "C" int repro_paged_decode_split_quant_tc(
                static_cast<float*>(m), static_cast<float*>(l),
                static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
                static_cast<cudaStream_t>(stream)};
+  return by_dim<int8_t, PARTIALS>(a);
+}
+
+// K5a with K5c's merge in its epilogue: as repro_paged_decode_split_tc, and
+// the last split of each (lane, kv head, 16-row slab) to finish writes o
+// (B, H, 1, D) bf16.  counters: B * Hkv * ceil(G / 16) int32, all zero on
+// entry, all zero again when the launch has run; one set per stream.
+extern "C" int repro_paged_decode_split_merged_tc(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* page_table, const void* kv_len, void* m, void* l, void* acc,
+    void* o, void* counters, int B, int H, int Hkv, int psz, int nblk,
+    int ns, int D, float scale, void* stream) {
+  Args a{q, k_pool, v_pool, nullptr, nullptr,
+         static_cast<const int*>(page_table), static_cast<const int*>(kv_len),
+         o, static_cast<float*>(m), static_cast<float*>(l),
+         static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
+         static_cast<cudaStream_t>(stream)};
+  a.cnt = static_cast<int*>(counters);
+  if (a.cnt == nullptr) return cudaErrorInvalidValue;
+  return by_dim<__nv_bfloat16, PARTIALS>(a);
+}
+
+// K6b with K5c's merge in its epilogue: int8 pools with scales, the rest
+// as repro_paged_decode_split_merged_tc.
+extern "C" int repro_paged_decode_split_quant_merged_tc(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* page_table,
+    const void* kv_len, void* m, void* l, void* acc, void* o, void* counters,
+    int B, int H, int Hkv, int psz, int nblk, int ns, int D, float scale,
+    void* stream) {
+  Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+         static_cast<const float*>(v_scale),
+         static_cast<const int*>(page_table), static_cast<const int*>(kv_len),
+         o, static_cast<float*>(m), static_cast<float*>(l),
+         static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
+         static_cast<cudaStream_t>(stream)};
+  a.cnt = static_cast<int*>(counters);
+  if (a.cnt == nullptr) return cudaErrorInvalidValue;
   return by_dim<int8_t, PARTIALS>(a);
 }
 

@@ -15,6 +15,8 @@
 //                                    (pallas_call :779, body :607)
 // K6d paged_prefill_tc_kernel<int8, partials>  _paged_prefill_split_quant_
 //                                    kernel (pallas_call :1239)
+// K5c, in the partials epilogue of the merged entries: _combine_splits
+//                                    (:304) / _split_combine_kernel (:315)
 // A float32 query keeps paged_attention.cu's SIMT template (a TF32 product
 // would break the fp32 tolerance); the wrapper picks by the query's type.
 //
@@ -90,6 +92,13 @@
 // K5b's sum over the dequantized values, within 2^-8 sum_j p_j |v_j| of
 // the fp32 one.  It adds nothing to K6c's shared memory (the partials are
 // stored from registers).
+// K5c in the epilogue (the merged entries, given arrival counters): the
+// partials are stored as above, then the ns blocks of a (lane, kv head, q
+// tile) count their arrivals on one int32 counter, and the last to arrive
+// merges the tile's rows from L2 as K5c does (common.cuh's
+// merge_splits_if_last, bit-equal to split_combine_kernel over the same
+// partials) and resets the counter; no block waits on another.  A split
+// verify is then one launch instead of two.
 // Left for later: wgmma and TMA.
 
 #include "mma.cuh"
@@ -147,7 +156,8 @@ struct Smem {
 // (ceil(C / (BM >> gshift)), Hkv, B).  SPLIT = true: blockIdx.x = q_tile * ns + split, the
 // block walks its split of the tile's live key tiles and writes the
 // unnormalised fp32 partials m, l (B, H, ns, C) and acc (B, H, ns, C, D),
-// m in natural-log units.  G = 1 << gshift query heads per kv head,
+// m in natural-log units; with cnt (B * Hkv * q tiles int32 arrival
+// counters, zero on entry and left zero) also o, K5c's merge of the splits.  G = 1 << gshift query heads per kv head,
 // dividing BM = 32; scale_log2 = scale * log2(e), so the softmax runs on
 // exp2.
 // ---------------------------------------------------------------------------
@@ -163,8 +173,8 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const int* __restrict__ kv_len,
                         __nv_bfloat16* __restrict__ o, float* __restrict__ pm,
                         float* __restrict__ pl, float* __restrict__ pacc,
-                        int H, int Hkv, int C, int psz, int nblk, int ns,
-                        int gshift, float scale_log2) {
+                        int* __restrict__ cnt, int H, int Hkv, int C, int psz,
+                        int nblk, int ns, int gshift, float scale_log2) {
   using namespace tc;
   using L = Smem<S, D>;
   constexpr bool QUANT = L::QUANT;
@@ -436,62 +446,82 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) mine[4 + dt * 4 + e] = acc[dt][e];
   }
   __syncthreads();
-  if (kg > 0) return;
+  // key group 0 folds the other groups in and stores the rows
+  if (kg == 0) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float m_star = m[r];
-    for (int k = 1; k < KGROUPS; ++k) m_star = fmaxf(m_star, mrg[(k - 1) * GROUP + r]);
-    const float a0 = exp2f(m[r] - m_star);
-    l[r] *= a0;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      acc[dt][2 * r] *= a0;
-      acc[dt][2 * r + 1] *= a0;
-    }
-    for (int k = 1; k < KGROUPS; ++k) {
-      const float* theirs = mrg + (k - 1) * GROUP;
-      const float a = exp2f(theirs[r] - m_star);
-      l[r] += theirs[2 + r] * a;
+    for (int r = 0; r < 2; ++r) {
+      float m_star = m[r];
+      for (int k = 1; k < KGROUPS; ++k) m_star = fmaxf(m_star, mrg[(k - 1) * GROUP + r]);
+      const float a0 = exp2f(m[r] - m_star);
+      l[r] *= a0;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
-        acc[dt][2 * r] += theirs[4 + dt * 4 + 2 * r] * a;
-        acc[dt][2 * r + 1] += theirs[4 + dt * 4 + 2 * r + 1] * a;
+        acc[dt][2 * r] *= a0;
+        acc[dt][2 * r + 1] *= a0;
       }
-    }
-    m[r] = m_star;
-  }
-
-  // store the chunk's rows: normalised (no key seen leaves acc = 0), or
-  // the split's partials, where a row that saw no key of the split stores
-  // exactly (-1e30, 0, 0) and m leaves the log2 domain
+      for (int k = 1; k < KGROUPS; ++k) {
+        const float* theirs = mrg + (k - 1) * GROUP;
+        const float a = exp2f(theirs[r] - m_star);
+        l[r] += theirs[2 + r] * a;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(kFull, l[r], 1);
-    l[r] += __shfl_xor_sync(kFull, l[r], 2);
-    const int row = row0 + g + 8 * r;
-    const int qi = i0 + (row >> gshift);
-    if (qi >= C) continue;
-    if constexpr (SPLIT) {
-      const size_t prow =
-          (((size_t)b * H + hk * G + (row & (G - 1))) * ns + split) * C + qi;
-      if (t4 == 0) {
-        pm[prow] = m[r] == kNegInf ? kNegInf : m[r] * (1.f / kLog2e);
-        pl[prow] = l[r];
+        for (int dt = 0; dt < DT; ++dt) {
+          acc[dt][2 * r] += theirs[4 + dt * 4 + 2 * r] * a;
+          acc[dt][2 * r + 1] += theirs[4 + dt * 4 + 2 * r + 1] * a;
+        }
       }
-      float* dst = pacc + prow * D + 2 * t4;
+      m[r] = m_star;
+    }
+
+    // store the chunk's rows: normalised (no key seen leaves acc = 0), or
+    // the split's partials, where a row that saw no key of the split stores
+    // exactly (-1e30, 0, 0) and m leaves the log2 domain
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(kFull, l[r], 1);
+      l[r] += __shfl_xor_sync(kFull, l[r], 2);
+      const int row = row0 + g + 8 * r;
+      const int qi = i0 + (row >> gshift);
+      if (qi >= C) continue;
+      if constexpr (SPLIT) {
+        const size_t prow =
+            (((size_t)b * H + hk * G + (row & (G - 1))) * ns + split) * C + qi;
+        if (t4 == 0) {
+          pm[prow] = m[r] == kNegInf ? kNegInf : m[r] * (1.f / kLog2e);
+          pl[prow] = l[r];
+        }
+        float* dst = pacc + prow * D + 2 * t4;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt)
+          *reinterpret_cast<float2*>(dst + dt * 8) =
+              make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
+        continue;
+      }
+      const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+      __nv_bfloat16* dst =
+          o + (((size_t)b * H + hk * G + (row & (G - 1))) * C + qi) * D + 2 * t4;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt)
-        *reinterpret_cast<float2*>(dst + dt * 8) =
-            make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
-      continue;
+        *reinterpret_cast<uint32_t*>(dst + dt * 8) =
+            pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
     }
-    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-    __nv_bfloat16* dst =
-        o + (((size_t)b * H + hk * G + (row & (G - 1))) * C + qi) * D + 2 * t4;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(dst + dt * 8) =
-          pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+  }
+  if constexpr (SPLIT) {
+    // K5c: with the arrival counters, the last of the ns splits of this
+    // (lane, kv head, q tile) to finish merges their partials into o
+    if (cnt != nullptr) {
+      const int tiles = gridDim.x / ns;
+      const size_t head0 = (size_t)b * H + hk * G;
+      merge_splits_if_last<D, THREADS, BM>(
+          cnt + ((size_t)b * Hkv + hk) * tiles + tile, ns,
+          min(BM, (C - i0) << gshift), pm, pl, pacc, (size_t)C,
+          [&](int r) {
+            return (head0 + (r & (G - 1))) * ns * C + i0 + (r >> gshift);
+          },
+          [&](int r) {
+            return o + ((head0 + (r & (G - 1))) * C + i0 + (r >> gshift)) * D;
+          },
+          reinterpret_cast<float*>(smem));
+    }
   }
 }
 
@@ -517,6 +547,7 @@ struct Args {
   int B, H, Hkv, C, psz, nblk, ns, D;
   float scale;
   cudaStream_t st;
+  int* cnt = nullptr;    // split with K5c's merge: arrival counters
 };
 
 // log2 of the group size G = H / Hkv, or -1 when G is not a power of two
@@ -538,7 +569,7 @@ template <typename S, int D, bool SPLIT>
 cudaError_t launch(const Args& a) {
   const int gshift = group_shift(a.H, a.Hkv);
   if (gshift < 0 || a.B < 1 || a.C < 1 || a.psz < 1 || a.nblk < 1 ||
-      (SPLIT && a.ns < 1))
+      (SPLIT && a.ns < 1) || (a.cnt != nullptr && (!SPLIT || a.o == nullptr)))
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes<S, D>(a.nblk);
   auto kern = paged_prefill_tc_kernel<S, D, SPLIT>;
@@ -551,8 +582,8 @@ cudaError_t launch(const Args& a) {
   kern<<<grid, THREADS, smem, a.st>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const S*>(a.kp),
       static_cast<const S*>(a.vp), a.ksc, a.vsc, a.table, a.start, a.kv_len,
-      static_cast<__nv_bfloat16*>(a.o), a.pm, a.pl, a.pacc, a.H, a.Hkv, a.C,
-      a.psz, a.nblk, ns, gshift, a.scale * kLog2e);
+      static_cast<__nv_bfloat16*>(a.o), a.pm, a.pl, a.pacc, a.cnt, a.H,
+      a.Hkv, a.C, a.psz, a.nblk, ns, gshift, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -658,6 +689,45 @@ extern "C" int repro_paged_prefill_split_quant_tc(
                nullptr, static_cast<float*>(m), static_cast<float*>(l),
                static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns, D,
                scale, static_cast<cudaStream_t>(stream)};
+  return by_dim<int8_t, true>(a);
+}
+
+// K5b with K5c's merge in its epilogue: as repro_paged_prefill_split_tc,
+// and the last split of each (lane, kv head, q tile) to finish writes o
+// (B, H, C, D) bf16.  counters: B * Hkv * ceil(C / (32 / G)) int32, all
+// zero on entry, all zero again when the launch has run; one set per
+// stream.
+extern "C" int repro_paged_prefill_split_merged_tc(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* page_table, const void* start, const void* kv_len, void* m,
+    void* l, void* acc, void* o, void* counters, int B, int H, int Hkv, int C,
+    int psz, int nblk, int ns, int D, float scale, void* stream) {
+  Args a{q, k_pool, v_pool, nullptr, nullptr,
+         static_cast<const int*>(page_table), static_cast<const int*>(start),
+         static_cast<const int*>(kv_len), o, static_cast<float*>(m),
+         static_cast<float*>(l), static_cast<float*>(acc), B, H, Hkv, C, psz,
+         nblk, ns, D, scale, static_cast<cudaStream_t>(stream)};
+  a.cnt = static_cast<int*>(counters);
+  if (a.cnt == nullptr) return cudaErrorInvalidValue;
+  return by_dim<__nv_bfloat16, true>(a);
+}
+
+// K6d with K5c's merge in its epilogue: int8 pools with scales, the rest
+// as repro_paged_prefill_split_merged_tc.
+extern "C" int repro_paged_prefill_split_quant_merged_tc(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* page_table,
+    const void* start, const void* kv_len, void* m, void* l, void* acc,
+    void* o, void* counters, int B, int H, int Hkv, int C, int psz, int nblk,
+    int ns, int D, float scale, void* stream) {
+  Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+         static_cast<const float*>(v_scale),
+         static_cast<const int*>(page_table), static_cast<const int*>(start),
+         static_cast<const int*>(kv_len), o, static_cast<float*>(m),
+         static_cast<float*>(l), static_cast<float*>(acc), B, H, Hkv, C, psz,
+         nblk, ns, D, scale, static_cast<cudaStream_t>(stream)};
+  a.cnt = static_cast<int*>(counters);
+  if (a.cnt == nullptr) return cudaErrorInvalidValue;
   return by_dim<int8_t, true>(a);
 }
 

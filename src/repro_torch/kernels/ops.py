@@ -112,7 +112,8 @@ def paged_decode(q: torch.Tensor, pools: PagedPools, page_table: torch.Tensor,
     """Decode attention over a paged KV cache.  q (B, H, 1, D),
     ``page_table`` (B, nblk), ``kv_len`` (B,).  On the card: K3 over fp
     pools, K6a over int8 ones, or with ``num_splits`` above 1 their split
-    forms (K5a / K6b) and the combine K5c.  The plain version ignores
+    forms (K5a / K6b) and the combine K5c (for a bf16 q one launch: K5c's
+    merge in the split kernel's epilogue).  The plain version ignores
     ``num_splits``, as the JAX package's does on the CPU."""
     _check_mesh(mesh)
     _check_pools(pools)
@@ -135,7 +136,8 @@ def _paged_chunk(q: torch.Tensor, pools: PagedPools,
                  use_kernel: bool | None) -> torch.Tensor:
     """The body shared by prefill and verify: on the card K4 over fp
     pools, K6c over int8 ones, or with ``num_splits`` above 1 their split
-    forms (K5b / K6d) and the combine K5c; the plain version ignores
+    forms (K5b / K6d) and the combine K5c (for a bf16 q one launch: K5c's
+    merge in the split kernel's epilogue); the plain version ignores
     ``num_splits``, as the JAX package's does on the CPU."""
     _check_mesh(mesh)
     _check_pools(pools)

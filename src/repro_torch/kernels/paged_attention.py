@@ -16,16 +16,19 @@ pass or split).
   shared memory; for a float32 query the SIMT template of
   ``paged_attention.cu``, whose fp32 products keep the fp32 tolerance.
   ``last_kernel`` on the function names the one launched last.  More
-  splits launch K5a (:func:`paged_decode_split`, one CTA per split of the
-  lane's live keys writing fp32 partial softmax states: for a bf16 query
-  the cluster kernel's partials mode, each split a contiguous share of
-  the lane's 64-key tiles; for float32 the SIMT template's 32-key tiles)
-  and K5c (:func:`split_combine`, the merge).
+  splits run K5a (one CTA per split of the lane's live keys writing fp32
+  partial softmax states) and K5c (the merge): for a bf16 query in one
+  launch, :func:`paged_decode_split_merged` (the cluster kernel's
+  partials mode, each split a contiguous share of the lane's 64-key
+  tiles, whose last split of each lane and kv head to finish merges them
+  as K5c does); for float32 two, :func:`paged_decode_split` (the SIMT
+  template's 32-key tiles) and :func:`split_combine`.
 * :func:`flash_paged_decode_quant` — the same over int8 pools with fp32
   per-row scales (P, Hkv, psz): K6a (the cluster kernel for a bf16 query,
-  the SIMT template for float32), or K6b (:func:`paged_decode_split_quant`:
-  for a bf16 query the cluster kernel's partials mode over int8 pools, for
-  float32 the SIMT template) + K5c.
+  the SIMT template for float32), or K6b with K5c
+  (:func:`paged_decode_split_quant_merged` for a bf16 query, the same
+  partials mode over int8 pools; for float32 the SIMT template's
+  :func:`paged_decode_split_quant` + :func:`split_combine`).
 * :func:`flash_paged_prefill` (K4) — a chunk of C query tokens per
   sequence at absolute positions ``start[b] + i``, causal over the
   committed paged prefix plus the chunk's own triangle; key ``j`` is
@@ -35,15 +38,24 @@ pass or split).
   page copies, P rounded to bf16 for P.V); a float32 query on the SIMT
   template of ``paged_attention.cu``, whose fp32 products keep the fp32
   tolerance.  The choice is the query's type; ``last_kernel`` on the
-  function names the one launched last.  ``num_splits`` above 1 launches K5b
-  (:func:`paged_prefill_split`, each query tile's live key tiles cut into
-  splits, fp32 partials of the chunk's C rows; for a bf16 query the
-  tensor-core kernel's partials mode, whose tiles are 32 // G chunk rows
-  and 128 keys, for float32 the SIMT template's 64 rows and 32 keys) and
-  K5c.
+  function names the one launched last.  ``num_splits`` above 1 runs K5b
+  (each query tile's live key tiles cut into splits, fp32 partials of the
+  chunk's C rows) and K5c: for a bf16 query in one launch,
+  :func:`paged_prefill_split_merged` (the tensor-core kernel's partials
+  mode, whose tiles are 32 // G chunk rows and 128 keys, merged in its
+  epilogue by the last split of each tile), for float32
+  :func:`paged_prefill_split` (the SIMT template's 64 rows and 32 keys)
+  and :func:`split_combine`.
   :func:`flash_paged_prefill_quant` is the same over int8 pools: K6c, or
-  K6d (:func:`paged_prefill_split_quant`, for a bf16 query the same
-  tensor-core partials mode over int8 pools) + K5c.
+  K6d with K5c (:func:`paged_prefill_split_quant_merged` for a bf16
+  query; :func:`paged_prefill_split_quant` + :func:`split_combine` for
+  float32).
+
+The merged entries count the arrivals of a tile's splits on int32
+counters, one set per (device, stream) made here once (zeroed at
+allocation) and left all zero by every launch, since the last split of a
+tile resets its counter: no launch clears them.  :func:`paged_decode_split`
+and its siblings keep returning the partials (tests, the phase-1 sweep).
 
 Table entries past ``ceil(kv_len / psz)`` are never read and may point
 anywhere (page 0 by convention); entries below it must name pages of the
@@ -86,6 +98,11 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 #: keys per tile of the decode kernel (a stage of its ring); a cluster's
 #: rank walks a contiguous share of the lane's tiles
 DECODE_TILE_KEYS = 64
+
+
+#: query rows of one CTA of the decode kernel (an mma slab); its merged
+#: split route counts arrivals per (lane, kv head, slab)
+DECODE_SLAB_ROWS = 16
 
 
 #: the CTAs an SM holds at once of the decode kernel's D = 128 instances
@@ -144,6 +161,10 @@ def _tc_lib() -> ctypes.CDLL:
             ("repro_paged_prefill_split_tc", [_P] * 9 + [_I] * 9 + [_F, _P]),
             ("repro_paged_prefill_split_quant_tc",
              [_P] * 11 + [_I] * 9 + [_F, _P]),
+            ("repro_paged_prefill_split_merged_tc",
+             [_P] * 11 + [_I] * 8 + [_F, _P]),
+            ("repro_paged_prefill_split_quant_merged_tc",
+             [_P] * 13 + [_I] * 8 + [_F, _P]),
             ("repro_paged_prefill_tc_info", [_I] * 3 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -163,6 +184,10 @@ def _dec_lib() -> ctypes.CDLL:
             ("repro_paged_decode_split_tc", [_P] * 8 + [_I] * 7 + [_F, _P]),
             ("repro_paged_decode_split_quant_tc",
              [_P] * 10 + [_I] * 7 + [_F, _P]),
+            ("repro_paged_decode_split_merged_tc",
+             [_P] * 10 + [_I] * 7 + [_F, _P]),
+            ("repro_paged_decode_split_quant_merged_tc",
+             [_P] * 12 + [_I] * 7 + [_F, _P]),
             ("repro_paged_decode_tc_info", [_I] * 3 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -393,11 +418,55 @@ def _prefill_partials(q: torch.Tensor, ns: int):
     return m, torch.empty_like(m), torch.empty((b, h, ns, c, d), **kw)
 
 
+#: the arrival counters of the merged split routes, by (device index,
+#: stream): int32, zeroed when made, all zero between launches
+_ARRIVALS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _arrivals(q: torch.Tensor, tiles: int) -> torch.Tensor:
+    """The arrival counters of q's device and current stream, at least
+    ``tiles`` of them: made (zeroed) at the first launch on the stream and
+    remade, twice as large, when a larger grid needs more.  A launch never
+    clears them: its last split of each tile resets that tile's counter,
+    so they are all zero between launches (and a captured decode step
+    stays replayable)."""
+    key = (q.device.index, _stream(q))
+    ws = _ARRIVALS.get(key)
+    if ws is None or ws.numel() < tiles:
+        grown = tiles if ws is None else max(tiles, 2 * ws.numel())
+        ws = torch.zeros(grown, dtype=torch.int32, device=q.device)
+        _ARRIVALS[key] = ws
+    return ws
+
+
+def arrival_counters() -> list[torch.Tensor]:
+    """Every arrival-counter workspace made so far (one per device and
+    stream); all zero between launches."""
+    return list(_ARRIVALS.values())
+
+
+def _raise_merged(name: str, err: int, counters: torch.Tensor) -> None:
+    """Raise on a merged launch's error, after zeroing its counters (a
+    launch that failed may have left some counted)."""
+    if err:
+        counters.zero_()
+        _raise_on(name, err)
+
+
+def _check_bf16(name: str, q: torch.Tensor) -> None:
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the merged split kernel takes a bfloat16 "
+                         f"q, got {q.dtype} (float32: the split kernel and "
+                         "split_combine)")
+
+
 def split_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     """K5c: merge fp32 split partials m, l (BR..., ns, rows) and acc
     (BR..., ns, rows, D) into (BR..., rows, D) of ``dtype``: max-shift
-    rescale, then ``acc / l`` with an all-empty row giving exactly 0."""
+    rescale, then ``acc / l`` with an all-empty row giving exactly 0.  A
+    bf16 query's split routes merge in the phase-1 kernel instead (the
+    ``*_merged`` entries, bit-equal over the same partials)."""
     *lead, ns, rows, d = acc.shape
     out = torch.empty((*lead, rows, d), dtype=dtype, device=acc.device)
     with torch.cuda.device(acc.device):
@@ -463,6 +532,68 @@ def paged_decode_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
     return m, l, acc
 
 
+def _decode_merged(name: str, fn, q: torch.Tensor, pools: tuple,
+                   page_table: torch.Tensor, kv_len: torch.Tensor,
+                   num_splits: int, scale: float | None,
+                   return_partials: bool):
+    """One launch of the cluster kernel's partials mode with K5c's merge
+    in its epilogue: ``pools`` is (k, v) or (k, v, k_scale, v_scale)."""
+    _check_bf16(name, q)
+    b, h, hkv, psz, d, scale = _decode_shape(name, q, pools[0], scale)
+    m, l, acc = _partials(q, hkv, num_splits)
+    out = torch.empty_like(q)
+    counters = _arrivals(q, b * hkv * -(-(h // hkv) // DECODE_SLAB_ROWS))
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
+                 page_table.data_ptr(), kv_len.data_ptr(), m.data_ptr(),
+                 l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                 counters.data_ptr(), b, h, hkv, psz, page_table.shape[1],
+                 num_splits, d, scale, _stream(q))
+    _raise_merged(name, err, counters)
+    return (out, (m, l, acc)) if return_partials else out
+
+
+def paged_decode_split_merged(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, page_table: torch.Tensor,
+                              kv_len: torch.Tensor, num_splits: int, *,
+                              scale: float | None = None,
+                              return_partials: bool = False):
+    """K5a with K5c's merge in its epilogue, one launch (bfloat16 q only):
+    :func:`paged_decode_split`'s cluster-kernel partials mode, whose last
+    split of each (lane, kv head, 16-row slab) to finish merges the ns
+    splits' partials into o (B, H, 1, D) bf16 as :func:`split_combine`
+    does, bit for bit.  ``num_splits`` is checked by the caller.  The
+    partials pass through device memory (L2); ``return_partials`` returns
+    them beside o, ``(o, (m, l, acc))``."""
+    out = _decode_merged("paged_decode_split_merged",
+                         _dec_lib().repro_paged_decode_split_merged_tc, q,
+                         (k_pool, v_pool), page_table, kv_len, num_splits,
+                         scale, return_partials)
+    paged_decode_split_merged.launches += 1
+    paged_decode_split_merged.last_kernel = DECODE_TC_KERNEL
+    return out
+
+
+def paged_decode_split_quant_merged(q: torch.Tensor, k_pool: torch.Tensor,
+                                    v_pool: torch.Tensor,
+                                    k_scale: torch.Tensor,
+                                    v_scale: torch.Tensor,
+                                    page_table: torch.Tensor,
+                                    kv_len: torch.Tensor, num_splits: int, *,
+                                    scale: float | None = None,
+                                    return_partials: bool = False):
+    """K6b with K5c's merge in its epilogue: :func:`paged_decode_split_merged`
+    over int8 pools and their scales (the partials mode of
+    :func:`paged_decode_split_quant`), one launch, bfloat16 q only."""
+    out = _decode_merged("paged_decode_split_quant_merged",
+                         _dec_lib().repro_paged_decode_split_quant_merged_tc,
+                         q, (k_pool, v_pool, k_scale, v_scale), page_table,
+                         kv_len, num_splits, scale, return_partials)
+    paged_decode_split_quant_merged.launches += 1
+    paged_decode_split_quant_merged.last_kernel = DECODE_TC_KERNEL
+    return out
+
+
 def flash_paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, page_table: torch.Tensor,
                        kv_len: torch.Tensor, *, scale: float | None = None,
@@ -471,13 +602,17 @@ def flash_paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
     """Paged decode: q (B, H, 1, D), pools (P, Hkv, psz, D), page_table
     (B, nblk) and kv_len (B,) int32 on q's device (kv_len is clamped to
     [0, nblk * psz] on the card).  Output like q.  ``num_splits`` (clamped
-    to nblk) above 1 runs K5a + K5c, else K3: the cluster kernel (K5a:
-    its partials mode) for a bfloat16 q, the SIMT template for float32.
-    ``_cluster`` overrides :func:`cluster_size` (tests only)."""
+    to nblk) above 1 runs K5a and K5c, else K3: for a bfloat16 q the
+    cluster kernel (K5a and K5c: its partials mode merging in its
+    epilogue, one launch), for float32 the SIMT templates (K5a, then
+    K5c).  ``_cluster`` overrides :func:`cluster_size` (tests only)."""
     _check("flash_paged_decode", q, k_pool, v_pool, page_table, (kv_len,))
     b, h, hkv, psz, d, scale = _decode_shape("flash_paged_decode", q, k_pool,
                                              scale)
     ns = _num_splits(num_splits, page_table.shape[1])
+    if ns > 1 and q.dtype == torch.bfloat16:
+        return paged_decode_split_merged(q, k_pool, v_pool, page_table,
+                                         kv_len, ns, scale=scale)
     if ns > 1:
         m, l, acc = paged_decode_split(q, k_pool, v_pool, page_table, kv_len,
                                        ns, scale=scale)
@@ -504,14 +639,19 @@ def flash_paged_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
                              _cluster: int | None = None) -> torch.Tensor:
     """:func:`flash_paged_decode` over int8 pools (P, Hkv, psz, D) with
     float32 per-row scales (P, Hkv, psz); q float32 or bfloat16, output
-    like q.  K6a (the cluster kernel for bfloat16, as K3), or K6b + K5c
-    for ``num_splits`` above 1 (K6b: the cluster kernel's partials mode
-    for bfloat16, as K5a)."""
+    like q.  K6a (the cluster kernel for bfloat16, as K3), or K6b and K5c
+    for ``num_splits`` above 1 (bfloat16: the cluster kernel's partials
+    mode merging in its epilogue, one launch, as K5a; float32: the SIMT
+    template, then K5c)."""
     _check("flash_paged_decode_quant", q, k_pool, v_pool, page_table,
            (kv_len,), (k_scale, v_scale))
     b, h, hkv, psz, d, scale = _decode_shape("flash_paged_decode_quant", q,
                                              k_pool, scale)
     ns = _num_splits(num_splits, page_table.shape[1])
+    if ns > 1 and q.dtype == torch.bfloat16:
+        return paged_decode_split_quant_merged(q, k_pool, v_pool, k_scale,
+                                               v_scale, page_table, kv_len,
+                                               ns, scale=scale)
     if ns > 1:
         m, l, acc = paged_decode_split_quant(q, k_pool, v_pool, k_scale,
                                              v_scale, page_table, kv_len, ns,
@@ -596,6 +736,72 @@ def paged_prefill_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
     return m, l, acc
 
 
+def _prefill_merged(name: str, fn, q: torch.Tensor, pools: tuple,
+                    page_table: torch.Tensor, start: torch.Tensor,
+                    kv_len: torch.Tensor, num_splits: int,
+                    scale: float | None, return_partials: bool):
+    """One launch of the tensor-core partials mode with K5c's merge in its
+    epilogue: ``pools`` is (k, v) or (k, v, k_scale, v_scale)."""
+    _check(name, q, pools[0], pools[1], page_table, (start, kv_len),
+           pools[2:] or None)
+    _check_splits(name, num_splits)
+    _check_bf16(name, q)
+    b, h, hkv, c, psz, d, scale = _prefill_shape(q, pools[0], scale)
+    check_tc_shape(name, h, hkv, d)
+    m, l, acc = _prefill_partials(q, num_splits)
+    out = torch.empty_like(q)
+    rows = TC_TILE_ROWS // (h // hkv)          # chunk rows per q tile
+    counters = _arrivals(q, b * hkv * -(-c // rows))
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
+                 page_table.data_ptr(), start.data_ptr(), kv_len.data_ptr(),
+                 m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                 counters.data_ptr(), b, h, hkv, c, psz, page_table.shape[1],
+                 num_splits, d, scale, _stream(q))
+    _raise_merged(name, err, counters)
+    return (out, (m, l, acc)) if return_partials else out
+
+
+def paged_prefill_split_merged(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, page_table: torch.Tensor,
+                               start: torch.Tensor, kv_len: torch.Tensor,
+                               num_splits: int, *, scale: float | None = None,
+                               return_partials: bool = False):
+    """K5b with K5c's merge in its epilogue, one launch (bfloat16 q only):
+    :func:`paged_prefill_split`'s tensor-core partials mode, whose last
+    split of each (lane, kv head, q tile) to finish merges the ns splits'
+    partials into o (B, H, C, D) bf16 as :func:`split_combine` does, bit
+    for bit.  ``return_partials`` returns the partials beside o, ``(o,
+    (m, l, acc))``."""
+    out = _prefill_merged("paged_prefill_split_merged",
+                          _tc_lib().repro_paged_prefill_split_merged_tc, q,
+                          (k_pool, v_pool), page_table, start, kv_len,
+                          num_splits, scale, return_partials)
+    paged_prefill_split_merged.launches += 1
+    paged_prefill_split_merged.last_kernel = TC_KERNEL
+    return out
+
+
+def paged_prefill_split_quant_merged(q: torch.Tensor, k_pool: torch.Tensor,
+                                     v_pool: torch.Tensor,
+                                     k_scale: torch.Tensor,
+                                     v_scale: torch.Tensor,
+                                     page_table: torch.Tensor,
+                                     start: torch.Tensor, kv_len: torch.Tensor,
+                                     num_splits: int, *,
+                                     scale: float | None = None,
+                                     return_partials: bool = False):
+    """K6d with K5c's merge in its epilogue: :func:`paged_prefill_split_merged`
+    over int8 pools and their scales, one launch, bfloat16 q only."""
+    out = _prefill_merged("paged_prefill_split_quant_merged",
+                          _tc_lib().repro_paged_prefill_split_quant_merged_tc,
+                          q, (k_pool, v_pool, k_scale, v_scale), page_table,
+                          start, kv_len, num_splits, scale, return_partials)
+    paged_prefill_split_quant_merged.launches += 1
+    paged_prefill_split_quant_merged.last_kernel = TC_KERNEL
+    return out
+
+
 def flash_paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, page_table: torch.Tensor,
                         start: torch.Tensor, kv_len: torch.Tensor, *,
@@ -604,10 +810,14 @@ def flash_paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
     """Paged chunked prefill: q (B, H, C, D), pools (P, Hkv, psz, D),
     page_table (B, nblk), start and kv_len (B,) int32 on q's device.
     Output like q; rows at positions ``>= kv_len`` are padding.
-    ``num_splits`` (clamped to nblk) above 1 runs K5b + K5c, else K4: on
-    the tensor cores for a bfloat16 q (G = H / Hkv must divide 32), the
-    SIMT template for float32."""
+    ``num_splits`` (clamped to nblk) above 1 runs K5b and K5c (for a
+    bfloat16 q in one launch, :func:`paged_prefill_split_merged`), else
+    K4: on the tensor cores for a bfloat16 q (G = H / Hkv must divide 32),
+    the SIMT template for float32."""
     ns = _num_splits(num_splits, page_table.shape[-1])
+    if ns > 1 and q.dtype == torch.bfloat16:     # checks its inputs
+        return paged_prefill_split_merged(q, k_pool, v_pool, page_table,
+                                          start, kv_len, ns, scale=scale)
     if ns > 1:              # K5b checks its inputs
         m, l, acc = paged_prefill_split(q, k_pool, v_pool, page_table, start,
                                         kv_len, ns, scale=scale)
@@ -636,9 +846,14 @@ def flash_paged_prefill_quant(q: torch.Tensor, k_pool: torch.Tensor,
                               num_splits: int | None = None) -> torch.Tensor:
     """:func:`flash_paged_prefill` over int8 pools with float32 per-row
     scales (P, Hkv, psz); q float32 or bfloat16, output like q.  K6c (on
-    the tensor cores for bfloat16, as K4), or K6d + K5c for
-    ``num_splits`` above 1."""
+    the tensor cores for bfloat16, as K4), or K6d and K5c for
+    ``num_splits`` above 1 (for bfloat16 in one launch,
+    :func:`paged_prefill_split_quant_merged`)."""
     ns = _num_splits(num_splits, page_table.shape[-1])
+    if ns > 1 and q.dtype == torch.bfloat16:     # checks its inputs
+        return paged_prefill_split_quant_merged(
+            q, k_pool, v_pool, k_scale, v_scale, page_table, start, kv_len,
+            ns, scale=scale)
     if ns > 1:              # K6d checks its inputs
         m, l, acc = paged_prefill_split_quant(q, k_pool, v_pool, k_scale,
                                               v_scale, page_table, start,
@@ -662,15 +877,18 @@ def flash_paged_prefill_quant(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+#: the split routes that merge in the phase-1 kernel (K5c in the epilogue
+#: of K5a, K6b, K5b and K6d), bfloat16 q
+MERGED = (paged_decode_split_merged, paged_decode_split_quant_merged,
+          paged_prefill_split_merged, paged_prefill_split_quant_merged)
 #: the kernels of this module, one launch counter each, for counters and
-#: reports: K3, K5a, K5c, K6a, K6b, K4, K6c, K5b, K6d
+#: reports: K3, K5a, K5c, K6a, K6b, K4, K6c, K5b, K6d, and the merged
+#: routes
 KERNELS = (flash_paged_decode, paged_decode_split, split_combine,
            flash_paged_decode_quant, paged_decode_split_quant,
            flash_paged_prefill, flash_paged_prefill_quant,
-           paged_prefill_split, paged_prefill_split_quant)
+           paged_prefill_split, paged_prefill_split_quant) + MERGED
 for _kernel in KERNELS:
     _kernel.launches = 0
-flash_paged_decode.last_kernel = flash_paged_decode_quant.last_kernel = None
-paged_decode_split.last_kernel = paged_decode_split_quant.last_kernel = None
-flash_paged_prefill.last_kernel = flash_paged_prefill_quant.last_kernel = None
-paged_prefill_split.last_kernel = paged_prefill_split_quant.last_kernel = None
+    if _kernel is not split_combine:      # one kernel: no route to name
+        _kernel.last_kernel = None

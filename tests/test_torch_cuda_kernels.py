@@ -265,17 +265,22 @@ def quantize(pool):
 def test_split_decode_kernels_match_plain(cuda_device, dtype, h, hkv, d, psz,
                                           ns):
     """K5a + K5c against the split and the one-pass plain versions; a lane
-    of 33 keys leaves most of its splits empty."""
+    of 33 keys leaves most of its splits empty.  A bf16 query makes one
+    launch, the merged route (K5c in K5a's epilogue); float32 makes two,
+    K5a's SIMT template and then K5c."""
     q, kp, vp, table, kv_len = paged_inputs(3, h, hkv, d, psz, 20,
                                             [33, 157, 20 * psz], dtype,
                                             cuda_device, 90)
     n = (pa.paged_decode_split.launches, pa.split_combine.launches,
-         pa.flash_paged_decode.launches)
+         pa.flash_paged_decode.launches, pa.paged_decode_split_merged.launches)
     got = ops.paged_decode(q, ops.PagedPools(kp, vp), table, kv_len,
                            num_splits=ns)
     torch.cuda.synchronize()
+    merged = dtype == torch.bfloat16
     assert (pa.paged_decode_split.launches, pa.split_combine.launches,
-            pa.flash_paged_decode.launches) == (n[0] + 1, n[1] + 1, n[2])
+            pa.flash_paged_decode.launches,
+            pa.paged_decode_split_merged.launches) == (
+        n[0] + (not merged), n[1] + (not merged), n[2], n[3] + merged)
     assert got.dtype == dtype
     close(got, ref.paged_decode_split_ref(q, kp, vp, table, kv_len, ns), dtype)
     close(got, ref.paged_decode_ref(q, kp, vp, table, kv_len), dtype)
@@ -306,13 +311,15 @@ def test_split_decode_ns1_is_the_one_pass_kernel_and_zero_rows(cuda_device,
 @pytest.mark.parametrize("ns", [1, 8])
 def test_int8_decode_kernels_match_plain(cuda_device, dtype, h, hkv, d, psz,
                                          ns):
-    """K6a (ns 1) and K6b + K5c (ns 8) against the plain int8 versions."""
+    """K6a (ns 1) and K6b + K5c (ns 8) against the plain int8 versions;
+    with a bf16 query ns 8 is the merged route's one launch."""
     q, kp, vp, table, kv_len = paged_inputs(3, h, hkv, d, psz, 20,
                                             [1, 157, 20 * psz], dtype,
                                             cuda_device, 100)
     (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
-    kernel = pa.flash_paged_decode_quant if ns == 1 \
-        else pa.paged_decode_split_quant
+    kernel = (pa.flash_paged_decode_quant if ns == 1
+              else pa.paged_decode_split_quant_merged
+              if dtype == torch.bfloat16 else pa.paged_decode_split_quant)
     n = kernel.launches
     got = ops.paged_decode(q, ops.PagedPools(k8, v8, ks, vs), table, kv_len,
                            num_splits=ns)
@@ -454,10 +461,14 @@ def test_split_prefill_kernels_match_plain(cuda_device, dtype, quant, case,
     tc = dtype == torch.bfloat16
     tiles = (dict(block_q=pa.TC_TILE_ROWS // (h // hkv),
                   block_k=pa.TC_TILE_KEYS) if tc else {})
-    n = (split.launches, pa.split_combine.launches)
+    merged = (pa.paged_prefill_split_quant_merged if quant
+              else pa.paged_prefill_split_merged)
+    n = (split.launches, pa.split_combine.launches, merged.launches)
     got = ops.paged_verify(q, pools, table, start, kv_len, num_splits=ns)
     torch.cuda.synchronize()
-    assert (split.launches, pa.split_combine.launches) == (n[0] + 1, n[1] + 1)
+    # bf16: one launch, K5c in the split kernel's epilogue; float32: two
+    assert (split.launches, pa.split_combine.launches, merged.launches) == (
+        n[0] + (not tc), n[1] + (not tc), n[2] + tc)
     assert got.dtype == dtype and got.shape == q.shape
     want, (m, l, acc) = ref.paged_prefill_split_ref(
         q, pools.k, pools.v, table, start, kv_len, ns, **scales, **tiles)
@@ -496,18 +507,21 @@ def test_split_prefill_kernels_match_plain(cuda_device, dtype, quant, case,
 @pytest.mark.parametrize("quant", [False, True])
 def test_split_prefill_ns1_is_the_one_pass_kernel(cuda_device, quant):
     """num_splits 1 (and None) take K4 / K6c's own launch alone: no split
-    kernel and no combine."""
+    kernel, merged or not, and no combine."""
     q, pools, table, start, kv_len = chunk_inputs(
         3, 32, 4, 128, 16, 20, [100, 0, 0], [5, 5, 0], torch.bfloat16,
         cuda_device, 150, 5, quant)
     one = pa.flash_paged_prefill_quant if quant else pa.flash_paged_prefill
     split = pa.paged_prefill_split_quant if quant else pa.paged_prefill_split
-    n = (one.launches, split.launches, pa.split_combine.launches)
+    merged = (pa.paged_prefill_split_quant_merged if quant
+              else pa.paged_prefill_split_merged)
+    n = (one.launches, split.launches, pa.split_combine.launches,
+         merged.launches)
     base = ops.paged_verify(q, pools, table, start, kv_len)
     ns1 = ops.paged_verify(q, pools, table, start, kv_len, num_splits=1)
     torch.cuda.synchronize()
-    assert (one.launches, split.launches, pa.split_combine.launches) == \
-        (n[0] + 2, n[1], n[2])
+    assert (one.launches, split.launches, pa.split_combine.launches,
+            merged.launches) == (n[0] + 2, n[1], n[2], n[3])
     assert torch.equal(base, ns1)
     assert torch.all(base[2] == 0)
     # 64 splits clamp to the table's 20 pages
@@ -1208,3 +1222,130 @@ def test_tc_prefill_instances_fit_the_card(cuda_device, d, kind):
     assert info["blocks_per_sm"] >= 1
     if d == 128:
         assert info["local_bytes"] == 0
+
+
+# --------------------------------------------------------------------------
+# K5c in the epilogue of the bf16 split kernels: the merged routes
+# --------------------------------------------------------------------------
+
+
+def counters_all_zero() -> bool:
+    torch.cuda.synchronize()
+    return all(int(c.count_nonzero()) == 0 for c in pa.arrival_counters())
+
+
+def merged_decode_case(device, h, hkv, d, psz, quant, seed):
+    """A merged decode call's inputs: four lanes (an empty one, one shorter
+    than a tile, a ragged one and a full table) and its entry."""
+    q, kp, vp, table, lens = paged_inputs(4, h, hkv, d, psz, 20,
+                                          [0, 37, 157, 20 * psz],
+                                          torch.bfloat16, device, seed)
+    if quant:
+        (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+        return (q, k8, v8, ks, vs, table, lens), \
+            pa.paged_decode_split_quant_merged, pa.paged_decode_split_quant
+    return (q, kp, vp, table, lens), pa.paged_decode_split_merged, \
+        pa.paged_decode_split
+
+
+@pytest.mark.parametrize("ns", [2, 3, 8, 16])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("h,hkv,d,psz", [(32, 4, 128, 16), (32, 32, 128, 16),
+                                         (12, 4, 64, 8), (40, 1, 16, 12)])
+def test_merged_split_decode_is_bit_equal_to_split_combine(
+        cuda_device, h, hkv, d, psz, quant, ns):
+    """K5a / K6b with K5c in the epilogue: one launch, whose output is
+    bit-equal to K5c (``split_combine``) over the partials that same launch
+    wrote, and equal to the two-launch route's output; G 8, 1, 3 and 40
+    (three 16-row slabs); every arrival counter zero afterwards."""
+    args, merged, split = merged_decode_case(cuda_device, h, hkv, d, psz,
+                                             quant, 180)
+    n = (merged.launches, split.launches, pa.split_combine.launches)
+    o, parts = merged(*args, ns, return_partials=True)
+    torch.cuda.synchronize()
+    assert (merged.launches, split.launches, pa.split_combine.launches) == (
+        n[0] + 1, n[1], n[2])
+    assert merged.last_kernel == pa.DECODE_TC_KERNEL
+    assert counters_all_zero()
+    want = pa.split_combine(*parts, torch.bfloat16).reshape(o.shape)
+    assert torch.equal(o, want)
+    assert torch.equal(o, pa.split_combine(*split(*args, ns),
+                                           torch.bfloat16).reshape(o.shape))
+    assert torch.all(o[0] == 0)                  # kv_len 0: exactly 0
+
+
+@pytest.mark.parametrize("ns", [2, 3, 8, 16])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_merged_split_verify_is_bit_equal_to_split_combine(cuda_device, case,
+                                                           quant, ns):
+    """K5b / K6d with K5c in the epilogue, at the split cases (verify
+    chunks with an idle lane, prefill chunks of two q tiles): bit-equal to
+    ``split_combine`` over the launch's own partials, every arrival
+    counter zero afterwards, an idle lane exactly 0."""
+    h, hkv, d, psz, nblk, starts, valid, c = SPLIT_CASES[case]
+    q, pools, table, start, kv_len = chunk_inputs(
+        len(starts), h, hkv, d, psz, nblk, starts, valid, torch.bfloat16,
+        cuda_device, 190, c, quant)
+    merged = (pa.paged_prefill_split_quant_merged if quant
+              else pa.paged_prefill_split_merged)
+    sc = (pools.k_scale, pools.v_scale) if quant else ()
+    n = (merged.launches, pa.split_combine.launches)
+    o, parts = merged(q, pools.k, pools.v, *sc, table, start, kv_len, ns,
+                      return_partials=True)
+    torch.cuda.synchronize()
+    assert (merged.launches, pa.split_combine.launches) == (n[0] + 1, n[1])
+    assert merged.last_kernel == TC_KERNEL
+    assert counters_all_zero()
+    assert torch.equal(o, pa.split_combine(*parts, torch.bfloat16))
+    for i, v in enumerate(valid):
+        if v == 0:
+            assert torch.all(o[i] == 0)
+
+
+def test_arrival_counters_stay_zero_on_a_second_stream_and_when_grown(
+        cuda_device):
+    """One workspace per stream, made once: a call on a side stream makes
+    its own; a larger grid grows the workspace; after every call every
+    counter is 0, and the outputs equal the default stream's."""
+    args, merged, _ = merged_decode_case(cuda_device, 32, 4, 128, 16, False,
+                                         200)
+    base = merged(*args, 8)
+    assert counters_all_zero()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = merged(*args, 8)
+        key = (cuda_device.index or 0, side.cuda_stream)
+    torch.cuda.current_stream().wait_stream(side)
+    assert counters_all_zero()
+    assert torch.equal(base, other)
+    assert key in pa._ARRIVALS
+    before = pa._ARRIVALS[key].numel()
+    # deepseek-7b's 32 kv heads over 4 lanes: 128 tiles, a larger grid
+    wide, wmerged, _ = merged_decode_case(cuda_device, 32, 32, 128, 16,
+                                          False, 201)
+    with torch.cuda.stream(side):
+        side.wait_stream(torch.cuda.default_stream())
+        wmerged(*wide, 8)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert pa._ARRIVALS[key].numel() > before
+    assert counters_all_zero()
+    for _ in range(3):              # back to back on one stream
+        merged(*args, 16)
+        wmerged(*wide, 3)
+    assert counters_all_zero()
+
+
+def test_merged_split_routes_reject_a_float32_query(cuda_device):
+    """The merged routes take a bf16 query; float32 keeps K5a + K5c."""
+    args, merged, _ = merged_decode_case(cuda_device, 8, 2, 64, 16, False, 210)
+    q = args[0].float()
+    with pytest.raises(ValueError, match="bfloat16"):
+        merged(q, *args[1:], 4)
+    n = (pa.paged_decode_split.launches, pa.split_combine.launches)
+    pa.flash_paged_decode(q, args[1].float(), args[2].float(), *args[3:],
+                          num_splits=4)
+    assert (pa.paged_decode_split.launches,
+            pa.split_combine.launches) == (n[0] + 1, n[1] + 1)
