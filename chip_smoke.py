@@ -169,7 +169,26 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    8192, d_state 16), the CUDA-event executor times K9 at the chunks the
    d-spline samples; the trajectory, the fit beside the measured chunks
    and the winner; ``ops.ssm_scan`` must then launch K9 with the
-   winner's chunk, and a second session must measure nothing.
+   winner's chunk, and a second session must measure nothing;
+26. the gateway: the phase-5 requests through ``serve_config(gateway=
+   True)`` at yi-6b's full width, each a TCP client of 127.0.0.1
+   streaming SSE frames: (a) phase 9's paged config at the pipeline's
+   default knobs (``max_inflight`` 2, ``admit_batch`` 4), (b) the same at
+   ``max_inflight`` 1, (c) phase 17a's speculative config.  Every stream
+   must end in ``done`` with 32 tokens, the greedy tokens must equal
+   phase 9's (a, b) and 17a's (c) serve, and the counters must show
+   phase 9's and 17a's kernels exactly (K4 once per layer per chunk and
+   K3 once per layer per decode step on their tensor-core and cluster
+   kernels; K5b with K5c merged once per layer per verify, the draft's K1
+   and K2, no standalone K5c, every arrival counter 0) and nothing else;
+   (a) must overlap ticks, (b) none.  (d) phase 9's engine behind a
+   queue of 2 under the 8 clients plus one that hangs up after two token
+   frames: a 429 served and retried, one cancel, every other stream
+   ``done`` with 32 tokens, and the pool exact afterwards (no used page;
+   used + free + cached = pages - 1).  Printed for each: tokens/s,
+   p50/p99 TTFT, ITL and queue wait, goodput, ticks and overlapped
+   ticks, and the loop's host ms a tick in schedule + dispatch, in the
+   wait on the tick's CUDA event and in emit.
 
 Then the script's run time, one JSON line with every kernel's numbers,
 and as the last line
@@ -182,9 +201,11 @@ Usage::
 """
 from __future__ import annotations
 
+import asyncio
 import collections
 import contextlib
 import dataclasses
+import functools
 import importlib.util
 import json
 import re
@@ -210,11 +231,15 @@ from repro_torch.kernels import matmul as mmk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssm_scan as k9  # noqa: E402
+import repro_torch.launch.serve as serve_mod  # noqa: E402
 from repro_torch.launch.serve import (ServeConfig, draw_prompts,  # noqa: E402
                                       serve_config, serve_engine)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.serving.gateway import (GatewayPolicyKnobs,  # noqa: E402
+                                         GatewayServer, PipelinedEngine,
+                                         sse_generate)
 from repro_torch.core.fitting import fit_dspline  # noqa: E402
 from repro_torch.tuning import (register_kernel_regions,  # noqa: E402
                                 run_install_tuning)
@@ -1919,52 +1944,68 @@ def self_draft_engine(model, params) -> ServingEngine:
         num_splits=8)
 
 
+SPEC = dict(cache="paged", page_size=16, prefill_chunk=128, draft=True,
+            spec_k=4, num_splits=8)
+
+
+def spec_serve(what: str, n_draft: int, verify, prefill, **kw
+               ) -> tuple[dict, dict[str, int], dict, dict]:
+    """One speculative serve of the phase-5 requests with the draft's calls
+    and K2's kernels counted; checks every launch count (K5b / K6d with
+    K5c in their epilogue once a layer a verify and no standalone K5c, the
+    target's chunks, the draft's K1 and K2 once a draft layer a draft
+    prefill and decode step) and that every arrival counter is back at 0.
+    Returns the report, the launches, the draft calls and K2's routes."""
+    n_layers = 32
+    drafts, restore = count_draft_calls()
+    try:
+        with kernels_by_route(ops, "flash_decode") as k2_routes:
+            report, launches = serve_with_counts(**kw)
+    finally:
+        restore()
+    verifies = report["spec"]["spec_ticks"]
+    check(verifies > 0 and verifies == report["decode_steps"],
+          f"{what}: {verifies} verify calls, {report['decode_steps']} ticks")
+    for kernel, want in (
+            (verify, n_layers * verifies),
+            (prefill, n_layers * report["prefill_chunks"]),
+            (fa.flash_attention, n_draft * drafts["prefill"]),
+            (fa.flash_decode, n_draft * drafts["decode_step"])):
+        check(launches[kernel.__name__] == want > 0,
+              f"{what}: {kernel.__name__} launched "
+              f"{launches[kernel.__name__]} times, expected {want}")
+    only_launched(launches, (verify, prefill, fa.flash_attention,
+                             fa.flash_decode), what)
+    check(counters_zero(), f"{what}: an arrival counter is not 0")
+    check(fa.flash_attention.last_kernel == fa.TC_KERNEL,
+          f"{what}: the draft's K1 ran {fa.flash_attention.last_kernel}")
+    check(dict(k2_routes) == {pa.DECODE_TC_KERNEL: launches["flash_decode"]},
+          f"{what}: the draft's K2 launches by kernel {dict(k2_routes)}")
+    check(verify.last_kernel == TC_KERNEL,
+          f"{what}: {verify.__name__} ran {verify.last_kernel}")
+    return report, launches, drafts, dict(k2_routes)
+
+
 def phase_spec_prefix_serves(smi: str, paged: dict, int8_reports: dict,
-                             model, params) -> dict[str, int]:
+                             model, params) -> tuple[dict[str, int], dict]:
+    """Phase 17; returns the new kernels' launches and serve (a)'s report."""
     n_layers = 32
     lines, counts = [], {}
-    spec = dict(cache="paged", page_size=16, prefill_chunk=128, draft=True,
-                spec_k=4, num_splits=8)
     for label, kw, n_draft, verify, prefill in (
-            ("(a) speculative, 8 splits", spec, 16,
+            ("(a) speculative, 8 splits", SPEC, 16,
              pa.paged_prefill_split_merged, pa.flash_paged_prefill),
-            ("(b) speculative, int8, 8 splits", dict(spec, kv_dtype="int8"),
+            ("(b) speculative, int8, 8 splits", dict(SPEC, kv_dtype="int8"),
              16, pa.paged_prefill_split_quant_merged,
              pa.flash_paged_prefill_quant),
             ("(e) speculative, 8 splits, a draft of all 32 layers",
-             dict(spec, engine=self_draft_engine(model, params)), n_layers,
+             dict(SPEC, engine=self_draft_engine(model, params)), n_layers,
              pa.paged_prefill_split_merged, pa.flash_paged_prefill)):
-        drafts, restore = count_draft_calls()
-        try:
-            with kernels_by_route(ops, "flash_decode") as k2_routes:
-                report, launches = serve_with_counts(**kw)
-        finally:
-            restore()
-        spec = report["spec"]
-        what, verifies = f"serve {label}", spec["spec_ticks"]
-        check(verifies > 0 and verifies == report["decode_steps"],
-              f"{what}: {verifies} verify calls, {report['decode_steps']} "
-              "ticks")
-        # K5b / K6d with K5c in their epilogue: one launch a layer a verify,
-        # and no standalone K5c (only_launched)
-        for kernel, want in (
-                (verify, n_layers * verifies),
-                (prefill, n_layers * report["prefill_chunks"]),
-                (fa.flash_attention, n_draft * drafts["prefill"]),
-                (fa.flash_decode, n_draft * drafts["decode_step"])):
-            check(launches[kernel.__name__] == want > 0,
-                  f"{what}: {kernel.__name__} launched "
-                  f"{launches[kernel.__name__]} times, expected {want}")
-        only_launched(launches, (verify, prefill, fa.flash_attention,
-                                 fa.flash_decode), what)
-        check(counters_zero(), f"{what}: an arrival counter is not 0")
-        check(fa.flash_attention.last_kernel == fa.TC_KERNEL,
-              f"{what}: the draft's K1 ran {fa.flash_attention.last_kernel}")
-        check(dict(k2_routes)
-              == {pa.DECODE_TC_KERNEL: launches["flash_decode"]},
-              f"{what}: the draft's K2 launches by kernel {dict(k2_routes)}")
-        check(verify.last_kernel == TC_KERNEL,
-              f"{what}: {verify.__name__} ran {verify.last_kernel}")
+        what = f"serve {label}"
+        report, launches, drafts, k2_routes = spec_serve(
+            what, n_draft, verify, prefill, **kw)
+        if label.startswith("(a)"):
+            spec_a = report
+        spec, verifies = report["spec"], report["spec"]["spec_ticks"]
         if n_draft == n_layers:
             check(spec["accepted_tokens"] > 0,
                   f"{what}: the target as its own draft had no draft "
@@ -1978,7 +2019,7 @@ def phase_spec_prefix_serves(smi: str, paged: dict, int8_reports: dict,
             f" {verifies} verify calls emitting {emitted / verifies:.2f} tokens"
             f" each (over the lanes), spec {json.dumps(spec)}, draft "
             f"prefills {drafts['prefill']}, draft decode steps "
-            f"{drafts['decode_step']} (K2 by kernel {dict(k2_routes)}), "
+            f"{drafts['decode_step']} (K2 by kernel {k2_routes}), "
             f"{report['prefill_chunks']} chunks, "
             f"launches { {k: n for k, n in launches.items() if n} }, greedy "
             f"tokens equal to the {'13b' if 'int8' in label else 'phase-9'} "
@@ -2024,7 +2065,7 @@ def phase_spec_prefix_serves(smi: str, paged: dict, int8_reports: dict,
                if report is on else ""))
     print(f"[17 speculative and prefix-cache serves] yi-6b full, pages of "
           f"16, chunks of 128, on {smi}: " + "; ".join(lines))
-    return counts
+    return counts, spec_a
 
 
 def phase_verify_logits(model, params) -> None:
@@ -2664,6 +2705,197 @@ def phase_ssm_install(smi: str, sweep: dict) -> int:
 
 
 
+# --------------------------------------------------------------------------
+# phase 26: the HTTP/SSE gateway
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def gateway_knobs(**knobs):
+    """``serve_config``'s gateway with other pipeline knobs: the serve
+    module builds its ``PipelinedEngine`` by that name at each call."""
+    pipelined = serve_mod.PipelinedEngine
+    serve_mod.PipelinedEngine = functools.partial(
+        pipelined, knobs=GatewayPolicyKnobs(**knobs))
+    try:
+        yield
+    finally:
+        serve_mod.PipelinedEngine = pipelined
+
+
+def gateway_checks(what: str, report: dict, other: dict,
+                   other_name: str) -> dict:
+    """Every stream ended in ``done`` (``serve_with_counts`` checked the
+    32 tokens) and the greedy tokens equal ``other``'s; returns the
+    gateway report."""
+    g = report["gateway"]
+    check(g["streams"] == {"done": SERVE["n_requests"]},
+          f"{what}: the streams ended {g['streams']}")
+    check(g["cancelled"] == 0 and g["cancels"] == 0,
+          f"{what}: {g['cancels']} cancels")
+    check(report["outputs"] == other["outputs"],
+          f"{what}: greedy tokens differ from {other_name}'s, "
+          f"{greedy_agreement(report, other)} equal")
+    return g
+
+
+def gateway_line(label: str, report: dict) -> str:
+    def ms(x):
+        return f"{x * 1e3:.1f}" if x is not None else "n/a"
+
+    g = report["gateway"]
+    per_tick = {k: v / g["ticks"] for k, v in g["host_ms"].items()}
+    return (
+        f"{label}: {report['tokens_per_s']:.1f} tok/s, ttft p50 "
+        f"{ms(report['p50_ttft_s'])} p99 {ms(report['p99_ttft_s'])} ms, itl "
+        f"p50 {ms(report['p50_itl_s'])} p99 {ms(report['p99_itl_s'])} ms, "
+        f"queue wait p50 {ms(report['p50_queue_wait_s'])} p99 "
+        f"{ms(report['p99_queue_wait_s'])} ms, goodput "
+        f"{g['goodput_tok_s']:.1f} tok/s (SLO {g['slo_attainment']:.3f}: "
+        f"ttft {g['slo_ttft_s']} s, itl {g['slo_itl_s']} s), {g['ticks']} "
+        f"ticks, {g['overlapped_ticks']} overlapped, host ms a tick: "
+        f"schedule+dispatch {per_tick['schedule_dispatch']:.2f}, wait "
+        f"{per_tick['wait']:.2f}, emit {per_tick['emit']:.2f}, policy "
+        f"{g['policy']}, wall {g['wall_s']:.3f} s")
+
+
+def gateway_backpressure(smi: str, paged: dict) -> str:
+    """(d): phase 9's engine behind a gateway whose queue holds 2, the
+    eight phase-5 clients at once plus a ninth (prompt 0 again) that hangs
+    up after two token frames; a bounced client waits ``Retry-After``
+    and tries again."""
+    model = build_model(get_arch("yi-6b"))
+    engine = ServingEngine(model, model.init(0, "cuda"),
+                           n_lanes=SERVE["n_lanes"], max_len=SERVE["max_len"],
+                           cache="paged", page_size=16, prefill_chunk=128)
+    prompts = draw_prompts(ServeConfig(**SERVE), model.cfg.vocab_size)
+    max_new = SERVE["max_new"]
+
+    async def client(port: int, prompt: list[int], disconnect_after=None):
+        tokens, bounced = [], 0
+        while True:
+            final = None
+            async for kind, payload in sse_generate(
+                    "127.0.0.1", port, prompt, max_new_tokens=max_new,
+                    disconnect_after=disconnect_after):
+                if kind == "tokens":
+                    tokens.extend(payload)
+                else:
+                    final = (kind, payload)
+            if final and final[0] == "http_error" \
+                    and final[1]["status"] == 429:
+                bounced += 1
+                await asyncio.sleep(float(final[1]["retry_after"]))
+                continue
+            return tokens, bounced, final
+
+    async def run():
+        pipe = PipelinedEngine(engine, queue_limit=2)
+        srv = GatewayServer(pipe)
+        await srv.start()
+        t0 = time.monotonic()
+        results = await asyncio.gather(
+            *[client(srv.port, p) for p in prompts],
+            client(srv.port, prompts[0], disconnect_after=2))
+        wall = time.monotonic() - t0
+        await srv.drain()
+        return pipe, results, wall
+
+    pipe, results, wall = asyncio.run(run())
+    torch.cuda.synchronize()
+    what = "gateway (d)"
+    check(pipe._loop_error is None, f"{what}: the loop failed: "
+          f"{pipe._loop_error!r}")
+    *served, (hung_up, hung_bounces, hung_final) = results
+    bounces = sum(r[1] for r in results)
+    check(pipe.rejected >= 1 and bounces == pipe.rejected,
+          f"{what}: {pipe.rejected} 429s served, {bounces} retried")
+    check(pipe.cancels == 1 and len(engine.cancelled) == 1,
+          f"{what}: {pipe.cancels} cancels, {len(engine.cancelled)} "
+          "cancelled requests")
+    check(hung_final is None and len(hung_up) >= 2,
+          f"{what}: the hanging-up client got {len(hung_up)} tokens and "
+          f"{hung_final}")
+    check(all(final and final[0] == "done" and len(tokens) == max_new
+              for tokens, _, final in served),
+          f"{what}: streams ended {[r[2] and r[2][0] for r in served]}")
+    check(len(engine.finished) == SERVE["n_requests"],
+          f"{what}: {len(engine.finished)} requests finished")
+    kv = engine.kv.stats()
+    check(kv["used_pages"] == 0 and kv["used_pages"] + kv["free_pages"]
+          + kv["cached_pages"] == kv["n_pages"] - 1,
+          f"{what}: the pool after the serve {json.dumps(kv)}")
+    same = sum(a == b for i, (tokens, _, _) in enumerate(served)
+               for a, b in zip(tokens, paged["outputs"][i]))
+    summary = engine.metrics.summary()
+    del engine, model
+    torch.cuda.empty_cache()
+    return (f"(d) queue limit 2, 8 clients + 1 hanging up after 2 frames: "
+            f"{pipe.rejected} 429s served, all retried ({pipe.ticks} ticks, "
+            f"{pipe.overlapped_ticks} overlapped, wall {wall:.3f} s), "
+            f"{pipe.cancels} cancel after {len(hung_up)} tokens (the "
+            f"hanging-up client bounced {hung_bounces} times), 8/8 done "
+            f"with 32 tokens, queue wait p50 "
+            f"{summary['queue_wait_s']['p50'] * 1e3:.1f} p99 "
+            f"{summary['queue_wait_s']['p99'] * 1e3:.1f} ms, greedy tokens "
+            f"equal to phase 9's (reported) {same}/{8 * max_new}, pool "
+            f"used {kv['used_pages']} free {kv['free_pages']} cached "
+            f"{kv['cached_pages']} of {kv['n_pages']}")
+
+
+def phase_gateway(smi: str, paged: dict, spec_a: dict) -> None:
+    """Phase 26: the phase-5 requests through ``serve_config(gateway=True)``
+    at yi-6b's full width, each a TCP client of 127.0.0.1 streaming SSE:
+    (a) phase 9's paged config at the default knobs, (b) at
+    ``max_inflight`` 1, (c) phase 17a's speculative config; greedy tokens
+    equal to the synchronous serves', the launch counts exact; (d)
+    backpressure and a disconnect."""
+    t0 = time.perf_counter()
+    n_layers = 32
+    paged_kw = dict(cache="paged", page_size=16, prefill_chunk=128,
+                    gateway=True)
+    lines = []
+    for label, knobs in (("(a) paged, max_inflight 2, admit_batch 4", {}),
+                         ("(b) paged, max_inflight 1",
+                          {"max_inflight": 1})):
+        what = f"gateway {label[:3]}"
+        with gateway_knobs(**knobs):
+            report, launches = serve_with_counts(**paged_kw)
+        g = gateway_checks(what, report, paged, "phase 9")
+        check(g["policy"]["max_inflight"] == knobs.get("max_inflight", 2),
+              f"{what}: knobs {g['policy']}")
+        for kernel, want in (
+                (pa.flash_paged_prefill, n_layers * report["prefill_chunks"]),
+                (pa.flash_paged_decode, n_layers * report["decode_steps"])):
+            check(launches[kernel.__name__] == want > 0,
+                  f"{what}: {kernel.__name__} launched "
+                  f"{launches[kernel.__name__]} times, expected {want}")
+        only_launched(launches, (pa.flash_paged_prefill,
+                                 pa.flash_paged_decode), what)
+        check(pa.flash_paged_prefill.last_kernel == TC_KERNEL,
+              f"{what}: K4 ran {pa.flash_paged_prefill.last_kernel}")
+        check(pa.flash_paged_decode.last_kernel == pa.DECODE_TC_KERNEL,
+              f"{what}: K3 ran {pa.flash_paged_decode.last_kernel}")
+        check((g["overlapped_ticks"] > 0) == (not knobs),
+              f"{what}: {g['overlapped_ticks']} overlapped ticks")
+        lines.append(gateway_line(label, report) + f", {report['prefill_chunks']}"
+                     f" chunks, {report['decode_steps']} decode steps, launches "
+                     f"{ {k: n for k, n in launches.items() if n} }")
+    report, launches, drafts, k2_routes = spec_serve(
+        "gateway (c)", 16, pa.paged_prefill_split_merged,
+        pa.flash_paged_prefill, **SPEC, gateway=True)
+    gateway_checks("gateway (c)", report, spec_a, "phase 17a")
+    lines.append(gateway_line("(c) speculative, 8 splits", report)
+                 + f", {report['spec']['spec_ticks']} verify calls, draft "
+                 f"prefills {drafts['prefill']}, draft decode steps "
+                 f"{drafts['decode_step']} (K2 by kernel {k2_routes}), "
+                 f"launches { {k: n for k, n in launches.items() if n} }")
+    lines.append(gateway_backpressure(smi, paged))
+    print(f"[26 gateway] yi-6b full, pages of 16, chunks of 128, 8 requests "
+          f"of 32 tokens as TCP clients of 127.0.0.1, in "
+          f"{time.perf_counter() - t0:.1f}s, on {smi}: " + "; ".join(lines))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2690,8 +2922,9 @@ def main() -> int:
     launches.update(phase_fp32_split_serve(smi, model.cfg))
     phase_int8_logits(model, params)
     rows += phase_k5b() + phase_k6d()
-    launches.update(phase_spec_prefix_serves(smi, paged, int8_reports,
-                                             model, params))
+    spec_counts, spec_a = phase_spec_prefix_serves(smi, paged, int8_reports,
+                                                   model, params)
+    launches.update(spec_counts)
     phase_verify_logits(model, params)
     del model, params
     torch.cuda.empty_cache()
@@ -2714,7 +2947,8 @@ def main() -> int:
     check(len(rows) == 14, f"{len(rows)} kernel rows, expected 14")
     for row in rows:
         row["launches"] = launches[row["name"]]
-    print(f"[done] phases 1-25 in {time.perf_counter() - t0:.1f}s")
+    phase_gateway(smi, paged, spec_a)
+    print(f"[done] phases 1-26 in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

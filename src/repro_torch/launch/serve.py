@@ -18,7 +18,13 @@ prompts, and ``--shared-prefix N`` puts one common N-token system prompt
 in front of every request.  ``--arch falcon-mamba-7b`` serves the
 Mamba-1 stack from dense lanes that hold its recurrent state; the paged
 pool, and with it ``--cache paged``, ``--draft`` and ``--prefix-cache``,
-does not apply to it and raises.
+does not apply to it and raises.  ``--gateway`` serves the same prompts
+through the async HTTP/SSE gateway (:mod:`repro_torch.serving.gateway`)
+on ``--port`` (0: any free port) of 127.0.0.1: one real TCP client per
+request streams its tokens, a client bounced with 429 (more than
+``--queue-limit`` waiting) retries after ``Retry-After``, and the report
+gains the pipeline's counters and goodput under the ``--slo-ttft`` and
+``--slo-itl`` SLOs.
 
 Usage::
 
@@ -33,6 +39,8 @@ Usage::
         --prefill-chunk 128 --prefix-cache --shared-prefix 256
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
+        --prefill-chunk 128 --gateway
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --cache paged --prefill-chunk 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
@@ -41,7 +49,10 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import asyncio
+import collections
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -50,6 +61,8 @@ from ..configs import get_arch
 from ..device import resolve
 from ..models import build_model
 from ..serving import Request, SamplingParams, ServingEngine
+from ..serving.gateway import GatewayServer, PipelinedEngine, sse_generate
+from ..serving.gateway.pipeline import goodput_stats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,12 +92,18 @@ class ServeConfig:
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
+    gateway: bool = False
+    port: int = 0
+    queue_limit: int = 64
+    slo_ttft_s: float = 30.0
+    slo_itl_s: float = 5.0
     reduced: bool = True
     device: str = "cuda"
 
     #: argparse dest -> field, for the names that differ
     _ARG_FIELDS = {"requests": "n_requests", "lanes": "n_lanes",
-                   "pages": "n_pages"}
+                   "pages": "n_pages", "slo_ttft": "slo_ttft_s",
+                   "slo_itl": "slo_itl_s"}
 
     @classmethod
     def from_args(cls, args: argparse.Namespace) -> "ServeConfig":
@@ -157,19 +176,85 @@ def draw_prompts(scfg: ServeConfig, vocab_size: int) -> list[list[int]]:
         for _ in range(scfg.n_requests)]
 
 
+def _serve_gateway(engine: ServingEngine, prompts: list[list[int]],
+                   scfg: ServeConfig) -> tuple[dict, dict]:
+    """Serve ``prompts`` through the HTTP/SSE gateway: every request is a
+    real TCP client on 127.0.0.1 streaming SSE frames (a 429 bounce waits
+    ``Retry-After`` and retries), the engine ticks in the pipelined
+    asyncio loop.  Returns the tokens each client received, keyed by its
+    prompt's index (the synchronous serve's rid), and the gateway report:
+    the pipeline's counters, goodput under the SLOs, the retries and the
+    count of the streams' final events by kind."""
+    sampling = None
+    if scfg.temperature > 0.0 or scfg.top_k or scfg.top_p < 1.0:
+        sampling = {"temperature": scfg.temperature, "top_k": scfg.top_k,
+                    "top_p": scfg.top_p}
+
+    async def one(port: int, i: int, prompt: list[int]):
+        tokens, bounced = [], 0
+        while True:        # honor Retry-After on a 429 bounce
+            final = None
+            async for kind, payload in sse_generate(
+                    "127.0.0.1", port, prompt, max_new_tokens=scfg.max_new,
+                    sampling=(dict(sampling, seed=scfg.seed + i)
+                              if sampling else None)):
+                if kind == "tokens":
+                    tokens.extend(payload)
+                else:
+                    final = (kind, payload)
+            if final and final[0] == "http_error" \
+                    and final[1]["status"] == 429:
+                bounced += 1
+                await asyncio.sleep(float(final[1]["retry_after"] or 1))
+                continue
+            return tokens, bounced, final
+
+    async def run():
+        pipe = PipelinedEngine(engine, queue_limit=scfg.queue_limit)
+        srv = GatewayServer(pipe, port=scfg.port)
+        await srv.start()
+        t0 = time.monotonic()
+        results = await asyncio.gather(
+            *[one(srv.port, i, p) for i, p in enumerate(prompts)])
+        wall = time.monotonic() - t0
+        await srv.drain()
+        return pipe, results, wall
+
+    pipe, results, wall = asyncio.run(run())
+    outputs = {i: tokens for i, (tokens, _, _) in enumerate(results)}
+    report = {
+        "requests": len(prompts),
+        "wall_s": wall,
+        "client_retries_429": sum(r[1] for r in results),
+        "streams": dict(collections.Counter(
+            r[2][0] if r[2] else "closed" for r in results)),
+        **{k: v for k, v in pipe.stats().items() if k != "draining"},
+        **goodput_stats(engine.finished, wall, scfg.slo_ttft_s,
+                        scfg.slo_itl_s),
+    }
+    return outputs, report
+
+
 def serve_engine(engine: ServingEngine, scfg: ServeConfig) -> dict:
-    """Submit the requests ``scfg`` describes to ``engine``, run them to
-    the end and return the report."""
+    """Submit the requests ``scfg`` describes to ``engine`` (through the
+    gateway with ``scfg.gateway``), run them to the end and return the
+    report."""
     prompts = draw_prompts(scfg, engine.model.cfg.vocab_size)
-    for rid, prompt in enumerate(prompts):
-        engine.submit(Request(rid=rid, prompt=prompt,
-                              max_new_tokens=scfg.max_new,
-                              sampling=SamplingParams(
-                                  temperature=scfg.temperature,
-                                  top_k=scfg.top_k, top_p=scfg.top_p,
-                                  seed=scfg.seed + rid)))
-    finished = engine.run(max_steps=scfg.n_requests
-                          * (scfg.max_new + 4 + scfg.shared_prefix))
+    gateway_report = None
+    if scfg.gateway:
+        outputs, gateway_report = _serve_gateway(engine, prompts, scfg)
+    else:
+        for rid, prompt in enumerate(prompts):
+            engine.submit(Request(rid=rid, prompt=prompt,
+                                  max_new_tokens=scfg.max_new,
+                                  sampling=SamplingParams(
+                                      temperature=scfg.temperature,
+                                      top_k=scfg.top_k, top_p=scfg.top_p,
+                                      seed=scfg.seed + rid)))
+        finished = engine.run(max_steps=scfg.n_requests
+                              * (scfg.max_new + 4 + scfg.shared_prefix))
+        outputs = {int(r.rid): [int(t) for t in r.out_tokens]
+                   for r in finished}
     summary = engine.metrics.summary()
     prefix_stats = None
     if engine.kv.prefix_cache:
@@ -181,9 +266,8 @@ def serve_engine(engine: ServingEngine, scfg: ServeConfig) -> dict:
         "config": scfg.to_dict(),
         "device": (torch.cuda.get_device_name(engine.device)
                    if engine.device.type == "cuda" else "cpu"),
-        "outputs": {int(r.rid): [int(t) for t in r.out_tokens]
-                    for r in finished},
-        "finished": len(finished), "requests": scfg.n_requests,
+        "outputs": outputs,
+        "finished": len(engine.finished), "requests": scfg.n_requests,
         "decode_steps": engine.steps,
         "prefill_chunks": engine.prefill_chunks,
         "generated_tokens": summary["generated_tokens"],
@@ -201,6 +285,7 @@ def serve_engine(engine: ServingEngine, scfg: ServeConfig) -> dict:
         "cache": engine.kv.stats(),
         "prefix_cache": prefix_stats,
         "kv_dtype": engine.kv.kv_dtype,
+        "gateway": gateway_report,
     }
 
 
@@ -253,6 +338,18 @@ def main(argv: list[str] | None = None) -> None:
                     help="top-k sampling filter (0 disables)")
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus sampling mass (1.0 disables)")
+    ap.add_argument("--gateway", action="store_true",
+                    help="serve through the async HTTP/SSE gateway "
+                         "(pipelined ticks, real localhost TCP clients)")
+    ap.add_argument("--port", type=int, default=0,
+                    help="gateway: listen port (0 = ephemeral)")
+    ap.add_argument("--queue-limit", type=int, default=64,
+                    help="gateway: admission-queue bound (429 beyond)")
+    ap.add_argument("--slo-ttft", type=float, default=30.0,
+                    help="gateway: TTFT SLO in seconds (goodput counts "
+                         "only requests inside it)")
+    ap.add_argument("--slo-itl", type=float, default=5.0,
+                    help="gateway: p95 inter-token-latency SLO in seconds")
     ap.add_argument("--reduced", action="store_true", default=True,
                     help="serve the reduced test config (default)")
     ap.add_argument("--full", dest="reduced", action="store_false",
@@ -276,6 +373,16 @@ def main(argv: list[str] | None = None) -> None:
         print(f"[serve] speculative: {out['spec']}")
     if out["prefix_cache"] is not None:
         print(f"[serve] prefix cache: {out['prefix_cache']}")
+    if out["gateway"] is not None:
+        g = out["gateway"]
+        per_tick = {k: v / max(g["ticks"], 1)
+                    for k, v in g["host_ms"].items()}
+        print(f"[serve] gateway: {g['goodput_tok_s']:.1f} good tok/s (SLO "
+              f"{g['slo_attainment']:.0%}), {g['overlapped_ticks']}/"
+              f"{g['ticks']} ticks overlapped, {g['rejected_429']} bounced, "
+              f"streams {g['streams']}, host ms a tick: schedule+dispatch "
+              f"{per_tick['schedule_dispatch']:.2f}, wait "
+              f"{per_tick['wait']:.2f}, emit {per_tick['emit']:.2f}")
 
 
 if __name__ == "__main__":

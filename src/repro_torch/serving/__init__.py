@@ -8,7 +8,10 @@ fixed decode lanes, on dense KV lanes or the paged KV pool.
 * :mod:`.sampling` — per-request temperature / top-k / top-p;
 * :mod:`.metrics` — TTFT / inter-token latency / throughput;
 * :mod:`.engine` — the orchestrator, each tick split into ``schedule`` /
-  ``dispatch`` / ``emit``.
+  ``dispatch`` / ``emit``;
+* :mod:`.gateway` — the async HTTP/SSE front-end: a pipelined tick loop
+  that waits on each tick's CUDA event off the event loop, per-token
+  streaming, admission backpressure, cancellation on disconnect.
 """
 from .buckets import LENGTH_BUCKETS, REDUCED_BUCKETS
 from .engine import LaneState, Request, ServingEngine, TickWork, length_bucket

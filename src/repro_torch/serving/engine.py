@@ -33,7 +33,11 @@ model's steps, as the JAX package's engine does:
   it resumes first, by swap-in, where it stopped (mid-prefill too);
 * each tick splits into ``schedule`` / ``dispatch`` / ``emit``:
   ``dispatch`` only launches device work and records a CUDA event
-  (:class:`TickWork`), ``emit`` is the first host-device sync.
+  (:class:`TickWork`), ``emit`` is the first host-device sync; the
+  gateway's :class:`~repro_torch.serving.gateway.PipelinedEngine`
+  waits on that event off the event loop;
+* ``cancel_request`` aborts a request wherever it is (queued, preempted
+  or on a lane) and returns its pages to the pool, at a tick boundary.
 
 Greedy output is token-for-token the JAX engine's on the same weights
 and requests, int8 pages, speculation and the prefix cache included.
@@ -171,11 +175,25 @@ class ServingEngine:
         self.metrics = ServingMetrics()
         self.active: dict[int, Request] = {}
         self.finished: list[Request] = []
+        self.cancelled: list[Request] = []
         self.steps = 0
         self.prefill_chunks = 0          # chunk steps run (chunked prefill)
         self.spec_ticks = 0              # speculative ticks run
         self.drafted_tokens = 0          # draft tokens offered to verify
         self.accepted_tokens = 0         # draft tokens accepted
+
+    # -- compat views -------------------------------------------------------
+    @property
+    def lanes(self) -> list[LaneState]:
+        return self.scheduler.lanes
+
+    @property
+    def queue(self):
+        return self.scheduler.waiting
+
+    @property
+    def caches(self):
+        return self.kv.caches
 
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -189,6 +207,38 @@ class ServingEngine:
         self.active.pop(req.rid, None)
         self.kv.release(lane_id)
         self.scheduler.vacate(lane_id)
+
+    def cancel_request(self, rid: int) -> bool:
+        """Abort a request wherever it lives — queued, preempted, or on a
+        lane — releasing its lane and KV pages (refcounts on shared prefix
+        pages drop; the pool's three-state accounting balances) and
+        resetting the lane's draft strip.
+
+        The client-disconnect path of the gateway.  Cancelled requests do
+        not feed the latency metrics (a half-served stream has no honest
+        TTFT/ITL) and go to :attr:`cancelled`, not :attr:`finished`.
+        Call it only at a tick boundary, never between :meth:`dispatch`
+        and :meth:`emit`: the caches are written in place on the current
+        stream, so the in-flight tick may still be writing the pages a
+        cancel would return to the pool (and its batch still names the
+        lane).  Returns False when ``rid`` is unknown (already finished
+        or never submitted)."""
+        req = self.active.pop(rid, None)
+        if req is not None:
+            lane_id = next(i for i, l in enumerate(self.scheduler.lanes)
+                           if l.rid == rid)
+            self.kv.release(lane_id)
+            self.scheduler.vacate(lane_id)
+            self._reset_draft(lane_id)
+        else:
+            req = self.scheduler.remove_queued(rid)
+            if req is None:
+                return False
+        req.done = True
+        req.cancelled = True
+        req.finish_t = time.monotonic()
+        self.cancelled.append(req)
+        return True
 
     def _is_eos(self, tok: int) -> bool:
         """``eos_id=0`` is a valid stop token; ``None`` disables EOS."""

@@ -1,7 +1,7 @@
 """Request scheduling for the serving engine: FIFO admission + preemption.
 
-A copy of the JAX package's scheduler (pure policy, stdlib only; the
-gateway's cancellation path is not ported yet).  The scheduler decides
+A copy of the JAX package's scheduler (pure policy, stdlib only).  The
+scheduler decides
 *which* request gets a lane and *when* a running one is preempted; the
 engine performs the actual model and cache operations.  One unified ``ready`` queue (``collections.deque``,
 O(1) at both ends) holds new requests and preempted sequences in FIFO
@@ -103,6 +103,11 @@ class Scheduler:
     def pending(self) -> int:
         return len(self.ready)
 
+    @property
+    def waiting(self) -> deque:
+        """New (never-run) requests still queued, in FIFO order."""
+        return deque(r for r in self.ready if isinstance(r, Request))
+
     def free_lanes(self) -> list[int]:
         return [i for i, l in enumerate(self.lanes) if l.rid is None]
 
@@ -128,6 +133,18 @@ class Scheduler:
     def push_back(self, kind: str, item: Any) -> None:
         """Return an un-admittable item to the head of the queue."""
         self.ready.appendleft(item)
+
+    def remove_queued(self, rid: int) -> Request | None:
+        """Pull a queued request (new or preempted) out of the ready deque
+        — the cancellation path for work that never reached, or was bumped
+        from, a lane.  Returns the request, or None if ``rid`` is not
+        queued."""
+        for item in self.ready:
+            req = item.req if isinstance(item, ResumeEntry) else item
+            if req.rid == rid:
+                self.ready.remove(item)
+                return req
+        return None
 
     def occupy(self, lane_id: int, req: Request, pos: int,
                remaining: int, phase: str = "decode") -> None:
