@@ -8,9 +8,10 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
    all in parallel; the instances of the tensor-core kernels (K1 in
    ``flash_attention.cu``; K4, K6c and the partials modes K5b and K6d in
-   ``paged_prefill.cu``; K3, K6a and the dense (K2) and partials (K5a over
-   bf16 pools, K6b over int8 pools) modes in ``paged_decode.cu``) with
-   their registers and spills from the
+   ``paged_prefill.cu``, at every tile: rows 16, 32 and 64 by keys 64 and
+   128 at D 128; K3, K6a and the dense (K2) and partials (K5a over bf16
+   pools, K6b over int8 pools) modes in ``paged_decode.cu``, at key tiles
+   32, 64 and 128 at D 128) with their registers and spills from the
    ``-Xptxas -v`` log, their shared memory and resident blocks per SM, and
    for the decode kernel the clusters of 1, 2, 4 and 8 CTAs the card holds
    at once;
@@ -188,7 +189,24 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    used + free + cached = pages - 1).  Printed for each: tokens/s,
    p50/p99 TTFT, ITL and queue wait, goodput, ticks and overlapped
    ticks, and the loop's host ms a tick in schedule + dispatch, in the
-   wait on the tick's CUDA event and in emit.
+   wait on the tick's CUDA event and in emit;
+27. run-time AT: (a) every tile instance of the decode kernel (K3, K6a,
+   K2, and K5a and K6b merged at 8 splits, at the phase-7 and phase-4
+   shapes) and of the prefill kernel (K4 and K6c at the phase-8 chunk,
+   K5b and K6d merged at 8 splits on the verify shape) against plain and
+   timed, a table of tile -> ms; (b) phase 9's serve with ``autotune`` in
+   a fresh workdir, its launch and tile counters zeroed just before and
+   read just after: the ``DecodeBucket`` and ``PrefillBucket`` regions
+   measure each candidate once, each measured call waiting for the
+   device, every measured candidate's tile launched on its route, and
+   commit; printed per region the candidates' costs, the winners and the
+   launches by tile; then the same serve in the same workdir must make
+   zero measurements (every region warm-loaded, the same winners); greedy
+   agreement with phase 9 reported (a tile changes bf16 rounding); (c)
+   phase 17a's speculative serve tuned (a ``SpecBucket`` commits),
+   ``--kv-dtype auto`` (every ``KVPrecision`` bucket commits; agreements
+   and the resolved pool printed) and the gateway tuned (``GatewayPolicy``
+   commits after its windows).
 
 Then the script's run time, one JSON line with every kernel's numbers,
 and as the last line
@@ -365,21 +383,26 @@ def phase_build() -> None:
                   f"kernels (full report in {log.name})")
     for source, kernel, pattern, info, n in (
             ("flash_attention", fa.TC_KERNEL, r"ILi(?P<d>\d+)EE",
-             lambda d, kind: fa.tc_info(d), 4),
+             lambda d, kind, t: fa.tc_info(d), 4),
             ("paged_prefill", TC_KERNEL,
-             r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELb(?P<split>[01])EE",
-             lambda d, kind: pa.tc_info(d, kind, 64), 16),
+             r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELb(?P<split>[01])"
+             r"ELi(?P<slabs>\d)ELi(?P<bk>\d+)EE",
+             lambda d, kind, t: pa.tc_info(d, kind, 64, rows=16 * t["slabs"],
+                                           block_k=t["bk"]), 36),
             ("paged_decode", pa.DECODE_TC_KERNEL,
-             r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELi(?P<mode>\d)EE",
-             lambda d, kind: pa.decode_tc_info(d, kind, 64), 20)):
+             r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELi(?P<mode>\d)"
+             r"ELi(?P<bk>\d+)EE",
+             lambda d, kind, t: pa.decode_tc_info(d, kind, 64,
+                                                  block_k=t["bk"]), 25)):
         log = paths[source].with_suffix(".log")
         if not log.exists():
             continue
         lines = []
-        for kind, d, regs, spill in tc_instances(log.read_text(), kernel,
-                                                 pattern):
-            card = info(d, kind)
-            lines.append(f"{kind + ' ' if kind else ''}D={d}: {regs} "
+        for kind, d, regs, spill, tile in tc_instances(log.read_text(),
+                                                       kernel, pattern):
+            card = info(d, kind, tile)
+            shape = "".join(f" {k}={v}" for k, v in tile.items())
+            lines.append(f"{kind + ' ' if kind else ''}D={d}{shape}: {regs} "
                          f"registers, {spill} B spill stores, "
                          f"{card['smem_bytes']} B shared"
                          + (" at 64 table entries" if kind
@@ -395,14 +418,15 @@ def phase_build() -> None:
 
 
 def tc_instances(log: str, kernel: str,
-                 pattern: str) -> list[tuple[str, int, int, int]]:
-    """(kind, D, registers, spill-store bytes) of every instance of a
-    tensor-core kernel in an ``-Xptxas -v`` log.  ``pattern`` matches the
+                 pattern: str) -> list[tuple[str, int, int, int, dict]]:
+    """(kind, D, registers, spill-store bytes, tile) of every instance of
+    a tensor-core kernel in an ``-Xptxas -v`` log.  ``pattern`` matches the
     template arguments of its mangled name: the head dim ``d`` and, for
     the paged kernels, ``int8`` pools and the ``split`` flag (prefill) or
     the ``mode`` (decode: paged, dense, partials), whose kind is then one
-    of ``pa.TC_KINDS`` (prefill) or ``pa.DECODE_KINDS`` (decode); K1's
-    kind is empty."""
+    of ``pa.TC_KINDS`` (prefill) or ``pa.DECODE_KINDS`` (decode), and the
+    tile: ``slabs`` (16-row slabs of the query tile) and ``bk`` (keys);
+    K1's kind is empty and its tile has no parameter."""
     out = []
     for chunk in log.split("Compiling entry function")[1:]:
         m = re.search(kernel + pattern, chunk.split("\n", 1)[0])
@@ -418,8 +442,9 @@ def tc_instances(log: str, kernel: str,
             kind = ("" if "int8" not in args else
                     ("int8" if args["int8"] else "bf16")
                     + (" split" if args.get("split") == "1" else ""))
+        tile = {k: int(args[k]) for k in ("slabs", "bk") if args.get(k)}
         out.append((kind, int(args["d"]), int(regs.group(1)) if regs else -1,
-                    int(spill.group(1)) if spill else 0))
+                    int(spill.group(1)) if spill else 0, tile))
     return out
 
 
@@ -2896,6 +2921,247 @@ def phase_gateway(smi: str, paged: dict, spec_a: dict) -> None:
           f"{time.perf_counter() - t0:.1f}s, on {smi}: " + "; ".join(lines))
 
 
+# --------------------------------------------------------------------------
+# phase 27: run-time AT on the card
+# --------------------------------------------------------------------------
+
+TILED = (fa.flash_decode, pa.flash_paged_decode, pa.flash_paged_decode_quant,
+         pa.paged_decode_split_merged, pa.paged_decode_split_quant_merged,
+         pa.flash_paged_prefill, pa.flash_paged_prefill_quant,
+         pa.paged_prefill_split_merged, pa.paged_prefill_split_quant_merged)
+
+
+def tile_sweep() -> list[str]:
+    """Phase 27(a): every new instance at the main path's shapes against
+    plain, timed (CUDA events, L2 flushed): the decode kernel as K3, K6a
+    (yi-6b's four lanes), K2 (dense S 1024) and merged K5a and K6b at 8
+    splits; the prefill kernel as K4 and K6c (the phase-8 chunk) and
+    merged K5b and K6d at 8 splits on the verify shape."""
+    lines = []
+    b, h, hkv, d, psz, nblk = 4, 32, 4, 128, 16, 64
+    kv_len = [839, 720, 190, 544]
+    q, kp, vp, table, lens = paged_case(b, h, hkv, d, psz, nblk, kv_len,
+                                        BF16, 2700)
+    (k8, ks), (v8, vs) = quantize_int8_rows(kp), quantize_int8_rows(vp)
+    dk = randn((b, hkv, 1024, d), 2701, BF16)
+    dv = randn((b, hkv, 1024, d), 2702, BF16)
+    dlens = torch.tensor([1024, 517, 33, 300], dtype=torch.int32,
+                         device="cuda")
+    plain = {"fp": ref.paged_decode_ref(q, kp, vp, table, lens),
+             "int8": ref.paged_decode_ref(q, k8, v8, table, lens, k_scale=ks,
+                                          v_scale=vs),
+             "dense": ref.decode_ref(q, dk, dv, dlens)}
+    modes = {
+        "K3": (lambda bk: pa.flash_paged_decode(q, kp, vp, table, lens,
+                                                block_k=bk), "fp"),
+        "K6a": (lambda bk: pa.flash_paged_decode_quant(
+            q, k8, v8, ks, vs, table, lens, block_k=bk), "int8"),
+        "K2": (lambda bk: fa.flash_decode(q, dk, dv, dlens, block_k=bk),
+               "dense"),
+        "K5a+K5c ns=8": (lambda bk: pa.paged_decode_split_merged(
+            q, kp, vp, table, lens, 8, block_k=bk), "fp"),
+        "K6b+K5c ns=8": (lambda bk: pa.paged_decode_split_quant_merged(
+            q, k8, v8, ks, vs, table, lens, 8, block_k=bk), "int8")}
+    for label, (fn, want) in modes.items():
+        cells = []
+        for bk in pa.DECODE_BLOCK_KS:
+            err = compare(fn(bk), plain[want], BF16)
+            cells.append(f"{bk}: {time_ms(lambda: fn(bk))[0]:.4f} ms "
+                         f"(err {err:.2e})")
+        lines.append(f"decode {label} block_k -> " + ", ".join(cells))
+    check(counters_zero(), "tile sweep: an arrival counter is not 0")
+    tiles = [(bq, bk) for bq in pa.prefill_tiles(BF16, 128, 8)[0]
+             for bk in pa.TC_BLOCK_KS]
+    for shape, kinds in ((CHUNK_SHAPE, ("K4", "K6c")),
+                         (VERIFY_SHAPE, ("K5b+K5c ns=8", "K6d+K5c ns=8"))):
+        for kind in kinds:
+            quant = kind.startswith("K6")
+            q2, pools, table2, start2, lens2 = split_case(shape, 2710, quant)
+            ns = 8 if "ns=8" in kind else 1
+            want = ref.paged_prefill_ref(q2, pools.k, pools.v, table2,
+                                         start2, lens2, k_scale=pools.k_scale,
+                                         v_scale=pools.v_scale)
+            valid = shape[7]
+            cells = []
+            for bq, bk in tiles:
+                def run(bq=bq, bk=bk):
+                    return ops.paged_prefill(q2, pools, table2, start2, lens2,
+                                             num_splits=ns, block_q=bq,
+                                             block_k=bk)
+                got = run()
+                err = max(compare(got[i, :, :n], want[i, :, :n], BF16)
+                          for i, n in enumerate(valid) if n)
+                cells.append(f"({bq}, {bk}): {time_ms(run)[0]:.4f} ms "
+                             f"(err {err:.2e})")
+            lines.append(f"prefill {kind} at {shape[0]} (block_q, block_k) "
+                         f"-> " + ", ".join(cells))
+    check(counters_zero(), "tile sweep: an arrival counter is not 0")
+    return lines
+
+
+def tuned_serve(model, params, workdir: str, **kw) -> tuple[dict, dict]:
+    """One serve of the phase-5 requests at yi-6b's full width with
+    run-time AT in ``workdir``, every launch counter and tile count zeroed
+    just before and read just after; every request must finish with its
+    32 tokens.  Returns the report and {wrapper: {tile: launches}}."""
+    at.clear_published()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    for kernel in TILED:
+        kernel.by_tile.clear()
+    scfg = ServeConfig(**{**SERVE, **kw, "autotune": True,
+                          "workdir": workdir})
+    report = serve_mod.serve_model(model, params, scfg)
+    torch.cuda.synchronize()
+    at.clear_published()
+    check(report["finished"] == SERVE["n_requests"]
+          and all(len(t) == SERVE["max_new"]
+                  for t in report["outputs"].values()),
+          f"tuned serve {kw}: {report['finished']} requests finished")
+    check(counters_zero(), f"tuned serve {kw}: an arrival counter is not 0")
+    by_tile = {k.__name__: dict(k.by_tile) for k in TILED if k.by_tile}
+    return report, by_tile
+
+
+def region_lines(a: dict) -> list[str]:
+    """Per measured region: each candidate's cost, the waits for the
+    device, and what committed."""
+    return [f"{name}: " + ", ".join(f"{lab} {c * 1e3:.2f} ms"
+                                    for lab, c in costs.items())
+            + f" (waited {a['waits'].get(name, 0)})"
+            for name, costs in a["costs"].items()]
+
+
+def check_cold(what: str, report: dict, by_tile: dict, families) -> dict:
+    """A cold tuned serve: the regions of ``families`` measured, each
+    measured candidate of the decode, prefill and verify regions waited
+    for the device, every measured region committed."""
+    a = report["autotune"]
+    kinds = {name.split("_")[0] for name in a["measured_regions"]}
+    check(set(families) <= kinds,
+          f"{what}: measured {a['measured_regions']}, expected {families}")
+    for name, costs in a["costs"].items():
+        if name.split("_")[0] in ("DecodeBucket", "PrefillBucket",
+                                  "SpecBucket"):
+            check(a["waits"].get(name) == len(costs),
+                  f"{what}: {name} measured {len(costs)} candidates, "
+                  f"{a['waits'].get(name)} waited for the device")
+    check(a["measurements"] == sum(len(c) for c in a["costs"].values()),
+          f"{what}: measurements {a['measurements']}")
+    check(by_tile, f"{what}: no tiled kernel launched")
+    return a
+
+
+def phase_autotune(smi: str, paged: dict, spec_a: dict) -> None:
+    """Phase 27: run-time AT on the card.  (a) the tile sweep; (b) a cold
+    tuned serve of phase 9's config in a fresh workdir, then a warm one in
+    the same workdir, which must measure nothing; (c) phase 17a's
+    speculative config, ``--kv-dtype auto`` and the gateway, tuned."""
+    t0 = time.perf_counter()
+    lines = tile_sweep()
+    print(f"[27a tile sweep] yi-6b shapes, bf16, device ms (CUDA events, L2 "
+          f"flushed), max abs err vs plain (tol {TOL[BF16]}), on {smi}: "
+          + "; ".join(lines))
+    model = build_model(get_arch("yi-6b"))
+    params = model.init(0, "cuda")
+    n_layers = 32
+    paged_kw = dict(cache="paged", page_size=16, prefill_chunk=128)
+    with tempfile.TemporaryDirectory() as wd:
+        cold, cold_tiles = tuned_serve(model, params, wd, **paged_kw)
+        a = check_cold("27b cold", cold, cold_tiles,
+                       ("DecodeBucket", "PrefillBucket"))
+        decode = (cold_tiles.get("flash_paged_decode", {}),
+                  cold_tiles.get("paged_decode_split_merged", {}))
+        check(sum(decode[0].values()) + sum(decode[1].values())
+              == n_layers * cold["decode_steps"],
+              f"27b cold: decode launches by tile {cold_tiles}, "
+              f"{cold['decode_steps']} steps")
+        for name, costs in a["costs"].items():
+            for label in costs:
+                pp = dict(kv.split("=") for kv in label.split(","))
+                if name.startswith("DecodeBucket"):
+                    route = decode[int(pp["num_splits"]) > 1]
+                    check(route.get(int(pp["block_k"]), 0) >= n_layers,
+                          f"27b cold: candidate {label} of {name} has no "
+                          f"launches at its tile: {cold_tiles}")
+                elif name.startswith("PrefillBucket"):
+                    tile = (int(pp["block_q"]), int(pp["block_k"]))
+                    check(cold_tiles.get("flash_paged_prefill", {}).get(
+                        tile, 0)
+                          >= n_layers, f"27b cold: candidate {label} of "
+                          f"{name} has no launches: {cold_tiles}")
+        warm, warm_tiles = tuned_serve(model, params, wd, **paged_kw)
+        w = warm["autotune"]
+        check(w["executor_calls"] == 0 and w["measurements"] == 0
+              and not w["measured_regions"] and not w["waits"],
+              f"27b warm: {w['measurements']} measurements in "
+              f"{w['measured_regions']}")
+        check(set(a["measured_regions"]) <= set(w["warm_regions"]),
+              f"27b warm: warm-loaded {w['warm_regions']}, cold measured "
+              f"{a['measured_regions']}")
+        check(w["committed"] == a["committed"],
+              "27b warm: committed parameters differ from the cold serve's")
+    print(f"[27b tuned serve] yi-6b full, pages of 16, chunks of 128, "
+          f"8 requests of 32 tokens, on {smi}: cold {cold['tokens_per_s']:.1f} "
+          f"tok/s, {a['measurements']} measurements in "
+          f"{len(a['measured_regions'])} regions: "
+          + "; ".join(region_lines(a))
+          + f"; committed {json.dumps(a['committed'], default=str)}; "
+          f"launches by tile {cold_tiles}; greedy tokens equal to phase 9's "
+          f"(reported: a tile changes bf16 rounding) "
+          f"{greedy_agreement(cold, paged)}.  Warm: "
+          f"{warm['tokens_per_s']:.1f} tok/s, executor_calls "
+          f"{w['executor_calls']}, measurements {w['measurements']}, "
+          f"{len(w['warm_regions'])} regions warm-loaded, launches by tile "
+          f"{warm_tiles}, greedy tokens equal to phase 9's "
+          f"{greedy_agreement(warm, paged)}, to the cold serve's "
+          f"{greedy_agreement(warm, cold)}")
+    with tempfile.TemporaryDirectory() as wd:
+        spec, spec_tiles = tuned_serve(model, params, wd, **SPEC)
+        sa = check_cold("27c spec", spec, spec_tiles, ("SpecBucket",))
+        committed_spec = {b: pp for b, pp in sa["committed"]["spec"].items()
+                          if pp is not None}
+        check(committed_spec, "27c spec: no SpecBucket committed")
+    with tempfile.TemporaryDirectory() as wd:
+        auto, auto_tiles = tuned_serve(model, params, wd, kv_dtype="auto",
+                                       **paged_kw)
+        kv = auto["autotune"]["committed"]["kv_precision"]
+        check(all(v is not None for v in kv.values()),
+              f"27c kv auto: KVPrecision committed {kv}")
+        env = {name: costs for name, costs in auto["autotune"]["costs"].items()
+               if name.startswith("KVPrecision")}
+    with tempfile.TemporaryDirectory() as wd:
+        gate, gate_tiles = tuned_serve(model, params, wd, gateway=True,
+                                       policy_window=1, **paged_kw)
+        g = gate["gateway"]
+        check(g["streams"] == {"done": SERVE["n_requests"]},
+              f"27c gateway: streams {g['streams']}")
+        check(g["policy"].get("committed") is not None,
+              f"27c gateway: GatewayPolicy did not commit: {g['policy']}")
+    print(f"[27c tuned serves] on {smi}: speculative (17a, 8 splits) "
+          f"{spec['tokens_per_s']:.1f} tok/s, "
+          + "; ".join(region_lines(sa)) + f", SpecBucket committed "
+          f"{committed_spec}, launches by tile {spec_tiles}, greedy tokens "
+          f"equal to 17a's {greedy_agreement(spec, spec_a)}; kv auto: "
+          f"KVPrecision committed {kv}, candidates' wall ms "
+          f"{ {n: {k: round(v * 1e3, 2) for k, v in c.items()} for n, c in env.items()} }"
+          f", agreement {auto_agreements(auto)}, resolved pool "
+          f"{auto['kv_dtype']}, {auto['tokens_per_s']:.1f} tok/s, greedy "
+          f"tokens equal to phase 9's {greedy_agreement(auto, paged)}; "
+          f"gateway {gate['tokens_per_s']:.1f} tok/s, {g['policy']['windows']}"
+          f" windows, GatewayPolicy committed {g['policy']['committed']}; "
+          f"phase 27 in {time.perf_counter() - t0:.1f}s")
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def auto_agreements(report: dict) -> dict:
+    """The greedy-agreement values the KVPrecision candidates reported."""
+    return {name: {lab: env.get("agreement") for lab, env in cands.items()}
+            for name, cands in report["autotune"]["reported"].items()
+            if name.startswith("KVPrecision")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2948,7 +3214,8 @@ def main() -> int:
     for row in rows:
         row["launches"] = launches[row["name"]]
     phase_gateway(smi, paged, spec_a)
-    print(f"[done] phases 1-26 in {time.perf_counter() - t0:.1f}s")
+    phase_autotune(smi, paged, spec_a)
+    print(f"[done] phases 1-27 in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

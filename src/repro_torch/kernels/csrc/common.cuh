@@ -95,7 +95,10 @@ __device__ __forceinline__ void merge_splits_if_last(
   constexpr int PER = (MAXR * C4 + THREADS - 1) / THREADS;
   constexpr int NW = THREADS / 32;
   constexpr int RPW = (MAXR + NW - 1) / NW;            // rows per warp
-  constexpr int U = PER >= 4 ? 4 : 16 / PER;           // splits per round
+  // splits per round: 16 / PER, so that a thread holds at most 16 float4
+  // of acc rows in flight (8 chunks a thread, as a 64-thread CTA or a
+  // 64-row tile has, take 2 a round)
+  constexpr int U = PER >= 16 ? 1 : 16 / PER;
   int* last = reinterpret_cast<int*>(scratch);
   float* lst = scratch + 1;                            // l* per row
   float* wts = lst + MAXR;                             // [MAXR][32] weights

@@ -34,12 +34,12 @@
 //  DENSE     a strip (B, Hkv, S, D) is a pool of B pages of S keys with
 //            table[b] = b, so row (b, hk, key) is (b * Hkv + hk) * S + key
 //            and no table is staged; kv_len is clamped to [0, S] and S
-//            need not be a multiple of the 64-key tile (the copies
+//            need not be a multiple of the key tile (the copies
 //            zero-fill the tail);
 //  PARTIALS  paged rows (bf16 pools: K5a; int8 pools with their scales:
 //            K6b), one CTA per split in a cluster of one (grid
 //            B * Hkv * ns): split s walks the s-th contiguous share,
-//            ceil(tiles / ns), of the lane's live 64-key tiles (the rank
+//            ceil(tiles / ns), of the lane's live key tiles (the rank
 //            rule with c replaced by ns); after the in-CTA warp merge it
 //            stores its (m, l, acc) as fp32 partials m, l (B, Hkv, ns, G),
 //            acc (.., D), m in natural-log units as K5c
@@ -63,6 +63,14 @@
 // into P before P is rounded to bf16; the row sums l come from the fp32 P.
 // So an output moves by at most 2^-8 sum_j p_j |v_j| / l from the plain
 // fp32 version's.
+//
+// The key tile BN is a template parameter, the run-time AT's block_k
+// (tuning/dynamic.py's DecodeBucket regions, KVPrecision): 64 keys (the
+// default: 4 warps of 16 keys), and at D = 128 also 32 (2 warps of 16).
+// A warp is one key group with its own online
+// softmax, so the tile sets where the fp32 sums and P's bf16 rounding
+// fall, and the rank and split rules cut the lane's live BN-key tiles.
+// The description below is at BN = 64.
 //
 // What bounds it on an H100.  At the serve's shape (yi-6b: four lanes of
 // 839, 720, 190 and 544 keys, H 32, Hkv 4, D 128, pages of 16) a decode
@@ -143,16 +151,27 @@ namespace cg = cooperative_groups;
 namespace {
 
 namespace dec {
-constexpr int NWARPS = 4;            // key groups of a tile
-constexpr int THREADS = NWARPS * 32;
-constexpr int BN = 64;               // keys per tile (a ring stage)
-constexpr int KN = BN / NWARPS;      // keys per key group
 constexpr int STAGES = 3;
 constexpr int ROWS = 16;             // query rows per CTA: one mma slab
 constexpr int MAX_CLUSTER = 8;
 constexpr float kLn2 = 0.6931471805599453f;
 // what a launch computes (the kernel's MODE; see the head of this file)
 constexpr int PAGED = 0, DENSE = 1, PARTIALS = 2;
+constexpr int DEFAULT_BN = 64;       // the key tile of an untuned launch
+
+// The key tile BN (keys per ring stage) and the warps that share it: each
+// warp is one key group, taking KN = 16 consecutive keys of every tile,
+// so a tile of 32 keys has 2 warps and one of 64 has 4 (NT 8-key column
+// tiles of S each).
+template <int BN_>
+struct Tile {
+  static constexpr int BN = BN_;
+  static constexpr int KN = 16;
+  static constexpr int NWARPS = BN / KN;
+  static constexpr int THREADS = NWARPS * 32;
+  static constexpr int NT = KN / 8;
+  static_assert(BN % KN == 0, "a tile is whole 16-key mma steps");
+};
 
 // Dynamic shared memory of one CTA, in bytes: the ring of K and V stages
 // as the copies land them (rows of D * sizeof(S) + 16 bytes), for int8
@@ -162,8 +181,9 @@ constexpr int PAGED = 0, DENSE = 1, PARTIALS = 2;
 // softmax states of the 4 warps and then the CTA's merged one, each
 // m[ROWS], l[ROWS], acc[ROWS][SROW] in fp32, then the ranks' weights
 // [MAX_CLUSTER][ROWS].
-template <typename S, int D>
+template <typename S, int D, int BN>
 struct Smem {
+  static constexpr int NWARPS = Tile<BN>::NWARPS;
   static constexpr bool QUANT = std::is_same_v<S, int8_t>;
   static constexpr int ROW = D + 8;                          // bf16 elements
   static constexpr int KV_ROW = D * (int)sizeof(S) + 16;     // bytes
@@ -196,8 +216,8 @@ struct Smem {
 // exp2.
 // ---------------------------------------------------------------------------
 
-template <typename S, int D, int MODE>
-__global__ void __launch_bounds__(dec::THREADS)
+template <typename S, int D, int MODE, int BN>
+__global__ void __launch_bounds__(dec::Tile<BN>::THREADS)
 paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const S* __restrict__ kp, const S* __restrict__ vp,
                        const float* __restrict__ ksc,
@@ -209,14 +229,18 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        int* __restrict__ cnt, int H, int Hkv, int psz,
                        int nblk, int ns, float scale_log2) {
   using namespace dec;
-  using L = Smem<S, D>;
+  using L = Smem<S, D, BN>;
+  constexpr int NWARPS = Tile<BN>::NWARPS;
+  constexpr int THREADS = Tile<BN>::THREADS;
+  constexpr int KN = Tile<BN>::KN;   // keys per key group (a warp's)
+  constexpr int NT = Tile<BN>::NT;   // 8-key column tiles of a group's S
   constexpr bool QUANT = L::QUANT;
   constexpr int ROW = L::ROW;
   constexpr int SROW = L::SROW;
   constexpr int CH = D / 8;          // 8-element chunks of a row
   constexpr int DT = D / 8;          // 8-wide column tiles of O
   constexpr int KT = D / 16;         // 16-deep steps of Q.K^T
-  static_assert(D % 16 == 0 && KN == 16, "tile shape");
+  static_assert(D % 16 == 0, "tile shape");
 
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
@@ -282,14 +306,14 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int g = lane >> 2;           // the thread's rows g, g + 8
   const int t4 = lane & 3;           // and columns 2 * t4, + 1 of each tile
-  const int kb = warp * KN;          // the warp's keys kb .. kb + 15 of a tile
+  const int kb = warp * KN;          // the warp's keys kb .. kb + KN - 1 of a tile
   float m[2] = {kNegInf, kNegInf};   // running max, log2 domain
   float l[2] = {0.f, 0.f};           // this thread's share of the row sums
   float acc[DT][4];
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
 
-  // the warp's 16 keys of tile t into ring stage `stage`, 16 bytes a copy,
+  // the warp's KN keys of tile t into ring stage `stage`, 16 bytes a copy,
   // keys past kv_len zero-filled (and their scales 0)
   auto load = [&](int t, int stage) {
     const int k0 = t * BN + kb;
@@ -356,25 +380,28 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
       vt = reinterpret_cast<const __nv_bfloat16*>(vr);
     }
 
-    // S = Q K^T for the slab's 16 rows and the warp's 16 keys
-    float s[2][4];
+    // S = Q K^T for the slab's 16 rows and the warp's KN keys
+    float s[NT][4];
 #pragma unroll
-    for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) {
-      uint32_t bk[4];
-      const int key = kb + (lane & 7) + ((lane >> 4) << 3);
-      const int col = kk * 16 + (((lane >> 3) & 1) << 3);
-      ldsm4(smem_addr(kt + key * ROW + col), bk);
-      mma16816(s[0], qf[kk], bk[0], bk[1]);
-      mma16816(s[1], qf[kk], bk[2], bk[3]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bk[4];
+        const int key = kb + np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int col = kk * 16 + (((lane >> 3) & 1) << 3);
+        ldsm4(smem_addr(kt + key * ROW + col), bk);
+        mma16816(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
     }
 
     // scale (and key scales), mask past kv_len, online softmax in fp32
     const bool need_mask = kw + KN > len;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int n = 0; n < 2; ++n) {
+    for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = n * 8 + 2 * t4 + (e & 1);
@@ -405,9 +432,9 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // P in bf16 as the A operand of P.V (value scales folded in first)
-    uint32_t pa[4];
+    uint32_t pa[NT / 2][4];
 #pragma unroll
-    for (int n = 0; n < 2; ++n) {
+    for (int n = 0; n < NT; ++n) {
       float p0 = exp2f(s[n][0] - mx[0]);
       float p1 = exp2f(s[n][1] - mx[0]);
       float p2 = exp2f(s[n][2] - mx[1]);
@@ -422,19 +449,22 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
         p2 *= v0;
         p3 *= v1;
       }
-      pa[n * 2] = pack_bf16(p0, p1);
-      pa[n * 2 + 1] = pack_bf16(p2, p3);
+      pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
     }
 
-    // O += P V
+    // O += P V, 16 keys a step
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bv[4];
-      const int key = kb + (lane & 7) + (((lane >> 3) & 1) << 3);
-      const int col = dp * 16 + ((lane >> 4) << 3);
-      ldsm4_trans(smem_addr(vt + key * ROW + col), bv);
-      mma16816(acc[2 * dp], pa, bv[0], bv[1]);
-      mma16816(acc[2 * dp + 1], pa, bv[2], bv[3]);
+    for (int kk = 0; kk < NT / 2; ++kk) {
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bv[4];
+        const int key = kb + kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+        const int col = dp * 16 + ((lane >> 4) << 3);
+        ldsm4_trans(smem_addr(vt + key * ROW + col), bv);
+        mma16816(acc[2 * dp], pa[kk], bv[0], bv[1]);
+        mma16816(acc[2 * dp + 1], pa[kk], bv[2], bv[3]);
+      }
     }
   }
 
@@ -592,21 +622,53 @@ struct Args {
   int B, H, Hkv, psz, nblk, D, cluster, ns;
   float scale;
   cudaStream_t st;
+  int bn = DEFAULT_BN;   // keys per tile
   int* cnt = nullptr;    // PARTIALS with K5c's merge: arrival counters
 };
 
-template <typename S, int D, int MODE>
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// f(Int<BN>) for the instantiated key tile bn of head dim D, else
+// cudaErrorInvalidValue: 32 and 64 keys at D = 128 (the head dim of
+// every arch the card serves), 64 at the other head dims (their builds
+// stay one instance a mode).  No 128-key tile: its ring (213 KB of bf16
+// shared memory) leaves one CTA an SM, and it won in no mode of
+// chip_smoke.py's tile sweep.
+template <int D, typename F>
+cudaError_t with_tile(int bn, F&& f) {
+  if (bn == DEFAULT_BN) return f(Int<DEFAULT_BN>{});
+  if constexpr (D == 128) {
+    if (bn == 32) return f(Int<32>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// f(Int<D>) for the head dims the kernel is built for
+template <typename F>
+cudaError_t with_dim(int d, F&& f) {
+  switch (d) {
+    case 16: return f(Int<16>{});
+    case 32: return f(Int<32>{});
+    case 64: return f(Int<64>{});
+    case 128: return f(Int<128>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename S, int D, int MODE, int BN>
 size_t smem_bytes(int nblk) {
-  return Smem<S, D>::tbl_off + (MODE == DENSE ? 0 : (size_t)nblk * sizeof(int));
+  return Smem<S, D, BN>::tbl_off +
+         (MODE == DENSE ? 0 : (size_t)nblk * sizeof(int));
 }
 
 // a launch of `kern` with clusters of c CTAs along x
-cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, int c,
+cudaLaunchConfig_t cluster_config(dim3 grid, int threads, size_t smem, int c,
                                   cudaLaunchAttribute* attr,
                                   cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -620,14 +682,14 @@ cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, int c,
 
 bool cluster_ok(int c) { return c == 1 || c == 2 || c == 4 || c == 8; }
 
-template <typename S, int D, int MODE>
+template <typename S, int D, int MODE, int BN>
 cudaError_t launch(const Args& a) {
   if (a.B < 1 || a.Hkv < 1 || a.H < a.Hkv || a.H % a.Hkv || a.psz < 1 ||
       a.nblk < 1 || (MODE == PARTIALS ? a.ns < 1 : !cluster_ok(a.cluster)) ||
       (a.cnt != nullptr && a.o == nullptr))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<S, D, MODE>(a.nblk);
-  auto kern = paged_decode_tc_kernel<S, D, MODE>;
+  const size_t smem = smem_bytes<S, D, MODE, BN>(a.nblk);
+  auto kern = paged_decode_tc_kernel<S, D, MODE, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -636,8 +698,8 @@ cudaError_t launch(const Args& a) {
   const int per = MODE == PARTIALS ? a.ns : a.cluster;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
-      dim3(a.B * a.Hkv * per, (G + ROWS - 1) / ROWS), smem,
-      MODE == PARTIALS ? 1 : a.cluster, &attr, a.st);
+      dim3(a.B * a.Hkv * per, (G + ROWS - 1) / ROWS), Tile<BN>::THREADS,
+      smem, MODE == PARTIALS ? 1 : a.cluster, &attr, a.st);
   err = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const S*>(a.kp), static_cast<const S*>(a.vp), a.ksc, a.vsc,
@@ -649,27 +711,25 @@ cudaError_t launch(const Args& a) {
 
 template <typename S, int MODE>
 cudaError_t by_dim(const Args& a) {
-  switch (a.D) {
-    case 16: return launch<S, 16, MODE>(a);
-    case 32: return launch<S, 32, MODE>(a);
-    case 64: return launch<S, 64, MODE>(a);
-    case 128: return launch<S, 128, MODE>(a);
-    default: return cudaErrorInvalidValue;
-  }
+  return with_dim(a.D, [&](auto d) {
+    return with_tile<decltype(d)::value>(a.bn, [&](auto t) {
+      return launch<S, decltype(d)::value, MODE, decltype(t)::value>(a);
+    });
+  });
 }
 
 // out[0..3] as instance_info; out[4..7] the clusters of 1, 2, 4 and 8
 // CTAs the card co-schedules (cudaOccupancyMaxActiveClusters)
-template <typename S, int D, int MODE>
+template <typename S, int D, int MODE, int BN>
 cudaError_t info(int nblk, int* out) {
-  auto kern = paged_decode_tc_kernel<S, D, MODE>;
-  const size_t smem = smem_bytes<S, D, MODE>(nblk);
-  cudaError_t err = instance_info(kern, THREADS, smem, out);
+  auto kern = paged_decode_tc_kernel<S, D, MODE, BN>;
+  const size_t smem = smem_bytes<S, D, MODE, BN>(nblk);
+  cudaError_t err = instance_info(kern, Tile<BN>::THREADS, smem, out);
   for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
     const int c = 1 << i;
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg =
-        cluster_config(dim3(c * 16), smem, c, &attr, nullptr);
+    const cudaLaunchConfig_t cfg = cluster_config(
+        dim3(c * 16), Tile<BN>::THREADS, smem, c, &attr, nullptr);
     int n = 0;
     err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
     out[4 + i] = n;
@@ -677,14 +737,14 @@ cudaError_t info(int nblk, int* out) {
   return err;
 }
 
-template <int D>
+template <int D, int BN>
 cudaError_t info_by_kind(int kind, int nblk, int* out) {
   switch (kind) {
-    case 0: return info<__nv_bfloat16, D, PAGED>(nblk, out);
-    case 1: return info<int8_t, D, PAGED>(nblk, out);
-    case 2: return info<__nv_bfloat16, D, DENSE>(nblk, out);
-    case 3: return info<__nv_bfloat16, D, PARTIALS>(nblk, out);
-    case 4: return info<int8_t, D, PARTIALS>(nblk, out);
+    case 0: return info<__nv_bfloat16, D, PAGED, BN>(nblk, out);
+    case 1: return info<int8_t, D, PAGED, BN>(nblk, out);
+    case 2: return info<__nv_bfloat16, D, DENSE, BN>(nblk, out);
+    case 3: return info<__nv_bfloat16, D, PARTIALS, BN>(nblk, out);
+    case 4: return info<int8_t, D, PARTIALS, BN>(nblk, out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -693,7 +753,9 @@ cudaError_t info_by_kind(int kind, int nblk, int* out) {
 
 // A bf16 query and output only (float32 goes to paged_attention.cu and
 // flash_attention.cu).  `cluster` is c, the CTAs per (lane, kv head): 1,
-// 2, 4 or 8.  Each entry point returns the launch's cudaError_t (0 =
+// 2, 4 or 8.  `block_k` is the key tile, keys per ring stage: 64, or at
+// D = 128 also 32 (any other value: cudaErrorInvalidValue, nothing
+// launched).  Each entry point returns the launch's cudaError_t (0 =
 // success).  The caller validates shapes, contiguity, alignment and that
 // every table entry below ceil(kv_len / psz) names a page of the pools,
 // and allocates o or the partials; the kernel never allocates or syncs.
@@ -704,13 +766,14 @@ extern "C" int repro_flash_paged_decode_tc(const void* q, const void* k_pool,
                                            const void* page_table,
                                            const void* kv_len, void* o, int B,
                                            int H, int Hkv, int psz, int nblk,
-                                           int D, int cluster, float scale,
-                                           void* stream) {
-  const Args a{q, k_pool, v_pool, nullptr, nullptr,
-               static_cast<const int*>(page_table),
-               static_cast<const int*>(kv_len), o, nullptr, nullptr, nullptr,
-               B, H, Hkv, psz, nblk, D, cluster, 1, scale,
-               static_cast<cudaStream_t>(stream)};
+                                           int D, int cluster, int block_k,
+                                           float scale, void* stream) {
+  Args a{q, k_pool, v_pool, nullptr, nullptr,
+         static_cast<const int*>(page_table),
+         static_cast<const int*>(kv_len), o, nullptr, nullptr, nullptr,
+         B, H, Hkv, psz, nblk, D, cluster, 1, scale,
+         static_cast<cudaStream_t>(stream)};
+  a.bn = block_k;
   return by_dim<__nv_bfloat16, PAGED>(a);
 }
 
@@ -719,13 +782,14 @@ extern "C" int repro_flash_paged_decode_quant_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* kv_len, void* o, int B, int H, int Hkv, int psz, int nblk,
-    int D, int cluster, float scale, void* stream) {
-  const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
-               static_cast<const float*>(v_scale),
-               static_cast<const int*>(page_table),
-               static_cast<const int*>(kv_len), o, nullptr, nullptr, nullptr,
-               B, H, Hkv, psz, nblk, D, cluster, 1, scale,
-               static_cast<cudaStream_t>(stream)};
+    int D, int cluster, int block_k, float scale, void* stream) {
+  Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+         static_cast<const float*>(v_scale),
+         static_cast<const int*>(page_table),
+         static_cast<const int*>(kv_len), o, nullptr, nullptr, nullptr,
+         B, H, Hkv, psz, nblk, D, cluster, 1, scale,
+         static_cast<cudaStream_t>(stream)};
+  a.bn = block_k;
   return by_dim<int8_t, PAGED>(a);
 }
 
@@ -733,12 +797,13 @@ extern "C" int repro_flash_paged_decode_quant_tc(
 extern "C" int repro_flash_decode_tc(const void* q, const void* k,
                                      const void* v, const void* kv_len,
                                      void* o, int B, int H, int Hkv, int S,
-                                     int D, int cluster, float scale,
-                                     void* stream) {
-  const Args a{q, k, v, nullptr, nullptr, nullptr,
-               static_cast<const int*>(kv_len), o, nullptr, nullptr, nullptr,
-               B, H, Hkv, S, 1, D, cluster, 1, scale,
-               static_cast<cudaStream_t>(stream)};
+                                     int D, int cluster, int block_k,
+                                     float scale, void* stream) {
+  Args a{q, k, v, nullptr, nullptr, nullptr,
+         static_cast<const int*>(kv_len), o, nullptr, nullptr, nullptr,
+         B, H, Hkv, S, 1, D, cluster, 1, scale,
+         static_cast<cudaStream_t>(stream)};
+  a.bn = block_k;
   return by_dim<__nv_bfloat16, DENSE>(a);
 }
 
@@ -747,14 +812,15 @@ extern "C" int repro_flash_decode_tc(const void* q, const void* k,
 extern "C" int repro_paged_decode_split_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* kv_len, void* m, void* l, void* acc,
-    int B, int H, int Hkv, int psz, int nblk, int ns, int D, float scale,
-    void* stream) {
-  const Args a{q, k_pool, v_pool, nullptr, nullptr,
-               static_cast<const int*>(page_table),
-               static_cast<const int*>(kv_len), nullptr,
-               static_cast<float*>(m), static_cast<float*>(l),
-               static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
-               static_cast<cudaStream_t>(stream)};
+    int B, int H, int Hkv, int psz, int nblk, int ns, int D, int block_k,
+    float scale, void* stream) {
+  Args a{q, k_pool, v_pool, nullptr, nullptr,
+         static_cast<const int*>(page_table),
+         static_cast<const int*>(kv_len), nullptr,
+         static_cast<float*>(m), static_cast<float*>(l),
+         static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
+         static_cast<cudaStream_t>(stream)};
+  a.bn = block_k;
   return by_dim<__nv_bfloat16, PARTIALS>(a);
 }
 
@@ -763,14 +829,16 @@ extern "C" int repro_paged_decode_split_quant_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* kv_len, void* m, void* l, void* acc, int B, int H, int Hkv,
-    int psz, int nblk, int ns, int D, float scale, void* stream) {
-  const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
-               static_cast<const float*>(v_scale),
-               static_cast<const int*>(page_table),
-               static_cast<const int*>(kv_len), nullptr,
-               static_cast<float*>(m), static_cast<float*>(l),
-               static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
-               static_cast<cudaStream_t>(stream)};
+    int psz, int nblk, int ns, int D, int block_k, float scale,
+    void* stream) {
+  Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+         static_cast<const float*>(v_scale),
+         static_cast<const int*>(page_table),
+         static_cast<const int*>(kv_len), nullptr,
+         static_cast<float*>(m), static_cast<float*>(l),
+         static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
+         static_cast<cudaStream_t>(stream)};
+  a.bn = block_k;
   return by_dim<int8_t, PARTIALS>(a);
 }
 
@@ -782,12 +850,13 @@ extern "C" int repro_paged_decode_split_merged_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* kv_len, void* m, void* l, void* acc,
     void* o, void* counters, int B, int H, int Hkv, int psz, int nblk,
-    int ns, int D, float scale, void* stream) {
+    int ns, int D, int block_k, float scale, void* stream) {
   Args a{q, k_pool, v_pool, nullptr, nullptr,
          static_cast<const int*>(page_table), static_cast<const int*>(kv_len),
          o, static_cast<float*>(m), static_cast<float*>(l),
          static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
          static_cast<cudaStream_t>(stream)};
+  a.bn = block_k;
   a.cnt = static_cast<int*>(counters);
   if (a.cnt == nullptr) return cudaErrorInvalidValue;
   return by_dim<__nv_bfloat16, PARTIALS>(a);
@@ -799,32 +868,32 @@ extern "C" int repro_paged_decode_split_quant_merged_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* kv_len, void* m, void* l, void* acc, void* o, void* counters,
-    int B, int H, int Hkv, int psz, int nblk, int ns, int D, float scale,
-    void* stream) {
+    int B, int H, int Hkv, int psz, int nblk, int ns, int D, int block_k,
+    float scale, void* stream) {
   Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
          static_cast<const float*>(v_scale),
          static_cast<const int*>(page_table), static_cast<const int*>(kv_len),
          o, static_cast<float*>(m), static_cast<float*>(l),
          static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
          static_cast<cudaStream_t>(stream)};
+  a.bn = block_k;
   a.cnt = static_cast<int*>(counters);
   if (a.cnt == nullptr) return cudaErrorInvalidValue;
   return by_dim<int8_t, PARTIALS>(a);
 }
 
-// The instance for head dim D of kind 0 (K3: bf16 pools), 1 (K6a: int8
-// pools), 2 (K2: bf16 strips), 3 (K5a: bf16 pools, partials) or 4 (K6b:
-// int8 pools, partials): out[0..7]
+// The instance for head dim D and key tile block_k of kind 0 (K3: bf16
+// pools), 1 (K6a: int8 pools), 2 (K2: bf16 strips), 3 (K5a: bf16 pools,
+// partials) or 4 (K6b: int8 pools, partials): out[0..7]
 // = registers per thread, local-memory (spill) bytes, dynamic shared
 // memory in bytes at nblk table entries (K2: none), resident CTAs per SM,
 // and the clusters of 1, 2, 4 and 8 CTAs the card holds at once.
 extern "C" int repro_paged_decode_tc_info(int D, int kind, int nblk,
-                                          int* out) {
-  switch (D) {
-    case 16: return info_by_kind<16>(kind, nblk, out);
-    case 32: return info_by_kind<32>(kind, nblk, out);
-    case 64: return info_by_kind<64>(kind, nblk, out);
-    case 128: return info_by_kind<128>(kind, nblk, out);
-    default: return cudaErrorInvalidValue;
-  }
+                                          int block_k, int* out) {
+  return with_dim(D, [&](auto d) {
+    return with_tile<decltype(d)::value>(block_k, [&](auto t) {
+      return info_by_kind<decltype(d)::value, decltype(t)::value>(
+          kind, nblk, out);
+    });
+  });
 }

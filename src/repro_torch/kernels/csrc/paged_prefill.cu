@@ -78,7 +78,7 @@
 // blockIdx.x = tile * ns + split.  Split s walks the tiles [s * per,
 // min((s + 1) * per, t_live)) of the tile's t_live live key tiles, per =
 // ceil(t_live / ns), which is ref.paged_prefill_split_ref's partition at
-// block_q = 32 / G chunk rows and block_k = 128 keys; trailing splits may
+// block_q = BM / G chunk rows and block_k = BN keys; trailing splits may
 // get none.  Instead of acc / l it writes the merged key groups'
 // unnormalised (m, l, acc) in fp32 for the chunk's rows (row r of the
 // folded tile is chunk row r / G of head hk * G + r % G; padding rows are
@@ -99,6 +99,12 @@
 // merge_splits_if_last, bit-equal to split_combine_kernel over the same
 // partials) and resets the counter; no block waits on another.  A split
 // verify is then one launch instead of two.
+// The tile is a pair of template parameters, the run-time AT's block_q x G
+// query rows and block_k keys (tuning/dynamic.py's PrefillBucket and
+// SpecBucket regions): 32 rows and 128 keys by default, the design above;
+// at D = 128 also rows 16 and 64 and keys 64 (see Tile).  The tile sets
+// the grid (query tiles x splits), the key groups whose online softmax
+// states merge at the end, and the split partition.
 // Left for later: wgmma and TMA.
 
 #include "mma.cuh"
@@ -106,25 +112,36 @@
 namespace {
 
 namespace tc {
-constexpr int NWARPS = 8;
-constexpr int THREADS = NWARPS * 32;
-constexpr int BN = 128;           // keys per K/V tile
 constexpr int STAGES = 2;         // ring of K/V tiles in flight
+constexpr int DEFAULT_SLABS = 2;  // the tile of an untuned launch: 32 rows
+constexpr int DEFAULT_BN = 128;   // and 128 keys
 
-// The warps of a block: SLABS 16-row mma slabs of the BM-row query tile
-// times KGROUPS key groups, group kg taking keys kg * KN .. kg * KN + KN - 1
-// of every K/V tile.
-constexpr int SLABS = 2;
-constexpr int BM = 16 * SLABS;
-constexpr int KGROUPS = NWARPS / SLABS;
-constexpr int KN = BN / KGROUPS;
+// The tile, template parameters of the kernel (the run-time AT's block_q
+// x G and block_k): BM = 16 SLABS query rows and BN keys per K/V tile.
+// The warps of a block: SLABS 16-row mma slabs times KGROUPS key groups,
+// group kg taking keys kg * KN .. kg * KN + KN - 1 of every K/V tile; 4
+// groups up to 2 slabs (128 or 256 threads), 2 at 4 slabs, so that a
+// block stays at 8 warps and a thread's registers (its slab's acc, 64 fp32
+// at D = 128) stay under the 255 that 256 threads may hold.
+template <int SLABS_, int BN_>
+struct Tile {
+  static constexpr int SLABS = SLABS_;
+  static constexpr int BN = BN_;
+  static constexpr int BM = 16 * SLABS;
+  static constexpr int KGROUPS = SLABS >= 4 ? 2 : 4;
+  static constexpr int NWARPS = SLABS * KGROUPS;
+  static constexpr int THREADS = NWARPS * 32;
+  static constexpr int KN = BN / KGROUPS;
+};
 
 // Dynamic shared memory of one block, in bytes: the Q tile (bf16 rows of
 // D + 8), the ring of K and V tiles as stored (rows of D * sizeof(S) + 16
 // bytes), for int8 pools the bf16 K and V tiles the codes widen to and the
 // ring's per-row scales, then the lane's live page-table entries.
-template <typename S, int D>
+template <typename S, int D, int SLABS, int BN>
 struct Smem {
+  static constexpr int BM = Tile<SLABS, BN>::BM;
+  static constexpr int KGROUPS = Tile<SLABS, BN>::KGROUPS;
   static constexpr bool QUANT = std::is_same_v<S, int8_t>;
   static constexpr int ROW = D + 8;                               // bf16 elements
   static constexpr int KV_ROW = (int)(D * sizeof(S)) + 16;        // bytes
@@ -157,13 +174,13 @@ struct Smem {
 // block walks its split of the tile's live key tiles and writes the
 // unnormalised fp32 partials m, l (B, H, ns, C) and acc (B, H, ns, C, D),
 // m in natural-log units; with cnt (B * Hkv * q tiles int32 arrival
-// counters, zero on entry and left zero) also o, K5c's merge of the splits.  G = 1 << gshift query heads per kv head,
-// dividing BM = 32; scale_log2 = scale * log2(e), so the softmax runs on
-// exp2.
+// counters, zero on entry and left zero) also o, K5c's merge of the
+// splits.  G = 1 << gshift query heads per kv head, dividing the tile's
+// BM rows; scale_log2 = scale * log2(e), so the softmax runs on exp2.
 // ---------------------------------------------------------------------------
 
-template <typename S, int D, bool SPLIT>
-__global__ void __launch_bounds__(tc::THREADS)
+template <typename S, int D, bool SPLIT, int SLABS, int BN>
+__global__ void __launch_bounds__(tc::Tile<SLABS, BN>::THREADS)
 paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const S* __restrict__ kp, const S* __restrict__ vp,
                         const float* __restrict__ ksc,
@@ -176,7 +193,12 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         int* __restrict__ cnt, int H, int Hkv, int C, int psz,
                         int nblk, int ns, int gshift, float scale_log2) {
   using namespace tc;
-  using L = Smem<S, D>;
+  using T = Tile<SLABS, BN>;
+  using L = Smem<S, D, SLABS, BN>;
+  constexpr int BM = T::BM;
+  constexpr int KGROUPS = T::KGROUPS;
+  constexpr int KN = T::KN;
+  constexpr int THREADS = T::THREADS;
   constexpr bool QUANT = L::QUANT;
   constexpr int ROW = L::ROW;
   constexpr int KV_ROW = L::KV_ROW;
@@ -547,39 +569,77 @@ struct Args {
   int B, H, Hkv, C, psz, nblk, ns, D;
   float scale;
   cudaStream_t st;
+  int block_q = 0;       // chunk rows per query tile (0: the default 32 / G)
+  int bn = DEFAULT_BN;   // keys per K/V tile
   int* cnt = nullptr;    // split with K5c's merge: arrival counters
 };
 
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// f(Int<SLABS>, Int<BN>) for the instantiated tile of bm query rows and bn
+// keys at head dim D, else cudaErrorInvalidValue: rows 16, 32 and 64 by
+// keys 64 and 128 at D = 128 (the head dim of every arch the card
+// serves), the default 32 x 128 at the other head dims.
+template <int D, typename F>
+cudaError_t with_tile(int bm, int bn, F&& f) {
+  if (bm == 16 * DEFAULT_SLABS && bn == DEFAULT_BN)
+    return f(Int<DEFAULT_SLABS>{}, Int<DEFAULT_BN>{});
+  if constexpr (D == 128) {
+    if (bn == 64 || bn == 128) {
+      auto keys = [&](auto slabs) {
+        return bn == 64 ? f(slabs, Int<64>{}) : f(slabs, Int<128>{});
+      };
+      if (bm == 16) return keys(Int<1>{});
+      if (bm == 32) return keys(Int<2>{});
+      if (bm == 64) return keys(Int<4>{});
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// f(Int<D>) for the head dims the kernel is built for
+template <typename F>
+cudaError_t with_dim(int d, F&& f) {
+  switch (d) {
+    case 16: return f(Int<16>{});
+    case 32: return f(Int<32>{});
+    case 64: return f(Int<64>{});
+    case 128: return f(Int<128>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // log2 of the group size G = H / Hkv, or -1 when G is not a power of two
-// dividing the query tile
-int group_shift(int H, int Hkv) {
+// dividing a query tile of bm rows
+int group_shift(int H, int Hkv, int bm) {
   if (Hkv < 1 || H % Hkv) return -1;
   const int G = H / Hkv;
-  for (int s = 0; (1 << s) <= BM; ++s)
+  for (int s = 0; (1 << s) <= bm; ++s)
     if ((1 << s) == G) return s;
   return -1;
 }
 
-template <typename S, int D>
+template <typename S, int D, int SLABS, int BN>
 size_t smem_bytes(int nblk) {
-  return Smem<S, D>::tbl_off + (size_t)nblk * sizeof(int);
+  return Smem<S, D, SLABS, BN>::tbl_off + (size_t)nblk * sizeof(int);
 }
 
-template <typename S, int D, bool SPLIT>
-cudaError_t launch(const Args& a) {
-  const int gshift = group_shift(a.H, a.Hkv);
-  if (gshift < 0 || a.B < 1 || a.C < 1 || a.psz < 1 || a.nblk < 1 ||
+template <typename S, int D, bool SPLIT, int SLABS, int BN>
+cudaError_t launch(const Args& a, int gshift) {
+  if (a.B < 1 || a.C < 1 || a.psz < 1 || a.nblk < 1 ||
       (SPLIT && a.ns < 1) || (a.cnt != nullptr && (!SPLIT || a.o == nullptr)))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<S, D>(a.nblk);
-  auto kern = paged_prefill_tc_kernel<S, D, SPLIT>;
+  using T = Tile<SLABS, BN>;
+  const size_t smem = smem_bytes<S, D, SLABS, BN>(a.nblk);
+  auto kern = paged_prefill_tc_kernel<S, D, SPLIT, SLABS, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int rows = BM >> gshift;
+  const int rows = T::BM >> gshift;
   const int ns = SPLIT ? a.ns : 1;
   const dim3 grid((a.C + rows - 1) / rows * ns, a.Hkv, a.B);
-  kern<<<grid, THREADS, smem, a.st>>>(
+  kern<<<grid, T::THREADS, smem, a.st>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const S*>(a.kp),
       static_cast<const S*>(a.vp), a.ksc, a.vsc, a.table, a.start, a.kv_len,
       static_cast<__nv_bfloat16*>(a.o), a.pm, a.pl, a.pacc, a.cnt, a.H,
@@ -587,28 +647,39 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+// the launch at the tile of a.block_q chunk rows (a query tile of
+// block_q x G rows) and a.bn keys
 template <typename S, bool SPLIT>
 cudaError_t by_dim(const Args& a) {
-  switch (a.D) {
-    case 16: return launch<S, 16, SPLIT>(a);
-    case 32: return launch<S, 32, SPLIT>(a);
-    case 64: return launch<S, 64, SPLIT>(a);
-    case 128: return launch<S, 128, SPLIT>(a);
-    default: return cudaErrorInvalidValue;
-  }
+  if (a.Hkv < 1 || a.H % a.Hkv) return cudaErrorInvalidValue;
+  const int G = a.H / a.Hkv;
+  const int bm = a.block_q > 0 ? a.block_q * G : 16 * DEFAULT_SLABS;
+  const int gshift = group_shift(a.H, a.Hkv, bm);
+  if (gshift < 0) return cudaErrorInvalidValue;
+  return with_dim(a.D, [&](auto d) {
+    return with_tile<decltype(d)::value>(bm, a.bn, [&](auto sl, auto bn) {
+      return launch<S, decltype(d)::value, SPLIT, decltype(sl)::value,
+                    decltype(bn)::value>(a, gshift);
+    });
+  });
 }
 
-template <int D>
+template <int D, int SLABS, int BN>
 cudaError_t info_by_kind(int kind, int nblk, int* out) {
+  constexpr int THREADS = Tile<SLABS, BN>::THREADS;
   switch (kind) {
-    case 0: return instance_info(paged_prefill_tc_kernel<__nv_bfloat16, D, false>,
-                                 THREADS, smem_bytes<__nv_bfloat16, D>(nblk), out);
-    case 1: return instance_info(paged_prefill_tc_kernel<int8_t, D, false>,
-                                 THREADS, smem_bytes<int8_t, D>(nblk), out);
-    case 2: return instance_info(paged_prefill_tc_kernel<__nv_bfloat16, D, true>,
-                                 THREADS, smem_bytes<__nv_bfloat16, D>(nblk), out);
-    case 3: return instance_info(paged_prefill_tc_kernel<int8_t, D, true>,
-                                 THREADS, smem_bytes<int8_t, D>(nblk), out);
+    case 0: return instance_info(
+        paged_prefill_tc_kernel<__nv_bfloat16, D, false, SLABS, BN>, THREADS,
+        smem_bytes<__nv_bfloat16, D, SLABS, BN>(nblk), out);
+    case 1: return instance_info(
+        paged_prefill_tc_kernel<int8_t, D, false, SLABS, BN>, THREADS,
+        smem_bytes<int8_t, D, SLABS, BN>(nblk), out);
+    case 2: return instance_info(
+        paged_prefill_tc_kernel<__nv_bfloat16, D, true, SLABS, BN>, THREADS,
+        smem_bytes<__nv_bfloat16, D, SLABS, BN>(nblk), out);
+    case 3: return instance_info(
+        paged_prefill_tc_kernel<int8_t, D, true, SLABS, BN>, THREADS,
+        smem_bytes<int8_t, D, SLABS, BN>(nblk), out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -616,11 +687,14 @@ cudaError_t info_by_kind(int kind, int nblk, int* out) {
 }  // namespace
 
 // dtype: the type of q and of the output; only 1 (bfloat16) is taken here
-// (float32 goes to paged_attention.cu).  Each entry point returns the
-// launch's cudaError_t (0 = success).  The caller validates shapes,
-// contiguity, alignment and that every table entry below ceil(kv_len /
-// psz) names a page of the pools, and allocates o or the partials; the
-// kernels never allocate or sync.
+// (float32 goes to paged_attention.cu).  block_q is the query tile's chunk
+// rows (0: the default, 32 / G), the tile itself block_q x G query rows of
+// one kv head's G heads; block_k its keys per K/V tile.  A tile with no
+// instance (see with_tile) returns cudaErrorInvalidValue and launches
+// nothing.  Each entry point returns the launch's cudaError_t (0 =
+// success).  The caller validates shapes, contiguity, alignment and that
+// every table entry below ceil(kv_len / psz) names a page of the pools,
+// and allocates o or the partials; the kernels never allocate or sync.
 
 // K4: bf16 pools.
 extern "C" int repro_flash_paged_prefill(const void* q, const void* k_pool,
@@ -629,14 +703,15 @@ extern "C" int repro_flash_paged_prefill(const void* q, const void* k_pool,
                                          const void* start,
                                          const void* kv_len, void* o, int B,
                                          int H, int Hkv, int C, int psz,
-                                         int nblk, int D, int dtype,
-                                         float scale, void* stream) {
+                                         int nblk, int D, int block_q,
+                                         int block_k, int dtype, float scale,
+                                         void* stream) {
   if (dtype != 1) return cudaErrorInvalidValue;
-  const Args a{q, k_pool, v_pool, nullptr, nullptr,
-               static_cast<const int*>(page_table),
-               static_cast<const int*>(start), static_cast<const int*>(kv_len),
-               o, nullptr, nullptr, nullptr, B, H, Hkv, C, psz, nblk, 1, D,
-               scale, static_cast<cudaStream_t>(stream)};
+  Args a{q, k_pool, v_pool, nullptr, nullptr,
+         static_cast<const int*>(page_table),
+         static_cast<const int*>(start), static_cast<const int*>(kv_len),
+         o, nullptr, nullptr, nullptr, B, H, Hkv, C, psz, nblk, 1, D,
+         scale, static_cast<cudaStream_t>(stream), block_q, block_k};
   return by_dim<__nv_bfloat16, false>(a);
 }
 
@@ -645,68 +720,70 @@ extern "C" int repro_flash_paged_prefill_quant(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* start, const void* kv_len, void* o, int B, int H, int Hkv,
-    int C, int psz, int nblk, int D, int dtype, float scale, void* stream) {
+    int C, int psz, int nblk, int D, int block_q, int block_k, int dtype,
+    float scale, void* stream) {
   if (dtype != 1) return cudaErrorInvalidValue;
-  const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
-               static_cast<const float*>(v_scale),
-               static_cast<const int*>(page_table),
-               static_cast<const int*>(start), static_cast<const int*>(kv_len),
-               o, nullptr, nullptr, nullptr, B, H, Hkv, C, psz, nblk, 1, D,
-               scale, static_cast<cudaStream_t>(stream)};
+  Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+         static_cast<const float*>(v_scale),
+         static_cast<const int*>(page_table),
+         static_cast<const int*>(start), static_cast<const int*>(kv_len),
+         o, nullptr, nullptr, nullptr, B, H, Hkv, C, psz, nblk, 1, D,
+         scale, static_cast<cudaStream_t>(stream), block_q, block_k};
   return by_dim<int8_t, false>(a);
 }
 
-// K5b: bf16 pools, ns splits, partials m, l (B, H, ns, C), acc (.., D);
-// the signature of paged_attention.cu's repro_paged_prefill_split.
+// K5b: bf16 pools, ns splits, partials m, l (B, H, ns, C), acc (.., D).
 extern "C" int repro_paged_prefill_split_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* start, const void* kv_len, void* m,
     void* l, void* acc, int B, int H, int Hkv, int C, int psz, int nblk,
-    int ns, int D, int dtype, float scale, void* stream) {
+    int ns, int D, int block_q, int block_k, int dtype, float scale,
+    void* stream) {
   if (dtype != 1) return cudaErrorInvalidValue;
-  const Args a{q, k_pool, v_pool, nullptr, nullptr,
-               static_cast<const int*>(page_table),
-               static_cast<const int*>(start), static_cast<const int*>(kv_len),
-               nullptr, static_cast<float*>(m), static_cast<float*>(l),
-               static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns, D,
-               scale, static_cast<cudaStream_t>(stream)};
+  Args a{q, k_pool, v_pool, nullptr, nullptr,
+         static_cast<const int*>(page_table),
+         static_cast<const int*>(start), static_cast<const int*>(kv_len),
+         nullptr, static_cast<float*>(m), static_cast<float*>(l),
+         static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns, D,
+         scale, static_cast<cudaStream_t>(stream), block_q, block_k};
   return by_dim<__nv_bfloat16, true>(a);
 }
 
-// K6d: int8 pools with scales (P, Hkv, psz), ns splits, partials as K5b's;
-// the signature of paged_attention.cu's repro_paged_prefill_split_quant.
+// K6d: int8 pools with scales (P, Hkv, psz), ns splits, partials as K5b's.
 extern "C" int repro_paged_prefill_split_quant_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* start, const void* kv_len, void* m, void* l, void* acc,
     int B, int H, int Hkv, int C, int psz, int nblk, int ns, int D,
-    int dtype, float scale, void* stream) {
+    int block_q, int block_k, int dtype, float scale, void* stream) {
   if (dtype != 1) return cudaErrorInvalidValue;
-  const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
-               static_cast<const float*>(v_scale),
-               static_cast<const int*>(page_table),
-               static_cast<const int*>(start), static_cast<const int*>(kv_len),
-               nullptr, static_cast<float*>(m), static_cast<float*>(l),
-               static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns, D,
-               scale, static_cast<cudaStream_t>(stream)};
+  Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+         static_cast<const float*>(v_scale),
+         static_cast<const int*>(page_table),
+         static_cast<const int*>(start), static_cast<const int*>(kv_len),
+         nullptr, static_cast<float*>(m), static_cast<float*>(l),
+         static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns, D,
+         scale, static_cast<cudaStream_t>(stream), block_q, block_k};
   return by_dim<int8_t, true>(a);
 }
 
 // K5b with K5c's merge in its epilogue: as repro_paged_prefill_split_tc,
 // and the last split of each (lane, kv head, q tile) to finish writes o
-// (B, H, C, D) bf16.  counters: B * Hkv * ceil(C / (32 / G)) int32, all
+// (B, H, C, D) bf16.  counters: B * Hkv * ceil(C / block_q) int32, all
 // zero on entry, all zero again when the launch has run; one set per
 // stream.
 extern "C" int repro_paged_prefill_split_merged_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* start, const void* kv_len, void* m,
     void* l, void* acc, void* o, void* counters, int B, int H, int Hkv, int C,
-    int psz, int nblk, int ns, int D, float scale, void* stream) {
+    int psz, int nblk, int ns, int D, int block_q, int block_k, float scale,
+    void* stream) {
   Args a{q, k_pool, v_pool, nullptr, nullptr,
          static_cast<const int*>(page_table), static_cast<const int*>(start),
          static_cast<const int*>(kv_len), o, static_cast<float*>(m),
          static_cast<float*>(l), static_cast<float*>(acc), B, H, Hkv, C, psz,
-         nblk, ns, D, scale, static_cast<cudaStream_t>(stream)};
+         nblk, ns, D, scale, static_cast<cudaStream_t>(stream), block_q,
+         block_k};
   a.cnt = static_cast<int*>(counters);
   if (a.cnt == nullptr) return cudaErrorInvalidValue;
   return by_dim<__nv_bfloat16, true>(a);
@@ -719,30 +796,30 @@ extern "C" int repro_paged_prefill_split_quant_merged_tc(
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* start, const void* kv_len, void* m, void* l, void* acc,
     void* o, void* counters, int B, int H, int Hkv, int C, int psz, int nblk,
-    int ns, int D, float scale, void* stream) {
+    int ns, int D, int block_q, int block_k, float scale, void* stream) {
   Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
          static_cast<const float*>(v_scale),
          static_cast<const int*>(page_table), static_cast<const int*>(start),
          static_cast<const int*>(kv_len), o, static_cast<float*>(m),
          static_cast<float*>(l), static_cast<float*>(acc), B, H, Hkv, C, psz,
-         nblk, ns, D, scale, static_cast<cudaStream_t>(stream)};
+         nblk, ns, D, scale, static_cast<cudaStream_t>(stream), block_q,
+         block_k};
   a.cnt = static_cast<int*>(counters);
   if (a.cnt == nullptr) return cudaErrorInvalidValue;
   return by_dim<int8_t, true>(a);
 }
 
-// The instance for head dim D of kind 0 (K4: bf16 pools, one pass), 1
-// (K6c: int8 pools), 2 (K5b: bf16 pools, partials) or 3 (K6d: int8 pools,
-// partials): out[0..3] =
+// The instance for head dim D and a tile of bm query rows and block_k
+// keys of kind 0 (K4: bf16 pools, one pass), 1 (K6c: int8 pools), 2 (K5b:
+// bf16 pools, partials) or 3 (K6d: int8 pools, partials): out[0..3] =
 // registers per thread, local-memory (spill) bytes, dynamic shared memory
 // in bytes at nblk table entries, resident blocks per SM.
-extern "C" int repro_paged_prefill_tc_info(int D, int kind, int nblk,
-                                           int* out) {
-  switch (D) {
-    case 16: return info_by_kind<16>(kind, nblk, out);
-    case 32: return info_by_kind<32>(kind, nblk, out);
-    case 64: return info_by_kind<64>(kind, nblk, out);
-    case 128: return info_by_kind<128>(kind, nblk, out);
-    default: return cudaErrorInvalidValue;
-  }
+extern "C" int repro_paged_prefill_tc_info(int D, int kind, int nblk, int bm,
+                                           int block_k, int* out) {
+  return with_dim(D, [&](auto d) {
+    return with_tile<decltype(d)::value>(bm, block_k, [&](auto sl, auto bn) {
+      return info_by_kind<decltype(d)::value, decltype(sl)::value,
+                          decltype(bn)::value>(kind, nblk, out);
+    });
+  });
 }

@@ -23,6 +23,7 @@ plain integer on the function).  The plain PyTorch versions live in
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -134,15 +135,20 @@ def tc_info(d: int) -> dict[str, int]:
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_len: torch.Tensor | None = None, *,
-                 scale: float | None = None,
+                 scale: float | None = None, block_k: int | None = None,
                  _cluster: int | None = None) -> torch.Tensor:
     """Decode attention: q (B, H, 1, D) against caches (B, Hkv, S, D);
     ``kv_len`` (B,) int32 on the same device masks each cache's valid
     prefix (values are clamped to [0, S] on the card).  A bfloat16 q runs
     the cluster kernel's dense mode in clusters of
     ``paged_attention.cluster_size`` CTAs per (lane, kv head), which
-    ``_cluster`` overrides (tests only); a float32 q the SIMT template."""
+    ``_cluster`` overrides (tests only), at ``block_k`` keys a tile (one of
+    ``paged_attention.decode_block_ks``, 64 by default; the run-time AT's
+    ``DecodeBucket`` tile); a float32 q the SIMT template, whose one tile
+    is 32 keys.  A tile with no instance raises ``ValueError``."""
+    from . import paged_attention as pa    # it imports this module
     _check("flash_decode", q, k, v)
+    bk = pa.decode_tile("flash_decode", q, block_k)
     b, h, one, d = q.shape
     if one != 1:
         raise ValueError(f"flash_decode takes one query token, got {one}")
@@ -160,9 +166,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), b, h, hkv, s, d)
     with torch.cuda.device(q.device):
         if q.dtype == torch.bfloat16:
-            from . import paged_attention as pa    # it imports this module
             c = pa.decode_cluster("flash_decode", q, b, hkv, _cluster)
-            err = pa._dec_lib().repro_flash_decode_tc(*args, c, scale,
+            err = pa._dec_lib().repro_flash_decode_tc(*args, c, bk, scale,
                                                       _stream(q))
             kernel = pa.DECODE_TC_KERNEL
         else:
@@ -171,6 +176,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kernel = DECODE_SIMT_KERNEL
     _raise_on("flash_decode", err)
     flash_decode.launches += 1
+    flash_decode.by_tile[bk] += 1
     flash_decode.last_kernel = kernel
     return out
 
@@ -179,6 +185,7 @@ flash_attention.launches = 0
 flash_attention.last_kernel = None
 flash_decode.launches = 0
 flash_decode.last_kernel = None
+flash_decode.by_tile = collections.Counter()
 
 #: the kernels of this module, for counters and reports
 KERNELS = (flash_attention, flash_decode)

@@ -8,6 +8,14 @@ kernel-against-plain comparisons on the card use it), and
 else.  The kernels read a contiguous layout, so the transposed q, k, v
 the projections produce are made contiguous here, and the paged kernels'
 int32 page tables and lengths are cast here.
+
+On the kernel route the attention entry points read the tiles that
+run-time AT publishes (``at.tuned``), as the JAX package's ``ops`` does:
+``flash_decode`` (``block_k``), ``flash_paged_decode`` (``block_k``,
+``num_splits``), ``flash_paged_prefill`` and ``flash_paged_verify``
+(``block_q``, ``block_k``, ``num_splits``), each overridden by the
+caller's explicit values; an explicit ``None`` is "not given" and leaves
+a published value alone.  The plain versions ignore tiles.
 """
 from __future__ import annotations
 
@@ -22,6 +30,15 @@ from .matmul import matmul
 from .paged_attention import (flash_paged_decode, flash_paged_decode_quant,
                               flash_paged_prefill, flash_paged_prefill_quant)
 from .ssm_scan import selective_scan
+
+
+def _tuned(key: str, names: tuple[str, ...], **explicit) -> dict:
+    """What ``at.tuned(key)`` publishes, updated by the explicit keyword
+    arguments that are not None, filtered to the ``names`` the kernel
+    takes."""
+    kw = at.tuned(key)
+    kw.update({k: v for k, v in explicit.items() if v is not None})
+    return {k: v for k, v in kw.items() if k in names}
 
 
 def _use_kernel(x: torch.Tensor, use_kernel: bool | None) -> bool:
@@ -61,13 +78,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor | None = None, *,
-                     use_kernel: bool | None = None) -> torch.Tensor:
-    """One-token decode.  q (B, H, 1, D), caches (B, Hkv, S, D), kv_len (B,)."""
+                     use_kernel: bool | None = None, **pps) -> torch.Tensor:
+    """One-token decode.  q (B, H, 1, D), caches (B, Hkv, S, D), kv_len (B,).
+    On the card K2 at the ``block_k`` published under ``flash_decode``
+    (or in ``pps``)."""
     if _use_kernel(q, use_kernel):
         if kv_len is not None:
             kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
         return flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
-                            kv_len)
+                            kv_len, **_tuned("flash_decode",
+                                             ("block_k", "scale"), **pps))
     return ref.decode_ref(q, k, v, kv_len)
 
 
@@ -108,24 +128,27 @@ def _int32(x: torch.Tensor, device: torch.device) -> torch.Tensor:
 def paged_decode(q: torch.Tensor, pools: PagedPools, page_table: torch.Tensor,
                  kv_len: torch.Tensor, *, mesh=None,
                  num_splits: int | None = None,
-                 use_kernel: bool | None = None) -> torch.Tensor:
+                 use_kernel: bool | None = None, **pps) -> torch.Tensor:
     """Decode attention over a paged KV cache.  q (B, H, 1, D),
     ``page_table`` (B, nblk), ``kv_len`` (B,).  On the card: K3 over fp
     pools, K6a over int8 ones, or with ``num_splits`` above 1 their split
     forms (K5a / K6b) and the combine K5c (for a bf16 q one launch: K5c's
-    merge in the split kernel's epilogue).  The plain version ignores
-    ``num_splits``, as the JAX package's does on the CPU."""
+    merge in the split kernel's epilogue), at the ``block_k`` and
+    ``num_splits`` published under ``flash_paged_decode`` unless given.
+    The plain version ignores tiles and ``num_splits``, as the JAX
+    package's does on the CPU."""
     _check_mesh(mesh)
     _check_pools(pools)
     if _use_kernel(q, use_kernel):
         q, table = q.contiguous(), _int32(page_table, q.device)
         kv_len = _int32(kv_len, q.device)
+        kw = _tuned("flash_paged_decode", ("block_k", "num_splits", "scale"),
+                    num_splits=num_splits, **pps)
         if pools.quantized:
             return flash_paged_decode_quant(
                 q, pools.k, pools.v, pools.k_scale, pools.v_scale, table,
-                kv_len, num_splits=num_splits)
-        return flash_paged_decode(q, pools.k, pools.v, table, kv_len,
-                                  num_splits=num_splits)
+                kv_len, **kw)
+        return flash_paged_decode(q, pools.k, pools.v, table, kv_len, **kw)
     return ref.paged_decode_ref(q, pools.k, pools.v, page_table, kv_len,
                                 k_scale=pools.k_scale, v_scale=pools.v_scale)
 
@@ -133,23 +156,27 @@ def paged_decode(q: torch.Tensor, pools: PagedPools, page_table: torch.Tensor,
 def _paged_chunk(q: torch.Tensor, pools: PagedPools,
                  page_table: torch.Tensor, start: torch.Tensor,
                  kv_len: torch.Tensor, mesh, num_splits: int | None,
-                 use_kernel: bool | None) -> torch.Tensor:
+                 use_kernel: bool | None, tuned_key: str,
+                 pps: dict) -> torch.Tensor:
     """The body shared by prefill and verify: on the card K4 over fp
     pools, K6c over int8 ones, or with ``num_splits`` above 1 their split
     forms (K5b / K6d) and the combine K5c (for a bf16 q one launch: K5c's
-    merge in the split kernel's epilogue); the plain version ignores
+    merge in the split kernel's epilogue), at the tiles published under
+    ``tuned_key`` unless given; the plain version ignores tiles and
     ``num_splits``, as the JAX package's does on the CPU."""
     _check_mesh(mesh)
     _check_pools(pools)
     if _use_kernel(q, use_kernel):
         args = (_int32(page_table, q.device), _int32(start, q.device),
                 _int32(kv_len, q.device))
+        kw = _tuned(tuned_key, ("block_q", "block_k", "num_splits", "scale"),
+                    num_splits=num_splits, **pps)
         if pools.quantized:
             return flash_paged_prefill_quant(
                 q.contiguous(), pools.k, pools.v, pools.k_scale,
-                pools.v_scale, *args, num_splits=num_splits)
+                pools.v_scale, *args, **kw)
         return flash_paged_prefill(q.contiguous(), pools.k, pools.v, *args,
-                                   num_splits=num_splits)
+                                   **kw)
     return ref.paged_prefill_ref(q, pools.k, pools.v, page_table, start,
                                  kv_len, k_scale=pools.k_scale,
                                  v_scale=pools.v_scale)
@@ -159,27 +186,29 @@ def paged_prefill(q: torch.Tensor, pools: PagedPools,
                   page_table: torch.Tensor, start: torch.Tensor,
                   kv_len: torch.Tensor, *, mesh=None,
                   num_splits: int | None = None,
-                  use_kernel: bool | None = None) -> torch.Tensor:
+                  use_kernel: bool | None = None, **pps) -> torch.Tensor:
     """Chunked-prefill attention over a paged KV cache.  q (B, H, C, D)
     with its first token at absolute position ``start``; the chunk's K/V
-    must already be in the pages (write before read)."""
+    must already be in the pages (write before read).  On the card at the
+    tiles published under ``flash_paged_prefill``."""
     return _paged_chunk(q, pools, page_table, start, kv_len, mesh,
-                        num_splits, use_kernel)
+                        num_splits, use_kernel, "flash_paged_prefill", pps)
 
 
 def paged_verify(q: torch.Tensor, pools: PagedPools,
                  page_table: torch.Tensor, start: torch.Tensor,
                  kv_len: torch.Tensor, *, mesh=None,
                  num_splits: int | None = None,
-                 use_kernel: bool | None = None) -> torch.Tensor:
+                 use_kernel: bool | None = None, **pps) -> torch.Tensor:
     """Speculative-verify attention over a paged KV cache: the chunk is
     ``[last committed token, draft_1 .. draft_k]`` (q (B, H, k+1, D) at
     absolute positions from ``start``), the same math through the same
     kernels as :func:`paged_prefill`.  Its own entry point, as in the
-    JAX package, whose tuning layer gives verify its own tile space; the
-    engine hands ``num_splits`` here and to decode, never to prefill."""
+    JAX package, whose tuning layer gives verify its own tile space (the
+    tiles published under ``flash_paged_verify``); the engine hands
+    ``num_splits`` here and to decode, never to prefill."""
     return _paged_chunk(q, pools, page_table, start, kv_len, mesh,
-                        num_splits, use_kernel)
+                        num_splits, use_kernel, "flash_paged_verify", pps)
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -19,9 +19,9 @@ pass or split).
   splits run K5a (one CTA per split of the lane's live keys writing fp32
   partial softmax states) and K5c (the merge): for a bf16 query in one
   launch, :func:`paged_decode_split_merged` (the cluster kernel's
-  partials mode, each split a contiguous share of the lane's 64-key
-  tiles, whose last split of each lane and kv head to finish merges them
-  as K5c does); for float32 two, :func:`paged_decode_split` (the SIMT
+  partials mode, each split a contiguous share of the lane's key tiles
+  (``block_k``, 64 by default), whose last split of each lane and kv
+  head to finish merges them as K5c does); for float32 two, :func:`paged_decode_split` (the SIMT
   template's 32-key tiles) and :func:`split_combine`.
 * :func:`flash_paged_decode_quant` — the same over int8 pools with fp32
   per-row scales (P, Hkv, psz): K6a (the cluster kernel for a bf16 query,
@@ -34,7 +34,7 @@ pass or split).
   committed paged prefix plus the chunk's own triangle; key ``j`` is
   valid iff ``j < kv_len[b]``.  The chunk's K/V must already be in the
   pages (write before read).  A bf16 query runs on the tensor cores
-  (``paged_prefill.cu``: GQA folded into 32-row query tiles, ``cp.async``
+  (``paged_prefill.cu``: GQA folded into the query tiles, ``cp.async``
   page copies, P rounded to bf16 for P.V); a float32 query on the SIMT
   template of ``paged_attention.cu``, whose fp32 products keep the fp32
   tolerance.  The choice is the query's type; ``last_kernel`` on the
@@ -42,14 +42,28 @@ pass or split).
   (each query tile's live key tiles cut into splits, fp32 partials of the
   chunk's C rows) and K5c: for a bf16 query in one launch,
   :func:`paged_prefill_split_merged` (the tensor-core kernel's partials
-  mode, whose tiles are 32 // G chunk rows and 128 keys, merged in its
-  epilogue by the last split of each tile), for float32
+  mode, whose tiles are ``block_q`` chunk rows (32 // G by default) and
+  ``block_k`` keys (128), merged in its epilogue by the last split of
+  each tile), for float32
   :func:`paged_prefill_split` (the SIMT template's 64 rows and 32 keys)
   and :func:`split_combine`.
   :func:`flash_paged_prefill_quant` is the same over int8 pools: K6c, or
   K6d with K5c (:func:`paged_prefill_split_quant_merged` for a bf16
   query; :func:`paged_prefill_split_quant` + :func:`split_combine` for
   float32).
+
+Tiles (the run-time AT's parameters, read by :mod:`.ops` from
+``at.tuned``): the decode kernel takes ``block_k``, keys per K/V tile
+(:data:`DECODE_BLOCK_KS` at head dim 128, :data:`DECODE_TILE_KEYS`
+elsewhere); the tensor-core prefill kernel ``block_q`` (query positions
+per tile, as in the JAX package: the kernel's row tile is ``block_q`` x G
+query rows of one kv head, so G must divide it) and ``block_k``
+(:func:`prefill_tiles`).  On the card a tile spans whole pages where the
+TPU kernel's ``block_k`` was a sub-page tile that had to divide the page.
+A float32 query keeps the SIMT templates' one tile.  A tile the kernel has
+no instance for raises ``ValueError`` naming the tiles it has; ``None``
+is the default tile, what an untuned call runs.  ``by_tile`` on each
+wrapper counts its launches by tile.
 
 The merged entries count the arrivals of a tile's splits on int32
 counters, one set per (device, stream) made here once (zeroed at
@@ -71,6 +85,7 @@ named after it.  The plain versions live in :mod:`.ref`.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -108,6 +123,73 @@ DECODE_SLAB_ROWS = 16
 #: the CTAs an SM holds at once of the decode kernel's D = 128 instances
 #: (``decode_tc_info``'s ``blocks_per_sm``, shared memory bound)
 DECODE_CTAS_PER_SM = 2
+#: the key tiles of the decode kernel's D = 128 instances (the head dim of
+#: every arch the card serves); other head dims have DECODE_TILE_KEYS only
+DECODE_BLOCK_KS = (32, 64)
+#: the tensor-core prefill kernel's D = 128 instances: query rows (block_q
+#: x G) by keys; other head dims have TC_TILE_ROWS x TC_TILE_KEYS only
+TC_ROW_TILES = (16, 32, 64)
+TC_BLOCK_KS = (64, 128)
+#: the one tile of the float32 SIMT templates: keys of the decode walk,
+#: chunk rows and keys of the prefill walk
+SIMT_DECODE_TILE_KEYS = 32
+SIMT_PREFILL_TILE = (64, 32)
+
+
+def decode_block_ks(dtype: torch.dtype, d: int) -> tuple[int, ...]:
+    """The key tiles the decode kernels have an instance for, for a query
+    of ``dtype`` at head dim ``d``."""
+    if dtype != torch.bfloat16:
+        return (SIMT_DECODE_TILE_KEYS,)
+    return DECODE_BLOCK_KS if d == 128 else (DECODE_TILE_KEYS,)
+
+
+def prefill_tiles(dtype: torch.dtype, d: int,
+                  g: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """(block_qs, block_ks) the prefill kernels have an instance for, for a
+    query of ``dtype`` at head dim ``d`` and group size ``g``: a row tile
+    of the tensor-core kernel holds ``block_q`` positions of all ``g``
+    heads."""
+    if dtype != torch.bfloat16:
+        return (SIMT_PREFILL_TILE[0],), (SIMT_PREFILL_TILE[1],)
+    rows = TC_ROW_TILES if d == 128 else (TC_TILE_ROWS,)
+    keys = TC_BLOCK_KS if d == 128 else (TC_TILE_KEYS,)
+    return tuple(r // g for r in rows if g >= 1 and r % g == 0), keys
+
+
+def decode_tile(name: str, q: torch.Tensor, block_k: int | None) -> int:
+    """The key tile of a decode launch: ``block_k``, which must have an
+    instance (else ``ValueError`` naming those that do), or the default."""
+    tiles = decode_block_ks(q.dtype, q.shape[-1])
+    if block_k is None:
+        return DECODE_TILE_KEYS if q.dtype == torch.bfloat16 else tiles[0]
+    if block_k not in tiles:
+        raise ValueError(f"{name}: no instance for block_k={block_k!r}; a "
+                         f"{q.dtype} query at head dim {q.shape[-1]} has "
+                         f"block_k in {tiles}")
+    return block_k
+
+
+def prefill_tile(name: str, q: torch.Tensor, hkv: int,
+                 block_q: int | None,
+                 block_k: int | None) -> tuple[int, int]:
+    """(block_q, block_k) of a prefill or verify launch: each must have an
+    instance at q's type, head dim and group size (else ``ValueError``
+    naming those that do); ``None`` is the default."""
+    g = q.shape[1] // hkv
+    block_qs, block_ks = prefill_tiles(q.dtype, q.shape[-1], g)
+    bf16 = q.dtype == torch.bfloat16
+    if block_q is None:
+        block_q = TC_TILE_ROWS // g if bf16 else block_qs[0]
+    if block_k is None:
+        block_k = TC_TILE_KEYS if bf16 else block_ks[0]
+    if block_q not in block_qs or block_k not in block_ks:
+        raise ValueError(
+            f"{name}: no instance for block_q={block_q!r}, block_k="
+            f"{block_k!r}; a {q.dtype} query at head dim {q.shape[-1]} and "
+            f"group size {g} has block_q in {block_qs} and block_k in "
+            f"{block_ks}")
+    return block_q, block_k
 
 
 def cluster_size(b: int, hkv: int, sm_count: int) -> int:
@@ -155,17 +237,18 @@ def _tc_lib() -> ctypes.CDLL:
     """The tensor-core prefill library (``csrc/paged_prefill.cu``)."""
     lib = build.load("paged_prefill")
     for name, argtypes in (
-            ("repro_flash_paged_prefill", [_P] * 7 + [_I] * 8 + [_F, _P]),
+            ("repro_flash_paged_prefill", [_P] * 7 + [_I] * 10 + [_F, _P]),
             ("repro_flash_paged_prefill_quant",
-             [_P] * 9 + [_I] * 8 + [_F, _P]),
-            ("repro_paged_prefill_split_tc", [_P] * 9 + [_I] * 9 + [_F, _P]),
+             [_P] * 9 + [_I] * 10 + [_F, _P]),
+            ("repro_paged_prefill_split_tc",
+             [_P] * 9 + [_I] * 11 + [_F, _P]),
             ("repro_paged_prefill_split_quant_tc",
-             [_P] * 11 + [_I] * 9 + [_F, _P]),
+             [_P] * 11 + [_I] * 11 + [_F, _P]),
             ("repro_paged_prefill_split_merged_tc",
-             [_P] * 11 + [_I] * 8 + [_F, _P]),
+             [_P] * 11 + [_I] * 10 + [_F, _P]),
             ("repro_paged_prefill_split_quant_merged_tc",
-             [_P] * 13 + [_I] * 8 + [_F, _P]),
-            ("repro_paged_prefill_tc_info", [_I] * 3 + [_P])):
+             [_P] * 13 + [_I] * 10 + [_F, _P]),
+            ("repro_paged_prefill_tc_info", [_I] * 5 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _I
@@ -177,18 +260,18 @@ def _dec_lib() -> ctypes.CDLL:
     """The one-pass decode library of a bf16 query (``csrc/paged_decode.cu``)."""
     lib = build.load("paged_decode")
     for name, argtypes in (
-            ("repro_flash_paged_decode_tc", [_P] * 6 + [_I] * 7 + [_F, _P]),
+            ("repro_flash_paged_decode_tc", [_P] * 6 + [_I] * 8 + [_F, _P]),
             ("repro_flash_paged_decode_quant_tc",
-             [_P] * 8 + [_I] * 7 + [_F, _P]),
-            ("repro_flash_decode_tc", [_P] * 5 + [_I] * 6 + [_F, _P]),
-            ("repro_paged_decode_split_tc", [_P] * 8 + [_I] * 7 + [_F, _P]),
+             [_P] * 8 + [_I] * 8 + [_F, _P]),
+            ("repro_flash_decode_tc", [_P] * 5 + [_I] * 7 + [_F, _P]),
+            ("repro_paged_decode_split_tc", [_P] * 8 + [_I] * 8 + [_F, _P]),
             ("repro_paged_decode_split_quant_tc",
-             [_P] * 10 + [_I] * 7 + [_F, _P]),
+             [_P] * 10 + [_I] * 8 + [_F, _P]),
             ("repro_paged_decode_split_merged_tc",
-             [_P] * 10 + [_I] * 7 + [_F, _P]),
+             [_P] * 10 + [_I] * 8 + [_F, _P]),
             ("repro_paged_decode_split_quant_merged_tc",
-             [_P] * 12 + [_I] * 7 + [_F, _P]),
-            ("repro_paged_decode_tc_info", [_I] * 3 + [_P])):
+             [_P] * 12 + [_I] * 8 + [_F, _P]),
+            ("repro_paged_decode_tc_info", [_I] * 4 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _I
@@ -208,18 +291,21 @@ def check_tc_shape(name: str, h: int, hkv: int, d: int) -> None:
                          "query tile of the tensor-core kernel")
 
 
-def _prefill_entry(name: str, q: torch.Tensor, hkv: int, quant: bool):
-    """The C entry of K4 (K6c with ``quant``) for q's type, and the name
-    of the kernel it launches: the tensor-core kernel for bfloat16 (its
-    shape checked), the SIMT template for float32."""
+def _prefill_entry(name: str, q: torch.Tensor, hkv: int, quant: bool,
+                   block_q: int, block_k: int):
+    """The C entry of K4 (K6c with ``quant``) for q's type, the name of
+    the kernel it launches and its trailing arguments after D: the
+    tensor-core kernel for bfloat16 (its shape checked) with its tile, the
+    SIMT template for float32; then the dtype code."""
     if q.dtype == torch.bfloat16:
         check_tc_shape(name, q.shape[1], hkv, q.shape[3])
         lib, entry = _tc_lib(), "repro_flash_paged_prefill"
-        kernel = TC_KERNEL
+        kernel, tile = TC_KERNEL, (block_q, block_k)
     else:
         lib, entry = _lib(), "repro_paged_prefill_f32"
-        kernel = "paged_prefill_kernel"
-    return getattr(lib, entry + ("_quant" if quant else "")), kernel
+        kernel, tile = "paged_prefill_kernel", ()
+    return (getattr(lib, entry + ("_quant" if quant else "")), kernel,
+            (*tile, _DTYPES[q.dtype]))
 
 
 #: the instances of the tensor-core prefill kernel, by kind: K4 (bf16
@@ -228,13 +314,16 @@ def _prefill_entry(name: str, q: torch.Tensor, hkv: int, quant: bool):
 TC_KINDS = ("bf16", "int8", "bf16 split", "int8 split")
 
 
-def tc_info(d: int, kind: str, nblk: int = 0) -> dict[str, int]:
+def tc_info(d: int, kind: str, nblk: int = 0, *, rows: int = TC_TILE_ROWS,
+            block_k: int = TC_TILE_KEYS) -> dict[str, int]:
     """What the card makes of the tensor-core prefill instance for head
-    dim ``d`` of ``kind`` (one of :data:`TC_KINDS`): registers per thread,
+    dim ``d`` of ``kind`` (one of :data:`TC_KINDS`) at a tile of ``rows``
+    query rows (block_q x G) and ``block_k`` keys: registers per thread,
     local (spill) bytes, dynamic shared memory at ``nblk`` table entries,
     and resident blocks per SM.  Needs the card."""
     out = (ctypes.c_int * 4)()
     err = _tc_lib().repro_paged_prefill_tc_info(d, TC_KINDS.index(kind), nblk,
+                                                rows, block_k,
                                                 ctypes.addressof(out))
     _raise_on("tc_info", err)
     return dict(zip(("registers", "local_bytes", "smem_bytes",
@@ -247,16 +336,17 @@ def tc_info(d: int, kind: str, nblk: int = 0) -> dict[str, int]:
 DECODE_KINDS = ("bf16", "int8", "bf16 dense", "bf16 split", "int8 split")
 
 
-def decode_tc_info(d: int, kind: str, nblk: int = 0) -> dict:
+def decode_tc_info(d: int, kind: str, nblk: int = 0, *,
+                   block_k: int = DECODE_TILE_KEYS) -> dict:
     """What the card makes of the bf16 decode instance for head dim ``d``
-    of ``kind`` (one of :data:`DECODE_KINDS`): registers per thread, local
-    (spill) bytes, dynamic shared memory at ``nblk`` table entries (the
-    dense mode stages none),
-    resident CTAs per SM, and under ``clusters`` the clusters of each of
+    of ``kind`` (one of :data:`DECODE_KINDS`) at ``block_k`` keys a tile:
+    registers per thread, local (spill) bytes, dynamic shared memory at
+    ``nblk`` table entries (the dense mode stages none), resident CTAs per
+    SM, and under ``clusters`` the clusters of each of
     :data:`CLUSTER_SIZES` CTAs the card holds at once.  Needs the card."""
     out = (ctypes.c_int * 8)()
     err = _dec_lib().repro_paged_decode_tc_info(
-        d, DECODE_KINDS.index(kind), nblk, ctypes.addressof(out))
+        d, DECODE_KINDS.index(kind), nblk, block_k, ctypes.addressof(out))
     _raise_on("decode_tc_info", err)
     info = dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out[:4]))
@@ -280,28 +370,29 @@ def decode_cluster(name: str, q: torch.Tensor, b: int, hkv: int,
 
 
 def _decode_entry(name: str, q: torch.Tensor, b: int, hkv: int, quant: bool,
-                  cluster: int | None):
+                  cluster: int | None, block_k: int):
     """The C entry of K3 (K6a with ``quant``) for q's type, the name of the
     kernel it launches and its trailing arguments: for bfloat16 the
-    cluster kernel and its cluster size (:func:`decode_cluster`), for
-    float32 the SIMT template and the dtype code."""
+    cluster kernel, its cluster size (:func:`decode_cluster`) and key
+    tile, for float32 the SIMT template and the dtype code."""
     suffix = "_quant" if quant else ""
     if q.dtype == torch.bfloat16:
         fn = getattr(_dec_lib(), f"repro_flash_paged_decode{suffix}_tc")
-        return fn, DECODE_TC_KERNEL, decode_cluster(name, q, b, hkv, cluster)
+        return fn, DECODE_TC_KERNEL, (
+            decode_cluster(name, q, b, hkv, cluster), block_k)
     fn = getattr(_lib(), f"repro_flash_paged_decode{suffix}")
-    return fn, DECODE_SIMT_KERNEL, _DTYPES[q.dtype]
+    return fn, DECODE_SIMT_KERNEL, (_DTYPES[q.dtype],)
 
 
-def _split_decode_entry(q: torch.Tensor, quant: bool):
+def _split_decode_entry(q: torch.Tensor, quant: bool, block_k: int):
     """The C entry of K5a (K6b with ``quant``) for q's type, the name of the
     kernel it launches and its extra trailing arguments: for bfloat16 the
-    cluster kernel's partials mode, for float32 the SIMT template and the
-    dtype code."""
+    cluster kernel's partials mode and its key tile, for float32 the SIMT
+    template and the dtype code."""
     suffix = "_quant" if quant else ""
     if q.dtype == torch.bfloat16:
         return (getattr(_dec_lib(), f"repro_paged_decode_split{suffix}_tc"),
-                DECODE_TC_KERNEL, ())
+                DECODE_TC_KERNEL, (block_k,))
     return (getattr(_lib(), f"repro_paged_decode_split{suffix}"),
             DECODE_SIMT_KERNEL, (_DTYPES[q.dtype],))
 
@@ -371,11 +462,12 @@ def _check(name: str, q: torch.Tensor, k_pool: torch.Tensor,
                              f"got {tuple(t.shape)}")
 
 
-def _num_splits(num_splits: int | None, nblk: int) -> int:
-    """The split count clamped to the page walk, as the JAX package's
-    ``_num_splits`` does with its tile count (here whole pages: the
-    kernels take no sub-page tile)."""
-    return max(1, min(int(num_splits or 1), nblk))
+def _num_splits(num_splits: int | None, keys: int, block_k: int) -> int:
+    """The split count clamped to the ``block_k``-key tiles of a table of
+    ``keys`` slots, as the JAX package's ``_num_splits`` clamps to its
+    tile count (a lane's kv_len stays on the card: reading it would sync
+    the step with the host)."""
+    return max(1, min(int(num_splits or 1), -(-keys // block_k)))
 
 
 def _check_splits(name: str, num_splits: int) -> None:
@@ -479,20 +571,30 @@ def split_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     return out
 
 
+def _count(wrapper, kernel: str, tile) -> None:
+    """One launch of ``wrapper``'s kernel at ``tile``."""
+    wrapper.launches += 1
+    wrapper.by_tile[tile] += 1
+    wrapper.last_kernel = kernel
+
+
 def paged_decode_split(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, page_table: torch.Tensor,
                        kv_len: torch.Tensor, num_splits: int, *,
-                       scale: float | None = None):
+                       scale: float | None = None,
+                       block_k: int | None = None):
     """K5a: phase 1 of split decode over fp pools; returns the fp32
     partials (m, l, acc) of ``num_splits`` splits (checked by the caller),
     (B, Hkv, ns, G) and (.., D).  A bfloat16 q runs the cluster kernel's
     partials mode (split s takes the s-th contiguous share of the lane's
-    live 64-key tiles), a float32 q the SIMT template (32-key tiles);
-    ``last_kernel`` names the one launched last."""
+    live ``block_k``-key tiles, 64 by default), a float32 q the SIMT
+    template (32-key tiles); ``last_kernel`` names the one launched
+    last."""
     b, h, hkv, psz, d, scale = _decode_shape("paged_decode_split", q, k_pool,
                                              scale)
+    bk = decode_tile("paged_decode_split", q, block_k)
     m, l, acc = _partials(q, hkv, num_splits)
-    fn, kernel, extra = _split_decode_entry(q, quant=False)
+    fn, kernel, extra = _split_decode_entry(q, False, bk)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  page_table.data_ptr(), kv_len.data_ptr(), m.data_ptr(),
@@ -500,8 +602,7 @@ def paged_decode_split(q: torch.Tensor, k_pool: torch.Tensor,
                  page_table.shape[1], num_splits, d, *extra, scale,
                  _stream(q))
     _raise_on("paged_decode_split", err)
-    paged_decode_split.launches += 1
-    paged_decode_split.last_kernel = kernel
+    _count(paged_decode_split, kernel, bk)
     return m, l, acc
 
 
@@ -509,16 +610,18 @@ def paged_decode_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
                              v_pool: torch.Tensor, k_scale: torch.Tensor,
                              v_scale: torch.Tensor, page_table: torch.Tensor,
                              kv_len: torch.Tensor, num_splits: int, *,
-                             scale: float | None = None):
+                             scale: float | None = None,
+                             block_k: int | None = None):
     """K6b: :func:`paged_decode_split` over int8 pools and their scales.
     A bfloat16 q runs the cluster kernel's partials mode over int8 pools
-    (split s the s-th contiguous share of the lane's live 64-key tiles, as
-    K5a), a float32 q the SIMT template (32-key tiles); ``last_kernel``
-    names the one launched last."""
+    (split s the s-th contiguous share of the lane's live ``block_k``-key
+    tiles, as K5a), a float32 q the SIMT template (32-key tiles);
+    ``last_kernel`` names the one launched last."""
     b, h, hkv, psz, d, scale = _decode_shape("paged_decode_split_quant", q,
                                              k_pool, scale)
+    bk = decode_tile("paged_decode_split_quant", q, block_k)
     m, l, acc = _partials(q, hkv, num_splits)
-    fn, kernel, extra = _split_decode_entry(q, quant=True)
+    fn, kernel, extra = _split_decode_entry(q, True, bk)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  k_scale.data_ptr(), v_scale.data_ptr(),
@@ -527,18 +630,16 @@ def paged_decode_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
                  page_table.shape[1], num_splits, d, *extra, scale,
                  _stream(q))
     _raise_on("paged_decode_split_quant", err)
-    paged_decode_split_quant.launches += 1
-    paged_decode_split_quant.last_kernel = kernel
+    _count(paged_decode_split_quant, kernel, bk)
     return m, l, acc
 
 
 def _decode_merged(name: str, fn, q: torch.Tensor, pools: tuple,
                    page_table: torch.Tensor, kv_len: torch.Tensor,
                    num_splits: int, scale: float | None,
-                   return_partials: bool):
+                   return_partials: bool, block_k: int):
     """One launch of the cluster kernel's partials mode with K5c's merge
     in its epilogue: ``pools`` is (k, v) or (k, v, k_scale, v_scale)."""
-    _check_bf16(name, q)
     b, h, hkv, psz, d, scale = _decode_shape(name, q, pools[0], scale)
     m, l, acc = _partials(q, hkv, num_splits)
     out = torch.empty_like(q)
@@ -548,7 +649,7 @@ def _decode_merged(name: str, fn, q: torch.Tensor, pools: tuple,
                  page_table.data_ptr(), kv_len.data_ptr(), m.data_ptr(),
                  l.data_ptr(), acc.data_ptr(), out.data_ptr(),
                  counters.data_ptr(), b, h, hkv, psz, page_table.shape[1],
-                 num_splits, d, scale, _stream(q))
+                 num_splits, d, block_k, scale, _stream(q))
     _raise_merged(name, err, counters)
     return (out, (m, l, acc)) if return_partials else out
 
@@ -557,20 +658,22 @@ def paged_decode_split_merged(q: torch.Tensor, k_pool: torch.Tensor,
                               v_pool: torch.Tensor, page_table: torch.Tensor,
                               kv_len: torch.Tensor, num_splits: int, *,
                               scale: float | None = None,
-                              return_partials: bool = False):
+                              return_partials: bool = False,
+                              block_k: int | None = None):
     """K5a with K5c's merge in its epilogue, one launch (bfloat16 q only):
-    :func:`paged_decode_split`'s cluster-kernel partials mode, whose last
-    split of each (lane, kv head, 16-row slab) to finish merges the ns
-    splits' partials into o (B, H, 1, D) bf16 as :func:`split_combine`
-    does, bit for bit.  ``num_splits`` is checked by the caller.  The
-    partials pass through device memory (L2); ``return_partials`` returns
-    them beside o, ``(o, (m, l, acc))``."""
-    out = _decode_merged("paged_decode_split_merged",
-                         _dec_lib().repro_paged_decode_split_merged_tc, q,
-                         (k_pool, v_pool), page_table, kv_len, num_splits,
-                         scale, return_partials)
-    paged_decode_split_merged.launches += 1
-    paged_decode_split_merged.last_kernel = DECODE_TC_KERNEL
+    :func:`paged_decode_split`'s cluster-kernel partials mode at
+    ``block_k`` keys a tile, whose last split of each (lane, kv head,
+    16-row slab) to finish merges the ns splits' partials into o (B, H, 1,
+    D) bf16 as :func:`split_combine` does, bit for bit.  ``num_splits`` is
+    checked by the caller.  The partials pass through device memory (L2);
+    ``return_partials`` returns them beside o, ``(o, (m, l, acc))``."""
+    name = "paged_decode_split_merged"
+    _check_bf16(name, q)
+    bk = decode_tile(name, q, block_k)
+    out = _decode_merged(name, _dec_lib().repro_paged_decode_split_merged_tc,
+                         q, (k_pool, v_pool), page_table, kv_len, num_splits,
+                         scale, return_partials, bk)
+    _count(paged_decode_split_merged, DECODE_TC_KERNEL, bk)
     return out
 
 
@@ -581,16 +684,53 @@ def paged_decode_split_quant_merged(q: torch.Tensor, k_pool: torch.Tensor,
                                     page_table: torch.Tensor,
                                     kv_len: torch.Tensor, num_splits: int, *,
                                     scale: float | None = None,
-                                    return_partials: bool = False):
+                                    return_partials: bool = False,
+                                    block_k: int | None = None):
     """K6b with K5c's merge in its epilogue: :func:`paged_decode_split_merged`
     over int8 pools and their scales (the partials mode of
     :func:`paged_decode_split_quant`), one launch, bfloat16 q only."""
-    out = _decode_merged("paged_decode_split_quant_merged",
+    name = "paged_decode_split_quant_merged"
+    _check_bf16(name, q)
+    bk = decode_tile(name, q, block_k)
+    out = _decode_merged(name,
                          _dec_lib().repro_paged_decode_split_quant_merged_tc,
                          q, (k_pool, v_pool, k_scale, v_scale), page_table,
-                         kv_len, num_splits, scale, return_partials)
-    paged_decode_split_quant_merged.launches += 1
-    paged_decode_split_quant_merged.last_kernel = DECODE_TC_KERNEL
+                         kv_len, num_splits, scale, return_partials, bk)
+    _count(paged_decode_split_quant_merged, DECODE_TC_KERNEL, bk)
+    return out
+
+
+def _paged_decode(name: str, wrapper, q: torch.Tensor, pools: tuple,
+                  page_table: torch.Tensor, kv_len: torch.Tensor,
+                  scale: float | None, num_splits: int | None,
+                  block_k: int | None, cluster: int | None) -> torch.Tensor:
+    """The body of :func:`flash_paged_decode` (``pools`` (k, v)) and
+    :func:`flash_paged_decode_quant` (``pools`` (k, v, k_scale, v_scale))."""
+    quant = len(pools) == 4
+    _check(name, q, pools[0], pools[1], page_table, (kv_len,),
+           pools[2:] or None)
+    b, h, hkv, psz, d, scale = _decode_shape(name, q, pools[0], scale)
+    bk = decode_tile(name, q, block_k)
+    ns = _num_splits(num_splits, page_table.shape[1] * psz, bk)
+    if ns > 1 and q.dtype == torch.bfloat16:
+        merged = (paged_decode_split_quant_merged if quant
+                  else paged_decode_split_merged)
+        return merged(q, *pools, page_table, kv_len, ns, scale=scale,
+                      block_k=bk)
+    if ns > 1:
+        split = paged_decode_split_quant if quant else paged_decode_split
+        m, l, acc = split(q, *pools, page_table, kv_len, ns, scale=scale,
+                          block_k=bk)
+        return split_combine(m, l, acc, q.dtype).reshape(b, h, 1, d)
+    fn, kernel, last = _decode_entry(name, q, b, hkv, quant, cluster, bk)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
+                 page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b,
+                 h, hkv, psz, page_table.shape[1], d, *last, scale,
+                 _stream(q))
+    _raise_on(name, err)
+    _count(wrapper, kernel, bk)
     return out
 
 
@@ -598,36 +738,22 @@ def flash_paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, page_table: torch.Tensor,
                        kv_len: torch.Tensor, *, scale: float | None = None,
                        num_splits: int | None = None,
+                       block_k: int | None = None,
                        _cluster: int | None = None) -> torch.Tensor:
     """Paged decode: q (B, H, 1, D), pools (P, Hkv, psz, D), page_table
     (B, nblk) and kv_len (B,) int32 on q's device (kv_len is clamped to
-    [0, nblk * psz] on the card).  Output like q.  ``num_splits`` (clamped
-    to nblk) above 1 runs K5a and K5c, else K3: for a bfloat16 q the
-    cluster kernel (K5a and K5c: its partials mode merging in its
-    epilogue, one launch), for float32 the SIMT templates (K5a, then
-    K5c).  ``_cluster`` overrides :func:`cluster_size` (tests only)."""
-    _check("flash_paged_decode", q, k_pool, v_pool, page_table, (kv_len,))
-    b, h, hkv, psz, d, scale = _decode_shape("flash_paged_decode", q, k_pool,
-                                             scale)
-    ns = _num_splits(num_splits, page_table.shape[1])
-    if ns > 1 and q.dtype == torch.bfloat16:
-        return paged_decode_split_merged(q, k_pool, v_pool, page_table,
-                                         kv_len, ns, scale=scale)
-    if ns > 1:
-        m, l, acc = paged_decode_split(q, k_pool, v_pool, page_table, kv_len,
-                                       ns, scale=scale)
-        return split_combine(m, l, acc, q.dtype).reshape(b, h, 1, d)
-    fn, kernel, last = _decode_entry("flash_paged_decode", q, b, hkv, False,
-                                     _cluster)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b,
-                 h, hkv, psz, page_table.shape[1], d, last, scale, _stream(q))
-    _raise_on("flash_paged_decode", err)
-    flash_paged_decode.launches += 1
-    flash_paged_decode.last_kernel = kernel
-    return out
+    [0, nblk * psz] on the card).  Output like q.  ``block_k`` is the key
+    tile, keys per K/V tile (a ring stage; whole pages): for a bfloat16 q
+    one of :func:`decode_block_ks` (64 by default), for float32 the SIMT
+    template's 32; another raises ``ValueError``.  ``num_splits``
+    (clamped to the table's ``block_k``-key tiles) above 1 runs K5a and
+    K5c, else K3: for a bfloat16 q the cluster kernel (K5a and K5c: its
+    partials mode merging in its epilogue, one launch), for float32 the
+    SIMT templates (K5a, then K5c).  ``_cluster`` overrides
+    :func:`cluster_size` (tests only)."""
+    return _paged_decode("flash_paged_decode", flash_paged_decode, q,
+                         (k_pool, v_pool), page_table, kv_len, scale,
+                         num_splits, block_k, _cluster)
 
 
 def flash_paged_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
@@ -636,110 +762,91 @@ def flash_paged_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
                              kv_len: torch.Tensor, *,
                              scale: float | None = None,
                              num_splits: int | None = None,
+                             block_k: int | None = None,
                              _cluster: int | None = None) -> torch.Tensor:
     """:func:`flash_paged_decode` over int8 pools (P, Hkv, psz, D) with
     float32 per-row scales (P, Hkv, psz); q float32 or bfloat16, output
-    like q.  K6a (the cluster kernel for bfloat16, as K3), or K6b and K5c
-    for ``num_splits`` above 1 (bfloat16: the cluster kernel's partials
-    mode merging in its epilogue, one launch, as K5a; float32: the SIMT
-    template, then K5c)."""
-    _check("flash_paged_decode_quant", q, k_pool, v_pool, page_table,
-           (kv_len,), (k_scale, v_scale))
-    b, h, hkv, psz, d, scale = _decode_shape("flash_paged_decode_quant", q,
-                                             k_pool, scale)
-    ns = _num_splits(num_splits, page_table.shape[1])
-    if ns > 1 and q.dtype == torch.bfloat16:
-        return paged_decode_split_quant_merged(q, k_pool, v_pool, k_scale,
-                                               v_scale, page_table, kv_len,
-                                               ns, scale=scale)
-    if ns > 1:
-        m, l, acc = paged_decode_split_quant(q, k_pool, v_pool, k_scale,
-                                             v_scale, page_table, kv_len, ns,
-                                             scale=scale)
-        return split_combine(m, l, acc, q.dtype).reshape(b, h, 1, d)
-    fn, kernel, last = _decode_entry("flash_paged_decode_quant", q, b, hkv,
-                                     True, _cluster)
-    out = torch.empty_like(q)
+    like q, ``block_k`` as there.  K6a (the cluster kernel for bfloat16,
+    as K3), or K6b and K5c for ``num_splits`` above 1 (bfloat16: the
+    cluster kernel's partials mode merging in its epilogue, one launch, as
+    K5a; float32: the SIMT template, then K5c)."""
+    return _paged_decode("flash_paged_decode_quant", flash_paged_decode_quant,
+                         q, (k_pool, v_pool, k_scale, v_scale), page_table,
+                         kv_len, scale, num_splits, block_k, _cluster)
+
+
+def _prefill_split(name: str, wrapper, q: torch.Tensor, pools: tuple,
+                   page_table: torch.Tensor, start: torch.Tensor,
+                   kv_len: torch.Tensor, num_splits: int,
+                   scale: float | None, block_q: int | None,
+                   block_k: int | None):
+    """The body of :func:`paged_prefill_split` and
+    :func:`paged_prefill_split_quant` (``pools`` with the scales)."""
+    _check(name, q, pools[0], pools[1], page_table, (start, kv_len),
+           pools[2:] or None)
+    _check_splits(name, num_splits)
+    b, h, hkv, c, psz, d, scale = _prefill_shape(q, pools[0], scale)
+    suffix = "_quant" if len(pools) == 4 else ""
+    if q.dtype == torch.bfloat16:
+        check_tc_shape(name, h, hkv, d)
+        tile = prefill_tile(name, q, hkv, block_q, block_k)
+        fn = getattr(_tc_lib(), f"repro_paged_prefill_split{suffix}_tc")
+        kernel, extra = TC_KERNEL, tile
+    else:
+        tile = prefill_tile(name, q, hkv, block_q, block_k)
+        fn = getattr(_lib(), f"repro_paged_prefill_split{suffix}")
+        kernel, extra = "paged_prefill_kernel", ()
+    m, l, acc = _prefill_partials(q, num_splits)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 k_scale.data_ptr(), v_scale.data_ptr(),
-                 page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b,
-                 h, hkv, psz, page_table.shape[1], d, last, scale, _stream(q))
-    _raise_on("flash_paged_decode_quant", err)
-    flash_paged_decode_quant.launches += 1
-    flash_paged_decode_quant.last_kernel = kernel
-    return out
+        err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
+                 page_table.data_ptr(), start.data_ptr(), kv_len.data_ptr(),
+                 m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, h, hkv, c,
+                 psz, page_table.shape[1], num_splits, d, *extra,
+                 _DTYPES[q.dtype], scale, _stream(q))
+    _raise_on(name, err)
+    _count(wrapper, kernel, tile)
+    return m, l, acc
 
 
 def paged_prefill_split(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, page_table: torch.Tensor,
                         start: torch.Tensor, kv_len: torch.Tensor,
-                        num_splits: int, *, scale: float | None = None):
+                        num_splits: int, *, scale: float | None = None,
+                        block_q: int | None = None,
+                        block_k: int | None = None):
     """K5b: phase 1 of split prefill/verify over fp pools; returns the
     fp32 partials (m, l, acc) of ``num_splits`` splits, (B, H, ns, C) and
     (.., D).  A bfloat16 q runs the tensor-core kernel's partials mode
-    (its shape checked as K4's), a float32 q the SIMT template;
-    ``last_kernel`` names the one launched last."""
-    _check("paged_prefill_split", q, k_pool, v_pool, page_table,
-           (start, kv_len))
-    _check_splits("paged_prefill_split", num_splits)
-    b, h, hkv, c, psz, d, scale = _prefill_shape(q, k_pool, scale)
-    if q.dtype == torch.bfloat16:
-        check_tc_shape("paged_prefill_split", h, hkv, d)
-        fn, kernel = _tc_lib().repro_paged_prefill_split_tc, TC_KERNEL
-    else:
-        fn, kernel = _lib().repro_paged_prefill_split, "paged_prefill_kernel"
-    m, l, acc = _prefill_partials(q, num_splits)
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), start.data_ptr(), kv_len.data_ptr(),
-            m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, h, hkv, c, psz,
-            page_table.shape[1], num_splits, d, _DTYPES[q.dtype], scale,
-            _stream(q))
-    _raise_on("paged_prefill_split", err)
-    paged_prefill_split.launches += 1
-    paged_prefill_split.last_kernel = kernel
-    return m, l, acc
+    (its shape checked as K4's) at the tile (``block_q``, ``block_k``) of
+    :func:`prefill_tile`, a float32 q the SIMT template; ``last_kernel``
+    names the one launched last."""
+    return _prefill_split("paged_prefill_split", paged_prefill_split, q,
+                          (k_pool, v_pool), page_table, start, kv_len,
+                          num_splits, scale, block_q, block_k)
 
 
 def paged_prefill_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
                               v_pool: torch.Tensor, k_scale: torch.Tensor,
                               v_scale: torch.Tensor, page_table: torch.Tensor,
                               start: torch.Tensor, kv_len: torch.Tensor,
-                              num_splits: int, *, scale: float | None = None):
+                              num_splits: int, *, scale: float | None = None,
+                              block_q: int | None = None,
+                              block_k: int | None = None):
     """K6d: :func:`paged_prefill_split` over int8 pools and their scales.
     A bfloat16 q runs the tensor-core kernel's partials mode over int8
     pools (its shape checked as K6c's), a float32 q the SIMT template;
     ``last_kernel`` names the one launched last."""
-    _check("paged_prefill_split_quant", q, k_pool, v_pool, page_table,
-           (start, kv_len), (k_scale, v_scale))
-    _check_splits("paged_prefill_split_quant", num_splits)
-    b, h, hkv, c, psz, d, scale = _prefill_shape(q, k_pool, scale)
-    if q.dtype == torch.bfloat16:
-        check_tc_shape("paged_prefill_split_quant", h, hkv, d)
-        fn, kernel = _tc_lib().repro_paged_prefill_split_quant_tc, TC_KERNEL
-    else:
-        fn, kernel = (_lib().repro_paged_prefill_split_quant,
-                      "paged_prefill_kernel")
-    m, l, acc = _prefill_partials(q, num_splits)
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-            start.data_ptr(), kv_len.data_ptr(), m.data_ptr(), l.data_ptr(),
-            acc.data_ptr(), b, h, hkv, c, psz, page_table.shape[1],
-            num_splits, d, _DTYPES[q.dtype], scale, _stream(q))
-    _raise_on("paged_prefill_split_quant", err)
-    paged_prefill_split_quant.launches += 1
-    paged_prefill_split_quant.last_kernel = kernel
-    return m, l, acc
+    return _prefill_split("paged_prefill_split_quant",
+                          paged_prefill_split_quant, q,
+                          (k_pool, v_pool, k_scale, v_scale), page_table,
+                          start, kv_len, num_splits, scale, block_q, block_k)
 
 
-def _prefill_merged(name: str, fn, q: torch.Tensor, pools: tuple,
+def _prefill_merged(name: str, wrapper, fn, q: torch.Tensor, pools: tuple,
                     page_table: torch.Tensor, start: torch.Tensor,
                     kv_len: torch.Tensor, num_splits: int,
-                    scale: float | None, return_partials: bool):
+                    scale: float | None, return_partials: bool,
+                    block_q: int | None, block_k: int | None):
     """One launch of the tensor-core partials mode with K5c's merge in its
     epilogue: ``pools`` is (k, v) or (k, v, k_scale, v_scale)."""
     _check(name, q, pools[0], pools[1], page_table, (start, kv_len),
@@ -748,17 +855,18 @@ def _prefill_merged(name: str, fn, q: torch.Tensor, pools: tuple,
     _check_bf16(name, q)
     b, h, hkv, c, psz, d, scale = _prefill_shape(q, pools[0], scale)
     check_tc_shape(name, h, hkv, d)
+    bq, bk = prefill_tile(name, q, hkv, block_q, block_k)
     m, l, acc = _prefill_partials(q, num_splits)
     out = torch.empty_like(q)
-    rows = TC_TILE_ROWS // (h // hkv)          # chunk rows per q tile
-    counters = _arrivals(q, b * hkv * -(-c // rows))
+    counters = _arrivals(q, b * hkv * -(-c // bq))    # q tiles of bq rows
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
                  page_table.data_ptr(), start.data_ptr(), kv_len.data_ptr(),
                  m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
                  counters.data_ptr(), b, h, hkv, c, psz, page_table.shape[1],
-                 num_splits, d, scale, _stream(q))
+                 num_splits, d, bq, bk, scale, _stream(q))
     _raise_merged(name, err, counters)
+    _count(wrapper, TC_KERNEL, (bq, bk))
     return (out, (m, l, acc)) if return_partials else out
 
 
@@ -766,20 +874,21 @@ def paged_prefill_split_merged(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, page_table: torch.Tensor,
                                start: torch.Tensor, kv_len: torch.Tensor,
                                num_splits: int, *, scale: float | None = None,
-                               return_partials: bool = False):
+                               return_partials: bool = False,
+                               block_q: int | None = None,
+                               block_k: int | None = None):
     """K5b with K5c's merge in its epilogue, one launch (bfloat16 q only):
-    :func:`paged_prefill_split`'s tensor-core partials mode, whose last
-    split of each (lane, kv head, q tile) to finish merges the ns splits'
-    partials into o (B, H, C, D) bf16 as :func:`split_combine` does, bit
-    for bit.  ``return_partials`` returns the partials beside o, ``(o,
-    (m, l, acc))``."""
-    out = _prefill_merged("paged_prefill_split_merged",
-                          _tc_lib().repro_paged_prefill_split_merged_tc, q,
-                          (k_pool, v_pool), page_table, start, kv_len,
-                          num_splits, scale, return_partials)
-    paged_prefill_split_merged.launches += 1
-    paged_prefill_split_merged.last_kernel = TC_KERNEL
-    return out
+    :func:`paged_prefill_split`'s tensor-core partials mode at the tile
+    (``block_q``, ``block_k``), whose last split of each (lane, kv head, q
+    tile) to finish merges the ns splits' partials into o (B, H, C, D)
+    bf16 as :func:`split_combine` does, bit for bit.  ``return_partials``
+    returns the partials beside o, ``(o, (m, l, acc))``."""
+    return _prefill_merged("paged_prefill_split_merged",
+                           paged_prefill_split_merged,
+                           _tc_lib().repro_paged_prefill_split_merged_tc, q,
+                           (k_pool, v_pool), page_table, start, kv_len,
+                           num_splits, scale, return_partials, block_q,
+                           block_k)
 
 
 def paged_prefill_split_quant_merged(q: torch.Tensor, k_pool: torch.Tensor,
@@ -790,15 +899,55 @@ def paged_prefill_split_quant_merged(q: torch.Tensor, k_pool: torch.Tensor,
                                      start: torch.Tensor, kv_len: torch.Tensor,
                                      num_splits: int, *,
                                      scale: float | None = None,
-                                     return_partials: bool = False):
+                                     return_partials: bool = False,
+                                     block_q: int | None = None,
+                                     block_k: int | None = None):
     """K6d with K5c's merge in its epilogue: :func:`paged_prefill_split_merged`
     over int8 pools and their scales, one launch, bfloat16 q only."""
-    out = _prefill_merged("paged_prefill_split_quant_merged",
-                          _tc_lib().repro_paged_prefill_split_quant_merged_tc,
-                          q, (k_pool, v_pool, k_scale, v_scale), page_table,
-                          start, kv_len, num_splits, scale, return_partials)
-    paged_prefill_split_quant_merged.launches += 1
-    paged_prefill_split_quant_merged.last_kernel = TC_KERNEL
+    return _prefill_merged("paged_prefill_split_quant_merged",
+                           paged_prefill_split_quant_merged,
+                           _tc_lib().repro_paged_prefill_split_quant_merged_tc,
+                           q, (k_pool, v_pool, k_scale, v_scale), page_table,
+                           start, kv_len, num_splits, scale, return_partials,
+                           block_q, block_k)
+
+
+def _paged_prefill(name: str, wrapper, q: torch.Tensor, pools: tuple,
+                   page_table: torch.Tensor, start: torch.Tensor,
+                   kv_len: torch.Tensor, scale: float | None,
+                   num_splits: int | None, block_q: int | None,
+                   block_k: int | None) -> torch.Tensor:
+    """The body of :func:`flash_paged_prefill` (``pools`` (k, v)) and
+    :func:`flash_paged_prefill_quant` (with the scales)."""
+    quant = len(pools) == 4
+    psz = pools[0].shape[2] if pools[0].dim() == 4 else 1
+    keys = page_table.shape[-1] * psz
+    bk = block_k if block_k is not None else (
+        TC_TILE_KEYS if q.dtype == torch.bfloat16 else SIMT_PREFILL_TILE[1])
+    ns = _num_splits(num_splits, keys, bk)
+    if ns > 1 and q.dtype == torch.bfloat16:     # checks its inputs
+        merged = (paged_prefill_split_quant_merged if quant
+                  else paged_prefill_split_merged)
+        return merged(q, *pools, page_table, start, kv_len, ns, scale=scale,
+                      block_q=block_q, block_k=block_k)
+    if ns > 1:              # K5b / K6d check their inputs
+        split = paged_prefill_split_quant if quant else paged_prefill_split
+        m, l, acc = split(q, *pools, page_table, start, kv_len, ns,
+                          scale=scale, block_q=block_q, block_k=block_k)
+        return split_combine(m, l, acc, q.dtype)
+    _check(name, q, pools[0], pools[1], page_table, (start, kv_len),
+           pools[2:] or None)
+    b, h, hkv, c, psz, d, scale = _prefill_shape(q, pools[0], scale)
+    tile = prefill_tile(name, q, hkv, block_q, block_k)
+    fn, kernel, extra = _prefill_entry(name, q, hkv, quant, *tile)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
+                 page_table.data_ptr(), start.data_ptr(), kv_len.data_ptr(),
+                 out.data_ptr(), b, h, hkv, c, psz, page_table.shape[1], d,
+                 *extra, scale, _stream(q))
+    _raise_on(name, err)
+    _count(wrapper, kernel, tile)
     return out
 
 
@@ -806,36 +955,24 @@ def flash_paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, page_table: torch.Tensor,
                         start: torch.Tensor, kv_len: torch.Tensor, *,
                         scale: float | None = None,
-                        num_splits: int | None = None) -> torch.Tensor:
+                        num_splits: int | None = None,
+                        block_q: int | None = None,
+                        block_k: int | None = None) -> torch.Tensor:
     """Paged chunked prefill: q (B, H, C, D), pools (P, Hkv, psz, D),
     page_table (B, nblk), start and kv_len (B,) int32 on q's device.
     Output like q; rows at positions ``>= kv_len`` are padding.
-    ``num_splits`` (clamped to nblk) above 1 runs K5b and K5c (for a
+    ``block_q`` counts query positions per tile (the kernel's row tile is
+    ``block_q`` x G query rows, G = H / Hkv) and ``block_k`` keys per K/V
+    tile (whole pages): one of :func:`prefill_tiles` each, 32 // G and 128
+    by default for a bfloat16 q, the SIMT template's 64 and 32 for
+    float32; another raises ``ValueError``.  ``num_splits`` (clamped to
+    the table's ``block_k``-key tiles) above 1 runs K5b and K5c (for a
     bfloat16 q in one launch, :func:`paged_prefill_split_merged`), else
     K4: on the tensor cores for a bfloat16 q (G = H / Hkv must divide 32),
     the SIMT template for float32."""
-    ns = _num_splits(num_splits, page_table.shape[-1])
-    if ns > 1 and q.dtype == torch.bfloat16:     # checks its inputs
-        return paged_prefill_split_merged(q, k_pool, v_pool, page_table,
-                                          start, kv_len, ns, scale=scale)
-    if ns > 1:              # K5b checks its inputs
-        m, l, acc = paged_prefill_split(q, k_pool, v_pool, page_table, start,
-                                        kv_len, ns, scale=scale)
-        return split_combine(m, l, acc, q.dtype)
-    _check("flash_paged_prefill", q, k_pool, v_pool, page_table,
-           (start, kv_len))
-    b, h, hkv, c, psz, d, scale = _prefill_shape(q, k_pool, scale)
-    fn, kernel = _prefill_entry("flash_paged_prefill", q, hkv, quant=False)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 page_table.data_ptr(), start.data_ptr(), kv_len.data_ptr(),
-                 out.data_ptr(), b, h, hkv, c, psz, page_table.shape[1], d,
-                 _DTYPES[q.dtype], scale, _stream(q))
-    _raise_on("flash_paged_prefill", err)
-    flash_paged_prefill.launches += 1
-    flash_paged_prefill.last_kernel = kernel
-    return out
+    return _paged_prefill("flash_paged_prefill", flash_paged_prefill, q,
+                          (k_pool, v_pool), page_table, start, kv_len, scale,
+                          num_splits, block_q, block_k)
 
 
 def flash_paged_prefill_quant(q: torch.Tensor, k_pool: torch.Tensor,
@@ -843,38 +980,18 @@ def flash_paged_prefill_quant(q: torch.Tensor, k_pool: torch.Tensor,
                               v_scale: torch.Tensor, page_table: torch.Tensor,
                               start: torch.Tensor, kv_len: torch.Tensor, *,
                               scale: float | None = None,
-                              num_splits: int | None = None) -> torch.Tensor:
+                              num_splits: int | None = None,
+                              block_q: int | None = None,
+                              block_k: int | None = None) -> torch.Tensor:
     """:func:`flash_paged_prefill` over int8 pools with float32 per-row
-    scales (P, Hkv, psz); q float32 or bfloat16, output like q.  K6c (on
-    the tensor cores for bfloat16, as K4), or K6d and K5c for
-    ``num_splits`` above 1 (for bfloat16 in one launch,
+    scales (P, Hkv, psz); q float32 or bfloat16, output like q, the tiles
+    as there.  K6c (on the tensor cores for bfloat16, as K4), or K6d and
+    K5c for ``num_splits`` above 1 (for bfloat16 in one launch,
     :func:`paged_prefill_split_quant_merged`)."""
-    ns = _num_splits(num_splits, page_table.shape[-1])
-    if ns > 1 and q.dtype == torch.bfloat16:     # checks its inputs
-        return paged_prefill_split_quant_merged(
-            q, k_pool, v_pool, k_scale, v_scale, page_table, start, kv_len,
-            ns, scale=scale)
-    if ns > 1:              # K6d checks its inputs
-        m, l, acc = paged_prefill_split_quant(q, k_pool, v_pool, k_scale,
-                                              v_scale, page_table, start,
-                                              kv_len, ns, scale=scale)
-        return split_combine(m, l, acc, q.dtype)
-    _check("flash_paged_prefill_quant", q, k_pool, v_pool, page_table,
-           (start, kv_len), (k_scale, v_scale))
-    b, h, hkv, c, psz, d, scale = _prefill_shape(q, k_pool, scale)
-    fn, kernel = _prefill_entry("flash_paged_prefill_quant", q, hkv,
-                                quant=True)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-                 start.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, h,
-                 hkv, c, psz, page_table.shape[1], d, _DTYPES[q.dtype], scale,
-                 _stream(q))
-    _raise_on("flash_paged_prefill_quant", err)
-    flash_paged_prefill_quant.launches += 1
-    flash_paged_prefill_quant.last_kernel = kernel
-    return out
+    return _paged_prefill("flash_paged_prefill_quant",
+                          flash_paged_prefill_quant, q,
+                          (k_pool, v_pool, k_scale, v_scale), page_table,
+                          start, kv_len, scale, num_splits, block_q, block_k)
 
 
 #: the split routes that merge in the phase-1 kernel (K5c in the epilogue
@@ -892,3 +1009,4 @@ for _kernel in KERNELS:
     _kernel.launches = 0
     if _kernel is not split_combine:      # one kernel: no route to name
         _kernel.last_kernel = None
+        _kernel.by_tile = collections.Counter()

@@ -26,6 +26,24 @@ request streams its tokens, a client bounced with 429 (more than
 gains the pipeline's counters and goodput under the ``--slo-ttft`` and
 ``--slo-itl`` SLOs.
 
+``--autotune`` serves through run-time AT (:mod:`repro_torch.tuning.dynamic`,
+sessions of :mod:`repro_torch.at` in ``--workdir``): each decode step
+through its length bucket's ``DecodeBucket`` region over the decode
+kernel's key tiles (x ``num_splits`` 1, 2, 4 on the paged pool, pinned by
+``--num-splits``), each prefill chunk through ``PrefillBucket`` over the
+prefill kernel's (block_q x block_k) tiles, each verify through
+``SpecBucket`` (window k x verify tile), each prefix-cache admission
+through ``PrefixPolicy`` and, with ``--gateway``, the pipeline's knobs
+through ``GatewayPolicy`` windows of ``--policy-window`` requests.  A
+region measures each candidate once (a candidate waits for the device
+while its region measures) and commits the fastest; the winners persist
+in the workdir's record file (``--tuning-backend``, over a read-only
+``--golden-db``), so a second serve in the same workdir makes no
+measurement.  ``--kv-dtype auto`` (paged, with ``--autotune``) calibrates
+fp against int8 pages per bucket under a greedy-agreement floor and
+builds the pool in the majority winner.  ``python -m repro_torch.at list
+--workdir DIR`` lists what a workdir has tuned.
+
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 8
@@ -45,6 +63,8 @@ Usage::
         --cache paged --prefill-chunk 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch falcon-mamba-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
+        --prefill-chunk 128 --autotune --workdir /tmp/at   # twice: warm
 """
 from __future__ import annotations
 
@@ -57,10 +77,14 @@ import time
 import numpy as np
 import torch
 
+from .. import at
 from ..configs import get_arch
+from ..core.executor import _block
 from ..device import resolve
+from ..kernels import paged_attention as pa
 from ..models import build_model
-from ..serving import Request, SamplingParams, ServingEngine
+from ..models.transformer import torch_dtype
+from ..serving import REDUCED_BUCKETS, Request, SamplingParams, ServingEngine
 from ..serving.gateway import GatewayServer, PipelinedEngine, sse_generate
 from ..serving.gateway.pipeline import goodput_stats
 
@@ -68,7 +92,7 @@ from ..serving.gateway.pipeline import goodput_stats
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The serve run shape as one typed object (the fields of the JAX
-    package's ``ServeConfig`` that this slice runs, plus ``reduced`` and
+    package's ``ServeConfig`` but ``mesh``, plus ``reduced`` and
     ``device``)."""
 
     arch: str = "yi-6b"
@@ -97,6 +121,11 @@ class ServeConfig:
     queue_limit: int = 64
     slo_ttft_s: float = 30.0
     slo_itl_s: float = 5.0
+    policy_window: int = 2
+    autotune: bool = False
+    workdir: str = "."
+    tuning_backend: str = "jsonl"
+    golden_db: str | None = None
     reduced: bool = True
     device: str = "cuda"
 
@@ -119,14 +148,248 @@ class ServeConfig:
         return dataclasses.asdict(self)
 
 
+class _Waits:
+    """Makes the serve's tuning variants wait for the device while their
+    region measures, and not once it has committed.
+
+    ``ATContext`` times a candidate with the host clock from call to
+    return, and an eager CUDA step returns as soon as its kernels are
+    queued: a variant whose region is still measuring synchronises the
+    devices of its result (``core.executor._block``) before it returns.
+    A variant finds its region by identity among the alternatives of the
+    tuner's regions.  ``count`` holds the waits by region."""
+
+    def __init__(self):
+        self.tuner = None
+        self.count: collections.Counter = collections.Counter()
+        self._region_of: dict = {}
+
+    def measuring(self, variant) -> str | None:
+        """The name of ``variant``'s region if it is measuring, else None."""
+        name = self._region_of.get(variant)
+        if name is None:
+            t = self.tuner
+            for region in (*t.regions.values(), *t.prefill_regions.values(),
+                           *t.spec_regions.values()):
+                for sub in region.subregions:
+                    self._region_of[sub.fn] = region.name
+            name = self._region_of[variant]
+        st = self.tuner.ctx.dynamic_state.get(name)
+        return name if st is not None and st.committed is None else None
+
+    def __call__(self, variant, out, measuring: bool | None = None):
+        """``out``, after the wait if ``variant``'s region measures (the
+        caller's ``measuring``, where it knows)."""
+        name = self.measuring(variant)
+        if measuring is None:
+            measuring = name is not None
+        if measuring:
+            _block(out)
+            self.count[name] += 1
+        return out
+
+
+def _variant(waits: _Waits, step, kernel: str, **tiles):
+    """A tuning alternative: publish ``tiles`` to ``kernel`` (what
+    ``kernels.ops`` reads on the kernel route), run ``step``, and wait for
+    the device while the region measures."""
+    def variant(*args):
+        at.publish(kernel, **tiles)
+        return waits(variant, step(*args))
+    return variant
+
+
+def _make_kv_precision_bench(model, page_size: int, device: torch.device,
+                             lanes: int = 2, decode_steps: int = 3):
+    """The calibration bench of the ``KVPrecision`` regions, as the JAX
+    serve's: ``make_variant(bucket, kv_dtype, block_k)`` builds one
+    candidate, a throwaway paged pool of that precision, one prefill of a
+    synthetic prompt (at most 4 pages, drawn from the bucket) and a few
+    greedy decode steps at ``block_k``, timed end to end (each step's
+    token comes to the host, so the time includes the device's).  It
+    reports ``time_per_token`` and ``agreement``, the share of its greedy
+    tokens equal to the fp candidate's for the bucket (fp: 1.0)."""
+    ref_tokens: dict[int, list] = {}
+
+    def run(bucket, kv_dtype, block_k, params):
+        plen = min(bucket, 4 * page_size)
+        blocks = -(-(plen + decode_steps) // page_size)
+        caches = model.init_paged_caches(lanes * blocks + 1, page_size,
+                                         device,
+                                         quantized=kv_dtype == "int8")
+        table = torch.from_numpy(
+            (np.arange(lanes)[:, None] * blocks + np.arange(blocks)[None, :]
+             + 1).astype(np.int32)).to(device)
+        rng = np.random.default_rng(bucket)
+        prompt = torch.from_numpy(np.tile(
+            rng.integers(0, model.cfg.vocab_size, size=plen),
+            (lanes, 1))).to(device)
+        start = torch.zeros((lanes,), dtype=torch.long, device=device)
+        kv_len = torch.full((lanes,), plen, dtype=torch.long, device=device)
+        at.publish("flash_paged_decode", block_k=block_k)
+        at.publish("flash_paged_prefill", block_k=block_k)
+        t0 = time.perf_counter()
+        logits, _ = model.paged_prefill_step(params, caches, table, prompt,
+                                             start, kv_len, kv_len - 1)
+        tok = logits.argmax(-1)
+        toks = [int(tok[0])]
+        pos = kv_len
+        for _ in range(decode_steps):
+            logits, _ = model.paged_decode_step(params, caches, table,
+                                                tok[:, None], pos)
+            tok = logits.argmax(-1)
+            toks.append(int(tok[0]))
+            pos = pos + 1
+        return toks, (time.perf_counter() - t0) / (1 + decode_steps)
+
+    def make_variant(bucket, kv_dtype, block_k):
+        def variant(params, bucket=bucket, kv_dtype=kv_dtype,
+                    block_k=block_k):
+            toks, tpt = run(bucket, kv_dtype, block_k, params)
+            if kv_dtype == "fp":
+                ref_tokens.setdefault(bucket, toks)
+                agreement = 1.0
+            else:
+                if bucket not in ref_tokens:   # int8 measured first
+                    ref_tokens[bucket], _ = run(bucket, "fp", block_k,
+                                                params)
+                ref = ref_tokens[bucket]
+                agreement = sum(a == r for a, r in zip(toks, ref)) \
+                    / max(len(ref), 1)
+            return {"kv_dtype": kv_dtype, "block_k": block_k,
+                    "time_per_token": tpt, "agreement": agreement}
+        return variant
+
+    return make_variant
+
+
+def tile_ladders(model, page_size: int) -> dict[str, tuple]:
+    """The run-time AT's candidate tiles for ``model``'s query type, head
+    dim and group size: the instances of the decode and prefill kernels
+    (``kernels.paged_attention.decode_block_ks`` and ``prefill_tiles``),
+    the paged ones cut to whole pages (``tuning.page_block_ks``)."""
+    from ..tuning import page_block_ks
+    cfg = model.cfg
+    dtype = torch_dtype(cfg.compute_dtype)
+    dense_ks = pa.decode_block_ks(dtype, cfg.head_dim)
+    block_qs, prefill_ks = pa.prefill_tiles(dtype, cfg.head_dim,
+                                            cfg.n_heads // cfg.n_kv_heads)
+    decode_ks = page_block_ks(page_size, dense_ks)
+    prefill_ks = page_block_ks(page_size, prefill_ks)
+    return {"dense_block_k": dense_ks, "block_k": decode_ks,
+            "block_q": block_qs, "prefill_block_k": prefill_ks,
+            # the calibration bench publishes one tile to both kernels
+            "kv_block_k": tuple(bk for bk in decode_ks if bk in prefill_ks)
+            or decode_ks[:1]}
+
+
+def make_autotuner(model, scfg: ServeConfig):
+    """The serve's ``DecodeAutoTuner`` (a ``repro_torch.at`` session in
+    ``scfg.workdir``) with the JAX serve's region families over the port's
+    tile ladders (:func:`tile_ladders`): ``DecodeBucket`` (block_k x
+    num_splits 1, 2, 4 on the paged pool, ``scfg.num_splits`` pinning the
+    splits; block_k alone on dense lanes), ``PrefillBucket`` at the
+    engine's chunk (block_q x block_k), ``SpecBucket`` (k in 1, k/2, k x
+    the smallest verify block_q that holds k + 1 positions x block_k),
+    ``KVPrecision`` (fp, int8 x block_k) for ``--kv-dtype auto``,
+    ``PrefixPolicy`` (min match 1, 2 x lru, fifo) and ``GatewayPolicy``
+    (max_inflight 1, 2 x admit_batch 2, 8).  Its ``waits`` count the
+    measured calls that waited for the device, by region."""
+    from ..tuning import DecodeAutoTuner
+    session = at.AutoTuner(scfg.workdir, record_backend=scfg.tuning_backend,
+                           golden_db=scfg.golden_db)
+    waits = _Waits()
+    tiles = tile_ladders(model, scfg.page_size)
+    if scfg.cache != "paged":
+        tuner = DecodeAutoTuner(
+            session, lambda bk: _variant(waits, model.decode_step,
+                                         "flash_decode", block_k=bk),
+            buckets=REDUCED_BUCKETS, block_ks=tiles["dense_block_k"])
+    else:
+        splits = ((1, 2, 4) if scfg.num_splits is None
+                  else (int(scfg.num_splits),))
+        tuner = DecodeAutoTuner(
+            session, lambda bk, ns: _variant(
+                waits, model.paged_decode_step, "flash_paged_decode",
+                block_k=bk, num_splits=ns),
+            buckets=REDUCED_BUCKETS, block_ks=tiles["block_k"],
+            num_splits=splits)
+        if scfg.prefill_chunk is not None:
+            tuner.add_prefill(
+                lambda bq, bk: _variant(waits, model.paged_prefill_step,
+                                        "flash_paged_prefill", block_q=bq,
+                                        block_k=bk),
+                chunk_sizes=(scfg.prefill_chunk,), buckets=REDUCED_BUCKETS,
+                block_qs=tiles["block_q"], block_ks=tiles["prefill_block_k"])
+        if scfg.draft:
+            k = scfg.spec_k
+            verify_q = min((bq for bq in tiles["block_q"] if bq >= k + 1),
+                           default=max(tiles["block_q"]))
+
+            def make_verify(k, block_q, block_k):
+                def variant(p, caches, table, tokens, start, kv_len,
+                            measure=True):
+                    at.publish("flash_paged_verify", block_q=block_q,
+                               block_k=block_k)
+                    t0 = time.perf_counter()
+                    logits, caches = waits(variant, model.speculative_step(
+                        p, caches, table, tokens[:, :k + 1], start,
+                        torch.minimum(kv_len, start + k + 1),
+                        num_splits=scfg.num_splits), measuring=measure)
+                    if not measure:
+                        return logits, caches
+                    dt = time.perf_counter() - t0
+                    # the greedy accept proxy over the live lanes: leading
+                    # draft/argmax matches + 1 = tokens the window emits
+                    am = logits[:, :-1].argmax(-1).cpu().numpy()
+                    dr = tokens[:, 1:k + 1].cpu().numpy()
+                    st, kl = start.cpu().numpy(), kv_len.cpu().numpy()
+                    emitted = 0
+                    for b in range(dr.shape[0]):
+                        if kl[b] <= st[b]:
+                            continue
+                        w, a = min(k, int(kl[b] - st[b]) - 1), 0
+                        while a < w and dr[b, a] == am[b, a]:
+                            a += 1
+                        emitted += a + 1
+                    return {"logits": logits, "caches": caches,
+                            "time_per_token": dt / max(emitted, 1)}
+                return variant
+
+            tuner.add_spec(make_verify,
+                           ks=tuple(sorted({1, max(1, k // 2), k})),
+                           buckets=REDUCED_BUCKETS, block_qs=(verify_q,),
+                           block_ks=tiles["prefill_block_k"])
+        if scfg.prefix_cache:
+            def make_policy(min_match, eviction):
+                def variant(kv, lane_id, prompt):
+                    kv.set_prefix_policy(min_match=min_match,
+                                         eviction=eviction)
+                    cached = kv.seed_prefix(lane_id, prompt)
+                    return {"cached": cached, "miss_fraction":
+                            (len(prompt) - cached) / max(len(prompt), 1)}
+                return variant
+
+            tuner.add_prefix_policy(make_policy)
+        if scfg.kv_dtype == "auto":
+            tuner.add_kv_precision(
+                _make_kv_precision_bench(model, scfg.page_size,
+                                         resolve(scfg.device)),
+                block_ks=tiles["kv_block_k"], buckets=REDUCED_BUCKETS)
+    if scfg.gateway:
+        tuner.add_gateway(max_inflights=(1, 2), admit_batches=(2, 8))
+    waits.tuner = tuner
+    tuner.waits = waits
+    return tuner
+
+
 def serve_config(scfg: ServeConfig) -> dict:
     """Serve ``scfg.n_requests`` synthetic requests; returns the report."""
-    if scfg.kv_dtype == "auto":
-        raise NotImplementedError(
-            "--kv-dtype auto picks the pool dtype by run-time tuning, which "
-            "is not ported yet: ROADMAP queue 1, item 11")
-    if scfg.kv_dtype not in ("fp", "int8"):
+    if scfg.kv_dtype not in ("fp", "int8", "auto"):
         raise ValueError(f"unknown kv_dtype {scfg.kv_dtype!r}")
+    if scfg.kv_dtype == "auto" and not (scfg.cache == "paged"
+                                        and scfg.autotune):
+        raise ValueError("--kv-dtype auto needs --cache paged --autotune")
     dev = resolve(scfg.device)
     cfg = get_arch(scfg.arch)
     if scfg.reduced:
@@ -141,13 +404,29 @@ def serve_config(scfg: ServeConfig) -> dict:
                     f"{flag} needs the paged KV pool, which arch "
                     f"{cfg.name!r} does not use: it keeps recurrent SSM "
                     "state in dense lanes (serve it with --cache dense)")
-    params = model.init(scfg.seed, dev)
+    return serve_model(model, model.init(scfg.seed, dev), scfg)
+
+
+def serve_model(model, params: dict, scfg: ServeConfig) -> dict:
+    """Serve ``scfg``'s requests with a built model and its weights: the
+    run-time tuner (``scfg.autotune``) and ``--kv-dtype auto``'s
+    calibration before the engine is built, then :func:`serve_engine`."""
     draft_model = draft_params = None
     if scfg.draft:
         # self-speculative draft: the target's leading layers (views) with
         # the embedding and head shared
         draft_model = model.draft_model()
         draft_params = model.slice_draft_params(params, draft_model)
+    tuner = make_autotuner(model, scfg) if scfg.autotune else None
+    kv_dtype = scfg.kv_dtype
+    if kv_dtype == "auto":
+        # every (precision x block_k) candidate of every bucket, then one
+        # pool dtype by majority (the pool is built once, up front); a
+        # warm workdir finds every region committed and measures nothing
+        for b in tuner.kv_buckets:
+            while not tuner.kv_precision_committed(b):
+                tuner.kv_precision(b, params)
+        kv_dtype = tuner.resolve_kv_dtype()
     engine = ServingEngine(model, params, n_lanes=scfg.n_lanes,
                            max_len=scfg.max_len, cache=scfg.cache,
                            n_pages=scfg.n_pages, page_size=scfg.page_size,
@@ -157,12 +436,57 @@ def serve_config(scfg: ServeConfig) -> dict:
                            draft_params=draft_params,
                            spec_k=scfg.spec_k if scfg.draft else None,
                            prefix_cache=scfg.prefix_cache,
-                           kv_dtype=scfg.kv_dtype,
+                           kv_dtype=kv_dtype, autotuner=tuner,
                            # split-KV applies to the paged decode and
                            # verify only, as in the JAX package's serve
                            num_splits=(scfg.num_splits
                                        if scfg.cache == "paged" else None))
     return serve_engine(engine, scfg)
+
+
+def autotune_report(tuner) -> dict:
+    """What the run-time AT did: the session's measurements (0 on a warm
+    restart), the regions that measured and those warm-loaded, each
+    measured candidate's cost by region and the numbers it reported, the
+    waits for the device by region, and the committed parameters of every
+    family."""
+    states = tuner.ctx.dynamic_state
+    labels = {r.name: [sub.name for sub in r.subregions]
+              for r in (*tuner.regions.values(),
+                        *tuner.prefill_regions.values(),
+                        *tuner.spec_regions.values(),
+                        *tuner.kv_regions.values(), tuner.prefix_region,
+                        tuner.gateway_region) if r is not None}
+    return {
+        "executor_calls": tuner.session.executor_calls,
+        "measurements": sum(len(st.tried) for st in states.values()),
+        "measured_regions": sorted(n for n, st in states.items()
+                                   if st.tried),
+        "warm_regions": sorted({n for _, n in tuner.session.warm_hits}),
+        "costs": {n: {labels[n][i]: c for i, c in sorted(st.tried.items())}
+                  for n, st in states.items() if st.tried and n in labels},
+        # the numbers candidates reported where their region commits on a
+        # metric (time_per_token, agreement, miss_fraction, goodput)
+        "reported": {n: {labels[n][i]: {k: v for k, v in env.items()
+                                        if isinstance(v, (int, float))}
+                         for i, env in sorted(st.env_seen.items()) if env}
+                     for n, st in states.items()
+                     if n in labels and any(st.env_seen.values())},
+        "waits": dict(getattr(tuner, "waits", _Waits()).count),
+        "committed": {
+            "decode": tuner.committed_params(),
+            "prefill": ({f"{b}_c{cs}": pp for (b, cs), pp
+                         in tuner.committed_prefill_params().items()}
+                        if tuner.prefill_regions else None),
+            "spec": (tuner.committed_spec_params()
+                     if tuner.spec_regions else None),
+            "kv_precision": (tuner.committed_kv_precision_params()
+                             if tuner.kv_regions else None),
+            "prefix": (tuner.committed_prefix_params()
+                       if tuner.prefix_region is not None else None),
+            "gateway": (tuner.committed_gateway_params()
+                        if tuner.gateway_region is not None else None)},
+    }
 
 
 def draw_prompts(scfg: ServeConfig, vocab_size: int) -> list[list[int]]:
@@ -210,7 +534,11 @@ def _serve_gateway(engine: ServingEngine, prompts: list[list[int]],
             return tokens, bounced, final
 
     async def run():
-        pipe = PipelinedEngine(engine, queue_limit=scfg.queue_limit)
+        pipe = PipelinedEngine(engine, queue_limit=scfg.queue_limit,
+                               tuner=engine.autotuner,
+                               policy_window=scfg.policy_window,
+                               slo_ttft_s=scfg.slo_ttft_s,
+                               slo_itl_s=scfg.slo_itl_s)
         srv = GatewayServer(pipe, port=scfg.port)
         await srv.start()
         t0 = time.monotonic()
@@ -286,6 +614,9 @@ def serve_engine(engine: ServingEngine, scfg: ServeConfig) -> dict:
         "prefix_cache": prefix_stats,
         "kv_dtype": engine.kv.kv_dtype,
         "gateway": gateway_report,
+        "autotune": (autotune_report(engine.autotuner)
+                     if engine.autotuner is not None else None),
+        "tuning_db": engine.tuning_db(),
     }
 
 
@@ -314,9 +645,10 @@ def main(argv: list[str] | None = None) -> None:
                          "tick (needs --cache paged)")
     ap.add_argument("--kv-dtype", choices=("fp", "int8", "auto"),
                     default="fp",
-                    help="paged pool storage: the cache dtype, or int8 pages "
-                         "with per-row float32 scales (auto needs run-time "
-                         "tuning, not ported)")
+                    help="paged pool storage: the cache dtype, int8 pages "
+                         "with per-row float32 scales, or auto (the "
+                         "KVPrecision regions calibrate fp against int8 "
+                         "under a greedy-agreement floor; needs --autotune)")
     ap.add_argument("--num-splits", type=int, default=None,
                     help="split each paged decode and verify step's page "
                          "walk into N parallel segments (split-KV; paged "
@@ -350,6 +682,20 @@ def main(argv: list[str] | None = None) -> None:
                          "only requests inside it)")
     ap.add_argument("--slo-itl", type=float, default=5.0,
                     help="gateway: p95 inter-token-latency SLO in seconds")
+    ap.add_argument("--policy-window", type=int, default=2,
+                    help="gateway: finished requests per GatewayPolicy "
+                         "measurement window (with --autotune)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="run-time AT over the decode, prefill, verify, "
+                         "prefix and gateway regions (repro_torch.at)")
+    ap.add_argument("--workdir", default=".",
+                    help="AT session workdir (param files + record store)")
+    ap.add_argument("--tuning-backend", default="jsonl",
+                    help="tuning-DB backend under --workdir "
+                         "(at.record_backends: jsonl | sqlite)")
+    ap.add_argument("--golden-db", default=None,
+                    help="read-only golden winner DB under the local store "
+                         "(from 'python -m repro_torch.at export')")
     ap.add_argument("--reduced", action="store_true", default=True,
                     help="serve the reduced test config (default)")
     ap.add_argument("--full", dest="reduced", action="store_false",
@@ -373,6 +719,12 @@ def main(argv: list[str] | None = None) -> None:
         print(f"[serve] speculative: {out['spec']}")
     if out["prefix_cache"] is not None:
         print(f"[serve] prefix cache: {out['prefix_cache']}")
+    if out["autotune"] is not None:
+        a = out["autotune"]
+        print(f"[serve] autotune: {a['measurements']} measurements in "
+              f"{len(a['measured_regions'])} regions, "
+              f"{len(a['warm_regions'])} warm-loaded, committed "
+              f"{a['committed']}, tuning db {out['tuning_db']}")
     if out["gateway"] is not None:
         g = out["gateway"]
         per_tick = {k: v / max(g["ticks"], 1)

@@ -2,8 +2,8 @@
 
 Run-time tuning regions are keyed by sequence-length bucket, so every
 layer that routes by length must read one ladder.  The port keeps the
-same values, so its tuning records will name the same buckets once the
-tuning layer is ported (ROADMAP queue 1).
+same values, so its tuning records name the same buckets as the JAX
+package's (:mod:`repro_torch.tuning.dynamic`).
 
 * :data:`LENGTH_BUCKETS` — the production ladder (kv lengths up to 32k);
   the default of :func:`repro_torch.serving.engine.length_bucket`.

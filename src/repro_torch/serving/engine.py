@@ -41,13 +41,21 @@ model's steps, as the JAX package's engine does:
 
 Greedy output is token-for-token the JAX engine's on the same weights
 and requests, int8 pages, speculation and the prefix cache included.
-``num_splits`` stands in for the JAX serve's ``at.publish`` of
-``num_splits`` to ``flash_paged_decode`` and ``flash_paged_verify``
-until the tuning layer is ported: it is handed to every paged decode and
-verify step, never to prefill.  ``prefix_min_match`` and
-``prefix_eviction`` are the ``PrefixPolicy`` knobs as plain arguments.
-Run-time tuning and meshes belong to later slices (ROADMAP queue 1) and
-raise here.
+``num_splits`` is handed to every paged decode and verify step, never to
+prefill (``None`` leaves what run-time AT publishes to the kernels).
+``prefix_min_match`` and ``prefix_eviction`` are the ``PrefixPolicy``
+knobs as plain arguments.
+
+Run-time AT (``autotuner``, a :class:`~repro_torch.tuning.DecodeAutoTuner`)
+routes as the JAX engine does: each decode step through its length
+bucket's ``DecodeBucket`` region (the bucket from the lanes' host-side
+positions, no device read), each prefill chunk through its
+``PrefillBucket`` region, each verify through its ``SpecBucket`` region
+(measuring only until the bucket commits, drafting no further than the
+committed window) and each prefix-cache admission through
+``PrefixPolicy``; from ``dispatch`` and ``emit`` too, so the gateway's
+loop routes the same way.  Meshes belong to a later slice (ROADMAP queue
+1, item 10) and raise here.
 """
 from __future__ import annotations
 
@@ -67,10 +75,6 @@ from .scheduler import LaneState, Request, Scheduler
 __all__ = ["ServingEngine", "Request", "LaneState", "TickWork",
            "length_bucket"]
 
-_NOT_PORTED = {
-    "autotuner": "run-time tuning (ROADMAP queue 1, item 11)",
-    "mesh": "tensor-parallel serving (ROADMAP queue 1, item 10)",
-}
 
 
 def length_bucket(n: int, buckets=LENGTH_BUCKETS) -> int:
@@ -111,10 +115,10 @@ class ServingEngine:
                  prefix_min_match: int = 1, prefix_eviction: str = "lru",
                  kv_dtype: str = "fp", swap_compress: bool = False,
                  num_splits: int | None = None, mesh=None):
-        for name, value in (("autotuner", autotuner), ("mesh", mesh)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}: {_NOT_PORTED[name]} is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: tensor-parallel serving (ROADMAP queue 1, item 10) "
+                "is not ported yet")
         self.model = model
         self.params = params
         self.device = params["embed"].device
@@ -171,6 +175,10 @@ class ServingEngine:
             self.draft_pos = [0] * n_lanes   # tokens in the draft's cache
             self._verify = functools.partial(model.speculative_step,
                                              num_splits=num_splits)
+        # run-time AT: a tuning.dynamic.DecodeAutoTuner whose regions take
+        # the decode steps, prefill chunks, verifies and prefix admissions
+        # they declare; None keeps the plain paths
+        self.autotuner = autotuner
         self.scheduler = Scheduler(n_lanes, timeslice=timeslice)
         self.metrics = ServingMetrics()
         self.active: dict[int, Request] = {}
@@ -256,14 +264,25 @@ class ServingEngine:
         if self.spec_k is not None:
             self.draft_pos[lane_id] = 0
 
+    def _tuned(self, family: str) -> bool:
+        """Does the tuner declare the region family (``prefill_regions``,
+        ``spec_regions``, ``prefix_region``)?"""
+        return self.autotuner is not None \
+            and bool(getattr(self.autotuner, family, None))
+
     def _seed_prefix(self, lane_id: int, req: Request) -> int:
-        """Match and seed one admission through the prefix cache (the
-        JAX engine's route through a tuner's ``PrefixPolicy`` region
-        comes with run-time tuning, item 11).  Returns the prefill start
+        """Match and seed one admission through the prefix cache, through
+        the tuner's ``PrefixPolicy`` region when it declares one (its
+        alternatives set their (min match x eviction) knobs first; output
+        is the same under every policy).  Returns the prefill start
         position and stamps the request."""
         if not self.kv.prefix_cache:
             return 0
-        cached = self.kv.seed_prefix(lane_id, req.prompt)
+        if self._tuned("prefix_region"):
+            out = self.autotuner.prefix_policy(self.kv, lane_id, req.prompt)
+            cached = out["cached"] if isinstance(out, dict) else int(out)
+        else:
+            cached = self.kv.seed_prefix(lane_id, req.prompt)
         req.cached_tokens = cached
         return cached
 
@@ -364,12 +383,16 @@ class ServingEngine:
                 self._preempt_lane(lane_id, priority=True)
                 continue
             chunk = req.prompt[start:end] + [0] * (c - (end - start))
-            logits, _ = self.model.paged_prefill_step(
-                self.params, self.kv.caches, self.kv.table_row(lane_id),
-                torch.tensor([chunk], dtype=torch.long, device=self.device),
-                torch.tensor([start], device=self.device),
-                torch.tensor([end], device=self.device),
-                torch.tensor([end - start - 1], device=self.device))
+            args = (self.params, self.kv.caches, self.kv.table_row(lane_id),
+                    torch.tensor([chunk], dtype=torch.long,
+                                 device=self.device),
+                    torch.tensor([start], device=self.device),
+                    torch.tensor([end], device=self.device),
+                    torch.tensor([end - start - 1], device=self.device))
+            if self._tuned("prefill_regions"):
+                logits, _ = self.autotuner.prefill(plen, c, *args)
+            else:
+                logits, _ = self.model.paged_prefill_step(*args)
             self.prefill_chunks += 1
             lane.pos = end
             self.kv.publish_prefix(lane_id, req.prompt, end)
@@ -407,15 +430,25 @@ class ServingEngine:
             self._preempt_lane(lane_id, priority=True)
 
     # -- speculative decode: draft, verify, accept, roll back ---------------
-    def _spec_capacity(self) -> dict[int, int]:
-        """Each decoding lane's draft length for this tick: ``spec_k``
-        clamped by the lane's remaining budget, by ``max_len`` (verify
-        writes K/V at ``pos .. pos + k``) and by the pages it can get; a
-        lane that cannot get even the page of one token is preempted."""
+    def _spec_capacity(self) -> tuple[dict[int, int], int]:
+        """Each decoding lane's draft length for this tick, and the
+        sequence length that keys the tick's ``SpecBucket`` region.  The
+        length is taken once, before this loop's preemptions, so the
+        region that capped the drafting is the one that verifies it.  The
+        draft length is ``spec_k`` (with a tuner whose bucket has
+        committed, the winner's window) clamped by the lane's remaining
+        budget, by ``max_len`` (verify writes K/V at ``pos .. pos + k``)
+        and by the pages it can get; a lane that cannot get even the page
+        of one token is preempted."""
+        seq = max((self.scheduler.lanes[j].pos + 1
+                   for j in self.scheduler.decode_lanes()), default=1)
+        cap = self.spec_k
+        if self._tuned("spec_regions"):
+            cap = self.autotuner.spec_draft_k(seq, self.spec_k)
         k_eff: dict[int, int] = {}
         for i in list(self.scheduler.decode_lanes()):
             lane = self.scheduler.lanes[i]
-            ke = max(0, min(self.spec_k, lane.remaining - 1,
+            ke = max(0, min(cap, lane.remaining - 1,
                             self.max_len - 1 - lane.pos))
             while ke >= 0 and not self.kv.ensure_tokens(i, lane.pos + ke + 1):
                 ke -= 1
@@ -428,7 +461,7 @@ class ServingEngine:
                 self._preempt_lane(i, priority=True)
                 continue
             k_eff[i] = ke
-        return k_eff
+        return k_eff, seq
 
     def _draft_propose(self, k_eff: dict[int, int]) -> tuple[dict, dict]:
         """Up to ``k_eff[i]`` draft tokens per decoding lane.
@@ -505,7 +538,7 @@ class ServingEngine:
         the pages past each lane's committed point.  Idle and mid-prefill
         lanes ride the verify with ``kv_len`` 0 and, mid-prefill, their
         table rows masked, so their chunk sinks into the null page."""
-        k_eff = self._spec_capacity()
+        k_eff, seq = self._spec_capacity()
         decoding = self.scheduler.decode_lanes()
         if not decoding:
             return
@@ -522,21 +555,31 @@ class ServingEngine:
             kv_len[i] = lane.pos + len(row)
         extra = self.kv.decode_extra(
             mask_lanes=self.scheduler.prefill_lanes())
-        logits, _ = self._verify(
-            self.params, self.kv.caches, *extra,
-            *(torch.from_numpy(a).to(self.device)
-              for a in (tokens, start, kv_len)))
+        args = (self.params, self.kv.caches, *extra,
+                *(torch.from_numpy(a).to(self.device)
+                  for a in (tokens, start, kv_len)))
+        if self._tuned("spec_regions"):
+            # the key _spec_capacity capped the drafting with; the region
+            # measures (syncing, and the accept proxy) until it commits
+            out = self.autotuner.spec(
+                seq, *args, measure=not self.autotuner.spec_committed(seq))
+            logits = out["logits"] if isinstance(out, dict) else out[0]
+        else:
+            logits, _ = self._verify(*args)
         logits_np = logits.cpu().numpy()
+        # a tuned variant may verify a narrower chunk (its window k): the
+        # drafts past it are rejected, their K/V never written
+        window_max = logits_np.shape[1] - 1
         now = time.monotonic()
         self.steps += 1
         self.spec_ticks += 1
         for i in decoding:
             lane = self.scheduler.lanes[i]
             req = self.active[lane.rid]
-            w = len(drafts[i])
+            w = min(len(drafts[i]), window_max)
             emitted, n_acc = sampling.speculative_accept(
-                drafts[i], dprobs[i], logits_np[i, :w + 1], req.sampling,
-                len(req.out_tokens))
+                drafts[i][:w], dprobs[i][:w], logits_np[i, :w + 1],
+                req.sampling, len(req.out_tokens))
             self.drafted_tokens += w
             self.accepted_tokens += n_acc
             committed = lane.pos + n_acc + 1
@@ -567,6 +610,12 @@ class ServingEngine:
             "accept_rate": (self.accepted_tokens / self.drafted_tokens
                             if self.drafted_tokens else 0.0),
         }
+
+    def tuning_db(self) -> dict | None:
+        """Which tuning DB feeds this engine's regions (backend, path,
+        record count, golden overlay), None when serving untuned."""
+        session = getattr(self.autotuner, "session", None)
+        return None if session is None else session.records.describe()
 
     # -- one scheduler tick: schedule -> dispatch -> emit --------------------
     def schedule(self) -> None:
@@ -603,10 +652,14 @@ class ServingEngine:
         # page-table row: their dummy K/V write lands in the null page
         extra = self.kv.decode_extra(
             mask_lanes=self.scheduler.prefill_lanes())
-        logits, _ = self._decode(
-            self.params, self.kv.caches, *extra,
-            torch.from_numpy(token).to(self.device),
-            torch.from_numpy(pos).to(self.device))
+        args = (self.params, self.kv.caches, *extra,
+                torch.from_numpy(token).to(self.device),
+                torch.from_numpy(pos).to(self.device))
+        if self.autotuner is not None:
+            # the bucket from the host's own lane positions: no device read
+            logits, _ = self.autotuner.decode(int(pos.max()) + 1, *args)
+        else:
+            logits, _ = self._decode(*args)
         event = None
         if logits.is_cuda:
             event = torch.cuda.Event()

@@ -18,9 +18,9 @@ client (a load generator, ``curl``, a browser) can talk to:
 * :mod:`.client` — minimal asyncio HTTP/SSE client helpers shared by
   ``serve --gateway`` and the tests.
 
-The concurrency knobs — pipeline depth x admission batch — are fixed
-(:class:`GatewayPolicyKnobs`); tuning them at run time comes with
-ROADMAP queue 1, item 11.
+The concurrency knobs — pipeline depth x admission batch
+(:class:`GatewayPolicyKnobs`) — are fixed, or tuned at run time by the
+``GatewayPolicy`` region of a ``tuner`` (``PipelinedEngine(tuner=...)``).
 """
 from .client import get_json, post_json, sse_generate
 from .pipeline import GatewayPolicyKnobs, PipelinedEngine, TokenStream

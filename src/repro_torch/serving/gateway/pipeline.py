@@ -39,10 +39,14 @@ lane's pages).  ``ServingEngine.cancel_request`` then releases the lane
 and its pages and refcounts, so the pool's three-state accounting stays
 exact.
 
-The concurrency knobs — pipeline depth x admission batch — are fixed
-here (:class:`GatewayPolicyKnobs`); choosing them by run-time tuning
-(the JAX package's ``GatewayPolicy`` region) comes with ROADMAP queue 1,
-item 11.  ``stats()`` also reports the loop's host time by phase: the ms
+The concurrency knobs — pipeline depth x admission batch
+(:class:`GatewayPolicyKnobs`) — are fixed, or chosen by run-time AT: with
+a ``tuner`` that declares the ``GatewayPolicy`` region
+(``DecodeAutoTuner.add_gateway``), the loop runs windows of
+``policy_window`` finished requests under each candidate's knobs, reports
+each window's goodput statistics through the region, and applies the
+committed winner (at once, with no window, when the workdir already holds
+it), as the JAX package's gateway does.  ``stats()`` also reports the loop's host time by phase: the ms
 spent in schedule + dispatch, the ms from the await on the tick's event
 to its return, and the ms in emit (with ``max_inflight=1`` the wait is
 inside emit).
@@ -118,7 +122,7 @@ def goodput_stats(requests: list[Request], wall_s: float,
 @dataclass
 class GatewayPolicyKnobs:
     """The pipeline's concurrency knobs (the ``GatewayPolicy`` region's
-    parameters once run-time tuning is ported)."""
+    parameters)."""
 
     max_inflight: int = 2      # 1 = inline sync; 2 = double-buffered tick
     admit_batch: int = 4       # arrivals moved into the scheduler per tick
@@ -156,15 +160,16 @@ class PipelinedEngine:
     """
 
     def __init__(self, engine, *, queue_limit: int = 64,
-                 knobs: GatewayPolicyKnobs | None = None, tuner=None):
-        if tuner is not None:
-            raise NotImplementedError(
-                "tuner: the GatewayPolicy region needs run-time tuning "
-                "(DecodeAutoTuner), which is not ported yet: ROADMAP "
-                "queue 1, item 11")
+                 knobs: GatewayPolicyKnobs | None = None, tuner=None,
+                 policy_window: int = 4, slo_ttft_s: float = 2.0,
+                 slo_itl_s: float = 0.5):
         self.engine = engine
         self.queue_limit = queue_limit
         self.knobs = knobs or GatewayPolicyKnobs()
+        self.tuner = tuner
+        self.policy_window = max(1, policy_window)
+        self.slo_ttft_s = slo_ttft_s
+        self.slo_itl_s = slo_itl_s
         self.arrivals: deque[Request] = deque()
         self.streams: dict[int, TokenStream] = {}
         self._pending_cancel: set[int] = set()
@@ -182,6 +187,57 @@ class PipelinedEngine:
         self.schedule_dispatch_s = 0.0
         self.wait_s = 0.0
         self.emit_s = 0.0
+        # GatewayPolicy measurement windows
+        self.policy_windows = 0
+        self._window_t0: float | None = None
+        self._window_reqs: list[Request] = []
+        self._seen_finished = 0
+        self._policy_applied = False
+        self._apply_policy_candidate()
+
+    # -- GatewayPolicy region plumbing ----------------------------------
+    def _gateway_region_live(self) -> bool:
+        return self.tuner is not None \
+            and getattr(self.tuner, "gateway_region", None) is not None
+
+    def _apply_policy_candidate(self) -> None:
+        """Apply the knobs the region wants next: the committed winner
+        (a warm start applies it at once and runs no window), else the
+        next untried candidate, the index ``execute`` measures next, so a
+        window's statistics go to the knobs that produced them."""
+        if not self._gateway_region_live():
+            self._policy_applied = True
+            return
+        idx = self.tuner.gateway_candidate()
+        mi, ab = self.tuner.gateway_variants[idx]
+        self.knobs = GatewayPolicyKnobs(max_inflight=mi, admit_batch=ab)
+        self._policy_applied = self.tuner.committed_gateway() is not None
+
+    def _policy_tick(self, now: float) -> None:
+        """Close a measurement window once ``policy_window`` requests have
+        finished under the current candidate's knobs, report its goodput
+        statistics through the region, and move to the next candidate (or
+        the committed winner)."""
+        if self._policy_applied or not self._gateway_region_live():
+            return
+        fin = self.engine.finished
+        if self._window_t0 is None:
+            self._window_t0 = now
+            self._seen_finished = len(fin)
+            return
+        new = fin[self._seen_finished:]
+        if new:
+            self._window_reqs.extend(new)
+            self._seen_finished = len(fin)
+        if len(self._window_reqs) < self.policy_window:
+            return
+        stats = goodput_stats(self._window_reqs, now - self._window_t0,
+                              self.slo_ttft_s, self.slo_itl_s)
+        self.tuner.gateway_policy(stats)
+        self.policy_windows += 1
+        self._window_t0 = now
+        self._window_reqs = []
+        self._apply_policy_candidate()
 
     # -- submission / cancellation --------------------------------------
     @property
@@ -307,6 +363,7 @@ class PipelinedEngine:
                 self.schedule_dispatch_s += t1 - t0
                 self.emit_s += time.perf_counter() - t2
                 self._flush_streams()
+                self._policy_tick(time.monotonic())
                 after = (self.engine.steps, self.engine.prefill_chunks,
                          len(self.engine.finished),
                          len(self.engine.cancelled))
@@ -343,7 +400,7 @@ class PipelinedEngine:
     # -- reporting -------------------------------------------------------
     def stats(self) -> dict:
         eng = self.engine
-        return {
+        out = {
             "ticks": self.ticks,
             "overlapped_ticks": self.overlapped_ticks,
             "backlog": self.backlog,
@@ -363,3 +420,7 @@ class PipelinedEngine:
             # kv_bytes_per_token, capacity_tokens) for /v1/stats clients
             "kv": eng.kv.stats(),
         }
+        if self._gateway_region_live():
+            out["policy"]["windows"] = self.policy_windows
+            out["policy"]["committed"] = self.tuner.committed_gateway_params()
+        return out

@@ -1,6 +1,7 @@
 """The port's copy of the AT language (``repro_torch.core``,
-``repro_torch.at``) against the JAX package's (``repro.core``,
-``repro.at``) on the CPU: the same source apart from a named list of
+``repro_torch.at`` with its CLI, ``repro_torch.tuning.dynamic``) against
+the JAX package's (``repro.core``, ``repro.at``, ``repro.tuning.dynamic``)
+on the CPU: the same source apart from a named list of
 changes, the same search trajectories, parameter files and generated
 code, record files each package reads, and tuning state kept apart.
 """
@@ -24,14 +25,22 @@ REF, PORT = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
 CORE = ("errors", "params", "region", "cost", "fitting", "search",
         "paramfile", "executor", "runtime", "directives", "stagegraph",
         "codegen", "dsl", "__init__")
-AT = ("backends", "sqlite_backend", "session", "records", "__init__")
+AT = ("backends", "sqlite_backend", "session", "records", "cli", "__main__",
+      "__init__")
+TUNING = ("dynamic",)
 #: top-level names (or ``import`` lines) the port changes on purpose: the
 #: executor synchronises CUDA devices instead of JAX arrays and adds a
-#: CUDA-event executor; the fingerprint is built from torch
+#: CUDA-event executor; the fingerprint is built from torch; the run-time
+#: tuner adds the Hopper counterpart of ``divisor_block_ks`` (the kernels'
+#: instantiated tiles that are whole pages); the CLI's ``__main__`` runs
+#: only as a script (test_torch_isolation.py imports every module)
 CHANGED = {
     "core/executor.py": {"_block", "_cuda_devices", "CudaEventExecutor",
                          "import torch"},
     "at/records.py": {"machine_fingerprint"},
+    "tuning/dynamic.py": {"page_block_ks"},
+    "at/__main__.py": {"sys.exit(main())",
+                       "if __name__ == '__main__':\n    sys.exit(main())"},
 }
 PACKAGES = {"jax": (jat, jcore), "torch": (tat, tcore)}
 
@@ -81,7 +90,8 @@ def _top_level(path: Path) -> dict[str, str]:
 
 
 @pytest.mark.parametrize("rel", [f"core/{m}.py" for m in CORE]
-                         + [f"at/{m}.py" for m in AT])
+                         + [f"at/{m}.py" for m in AT]
+                         + [f"tuning/{m}.py" for m in TUNING])
 def test_copied_module_equals_the_reference_but_for_named_changes(rel):
     ref, port = _top_level(REF / rel), _top_level(PORT / rel)
     changed = CHANGED.get(rel, set())

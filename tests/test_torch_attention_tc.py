@@ -209,14 +209,19 @@ def gathered_scales(scale, table, g):
 
 
 def split_emulate(q, k_pool, v_pool, table, start, kv_len, ns, k_scale=None,
-                  v_scale=None):
+                  v_scale=None, tile_rows=pa.TC_TILE_ROWS,
+                  keys=pa.TC_TILE_KEYS):
     """The partials mode's partition, arithmetic and tiling in plain
-    torch: fp32 (m, l, acc) of every split, (B, H, ns, C) and (.., D), m
-    in natural-log units, exactly (-1e30, 0, 0) where a row saw no key.
-    With ``k_scale`` and ``v_scale`` the pools hold int8 codes (K6d)."""
+    torch at a tile of ``tile_rows`` query rows (block_q x G) and ``keys``
+    keys, each key tile split among ``SPLIT_KEY_GROUPS`` key groups (2 at
+    64 rows, paged_prefill.cu's ``Tile``): fp32 (m, l, acc) of every
+    split, (B, H, ns, C) and (.., D), m in natural-log units, exactly
+    (-1e30, 0, 0) where a row saw no key.  With ``k_scale`` and
+    ``v_scale`` the pools hold int8 codes (K6d)."""
     b, h, c, d = q.shape
     g = h // k_pool.shape[1]
-    rows, keys = pa.TC_TILE_ROWS // g, pa.TC_TILE_KEYS
+    rows = tile_rows // g
+    n_groups = 2 if tile_rows >= 64 else SPLIT_KEY_GROUPS
     k = torch.repeat_interleave(ref.gather_pages(k_pool, table).float(), g, 1)
     v = torch.repeat_interleave(ref.gather_pages(v_pool, table).float(), g, 1)
     sk = k.shape[2]
@@ -236,7 +241,7 @@ def split_emulate(q, k_pool, v_pool, table, start, kv_len, ns, k_scale=None,
                            last // keys + 1)
     t_live = torch.where(last < 0, 0, t_live)
     per = -(-t_live // ns)
-    kn = keys // SPLIT_KEY_GROUPS
+    kn = keys // n_groups
     parts = []
     for split in range(ns):
         lo = torch.minimum(split * per, t_live) * keys
@@ -245,7 +250,7 @@ def split_emulate(q, k_pool, v_pool, table, start, kv_len, ns, k_scale=None,
         ss = torch.where(mask[:, None], s, ref.NEG_INF)
         groups = [online_softmax(ss, v, [slice(t0, t0 + kn) for t0 in
                                          range(group * kn, sk, keys)], vs)
-                  for group in range(SPLIT_KEY_GROUPS)]
+                  for group in range(n_groups)]
         m, l, acc = merge_groups(groups)
         parts.append((torch.where(m == ref.NEG_INF, ref.NEG_INF, m / LOG2E),
                       l, acc))
@@ -439,3 +444,54 @@ def test_int8_split_emulation_against_jax_kernel_in_interpret_mode(h, hkv,
     for lane, n in enumerate(valid):       # rows past kv_len are padding
         np.testing.assert_allclose(got[lane, :, :n], want[lane, :, :n],
                                    rtol=0, atol=atol)
+
+
+# --------------------------------------------------------------------------
+# the tiles (the run-time AT's block_q x block_k): every D = 128 instance
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K5b", "K6d"])
+@pytest.mark.parametrize("tile_rows,keys", [
+    (rows, keys) for rows in pa.TC_ROW_TILES for keys in pa.TC_BLOCK_KS])
+def test_every_split_tile_partials_match_plain_at_that_tile(tile_rows, keys,
+                                                             quant):
+    """The partials mode at each tile of the D = 128 instances, 3 splits,
+    on the yi-6b verify shape (G 8: block_q = rows // 8): its partials
+    against ``paged_prefill_split_ref`` cut at ``block_q`` and
+    ``block_k``, the same empty splits exactly (-1e30, 0, 0), m and l
+    within 1e-5, acc within 2^-8 sum_j p_j |v_j|; merged, within the bf16
+    tolerance of the one-pass plain version, the idle lane exactly 0."""
+    h, hkv, d, psz, nblk, starts, valid, c = SPLIT_CASES["yi-6b verify"]
+    q, kp, vp, table, start, kv_len = chunk_case(h, hkv, d, psz, nblk,
+                                                 starts, valid, c, 49)
+    scales = {}
+    if quant:
+        kp, vp, ks, vs = quantized(kp, vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    tiles = dict(block_q=tile_rows // (h // hkv), block_k=keys)
+    gm, gl, gacc = split_emulate(q, kp, vp, table, start, kv_len, 3,
+                                 tile_rows=tile_rows, keys=keys, **scales)
+    _, (m, l, acc) = ref.paged_prefill_split_ref(
+        q, kp, vp, table, start, kv_len, 3, **scales, **tiles)
+    _, (_, _, acc_abs) = ref.paged_prefill_split_ref(
+        q, kp, vp.float().abs(), table, start, kv_len, 3, **scales, **tiles)
+    empty = m == ref.NEG_INF
+    assert torch.equal(gm == ref.NEG_INF, empty)
+    assert torch.all(gl[empty] == 0) and torch.all(gacc[empty] == 0)
+    np.testing.assert_allclose(gm.numpy(), m.numpy(), rtol=1e-5,
+                               atol=FP32_SUMS)
+    np.testing.assert_allclose(gl.numpy(), l.numpy(), rtol=1e-5,
+                               atol=FP32_SUMS)
+    bound = BF16_ROUNDOFF * acc_abs + FP32_SUMS * (1 + acc.abs())
+    assert bool(((gacc - acc).abs() <= bound).all())
+    _, l_star, acc_star = ref.combine_split_states(gm, gl, gacc)
+    out = ref.finalize_split_states(l_star, acc_star).to(q.dtype)
+    want = ref.paged_prefill_ref(q, kp, vp, table, start, kv_len, **scales)
+    for lane, n in enumerate(valid):
+        if n == 0:
+            assert torch.all(out[lane] == 0)
+            continue
+        np.testing.assert_allclose(out[lane, :, :n].float().numpy(),
+                                   want[lane, :, :n].float().numpy(),
+                                   **BF16_TOL)

@@ -1349,3 +1349,187 @@ def test_merged_split_routes_reject_a_float32_query(cuda_device):
                           num_splits=4)
     assert (pa.paged_decode_split.launches,
             pa.split_combine.launches) == (n[0] + 1, n[1] + 1)
+
+
+# --------------------------------------------------------------------------
+# the tiles (the run-time AT's block_k, block_q x block_k): every instance
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+@pytest.mark.parametrize("kind", pa.DECODE_KINDS)
+def test_tc_decode_tile_instances_fit_the_card(cuda_device, kind, block_k):
+    """Every key tile of the D = 128 decode instances holds the CTAs an SM
+    the cluster rule counts (``DECODE_CTAS_PER_SM``) at a 64-entry table,
+    and builds without spilling."""
+    info = pa.decode_tc_info(128, kind, 64, block_k=block_k)
+    assert info["blocks_per_sm"] >= pa.DECODE_CTAS_PER_SM
+    assert all(n >= 1 for n in info["clusters"].values())
+    assert info["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+@pytest.mark.parametrize("quant", [False, True], ids=["K3", "K6a"])
+@pytest.mark.parametrize("h,hkv", [(32, 4), (32, 32)])
+def test_tc_decode_every_tile_matches_plain(cuda_device, h, hkv, quant,
+                                            block_k):
+    """K3 and K6a at every key tile, at clusters of 1 and 8 and at the
+    cluster rule's size: G 8 and 1, an empty lane (exactly 0), one shorter
+    than every tile, a ragged one and a full table; ``by_tile`` counts
+    the launches."""
+    kv_len = [0, 37, 157, 320]
+    q, kp, vp, table, lens = paged_inputs(4, h, hkv, 128, 16, 20, kv_len,
+                                          torch.bfloat16, cuda_device, 400)
+    pools, kernel = decode_pools(kp, vp, quant)
+    want = plain_decode(q, pools, table, lens)
+    n = kernel.by_tile[block_k]
+    for cluster in (1, 8, None):
+        got = kernel(q, *pools, table, lens, block_k=block_k,
+                     _cluster=cluster)
+        torch.cuda.synchronize()
+        assert kernel.last_kernel == pa.DECODE_TC_KERNEL
+        assert torch.all(got[0] == 0)
+        close(got[1:], want[1:], torch.bfloat16)
+    assert kernel.by_tile[block_k] == n + 3
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+@pytest.mark.parametrize("h,hkv,s", [(32, 4, 1000), (32, 32, 300)])
+def test_tc_dense_decode_every_tile_matches_plain(cuda_device, h, hkv, s,
+                                                  block_k):
+    """K2 (the dense mode) at every key tile: S not a multiple of any
+    tile, an empty lane exactly 0, a lane past S clamped to S."""
+    kv_len = torch.tensor([0, 37, 517, 2 * s], dtype=torch.int32,
+                          device=cuda_device)
+    q = rand((4, h, 1, 128), 410, cuda_device, torch.bfloat16)
+    k = rand((4, hkv, s, 128), 411, cuda_device, torch.bfloat16)
+    v = rand((4, hkv, s, 128), 412, cuda_device, torch.bfloat16)
+    got = fa.flash_decode(q, k, v, kv_len, block_k=block_k)
+    torch.cuda.synchronize()
+    assert fa.flash_decode.last_kernel == pa.DECODE_TC_KERNEL
+    assert torch.all(got[0] == 0)
+    close(got[1:], ref.decode_ref(q, k, v, kv_len)[1:], torch.bfloat16)
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+@pytest.mark.parametrize("quant", [False, True], ids=["K5a", "K6b"])
+def test_tc_split_decode_every_tile_matches_plain(cuda_device, quant,
+                                                  block_k):
+    """K5a and K6b at every key tile, 3 and 8 splits: the partials against
+    ``ref.paged_decode_split_tiles_ref`` cut at the same tile, the merged
+    route bit-equal to K5c over its own partials and within tolerance of
+    the one-pass plain version; the arrival counters zero afterwards."""
+    args, merged, split = merged_decode_case(cuda_device, 32, 4, 128, 16,
+                                             quant, 420)
+    q, *pools, table, lens = args
+    ks, vs = (pools[2], pools[3]) if quant else (None, None)
+    for ns in (3, 8):
+        out, (m, l, acc) = merged(*args, ns, block_k=block_k,
+                                  return_partials=True)
+        _, (wm, wl, wacc) = ref.paged_decode_split_tiles_ref(
+            q, pools[0], pools[1], table, lens, ns, k_scale=ks, v_scale=vs,
+            block_k=block_k)
+        torch.cuda.synchronize()
+        assert merged.by_tile[block_k] >= 1
+        np.testing.assert_allclose(m.cpu().numpy(), wm.cpu().numpy(),
+                                   rtol=2e-2, atol=2e-2)
+        close(l, wl, torch.bfloat16)
+        combined = pa.split_combine(m, l, acc, q.dtype)
+        assert torch.equal(out.reshape(combined.shape), combined)
+        assert torch.all(out[0] == 0)
+        close(out[1:], plain_decode(q, pools, table, lens)[1:],
+              torch.bfloat16)
+    assert counters_all_zero()
+
+
+@pytest.mark.parametrize("rows", pa.TC_ROW_TILES)
+@pytest.mark.parametrize("block_k", pa.TC_BLOCK_KS)
+@pytest.mark.parametrize("kind", pa.TC_KINDS)
+def test_tc_prefill_tile_instances_fit_the_card(cuda_device, kind, block_k,
+                                                rows):
+    """Every tile of the D = 128 prefill instances fits a block an SM at
+    a 64-entry table and builds without spilling."""
+    info = pa.tc_info(128, kind, 64, rows=rows, block_k=block_k)
+    assert info["blocks_per_sm"] >= 1
+    assert info["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("rows", pa.TC_ROW_TILES)
+@pytest.mark.parametrize("block_k", pa.TC_BLOCK_KS)
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("h,hkv", [(32, 4), (32, 32)])
+def test_tc_prefill_every_tile_matches_plain(cuda_device, h, hkv, quant,
+                                             block_k, rows):
+    """K4 / K6c in one pass and K5b / K6d with K5c merged (3 splits) at
+    every tile of the D = 128 instances, G 8 and 1 (block_q = rows // G):
+    a chunk of 44 starting mid-page, a ragged chunk at 0 and an idle lane
+    (exactly 0); ``by_tile`` counts the launches; counters zero after."""
+    g = h // hkv
+    block_q = rows // g
+    c, start = 44, 3 * 16 + 8
+    valid = [c, c - 3, 0]
+    kv_len = [start + c, valid[1], 0]
+    q, kp, vp, table, lens = paged_inputs(3, h, hkv, 128, 16, 32, kv_len,
+                                          torch.bfloat16, cuda_device, 430,
+                                          c=c)
+    starts = torch.tensor([start, 0, 0], dtype=torch.int32,
+                          device=cuda_device)
+    if quant:
+        (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+        pools = ops.PagedPools(k8, v8, ks, vs)
+        one, merged = pa.flash_paged_prefill_quant, \
+            pa.paged_prefill_split_quant_merged
+    else:
+        pools = ops.PagedPools(kp, vp)
+        one, merged = pa.flash_paged_prefill, pa.paged_prefill_split_merged
+    want = ref.paged_prefill_ref(q, pools.k, pools.v, table, starts, lens,
+                                 k_scale=pools.k_scale,
+                                 v_scale=pools.v_scale)
+    tile = (block_q, block_k)
+    n1, n3 = one.by_tile[tile], merged.by_tile[tile]
+    for ns in (1, 3):
+        got = ops.paged_prefill(q, pools, table, starts, lens,
+                                num_splits=ns, block_q=block_q,
+                                block_k=block_k)
+        torch.cuda.synchronize()
+        for lane, v in enumerate(valid[:2]):
+            close(got[lane, :, :v], want[lane, :, :v], torch.bfloat16)
+        assert torch.all(got[2] == 0)
+    assert one.by_tile[tile] == n1 + 1 and merged.by_tile[tile] == n3 + 1
+    assert counters_all_zero()
+
+
+def test_tile_wrappers_reject_tiles_without_an_instance(cuda_device):
+    """A tile the kernels have no instance for raises ``ValueError`` and
+    launches nothing: decode block_k 48, 128, 256 and (at D 64) 32; prefill
+    block_q 3 and block_k 32; the float32 SIMT templates any tile but
+    their own."""
+    q, kp, vp, table, lens = paged_inputs(2, 32, 4, 128, 16, 4, [20, 40],
+                                          torch.bfloat16, cuda_device, 440)
+    n = pa.flash_paged_decode.launches
+    for bk in (48, 128, 256):
+        with pytest.raises(ValueError, match="no instance"):
+            pa.flash_paged_decode(q, kp, vp, table, lens, block_k=bk)
+        with pytest.raises(ValueError, match="no instance"):
+            pa.flash_paged_decode(q, kp, vp, table, lens, block_k=bk,
+                                  num_splits=2)
+    with pytest.raises(ValueError, match="no instance"):
+        pa.flash_paged_decode(q.float(), kp.float(), vp.float(), table,
+                              lens, block_k=64)
+    q64, kp64, vp64, table64, lens64 = paged_inputs(
+        2, 8, 2, 64, 16, 4, [20, 40], torch.bfloat16, cuda_device, 441)
+    with pytest.raises(ValueError, match="no instance"):
+        pa.flash_paged_decode(q64, kp64, vp64, table64, lens64, block_k=32)
+    assert pa.flash_paged_decode.launches == n
+    qc, kpc, vpc, tablec, lensc = paged_inputs(2, 32, 4, 128, 16, 4,
+                                               [20, 40], torch.bfloat16,
+                                               cuda_device, 442, c=5)
+    start = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    for tile in (dict(block_q=3), dict(block_k=32)):
+        with pytest.raises(ValueError, match="no instance"):
+            pa.flash_paged_prefill(qc, kpc, vpc, tablec, start, lensc,
+                                   **tile)
+        with pytest.raises(ValueError, match="no instance"):
+            pa.paged_prefill_split_merged(qc, kpc, vpc, tablec, start,
+                                          lensc, 2, **tile)
+    assert counters_all_zero()

@@ -77,6 +77,12 @@ WARPS = 4                                  # key groups of a tile
 GROUP = TILE // WARPS
 
 
+def tile_warps(block_k: int) -> int:
+    """The key groups (warps) of a ``block_k``-key tile, paged_decode.cu's
+    ``Tile``: one per 16 keys."""
+    return block_k // 16
+
+
 def _merge(states):
     """(m, l, acc) states merged by a max-shift (log2 domain)."""
     m_star = torch.stack([m for m, _, _ in states]).amax(0)
@@ -86,14 +92,18 @@ def _merge(states):
     return m_star, l, acc
 
 
-def emulate_strips(q, k, v, ks, vs, kv_len, parts, partials=False):
+def emulate_strips(q, k, v, ks, vs, kv_len, parts, partials=False,
+                   block_k=TILE):
     """The decode kernel's arithmetic and partition in plain torch over
     strips k, v (B, Hkv, S, D) (bf16 values or int8 codes) with row
     scales ks, vs (B, Hkv, S) or None: ``parts`` CTAs per (lane, kv head),
-    CTA r walking the r-th contiguous share of the lane's live tiles.
+    CTA r walking the r-th contiguous share of the lane's live tiles of
+    ``block_k`` keys, each split among :func:`tile_warps` key groups.
     Returns the states merged across the CTAs (output like q) or, with
     ``partials``, each CTA's state (m in natural-log units, l, acc) as
     (B, Hkv, parts, G) and (.., D)."""
+    tile, warps = block_k, tile_warps(block_k)
+    group = tile // warps
     b, h, _, d = q.shape
     hkv = k.shape[1]
     g = h // hkv
@@ -104,7 +114,7 @@ def emulate_strips(q, k, v, ks, vs, kv_len, parts, partials=False):
     vs = ones if vs is None else vs
     # pad the keys to whole tiles: a tile's keys past kv_len are masked
     # scores and zero rows
-    pad = -sk % TILE
+    pad = -sk % tile
     kk = torch.repeat_interleave(k, g, dim=1)
     vv = torch.nn.functional.pad(torch.repeat_interleave(v, g, dim=1),
                                  (0, 0, 0, pad))
@@ -119,19 +129,19 @@ def emulate_strips(q, k, v, ks, vs, kv_len, parts, partials=False):
     out = torch.zeros(b, h, d)
     states = []
     for i in range(b):
-        n_all = -(-int(lens[i]) // TILE)
+        n_all = -(-int(lens[i]) // tile)
         per = -(-n_all // parts)
         ranks = []
         for rank in range(parts):
             t_lo = min(rank * per, n_all)
             t_hi = min(n_all, t_lo + per)
-            warps = []
-            for w in range(WARPS):
+            states_w = []
+            for w in range(warps):
                 m = torch.full((h,), ref.NEG_INF)
                 l = torch.zeros(h)
                 acc = torch.zeros(h, d)
                 for t in range(t_lo, t_hi):
-                    j = slice(t * TILE + w * GROUP, t * TILE + (w + 1) * GROUP)
+                    j = slice(t * tile + w * group, t * tile + (w + 1) * group)
                     st = s[i, :, j]
                     mx = torch.maximum(m, st.amax(-1))
                     # a row that has seen no key yet subtracts 0, so its
@@ -144,8 +154,8 @@ def emulate_strips(q, k, v, ks, vs, kv_len, parts, partials=False):
                     acc = acc * alpha[:, None] + torch.einsum(
                         "hk,hkd->hd", pv, vv[i, :, j])
                     m = mx
-                warps.append((m, l, acc))
-            ranks.append(_merge(warps))              # the CTA's state
+                states_w.append((m, l, acc))
+            ranks.append(_merge(states_w))           # the CTA's state
         states.append(ranks)
         _, l, acc = _merge(ranks)                    # across the cluster
         out[i] = acc / torch.where(l == 0, 1.0, l)[:, None]
@@ -160,33 +170,34 @@ def emulate_strips(q, k, v, ks, vs, kv_len, parts, partials=False):
 
 
 def decode_tc_emulate(q, k_pool, v_pool, table, kv_len, k_scale=None,
-                      v_scale=None, cluster=1):
+                      v_scale=None, cluster=1, block_k=TILE):
     """K3 / K6a: the pools seen through the table, ``cluster`` CTAs per
-    (lane, kv head); output like q."""
+    (lane, kv head), ``block_k`` keys a tile; output like q."""
     ks, vs = (None if sc is None else ref.gather_pages(sc[..., None],
                                                        table)[..., 0]
               for sc in (k_scale, v_scale))
     return emulate_strips(q, ref.gather_pages(k_pool, table),
                           ref.gather_pages(v_pool, table), ks, vs, kv_len,
-                          cluster)
+                          cluster, block_k=block_k)
 
 
-def dense_tc_emulate(q, k, v, kv_len, cluster=1):
+def dense_tc_emulate(q, k, v, kv_len, cluster=1, block_k=TILE):
     """K2, the dense mode: the strips (B, Hkv, S, D) themselves."""
-    return emulate_strips(q, k, v, None, None, kv_len, cluster)
+    return emulate_strips(q, k, v, None, None, kv_len, cluster,
+                          block_k=block_k)
 
 
 def split_tc_emulate(q, k_pool, v_pool, table, kv_len, num_splits,
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, block_k=TILE):
     """K5a, the partials mode over bf16 pools (K6b: over int8 pools with
     their scales): the fp32 partials (m, l, acc) of ``num_splits``
-    splits."""
+    splits of the lane's ``block_k``-key tiles."""
     ks, vs = (None if sc is None else ref.gather_pages(sc[..., None],
                                                        table)[..., 0]
               for sc in (k_scale, v_scale))
     return emulate_strips(q, ref.gather_pages(k_pool, table),
                           ref.gather_pages(v_pool, table), ks, vs, kv_len,
-                          num_splits, partials=True)
+                          num_splits, partials=True, block_k=block_k)
 
 
 def shuffled_table(b, nblk, kv_len, psz, seed):
@@ -387,16 +398,17 @@ def test_dense_mode_against_jax_flash_decode_in_interpret_mode(h, hkv):
 # K5a: the partials mode
 # --------------------------------------------------------------------------
 
-def split_partials_bound(q, kp, vp, table, lens, ns, ks=None, vs=None):
-    """The plain partials at the kernel's 64-key tiles, and sum_j p_j
-    |v_j| of every split (its acc over |v|; int8 pools: over |code| times
-    the row's scale)."""
+def split_partials_bound(q, kp, vp, table, lens, ns, ks=None, vs=None,
+                         block_k=TILE):
+    """The plain partials at the kernel's ``block_k``-key tiles, and sum_j
+    p_j |v_j| of every split (its acc over |v|; int8 pools: over |code|
+    times the row's scale)."""
     _, want = ref.paged_decode_split_tiles_ref(q, kp, vp, table, lens, ns,
                                                k_scale=ks, v_scale=vs,
-                                               block_k=TILE)
+                                               block_k=block_k)
     _, (_, _, acc_abs) = ref.paged_decode_split_tiles_ref(
         q, kp, vp.float().abs(), table, lens, ns, k_scale=ks, v_scale=vs,
-        block_k=TILE)
+        block_k=block_k)
     return want, acc_abs
 
 
@@ -544,3 +556,116 @@ def test_cluster_size_is_bounded_and_takes_no_device_argument():
         assert c in pa.CLUSTER_SIZES and c <= 8
         assert b * hkv * c <= held or c == 1
         assert c == 8 or b * hkv * 2 * c > held
+
+
+# --------------------------------------------------------------------------
+# the key tiles (the run-time AT's block_k): every instance
+# --------------------------------------------------------------------------
+
+# yi-6b's heads (G 8, D 128) on shorter lanes: an empty lane, one shorter
+# than every tile, and lanes that end mid-tile at 32 and 64 keys
+TILE_CASE = (32, 4, 128, 16, 24, [0, 37, 300, 161])
+
+
+@pytest.mark.parametrize("mode,quant", [
+    ("paged", False), ("paged", True), ("dense", False),
+    ("partials", False), ("partials", True)],
+    ids=["K3", "K6a", "K2", "K5a", "K6b"])
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+def test_every_decode_tile_within_bound_of_plain(block_k, mode, quant):
+    """Each key tile of the D = 128 instances in each mode: the one-pass
+    walk (paged at c 8, dense at c 2) within 2^-8 sum_j p_j |v_j| / l +
+    1e-5 of the plain version and within the bf16 tolerance after the
+    output's rounding; the partials mode (3 splits) against
+    ``ref.paged_decode_split_tiles_ref`` cut at the same tile, and merged
+    within the one-pass bound.  The empty lane is exactly 0."""
+    h, hkv, d, psz, nblk, kv_len = TILE_CASE
+    q, (kp, vp, ks, vs), table, lens = case_inputs(h, hkv, d, psz, nblk,
+                                                   kv_len, 107, quant)
+    bound = P_BOUND * weighted_abs_v(q, kp, vp, table, lens, ks, vs)
+    plain = ref.paged_decode_ref(q.float(), kp, vp, table, lens, k_scale=ks,
+                                 v_scale=vs)
+    if mode == "partials":
+        parts = split_tc_emulate(q.float(), kp, vp, table, lens, 3, ks, vs,
+                                 block_k=block_k)
+        want, acc_abs = split_partials_bound(q.float(), kp, vp, table, lens,
+                                             3, ks, vs, block_k=block_k)
+        check_partials(parts, want, acc_abs, (len(kv_len), hkv, 3, h // hkv,
+                                              d))
+        _, l, acc = ref.combine_split_states(*parts)
+        got32 = ref.finalize_split_states(l, acc).reshape(q.shape)
+        got = got32.to(torch.bfloat16)
+    elif mode == "dense":
+        k, v = (ref.gather_pages(p, table) for p in (kp, vp))
+        got = dense_tc_emulate(q, k, v, lens, 2, block_k=block_k)
+        got32 = dense_tc_emulate(q.float(), k, v, lens, 2, block_k=block_k)
+    else:
+        got = decode_tc_emulate(q, kp, vp, table, lens, ks, vs, 8,
+                                block_k=block_k)
+        got32 = decode_tc_emulate(q.float(), kp, vp, table, lens, ks, vs, 8,
+                                  block_k=block_k)
+    assert torch.all(got[0] == 0) and torch.all(got32[0] == 0)
+    np.testing.assert_allclose(got[1:].float().numpy(),
+                               plain[1:].to(torch.bfloat16).float().numpy(),
+                               **BF16_TOL)
+    assert torch.all((got32[1:] - plain[1:]).abs() <= bound[1:] + FP32_TERM)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+def test_decode_tiles_against_jax_kernels_in_interpret_mode(block_k, quant):
+    """Every key tile against the JAX ``flash_paged_decode(_quant)`` given
+    the same ``block_k`` (the TPU kernel's tile is a sub-page one, so it
+    takes the whole page of 8 here), in one pass and at 2 splits, float32
+    holding bf16 values, within the one-pass bound; G 8 at D 16."""
+    d, psz, nblk, kv_len = 16, 8, 24, [0, 11, 45, 150]
+    q, (kp, vp, ks, vs), table, lens = case_inputs(8, 1, d, psz, nblk,
+                                                   kv_len, 109, quant)
+    q = q.float()
+    if not quant:
+        kp, vp = kp.float(), vp.float()
+    args = (q, kp, vp) + ((ks, vs) if quant else ()) + (table, lens)
+    kernel = jax_paged_decode_quant if quant else jax_paged_decode
+    bound = (P_BOUND * weighted_abs_v(q, kp, vp, table, lens, ks, vs)
+             + FP32_TERM).numpy()
+    for ns in (1, 2):
+        want = np.asarray(kernel(*(jnp.asarray(x.numpy()) for x in args),
+                                 block_k=block_k, num_splits=ns,
+                                 interpret=True))
+        if ns == 1:
+            got = decode_tc_emulate(q, kp, vp, table, lens, ks, vs, 2,
+                                    block_k=block_k)
+        else:
+            _, l, acc = ref.combine_split_states(*split_tc_emulate(
+                q, kp, vp, table, lens, ns, ks, vs, block_k=block_k))
+            got = ref.finalize_split_states(l, acc).reshape(q.shape)
+        assert np.all(got[0].numpy() == 0)
+        assert np.all(np.abs(got[1:].numpy() - want[1:]) <= bound[1:])
+
+
+def test_split_clamp_counts_the_tables_block_k_tiles():
+    """``num_splits`` is clamped to the table's ``block_k``-key tiles
+    (a prefill tile of 128 keys, decode tiles of 32 and 64)."""
+    assert pa._num_splits(8, 64 * 16, 128) == 8
+    assert pa._num_splits(8, 2 * 16, 128) == 1
+    assert pa._num_splits(8, 4 * 16, 32) == 2
+    assert pa._num_splits(3, 4 * 16, 64) == 1
+    assert pa._num_splits(None, 64, 64) == 1
+
+
+@pytest.mark.parametrize("dtype,d,block_k,ok", [
+    (torch.bfloat16, 128, None, 64), (torch.bfloat16, 128, 32, 32),
+    (torch.bfloat16, 128, 128, None), (torch.bfloat16, 128, 48, None),
+    (torch.bfloat16, 128, 256, None), (torch.bfloat16, 64, 64, 64),
+    (torch.bfloat16, 64, 128, None), (torch.float32, 128, None, 32),
+    (torch.float32, 128, 32, 32), (torch.float32, 128, 64, None)])
+def test_decode_tile_without_instance_raises(dtype, d, block_k, ok):
+    """A key tile the kernel has no instance for raises ``ValueError``
+    naming the tiles it has; ``None`` is the default (bf16 64, the float32
+    SIMT template's 32)."""
+    q = torch.zeros(1, 8, 1, d, dtype=dtype)
+    if ok is not None:
+        assert pa.decode_tile("k", q, block_k) == ok
+    else:
+        with pytest.raises(ValueError, match=r"has block_k in \("):
+            pa.decode_tile("k", q, block_k)

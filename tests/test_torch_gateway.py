@@ -20,13 +20,13 @@ through the JAX ``PipelinedEngine``/``GatewayServer`` and through the
 port's; greedy tokens must be equal on fp pages, int8 pages, the prefix
 cache and speculation (``spec_k`` 2), at ``max_inflight`` 1 and 2, and
 a client that disconnects after two token frames must leave the same
-tokens on the other requests.  ``PipelinedEngine(tuner=...)`` raises and
-names ROADMAP item 11.  One ``gpu`` test runs the paged gateway on the
+tokens on the other requests.  ``PipelinedEngine(tuner=...)`` takes the
+GatewayPolicy region (run-time tuning, item 11; its windows and warm
+load are mirrored in ``test_torch_tuning.py``).  One ``gpu`` test runs the paged gateway on the
 card at this reduced size and counts its kernel launches.
 
-Not mirrored: ``test_gateway_policy_commits_and_warm_loads`` (the
-``GatewayPolicy`` region needs run-time tuning, ROADMAP queue 1, item
-11) and the ``test_compare_*`` tests (they cover ``benchmarks/
+Not mirrored here: ``test_gateway_policy_commits_and_warm_loads``
+(``test_torch_tuning.py`` mirrors it) and the ``test_compare_*`` tests (they cover ``benchmarks/
 compare.py``, which is not ported).
 
 JAX is imported inside the ``jx`` fixture, not at the top: the card's
@@ -374,9 +374,20 @@ def test_stats_and_healthz_routes(port_mp):
     assert ns == 404
 
 
-def test_tuner_raises_and_names_item_11(port_mp):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PipelinedEngine(make_engine(port_mp), tuner=object())
+def test_tuner_raises_and_names_item_11(port_mp, tmp_path):
+    """Run-time tuning (item 11) is ported: a tuner with a GatewayPolicy
+    region sets the knobs to its first candidate, and stats() reports the
+    windows and the (not yet) committed winner; without one the default
+    knobs stand."""
+    from repro_torch import at
+    from repro_torch.tuning import DecodeAutoTuner
+    tuner = DecodeAutoTuner(at.AutoTuner(str(tmp_path)), lambda bk: None,
+                            buckets=(128,), block_ks=(64,))
+    tuner.add_gateway(max_inflights=(1, 2), admit_batches=(2, 8))
+    pipe = PipelinedEngine(make_engine(port_mp), tuner=tuner)
+    assert pipe.knobs == GatewayPolicyKnobs(max_inflight=1, admit_batch=2)
+    assert pipe.stats()["policy"] == {"max_inflight": 1, "admit_batch": 2,
+                                      "windows": 0, "committed": None}
     assert GatewayPolicyKnobs() == GatewayPolicyKnobs(max_inflight=2,
                                                       admit_batch=4)
 

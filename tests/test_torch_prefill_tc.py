@@ -50,10 +50,18 @@ BLOCK_N = 128                              # keys per K/V tile
 KEY_GROUPS = 4                             # key groups per tile
 
 
+def key_groups(rows: int) -> int:
+    """The key groups of a tile of ``rows`` query rows, paged_prefill.cu's
+    ``Tile``: 4 up to 32 rows, 2 at 64 (8 warps a block)."""
+    return 2 if rows >= 64 else 4
+
+
 def tc_emulate(q, k_pool, v_pool, table, start, kv_len, k_scale=None,
-               v_scale=None):
-    """The tensor-core kernel's arithmetic and tiling in plain torch;
-    output like q."""
+               v_scale=None, block_k=BLOCK_N, groups=KEY_GROUPS):
+    """The tensor-core kernel's arithmetic and tiling in plain torch, at
+    ``block_k`` keys a tile split among ``groups`` key groups; output like
+    q (the one-pass kernel's query tile changes nothing else: a key tile
+    a row does not see adds exactly nothing)."""
     b, h, c, d = q.shape
     hkv = k_pool.shape[1]
     g = h // hkv
@@ -75,13 +83,13 @@ def tc_emulate(q, k_pool, v_pool, table, start, kv_len, k_scale=None,
     kj = torch.arange(sk)
     mask = (kj <= qi[..., None]) & (kj < kv_len[:, None, None])
     s = torch.where(mask[:, None], s, ref.NEG_INF)
-    kn = BLOCK_N // KEY_GROUPS
+    kn = block_k // groups
     states = []
-    for group in range(KEY_GROUPS):     # keys group * kn .. + kn - 1 of a tile
+    for group in range(groups):         # keys group * kn .. + kn - 1 of a tile
         m = torch.full((b, h, c), ref.NEG_INF)
         l = torch.zeros(b, h, c)
         acc = torch.zeros(b, h, c, d)
-        for t0 in range(group * kn, sk, BLOCK_N):
+        for t0 in range(group * kn, sk, block_k):
             st = s[..., t0:t0 + kn]
             mx = torch.maximum(m, st.amax(-1))
             # a row that has seen no key yet subtracts 0, so its masked
@@ -211,3 +219,90 @@ def test_tensor_core_kernel_shape_check(h, hkv, d, ok):
     else:
         with pytest.raises(ValueError, match="group size|head dim"):
             pa.check_tc_shape("k", h, hkv, d)
+
+
+# the tiles of the D = 128 instances: (query rows, keys); the row tile is
+# block_q x G, so at G 8 block_q is rows // 8
+TILES = [(rows, keys) for rows in pa.TC_ROW_TILES for keys in pa.TC_BLOCK_KS]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K4", "K6c"])
+@pytest.mark.parametrize("rows,keys", TILES)
+def test_every_prefill_tile_within_bound_of_plain(rows, keys, quant):
+    """Each tile of the D = 128 instances at the verify shape (yi-6b
+    heads, chunks of 5 over four lanes and an idle lane): within the bf16
+    tolerance of the plain version and, before the output's rounding,
+    within 2^-9 max |v| + 1e-5; the idle lane exactly 0."""
+    h, hkv, d, psz, nblk, starts, valid, c = SHAPES["verify"]
+    q, (kp, vp, ks, vs), table, start, lens = case_inputs(
+        h, hkv, d, psz, nblk, starts, valid, c, 19, quant)
+    tile = dict(block_k=keys, groups=key_groups(rows))
+    got = tc_emulate(q, kp, vp, table, start, lens, ks, vs, **tile)
+    got32 = tc_emulate(q.float(), kp, vp, table, start, lens, ks, vs, **tile)
+    want32 = ref.paged_prefill_ref(q.float(), kp, vp, table, start, lens,
+                                   k_scale=ks, v_scale=vs)
+    v_max = float(ref._dequantize_pools(kp, vp, ks, vs)[1].abs().max())
+    for i, n in enumerate(valid):
+        if lens[i] == 0:
+            assert torch.all(got[i] == 0)
+            continue
+        np.testing.assert_allclose(got[i, :, :n].float().numpy(),
+                                   want32[i, :, :n].numpy(), **BF16_TOL)
+        np.testing.assert_allclose(got32[i, :, :n].numpy(),
+                                   want32[i, :, :n].numpy(), rtol=0,
+                                   atol=P_ROUNDING * v_max + 1e-5)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K4", "K6c"])
+@pytest.mark.parametrize("rows,keys", TILES)
+def test_prefill_tiles_against_jax_kernels_in_interpret_mode(rows, keys,
+                                                             quant):
+    """Every tile against the JAX ``flash_paged_prefill(_quant)`` at the
+    matching ``block_q`` (rows // G) and ``block_k`` (which the TPU kernel
+    takes as its sub-page tile, the whole page of 8 here), G 4, float32
+    holding bf16 values, within 2^-9 max |v| + 1e-5."""
+    b, c, d, psz, nblk, g = 2, 8, 16, 8, 6, 4
+    q, (kp, vp, ks, vs), table, start, lens = case_inputs(
+        g, 1, d, psz, nblk, [12, 0], [c, 5], c, 29, quant)
+    q = q.float()
+    if not quant:
+        kp, vp = kp.float(), vp.float()
+    got = tc_emulate(q, kp, vp, table, start, lens, ks, vs, block_k=keys,
+                     groups=key_groups(rows)).numpy()
+    args = [np.asarray(x) for x in (q, kp, vp)]
+    if quant:
+        args += [ks.numpy(), vs.numpy()]
+    kernel = jax_paged_prefill_quant if quant else jax_paged_prefill
+    want = np.asarray(kernel(*args, jnp.asarray(table.numpy()),
+                             jnp.asarray(start.numpy()),
+                             jnp.asarray(lens.numpy()), block_q=rows // g,
+                             block_k=keys, interpret=True))
+    v_max = float(ref._dequantize_pools(kp, vp, ks, vs)[1].abs().max())
+    for i, n in enumerate((c, 5)):
+        np.testing.assert_allclose(got[i, :, :n], want[i, :, :n], rtol=0,
+                                   atol=P_ROUNDING * v_max + 1e-5)
+
+
+@pytest.mark.parametrize("dtype,d,g,block_q,block_k,ok", [
+    (torch.bfloat16, 128, 8, None, None, (4, 128)),
+    (torch.bfloat16, 128, 8, 2, 64, (2, 64)),
+    (torch.bfloat16, 128, 8, 8, 128, (8, 128)),
+    (torch.bfloat16, 128, 1, 64, 64, (64, 64)),
+    (torch.bfloat16, 128, 8, 3, 128, None),
+    (torch.bfloat16, 128, 8, 16, 128, None),
+    (torch.bfloat16, 128, 8, 4, 32, None),
+    (torch.bfloat16, 64, 8, 2, 128, None),
+    (torch.bfloat16, 64, 8, 4, 64, None),
+    (torch.float32, 128, 8, None, None, (64, 32)),
+    (torch.float32, 128, 8, 4, 128, None)])
+def test_prefill_tile_without_instance_raises(dtype, d, g, block_q, block_k,
+                                              ok):
+    """A tile the kernel has no instance for raises ``ValueError`` naming
+    the tiles it has; ``None`` is the default (bf16: 32 // G rows and 128
+    keys; float32: the SIMT template's 64 and 32)."""
+    q = torch.zeros(1, 4 * g, 5, d, dtype=dtype)
+    if ok is not None:
+        assert pa.prefill_tile("k", q, 4, block_q, block_k) == ok
+    else:
+        with pytest.raises(ValueError, match="has block_q in"):
+            pa.prefill_tile("k", q, 4, block_q, block_k)

@@ -184,20 +184,20 @@ def decode_tiles(b, h, hkv, ns):
     return tiles
 
 
-def verify_tiles(b, h, hkv, c, ns):
-    """paged_prefill.cu's tiles: (lane, kv head, q tile of 32 // G chunk
-    rows), folded row r being chunk row i0 + r // G of head hk * G + r %
-    G; partials at ((b * H + head) * ns + s) * C + qi, output rows at (b *
-    H + head) * C + qi; the rows of the chunk only."""
+def verify_tiles(b, h, hkv, c, ns, tile_rows=pa.TC_TILE_ROWS):
+    """paged_prefill.cu's tiles: (lane, kv head, q tile of tile_rows // G
+    chunk rows), folded row r being chunk row i0 + r // G of head hk * G
+    + r % G; partials at ((b * H + head) * ns + s) * C + qi, output rows
+    at (b * H + head) * C + qi; the rows of the chunk only."""
     g = h // hkv
-    rq = pa.TC_TILE_ROWS // g
+    rq = tile_rows // g
     tiles = []
     for bb in range(b):
         for hk in range(hkv):
             head0 = bb * h + hk * g
             for i0 in range(0, c, rq):
                 tiles.append((
-                    min(pa.TC_TILE_ROWS, (c - i0) * g), c,
+                    min(tile_rows, (c - i0) * g), c,
                     lambda r, h0=head0, i0=i0: ((h0 + r % g) * ns * c
                                                 + i0 + r // g),
                     lambda r, h0=head0, i0=i0: (h0 + r % g) * c + i0 + r // g))
@@ -363,3 +363,61 @@ def test_a_merge_before_the_last_arrival_would_read_unstored_partials():
     assert bool(torch.isnan(early).all())
     full = merge_tile(m, l, acc, ns, rows, sstride, prow, d)
     assert bool(torch.isfinite(full).all())
+
+
+# --------------------------------------------------------------------------
+# every tile of the D = 128 instances (the run-time AT's tiles)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+def test_merged_decode_protocol_at_every_key_tile(block_k):
+    """The last-arrival merge of the emulated K5a partials cut at each key
+    tile (3 splits, G 4): bit-equal across arrival orders and to
+    standalone K5c, counters back at 0, within the one-pass bound of the
+    JAX ``flash_paged_decode`` at the same ``block_k`` and splits."""
+    d, psz, nblk, kv_len = (DECODE[k] for k in ("d", "psz", "nblk", "kv_len"))
+    q, (kp, vp, _, _), table, lens = case_inputs(8, 2, d, psz, nblk, kv_len,
+                                                 113, False)
+    q, kp, vp = q.float(), kp.float(), vp.float()
+    parts = split_tc_emulate(q, kp, vp, table, lens, 3, block_k=block_k)
+    outs = merged_outputs(parts, decode_tiles(len(kv_len), 8, 2, 3),
+                          (len(kv_len), 2, 4, d))
+    check_against_k5c_and_ref(outs, parts)
+    got = outs[0].reshape(q.shape)
+    want = np.asarray(jax_paged_decode(
+        *(jnp.asarray(x.numpy()) for x in (q, kp, vp, table, lens)),
+        block_k=block_k, num_splits=3, interpret=True))
+    bound = (P_BOUND * weighted_abs_v(q, kp, vp, table, lens, None, None)
+             + FP32_TERM).numpy()
+    assert torch.all(got[0] == 0)
+    assert np.all(np.abs(got[1:].numpy() - want[1:]) <= bound[1:])
+
+
+@pytest.mark.parametrize("tile_rows,keys", [
+    (rows, keys) for rows in pa.TC_ROW_TILES for keys in pa.TC_BLOCK_KS])
+def test_merged_verify_protocol_at_every_tile(tile_rows, keys):
+    """The last-arrival merge of the emulated K5b partials over the q
+    tiles of each tile of the D = 128 instances (3 splits, G 4: block_q =
+    rows // 4, the arrival counters one per q tile of that many rows):
+    bit-equal across orders and to standalone K5c, counters back at 0,
+    within 2^-9 max |v| + 1e-5 of the JAX ``flash_paged_prefill`` at the
+    matching block_q and block_k and splits."""
+    c, d, psz, nblk, starts, valid = (
+        VERIFY[k] for k in ("c", "d", "psz", "nblk", "starts", "valid"))
+    q, kp, vp, table, start, kv_len = chunk_case(8, 2, d, psz, nblk, starts,
+                                                 valid, c, 117)
+    q, kp, vp = q.float(), kp.float(), vp.float()
+    parts = split_emulate(q, kp, vp, table, start, kv_len, 3,
+                          tile_rows=tile_rows, keys=keys)
+    b = len(starts)
+    outs = merged_outputs(parts, verify_tiles(b, 8, 2, c, 3, tile_rows),
+                          q.shape)
+    check_against_k5c_and_ref(outs, parts)
+    want = np.asarray(jax_paged_prefill(
+        *(jnp.asarray(x.numpy()) for x in (q, kp, vp, table, start, kv_len)),
+        block_q=tile_rows // 4, block_k=keys, num_splits=3, interpret=True))
+    atol = P_ROUNDING * float(vp.abs().max()) + FP32_SUMS
+    for lane, n in enumerate(valid):
+        np.testing.assert_allclose(outs[0][lane, :, :n].numpy(),
+                                   want[lane, :, :n], rtol=0, atol=atol)
