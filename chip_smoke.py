@@ -7,18 +7,22 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
    all in parallel; the instances of the tensor-core kernels (K1 in
-   ``flash_attention.cu``; K4, K6c and the partials modes K5b and K6d in
-   ``paged_prefill.cu``, at every tile: rows 16, 32 and 64 by keys 64 and
-   128 at D 128; K3, K6a and the dense (K2) and partials (K5a over bf16
-   pools, K6b over int8 pools) modes in ``paged_decode.cu``, at key tiles
-   32, 64 and 128 at D 128) with their registers and spills from the
+   ``flash_attention.cu``, at block_q 64 and 128 by block_k 64 and 128 at
+   D 128; K4, K6c and the partials modes K5b and K6d in
+   ``paged_prefill.cu``, at every tile: rows 16, 32, 48 and 64 by keys 64
+   and 128 at D 128; K3, K6a and the dense (K2) and partials (K5a over
+   bf16 pools, K6b over int8 pools) modes in ``paged_decode.cu``, at key
+   tiles 32 and 64 at D 128) with their registers and spills from the
    ``-Xptxas -v`` log, their shared memory and resident blocks per SM, and
    for the decode kernel the clusters of 1, 2, 4 and 8 CTAs the card holds
    at once;
 3. K1 ``flash_attention`` against its plain version at the prefill shapes
    of yi-6b (G=8) and deepseek-7b (G=1), at G=3 and G=2 and a few edge
-   shapes (S=300, a window, non-causal): bf16 on the tensor-core kernel,
-   float32 on the SIMT template; with its time at the yi-6b prefill,
+   shapes (S=300, a window, non-causal): bf16 on the tensor-core kernel
+   at every tile (``FlashBlocks``' four at D 128; bit-equality with the
+   default tile counted), float32 on the SIMT template; each instance's
+   registers, local bytes, shared memory and blocks an SM; every tile
+   timed at the yi-6b prefill (the sweep), and the default tile's time,
    bound, plain time and the time of torch's SDPA on the same inputs;
 4. K2 ``flash_decode`` against its plain version: bf16 on the dense mode
    of ``paged_decode.cu``'s cluster kernel at every cluster size, at the
@@ -141,14 +145,17 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    variants timed over those tiles at 256^3 with their bounds;
 21. the install path: in a fresh workdir ``register_kernel_regions`` at
    the phase-19 shape and ``run_install_tuning(wall_clock=True)``, whose
-   CUDA-event executor times K8 on every candidate tile; the trajectory,
-   the winner and the record file (whose fingerprint must name the card);
-   ``ops.mm`` must then launch K8 with the winner's tiles, and a second
-   session on the workdir must measure nothing; then Sample 8 at both
-   levels (``examples/autotune_fdm_torch.py``'s ``main``).  The launch
-   counters are zeroed before this phase and read after it (the
-   ``SsmChunk`` region, declared beside ``MatmulBlocks``, launches K9
-   here too; phase 25 reports it);
+   CUDA-event executor times K8 on every candidate tile and K1 on
+   ``FlashBlocks``' 4 evaluations (yi-6b's prefill of 512); the
+   trajectories, the winners (K1's beside phase 3's sweep) and the record
+   file (whose fingerprint must name the card); ``ops.mm`` must then
+   launch K8 with the winner's tiles, and a second session on the workdir
+   must measure nothing; then Sample 8 at both levels
+   (``examples/autotune_fdm_torch.py``'s ``main``).  The launch counters
+   are zeroed before this phase and read after it (the ``SsmChunk``
+   region, declared beside ``MatmulBlocks``, launches K9 here too; phase
+   25 reports it).  Then phase 5's serve with the winners published: all
+   its K1 launches at ``FlashBlocks``' tile (``by_tile``);
 22. K9 ``selective_scan`` (the time-parallel chunked scan) against its
    plain version: float32 and bfloat16, ragged L and Di, every
    ``SsmChunk`` candidate, with and without the final state, at small
@@ -206,7 +213,21 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    phase 17a's speculative serve tuned (a ``SpecBucket`` commits),
    ``--kv-dtype auto`` (every ``KVPrecision`` bucket commits; agreements
    and the resolved pool printed) and the gateway tuned (``GatewayPolicy``
-   commits after its windows).
+   commits after its windows);
+28. phi4-mini-3.8b at published widths (32 layers, d_model 3072, 24 q / 8
+   kv heads: G 3, D 128; tied embeddings; random bf16 weights from seed
+   0), phase 5's requests, 4 lanes, 32 tokens each: (a) dense lanes (K1
+   at G 3 and K2); (b) the paged pool in chunks of 128 (K4 at the 48-row
+   tile, K3); (c) int8 pages with 8 splits (K6c, K6b with K5c merged);
+   (d)-(g) a 16-layer draft proposing 4, verify at 8 splits (K5b with K5c
+   merged; int8: K6d), at the default 48 x 128 tile and with the 48 x 64
+   tile published.  Each serve's counters by kernel and by tile must
+   show exactly its kernels at its tile.  The logits of phases 6, 10, 14
+   and 18 at phi4-mini, kernels against plain; then K4 and K6c at its
+   chunk of 128 and K5b and K6d merged at its verify shape with 8
+   splits, at both 48-row tiles, against plain and timed beside the
+   plain version, SDPA and the bound: rows of the kernels line, with
+   their launches from (a)-(g) by tile.
 
 Then the script's run time, one JSON line with every kernel's numbers,
 and as the last line
@@ -382,13 +403,14 @@ def phase_build() -> None:
                   f"{sum(spills)} bytes in {sum(1 for x in spills if x)} "
                   f"kernels (full report in {log.name})")
     for source, kernel, pattern, info, n in (
-            ("flash_attention", fa.TC_KERNEL, r"ILi(?P<d>\d+)EE",
-             lambda d, kind, t: fa.tc_info(d), 4),
+            ("flash_attention", fa.TC_KERNEL,
+             r"ILi(?P<d>\d+)ELi(?P<bq>\d+)ELi(?P<bk>\d+)EE",
+             lambda d, kind, t: fa.tc_info(d, t["bq"], t["bk"]), 7),
             ("paged_prefill", TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELb(?P<split>[01])"
              r"ELi(?P<slabs>\d)ELi(?P<bk>\d+)EE",
              lambda d, kind, t: pa.tc_info(d, kind, 64, rows=16 * t["slabs"],
-                                           block_k=t["bk"]), 36),
+                                           block_k=t["bk"]), 44),
             ("paged_decode", pa.DECODE_TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELi(?P<mode>\d)"
              r"ELi(?P<bk>\d+)EE",
@@ -425,8 +447,8 @@ def tc_instances(log: str, kernel: str,
     the paged kernels, ``int8`` pools and the ``split`` flag (prefill) or
     the ``mode`` (decode: paged, dense, partials), whose kind is then one
     of ``pa.TC_KINDS`` (prefill) or ``pa.DECODE_KINDS`` (decode), and the
-    tile: ``slabs`` (16-row slabs of the query tile) and ``bk`` (keys);
-    K1's kind is empty and its tile has no parameter."""
+    tile: ``slabs`` (16-row slabs of the query tile) or ``bq`` (K1's
+    query rows) and ``bk`` (keys); K1's kind is empty."""
     out = []
     for chunk in log.split("Compiling entry function")[1:]:
         m = re.search(kernel + pattern, chunk.split("\n", 1)[0])
@@ -442,13 +464,19 @@ def tc_instances(log: str, kernel: str,
             kind = ("" if "int8" not in args else
                     ("int8" if args["int8"] else "bf16")
                     + (" split" if args.get("split") == "1" else ""))
-        tile = {k: int(args[k]) for k in ("slabs", "bk") if args.get(k)}
+        tile = {k: int(args[k]) for k in ("slabs", "bq", "bk")
+                if args.get(k)}
         out.append((kind, int(args["d"]), int(regs.group(1)) if regs else -1,
                     int(spill.group(1)) if spill else 0, tile))
     return out
 
 
-def phase_k1() -> dict:
+def phase_k1() -> tuple[dict, dict]:
+    """K1 against plain at every instance on phase 3's cases (the D = 128
+    bf16 cases at each of the four tiles, bit-equality with the default
+    tile reported), each instance's registers, spills and blocks an SM,
+    and the tile sweep at the yi-6b prefill.  Returns the default tile's
+    row and the sweep {tile: device ms}."""
     # (label, B, H, Hkv, S, D, dtype, causal, window)
     cases = [("yi-6b prefill (G=8)", 1, 32, 4, 512, 128, BF16, True, None),
              ("deepseek-7b prefill (G=1)", 1, 32, 32, 512, 128, BF16, True,
@@ -460,21 +488,49 @@ def phase_k1() -> dict:
              ("G=2 D=64 S=200 non-causal window=32", 2, 8, 4, 200, 64, BF16,
               False, 32),
              ("fp32 reduced", 2, 4, 2, 100, 16, torch.float32, True, None)]
-    errs = []
+    errs, same = [], 0
     for i, (label, b, h, hkv, s, d, dtype, causal, window) in enumerate(cases):
         q = randn((b, h, s, d), 10 * i, dtype)
         k = randn((b, hkv, s, d), 10 * i + 1, dtype)
         v = randn((b, hkv, s, d), 10 * i + 2, dtype)
-        err = compare(fa.flash_attention(q, k, v, causal=causal, window=window),
-                      ref.attention_ref(q, k, v, causal=causal, window=window),
-                      dtype)
-        check(fa.flash_attention.last_kernel
-              == (fa.TC_KERNEL if dtype == BF16 else "flash_attention_kernel"),
-              f"K1 {label}: launched {fa.flash_attention.last_kernel}")
-        errs.append(f"{label} {err:.2e}")
-    print(f"[3 K1 flash_attention] max abs err vs plain (tol bf16 "
-          f"{TOL[BF16]}, fp32 {TOL[torch.float32]}; bf16 on "
-          f"{fa.TC_KERNEL}, fp32 on the SIMT template): " + "; ".join(errs))
+        kw = dict(causal=causal, window=window)
+        want = ref.attention_ref(q, k, v, **kw)
+        default = fa.flash_attention(q, k, v, **kw)
+        cells = []
+        for tile in fa.attention_tiles(dtype, d):
+            n = fa.flash_attention.by_tile[tile]
+            got = fa.flash_attention(q, k, v, **kw, block_q=tile[0],
+                                     block_k=tile[1])
+            err = compare(got, want, dtype)
+            check(fa.flash_attention.last_kernel
+                  == (fa.TC_KERNEL if dtype == BF16
+                      else "flash_attention_kernel")
+                  and fa.flash_attention.by_tile[tile] == n + 1,
+                  f"K1 {label} {tile}: launched "
+                  f"{fa.flash_attention.last_kernel}")
+            equal = bool(torch.equal(got, default))
+            same += equal
+            cells.append(f"{tile[0]}x{tile[1]} {err:.2e}"
+                         + ("" if equal else " (not bit-equal to 64x64)"))
+        errs.append(f"{label} " + ", ".join(cells))
+    print(f"[3 K1 flash_attention] max abs err vs plain by tile (block_q x "
+          f"block_k; tol bf16 {TOL[BF16]}, fp32 {TOL[torch.float32]}; bf16 "
+          f"on {fa.TC_KERNEL}, fp32 on the SIMT template; {same} launches "
+          f"bit-equal to the default tile's): " + "; ".join(errs))
+    infos = []
+    for d in fa.HEAD_DIMS:
+        for tile in fa.attention_tiles(BF16, d):
+            info = fa.tc_info(d, *tile)
+            check(info["smem_bytes"] == fa.smem_bytes(*tile, d),
+                  f"K1 D={d} {tile}: shared memory {info['smem_bytes']}, "
+                  f"the formula says {fa.smem_bytes(*tile, d)}")
+            check(d != 128 or info["local_bytes"] == 0,
+                  f"K1 D={d} {tile} spills {info['local_bytes']} bytes")
+            infos.append(f"D={d} {tile[0]}x{tile[1]}: {info['registers']} "
+                         f"registers, {info['local_bytes']} B local, "
+                         f"{info['smem_bytes']} B shared, "
+                         f"{info['blocks_per_sm']} block(s)/SM")
+    print("[3 K1 flash_attention] instances on the card: " + "; ".join(infos))
 
     # timing at the main path's shape: a yi-6b prefill of 512 tokens
     b, h, hkv, s, d = 1, 32, 4, 512, 128
@@ -484,12 +540,20 @@ def phase_k1() -> dict:
     pairs = s * (s + 1) // 2                      # causal (q, k) pairs
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     bound_ms, bound_by = bound(n_bytes, 4 * b * h * pairs * d, BF16)
+    sweep = {tile: time_ms(lambda: fa.flash_attention(
+        q, k, v, block_q=tile[0], block_k=tile[1]))[0]
+        for tile in fa.attention_tiles(BF16, d)}
     times = {
         "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
         "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v)),
         "library_ms": time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True))}
+    print(f"[3 K1 flash_attention] tile sweep at the yi-6b prefill, device "
+          f"ms (block_q x block_k -> ms): "
+          + ", ".join(f"{t[0]}x{t[1]} {ms:.4f}" for t, ms in sweep.items())
+          + f"; fastest {min(sweep, key=sweep.get)}; SDPA "
+          f"{times['library_ms'][0]:.4f}, bound {bound_ms:.5f} ms")
     print(f"[3 K1 flash_attention] yi-6b prefill B=1 H=32 Hkv=4 S=512 D=128 "
           f"bf16 causal on {fa.TC_KERNEL}, device ms (ms per call incl. "
           f"host): "
@@ -498,7 +562,7 @@ def phase_k1() -> dict:
     return {"name": "flash_attention", "route": "cuda", "source": SOURCE,
             "replaces": "src/repro/kernels/flash_attention.py:106",
             "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
-            **{k: d for k, (d, _) in times.items()}}
+            **{k: d for k, (d, _) in times.items()}}, sweep
 
 
 def phase_k2() -> dict:
@@ -707,7 +771,7 @@ def phase_serve(smi: str) -> tuple[dict, dict[str, int]]:
     return report, launches
 
 
-def phase_logits(model, params) -> None:
+def phase_logits(model, params, tag: str = "[6 logits] yi-6b full") -> None:
     """Prefill + 4 decode steps of one prompt at the full config, through
     the kernels and through the plain versions, fed the same tokens."""
     cfg = model.cfg
@@ -730,7 +794,7 @@ def phase_logits(model, params) -> None:
             steps.append(logits)
         runs[use_kernel] = torch.stack(steps)
     torch.cuda.synchronize()
-    print(f"[6 logits] yi-6b full, prefill 128 + 4 decode steps: "
+    print(f"{tag}, prefill 128 + 4 decode steps: "
           + check_logits(runs[False], runs[True], cfg.padded_vocab, "logits"))
 
 
@@ -1089,9 +1153,10 @@ def check_logits(plain: torch.Tensor, kern: torch.Tensor, vocab: int,
             f"{agree}/{plain.shape[0]}")
 
 
-def phase_paged_logits(model, params) -> None:
+def phase_paged_logits(model, params,
+                       tag: str = "[10 paged logits] yi-6b full") -> None:
     plain, kern = paged_logits(model, params)
-    print(f"[10 paged logits] yi-6b full, 300-token prompt as chunks of 128 "
+    print(f"{tag}, 300-token prompt as chunks of 128 "
           f"+ 4 paged decode steps: "
           + check_logits(plain, kern, model.cfg.padded_vocab, "paged logits"))
 
@@ -1648,10 +1713,11 @@ def phase_fp32_split_serve(smi: str, cfg) -> dict[str, int]:
     return {"split_combine": launches["split_combine"]}
 
 
-def phase_int8_logits(model, params) -> None:
+def phase_int8_logits(model, params,
+                      tag: str = "[14 int8 paged logits] yi-6b full") -> None:
     plain, kern = paged_logits(model, params, quantized=True,
                                splits=(None, None, 8, 8))
-    print(f"[14 int8 paged logits] yi-6b full, int8 pools, 300-token prompt "
+    print(f"{tag}, int8 pools, 300-token prompt "
           f"as chunks of 128 + 2 decode steps in one pass + 2 with 8 splits: "
           + check_logits(plain, kern, model.cfg.padded_vocab,
                          "int8 paged logits"))
@@ -1973,11 +2039,13 @@ SPEC = dict(cache="paged", page_size=16, prefill_chunk=128, draft=True,
             spec_k=4, num_splits=8)
 
 
-def spec_serve(what: str, n_draft: int, verify, prefill, **kw
+def spec_serve(what: str, n_draft: int, verify, prefill,
+               run: Callable[..., tuple[dict, dict]] = serve_with_counts, **kw
                ) -> tuple[dict, dict[str, int], dict, dict]:
-    """One speculative serve of the phase-5 requests with the draft's calls
-    and K2's kernels counted; checks every launch count (K5b / K6d with
-    K5c in their epilogue once a layer a verify and no standalone K5c, the
+    """One speculative serve of the phase-5 requests (by ``run``, which
+    returns the report and the launches) with the draft's calls and K2's
+    kernels counted; checks every launch count (K5b / K6d with K5c in
+    their epilogue once a layer a verify and no standalone K5c, the
     target's chunks, the draft's K1 and K2 once a draft layer a draft
     prefill and decode step) and that every arrival counter is back at 0.
     Returns the report, the launches, the draft calls and K2's routes."""
@@ -1985,7 +2053,7 @@ def spec_serve(what: str, n_draft: int, verify, prefill, **kw
     drafts, restore = count_draft_calls()
     try:
         with kernels_by_route(ops, "flash_decode") as k2_routes:
-            report, launches = serve_with_counts(**kw)
+            report, launches = run(**kw)
     finally:
         restore()
     verifies = report["spec"]["spec_ticks"]
@@ -2093,7 +2161,8 @@ def phase_spec_prefix_serves(smi: str, paged: dict, int8_reports: dict,
     return counts, spec_a
 
 
-def phase_verify_logits(model, params) -> None:
+def phase_verify_logits(model, params,
+                        tag: str = "[18 verify logits] yi-6b full") -> None:
     """Phase 10's prompt, then one verify of a 5-token chunk (the argmax
     continuation and 4 seeded tokens) in one pass and with 8 splits, over
     bf16 and int8 pools, through the kernels and the plain versions; and
@@ -2148,7 +2217,7 @@ def phase_verify_logits(model, params) -> None:
                      + check_logits(dec[:, None], one[:, 0][:, None],
                                     cfg.padded_vocab,
                                     f"{kind} one-token verify"))
-    print("[18 verify logits] yi-6b full, 300-token prompt as chunks of 128, "
+    print(f"{tag}, 300-token prompt as chunks of 128, "
           "then a verify of 5 tokens: " + "; ".join(lines))
 
 
@@ -2354,10 +2423,12 @@ def phase_k7(sample) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def phase_install(smi: str, sample) -> tuple[dict[str, int], tuple]:
-    """Install-time AT of K8 on the card, ops.mm with the winner, the warm
-    path, and Sample 8 at both levels; returns the launch counts of K8
-    and K7 and the winner's tiles."""
+def phase_install(smi: str, sample, k1_sweep: dict
+                  ) -> tuple[dict[str, int], tuple]:
+    """Install-time AT of K8 and K1 on the card, ops.mm with K8's winner,
+    the warm path, Sample 8 at both levels, and a dense serve whose K1
+    launches all take FlashBlocks' winner; returns the launch counts of K8
+    and K7 and K8's winner's tiles."""
     for kernel in KERNELS:
         kernel.launches = 0
     at.clear_published()
@@ -2400,6 +2471,25 @@ def phase_install(smi: str, sample) -> tuple[dict[str, int], tuple]:
                       f"{a['MatmulBlocks_BK']}) {c * 1e3:.4f}"
                       for a, c in trajectory if "MatmulBlocks_BM" in a)
           + f"; winner {winner}; record file {path}: {json.dumps(records)}")
+    flash = [((a["FlashBlocks_BLOCK_Q"], a["FlashBlocks_BLOCK_K"]), c)
+             for a, c in trajectory if "FlashBlocks_BLOCK_Q" in a]
+    k1_tile = tuple(tuned["FlashBlocks"][k] for k in ("block_q", "block_k"))
+    check(len(flash) == 4 and all(c < float("inf") for _, c in flash),
+          f"FlashBlocks measured {flash}")
+    check(k1_tile in fa.attention_tiles(BF16, 128)
+          and at.tuned("flash_attention") == tuned["FlashBlocks"],
+          f"FlashBlocks' winner {k1_tile} is not an instance or was not "
+          "published")
+    check(any(r["region"] == "FlashBlocks" and card in r["machine"]
+              for r in records), f"no FlashBlocks record names {card}")
+    best = min(k1_sweep, key=k1_sweep.get)
+    print(f"[21 install] FlashBlocks at seq {SSM_SHAPE['seq']} d_head 128 "
+          f"(yi-6b's 32 q / 4 kv heads, causal) bf16, CUDA-event executor "
+          f"(min of 10 launches), 4 evaluations (ad-hoc: block_k, then "
+          f"block_q), trajectory (block_q, block_k) -> ms: "
+          + ", ".join(f"{t} {c * 1e3:.4f}" for t, c in flash)
+          + f"; committed {k1_tile} (phase 3's sweep: {k1_sweep[k1_tile]:.4f}"
+          f" ms there; its fastest {best} {k1_sweep[best]:.4f} ms)")
 
     gen = torch.Generator(device="cuda").manual_seed(21)
     x = (torch.randn((m, k), generator=gen, device="cuda") * k ** -0.5).to(BF16)
@@ -2423,6 +2513,9 @@ def phase_install(smi: str, sample) -> tuple[dict[str, int], tuple]:
           "the second session loaded another winner")
     check(again.executor_calls == 0,
           f"the second session measured {again.executor_calls} times")
+    check(again.ctx.store.entry("FlashBlocks_BLOCK_Q").value == k1_tile[0]
+          and again.ctx.store.entry("FlashBlocks_BLOCK_K").value == k1_tile[1],
+          "the second session loaded another FlashBlocks winner")
     print(f"[21 install] ops.mm launched K8 with the winner's tiles {tiles} "
           f"on {mmk.matmul.last_kernel} (max abs err vs plain {err:.2e}); a "
           f"second session on the "
@@ -2438,13 +2531,26 @@ def phase_install(smi: str, sample) -> tuple[dict[str, int], tuple]:
           "Sample 8 level 2")
     torch.cuda.synchronize()
     launches = {kern.__name__: kern.launches for kern in KERNELS}
-    only_launched(launches, (mmk.matmul, fk.fdm_stress, k9.selective_scan),
-                  "the install phase")
-    check(launches["matmul"] > 0 and launches["fdm_stress"] > 0,
+    only_launched(launches, (mmk.matmul, fk.fdm_stress, k9.selective_scan,
+                             fa.flash_attention), "the install phase")
+    check(launches["matmul"] > 0 and launches["fdm_stress"] > 0
+          and launches["flash_attention"] > 0,
           f"the install phase launched {launches}")
     print(f"[21 install] Sample 8 level 1: winner #{result['level1']['winner'] + 1} "
           f"of 8; level 2 fastest {result['level2']['fastest']}; launches "
           f"{launches}")
+
+    # a dense serve with the install-time tiles published: every K1 launch
+    # at FlashBlocks' winner
+    fa.flash_attention.by_tile.clear()
+    report, serve_launches = serve_with_counts()
+    k1_tiles = dict(fa.flash_attention.by_tile)
+    check(k1_tiles == {k1_tile: 32 * SERVE["n_requests"]}
+          == {k1_tile: serve_launches["flash_attention"]},
+          f"the dense serve after install launched K1 by tile {k1_tiles}")
+    print(f"[21 install] the phase-5 serve after install: "
+          f"{report['tokens_per_s']:.1f} tok/s, K1 launches by tile "
+          f"{k1_tiles}, on {smi}")
     at.clear_published()
     return {k: launches[k] for k in ("matmul", "fdm_stress")}, tiles
 
@@ -3162,6 +3268,261 @@ def auto_agreements(report: dict) -> dict:
             if name.startswith("KVPrecision")}
 
 
+# --------------------------------------------------------------------------
+# phase 28: phi4-mini-3.8b at published widths (G 3: the 48-row tile)
+# --------------------------------------------------------------------------
+
+PHI4 = "phi4-mini-3.8b"
+# phi4-mini's verify and chunk shapes (24 q / 8 kv heads), as the yi-6b
+# ones of SPLIT_CASES
+PHI4_VERIFY = ("phi4-mini verify", 24, 8, 128, 16, 64,
+               [839, 720, 190, 544, 0], [5, 5, 5, 5, 0], 5, BF16)
+PHI4_CHUNK = ("phi4-mini chunk at 384", 24, 8, 128, 16, 32, [384], [128],
+              128, BF16)
+# the prefill kernel's tiles at G 3: 48 rows (block_q 16) by 64 and 128 keys
+PHI4_TILES = [(bq, bk) for bq in pa.prefill_tiles(BF16, 128, 3)[0]
+              for bk in pa.TC_BLOCK_KS]
+# the wrappers whose launches phase 28 counts by tile
+PHI4_TILED = TILED + (fa.flash_attention,)
+
+
+def phi4_serve(model, params, by_tile: dict, tile=None, **kw
+               ) -> tuple[dict, dict[str, int]]:
+    """One serve of the phase-5 requests on phi4-mini (the model built
+    once), its launch and tile counters zeroed just before and read just
+    after, the launches by tile stored in ``by_tile`` ({wrapper:
+    Counter}); with ``tile`` the prefill and verify tile (block_q,
+    block_k) is published for the serve, as the run-time AT's
+    PrefillBucket and SpecBucket publish theirs."""
+    at.clear_published()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    for kernel in PHI4_TILED:
+        kernel.by_tile.clear()
+    fa.flash_attention.last_kernel = fa.flash_decode.last_kernel = None
+    if tile is not None:
+        for key in ("flash_paged_prefill", "flash_paged_verify"):
+            at.publish(key, block_q=tile[0], block_k=tile[1])
+    try:
+        report = serve_mod.serve_model(
+            model, params, ServeConfig(**{**SERVE, "arch": PHI4, **kw}))
+        torch.cuda.synchronize()
+    finally:
+        at.clear_published()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    for kernel in PHI4_TILED:
+        by_tile[kernel.__name__] = collections.Counter(kernel.by_tile)
+    check(report["finished"] == SERVE["n_requests"]
+          and all(len(t) == SERVE["max_new"]
+                  for t in report["outputs"].values()),
+          f"phi4 serve {kw}: {report['finished']} requests finished")
+    check(counters_zero(), f"phi4 serve {kw}: an arrival counter is not 0")
+    return report, launches
+
+
+def serve_line(label: str, report: dict, launches: dict, seen: dict) -> str:
+    return (f"{label}: {report['tokens_per_s']:.1f} tok/s, p50 ttft "
+            f"{report['p50_ttft_s']:.4f}s, p50 itl "
+            f"{report['p50_itl_s']:.4f}s, {report['prefill_chunks']} chunks, "
+            f"{report['decode_steps']} ticks, launches { {k: n for k, n in launches.items() if n} }, "
+            f"by tile { {k: dict(v) for k, v in seen.items() if v} }")
+
+
+def phi4_serves(model, params, smi: str) -> dict:
+    """28 (a)-(g): the serves of phi4-mini; returns the launches by tile
+    of every tiled wrapper over all of them."""
+    n_layers = model.cfg.n_layers
+    tallies: list[dict] = []          # each serve's launches by tile
+
+    def tally() -> dict:
+        tallies.append({})
+        return tallies[-1]
+
+    lines = []
+    # (a) dense lanes: K1 at G 3, K2
+    seen = tally()
+    with kernels_by_route(ops, "flash_decode") as k2_routes:
+        report, launches = phi4_serve(model, params, seen)
+    only_launched(launches, (fa.flash_attention, fa.flash_decode),
+                  "phi4 (a) dense")
+    check(launches["flash_attention"] == n_layers * SERVE["n_requests"]
+          and fa.flash_attention.last_kernel == fa.TC_KERNEL,
+          f"phi4 (a): K1 launched {launches['flash_attention']} times on "
+          f"{fa.flash_attention.last_kernel}")
+    check(launches["flash_decode"] == n_layers * report["decode_steps"]
+          and dict(k2_routes) == {pa.DECODE_TC_KERNEL:
+                                  launches["flash_decode"]},
+          f"phi4 (a): K2 launched {launches['flash_decode']} times, by "
+          f"kernel {dict(k2_routes)}")
+    lines.append(serve_line("(a) dense lanes", report, launches, seen))
+    dense = report
+    # (b) the paged pool, chunks of 128: K4 at 48 rows, K3; (c) int8
+    # pages, 8 splits: K6c, K6b with K5c merged
+    for label, kw, prefill, decode in (
+            ("(b) paged, chunks of 128", {}, pa.flash_paged_prefill,
+             pa.flash_paged_decode),
+            ("(c) int8 pages, 8 splits", dict(kv_dtype="int8", num_splits=8),
+             pa.flash_paged_prefill_quant,
+             pa.paged_decode_split_quant_merged)):
+        seen = tally()
+        report, launches = phi4_serve(model, params, seen, cache="paged",
+                                      page_size=16, prefill_chunk=128, **kw)
+        what = f"phi4 {label}"
+        only_launched(launches, (prefill, decode), what)
+        check(launches[prefill.__name__] == n_layers * report["prefill_chunks"]
+              and dict(seen[prefill.__name__]) == {
+                  (16, 128): launches[prefill.__name__]}
+              and prefill.last_kernel == TC_KERNEL,
+              f"{what}: {prefill.__name__} by tile "
+              f"{dict(seen[prefill.__name__])}, {report['prefill_chunks']} "
+              f"chunks, on {prefill.last_kernel}")
+        check(launches[decode.__name__] == n_layers * report["decode_steps"]
+              and decode.last_kernel == pa.DECODE_TC_KERNEL,
+              f"{what}: {decode.__name__} launched "
+              f"{launches[decode.__name__]} times on {decode.last_kernel}")
+        lines.append(serve_line(label, report, launches, seen)
+                     + f", greedy tokens equal to (a)'s "
+                     f"{greedy_agreement(report, dense)}")
+    # (d)-(g) a 16-layer draft proposing 4, verify at 8 splits, over bf16
+    # and int8 pages, at the default tile and with the 64-key tile
+    for label, quant, tile in (("(d) speculative", False, None),
+                               ("(e) speculative, int8", True, None),
+                               ("(f) speculative, 64-key tiles", False,
+                                (16, 64)),
+                               ("(g) speculative, int8, 64-key tiles", True,
+                                (16, 64))):
+        seen = tally()
+        verify = (pa.paged_prefill_split_quant_merged if quant
+                  else pa.paged_prefill_split_merged)
+        prefill = (pa.flash_paged_prefill_quant if quant
+                   else pa.flash_paged_prefill)
+        kw = dict(SPEC, kv_dtype="int8") if quant else dict(SPEC)
+        report, launches, drafts, k2_routes = spec_serve(
+            f"phi4 {label}", n_layers // 2, verify, prefill,
+            run=functools.partial(phi4_serve, model, params, seen, tile),
+            **kw)
+        want = tile or (16, 128)
+        for kernel in (verify, prefill):
+            check(dict(seen[kernel.__name__]) == {
+                want: launches[kernel.__name__]},
+                f"phi4 {label}: {kernel.__name__} by tile "
+                f"{dict(seen[kernel.__name__])}, expected all at {want}")
+        lines.append(serve_line(label, report, launches, seen)
+                     + f", spec {json.dumps(report['spec'])}, draft "
+                     f"prefills {drafts['prefill']}, draft decode steps "
+                     f"{drafts['decode_step']}")
+    print(f"[28 phi4-mini serves] {PHI4} full (32 layers, d_model 3072, 24 q "
+          f"/ 8 kv heads, G 3, D 128, tied embeddings), 8 requests of 32 "
+          f"tokens, 4 lanes, on {smi}: " + "; ".join(lines))
+    by_tile = collections.defaultdict(collections.Counter)
+    for seen in tallies:
+        for name, tiles in seen.items():
+            by_tile[name].update(tiles)
+    return by_tile
+
+
+def phi4_rows(by_tile: dict) -> list[dict]:
+    """The kernels line's rows of the prefill kernel at G 3: K4 and K6c at
+    phi4-mini's chunk of 128 at 384, K5b and K6d with K5c merged at its
+    verify shape with 8 splits, at each 48-row tile, against plain, timed
+    beside the plain version, SDPA on the pre-gathered (for int8,
+    pre-dequantized bf16) K/V and the bound; launches from phase 28's
+    serves, by tile."""
+    rows, lines = [], []
+    for label, case, quant, ns, line in (
+            ("K4", PHI4_CHUNK, False, 1, 733),
+            ("K6c", PHI4_CHUNK, True, 1, 1186),
+            ("K5b+K5c", PHI4_VERIFY, False, 8, 779),
+            ("K6d+K5c", PHI4_VERIFY, True, 8, 1239)):
+        _, h, hkv, d, psz, nblk, starts, valid, c, _ = case
+        q, pools, table, start, lens = split_case(case, 2800 + line, quant)
+        kw = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
+        want = ref.paged_prefill_ref(q, pools.k, pools.v, table, start, lens,
+                                     **kw)
+        live = [b for b, v in enumerate(valid) if v]
+        k_pool, v_pool = pools.k, pools.v
+        if quant:
+            k_pool = pools.k.to(BF16) * pools.k_scale[..., None].to(BF16)
+            v_pool = pools.v.to(BF16) * pools.v_scale[..., None].to(BF16)
+        k_dense = ref.gather_pages(k_pool, table)   # gathered once, untimed
+        v_dense = ref.gather_pages(v_pool, table)
+        kj = torch.arange(nblk * psz, device="cuda")
+        qi = start[:, None] + torch.arange(c, device="cuda")
+        mask = ((kj <= qi[..., None]) & (kj < lens[:, None, None]))[:, None]
+        library = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k_dense, v_dense, attn_mask=mask, enable_gqa=True))
+        n_bytes, n_ops = chunk_work(case, 1 if quant else 2,
+                                    4 if quant else 0)
+        if quant:
+            wrapper = (pa.paged_prefill_split_quant_merged if ns > 1
+                       else pa.flash_paged_prefill_quant)
+        else:
+            wrapper = (pa.paged_prefill_split_merged if ns > 1
+                       else pa.flash_paged_prefill)
+        for tile in PHI4_TILES:
+            def run(tile=tile):
+                return ops.paged_prefill(q, pools, table, start, lens,
+                                         num_splits=ns, block_q=tile[0],
+                                         block_k=tile[1])
+            n = wrapper.by_tile[tile]
+            got = run()
+            check(wrapper.by_tile[tile] == n + 1
+                  and wrapper.last_kernel == TC_KERNEL,
+                  f"phi4 {label} {tile}: {wrapper.__name__} did not launch "
+                  f"at the tile on {TC_KERNEL}")
+            err = compare(got[live], want[live], BF16)
+            if ns > 1:
+                plain = time_ms(lambda tile=tile: ref.paged_prefill_split_ref(
+                    q, pools.k, pools.v, table, start, lens, ns, **kw,
+                    block_q=tile[0], block_k=tile[1]))
+            else:
+                plain = time_ms(lambda: ref.paged_prefill_ref(
+                    q, pools.k, pools.v, table, start, lens, **kw))
+            times = {"ms": time_ms(run), "plain_ms": plain,
+                     "library_ms": library}
+            r = row(f"{wrapper.__name__}[G3 {tile[0]}x{tile[1]}]",
+                    PREFILL_SOURCE, f"{FLASH}:{line}", err, n_bytes, n_ops,
+                    times)
+            r.update(launches=by_tile.get(wrapper.__name__, {}).get(tile, 0),
+                     shape=case[0], tile=list(tile))
+            if ns > 1:
+                r["merges"] = f"{FLASH}:315"
+            check(r["launches"] > 0, f"phi4 {label} {tile}: no launch in "
+                  "phase 28's serves")
+            rows.append(r)
+            lines.append(f"{label} {tile}: {fmt_times(times)}, bound "
+                         f"{r['bound_ms']:.5f} ms ({r['bound_by']}), err "
+                         f"{err:.2e}, {r['launches']} launches in the serves")
+    check(counters_zero(), "phi4 rows: an arrival counter is not 0")
+    print(f"[28 phi4-mini kernels] the prefill kernel at G 3 (24 q / 8 kv "
+          f"heads), 48-row tiles, against plain (tol {TOL[BF16]}), device ms "
+          f"(ms per call incl. host; library: SDPA on the pre-gathered K/V, "
+          f"not timed: the gather): " + "; ".join(lines))
+    return rows
+
+
+def phase_phi4(smi: str) -> list[dict]:
+    """Phase 28: phi4-mini-3.8b at published widths, random bf16 weights
+    from seed 0: its serves (a)-(g), its logits against plain (dense,
+    paged, int8 with splits, verify), and the G-3 kernel rows."""
+    t0 = time.perf_counter()
+    model = build_model(get_arch(PHI4))
+    params = model.init(0, "cuda")
+    check("lm_head" not in params, "phi4-mini's head is not the embedding")
+    by_tile = phi4_serves(model, params, smi)
+    tag = f"[28 logits] {PHI4} full"
+    phase_logits(model, params, tag)
+    phase_paged_logits(model, params, tag)
+    phase_int8_logits(model, params, tag)
+    phase_verify_logits(model, params, tag)
+    del model, params
+    torch.cuda.empty_cache()
+    rows = phi4_rows(by_tile)
+    print(f"[28 phi4-mini] phase 28 in {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3172,7 +3533,8 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_card()
     phase_build()
-    rows = [phase_k1(), phase_k2()]
+    k1_row, k1_sweep = phase_k1()
+    rows = [k1_row, phase_k2()]
     dense, launches = phase_serve(smi)
     model = build_model(get_arch("yi-6b"))
     params = model.init(0, "cuda")
@@ -3197,7 +3559,7 @@ def main() -> int:
     sample = load_example("autotune_fdm_torch")
     mm_row, mm_sweep = phase_k8()
     rows += [mm_row, phase_k7(sample)]
-    install_launches, winner = phase_install(smi, sample)
+    install_launches, winner = phase_install(smi, sample, k1_sweep)
     launches.update(install_launches)
     mm_row["ms"] = mm_sweep[winner]     # the tile the install path published
     k9_row, k9_sweep = phase_k9()
@@ -3215,7 +3577,9 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
     phase_gateway(smi, paged, spec_a)
     phase_autotune(smi, paged, spec_a)
-    print(f"[done] phases 1-27 in {time.perf_counter() - t0:.1f}s")
+    rows += phase_phi4(smi)
+    check(len(rows) == 22, f"{len(rows)} kernel rows, expected 22")
+    print(f"[done] phases 1-28 in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,17 +9,17 @@ from __future__ import annotations
 from .base import ArchConfig
 from .deepseek_7b import CONFIG as deepseek_7b
 from .falcon_mamba_7b import CONFIG as falcon_mamba_7b
+from .phi4_mini_3p8b import CONFIG as phi4_mini_3p8b
 from .yi_6b import CONFIG as yi_6b
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in [yi_6b, deepseek_7b,
-                                                    falcon_mamba_7b]}
+ARCHS: dict[str, ArchConfig] = {c.name: c for c in [
+    yi_6b, deepseek_7b, falcon_mamba_7b, phi4_mini_3p8b]}
 
 _OTHER_FAMILIES = "ROADMAP queue 1, item 8 (the other model families)"
 
 #: archs of the JAX package that the port does not run yet -> the
 #: ROADMAP item that ports them
 NOT_PORTED: dict[str, str] = {
-    "phi4-mini-3.8b": _OTHER_FAMILIES,
     "h2o-danube-1.8b": _OTHER_FAMILIES + ": SWA ring-buffer decode",
     "pixtral-12b": _OTHER_FAMILIES + ": the vision frontend",
     "moonshot-v1-16b-a3b": _OTHER_FAMILIES + ": MoE",

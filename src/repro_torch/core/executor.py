@@ -9,8 +9,10 @@ agnostic to how cost is obtained:
   tensor in the variant's result, so a CUDA variant is timed to its
   completion, not to its launch (warmup run excluded).
 * :class:`CudaEventExecutor` — device time of a CUDA variant from CUDA
-  events recorded around each launch (warm-up launches excluded); used by
-  install-time AT on the card (``tuning/install.py``).
+  events recorded around each launch (warm-up launches excluded), all
+  queued behind a spin of the device so that the host's launch overhead
+  is not in the intervals; used by install-time AT on the card
+  (``tuning/install.py``).
 * :class:`CostModelExecutor` — evaluates an analytic cost (``according
   estimated`` / the roofline model) without executing anything.  Used by the
   static tuner against compiled dry-run artifacts.
@@ -81,7 +83,11 @@ class WallClockExecutor:
 class CudaEventExecutor:
     """cost = least device seconds of one run of a CUDA variant over
     ``repeats`` runs, each between two CUDA events recorded on the current
-    stream; the ``warmup`` runs before them are not timed.
+    stream; the ``warmup`` runs before them are not timed.  The timed runs
+    are enqueued behind a spin of ``SPIN_CYCLES`` device clocks, so
+    each start event fires when the previous run ends, not while the host
+    is still in the variant's wrapper: on an idle device the interval of
+    a short kernel would hold its launch overhead too.
 
     ``make_variant(assignment)`` returns a zero-arg callable that launches
     work on ``device``'s current stream.  Errors of a launch propagate.
@@ -91,6 +97,8 @@ class CudaEventExecutor:
     repeats: int = 10
     warmup: int = 2
     device: Any = "cuda"
+    #: ~10 ms on an H100, longer than the host takes to enqueue the runs
+    SPIN_CYCLES = 20_000_000
 
     def __call__(self, assignment: dict[str, Any]) -> float:
         fn = self.make_variant(assignment)
@@ -101,6 +109,7 @@ class CudaEventExecutor:
             marks = [(torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                      for _ in range(max(1, self.repeats))]
+            torch.cuda._sleep(self.SPIN_CYCLES)
             for start, end in marks:
                 start.record()
                 fn()

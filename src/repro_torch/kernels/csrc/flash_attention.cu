@@ -35,18 +35,19 @@
 //       (exp2 of scores scaled by scale * log2 e, row max by quad
 //       shuffles); P is packed to bf16 in registers as the A operand of
 //       P.V;
-//     - one block of 4 warps per (batch, head, 64-row query tile), each
-//       warp a 16-row slab walking every live 64-key tile; a warp skips a
-//       tile none of whose keys its slab sees (the diagonal, the window's
-//       edge).  A row that has seen no visible key yet keeps m = -1e30
-//       and subtracts 0, so its masked keys weigh 0, not 1: the window can
-//       hide a whole tile from some rows of a slab whose other rows see it;
+//     - one block per (batch, head, BM-row query tile), one warp per
+//       16-row slab, each slab walking every live key tile in steps of 64
+//       keys; a warp skips a step none of whose keys its slab sees (the
+//       diagonal, the window's edge).  A row that has seen no visible
+//       key yet keeps m = -1e30 and subtracts 0, so its masked keys weigh
+//       0, not 1: the window can hide a whole step from some rows of a
+//       slab whose other rows see it;
 //     - K/V tiles arrive by 16-byte cp.async copies into a ring of 2
 //       stages (tile t + 1 in flight while tile t is multiplied; keys past
 //       S zero-filled, masked); Q's fragments are loaded once a block.
-//       At D=128 that is 87 KB of shared memory and ~210 registers a
-//       thread, 2 blocks and 8 warps an SM: at S=512, H=32 the 256 blocks
-//       fit in one wave on 132 SMs;
+//       At the default 64 x 64 tile and D=128 that is 87 KB of shared
+//       memory and ~210 registers a thread, 2 blocks and 8 warps an SM:
+//       at S=512, H=32 the 256 blocks fit in one wave on 132 SMs;
 //     - K/V are contiguous per kv head, so there is no GQA fold: the G
 //       query heads of a kv head are G blocks that read the same K/V
 //       rows, from L2 after the first (one head's K and V at S=512 are
@@ -66,6 +67,15 @@
 //    and torch's SDPA pulls further ahead as the work grows.  Left for
 //    later: wgmma, whose warpgroup tiles take their operands from shared
 //    memory, so a block can hold more rows per copied key tile, and TMA.
+//    The tile is the install-time AT's FlashBlocks region (block_q query
+//    rows x block_k keys, tuning/install.py): 64 x 64 by default, and at
+//    D = 128 also 64 x 128, 128 x 64 and 128 x 128.  block_q sets the
+//    warps of a block (BM / 16) and so how many query rows share each
+//    copied K/V tile; block_k the keys of one copy (a ring stage), walked
+//    in 64-key softmax steps, so every tile takes the same steps in the
+//    same order and gives the same bits.  Shared memory at D = 128: 87,
+//    157, 104 and 174 KB (Smem); the 128-key tiles fit one block an SM,
+//    and so do the 128-row ones (8 warps of ~210 registers).
 //  * K1 float32 (flash_attention_kernel): SIMT fp32, one block of 4 warps
 //    per (batch, head, 64-row query tile); K/V tiles of 32 keys staged in
 //    shared memory as fp32 (lane j of a warp owns key j of the tile, so
@@ -239,19 +249,28 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // K1 on the tensor cores: q (B, H, S, D), k/v (B, Hkv, S, D), o like q,
 // all bf16.  Grid (ceil(S / BM), H, B), query tile gridDim.x - 1 -
 // blockIdx.x; scale_log2 = scale * log2(e), so the softmax runs on exp2.
+// The tile, template parameters: BM query rows (one 16-row mma slab a
+// warp) and BN keys per K/V copy (a stage of the ring), walked in steps
+// of STEP keys.
 // ---------------------------------------------------------------------------
 
 namespace k1tc {
-constexpr int NWARPS = 4;               // one 16-row mma slab each
-constexpr int THREADS = NWARPS * 32;
-constexpr int MIN_BLOCKS = 2;           // resident blocks per SM
-constexpr int BM = 16 * NWARPS;         // query rows per block
-constexpr int BN = 64;                  // keys per K/V tile
 constexpr int STAGES = 2;               // ring of K/V tiles in flight
+constexpr int STEP = 64;                // keys per online-softmax step
+constexpr int DEFAULT_BM = 64;          // the tile of an untuned launch
+constexpr int DEFAULT_BN = 64;
+
+template <int BM_, int BN_>
+struct Tile {
+  static constexpr int BM = BM_;
+  static constexpr int BN = BN_;
+  static constexpr int NWARPS = BM / 16;
+  static constexpr int THREADS = NWARPS * 32;
+};
 
 // Dynamic shared memory of one block: the Q tile and the ring of K and V
 // tiles, bf16 rows of D + 8 elements.
-template <int D>
+template <int D, int BM, int BN>
 struct Smem {
   static constexpr int ROW = D + 8;
   static constexpr size_t q_bytes = (size_t)BM * ROW * 2;
@@ -260,23 +279,37 @@ struct Smem {
   static constexpr size_t v_off = k_off + STAGES * stage_bytes;
   static constexpr size_t bytes = v_off + STAGES * stage_bytes;
 };
+
+// Resident blocks an SM that the launch bounds ask for: 2 for a 4-warp
+// block whose shared memory fits twice in an SM's 228 KB (with the 1 KB
+// the card reserves a block), else 1.  A thread of any tile holds ~210
+// registers (its slab's Q fragments, O accumulator and one step's S), so
+// 8 warps fit once: two 8-warp blocks would cap a thread at 128 and spill.
+template <int D, int BM, int BN>
+constexpr int min_blocks() {
+  return Tile<BM, BN>::NWARPS == 4 &&
+                 2 * (Smem<D, BM, BN>::bytes + 1024) <= 228 * 1024
+             ? 2 : 1;
+}
 }  // namespace k1tc
 
-template <int D>
-__global__ void __launch_bounds__(k1tc::THREADS, k1tc::MIN_BLOCKS)
+template <int D, int BM, int BN>
+__global__ void __launch_bounds__(k1tc::Tile<BM, BN>::THREADS,
+                                  k1tc::min_blocks<D, BM, BN>())
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ o, int H, int Hkv,
                           int S, int causal, int window, float scale_log2) {
   using namespace k1tc;
-  using L = Smem<D>;
+  using L = Smem<D, BM, BN>;
+  constexpr int THREADS = Tile<BM, BN>::THREADS;
   constexpr int ROW = L::ROW;
   constexpr int CPR = D * 2 / 16;   // 16-byte copies per row
-  constexpr int NT = BN / 8;        // 8-key column tiles of S
+  constexpr int NT = STEP / 8;      // 8-key column tiles of S
   constexpr int DT = D / 8;         // 8-wide column tiles of O
   constexpr int KT = D / 16;        // 16-deep steps of QK^T
-  static_assert(D % 16 == 0 && BN % 16 == 0, "tile shape");
+  static_assert(D % 16 == 0 && BM % 16 == 0 && BN % STEP == 0, "tile shape");
 
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
@@ -364,97 +397,102 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         ldsm4(smem_addr(qs + (row0 + (lane & 15)) * ROW + kk * 16 + (lane >> 4) * 8),
               qf[kk]);
     }
-
-    // a tile none of whose keys the warp's slab sees is skipped
-    const int k_lo = t * BN;
-    const int k_hi = k_lo + BN - 1;
-    if (k_lo >= S || (causal && k_lo > r_hi) ||
-        (window > 0 && r_lo - k_hi >= window))
-      continue;
-    const bool need_mask = k_hi >= S || (causal && k_hi > r_lo) ||
-                           (window > 0 && r_hi - k_lo >= window);
     const int stage = i % STAGES;
-    const __nv_bfloat16* kt = k_ring + stage * BN * ROW;
-    const __nv_bfloat16* vt = v_ring + stage * BN * ROW;
 
-    // S = Q K^T for the slab's 16 rows and the tile's BN keys
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bk[4];
-        const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
-        const int col = kk * 16 + (((lane >> 3) & 1) << 3);
-        ldsm4(smem_addr(kt + key * ROW + col), bk);
-        mma16816(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-      }
-    }
+    // the tile's keys in steps of STEP: the same steps, in the same order,
+    // whatever BN, so every tile gives the same bits
+#pragma unroll 1
+    for (int st = 0; st < BN / STEP; ++st) {
+      // a step none of whose keys the warp's slab sees is skipped
+      const int k_lo = t * BN + st * STEP;
+      const int k_hi = k_lo + STEP - 1;
+      if (k_lo >= S || (causal && k_lo > r_hi) ||
+          (window > 0 && r_lo - k_hi >= window))
+        continue;
+      const bool need_mask = k_hi >= S || (causal && k_hi > r_lo) ||
+                             (window > 0 && r_hi - k_lo >= window);
+      const __nv_bfloat16* kt = k_ring + (stage * BN + st * STEP) * ROW;
+      const __nv_bfloat16* vt = v_ring + (stage * BN + st * STEP) * ROW;
 
-    // scale, mask, online softmax in fp32
-    float mx[2] = {m[0], m[1]};
+      // S = Q K^T for the slab's 16 rows and the step's keys
+      float s[NT][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+      for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
-        if (need_mask) {
-          const int key = k_lo + n * 8 + 2 * t4 + (e & 1);
-          const int pos = e < 2 ? pos0 : pos1;
-          if (key >= S || (causal && key > pos) ||
-              (window > 0 && pos - key >= window))
-            x = kNegInf;
+      for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bk[4];
+          const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+          const int col = kk * 16 + (((lane >> 3) & 1) << 3);
+          ldsm4(smem_addr(kt + key * ROW + col), bk);
+          mma16816(s[2 * np], qf[kk], bk[0], bk[1]);
+          mma16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
         }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-    }
+
+      // scale, mask, online softmax in fp32
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-      // a row that has seen no key yet keeps m = -1e30 and subtracts 0,
-      // so its masked keys weigh exp2(-1e30) = 0, not 1
-      const float m_use = mx[r] == kNegInf ? 0.f : mx[r];
-      const float alpha = exp2f(m[r] - m_use);
-      m[r] = mx[r];
-      mx[r] = m_use;
-      l[r] *= alpha;
+      for (int n = 0; n < NT; ++n) {
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        acc[dt][2 * r] *= alpha;
-        acc[dt][2 * r + 1] *= alpha;
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if (need_mask) {
+            const int key = k_lo + n * 8 + 2 * t4 + (e & 1);
+            const int pos = e < 2 ? pos0 : pos1;
+            if (key >= S || (causal && key > pos) ||
+                (window > 0 && pos - key >= window))
+              x = kNegInf;
+          }
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
       }
-    }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        // a row that has seen no key yet keeps m = -1e30 and subtracts 0,
+        // so its masked keys weigh exp2(-1e30) = 0, not 1
+        const float m_use = mx[r] == kNegInf ? 0.f : mx[r];
+        const float alpha = exp2f(m[r] - m_use);
+        m[r] = mx[r];
+        mx[r] = m_use;
+        l[r] *= alpha;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          acc[dt][2 * r] *= alpha;
+          acc[dt][2 * r + 1] *= alpha;
+        }
+      }
 
-    // P in bf16 as the A operand of P.V
-    uint32_t pa[NT / 2][4];
+      // P in bf16 as the A operand of P.V
+      uint32_t pa[NT / 2][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const float p0 = exp2f(s[n][0] - mx[0]);
-      const float p1 = exp2f(s[n][1] - mx[0]);
-      const float p2 = exp2f(s[n][2] - mx[1]);
-      const float p3 = exp2f(s[n][3] - mx[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
-      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
+      for (int n = 0; n < NT; ++n) {
+        const float p0 = exp2f(s[n][0] - mx[0]);
+        const float p1 = exp2f(s[n][1] - mx[0]);
+        const float p2 = exp2f(s[n][2] - mx[1]);
+        const float p3 = exp2f(s[n][3] - mx[1]);
+        l[0] += p0 + p1;
+        l[1] += p2 + p3;
+        pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
+        pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
 
-    // O += P V
+      // O += P V
 #pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
+      for (int kk = 0; kk < NT / 2; ++kk) {
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bv[4];
-        const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-        const int col = dp * 16 + ((lane >> 4) << 3);
-        ldsm4_trans(smem_addr(vt + key * ROW + col), bv);
-        mma16816(acc[2 * dp], pa[kk], bv[0], bv[1]);
-        mma16816(acc[2 * dp + 1], pa[kk], bv[2], bv[3]);
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bv[4];
+          const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+          const int col = dp * 16 + ((lane >> 4) << 3);
+          ldsm4_trans(smem_addr(vt + key * ROW + col), bv);
+          mma16816(acc[2 * dp], pa[kk], bv[0], bv[1]);
+          mma16816(acc[2 * dp + 1], pa[kk], bv[2], bv[3]);
+        }
       }
     }
   }
@@ -656,18 +694,40 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
   return launch_decode_gr<T, D, 1>(q, k, v, kv_len, o, B, H, Hkv, S, scale, stream);
 }
 
-template <int D>
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// f(Int<BM>, Int<BN>) for the instantiated K1 tile of bm query rows and
+// bn keys at head dim D, else cudaErrorInvalidValue: rows 64 and 128 by
+// keys 64 and 128 at D = 128 (the head dim of every arch the card
+// serves), the default 64 x 64 at the other head dims.
+template <int D, typename F>
+cudaError_t k1_with_tile(int bm, int bn, F&& f) {
+  if (bm == k1tc::DEFAULT_BM && bn == k1tc::DEFAULT_BN)
+    return f(Int<k1tc::DEFAULT_BM>{}, Int<k1tc::DEFAULT_BN>{});
+  if constexpr (D == 128) {
+    if ((bm == 64 || bm == 128) && (bn == 64 || bn == 128)) {
+      auto keys = [&](auto rows) {
+        return bn == 64 ? f(rows, Int<64>{}) : f(rows, Int<128>{});
+      };
+      return bm == 64 ? keys(Int<64>{}) : keys(Int<128>{});
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int D, int BM, int BN>
 cudaError_t launch_attention_tc(const void* q, const void* k, const void* v,
                                 void* o, int B, int H, int Hkv, int S,
                                 int causal, int window, float scale,
                                 cudaStream_t stream) {
-  constexpr size_t smem = k1tc::Smem<D>::bytes;
-  auto kern = flash_attention_tc_kernel<D>;
+  constexpr size_t smem = k1tc::Smem<D, BM, BN>::bytes;
+  auto kern = flash_attention_tc_kernel<D, BM, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + k1tc::BM - 1) / k1tc::BM, H, B);
-  kern<<<grid, k1tc::THREADS, smem, stream>>>(
+  const dim3 grid((S + BM - 1) / BM, H, B);
+  kern<<<grid, k1tc::Tile<BM, BN>::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -675,36 +735,46 @@ cudaError_t launch_attention_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int BM, int BN>
 cudaError_t attention_tc_info(int* out) {
-  return instance_info(flash_attention_tc_kernel<D>, k1tc::THREADS,
-                       k1tc::Smem<D>::bytes, out);
+  return instance_info(flash_attention_tc_kernel<D, BM, BN>,
+                       k1tc::Tile<BM, BN>::THREADS,
+                       k1tc::Smem<D, BM, BN>::bytes, out);
 }
 
-// K1 over float32 (T = float, the SIMT template) or bf16 (T =
-// __nv_bfloat16, the tensor cores)
+// f(Int<D>) for the head dims the kernels are built for
+template <typename F>
+cudaError_t with_dim(int d, F&& f) {
+  switch (d) {
+    case 16: return f(Int<16>{});
+    case 32: return f(Int<32>{});
+    case 64: return f(Int<64>{});
+    case 128: return f(Int<128>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K1 over float32 (T = float, the SIMT template, whose one tile is
+// k1::BQ x k1::BK; block_q and block_k are not read) or bf16 (T =
+// __nv_bfloat16, the tensor cores at the tile block_q x block_k)
 template <typename T>
 cudaError_t attention_by_dim(const void* q, const void* k, const void* v,
                              void* o, int B, int H, int Hkv, int S, int D,
                              int causal, int window, float scale,
-                             cudaStream_t st) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    switch (D) {
-      case 16: return launch_attention_tc<16>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
-      case 32: return launch_attention_tc<32>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
-      case 64: return launch_attention_tc<64>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
-      case 128: return launch_attention_tc<128>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
-      default: return cudaErrorInvalidValue;
+                             int block_q, int block_k, cudaStream_t st) {
+  return with_dim(D, [&](auto d) {
+    constexpr int DD = decltype(d)::value;
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      return k1_with_tile<DD>(block_q, block_k, [&](auto bm, auto bn) {
+        return launch_attention_tc<DD, decltype(bm)::value,
+                                   decltype(bn)::value>(
+            q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
+      });
+    } else {
+      return launch_attention<T, DD>(q, k, v, o, B, H, Hkv, S, causal,
+                                     window, scale, st);
     }
-  } else {
-    switch (D) {
-      case 16: return launch_attention<T, 16>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
-      case 32: return launch_attention<T, 32>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
-      case 64: return launch_attention<T, 64>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
-      case 128: return launch_attention<T, 128>(q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+  });
 }
 
 template <typename T>
@@ -723,20 +793,26 @@ cudaError_t decode_by_dim(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (K1 of bfloat16 runs on the tensor
-// cores, of float32 on the SIMT template).  window <= 0 means no sliding
-// window.
-// Returns the launch's cudaError_t (0 = success).  The caller validates
-// shapes, contiguity and alignment; the kernels never allocate or sync.
+// cores at the tile of block_q query rows and block_k keys, which must
+// have an instance (see k1_with_tile), of float32 on the SIMT template,
+// which reads no tile).  window <= 0 means no sliding window.
+// Returns the launch's cudaError_t (0 = success; a tile without an
+// instance returns cudaErrorInvalidValue and launches nothing).  The
+// caller validates shapes, contiguity and alignment; the kernels never
+// allocate or sync.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int H,
                                      int Hkv, int S, int D, int dtype,
                                      int causal, int window, float scale,
-                                     void* stream) {
+                                     int block_q, int block_k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return attention_by_dim<float>(q, k, v, o, B, H, Hkv, S, D, causal, window, scale, st);
+    return attention_by_dim<float>(q, k, v, o, B, H, Hkv, S, D, causal,
+                                   window, scale, block_q, block_k, st);
   if (dtype == 1)
-    return attention_by_dim<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, D, causal, window, scale, st);
+    return attention_by_dim<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, D,
+                                           causal, window, scale, block_q,
+                                           block_k, st);
   return cudaErrorInvalidValue;
 }
 
@@ -751,15 +827,16 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// The bf16 K1 instance for head dim D: out[0..3] = registers per thread,
-// local-memory (spill) bytes, dynamic shared memory in bytes, resident
-// blocks per SM.
-extern "C" int repro_flash_attention_tc_info(int D, int* out) {
-  switch (D) {
-    case 16: return attention_tc_info<16>(out);
-    case 32: return attention_tc_info<32>(out);
-    case 64: return attention_tc_info<64>(out);
-    case 128: return attention_tc_info<128>(out);
-    default: return cudaErrorInvalidValue;
-  }
+// The bf16 K1 instance for head dim D at the tile of block_q query rows
+// and block_k keys: out[0..3] = registers per thread, local-memory
+// (spill) bytes, dynamic shared memory in bytes, resident blocks per SM.
+extern "C" int repro_flash_attention_tc_info(int D, int block_q, int block_k,
+                                             int* out) {
+  return with_dim(D, [&](auto d) {
+    constexpr int DD = decltype(d)::value;
+    return k1_with_tile<DD>(block_q, block_k, [&](auto bm, auto bn) {
+      return attention_tc_info<DD, decltype(bm)::value, decltype(bn)::value>(
+          out);
+    });
+  });
 }

@@ -102,9 +102,11 @@
 // The tile is a pair of template parameters, the run-time AT's block_q x G
 // query rows and block_k keys (tuning/dynamic.py's PrefillBucket and
 // SpecBucket regions): 32 rows and 128 keys by default, the design above;
-// at D = 128 also rows 16 and 64 and keys 64 (see Tile).  The tile sets
+// at D = 128 also rows 16, 48 and 64 and keys 64 (see Tile).  The tile sets
 // the grid (query tiles x splits), the key groups whose online softmax
-// states merge at the end, and the split partition.
+// states merge at the end, and the split partition.  G need not be a
+// power of two: the 48-row tile holds 16 chunk rows of phi4-mini's G = 3
+// heads, the fold's row r being chunk row r / G of head r % G.
 // Left for later: wgmma and TMA.
 
 #include "mma.cuh"
@@ -120,17 +122,24 @@ constexpr int DEFAULT_BN = 128;   // and 128 keys
 // x G and block_k): BM = 16 SLABS query rows and BN keys per K/V tile.
 // The warps of a block: SLABS 16-row mma slabs times KGROUPS key groups,
 // group kg taking keys kg * KN .. kg * KN + KN - 1 of every K/V tile; 4
-// groups up to 2 slabs (128 or 256 threads), 2 at 4 slabs, so that a
-// block stays at 8 warps and a thread's registers (its slab's acc, 64 fp32
-// at D = 128) stay under the 255 that 256 threads may hold.
+// groups up to 2 slabs (128 or 256 threads), 2 from 3 slabs (192 or 256),
+// so that a block stays at most 8 warps and a thread's registers (its
+// slab's acc, 64 fp32 at D = 128) stay under the 255 that 256 threads may
+// hold (3 slabs by 4 groups would be 384 threads, 170 registers each).
+// BOUND is the launch bound's thread count: THREADS, but 256 for 3 slabs,
+// whose 6-warp block ptxas otherwise squeezes under the 170 registers of
+// two blocks an SM at the cost of a spill (bf16 partials at 64 keys: 168
+// registers, 4 bytes); with the 8-warp bound of 4 slabs it keeps every
+// register it needs and runs one block an SM, as the 4-slab tile does.
 template <int SLABS_, int BN_>
 struct Tile {
   static constexpr int SLABS = SLABS_;
   static constexpr int BN = BN_;
   static constexpr int BM = 16 * SLABS;
-  static constexpr int KGROUPS = SLABS >= 4 ? 2 : 4;
+  static constexpr int KGROUPS = SLABS >= 3 ? 2 : 4;
   static constexpr int NWARPS = SLABS * KGROUPS;
   static constexpr int THREADS = NWARPS * 32;
+  static constexpr int BOUND = SLABS == 3 ? 256 : THREADS;
   static constexpr int KN = BN / KGROUPS;
 };
 
@@ -170,17 +179,17 @@ struct Smem {
 // K4 / K6c / K5b / K6d: q (B, H, C, D) bf16, pools (P, Hkv, psz, D) of S
 // (bf16, or int8 with scales (P, Hkv, psz) fp32), table (B, nblk), start
 // and kv_len (B,) int32.  SPLIT = false: o (B, H, C, D) bf16, grid
-// (ceil(C / (BM >> gshift)), Hkv, B).  SPLIT = true: blockIdx.x = q_tile * ns + split, the
+// (ceil(C / (BM / G)), Hkv, B).  SPLIT = true: blockIdx.x = q_tile * ns + split, the
 // block walks its split of the tile's live key tiles and writes the
 // unnormalised fp32 partials m, l (B, H, ns, C) and acc (B, H, ns, C, D),
 // m in natural-log units; with cnt (B * Hkv * q tiles int32 arrival
 // counters, zero on entry and left zero) also o, K5c's merge of the
-// splits.  G = 1 << gshift query heads per kv head, dividing the tile's
-// BM rows; scale_log2 = scale * log2(e), so the softmax runs on exp2.
+// splits.  G query heads per kv head, dividing the tile's BM rows;
+// scale_log2 = scale * log2(e), so the softmax runs on exp2.
 // ---------------------------------------------------------------------------
 
 template <typename S, int D, bool SPLIT, int SLABS, int BN>
-__global__ void __launch_bounds__(tc::Tile<SLABS, BN>::THREADS)
+__global__ void __launch_bounds__(tc::Tile<SLABS, BN>::BOUND)
 paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const S* __restrict__ kp, const S* __restrict__ vp,
                         const float* __restrict__ ksc,
@@ -191,7 +200,7 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         __nv_bfloat16* __restrict__ o, float* __restrict__ pm,
                         float* __restrict__ pl, float* __restrict__ pacc,
                         int* __restrict__ cnt, int H, int Hkv, int C, int psz,
-                        int nblk, int ns, int gshift, float scale_log2) {
+                        int nblk, int ns, int G, float scale_log2) {
   using namespace tc;
   using T = Tile<SLABS, BN>;
   using L = Smem<S, D, SLABS, BN>;
@@ -217,8 +226,7 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   float* vs_ring = reinterpret_cast<float*>(smem + L::vs_off);
   int* tbl = reinterpret_cast<int*>(smem + L::tbl_off);
 
-  const int G = 1 << gshift;
-  const int RQ = BM >> gshift;          // chunk rows per tile
+  const int RQ = BM / G;                // chunk rows per tile
   const int tile = SPLIT ? blockIdx.x / ns : blockIdx.x;
   const int split = SPLIT ? blockIdx.x - tile * ns : 0;
   const int i0 = tile * RQ;             // the tile's first chunk row
@@ -244,15 +252,15 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_tiles = t_end - t_lo;
   const int n_pages = (min(len, t_end * BN) + psz - 1) / psz;
 
-  // Q tile: row r is chunk row i0 + (r >> gshift) of head hk * G + (r & (G-1));
-  // rows past the chunk are zeros, never stored
+  // Q tile: row r is chunk row i0 + r / G of head hk * G + r % G; rows
+  // past the chunk are zeros, never stored
   for (int i = tid; i < BM * QCPR; i += THREADS) {
     const int r = i / QCPR;
     const int c = i - r * QCPR;
-    const int qi = i0 + (r >> gshift);
+    const int qi = i0 + r / G;
     const bool in = qi < C;
     const __nv_bfloat16* src =
-        in ? q + (((size_t)b * H + hk * G + (r & (G - 1))) * C + qi) * D + c * 8
+        in ? q + (((size_t)b * H + hk * G + r % G) * C + qi) * D + c * 8
            : q;
     cp_async16(smem_addr(qs + r * ROW + c * 8), src, in ? 16 : 0);
   }
@@ -306,9 +314,9 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int kg = warp / SLABS;          // and its keys kg * KN .. + KN - 1
   const int g = lane >> 2;              // the thread's rows: row0 + g, + 8
   const int t4 = lane & 3;              // and columns 2 * t4, + 1 of each tile
-  const int pos0 = q_start + ((row0 + g) >> gshift);
-  const int pos1 = q_start + ((row0 + g + 8) >> gshift);
-  const int warp_pos = q_start + (row0 >> gshift);   // the slab's first row
+  const int pos0 = q_start + (row0 + g) / G;
+  const int pos1 = q_start + (row0 + g + 8) / G;
+  const int warp_pos = q_start + row0 / G;   // the slab's first row
 
   float m[2] = {kNegInf, kNegInf};      // running max, log2 domain
   float l[2] = {0.f, 0.f};              // this thread's share of the row sums
@@ -502,11 +510,11 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
       l[r] += __shfl_xor_sync(kFull, l[r], 1);
       l[r] += __shfl_xor_sync(kFull, l[r], 2);
       const int row = row0 + g + 8 * r;
-      const int qi = i0 + (row >> gshift);
+      const int qi = i0 + row / G;
       if (qi >= C) continue;
       if constexpr (SPLIT) {
         const size_t prow =
-            (((size_t)b * H + hk * G + (row & (G - 1))) * ns + split) * C + qi;
+            (((size_t)b * H + hk * G + row % G) * ns + split) * C + qi;
         if (t4 == 0) {
           pm[prow] = m[r] == kNegInf ? kNegInf : m[r] * (1.f / kLog2e);
           pl[prow] = l[r];
@@ -520,7 +528,7 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
       }
       const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
       __nv_bfloat16* dst =
-          o + (((size_t)b * H + hk * G + (row & (G - 1))) * C + qi) * D + 2 * t4;
+          o + (((size_t)b * H + hk * G + row % G) * C + qi) * D + 2 * t4;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt)
         *reinterpret_cast<uint32_t*>(dst + dt * 8) =
@@ -535,13 +543,9 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const size_t head0 = (size_t)b * H + hk * G;
       merge_splits_if_last<D, THREADS, BM>(
           cnt + ((size_t)b * Hkv + hk) * tiles + tile, ns,
-          min(BM, (C - i0) << gshift), pm, pl, pacc, (size_t)C,
-          [&](int r) {
-            return (head0 + (r & (G - 1))) * ns * C + i0 + (r >> gshift);
-          },
-          [&](int r) {
-            return o + ((head0 + (r & (G - 1))) * C + i0 + (r >> gshift)) * D;
-          },
+          min(BM, (C - i0) * G), pm, pl, pacc, (size_t)C,
+          [&](int r) { return (head0 + r % G) * ns * C + i0 + r / G; },
+          [&](int r) { return o + ((head0 + r % G) * C + i0 + r / G) * D; },
           reinterpret_cast<float*>(smem));
     }
   }
@@ -578,8 +582,8 @@ template <int N>
 using Int = std::integral_constant<int, N>;
 
 // f(Int<SLABS>, Int<BN>) for the instantiated tile of bm query rows and bn
-// keys at head dim D, else cudaErrorInvalidValue: rows 16, 32 and 64 by
-// keys 64 and 128 at D = 128 (the head dim of every arch the card
+// keys at head dim D, else cudaErrorInvalidValue: rows 16, 32, 48 and 64
+// by keys 64 and 128 at D = 128 (the head dim of every arch the card
 // serves), the default 32 x 128 at the other head dims.
 template <int D, typename F>
 cudaError_t with_tile(int bm, int bn, F&& f) {
@@ -592,6 +596,7 @@ cudaError_t with_tile(int bm, int bn, F&& f) {
       };
       if (bm == 16) return keys(Int<1>{});
       if (bm == 32) return keys(Int<2>{});
+      if (bm == 48) return keys(Int<3>{});
       if (bm == 64) return keys(Int<4>{});
     }
   }
@@ -610,14 +615,12 @@ cudaError_t with_dim(int d, F&& f) {
   }
 }
 
-// log2 of the group size G = H / Hkv, or -1 when G is not a power of two
-// dividing a query tile of bm rows
-int group_shift(int H, int Hkv, int bm) {
+// the group size G = H / Hkv, or -1 when it does not divide a query tile
+// of bm rows
+int group_size(int H, int Hkv, int bm) {
   if (Hkv < 1 || H % Hkv) return -1;
   const int G = H / Hkv;
-  for (int s = 0; (1 << s) <= bm; ++s)
-    if ((1 << s) == G) return s;
-  return -1;
+  return bm % G == 0 ? G : -1;
 }
 
 template <typename S, int D, int SLABS, int BN>
@@ -626,7 +629,7 @@ size_t smem_bytes(int nblk) {
 }
 
 template <typename S, int D, bool SPLIT, int SLABS, int BN>
-cudaError_t launch(const Args& a, int gshift) {
+cudaError_t launch(const Args& a, int G) {
   if (a.B < 1 || a.C < 1 || a.psz < 1 || a.nblk < 1 ||
       (SPLIT && a.ns < 1) || (a.cnt != nullptr && (!SPLIT || a.o == nullptr)))
     return cudaErrorInvalidValue;
@@ -636,14 +639,14 @@ cudaError_t launch(const Args& a, int gshift) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int rows = T::BM >> gshift;
+  const int rows = T::BM / G;
   const int ns = SPLIT ? a.ns : 1;
   const dim3 grid((a.C + rows - 1) / rows * ns, a.Hkv, a.B);
   kern<<<grid, T::THREADS, smem, a.st>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const S*>(a.kp),
       static_cast<const S*>(a.vp), a.ksc, a.vsc, a.table, a.start, a.kv_len,
       static_cast<__nv_bfloat16*>(a.o), a.pm, a.pl, a.pacc, a.cnt, a.H,
-      a.Hkv, a.C, a.psz, a.nblk, ns, gshift, a.scale * kLog2e);
+      a.Hkv, a.C, a.psz, a.nblk, ns, G, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -654,12 +657,11 @@ cudaError_t by_dim(const Args& a) {
   if (a.Hkv < 1 || a.H % a.Hkv) return cudaErrorInvalidValue;
   const int G = a.H / a.Hkv;
   const int bm = a.block_q > 0 ? a.block_q * G : 16 * DEFAULT_SLABS;
-  const int gshift = group_shift(a.H, a.Hkv, bm);
-  if (gshift < 0) return cudaErrorInvalidValue;
+  if (group_size(a.H, a.Hkv, bm) < 0) return cudaErrorInvalidValue;
   return with_dim(a.D, [&](auto d) {
     return with_tile<decltype(d)::value>(bm, a.bn, [&](auto sl, auto bn) {
       return launch<S, decltype(d)::value, SPLIT, decltype(sl)::value,
-                    decltype(bn)::value>(a, gshift);
+                    decltype(bn)::value>(a, G);
     });
   });
 }

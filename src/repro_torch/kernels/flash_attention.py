@@ -2,11 +2,13 @@
 
 * :func:`flash_attention` (K1) — self-attention over (B, H, S, D) with
   causal and/or sliding-window masks and GQA (kv head ``h // G``, any
-  G).  A bf16 query runs on the tensor cores (64-row query tiles, 64-key
-  tiles by ``cp.async``, P rounded to bf16 for P.V), a float32 one on the
-  SIMT template, whose fp32 products keep the fp32 tolerance; the choice
-  is the query's type, and ``last_kernel`` on the function names the
-  kernel launched last.
+  G).  A bf16 query runs on the tensor cores (``block_q``-row query
+  tiles, ``block_k``-key tiles by ``cp.async`` walked in 64-key softmax
+  steps, P rounded to bf16 for P.V), a float32 one on the SIMT template,
+  whose fp32 products keep the fp32 tolerance; the choice is the query's
+  type, and ``last_kernel`` on the function names the kernel launched
+  last.  The tile is the install-time AT's ``FlashBlocks`` region
+  (:func:`attention_tiles`); ``by_tile`` counts launches by tile.
 * :func:`flash_decode` (K2) — one query token per sequence against a
   dense (B, Hkv, S, D) cache, masked to ``kv_len[b]`` keys; a row with
   ``kv_len == 0`` gives exactly 0.  A bf16 query runs the dense mode of
@@ -36,6 +38,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the bf16 K1 kernel's name, as ``flash_attention.last_kernel`` gives it
 TC_KERNEL = "flash_attention_tc_kernel"
+#: the bf16 K1 tile of an untuned launch: (block_q, block_k)
+TC_DEFAULT_TILE = (64, 64)
+#: block_q and block_k of the bf16 K1 instances at head dim 128 (the head
+#: dim of every arch the card serves), any pair of them; the other head
+#: dims have TC_DEFAULT_TILE only.  ``FlashBlocks``' candidate values.
+TILE_VALUES = (64, 128)
+#: the float32 SIMT template's one tile: query rows and keys
+SIMT_TILE = (64, 32)
 #: the float32 K2 kernel's name, as ``flash_decode.last_kernel`` gives it
 #: (a bf16 K2 runs ``paged_attention.DECODE_TC_KERNEL``)
 DECODE_SIMT_KERNEL = "flash_decode_kernel"
@@ -46,12 +56,12 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (once)."""
     lib = build.load("flash_attention")
     lib.repro_flash_attention.argtypes = [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
     lib.repro_flash_attention.restype = _I
     lib.repro_flash_decode.argtypes = [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
     lib.repro_flash_decode.restype = _I
-    lib.repro_flash_attention_tc_info.argtypes = [_I, _P]
+    lib.repro_flash_attention_tc_info.argtypes = [_I, _I, _I, _P]
     lib.repro_flash_attention_tc_info.restype = _I
     return lib
 
@@ -96,12 +106,54 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def attention_tiles(dtype: torch.dtype, d: int) -> tuple[tuple[int, int], ...]:
+    """The (block_q, block_k) tiles K1 has an instance for, for a query
+    of ``dtype`` at head dim ``d``."""
+    if dtype != torch.bfloat16:
+        return (SIMT_TILE,)
+    if d != 128:
+        return (TC_DEFAULT_TILE,)
+    return tuple((bq, bk) for bq in TILE_VALUES for bk in TILE_VALUES)
+
+
+def attention_tile(name: str, q: torch.Tensor, block_q: int | None,
+                   block_k: int | None) -> tuple[int, int]:
+    """(block_q, block_k) of a K1 launch: the pair must have an instance
+    at q's type and head dim (else ``ValueError`` naming those that do);
+    ``None`` is the default's value."""
+    tiles = attention_tiles(q.dtype, q.shape[-1])
+    tile = (tiles[0][0] if block_q is None else block_q,
+            tiles[0][1] if block_k is None else block_k)
+    if tile not in tiles:
+        raise ValueError(f"{name}: no instance for block_q={block_q!r}, "
+                         f"block_k={block_k!r}; a {q.dtype} query at head "
+                         f"dim {q.shape[-1]} has (block_q, block_k) in "
+                         f"{tiles}")
+    return tile
+
+
+def smem_bytes(block_q: int, block_k: int, d: int) -> int:
+    """Dynamic shared memory of one block of the bf16 K1 at a tile: the
+    Q tile and a 2-stage ring of K and V tiles, bf16 rows of d + 8
+    (``k1tc::Smem``)."""
+    return (block_q + 2 * 2 * block_k) * (d + 8) * 2
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None, block_q: int | None = None,
+                    block_k: int | None = None) -> torch.Tensor:
     """Self-attention.  q: (B, H, S, D); k, v: (B, Hkv, S, D), H % Hkv == 0.
-    Output in q's dtype: bfloat16 on the tensor cores, float32 on the SIMT
-    template."""
+    Output in q's dtype: bfloat16 on the tensor cores at the tile of
+    ``block_q`` query rows and ``block_k`` keys (one of
+    :func:`attention_tiles`, 64 x 64 by default; every tile takes the same
+    64-key softmax steps, so all give the same bits), float32 on the SIMT
+    template, whose one tile is :data:`SIMT_TILE`.  A tile with no
+    instance raises ``ValueError``.  Unlike the JAX package's kernel,
+    which pads S to a multiple of the tile and clamps the tile to S, the
+    card's kernel masks the keys and rows past S in the last tile, so a
+    tile larger than S runs as it is."""
+    tile = attention_tile("flash_attention", q, block_q, block_k)
     _check("flash_attention", q, k, v)
     b, h, s, d = q.shape
     if k.shape[2] != s:
@@ -114,21 +166,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = _lib().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, k.shape[1], s, d, _DTYPES[q.dtype], int(causal),
-            -1 if window is None else int(window), scale, _stream(q))
+            -1 if window is None else int(window), scale, *tile,
+            _stream(q))
     _raise_on("flash_attention", err)
     flash_attention.launches += 1
+    flash_attention.by_tile[tile] += 1
     flash_attention.last_kernel = (TC_KERNEL if q.dtype == torch.bfloat16
                                    else "flash_attention_kernel")
     return out
 
 
-def tc_info(d: int) -> dict[str, int]:
+def tc_info(d: int, block_q: int = TC_DEFAULT_TILE[0],
+            block_k: int = TC_DEFAULT_TILE[1]) -> dict[str, int]:
     """What the card makes of the tensor-core K1 instance for head dim
-    ``d``: registers per thread, local (spill) bytes, dynamic shared
-    memory, and resident blocks per SM.  Needs the card."""
+    ``d`` at the tile ``block_q`` x ``block_k``: registers per thread,
+    local (spill) bytes, dynamic shared memory, and resident blocks per
+    SM.  Needs the card."""
     out = (ctypes.c_int * 4)()
     _raise_on("tc_info", _lib().repro_flash_attention_tc_info(
-        d, ctypes.addressof(out)))
+        d, block_q, block_k, ctypes.addressof(out)))
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
 
@@ -183,6 +239,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention.last_kernel = None
+flash_attention.by_tile = collections.Counter()
 flash_decode.launches = 0
 flash_decode.last_kernel = None
 flash_decode.by_tile = collections.Counter()

@@ -10,12 +10,14 @@ the projections produce are made contiguous here, and the paged kernels'
 int32 page tables and lengths are cast here.
 
 On the kernel route the attention entry points read the tiles that
-run-time AT publishes (``at.tuned``), as the JAX package's ``ops`` does:
-``flash_decode`` (``block_k``), ``flash_paged_decode`` (``block_k``,
-``num_splits``), ``flash_paged_prefill`` and ``flash_paged_verify``
-(``block_q``, ``block_k``, ``num_splits``), each overridden by the
-caller's explicit values; an explicit ``None`` is "not given" and leaves
-a published value alone.  The plain versions ignore tiles.
+install-time and run-time AT publish (``at.tuned``), as the JAX
+package's ``ops`` does: ``flash_attention`` (``block_q``, ``block_k``;
+install-time, the ``FlashBlocks`` region), ``flash_decode``
+(``block_k``), ``flash_paged_decode`` (``block_k``, ``num_splits``),
+``flash_paged_prefill`` and ``flash_paged_verify`` (``block_q``,
+``block_k``, ``num_splits``), each overridden by the caller's explicit
+values; an explicit ``None`` is "not given" and leaves a published value
+alone.  The plain versions ignore tiles.
 """
 from __future__ import annotations
 
@@ -68,11 +70,16 @@ def mm(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None = None,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None,
-              use_kernel: bool | None = None) -> torch.Tensor:
-    """Full (prefill) self-attention.  q (B, H, S, D), k/v (B, Hkv, S, D)."""
+              use_kernel: bool | None = None, **pps) -> torch.Tensor:
+    """Full (prefill) self-attention.  q (B, H, S, D), k/v (B, Hkv, S, D).
+    On the card K1 at the ``block_q`` x ``block_k`` tile published under
+    ``flash_attention`` (or in ``pps``)."""
     if _use_kernel(q, use_kernel):
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, window=window)
+                               causal=causal, window=window,
+                               **_tuned("flash_attention",
+                                        ("block_q", "block_k", "scale"),
+                                        **pps))
     return ref.attention_ref(q, k, v, causal=causal, window=window)
 
 

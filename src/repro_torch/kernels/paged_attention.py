@@ -42,9 +42,9 @@ pass or split).
   (each query tile's live key tiles cut into splits, fp32 partials of the
   chunk's C rows) and K5c: for a bf16 query in one launch,
   :func:`paged_prefill_split_merged` (the tensor-core kernel's partials
-  mode, whose tiles are ``block_q`` chunk rows (32 // G by default) and
-  ``block_k`` keys (128), merged in its epilogue by the last split of
-  each tile), for float32
+  mode, whose tiles are ``block_q`` chunk rows (:func:`default_block_q`:
+  32 // G where G divides 32) and ``block_k`` keys (128), merged in its
+  epilogue by the last split of each tile), for float32
   :func:`paged_prefill_split` (the SIMT template's 64 rows and 32 keys)
   and :func:`split_combine`.
   :func:`flash_paged_prefill_quant` is the same over int8 pools: K6c, or
@@ -58,8 +58,10 @@ Tiles (the run-time AT's parameters, read by :mod:`.ops` from
 elsewhere); the tensor-core prefill kernel ``block_q`` (query positions
 per tile, as in the JAX package: the kernel's row tile is ``block_q`` x G
 query rows of one kv head, so G must divide it) and ``block_k``
-(:func:`prefill_tiles`).  On the card a tile spans whole pages where the
-TPU kernel's ``block_k`` was a sub-page tile that had to divide the page.
+(:func:`prefill_tiles`: ``block_q`` a power of two whose row tile
+``block_q`` x G the kernel has).  On the card a tile spans whole pages
+where the TPU kernel's ``block_k`` was a sub-page tile that had to divide
+the page.
 A float32 query keeps the SIMT templates' one tile.  A tile the kernel has
 no instance for raises ``ValueError`` naming the tiles it has; ``None``
 is the default tile, what an untuned call runs.  ``by_tile`` on each
@@ -74,9 +76,11 @@ and its siblings keep returning the partials (tests, the phase-1 sweep).
 Table entries past ``ceil(kv_len / psz)`` are never read and may point
 anywhere (page 0 by convention); entries below it must name pages of the
 pools.  The tensor-core kernel (K4, K5b, K6c and K6d with a bf16 query)
-takes a group size G = H / Hkv that divides its 32-row tile (a power of
-two up to 32); its wrappers raise otherwise.  The decode kernel of a bf16
-query takes any G: its query rows come in 16-row slabs, one cluster each.
+takes a group size G = H / Hkv that gives it a row tile (at D 128: G a
+power of two up to 64, or G 3, 6 and 12 through the 48-row tile; at the
+other head dims G dividing 32); its wrappers raise otherwise.  The
+decode kernel of a bf16 query takes any G: its query rows come in 16-row
+slabs, one cluster each.
 The wrappers follow the contract of :mod:`.flash_attention`:
 CUDA tensors only, checked; outputs and partials from ``torch.empty``;
 launch on the current stream without syncing; raise on a launch error;
@@ -127,8 +131,9 @@ DECODE_CTAS_PER_SM = 2
 #: every arch the card serves); other head dims have DECODE_TILE_KEYS only
 DECODE_BLOCK_KS = (32, 64)
 #: the tensor-core prefill kernel's D = 128 instances: query rows (block_q
-#: x G) by keys; other head dims have TC_TILE_ROWS x TC_TILE_KEYS only
-TC_ROW_TILES = (16, 32, 64)
+#: x G) by keys; other head dims have TC_TILE_ROWS x TC_TILE_KEYS only.
+#: The 48-row tile (3 slabs) is phi4-mini's: 16 chunk rows at G 3.
+TC_ROW_TILES = (16, 32, 48, 64)
 TC_BLOCK_KS = (64, 128)
 #: the one tile of the float32 SIMT templates: keys of the decode walk,
 #: chunk rows and keys of the prefill walk
@@ -149,12 +154,28 @@ def prefill_tiles(dtype: torch.dtype, d: int,
     """(block_qs, block_ks) the prefill kernels have an instance for, for a
     query of ``dtype`` at head dim ``d`` and group size ``g``: a row tile
     of the tensor-core kernel holds ``block_q`` positions of all ``g``
-    heads."""
+    heads, and ``block_q`` is a power of two, as the JAX package's tiles
+    are (so the 48-row tile serves G 3 at block_q 16, not G 8 at 6)."""
     if dtype != torch.bfloat16:
         return (SIMT_PREFILL_TILE[0],), (SIMT_PREFILL_TILE[1],)
     rows = TC_ROW_TILES if d == 128 else (TC_TILE_ROWS,)
     keys = TC_BLOCK_KS if d == 128 else (TC_TILE_KEYS,)
-    return tuple(r // g for r in rows if g >= 1 and r % g == 0), keys
+    block_qs = (r // g for r in rows if g >= 1 and r % g == 0)
+    return tuple(bq for bq in block_qs if bq & (bq - 1) == 0), keys
+
+
+def default_block_q(d: int, g: int) -> int:
+    """The ``block_q`` of an untuned bf16 prefill launch at head dim ``d``
+    and group size ``g``: that of the largest row tile up to
+    :data:`TC_TILE_ROWS` (32 // G for G 1, 2, 4, 8), else of the smallest
+    row tile ``g`` has (G 3: 16, the 48-row tile).  ``ValueError`` when
+    ``g`` has none."""
+    block_qs = prefill_tiles(torch.bfloat16, d, g)[0]
+    if not block_qs:
+        raise ValueError(f"group size {g} at head dim {d} has no row tile "
+                         "of the tensor-core prefill kernel")
+    fits = [bq for bq in block_qs if bq * g <= TC_TILE_ROWS]
+    return max(fits) if fits else min(block_qs)
 
 
 def decode_tile(name: str, q: torch.Tensor, block_k: int | None) -> int:
@@ -180,7 +201,7 @@ def prefill_tile(name: str, q: torch.Tensor, hkv: int,
     block_qs, block_ks = prefill_tiles(q.dtype, q.shape[-1], g)
     bf16 = q.dtype == torch.bfloat16
     if block_q is None:
-        block_q = TC_TILE_ROWS // g if bf16 else block_qs[0]
+        block_q = default_block_q(q.shape[-1], g) if bf16 else block_qs[0]
     if block_k is None:
         block_k = TC_TILE_KEYS if bf16 else block_ks[0]
     if block_q not in block_qs or block_k not in block_ks:
@@ -281,14 +302,17 @@ def _dec_lib() -> ctypes.CDLL:
 def check_tc_shape(name: str, h: int, hkv: int, d: int) -> None:
     """Raise on a shape the tensor-core prefill kernel does not take: a
     head dim outside :data:`HEAD_DIMS`, or a group size G = H / Hkv that
-    does not divide its 32-row query tile."""
+    gives no row tile (:func:`prefill_tiles`: G must divide one of the
+    kernel's row tiles at head dim ``d``, with ``block_q`` a power of
+    two)."""
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
     g = h // hkv if hkv and h % hkv == 0 else 0
-    if g < 1 or TC_TILE_ROWS % g:
+    if g < 1 or not prefill_tiles(torch.bfloat16, d, g)[0]:
+        rows = TC_ROW_TILES if d == 128 else (TC_TILE_ROWS,)
         raise ValueError(f"{name}: {h} query heads over {hkv} kv heads: the "
-                         f"group size must divide the {TC_TILE_ROWS}-row "
-                         "query tile of the tensor-core kernel")
+                         f"group size must divide one of the query tiles "
+                         f"{rows} of the tensor-core kernel at head dim {d}")
 
 
 def _prefill_entry(name: str, q: torch.Tensor, hkv: int, quant: bool,
@@ -963,13 +987,14 @@ def flash_paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
     Output like q; rows at positions ``>= kv_len`` are padding.
     ``block_q`` counts query positions per tile (the kernel's row tile is
     ``block_q`` x G query rows, G = H / Hkv) and ``block_k`` keys per K/V
-    tile (whole pages): one of :func:`prefill_tiles` each, 32 // G and 128
-    by default for a bfloat16 q, the SIMT template's 64 and 32 for
-    float32; another raises ``ValueError``.  ``num_splits`` (clamped to
-    the table's ``block_k``-key tiles) above 1 runs K5b and K5c (for a
-    bfloat16 q in one launch, :func:`paged_prefill_split_merged`), else
-    K4: on the tensor cores for a bfloat16 q (G = H / Hkv must divide 32),
-    the SIMT template for float32."""
+    tile (whole pages): one of :func:`prefill_tiles` each,
+    :func:`default_block_q` and 128 by default for a bfloat16 q, the SIMT
+    template's 64 and 32 for float32; another raises ``ValueError``.
+    ``num_splits`` (clamped to the table's ``block_k``-key tiles) above 1
+    runs K5b and K5c (for a bfloat16 q in one launch,
+    :func:`paged_prefill_split_merged`), else K4: on the tensor cores for
+    a bfloat16 q (G = H / Hkv must give a row tile,
+    :func:`check_tc_shape`), the SIMT template for float32."""
     return _paged_prefill("flash_paged_prefill", flash_paged_prefill, q,
                           (k_pool, v_pool), page_table, start, kv_len, scale,
                           num_splits, block_q, block_k)

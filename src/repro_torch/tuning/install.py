@@ -2,38 +2,41 @@
 
 The paper's install-time phase tunes PPs that depend only on the machine
 (Sample 1: unroll depth).  Here those are the tile shapes of the GEMM K8
-(``kernels/matmul.py``), the ``MatmulBlocks`` region, and the chunk of
-the selective scan K9 (``kernels/ssm_scan.py``), the ``SsmChunk`` region,
-with the JAX package's region and PP names so the two tuning DBs stay
-comparable.  ``MatmulBlocks``' ``varied`` values are Hopper's,
+(``kernels/matmul.py``), the ``MatmulBlocks`` region, the tile of the
+prefill attention K1 (``kernels/flash_attention.py``), the
+``FlashBlocks`` region, and the chunk of the selective scan K9
+(``kernels/ssm_scan.py``), the ``SsmChunk`` region, with the JAX
+package's region and PP names so the two tuning DBs stay comparable.
+``MatmulBlocks``' ``varied`` values are Hopper's,
 :data:`~..kernels.matmul.TILE_VALUES` (32, 64, 128): the kernel keeps a
 ``bm x bn`` float32 sum in registers, and a 256 x 256 one would take the
-whole register file of an SM.  ``SsmChunk`` keeps the JAX package's
-values (32 .. 512) and its d-spline fit (``Fitting.dspline()``): it
-measures the chunks the fit samples and infers the optimum among the
-candidates.
+whole register file of an SM.  ``FlashBlocks``' are K1's instances,
+:data:`~..kernels.flash_attention.TILE_VALUES` (64, 128) for both
+``block_q`` and ``block_k``, where the JAX package's TPU tiles run 128 ..
+1024.  ``SsmChunk`` keeps the JAX package's values (32 .. 512) and its
+d-spline fit (``Fitting.dspline()``): it measures the chunks the fit
+samples and infers the optimum among the candidates.
 
 Declared through the ``repro_torch.at`` session API.  Executor backends
 (``at.executors``):
 
-* ``analytic-cost`` (default here) — :func:`matmul_blocks_cost` and
-  :func:`ssm_chunk_cost`: block steps, with a penalty for a block whose
+* ``analytic-cost`` (default here) — :func:`matmul_blocks_cost`,
+  :func:`flash_blocks_cost` and :func:`ssm_chunk_cost`: block steps (K1:
+  the causal walk's live tile pairs), with a penalty for a block whose
   loads nothing hides (its shared memory leaves room for only one block
   on an SM, and it has no ring of stages), and ``inf`` for one over the
   per-block shared-memory limit;
 * ``cuda-event`` (registered by this module) — CUDA-event device time of
-  the real K8 at the registered (m, n, k), or of the real K9 at (1, seq,
+  the real K8 at the registered (m, n, k), of the real K1 at (1, 32 q /
+  4 kv heads, seq, d_head), causal, or of the real K9 at (1, seq,
   d_inner, d_state), on the card in bfloat16; with ``device="cpu"``
   (tests) the host-clock time of the plain versions.
 
-Results are published to :func:`repro_torch.at.tuned` under ``matmul``
-and ``ssm_scan`` — :func:`..kernels.ops.mm` launches K8 and
-:func:`..kernels.ops.ssm_scan` K9 with them — and persist in the
-session's record store, so a second process on the same machine
-warm-loads them without re-timing.
-
-``FlashBlocks`` waits until the port's K1 takes ``block_q``/``block_k``
-tiles: no region is declared whose PPs reach no kernel.
+Results are published to :func:`repro_torch.at.tuned` under ``matmul``,
+``flash_attention`` and ``ssm_scan`` — :func:`..kernels.ops.mm` launches
+K8, :func:`..kernels.ops.attention` K1 and :func:`..kernels.ops.ssm_scan`
+K9 with them — and persist in the session's record store, so a second
+process on the same machine warm-loads them without re-timing.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from .. import at
 from ..core import ATContext, Fitting, Varied
 from ..core.executor import CudaEventExecutor, WallClockExecutor
 from ..device import resolve
+from ..kernels import flash_attention as k1
 from ..kernels import ref
 from ..kernels import ssm_scan as k9
 from ..kernels.matmul import TILE_VALUES, WGMMA_KERNEL, matmul, route, \
@@ -53,6 +57,9 @@ from ..kernels.matmul import TILE_VALUES, WGMMA_KERNEL, matmul, route, \
 BF16_BYTES = 2
 #: the JAX package's SsmChunk candidates
 CHUNK_VALUES = (32, 64, 128, 256, 512)
+#: the heads FlashBlocks times K1 at: yi-6b's 32 query heads over 4 kv
+#: heads (G 8), the main path's prefill
+FLASH_HEADS = (32, 4)
 
 
 def _occupancy_penalty(used: int, smem_limit: int) -> float:
@@ -89,6 +96,31 @@ def matmul_blocks_cost(bm: int, bn: int, bk: int, *, m: int, n: int, k: int,
     return steps * _occupancy_penalty(used, smem_limit)
 
 
+def flash_blocks_cost(block_q: int, block_k: int, *, seq: int, d_head: int,
+                      smem_limit: int) -> float:
+    """Analytic install-time cost of K1's tile (block_q, block_k) in
+    bfloat16 at ``seq`` tokens and head dim ``d_head``, causal.
+
+    A tile without an instance at ``d_head``
+    (:func:`~..kernels.flash_attention.attention_tiles`) or whose block
+    needs more shared memory than ``smem_limit`` bytes
+    (:func:`~..kernels.flash_attention.smem_bytes`) costs ``inf``: the card
+    cannot run it, so no executor ever launches it.  Otherwise the cost is
+    the causal walk's live tile pairs, the key tiles that each query tile
+    walks (``flash_attention.cu``'s ``t_lo``/``t_hi``: query tile i sees
+    the key tiles up to its last row) summed over the query tiles, times
+    the occupancy penalty of the block's shared memory."""
+    if (block_q, block_k) not in k1.attention_tiles(torch.bfloat16, d_head):
+        return math.inf
+    used = k1.smem_bytes(block_q, block_k, d_head)
+    if used > smem_limit:
+        return math.inf
+    n_k = math.ceil(seq / block_k)
+    pairs = sum(min(n_k, (q0 + block_q - 1) // block_k + 1)
+                for q0 in range(0, seq, block_q))
+    return pairs * _occupancy_penalty(used, smem_limit)
+
+
 def ssm_chunk_cost(chunk: int, *, seq: int, d_inner: int, d_state: int,
                    smem_limit: int) -> float:
     """Analytic install-time cost of K9's ``chunk`` at (seq, d_inner,
@@ -120,13 +152,11 @@ def register_kernel_regions(session: "at.AutoTuner | ATContext", *,
     """Declare the install-time regions for every kernel PP.
 
     ``(m, n, k)`` is the GEMM shape the ``MatmulBlocks`` region is costed
-    and timed at, ``(seq, d_inner, d_state)`` the selective scan's of the
-    ``SsmChunk`` region (batch 1).  ``smem_limit`` is the per-block
-    shared-memory limit in bytes; ``None`` reads it from the card (the
-    opt-in limit, 232,448 on an H100).  ``d_head`` sizes the JAX
-    package's ``FlashBlocks`` region, which waits for K1's tiles here; it
-    is accepted so that callers of either package pass the same
-    arguments.
+    and timed at, ``(seq, d_head)`` the prefill attention's of the
+    ``FlashBlocks`` region, and ``(seq, d_inner, d_state)`` the selective
+    scan's of the ``SsmChunk`` region (batch 1).  ``smem_limit`` is the
+    per-block shared-memory limit in bytes; ``None`` reads it from the
+    card (the opt-in limit, 232,448 on an H100).
     """
     session = at.AutoTuner.for_context(session)
     if smem_limit is None:
@@ -144,6 +174,17 @@ def register_kernel_regions(session: "at.AutoTuner | ATContext", *,
                                   smem_limit=smem_limit)
 
     @session.autotune(
+        "install", "variable", name="FlashBlocks",
+        varied=Varied(("block_q", "block_k"), values=k1.TILE_VALUES),
+        search="ad-hoc", executor="analytic-cost",
+        publish=("flash_attention", {"block_q": "block_q",
+                                     "block_k": "block_k"}),
+        metadata={"shape": (seq, d_head), "smem_limit": smem_limit})
+    def flash_blocks(block_q=64, block_k=64):
+        return flash_blocks_cost(block_q, block_k, seq=seq, d_head=d_head,
+                                 smem_limit=smem_limit)
+
+    @session.autotune(
         "install", "variable", name="SsmChunk",
         varied=Varied(("chunk",), values=CHUNK_VALUES),
         fitting=Fitting.dspline(), executor="analytic-cost",
@@ -155,7 +196,7 @@ def register_kernel_regions(session: "at.AutoTuner | ATContext", *,
                               d_state=d_state, smem_limit=smem_limit)
 
 
-_KERNEL_REGIONS = ("MatmulBlocks", "SsmChunk")
+_KERNEL_REGIONS = ("MatmulBlocks", "FlashBlocks", "SsmChunk")
 
 
 def run_install_tuning(session: "at.AutoTuner | ATContext",
@@ -164,7 +205,7 @@ def run_install_tuning(session: "at.AutoTuner | ATContext",
     """Execute install-time AT and publish tuned PPs to the kernel layer.
 
     ``wall_clock=True`` switches the kernel regions to the ``cuda-event``
-    executor, which times K8 and K9 on ``device`` (the card; ``"cpu"``
+    executor, which times K8, K1 and K9 on ``device`` (the card; ``"cpu"``
     times the plain versions with the host clock, for tests).  A session whose
     record store already holds results for this machine re-loads them
     without invoking any executor.
@@ -198,13 +239,15 @@ def run_install_tuning(session: "at.AutoTuner | ATContext",
 @at.executors.register("cuda-event")
 def _cuda_event_executor(region, bp_env):
     """Device time of the region's kernel from CUDA events (minimum over
-    10 launches after 2 untimed ones): K8 at the region's (m, n, k), K9 at
-    (1, seq, d_inner, d_state), in bfloat16.  On a CPU device, the
+    10 launches after 2 untimed ones): K8 at the region's (m, n, k), K1 at
+    (1, seq, d_head) over :data:`FLASH_HEADS`, K9 at (1, seq, d_inner,
+    d_state), in bfloat16.  On a CPU device, the
     host-clock time of the plain version.  A candidate over the per-block
     shared-memory limit is never launched: it costs ``inf``."""
     device = resolve(region.metadata.get("device", "cuda"))
     gen = torch.Generator(device=device).manual_seed(0)
     make = {"MatmulBlocks": _matmul_variants,
+            "FlashBlocks": _flash_variants,
             "SsmChunk": _ssm_variants}[region.name]
     run, plain, fits = make(region.metadata, gen, device)
 
@@ -241,6 +284,27 @@ def _matmul_variants(metadata: dict, gen: torch.Generator,
         return smem_bytes(bm, bn, bk, BF16_BYTES) <= limit
 
     return run, lambda: ref.matmul_ref(x, y), fits
+
+
+def _flash_variants(metadata: dict, gen: torch.Generator,
+                    device: torch.device):
+    """(K1 launcher by tile, plain call, does-the-tile-fit) at batch 1,
+    :data:`FLASH_HEADS` and the region's (seq, d_head), causal."""
+    seq, d = metadata["shape"]
+    limit = metadata["smem_limit"]
+    h, hkv = FLASH_HEADS
+    q, k, v = (torch.randn((1, n, seq, d), generator=gen,
+                           device=device).to(torch.bfloat16)
+               for n in (h, hkv, hkv))
+
+    def run(block_q, block_k):
+        return lambda: k1.flash_attention(q, k, v, block_q=block_q,
+                                          block_k=block_k)
+
+    def fits(block_q, block_k):
+        return k1.smem_bytes(block_q, block_k, d) <= limit
+
+    return run, lambda: ref.attention_ref(q, k, v), fits
 
 
 def _ssm_variants(metadata: dict, gen: torch.Generator,

@@ -13,13 +13,16 @@ over the kernels' key tiles, a row that has seen no key yet subtracting
 row sums taken from the fp32 P.  Only the order of the fp32 sums inside
 one mma differs from the card.
 
-* K1: 64-key tiles walked in order by each 16-row slab of a 64-row
-  query tile (a tile a slab does not see is skipped, which adds exactly
-  nothing, so the emulation walks every tile).
+* K1: at each tile (``block_q`` query rows, one 16-row slab a warp, by
+  ``block_k`` keys a copied K/V tile) the keys are walked in order in
+  64-key softmax steps by each slab (a step a slab does not see is
+  skipped, which adds exactly nothing, so the emulation walks every
+  step); every tile thus takes the same steps and gives the same bits.
 * K5b: a query tile of 32 // G chunk rows (the G heads of a kv head
-  folded in), whose live 128-key tiles are cut into ``ns`` splits of
-  ``ceil(live / ns)`` tiles; each tile is split among 4 key groups of 32
-  keys whose states merge at the end; the split writes its unnormalised
+  folded in; G 3's 48-row tile holds 16), whose live 128-key tiles are
+  cut into ``ns`` splits of ``ceil(live / ns)`` tiles; each tile is split
+  among 4 key groups of 32 keys (2 from 48 rows) whose states merge at
+  the end; the split writes its unnormalised
   (m, l, acc), m in natural-log units, and a row that saw no key of the
   split writes exactly (-1e30, 0, 0).
 * K6d: K5b over int8 codes (exact in bf16): the key scale multiplies S's
@@ -42,9 +45,9 @@ They are held to
   cancel, which is why outputs keep within the tighter budget); m and l,
   which P's rounding does not touch, within 1e-5;
 * the JAX package's Pallas kernels in interpret mode at reduced float32
-  shapes, with q, k and v rounded to bf16 first so that the only
-  difference is P's rounding: the 2^-9 max |v| bound, plus 1e-5 for fp32
-  sums taken in another order.
+  shapes (K1 also at its cases' widths and every tile), with q, k and v
+  rounded to bf16 first so that the only difference is P's rounding: the
+  2^-9 max |v| bound, plus 1e-5 for fp32 sums taken in another order.
 
 Inputs come from numpy with a seed.
 """
@@ -60,6 +63,7 @@ from repro.kernels.flash_attention import flash_paged_prefill as jax_paged_prefi
 from repro.kernels.flash_attention import \
     flash_paged_prefill_quant as jax_paged_prefill_quant
 from repro_torch.distributed.compression import quantize_int8_rows
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 
@@ -70,7 +74,7 @@ FP32_SUMS = 1e-5                           # fp32 sums in another order
 P_ROUNDING = 2.0 ** -9                     # the outputs' budget
 BF16_ROUNDOFF = 2.0 ** -8                  # unit roundoff of bf16
 LOG2E = math.log2(math.e)
-K1_TILE_KEYS = 64                          # flash_attention.cu's k1tc::BN
+K1_STEP_KEYS = 64                          # flash_attention.cu's k1tc::STEP
 SPLIT_KEY_GROUPS = 4                       # paged_prefill.cu's tc::KGROUPS
 
 
@@ -124,8 +128,11 @@ def normalise(l, acc):
 # --------------------------------------------------------------------------
 
 
-def k1_emulate(q, k, v, causal=True, window=None):
-    """The bf16 K1's arithmetic and tiling in plain torch; output like q."""
+def k1_emulate(q, k, v, causal=True, window=None, block_q=64, block_k=64):
+    """The bf16 K1's arithmetic and tiling in plain torch at the tile
+    ``block_q`` x ``block_k``; output like q.  A block's query rows only
+    choose which steps are skipped (nothing), and a ``block_k``-key copy
+    is walked in ``K1_STEP_KEYS``-key steps."""
     b, h, s_len, d = q.shape
     g = h // k.shape[1]
     kk = torch.repeat_interleave(k.float(), g, dim=1)
@@ -140,8 +147,12 @@ def k1_emulate(q, k, v, causal=True, window=None):
     if window is not None:
         mask &= (qi - kj) < window
     s = torch.where(mask, s, ref.NEG_INF)
-    tiles = [slice(t, t + K1_TILE_KEYS) for t in range(0, s_len, K1_TILE_KEYS)]
-    _, l, acc = online_softmax(s, vv, tiles)
+    assert block_q % 16 == 0 and block_k % K1_STEP_KEYS == 0
+    steps = [slice(t0 + j, t0 + j + K1_STEP_KEYS)
+             for t0 in range(0, s_len, block_k)
+             for j in range(0, block_k, K1_STEP_KEYS)
+             if t0 + j < s_len]     # a step past S is skipped
+    _, l, acc = online_softmax(s, vv, steps)
     return normalise(l, acc).to(q.dtype)
 
 
@@ -196,6 +207,72 @@ def test_k1_emulation_against_jax_kernel_in_interpret_mode(h, hkv, s_len,
                                * float(v.abs().max()) + FP32_SUMS)
 
 
+K1_TILES = [(bq, bk) for bq in (64, 128) for bk in (64, 128)]
+
+
+@pytest.mark.parametrize("tile", K1_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("case", [c for c in K1_CASES if c[3] == 128],
+                         ids=lambda c: c[0])
+def test_k1_every_tile_against_plain_and_jax_kernel(case, tile):
+    """Each D = 128 instance (block_q 64 or 128 by block_k 64 or 128): the
+    emulation within the bf16 tolerance of ``ref.attention_ref``, equal
+    bit for bit to the default tile's, and within 2^-9 max |v| + 1e-5 of
+    the JAX ``flash_attention`` in interpret mode at the same block_q and
+    block_k (float32 holding bf16 values; the JAX kernel pads S to the
+    tile, the card's masks it)."""
+    _, h, hkv, d, s_len, causal, window = case
+    block_q, block_k = tile
+    q = rand((1, h, s_len, d), 51).to(torch.bfloat16)
+    k = rand((1, hkv, s_len, d), 52).to(torch.bfloat16)
+    v = rand((1, hkv, s_len, d), 53).to(torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    got = k1_emulate(q, k, v, **kw, block_q=block_q, block_k=block_k)
+    np.testing.assert_allclose(
+        got.float().numpy(), ref.attention_ref(q, k, v, **kw).float().numpy(),
+        **BF16_TOL)
+    assert torch.equal(got, k1_emulate(q, k, v, **kw))
+    got32 = k1_emulate(q.float(), k, v, **kw, block_q=block_q,
+                       block_k=block_k)
+    want = np.asarray(jax_attention(q.float().numpy(), k.float().numpy(),
+                                    v.float().numpy(), **kw, block_q=block_q,
+                                    block_k=block_k, interpret=True))
+    np.testing.assert_allclose(got32.numpy(), want, rtol=0,
+                               atol=P_ROUNDING * float(v.float().abs().max())
+                               + FP32_SUMS)
+
+
+@pytest.mark.parametrize("dtype,d,tile,ok", [
+    (torch.bfloat16, 128, (None, None), (64, 64)),
+    (torch.bfloat16, 128, (128, 128), (128, 128)),
+    (torch.bfloat16, 128, (64, 128), (64, 128)),
+    (torch.bfloat16, 128, (32, 64), None),
+    (torch.bfloat16, 128, (64, 256), None),
+    (torch.bfloat16, 64, (None, None), (64, 64)),
+    (torch.bfloat16, 64, (128, 64), None),
+    (torch.float32, 128, (None, None), (64, 32)),
+    (torch.float32, 128, (64, 64), None)])
+def test_k1_tile_without_an_instance_raises_before_the_launch(dtype, d, tile,
+                                                             ok):
+    """``attention_tile``: the default tile for ``None`` (bf16 64 x 64, the
+    float32 SIMT template's 64 x 32), the instances at D 128, and
+    ``ValueError`` naming them otherwise.  ``flash_attention`` checks the
+    tile first, so CPU tensors raise the same error before anything else;
+    with an instance they raise for the device."""
+    q = torch.zeros(1, 8, 16, d, dtype=dtype)
+    k = torch.zeros(1, 2, 16, d, dtype=dtype)
+    bq, bk = tile
+    if ok is None:
+        with pytest.raises(ValueError, match="no instance.*has"):
+            fa.attention_tile("k", q, bq, bk)
+        with pytest.raises(ValueError, match="no instance"):
+            fa.flash_attention(q, k, k, block_q=bq, block_k=bk)
+    else:
+        assert fa.attention_tile("k", q, bq, bk) == ok
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fa.flash_attention(q, k, k, block_q=bq, block_k=bk)
+    assert fa.flash_attention.by_tile.get(ok, 0) == 0
+
+
 # --------------------------------------------------------------------------
 # K5b: the split partials mode of the paged prefill kernel
 # --------------------------------------------------------------------------
@@ -213,15 +290,15 @@ def split_emulate(q, k_pool, v_pool, table, start, kv_len, ns, k_scale=None,
                   keys=pa.TC_TILE_KEYS):
     """The partials mode's partition, arithmetic and tiling in plain
     torch at a tile of ``tile_rows`` query rows (block_q x G) and ``keys``
-    keys, each key tile split among ``SPLIT_KEY_GROUPS`` key groups (2 at
-    64 rows, paged_prefill.cu's ``Tile``): fp32 (m, l, acc) of every
+    keys, each key tile split among ``SPLIT_KEY_GROUPS`` key groups (2 from
+    48 rows, paged_prefill.cu's ``Tile``): fp32 (m, l, acc) of every
     split, (B, H, ns, C) and (.., D), m in natural-log units, exactly
     (-1e30, 0, 0) where a row saw no key.  With ``k_scale`` and
     ``v_scale`` the pools hold int8 codes (K6d)."""
     b, h, c, d = q.shape
     g = h // k_pool.shape[1]
     rows = tile_rows // g
-    n_groups = 2 if tile_rows >= 64 else SPLIT_KEY_GROUPS
+    n_groups = 2 if tile_rows >= 48 else SPLIT_KEY_GROUPS
     k = torch.repeat_interleave(ref.gather_pages(k_pool, table).float(), g, 1)
     v = torch.repeat_interleave(ref.gather_pages(v_pool, table).float(), g, 1)
     sk = k.shape[2]
@@ -451,9 +528,15 @@ def test_int8_split_emulation_against_jax_kernel_in_interpret_mode(h, hkv,
 # --------------------------------------------------------------------------
 
 
+def tiles_at(g: int) -> list[tuple[int, int]]:
+    """(query rows, keys) of the D = 128 instances that G ``g`` takes."""
+    return [(g * bq, keys)
+            for bq in pa.prefill_tiles(torch.bfloat16, 128, g)[0]
+            for keys in pa.TC_BLOCK_KS]
+
+
 @pytest.mark.parametrize("quant", [False, True], ids=["K5b", "K6d"])
-@pytest.mark.parametrize("tile_rows,keys", [
-    (rows, keys) for rows in pa.TC_ROW_TILES for keys in pa.TC_BLOCK_KS])
+@pytest.mark.parametrize("tile_rows,keys", tiles_at(8))
 def test_every_split_tile_partials_match_plain_at_that_tile(tile_rows, keys,
                                                              quant):
     """The partials mode at each tile of the D = 128 instances, 3 splits,
@@ -462,9 +545,23 @@ def test_every_split_tile_partials_match_plain_at_that_tile(tile_rows, keys,
     ``block_k``, the same empty splits exactly (-1e30, 0, 0), m and l
     within 1e-5, acc within 2^-8 sum_j p_j |v_j|; merged, within the bf16
     tolerance of the one-pass plain version, the idle lane exactly 0."""
-    h, hkv, d, psz, nblk, starts, valid, c = SPLIT_CASES["yi-6b verify"]
+    check_split_tile(SPLIT_CASES["yi-6b verify"], tile_rows, keys, quant, 49)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K5b", "K6d"])
+@pytest.mark.parametrize("tile_rows,keys", tiles_at(3))
+def test_g3_split_tile_partials_match_plain_at_that_tile(tile_rows, keys,
+                                                         quant):
+    """The same at phi4-mini's heads (24 q / 8 kv, G 3) on its verify
+    shape, at the 48-row tile (block_q 16, 3 slabs, 2 key groups)."""
+    check_split_tile((24, 8, 128, 16, 64, [839, 720, 190, 544, 0],
+                      [5, 5, 5, 5, 0], 5), tile_rows, keys, quant, 53)
+
+
+def check_split_tile(shape, tile_rows, keys, quant, seed):
+    h, hkv, d, psz, nblk, starts, valid, c = shape
     q, kp, vp, table, start, kv_len = chunk_case(h, hkv, d, psz, nblk,
-                                                 starts, valid, c, 49)
+                                                 starts, valid, c, seed)
     scales = {}
     if quant:
         kp, vp, ks, vs = quantized(kp, vp)

@@ -93,14 +93,71 @@ def test_tc_attention_kernel_matches_plain(cuda_device, h, hkv, d, s, causal,
     close(got, want, torch.bfloat16)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
-def test_tc_attention_instances_fit_the_card(cuda_device, d):
-    """Every bf16 K1 instance keeps the 2 blocks per SM its launch bounds
-    ask for, and builds without spilling at the main path's width."""
-    info = fa.tc_info(d)
-    assert info["blocks_per_sm"] >= 2
+@pytest.mark.parametrize("d,tile", [
+    (d, t) for d in (16, 32, 64, 128)
+    for t in fa.attention_tiles(torch.bfloat16, d)])
+def test_tc_attention_instances_fit_the_card(cuda_device, d, tile):
+    """Every bf16 K1 instance keeps the blocks per SM its launch bounds
+    ask for (2 for the 4-warp tiles whose shared memory fits twice, else
+    1), uses the shared memory of ``fa.smem_bytes``, and builds without
+    spilling at the main path's width (every D = 128 tile)."""
+    info = fa.tc_info(d, *tile)
+    assert info["smem_bytes"] == fa.smem_bytes(*tile, d)
+    two = tile[0] == 64 and 2 * (info["smem_bytes"] + 1024) <= 228 * 1024
+    assert info["blocks_per_sm"] >= (2 if two else 1)
     if d == 128:
         assert info["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("tile", fa.attention_tiles(torch.bfloat16, 128),
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("h,hkv,s,causal,window", [
+    (32, 4, 512, True, None), (24, 8, 300, True, None),
+    (32, 32, 129, True, 64), (32, 4, 200, False, None),
+    (24, 8, 77, False, 16), (32, 4, 1, True, None)])
+def test_tc_attention_every_tile_matches_plain(cuda_device, h, hkv, s,
+                                               causal, window, tile):
+    """Each D = 128 tile of the bf16 K1 against plain (G 8, 3 and 1;
+    ragged S, windows, one token), bit-equal to the default tile (every
+    tile takes the same 64-key softmax steps), one launch counted under
+    its tile; ``ops.attention`` launches the tile ``at.tuned`` holds."""
+    q = rand((2, h, s, 128), 60, cuda_device, torch.bfloat16)
+    k = rand((2, hkv, s, 128), 61, cuda_device, torch.bfloat16)
+    v = rand((2, hkv, s, 128), 62, cuda_device, torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    n = fa.flash_attention.by_tile[tile]
+    got = fa.flash_attention(q, k, v, **kw, block_q=tile[0], block_k=tile[1])
+    torch.cuda.synchronize()
+    assert fa.flash_attention.by_tile[tile] == n + 1
+    close(got, ref.attention_ref(q, k, v, **kw), torch.bfloat16)
+    assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+    at.clear_published()
+    try:
+        at.publish("flash_attention", block_q=tile[0], block_k=tile[1])
+        n = fa.flash_attention.by_tile[tile]
+        assert torch.equal(ops.attention(q, k, v, **kw), got)
+        assert fa.flash_attention.by_tile[tile] == n + 1
+    finally:
+        at.clear_published()
+
+
+def test_attention_tiles_without_an_instance_raise_on_the_card(cuda_device):
+    """A tile K1 has no instance for raises before anything launches:
+    32 rows, 256 keys, a 128 tile at D 64, any tile but its own for the
+    float32 SIMT template."""
+    q = rand((1, 8, 64, 128), 63, cuda_device, torch.bfloat16)
+    k = rand((1, 2, 64, 128), 64, cuda_device, torch.bfloat16)
+    n = fa.flash_attention.launches
+    for tile in (dict(block_q=32), dict(block_k=256),
+                 dict(block_q=128, block_k=32)):
+        with pytest.raises(ValueError, match="no instance"):
+            fa.flash_attention(q, k, k, **tile)
+    with pytest.raises(ValueError, match="no instance"):
+        fa.flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                           k[..., :64].contiguous(), block_q=128)
+    with pytest.raises(ValueError, match="no instance"):
+        fa.flash_attention(q.float(), k.float(), k.float(), block_k=64)
+    assert fa.flash_attention.launches == n
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1457,13 +1514,15 @@ def test_tc_prefill_tile_instances_fit_the_card(cuda_device, kind, block_k,
 @pytest.mark.parametrize("rows", pa.TC_ROW_TILES)
 @pytest.mark.parametrize("block_k", pa.TC_BLOCK_KS)
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("h,hkv", [(32, 4), (32, 32)])
+@pytest.mark.parametrize("h,hkv", [(32, 4), (32, 32), (24, 8)])
 def test_tc_prefill_every_tile_matches_plain(cuda_device, h, hkv, quant,
                                              block_k, rows):
     """K4 / K6c in one pass and K5b / K6d with K5c merged (3 splits) at
-    every tile of the D = 128 instances, G 8 and 1 (block_q = rows // G):
-    a chunk of 44 starting mid-page, a ragged chunk at 0 and an idle lane
-    (exactly 0); ``by_tile`` counts the launches; counters zero after."""
+    every tile of the D = 128 instances, G 8, 1 and 3 (block_q = rows //
+    G, a power of two: G 3 at the 48-row tile only, G 8 and 1 at the
+    others): a chunk of 44 starting mid-page, a ragged chunk at 0 and an
+    idle lane (exactly 0); ``by_tile`` counts the launches; counters zero
+    after.  A tile a G does not take raises ``ValueError``."""
     g = h // hkv
     block_q = rows // g
     c, start = 44, 3 * 16 + 8
@@ -1486,6 +1545,12 @@ def test_tc_prefill_every_tile_matches_plain(cuda_device, h, hkv, quant,
                                  k_scale=pools.k_scale,
                                  v_scale=pools.v_scale)
     tile = (block_q, block_k)
+    if rows % g or block_q not in pa.prefill_tiles(torch.bfloat16, 128,
+                                                   g)[0]:
+        with pytest.raises(ValueError, match="no instance"):
+            ops.paged_prefill(q, pools, table, starts, lens, block_q=block_q,
+                              block_k=block_k)
+        return
     n1, n3 = one.by_tile[tile], merged.by_tile[tile]
     for ns in (1, 3):
         got = ops.paged_prefill(q, pools, table, starts, lens,

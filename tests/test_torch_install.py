@@ -1,7 +1,8 @@
 """The port's install-time AT path on the CPU: the plain versions of K8
 (``ops.mm``, ``ref.matmul_ref``) and K7 (``ref.fdm_stress_ref``) against
 the JAX package's Pallas kernels in interpret mode, and the install-time
-tuning of ``MatmulBlocks`` through ``repro_torch.tuning``.
+tuning of ``MatmulBlocks`` and ``FlashBlocks`` (K1's tile) through
+``repro_torch.tuning``, beside the JAX package's install pass.
 
 Tolerances: float32 1e-4 relative (and absolute, for values near 0);
 bfloat16 inputs give bfloat16 outputs rounded from float32 sums taken in
@@ -13,19 +14,34 @@ import importlib.util
 import math
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import repro.at as jat
 import repro_torch.at as at
+from repro.configs import ARCHS as JAX_ARCHS
+from repro.kernels import ops as jax_ops
 from repro.kernels.fdm_stress import fdm_stress as jax_fdm_stress
 from repro.kernels.matmul import matmul as jax_matmul
+from repro.models import build_model as jax_build_model
+from repro.serving import Request as JaxRequest
+from repro.serving import ServingEngine as JaxEngine
+from repro.tuning.install import \
+    register_kernel_regions as jax_register_kernel_regions
+from repro.tuning.install import run_install_tuning as jax_run_install_tuning
+from repro_torch.bridge import params_from_jax
+from repro_torch.configs import get_arch
 from repro_torch.core.executor import WallClockExecutor
+from repro_torch.kernels import flash_attention as k1
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.matmul import TILE_VALUES, TILES, smem_bytes
-from repro_torch.tuning import (matmul_blocks_cost, register_kernel_regions,
-                                run_install_tuning)
+from repro_torch.models import build_model
+from repro_torch.serving import Request, ServingEngine
+from repro_torch.tuning import (flash_blocks_cost, matmul_blocks_cost,
+                                register_kernel_regions, run_install_tuning)
 
 H100_SMEM_PER_BLOCK = 232_448    # cudaDevAttrMaxSharedMemoryPerBlockOptin
 TOL = {np.float32: dict(rtol=1e-4, atol=1e-4),
@@ -35,8 +51,10 @@ TOL = {np.float32: dict(rtol=1e-4, atol=1e-4),
 @pytest.fixture(autouse=True)
 def _isolate_published():
     at.clear_published()
+    jat.clear_published()
     yield
     at.clear_published()
+    jat.clear_published()
 
 
 def _operands(m, k, n, seed):
@@ -161,9 +179,9 @@ def test_analytic_install_tuning_publishes_a_feasible_tile(tmp_path):
     assert (tiles["block_m"], tiles["block_n"], tiles["block_k"]) in TILES
     assert smem_bytes(*tiles.values()) <= H100_SMEM_PER_BLOCK
     assert at.tuned("matmul") == tiles
-    # MatmulBlocks ad-hoc: 3 axes x 3 values; SsmChunk: its d-spline's 8
-    # sample points
-    assert session.executor_calls == 9 + 8
+    # MatmulBlocks ad-hoc: 3 axes x 3 values; FlashBlocks ad-hoc: 2 axes
+    # x 2 values; SsmChunk: its d-spline's 8 sample points
+    assert session.executor_calls == 9 + 4 + 8
     record = session.records.lookup("install", "MatmulBlocks", {})
     assert record is not None and record.machine == at.machine_fingerprint()
     # a second session on the workdir warm-loads: no measurement
@@ -190,7 +208,17 @@ def test_wall_clock_install_tuning_on_cpu_times_the_plain_version(tmp_path):
     region = session.ctx.registry.get("MatmulBlocks")
     assert region.metadata["executor"] == "cuda-event"
     assert tuple(tuned["MatmulBlocks"].values()) in TILES
-    assert session.executor_calls == 9 + 8      # MatmulBlocks + SsmChunk
+    # MatmulBlocks + FlashBlocks + SsmChunk
+    assert session.executor_calls == 9 + 4 + 8
+    assert tuple(tuned["FlashBlocks"].values()) in k1.attention_tiles(
+        torch.bfloat16, 128)
+    # a second session on the workdir warm-loads every region: no
+    # measurement, the same winners
+    again = at.AutoTuner(str(tmp_path))
+    register_kernel_regions(again, m=48, n=80, k=64, seq=24, d_inner=32,
+                            d_state=8, smem_limit=H100_SMEM_PER_BLOCK)
+    assert run_install_tuning(again, wall_clock=True, device="cpu") == tuned
+    assert again.executor_calls == 0
     # the analytic setting is restored by the next call
     run_install_tuning(session)
     assert region.metadata["executor"] == "analytic-cost"
@@ -245,3 +273,105 @@ def test_sample_8_example_runs_both_levels_on_cpu(capsys):
     assert 0 <= out["level1"]["winner"] < 8
     assert out["level2"] == {"device": "cpu", "grid": 16}
     assert "reproduced at loop-nest AND kernel level" in capsys.readouterr().out
+
+
+# --------------------------------------------------------------------------
+# FlashBlocks: K1's tile (block_q, block_k)
+# --------------------------------------------------------------------------
+
+
+def test_flash_blocks_is_declared_and_publishes_an_instance(tmp_path):
+    session = at.AutoTuner(str(tmp_path))
+    register_kernel_regions(session, seq=512, d_head=128,
+                            smem_limit=H100_SMEM_PER_BLOCK)
+    region = session.ctx.registry.get("FlashBlocks")
+    assert region.metadata["shape"] == (512, 128)
+    assert region.metadata["smem_limit"] == H100_SMEM_PER_BLOCK
+    assert session._publish_maps["FlashBlocks"] == (
+        "flash_attention", {"block_q": "block_q", "block_k": "block_k"})
+    tuned = run_install_tuning(session)
+    assert set(tuned) == {"MatmulBlocks", "FlashBlocks", "SsmChunk"}
+    tile = tuned["FlashBlocks"]
+    assert set(tile) == {"block_q", "block_k"}
+    assert (tile["block_q"], tile["block_k"]) in k1.attention_tiles(
+        torch.bfloat16, 128)
+    assert at.tuned("flash_attention") == tile
+    # the analytic cost at S 512: 128 x 64 walks 20 live tile pairs, the
+    # fewest of the tiles whose shared memory leaves room for two blocks
+    assert tile == {"block_q": 128, "block_k": 64}
+
+
+def test_flash_blocks_cost_counts_the_kernels_walk():
+    """Finite and positive on every D = 128 instance; the live tile pairs
+    of the causal walk (query tile i sees the key tiles up to its last
+    row); ``inf`` above the shared-memory limit and for tiles without an
+    instance at the head dim."""
+    costs = {t: flash_blocks_cost(*t, seq=512, d_head=128,
+                                  smem_limit=H100_SMEM_PER_BLOCK)
+             for t in k1.attention_tiles(torch.bfloat16, 128)}
+    assert len(costs) == 4
+    assert all(math.isfinite(c) and c > 0 for c in costs.values())
+    # 64 x 64 at S 512: 1 + 2 + ... + 8 pairs, one block fits twice
+    assert costs[(64, 64)] == 36
+    assert costs[(128, 64)] == 2 + 4 + 6 + 8
+    # the 128-key tiles fit once: their pairs times the penalty
+    assert costs[(64, 128)] > 1 + 1 + 2 + 2 + 3 + 3 + 4 + 4
+    limit = k1.smem_bytes(64, 64, 128)
+    for t in costs:
+        over = k1.smem_bytes(*t, 128) > limit
+        assert math.isinf(flash_blocks_cost(*t, seq=512, d_head=128,
+                                            smem_limit=limit)) == over
+    assert math.isinf(flash_blocks_cost(128, 128, seq=512, d_head=64,
+                                        smem_limit=H100_SMEM_PER_BLOCK))
+    assert math.isfinite(flash_blocks_cost(64, 64, seq=512, d_head=64,
+                                           smem_limit=H100_SMEM_PER_BLOCK))
+    assert k1.smem_bytes(64, 64, 128) == 87_040
+    assert k1.smem_bytes(128, 128, 128) == 174_080
+
+
+def test_port_and_jax_install_passes_publish_the_same_regions(tmp_path):
+    session = at.AutoTuner(str(tmp_path / "torch"))
+    register_kernel_regions(session, smem_limit=H100_SMEM_PER_BLOCK)
+    ours = run_install_tuning(session)
+    ctx = jat.AutoTuner(str(tmp_path / "jax"))
+    jax_register_kernel_regions(ctx)
+    theirs = jax_run_install_tuning(ctx)
+    assert set(ours) == set(theirs) == {"MatmulBlocks", "FlashBlocks",
+                                        "SsmChunk"}
+    for name in ours:
+        assert set(ours[name]) == set(theirs[name])
+    assert set(at.tuned("flash_attention")) == set(
+        jax_ops.tuned("flash_attention")) == {"block_q", "block_k"}
+
+
+def _greedy(engine_cls, request_cls, model, params, **kw):
+    eng = engine_cls(model, params, n_lanes=2, max_len=48, **kw)
+    for i in range(3):
+        eng.submit(request_cls(rid=i, prompt=[1 + i] + [(3 * i + j) % 90 + 2
+                                                       for j in range(10)],
+                               max_new_tokens=5))
+    return {r.rid: r.out_tokens for r in eng.run(max_steps=200)}
+
+
+def test_dense_serve_after_install_equals_untuned_and_jax_tuned(tmp_path):
+    """Reduced yi-6b on dense lanes: greedy tokens with FlashBlocks' tile
+    published (the plain route on the CPU takes no tile) equal the
+    untuned serve's and the JAX package's after its own install pass."""
+    jmodel = jax_build_model(JAX_ARCHS["yi-6b"].reduced())
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    model = build_model(get_arch("yi-6b").reduced())
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), model.cfg,
+                             device="cpu")
+    untuned = _greedy(ServingEngine, Request, model, params)
+    session = at.AutoTuner(str(tmp_path / "torch"))
+    register_kernel_regions(session, smem_limit=H100_SMEM_PER_BLOCK)
+    run_install_tuning(session)
+    assert at.tuned("flash_attention")
+    tuned = _greedy(ServingEngine, Request, model, params)
+    ctx = jat.AutoTuner(str(tmp_path / "jax"))
+    jax_register_kernel_regions(ctx)
+    jax_run_install_tuning(ctx)
+    assert jax_ops.tuned("flash_attention")
+    jax_tuned = _greedy(JaxEngine, JaxRequest, jmodel, jparams)
+    assert tuned == untuned == jax_tuned
+    assert all(len(t) == 5 for t in tuned.values())

@@ -52,8 +52,8 @@ KEY_GROUPS = 4                             # key groups per tile
 
 def key_groups(rows: int) -> int:
     """The key groups of a tile of ``rows`` query rows, paged_prefill.cu's
-    ``Tile``: 4 up to 32 rows, 2 at 64 (8 warps a block)."""
-    return 2 if rows >= 64 else 4
+    ``Tile``: 4 up to 32 rows, 2 from 48 (6 and 8 warps a block)."""
+    return 2 if rows >= 48 else 4
 
 
 def tc_emulate(q, k_pool, v_pool, table, start, kv_len, k_scale=None,
@@ -210,10 +210,12 @@ def test_emulated_kernel_against_jax_kernels_in_interpret_mode(case, h, hkv,
 
 @pytest.mark.parametrize("h,hkv,d,ok", [
     (32, 4, 128, True), (32, 32, 128, True), (8, 2, 16, True),
-    (32, 1, 64, True), (12, 4, 128, False), (64, 1, 64, False),
-    (32, 4, 24, False)])
+    (32, 1, 64, True), (12, 4, 128, True), (12, 4, 64, False),
+    (20, 4, 128, False), (64, 1, 64, False), (32, 4, 24, False)])
 def test_tensor_core_kernel_shape_check(h, hkv, d, ok):
-    """G = H / Hkv must divide the 32-row tile; D in HEAD_DIMS."""
+    """G = H / Hkv must divide one of the row tiles at D (at D 128 the
+    48-row tile takes G 3; at D 64 only the 32-row tile, which takes
+    neither G 3 nor G 64; G 5 has none); D in HEAD_DIMS."""
     if ok:
         pa.check_tc_shape("k", h, hkv, d)
     else:
@@ -221,9 +223,14 @@ def test_tensor_core_kernel_shape_check(h, hkv, d, ok):
             pa.check_tc_shape("k", h, hkv, d)
 
 
-# the tiles of the D = 128 instances: (query rows, keys); the row tile is
-# block_q x G, so at G 8 block_q is rows // 8
-TILES = [(rows, keys) for rows in pa.TC_ROW_TILES for keys in pa.TC_BLOCK_KS]
+# the tiles of the D = 128 instances that G 8 (and G 4) takes: (query
+# rows, keys); the row tile is block_q x G, so at G 8 block_q is rows // 8
+TILES = [(8 * bq, keys) for bq in pa.prefill_tiles(torch.bfloat16, 128, 8)[0]
+         for keys in pa.TC_BLOCK_KS]
+# G 3's: the 48-row tile, block_q 16
+G3_TILES = [(3 * bq, keys)
+            for bq in pa.prefill_tiles(torch.bfloat16, 128, 3)[0]
+            for keys in pa.TC_BLOCK_KS]
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["K4", "K6c"])
@@ -293,16 +300,91 @@ def test_prefill_tiles_against_jax_kernels_in_interpret_mode(rows, keys,
     (torch.bfloat16, 128, 8, 4, 32, None),
     (torch.bfloat16, 64, 8, 2, 128, None),
     (torch.bfloat16, 64, 8, 4, 64, None),
+    (torch.bfloat16, 128, 8, 6, 128, None),
+    (torch.bfloat16, 128, 3, None, None, (16, 128)),
+    (torch.bfloat16, 128, 3, 16, 64, (16, 64)),
+    (torch.bfloat16, 128, 3, 32, 128, None),
+    (torch.bfloat16, 128, 1, None, None, (32, 128)),
     (torch.float32, 128, 8, None, None, (64, 32)),
     (torch.float32, 128, 8, 4, 128, None)])
 def test_prefill_tile_without_instance_raises(dtype, d, g, block_q, block_k,
                                               ok):
     """A tile the kernel has no instance for raises ``ValueError`` naming
-    the tiles it has; ``None`` is the default (bf16: 32 // G rows and 128
-    keys; float32: the SIMT template's 64 and 32)."""
+    the tiles it has (G 8 at the 48-row tile would be block_q 6, not a
+    power of two); ``None`` is the default (bf16: 32 // G rows, G 3's 16
+    of the 48-row tile, and 128 keys; float32: the SIMT template's 64 and
+    32)."""
     q = torch.zeros(1, 4 * g, 5, d, dtype=dtype)
     if ok is not None:
         assert pa.prefill_tile("k", q, 4, block_q, block_k) == ok
     else:
         with pytest.raises(ValueError, match="has block_q in"):
             pa.prefill_tile("k", q, 4, block_q, block_k)
+
+
+# phi4-mini's verify shape: 24 q / 8 kv heads (G 3), chunks of 5 over
+# four lanes and an idle lane
+G3_VERIFY = (24, 8, 128, 16, 64, [839, 720, 190, 544, 0], [5, 5, 5, 5, 0],
+             5)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K4", "K6c"])
+@pytest.mark.parametrize("rows,keys", G3_TILES)
+def test_g3_tiles_within_bound_of_plain(rows, keys, quant):
+    """The 48-row tile (3 slabs, 2 key groups) at phi4-mini's heads on the
+    verify shape and a 128-row chunk at 384: within the bf16 tolerance of
+    the plain version and, before the output's rounding, within 2^-9
+    max |v| + 1e-5; the idle lane exactly 0."""
+    for c, starts, valid in ((5, G3_VERIFY[5], G3_VERIFY[6]),
+                             (128, [384], [128])):
+        h, hkv, d, psz, nblk = G3_VERIFY[:5]
+        q, (kp, vp, ks, vs), table, start, lens = case_inputs(
+            h, hkv, d, psz, nblk, starts, valid, c, 37, quant)
+        tile = dict(block_k=keys, groups=key_groups(rows))
+        got = tc_emulate(q, kp, vp, table, start, lens, ks, vs, **tile)
+        got32 = tc_emulate(q.float(), kp, vp, table, start, lens, ks, vs,
+                           **tile)
+        want32 = ref.paged_prefill_ref(q.float(), kp, vp, table, start,
+                                       lens, k_scale=ks, v_scale=vs)
+        v_max = float(ref._dequantize_pools(kp, vp, ks, vs)[1].abs().max())
+        for i, n in enumerate(valid):
+            if lens[i] == 0:
+                assert torch.all(got[i] == 0)
+                continue
+            np.testing.assert_allclose(got[i, :, :n].float().numpy(),
+                                       want32[i, :, :n].numpy(), **BF16_TOL)
+            np.testing.assert_allclose(got32[i, :, :n].numpy(),
+                                       want32[i, :, :n].numpy(), rtol=0,
+                                       atol=P_ROUNDING * v_max + 1e-5)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K4", "K6c"])
+@pytest.mark.parametrize("rows,keys", G3_TILES)
+@pytest.mark.parametrize("case", ["mid-page", "ragged"])
+def test_g3_tiles_against_jax_kernels_in_interpret_mode(case, rows, keys,
+                                                        quant):
+    """The 48-row tile at G 3 (6 q / 2 kv heads) against the JAX
+    ``flash_paged_prefill(_quant)`` at block_q 16 and the tile's
+    block_k, float32 holding bf16 values, within 2^-9 max |v| + 1e-5."""
+    c, d, psz, nblk = 8, 16, 8, 6
+    starts = {"mid-page": [12, 0], "ragged": [16, 0]}[case]
+    valid = [5 if case == "ragged" else c, c]
+    q, (kp, vp, ks, vs), table, start, lens = case_inputs(
+        6, 2, d, psz, nblk, starts, valid, c, 41, quant)
+    q = q.float()
+    if not quant:
+        kp, vp = kp.float(), vp.float()
+    got = tc_emulate(q, kp, vp, table, start, lens, ks, vs, block_k=keys,
+                     groups=key_groups(rows)).numpy()
+    args = [np.asarray(x) for x in (q, kp, vp)]
+    if quant:
+        args += [ks.numpy(), vs.numpy()]
+    kernel = jax_paged_prefill_quant if quant else jax_paged_prefill
+    want = np.asarray(kernel(*args, jnp.asarray(table.numpy()),
+                             jnp.asarray(start.numpy()),
+                             jnp.asarray(lens.numpy()), block_q=rows // 3,
+                             block_k=keys, interpret=True))
+    v_max = float(ref._dequantize_pools(kp, vp, ks, vs)[1].abs().max())
+    for i, n in enumerate(valid):
+        np.testing.assert_allclose(got[i, :, :n], want[i, :, :n], rtol=0,
+                                   atol=P_ROUNDING * v_max + 1e-5)

@@ -395,11 +395,13 @@ def test_merged_decode_protocol_at_every_key_tile(block_k):
 
 
 @pytest.mark.parametrize("tile_rows,keys", [
-    (rows, keys) for rows in pa.TC_ROW_TILES for keys in pa.TC_BLOCK_KS])
+    (4 * bq, keys) for bq in pa.prefill_tiles(torch.bfloat16, 128, 4)[0]
+    for keys in pa.TC_BLOCK_KS])
 def test_merged_verify_protocol_at_every_tile(tile_rows, keys):
     """The last-arrival merge of the emulated K5b partials over the q
-    tiles of each tile of the D = 128 instances (3 splits, G 4: block_q =
-    rows // 4, the arrival counters one per q tile of that many rows):
+    tiles of each tile of the D = 128 instances that G 4 takes (3 splits,
+    block_q = rows // 4, the arrival counters one per q tile of that many
+    rows):
     bit-equal across orders and to standalone K5c, counters back at 0,
     within 2^-9 max |v| + 1e-5 of the JAX ``flash_paged_prefill`` at the
     matching block_q and block_k and splits."""

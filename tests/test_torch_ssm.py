@@ -446,8 +446,9 @@ def test_wall_clock_ssm_chunk_tuning_on_cpu_publishes_chunk(tmp_path):
     assert region.metadata["executor"] == "cuda-event"
     assert tuned["SsmChunk"]["chunk"] in (32, 64, 128, 256, 512)
     assert at.tuned("ssm_scan") == tuned["SsmChunk"]
-    # MatmulBlocks: 3 axes x 3 values; SsmChunk: the d-spline's 8 samples
-    assert session.executor_calls == 9 + 8
+    # MatmulBlocks: 3 axes x 3 values; FlashBlocks: 2 axes x 2 values;
+    # SsmChunk: the d-spline's 8 samples
+    assert session.executor_calls == 9 + 4 + 8
     again = at.AutoTuner(str(tmp_path))
     register_kernel_regions(again, **shape)
     assert run_install_tuning(again, wall_clock=True, device="cpu") == tuned
