@@ -227,7 +227,26 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    chunk of 128 and K5b and K6d merged at its verify shape with 8
    splits, at both 48-row tiles, against plain and timed beside the
    plain version, SDPA and the bound: rows of the kernels line, with
-   their launches from (a)-(g) by tile.
+   their launches from (a)-(g) by tile;
+29. moonshot-v1-16b-a3b at published widths and depth (48 layers, d_model
+   2048, 16 q / 16 kv heads: G 1, D 128; 64 experts top-6 + 2 shared,
+   d_ff 1408, capacity factor 1.25; random bf16 weights from seed 0, 57.8
+   GB, once every earlier model is freed), phase 5's requests, 4 lanes,
+   32 tokens each: (a) dense lanes (K1 once per layer per admission, K2
+   once per layer per tick); (b) the paged pool in chunks of 128 (K4 at
+   G 1's default tile, K3); (c) int8 pages with 8 splits (K6c, K6b with
+   K5c merged); (d) a 24-layer self-draft proposing 4, verify at 8 splits
+   (K5b with K5c merged).  Each serve's counters must show exactly its
+   kernels; the MoE's routing (pairs routed and dropped, by token count)
+   is printed beside it.  The logits of (a)-(d), kernels against plain,
+   with the (layer, token, choice) routing decisions that differ between
+   the two routes: logits over 5e-2 of their scale pass only when a flip
+   is behind them and the first flipped MoE call's input is within 5e-2
+   of its own scale; and the kernel run again with the plain run's
+   routing replayed, whose logits must be within 5e-2 of plain's.  One
+   MoE layer timed at decode (4 lanes) and at a 512-token prefill beside
+   its byte floors (every expert read; only the routed ones), with the
+   device operations it launches; the peak memory.
 
 Then the script's run time, one JSON line with every kernel's numbers,
 and as the last line
@@ -245,6 +264,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import importlib.util
 import json
 import re
@@ -274,8 +294,10 @@ import repro_torch.launch.serve as serve_mod  # noqa: E402
 from repro_torch.launch.serve import (ServeConfig, draw_prompts,  # noqa: E402
                                       serve_config, serve_engine)
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.serving.kvcache import tree_leaves  # noqa: E402
 from repro_torch.serving.gateway import (GatewayPolicyKnobs,  # noqa: E402
                                          GatewayServer, PipelinedEngine,
                                          sse_generate)
@@ -771,9 +793,10 @@ def phase_serve(smi: str) -> tuple[dict, dict[str, int]]:
     return report, launches
 
 
-def phase_logits(model, params, tag: str = "[6 logits] yi-6b full") -> None:
+def dense_logits(model, params) -> tuple[torch.Tensor, torch.Tensor]:
     """Prefill + 4 decode steps of one prompt at the full config, through
-    the kernels and through the plain versions, fed the same tokens."""
+    the plain versions and then through the kernels, fed the same tokens;
+    returns the (plain, kernel) logits of every step."""
     cfg = model.cfg
     gen = torch.Generator(device="cuda").manual_seed(7)
     prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen,
@@ -794,8 +817,13 @@ def phase_logits(model, params, tag: str = "[6 logits] yi-6b full") -> None:
             steps.append(logits)
         runs[use_kernel] = torch.stack(steps)
     torch.cuda.synchronize()
+    return runs[False], runs[True]
+
+
+def phase_logits(model, params, tag: str = "[6 logits] yi-6b full") -> None:
+    plain, kern = dense_logits(model, params)
     print(f"{tag}, prefill 128 + 4 decode steps: "
-          + check_logits(runs[False], runs[True], cfg.padded_vocab, "logits"))
+          + check_logits(plain, kern, model.cfg.padded_vocab, "logits"))
 
 
 def paged_case(b, h, hkv, d, psz, nblk, kv_len, dtype, seed, c=1):
@@ -2040,7 +2068,8 @@ SPEC = dict(cache="paged", page_size=16, prefill_chunk=128, draft=True,
 
 
 def spec_serve(what: str, n_draft: int, verify, prefill,
-               run: Callable[..., tuple[dict, dict]] = serve_with_counts, **kw
+               run: Callable[..., tuple[dict, dict]] = serve_with_counts,
+               n_layers: int = 32, **kw
                ) -> tuple[dict, dict[str, int], dict, dict]:
     """One speculative serve of the phase-5 requests (by ``run``, which
     returns the report and the launches) with the draft's calls and K2's
@@ -2049,7 +2078,6 @@ def spec_serve(what: str, n_draft: int, verify, prefill,
     target's chunks, the draft's K1 and K2 once a draft layer a draft
     prefill and decode step) and that every arrival counter is back at 0.
     Returns the report, the launches, the draft calls and K2's routes."""
-    n_layers = 32
     drafts, restore = count_draft_calls()
     try:
         with kernels_by_route(ops, "flash_decode") as k2_routes:
@@ -3286,10 +3314,10 @@ PHI4_TILES = [(bq, bk) for bq in pa.prefill_tiles(BF16, 128, 3)[0]
 PHI4_TILED = TILED + (fa.flash_attention,)
 
 
-def phi4_serve(model, params, by_tile: dict, tile=None, **kw
-               ) -> tuple[dict, dict[str, int]]:
-    """One serve of the phase-5 requests on phi4-mini (the model built
-    once), its launch and tile counters zeroed just before and read just
+def model_serve(model, params, by_tile: dict, tile=None, **kw
+                ) -> tuple[dict, dict[str, int]]:
+    """One serve of the phase-5 requests on a model built once (phi4-mini,
+    moonshot), its launch and tile counters zeroed just before and read just
     after, the launches by tile stored in ``by_tile`` ({wrapper:
     Counter}); with ``tile`` the prefill and verify tile (block_q,
     block_k) is published for the serve, as the run-time AT's
@@ -3305,7 +3333,8 @@ def phi4_serve(model, params, by_tile: dict, tile=None, **kw
             at.publish(key, block_q=tile[0], block_k=tile[1])
     try:
         report = serve_mod.serve_model(
-            model, params, ServeConfig(**{**SERVE, "arch": PHI4, **kw}))
+            model, params,
+            ServeConfig(**{**SERVE, "arch": model.cfg.name, **kw}))
         torch.cuda.synchronize()
     finally:
         at.clear_published()
@@ -3315,8 +3344,10 @@ def phi4_serve(model, params, by_tile: dict, tile=None, **kw
     check(report["finished"] == SERVE["n_requests"]
           and all(len(t) == SERVE["max_new"]
                   for t in report["outputs"].values()),
-          f"phi4 serve {kw}: {report['finished']} requests finished")
-    check(counters_zero(), f"phi4 serve {kw}: an arrival counter is not 0")
+          f"{model.cfg.name} serve {kw}: {report['finished']} requests "
+          "finished")
+    check(counters_zero(),
+          f"{model.cfg.name} serve {kw}: an arrival counter is not 0")
     return report, launches
 
 
@@ -3342,7 +3373,7 @@ def phi4_serves(model, params, smi: str) -> dict:
     # (a) dense lanes: K1 at G 3, K2
     seen = tally()
     with kernels_by_route(ops, "flash_decode") as k2_routes:
-        report, launches = phi4_serve(model, params, seen)
+        report, launches = model_serve(model, params, seen)
     only_launched(launches, (fa.flash_attention, fa.flash_decode),
                   "phi4 (a) dense")
     check(launches["flash_attention"] == n_layers * SERVE["n_requests"]
@@ -3365,8 +3396,8 @@ def phi4_serves(model, params, smi: str) -> dict:
              pa.flash_paged_prefill_quant,
              pa.paged_decode_split_quant_merged)):
         seen = tally()
-        report, launches = phi4_serve(model, params, seen, cache="paged",
-                                      page_size=16, prefill_chunk=128, **kw)
+        report, launches = model_serve(model, params, seen, cache="paged",
+                                       page_size=16, prefill_chunk=128, **kw)
         what = f"phi4 {label}"
         only_launched(launches, (prefill, decode), what)
         check(launches[prefill.__name__] == n_layers * report["prefill_chunks"]
@@ -3399,7 +3430,7 @@ def phi4_serves(model, params, smi: str) -> dict:
         kw = dict(SPEC, kv_dtype="int8") if quant else dict(SPEC)
         report, launches, drafts, k2_routes = spec_serve(
             f"phi4 {label}", n_layers // 2, verify, prefill,
-            run=functools.partial(phi4_serve, model, params, seen, tile),
+            run=functools.partial(model_serve, model, params, seen, tile),
             **kw)
         want = tile or (16, 128)
         for kernel in (verify, prefill):
@@ -3523,6 +3554,326 @@ def phase_phi4(smi: str) -> list[dict]:
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 29: moonshot-v1-16b-a3b at published widths (MoE, G 1)
+# --------------------------------------------------------------------------
+
+MOONSHOT = "moonshot-v1-16b-a3b"
+
+
+def routing_line(calls: list[dict]) -> str:
+    """The traced MoE calls of a serve by token count T (4: a decode tick
+    of 4 lanes; 20: a verify of 4 x 5; 128: a prefill chunk; a draft's
+    calls too): calls, (token, choice) pairs and the pairs dropped past
+    their expert's capacity."""
+    by_t = collections.defaultdict(lambda: [0, 0, 0])
+    for c in calls:
+        n = by_t[c["keep"].shape[0]]
+        n[0] += 1
+        n[1] += c["keep"].numel()
+        n[2] += int((~c["keep"]).sum())
+    return "routing by T (calls, pairs, dropped) " + ", ".join(
+        f"{t}: {tuple(v)}" for t, v in sorted(by_t.items()))
+
+
+def moonshot_serves(model, params, smi: str) -> dict[str, dict]:
+    """29 (a)-(d): the serves of moonshot; returns each one's launches."""
+    n_layers = model.cfg.n_layers
+    lines, counts = [], {}
+    default = (pa.default_block_q(model.cfg.head_dim, 1), pa.TC_TILE_KEYS)
+    # (a) dense lanes: K1 and K2 at G 1
+    seen = {}
+    with kernels_by_route(ops, "flash_decode") as k2_routes, \
+            moe.trace_routing() as calls:
+        report, launches = model_serve(model, params, seen)
+    only_launched(launches, (fa.flash_attention, fa.flash_decode),
+                  "moonshot (a) dense")
+    check(launches["flash_attention"] == n_layers * SERVE["n_requests"]
+          and fa.flash_attention.last_kernel == fa.TC_KERNEL,
+          f"moonshot (a): K1 launched {launches['flash_attention']} times "
+          f"on {fa.flash_attention.last_kernel}")
+    check(launches["flash_decode"] == n_layers * report["decode_steps"]
+          and dict(k2_routes) == {pa.DECODE_TC_KERNEL:
+                                  launches["flash_decode"]},
+          f"moonshot (a): K2 launched {launches['flash_decode']} times, by "
+          f"kernel {dict(k2_routes)}")
+    lines.append(serve_line("(a) dense lanes", report, launches, seen)
+                 + ", " + routing_line(calls))
+    dense, counts["a"] = report, launches
+    # (b) the paged pool, chunks of 128: K4 at G 1's default tile, K3;
+    # (c) int8 pages, 8 splits: K6c, K6b with K5c merged
+    for key, label, kw, prefill, decode in (
+            ("b", "(b) paged, chunks of 128", {}, pa.flash_paged_prefill,
+             pa.flash_paged_decode),
+            ("c", "(c) int8 pages, 8 splits",
+             dict(kv_dtype="int8", num_splits=8),
+             pa.flash_paged_prefill_quant,
+             pa.paged_decode_split_quant_merged)):
+        seen = {}
+        with moe.trace_routing() as calls:
+            report, launches = model_serve(model, params, seen,
+                                           cache="paged", page_size=16,
+                                           prefill_chunk=128, **kw)
+        what = f"moonshot {label}"
+        only_launched(launches, (prefill, decode), what)
+        check(launches[prefill.__name__] == n_layers * report["prefill_chunks"]
+              and dict(seen[prefill.__name__]) == {
+                  default: launches[prefill.__name__]}
+              and prefill.last_kernel == TC_KERNEL,
+              f"{what}: {prefill.__name__} by tile "
+              f"{dict(seen[prefill.__name__])}, {report['prefill_chunks']} "
+              f"chunks, on {prefill.last_kernel}")
+        check(launches[decode.__name__] == n_layers * report["decode_steps"]
+              and decode.last_kernel == pa.DECODE_TC_KERNEL,
+              f"{what}: {decode.__name__} launched "
+              f"{launches[decode.__name__]} times on {decode.last_kernel}")
+        lines.append(serve_line(label, report, launches, seen)
+                     + f", greedy tokens equal to (a)'s (reported only) "
+                     f"{greedy_agreement(report, dense)}, "
+                     + routing_line(calls))
+        counts[key] = launches
+    # (d) a 24-layer self-draft proposing 4, verify at 8 splits
+    seen = {}
+    with moe.trace_routing() as calls:
+        report, launches, drafts, _ = spec_serve(
+            "moonshot (d) speculative", n_layers // 2,
+            pa.paged_prefill_split_merged, pa.flash_paged_prefill,
+            run=functools.partial(model_serve, model, params, seen),
+            n_layers=n_layers, **SPEC)
+    for kernel in (pa.paged_prefill_split_merged, pa.flash_paged_prefill):
+        check(dict(seen[kernel.__name__]) == {
+            default: launches[kernel.__name__]},
+            f"moonshot (d): {kernel.__name__} by tile "
+            f"{dict(seen[kernel.__name__])}, expected all at {default}")
+    lines.append(serve_line("(d) speculative, 8 splits", report, launches,
+                            seen)
+                 + f", spec {json.dumps(report['spec'])}, draft prefills "
+                 f"{drafts['prefill']}, draft decode steps "
+                 f"{drafts['decode_step']}, greedy tokens equal to (a)'s "
+                 f"(reported only) {greedy_agreement(report, dense)}, "
+                 + routing_line(calls))
+    counts["d"] = launches
+    print(f"[29 moonshot serves] {MOONSHOT} full ({n_layers} layers, d_model "
+          f"{model.cfg.d_model}, 16 q / 16 kv heads, G 1, D 128, "
+          f"{model.cfg.n_experts} experts top-{model.cfg.top_k} + "
+          f"{model.cfg.n_shared_experts} shared, capacity factor "
+          f"{model.cfg.capacity_factor}), 8 requests of 32 tokens, 4 lanes, "
+          f"on {smi}: " + "; ".join(lines))
+    return counts
+
+
+def verify_logits(model, params, ns: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 18's bf16 case: phase 10's prompt as chunks of 128, then one
+    verify of 5 tokens with ``ns`` splits, through the plain versions and
+    then the kernels; returns the (plain, kernel) logits, (5, 1, V)."""
+    cfg = model.cfg
+    psz, c, plen, max_len = 16, 128, 300, 320
+    nblk = max_len // psz
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    prompt = torch.randint(0, cfg.vocab_size, (1, plen), generator=gen,
+                           device="cuda")
+    table = (torch.randperm(nblk, generator=gen, device="cuda") + 1)
+    table = table.to(torch.int32)[None]
+    extra = torch.randint(0, cfg.vocab_size, (4,), generator=gen,
+                          device="cuda")
+    dev = lambda *x: torch.tensor(x, device="cuda")  # noqa: E731
+    runs = {}
+    for use_kernel in (False, True):
+        caches = model.init_paged_caches(nblk + 1, psz, device="cuda")
+        for start in range(0, plen, c):
+            end = min(start + c, plen)
+            chunk = torch.zeros((1, c), dtype=torch.long, device="cuda")
+            chunk[0, :end - start] = prompt[0, start:end]
+            logits, caches = model.paged_prefill_step(
+                params, caches, table, chunk, dev(start), dev(end),
+                dev(end - start - 1), use_kernel=use_kernel)
+        if not use_kernel:
+            first = int(logits[0].argmax())
+        tokens = torch.cat([dev(first), extra])[None]
+        logits, _ = model.speculative_step(
+            params, caches, table, tokens, dev(plen), dev(plen + 5),
+            num_splits=ns, use_kernel=use_kernel)
+        runs[use_kernel] = logits[0, :, None]
+    torch.cuda.synchronize()
+    return runs[False], runs[True]
+
+
+def routed_logits(plain: torch.Tensor, kern: torch.Tensor,
+                  held: torch.Tensor, calls: list, n_layers: int, vocab: int,
+                  what: str) -> str:
+    """``check_logits`` with the MoE's routing beside it.  ``calls`` are
+    the traced MoE calls (with their inputs) of the plain run and then of
+    the kernel run, in the same order; a (layer, token, choice) routing
+    decision differs where the two runs chose other experts.  bf16
+    attention differences can flip a router near-tie, and one flip moves
+    the queue positions behind it, so other pairs drop or stay, and the
+    next layers' inputs differ further.  So the kernel run's logits over
+    the bound pass only when a flip is behind them and the input of the
+    first MoE call that flips, the last point before the flip, is within
+    5e-2 of its own scale between the routes.  ``held``: the kernel run
+    again with the plain run's routing replayed at every MoE call, which
+    must be within the bound of ``plain`` at every position (the kernels
+    at full depth, with the routing held equal)."""
+    half = len(calls) // 2
+    check(len(calls) == 2 * half > 0, f"{what}: {len(calls)} MoE calls")
+    pairs = list(zip(calls[:half], calls[half:]))
+    flips = [int((a["top_i"] != b["top_i"]).sum()) for a, b in pairs]
+    drops = [sum(int((~c["keep"]).sum()) for c in side)
+             for side in (calls[:half], calls[half:])]
+    first = next((i for i, f in enumerate(flips) if f), None)
+    flip_text = (f"routing decisions that differ {sum(flips)}/"
+                 f"{sum(a['top_i'].numel() for a, _ in pairs)} in "
+                 f"{sum(1 for f in flips if f)} of {half} MoE calls"
+                 + ("" if first is None else
+                    f", the first at call {first} (layer "
+                    f"{first % n_layers}): {flips[first]}/"
+                    f"{pairs[first][0]['top_i'].numel()}")
+                 + f", dropped pairs plain {drops[0]} kernels {drops[1]}")
+    check(tuple(kern.shape) == (plain.shape[0], 1, vocab), f"{what} shape")
+    check(bool(torch.isfinite(kern).all() and torch.isfinite(plain).all()),
+          f"{what} are not finite")
+    held_text = "routing held to plain's: " + check_logits(
+        plain, held, vocab, f"{what} (routing held)")
+    scale = float(plain.abs().max())
+    err = float((kern - plain).abs().max())
+    if err <= 5e-2 * scale or first is None:
+        return (check_logits(plain, kern, vocab, what) + "; " + flip_text
+                + "; " + held_text)
+    xp, xk = (c["x"].float() for c in pairs[first])
+    x_scale = float(xp.abs().max())
+    x_err = float((xk - xp).abs().max())
+    check(x_err <= 5e-2 * x_scale,
+          f"{what}: logits differ by {err:.3e} (over 5e-2 x {scale:.3e}) "
+          f"and the input of MoE call {first}, the first to flip, by "
+          f"{x_err:.3e} (over 5e-2 x {x_scale:.3e})")
+    return (f"logits OVER 5e-2 of their scale by a routing flip: max abs "
+            f"diff {err:.3e} (logit scale {scale:.3e}); held at the input "
+            f"of MoE call {first}, the first that flips: max abs diff "
+            f"{x_err:.3e} (scale {x_scale:.3e}, tol {5e-2 * x_scale:.3e}); "
+            + flip_text + "; " + held_text)
+
+
+def moonshot_logits(model, params) -> None:
+    """The logits of (a)-(d) on moonshot, kernels against plain, with the
+    routing flips between the two routes, and again with the plain run's
+    routing replayed in both."""
+    lines = []
+    for label, run in (
+            ("(a) dense, prefill 128 + 4 decode steps",
+             lambda: dense_logits(model, params)),
+            ("(b) paged, 300 tokens as chunks of 128 + 4 decode steps",
+             lambda: paged_logits(model, params)),
+            ("(c) int8 pages, the same with 8 splits",
+             lambda: paged_logits(model, params, quantized=True,
+                                  splits=(8,) * 4)),
+            ("(d) then a verify of 5 tokens, 8 splits",
+             lambda: verify_logits(model, params, 8))):
+        with moe.trace_routing(inputs=True) as calls:
+            plain, kern = run()
+        plain_calls = calls[:len(calls) // 2]
+        with moe.replay_routing(plain_calls + plain_calls):
+            again, held = run()
+        lines.append(f"{label}: " + routed_logits(
+            plain, kern, held, calls, model.cfg.n_layers,
+            model.cfg.padded_vocab, f"moonshot {label} logits")
+            + f"; plain replaying its own routing: max abs diff "
+            f"{float((again - plain).abs().max()):.3e}")
+        del calls, plain_calls
+    print(f"[29 logits] {MOONSHOT} full: " + "; ".join(lines))
+
+
+def device_ops(fn) -> int:
+    """Operations ``fn`` puts on the card (kernels, copies, memsets), from
+    ``torch.profiler``'s device events; 0 if the profiler sees none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def moe_layer_times(model, params) -> None:
+    """One MoE layer (layer 0's weights) at decode (4 lanes) and at a
+    512-token prefill group: device ms (CUDA events behind a spin), the
+    operations it launches, and two byte floors: every expert read (what
+    the batched product does) and only the experts this input routes to,
+    both with the shared experts, the router and x in and out."""
+    cfg = model.cfg
+    mcfg = transformer.moe_config(cfg)
+    p = transformer._layer(params["layers"]["moe"], 0)
+    d, f = cfg.d_model, cfg.d_ff
+    expert = 3 * d * f * 2
+    fixed = 3 * d * f * cfg.n_shared_experts * 2 + d * cfg.n_experts * 2
+    lines = []
+    for label, shape in (("decode of 4 lanes", (4, 1, d)),
+                         ("prefill of 512", (1, 512, d))):
+        x = randn(shape, 2900 + shape[1], BF16)
+
+        def run(x=x):
+            return moe.apply_moe(p, x, mcfg, with_aux=False)
+
+        with moe.trace_routing() as calls:
+            run()
+        top_i, keep = calls[0]["top_i"], calls[0]["keep"]
+        routed = int(torch.unique(top_i[keep]).numel())
+        io = 2 * x.numel() * 2
+        floors = {n: (n * expert + fixed + io) / HBM_BYTES_PER_S * 1e3
+                  for n in (cfg.n_experts, routed)}
+        times = time_ms(run)
+        lines.append(
+            f"{label}: {times[0]:.4f} ms ({times[1]:.4f} a call with the "
+            f"host), {device_ops(run)} device operations; byte floors: all "
+            f"{cfg.n_experts} experts {floors[cfg.n_experts]:.4f} ms, the "
+            f"{routed} routed {floors[routed]:.4f} ms; "
+            f"{int((~keep).sum())}/{keep.numel()} pairs dropped, capacity "
+            f"{moe.capacity(mcfg, min(mcfg.group_size, shape[0] * shape[1]))}"
+            f"; x {cfg.n_layers} layers: {times[0] * cfg.n_layers:.2f} ms")
+    print(f"[29 moe layer] {MOONSHOT} full, one MoE layer (bf16, "
+          f"{cfg.n_experts} x 3 x {d} x {f} expert weights, "
+          f"{cfg.n_experts * expert / 1e9:.3f} GB), device ms: "
+          + "; ".join(lines))
+
+
+def phase_moonshot(smi: str) -> None:
+    """Phase 29: moonshot-v1-16b-a3b at published widths and depth,
+    random bf16 weights from seed 0, after every earlier model is freed:
+    its serves (a)-(d) with the launches they must make, its logits
+    against plain with the routing flips, one MoE layer timed, and the
+    peak memory."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(MOONSHOT)
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    check(n_params == cfg.param_count() + norms,
+          f"moonshot holds {n_params} parameters, param_count() "
+          f"{cfg.param_count()} + {norms} norm weights")
+    print(f"[29 moonshot] {cfg.param_count() / 1e9:.2f} B parameters "
+          f"({cfg.active_param_count() / 1e9:.2f} B active a token): "
+          f"{(torch.cuda.memory_allocated() - before) / 1e9:.2f} GB "
+          f"allocated for the bf16 weights, {before / 1e9:.3f} GB before "
+          "them")
+    moonshot_serves(model, params, smi)
+    moonshot_logits(model, params)
+    moe_layer_times(model, params)
+    peak = torch.cuda.max_memory_allocated()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[29 moonshot] peak memory allocated {peak / 1e9:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}; "
+          f"phase 29 in {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3579,7 +3930,8 @@ def main() -> int:
     phase_autotune(smi, paged, spec_a)
     rows += phase_phi4(smi)
     check(len(rows) == 22, f"{len(rows)} kernel rows, expected 22")
-    print(f"[done] phases 1-28 in {time.perf_counter() - t0:.1f}s")
+    phase_moonshot(smi)
+    print(f"[done] phases 1-29 in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 The fields and derived properties follow the JAX package's ``ArchConfig``
 exactly, so a config built here describes the same network; only the
-parts the serving path reads are kept as methods.  ``reduced()``
+parts the serving path reads are kept as methods (``param_count`` and
+``active_param_count`` size the weights).  ``reduced()``
 returns the CPU test configuration of the same family, ``draft_config()``
 the speculative draft.
 """
@@ -92,6 +93,53 @@ class ArchConfig:
         if self.family == "encdec":
             return ["encdec_layer"] * self.n_layers
         raise ValueError(self.family)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (weight bytes = this x the dtype's)."""
+        d, ff, v = self.d_model, self.d_ff, self.padded_vocab
+        hq = self.n_heads * self.head_dim
+        hkv = self.n_kv_heads * self.head_dim
+        attn = d * hq + 2 * d * hkv + hq * d
+        mlp = 3 * d * ff
+        n = v * d * (1 if self.tie_embeddings else 2)
+        if self.family in ("dense", "vlm"):
+            n += self.n_layers * (attn + mlp)
+        elif self.family == "moe":
+            experts = 3 * d * ff * self.n_experts
+            shared = 3 * d * ff * self.n_shared_experts
+            router = d * self.n_experts
+            n += self.n_layers * (attn + experts + shared + router)
+        elif self.family == "ssm":
+            di, ns = self.ssm_d_inner, self.ssm_state
+            r = max(d // 16, 1)
+            m1 = (d * 2 * di + di * (r + 2 * ns) + r * di + di * d
+                  + 4 * di + di * ns)
+            n += self.n_layers * m1
+        elif self.family == "hybrid":
+            di, ns = self.ssm_d_inner, self.ssm_state
+            h = self.ssm_n_heads
+            m2 = d * (2 * di + 2 * ns + h) + di * d + (di + 2 * ns) * 4
+            n += self.n_layers * m2
+            n += attn + mlp        # one shared attention block
+        elif self.family == "encdec":
+            n += self.n_encoder_layers * (attn + mlp)
+            n += self.n_layers * (2 * attn + mlp)   # self + cross
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters a token activates (MoE: its top-k and the shared
+        experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, ff, v = self.d_model, self.d_ff, self.padded_vocab
+        hq = self.n_heads * self.head_dim
+        hkv = self.n_kv_heads * self.head_dim
+        attn = d * hq + 2 * d * hkv + hq * d
+        active_experts = 3 * d * ff * (self.top_k + self.n_shared_experts)
+        router = d * self.n_experts
+        n = v * d * (1 if self.tie_embeddings else 2)
+        n += self.n_layers * (attn + active_experts + router)
+        return n
 
     def draft_config(self, depth_frac: float = 0.5,
                      width_frac: float = 1.0) -> "ArchConfig":

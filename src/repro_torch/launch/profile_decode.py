@@ -4,8 +4,9 @@ Fills every lane of the engine with a request (one prefill each, or
 chunk by chunk with ``--prefill-chunk``), runs ticks until every lane is
 decoding and one more, then traces ``--steps`` decode ticks and prints:
 the host time per tick, the device time per tick (sum of the kernels'
-own times), the device busy share (device time / host time), and the
-kernels that take the most device time.  ``--cache paged`` traces the
+own times), the device busy share (device time / host time), the device
+operations (kernels, copies, memsets) launched per tick, and the kernels
+that take the most device time.  ``--cache paged`` traces the
 paged decode tick, ``--kv-dtype int8`` over int8 pages and
 ``--num-splits N`` with split-KV decode (and verify); ``--draft --spec-k
 K`` traces speculative ticks (draft proposals, one verify, the accept
@@ -22,6 +23,8 @@ Usage (on the card)::
         --cache paged --prefill-chunk 128 --kv-dtype int8 --num-splits 8
     PYTHONPATH=src python -m repro_torch.launch.profile_decode --full \
         --cache paged --prefill-chunk 128 --draft --spec-k 4 --num-splits 8
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode --full \
+        --arch moonshot-v1-16b-a3b --cache paged --prefill-chunk 128
 """
 from __future__ import annotations
 
@@ -105,6 +108,7 @@ def profile_decode(arch: str = "yi-6b", reduced: bool = True,
             for e in kernels[:top]]
     return {"host_ms_per_tick": host_ms, "device_ms_per_tick": device_ms,
             "busy_share": device_ms / host_ms if host_ms else 0.0,
+            "launches_per_tick": sum(e.count for e in kernels) / steps,
             "tokens_per_tick": tokens / steps, "spec": engine.spec_stats(),
             "kernels": rows}
 
@@ -139,7 +143,8 @@ def main(argv: list[str] | None = None) -> None:
           f"{args.lanes} lanes, {args.cache} cache, kv {args.kv_dtype}, "
           f"num_splits {args.num_splits}: host {out['host_ms_per_tick']:.3f} ms/tick, "
           f"device {out['device_ms_per_tick']:.3f} ms/tick, busy share "
-          f"{out['busy_share']:.3f}, {out['tokens_per_tick']:.2f} tokens "
+          f"{out['busy_share']:.3f}, {out['launches_per_tick']:.1f} device "
+          f"operations/tick, {out['tokens_per_tick']:.2f} tokens "
           f"per tick" + (f", speculative {out['spec']}" if args.draft
                          else ""))
     for name, ms, count in out["kernels"]:

@@ -15,8 +15,11 @@ of the target's leading half of layers proposes ``--spec-k`` tokens per
 tick and the target verifies them in one chunk.  ``--prefix-cache``
 (paged + chunked prefill) seeds admissions with indexed pages of earlier
 prompts, and ``--shared-prefix N`` puts one common N-token system prompt
-in front of every request.  ``--arch falcon-mamba-7b`` serves the
-Mamba-1 stack from dense lanes that hold its recurrent state; the paged
+in front of every request.  ``--arch moonshot-v1-16b-a3b`` serves the
+MoE stack (64 experts top-6 + 2 shared) through every path above; at
+``--full`` its bf16 weights take 57.8 GB.  ``--arch falcon-mamba-7b``
+serves the Mamba-1 stack from dense lanes that hold its recurrent
+state; the paged
 pool, and with it ``--cache paged``, ``--draft`` and ``--prefix-cache``,
 does not apply to it and raises.  ``--gateway`` serves the same prompts
 through the async HTTP/SSE gateway (:mod:`repro_torch.serving.gateway`)
@@ -63,6 +66,8 @@ Usage::
         --cache paged --prefill-chunk 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch falcon-mamba-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+        moonshot-v1-16b-a3b --full --cache paged --prefill-chunk 128
     PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
         --prefill-chunk 128 --autotune --workdir /tmp/at   # twice: warm
 """

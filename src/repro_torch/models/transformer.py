@@ -1,13 +1,18 @@
-"""Decoder LM assembly for the ``attn_mlp`` (dense archs) and ``mamba1``
-(falcon-mamba) layer kinds.
+"""Decoder LM assembly for the ``attn_mlp`` (dense archs), ``attn_moe``
+(MoE archs) and ``mamba1`` (falcon-mamba) layer kinds.
 
 Layers are stacked along a leading axis as in the JAX package (every
 leaf of ``params["layers"]`` is (L, ...)), and the JAX ``lax.scan`` over
 them is a Python loop here.  Per ``attn_mlp`` layer: ``rms_norm`` ->
-attention -> residual -> ``rms_norm`` -> gated-SiLU MLP -> residual; per
+attention -> residual -> ``rms_norm`` -> gated-SiLU MLP -> residual; an
+``attn_moe`` layer has the MoE (:mod:`.moe`) in the MLP's place; per
 ``mamba1`` layer: ``rms_norm`` -> Mamba-1 block -> residual; then the
 final norm and the LM head, whose logits are float32 over
 ``padded_vocab``.
+
+The MoE's capacity drops depend on the whole token set of a call, so
+every mode hands it the step's tokens as the JAX step does: the (B, S)
+batch flattened lane-major, idle lanes and chunk padding included.
 
 Weights may be held in any float dtype: every use casts them to
 ``compute_dtype`` first, which is what the JAX package does, so holding
@@ -24,7 +29,8 @@ prompt chunk per lane), ``paged_decode_step`` and ``speculative_step``
 into the layer-stacked page pools in place (and into their per-row
 scales, for int8 pools).  ``slice_draft_params`` gives the
 self-speculative draft its weights as views of the target's leading
-layers.  Other layer kinds are not ported yet.
+layers (the MoE's stacked experts too).  Other layer kinds are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as attn
+from . import moe
 from . import ssm
 from .layers import apply_mlp, dense_init, embed_init, init_mlp, rms_norm
 
@@ -47,7 +54,7 @@ def torch_dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for what this slice of the port does not run."""
     kind = cfg.layer_kinds()[0]
-    if kind not in ("attn_mlp", "mamba1"):
+    if kind not in ("attn_mlp", "attn_moe", "mamba1"):
         raise NotImplementedError(
             f"layer kind {kind!r} ({cfg.name}) is not ported yet: "
             f"{_OTHER_FAMILIES}")
@@ -66,6 +73,13 @@ def attn_config(cfg: ArchConfig) -> attn.AttnConfig:
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         d_head=cfg.head_dim, rope_theta=cfg.rope_theta, window=cfg.window,
         causal=True, use_rope=cfg.use_rope, qkv_bias=cfg.qkv_bias)
+
+
+def moe_config(cfg: ArchConfig) -> moe.MoEConfig:
+    return moe.MoEConfig(
+        d_model=cfg.d_model, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
+        top_k=cfg.top_k, n_shared_experts=cfg.n_shared_experts,
+        capacity_factor=cfg.capacity_factor, group_size=cfg.moe_group_size)
 
 
 def mamba1_config(cfg: ArchConfig) -> ssm.Mamba1Config:
@@ -105,8 +119,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cpu") -> dict:
             "norm2_w": torch.ones(lead + (d,), **kw),
             "attn": attn.init_attention(gen, attn_config(cfg), lead=lead,
                                         **kw),
-            "mlp": init_mlp(gen, d, cfg.d_ff, lead=lead, **kw),
         }
+        if cfg.layer_kinds()[0] == "attn_moe":
+            layers["moe"] = moe.init_moe(gen, moe_config(cfg), lead=lead,
+                                         **kw)
+        else:
+            layers["mlp"] = init_mlp(gen, d, cfg.d_ff, lead=lead, **kw)
     p = {"embed": embed_init(gen, cfg.padded_vocab, d, **kw),
          "layers": layers,
          "final_norm_w": torch.ones((d,), **kw)}
@@ -144,20 +162,36 @@ def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return head_logits(params, _final_norm(params, x, cfg), cfg)
 
 
+def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
+         with_aux: bool = False):
+    """The feed-forward half of an attention layer on its normed input h
+    (B, S, d): the gated MLP, or the MoE over the step's B x S tokens.
+    Returns (out, aux): the MoE's aux loss with ``with_aux``, else None."""
+    if kind == "attn_moe":
+        return moe.apply_moe(lp["moe"], h, moe_config(cfg), with_aux)
+    return apply_mlp(lp["mlp"], h), None
+
+
 def apply_layer(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
                 use_kernel: bool | None = None):
     """Whole-sequence application of one layer (weights in compute dtype).
-    Returns (x, aux_loss); the ported kinds have no auxiliary loss."""
-    if kind == "attn_mlp":
+    Returns (x, aux_loss): the MoE's load-balancing loss, 0 for the other
+    kinds."""
+    aux = None
+    if kind in ("attn_mlp", "attn_moe"):
         x = x + attn.full(p["attn"], rms_norm(x, p["norm1_w"]),
                           attn_config(cfg), use_kernel=use_kernel)
-        x = x + apply_mlp(p["mlp"], rms_norm(x, p["norm2_w"]))
+        out, aux = _ffn(p, rms_norm(x, p["norm2_w"]), cfg, kind,
+                        with_aux=True)
+        x = x + out
     elif kind == "mamba1":
         x = x + ssm.apply_mamba1(p["ssm"], rms_norm(x, p["norm1_w"]),
                                  mamba1_config(cfg), use_kernel=use_kernel)
     else:
         raise ValueError(kind)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
@@ -205,7 +239,8 @@ def decode_step(params: dict, caches: dict, token: torch.Tensor,
     check_supported(cfg)
     x = embed_tokens(params, token, cfg)
     layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
-    if cfg.layer_kinds()[0] == "mamba1":
+    kind = cfg.layer_kinds()[0]
+    if kind == "mamba1":
         mcfg, state = mamba1_config(cfg), caches["ssm"]
         for i in range(cfg.n_layers):
             lp = _layer(layers, i)
@@ -222,7 +257,7 @@ def decode_step(params: dict, caches: dict, token: torch.Tensor,
         h, _, _ = attn.decode(lp["attn"], rms_norm(x, lp["norm1_w"]),
                               ck[i], cv[i], pos, acfg, use_kernel=use_kernel)
         x = x + h
-        x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["norm2_w"]))
+        x = x + _ffn(lp, rms_norm(x, lp["norm2_w"]), cfg, kind)[0]
     return _logits(params, x[:, 0], cfg), caches
 
 
@@ -238,7 +273,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     which returns the state itself)."""
     check_supported(cfg)
     x = embed_tokens(params, tokens, cfg)
-    if cfg.layer_kinds()[0] == "mamba1":
+    kind = cfg.layer_kinds()[0]
+    if kind == "mamba1":
         return _prefill_mamba1(params, x, cfg, use_kernel)
     b, s, _ = x.shape
     acfg = attn_config(cfg)
@@ -253,7 +289,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         ck[i, :, :, :s] = k
         cv[i, :, :, :s] = v
         x = x + h
-        x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["norm2_w"]))
+        x = x + _ffn(lp, rms_norm(x, lp["norm2_w"]), cfg, kind)[0]
     return _logits(params, x[:, -1], cfg), caches
 
 
@@ -324,7 +360,7 @@ def paged_decode_step(params: dict, caches: dict, page_table: torch.Tensor,
     Returns (logits (B, V), caches); the pools are updated in place."""
     check_supported(cfg)
     x = embed_tokens(params, token, cfg)
-    acfg = attn_config(cfg)
+    acfg, kind = attn_config(cfg), cfg.layer_kinds()[0]
     layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
     kp, vp = caches["kv"]
     for i in range(cfg.n_layers):
@@ -334,7 +370,7 @@ def paged_decode_step(params: dict, caches: dict, page_table: torch.Tensor,
                                   _layer_scales(caches, i),
                                   num_splits=num_splits,
                                   use_kernel=use_kernel)
-        x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["norm2_w"]))
+        x = x + _ffn(lp, rms_norm(x, lp["norm2_w"]), cfg, kind)[0]
     return _logits(params, x[:, 0], cfg), caches
 
 
@@ -347,7 +383,7 @@ def _paged_chunk_layers(params: dict, caches: dict, page_table: torch.Tensor,
     with its keywords bound); returns the last hidden states (B, C, d)."""
     check_supported(cfg)
     x = embed_tokens(params, tokens, cfg)
-    acfg = attn_config(cfg)
+    acfg, kind = attn_config(cfg), cfg.layer_kinds()[0]
     layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
     kp, vp = caches["kv"]
     for i in range(cfg.n_layers):
@@ -355,7 +391,7 @@ def _paged_chunk_layers(params: dict, caches: dict, page_table: torch.Tensor,
         x = x + attend(lp["attn"], rms_norm(x, lp["norm1_w"]), kp[i], vp[i],
                        page_table, start, kv_len, acfg,
                        _layer_scales(caches, i))
-        x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["norm2_w"]))
+        x = x + _ffn(lp, rms_norm(x, lp["norm2_w"]), cfg, kind)[0]
     return x
 
 
