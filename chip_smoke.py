@@ -8,11 +8,12 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
    all in parallel; the instances of the tensor-core kernels (K1 in
    ``flash_attention.cu``, at block_q 64 and 128 by block_k 64 and 128 at
-   D 128; K4, K6c and the partials modes K5b and K6d in
-   ``paged_prefill.cu``, at every tile: rows 16, 32, 48 and 64 by keys 64
-   and 128 at D 128; K3, K6a and the dense (K2) and partials (K5a over
+   D 128 and D 80; K4, K6c and the partials modes K5b and K6d in
+   ``paged_prefill.cu``, at every tile: rows 16, 32, 48, 64 and 80 by keys
+   64 and 128 at D 128; K3, K6a and the dense (K2) and partials (K5a over
    bf16 pools, K6b over int8 pools) modes in ``paged_decode.cu``, at key
-   tiles 32 and 64 at D 128) with their registers and spills from the
+   tiles 32 and 64 at D 128, and the dense mode at both at D 80) with
+   their registers and spills from the
    ``-Xptxas -v`` log, their shared memory and resident blocks per SM, and
    for the decode kernel the clusters of 1, 2, 4 and 8 CTAs the card holds
    at once;
@@ -246,9 +247,31 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    routing replayed, whose logits must be within 5e-2 of plain's.  One
    MoE layer timed at decode (4 lanes) and at a 512-token prefill beside
    its byte floors (every expert read; only the routed ones), with the
-   device operations it launches; the peak memory.
+   device operations it launches; the peak memory;
+30. llama4-scout-17b-a16e cut to 12 of its 48 layers at published widths
+   (d_model 5120, 40 q / 8 kv heads: G 5, D 128; 16 experts top-1 + 1
+   shared, d_ff 8192; 57.0 GB of random bf16 weights, made once every
+   earlier model is freed; the cut printed on its own line): phase 29's
+   serves (a)-(d) and (e), the speculative serve over int8 pages, with
+   the prefill kernel at G 5's 80-row tile (block_q 16) by 128 keys: K4,
+   K6c, K5b and K6d with K5c merged, each counted by tile; phase 29's
+   logits, routing flips and replayed routing, the MoE layer and the
+   peak memory; then K4, K6c, K5b and K6d at both 80-row tiles against
+   plain and timed (rows of the kernels line, as phase 28's);
+31. h2o-danube-1.8b whole (24 layers, d_model 2560, 32 q / 8 kv heads: G
+   4, D 80, window 4096): K1 at D 80 at its four tiles (a prefill of
+   4608 tokens, past the window) and K2 at D 80 at both key tiles (4
+   rings of 4096 slots) against plain and timed beside SDPA and the
+   bound, each instance's registers and occupancy; a dense serve of 8
+   requests whose prompts (4600, 4080, 4090, 4350, 1000, 4070, 4200,
+   3000 tokens) wrap the ring at prefill and in decode, 32 new tokens
+   each, K1 and K2 counted by tile and by kernel; the logits of a
+   4094-token prompt (decode wraps) and a 4200-token one (prefill rolls)
+   with 4 decode steps, kernels against plain; and ``--cache paged``
+   refused with a ``ValueError`` naming the paged pool.
 
-Then the script's run time, one JSON line with every kernel's numbers,
+Then the script's run time by group of phases, one JSON line with every
+kernel's numbers,
 and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
 when no CUDA device is present.
@@ -296,7 +319,7 @@ from repro_torch.launch.serve import (ServeConfig, draw_prompts,  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
-from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.kvcache import tree_leaves  # noqa: E402
 from repro_torch.serving.gateway import (GatewayPolicyKnobs,  # noqa: E402
                                          GatewayServer, PipelinedEngine,
@@ -427,17 +450,17 @@ def phase_build() -> None:
     for source, kernel, pattern, info, n in (
             ("flash_attention", fa.TC_KERNEL,
              r"ILi(?P<d>\d+)ELi(?P<bq>\d+)ELi(?P<bk>\d+)EE",
-             lambda d, kind, t: fa.tc_info(d, t["bq"], t["bk"]), 7),
+             lambda d, kind, t: fa.tc_info(d, t["bq"], t["bk"]), 11),
             ("paged_prefill", TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELb(?P<split>[01])"
              r"ELi(?P<slabs>\d)ELi(?P<bk>\d+)EE",
              lambda d, kind, t: pa.tc_info(d, kind, 64, rows=16 * t["slabs"],
-                                           block_k=t["bk"]), 44),
+                                           block_k=t["bk"]), 52),
             ("paged_decode", pa.DECODE_TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELi(?P<mode>\d)"
              r"ELi(?P<bk>\d+)EE",
              lambda d, kind, t: pa.decode_tc_info(d, kind, 64,
-                                                  block_k=t["bk"]), 25)):
+                                                  block_k=t["bk"]), 27)):
         log = paths[source].with_suffix(".log")
         if not log.exists():
             continue
@@ -540,13 +563,13 @@ def phase_k1() -> tuple[dict, dict]:
           f"on {fa.TC_KERNEL}, fp32 on the SIMT template; {same} launches "
           f"bit-equal to the default tile's): " + "; ".join(errs))
     infos = []
-    for d in fa.HEAD_DIMS:
+    for d in fa.DENSE_HEAD_DIMS:
         for tile in fa.attention_tiles(BF16, d):
             info = fa.tc_info(d, *tile)
             check(info["smem_bytes"] == fa.smem_bytes(*tile, d),
                   f"K1 D={d} {tile}: shared memory {info['smem_bytes']}, "
                   f"the formula says {fa.smem_bytes(*tile, d)}")
-            check(d != 128 or info["local_bytes"] == 0,
+            check(d not in fa.TILED_HEAD_DIMS or info["local_bytes"] == 0,
                   f"K1 D={d} {tile} spills {info['local_bytes']} bytes")
             infos.append(f"D={d} {tile[0]}x{tile[1]}: {info['registers']} "
                          f"registers, {info['local_bytes']} B local, "
@@ -793,18 +816,20 @@ def phase_serve(smi: str) -> tuple[dict, dict[str, int]]:
     return report, launches
 
 
-def dense_logits(model, params) -> tuple[torch.Tensor, torch.Tensor]:
-    """Prefill + 4 decode steps of one prompt at the full config, through
-    the plain versions and then through the kernels, fed the same tokens;
-    returns the (plain, kernel) logits of every step."""
+def dense_logits(model, params, plen: int = 128, max_len: int = 256
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefill + 4 decode steps of one prompt of ``plen`` tokens at the
+    full config, through the plain versions and then through the kernels,
+    fed the same tokens; returns the (plain, kernel) logits of every
+    step."""
     cfg = model.cfg
     gen = torch.Generator(device="cuda").manual_seed(7)
-    prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen,
+    prompt = torch.randint(0, cfg.vocab_size, (1, plen), generator=gen,
                            device="cuda")
     tokens: list[int] = []
     runs = {}
     for use_kernel in (False, True):
-        logits, caches = model.prefill(params, prompt, 256,
+        logits, caches = model.prefill(params, prompt, max_len,
                                        use_kernel=use_kernel)
         steps = [logits]
         for i in range(4):
@@ -3307,9 +3332,6 @@ PHI4_VERIFY = ("phi4-mini verify", 24, 8, 128, 16, 64,
                [839, 720, 190, 544, 0], [5, 5, 5, 5, 0], 5, BF16)
 PHI4_CHUNK = ("phi4-mini chunk at 384", 24, 8, 128, 16, 32, [384], [128],
               128, BF16)
-# the prefill kernel's tiles at G 3: 48 rows (block_q 16) by 64 and 128 keys
-PHI4_TILES = [(bq, bk) for bq in pa.prefill_tiles(BF16, 128, 3)[0]
-              for bk in pa.TC_BLOCK_KS]
 # the wrappers whose launches phase 28 counts by tile
 PHI4_TILED = TILED + (fa.flash_attention,)
 
@@ -3452,21 +3474,26 @@ def phi4_serves(model, params, smi: str) -> dict:
     return by_tile
 
 
-def phi4_rows(by_tile: dict) -> list[dict]:
-    """The kernels line's rows of the prefill kernel at G 3: K4 and K6c at
-    phi4-mini's chunk of 128 at 384, K5b and K6d with K5c merged at its
-    verify shape with 8 splits, at each 48-row tile, against plain, timed
-    beside the plain version, SDPA on the pre-gathered (for int8,
-    pre-dequantized bf16) K/V and the bound; launches from phase 28's
-    serves, by tile."""
+def tile_rows(tag: str, g: int, what: str, chunk: tuple, verify: tuple,
+              by_tile: dict, seed: int, served=None) -> list[dict]:
+    """The kernels line's rows of the prefill kernel at group size ``g``
+    (phase 28: phi4-mini's G 3; phase 30: llama4-scout's G 5): K4 and K6c
+    at the arch's chunk of 128 at 384, K5b and K6d with K5c merged at its
+    verify shape with 8 splits, at each of G's tiles (block_q 16 by 64 and
+    128 keys), against plain, timed beside the plain version, SDPA on the
+    pre-gathered (for int8, pre-dequantized bf16) K/V and the bound;
+    launches from the phase's serves, by tile, which must have launched
+    each kernel at every tile of ``served`` (None: every tile)."""
+    tiles = [(bq, bk) for bq in pa.prefill_tiles(BF16, 128, g)[0]
+             for bk in pa.TC_BLOCK_KS]
     rows, lines = [], []
     for label, case, quant, ns, line in (
-            ("K4", PHI4_CHUNK, False, 1, 733),
-            ("K6c", PHI4_CHUNK, True, 1, 1186),
-            ("K5b+K5c", PHI4_VERIFY, False, 8, 779),
-            ("K6d+K5c", PHI4_VERIFY, True, 8, 1239)):
+            ("K4", chunk, False, 1, 733),
+            ("K6c", chunk, True, 1, 1186),
+            ("K5b+K5c", verify, False, 8, 779),
+            ("K6d+K5c", verify, True, 8, 1239)):
         _, h, hkv, d, psz, nblk, starts, valid, c, _ = case
-        q, pools, table, start, lens = split_case(case, 2800 + line, quant)
+        q, pools, table, start, lens = split_case(case, seed + line, quant)
         kw = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
         want = ref.paged_prefill_ref(q, pools.k, pools.v, table, start, lens,
                                      **kw)
@@ -3491,7 +3518,7 @@ def phi4_rows(by_tile: dict) -> list[dict]:
         else:
             wrapper = (pa.paged_prefill_split_merged if ns > 1
                        else pa.flash_paged_prefill)
-        for tile in PHI4_TILES:
+        for tile in tiles:
             def run(tile=tile):
                 return ops.paged_prefill(q, pools, table, start, lens,
                                          num_splits=ns, block_q=tile[0],
@@ -3500,7 +3527,7 @@ def phi4_rows(by_tile: dict) -> list[dict]:
             got = run()
             check(wrapper.by_tile[tile] == n + 1
                   and wrapper.last_kernel == TC_KERNEL,
-                  f"phi4 {label} {tile}: {wrapper.__name__} did not launch "
+                  f"{tag} {label} {tile}: {wrapper.__name__} did not launch "
                   f"at the tile on {TC_KERNEL}")
             err = compare(got[live], want[live], BF16)
             if ns > 1:
@@ -3512,25 +3539,33 @@ def phi4_rows(by_tile: dict) -> list[dict]:
                     q, pools.k, pools.v, table, start, lens, **kw))
             times = {"ms": time_ms(run), "plain_ms": plain,
                      "library_ms": library}
-            r = row(f"{wrapper.__name__}[G3 {tile[0]}x{tile[1]}]",
+            r = row(f"{wrapper.__name__}[G{g} {tile[0]}x{tile[1]}]",
                     PREFILL_SOURCE, f"{FLASH}:{line}", err, n_bytes, n_ops,
                     times)
             r.update(launches=by_tile.get(wrapper.__name__, {}).get(tile, 0),
                      shape=case[0], tile=list(tile))
             if ns > 1:
                 r["merges"] = f"{FLASH}:315"
-            check(r["launches"] > 0, f"phi4 {label} {tile}: no launch in "
-                  "phase 28's serves")
+            check(r["launches"] > 0 or (served is not None
+                                        and tile not in served),
+                  f"{tag} {label} {tile}: no launch in the phase's serves")
             rows.append(r)
             lines.append(f"{label} {tile}: {fmt_times(times)}, bound "
                          f"{r['bound_ms']:.5f} ms ({r['bound_by']}), err "
                          f"{err:.2e}, {r['launches']} launches in the serves")
-    check(counters_zero(), "phi4 rows: an arrival counter is not 0")
-    print(f"[28 phi4-mini kernels] the prefill kernel at G 3 (24 q / 8 kv "
-          f"heads), 48-row tiles, against plain (tol {TOL[BF16]}), device ms "
-          f"(ms per call incl. host; library: SDPA on the pre-gathered K/V, "
-          f"not timed: the gather): " + "; ".join(lines))
+    check(counters_zero(), f"{tag}: an arrival counter is not 0")
+    print(f"{tag} the prefill kernel at G {g} ({what}), against plain (tol "
+          f"{TOL[BF16]}), device ms (ms per call incl. host; library: SDPA "
+          f"on the pre-gathered K/V, not timed: the gather): "
+          + "; ".join(lines))
     return rows
+
+
+def phi4_rows(by_tile: dict) -> list[dict]:
+    """Phase 28's rows: the prefill kernel at G 3's 48-row tiles."""
+    return tile_rows("[28 phi4-mini kernels]", 3,
+                     "24 q / 8 kv heads; 48-row tiles", PHI4_CHUNK,
+                     PHI4_VERIFY, by_tile, 2800)
 
 
 def phase_phi4(smi: str) -> list[dict]:
@@ -3576,32 +3611,42 @@ def routing_line(calls: list[dict]) -> str:
         f"{t}: {tuple(v)}" for t, v in sorted(by_t.items()))
 
 
-def moonshot_serves(model, params, smi: str) -> dict[str, dict]:
-    """29 (a)-(d): the serves of moonshot; returns each one's launches."""
-    n_layers = model.cfg.n_layers
+def moe_serves(model, params, tag: str, title: str, int8_spec: bool = False
+               ) -> tuple[dict[str, dict], dict]:
+    """(a)-(d) of phases 29 and 30, the serves of an MoE arch (moonshot,
+    llama4-scout's cut): dense lanes, the paged pool, int8 pages with 8
+    splits, a self-draft of half the layers (and with ``int8_spec`` (e),
+    the draft over int8 pages); returns each one's launches and the
+    launches by tile over all of them."""
+    cfg = model.cfg
+    n_layers = cfg.n_layers
     lines, counts = [], {}
-    default = (pa.default_block_q(model.cfg.head_dim, 1), pa.TC_TILE_KEYS)
-    # (a) dense lanes: K1 and K2 at G 1
+    tallies: list[dict] = []
+    g = cfg.n_heads // cfg.n_kv_heads
+    default = (pa.default_block_q(cfg.head_dim, g), pa.TC_TILE_KEYS)
+    # (a) dense lanes: K1 and K2 at the arch's G
     seen = {}
+    tallies.append(seen)
     with kernels_by_route(ops, "flash_decode") as k2_routes, \
             moe.trace_routing() as calls:
         report, launches = model_serve(model, params, seen)
     only_launched(launches, (fa.flash_attention, fa.flash_decode),
-                  "moonshot (a) dense")
+                  f"{cfg.name} (a) dense")
     check(launches["flash_attention"] == n_layers * SERVE["n_requests"]
           and fa.flash_attention.last_kernel == fa.TC_KERNEL,
-          f"moonshot (a): K1 launched {launches['flash_attention']} times "
+          f"{cfg.name} (a): K1 launched {launches['flash_attention']} times "
           f"on {fa.flash_attention.last_kernel}")
     check(launches["flash_decode"] == n_layers * report["decode_steps"]
           and dict(k2_routes) == {pa.DECODE_TC_KERNEL:
                                   launches["flash_decode"]},
-          f"moonshot (a): K2 launched {launches['flash_decode']} times, by "
+          f"{cfg.name} (a): K2 launched {launches['flash_decode']} times, by "
           f"kernel {dict(k2_routes)}")
     lines.append(serve_line("(a) dense lanes", report, launches, seen)
                  + ", " + routing_line(calls))
     dense, counts["a"] = report, launches
-    # (b) the paged pool, chunks of 128: K4 at G 1's default tile, K3;
-    # (c) int8 pages, 8 splits: K6c, K6b with K5c merged
+    # (b) the paged pool, chunks of 128: K4 at G's default tile (G 1: 32
+    # x 128; G 5: 80 x 128), K3; (c) int8 pages, 8 splits: K6c, K6b with
+    # K5c merged
     for key, label, kw, prefill, decode in (
             ("b", "(b) paged, chunks of 128", {}, pa.flash_paged_prefill,
              pa.flash_paged_decode),
@@ -3610,11 +3655,12 @@ def moonshot_serves(model, params, smi: str) -> dict[str, dict]:
              pa.flash_paged_prefill_quant,
              pa.paged_decode_split_quant_merged)):
         seen = {}
+        tallies.append(seen)
         with moe.trace_routing() as calls:
             report, launches = model_serve(model, params, seen,
                                            cache="paged", page_size=16,
                                            prefill_chunk=128, **kw)
-        what = f"moonshot {label}"
+        what = f"{cfg.name} {label}"
         only_launched(launches, (prefill, decode), what)
         check(launches[prefill.__name__] == n_layers * report["prefill_chunks"]
               and dict(seen[prefill.__name__]) == {
@@ -3632,34 +3678,43 @@ def moonshot_serves(model, params, smi: str) -> dict[str, dict]:
                      f"{greedy_agreement(report, dense)}, "
                      + routing_line(calls))
         counts[key] = launches
-    # (d) a 24-layer self-draft proposing 4, verify at 8 splits
-    seen = {}
-    with moe.trace_routing() as calls:
-        report, launches, drafts, _ = spec_serve(
-            "moonshot (d) speculative", n_layers // 2,
-            pa.paged_prefill_split_merged, pa.flash_paged_prefill,
-            run=functools.partial(model_serve, model, params, seen),
-            n_layers=n_layers, **SPEC)
-    for kernel in (pa.paged_prefill_split_merged, pa.flash_paged_prefill):
-        check(dict(seen[kernel.__name__]) == {
-            default: launches[kernel.__name__]},
-            f"moonshot (d): {kernel.__name__} by tile "
-            f"{dict(seen[kernel.__name__])}, expected all at {default}")
-    lines.append(serve_line("(d) speculative, 8 splits", report, launches,
-                            seen)
-                 + f", spec {json.dumps(report['spec'])}, draft prefills "
-                 f"{drafts['prefill']}, draft decode steps "
-                 f"{drafts['decode_step']}, greedy tokens equal to (a)'s "
-                 f"(reported only) {greedy_agreement(report, dense)}, "
-                 + routing_line(calls))
-    counts["d"] = launches
-    print(f"[29 moonshot serves] {MOONSHOT} full ({n_layers} layers, d_model "
-          f"{model.cfg.d_model}, 16 q / 16 kv heads, G 1, D 128, "
-          f"{model.cfg.n_experts} experts top-{model.cfg.top_k} + "
-          f"{model.cfg.n_shared_experts} shared, capacity factor "
-          f"{model.cfg.capacity_factor}), 8 requests of 32 tokens, 4 lanes, "
-          f"on {smi}: " + "; ".join(lines))
-    return counts
+    # (d) a self-draft of half the layers proposing 4, verify at 8 splits;
+    # with int8_spec also (e), the same over int8 pages (K6d)
+    for key, label, quant in (("d", "(d) speculative, 8 splits", False),
+                              ("e", "(e) speculative, int8, 8 splits",
+                               True))[:2 if int8_spec else 1]:
+        seen = {}
+        tallies.append(seen)
+        verify = (pa.paged_prefill_split_quant_merged if quant
+                  else pa.paged_prefill_split_merged)
+        prefill = (pa.flash_paged_prefill_quant if quant
+                   else pa.flash_paged_prefill)
+        with moe.trace_routing() as calls:
+            report, launches, drafts, _ = spec_serve(
+                f"{cfg.name} {label}", n_layers // 2, verify, prefill,
+                run=functools.partial(model_serve, model, params, seen),
+                n_layers=n_layers,
+                **(dict(SPEC, kv_dtype="int8") if quant else SPEC))
+        for kernel in (verify, prefill):
+            check(dict(seen[kernel.__name__]) == {
+                default: launches[kernel.__name__]},
+                f"{cfg.name} {label}: {kernel.__name__} by tile "
+                f"{dict(seen[kernel.__name__])}, expected all at {default}")
+        lines.append(serve_line(label, report, launches, seen)
+                     + f", spec {json.dumps(report['spec'])}, draft "
+                     f"prefills {drafts['prefill']}, draft decode steps "
+                     f"{drafts['decode_step']}, greedy tokens equal to "
+                     f"(a)'s (reported only) "
+                     f"{greedy_agreement(report, dense)}, "
+                     + routing_line(calls))
+        counts[key] = launches
+    print(f"{tag} {title}, 8 requests of 32 tokens, 4 lanes: "
+          + "; ".join(lines))
+    by_tile = collections.defaultdict(collections.Counter)
+    for seen in tallies:
+        for name, tiles in seen.items():
+            by_tile[name].update(tiles)
+    return counts, by_tile
 
 
 def verify_logits(model, params, ns: int
@@ -3754,10 +3809,10 @@ def routed_logits(plain: torch.Tensor, kern: torch.Tensor,
             + flip_text + "; " + held_text)
 
 
-def moonshot_logits(model, params) -> None:
-    """The logits of (a)-(d) on moonshot, kernels against plain, with the
-    routing flips between the two routes, and again with the plain run's
-    routing replayed in both."""
+def moe_logits(model, params, tag: str) -> None:
+    """The logits of (a)-(d) on an MoE arch, kernels against plain, with
+    the routing flips between the two routes, and again with the plain
+    run's routing replayed in both."""
     lines = []
     for label, run in (
             ("(a) dense, prefill 128 + 4 decode steps",
@@ -3776,11 +3831,11 @@ def moonshot_logits(model, params) -> None:
             again, held = run()
         lines.append(f"{label}: " + routed_logits(
             plain, kern, held, calls, model.cfg.n_layers,
-            model.cfg.padded_vocab, f"moonshot {label} logits")
+            model.cfg.padded_vocab, f"{model.cfg.name} {label} logits")
             + f"; plain replaying its own routing: max abs diff "
             f"{float((again - plain).abs().max()):.3e}")
         del calls, plain_calls
-    print(f"[29 logits] {MOONSHOT} full: " + "; ".join(lines))
+    print(f"{tag} {model.cfg.name}: " + "; ".join(lines))
 
 
 def device_ops(fn) -> int:
@@ -3796,7 +3851,7 @@ def device_ops(fn) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def moe_layer_times(model, params) -> None:
+def moe_layer_times(model, params, tag: str) -> None:
     """One MoE layer (layer 0's weights) at decode (4 lanes) and at a
     512-token prefill group: device ms (CUDA events behind a spin), the
     operations it launches, and two byte floors: every expert read (what
@@ -3832,46 +3887,316 @@ def moe_layer_times(model, params) -> None:
             f"{int((~keep).sum())}/{keep.numel()} pairs dropped, capacity "
             f"{moe.capacity(mcfg, min(mcfg.group_size, shape[0] * shape[1]))}"
             f"; x {cfg.n_layers} layers: {times[0] * cfg.n_layers:.2f} ms")
-    print(f"[29 moe layer] {MOONSHOT} full, one MoE layer (bf16, "
+    print(f"{tag} {cfg.name}, one MoE layer (bf16, "
           f"{cfg.n_experts} x 3 x {d} x {f} expert weights, "
           f"{cfg.n_experts * expert / 1e9:.3f} GB), device ms: "
           + "; ".join(lines))
 
 
-def phase_moonshot(smi: str) -> None:
-    """Phase 29: moonshot-v1-16b-a3b at published widths and depth,
-    random bf16 weights from seed 0, after every earlier model is freed:
-    its serves (a)-(d) with the launches they must make, its logits
-    against plain with the routing flips, one MoE layer timed, and the
-    peak memory."""
+def phase_moe(smi: str, n: int, cfg, cut: str,
+              int8_spec: bool = False) -> dict:
+    """Phases 29 and 30: an MoE arch at published widths (``cfg``, its
+    depth cut where ``cut`` names one), random bf16 weights from seed 0,
+    made on the card once every earlier model is freed: its serves
+    (a)-(d) with the launches they must make, its logits against plain
+    with the routing flips, one MoE layer timed, and the peak memory.
+    Returns the serves' launches by tile."""
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_arch(MOONSHOT)
     model = build_model(cfg)
     params = model.init(0, "cuda")
     n_params = sum(t.numel() for t in tree_leaves(params))
     norms = (2 * cfg.n_layers + 1) * cfg.d_model
     check(n_params == cfg.param_count() + norms,
-          f"moonshot holds {n_params} parameters, param_count() "
+          f"{cfg.name} holds {n_params} parameters, param_count() "
           f"{cfg.param_count()} + {norms} norm weights")
-    print(f"[29 moonshot] {cfg.param_count() / 1e9:.2f} B parameters "
-          f"({cfg.active_param_count() / 1e9:.2f} B active a token): "
-          f"{(torch.cuda.memory_allocated() - before) / 1e9:.2f} GB "
+    print(f"[{n} {cfg.name}] {cut}; {cfg.param_count() / 1e9:.2f} B "
+          f"parameters ({cfg.active_param_count() / 1e9:.2f} B active a "
+          f"token): {(torch.cuda.memory_allocated() - before) / 1e9:.2f} GB "
           f"allocated for the bf16 weights, {before / 1e9:.3f} GB before "
           "them")
-    moonshot_serves(model, params, smi)
-    moonshot_logits(model, params)
-    moe_layer_times(model, params)
+    g = cfg.n_heads // cfg.n_kv_heads
+    title = (f"{cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+             f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads, G {g}, D "
+             f"{cfg.head_dim}, {cfg.n_experts} experts top-{cfg.top_k} + "
+             f"{cfg.n_shared_experts} shared, capacity factor "
+             f"{cfg.capacity_factor}) on {smi}")
+    _, by_tile = moe_serves(model, params, f"[{n} serves]", title,
+                            int8_spec)
+    moe_logits(model, params, f"[{n} logits]")
+    moe_layer_times(model, params, f"[{n} moe layer]")
     peak = torch.cuda.max_memory_allocated()
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[29 moonshot] peak memory allocated {peak / 1e9:.2f} GB of "
+    print(f"[{n} {cfg.name}] peak memory allocated {peak / 1e9:.2f} GB of "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}; "
-          f"phase 29 in {time.perf_counter() - t0:.1f}s")
+          f"phase {n} in {time.perf_counter() - t0:.1f}s")
+    return by_tile
+
+
+def phase_moonshot(smi: str) -> None:
+    """Phase 29: moonshot-v1-16b-a3b at published widths and depth."""
+    phase_moe(smi, 29, get_arch(MOONSHOT), "published widths and depth, "
+              "nothing cut")
+
+
+# --------------------------------------------------------------------------
+# phase 30: llama4-scout-17b-a16e, 12 of its 48 layers (MoE, G 5: the
+# prefill kernel's 80-row tile)
+# --------------------------------------------------------------------------
+
+LLAMA4 = "llama4-scout-17b-a16e"
+#: the depth cut: 12 of 48 layers at published widths, 57.0 GB of bf16
+#: weights (the whole arch, 215.5 GB, does not fit one 80 GB card)
+LLAMA4_LAYERS = 12
+# llama4-scout's verify and chunk shapes (40 q / 8 kv heads), as PHI4's
+LLAMA4_VERIFY = ("llama4 verify", 40, 8, 128, 16, 64,
+                 [839, 720, 190, 544, 0], [5, 5, 5, 5, 0], 5, BF16)
+LLAMA4_CHUNK = ("llama4 chunk at 384", 40, 8, 128, 16, 32, [384], [128],
+                128, BF16)
+
+
+def phase_llama4(smi: str) -> list[dict]:
+    """Phase 30: llama4-scout-17b-a16e cut to 12 of its 48 layers at
+    published widths: the MoE phase's serves, logits and layer times, then
+    the prefill kernel's rows at G 5's 80-row tiles, with their launches
+    from the serves."""
+    cfg = dataclasses.replace(get_arch(LLAMA4), n_layers=LLAMA4_LAYERS)
+    full = get_arch(LLAMA4)
+    cut = (f"depth cut: {LLAMA4_LAYERS} of {full.n_layers} layers at "
+           f"published widths ({2 * cfg.param_count() / 1e9:.1f} GB of bf16 "
+           f"weights of the whole arch's {2 * full.param_count() / 1e9:.1f})")
+    print(f"[30 llama4-scout] {cut}")
+    by_tile = phase_moe(smi, 30, cfg, cut, int8_spec=True)
+    return tile_rows("[30 llama4-scout kernels]", 5,
+                     "40 q / 8 kv heads; 80-row tiles", LLAMA4_CHUNK,
+                     LLAMA4_VERIFY, by_tile, 3000,
+                     served=[(16, pa.TC_TILE_KEYS)])
+
+
+# --------------------------------------------------------------------------
+# phase 31: h2o-danube-1.8b, whole (D 80, G 4, the sliding window's ring)
+# --------------------------------------------------------------------------
+
+DANUBE = "h2o-danube-1.8b"
+# prompt lengths of the dense serve: three longer than the 4096-key window
+# (prefill rolls the ring), three whose 32 new tokens cross it in decode
+DANUBE_PROMPTS = (4600, 4080, 4090, 4350, 1000, 4070, 4200, 3000)
+DANUBE_MAX_LEN = 4700
+
+
+def danube_kernel_rows(smi: str) -> list[dict]:
+    """K1 at D 80 (every tile; h2o-danube's prefill of 4608 tokens, G 4,
+    window 4096, so S passes the window) and K2 at D 80 (both key tiles;
+    its decode of 4 lanes over ring strips of 4096 slots) against plain,
+    timed beside the plain version, SDPA and the bound."""
+    cfg = get_arch(DANUBE)
+    h, hkv, d, w = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    rows, lines = [], []
+    # K1: B 1, S 4608 past the window
+    s = 4608
+    q, k, v = (randn((1, n, s, d), 3100 + j, BF16)
+               for j, n in enumerate((h, hkv, hkv)))
+    kw = dict(causal=True, window=w)
+    want = ref.attention_ref(q, k, v, **kw)
+    qi = torch.arange(s, device="cuda")[:, None]
+    kj = torch.arange(s, device="cuda")[None, :]
+    mask = (kj <= qi) & (qi - kj < w)
+    pairs = int(mask.sum())
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    n_ops = 4 * h * pairs * d
+    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True))
+    plain = time_ms(lambda: ref.attention_ref(q, k, v, **kw))
+    default = fa.flash_attention(q, k, v, **kw)
+    for tile in fa.attention_tiles(BF16, d):
+        def run(tile=tile):
+            return fa.flash_attention(q, k, v, **kw, block_q=tile[0],
+                                      block_k=tile[1])
+        got = run()
+        check(fa.flash_attention.last_kernel == fa.TC_KERNEL,
+              f"K1 D 80 {tile} ran {fa.flash_attention.last_kernel}")
+        err = compare(got, want, BF16)
+        same = bool(torch.equal(got, default))
+        times = {"ms": time_ms(run), "plain_ms": plain,
+                 "library_ms": library}
+        r = row(f"flash_attention[D80 {tile[0]}x{tile[1]}]", SOURCE,
+                f"{FLASH}:106", err, n_bytes, n_ops, times)
+        r.update(shape="h2o-danube prefill S=4608 window 4096",
+                 tile=list(tile))
+        rows.append(r)
+        lines.append(f"K1 {tile}: {fmt_times(times)}, bound "
+                     f"{r['bound_ms']:.5f} ms ({r['bound_by']}), err "
+                     f"{err:.2e}" + ("" if same else ", NOT bit-equal to "
+                                     "64x64"))
+    del want, mask
+    # K2: 4 lanes over ring strips of 4096 slots
+    b = 4
+    kv_len = torch.tensor([w, w, 2000, 3000], dtype=torch.int32,
+                          device="cuda")
+    q = randn((b, h, 1, d), 3110, BF16)
+    k = randn((b, hkv, w, d), 3111, BF16)
+    v = randn((b, hkv, w, d), 3112, BF16)
+    want = ref.decode_ref(q, k, v, kv_len)
+    dmask = (torch.arange(w, device="cuda")[None, :]
+             < kv_len[:, None])[:, None, None, :]
+    keys = int(kv_len.sum())
+    n_bytes = 2 * (2 * keys * hkv * d + 2 * b * h * d) + 4 * b
+    n_ops = 4 * h * keys * d
+    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=dmask, enable_gqa=True))
+    plain = time_ms(lambda: ref.decode_ref(q, k, v, kv_len))
+    c = pa.cluster_size(b, hkv, pa.sm_count(0))
+    for bk in pa.decode_block_ks(BF16, d):
+        def run(bk=bk):
+            return fa.flash_decode(q, k, v, kv_len, block_k=bk)
+        got = run()
+        check(fa.flash_decode.last_kernel == pa.DECODE_TC_KERNEL,
+              f"K2 D 80 {bk} ran {fa.flash_decode.last_kernel}")
+        err = compare(got, want, BF16)
+        times = {"ms": time_ms(run), "plain_ms": plain,
+                 "library_ms": library}
+        r = row(f"flash_decode[D80 {bk}]", DECODE_SOURCE, f"{FLASH}:203",
+                err, n_bytes, n_ops, times)
+        r.update(shape="h2o-danube decode B=4 ring 4096", tile=[bk])
+        rows.append(r)
+        lines.append(f"K2 block_k {bk} (c={c}): {fmt_times(times)}, bound "
+                     f"{r['bound_ms']:.5f} ms ({r['bound_by']}), err "
+                     f"{err:.2e}")
+    infos = []
+    for tile in fa.attention_tiles(BF16, d):
+        info = fa.tc_info(d, *tile)
+        infos.append(f"K1 {tile[0]}x{tile[1]}: {info['registers']} "
+                     f"registers, {info['local_bytes']} B local, "
+                     f"{info['smem_bytes']} B shared, "
+                     f"{info['blocks_per_sm']} block(s)/SM")
+    for bk in pa.decode_block_ks(BF16, d):
+        info = pa.decode_tc_info(d, "bf16 dense", block_k=bk)
+        infos.append(f"K2 block_k {bk}: {info['registers']} registers, "
+                     f"{info['local_bytes']} B local, {info['smem_bytes']} B "
+                     f"shared, {info['blocks_per_sm']} CTA(s)/SM, clusters "
+                     f"held at once {info['clusters']}")
+    print(f"[31 h2o-danube kernels] D 80 (32 q / 8 kv heads, G 4, window "
+          f"{w}) against plain (tol {TOL[BF16]}), device ms (ms per call "
+          f"incl. host) on {smi}: " + "; ".join(lines)
+          + "; instances: " + "; ".join(infos))
+    return rows
+
+
+def danube_logits(model, params) -> None:
+    """Kernels against plain at h2o-danube's full config: a prompt of 4094
+    tokens and 4 decode steps (slots 4094, 4095, then 0 and 1 of the
+    ring), and one of 4200 (prefill keeps its last 4096 keys, rolled)."""
+    lines = []
+    for plen in (4094, 4200):
+        plain, kern = dense_logits(model, params, plen, DANUBE_MAX_LEN)
+        lines.append(f"prompt {plen} + 4 decode steps: "
+                     + check_logits(plain, kern, model.cfg.padded_vocab,
+                                    f"h2o-danube logits ({plen})"))
+    print(f"[31 logits] {DANUBE} full, free-running: " + "; ".join(lines))
+
+
+def danube_serve(model, params, smi: str) -> dict[str, int]:
+    """The dense serve of h2o-danube: 8 requests of DANUBE_PROMPTS tokens,
+    32 new each, over 4 lanes of ring strips (4096 slots); every request
+    finishes with its 32 tokens, and the counters show K1 once a layer an
+    admission and K2 once a layer a tick, on the tensor-core and cluster
+    kernels, at the default tiles, and nothing else."""
+    n_layers = model.cfg.n_layers
+    gen = np.random.default_rng(31)
+    engine = ServingEngine(model, params, n_lanes=4, max_len=DANUBE_MAX_LEN)
+    check(engine.kv.caches["kv"][0].shape[3] == model.cfg.window,
+          f"h2o-danube's strips hold {engine.kv.caches['kv'][0].shape[3]} "
+          "slots, not the window's")
+    at.clear_published()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    for kernel in (fa.flash_attention, fa.flash_decode):
+        kernel.by_tile.clear()
+    with kernels_by_route(ops, "flash_decode") as k2_routes:
+        for rid, plen in enumerate(DANUBE_PROMPTS):
+            prompt = gen.integers(0, model.cfg.vocab_size, plen).tolist()
+            engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=32))
+        t0 = time.perf_counter()
+        finished = engine.run(max_steps=len(DANUBE_PROMPTS) * 40)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in KERNELS}
+    check(len(finished) == len(DANUBE_PROMPTS)
+          and all(len(r.out_tokens) == 32 for r in finished),
+          f"h2o-danube serve: {len(finished)} requests finished")
+    only_launched(launches, (fa.flash_attention, fa.flash_decode),
+                  "h2o-danube dense")
+    ticks = engine.steps
+    summary = engine.metrics.summary()
+    check(launches["flash_attention"] == n_layers * len(DANUBE_PROMPTS)
+          and dict(fa.flash_attention.by_tile) == {
+              fa.TC_DEFAULT_TILE: launches["flash_attention"]}
+          and fa.flash_attention.last_kernel == fa.TC_KERNEL,
+          f"h2o-danube: K1 launched {launches['flash_attention']} times, by "
+          f"tile {dict(fa.flash_attention.by_tile)}")
+    check(launches["flash_decode"] == n_layers * ticks
+          and dict(fa.flash_decode.by_tile) == {
+              pa.DECODE_TILE_KEYS: launches["flash_decode"]}
+          and dict(k2_routes) == {pa.DECODE_TC_KERNEL:
+                                  launches["flash_decode"]},
+          f"h2o-danube: K2 launched {launches['flash_decode']} times in "
+          f"{ticks} ticks, by kernel {dict(k2_routes)}")
+    crossed = sum(1 for p in DANUBE_PROMPTS if p < model.cfg.window
+                  < p + 32)
+    rolled = sum(1 for p in DANUBE_PROMPTS if p > model.cfg.window)
+    gen_tokens = sum(len(r.out_tokens) for r in finished)
+    print(f"[31 serve] {DANUBE} full (24 layers, d_model 2560, 32 q / 8 kv "
+          f"heads, G 4, D 80, window {model.cfg.window}) on {smi}: dense "
+          f"lanes of {model.cfg.window}-slot rings, prompts "
+          f"{list(DANUBE_PROMPTS)} ({rolled} rolled at prefill, {crossed} "
+          f"wrapping in decode), 32 new tokens each, 4 lanes: "
+          f"{gen_tokens} tokens in {wall:.3f}s = {gen_tokens / wall:.1f} "
+          f"tok/s, {ticks} ticks, p50 ttft {summary['ttft_s']['p50']:.4f}s, p50 itl "
+          f"{summary['itl_s']['p50']:.4f}s, launches "
+          f"{ {k: n for k, n in launches.items() if n} }, K1 by tile "
+          f"{dict(fa.flash_attention.by_tile)}, K2 by tile "
+          f"{dict(fa.flash_decode.by_tile)}, K2 by kernel {dict(k2_routes)}")
+    return {"flash_attention": launches["flash_attention"],
+            "flash_decode": launches["flash_decode"], "ticks": ticks}
+
+
+def phase_danube(smi: str) -> list[dict]:
+    """Phase 31: h2o-danube-1.8b whole at published widths (random bf16
+    weights from seed 0): K1 and K2 at D 80 against plain and timed, the
+    dense serve that wraps the ring in prefill and in decode, its logits
+    against plain, and the paged pool refused as in the JAX package."""
+    t0 = time.perf_counter()
+    rows = danube_kernel_rows(smi)
+    cfg = get_arch(DANUBE)
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    print(f"[31 h2o-danube] {cfg.param_count() / 1e9:.2f} B parameters, "
+          f"whole (24 layers, nothing cut)")
+    counts = danube_serve(model, params, smi)
+    for r in rows:
+        r["launches"] = counts[r["name"].split("[")[0]] if r["tile"] in (
+            list(fa.TC_DEFAULT_TILE), [pa.DECODE_TILE_KEYS]) else 0
+    danube_logits(model, params)
+    try:
+        ServingEngine(model, params, n_lanes=4, max_len=DANUBE_MAX_LEN,
+                      cache="paged", page_size=16, prefill_chunk=128)
+    except ValueError as e:
+        check("paged" in str(e), f"the paged refusal does not say paged: {e}")
+        refusal = str(e)
+    else:
+        raise RuntimeError("chip_smoke check failed: h2o-danube served "
+                           "from the paged pool")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[31 h2o-danube] --cache paged raises ValueError: {refusal!r}; "
+          f"phase 31 in {time.perf_counter() - t0:.1f}s")
+    return rows
 
 
 def main() -> int:
@@ -3882,8 +4207,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    marks = [("start", t0)]
+
+    def done(phases: str) -> None:
+        marks.append((phases, time.perf_counter()))
+
     smi = phase_card()
     phase_build()
+    done("1-2")
     k1_row, k1_sweep = phase_k1()
     rows = [k1_row, phase_k2()]
     dense, launches = phase_serve(smi)
@@ -3907,12 +4238,14 @@ def main() -> int:
     phase_verify_logits(model, params)
     del model, params
     torch.cuda.empty_cache()
+    done("3-18")
     sample = load_example("autotune_fdm_torch")
     mm_row, mm_sweep = phase_k8()
     rows += [mm_row, phase_k7(sample)]
     install_launches, winner = phase_install(smi, sample, k1_sweep)
     launches.update(install_launches)
     mm_row["ms"] = mm_sweep[winner]     # the tile the install path published
+    done("19-21")
     k9_row, k9_sweep = phase_k9()
     rows.append(k9_row)
     launches["selective_scan"] = phase_fm_serve(smi)
@@ -3923,15 +4256,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     chunk = phase_ssm_install(smi, k9_sweep)
     k9_row["ms"] = k9_sweep[chunk]      # the chunk the install path published
+    done("22-25")
     check(len(rows) == 14, f"{len(rows)} kernel rows, expected 14")
     for row in rows:
         row["launches"] = launches[row["name"]]
     phase_gateway(smi, paged, spec_a)
+    done("26")
     phase_autotune(smi, paged, spec_a)
+    done("27")
     rows += phase_phi4(smi)
+    done("28")
     check(len(rows) == 22, f"{len(rows)} kernel rows, expected 22")
     phase_moonshot(smi)
-    print(f"[done] phases 1-29 in {time.perf_counter() - t0:.1f}s")
+    done("29")
+    rows += phase_llama4(smi)
+    done("30")
+    check(len(rows) == 30, f"{len(rows)} kernel rows, expected 30")
+    rows += phase_danube(smi)
+    done("31")
+    check(len(rows) == 36, f"{len(rows)} kernel rows, expected 36")
+    print(f"[done] phases 1-31 in {time.perf_counter() - t0:.1f}s; by phase "
+          + ", ".join(f"{label} {t - marks[i][1]:.1f}s"
+                      for i, (label, t) in enumerate(marks[1:])))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,13 +69,18 @@
 //    memory, so a block can hold more rows per copied key tile, and TMA.
 //    The tile is the install-time AT's FlashBlocks region (block_q query
 //    rows x block_k keys, tuning/install.py): 64 x 64 by default, and at
-//    D = 128 also 64 x 128, 128 x 64 and 128 x 128.  block_q sets the
+//    D = 128 and D = 80 also 64 x 128, 128 x 64 and 128 x 128.  block_q sets the
 //    warps of a block (BM / 16) and so how many query rows share each
 //    copied K/V tile; block_k the keys of one copy (a ring stage), walked
 //    in 64-key softmax steps, so every tile takes the same steps in the
 //    same order and gives the same bits.  Shared memory at D = 128: 87,
 //    157, 104 and 174 KB (Smem); the 128-key tiles fit one block an SM,
 //    and so do the 128-row ones (8 warps of ~210 registers).
+//    D = 80 (h2o-danube-1.8b) is the same body: 5 k-steps of m16n8k16 for
+//    S, 10 n-tiles of 8 for P.V (5 ldmatrix.x4.trans pairs), rows of 88
+//    bf16 (176 bytes: 10 cp.async chunks, 16-byte aligned, and 8 rows of
+//    an ldmatrix fall in distinct bank quads), 56, 101, 68 and 113 KB of
+//    shared memory at the four tiles.
 //  * K1 float32 (flash_attention_kernel): SIMT fp32, one block of 4 warps
 //    per (batch, head, 64-row query tile); K/V tiles of 32 keys staged in
 //    shared memory as fp32 (lane j of a warp owns key j of the tile, so
@@ -699,13 +704,14 @@ using Int = std::integral_constant<int, N>;
 
 // f(Int<BM>, Int<BN>) for the instantiated K1 tile of bm query rows and
 // bn keys at head dim D, else cudaErrorInvalidValue: rows 64 and 128 by
-// keys 64 and 128 at D = 128 (the head dim of every arch the card
-// serves), the default 64 x 64 at the other head dims.
+// keys 64 and 128 at the head dims of the archs the card serves, 128 and
+// h2o-danube-1.8b's 80 (ops.attention hands K1 the tile FlashBlocks
+// published whatever the head dim), the default 64 x 64 at the others.
 template <int D, typename F>
 cudaError_t k1_with_tile(int bm, int bn, F&& f) {
   if (bm == k1tc::DEFAULT_BM && bn == k1tc::DEFAULT_BN)
     return f(Int<k1tc::DEFAULT_BM>{}, Int<k1tc::DEFAULT_BN>{});
-  if constexpr (D == 128) {
+  if constexpr (D == 128 || D == 80) {
     if ((bm == 64 || bm == 128) && (bn == 64 || bn == 128)) {
       auto keys = [&](auto rows) {
         return bn == 64 ? f(rows, Int<64>{}) : f(rows, Int<128>{});
@@ -742,13 +748,15 @@ cudaError_t attention_tc_info(int* out) {
                        k1tc::Smem<D, BM, BN>::bytes, out);
 }
 
-// f(Int<D>) for the head dims the kernels are built for
+// f(Int<D>) for the head dims K1 is built for: 80 is h2o-danube-1.8b's
+// (the float32 K2 has no D 80: see decode_by_dim)
 template <typename F>
 cudaError_t with_dim(int d, F&& f) {
   switch (d) {
     case 16: return f(Int<16>{});
     case 32: return f(Int<32>{});
     case 64: return f(Int<64>{});
+    case 80: return f(Int<80>{});
     case 128: return f(Int<128>{});
     default: return cudaErrorInvalidValue;
   }
@@ -777,6 +785,10 @@ cudaError_t attention_by_dim(const void* q, const void* k, const void* v,
   });
 }
 
+// The float32 K2 at the head dims of paged_attention.cu's kernels: a lane
+// owns D / 32 contiguous columns of a V row (NC), which at D = 80 would
+// not split the row into 32 whole runs, so D 80 has no instance here (the
+// bf16 K2, paged_decode.cu's dense mode, has one)
 template <typename T>
 cudaError_t decode_by_dim(const void* q, const void* k, const void* v,
                           const int* kv_len, void* o, int B, int H, int Hkv,

@@ -67,6 +67,11 @@
 // The key tile BN is a template parameter, the run-time AT's block_k
 // (tuning/dynamic.py's DecodeBucket regions, KVPrecision): 64 keys (the
 // default: 4 warps of 16 keys), and at D = 128 also 32 (2 warps of 16).
+// D = 80 (h2o-danube-1.8b) has the DENSE mode (K2) alone, at both tiles:
+// its sliding window keeps a ring of 4096 slots a lane in a dense strip
+// and never pages.  The body takes it as it is: 5 k-steps of m16n8k16 for
+// S, 10 n-tiles for P.V, rows of 176 bytes (10 cp.async chunks), 20 float4
+// columns a row in the merge.
 // A warp is one key group with its own online
 // softmax, so the tile sets where the fp32 sums and P's bf16 rounding
 // fall, and the rank and split rules cut the lane's live BN-key tiles.
@@ -631,26 +636,36 @@ using Int = std::integral_constant<int, N>;
 
 // f(Int<BN>) for the instantiated key tile bn of head dim D, else
 // cudaErrorInvalidValue: 32 and 64 keys at D = 128 (the head dim of
-// every arch the card serves), 64 at the other head dims (their builds
-// stay one instance a mode).  No 128-key tile: its ring (213 KB of bf16
-// shared memory) leaves one CTA an SM, and it won in no mode of
-// chip_smoke.py's tile sweep.
+// every paged arch the card serves) and at D = 80 (K2's, the dense mode
+// only: flash_decode hands it the tile DecodeBucket published whatever
+// the head dim), 64 at the other head dims (their builds stay one
+// instance a mode).  No 128-key tile: its ring (213 KB of bf16 shared
+// memory) leaves one CTA an SM, and it won in no mode of chip_smoke.py's
+// tile sweep.
 template <int D, typename F>
 cudaError_t with_tile(int bn, F&& f) {
   if (bn == DEFAULT_BN) return f(Int<DEFAULT_BN>{});
-  if constexpr (D == 128) {
+  if constexpr (D == 128 || D == 80) {
     if (bn == 32) return f(Int<32>{});
   }
   return cudaErrorInvalidValue;
 }
 
-// f(Int<D>) for the head dims the kernel is built for
-template <typename F>
+// the head dims with instances of every mode; D = 80 (h2o-danube-1.8b,
+// whose sliding window serves from dense lanes and never pages) has the
+// DENSE mode (K2) only
+constexpr bool paged_dim(int d) { return d != 80; }
+
+// f(Int<D>) for the head dims the kernel is built for in mode MODE
+template <int MODE, typename F>
 cudaError_t with_dim(int d, F&& f) {
   switch (d) {
     case 16: return f(Int<16>{});
     case 32: return f(Int<32>{});
     case 64: return f(Int<64>{});
+    case 80:
+      if constexpr (MODE == DENSE) return f(Int<80>{});
+      else return cudaErrorInvalidValue;
     case 128: return f(Int<128>{});
     default: return cudaErrorInvalidValue;
   }
@@ -711,7 +726,7 @@ cudaError_t launch(const Args& a) {
 
 template <typename S, int MODE>
 cudaError_t by_dim(const Args& a) {
-  return with_dim(a.D, [&](auto d) {
+  return with_dim<MODE>(a.D, [&](auto d) {
     return with_tile<decltype(d)::value>(a.bn, [&](auto t) {
       return launch<S, decltype(d)::value, MODE, decltype(t)::value>(a);
     });
@@ -739,13 +754,18 @@ cudaError_t info(int nblk, int* out) {
 
 template <int D, int BN>
 cudaError_t info_by_kind(int kind, int nblk, int* out) {
-  switch (kind) {
-    case 0: return info<__nv_bfloat16, D, PAGED, BN>(nblk, out);
-    case 1: return info<int8_t, D, PAGED, BN>(nblk, out);
-    case 2: return info<__nv_bfloat16, D, DENSE, BN>(nblk, out);
-    case 3: return info<__nv_bfloat16, D, PARTIALS, BN>(nblk, out);
-    case 4: return info<int8_t, D, PARTIALS, BN>(nblk, out);
-    default: return cudaErrorInvalidValue;
+  if constexpr (!paged_dim(D)) {
+    if (kind != 2) return cudaErrorInvalidValue;
+    return info<__nv_bfloat16, D, DENSE, BN>(nblk, out);
+  } else {
+    switch (kind) {
+      case 0: return info<__nv_bfloat16, D, PAGED, BN>(nblk, out);
+      case 1: return info<int8_t, D, PAGED, BN>(nblk, out);
+      case 2: return info<__nv_bfloat16, D, DENSE, BN>(nblk, out);
+      case 3: return info<__nv_bfloat16, D, PARTIALS, BN>(nblk, out);
+      case 4: return info<int8_t, D, PARTIALS, BN>(nblk, out);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -890,7 +910,7 @@ extern "C" int repro_paged_decode_split_quant_merged_tc(
 // and the clusters of 1, 2, 4 and 8 CTAs the card holds at once.
 extern "C" int repro_paged_decode_tc_info(int D, int kind, int nblk,
                                           int block_k, int* out) {
-  return with_dim(D, [&](auto d) {
+  return with_dim<DENSE>(D, [&](auto d) {
     return with_tile<decltype(d)::value>(block_k, [&](auto t) {
       return info_by_kind<decltype(d)::value, decltype(t)::value>(
           kind, nblk, out);

@@ -102,11 +102,12 @@
 // The tile is a pair of template parameters, the run-time AT's block_q x G
 // query rows and block_k keys (tuning/dynamic.py's PrefillBucket and
 // SpecBucket regions): 32 rows and 128 keys by default, the design above;
-// at D = 128 also rows 16, 48 and 64 and keys 64 (see Tile).  The tile sets
-// the grid (query tiles x splits), the key groups whose online softmax
-// states merge at the end, and the split partition.  G need not be a
-// power of two: the 48-row tile holds 16 chunk rows of phi4-mini's G = 3
-// heads, the fold's row r being chunk row r / G of head r % G.
+// at D = 128 also rows 16, 48, 64 and 80 and keys 64 (see Tile).  The tile
+// sets the grid (query tiles x splits), the key groups whose online
+// softmax states merge at the end, and the split partition.  G need not be
+// a power of two: the 48-row tile holds 16 chunk rows of phi4-mini's G = 3
+// heads and the 80-row tile 16 of llama4-scout's G = 5, the fold's row r
+// being chunk row r / G of head r % G.
 // Left for later: wgmma and TMA.
 
 #include "mma.cuh"
@@ -122,15 +123,27 @@ constexpr int DEFAULT_BN = 128;   // and 128 keys
 // x G and block_k): BM = 16 SLABS query rows and BN keys per K/V tile.
 // The warps of a block: SLABS 16-row mma slabs times KGROUPS key groups,
 // group kg taking keys kg * KN .. kg * KN + KN - 1 of every K/V tile; 4
-// groups up to 2 slabs (128 or 256 threads), 2 from 3 slabs (192 or 256),
-// so that a block stays at most 8 warps and a thread's registers (its
-// slab's acc, 64 fp32 at D = 128) stay under the 255 that 256 threads may
-// hold (3 slabs by 4 groups would be 384 threads, 170 registers each).
+// groups up to 2 slabs (128 or 256 threads), 2 from 3 slabs (192, 256 or
+// 320), so that a block stays at most 10 warps and a thread's registers
+// (its slab's acc, 64 fp32 at D = 128) stay under the 255 that 256
+// threads may hold (3 slabs by 4 groups would be 384 threads, 170
+// registers each).
 // BOUND is the launch bound's thread count: THREADS, but 256 for 3 slabs,
 // whose 6-warp block ptxas otherwise squeezes under the 170 registers of
 // two blocks an SM at the cost of a spill (bf16 partials at 64 keys: 168
 // registers, 4 bytes); with the 8-warp bound of 4 slabs it keeps every
 // register it needs and runs one block an SM, as the 4-slab tile does.
+// The 5-slab tile (80 rows: llama4-scout's 16 chunk rows at G 5) has 10
+// warps, 320 threads, its bound its own thread count.  The card allocates
+// registers to a block's warps in groups of 4, so 10 warps hold what 12
+// would: 168 registers a thread (65,536 / 384, rounded down to 8), where
+// the 8-warp tiles take 208-210 at 128 keys.  A warp of the 5-slab tile
+// therefore walks its 64 keys of a 128-key tile in four 16-key softmax
+// steps (KS), in a loop kept rolled so that the steps reuse one set of
+// registers: 152-168 registers and no spill, where one 64-key step
+// spilled 4-84 bytes and 32-key steps 12 (the int8 partials instance).
+// At 64 keys (one 32-key step a warp) the tile keeps its 167-168
+// registers without a spill.
 template <int SLABS_, int BN_>
 struct Tile {
   static constexpr int SLABS = SLABS_;
@@ -141,6 +154,10 @@ struct Tile {
   static constexpr int THREADS = NWARPS * 32;
   static constexpr int BOUND = SLABS == 3 ? 256 : THREADS;
   static constexpr int KN = BN / KGROUPS;
+  // keys of one online-softmax step of a warp: its KN keys of the tile at
+  // once, but 16 for the 10-warp 5-slab tile at 128 keys, which holds 168
+  // registers a thread (see above) where a 64-key step needs ~210
+  static constexpr int KS = SLABS == 5 && KN > 32 ? 16 : KN;
 };
 
 // Dynamic shared memory of one block, in bytes: the Q tile (bf16 rows of
@@ -213,10 +230,12 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KV_ROW = L::KV_ROW;
   constexpr int CPR = D * (int)sizeof(S) / 16;  // 16-byte copies per K/V row
   constexpr int QCPR = D * 2 / 16;              // and per q row
-  constexpr int NT = KN / 8;                    // 8-key column tiles of S
+  constexpr int KS = T::KS;                     // keys of a softmax step
+  constexpr int NT = KS / 8;                    // 8-key column tiles of S
   constexpr int DT = D / 8;                     // 8-wide column tiles of O
   constexpr int KT = D / 16;                    // 16-deep steps of QK^T
-  static_assert(THREADS >= BN && D % 16 == 0 && KN % 16 == 0, "tile shape");
+  static_assert(THREADS >= BN && D % 16 == 0 && KS % 16 == 0 &&
+                KN % KS == 0, "tile shape");
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -363,96 +382,101 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
               qf[kk]);
     }
 
-    // S = Q K^T for the slab's 16 rows and the warp's KN keys
-    float s[NT][4];
+    // the warp's KN keys of the tile in steps of KS keys: S = Q K^T for
+    // the slab's 16 rows and the step's keys
+#pragma unroll 1
+    for (int st = 0; st < KN / KS; ++st) {
+      const int kb = kg * KN + st * KS;     // the step's first key of the tile
+      float s[NT][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
+      for (int kk = 0; kk < KT; ++kk) {
 #pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bk[4];
-        const int key = kg * KN + np * 16 + (lane & 7) + ((lane >> 4) << 3);
-        const int col = kk * 16 + (((lane >> 3) & 1) << 3);
-        ldsm4(smem_addr(kt + key * ROW + col), bk);
-        mma16816(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-      }
-    }
-
-    // scale (and key scales), mask, online softmax in fp32
-    const int k0 = t * BN + kg * KN;      // the warp's first key
-    const bool need_mask = k0 + KN > len || k0 + KN - 1 > warp_pos;
-    const float* ksc_t = ks_ring + stage * BN + kg * KN;
-    const float* vsc_t = vs_ring + stage * BN + kg * KN;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = n * 8 + 2 * t4 + (e & 1);
-        float x = s[n][e];
-        if constexpr (QUANT) x *= ksc_t[j];
-        x *= scale_log2;
-        if (need_mask) {
-          const int key = k0 + j;
-          if (key >= len || key > (e < 2 ? pos0 : pos1)) x = kNegInf;
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bk[4];
+          const int key = kb + np * 16 + (lane & 7) + ((lane >> 4) << 3);
+          const int col = kk * 16 + (((lane >> 3) & 1) << 3);
+          ldsm4(smem_addr(kt + key * ROW + col), bk);
+          mma16816(s[2 * np], qf[kk], bk[0], bk[1]);
+          mma16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
         }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-      // a row that has seen no key of its group yet keeps m = -1e30 and
-      // subtracts 0, so its masked keys weigh exp2(-1e30) = 0, not 1
-      const float m_use = mx[r] == kNegInf ? 0.f : mx[r];
-      const float alpha = exp2f(m[r] - m_use);
-      m[r] = mx[r];
-      mx[r] = m_use;
-      l[r] *= alpha;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        acc[dt][2 * r] *= alpha;
-        acc[dt][2 * r + 1] *= alpha;
-      }
-    }
 
-    // P in bf16 as the A operand of P.V (value scales folded in first)
-    uint32_t pa[NT / 2][4];
+      // scale (and key scales), mask, online softmax in fp32
+      const int k0 = t * BN + kb;           // the step's first key
+      const bool need_mask = k0 + KS > len || k0 + KS - 1 > warp_pos;
+      const float* ksc_t = ks_ring + stage * BN + kb;
+      const float* vsc_t = vs_ring + stage * BN + kb;
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      float p0 = exp2f(s[n][0] - mx[0]);
-      float p1 = exp2f(s[n][1] - mx[0]);
-      float p2 = exp2f(s[n][2] - mx[1]);
-      float p3 = exp2f(s[n][3] - mx[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      if constexpr (QUANT) {
-        const float v0 = vsc_t[n * 8 + 2 * t4];
-        const float v1 = vsc_t[n * 8 + 2 * t4 + 1];
-        p0 *= v0;
-        p1 *= v1;
-        p2 *= v0;
-        p3 *= v1;
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = n * 8 + 2 * t4 + (e & 1);
+          float x = s[n][e];
+          if constexpr (QUANT) x *= ksc_t[j];
+          x *= scale_log2;
+          if (need_mask) {
+            const int key = k0 + j;
+            if (key >= len || key > (e < 2 ? pos0 : pos1)) x = kNegInf;
+          }
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
       }
-      pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
-      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        // a row that has seen no key of its group yet keeps m = -1e30 and
+        // subtracts 0, so its masked keys weigh exp2(-1e30) = 0, not 1
+        const float m_use = mx[r] == kNegInf ? 0.f : mx[r];
+        const float alpha = exp2f(m[r] - m_use);
+        m[r] = mx[r];
+        mx[r] = m_use;
+        l[r] *= alpha;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          acc[dt][2 * r] *= alpha;
+          acc[dt][2 * r + 1] *= alpha;
+        }
+      }
 
-    // O += P V
+      // P in bf16 as the A operand of P.V (value scales folded in first)
+      uint32_t pa[NT / 2][4];
 #pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
+      for (int n = 0; n < NT; ++n) {
+        float p0 = exp2f(s[n][0] - mx[0]);
+        float p1 = exp2f(s[n][1] - mx[0]);
+        float p2 = exp2f(s[n][2] - mx[1]);
+        float p3 = exp2f(s[n][3] - mx[1]);
+        l[0] += p0 + p1;
+        l[1] += p2 + p3;
+        if constexpr (QUANT) {
+          const float v0 = vsc_t[n * 8 + 2 * t4];
+          const float v1 = vsc_t[n * 8 + 2 * t4 + 1];
+          p0 *= v0;
+          p1 *= v1;
+          p2 *= v0;
+          p3 *= v1;
+        }
+        pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
+        pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+
+      // O += P V
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bv[4];
-        const int key = kg * KN + kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-        const int col = dp * 16 + ((lane >> 4) << 3);
-        ldsm4_trans(smem_addr(vt + key * ROW + col), bv);
-        mma16816(acc[2 * dp], pa[kk], bv[0], bv[1]);
-        mma16816(acc[2 * dp + 1], pa[kk], bv[2], bv[3]);
+      for (int kk = 0; kk < NT / 2; ++kk) {
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bv[4];
+          const int key = kb + kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+          const int col = dp * 16 + ((lane >> 4) << 3);
+          ldsm4_trans(smem_addr(vt + key * ROW + col), bv);
+          mma16816(acc[2 * dp], pa[kk], bv[0], bv[1]);
+          mma16816(acc[2 * dp + 1], pa[kk], bv[2], bv[3]);
+        }
       }
     }
   }
@@ -582,9 +606,12 @@ template <int N>
 using Int = std::integral_constant<int, N>;
 
 // f(Int<SLABS>, Int<BN>) for the instantiated tile of bm query rows and bn
-// keys at head dim D, else cudaErrorInvalidValue: rows 16, 32, 48 and 64
-// by keys 64 and 128 at D = 128 (the head dim of every arch the card
-// serves), the default 32 x 128 at the other head dims.
+// keys at head dim D, else cudaErrorInvalidValue: rows 16, 32, 48, 64 and
+// 80 by keys 64 and 128 at D = 128 (the head dim of every paged arch the
+// card serves), the default 32 x 128 at the other head dims.  Shared
+// memory at 80 rows (tc::Smem at 64 table entries): 91,648 B (bf16, 64
+// keys), 161,280 (bf16, 128), 94,720 (int8, 64) and 167,424 (int8, 128),
+// all under the 227 KB a block may hold.
 template <int D, typename F>
 cudaError_t with_tile(int bm, int bn, F&& f) {
   if (bm == 16 * DEFAULT_SLABS && bn == DEFAULT_BN)
@@ -598,6 +625,7 @@ cudaError_t with_tile(int bm, int bn, F&& f) {
       if (bm == 32) return keys(Int<2>{});
       if (bm == 48) return keys(Int<3>{});
       if (bm == 64) return keys(Int<4>{});
+      if (bm == 80) return keys(Int<5>{});
     }
   }
   return cudaErrorInvalidValue;

@@ -33,17 +33,27 @@ import torch
 
 from . import build
 
+#: head dims of the paged kernels (K3-K6: every arch they serve)
 HEAD_DIMS = (16, 32, 64, 128)
+#: head dims of K1 (both query types) and of the bf16 K2 (the cluster
+#: kernel's dense mode): the paged ones and h2o-danube-1.8b's 80, whose
+#: sliding window serves from dense lanes only (the float32 K2's SIMT
+#: template splits D into whole 32-lane column runs: not at 80)
+DENSE_HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the bf16 K1 kernel's name, as ``flash_attention.last_kernel`` gives it
 TC_KERNEL = "flash_attention_tc_kernel"
 #: the bf16 K1 tile of an untuned launch: (block_q, block_k)
 TC_DEFAULT_TILE = (64, 64)
-#: block_q and block_k of the bf16 K1 instances at head dim 128 (the head
-#: dim of every arch the card serves), any pair of them; the other head
-#: dims have TC_DEFAULT_TILE only.  ``FlashBlocks``' candidate values.
+#: block_q and block_k of the bf16 K1 instances at the head dims of
+#: TILED_HEAD_DIMS, any pair of them; the other head dims have
+#: TC_DEFAULT_TILE only.  ``FlashBlocks``' candidate values.
 TILE_VALUES = (64, 128)
+#: the head dims of the archs the card serves: 128, and h2o-danube's 80,
+#: which take every tile because ``ops.attention`` hands K1 the tile
+#: ``FlashBlocks`` published whatever the head dim
+TILED_HEAD_DIMS = (80, 128)
 #: the float32 SIMT template's one tile: query rows and keys
 SIMT_TILE = (64, 32)
 #: the float32 K2 kernel's name, as ``flash_decode.last_kernel`` gives it
@@ -64,6 +74,16 @@ def _lib() -> ctypes.CDLL:
     lib.repro_flash_attention_tc_info.argtypes = [_I, _I, _I, _P]
     lib.repro_flash_attention_tc_info.restype = _I
     return lib
+
+
+def head_dims(name: str, dtype: torch.dtype) -> tuple[int, ...]:
+    """The head dims the kernel of wrapper ``name`` has an instance for at
+    a query of ``dtype``: :data:`DENSE_HEAD_DIMS` for K1 and the bf16 K2,
+    :data:`HEAD_DIMS` for the float32 K2 and the paged kernels."""
+    if name == "flash_attention" or (name == "flash_decode"
+                                     and dtype == torch.bfloat16):
+        return DENSE_HEAD_DIMS
+    return HEAD_DIMS
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -90,8 +110,10 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    dims = head_dims(name, q.dtype)
+    if d not in dims:
+        raise ValueError(f"{name}: head dim {d} not in {dims}: no instance "
+                         f"for a {q.dtype} query")
     if h % k.shape[1]:
         raise ValueError(f"{name}: {h} query heads are not a multiple of "
                          f"{k.shape[1]} kv heads")
@@ -111,7 +133,7 @@ def attention_tiles(dtype: torch.dtype, d: int) -> tuple[tuple[int, int], ...]:
     of ``dtype`` at head dim ``d``."""
     if dtype != torch.bfloat16:
         return (SIMT_TILE,)
-    if d != 128:
+    if d not in TILED_HEAD_DIMS:
         return (TC_DEFAULT_TILE,)
     return tuple((bq, bk) for bq in TILE_VALUES for bk in TILE_VALUES)
 

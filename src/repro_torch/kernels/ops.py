@@ -26,6 +26,8 @@ import dataclasses
 import torch
 
 from .. import at
+from . import flash_attention as fa
+from . import paged_attention as pa
 from . import ref
 from .flash_attention import flash_attention, flash_decode
 from .matmul import matmul
@@ -34,13 +36,53 @@ from .paged_attention import (flash_paged_decode, flash_paged_decode_quant,
 from .ssm_scan import selective_scan
 
 
-def _tuned(key: str, names: tuple[str, ...], **explicit) -> dict:
+_TILE_KEYS = ("block_q", "block_k")
+
+
+def _tuned(key: str, names: tuple[str, ...], fits, **explicit) -> dict:
     """What ``at.tuned(key)`` publishes, updated by the explicit keyword
     arguments that are not None, filtered to the ``names`` the kernel
-    takes."""
+    takes.
+
+    ``at.tuned`` is shape-blind: a tile tuned for one model (yi-6b's
+    prefill block_q 4, a 32-row tile at G 8) stays published while the
+    process launches another (llama4-scout at G 5, where block_q 4 is a
+    20-row tile with no instance).  So a published tile is taken only if
+    ``fits(**tile)`` accepts it (the wrapper's tile check, which raises
+    ``ValueError`` for a tile with no instance at the launch's shape);
+    else the launch runs its default tile.  An explicit tile is always
+    handed on, and raises there if it has no instance."""
     kw = at.tuned(key)
+    tile = {k: kw.pop(k) for k in _TILE_KEYS if k in kw}
+    if tile:
+        try:
+            fits(**tile)
+        except ValueError:
+            tile = {}
+    kw.update(tile)
     kw.update({k: v for k, v in explicit.items() if v is not None})
     return {k: v for k, v in kw.items() if k in names}
+
+
+def _attention_fits(q: torch.Tensor):
+    """K1's tile check for a published tile (either value may be absent:
+    the default's is taken)."""
+    return lambda block_q=None, block_k=None: fa.attention_tile(
+        "flash_attention", q, block_q, block_k)
+
+
+def _decode_fits(name: str, q: torch.Tensor):
+    """The decode kernels' tile check for a published tile (``block_k``
+    alone; a published ``block_q`` is not theirs)."""
+    return lambda block_q=None, block_k=None: pa.decode_tile(name, q,
+                                                             block_k)
+
+
+def _prefill_fits(name: str, q: torch.Tensor, hkv: int):
+    """The prefill and verify kernels' tile check for a published tile
+    (either value may be absent: the default's is taken)."""
+    return lambda block_q=None, block_k=None: pa.prefill_tile(
+        name, q, hkv, block_q, block_k)
 
 
 def _use_kernel(x: torch.Tensor, use_kernel: bool | None) -> bool:
@@ -79,7 +121,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                causal=causal, window=window,
                                **_tuned("flash_attention",
                                         ("block_q", "block_k", "scale"),
-                                        **pps))
+                                        _attention_fits(q), **pps))
     return ref.attention_ref(q, k, v, causal=causal, window=window)
 
 
@@ -94,7 +136,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
         return flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
                             kv_len, **_tuned("flash_decode",
-                                             ("block_k", "scale"), **pps))
+                                             ("block_k", "scale"),
+                                             _decode_fits("flash_decode", q),
+                                             **pps))
     return ref.decode_ref(q, k, v, kv_len)
 
 
@@ -150,6 +194,7 @@ def paged_decode(q: torch.Tensor, pools: PagedPools, page_table: torch.Tensor,
         q, table = q.contiguous(), _int32(page_table, q.device)
         kv_len = _int32(kv_len, q.device)
         kw = _tuned("flash_paged_decode", ("block_k", "num_splits", "scale"),
+                    _decode_fits("flash_paged_decode", q),
                     num_splits=num_splits, **pps)
         if pools.quantized:
             return flash_paged_decode_quant(
@@ -177,6 +222,7 @@ def _paged_chunk(q: torch.Tensor, pools: PagedPools,
         args = (_int32(page_table, q.device), _int32(start, q.device),
                 _int32(kv_len, q.device))
         kw = _tuned(tuned_key, ("block_q", "block_k", "num_splits", "scale"),
+                    _prefill_fits(tuned_key, q, pools.k.shape[1]),
                     num_splits=num_splits, **pps)
         if pools.quantized:
             return flash_paged_prefill_quant(

@@ -77,8 +77,11 @@ Table entries past ``ceil(kv_len / psz)`` are never read and may point
 anywhere (page 0 by convention); entries below it must name pages of the
 pools.  The tensor-core kernel (K4, K5b, K6c and K6d with a bf16 query)
 takes a group size G = H / Hkv that gives it a row tile (at D 128: G a
-power of two up to 64, or G 3, 6 and 12 through the 48-row tile; at the
-other head dims G dividing 32); its wrappers raise otherwise.  The
+power of two up to 64, G 3, 6, 12 and 24 through the 48-row tile, or G
+5, 10, 20, 40 and 80 through the 80-row tile; at the other head dims G
+dividing 32); its wrappers raise otherwise.  Every paged kernel takes
+the head dims of :data:`HEAD_DIMS` only (D 80 is K1's and K2's: its one
+arch, h2o-danube-1.8b, has a sliding window and never pages).  The
 decode kernel of a bf16 query takes any G: its query rows come in 16-row
 slabs, one cluster each.
 The wrappers follow the contract of :mod:`.flash_attention`:
@@ -96,7 +99,8 @@ import functools
 import torch
 
 from . import build
-from .flash_attention import _DTYPES, HEAD_DIMS, _raise_on, _stream
+from .flash_attention import (_DTYPES, HEAD_DIMS, TILED_HEAD_DIMS, _raise_on,
+                              _stream)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -127,13 +131,16 @@ DECODE_SLAB_ROWS = 16
 #: the CTAs an SM holds at once of the decode kernel's D = 128 instances
 #: (``decode_tc_info``'s ``blocks_per_sm``, shared memory bound)
 DECODE_CTAS_PER_SM = 2
-#: the key tiles of the decode kernel's D = 128 instances (the head dim of
-#: every arch the card serves); other head dims have DECODE_TILE_KEYS only
+#: the key tiles of the decode kernel at the head dims of TILED_HEAD_DIMS:
+#: D 128 (the paged archs the card serves) and, in the dense mode (K2)
+#: alone, D 80 (h2o-danube-1.8b, dense lanes only); other head dims have
+#: DECODE_TILE_KEYS only
 DECODE_BLOCK_KS = (32, 64)
 #: the tensor-core prefill kernel's D = 128 instances: query rows (block_q
 #: x G) by keys; other head dims have TC_TILE_ROWS x TC_TILE_KEYS only.
-#: The 48-row tile (3 slabs) is phi4-mini's: 16 chunk rows at G 3.
-TC_ROW_TILES = (16, 32, 48, 64)
+#: The 48-row tile (3 slabs) is phi4-mini's: 16 chunk rows at G 3; the
+#: 80-row tile (5 slabs) llama4-scout's: 16 chunk rows at G 5.
+TC_ROW_TILES = (16, 32, 48, 64, 80)
 TC_BLOCK_KS = (64, 128)
 #: the one tile of the float32 SIMT templates: keys of the decode walk,
 #: chunk rows and keys of the prefill walk
@@ -143,10 +150,11 @@ SIMT_PREFILL_TILE = (64, 32)
 
 def decode_block_ks(dtype: torch.dtype, d: int) -> tuple[int, ...]:
     """The key tiles the decode kernels have an instance for, for a query
-    of ``dtype`` at head dim ``d``."""
+    of ``dtype`` at head dim ``d`` (at D 80 the dense mode's, K2: the
+    paged modes have no D 80 instance, :data:`HEAD_DIMS`)."""
     if dtype != torch.bfloat16:
         return (SIMT_DECODE_TILE_KEYS,)
-    return DECODE_BLOCK_KS if d == 128 else (DECODE_TILE_KEYS,)
+    return DECODE_BLOCK_KS if d in TILED_HEAD_DIMS else (DECODE_TILE_KEYS,)
 
 
 def prefill_tiles(dtype: torch.dtype, d: int,
@@ -155,7 +163,11 @@ def prefill_tiles(dtype: torch.dtype, d: int,
     query of ``dtype`` at head dim ``d`` and group size ``g``: a row tile
     of the tensor-core kernel holds ``block_q`` positions of all ``g``
     heads, and ``block_q`` is a power of two, as the JAX package's tiles
-    are (so the 48-row tile serves G 3 at block_q 16, not G 8 at 6)."""
+    are (so the 48-row tile serves G 3 at block_q 16, not G 8 at 6, and
+    the 80-row tile G 5 at 16, not G 8 at 10).  A head dim outside
+    :data:`HEAD_DIMS` has none: ((), ())."""
+    if d not in HEAD_DIMS:
+        return (), ()
     if dtype != torch.bfloat16:
         return (SIMT_PREFILL_TILE[0],), (SIMT_PREFILL_TILE[1],)
     rows = TC_ROW_TILES if d == 128 else (TC_TILE_ROWS,)
@@ -168,8 +180,8 @@ def default_block_q(d: int, g: int) -> int:
     """The ``block_q`` of an untuned bf16 prefill launch at head dim ``d``
     and group size ``g``: that of the largest row tile up to
     :data:`TC_TILE_ROWS` (32 // G for G 1, 2, 4, 8), else of the smallest
-    row tile ``g`` has (G 3: 16, the 48-row tile).  ``ValueError`` when
-    ``g`` has none."""
+    row tile ``g`` has (G 3: 16, the 48-row tile; G 5: 16, the 80-row
+    tile).  ``ValueError`` when ``g`` has none."""
     block_qs = prefill_tiles(torch.bfloat16, d, g)[0]
     if not block_qs:
         raise ValueError(f"group size {g} at head dim {d} has no row tile "
@@ -304,9 +316,11 @@ def check_tc_shape(name: str, h: int, hkv: int, d: int) -> None:
     head dim outside :data:`HEAD_DIMS`, or a group size G = H / Hkv that
     gives no row tile (:func:`prefill_tiles`: G must divide one of the
     kernel's row tiles at head dim ``d``, with ``block_q`` a power of
-    two)."""
+    two: G 1, 2, 4, 8, 16, 32, 64; 3, 6, 12 and 24 by the 48-row tile; 5,
+    10, 20, 40 and 80 by the 80-row tile)."""
     if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}: the "
+                         "paged kernels have no other instance")
     g = h // hkv if hkv and h % hkv == 0 else 0
     if g < 1 or not prefill_tiles(torch.bfloat16, d, g)[0]:
         rows = TC_ROW_TILES if d == 128 else (TC_TILE_ROWS,)
@@ -467,7 +481,8 @@ def _check(name: str, q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(k_pool.shape)} v_pool "
                          f"{tuple(v_pool.shape)} do not match")
     if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}: the "
+                         "paged kernels have no other instance")
     if h % k_pool.shape[1]:
         raise ValueError(f"{name}: {h} query heads are not a multiple of "
                          f"{k_pool.shape[1]} kv heads")

@@ -280,7 +280,9 @@ def tile_ladders(model, page_size: int) -> dict[str, tuple]:
     block_qs, prefill_ks = pa.prefill_tiles(dtype, cfg.head_dim,
                                             cfg.n_heads // cfg.n_kv_heads)
     decode_ks = page_block_ks(page_size, dense_ks)
-    prefill_ks = page_block_ks(page_size, prefill_ks)
+    # a head dim the paged kernels do not take (h2o-danube's 80: dense
+    # lanes only) has no prefill tile
+    prefill_ks = page_block_ks(page_size, prefill_ks) if prefill_ks else ()
     return {"dense_block_k": dense_ks, "block_k": decode_ks,
             "block_q": block_qs, "prefill_block_k": prefill_ks,
             # the calibration bench publishes one tile to both kernels
@@ -401,14 +403,16 @@ def serve_config(scfg: ServeConfig) -> dict:
         cfg = cfg.reduced()
     model = build_model(cfg)
     if not model.supports_paged_cache:
+        state = ("its sliding window's ring buffer" if cfg.window is not None
+                 else "recurrent SSM state")
         for flag, asked in (("--cache paged", scfg.cache == "paged"),
                             ("--draft", scfg.draft),
                             ("--prefix-cache", scfg.prefix_cache)):
             if asked:
                 raise ValueError(
                     f"{flag} needs the paged KV pool, which arch "
-                    f"{cfg.name!r} does not use: it keeps recurrent SSM "
-                    "state in dense lanes (serve it with --cache dense)")
+                    f"{cfg.name!r} does not use: it keeps {state} in dense "
+                    "lanes (serve it with --cache dense)")
     return serve_model(model, model.init(scfg.seed, dev), scfg)
 
 

@@ -4,7 +4,8 @@
   CUDA, the plain version on CPU), causal with an optional sliding
   window; returns the attention output and optionally the K/V it made.
 * ``decode(params, x, cache_k, cache_v, pos, cfg)`` — one new token per
-  sequence against its cache (kernel K2 on CUDA).
+  sequence against its cache (kernel K2 on CUDA); a sliding-window arch
+  keeps a ring buffer of ``window`` slots, as the JAX package does.
 * ``paged_decode`` / ``paged_prefill`` / ``paged_verify`` — one new
   token, one prompt chunk, or one speculative candidate chunk per
   sequence against page pools shared by every sequence (kernels K3 / K4
@@ -94,25 +95,25 @@ def full(p: dict, x: torch.Tensor, cfg: AttnConfig,
 def decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
            cache_v: torch.Tensor, pos: torch.Tensor, cfg: AttnConfig,
            use_kernel: bool | None = None):
-    """One-token decode.  x: (B, 1, d); caches (B, Hkv, S, Dh); ``pos`` (B,)
+    """One-token decode.  x: (B, 1, d); caches (B, Hkv, W, Dh); ``pos`` (B,)
     is the absolute position of the new token.  Returns (out, cache_k,
     cache_v).
 
-    The new token's K/V is written into the caches IN PLACE at slot
-    ``pos`` before the read (the JAX package returns updated copies), so
-    the returned caches are the tensors passed in.  Sliding-window ring
-    buffers are not ported (ROADMAP queue 1, item 8).
+    With a sliding window the caches are a ring buffer of W slots
+    (:func:`init_cache`): the new token goes to slot ``pos % W`` and the
+    attention reads ``min(pos + 1, W)`` keys; RoPE is applied at absolute
+    positions before caching, so the softmax over an unordered window is
+    exact.  The new token's K/V is written into the caches IN PLACE
+    before the read (the JAX package returns updated copies), so the
+    returned caches are the tensors passed in.
     """
-    if cfg.window is not None:
-        raise NotImplementedError(
-            "sliding-window decode (the ring-buffer cache) is not ported "
-            "yet: ROADMAP queue 1, item 8")
     b, one, _ = x.shape
     w = cache_k.shape[2]
     q, k, v = _project_qkv(p, x, cfg, pos[:, None])
+    slot = pos % w if cfg.window is not None else pos
     bidx = torch.arange(b, device=x.device)
-    cache_k[bidx, :, pos] = k[:, :, 0].to(cache_k.dtype)
-    cache_v[bidx, :, pos] = v[:, :, 0].to(cache_v.dtype)
+    cache_k[bidx, :, slot] = k[:, :, 0].to(cache_k.dtype)
+    cache_v[bidx, :, slot] = v[:, :, 0].to(cache_v.dtype)
     kv_len = torch.clamp(pos + 1, max=w).to(torch.int32)
     out = ops.decode_attention(q, cache_k, cache_v, kv_len,
                                use_kernel=use_kernel)
@@ -265,11 +266,10 @@ def init_paged_scales(n_pages: int, cfg: AttnConfig, page_size: int,
 def init_cache(batch: int, cfg: AttnConfig, max_len: int,
                dtype=torch.bfloat16, device="cpu",
                lead: tuple[int, ...] = ()):
-    """Zeroed K and V caches of shape lead + (batch, Hkv, max_len, Dh)."""
-    if cfg.window is not None:
-        raise NotImplementedError(
-            "sliding-window ring-buffer caches are not ported yet: "
-            "ROADMAP queue 1, item 8")
-    shape = lead + (batch, cfg.n_kv_heads, max_len, cfg.d_head)
+    """Zeroed K and V caches of shape lead + (batch, Hkv, W, Dh): W =
+    ``max_len``, or with a sliding window the ring buffer's ``min(max_len,
+    window)`` slots, O(window)."""
+    w = min(max_len, cfg.window) if cfg.window is not None else max_len
+    shape = lead + (batch, cfg.n_kv_heads, w, cfg.d_head)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))

@@ -61,8 +61,7 @@ def check_supported(cfg: ArchConfig) -> None:
     for what, unsupported in (
             ("the frontend stub", cfg.frontend != "none"),
             ("layer norm", cfg.norm != "rms"),
-            (f"activation {cfg.act!r}", cfg.act != "silu"),
-            ("sliding-window decode", cfg.window is not None)):
+            (f"activation {cfg.act!r}", cfg.act != "silu")):
         if unsupported:
             raise NotImplementedError(
                 f"{what} ({cfg.name}) is not ported yet: {_OTHER_FAMILIES}")
@@ -214,7 +213,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 device="cpu") -> dict:
     """Stacked per-layer decode state: for attention stacks KV caches
-    {"kv": (K, V)}, each (L, batch, Hkv, max_len, Dh) in ``cache_dtype``;
+    {"kv": (K, V)}, each (L, batch, Hkv, W, Dh) in ``cache_dtype``, W =
+    ``max_len`` or, with a sliding window, the ring buffer's
+    ``min(max_len, window)`` slots (:func:`attn.init_cache`);
     for ``mamba1`` {"ssm": {"conv": (L, batch, d_conv - 1, Di), "h": (L,
     batch, Di, N)}}, both float32 as in the JAX package (``max_len`` does
     not size it)."""
@@ -233,7 +234,8 @@ def decode_step(params: dict, caches: dict, token: torch.Tensor,
                 use_kernel: bool | None = None):
     """token (B, 1) int, pos (B,) int -> (logits (B, V), caches).
 
-    The caches are updated in place (slot ``pos`` of every layer, or every
+    The caches are updated in place (slot ``pos`` of every layer, ``pos %
+    window`` of a sliding-window ring buffer, or every
     Mamba-1 layer's conv and recurrent state, which ignore ``pos``) and
     returned."""
     check_supported(cfg)
@@ -267,10 +269,14 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
     ``max_len`` sizes the returned KV caches (>= prompt length; the
     positions past the prompt are zero) so decode steps have room to
-    append.  A ``mamba1`` stack returns each layer's final state instead,
-    {"ssm": {"conv": (L, B, d_conv - 1, Di) in compute dtype, "h": (L, B,
-    Di, N) float32}}, from one selective scan per layer (K9 on the card,
-    which returns the state itself)."""
+    append.  A sliding-window arch keeps only the prompt's last W keys, W
+    = ``min(max_len, window)``, in the ring buffer's layout (slot ``pos %
+    W``, as decode indexes it): rolled by ``(S - W) % W`` when the prompt
+    is longer than W, zero-padded when it is shorter.  A ``mamba1`` stack
+    returns each layer's final state instead, {"ssm": {"conv": (L, B,
+    d_conv - 1, Di) in compute dtype, "h": (L, B, Di, N) float32}}, from
+    one selective scan per layer (K9 on the card, which returns the state
+    itself)."""
     check_supported(cfg)
     x = embed_tokens(params, tokens, cfg)
     kind = cfg.layer_kinds()[0]
@@ -281,16 +287,28 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     max_len = max(max_len or s, s)
     caches = init_caches(cfg, b, max_len, device=x.device)
     ck, cv = caches["kv"]
+    w = ck.shape[3]
+    n = min(s, w)
     layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
     for i in range(cfg.n_layers):
         lp = _layer(layers, i)
         h, (k, v) = attn.full(lp["attn"], rms_norm(x, lp["norm1_w"]), acfg,
                               return_cache=True, use_kernel=use_kernel)
-        ck[i, :, :, :s] = k
-        cv[i, :, :, :s] = v
+        ck[i, :, :, :n] = _ring(k, w)
+        cv[i, :, :, :n] = _ring(v, w)
         x = x + h
         x = x + _ffn(lp, rms_norm(x, lp["norm2_w"]), cfg, kind)[0]
     return _logits(params, x[:, -1], cfg), caches
+
+
+def _ring(k: torch.Tensor, w: int) -> torch.Tensor:
+    """A prompt's keys (B, Hkv, S, Dh) as a cache of ``w`` slots holds
+    them: all S when they fit, else the last ``w`` at slot ``pos % w``
+    (the JAX package's ``kv_out``)."""
+    s = k.shape[2]
+    if s <= w:
+        return k
+    return torch.roll(k[:, :, s - w:], (s - w) % w, dims=2)
 
 
 def _prefill_mamba1(params: dict, x: torch.Tensor, cfg: ArchConfig,

@@ -166,6 +166,7 @@ K1_CASES = [
     ("G=1", 32, 32, 128, 512, True, None),
     ("G=3", 24, 8, 128, 300, True, None),
     ("G=8 D=64 non-causal window 32", 32, 4, 64, 200, False, 32),
+    ("h2o-danube D=80 S=300 window 128", 32, 8, 80, 300, True, 128),
 ]
 
 
@@ -211,10 +212,11 @@ K1_TILES = [(bq, bk) for bq in (64, 128) for bk in (64, 128)]
 
 
 @pytest.mark.parametrize("tile", K1_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
-@pytest.mark.parametrize("case", [c for c in K1_CASES if c[3] == 128],
+@pytest.mark.parametrize("case", [c for c in K1_CASES if c[3] in (80, 128)],
                          ids=lambda c: c[0])
 def test_k1_every_tile_against_plain_and_jax_kernel(case, tile):
-    """Each D = 128 instance (block_q 64 or 128 by block_k 64 or 128): the
+    """Each D = 128 and D = 80 instance (block_q 64 or 128 by block_k 64
+    or 128): the
     emulation within the bf16 tolerance of ``ref.attention_ref``, equal
     bit for bit to the default tile's, and within 2^-9 max |v| + 1e-5 of
     the JAX ``flash_attention`` in interpret mode at the same block_q and

@@ -53,7 +53,7 @@ def close(got, want, dtype):
 @pytest.mark.parametrize("h,hkv,s,d,causal,window", [
     (8, 2, 128, 32, True, None), (8, 8, 100, 64, False, None),
     (4, 1, 192, 16, True, 16), (32, 4, 300, 128, True, None),
-    (32, 4, 200, 128, True, 64)])
+    (32, 4, 200, 128, True, 64), (32, 8, 300, 80, True, 64)])
 def test_attention_kernel_matches_plain(cuda_device, dtype, h, hkv, s, d,
                                         causal, window):
     q = rand((2, h, s, d), 20, cuda_device, dtype, 0.3)
@@ -1514,15 +1514,16 @@ def test_tc_prefill_tile_instances_fit_the_card(cuda_device, kind, block_k,
 @pytest.mark.parametrize("rows", pa.TC_ROW_TILES)
 @pytest.mark.parametrize("block_k", pa.TC_BLOCK_KS)
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("h,hkv", [(32, 4), (32, 32), (24, 8)])
+@pytest.mark.parametrize("h,hkv", [(32, 4), (32, 32), (24, 8), (40, 8)])
 def test_tc_prefill_every_tile_matches_plain(cuda_device, h, hkv, quant,
                                              block_k, rows):
     """K4 / K6c in one pass and K5b / K6d with K5c merged (3 splits) at
-    every tile of the D = 128 instances, G 8, 1 and 3 (block_q = rows //
-    G, a power of two: G 3 at the 48-row tile only, G 8 and 1 at the
-    others): a chunk of 44 starting mid-page, a ragged chunk at 0 and an
-    idle lane (exactly 0); ``by_tile`` counts the launches; counters zero
-    after.  A tile a G does not take raises ``ValueError``."""
+    every tile of the D = 128 instances, G 8, 1, 3 and 5 (block_q = rows
+    // G, a power of two: G 3 at the 48-row tile only, G 5 at the 80-row
+    tile only, G 8 and 1 at the others): a chunk of 44 starting mid-page,
+    a ragged chunk at 0 and an idle lane (exactly 0); ``by_tile`` counts
+    the launches; counters zero after.  A tile a G does not take raises
+    ``ValueError``."""
     g = h // hkv
     block_q = rows // g
     c, start = 44, 3 * 16 + 8
@@ -1598,3 +1599,151 @@ def test_tile_wrappers_reject_tiles_without_an_instance(cuda_device):
             pa.paged_prefill_split_merged(qc, kpc, vpc, tablec, start,
                                           lensc, 2, **tile)
     assert counters_all_zero()
+
+
+# --------------------------------------------------------------------------
+# llama4-scout's G 5 (the prefill kernel's 80-row tile) and h2o-danube's
+# D 80 (K1, and K2 on the cluster kernel's dense mode)
+# --------------------------------------------------------------------------
+
+# (H, Hkv, D, psz, nblk, starts, valid, C) as SPLIT_CASES: llama4-scout's
+# verify (4 lanes of 5 rows and an idle lane) and a chunk of 128 at 384
+G5_CASES = {
+    "verify llama4": (40, 8, 128, 16, 64, [839, 720, 190, 544, 0],
+                      [5, 5, 5, 5, 0], 5),
+    "chunk llama4 at 384": (40, 8, 128, 16, 32, [384, 0], [128, 128], 128),
+}
+
+
+@pytest.mark.parametrize("ns", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("block_k", pa.TC_BLOCK_KS)
+@pytest.mark.parametrize("case", sorted(G5_CASES))
+def test_tc_prefill_80_row_tile_matches_plain(cuda_device, case, block_k,
+                                              quant, ns):
+    """K4 / K6c (ns 1) and K5b / K6d with K5c merged at G 5's default tile,
+    80 rows (block_q 16) by 64 and 128 keys: against the one-pass plain
+    version; the merged route (a 320-thread block's last-arrival merge)
+    bit-equal to ``split_combine`` over its own partials, an idle lane
+    exactly 0, the arrival counters zero afterwards."""
+    h, hkv, d, psz, nblk, starts, valid, c = G5_CASES[case]
+    q, pools, table, start, kv_len = chunk_inputs(
+        len(starts), h, hkv, d, psz, nblk, starts, valid, torch.bfloat16,
+        cuda_device, 500, c, quant)
+    tile = (16, block_k)
+    assert pa.default_block_q(d, h // hkv) == 16
+    want = ref.paged_prefill_ref(q, pools.k, pools.v, table, start, kv_len,
+                                 k_scale=pools.k_scale, v_scale=pools.v_scale)
+    if ns == 1:
+        one = pa.flash_paged_prefill_quant if quant else pa.flash_paged_prefill
+        n = one.by_tile[tile]
+        got = ops.paged_prefill(q, pools, table, start, kv_len,
+                                block_k=block_k)
+        torch.cuda.synchronize()
+        assert one.by_tile[tile] == n + 1 and one.last_kernel == TC_KERNEL
+    else:
+        merged = (pa.paged_prefill_split_quant_merged if quant
+                  else pa.paged_prefill_split_merged)
+        sc = (pools.k_scale, pools.v_scale) if quant else ()
+        n = merged.by_tile[tile]
+        got, parts = merged(q, pools.k, pools.v, *sc, table, start, kv_len,
+                            ns, block_k=block_k, return_partials=True)
+        torch.cuda.synchronize()
+        assert merged.by_tile[tile] == n + 1
+        assert merged.last_kernel == TC_KERNEL
+        assert torch.equal(got, pa.split_combine(*parts, torch.bfloat16))
+        assert counters_all_zero()
+    for i, v in enumerate(valid):
+        if v == 0:
+            assert torch.all(got[i] == 0)
+            continue
+        close(got[i, :, :v], want[i, :, :v], torch.bfloat16)
+
+
+@pytest.mark.parametrize("tile", fa.attention_tiles(torch.bfloat16, 80),
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("h,hkv,s,causal,window", [
+    (32, 8, 700, True, 256), (32, 8, 300, True, None),
+    (8, 2, 77, False, 16), (32, 8, 1, True, None)])
+def test_tc_attention_d80_every_tile_matches_plain(cuda_device, h, hkv, s,
+                                                   causal, window, tile):
+    """The bf16 K1 at D 80 (h2o-danube's G 4) at each of its four tiles:
+    against plain, with a window that S passes, bit-equal to the default
+    tile, one launch counted under its tile."""
+    q = rand((2, h, s, 80), 510, cuda_device, torch.bfloat16)
+    k = rand((2, hkv, s, 80), 511, cuda_device, torch.bfloat16)
+    v = rand((2, hkv, s, 80), 512, cuda_device, torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    n = fa.flash_attention.by_tile[tile]
+    got = fa.flash_attention(q, k, v, **kw, block_q=tile[0], block_k=tile[1])
+    torch.cuda.synchronize()
+    assert fa.flash_attention.by_tile[tile] == n + 1
+    assert fa.flash_attention.last_kernel == fa.TC_KERNEL
+    close(got, ref.attention_ref(q, k, v, **kw), torch.bfloat16)
+    assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("tile", fa.attention_tiles(torch.bfloat16, 80),
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+def test_tc_attention_d80_instances_fit_the_card(cuda_device, tile):
+    info = fa.tc_info(80, *tile)
+    assert info["smem_bytes"] == fa.smem_bytes(*tile, 80)
+    assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+@pytest.mark.parametrize("cluster", pa.CLUSTER_SIZES + (None,))
+@pytest.mark.parametrize("h,hkv,s", [(32, 8, 4096), (8, 2, 1000)])
+def test_tc_dense_decode_d80_matches_plain(cuda_device, h, hkv, s, cluster,
+                                           block_k):
+    """K2 (the dense mode) at D 80 at both key tiles and every cluster
+    size: a ring of S slots with an empty lane (exactly 0), one shorter
+    than a tile, a full one and one past S (clamped)."""
+    kv_len = torch.tensor([0, 37, s, s + 9], dtype=torch.int32,
+                          device=cuda_device)
+    q = rand((4, h, 1, 80), 520, cuda_device, torch.bfloat16)
+    k = rand((4, hkv, s, 80), 521, cuda_device, torch.bfloat16)
+    v = rand((4, hkv, s, 80), 522, cuda_device, torch.bfloat16)
+    n = fa.flash_decode.by_tile[block_k]
+    got = fa.flash_decode(q, k, v, kv_len, block_k=block_k, _cluster=cluster)
+    torch.cuda.synchronize()
+    assert fa.flash_decode.by_tile[block_k] == n + 1
+    assert fa.flash_decode.last_kernel == pa.DECODE_TC_KERNEL
+    assert torch.all(got[0] == 0)
+    close(got[1:], ref.decode_ref(q, k, v, kv_len)[1:], torch.bfloat16)
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+def test_tc_dense_decode_d80_instances_fit_the_card(cuda_device, block_k):
+    """The D 80 dense instances hold at least the two CTAs an SM that
+    ``cluster_size`` counts on and build without spilling; the paged and
+    partials modes have no D 80 instance."""
+    info = pa.decode_tc_info(80, "bf16 dense", block_k=block_k)
+    assert info["blocks_per_sm"] >= pa.DECODE_CTAS_PER_SM
+    assert all(n >= 1 for n in info["clusters"].values())
+    assert info["local_bytes"] == 0
+    for kind in pa.DECODE_KINDS:
+        if kind != "bf16 dense":
+            with pytest.raises(RuntimeError):
+                pa.decode_tc_info(80, kind, 64, block_k=block_k)
+
+
+def test_d80_routes_without_an_instance_raise_on_the_card(cuda_device):
+    """The float32 K2 and every paged kernel refuse D 80 by name before
+    anything launches."""
+    q = rand((2, 8, 1, 80), 530, cuda_device, torch.float32)
+    k = rand((2, 2, 64, 80), 531, cuda_device, torch.float32)
+    n = fa.flash_decode.launches
+    with pytest.raises(ValueError, match="head dim 80"):
+        fa.flash_decode(q, k, k)
+    assert fa.flash_decode.launches == n
+    qb, kp, vp, table, lens = paged_inputs(2, 8, 2, 80, 16, 4, [20, 40],
+                                           torch.bfloat16, cuda_device, 532)
+    with pytest.raises(ValueError, match="head dim 80"):
+        pa.flash_paged_decode(qb, kp, vp, table, lens)
+    qc, kpc, vpc, tablec, lensc = paged_inputs(2, 8, 2, 80, 16, 4, [20, 40],
+                                               torch.bfloat16, cuda_device,
+                                               533, c=5)
+    start = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 80"):
+        pa.flash_paged_prefill(qc, kpc, vpc, tablec, start, lensc)

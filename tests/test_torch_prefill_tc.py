@@ -211,11 +211,13 @@ def test_emulated_kernel_against_jax_kernels_in_interpret_mode(case, h, hkv,
 @pytest.mark.parametrize("h,hkv,d,ok", [
     (32, 4, 128, True), (32, 32, 128, True), (8, 2, 16, True),
     (32, 1, 64, True), (12, 4, 128, True), (12, 4, 64, False),
-    (20, 4, 128, False), (64, 1, 64, False), (32, 4, 24, False)])
+    (20, 4, 128, True), (28, 4, 128, False), (64, 1, 64, False),
+    (32, 4, 24, False)])
 def test_tensor_core_kernel_shape_check(h, hkv, d, ok):
     """G = H / Hkv must divide one of the row tiles at D (at D 128 the
-    48-row tile takes G 3; at D 64 only the 32-row tile, which takes
-    neither G 3 nor G 64; G 5 has none); D in HEAD_DIMS."""
+    48-row tile takes G 3 and the 80-row tile G 5; at D 64 only the
+    32-row tile, which takes neither G 3 nor G 64; G 7 has none); D in
+    HEAD_DIMS."""
     if ok:
         pa.check_tc_shape("k", h, hkv, d)
     else:
