@@ -8,11 +8,12 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
    all in parallel; the instances of the tensor-core kernels (K1 in
    ``flash_attention.cu``, at block_q 64 and 128 by block_k 64 and 128 at
-   D 128 and D 80; K4, K6c and the partials modes K5b and K6d in
+   D 128, D 80 and D 112; K4, K6c and the partials modes K5b and K6d in
    ``paged_prefill.cu``, at every tile: rows 16, 32, 48, 64 and 80 by keys
    64 and 128 at D 128; K3, K6a and the dense (K2) and partials (K5a over
    bf16 pools, K6b over int8 pools) modes in ``paged_decode.cu``, at key
-   tiles 32 and 64 at D 128, and the dense mode at both at D 80) with
+   tiles 32 and 64 at D 128, and the dense mode at both at D 80 and D
+   112) with
    their registers and spills from the
    ``-Xptxas -v`` log, their shared memory and resident blocks per SM, and
    for the decode kernel the clusters of 1, 2, 4 and 8 CTAs the card holds
@@ -268,7 +269,29 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    each, K1 and K2 counted by tile and by kernel; the logits of a
    4094-token prompt (decode wraps) and a 4200-token one (prefill rolls)
    with 4 decode steps, kernels against plain; and ``--cache paged``
-   refused with a ``ValueError`` naming the paged pool.
+   refused with a ``ValueError`` naming the paged pool;
+32. whisper-tiny whole (4 + 4 layers, d_model 384, 6 heads: D 64, G 1),
+   through its model entry points, as the JAX package runs it (its
+   engine serves no encoder-decoder): K1 over the encoder's 1500 frames
+   (not causal), over the decoder's prompt of 224 (causal) and across
+   (224 rows over 1500 keys: K1 with a key length of its own), K2 over
+   the self cache and the 1500-row cross cache, each against plain and
+   timed beside SDPA and the bound, with K2's cluster size; 4 lanes of
+   1500 random frame embeddings, prompts of 224 and of 4 tokens, 64
+   greedy new tokens each, K1 and K2 counted by call (encoder, self,
+   cross); TTFT, tokens/s and ITL; the logits of both prompt lengths
+   with 4 decode steps, kernels against plain; peak memory;
+33. zamba2-7b whole (81 Mamba-2 layers, d_model 3584, d_inner 7168; a
+   shared block of 32 q / 32 kv heads, D 112, window 4096, 13 times):
+   K1 at D 112 at its four tiles (a prefill of 4608 tokens, past the
+   window) and K2 at D 112 at both key tiles (4 rings of 4096 slots)
+   against plain and timed beside SDPA and the bound, each instance's
+   registers and occupancy; phase 31's dense serve (its prompts wrap the
+   shared block's rings at prefill and in decode), K1 and K2 counted by
+   tile and by kernel; the logits of a 4094-token and a 4200-token
+   prompt with 4 decode steps, kernels against plain; ``--cache paged``
+   refused; peak memory; one decode tick profiled (``profile_decode``,
+   4 lanes at prompts of 4093: host and device ms, busy share).
 
 Then the script's run time by group of phases, one JSON line with every
 kernel's numbers,
@@ -450,7 +473,7 @@ def phase_build() -> None:
     for source, kernel, pattern, info, n in (
             ("flash_attention", fa.TC_KERNEL,
              r"ILi(?P<d>\d+)ELi(?P<bq>\d+)ELi(?P<bk>\d+)EE",
-             lambda d, kind, t: fa.tc_info(d, t["bq"], t["bk"]), 11),
+             lambda d, kind, t: fa.tc_info(d, t["bq"], t["bk"]), 15),
             ("paged_prefill", TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELb(?P<split>[01])"
              r"ELi(?P<slabs>\d)ELi(?P<bk>\d+)EE",
@@ -460,7 +483,7 @@ def phase_build() -> None:
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELi(?P<mode>\d)"
              r"ELi(?P<bk>\d+)EE",
              lambda d, kind, t: pa.decode_tc_info(d, kind, 64,
-                                                  block_k=t["bk"]), 27)):
+                                                  block_k=t["bk"]), 29)):
         log = paths[source].with_suffix(".log")
         if not log.exists():
             continue
@@ -3979,184 +4002,132 @@ def phase_llama4(smi: str) -> list[dict]:
 
 
 # --------------------------------------------------------------------------
-# phase 31: h2o-danube-1.8b, whole (D 80, G 4, the sliding window's ring)
+# phases 31 and 33: the sliding-window archs on dense lanes of rings:
+# h2o-danube-1.8b (every layer; D 80, G 4) and zamba2-7b's shared block
+# (13 applications; D 112, G 1), both whole
 # --------------------------------------------------------------------------
 
 DANUBE = "h2o-danube-1.8b"
-# prompt lengths of the dense serve: three longer than the 4096-key window
+ZAMBA = "zamba2-7b"
+# prompt lengths of the dense serves: three longer than the 4096-key window
 # (prefill rolls the ring), three whose 32 new tokens cross it in decode
-DANUBE_PROMPTS = (4600, 4080, 4090, 4350, 1000, 4070, 4200, 3000)
-DANUBE_MAX_LEN = 4700
+RING_PROMPTS = (4600, 4080, 4090, 4350, 1000, 4070, 4200, 3000)
+RING_MAX_LEN = 4700
 
 
-def danube_kernel_rows(smi: str) -> list[dict]:
-    """K1 at D 80 (every tile; h2o-danube's prefill of 4608 tokens, G 4,
-    window 4096, so S passes the window) and K2 at D 80 (both key tiles;
-    its decode of 4 lanes over ring strips of 4096 slots) against plain,
-    timed beside the plain version, SDPA and the bound."""
-    cfg = get_arch(DANUBE)
+def ring_kernel_rows(smi: str, arch: str, phase: int,
+                     seed: int) -> list[dict]:
+    """K1 at the arch's head dim (every tile; its windowed prefill of 4608
+    tokens, past the window) and K2 (both key tiles; 4 lanes of rings of
+    ``window`` slots) against plain, timed beside SDPA with the window's
+    mask and the bound, and each instance's registers and occupancy."""
+    cfg = get_arch(arch)
     h, hkv, d, w = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
-    rows, lines = [], []
-    # K1: B 1, S 4608 past the window
+    rows, lines, infos = [], [], []
     s = 4608
-    q, k, v = (randn((1, n, s, d), 3100 + j, BF16)
+    q, k, v = (randn((1, n, s, d), seed + j, BF16)
                for j, n in enumerate((h, hkv, hkv)))
-    kw = dict(causal=True, window=w)
-    want = ref.attention_ref(q, k, v, **kw)
     qi = torch.arange(s, device="cuda")[:, None]
     kj = torch.arange(s, device="cuda")[None, :]
     mask = (kj <= qi) & (qi - kj < w)
-    pairs = int(mask.sum())
-    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    n_ops = 4 * h * pairs * d
-    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, enable_gqa=True))
-    plain = time_ms(lambda: ref.attention_ref(q, k, v, **kw))
+    kw = dict(causal=True, window=w)
     default = fa.flash_attention(q, k, v, **kw)
     for tile in fa.attention_tiles(BF16, d):
-        def run(tile=tile):
-            return fa.flash_attention(q, k, v, **kw, block_q=tile[0],
-                                      block_k=tile[1])
-        got = run()
-        check(fa.flash_attention.last_kernel == fa.TC_KERNEL,
-              f"K1 D 80 {tile} ran {fa.flash_attention.last_kernel}")
-        err = compare(got, want, BF16)
-        same = bool(torch.equal(got, default))
-        times = {"ms": time_ms(run), "plain_ms": plain,
-                 "library_ms": library}
-        r = row(f"flash_attention[D80 {tile[0]}x{tile[1]}]", SOURCE,
-                f"{FLASH}:106", err, n_bytes, n_ops, times)
-        r.update(shape="h2o-danube prefill S=4608 window 4096",
-                 tile=list(tile))
+        r, line = k1_kernel_row(f"D{d} {tile[0]}x{tile[1]}", q, k, v, kw,
+                                mask, f"{arch} prefill S={s} window {w}",
+                                tile)
+        same = bool(torch.equal(fa.flash_attention(
+            q, k, v, **kw, block_q=tile[0], block_k=tile[1]), default))
         rows.append(r)
-        lines.append(f"K1 {tile}: {fmt_times(times)}, bound "
-                     f"{r['bound_ms']:.5f} ms ({r['bound_by']}), err "
-                     f"{err:.2e}" + ("" if same else ", NOT bit-equal to "
-                                     "64x64"))
-    del want, mask
-    # K2: 4 lanes over ring strips of 4096 slots
-    b = 4
-    kv_len = torch.tensor([w, w, 2000, 3000], dtype=torch.int32,
-                          device="cuda")
-    q = randn((b, h, 1, d), 3110, BF16)
-    k = randn((b, hkv, w, d), 3111, BF16)
-    v = randn((b, hkv, w, d), 3112, BF16)
-    want = ref.decode_ref(q, k, v, kv_len)
-    dmask = (torch.arange(w, device="cuda")[None, :]
-             < kv_len[:, None])[:, None, None, :]
-    keys = int(kv_len.sum())
-    n_bytes = 2 * (2 * keys * hkv * d + 2 * b * h * d) + 4 * b
-    n_ops = 4 * h * keys * d
-    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=dmask, enable_gqa=True))
-    plain = time_ms(lambda: ref.decode_ref(q, k, v, kv_len))
-    c = pa.cluster_size(b, hkv, pa.sm_count(0))
-    for bk in pa.decode_block_ks(BF16, d):
-        def run(bk=bk):
-            return fa.flash_decode(q, k, v, kv_len, block_k=bk)
-        got = run()
-        check(fa.flash_decode.last_kernel == pa.DECODE_TC_KERNEL,
-              f"K2 D 80 {bk} ran {fa.flash_decode.last_kernel}")
-        err = compare(got, want, BF16)
-        times = {"ms": time_ms(run), "plain_ms": plain,
-                 "library_ms": library}
-        r = row(f"flash_decode[D80 {bk}]", DECODE_SOURCE, f"{FLASH}:203",
-                err, n_bytes, n_ops, times)
-        r.update(shape="h2o-danube decode B=4 ring 4096", tile=[bk])
-        rows.append(r)
-        lines.append(f"K2 block_k {bk} (c={c}): {fmt_times(times)}, bound "
-                     f"{r['bound_ms']:.5f} ms ({r['bound_by']}), err "
-                     f"{err:.2e}")
-    infos = []
-    for tile in fa.attention_tiles(BF16, d):
+        lines.append(line + ("" if same else ", NOT bit-equal to 64x64"))
         info = fa.tc_info(d, *tile)
         infos.append(f"K1 {tile[0]}x{tile[1]}: {info['registers']} "
                      f"registers, {info['local_bytes']} B local, "
                      f"{info['smem_bytes']} B shared, "
                      f"{info['blocks_per_sm']} block(s)/SM")
+    del q, k, v, mask, default
+    b = 4
+    kv_len = torch.tensor([w, w, 2000, 3000], dtype=torch.int32,
+                          device="cuda")
+    q = randn((b, h, 1, d), seed + 10, BF16)
+    k = randn((b, hkv, w, d), seed + 11, BF16)
+    v = randn((b, hkv, w, d), seed + 12, BF16)
     for bk in pa.decode_block_ks(BF16, d):
+        r, line = k2_kernel_row(f"D{d} {bk}", q, k, v, kv_len,
+                                f"{arch} decode B={b} ring {w}", bk)
+        rows.append(r)
+        lines.append(line)
         info = pa.decode_tc_info(d, "bf16 dense", block_k=bk)
         infos.append(f"K2 block_k {bk}: {info['registers']} registers, "
                      f"{info['local_bytes']} B local, {info['smem_bytes']} B "
                      f"shared, {info['blocks_per_sm']} CTA(s)/SM, clusters "
                      f"held at once {info['clusters']}")
-    print(f"[31 h2o-danube kernels] D 80 (32 q / 8 kv heads, G 4, window "
-          f"{w}) against plain (tol {TOL[BF16]}), device ms (ms per call "
-          f"incl. host) on {smi}: " + "; ".join(lines)
+    print(f"[{phase} {arch} kernels] D {d} ({h} q / {hkv} kv heads, G "
+          f"{h // hkv}, window {w}) against plain (tol {TOL[BF16]}), device "
+          f"ms (ms per call incl. host) on {smi}: " + "; ".join(lines)
           + "; instances: " + "; ".join(infos))
     return rows
 
 
-def danube_logits(model, params) -> None:
-    """Kernels against plain at h2o-danube's full config: a prompt of 4094
-    tokens and 4 decode steps (slots 4094, 4095, then 0 and 1 of the
-    ring), and one of 4200 (prefill keeps its last 4096 keys, rolled)."""
-    lines = []
-    for plen in (4094, 4200):
-        plain, kern = dense_logits(model, params, plen, DANUBE_MAX_LEN)
-        lines.append(f"prompt {plen} + 4 decode steps: "
-                     + check_logits(plain, kern, model.cfg.padded_vocab,
-                                    f"h2o-danube logits ({plen})"))
-    print(f"[31 logits] {DANUBE} full, free-running: " + "; ".join(lines))
-
-
-def danube_serve(model, params, smi: str) -> dict[str, int]:
-    """The dense serve of h2o-danube: 8 requests of DANUBE_PROMPTS tokens,
-    32 new each, over 4 lanes of ring strips (4096 slots); every request
-    finishes with its 32 tokens, and the counters show K1 once a layer an
-    admission and K2 once a layer a tick, on the tensor-core and cluster
-    kernels, at the default tiles, and nothing else."""
-    n_layers = model.cfg.n_layers
-    gen = np.random.default_rng(31)
-    engine = ServingEngine(model, params, n_lanes=4, max_len=DANUBE_MAX_LEN)
-    check(engine.kv.caches["kv"][0].shape[3] == model.cfg.window,
-          f"h2o-danube's strips hold {engine.kv.caches['kv'][0].shape[3]} "
-          "slots, not the window's")
+def ring_serve(model, params, smi: str, phase: int, ring_key: str,
+               n_attn: int, what: str) -> dict[str, int]:
+    """The dense serve of a sliding-window arch: 8 requests of
+    RING_PROMPTS tokens, 32 new each, over 4 lanes whose ``ring_key``
+    caches are rings of ``window`` slots; every request finishes with its
+    32 tokens, and the counters show K1 once an attention (``n_attn`` a
+    token) an admission and K2 once an attention a tick, on the
+    tensor-core and cluster kernels, at the default tiles, and nothing
+    else."""
+    gen = np.random.default_rng(phase)
+    engine = ServingEngine(model, params, n_lanes=4, max_len=RING_MAX_LEN)
+    slots = engine.kv.caches[ring_key][0].shape[3]
+    check(slots == model.cfg.window,
+          f"{model.cfg.name}'s rings hold {slots} slots, not the window's")
     at.clear_published()
     for kernel in KERNELS:
         kernel.launches = 0
     for kernel in (fa.flash_attention, fa.flash_decode):
         kernel.by_tile.clear()
     with kernels_by_route(ops, "flash_decode") as k2_routes:
-        for rid, plen in enumerate(DANUBE_PROMPTS):
+        for rid, plen in enumerate(RING_PROMPTS):
             prompt = gen.integers(0, model.cfg.vocab_size, plen).tolist()
             engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=32))
         t0 = time.perf_counter()
-        finished = engine.run(max_steps=len(DANUBE_PROMPTS) * 40)
+        finished = engine.run(max_steps=len(RING_PROMPTS) * 40)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in KERNELS}
-    check(len(finished) == len(DANUBE_PROMPTS)
+    name = model.cfg.name
+    check(len(finished) == len(RING_PROMPTS)
           and all(len(r.out_tokens) == 32 for r in finished),
-          f"h2o-danube serve: {len(finished)} requests finished")
+          f"{name} serve: {len(finished)} requests finished")
     only_launched(launches, (fa.flash_attention, fa.flash_decode),
-                  "h2o-danube dense")
+                  f"{name} dense")
     ticks = engine.steps
     summary = engine.metrics.summary()
-    check(launches["flash_attention"] == n_layers * len(DANUBE_PROMPTS)
+    check(launches["flash_attention"] == n_attn * len(RING_PROMPTS)
           and dict(fa.flash_attention.by_tile) == {
               fa.TC_DEFAULT_TILE: launches["flash_attention"]}
           and fa.flash_attention.last_kernel == fa.TC_KERNEL,
-          f"h2o-danube: K1 launched {launches['flash_attention']} times, by "
+          f"{name}: K1 launched {launches['flash_attention']} times, by "
           f"tile {dict(fa.flash_attention.by_tile)}")
-    check(launches["flash_decode"] == n_layers * ticks
+    check(launches["flash_decode"] == n_attn * ticks
           and dict(fa.flash_decode.by_tile) == {
               pa.DECODE_TILE_KEYS: launches["flash_decode"]}
           and dict(k2_routes) == {pa.DECODE_TC_KERNEL:
                                   launches["flash_decode"]},
-          f"h2o-danube: K2 launched {launches['flash_decode']} times in "
+          f"{name}: K2 launched {launches['flash_decode']} times in "
           f"{ticks} ticks, by kernel {dict(k2_routes)}")
-    crossed = sum(1 for p in DANUBE_PROMPTS if p < model.cfg.window
-                  < p + 32)
-    rolled = sum(1 for p in DANUBE_PROMPTS if p > model.cfg.window)
+    w = model.cfg.window
+    crossed = sum(1 for p in RING_PROMPTS if p < w < p + 32)
+    rolled = sum(1 for p in RING_PROMPTS if p > w)
     gen_tokens = sum(len(r.out_tokens) for r in finished)
-    print(f"[31 serve] {DANUBE} full (24 layers, d_model 2560, 32 q / 8 kv "
-          f"heads, G 4, D 80, window {model.cfg.window}) on {smi}: dense "
-          f"lanes of {model.cfg.window}-slot rings, prompts "
-          f"{list(DANUBE_PROMPTS)} ({rolled} rolled at prefill, {crossed} "
-          f"wrapping in decode), 32 new tokens each, 4 lanes: "
-          f"{gen_tokens} tokens in {wall:.3f}s = {gen_tokens / wall:.1f} "
-          f"tok/s, {ticks} ticks, p50 ttft {summary['ttft_s']['p50']:.4f}s, p50 itl "
+    print(f"[{phase} serve] {name} full ({what}) on {smi}: dense lanes of "
+          f"{w}-slot rings, prompts {list(RING_PROMPTS)} ({rolled} rolled at "
+          f"prefill, {crossed} wrapping in decode), 32 new tokens each, 4 "
+          f"lanes: {gen_tokens} tokens in {wall:.3f}s = "
+          f"{gen_tokens / wall:.1f} tok/s, {ticks} ticks, p50 ttft "
+          f"{summary['ttft_s']['p50']:.4f}s, p50 itl "
           f"{summary['itl_s']['p50']:.4f}s, launches "
           f"{ {k: n for k, n in launches.items() if n} }, K1 by tile "
           f"{dict(fa.flash_attention.by_tile)}, K2 by tile "
@@ -4165,37 +4136,408 @@ def danube_serve(model, params, smi: str) -> dict[str, int]:
             "flash_decode": launches["flash_decode"], "ticks": ticks}
 
 
+def ring_checks(model, params, phase: int) -> str:
+    """Kernels against plain on a prompt of 4094 tokens and 4 decode steps
+    (slots 4094, 4095, then 0 and 1 of the ring) and one of 4200 (prefill
+    keeps its last 4096 keys, rolled); then ``--cache paged`` must be
+    refused as in the JAX package.  Returns the refusal."""
+    lines = []
+    for plen in (4094, 4200):
+        plain, kern = dense_logits(model, params, plen, RING_MAX_LEN)
+        lines.append(f"prompt {plen} + 4 decode steps: "
+                     + check_logits(plain, kern, model.cfg.padded_vocab,
+                                    f"{model.cfg.name} logits ({plen})"))
+    print(f"[{phase} logits] {model.cfg.name} full, free-running: "
+          + "; ".join(lines))
+    try:
+        ServingEngine(model, params, n_lanes=4, max_len=RING_MAX_LEN,
+                      cache="paged", page_size=16, prefill_chunk=128)
+    except ValueError as e:
+        check("paged" in str(e), f"the paged refusal does not say paged: {e}")
+        return str(e)
+    raise RuntimeError(f"chip_smoke check failed: {model.cfg.name} served "
+                       "from the paged pool")
+
+
+def ring_launches(rows: list[dict], counts: dict[str, int]) -> None:
+    """The serve's launches on its default tiles' rows, 0 on the others."""
+    for r in rows:
+        r["launches"] = counts[r["name"].split("[")[0]] if r["tile"] in (
+            list(fa.TC_DEFAULT_TILE), [pa.DECODE_TILE_KEYS]) else 0
+
+
 def phase_danube(smi: str) -> list[dict]:
     """Phase 31: h2o-danube-1.8b whole at published widths (random bf16
     weights from seed 0): K1 and K2 at D 80 against plain and timed, the
     dense serve that wraps the ring in prefill and in decode, its logits
     against plain, and the paged pool refused as in the JAX package."""
     t0 = time.perf_counter()
-    rows = danube_kernel_rows(smi)
+    rows = ring_kernel_rows(smi, DANUBE, 31, 3100)
     cfg = get_arch(DANUBE)
     model = build_model(cfg)
     params = model.init(0, "cuda")
     print(f"[31 h2o-danube] {cfg.param_count() / 1e9:.2f} B parameters, "
           f"whole (24 layers, nothing cut)")
-    counts = danube_serve(model, params, smi)
-    for r in rows:
-        r["launches"] = counts[r["name"].split("[")[0]] if r["tile"] in (
-            list(fa.TC_DEFAULT_TILE), [pa.DECODE_TILE_KEYS]) else 0
-    danube_logits(model, params)
-    try:
-        ServingEngine(model, params, n_lanes=4, max_len=DANUBE_MAX_LEN,
-                      cache="paged", page_size=16, prefill_chunk=128)
-    except ValueError as e:
-        check("paged" in str(e), f"the paged refusal does not say paged: {e}")
-        refusal = str(e)
-    else:
-        raise RuntimeError("chip_smoke check failed: h2o-danube served "
-                           "from the paged pool")
+    ring_launches(rows, ring_serve(
+        model, params, smi, 31, "kv", cfg.n_layers,
+        "24 layers, d_model 2560, 32 q / 8 kv heads, G 4, D 80"))
+    refusal = ring_checks(model, params, 31)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[31 h2o-danube] --cache paged raises ValueError: {refusal!r}; "
           f"phase 31 in {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 32: whisper-tiny's encoder-decoder; phase 33: zamba2-7b's Mamba-2
+# stack and its shared block
+# --------------------------------------------------------------------------
+
+
+class _ShapeCount(_RouteCount):
+    """A kernel wrapper that also counts its calls by ``key(*args, **kw)``
+    (which call of the model a launch serves, told by its shapes)."""
+
+    def __init__(self, fn, tally: collections.Counter, key):
+        super().__init__(fn, tally)
+        object.__setattr__(self, "_key", key)
+
+    def __call__(self, *args, **kw):
+        out = self._fn(*args, **kw)
+        self._tally[self._key(*args, **kw)] += 1
+        return out
+
+
+@contextlib.contextmanager
+def calls_by_shape(module, name: str, key):
+    """Count the calls of wrapper ``module.name`` by ``key`` while the
+    block runs (as :func:`kernels_by_route` counts them by kernel)."""
+    fn = getattr(module, name)
+    tally = collections.Counter()
+    setattr(module, name, _ShapeCount(fn, tally, key))
+    try:
+        yield tally
+    finally:
+        setattr(module, name, fn)
+
+
+def _k1_call(q, k, v, causal=True, window=None, **kw) -> str:
+    if k.shape[2] != q.shape[2]:
+        return "cross"
+    return "self" if causal else "encoder"
+
+
+def _k2_call(q, k, v, kv_len=None, **kw) -> str:
+    return "cross" if kv_len is None else "self"
+
+
+def k1_kernel_row(name: str, q, k, v, kw: dict, mask, shape: str,
+                  tile=None) -> tuple[dict, str]:
+    """K1 on (q, k, v) with ``kw`` against its plain version, timed beside
+    it, SDPA with ``mask`` (None: no mask, or ``is_causal`` when ``kw``
+    is causal without a window) and the bound (Q, K, V read and O written
+    once; 4 D operations per visible (query, key) pair)."""
+    sq, sk = q.shape[2], k.shape[2]
+    want = ref.attention_ref(q, k, v, **kw)
+    run = functools.partial(fa.flash_attention, q, k, v, **kw,
+                            **({} if tile is None else
+                               dict(block_q=tile[0], block_k=tile[1])))
+    got = run()
+    check(fa.flash_attention.last_kernel == fa.TC_KERNEL,
+          f"K1 {name} ran {fa.flash_attention.last_kernel}")
+    err = compare(got, want, BF16)
+    if mask is not None:
+        pairs = int(mask.sum())
+    elif kw.get("causal"):
+        pairs = sq * (sq + 1) // 2
+    else:
+        pairs = sq * sk
+    sdpa_kw = (dict(attn_mask=mask) if mask is not None
+               else dict(is_causal=bool(kw.get("causal"))))
+    times = {"ms": time_ms(run),
+             "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v, **kw)),
+             "library_ms": time_ms(
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q, k, v, enable_gqa=True, **sdpa_kw))}
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    n_ops = 4 * q.shape[0] * q.shape[1] * pairs * q.shape[3]
+    r = row(f"flash_attention[{name}]", SOURCE, f"{FLASH}:106", err, n_bytes,
+            n_ops, times)
+    r.update(shape=shape, tile=list(tile or fa.TC_DEFAULT_TILE))
+    return r, (f"K1 {name}: {fmt_times(times)}, bound {r['bound_ms']:.5f} ms "
+               f"({r['bound_by']}), err {err:.2e}")
+
+
+def k2_kernel_row(name: str, q, k, v, kv_len, shape: str,
+                  block_k=None) -> tuple[dict, str]:
+    """K2 on a dense strip against its plain version, timed beside it,
+    SDPA (masked to ``kv_len``) and the bound (the live K/V rows, q and o
+    once)."""
+    b, h, _, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    lens = [s] * b if kv_len is None else kv_len.tolist()
+    want = ref.decode_ref(q, k, v, kv_len)
+    run = functools.partial(fa.flash_decode, q, k, v, kv_len,
+                            block_k=block_k)
+    got = run()
+    check(fa.flash_decode.last_kernel == pa.DECODE_TC_KERNEL,
+          f"K2 {name} ran {fa.flash_decode.last_kernel}")
+    err = compare(got, want, BF16)
+    mask = (None if kv_len is None else
+            (torch.arange(s, device="cuda")[None, :]
+             < kv_len[:, None])[:, None, None, :])
+    times = {"ms": time_ms(run),
+             "plain_ms": time_ms(lambda: ref.decode_ref(q, k, v, kv_len)),
+             "library_ms": time_ms(
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q, k, v, attn_mask=mask, enable_gqa=True))}
+    keys = sum(min(n, s) for n in lens)
+    n_bytes = 2 * (2 * keys * hkv * d + 2 * b * h * d) + 4 * b
+    n_ops = 4 * (h // hkv) * hkv * keys * d
+    r = row(f"flash_decode[{name}]", DECODE_SOURCE, f"{FLASH}:203", err,
+            n_bytes, n_ops, times)
+    bk = pa.DECODE_TILE_KEYS if block_k is None else block_k
+    r.update(shape=shape, tile=[bk])
+    c = pa.cluster_size(b, hkv, pa.sm_count(0))
+    return r, (f"K2 {name} (block_k {bk}, c={c}): {fmt_times(times)}, "
+               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), err "
+               f"{err:.2e}")
+
+
+WHISPER = "whisper-tiny"
+WHISPER_PROMPTS = (224, 4)     # batch (a), and the start-of-transcript (b)
+WHISPER_NEW = 64               # the last position, 224 + 63, under 448
+
+
+def whisper_kernel_rows(smi: str) -> list[dict]:
+    """K1 non-causal over the encoder's 1500 frames, causal over the
+    decoder's prompt of 224 and across, 224 rows over 1500 keys, and K2
+    over the self cache and the 1500-row cross cache, at whisper-tiny's
+    shapes (B 4, 6 heads, G 1, D 64), against plain and timed."""
+    cfg = get_arch(WHISPER)
+    b, h, d, se = 4, cfg.n_heads, cfg.head_dim, cfg.frontend_seq
+    sq = WHISPER_PROMPTS[0]
+    rows, lines = [], []
+    qe, ke, ve = (randn((b, h, se, d), 3200 + j, BF16) for j in range(3))
+    qs, ks, vs = (randn((b, h, sq, d), 3210 + j, BF16) for j in range(3))
+    for args in (("whisper encoder S1500", qe, ke, ve, dict(causal=False),
+                  None, "whisper-tiny encoder B=4 S=1500"),
+                 ("whisper self S224", qs, ks, vs, dict(causal=True), None,
+                  "whisper-tiny decoder prefill B=4 S=224"),
+                 ("whisper cross 224x1500", qs, ke, ve, dict(causal=False),
+                  None, "whisper-tiny cross B=4 Sq=224 Sk=1500")):
+        r, line = k1_kernel_row(*args)
+        rows.append(r)
+        lines.append(line)
+    max_len = sq + WHISPER_NEW
+    q1 = randn((b, h, 1, d), 3220, BF16)
+    kc, vc = (randn((b, h, max_len, d), 3221 + j, BF16) for j in range(2))
+    kv_len = torch.tensor([max_len, 256, 240, sq + 1], dtype=torch.int32,
+                          device="cuda")
+    for args in (("whisper self", q1, kc, vc, kv_len,
+                  f"whisper-tiny decode B=4 self cache {max_len}"),
+                 ("whisper cross 1500", q1, ke, ve, None,
+                  "whisper-tiny decode B=4 cross cache 1500")):
+        r, line = k2_kernel_row(*args)
+        rows.append(r)
+        lines.append(line)
+    info = fa.tc_info(d)
+    dinfo = pa.decode_tc_info(d, "bf16 dense")
+    print(f"[32 whisper kernels] D 64, 6 q / 6 kv heads (G 1), B 4, "
+          f"against plain (tol {TOL[BF16]}), device ms (ms per call incl. "
+          f"host) on {smi}: " + "; ".join(lines)
+          + f"; K2's cluster size at B 4 x Hkv 6: "
+          f"{pa.cluster_size(b, h, pa.sm_count(0))}; instances: K1 64x64 "
+          f"{info['registers']} registers, {info['local_bytes']} B local, "
+          f"{info['smem_bytes']} B shared, {info['blocks_per_sm']} block(s)"
+          f"/SM; K2 block_k 64 {dinfo['registers']} registers, "
+          f"{dinfo['local_bytes']} B local, {dinfo['blocks_per_sm']} "
+          f"CTA(s)/SM")
+    return rows
+
+
+def whisper_frames(cfg, b: int, seed: int) -> torch.Tensor:
+    """The audio stub's input: (B, 1500, d) float32 frame embeddings."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, cfg.frontend_seq, cfg.d_model), generator=gen,
+                       device="cuda")
+
+
+def whisper_greedy(model, params, frames, plen: int, new: int,
+                   use_kernel=None) -> tuple[torch.Tensor, dict]:
+    """Prefill of a (B, plen) prompt from seed 32 over ``frames``, then
+    ``new`` greedy decode steps; returns the tokens (B, new) and the
+    times: prefill (TTFT) and decode seconds."""
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    prompt = torch.randint(0, cfg.vocab_size, (frames.shape[0], plen),
+                           generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, prompt, plen + new,
+                                   use_kernel=use_kernel,
+                                   frontend_embeds=frames)
+    check(tuple(logits.shape) == (frames.shape[0], cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"whisper prefill logits {tuple(logits.shape)} not finite")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = []
+    for i in range(new):
+        token = logits.argmax(-1)
+        out.append(token)
+        pos = torch.full((frames.shape[0],), plen + i, device="cuda")
+        logits, caches = model.decode_step(params, caches, token[:, None],
+                                           pos, use_kernel=use_kernel)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(bool(torch.isfinite(logits).all()), "whisper decode logits")
+    return torch.stack(out, 1), {"prefill_s": t1 - t0, "decode_s": t2 - t1}
+
+
+def whisper_logits(model, params, frames, plen: int) -> str:
+    """Kernels against plain on lane 0: a prefill of ``plen`` tokens and
+    4 decode steps fed the plain route's greedy tokens."""
+    runs, tokens = {}, []
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, plen), generator=gen,
+                           device="cuda")
+    for use_kernel in (False, True):
+        logits, caches = model.prefill(params, prompt, plen + 8,
+                                       use_kernel=use_kernel,
+                                       frontend_embeds=frames[:1])
+        steps = [logits]
+        for i in range(4):
+            if not use_kernel:
+                tokens.append(int(steps[-1][0].argmax()))
+            logits, caches = model.decode_step(
+                params, caches, torch.tensor([[tokens[i]]], device="cuda"),
+                torch.tensor([plen + i], device="cuda"),
+                use_kernel=use_kernel)
+            steps.append(logits)
+        runs[use_kernel] = torch.stack(steps)
+    torch.cuda.synchronize()
+    return check_logits(runs[False], runs[True], model.cfg.padded_vocab,
+                        f"whisper logits ({plen})")
+
+
+def phase_whisper(smi: str) -> list[dict]:
+    """Phase 32: whisper-tiny whole (4 + 4 layers, random bf16 weights
+    from seed 0) through its model entry points, as the JAX package runs
+    it (its engine serves no encoder-decoder): 4 lanes of 1500 random
+    frame embeddings, prompts of 224 and of 4 tokens, 64 greedy new
+    tokens each; K1 (encoder, decoder self-attention, cross attention
+    with Sk 1500 != Sq) and K2 (self and cross caches) counted by call;
+    the kernel rows; logits against plain; peak memory."""
+    t0 = time.perf_counter()
+    rows = whisper_kernel_rows(smi)
+    cfg = get_arch(WHISPER)
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    frames = whisper_frames(cfg, 4, 32)
+    for plen in WHISPER_PROMPTS:    # warm-up: the first call of a shape
+        whisper_greedy(model, params, frames, plen, 1)   # picks its GEMMs
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    for kernel in (fa.flash_attention, fa.flash_decode):
+        kernel.by_tile.clear()
+    lines = []
+    with calls_by_shape(ops, "flash_attention", _k1_call) as k1_calls, \
+            calls_by_shape(ops, "flash_decode", _k2_call) as k2_calls:
+        for plen in WHISPER_PROMPTS:
+            toks, times = whisper_greedy(model, params, frames, plen,
+                                         WHISPER_NEW)
+            n = toks.numel()
+            lines.append(
+                f"prompts of {plen}: TTFT {times['prefill_s']:.4f}s "
+                f"(encoder + prefill), {n} tokens in "
+                f"{times['decode_s']:.3f}s = {n / times['decode_s']:.1f} "
+                f"tok/s, ITL {times['decode_s'] / WHISPER_NEW * 1e3:.2f} ms")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    only_launched(launches, (fa.flash_attention, fa.flash_decode),
+                  "whisper-tiny")
+    n_b, layers = len(WHISPER_PROMPTS), cfg.n_layers
+    want_k1 = {"encoder": cfg.n_encoder_layers * n_b, "self": layers * n_b,
+               "cross": layers * n_b}
+    want_k2 = {"self": layers * WHISPER_NEW * n_b,
+               "cross": layers * WHISPER_NEW * n_b}
+    check(dict(k1_calls) == want_k1
+          and launches["flash_attention"] == sum(want_k1.values())
+          and fa.flash_attention.last_kernel == fa.TC_KERNEL,
+          f"whisper: K1 calls {dict(k1_calls)}, expected {want_k1}")
+    check(dict(k2_calls) == want_k2
+          and launches["flash_decode"] == sum(want_k2.values())
+          and fa.flash_decode.last_kernel == pa.DECODE_TC_KERNEL,
+          f"whisper: K2 calls {dict(k2_calls)}, expected {want_k2}")
+    for r in rows:     # a row's name: "<kernel>[whisper <call> ...]"
+        kernel, what = r["name"].split("[")
+        tally = k1_calls if kernel == "flash_attention" else k2_calls
+        r["launches"] = tally[what.rstrip("]").split()[1]]
+    logit_lines = [f"prompt {plen} + 4 decode steps: "
+                   + whisper_logits(model, params, frames, plen)
+                   for plen in WHISPER_PROMPTS]
+    del model, params, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[32 whisper] {WHISPER} whole (4 + 4 layers, d_model 384, 6 "
+          f"heads, D 64, {cfg.param_count() / 1e6:.1f} M parameters) through "
+          f"prefill(frontend_embeds=) and decode_step on {smi}: 4 lanes of "
+          f"{cfg.frontend_seq} frames; " + "; ".join(lines)
+          + f"; K1 calls {dict(k1_calls)}, K2 calls {dict(k2_calls)} (by "
+          f"kernel: {fa.flash_attention.last_kernel}, "
+          f"{fa.flash_decode.last_kernel}), peak memory {peak / 1e9:.3f} GB")
+    print(f"[32 logits] {WHISPER} free-running: " + "; ".join(logit_lines)
+          + f"; phase 32 in {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
+def phase_zamba(smi: str) -> list[dict]:
+    """Phase 33: zamba2-7b whole at published widths (81 layers, random
+    bf16 weights from seed 0; nothing cut): K1 and K2 at D 112 against
+    plain and timed, the dense serve whose shared block's rings wrap at
+    prefill and in decode, its logits against plain, the paged pool
+    refused as in the JAX package, the peak memory, and one decode tick
+    profiled (``launch/profile_decode.py``'s ``profile_decode``)."""
+    from repro_torch.launch.profile_decode import profile_decode
+    t0 = time.perf_counter()
+    rows = ring_kernel_rows(smi, ZAMBA, 33, 3300)
+    cfg = get_arch(ZAMBA)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, "cuda")
+    napp = cfg.n_shared_attn_applications()
+    print(f"[33 zamba2] {cfg.param_count() / 1e9:.2f} B parameters, whole "
+          f"(81 layers, nothing cut)")
+    ring_launches(rows, ring_serve(
+        model, params, smi, 33, "shared_kv", napp,
+        f"81 Mamba-2 layers, d_model 3584, d_inner 7168; the shared block "
+        f"{napp} times: 32 q / 32 kv heads, G 1, D 112"))
+    refusal = ring_checks(model, params, 33)
+    peak = torch.cuda.max_memory_allocated()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = profile_decode(ZAMBA, reduced=False, max_len=RING_MAX_LEN,
+                          prompt_len=4094, steps=4)
+    check(prof["device_ms_per_tick"] > 0,
+          "the zamba2 profile saw no device time")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[33 zamba2] --cache paged raises ValueError: {refusal!r}; peak "
+          f"memory {peak / 1e9:.2f} GB; one decode tick profiled "
+          f"(profile_decode --arch {ZAMBA} --full, 4 lanes at prompts of "
+          f"4093, rings wrapping): host {prof['host_ms_per_tick']:.3f} ms, "
+          f"device {prof['device_ms_per_tick']:.3f} ms, busy share "
+          f"{prof['busy_share']:.3f}, {prof['launches_per_tick']:.1f} device "
+          f"operations a tick; top: "
+          + ", ".join(f"{n[:48]} {ms:.3f} ms x{c:.0f}"
+                      for n, ms, c in prof["kernels"][:5])
+          + f"; phase 33 in {time.perf_counter() - t0:.1f}s")
     return rows
 
 
@@ -4275,7 +4617,12 @@ def main() -> int:
     rows += phase_danube(smi)
     done("31")
     check(len(rows) == 36, f"{len(rows)} kernel rows, expected 36")
-    print(f"[done] phases 1-31 in {time.perf_counter() - t0:.1f}s; by phase "
+    rows += phase_whisper(smi)
+    done("32")
+    rows += phase_zamba(smi)
+    done("33")
+    check(len(rows) == 47, f"{len(rows)} kernel rows, expected 47")
+    print(f"[done] phases 1-33 in {time.perf_counter() - t0:.1f}s; by phase "
           + ", ".join(f"{label} {t - marks[i][1]:.1f}s"
                       for i, (label, t) in enumerate(marks[1:])))
     print(json.dumps({"kernels": rows}))

@@ -9,7 +9,11 @@ config's ``compute_dtype`` (the JAX model casts every leaf to it before
 use, so the arithmetic is the same).  That holds for the Mamba-1 leaves
 too: the conv taps keep their (d_conv, Di) layout, and ``a_log`` goes to
 ``compute_dtype`` like the rest, to be upcast to float32 at use
-(``-exp(a_log.float())``), where the JAX model upcasts it.
+(``-exp(a_log.float())``), where the JAX model upcasts it; and for the
+Mamba-2 leaves and zamba2's unstacked ``shared_attn`` block.  The
+encoder-decoder's tree (``frontend_proj``, the ``enc_layers`` and
+``dec_layers`` stacks, the LayerNorms' ``w``/``b``, ``pos_embed``) is
+carried the same way.
 """
 from __future__ import annotations
 

@@ -94,6 +94,14 @@ class ArchConfig:
             return ["encdec_layer"] * self.n_layers
         raise ValueError(self.family)
 
+    def n_shared_attn_applications(self) -> int:
+        """How often the shared attention block runs (zamba2: after
+        every ``attn_period``-th layer)."""
+        if self.attn_period <= 0:
+            return 0
+        return len(range(self.attn_period - 1, self.n_layers,
+                         self.attn_period))
+
     def param_count(self) -> int:
         """Analytic parameter count (weight bytes = this x the dtype's)."""
         d, ff, v = self.d_model, self.d_ff, self.padded_vocab

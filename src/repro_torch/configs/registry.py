@@ -13,20 +13,21 @@ from .h2o_danube_1p8b import CONFIG as h2o_danube_1p8b
 from .llama4_scout_17b_a16e import CONFIG as llama4_scout_17b_a16e
 from .moonshot_v1_16b_a3b import CONFIG as moonshot_v1_16b_a3b
 from .phi4_mini_3p8b import CONFIG as phi4_mini_3p8b
+from .whisper_tiny import CONFIG as whisper_tiny
 from .yi_6b import CONFIG as yi_6b
+from .zamba2_7b import CONFIG as zamba2_7b
 
 ARCHS: dict[str, ArchConfig] = {c.name: c for c in [
     yi_6b, deepseek_7b, falcon_mamba_7b, phi4_mini_3p8b,
-    moonshot_v1_16b_a3b, llama4_scout_17b_a16e, h2o_danube_1p8b]}
+    moonshot_v1_16b_a3b, llama4_scout_17b_a16e, h2o_danube_1p8b,
+    whisper_tiny, zamba2_7b]}
 
 _OTHER_FAMILIES = "ROADMAP queue 1, item 8 (the other model families)"
 
 #: archs of the JAX package that the port does not run yet -> the
 #: ROADMAP item that ports them
 NOT_PORTED: dict[str, str] = {
-    "pixtral-12b": _OTHER_FAMILIES + ": the vision frontend",
-    "zamba2-7b": _OTHER_FAMILIES + ": Mamba-2 and the shared block",
-    "whisper-tiny": _OTHER_FAMILIES + ": encoder-decoder",
+    "pixtral-12b": _OTHER_FAMILIES + ": the vision frontend (8b.6)",
 }
 
 

@@ -1,5 +1,5 @@
-// Flash attention for Hopper (sm_90a): self-attention for prefill (K1) and
-// one-token decode against a dense KV cache (K2).  Plain C interface, bound
+// Flash attention for Hopper (sm_90a): self- and cross attention for
+// prefill (K1) and one-token decode against a dense KV cache (K2).  Plain C interface, bound
 // from Python with ctypes (kernels/flash_attention.py); no PyTorch headers.
 //
 // K1  flash_attention_tc_kernel  (bf16) and flash_attention_kernel (float32)
@@ -19,6 +19,19 @@
 // one rounding the plain fp32 version does not make is P to bf16 before
 // P.V: at most 2^-8 (bf16's unit roundoff) of max |v| on an output (the
 // row sums l come from the fp32 P).
+//
+// K1 takes S query rows and Sk keys of its own: Sk = S for self-attention
+// (causal, windowed or not), Sk != S for whisper's cross attention (the
+// decoder's prompt over the encoder's 1500 frames), which is never causal
+// or windowed (the launcher refuses the mix).  The grid runs over the
+// query rows' tiles and the key walk to Sk; rows past S and keys past Sk
+// in the last tiles are zero-filled and masked.  The TPU kernel asserts
+// S == Sk, so on a TPU the JAX package's cross attention cannot take it;
+// its plain version (ref.attention_ref, the ends aligned) computes the
+// function this kernel computes.  A short prompt wastes the tile: 4
+// query rows take a 64-row tile's products (16 a warp, 4 warps), so the
+// cross call at whisper's start-of-transcript shape is bound by its 1500
+// keys' copies, not by its rows.
 //
 // What bounds them on an H100.  K1 at a yi-6b prefill of 512 tokens (H 32,
 // Hkv 4, D 128, causal) must read Q, K, V and write O once, 9.4 MB: 2.8 us
@@ -69,7 +82,7 @@
 //    memory, so a block can hold more rows per copied key tile, and TMA.
 //    The tile is the install-time AT's FlashBlocks region (block_q query
 //    rows x block_k keys, tuning/install.py): 64 x 64 by default, and at
-//    D = 128 and D = 80 also 64 x 128, 128 x 64 and 128 x 128.  block_q sets the
+//    D = 128, 80 and 112 also 64 x 128, 128 x 64 and 128 x 128.  block_q sets the
 //    warps of a block (BM / 16) and so how many query rows share each
 //    copied K/V tile; block_k the keys of one copy (a ring stage), walked
 //    in 64-key softmax steps, so every tile takes the same steps in the
@@ -80,7 +93,10 @@
 //    S, 10 n-tiles of 8 for P.V (5 ldmatrix.x4.trans pairs), rows of 88
 //    bf16 (176 bytes: 10 cp.async chunks, 16-byte aligned, and 8 rows of
 //    an ldmatrix fall in distinct bank quads), 56, 101, 68 and 113 KB of
-//    shared memory at the four tiles.
+//    shared memory at the four tiles.  D = 112 (zamba2-7b's shared block)
+//    likewise: 7 k-steps, 14 n-tiles (7 pairs), rows of 120 bf16 (240
+//    bytes: 15 chunks, so 8 rows of an ldmatrix start in distinct bank
+//    quads), 75, 135, 90 and 150 KB (153,600 B at 128 x 128).
 //  * K1 float32 (flash_attention_kernel): SIMT fp32, one block of 4 warps
 //    per (batch, head, 64-row query tile); K/V tiles of 32 keys staged in
 //    shared memory as fp32 (lane j of a warp owns key j of the tile, so
@@ -126,7 +142,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(k1::THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int H,
-                       int Hkv, int S, int causal, int window, float scale) {
+                       int Hkv, int S, int Sk, int causal, int window,
+                       float scale) {
   using namespace k1;
   constexpr int NC = (D + 31) / 32;  // output columns per lane
   constexpr int KS = D + 1;
@@ -141,7 +158,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
   const size_t qoff = ((size_t)b * H + h) * S * D;
-  const size_t koff = ((size_t)b * Hkv + hk) * S * D;
+  const size_t koff = ((size_t)b * Hkv + hk) * Sk * D;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int r0 = (tid >> 5) * RPW;
@@ -153,7 +170,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // live key tiles: causal needs k_start <= the tile's last query; the
   // window needs the tile's last key inside the first query's window
-  const int n_k = (S + BK - 1) / BK;
+  const int n_k = (Sk + BK - 1) / BK;
   int t_lo = 0, t_hi = n_k;
   if (causal) t_hi = min(n_k, (q_start + BQ - 1) / BK + 1);
   if (window > 0) {
@@ -176,7 +193,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * D; i += THREADS) {
       const int j = i / D;
       const int c = i - j * D;
-      const bool in = k_start + j < S;
+      const bool in = k_start + j < Sk;
       const size_t g = koff + (size_t)k_start * D + i;
       ks[j * KS + c] = in ? to_float(k[g]) : 0.f;
       vs[i] = in ? to_float(v[g]) : 0.f;
@@ -201,7 +218,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
       const int qi = q_start + r0 + r;
-      bool live = kj < S;
+      bool live = kj < Sk;
       if (causal) live = live && qi >= kj;
       if (window > 0) live = live && (qi - kj) < window;
       const float x = live ? s[r] * scale : kNegInf;
@@ -305,7 +322,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ o, int H, int Hkv,
-                          int S, int causal, int window, float scale_log2) {
+                          int S, int Sk, int causal, int window,
+                          float scale_log2) {
   using namespace k1tc;
   using L = Smem<D, BM, BN>;
   constexpr int THREADS = Tile<BM, BN>::THREADS;
@@ -325,7 +343,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const __nv_bfloat16* qh = q + ((size_t)b * H + h) * S * D;
-  const size_t kv_off = ((size_t)b * Hkv + h / (H / Hkv)) * S * D;
+  const size_t kv_off = ((size_t)b * Hkv + h / (H / Hkv)) * Sk * D;
   const __nv_bfloat16* kh = k + kv_off;
   const __nv_bfloat16* vh = v + kv_off;
   const int tid = threadIdx.x;
@@ -334,7 +352,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   // live key tiles: causal needs k_start <= the tile's last query; the
   // window needs the tile's last key inside the first query's window
-  const int n_k = (S + BN - 1) / BN;
+  const int n_k = (Sk + BN - 1) / BN;
   int t_lo = 0, t_hi = n_k;
   if (causal) t_hi = min(n_k, (q0 + BM - 1) / BN + 1);
   if (window > 0) {
@@ -352,7 +370,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                in ? qh + (size_t)(q0 + r) * D + c * 8 : qh, in ? 16 : 0);
   }
 
-  // key tile t into ring stage `stage`; keys past S are zero-filled
+  // key tile t into ring stage `stage`; keys past Sk are zero-filled
   auto load_tile = [&](int t, int stage) {
     const int k0 = t * BN;
     __nv_bfloat16* kd = k_ring + stage * BN * ROW;
@@ -360,7 +378,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = tid; i < BN * CPR; i += THREADS) {
       const int j = i / CPR;
       const int c = i - j * CPR;
-      const bool in = k0 + j < S;
+      const bool in = k0 + j < Sk;
       const size_t off = in ? (size_t)(k0 + j) * D + c * 8 : 0;
       cp_async16(smem_addr(kd + j * ROW + c * 8), kh + off, in ? 16 : 0);
       cp_async16(smem_addr(vd + j * ROW + c * 8), vh + off, in ? 16 : 0);
@@ -411,10 +429,10 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
       // a step none of whose keys the warp's slab sees is skipped
       const int k_lo = t * BN + st * STEP;
       const int k_hi = k_lo + STEP - 1;
-      if (k_lo >= S || (causal && k_lo > r_hi) ||
+      if (k_lo >= Sk || (causal && k_lo > r_hi) ||
           (window > 0 && r_lo - k_hi >= window))
         continue;
-      const bool need_mask = k_hi >= S || (causal && k_hi > r_lo) ||
+      const bool need_mask = k_hi >= Sk || (causal && k_hi > r_lo) ||
                              (window > 0 && r_hi - k_lo >= window);
       const __nv_bfloat16* kt = k_ring + (stage * BN + st * STEP) * ROW;
       const __nv_bfloat16* vt = v_ring + (stage * BN + st * STEP) * ROW;
@@ -446,7 +464,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
           if (need_mask) {
             const int key = k_lo + n * 8 + 2 * t4 + (e & 1);
             const int pos = e < 2 ? pos0 : pos1;
-            if (key >= S || (causal && key > pos) ||
+            if (key >= Sk || (causal && key > pos) ||
                 (window > 0 && pos - key >= window))
               x = kNegInf;
           }
@@ -655,7 +673,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch_attention(const void* q, const void* k, const void* v,
-                             void* o, int B, int H, int Hkv, int S,
+                             void* o, int B, int H, int Hkv, int S, int Sk,
                              int causal, int window, float scale,
                              cudaStream_t stream) {
   constexpr size_t smem = k1::smem_bytes<D>();
@@ -666,7 +684,7 @@ cudaError_t launch_attention(const void* q, const void* k, const void* v,
   const dim3 grid((S + k1::BQ - 1) / k1::BQ, H, B);
   kern<<<grid, k1::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, S, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, S, Sk, causal,
       window, scale);
   return cudaGetLastError();
 }
@@ -704,14 +722,15 @@ using Int = std::integral_constant<int, N>;
 
 // f(Int<BM>, Int<BN>) for the instantiated K1 tile of bm query rows and
 // bn keys at head dim D, else cudaErrorInvalidValue: rows 64 and 128 by
-// keys 64 and 128 at the head dims of the archs the card serves, 128 and
-// h2o-danube-1.8b's 80 (ops.attention hands K1 the tile FlashBlocks
-// published whatever the head dim), the default 64 x 64 at the others.
+// keys 64 and 128 at the head dims of the archs the card serves, 128,
+// h2o-danube-1.8b's 80 and zamba2-7b's 112 (ops.attention hands K1 the
+// tile FlashBlocks published whatever the head dim), the default 64 x 64
+// at the others.
 template <int D, typename F>
 cudaError_t k1_with_tile(int bm, int bn, F&& f) {
   if (bm == k1tc::DEFAULT_BM && bn == k1tc::DEFAULT_BN)
     return f(Int<k1tc::DEFAULT_BM>{}, Int<k1tc::DEFAULT_BN>{});
-  if constexpr (D == 128 || D == 80) {
+  if constexpr (D == 128 || D == 80 || D == 112) {
     if ((bm == 64 || bm == 128) && (bn == 64 || bn == 128)) {
       auto keys = [&](auto rows) {
         return bn == 64 ? f(rows, Int<64>{}) : f(rows, Int<128>{});
@@ -725,7 +744,7 @@ cudaError_t k1_with_tile(int bm, int bn, F&& f) {
 template <int D, int BM, int BN>
 cudaError_t launch_attention_tc(const void* q, const void* k, const void* v,
                                 void* o, int B, int H, int Hkv, int S,
-                                int causal, int window, float scale,
+                                int Sk, int causal, int window, float scale,
                                 cudaStream_t stream) {
   constexpr size_t smem = k1tc::Smem<D, BM, BN>::bytes;
   auto kern = flash_attention_tc_kernel<D, BM, BN>;
@@ -737,7 +756,7 @@ cudaError_t launch_attention_tc(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H, Hkv, S, causal, window, scale * kLog2e);
+      H, Hkv, S, Sk, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -748,8 +767,8 @@ cudaError_t attention_tc_info(int* out) {
                        k1tc::Smem<D, BM, BN>::bytes, out);
 }
 
-// f(Int<D>) for the head dims K1 is built for: 80 is h2o-danube-1.8b's
-// (the float32 K2 has no D 80: see decode_by_dim)
+// f(Int<D>) for the head dims K1 is built for: 80 is h2o-danube-1.8b's,
+// 112 zamba2-7b's (the float32 K2 has neither: see decode_by_dim)
 template <typename F>
 cudaError_t with_dim(int d, F&& f) {
   switch (d) {
@@ -757,6 +776,7 @@ cudaError_t with_dim(int d, F&& f) {
     case 32: return f(Int<32>{});
     case 64: return f(Int<64>{});
     case 80: return f(Int<80>{});
+    case 112: return f(Int<112>{});
     case 128: return f(Int<128>{});
     default: return cudaErrorInvalidValue;
   }
@@ -767,8 +787,8 @@ cudaError_t with_dim(int d, F&& f) {
 // __nv_bfloat16, the tensor cores at the tile block_q x block_k)
 template <typename T>
 cudaError_t attention_by_dim(const void* q, const void* k, const void* v,
-                             void* o, int B, int H, int Hkv, int S, int D,
-                             int causal, int window, float scale,
+                             void* o, int B, int H, int Hkv, int S, int Sk,
+                             int D, int causal, int window, float scale,
                              int block_q, int block_k, cudaStream_t st) {
   return with_dim(D, [&](auto d) {
     constexpr int DD = decltype(d)::value;
@@ -776,19 +796,19 @@ cudaError_t attention_by_dim(const void* q, const void* k, const void* v,
       return k1_with_tile<DD>(block_q, block_k, [&](auto bm, auto bn) {
         return launch_attention_tc<DD, decltype(bm)::value,
                                    decltype(bn)::value>(
-            q, k, v, o, B, H, Hkv, S, causal, window, scale, st);
+            q, k, v, o, B, H, Hkv, S, Sk, causal, window, scale, st);
       });
     } else {
-      return launch_attention<T, DD>(q, k, v, o, B, H, Hkv, S, causal,
+      return launch_attention<T, DD>(q, k, v, o, B, H, Hkv, S, Sk, causal,
                                      window, scale, st);
     }
   });
 }
 
 // The float32 K2 at the head dims of paged_attention.cu's kernels: a lane
-// owns D / 32 contiguous columns of a V row (NC), which at D = 80 would
-// not split the row into 32 whole runs, so D 80 has no instance here (the
-// bf16 K2, paged_decode.cu's dense mode, has one)
+// owns D / 32 contiguous columns of a V row (NC), which at D = 80 or 112
+// would not split the row into 32 whole runs, so neither has an instance
+// here (the bf16 K2, paged_decode.cu's dense mode, has both)
 template <typename T>
 cudaError_t decode_by_dim(const void* q, const void* k, const void* v,
                           const int* kv_len, void* o, int B, int H, int Hkv,
@@ -807,22 +827,26 @@ cudaError_t decode_by_dim(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16 (K1 of bfloat16 runs on the tensor
 // cores at the tile of block_q query rows and block_k keys, which must
 // have an instance (see k1_with_tile), of float32 on the SIMT template,
-// which reads no tile).  window <= 0 means no sliding window.
+// which reads no tile).  window <= 0 means no sliding window.  S query
+// rows attend to Sk keys; Sk != S only without a causal mask or a window
+// (cross attention), else cudaErrorInvalidValue.
 // Returns the launch's cudaError_t (0 = success; a tile without an
 // instance returns cudaErrorInvalidValue and launches nothing).  The
 // caller validates shapes, contiguity and alignment; the kernels never
 // allocate or sync.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int H,
-                                     int Hkv, int S, int D, int dtype,
+                                     int Hkv, int S, int Sk, int D, int dtype,
                                      int causal, int window, float scale,
                                      int block_q, int block_k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S < 1 || Sk < 1 || (Sk != S && (causal || window > 0)))
+    return cudaErrorInvalidValue;
   if (dtype == 0)
-    return attention_by_dim<float>(q, k, v, o, B, H, Hkv, S, D, causal,
+    return attention_by_dim<float>(q, k, v, o, B, H, Hkv, S, Sk, D, causal,
                                    window, scale, block_q, block_k, st);
   if (dtype == 1)
-    return attention_by_dim<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, D,
+    return attention_by_dim<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, Sk, D,
                                            causal, window, scale, block_q,
                                            block_k, st);
   return cudaErrorInvalidValue;

@@ -67,11 +67,12 @@
 // The key tile BN is a template parameter, the run-time AT's block_k
 // (tuning/dynamic.py's DecodeBucket regions, KVPrecision): 64 keys (the
 // default: 4 warps of 16 keys), and at D = 128 also 32 (2 warps of 16).
-// D = 80 (h2o-danube-1.8b) has the DENSE mode (K2) alone, at both tiles:
-// its sliding window keeps a ring of 4096 slots a lane in a dense strip
-// and never pages.  The body takes it as it is: 5 k-steps of m16n8k16 for
-// S, 10 n-tiles for P.V, rows of 176 bytes (10 cp.async chunks), 20 float4
-// columns a row in the merge.
+// D = 80 (h2o-danube-1.8b) and D = 112 (zamba2-7b's shared block) have
+// the DENSE mode (K2) alone, at both tiles: their sliding windows keep a
+// ring of 4096 slots a lane in a dense strip and never page.  The body
+// takes them as they are: 5 (7) k-steps of m16n8k16 for S, 10 (14)
+// n-tiles for P.V, rows of 176 (240) bytes, 11 (15) 16-byte chunks apart,
+// 20 (28) float4 columns a row in the merge.
 // A warp is one key group with its own online
 // softmax, so the tile sets where the fp32 sums and P's bf16 rounding
 // fall, and the rank and split rules cut the lane's live BN-key tiles.
@@ -636,25 +637,25 @@ using Int = std::integral_constant<int, N>;
 
 // f(Int<BN>) for the instantiated key tile bn of head dim D, else
 // cudaErrorInvalidValue: 32 and 64 keys at D = 128 (the head dim of
-// every paged arch the card serves) and at D = 80 (K2's, the dense mode
-// only: flash_decode hands it the tile DecodeBucket published whatever
-// the head dim), 64 at the other head dims (their builds stay one
+// every paged arch the card serves) and at D = 80 and 112 (K2's, the
+// dense mode only: flash_decode hands it the tile DecodeBucket published
+// whatever the head dim), 64 at the other head dims (their builds stay one
 // instance a mode).  No 128-key tile: its ring (213 KB of bf16 shared
 // memory) leaves one CTA an SM, and it won in no mode of chip_smoke.py's
 // tile sweep.
 template <int D, typename F>
 cudaError_t with_tile(int bn, F&& f) {
   if (bn == DEFAULT_BN) return f(Int<DEFAULT_BN>{});
-  if constexpr (D == 128 || D == 80) {
+  if constexpr (D == 128 || D == 80 || D == 112) {
     if (bn == 32) return f(Int<32>{});
   }
   return cudaErrorInvalidValue;
 }
 
-// the head dims with instances of every mode; D = 80 (h2o-danube-1.8b,
-// whose sliding window serves from dense lanes and never pages) has the
-// DENSE mode (K2) only
-constexpr bool paged_dim(int d) { return d != 80; }
+// the head dims with instances of every mode; D = 80 (h2o-danube-1.8b)
+// and D = 112 (zamba2-7b's shared block), whose sliding windows serve
+// from dense lanes and never page, have the DENSE mode (K2) only
+constexpr bool paged_dim(int d) { return d != 80 && d != 112; }
 
 // f(Int<D>) for the head dims the kernel is built for in mode MODE
 template <int MODE, typename F>
@@ -665,6 +666,9 @@ cudaError_t with_dim(int d, F&& f) {
     case 64: return f(Int<64>{});
     case 80:
       if constexpr (MODE == DENSE) return f(Int<80>{});
+      else return cudaErrorInvalidValue;
+    case 112:
+      if constexpr (MODE == DENSE) return f(Int<112>{});
       else return cudaErrorInvalidValue;
     case 128: return f(Int<128>{});
     default: return cudaErrorInvalidValue;
@@ -774,7 +778,7 @@ cudaError_t info_by_kind(int kind, int nblk, int* out) {
 // A bf16 query and output only (float32 goes to paged_attention.cu and
 // flash_attention.cu).  `cluster` is c, the CTAs per (lane, kv head): 1,
 // 2, 4 or 8.  `block_k` is the key tile, keys per ring stage: 64, or at
-// D = 128 also 32 (any other value: cudaErrorInvalidValue, nothing
+// D = 128 (and in the dense mode at D = 80 and 112) also 32 (any other value: cudaErrorInvalidValue, nothing
 // launched).  Each entry point returns the launch's cudaError_t (0 =
 // success).  The caller validates shapes, contiguity, alignment and that
 // every table entry below ceil(kv_len / psz) names a page of the pools,

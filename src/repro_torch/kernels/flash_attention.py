@@ -1,8 +1,10 @@
 """Python wrappers of the CUDA attention kernels (``csrc/flash_attention.cu``).
 
-* :func:`flash_attention` (K1) — self-attention over (B, H, S, D) with
-  causal and/or sliding-window masks and GQA (kv head ``h // G``, any
-  G).  A bf16 query runs on the tensor cores (``block_q``-row query
+* :func:`flash_attention` (K1) — attention of (B, H, Sq, D) queries over
+  (B, Hkv, Sk, D) keys with GQA (kv head ``h // G``, any G): causal
+  and/or sliding-window self-attention (Sk = Sq), or non-causal cross
+  attention with a key length of its own (whisper's decoder over its
+  encoder's frames).  A bf16 query runs on the tensor cores (``block_q``-row query
   tiles, ``block_k``-key tiles by ``cp.async`` walked in 64-key softmax
   steps, P rounded to bf16 for P.V), a float32 one on the SIMT template,
   whose fp32 products keep the fp32 tolerance; the choice is the query's
@@ -36,10 +38,11 @@ from . import build
 #: head dims of the paged kernels (K3-K6: every arch they serve)
 HEAD_DIMS = (16, 32, 64, 128)
 #: head dims of K1 (both query types) and of the bf16 K2 (the cluster
-#: kernel's dense mode): the paged ones and h2o-danube-1.8b's 80, whose
-#: sliding window serves from dense lanes only (the float32 K2's SIMT
-#: template splits D into whole 32-lane column runs: not at 80)
-DENSE_HEAD_DIMS = (16, 32, 64, 80, 128)
+#: kernel's dense mode): the paged ones, h2o-danube-1.8b's 80 and
+#: zamba2-7b's 112, whose sliding windows serve from dense lanes only (the
+#: float32 K2's SIMT template splits D into whole 32-lane column runs: not
+#: at 80 or 112)
+DENSE_HEAD_DIMS = (16, 32, 64, 80, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the bf16 K1 kernel's name, as ``flash_attention.last_kernel`` gives it
@@ -50,10 +53,12 @@ TC_DEFAULT_TILE = (64, 64)
 #: TILED_HEAD_DIMS, any pair of them; the other head dims have
 #: TC_DEFAULT_TILE only.  ``FlashBlocks``' candidate values.
 TILE_VALUES = (64, 128)
-#: the head dims of the archs the card serves: 128, and h2o-danube's 80,
-#: which take every tile because ``ops.attention`` hands K1 the tile
-#: ``FlashBlocks`` published whatever the head dim
-TILED_HEAD_DIMS = (80, 128)
+#: the head dims of the archs the card serves: 128, h2o-danube's 80 and
+#: zamba2's 112, which take every tile because ``ops.attention`` hands K1
+#: the tile ``FlashBlocks`` published whatever the head dim (whisper's 64
+#: takes the default tile: a 64-row tile already wastes most of its short
+#: prompts' rows)
+TILED_HEAD_DIMS = (80, 112, 128)
 #: the float32 SIMT template's one tile: query rows and keys
 SIMT_TILE = (64, 32)
 #: the float32 K2 kernel's name, as ``flash_decode.last_kernel`` gives it
@@ -66,7 +71,7 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (once)."""
     lib = build.load("flash_attention")
     lib.repro_flash_attention.argtypes = [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
     lib.repro_flash_attention.restype = _I
     lib.repro_flash_decode.argtypes = [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
@@ -154,6 +159,18 @@ def attention_tile(name: str, q: torch.Tensor, block_q: int | None,
     return tile
 
 
+def check_lengths(sq: int, sk: int, causal: bool,
+                  window: int | None) -> None:
+    """``ValueError`` for Sq query rows over Sk != Sq keys with a causal
+    mask or a window: cross attention is neither (K1 and ``ops.attention``
+    take it without; the JAX model makes no other such call)."""
+    if sk != sq and (causal or window is not None):
+        raise ValueError(
+            f"flash_attention: {sq} query rows over {sk} keys is cross "
+            "attention, which is neither causal nor windowed; pass "
+            "causal=False and no window (or Sk = Sq)")
+
+
 def smem_bytes(block_q: int, block_k: int, d: int) -> int:
     """Dynamic shared memory of one block of the bf16 K1 at a tile: the
     Q tile and a 2-stage ring of K and V tiles, bf16 rows of d + 8
@@ -165,8 +182,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None, block_q: int | None = None,
                     block_k: int | None = None) -> torch.Tensor:
-    """Self-attention.  q: (B, H, S, D); k, v: (B, Hkv, S, D), H % Hkv == 0.
-    Output in q's dtype: bfloat16 on the tensor cores at the tile of
+    """Attention.  q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D), H % Hkv == 0.
+    Sk = Sq for self-attention; Sk != Sq (cross attention) only with
+    ``causal=False`` and no window, else ``ValueError`` (the JAX package
+    makes no such call).  Output in q's dtype: bfloat16 on the tensor cores at the tile of
     ``block_q`` query rows and ``block_k`` keys (one of
     :func:`attention_tiles`, 64 x 64 by default; every tile takes the same
     64-key softmax steps, so all give the same bits), float32 on the SIMT
@@ -174,12 +193,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     instance raises ``ValueError``.  Unlike the JAX package's kernel,
     which pads S to a multiple of the tile and clamps the tile to S, the
     card's kernel masks the keys and rows past S in the last tile, so a
-    tile larger than S runs as it is."""
+    tile larger than S runs as it is; the query rows and the keys have a
+    limit each."""
     tile = attention_tile("flash_attention", q, block_q, block_k)
     _check("flash_attention", q, k, v)
     b, h, s, d = q.shape
-    if k.shape[2] != s:
-        raise ValueError("flash_attention is self-attention (use flash_decode)")
+    sk = k.shape[2]
+    check_lengths(s, sk, causal, window)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     scale = float(scale if scale is not None else d ** -0.5)
@@ -187,7 +207,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         err = _lib().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, k.shape[1], s, d, _DTYPES[q.dtype], int(causal),
+            b, h, k.shape[1], s, sk, d, _DTYPES[q.dtype], int(causal),
             -1 if window is None else int(window), scale, *tile,
             _stream(q))
     _raise_on("flash_attention", err)

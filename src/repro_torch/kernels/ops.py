@@ -113,9 +113,12 @@ def mm(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None = None,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None,
               use_kernel: bool | None = None, **pps) -> torch.Tensor:
-    """Full (prefill) self-attention.  q (B, H, S, D), k/v (B, Hkv, S, D).
-    On the card K1 at the ``block_q`` x ``block_k`` tile published under
-    ``flash_attention`` (or in ``pps``)."""
+    """Full (prefill) attention.  q (B, H, Sq, D), k/v (B, Hkv, Sk, D):
+    Sk = Sq for self-attention, Sk != Sq for cross attention, which is
+    neither causal nor windowed (such a call raises ``ValueError`` on both
+    routes).  On the card K1 at the ``block_q`` x ``block_k`` tile
+    published under ``flash_attention`` (or in ``pps``)."""
+    fa.check_lengths(q.shape[2], k.shape[2], causal, window)
     if _use_kernel(q, use_kernel):
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, window=window,

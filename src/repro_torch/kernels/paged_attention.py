@@ -80,8 +80,9 @@ takes a group size G = H / Hkv that gives it a row tile (at D 128: G a
 power of two up to 64, G 3, 6, 12 and 24 through the 48-row tile, or G
 5, 10, 20, 40 and 80 through the 80-row tile; at the other head dims G
 dividing 32); its wrappers raise otherwise.  Every paged kernel takes
-the head dims of :data:`HEAD_DIMS` only (D 80 is K1's and K2's: its one
-arch, h2o-danube-1.8b, has a sliding window and never pages).  The
+the head dims of :data:`HEAD_DIMS` only (D 80 and 112 are K1's and
+K2's: their archs, h2o-danube-1.8b and zamba2-7b, have sliding windows
+and never page).  The
 decode kernel of a bf16 query takes any G: its query rows come in 16-row
 slabs, one cluster each.
 The wrappers follow the contract of :mod:`.flash_attention`:
@@ -133,8 +134,8 @@ DECODE_SLAB_ROWS = 16
 DECODE_CTAS_PER_SM = 2
 #: the key tiles of the decode kernel at the head dims of TILED_HEAD_DIMS:
 #: D 128 (the paged archs the card serves) and, in the dense mode (K2)
-#: alone, D 80 (h2o-danube-1.8b, dense lanes only); other head dims have
-#: DECODE_TILE_KEYS only
+#: alone, D 80 (h2o-danube-1.8b) and D 112 (zamba2-7b's shared block),
+#: dense lanes only; other head dims have DECODE_TILE_KEYS only
 DECODE_BLOCK_KS = (32, 64)
 #: the tensor-core prefill kernel's D = 128 instances: query rows (block_q
 #: x G) by keys; other head dims have TC_TILE_ROWS x TC_TILE_KEYS only.
@@ -150,8 +151,8 @@ SIMT_PREFILL_TILE = (64, 32)
 
 def decode_block_ks(dtype: torch.dtype, d: int) -> tuple[int, ...]:
     """The key tiles the decode kernels have an instance for, for a query
-    of ``dtype`` at head dim ``d`` (at D 80 the dense mode's, K2: the
-    paged modes have no D 80 instance, :data:`HEAD_DIMS`)."""
+    of ``dtype`` at head dim ``d`` (at D 80 and 112 the dense mode's, K2:
+    the paged modes have no instance there, :data:`HEAD_DIMS`)."""
     if dtype != torch.bfloat16:
         return (SIMT_DECODE_TILE_KEYS,)
     return DECODE_BLOCK_KS if d in TILED_HEAD_DIMS else (DECODE_TILE_KEYS,)

@@ -25,6 +25,8 @@ Usage (on the card)::
         --cache paged --prefill-chunk 128 --draft --spec-k 4 --num-splits 8
     PYTHONPATH=src python -m repro_torch.launch.profile_decode --full \
         --arch moonshot-v1-16b-a3b --cache paged --prefill-chunk 128
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode --full \
+        --arch zamba2-7b --max-len 4700 --prompt-len 4094
 """
 from __future__ import annotations
 

@@ -19,9 +19,14 @@ in front of every request.  ``--arch moonshot-v1-16b-a3b`` serves the
 MoE stack (64 experts top-6 + 2 shared) through every path above; at
 ``--full`` its bf16 weights take 57.8 GB.  ``--arch falcon-mamba-7b``
 serves the Mamba-1 stack from dense lanes that hold its recurrent
-state; the paged
-pool, and with it ``--cache paged``, ``--draft`` and ``--prefix-cache``,
-does not apply to it and raises.  ``--gateway`` serves the same prompts
+state, ``--arch zamba2-7b`` the Mamba-2 stack with its shared block's
+sliding-window rings, ``--arch h2o-danube-1.8b`` its rings alone; the
+paged pool, and with it ``--cache paged``, ``--draft`` and
+``--prefix-cache``, does not apply to them and raises.  whisper-tiny is
+not served: its prefill needs the encoder's frames, which a request does
+not carry (the engine raises, as the JAX package serves it no frames
+either); it runs through ``Model.prefill(frontend_embeds=...)`` and
+``Model.decode_step``.  ``--gateway`` serves the same prompts
 through the async HTTP/SSE gateway (:mod:`repro_torch.serving.gateway`)
 on ``--port`` (0: any free port) of 127.0.0.1: one real TCP client per
 request streams its tokens, a client bounced with 429 (more than
@@ -60,6 +65,8 @@ Usage::
         --prefill-chunk 128 --prefix-cache --shared-prefix 256
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --full --max-len 4700 --prompt-len 4600
     PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
         --prefill-chunk 128 --gateway
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
@@ -402,9 +409,12 @@ def serve_config(scfg: ServeConfig) -> dict:
     if scfg.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
-    if not model.supports_paged_cache:
-        state = ("its sliding window's ring buffer" if cfg.window is not None
-                 else "recurrent SSM state")
+    if not (model.supports_paged_cache or cfg.is_encoder_decoder):
+        state = " and ".join(
+            what for what, has in (
+                ("recurrent SSM state", cfg.ssm_version > 0),
+                ("its sliding window's ring buffer", cfg.window is not None))
+            if has)
         for flag, asked in (("--cache paged", scfg.cache == "paged"),
                             ("--draft", scfg.draft),
                             ("--prefix-cache", scfg.prefix_cache)):

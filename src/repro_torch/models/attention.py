@@ -1,4 +1,5 @@
-"""GQA attention: prefill, and decode against a dense or a paged KV cache.
+"""GQA attention: prefill, decode against a dense or a paged KV cache, and
+the encoder-decoder's cross attention.
 
 * ``full(params, x, cfg)`` — prefill over a whole sequence (kernel K1 on
   CUDA, the plain version on CPU), causal with an optional sliding
@@ -13,6 +14,13 @@
   K/V into the pools in place before they read; int8 pools (``scales``
   given) get it quantized per row, codes into the pools and fp32 scales
   beside them.
+* ``cross_kv`` / ``cross_full`` / ``cross_decode`` — whisper's cross
+  attention: K/V made once from the encoder states, then a non-causal
+  attention of the decoder's Sq rows over the encoder's Sk keys (K1
+  with a key length of its own) or of one decode token (K2 over the
+  cross cache).  As in the JAX package the cross path projects without
+  the ``bq``/``bk``/``bv`` biases that ``init_attention`` makes (the
+  decoder's self-attention adds them).
 
 Layouts follow the JAX package: projections are ``x @ W`` with W of shape
 (in, out), heads are (B, H, S, D) after the projection.
@@ -261,6 +269,46 @@ def init_paged_scales(n_pages: int, cfg: AttnConfig, page_size: int,
     shape = lead + (n_pages, cfg.n_kv_heads, page_size)
     return (torch.zeros(shape, dtype=torch.float32, device=device),
             torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def init_cross_attention(gen: torch.Generator, cfg: AttnConfig, *,
+                         lead: tuple[int, ...] = (), dtype=torch.float32,
+                         device="cpu") -> dict:
+    return init_attention(gen, cfg, lead=lead, dtype=dtype, device=device)
+
+
+def cross_kv(p: dict, enc: torch.Tensor, cfg: AttnConfig):
+    """Cross-attention K/V (B, Hkv, Se, D) from encoder states (B, Se, d),
+    without biases."""
+    b, se, _ = enc.shape
+    k = (enc @ p["wk"]).reshape(b, se, cfg.n_kv_heads, cfg.d_head)
+    v = (enc @ p["wv"]).reshape(b, se, cfg.n_kv_heads, cfg.d_head)
+    return k.transpose(1, 2), v.transpose(1, 2)
+
+
+def cross_full(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               cfg: AttnConfig, use_kernel: bool | None = None
+               ) -> torch.Tensor:
+    """Cross attention of x (B, Sd, d) over the cross K/V (B, Hkv, Se, D):
+    no RoPE, not causal, no bias (K1 with Sk = Se on the card)."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head).transpose(1, 2)
+    out = ops.attention(q, k, v, causal=False, use_kernel=use_kernel)
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
+    return out @ p["wo"]
+
+
+def cross_decode(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cfg: AttnConfig, use_kernel: bool | None = None
+                 ) -> torch.Tensor:
+    """One decode token x (B, 1, d) over the whole cross cache (B, Hkv, Se,
+    D), no ``kv_len`` (K2 on the card)."""
+    b, one, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, one, cfg.n_heads,
+                              cfg.d_head).transpose(1, 2)
+    out = ops.decode_attention(q, k, v, use_kernel=use_kernel)
+    out = out.transpose(1, 2).reshape(b, one, cfg.n_heads * cfg.d_head)
+    return out @ p["wo"]
 
 
 def init_cache(batch: int, cfg: AttnConfig, max_len: int,

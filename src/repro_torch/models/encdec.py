@@ -1,0 +1,188 @@
+"""Encoder-decoder model (whisper-tiny's backbone), the JAX package's
+``models/encdec.py`` function for function.
+
+The audio conv frontend is a stub, as in the JAX package: the encoder
+takes precomputed frame embeddings (B, Se, d) through a learned
+projection.  Encoder: sinusoidal positions, then per layer LayerNorm ->
+bidirectional self-attention (K1, not causal) -> residual -> LayerNorm ->
+GELU MLP -> residual, and a final LayerNorm.  Decoder: learned positions
+(8192 rows), then per layer causal self-attention (K1 at prefill, K2 in
+decode), cross attention over the encoder states (K1 with the encoder's
+key length at prefill, K2 over the cross cache in decode) and the GELU
+MLP, each behind a LayerNorm and with a residual; the head is the tied
+``embed.T`` with float32 logits.  No RoPE anywhere.
+
+The parameter tree keeps the JAX names (``frontend_proj``,
+``enc_layers``, ``enc_ln``, ``embed``, ``pos_embed``, ``dec_layers``,
+``dec_ln``), the layer leaves stacked (L, ...), so
+:func:`repro_torch.bridge.params_from_jax` carries it as it is.  The
+serving engine does not take this model (the JAX engine passes no
+frames to prefill): it runs through :func:`prefill` and
+:func:`decode_step`.  ``decode_train`` and ``train_loss`` come with
+training (ROADMAP item 9).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ArchConfig
+from . import attention as attn
+from .layers import (apply_mlp, dense_init, embed_init, init_mlp, layer_norm,
+                     sinusoidal_positions)
+from .transformer import _cast, _layer, torch_dtype
+
+#: rows of the decoder's learned position table (a decode position is
+#: taken modulo it)
+POS_ROWS = 8192
+
+
+def _acfg(cfg: ArchConfig, causal: bool) -> attn.AttnConfig:
+    return attn.AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        d_head=cfg.head_dim, causal=causal, use_rope=False,
+        qkv_bias=cfg.qkv_bias)
+
+
+def _ln(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return layer_norm(x, p["w"], p["b"])
+
+
+def _ln_init(lead: tuple[int, ...], d: int, **kw) -> dict:
+    return {"w": torch.ones(lead + (d,), **kw),
+            "b": torch.zeros(lead + (d,), **kw)}
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device="cpu") -> dict:
+    """Random weights from ``seed`` with the JAX package's distributions,
+    held in ``compute_dtype`` on ``device``."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, kw = cfg.d_model, dict(dtype=dtype, device=device)
+    enc, dec = (cfg.n_encoder_layers,), (cfg.n_layers,)
+    return {
+        "frontend_proj": dense_init(gen, d, d, **kw),
+        "enc_layers": {
+            "ln1": _ln_init(enc, d, **kw),
+            "attn": attn.init_attention(gen, _acfg(cfg, False), lead=enc,
+                                        **kw),
+            "ln2": _ln_init(enc, d, **kw),
+            "mlp": init_mlp(gen, d, cfg.d_ff, gated=False, lead=enc, **kw)},
+        "enc_ln": _ln_init((), d, **kw),
+        "embed": embed_init(gen, cfg.padded_vocab, d, **kw),
+        "pos_embed": embed_init(gen, POS_ROWS, d, **kw),
+        "dec_layers": {
+            "ln1": _ln_init(dec, d, **kw),
+            "self_attn": attn.init_attention(gen, _acfg(cfg, True),
+                                             lead=dec, **kw),
+            "ln_x": _ln_init(dec, d, **kw),
+            "cross_attn": attn.init_cross_attention(gen, _acfg(cfg, False),
+                                                    lead=dec, **kw),
+            "ln2": _ln_init(dec, d, **kw),
+            "mlp": init_mlp(gen, d, cfg.d_ff, gated=False, lead=dec, **kw)},
+        "dec_ln": _ln_init((), d, **kw),
+    }
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig,
+           use_kernel: bool | None = None) -> torch.Tensor:
+    """frames (B, Se, d) stub embeddings -> encoder states (B, Se, d)."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    x = frames.to(dtype) @ params["frontend_proj"].to(dtype)
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 x.device).to(dtype)
+    acfg = _acfg(cfg, False)
+    layers = _cast(params["enc_layers"], dtype)
+    for i in range(cfg.n_encoder_layers):
+        lp = _layer(layers, i)
+        x = x + attn.full(lp["attn"], _ln(lp["ln1"], x), acfg,
+                          use_kernel=use_kernel)
+        x = x + apply_mlp(lp["mlp"], _ln(lp["ln2"], x), act="gelu")
+    return _ln(_cast(params["enc_ln"], dtype), x)
+
+
+def _embed(params: dict, tokens: torch.Tensor, pos: torch.Tensor,
+           cfg: ArchConfig) -> torch.Tensor:
+    """Token embeddings plus the learned positions ``pos % POS_ROWS``."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    pe = params["pos_embed"]
+    return params["embed"][tokens].to(dtype) + pe[pos % pe.shape[0]].to(dtype)
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The final LayerNorm and the tied head on (B, d) -> float32 (B, V)."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    x = _ln(_cast(params["dec_ln"], dtype), x)
+    return (x @ params["embed"].T.to(dtype)).float()
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int,
+                device="cpu") -> dict:
+    """Zeroed decode state: {"kv": (K, V)} the decoder's self-attention
+    caches, each (L, batch, Hkv, max_len, Dh), and {"cross_kv": (K, V)}
+    the cross caches, each (L, batch, Hkv, Se, Dh) with Se =
+    ``frontend_seq`` (or 128), all in ``cache_dtype``."""
+    dtype = torch_dtype(cfg.cache_dtype)
+    lead = (cfg.n_layers,)
+    se = cfg.frontend_seq or 128
+    cross = lead + (batch, cfg.n_kv_heads, se, cfg.head_dim)
+    return {"kv": attn.init_cache(batch, _acfg(cfg, True), max_len, dtype,
+                                  device, lead=lead),
+            "cross_kv": (torch.zeros(cross, dtype=dtype, device=device),
+                         torch.zeros(cross, dtype=dtype, device=device))}
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+            frontend_embeds: torch.Tensor, max_len: int | None = None,
+            use_kernel: bool | None = None):
+    """Encode ``frontend_embeds`` (B, Se, d), then run the decoder over the
+    prompt ``tokens`` (B, S); returns (last-token logits (B, V) float32,
+    caches): the self K/V zero-padded to ``max_len`` (>= S) and the cross
+    K/V of every layer (L, B, Hkv, Se, Dh)."""
+    b, s = tokens.shape
+    max_len = max(max_len or s, s)
+    enc = encode(params, frontend_embeds, cfg, use_kernel)
+    x = _embed(params, tokens, torch.arange(s, device=tokens.device), cfg)
+    sa, ca = _acfg(cfg, True), _acfg(cfg, False)
+    dtype, cdt = torch_dtype(cfg.compute_dtype), torch_dtype(cfg.cache_dtype)
+    sk, sv = attn.init_cache(b, sa, max_len, cdt, tokens.device,
+                             lead=(cfg.n_layers,))
+    cross = (cfg.n_layers, b, cfg.n_kv_heads, enc.shape[1], cfg.head_dim)
+    xk = torch.empty(cross, dtype=cdt, device=tokens.device)
+    xv = torch.empty_like(xk)
+    layers = _cast(params["dec_layers"], dtype)
+    for i in range(cfg.n_layers):
+        lp = _layer(layers, i)
+        h, (k, v) = attn.full(lp["self_attn"], _ln(lp["ln1"], x), sa,
+                              return_cache=True, use_kernel=use_kernel)
+        x = x + h
+        sk[i, :, :, :s] = k
+        sv[i, :, :, :s] = v
+        ck, cv = attn.cross_kv(lp["cross_attn"], enc, ca)
+        x = x + attn.cross_full(lp["cross_attn"], _ln(lp["ln_x"], x), ck, cv,
+                                ca, use_kernel=use_kernel)
+        xk[i], xv[i] = ck, cv
+        x = x + apply_mlp(lp["mlp"], _ln(lp["ln2"], x), act="gelu")
+    return _logits(params, x[:, -1], cfg), {"kv": (sk, sv),
+                                             "cross_kv": (xk, xv)}
+
+
+def decode_step(params: dict, caches: dict, token: torch.Tensor,
+                pos: torch.Tensor, cfg: ArchConfig,
+                use_kernel: bool | None = None):
+    """token (B, 1) int, pos (B,) int -> (logits (B, V) float32, caches).
+    The self caches get slot ``pos`` in place (``kv_len = pos + 1``); the
+    cross caches are read whole."""
+    x = _embed(params, token, pos[:, None], cfg)
+    sa, ca = _acfg(cfg, True), _acfg(cfg, False)
+    sk, sv = caches["kv"]
+    xk, xv = caches["cross_kv"]
+    layers = _cast(params["dec_layers"], torch_dtype(cfg.compute_dtype))
+    for i in range(cfg.n_layers):
+        lp = _layer(layers, i)
+        h, _, _ = attn.decode(lp["self_attn"], _ln(lp["ln1"], x), sk[i],
+                              sv[i], pos, sa, use_kernel=use_kernel)
+        x = x + h
+        x = x + attn.cross_decode(lp["cross_attn"], _ln(lp["ln_x"], x),
+                                  xk[i], xv[i], ca, use_kernel=use_kernel)
+        x = x + apply_mlp(lp["mlp"], _ln(lp["ln2"], x), act="gelu")
+    return _logits(params, x[:, 0], cfg), caches

@@ -1,9 +1,11 @@
-"""Shared model layers: init helpers, RMS norm, RoPE, gated MLP, causal
-conv.
+"""Shared model layers: init helpers, RMS and layer norm, RoPE, sinusoidal
+positions, the gated and ungated MLPs, causal conv.
 
 Plain functions on tensors; parameters are nested dicts.  The arithmetic
-follows the JAX package's layers: the norm and the rotary angles are
-computed in float32 and cast back to the input's dtype.
+follows the JAX package's layers: the norms and the rotary angles are
+computed in float32 and cast back to the input's dtype.  GELU is the tanh
+approximation, ``jax.nn.gelu``'s default (``torch``'s default is the
+exact erf form).
 """
 from __future__ import annotations
 
@@ -38,6 +40,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (x * torch.rsqrt(var + eps) * weight.float()).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(dtype)
+
+
 def rope_freqs(d_head: int, theta: float = 10000.0,
                device=None) -> torch.Tensor:
     exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device)
@@ -61,20 +73,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embedding (S, D) in float32: the sin
+    half, then the cos half."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    idx = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angles = pos / (10000.0 ** (2 * idx / dim))
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
-             lead: tuple[int, ...] = (), dtype=torch.float32,
-             device="cpu") -> dict:
+             gated: bool = True, lead: tuple[int, ...] = (),
+             dtype=torch.float32, device="cpu") -> dict:
     kw = dict(lead=lead, dtype=dtype, device=device)
-    return {"w_up": dense_init(gen, d_model, d_ff, **kw),
-            "w_down": dense_init(gen, d_ff, d_model, **kw),
-            "w_gate": dense_init(gen, d_model, d_ff, **kw)}
+    p = {"w_up": dense_init(gen, d_model, d_ff, **kw),
+         "w_down": dense_init(gen, d_ff, d_model, **kw)}
+    if gated:
+        p["w_gate"] = dense_init(gen, d_model, d_ff, **kw)
+    return p
 
 
-def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU MLP: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
+def _act(x: torch.Tensor, act: str) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh") if act == "gelu" else F.silu(x)
+
+
+def apply_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """``(act(x @ w_gate) * (x @ w_up)) @ w_down`` when the MLP is gated
+    (it has ``w_gate``), else ``act(x @ w_up) @ w_down``; ``act`` is
+    ``"silu"`` or ``"gelu"``."""
     up = x @ p["w_up"]
-    gate = x @ p["w_gate"]
-    return (F.silu(gate) * up) @ p["w_down"]
+    if "w_gate" in p:
+        return (_act(x @ p["w_gate"], act) * up) @ p["w_down"]
+    return _act(up, act) @ p["w_down"]
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,

@@ -1,6 +1,7 @@
-"""Model facade: one object per architecture over the decoder functions of
-:mod:`.transformer`.  Every method is a function of (params, inputs);
-``init`` and ``init_caches`` take the device to allocate on."""
+"""Model facade: one object per architecture, dispatching to the decoder
+functions of :mod:`.transformer` or, for an encoder-decoder arch
+(whisper), to :mod:`.encdec`.  Every method is a function of (params,
+inputs); ``init`` and ``init_caches`` take the device to allocate on."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -9,7 +10,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve
-from . import transformer
+from . import encdec, transformer
 
 
 @dataclass(frozen=True)
@@ -20,11 +21,22 @@ class Model:
         """Random weights from ``seed`` (a ``torch.Generator`` on ``device``;
         they do not equal the JAX package's draws — load those through
         :func:`repro_torch.bridge.params_from_jax`)."""
-        return transformer.init_params(self.cfg, seed, resolve(device))
+        init = (encdec.init_params if self.cfg.is_encoder_decoder
+                else transformer.init_params)
+        return init(self.cfg, seed, resolve(device))
+
+    def _decoder_only(self, what: str) -> None:
+        if self.cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{what} is decoder-only: the encoder-decoder "
+                f"{self.cfg.name!r} runs through prefill(frontend_embeds=) "
+                "and decode_step (its teacher-forced pass comes with "
+                "training, ROADMAP item 9)")
 
     def forward(self, params: dict, tokens: torch.Tensor,
                 use_kernel: bool | None = None):
         """tokens (B, S) -> (final-normed hidden (B, S, d), aux_loss)."""
+        self._decoder_only("forward")
         return transformer.forward(params, tokens, self.cfg,
                                    use_kernel=use_kernel)
 
@@ -33,28 +45,48 @@ class Model:
         return transformer.head_logits(params, hidden, self.cfg)
 
     def prefill(self, params: dict, tokens: torch.Tensor,
-                max_len: int | None = None, use_kernel: bool | None = None):
+                max_len: int | None = None, use_kernel: bool | None = None,
+                frontend_embeds: torch.Tensor | None = None):
+        """(last-token logits, caches).  An encoder-decoder arch takes its
+        encoder's input, ``frontend_embeds`` (B, Se, d); a decoder arch
+        takes none (the vision stub is not ported, ROADMAP item 8b.6)."""
+        if self.cfg.is_encoder_decoder:
+            if frontend_embeds is None:
+                raise ValueError(f"{self.cfg.name!r} is an encoder-decoder: "
+                                 "prefill needs frontend_embeds")
+            return encdec.prefill(params, tokens, self.cfg, frontend_embeds,
+                                  max_len, use_kernel=use_kernel)
+        if frontend_embeds is not None:
+            raise NotImplementedError(
+                "a decoder's frontend stub is not ported: ROADMAP queue 1, "
+                "item 8b.6")
         return transformer.prefill(params, tokens, self.cfg, max_len,
                                    use_kernel=use_kernel)
 
     def decode_step(self, params: dict, caches: dict, token: torch.Tensor,
                     pos: torch.Tensor, use_kernel: bool | None = None):
-        return transformer.decode_step(params, caches, token, pos, self.cfg,
-                                       use_kernel=use_kernel)
+        step = (encdec.decode_step if self.cfg.is_encoder_decoder
+                else transformer.decode_step)
+        return step(params, caches, token, pos, self.cfg,
+                    use_kernel=use_kernel)
 
     def init_caches(self, batch: int, max_len: int,
                     device: str | torch.device = "cuda") -> dict:
-        return transformer.init_caches(self.cfg, batch, max_len,
-                                       resolve(device))
+        init = (encdec.init_caches if self.cfg.is_encoder_decoder
+                else transformer.init_caches)
+        return init(self.cfg, batch, max_len, resolve(device))
 
     # -- paged KV (serving) ------------------------------------------------
     @property
     def supports_paged_cache(self) -> bool:
-        return transformer.supports_paged_cache(self.cfg)
+        return (not self.cfg.is_encoder_decoder
+                and transformer.supports_paged_cache(self.cfg))
 
     def init_paged_caches(self, n_pages: int, page_size: int,
                           device: str | torch.device = "cuda",
                           quantized: bool = False) -> dict:
+        if self.cfg.is_encoder_decoder:
+            raise ValueError("paged KV cache is decoder-only")
         return transformer.init_paged_caches(self.cfg, n_pages, page_size,
                                              resolve(device), quantized)
 

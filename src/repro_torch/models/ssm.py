@@ -1,12 +1,20 @@
-"""State-space block Mamba-1 (falcon-mamba-7b).
+"""State-space blocks: Mamba-1 (falcon-mamba-7b) and Mamba-2 / SSD
+(zamba2-7b).
 
 The JAX package's Mamba-1 block, function for function.  Prefill and
 ``forward`` run the whole sequence: in-projection, the depthwise causal
 conv, the selective scan (kernel K9 on the card, through
 :func:`..kernels.ops.ssm_scan`, which also hands prefill the final state)
 and the gated out-projection.  Decode is the O(1)-per-token recurrence in
-plain tensor ops, as the JAX step is jnp.  Mamba-2 (zamba2-7b) is not
-ported yet.
+plain tensor ops, as the JAX step is jnp.
+
+Mamba-2 (:func:`apply_mamba2`, :func:`step_mamba2`) is plain PyTorch
+throughout, as the JAX package's is jnp (no Pallas kernel there, so no
+kernel here): prefill runs the chunked SSD algorithm
+(:func:`ssd_chunked`: dense intra-chunk products, a sequential pass over
+the chunks' states), decode the one-step recurrence.  Both cast to
+float32 exactly where the JAX code does: ``dt``, ``b``, ``c``, ``x * dt``
+and the state ``h``.
 
 Types follow the JAX package's promotion rules, which PyTorch's matmul
 does not apply by itself: the serving lanes keep the conv state in
@@ -23,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .layers import causal_conv1d, dense_init
+from .layers import causal_conv1d, dense_init, rms_norm
 
 
 class Mamba1Config(NamedTuple):
@@ -132,3 +140,169 @@ def step_mamba1(p: dict, x: torch.Tensor, state: dict, cfg: Mamba1Config):
         + p["d_skip"].float() * xc.float()
     y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
     return y[:, None], {"conv": conv_buf[:, 1:], "h": h}
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 / SSD (zamba2-7b)
+# --------------------------------------------------------------------------
+
+
+class Mamba2Config(NamedTuple):
+    d_model: int
+    d_inner: int          # n_heads * head_dim
+    d_state: int          # 64
+    n_heads: int
+    head_dim: int
+    d_conv: int = 4
+    chunk: int = 64
+
+
+def init_mamba2(gen: torch.Generator, cfg: Mamba2Config, *,
+                lead: tuple[int, ...] = (), dtype=torch.float32,
+                device="cpu") -> dict:
+    """Random weights with the JAX package's distributions: uniform dense
+    projections, conv taps normal x 0.2 over the x, B and C channels,
+    zero biases, ``a_log`` the log of 1..H, ``d_skip`` and the gated
+    norm's weight one."""
+    di, n, h = cfg.d_inner, cfg.d_state, cfg.n_heads
+    conv_dim = di + 2 * n
+    kw = dict(lead=lead, dtype=dtype, device=device)
+    conv_w = torch.empty(lead + (cfg.d_conv, conv_dim), dtype=dtype,
+                         device=device)
+    a_log = torch.log(torch.arange(1, h + 1, dtype=torch.float32,
+                                   device=device))
+    return {
+        "in_proj": dense_init(gen, cfg.d_model, 2 * di + 2 * n + h, **kw),
+        "conv_w": conv_w.normal_(0.0, 1.0, generator=gen) * 0.2,
+        "conv_b": torch.zeros(lead + (conv_dim,), dtype=dtype, device=device),
+        "a_log": a_log.expand(lead + (h,)).to(dtype).clone(),
+        "dt_bias": torch.zeros(lead + (h,), dtype=dtype, device=device),
+        "d_skip": torch.ones(lead + (h,), dtype=dtype, device=device),
+        "norm_w": torch.ones(lead + (di,), dtype=dtype, device=device),
+        "out_proj": dense_init(gen, di, cfg.d_model, **kw),
+    }
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """L[i, j] = sum_{j < t <= i} a_t for i >= j, else -inf.  a: (..., Q)."""
+    q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_head: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                chunk: int, return_final_state: bool = False):
+    """The SSD (Mamba-2) chunked algorithm.  x (B, L, H, P); dt (B, L, H),
+    positive; a_head (H,), negative; b, c (B, L, N); d_skip (H,) -> y (B,
+    L, H, P) in x's dtype [, the final state (B, H, N, P) float32].
+
+    L is padded with zeros to a multiple of the chunk (``min(chunk, L)``);
+    a padded step has dt = 0, so its decay is exp(0) = 1 and its input 0,
+    and the final state is exact."""
+    bs, length, h, pdim = x.shape
+    n = b.shape[-1]
+    q = min(chunk, length)
+    pad = (-length) % q
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+    nc = x.shape[1] // q
+    xc = x.reshape(bs, nc, q, h, pdim)
+    dtc = dt.reshape(bs, nc, q, h).float()
+    bc = b.reshape(bs, nc, q, n).float()
+    cc = c.reshape(bs, nc, q, n).float()
+    a = dtc * a_head                                     # (B, nc, Q, H)
+
+    # intra-chunk: dense products
+    lmat = torch.exp(_segsum(a.transpose(2, 3)))         # (B, nc, H, Q, Q)
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)     # (B, nc, Q, Q)
+    w = scores[:, :, None] * lmat                        # (B, nc, H, Q, Q)
+    xdt = xc.float() * dtc[..., None]                    # (B, nc, Q, H, P)
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", w, xdt)
+
+    # the chunks' states and the recurrence over chunks
+    a_cum = torch.cumsum(a, dim=2)                       # (B, nc, Q, H)
+    a_tot = a_cum[:, :, -1]                              # (B, nc, H)
+    decay_out = torch.exp(a_tot[:, :, None] - a_cum)     # (B, nc, Q, H)
+    s_c = torch.einsum("bcjn,bcjhp,bcjh->bchnp", bc, xdt, decay_out)
+    h_run = torch.zeros((bs, h, n, pdim), dtype=torch.float32,
+                        device=x.device)
+    h_in = []
+    for i in range(nc):
+        h_in.append(h_run)
+        h_run = torch.exp(a_tot[:, i])[..., None, None] * h_run + s_c[:, i]
+    h_in = torch.stack(h_in, dim=1)                      # (B, nc, H, N, P)
+
+    decay_in = torch.exp(a_cum)                          # (B, nc, Q, H)
+    y_inter = torch.einsum("bcin,bchnp,bcih->bcihp", cc, h_in, decay_in)
+    y = y_intra + y_inter + xc.float() * d_skip[:, None]
+    y = y.reshape(bs, nc * q, h, pdim)[:, :length].to(x.dtype)
+    if return_final_state:
+        return y, h_run
+    return y
+
+
+def apply_mamba2(p: dict, x: torch.Tensor, cfg: Mamba2Config,
+                 return_state: bool = False):
+    """x (B, L, d) -> (B, L, d) [, the final decode state {"conv": (B,
+    d_conv - 1, Di + 2N), "h": (B, H, N, P) float32}]."""
+    di, n, h, pd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
+    z, xbc_raw, dt = (x @ p["in_proj"]).split([di, di + 2 * n, h], dim=-1)
+    xbc = F.silu(causal_conv1d(xbc_raw, p["conv_w"], p["conv_b"]))
+    xin, bmat, cmat = xbc.split([di, n, n], dim=-1)
+    dt = F.softplus(dt + p["dt_bias"])                   # (B, L, H)
+    a_head = -torch.exp(p["a_log"].float())              # (H,)
+    bsz, length, _ = x.shape
+    out = ssd_chunked(xin.reshape(bsz, length, h, pd), dt, a_head, bmat,
+                      cmat, p["d_skip"], cfg.chunk,
+                      return_final_state=return_state)
+    y, hf = out if return_state else (out, None)
+    y = rms_norm(y.reshape(bsz, length, di) * F.silu(z), p["norm_w"])
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, {"conv": _conv_tail(xbc_raw, cfg.d_conv), "h": hf}
+    return out
+
+
+def init_mamba2_state(batch: int, cfg: Mamba2Config, *,
+                      lead: tuple[int, ...] = (), dtype=torch.float32,
+                      device="cpu") -> dict:
+    """Zero decode state: conv (batch, d_conv - 1, Di + 2N) in ``dtype``
+    (float32 by default, as in the JAX package), h (batch, H, N, P)
+    float32."""
+    conv_dim = cfg.d_inner + 2 * cfg.d_state
+    return {
+        "conv": torch.zeros(lead + (batch, cfg.d_conv - 1, conv_dim),
+                            dtype=dtype, device=device),
+        "h": torch.zeros(lead + (batch, cfg.n_heads, cfg.d_state,
+                                 cfg.head_dim),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def step_mamba2(p: dict, x: torch.Tensor, state: dict, cfg: Mamba2Config):
+    """One decode step.  x (B, 1, d) -> (y (B, 1, d), new state).  The
+    state passed in is not written; the caller stores the new one.  A
+    float32 conv state promotes the conv output to float32, as
+    ``jnp`` does."""
+    di, n, h, pd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
+    z, xbc, dt = (x[:, 0] @ p["in_proj"]).split([di, di + 2 * n, h], dim=-1)
+    conv_buf = torch.cat([state["conv"], xbc[:, None]], dim=1)
+    xbc = F.silu((conv_buf * p["conv_w"][None]).sum(dim=1) + p["conv_b"])
+    xin, bmat, cmat = xbc.split([di, n, n], dim=-1)
+    dt = F.softplus(dt + p["dt_bias"]).float()           # (B, H)
+    a_head = -torch.exp(p["a_log"].float())
+    da = torch.exp(dt * a_head[None])                    # (B, H)
+    xh = xin.reshape(-1, h, pd).float()
+    hst = da[..., None, None] * state["h"] + torch.einsum(
+        "bn,bhp,bh->bhnp", bmat.float(), xh, dt)
+    y = torch.einsum("bn,bhnp->bhp", cmat.float(), hst) \
+        + p["d_skip"][None, :, None] * xh
+    y = y.reshape(-1, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_w"])
+    return (y @ p["out_proj"])[:, None], {"conv": conv_buf[:, 1:], "h": hst}

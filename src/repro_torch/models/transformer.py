@@ -1,14 +1,19 @@
 """Decoder LM assembly for the ``attn_mlp`` (dense archs), ``attn_moe``
-(MoE archs) and ``mamba1`` (falcon-mamba) layer kinds.
+(MoE archs), ``mamba1`` (falcon-mamba) and ``mamba2`` (zamba2) layer
+kinds; the encoder-decoder (whisper) is :mod:`.encdec`.
 
 Layers are stacked along a leading axis as in the JAX package (every
 leaf of ``params["layers"]`` is (L, ...)), and the JAX ``lax.scan`` over
 them is a Python loop here.  Per ``attn_mlp`` layer: ``rms_norm`` ->
 attention -> residual -> ``rms_norm`` -> gated-SiLU MLP -> residual; an
 ``attn_moe`` layer has the MoE (:mod:`.moe`) in the MLP's place; per
-``mamba1`` layer: ``rms_norm`` -> Mamba-1 block -> residual; then the
-final norm and the LM head, whose logits are float32 over
-``padded_vocab``.
+``mamba1`` or ``mamba2`` layer: ``rms_norm`` -> Mamba block ->
+residual; then the final norm and the LM head, whose logits are float32
+over ``padded_vocab``.  A hybrid stack (zamba2, ``attn_period`` > 0)
+also runs one shared transformer block (``params["shared_attn"]``: the
+same weights at every application) after every ``attn_period``-th
+layer, and keeps one KV ring buffer per application, ``shared_kv``
+(napp, B, Hkv, W, Dh) each for K and V.
 
 The MoE's capacity drops depend on the whole token set of a call, so
 every mode hands it the step's tokens as the JAX step does: the (B, S)
@@ -29,8 +34,7 @@ prompt chunk per lane), ``paged_decode_step`` and ``speculative_step``
 into the layer-stacked page pools in place (and into their per-row
 scales, for int8 pools).  ``slice_draft_params`` gives the
 self-speculative draft its weights as views of the target's leading
-layers (the MoE's stacked experts too).  Other layer kinds are not
-ported yet.
+layers (the MoE's stacked experts too).
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from . import ssm
 from .layers import apply_mlp, dense_init, embed_init, init_mlp, rms_norm
 
 _OTHER_FAMILIES = "ROADMAP queue 1, item 8 (the other model families)"
+_KINDS = ("attn_mlp", "attn_moe", "mamba1", "mamba2", "encdec_layer")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -52,19 +57,28 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for what this slice of the port does not run."""
+    """Raise for what the port does not run: the vision frontend stub
+    (pixtral-12b, item 8b.6); layer norm, GELU and the audio frontend
+    outside the encoder-decoder family, which alone has them."""
     kind = cfg.layer_kinds()[0]
-    if kind not in ("attn_mlp", "attn_moe", "mamba1"):
+    if kind not in _KINDS:
         raise NotImplementedError(
             f"layer kind {kind!r} ({cfg.name}) is not ported yet: "
             f"{_OTHER_FAMILIES}")
+    if cfg.frontend == "vision":
+        raise NotImplementedError(
+            f"the vision frontend stub ({cfg.name}) is not ported yet: "
+            "ROADMAP queue 1, item 8b.6")
+    if cfg.is_encoder_decoder:
+        return
     for what, unsupported in (
             ("the frontend stub", cfg.frontend != "none"),
             ("layer norm", cfg.norm != "rms"),
             (f"activation {cfg.act!r}", cfg.act != "silu")):
         if unsupported:
             raise NotImplementedError(
-                f"{what} ({cfg.name}) is not ported yet: {_OTHER_FAMILIES}")
+                f"{what} outside the encoder-decoder family ({cfg.name}) "
+                f"is not ported: {_OTHER_FAMILIES}")
 
 
 def attn_config(cfg: ArchConfig) -> attn.AttnConfig:
@@ -83,6 +97,12 @@ def moe_config(cfg: ArchConfig) -> moe.MoEConfig:
 
 def mamba1_config(cfg: ArchConfig) -> ssm.Mamba1Config:
     return ssm.Mamba1Config(cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state)
+
+
+def mamba2_config(cfg: ArchConfig) -> ssm.Mamba2Config:
+    return ssm.Mamba2Config(cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state,
+                            cfg.ssm_n_heads, cfg.ssm_head_dim,
+                            chunk=cfg.ssm_chunk)
 
 
 def _cast(tree, dtype: torch.dtype):
@@ -108,9 +128,14 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cpu") -> dict:
     gen = torch.Generator(device=device).manual_seed(seed)
     lead, d = (cfg.n_layers,), cfg.d_model
     kw = dict(dtype=dtype, device=device)
-    if cfg.layer_kinds()[0] == "mamba1":
+    kind = cfg.layer_kinds()[0]
+    if kind == "mamba1":
         layers = {"norm1_w": torch.ones(lead + (d,), **kw),
                   "ssm": ssm.init_mamba1(gen, mamba1_config(cfg), lead=lead,
+                                         **kw)}
+    elif kind == "mamba2":
+        layers = {"norm1_w": torch.ones(lead + (d,), **kw),
+                  "ssm": ssm.init_mamba2(gen, mamba2_config(cfg), lead=lead,
                                          **kw)}
     else:
         layers = {
@@ -129,6 +154,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cpu") -> dict:
          "final_norm_w": torch.ones((d,), **kw)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, d, cfg.padded_vocab, **kw)
+    if cfg.attn_period > 0:     # zamba2's shared attention block
+        p["shared_attn"] = {
+            "attn": attn.init_attention(gen, attn_config(cfg), **kw),
+            "mlp": init_mlp(gen, d, cfg.d_ff, **kw),
+            "norm1_w": torch.ones((d,), **kw),
+            "norm2_w": torch.ones((d,), **kw)}
     return p
 
 
@@ -186,6 +217,9 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
     elif kind == "mamba1":
         x = x + ssm.apply_mamba1(p["ssm"], rms_norm(x, p["norm1_w"]),
                                  mamba1_config(cfg), use_kernel=use_kernel)
+    elif kind == "mamba2":
+        x = x + ssm.apply_mamba2(p["ssm"], rms_norm(x, p["norm1_w"]),
+                                 mamba2_config(cfg))
     else:
         raise ValueError(kind)
     if aux is None:
@@ -198,16 +232,50 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """tokens (B, S) -> (final-normed hidden (B, S, d), aux_loss): the
     train/prefill forward without the caches.  A ``mamba1`` stack runs
     one selective scan (K9 on the card) per layer, without the final
-    state."""
+    state; a hybrid stack its shared block after every
+    ``attn_period``-th layer."""
     check_supported(cfg)
     x = embed_tokens(params, tokens, cfg)
     kind = cfg.layer_kinds()[0]
     layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
+    shared = _shared(params, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         x, a = apply_layer(_layer(layers, i), x, cfg, kind, use_kernel)
         aux = aux + a
+        if _applies(cfg, i):
+            x = _shared_block(shared, x, cfg, use_kernel)[0]
     return _final_norm(params, x, cfg), aux
+
+
+def _shared(params: dict, cfg: ArchConfig) -> dict | None:
+    """The shared block's weights in compute dtype, None without one."""
+    if cfg.attn_period <= 0:
+        return None
+    return _cast(params["shared_attn"], torch_dtype(cfg.compute_dtype))
+
+
+def _applies(cfg: ArchConfig, i: int) -> bool:
+    """Does the shared block run after layer ``i``?"""
+    return cfg.attn_period > 0 and (i + 1) % cfg.attn_period == 0
+
+
+def _app_index(cfg: ArchConfig, i: int) -> int:
+    """Which application of the shared block follows layer ``i`` (its
+    ``shared_kv`` slot)."""
+    return (i + 1) // cfg.attn_period - 1
+
+
+def _shared_block(sp: dict, x: torch.Tensor, cfg: ArchConfig,
+                  use_kernel: bool | None):
+    """The shared transformer block over a whole sequence: windowed
+    causal attention (K1 on the card), then the gated MLP, each with a
+    residual.  Returns (x, (k, v)): the K/V the attention made."""
+    h, kv = attn.full(sp["attn"], rms_norm(x, sp["norm1_w"]),
+                      attn_config(cfg), return_cache=True,
+                      use_kernel=use_kernel)
+    x = x + h
+    return x + apply_mlp(sp["mlp"], rms_norm(x, sp["norm2_w"])), kv
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
@@ -218,15 +286,29 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     ``min(max_len, window)`` slots (:func:`attn.init_cache`);
     for ``mamba1`` {"ssm": {"conv": (L, batch, d_conv - 1, Di), "h": (L,
     batch, Di, N)}}, both float32 as in the JAX package (``max_len`` does
-    not size it)."""
+    not size it); for ``mamba2`` {"ssm": {"conv": (L, batch, d_conv - 1,
+    Di + 2N), "h": (L, batch, H, N, P)}}, float32, and the shared block's
+    rings {"shared_kv": (K, V)}, each (napp, batch, Hkv, W, Dh) in
+    ``cache_dtype``."""
     check_supported(cfg)
-    if cfg.layer_kinds()[0] == "mamba1":
+    kind, lead = cfg.layer_kinds()[0], (cfg.n_layers,)
+    if kind == "mamba1":
         return {"ssm": ssm.init_mamba1_state(batch, mamba1_config(cfg),
-                                             lead=(cfg.n_layers,),
-                                             device=device)}
+                                             lead=lead, device=device)}
+    if kind == "mamba2":
+        return {"ssm": ssm.init_mamba2_state(batch, mamba2_config(cfg),
+                                             lead=lead, device=device),
+                "shared_kv": _init_shared_kv(cfg, batch, max_len, device)}
     return {"kv": attn.init_cache(batch, attn_config(cfg), max_len,
                                   torch_dtype(cfg.cache_dtype), device,
-                                  lead=(cfg.n_layers,))}
+                                  lead=lead)}
+
+
+def _init_shared_kv(cfg: ArchConfig, batch: int, max_len: int, device):
+    """Zeroed rings of the shared block, one per application."""
+    return attn.init_cache(batch, attn_config(cfg), max_len,
+                           torch_dtype(cfg.cache_dtype), device,
+                           lead=(cfg.n_shared_attn_applications(),))
 
 
 def decode_step(params: dict, caches: dict, token: torch.Tensor,
@@ -235,22 +317,36 @@ def decode_step(params: dict, caches: dict, token: torch.Tensor,
     """token (B, 1) int, pos (B,) int -> (logits (B, V), caches).
 
     The caches are updated in place (slot ``pos`` of every layer, ``pos %
-    window`` of a sliding-window ring buffer, or every
-    Mamba-1 layer's conv and recurrent state, which ignore ``pos``) and
-    returned."""
+    window`` of a sliding-window ring buffer, or every Mamba layer's conv
+    and recurrent state, which ignore ``pos``, and the shared block's
+    ring of each application) and returned."""
     check_supported(cfg)
     x = embed_tokens(params, token, cfg)
     layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
     kind = cfg.layer_kinds()[0]
-    if kind == "mamba1":
-        mcfg, state = mamba1_config(cfg), caches["ssm"]
+    if kind in ("mamba1", "mamba2"):
+        step, mcfg = ((ssm.step_mamba1, mamba1_config(cfg))
+                      if kind == "mamba1" else
+                      (ssm.step_mamba2, mamba2_config(cfg)))
+        state, shared = caches["ssm"], _shared(params, cfg)
+        acfg = attn_config(cfg)
         for i in range(cfg.n_layers):
             lp = _layer(layers, i)
-            h, new = ssm.step_mamba1(lp["ssm"], rms_norm(x, lp["norm1_w"]),
-                                     _layer(state, i), mcfg)
+            h, new = step(lp["ssm"], rms_norm(x, lp["norm1_w"]),
+                          _layer(state, i), mcfg)
             for key, t in new.items():
                 state[key][i].copy_(t)
             x = x + h
+            if _applies(cfg, i):
+                a = _app_index(cfg, i)
+                sk, sv = caches["shared_kv"]
+                h, _, _ = attn.decode(shared["attn"],
+                                      rms_norm(x, shared["norm1_w"]),
+                                      sk[a], sv[a], pos, acfg,
+                                      use_kernel=use_kernel)
+                x = x + h
+                x = x + apply_mlp(shared["mlp"],
+                                  rms_norm(x, shared["norm2_w"]))
         return _logits(params, x[:, 0], cfg), caches
     acfg = attn_config(cfg)
     ck, cv = caches["kv"]
@@ -276,12 +372,18 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     returns each layer's final state instead, {"ssm": {"conv": (L, B,
     d_conv - 1, Di) in compute dtype, "h": (L, B, Di, N) float32}}, from
     one selective scan per layer (K9 on the card, which returns the state
-    itself)."""
+    itself).  A ``mamba2`` stack returns each layer's final state from the
+    chunked SSD, {"ssm": {"conv": (L, B, d_conv - 1, Di + 2N), "h": (L,
+    B, H, N, P) float32}}, and the shared block's K/V of each application
+    in its ring layout, {"shared_kv": (K, V)} each (napp, B, Hkv, W, Dh):
+    collected as the block runs, not as the JAX package's zero-padded
+    stack of every layer compacted by a 0/1 selector (whose values are
+    the same)."""
     check_supported(cfg)
     x = embed_tokens(params, tokens, cfg)
     kind = cfg.layer_kinds()[0]
-    if kind == "mamba1":
-        return _prefill_mamba1(params, x, cfg, use_kernel)
+    if kind in ("mamba1", "mamba2"):
+        return _prefill_ssm(params, x, cfg, max_len, use_kernel)
     b, s, _ = x.shape
     acfg = attn_config(cfg)
     max_len = max(max_len or s, s)
@@ -311,19 +413,38 @@ def _ring(k: torch.Tensor, w: int) -> torch.Tensor:
     return torch.roll(k[:, :, s - w:], (s - w) % w, dims=2)
 
 
-def _prefill_mamba1(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                    use_kernel: bool | None):
-    mcfg = mamba1_config(cfg)
+def _prefill_ssm(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                 max_len: int | None, use_kernel: bool | None):
+    """Prefill of a Mamba-1 or Mamba-2 stack (and a hybrid's shared
+    block): every layer's final state, and the block's rings."""
+    b, s, _ = x.shape
+    if cfg.layer_kinds()[0] == "mamba1":
+        apply = functools.partial(ssm.apply_mamba1, use_kernel=use_kernel)
+        mcfg = mamba1_config(cfg)
+    else:
+        apply, mcfg = ssm.apply_mamba2, mamba2_config(cfg)
     layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
+    shared = _shared(params, cfg)
+    if shared is not None:
+        sk, sv = shared_kv = _init_shared_kv(cfg, b, max(max_len or s, s),
+                                             x.device)
+        n = min(s, sk.shape[3])
     states = []
     for i in range(cfg.n_layers):
         lp = _layer(layers, i)
-        h, st = ssm.apply_mamba1(lp["ssm"], rms_norm(x, lp["norm1_w"]), mcfg,
-                                 return_state=True, use_kernel=use_kernel)
+        h, st = apply(lp["ssm"], rms_norm(x, lp["norm1_w"]), mcfg,
+                      return_state=True)
         x = x + h
         states.append(st)
+        if _applies(cfg, i):
+            x, (k, v) = _shared_block(shared, x, cfg, use_kernel)
+            a = _app_index(cfg, i)
+            sk[a, :, :, :n] = _ring(k, sk.shape[3])
+            sv[a, :, :, :n] = _ring(v, sk.shape[3])
     caches = {"ssm": {key: torch.stack([st[key] for st in states])
                       for key in ("conv", "h")}}
+    if shared is not None:
+        caches["shared_kv"] = shared_kv
     return _logits(params, x[:, -1], cfg), caches
 
 

@@ -119,6 +119,13 @@ class ServingEngine:
             raise NotImplementedError(
                 "mesh: tensor-parallel serving (ROADMAP queue 1, item 10) "
                 "is not ported yet")
+        if model.cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{model.cfg.name!r} is an encoder-decoder: its prefill "
+                "needs the encoder's frames, and a request carries none "
+                "(the JAX ServingEngine passes none either, so neither "
+                "package serves it); run it through Model.prefill("
+                "frontend_embeds=...) and Model.decode_step")
         self.model = model
         self.params = params
         self.device = params["embed"].device

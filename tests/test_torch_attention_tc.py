@@ -124,7 +124,8 @@ def normalise(l, acc):
 
 
 # --------------------------------------------------------------------------
-# K1: dense self-attention
+# K1: dense self-attention, and cross attention with a key length of its
+# own
 # --------------------------------------------------------------------------
 
 
@@ -132,16 +133,18 @@ def k1_emulate(q, k, v, causal=True, window=None, block_q=64, block_k=64):
     """The bf16 K1's arithmetic and tiling in plain torch at the tile
     ``block_q`` x ``block_k``; output like q.  A block's query rows only
     choose which steps are skipped (nothing), and a ``block_k``-key copy
-    is walked in ``K1_STEP_KEYS``-key steps."""
+    is walked in ``K1_STEP_KEYS``-key steps, up to the keys' own length
+    (which differs from the rows' in cross attention)."""
     b, h, s_len, d = q.shape
+    sk = k.shape[2]
     g = h // k.shape[1]
     kk = torch.repeat_interleave(k.float(), g, dim=1)
     vv = torch.repeat_interleave(v.float(), g, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk)
     s = s * np.float32(d ** -0.5 * LOG2E)
     qi = torch.arange(s_len)[:, None]
-    kj = torch.arange(s_len)[None, :]
-    mask = torch.ones(s_len, s_len, dtype=torch.bool)
+    kj = torch.arange(sk)[None, :]
+    mask = torch.ones(s_len, sk, dtype=torch.bool)
     if causal:
         mask &= kj <= qi
     if window is not None:
@@ -149,9 +152,9 @@ def k1_emulate(q, k, v, causal=True, window=None, block_q=64, block_k=64):
     s = torch.where(mask, s, ref.NEG_INF)
     assert block_q % 16 == 0 and block_k % K1_STEP_KEYS == 0
     steps = [slice(t0 + j, t0 + j + K1_STEP_KEYS)
-             for t0 in range(0, s_len, block_k)
+             for t0 in range(0, sk, block_k)
              for j in range(0, block_k, K1_STEP_KEYS)
-             if t0 + j < s_len]     # a step past S is skipped
+             if t0 + j < sk]     # a step past Sk is skipped
     _, l, acc = online_softmax(s, vv, steps)
     return normalise(l, acc).to(q.dtype)
 
@@ -167,6 +170,7 @@ K1_CASES = [
     ("G=3", 24, 8, 128, 300, True, None),
     ("G=8 D=64 non-causal window 32", 32, 4, 64, 200, False, 32),
     ("h2o-danube D=80 S=300 window 128", 32, 8, 80, 300, True, 128),
+    ("zamba2 D=112 S=300 window 128", 32, 32, 112, 300, True, 128),
 ]
 
 
@@ -208,14 +212,36 @@ def test_k1_emulation_against_jax_kernel_in_interpret_mode(h, hkv, s_len,
                                * float(v.abs().max()) + FP32_SUMS)
 
 
+@pytest.mark.parametrize("sq,sk,hkv,d", [(1, 300, 6, 64), (4, 300, 6, 64),
+                                         (224, 300, 6, 64), (9, 70, 2, 16)])
+def test_k1_emulation_cross_length_within_bf16_of_plain(sq, sk, hkv, d):
+    """Cross attention (whisper's decoder rows over its encoder's keys, not
+    causal): the kernel's arithmetic over Sk keys in its 64-key steps, the
+    last one ragged, within the bf16 tolerance of ``ref.attention_ref``
+    and within P's rounding bound before the output's rounding."""
+    q = rand((2, 6, sq, d), 37).to(torch.bfloat16)
+    k = rand((2, hkv, sk, d), 38).to(torch.bfloat16)
+    v = rand((2, hkv, sk, d), 39).to(torch.bfloat16)
+    got = k1_emulate(q, k, v, causal=False)
+    want = ref.attention_ref(q, k, v, causal=False)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **BF16_TOL)
+    got32 = k1_emulate(q.float(), k, v, causal=False)
+    want32 = ref.attention_ref(q.float(), k.float(), v.float(), causal=False)
+    np.testing.assert_allclose(got32.numpy(), want32.numpy(), rtol=0,
+                               atol=P_ROUNDING * float(v.float().abs().max())
+                               + FP32_SUMS)
+
+
 K1_TILES = [(bq, bk) for bq in (64, 128) for bk in (64, 128)]
 
 
 @pytest.mark.parametrize("tile", K1_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
-@pytest.mark.parametrize("case", [c for c in K1_CASES if c[3] in (80, 128)],
+@pytest.mark.parametrize("case", [c for c in K1_CASES
+                                  if c[3] in (80, 112, 128)],
                          ids=lambda c: c[0])
 def test_k1_every_tile_against_plain_and_jax_kernel(case, tile):
-    """Each D = 128 and D = 80 instance (block_q 64 or 128 by block_k 64
+    """Each D = 128, 80 and 112 instance (block_q 64 or 128 by block_k 64
     or 128): the
     emulation within the bf16 tolerance of ``ref.attention_ref``, equal
     bit for bit to the default tile's, and within 2^-9 max |v| + 1e-5 of

@@ -1747,3 +1747,169 @@ def test_d80_routes_without_an_instance_raise_on_the_card(cuda_device):
     start = torch.zeros(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="head dim 80"):
         pa.flash_paged_prefill(qc, kpc, vpc, tablec, start, lensc)
+
+
+# --------------------------------------------------------------------------
+# whisper-tiny's cross attention (K1 with a key length of its own, K2 over
+# the 1500 encoder frames) and zamba2-7b's D 112 (K1, K2's dense mode)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq", [1, 4, 224])
+@pytest.mark.parametrize("h,hkv,d,sk", [(6, 6, 64, 1500), (8, 2, 16, 1500),
+                                        (6, 6, 64, 70)])
+def test_attention_cross_length_matches_plain(cuda_device, dtype, sq, h, hkv,
+                                              d, sk):
+    """K1 with Sq != Sk (whisper's cross attention: the decoder's prompt
+    over the encoder's frames; a key count that is no multiple of the
+    tile), not causal: against the plain version, which aligns the ends;
+    one launch, on the tensor cores for a bf16 query."""
+    q = rand((2, h, sq, d), 540, cuda_device, dtype, 0.3)
+    k = rand((2, hkv, sk, d), 541, cuda_device, dtype, 0.3)
+    v = rand((2, hkv, sk, d), 542, cuda_device, dtype)
+    n = fa.flash_attention.launches
+    got = ops.attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1
+    assert fa.flash_attention.last_kernel == (
+        fa.TC_KERNEL if dtype == torch.bfloat16 else "flash_attention_kernel")
+    assert got.shape == q.shape
+    close(got, ref.attention_ref(q, k, v, causal=False), dtype)
+
+
+def test_attention_cross_length_with_a_mask_raises_on_the_card(cuda_device):
+    q = rand((1, 6, 4, 64), 543, cuda_device, torch.bfloat16)
+    k = rand((1, 6, 1500, 64), 544, cuda_device, torch.bfloat16)
+    n = fa.flash_attention.launches
+    for kw in (dict(causal=True), dict(causal=False, window=64)):
+        with pytest.raises(ValueError, match="cross attention"):
+            fa.flash_attention(q, k, k, **kw)
+    assert fa.flash_attention.launches == n
+
+
+def _nan_tailed(shape, seed, device):
+    """A contiguous bf16 tensor of ``shape`` cut from the front of a longer
+    buffer whose tail (64 rows of the last strip's width) is NaN: a read
+    past the last strip's S rows shows in the output."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + 64 * shape[-1],), float("nan"), dtype=torch.bfloat16,
+                     device=device)
+    out = buf[:n].view(shape)
+    out.copy_(rand(shape, seed, device, torch.bfloat16))
+    return out
+
+
+@pytest.mark.parametrize("cluster", pa.CLUSTER_SIZES + (None,))
+@pytest.mark.parametrize("ragged", [False, True], ids=["whole", "ragged"])
+def test_tc_dense_decode_over_1500_frames_matches_plain(cuda_device, cluster,
+                                                        ragged):
+    """K2 over whisper's cross cache: 1500 rows (the last 64-key tile holds
+    28 keys, so its copies must zero-fill past S and never read there), D
+    64, G 1, 4 lanes of 6 kv heads, no ``kv_len`` (the cross call) or
+    ragged ones; the memory past the last strip is NaN and stays unread."""
+    b, h, s, d = 4, 6, 1500, 64
+    k = _nan_tailed((b, h, s, d), 545, cuda_device)
+    v = _nan_tailed((b, h, s, d), 546, cuda_device)
+    q = rand((b, h, 1, d), 547, cuda_device, torch.bfloat16)
+    lens = (torch.tensor([1500, 1499, 1473, 64], dtype=torch.int32,
+                         device=cuda_device) if ragged else None)
+    got = fa.flash_decode(q, k, v, lens, _cluster=cluster)
+    torch.cuda.synchronize()
+    assert fa.flash_decode.last_kernel == pa.DECODE_TC_KERNEL
+    assert bool(torch.isfinite(got).all())
+    close(got, ref.decode_ref(q, k, v, lens), torch.bfloat16)
+
+
+@pytest.mark.parametrize("tile", fa.attention_tiles(torch.bfloat16, 112),
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("h,hkv,s,causal,window", [
+    (32, 32, 700, True, 256), (4, 4, 300, True, None),
+    (4, 2, 77, False, 16), (4, 4, 1, True, None)])
+def test_tc_attention_d112_every_tile_matches_plain(cuda_device, h, hkv, s,
+                                                    causal, window, tile):
+    """The bf16 K1 at D 112 (zamba2's shared block, G 1) at each of its
+    four tiles: against plain, with a window that S passes, bit-equal to
+    the default tile, one launch counted under its tile."""
+    q = rand((2, h, s, 112), 550, cuda_device, torch.bfloat16)
+    k = rand((2, hkv, s, 112), 551, cuda_device, torch.bfloat16)
+    v = rand((2, hkv, s, 112), 552, cuda_device, torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    n = fa.flash_attention.by_tile[tile]
+    got = fa.flash_attention(q, k, v, **kw, block_q=tile[0], block_k=tile[1])
+    torch.cuda.synchronize()
+    assert fa.flash_attention.by_tile[tile] == n + 1
+    assert fa.flash_attention.last_kernel == fa.TC_KERNEL
+    close(got, ref.attention_ref(q, k, v, **kw), torch.bfloat16)
+    assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+
+
+def test_attention_d112_float32_matches_plain(cuda_device):
+    q = rand((2, 4, 150, 112), 553, cuda_device, torch.float32, 0.3)
+    k = rand((2, 4, 150, 112), 554, cuda_device, torch.float32, 0.3)
+    v = rand((2, 4, 150, 112), 555, cuda_device, torch.float32)
+    got = fa.flash_attention(q, k, v, causal=True, window=40)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.last_kernel == "flash_attention_kernel"
+    close(got, ref.attention_ref(q, k, v, causal=True, window=40),
+          torch.float32)
+
+
+@pytest.mark.parametrize("tile", fa.attention_tiles(torch.bfloat16, 112),
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+def test_tc_attention_d112_instances_fit_the_card(cuda_device, tile):
+    info = fa.tc_info(112, *tile)
+    assert info["smem_bytes"] == fa.smem_bytes(*tile, 112)
+    assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+@pytest.mark.parametrize("cluster", pa.CLUSTER_SIZES + (None,))
+@pytest.mark.parametrize("h,hkv,s", [(32, 32, 4096), (4, 2, 1000)])
+def test_tc_dense_decode_d112_matches_plain(cuda_device, h, hkv, s, cluster,
+                                            block_k):
+    """K2 (the dense mode) at D 112 at both key tiles and every cluster
+    size: a ring of S slots with an empty lane (exactly 0), one shorter
+    than a tile, a full one and one past S (clamped)."""
+    kv_len = torch.tensor([0, 37, s, s + 9], dtype=torch.int32,
+                          device=cuda_device)
+    q = rand((4, h, 1, 112), 560, cuda_device, torch.bfloat16)
+    k = rand((4, hkv, s, 112), 561, cuda_device, torch.bfloat16)
+    v = rand((4, hkv, s, 112), 562, cuda_device, torch.bfloat16)
+    n = fa.flash_decode.by_tile[block_k]
+    got = fa.flash_decode(q, k, v, kv_len, block_k=block_k, _cluster=cluster)
+    torch.cuda.synchronize()
+    assert fa.flash_decode.by_tile[block_k] == n + 1
+    assert fa.flash_decode.last_kernel == pa.DECODE_TC_KERNEL
+    assert torch.all(got[0] == 0)
+    close(got[1:], ref.decode_ref(q, k, v, kv_len)[1:], torch.bfloat16)
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+def test_tc_dense_decode_d112_instances_fit_the_card(cuda_device, block_k):
+    """The D 112 dense instances hold at least the two CTAs an SM that
+    ``cluster_size`` counts on and build without spilling; the paged and
+    partials modes have no D 112 instance."""
+    info = pa.decode_tc_info(112, "bf16 dense", block_k=block_k)
+    assert info["blocks_per_sm"] >= pa.DECODE_CTAS_PER_SM
+    assert all(n >= 1 for n in info["clusters"].values())
+    assert info["local_bytes"] == 0
+    for kind in pa.DECODE_KINDS:
+        if kind != "bf16 dense":
+            with pytest.raises(RuntimeError):
+                pa.decode_tc_info(112, kind, 64, block_k=block_k)
+
+
+def test_d112_routes_without_an_instance_raise_on_the_card(cuda_device):
+    """The float32 K2 and the paged kernels refuse D 112 by name before
+    anything launches."""
+    q = rand((2, 4, 1, 112), 570, cuda_device, torch.float32)
+    k = rand((2, 4, 64, 112), 571, cuda_device, torch.float32)
+    n = fa.flash_decode.launches
+    with pytest.raises(ValueError, match="head dim 112"):
+        fa.flash_decode(q, k, k)
+    assert fa.flash_decode.launches == n
+    qb, kp, vp, table, lens = paged_inputs(2, 4, 4, 112, 16, 4, [20, 40],
+                                           torch.bfloat16, cuda_device, 572)
+    with pytest.raises(ValueError, match="head dim 112"):
+        pa.flash_paged_decode(qb, kp, vp, table, lens)

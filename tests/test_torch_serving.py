@@ -87,7 +87,7 @@ def test_config_copy_matches_jax(arch, reduced):
 
 def test_get_arch_names_the_roadmap_item_for_unported_archs():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("zamba2-7b")
+        get_arch("pixtral-12b")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
