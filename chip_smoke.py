@@ -8,12 +8,12 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
    all in parallel; the instances of the tensor-core kernels (K1 in
    ``flash_attention.cu``, at block_q 64 and 128 by block_k 64 and 128 at
-   D 128, D 80 and D 112; K4, K6c and the partials modes K5b and K6d in
-   ``paged_prefill.cu``, at every tile: rows 16, 32, 48, 64 and 80 by keys
-   64 and 128 at D 128; K3, K6a and the dense (K2) and partials (K5a over
-   bf16 pools, K6b over int8 pools) modes in ``paged_decode.cu``, at key
-   tiles 32 and 64 at D 128, and the dense mode at both at D 80 and D
-   112) with
+   D 128, D 80, D 112 and D 160; K4, K6c and the partials modes K5b and
+   K6d in ``paged_prefill.cu``, at every tile: rows 16, 32, 48, 64 and 80
+   by keys 64 and 128 at D 128, rows 16, 32 and 64 at D 160; K3, K6a and
+   the dense (K2) and partials (K5a over bf16 pools, K6b over int8 pools)
+   modes in ``paged_decode.cu``, at key tiles 32 and 64 at D 128 and D
+   160, and the dense mode at both at D 80 and D 112) with
    their registers and spills from the
    ``-Xptxas -v`` log, their shared memory and resident blocks per SM, and
    for the decode kernel the clusters of 1, 2, 4 and 8 CTAs the card holds
@@ -291,7 +291,25 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    tile and by kernel; the logits of a 4094-token and a 4200-token
    prompt with 4 decode steps, kernels against plain; ``--cache paged``
    refused; peak memory; one decode tick profiled (``profile_decode``,
-   4 lanes at prompts of 4093: host and device ms, busy share).
+   4 lanes at prompts of 4093: host and device ms, busy share);
+34. pixtral-12b whole (40 layers, d_model 5120, 32 q / 8 kv heads: G 4,
+   D 160; 25.6 GB of random bf16 weights from seed 0 with the vision
+   stub's ``frontend_proj``; nothing cut), served text-only as the JAX
+   engine serves it: phase 28's (a) dense, (b) paged at the D-160
+   default tile (block_q 8 x 128 keys), (c) int8 at 8 splits, (c1) int8
+   in one pass, (c2) bf16 at 8 splits, (d) speculative and (e)
+   speculative over int8 pages (a 20-layer self-draft), each serve's
+   kernels counted by tile and the one-pass decode's by cluster size
+   (c = 4: one CTA an SM at D 160 and 64 keys); the logits of (a)-(d)
+   against plain; (f) the vision prefill: 4 lanes of 1024 seeded patch
+   embeddings in front of a 256-token prompt (S' = 1280) through
+   ``Model.prefill(frontend_embeds=)``, then 31 greedy ``decode_step``
+   calls, K1 and K2 counted, TTFT and ITL, its logits against plain;
+   then K1 at its four tiles over (f)'s prefill, K2 at both key tiles
+   over its lanes, K3, K6a, K5a and K6b (merged, 8 splits) at both key
+   tiles and K4, K6c, K5b and K6d (merged, 8 splits) at every tile of
+   the D-160 ladder (block_q 4, 8, 16 by keys 64, 128), against plain and
+   timed beside SDPA and the bound, with their launches from the phase.
 
 Then the script's run time by group of phases, one JSON line with every
 kernel's numbers,
@@ -473,17 +491,17 @@ def phase_build() -> None:
     for source, kernel, pattern, info, n in (
             ("flash_attention", fa.TC_KERNEL,
              r"ILi(?P<d>\d+)ELi(?P<bq>\d+)ELi(?P<bk>\d+)EE",
-             lambda d, kind, t: fa.tc_info(d, t["bq"], t["bk"]), 15),
+             lambda d, kind, t: fa.tc_info(d, t["bq"], t["bk"]), 19),
             ("paged_prefill", TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELb(?P<split>[01])"
              r"ELi(?P<slabs>\d)ELi(?P<bk>\d+)EE",
              lambda d, kind, t: pa.tc_info(d, kind, 64, rows=16 * t["slabs"],
-                                           block_k=t["bk"]), 52),
+                                           block_k=t["bk"]), 76),
             ("paged_decode", pa.DECODE_TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELi(?P<mode>\d)"
              r"ELi(?P<bk>\d+)EE",
              lambda d, kind, t: pa.decode_tc_info(d, kind, 64,
-                                                  block_k=t["bk"]), 29)):
+                                                  block_k=t["bk"]), 39)):
         log = paths[source].with_suffix(".log")
         if not log.exists():
             continue
@@ -787,6 +805,26 @@ def kernels_by_route(module, name: str):
         yield tally
     finally:
         setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def clusters_used():
+    """Count, by cluster size, the bf16 one-pass decode launches (K3, K6a,
+    K2) while the block runs: the wrappers ask ``pa.decode_cluster`` for
+    their cluster size at each launch."""
+    fn = pa.decode_cluster
+    tally = collections.Counter()
+
+    def counted(*args, **kw):
+        c = fn(*args, **kw)
+        tally[c] += 1
+        return c
+
+    pa.decode_cluster = counted
+    try:
+        yield tally
+    finally:
+        pa.decode_cluster = fn
 
 
 def serve_with_counts(engine: ServingEngine | None = None,
@@ -3404,9 +3442,20 @@ def serve_line(label: str, report: dict, launches: dict, seen: dict) -> str:
             f"by tile { {k: dict(v) for k, v in seen.items() if v} }")
 
 
-def phi4_serves(model, params, smi: str) -> dict:
-    """28 (a)-(g): the serves of phi4-mini; returns the launches by tile
-    of every tiled wrapper over all of them."""
+def dense_arch_serves(model, params, smi: str, tag: str, title: str,
+                      default: tuple[int, int], spec_tiles: tuple = (),
+                      every_paged_mode: bool = False) -> dict:
+    """The serves of an attention arch at published widths (phase 28:
+    phi4-mini, phase 34: pixtral-12b), ``tag`` naming it in the checks:
+    (a) dense lanes (K1, K2), (b) the paged pool in chunks of 128 (K4 at
+    the prefill kernel's ``default`` tile, K3), (c) int8 pages at 8 splits
+    (K6c, K6b with K5c merged), with ``every_paged_mode`` also (c1) int8
+    pages in one pass (K6a) and (c2) bf16 pages at 8 splits (K5a with K5c
+    merged), (d) and (e) speculative decoding with a self-draft of half
+    the layers at 8 splits over bf16 and int8 pages, then the same at each
+    tile of ``spec_tiles`` ((f), (g), ...).  Prints
+    one line under ``title`` and returns the launches by tile of every
+    tiled wrapper over all of them."""
     n_layers = model.cfg.n_layers
     tallies: list[dict] = []          # each serve's launches by tile
 
@@ -3420,34 +3469,43 @@ def phi4_serves(model, params, smi: str) -> dict:
     with kernels_by_route(ops, "flash_decode") as k2_routes:
         report, launches = model_serve(model, params, seen)
     only_launched(launches, (fa.flash_attention, fa.flash_decode),
-                  "phi4 (a) dense")
+                  f"{tag} (a) dense")
     check(launches["flash_attention"] == n_layers * SERVE["n_requests"]
           and fa.flash_attention.last_kernel == fa.TC_KERNEL,
-          f"phi4 (a): K1 launched {launches['flash_attention']} times on "
+          f"{tag} (a): K1 launched {launches['flash_attention']} times on "
           f"{fa.flash_attention.last_kernel}")
     check(launches["flash_decode"] == n_layers * report["decode_steps"]
           and dict(k2_routes) == {pa.DECODE_TC_KERNEL:
                                   launches["flash_decode"]},
-          f"phi4 (a): K2 launched {launches['flash_decode']} times, by "
+          f"{tag} (a): K2 launched {launches['flash_decode']} times, by "
           f"kernel {dict(k2_routes)}")
     lines.append(serve_line("(a) dense lanes", report, launches, seen))
     dense = report
-    # (b) the paged pool, chunks of 128: K4 at 48 rows, K3; (c) int8
-    # pages, 8 splits: K6c, K6b with K5c merged
-    for label, kw, prefill, decode in (
-            ("(b) paged, chunks of 128", {}, pa.flash_paged_prefill,
-             pa.flash_paged_decode),
-            ("(c) int8 pages, 8 splits", dict(kv_dtype="int8", num_splits=8),
-             pa.flash_paged_prefill_quant,
-             pa.paged_decode_split_quant_merged)):
+    # (b) the paged pool, chunks of 128: K4 at the default tile, K3; (c)
+    # int8 pages, 8 splits: K6c, K6b with K5c merged; (c1) int8 pages in
+    # one pass: K6c, K6a; (c2) bf16 pages, 8 splits: K4, K5a with K5c
+    paged_modes = [
+        ("(b) paged, chunks of 128", {}, pa.flash_paged_prefill,
+         pa.flash_paged_decode),
+        ("(c) int8 pages, 8 splits", dict(kv_dtype="int8", num_splits=8),
+         pa.flash_paged_prefill_quant, pa.paged_decode_split_quant_merged)]
+    if every_paged_mode:
+        paged_modes += [
+            ("(c1) int8 pages, one pass", dict(kv_dtype="int8"),
+             pa.flash_paged_prefill_quant, pa.flash_paged_decode_quant),
+            ("(c2) bf16 pages, 8 splits", dict(num_splits=8),
+             pa.flash_paged_prefill, pa.paged_decode_split_merged)]
+    for label, kw, prefill, decode in paged_modes:
         seen = tally()
-        report, launches = model_serve(model, params, seen, cache="paged",
-                                       page_size=16, prefill_chunk=128, **kw)
-        what = f"phi4 {label}"
+        with clusters_used() as clusters:
+            report, launches = model_serve(model, params, seen,
+                                           cache="paged", page_size=16,
+                                           prefill_chunk=128, **kw)
+        what = f"{tag} {label}"
         only_launched(launches, (prefill, decode), what)
         check(launches[prefill.__name__] == n_layers * report["prefill_chunks"]
               and dict(seen[prefill.__name__]) == {
-                  (16, 128): launches[prefill.__name__]}
+                  default: launches[prefill.__name__]}
               and prefill.last_kernel == TC_KERNEL,
               f"{what}: {prefill.__name__} by tile "
               f"{dict(seen[prefill.__name__])}, {report['prefill_chunks']} "
@@ -3458,15 +3516,20 @@ def phi4_serves(model, params, smi: str) -> dict:
               f"{launches[decode.__name__]} times on {decode.last_kernel}")
         lines.append(serve_line(label, report, launches, seen)
                      + f", greedy tokens equal to (a)'s "
-                     f"{greedy_agreement(report, dense)}")
-    # (d)-(g) a 16-layer draft proposing 4, verify at 8 splits, over bf16
-    # and int8 pages, at the default tile and with the 64-key tile
-    for label, quant, tile in (("(d) speculative", False, None),
-                               ("(e) speculative, int8", True, None),
-                               ("(f) speculative, 64-key tiles", False,
-                                (16, 64)),
-                               ("(g) speculative, int8, 64-key tiles", True,
-                                (16, 64))):
+                     f"{greedy_agreement(report, dense)}"
+                     + (f", K3 clusters of c by launch {dict(clusters)}"
+                        if clusters else ""))
+    # (d), (e) a draft of half the layers proposing 4, verify at 8 splits,
+    # over bf16 and int8 pages, at the default tile; then at each tile of
+    # spec_tiles
+    specs = [("(d) speculative", False, None),
+             ("(e) speculative, int8", True, None)]
+    for i, tile in enumerate(spec_tiles):
+        what = f"{tile[0]}x{tile[1]} tiles"
+        specs += [(f"({'fghijk'[2 * i]}) speculative, {what}", False, tile),
+                  (f"({'fghijk'[2 * i + 1]}) speculative, int8, {what}",
+                   True, tile)]
+    for label, quant, tile in specs:
         seen = tally()
         verify = (pa.paged_prefill_split_quant_merged if quant
                   else pa.paged_prefill_split_merged)
@@ -3474,22 +3537,21 @@ def phi4_serves(model, params, smi: str) -> dict:
                    else pa.flash_paged_prefill)
         kw = dict(SPEC, kv_dtype="int8") if quant else dict(SPEC)
         report, launches, drafts, k2_routes = spec_serve(
-            f"phi4 {label}", n_layers // 2, verify, prefill,
+            f"{tag} {label}", n_layers // 2, verify, prefill,
             run=functools.partial(model_serve, model, params, seen, tile),
-            **kw)
-        want = tile or (16, 128)
+            n_layers=n_layers, **kw)
+        want = tile or default
         for kernel in (verify, prefill):
             check(dict(seen[kernel.__name__]) == {
                 want: launches[kernel.__name__]},
-                f"phi4 {label}: {kernel.__name__} by tile "
+                f"{tag} {label}: {kernel.__name__} by tile "
                 f"{dict(seen[kernel.__name__])}, expected all at {want}")
         lines.append(serve_line(label, report, launches, seen)
                      + f", spec {json.dumps(report['spec'])}, draft "
                      f"prefills {drafts['prefill']}, draft decode steps "
                      f"{drafts['decode_step']}")
-    print(f"[28 phi4-mini serves] {PHI4} full (32 layers, d_model 3072, 24 q "
-          f"/ 8 kv heads, G 3, D 128, tied embeddings), 8 requests of 32 "
-          f"tokens, 4 lanes, on {smi}: " + "; ".join(lines))
+    print(f"{title}, 8 requests of 32 tokens, 4 lanes, on {smi}: "
+          + "; ".join(lines))
     by_tile = collections.defaultdict(collections.Counter)
     for seen in tallies:
         for name, tiles in seen.items():
@@ -3498,7 +3560,8 @@ def phi4_serves(model, params, smi: str) -> dict:
 
 
 def tile_rows(tag: str, g: int, what: str, chunk: tuple, verify: tuple,
-              by_tile: dict, seed: int, served=None) -> list[dict]:
+              by_tile: dict, seed: int, served=None,
+              d: int = 128) -> list[dict]:
     """The kernels line's rows of the prefill kernel at group size ``g``
     (phase 28: phi4-mini's G 3; phase 30: llama4-scout's G 5): K4 and K6c
     at the arch's chunk of 128 at 384, K5b and K6d with K5c merged at its
@@ -3506,8 +3569,10 @@ def tile_rows(tag: str, g: int, what: str, chunk: tuple, verify: tuple,
     128 keys), against plain, timed beside the plain version, SDPA on the
     pre-gathered (for int8, pre-dequantized bf16) K/V and the bound;
     launches from the phase's serves, by tile, which must have launched
-    each kernel at every tile of ``served`` (None: every tile)."""
-    tiles = [(bq, bk) for bq in pa.prefill_tiles(BF16, 128, g)[0]
+    each kernel at every tile of ``served`` (None: every tile).  ``d`` is
+    the head dim whose ladder the tiles come from (phase 34: pixtral's
+    160)."""
+    tiles = [(bq, bk) for bq in pa.prefill_tiles(BF16, d, g)[0]
              for bk in pa.TC_BLOCK_KS]
     rows, lines = [], []
     for label, case, quant, ns, line in (
@@ -3562,7 +3627,8 @@ def tile_rows(tag: str, g: int, what: str, chunk: tuple, verify: tuple,
                     q, pools.k, pools.v, table, start, lens, **kw))
             times = {"ms": time_ms(run), "plain_ms": plain,
                      "library_ms": library}
-            r = row(f"{wrapper.__name__}[G{g} {tile[0]}x{tile[1]}]",
+            r = row(f"{wrapper.__name__}[{'' if d == 128 else f'D{d} '}"
+                    f"G{g} {tile[0]}x{tile[1]}]",
                     PREFILL_SOURCE, f"{FLASH}:{line}", err, n_bytes, n_ops,
                     times)
             r.update(launches=by_tile.get(wrapper.__name__, {}).get(tile, 0),
@@ -3599,7 +3665,11 @@ def phase_phi4(smi: str) -> list[dict]:
     model = build_model(get_arch(PHI4))
     params = model.init(0, "cuda")
     check("lm_head" not in params, "phi4-mini's head is not the embedding")
-    by_tile = phi4_serves(model, params, smi)
+    by_tile = dense_arch_serves(
+        model, params, smi, "phi4",
+        f"[28 phi4-mini serves] {PHI4} full (32 layers, d_model 3072, 24 q "
+        f"/ 8 kv heads, G 3, D 128, tied embeddings)", (16, 128),
+        spec_tiles=((16, 64),))
     tag = f"[28 logits] {PHI4} full"
     phase_logits(model, params, tag)
     phase_paged_logits(model, params, tag)
@@ -4300,7 +4370,7 @@ def k2_kernel_row(name: str, q, k, v, kv_len, shape: str,
             n_bytes, n_ops, times)
     bk = pa.DECODE_TILE_KEYS if block_k is None else block_k
     r.update(shape=shape, tile=[bk])
-    c = pa.cluster_size(b, hkv, pa.sm_count(0))
+    c = pa.cluster_size(b, hkv, pa.sm_count(0), d, bk)
     return r, (f"K2 {name} (block_k {bk}, c={c}): {fmt_times(times)}, "
                f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), err "
                f"{err:.2e}")
@@ -4541,6 +4611,299 @@ def phase_zamba(smi: str) -> list[dict]:
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 34: pixtral-12b whole (40 layers; D 160, G 4; the vision stub)
+# --------------------------------------------------------------------------
+
+PIXTRAL = "pixtral-12b"
+# pixtral's verify and chunk shapes (32 q / 8 kv heads of 160), as phi4's
+PIXTRAL_VERIFY = ("pixtral verify", 32, 8, 160, 16, 64,
+                  [839, 720, 190, 544, 0], [5, 5, 5, 5, 0], 5, BF16)
+PIXTRAL_CHUNK = ("pixtral chunk at 384", 32, 8, 160, 16, 32, [384], [128],
+                 128, BF16)
+# the decode rows' lanes (pages of 16 as the paged serve's pool)
+PIXTRAL_DECODE = [839, 720, 190, 544]
+# (f): 4 lanes of the stub's 1024 patches in front of 256-token prompts
+# (S' = 1280), then 32 greedy tokens
+VISION = dict(lanes=4, prompt=256, new=32)
+
+
+def vision_serve(model, params, smi: str) -> dict[str, int]:
+    """34 (f): ``Model.prefill(frontend_embeds=)`` of 4 lanes of 1024
+    seeded patch embeddings in front of a 256-token prompt, then 31 greedy
+    ``decode_step`` calls (32 tokens), on the kernels with their counters
+    zeroed just before: K1 once a layer over S' = 1280 (at the default
+    tile), K2 once a layer a step (at the rule's cluster size), no paged
+    kernel; TTFT (the prefill and its token) and the ITL (one step) on the
+    host's clock.  Then the plain route's logits of the prefill and the
+    first 4 steps, fed the kernel route's tokens, against the kernels'.
+    Returns the launches."""
+    cfg = model.cfg
+    b, f, plen, new = (VISION["lanes"], cfg.frontend_seq, VISION["prompt"],
+                       VISION["new"])
+    s = f + plen
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    patches = torch.randn((b, f, cfg.d_model), generator=gen,
+                          device="cuda").to(BF16)
+    prompt = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
+                           device="cuda")
+    pos = lambda i: torch.full((b,), s + i, device="cuda")  # noqa: E731
+    for kernel in KERNELS:
+        kernel.launches = 0
+    fa.flash_attention.last_kernel = fa.flash_decode.last_kernel = None
+    k1_tiles = collections.Counter(fa.flash_attention.by_tile)
+    with kernels_by_route(ops, "flash_decode") as k2_routes, \
+            clusters_used() as clusters:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, prompt, s + new,
+                                       frontend_embeds=patches)
+        tokens = [logits.argmax(-1)]
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        kern, itl = [logits], []
+        for i in range(new - 1):
+            t1 = time.perf_counter()
+            logits, caches = model.decode_step(params, caches,
+                                               tokens[-1][:, None], pos(i))
+            tokens.append(logits.argmax(-1))
+            torch.cuda.synchronize()
+            itl.append(time.perf_counter() - t1)
+            if i < 4:
+                kern.append(logits)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    n = cfg.n_layers
+    only_launched(launches, (fa.flash_attention, fa.flash_decode),
+                  "pixtral (f)")
+    k1_tiles = fa.flash_attention.by_tile - k1_tiles
+    check(launches["flash_attention"] == n and dict(k1_tiles) == {
+        fa.TC_DEFAULT_TILE: n} and fa.flash_attention.last_kernel
+          == fa.TC_KERNEL,
+          f"pixtral (f): K1 launched {launches['flash_attention']} times, "
+          f"by tile {dict(k1_tiles)}, on {fa.flash_attention.last_kernel}")
+    c = pa.cluster_size(b, cfg.n_kv_heads, pa.sm_count(0), cfg.head_dim)
+    check(launches["flash_decode"] == n * (new - 1)
+          and dict(k2_routes) == {pa.DECODE_TC_KERNEL: n * (new - 1)}
+          and dict(clusters) == {c: n * (new - 1)},
+          f"pixtral (f): K2 launched {launches['flash_decode']} times, by "
+          f"kernel {dict(k2_routes)}, by cluster size {dict(clusters)}")
+    check(tuple(caches["kv"][0].shape) == (n, b, cfg.n_kv_heads, s + new,
+                                           cfg.head_dim),
+          f"pixtral (f): caches {tuple(caches['kv'][0].shape)}")
+    out = torch.stack(tokens, 1)
+    check(tuple(out.shape) == (b, new) and bool(
+        ((out >= 0) & (out < cfg.padded_vocab)).all()),
+        "pixtral (f): the greedy tokens")
+    del caches
+    plain, (logits, caches) = [], model.prefill(
+        params, prompt, s + 5, use_kernel=False, frontend_embeds=patches)
+    plain.append(logits)
+    for i in range(4):
+        logits, caches = model.decode_step(params, caches,
+                                           tokens[i][:, None], pos(i),
+                                           use_kernel=False)
+        plain.append(logits)
+    del caches
+    vocab = cfg.padded_vocab
+    verdict = check_logits(torch.stack(plain).reshape(-1, 1, vocab),
+                           torch.stack(kern).reshape(-1, 1, vocab), vocab,
+                           "pixtral (f) logits")
+    itl_ms = sorted(1e3 * t for t in itl)
+    print(f"[34 pixtral-12b (f) vision prefill] {b} lanes of {f} seeded "
+          f"patch embeddings (frontend_proj) + a {plen}-token prompt (S' = "
+          f"{s}) through Model.prefill(frontend_embeds=), then {new - 1} "
+          f"greedy decode_step calls ({new} tokens a lane), on {smi}: TTFT "
+          f"{ttft:.4f}s, ITL p50 {itl_ms[len(itl_ms) // 2]:.2f} ms (min "
+          f"{itl_ms[0]:.2f}, max {itl_ms[-1]:.2f}), launches "
+          f"{ {k: v for k, v in launches.items() if v} }, K1 by tile "
+          f"{dict(k1_tiles)}, K2 clusters of c by launch {dict(clusters)}; "
+          f"prefill + 4 steps, kernels vs plain (fed the same tokens, "
+          f"{b} lanes): {verdict}")
+    return launches
+
+
+def pixtral_decode_rows(by_tile: dict, seed: int) -> list[dict]:
+    """The kernels line's rows of the decode kernel at pixtral's shapes (4
+    lanes of the phase-7 lengths, pages of 16, 32 q / 8 kv heads of 160):
+    K3 and K6a in one pass, K5a and K6b with K5c merged at 8 splits, at
+    each key tile, against plain, timed beside the plain version, SDPA on
+    the pre-gathered (int8: pre-dequantized bf16) K/V with a kv_len mask,
+    and the bound; launches from the phase's serves, by tile."""
+    b, h, hkv, d, psz, nblk = 4, 32, 8, 160, 16, 64
+    kv_len = PIXTRAL_DECODE
+    rows, lines = [], []
+    for label, quant, ns, line, wrapper in (
+            ("K3", False, 1, 491, pa.flash_paged_decode),
+            ("K6a", True, 1, 951, pa.flash_paged_decode_quant),
+            ("K5a+K5c", False, 8, 535, pa.paged_decode_split_merged),
+            ("K6b+K5c", True, 8, 1001, pa.paged_decode_split_quant_merged)):
+        q, kp, vp, table, lens = paged_case(b, h, hkv, d, psz, nblk, kv_len,
+                                            BF16, seed + line)
+        pools, _ = decode_pools(kp, vp, quant)
+        paged = ops.PagedPools(*pools)
+        kw = dict(k_scale=paged.k_scale, v_scale=paged.v_scale)
+        want = plain_decode(q, pools, table, lens)
+        k_pool, v_pool = paged.k, paged.v
+        if quant:
+            k_pool = paged.k.to(BF16) * paged.k_scale[..., None].to(BF16)
+            v_pool = paged.v.to(BF16) * paged.v_scale[..., None].to(BF16)
+        k_dense = ref.gather_pages(k_pool, table)   # gathered once, untimed
+        v_dense = ref.gather_pages(v_pool, table)
+        mask = (torch.arange(nblk * psz, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        library = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k_dense, v_dense, attn_mask=mask, enable_gqa=True))
+        if ns > 1:
+            plain = time_ms(lambda: ref.paged_decode_split_ref(
+                q, paged.k, paged.v, table, lens, ns, **kw))
+        else:
+            plain = time_ms(lambda: plain_decode(q, pools, table, lens))
+        n_bytes = decode_bytes(kv_len, b, h, hkv, d, psz, 1 if quant else 2,
+                               2, 4 if quant else 0)
+        n_ops = 4 * h * sum(kv_len) * d
+        for bk in pa.decode_block_ks(BF16, d):
+            def run(bk=bk):
+                return ops.paged_decode(q, paged, table, lens,
+                                        num_splits=ns, block_k=bk)
+            n = wrapper.by_tile[bk]
+            got = run()
+            check(wrapper.by_tile[bk] == n + 1
+                  and wrapper.last_kernel == pa.DECODE_TC_KERNEL,
+                  f"[34] {label} block_k {bk}: {wrapper.__name__} did not "
+                  f"launch at the tile on {pa.DECODE_TC_KERNEL}")
+            err = compare(got, want, BF16)
+            times = {"ms": time_ms(run), "plain_ms": plain,
+                     "library_ms": library}
+            r = row(f"{wrapper.__name__}[D{d} G{h // hkv} {bk}]",
+                    DECODE_SOURCE, f"{FLASH}:{line}", err, n_bytes, n_ops,
+                    times)
+            r.update(launches=by_tile.get(wrapper.__name__, {}).get(bk, 0),
+                     shape=f"pixtral decode B={b} kv_len {kv_len}",
+                     tile=[bk])
+            if ns > 1:
+                r["merges"] = f"{FLASH}:315"
+            check(r["launches"] > 0 or bk != pa.DECODE_TILE_KEYS,
+                  f"[34] {label} block_k {bk}: no launch in the serves")
+            rows.append(r)
+            c = ""
+            if ns == 1:     # the rule's cluster size, and each one timed
+                by_c = {n: time_ms(lambda n=n: wrapper(
+                    q, *pools, table, lens, block_k=bk, _cluster=n))[0]
+                    for n in pa.CLUSTER_SIZES}
+                rule = pa.cluster_size(b, hkv, pa.sm_count(0), d, bk, quant)
+                c = f", c={rule} (by cluster size " + ", ".join(
+                    f"c={n} {t:.4f}" for n, t in by_c.items()) + ")"
+            lines.append(f"{label} block_k {bk}{c}: {fmt_times(times)}, bound "
+                         f"{r['bound_ms']:.5f} ms ({r['bound_by']}), err "
+                         f"{err:.2e}, {r['launches']} launches in the serves")
+    check(counters_zero(), "[34 pixtral kernels] an arrival counter is not 0")
+    print(f"[34 pixtral-12b kernels] the decode kernel at D 160, G 4 (4 "
+          f"lanes of {kv_len} keys in pages of 16), against plain (tol "
+          f"{TOL[BF16]}), device ms (ms per call incl. host; library: SDPA "
+          f"on the pre-gathered K/V): " + "; ".join(lines))
+    return rows
+
+
+def phase_pixtral(smi: str) -> list[dict]:
+    """Phase 34: pixtral-12b whole at published widths (40 layers, random
+    bf16 weights from seed 0; nothing cut): the serves (a)-(e) of phase 28
+    (dense, paged, int8 at 8 splits, speculative over bf16 and int8
+    pages) and (c1) int8 in one pass, (c2) bf16 at 8 splits (so every
+    D-160 kernel serves), their logits against plain, (f) the vision prefill through the
+    stub, then the kernels at D 160 and G 4 against plain and timed: K1 at
+    every tile over the vision prefill's S', K2 at both key tiles over its
+    lanes, the decode kernel's K3, K6a, K5a and K6b, and the prefill
+    kernel's K4, K6c, K5b and K6d at every tile of the D-160 ladder."""
+    t0 = time.perf_counter()
+    cfg = get_arch(PIXTRAL)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, "cuda")
+    check(tuple(params["frontend_proj"].shape) == (cfg.d_model, cfg.d_model),
+          "pixtral's patch projection")
+    weights = sum(t.numel() for t in tree_leaves(params))
+    print(f"[34 pixtral-12b] {weights / 1e9:.2f} B parameters "
+          f"({cfg.param_count() / 1e9:.2f} B in the analytic count, which "
+          f"leaves out frontend_proj), {2 * weights / 1e9:.1f} GB of bf16 "
+          f"weights, whole (40 layers, nothing cut); decode clusters of c = "
+          f"{pa.cluster_size(4, cfg.n_kv_heads, pa.sm_count(0), 160)} at 4 "
+          f"lanes (D 160, 64 keys: one CTA an SM)")
+    by_tile = dense_arch_serves(
+        model, params, smi, "pixtral",
+        f"[34 pixtral-12b serves] {PIXTRAL} full (40 layers, d_model 5120, "
+        f"32 q / 8 kv heads, G 4, D 160), text only",
+        (pa.default_block_q(160, 4), pa.TC_TILE_KEYS),
+        every_paged_mode=True)
+    tag = f"[34 logits] {PIXTRAL} full"
+    phase_logits(model, params, tag)
+    phase_paged_logits(model, params, tag)
+    phase_int8_logits(model, params, tag)
+    phase_verify_logits(model, params, tag)
+    launches = vision_serve(model, params, smi)
+    peak = torch.cuda.max_memory_allocated()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("flash_attention", "flash_decode"):
+        by_tile[name].update(
+            {fa.TC_DEFAULT_TILE if name == "flash_attention"
+             else pa.DECODE_TILE_KEYS: launches[name]})
+    rows = pixtral_dense_rows(smi, by_tile)
+    rows += pixtral_decode_rows(by_tile, 3400)
+    rows += tile_rows("[34 pixtral-12b kernels]", 4,
+                      "32 q / 8 kv heads of 160; the D-160 ladder",
+                      PIXTRAL_CHUNK, PIXTRAL_VERIFY, by_tile, 3450,
+                      served=[(pa.default_block_q(160, 4),
+                               pa.TC_TILE_KEYS)], d=160)
+    print(f"[34 pixtral-12b] peak memory {peak / 1e9:.2f} GB; phase 34 in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return rows
+
+
+def pixtral_dense_rows(smi: str, by_tile: dict) -> list[dict]:
+    """K1 at every tile over the vision prefill's shape (4 lanes, S' =
+    1280, causal) and K2 at both key tiles over its decode lanes (strips
+    of 1312 slots), against plain, timed beside SDPA and the bound, with
+    their launches from the phase's runs by tile."""
+    h, hkv, d = 32, 8, 160
+    b, s = VISION["lanes"], 1024 + VISION["prompt"]
+    rows, lines = [], []
+    q, k, v = (randn((b, n, s, d), 3400 + j, BF16)
+               for j, n in enumerate((h, hkv, hkv)))
+    default = fa.flash_attention(q, k, v)
+    for tile in fa.attention_tiles(BF16, d):
+        r, line = k1_kernel_row(f"D{d} {tile[0]}x{tile[1]}", q, k, v,
+                                dict(causal=True), None,
+                                f"pixtral vision prefill B={b} S'={s}", tile)
+        same = bool(torch.equal(fa.flash_attention(
+            q, k, v, block_q=tile[0], block_k=tile[1]), default))
+        check(same, f"[34] K1 {tile} is not bit-equal to the default tile")
+        r["launches"] = by_tile["flash_attention"].get(tile, 0)
+        rows.append(r)
+        lines.append(line + f", {r['launches']} launches in the phase")
+    del q, k, v, default
+    slots = s + VISION["new"]
+    kv_len = torch.tensor([s + 31, s + 20, s + 9, s], dtype=torch.int32,
+                          device="cuda")
+    q = randn((b, h, 1, d), 3410, BF16)
+    k = randn((b, hkv, slots, d), 3411, BF16)
+    v = randn((b, hkv, slots, d), 3412, BF16)
+    for bk in pa.decode_block_ks(BF16, d):
+        r, line = k2_kernel_row(f"D{d} {bk}", q, k, v, kv_len,
+                                f"pixtral decode B={b} strips of {slots}",
+                                bk)
+        r["launches"] = by_tile["flash_decode"].get(bk, 0)
+        check(r["launches"] > 0 or bk != pa.DECODE_TILE_KEYS,
+              "[34] K2: no launch in the phase")
+        rows.append(r)
+        lines.append(line + f", {r['launches']} launches in the phase")
+    print(f"[34 pixtral-12b kernels] K1 and K2 at D 160, G 4, against plain "
+          f"(tol {TOL[BF16]}), device ms (ms per call incl. host) on {smi}: "
+          + "; ".join(lines))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4622,7 +4985,10 @@ def main() -> int:
     rows += phase_zamba(smi)
     done("33")
     check(len(rows) == 47, f"{len(rows)} kernel rows, expected 47")
-    print(f"[done] phases 1-33 in {time.perf_counter() - t0:.1f}s; by phase "
+    rows += phase_pixtral(smi)
+    done("34")
+    check(len(rows) == 85, f"{len(rows)} kernel rows, expected 85")
+    print(f"[done] phases 1-34 in {time.perf_counter() - t0:.1f}s; by phase "
           + ", ".join(f"{label} {t - marks[i][1]:.1f}s"
                       for i, (label, t) in enumerate(marks[1:])))
     print(json.dumps({"kernels": rows}))

@@ -13,7 +13,8 @@ too: the conv taps keep their (d_conv, Di) layout, and ``a_log`` goes to
 Mamba-2 leaves and zamba2's unstacked ``shared_attn`` block.  The
 encoder-decoder's tree (``frontend_proj``, the ``enc_layers`` and
 ``dec_layers`` stacks, the LayerNorms' ``w``/``b``, ``pos_embed``) is
-carried the same way.
+carried the same way, and so is a vision decoder's ``frontend_proj``
+(pixtral-12b's patch projection, (d, d)), by name.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ArchConfig.
 
-Only the archs the port serves are registered.  The other archs of the
-JAX package are known by name, so asking for one says which ROADMAP item
-ports it instead of claiming the name does not exist.
+Every arch of the JAX package is registered.  ``NOT_PORTED`` is kept for
+an arch the JAX package gains before the port runs it: such an arch is
+known by name, so asking for it says which ROADMAP item ports it instead
+of claiming the name does not exist.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from .h2o_danube_1p8b import CONFIG as h2o_danube_1p8b
 from .llama4_scout_17b_a16e import CONFIG as llama4_scout_17b_a16e
 from .moonshot_v1_16b_a3b import CONFIG as moonshot_v1_16b_a3b
 from .phi4_mini_3p8b import CONFIG as phi4_mini_3p8b
+from .pixtral_12b import CONFIG as pixtral_12b
 from .whisper_tiny import CONFIG as whisper_tiny
 from .yi_6b import CONFIG as yi_6b
 from .zamba2_7b import CONFIG as zamba2_7b
@@ -20,15 +22,11 @@ from .zamba2_7b import CONFIG as zamba2_7b
 ARCHS: dict[str, ArchConfig] = {c.name: c for c in [
     yi_6b, deepseek_7b, falcon_mamba_7b, phi4_mini_3p8b,
     moonshot_v1_16b_a3b, llama4_scout_17b_a16e, h2o_danube_1p8b,
-    whisper_tiny, zamba2_7b]}
-
-_OTHER_FAMILIES = "ROADMAP queue 1, item 8 (the other model families)"
+    whisper_tiny, zamba2_7b, pixtral_12b]}
 
 #: archs of the JAX package that the port does not run yet -> the
-#: ROADMAP item that ports them
-NOT_PORTED: dict[str, str] = {
-    "pixtral-12b": _OTHER_FAMILIES + ": the vision frontend (8b.6)",
-}
+#: ROADMAP item that ports them (none since pixtral-12b, item 8b.6)
+NOT_PORTED: dict[str, str] = {}
 
 
 def get_arch(name: str) -> ArchConfig:

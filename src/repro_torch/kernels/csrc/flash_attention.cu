@@ -82,7 +82,7 @@
 //    memory, so a block can hold more rows per copied key tile, and TMA.
 //    The tile is the install-time AT's FlashBlocks region (block_q query
 //    rows x block_k keys, tuning/install.py): 64 x 64 by default, and at
-//    D = 128, 80 and 112 also 64 x 128, 128 x 64 and 128 x 128.  block_q sets the
+//    D = 128, 80, 112 and 160 also 64 x 128, 128 x 64 and 128 x 128.  block_q sets the
 //    warps of a block (BM / 16) and so how many query rows share each
 //    copied K/V tile; block_k the keys of one copy (a ring stage), walked
 //    in 64-key softmax steps, so every tile takes the same steps in the
@@ -96,7 +96,11 @@
 //    shared memory at the four tiles.  D = 112 (zamba2-7b's shared block)
 //    likewise: 7 k-steps, 14 n-tiles (7 pairs), rows of 120 bf16 (240
 //    bytes: 15 chunks, so 8 rows of an ldmatrix start in distinct bank
-//    quads), 75, 135, 90 and 150 KB (153,600 B at 128 x 128).
+//    quads), 75, 135, 90 and 150 KB (153,600 B at 128 x 128).  D = 160
+//    (pixtral-12b) likewise: 10 k-steps, 20 n-tiles (10 pairs), rows of
+//    168 bf16 (336 bytes: 21 chunks, odd, so 8 rows of an ldmatrix start
+//    in distinct bank quads), 107,520, 193,536, 129,024 and 215,040 B; a
+//    thread holds its slab's Q fragments (40 registers) and O (80 fp32).
 //  * K1 float32 (flash_attention_kernel): SIMT fp32, one block of 4 warps
 //    per (batch, head, 64-row query tile); K/V tiles of 32 keys staged in
 //    shared memory as fp32 (lane j of a warp owns key j of the tile, so
@@ -723,14 +727,15 @@ using Int = std::integral_constant<int, N>;
 // f(Int<BM>, Int<BN>) for the instantiated K1 tile of bm query rows and
 // bn keys at head dim D, else cudaErrorInvalidValue: rows 64 and 128 by
 // keys 64 and 128 at the head dims of the archs the card serves, 128,
-// h2o-danube-1.8b's 80 and zamba2-7b's 112 (ops.attention hands K1 the
+// h2o-danube-1.8b's 80, zamba2-7b's 112 and pixtral-12b's 160
+// (ops.attention hands K1 the
 // tile FlashBlocks published whatever the head dim), the default 64 x 64
 // at the others.
 template <int D, typename F>
 cudaError_t k1_with_tile(int bm, int bn, F&& f) {
   if (bm == k1tc::DEFAULT_BM && bn == k1tc::DEFAULT_BN)
     return f(Int<k1tc::DEFAULT_BM>{}, Int<k1tc::DEFAULT_BN>{});
-  if constexpr (D == 128 || D == 80 || D == 112) {
+  if constexpr (D == 128 || D == 80 || D == 112 || D == 160) {
     if ((bm == 64 || bm == 128) && (bn == 64 || bn == 128)) {
       auto keys = [&](auto rows) {
         return bn == 64 ? f(rows, Int<64>{}) : f(rows, Int<128>{});
@@ -768,7 +773,8 @@ cudaError_t attention_tc_info(int* out) {
 }
 
 // f(Int<D>) for the head dims K1 is built for: 80 is h2o-danube-1.8b's,
-// 112 zamba2-7b's (the float32 K2 has neither: see decode_by_dim)
+// 112 zamba2-7b's, 160 pixtral-12b's (the float32 K2 has none of them:
+// see decode_by_dim)
 template <typename F>
 cudaError_t with_dim(int d, F&& f) {
   switch (d) {
@@ -778,6 +784,7 @@ cudaError_t with_dim(int d, F&& f) {
     case 80: return f(Int<80>{});
     case 112: return f(Int<112>{});
     case 128: return f(Int<128>{});
+    case 160: return f(Int<160>{});
     default: return cudaErrorInvalidValue;
   }
 }
@@ -808,7 +815,8 @@ cudaError_t attention_by_dim(const void* q, const void* k, const void* v,
 // The float32 K2 at the head dims of paged_attention.cu's kernels: a lane
 // owns D / 32 contiguous columns of a V row (NC), which at D = 80 or 112
 // would not split the row into 32 whole runs, so neither has an instance
-// here (the bf16 K2, paged_decode.cu's dense mode, has both)
+// here; nor has D = 160, whose archs the card serves in bf16 (the bf16
+// K2, paged_decode.cu's dense mode, has all three)
 template <typename T>
 cudaError_t decode_by_dim(const void* q, const void* k, const void* v,
                           const int* kv_len, void* o, int B, int H, int Hkv,

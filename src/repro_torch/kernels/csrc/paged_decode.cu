@@ -66,13 +66,18 @@
 //
 // The key tile BN is a template parameter, the run-time AT's block_k
 // (tuning/dynamic.py's DecodeBucket regions, KVPrecision): 64 keys (the
-// default: 4 warps of 16 keys), and at D = 128 also 32 (2 warps of 16).
-// D = 80 (h2o-danube-1.8b) and D = 112 (zamba2-7b's shared block) have
-// the DENSE mode (K2) alone, at both tiles: their sliding windows keep a
-// ring of 4096 slots a lane in a dense strip and never page.  The body
-// takes them as they are: 5 (7) k-steps of m16n8k16 for S, 10 (14)
-// n-tiles for P.V, rows of 176 (240) bytes, 11 (15) 16-byte chunks apart,
-// 20 (28) float4 columns a row in the merge.
+// default: 4 warps of 16 keys), and at D = 128 and 160 also 32 (2 warps
+// of 16).  D = 80 (h2o-danube-1.8b) and D = 112 (zamba2-7b's shared
+// block) have the DENSE mode (K2) alone, at both tiles: their sliding
+// windows keep a ring of 4096 slots a lane in a dense strip and never
+// page.  D = 160 (pixtral-12b) pages and has every mode.  The body takes
+// them as they are: 5 (7, 10) k-steps of m16n8k16 for S, 10 (14, 20)
+// n-tiles for P.V, rows of 176 (240, 336) bytes, 11 (15, 21) 16-byte
+// chunks apart, 20 (28, 40) float4 columns a row in the merge.  At D =
+// 160 the bf16 ring of the 64-key tile (129,024 B, with the Q slab
+// 134,400) leaves one CTA an SM, and so does the int8 one (117,504 B);
+// the 32-key tiles leave three (kernels/paged_attention.py's
+// decode_ctas_per_sm reckons the same, for the cluster rule).
 // A warp is one key group with its own online
 // softmax, so the tile sets where the fp32 sums and P's bf16 rounding
 // fall, and the rank and split rules cut the lane's live BN-key tiles.
@@ -90,8 +95,10 @@
 //     thread-block cluster of c CTAs per (lane, kv head, 16 query rows),
 //     c chosen on the host from the shapes alone (kernels/paged_attention.py
 //     cluster_size: the largest of 1, 2, 4, 8 with B * Hkv * c <= the CTAs
-//     the card holds at once, two an SM; 8 at yi-6b's four lanes, 128
-//     CTAs; 2 at deepseek-7b's, 256).  CTA rank r walks the
+//     the card holds at once, two an SM, or one where the instance's
+//     shared memory leaves one (D = 160 at 64 keys); 8 at yi-6b's four
+//     lanes, 128 CTAs; 2 at deepseek-7b's, 256; 4 at pixtral-12b's, 128).
+//     CTA rank r walks the
 //     r-th contiguous share of the lane's live 64-key tiles, ceil(tiles /
 //     c) of them (the last ranks possibly none), and merges its warps'
 //     (m, l, acc) in its own shared memory; after a cluster barrier each
@@ -636,17 +643,17 @@ template <int N>
 using Int = std::integral_constant<int, N>;
 
 // f(Int<BN>) for the instantiated key tile bn of head dim D, else
-// cudaErrorInvalidValue: 32 and 64 keys at D = 128 (the head dim of
-// every paged arch the card serves) and at D = 80 and 112 (K2's, the
-// dense mode only: flash_decode hands it the tile DecodeBucket published
-// whatever the head dim), 64 at the other head dims (their builds stay one
-// instance a mode).  No 128-key tile: its ring (213 KB of bf16 shared
+// cudaErrorInvalidValue: 32 and 64 keys at D = 128 and 160 (the head
+// dims of the paged archs the card serves; 160 is pixtral-12b's) and at D
+// = 80 and 112 (K2's, the dense mode only: flash_decode hands it the tile
+// DecodeBucket published whatever the head dim), 64 at the other head
+// dims (their builds stay one instance a mode).  No 128-key tile: its ring (213 KB of bf16 shared
 // memory) leaves one CTA an SM, and it won in no mode of chip_smoke.py's
 // tile sweep.
 template <int D, typename F>
 cudaError_t with_tile(int bn, F&& f) {
   if (bn == DEFAULT_BN) return f(Int<DEFAULT_BN>{});
-  if constexpr (D == 128 || D == 80 || D == 112) {
+  if constexpr (D == 128 || D == 80 || D == 112 || D == 160) {
     if (bn == 32) return f(Int<32>{});
   }
   return cudaErrorInvalidValue;
@@ -671,6 +678,7 @@ cudaError_t with_dim(int d, F&& f) {
       if constexpr (MODE == DENSE) return f(Int<112>{});
       else return cudaErrorInvalidValue;
     case 128: return f(Int<128>{});
+    case 160: return f(Int<160>{});
     default: return cudaErrorInvalidValue;
   }
 }

@@ -102,7 +102,8 @@
 // The tile is a pair of template parameters, the run-time AT's block_q x G
 // query rows and block_k keys (tuning/dynamic.py's PrefillBucket and
 // SpecBucket regions): 32 rows and 128 keys by default, the design above;
-// at D = 128 also rows 16, 48, 64 and 80 and keys 64 (see Tile).  The tile
+// at D = 128 also rows 16, 48, 64 and 80 and keys 64 (see Tile), at D =
+// 160 (pixtral-12b, G 4) rows 16 and 64 and keys 64.  The tile
 // sets the grid (query tiles x splits), the key groups whose online
 // softmax states merge at the end, and the split partition.  G need not be
 // a power of two: the 48-row tile holds 16 chunk rows of phi4-mini's G = 3
@@ -160,6 +161,15 @@ struct Tile {
   static constexpr int KS = SLABS == 5 && KN > 32 ? 16 : KN;
 };
 
+// The blocks an SM the launch bound asks for: none (0) up to D = 128,
+// where ptxas's own choice keeps every register the body needs; one at D
+// = 160, whose 4-warp partials tile of 16 rows by 64 keys ptxas would
+// otherwise squeeze under the 168 registers of three blocks an SM at the
+// cost of a 20-byte spill (asked for one, it takes 189 and spills
+// nothing; the D <= 128 instances build exactly as before).
+template <int D>
+constexpr int min_blocks() { return D > 128 ? 1 : 0; }
+
 // Dynamic shared memory of one block, in bytes: the Q tile (bf16 rows of
 // D + 8), the ring of K and V tiles as stored (rows of D * sizeof(S) + 16
 // bytes), for int8 pools the bf16 K and V tiles the codes widen to and the
@@ -206,7 +216,8 @@ struct Smem {
 // ---------------------------------------------------------------------------
 
 template <typename S, int D, bool SPLIT, int SLABS, int BN>
-__global__ void __launch_bounds__(tc::Tile<SLABS, BN>::BOUND)
+__global__ void __launch_bounds__(tc::Tile<SLABS, BN>::BOUND,
+                                  tc::min_blocks<D>())
 paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const S* __restrict__ kp, const S* __restrict__ vp,
                         const float* __restrict__ ksc,
@@ -607,8 +618,12 @@ using Int = std::integral_constant<int, N>;
 
 // f(Int<SLABS>, Int<BN>) for the instantiated tile of bm query rows and bn
 // keys at head dim D, else cudaErrorInvalidValue: rows 16, 32, 48, 64 and
-// 80 by keys 64 and 128 at D = 128 (the head dim of every paged arch the
-// card serves), the default 32 x 128 at the other head dims.  Shared
+// 80 by keys 64 and 128 at D = 128 (the head dim of the paged archs the
+// card serves), rows 16, 32 and 64 by keys 64 and 128 at D = 160
+// (pixtral-12b's: block_q 4, 8 and 16 at its G 4; 48 and 80 rows serve
+// G 3 and G 5 only), the default 32 x 128 at the other head dims.  At D =
+// 160 the 64 x 128 tile takes 193,536 B (bf16) and 199,680 B (int8)
+// before the table.  Shared
 // memory at 80 rows (tc::Smem at 64 table entries): 91,648 B (bf16, 64
 // keys), 161,280 (bf16, 128), 94,720 (int8, 64) and 167,424 (int8, 128),
 // all under the 227 KB a block may hold.
@@ -616,16 +631,18 @@ template <int D, typename F>
 cudaError_t with_tile(int bm, int bn, F&& f) {
   if (bm == 16 * DEFAULT_SLABS && bn == DEFAULT_BN)
     return f(Int<DEFAULT_SLABS>{}, Int<DEFAULT_BN>{});
-  if constexpr (D == 128) {
+  if constexpr (D == 128 || D == 160) {
     if (bn == 64 || bn == 128) {
       auto keys = [&](auto slabs) {
         return bn == 64 ? f(slabs, Int<64>{}) : f(slabs, Int<128>{});
       };
       if (bm == 16) return keys(Int<1>{});
       if (bm == 32) return keys(Int<2>{});
-      if (bm == 48) return keys(Int<3>{});
       if (bm == 64) return keys(Int<4>{});
-      if (bm == 80) return keys(Int<5>{});
+      if constexpr (D == 128) {
+        if (bm == 48) return keys(Int<3>{});
+        if (bm == 80) return keys(Int<5>{});
+      }
     }
   }
   return cudaErrorInvalidValue;
@@ -639,6 +656,7 @@ cudaError_t with_dim(int d, F&& f) {
     case 32: return f(Int<32>{});
     case 64: return f(Int<64>{});
     case 128: return f(Int<128>{});
+    case 160: return f(Int<160>{});
     default: return cudaErrorInvalidValue;
   }
 }

@@ -35,14 +35,19 @@ import torch
 
 from . import build
 
-#: head dims of the paged kernels (K3-K6: every arch they serve)
+#: head dims of the float32 SIMT templates of K2 and of the paged kernels
+#: (K3-K6 with a float32 query)
 HEAD_DIMS = (16, 32, 64, 128)
+#: head dims of the paged kernels with a bf16 query (K3-K6d on the tensor
+#: cores): the SIMT templates' and pixtral-12b's 160, which the card
+#: serves in bf16 (the float32 templates have no D-160 instance)
+PAGED_HEAD_DIMS = HEAD_DIMS + (160,)
 #: head dims of K1 (both query types) and of the bf16 K2 (the cluster
 #: kernel's dense mode): the paged ones, h2o-danube-1.8b's 80 and
 #: zamba2-7b's 112, whose sliding windows serve from dense lanes only (the
 #: float32 K2's SIMT template splits D into whole 32-lane column runs: not
-#: at 80 or 112)
-DENSE_HEAD_DIMS = (16, 32, 64, 80, 112, 128)
+#: at 80 or 112), and pixtral-12b's 160
+DENSE_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the bf16 K1 kernel's name, as ``flash_attention.last_kernel`` gives it
@@ -53,12 +58,12 @@ TC_DEFAULT_TILE = (64, 64)
 #: TILED_HEAD_DIMS, any pair of them; the other head dims have
 #: TC_DEFAULT_TILE only.  ``FlashBlocks``' candidate values.
 TILE_VALUES = (64, 128)
-#: the head dims of the archs the card serves: 128, h2o-danube's 80 and
-#: zamba2's 112, which take every tile because ``ops.attention`` hands K1
-#: the tile ``FlashBlocks`` published whatever the head dim (whisper's 64
-#: takes the default tile: a 64-row tile already wastes most of its short
-#: prompts' rows)
-TILED_HEAD_DIMS = (80, 112, 128)
+#: the head dims of the archs the card serves: 128, h2o-danube's 80,
+#: zamba2's 112 and pixtral's 160, which take every tile because
+#: ``ops.attention`` hands K1 the tile ``FlashBlocks`` published whatever
+#: the head dim (whisper's 64 takes the default tile: a 64-row tile
+#: already wastes most of its short prompts' rows)
+TILED_HEAD_DIMS = (80, 112, 128, 160)
 #: the float32 SIMT template's one tile: query rows and keys
 SIMT_TILE = (64, 32)
 #: the float32 K2 kernel's name, as ``flash_decode.last_kernel`` gives it
@@ -84,11 +89,13 @@ def _lib() -> ctypes.CDLL:
 def head_dims(name: str, dtype: torch.dtype) -> tuple[int, ...]:
     """The head dims the kernel of wrapper ``name`` has an instance for at
     a query of ``dtype``: :data:`DENSE_HEAD_DIMS` for K1 and the bf16 K2,
-    :data:`HEAD_DIMS` for the float32 K2 and the paged kernels."""
+    :data:`PAGED_HEAD_DIMS` for the paged kernels with a bf16 query,
+    :data:`HEAD_DIMS` for the float32 K2 and the paged kernels' float32
+    templates."""
     if name == "flash_attention" or (name == "flash_decode"
                                      and dtype == torch.bfloat16):
         return DENSE_HEAD_DIMS
-    return HEAD_DIMS
+    return PAGED_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -264,7 +271,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), b, h, hkv, s, d)
     with torch.cuda.device(q.device):
         if q.dtype == torch.bfloat16:
-            c = pa.decode_cluster("flash_decode", q, b, hkv, _cluster)
+            c = pa.decode_cluster("flash_decode", q, b, hkv, _cluster, bk)
             err = pa._dec_lib().repro_flash_decode_tc(*args, c, bk, scale,
                                                       _stream(q))
             kernel = pa.DECODE_TC_KERNEL

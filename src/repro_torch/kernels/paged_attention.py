@@ -78,11 +78,13 @@ anywhere (page 0 by convention); entries below it must name pages of the
 pools.  The tensor-core kernel (K4, K5b, K6c and K6d with a bf16 query)
 takes a group size G = H / Hkv that gives it a row tile (at D 128: G a
 power of two up to 64, G 3, 6, 12 and 24 through the 48-row tile, or G
-5, 10, 20, 40 and 80 through the 80-row tile; at the other head dims G
-dividing 32); its wrappers raise otherwise.  Every paged kernel takes
-the head dims of :data:`HEAD_DIMS` only (D 80 and 112 are K1's and
-K2's: their archs, h2o-danube-1.8b and zamba2-7b, have sliding windows
-and never page).  The
+5, 10, 20, 40 and 80 through the 80-row tile; at D 160 G a power of two
+up to 64; at the other head dims G dividing 32); its wrappers raise
+otherwise.  The paged kernels take the head dims of
+:data:`PAGED_HEAD_DIMS` with a bf16 query (D 160 is pixtral-12b's) and
+of :data:`HEAD_DIMS` with a float32 one (D 80 and 112 are K1's and K2's:
+their archs, h2o-danube-1.8b and zamba2-7b, have sliding windows and
+never page).  The
 decode kernel of a bf16 query takes any G: its query rows come in 16-row
 slabs, one cluster each.
 The wrappers follow the contract of :mod:`.flash_attention`:
@@ -100,8 +102,8 @@ import functools
 import torch
 
 from . import build
-from .flash_attention import (_DTYPES, HEAD_DIMS, TILED_HEAD_DIMS, _raise_on,
-                              _stream)
+from .flash_attention import (_DTYPES, HEAD_DIMS, PAGED_HEAD_DIMS,
+                              TILED_HEAD_DIMS, _raise_on, _stream)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -129,20 +131,32 @@ DECODE_TILE_KEYS = 64
 DECODE_SLAB_ROWS = 16
 
 
-#: the CTAs an SM holds at once of the decode kernel's D = 128 instances
-#: (``decode_tc_info``'s ``blocks_per_sm``, shared memory bound)
+#: the most CTAs an SM holds at once that the cluster rule counts on: what
+#: the decode kernel's D = 128 instances hold (``decode_tc_info``'s
+#: ``blocks_per_sm``, shared memory bound); an instance whose shared
+#: memory leaves fewer counts those (:data:`DECODE_CTAS`)
 DECODE_CTAS_PER_SM = 2
+#: an SM's shared memory, and what the card reserves of it for each block
+SM_SHARED_BYTES = 228 * 1024
+BLOCK_RESERVED_BYTES = 1024
+#: the table entries a decode CTA stages at which its shared memory is
+#: reckoned (a rank's share of 64 pages; the build phase's ``decode_tc_info``)
+DECODE_TABLE_ENTRIES = 64
 #: the key tiles of the decode kernel at the head dims of TILED_HEAD_DIMS:
-#: D 128 (the paged archs the card serves) and, in the dense mode (K2)
-#: alone, D 80 (h2o-danube-1.8b) and D 112 (zamba2-7b's shared block),
-#: dense lanes only; other head dims have DECODE_TILE_KEYS only
+#: D 128 and 160 (the paged archs the card serves; 160 is pixtral-12b's)
+#: and, in the dense mode (K2) alone, D 80 (h2o-danube-1.8b) and D 112
+#: (zamba2-7b's shared block), dense lanes only; other head dims have
+#: DECODE_TILE_KEYS only
 DECODE_BLOCK_KS = (32, 64)
 #: the tensor-core prefill kernel's D = 128 instances: query rows (block_q
-#: x G) by keys; other head dims have TC_TILE_ROWS x TC_TILE_KEYS only.
-#: The 48-row tile (3 slabs) is phi4-mini's: 16 chunk rows at G 3; the
-#: 80-row tile (5 slabs) llama4-scout's: 16 chunk rows at G 5.
+#: x G) by keys.  The 48-row tile (3 slabs) is phi4-mini's: 16 chunk rows
+#: at G 3; the 80-row tile (5 slabs) llama4-scout's: 16 chunk rows at G 5.
 TC_ROW_TILES = (16, 32, 48, 64, 80)
 TC_BLOCK_KS = (64, 128)
+#: the row tiles by head dim: D 128's, and at pixtral-12b's D 160 rows 16,
+#: 32 and 64 (block_q 4, 8 and 16 at its G 4), both by TC_BLOCK_KS; other
+#: head dims have TC_TILE_ROWS x TC_TILE_KEYS only
+TC_ROW_TILES_BY_D = {128: TC_ROW_TILES, 160: (16, 32, 64)}
 #: the one tile of the float32 SIMT templates: keys of the decode walk,
 #: chunk rows and keys of the prefill walk
 SIMT_DECODE_TILE_KEYS = 32
@@ -152,7 +166,7 @@ SIMT_PREFILL_TILE = (64, 32)
 def decode_block_ks(dtype: torch.dtype, d: int) -> tuple[int, ...]:
     """The key tiles the decode kernels have an instance for, for a query
     of ``dtype`` at head dim ``d`` (at D 80 and 112 the dense mode's, K2:
-    the paged modes have no instance there, :data:`HEAD_DIMS`)."""
+    the paged modes have no instance there, :data:`PAGED_HEAD_DIMS`)."""
     if dtype != torch.bfloat16:
         return (SIMT_DECODE_TILE_KEYS,)
     return DECODE_BLOCK_KS if d in TILED_HEAD_DIMS else (DECODE_TILE_KEYS,)
@@ -166,15 +180,23 @@ def prefill_tiles(dtype: torch.dtype, d: int,
     heads, and ``block_q`` is a power of two, as the JAX package's tiles
     are (so the 48-row tile serves G 3 at block_q 16, not G 8 at 6, and
     the 80-row tile G 5 at 16, not G 8 at 10).  A head dim outside
-    :data:`HEAD_DIMS` has none: ((), ())."""
-    if d not in HEAD_DIMS:
+    :data:`PAGED_HEAD_DIMS` (bf16) or :data:`HEAD_DIMS` (float32) has
+    none: ((), ())."""
+    bf16 = dtype == torch.bfloat16
+    if d not in (PAGED_HEAD_DIMS if bf16 else HEAD_DIMS):
         return (), ()
-    if dtype != torch.bfloat16:
+    if not bf16:
         return (SIMT_PREFILL_TILE[0],), (SIMT_PREFILL_TILE[1],)
-    rows = TC_ROW_TILES if d == 128 else (TC_TILE_ROWS,)
-    keys = TC_BLOCK_KS if d == 128 else (TC_TILE_KEYS,)
+    rows = tc_row_tiles(d)
+    keys = TC_BLOCK_KS if d in TC_ROW_TILES_BY_D else (TC_TILE_KEYS,)
     block_qs = (r // g for r in rows if g >= 1 and r % g == 0)
     return tuple(bq for bq in block_qs if bq & (bq - 1) == 0), keys
+
+
+def tc_row_tiles(d: int) -> tuple[int, ...]:
+    """The query-row tiles of the tensor-core prefill kernel at head dim
+    ``d`` (whatever the group size)."""
+    return TC_ROW_TILES_BY_D.get(d, (TC_TILE_ROWS,))
 
 
 def default_block_q(d: int, g: int) -> int:
@@ -226,15 +248,54 @@ def prefill_tile(name: str, q: torch.Tensor, hkv: int,
     return block_q, block_k
 
 
-def cluster_size(b: int, hkv: int, sm_count: int) -> int:
+def decode_smem_bytes(d: int, block_k: int, quant: bool,
+                      nblk: int = DECODE_TABLE_ENTRIES) -> int:
+    """Dynamic shared memory of one CTA of the bf16 decode kernel at head
+    dim ``d``, ``block_k`` keys a tile, over int8 pools with ``quant``
+    (``dec::Smem`` of ``csrc/paged_decode.cu``): the ring of 3 K and V
+    stages (rows of D x the pool's element size + 16 bytes), for int8 the
+    K and V tiles widened to bf16 rows of D + 8 and the ring's scales, the
+    16-row Q slab, then ``nblk`` page-table entries."""
+    row, stages, slab = d + 8, 3, 16
+    kv_row = d * (1 if quant else 2) + 16
+    ring = 2 * stages * block_k * kv_row
+    wide = 2 * block_k * row * 2 if quant else 0
+    scales = stages * 2 * block_k * 4 if quant else 0
+    return ring + wide + slab * row * 2 + scales + 4 * nblk
+
+
+def decode_ctas_per_sm(d: int, block_k: int, quant: bool) -> int:
+    """The CTAs an SM holds at once of the bf16 decode instance at (``d``,
+    ``block_k``, int8 pools with ``quant``) that the cluster rule counts
+    on: those its shared memory (:func:`decode_smem_bytes`) allows, at
+    most :data:`DECODE_CTAS_PER_SM`.  1 at D 160 and 64 keys (bf16 and
+    int8), 2 at every other instance; the card's ``decode_tc_info``
+    confirms it."""
+    fits = SM_SHARED_BYTES // (decode_smem_bytes(d, block_k, quant)
+                               + BLOCK_RESERVED_BYTES)
+    return max(1, min(DECODE_CTAS_PER_SM, fits))
+
+
+#: the host's table of :func:`decode_ctas_per_sm` by (head dim, key tile,
+#: int8 pools) over the bf16 decode kernel's instances
+DECODE_CTAS = {(d, bk, quant): decode_ctas_per_sm(d, bk, quant)
+               for d in PAGED_HEAD_DIMS + TILED_HEAD_DIMS
+               for bk in decode_block_ks(torch.bfloat16, d)
+               for quant in (False, True)}
+
+
+def cluster_size(b: int, hkv: int, sm_count: int, d: int = 128,
+                 block_k: int = DECODE_TILE_KEYS,
+                 quant: bool = False) -> int:
     """The CTAs per (lane, kv head) cluster of the bf16 decode kernel: the
     largest of :data:`CLUSTER_SIZES` with ``b * hkv * c`` at most the CTAs
-    the card holds at once (:data:`DECODE_CTAS_PER_SM` an SM), so that
-    every CTA runs in one wave (1 when even that does not fit).  From the
-    shapes alone: it never reads ``kv_len``, which would sync the decode
-    step with the host."""
-    fits = [c for c in CLUSTER_SIZES
-            if b * hkv * c <= DECODE_CTAS_PER_SM * sm_count]
+    the card holds at once (:data:`DECODE_CTAS` an SM for the instance at
+    head dim ``d``, ``block_k`` keys and int8 pools with ``quant``), so
+    that every CTA runs in one wave (1 when even that does not fit).  From
+    the shapes alone: it never reads ``kv_len``, which would sync the
+    decode step with the host."""
+    per_sm = DECODE_CTAS.get((d, block_k, quant), DECODE_CTAS_PER_SM)
+    fits = [c for c in CLUSTER_SIZES if b * hkv * c <= per_sm * sm_count]
     return max(fits, default=1)
 
 
@@ -314,17 +375,17 @@ def _dec_lib() -> ctypes.CDLL:
 
 def check_tc_shape(name: str, h: int, hkv: int, d: int) -> None:
     """Raise on a shape the tensor-core prefill kernel does not take: a
-    head dim outside :data:`HEAD_DIMS`, or a group size G = H / Hkv that
+    head dim outside :data:`PAGED_HEAD_DIMS`, or a group size G = H / Hkv that
     gives no row tile (:func:`prefill_tiles`: G must divide one of the
     kernel's row tiles at head dim ``d``, with ``block_q`` a power of
-    two: G 1, 2, 4, 8, 16, 32, 64; 3, 6, 12 and 24 by the 48-row tile; 5,
-    10, 20, 40 and 80 by the 80-row tile)."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}: the "
-                         "paged kernels have no other instance")
+    two: G 1, 2, 4, 8, 16, 32, 64; at D 128 also 3, 6, 12 and 24 by the
+    48-row tile and 5, 10, 20, 40 and 80 by the 80-row tile)."""
+    if d not in PAGED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {PAGED_HEAD_DIMS}: "
+                         "the paged kernels have no other instance")
     g = h // hkv if hkv and h % hkv == 0 else 0
     if g < 1 or not prefill_tiles(torch.bfloat16, d, g)[0]:
-        rows = TC_ROW_TILES if d == 128 else (TC_TILE_ROWS,)
+        rows = tc_row_tiles(d)
         raise ValueError(f"{name}: {h} query heads over {hkv} kv heads: the "
                          f"group size must divide one of the query tiles "
                          f"{rows} of the tensor-core kernel at head dim {d}")
@@ -394,14 +455,17 @@ def decode_tc_info(d: int, kind: str, nblk: int = 0, *,
 
 
 def decode_cluster(name: str, q: torch.Tensor, b: int, hkv: int,
-                   cluster: int | None) -> int:
-    """The cluster size of a bf16 decode launch (K3, K6a, K2) on q's card:
-    ``cluster`` if given (one of :data:`CLUSTER_SIZES`, else raise), else
+                   cluster: int | None, block_k: int = DECODE_TILE_KEYS,
+                   quant: bool = False) -> int:
+    """The cluster size of a bf16 decode launch (K3, K6a, K2) on q's card
+    at ``block_k`` keys a tile over int8 pools with ``quant``: ``cluster``
+    if given (one of :data:`CLUSTER_SIZES`, else raise), else
     :func:`cluster_size` of the card."""
     if cluster is None:
         index = q.device.index
         cluster = cluster_size(b, hkv, sm_count(
-            torch.cuda.current_device() if index is None else index))
+            torch.cuda.current_device() if index is None else index),
+            q.shape[-1], block_k, quant)
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"{name}: cluster size {cluster!r} not in "
                          f"{CLUSTER_SIZES}")
@@ -418,7 +482,8 @@ def _decode_entry(name: str, q: torch.Tensor, b: int, hkv: int, quant: bool,
     if q.dtype == torch.bfloat16:
         fn = getattr(_dec_lib(), f"repro_flash_paged_decode{suffix}_tc")
         return fn, DECODE_TC_KERNEL, (
-            decode_cluster(name, q, b, hkv, cluster), block_k)
+            decode_cluster(name, q, b, hkv, cluster, block_k, quant),
+            block_k)
     fn = getattr(_lib(), f"repro_flash_paged_decode{suffix}")
     return fn, DECODE_SIMT_KERNEL, (_DTYPES[q.dtype],)
 
@@ -481,9 +546,11 @@ def _check(name: str, q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k_pool "
                          f"{tuple(k_pool.shape)} v_pool "
                          f"{tuple(v_pool.shape)} do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}: the "
-                         "paged kernels have no other instance")
+    dims = PAGED_HEAD_DIMS if q.dtype == torch.bfloat16 else HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"{name}: head dim {d} not in {dims}: the paged "
+                         f"kernels have no other instance for a {q.dtype} "
+                         "query")
     if h % k_pool.shape[1]:
         raise ValueError(f"{name}: {h} query heads are not a multiple of "
                          f"{k_pool.shape[1]} kv heads")

@@ -27,6 +27,8 @@ Usage (on the card)::
         --arch moonshot-v1-16b-a3b --cache paged --prefill-chunk 128
     PYTHONPATH=src python -m repro_torch.launch.profile_decode --full \
         --arch zamba2-7b --max-len 4700 --prompt-len 4094
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode --full \
+        --arch pixtral-12b --cache paged --prefill-chunk 128
 """
 from __future__ import annotations
 

@@ -22,7 +22,12 @@ serves the Mamba-1 stack from dense lanes that hold its recurrent
 state, ``--arch zamba2-7b`` the Mamba-2 stack with its shared block's
 sliding-window rings, ``--arch h2o-danube-1.8b`` its rings alone; the
 paged pool, and with it ``--cache paged``, ``--draft`` and
-``--prefix-cache``, does not apply to them and raises.  whisper-tiny is
+``--prefix-cache``, does not apply to them and raises.  ``--arch
+pixtral-12b`` serves mistral-nemo's decoder (D 160, G 4) text-only
+through every path above, as the JAX package's serve does: a request
+carries no patches (its vision stub runs through
+``Model.prefill(frontend_embeds=...)``); at ``--full`` its bf16 weights
+take 25.6 GB.  whisper-tiny is
 not served: its prefill needs the encoder's frames, which a request does
 not carry (the engine raises, as the JAX package serves it no frames
 either); it runs through ``Model.prefill(frontend_embeds=...)`` and
@@ -75,6 +80,9 @@ Usage::
         --arch falcon-mamba-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \
         moonshot-v1-16b-a3b --full --cache paged --prefill-chunk 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
+        --full --cache paged --prefill-chunk 128 --kv-dtype int8 \
+        --num-splits 8
     PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
         --prefill-chunk 128 --autotune --workdir /tmp/at   # twice: warm
 """

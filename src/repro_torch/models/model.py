@@ -34,11 +34,15 @@ class Model:
                 "training, ROADMAP item 9)")
 
     def forward(self, params: dict, tokens: torch.Tensor,
-                use_kernel: bool | None = None):
-        """tokens (B, S) -> (final-normed hidden (B, S, d), aux_loss)."""
+                use_kernel: bool | None = None,
+                frontend_embeds: torch.Tensor | None = None):
+        """tokens (B, S) -> (final-normed hidden (B, S', d), aux_loss);
+        with ``frontend_embeds`` (B, F, d), a vision arch's patches, S' =
+        F + S, else S."""
         self._decoder_only("forward")
         return transformer.forward(params, tokens, self.cfg,
-                                   use_kernel=use_kernel)
+                                   use_kernel=use_kernel,
+                                   frontend_embeds=frontend_embeds)
 
     def head_logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         """float32 logits of :meth:`forward`'s hidden states."""
@@ -49,19 +53,19 @@ class Model:
                 frontend_embeds: torch.Tensor | None = None):
         """(last-token logits, caches).  An encoder-decoder arch takes its
         encoder's input, ``frontend_embeds`` (B, Se, d); a decoder arch
-        takes none (the vision stub is not ported, ROADMAP item 8b.6)."""
+        with a vision frontend (pixtral-12b) may take its patch embeddings
+        (B, F, d), put in front of the prompt (the caches then hold F + S
+        positions); a decoder arch without a frontend raises
+        ``ValueError`` when given any."""
         if self.cfg.is_encoder_decoder:
             if frontend_embeds is None:
                 raise ValueError(f"{self.cfg.name!r} is an encoder-decoder: "
                                  "prefill needs frontend_embeds")
             return encdec.prefill(params, tokens, self.cfg, frontend_embeds,
                                   max_len, use_kernel=use_kernel)
-        if frontend_embeds is not None:
-            raise NotImplementedError(
-                "a decoder's frontend stub is not ported: ROADMAP queue 1, "
-                "item 8b.6")
         return transformer.prefill(params, tokens, self.cfg, max_len,
-                                   use_kernel=use_kernel)
+                                   use_kernel=use_kernel,
+                                   frontend_embeds=frontend_embeds)
 
     def decode_step(self, params: dict, caches: dict, token: torch.Tensor,
                     pos: torch.Tensor, use_kernel: bool | None = None):

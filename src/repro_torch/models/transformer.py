@@ -24,6 +24,12 @@ Weights may be held in any float dtype: every use casts them to
 them in ``compute_dtype`` already (as :func:`init_params` and the bridge
 do) is the same arithmetic at half the memory for bf16.
 
+A vision-language arch (pixtral-12b) also holds ``frontend_proj`` (d x
+d): ``forward`` and ``prefill`` take its stubbed vision tower's patch
+embeddings, ``frontend_embeds`` (B, F, d), project them and put them in
+front of the token embeddings, so the sequence is F + S positions long
+(RoPE runs over all of them, and the caches hold them all).
+
 Modes: ``forward`` (tokens -> final-normed hidden states), ``prefill``
 (whole prompt, K/V collected into caches padded to ``max_len``, or each
 Mamba-1 layer's final conv and recurrent state) and ``decode_step`` (one
@@ -57,22 +63,19 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for what the port does not run: the vision frontend stub
-    (pixtral-12b, item 8b.6); layer norm, GELU and the audio frontend
-    outside the encoder-decoder family, which alone has them."""
+    """Raise for what the port does not run: layer norm, GELU and the
+    audio frontend outside the encoder-decoder family, which alone has
+    them.  A decoder's vision frontend stub (pixtral-12b) runs."""
     kind = cfg.layer_kinds()[0]
     if kind not in _KINDS:
         raise NotImplementedError(
             f"layer kind {kind!r} ({cfg.name}) is not ported yet: "
             f"{_OTHER_FAMILIES}")
-    if cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"the vision frontend stub ({cfg.name}) is not ported yet: "
-            "ROADMAP queue 1, item 8b.6")
     if cfg.is_encoder_decoder:
         return
     for what, unsupported in (
-            ("the frontend stub", cfg.frontend != "none"),
+            (f"the {cfg.frontend} frontend stub",
+             cfg.frontend not in ("none", "vision")),
             ("layer norm", cfg.norm != "rms"),
             (f"activation {cfg.act!r}", cfg.act != "silu")):
         if unsupported:
@@ -160,13 +163,29 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cpu") -> dict:
             "mlp": init_mlp(gen, d, cfg.d_ff, **kw),
             "norm1_w": torch.ones((d,), **kw),
             "norm2_w": torch.ones((d,), **kw)}
+    if cfg.frontend != "none":  # the vision stub's patch projection
+        p["frontend_proj"] = dense_init(gen, d, d, **kw)
     return p
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor,
-                 cfg: ArchConfig) -> torch.Tensor:
-    """tokens (B, S) int -> (B, S, d) in compute dtype."""
-    return params["embed"][tokens].to(torch_dtype(cfg.compute_dtype))
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                 frontend_embeds: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """tokens (B, S) int -> (B, S, d) in compute dtype; with
+    ``frontend_embeds`` (B, F, d) -> (B, F + S, d): the patches projected
+    by ``frontend_proj``, then the tokens (the JAX package's order).  An
+    arch without a frontend has no ``frontend_proj`` and raises
+    ``ValueError``."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    x = params["embed"][tokens].to(dtype)
+    if frontend_embeds is None:
+        return x
+    if "frontend_proj" not in params:
+        raise ValueError(
+            f"{cfg.name!r} has no frontend (frontend={cfg.frontend!r}): it "
+            "takes no frontend_embeds")
+    fe = frontend_embeds.to(dtype) @ params["frontend_proj"].to(dtype)
+    return torch.cat([fe, x], dim=1)
 
 
 def lm_head_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -228,14 +247,16 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
-            use_kernel: bool | None = None):
-    """tokens (B, S) -> (final-normed hidden (B, S, d), aux_loss): the
-    train/prefill forward without the caches.  A ``mamba1`` stack runs
-    one selective scan (K9 on the card) per layer, without the final
-    state; a hybrid stack its shared block after every
-    ``attn_period``-th layer."""
+            use_kernel: bool | None = None,
+            frontend_embeds: torch.Tensor | None = None):
+    """tokens (B, S) -> (final-normed hidden (B, S', d), aux_loss): the
+    train/prefill forward without the caches; S' = F + S with
+    ``frontend_embeds`` (B, F, d) in front (:func:`embed_tokens`), else
+    S.  A ``mamba1`` stack runs one selective scan (K9 on the card) per
+    layer, without the final state; a hybrid stack its shared block after
+    every ``attn_period``-th layer."""
     check_supported(cfg)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, frontend_embeds)
     kind = cfg.layer_kinds()[0]
     layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
     shared = _shared(params, cfg)
@@ -360,12 +381,15 @@ def decode_step(params: dict, caches: dict, token: torch.Tensor,
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
-            max_len: int | None = None, use_kernel: bool | None = None):
+            max_len: int | None = None, use_kernel: bool | None = None,
+            frontend_embeds: torch.Tensor | None = None):
     """Forward over the prompt; returns (last-token logits, caches).
 
-    ``max_len`` sizes the returned KV caches (>= prompt length; the
-    positions past the prompt are zero) so decode steps have room to
-    append.  A sliding-window arch keeps only the prompt's last W keys, W
+    With ``frontend_embeds`` (B, F, d) the prompt is the F projected
+    patches and then the S tokens (:func:`embed_tokens`): the caches hold
+    S' = F + S positions and decode continues at position S'.
+    ``max_len`` sizes the returned KV caches (>= S'; the positions past
+    the prompt are zero) so decode steps have room to append.  A sliding-window arch keeps only the prompt's last W keys, W
     = ``min(max_len, window)``, in the ring buffer's layout (slot ``pos %
     W``, as decode indexes it): rolled by ``(S - W) % W`` when the prompt
     is longer than W, zero-padded when it is shorter.  A ``mamba1`` stack
@@ -380,7 +404,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     stack of every layer compacted by a 0/1 selector (whose values are
     the same)."""
     check_supported(cfg)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, frontend_embeds)
     kind = cfg.layer_kinds()[0]
     if kind in ("mamba1", "mamba2"):
         return _prefill_ssm(params, x, cfg, max_len, use_kernel)

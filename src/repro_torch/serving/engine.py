@@ -38,6 +38,10 @@ model's steps, as the JAX package's engine does:
   waits on that event off the event loop;
 * ``cancel_request`` aborts a request wherever it is (queued, preempted
   or on a lane) and returns its pages to the pool, at a tick boundary.
+A request carries tokens only: a vision arch (pixtral-12b) is served
+text-only, dense or paged, its patch projection unused, as the JAX
+engine serves it; an encoder-decoder, whose prefill needs the encoder's
+frames, is refused.
 
 Greedy output is token-for-token the JAX engine's on the same weights
 and requests, int8 pages, speculation and the prefix cache included.

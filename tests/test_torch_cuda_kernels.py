@@ -1913,3 +1913,253 @@ def test_d112_routes_without_an_instance_raise_on_the_card(cuda_device):
                                            torch.bfloat16, cuda_device, 572)
     with pytest.raises(ValueError, match="head dim 112"):
         pa.flash_paged_decode(qb, kp, vp, table, lens)
+
+
+# --------------------------------------------------------------------------
+# pixtral-12b's D 160 (32 q / 8 kv heads: G 4): K1, and K2-K6d, the
+# kernels that page, on the tensor cores
+# --------------------------------------------------------------------------
+
+D160_TILES = [(bq, bk) for bq in pa.prefill_tiles(torch.bfloat16, 160, 4)[0]
+              for bk in pa.TC_BLOCK_KS]
+
+
+def _nan_past_kv_len(pools, table, kv_len, psz):
+    """The pools with NaN (int8 pools: codes 127 and NaN scales) in the
+    slots past kv_len of each lane's last live page, and with those slots
+    zeroed: (dirty, zeroed)."""
+    dirty = [t.clone() for t in pools]
+    zeroed = [t.clone() for t in pools]
+    for i, n in enumerate(kv_len):
+        if n % psz:
+            page = int(table[i, n // psz])
+            for t, z in zip(dirty, zeroed):
+                t[page, :, n % psz:] = (
+                    127 if t.dtype == torch.int8 else float("nan"))
+                z[page, :, n % psz:] = 0
+    return dirty, zeroed
+
+
+@pytest.mark.parametrize("tile", fa.attention_tiles(torch.bfloat16, 160),
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("h,hkv,s,causal", [
+    (8, 2, 1280, True), (4, 1, 300, True), (4, 4, 77, False),
+    (4, 1, 1, True)])
+def test_tc_attention_d160_every_tile_matches_plain(cuda_device, h, hkv, s,
+                                                    causal, tile):
+    """The bf16 K1 at D 160 (pixtral's G 4, and G 1) at each of its four
+    tiles: causal at S' = 1280 (the vision prefill: 1024 patches and a
+    256-token prompt) and at a ragged S, non-causal, one row; against
+    plain, bit-equal to the default tile, one launch counted under its
+    tile."""
+    q = rand((2, h, s, 160), 580, cuda_device, torch.bfloat16)
+    k = rand((2, hkv, s, 160), 581, cuda_device, torch.bfloat16)
+    v = rand((2, hkv, s, 160), 582, cuda_device, torch.bfloat16)
+    n = fa.flash_attention.by_tile[tile]
+    got = fa.flash_attention(q, k, v, causal=causal, block_q=tile[0],
+                             block_k=tile[1])
+    torch.cuda.synchronize()
+    assert fa.flash_attention.by_tile[tile] == n + 1
+    assert fa.flash_attention.last_kernel == fa.TC_KERNEL
+    close(got, ref.attention_ref(q, k, v, causal=causal), torch.bfloat16)
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal))
+
+
+def test_attention_d160_float32_matches_plain(cuda_device):
+    """The float32 K1 (the SIMT template, five columns a lane) at D 160."""
+    q = rand((2, 8, 150, 160), 583, cuda_device, torch.float32, 0.3)
+    k = rand((2, 2, 150, 160), 584, cuda_device, torch.float32, 0.3)
+    v = rand((2, 2, 150, 160), 585, cuda_device, torch.float32)
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.last_kernel == "flash_attention_kernel"
+    close(got, ref.attention_ref(q, k, v, causal=True), torch.float32)
+
+
+@pytest.mark.parametrize("tile", fa.attention_tiles(torch.bfloat16, 160),
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+def test_tc_attention_d160_instances_fit_the_card(cuda_device, tile):
+    info = fa.tc_info(160, *tile)
+    assert info["smem_bytes"] == fa.smem_bytes(*tile, 160)
+    assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+@pytest.mark.parametrize("cluster", pa.CLUSTER_SIZES + (None,))
+@pytest.mark.parametrize("h,hkv,s", [(32, 8, 1300), (8, 2, 300)])
+def test_tc_dense_decode_d160_matches_plain(cuda_device, h, hkv, s, cluster,
+                                            block_k):
+    """K2 (the dense mode) at D 160, both key tiles, every cluster size
+    and the rule's: an empty lane (exactly 0), one shorter than a tile, a
+    ragged one and one past S (clamped); the memory past the last strip
+    is NaN and stays unread."""
+    kv_len = torch.tensor([0, 37, s - 11, s + 9], dtype=torch.int32,
+                          device=cuda_device)
+    q = rand((4, h, 1, 160), 586, cuda_device, torch.bfloat16)
+    k = _nan_tailed((4, hkv, s, 160), 587, cuda_device)
+    v = _nan_tailed((4, hkv, s, 160), 588, cuda_device)
+    n = fa.flash_decode.by_tile[block_k]
+    got = fa.flash_decode(q, k, v, kv_len, block_k=block_k, _cluster=cluster)
+    torch.cuda.synchronize()
+    assert fa.flash_decode.by_tile[block_k] == n + 1
+    assert fa.flash_decode.last_kernel == pa.DECODE_TC_KERNEL
+    assert torch.all(got[0] == 0) and bool(torch.isfinite(got).all())
+    close(got[1:], ref.decode_ref(q, k, v, kv_len)[1:], torch.bfloat16)
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+@pytest.mark.parametrize("quant", [False, True], ids=["K3", "K6a"])
+def test_tc_decode_d160_matches_plain(cuda_device, quant, block_k):
+    """K3 and K6a at D 160 and G 4, both key tiles, at clusters of 1, 4 and
+    8 and at the rule's size: an empty lane (exactly 0), one shorter than
+    a tile, ragged ones with NaN (int8: codes 127 and NaN scales) past
+    kv_len in their last live page, table entries past kv_len on the null
+    page; the output equals the run over the zeroed slots and the plain
+    version's."""
+    psz, kv_len = 16, [0, 37, 157, 301]
+    q, kp, vp, table, lens = paged_inputs(4, 32, 8, 160, psz, 20, kv_len,
+                                          torch.bfloat16, cuda_device, 590)
+    pools, kernel = decode_pools(kp, vp, quant)
+    dirty, zeroed = _nan_past_kv_len(pools, table, kv_len, psz)
+    want = plain_decode(q, zeroed, table, lens)
+    n = kernel.by_tile[block_k]
+    for cluster in (1, 4, 8, None):
+        got = kernel(q, *dirty, table, lens, block_k=block_k,
+                     _cluster=cluster)
+        clean = kernel(q, *zeroed, table, lens, block_k=block_k,
+                       _cluster=cluster)
+        torch.cuda.synchronize()
+        assert kernel.last_kernel == pa.DECODE_TC_KERNEL
+        assert torch.all(got[0] == 0) and bool(torch.isfinite(got).all())
+        assert torch.equal(got, clean)
+        close(got[1:], want[1:], torch.bfloat16)
+    assert kernel.by_tile[block_k] == n + 8
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+@pytest.mark.parametrize("quant", [False, True], ids=["K5a", "K6b"])
+def test_tc_split_decode_d160_matches_plain(cuda_device, quant, block_k):
+    """K5a and K6b with K5c merged at D 160 and G 4, both key tiles, 3 and
+    8 splits: the partials against ``ref.paged_decode_split_tiles_ref``
+    cut at the same tile, the output bit-equal to K5c over the launch's
+    own partials and within tolerance of the one-pass plain version, an
+    empty lane exactly 0; the arrival counters zero afterwards."""
+    args, merged, _ = merged_decode_case(cuda_device, 32, 8, 160, 16, quant,
+                                         592)
+    q, *pools, table, lens = args
+    ks, vs = (pools[2], pools[3]) if quant else (None, None)
+    n = merged.by_tile[block_k]
+    for ns in (3, 8):
+        out, (m, l, acc) = merged(*args, ns, block_k=block_k,
+                                  return_partials=True)
+        _, (wm, wl, wacc) = ref.paged_decode_split_tiles_ref(
+            q, pools[0], pools[1], table, lens, ns, k_scale=ks, v_scale=vs,
+            block_k=block_k)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(m.cpu().numpy(), wm.cpu().numpy(),
+                                   rtol=2e-2, atol=2e-2)
+        close(l, wl, torch.bfloat16)
+        combined = pa.split_combine(m, l, acc, q.dtype)
+        assert torch.equal(out.reshape(combined.shape), combined)
+        assert torch.all(out[0] == 0)
+        close(out[1:], plain_decode(q, pools, table, lens)[1:],
+              torch.bfloat16)
+    assert merged.by_tile[block_k] == n + 2
+    assert merged.last_kernel == pa.DECODE_TC_KERNEL
+    assert counters_all_zero()
+
+
+@pytest.mark.parametrize("block_k", pa.DECODE_BLOCK_KS)
+@pytest.mark.parametrize("kind", pa.DECODE_KINDS)
+def test_tc_decode_d160_instances_fit_the_card(cuda_device, kind, block_k):
+    """Every D 160 decode instance builds without spilling, and the CTAs
+    an SM the card holds at a 64-entry table are what the cluster rule
+    counts (``DECODE_CTAS``): one at 64 keys, two (of three) at 32."""
+    info = pa.decode_tc_info(160, kind, 64, block_k=block_k)
+    quant = kind.startswith("int8")
+    assert min(info["blocks_per_sm"], pa.DECODE_CTAS_PER_SM) == \
+        pa.DECODE_CTAS[(160, block_k, quant)]
+    assert all(n >= 1 for n in info["clusters"].values())
+    assert info["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("tile", D160_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_tc_prefill_d160_every_tile_matches_plain(cuda_device, quant, tile):
+    """K4 / K6c in one pass and K5b / K6d with K5c merged (3 splits) at
+    every tile of the D 160 ladder at G 4 (rows 16, 32 and 64: block_q 4,
+    8 and 16, by keys 64 and 128): a chunk of 44 starting mid-page whose
+    lane has NaN past kv_len in its last live page (int8: codes 127 and
+    NaN scales), a ragged chunk at 0 and an idle lane (exactly 0); the
+    output equals the run over the zeroed slots and the plain version's;
+    ``by_tile`` counts the launches; counters zero after."""
+    block_q, block_k = tile
+    psz, c, start = 16, 44, 3 * 16 + 8
+    valid = [c, c - 3, 0]
+    kv_len = [start + c, valid[1], 0]
+    q, kp, vp, table, lens = paged_inputs(3, 32, 8, 160, psz, 32, kv_len,
+                                          torch.bfloat16, cuda_device, 594,
+                                          c=c)
+    starts = torch.tensor([start, 0, 0], dtype=torch.int32,
+                          device=cuda_device)
+    if quant:
+        (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+        pools = (k8, v8, ks, vs)
+        one, merged = pa.flash_paged_prefill_quant, \
+            pa.paged_prefill_split_quant_merged
+    else:
+        pools = (kp, vp)
+        one, merged = pa.flash_paged_prefill, pa.paged_prefill_split_merged
+    dirty, zeroed = _nan_past_kv_len(pools, table, kv_len, psz)
+    dirty, zeroed = ops.PagedPools(*dirty), ops.PagedPools(*zeroed)
+    want = ref.paged_prefill_ref(q, zeroed.k, zeroed.v, table, starts, lens,
+                                 k_scale=zeroed.k_scale,
+                                 v_scale=zeroed.v_scale)
+    n1, n3 = one.by_tile[tile], merged.by_tile[tile]
+    for ns in (1, 3):
+        got, clean = (ops.paged_prefill(q, p, table, starts, lens,
+                                        num_splits=ns, block_q=block_q,
+                                        block_k=block_k)
+                      for p in (dirty, zeroed))
+        torch.cuda.synchronize()
+        assert torch.equal(got, clean)
+        for lane, v in enumerate(valid[:2]):
+            assert bool(torch.isfinite(got[lane, :, :v]).all())
+            close(got[lane, :, :v], want[lane, :, :v], torch.bfloat16)
+        assert torch.all(got[2] == 0)
+    assert one.by_tile[tile] == n1 + 2 and merged.by_tile[tile] == n3 + 2
+    assert one.last_kernel == merged.last_kernel == TC_KERNEL
+    assert counters_all_zero()
+
+
+@pytest.mark.parametrize("tile", D160_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("kind", pa.TC_KINDS)
+def test_tc_prefill_d160_instances_fit_the_card(cuda_device, kind, tile):
+    """Every tile of the D 160 prefill instances fits a block an SM at a
+    64-entry table and builds without spilling."""
+    info = pa.tc_info(160, kind, 64, rows=4 * tile[0], block_k=tile[1])
+    assert info["blocks_per_sm"] >= 1
+    assert info["local_bytes"] == 0
+
+
+def test_d160_routes_without_an_instance_raise_on_the_card(cuda_device):
+    """The float32 K2 and the paged kernels' float32 templates refuse D 160
+    by name, and the prefill kernel a D 160 tile off its ladder (48 rows),
+    before anything launches."""
+    q = rand((2, 4, 1, 160), 596, cuda_device, torch.float32)
+    k = rand((2, 4, 64, 160), 597, cuda_device, torch.float32)
+    n = fa.flash_decode.launches
+    with pytest.raises(ValueError, match="head dim 160"):
+        fa.flash_decode(q, k, k)
+    assert fa.flash_decode.launches == n
+    qf, kp, vp, table, lens = paged_inputs(2, 8, 2, 160, 16, 4, [20, 40],
+                                           torch.float32, cuda_device, 598)
+    with pytest.raises(ValueError, match="head dim 160"):
+        pa.flash_paged_decode(qf, kp, vp, table, lens)
+    qb, kp, vp, table, lens = paged_inputs(2, 12, 4, 160, 16, 4, [20, 40],
+                                           torch.bfloat16, cuda_device, 599,
+                                           c=8)
+    start = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="group size"):
+        pa.flash_paged_prefill(qb, kp, vp, table, start, lens)
+    assert counters_all_zero()

@@ -532,30 +532,60 @@ def test_int8_merged_partials_against_plain_and_jax(h, hkv, ns):
     assert np.all(np.abs(got[1:].numpy() - want[1:]) <= bound[1:].numpy())
 
 
-@pytest.mark.parametrize("b,hkv,sms,want", [
+# (b, hkv, sms, want): the default instance (D 128, 64 keys, bf16 pools)
+CLUSTER_CASES = [
     (4, 4, 132, 8),       # yi-6b's four lanes: 16 clusters of 8
     (4, 32, 132, 2),      # deepseek-7b: 256 CTAs, two an SM
     (1, 4, 132, 8), (8, 4, 132, 8), (4, 8, 132, 8), (16, 4, 132, 4),
-    (33, 4, 132, 2), (64, 8, 132, 1), (1, 1, 1, 2), (2, 4, 16, 4)])
-def test_cluster_size_from_shapes(b, hkv, sms, want):
-    assert pa.cluster_size(b, hkv, sms) == want
+    (33, 4, 132, 2), (64, 8, 132, 1), (1, 1, 1, 2), (2, 4, 16, 4)]
+# (b, hkv, sms, want, (d, block_k, quant)): the instance's own count of
+# CTAs an SM.  Every arch's decode at four lanes keeps its c (h2o-danube's
+# 8 kv heads at D 80, zamba2's 32 at D 112, whisper's 6 at D 64); at
+# pixtral's D 160 a 64-key tile (bf16 or int8 pools) holds one CTA an SM,
+# so its 32 (lane, kv head) pairs take c = 4, one wave of 128 CTAs, where
+# two an SM would have given 8 (256 CTAs, two waves); the 32-key tile
+# holds two of its three
+INSTANCE_CASES = [
+    (4, 4, 132, 8, (128, 64, False)), (4, 32, 132, 2, (128, 64, False)),
+    (4, 8, 132, 8, (80, 64, False)), (4, 32, 132, 2, (112, 64, False)),
+    (4, 6, 132, 8, (64, 64, False)), (4, 4, 132, 8, (128, 64, True)),
+    (4, 8, 132, 4, (160, 64, False)), (4, 8, 132, 4, (160, 64, True)),
+    (4, 8, 132, 8, (160, 32, False)), (4, 8, 132, 8, (160, 32, True)),
+    (1, 8, 132, 8, (160, 64, False)), (8, 8, 132, 2, (160, 64, False)),
+    (33, 8, 132, 1, (160, 64, False)), (2, 8, 16, 1, (160, 64, False))]
+
+
+@pytest.mark.parametrize("b,hkv,sms,want,instance", [
+    pytest.param(*case, (), id="-".join(map(str, case)))
+    for case in CLUSTER_CASES] + [
+    pytest.param(*case, id=f"D{case[4][0]}-{case[4][1]}"
+                 f"{'-int8' if case[4][2] else ''}-"
+                 + "-".join(map(str, case[:4])))
+    for case in INSTANCE_CASES])
+def test_cluster_size_from_shapes(b, hkv, sms, want, instance):
+    assert pa.cluster_size(b, hkv, sms, *instance) == want
 
 
 def test_cluster_size_is_bounded_and_takes_no_device_argument():
     """Never more than 8, every CTA in the one wave of the CTAs the card
-    holds at once (two an SM) where a cluster of one fits, and the shapes
-    and the SM count its only inputs: nothing of kv_len, so the decode
-    step never waits on the host."""
+    holds at once (the instance's count an SM: two, one at D 160 and 64
+    keys) where a cluster of one fits, and the shapes, the SM count and
+    the instance its only inputs: nothing of kv_len, so the decode step
+    never waits on the host."""
     assert list(inspect.signature(pa.cluster_size).parameters) == [
-        "b", "hkv", "sm_count"]
+        "b", "hkv", "sm_count", "d", "block_k", "quant"]
     assert pa.DECODE_CTAS_PER_SM == 2
-    for b, hkv, sms in itertools.product((1, 2, 3, 4, 8, 33), (1, 2, 4, 8, 32),
-                                         (8, 78, 114, 132)):
-        c = pa.cluster_size(b, hkv, sms)
-        held = pa.DECODE_CTAS_PER_SM * sms
-        assert c in pa.CLUSTER_SIZES and c <= 8
-        assert b * hkv * c <= held or c == 1
-        assert c == 8 or b * hkv * 2 * c > held
+    for (d, bk, quant), per_sm in pa.DECODE_CTAS.items():
+        assert per_sm == min(pa.DECODE_CTAS_PER_SM,
+                             pa.decode_ctas_per_sm(d, bk, quant))
+        for b, hkv, sms in itertools.product((1, 2, 3, 4, 8, 33),
+                                             (1, 2, 4, 8, 32),
+                                             (8, 78, 114, 132)):
+            c = pa.cluster_size(b, hkv, sms, d, bk, quant)
+            held = per_sm * sms
+            assert c in pa.CLUSTER_SIZES and c <= 8
+            assert b * hkv * c <= held or c == 1
+            assert c == 8 or b * hkv * 2 * c > held
 
 
 # --------------------------------------------------------------------------

@@ -268,10 +268,14 @@ def test_moonshot_is_registered_and_llama4_still_waits():
         48, 2048, 16, 16, 128, 64, 6, 2, 1408, 163840)
     # 28.89 B parameters: 57.8 GB of bf16 weights, on one 80 GB card
     assert 28.8e9 < full.param_count() < 29.0e9
-    # llama4-scout and the encoder-decoder are ported; the vision stub
-    # waits
-    with pytest.raises(NotImplementedError, match="vision frontend"):
-        get_arch("pixtral-12b")
+    # llama4-scout, the encoder-decoder and the vision stub are ported:
+    # nothing waits, and the audio stub outside the encoder-decoder family
+    # still raises
+    assert NOT_PORTED == {}
+    assert get_arch("pixtral-12b").frontend == "vision"
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        build_model(dataclasses.replace(get_arch("yi-6b").reduced(),
+                                        frontend="audio", frontend_seq=4))
     for name in ("yi-6b", "phi4-mini-3.8b", "falcon-mamba-7b"):
         assert get_arch(name).param_count() == \
             JAX_ARCHS[name].param_count()

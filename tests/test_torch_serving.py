@@ -85,9 +85,16 @@ def test_config_copy_matches_jax(arch, reduced):
     assert got.layer_kinds() == want.layer_kinds()
 
 
-def test_get_arch_names_the_roadmap_item_for_unported_archs():
+def test_get_arch_names_the_roadmap_item_for_unported_archs(monkeypatch):
+    """Every arch of the JAX package is ported (``NOT_PORTED`` is empty);
+    an entry there names its ROADMAP item when asked for."""
+    from repro_torch.configs import registry
+    assert registry.NOT_PORTED == {}
+    assert get_arch("pixtral-12b").name == "pixtral-12b"
+    monkeypatch.setitem(registry.NOT_PORTED, "some-vlm",
+                        "ROADMAP queue 1, item 9")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("pixtral-12b")
+        get_arch("some-vlm")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 

@@ -91,12 +91,14 @@ def test_config_copy_matches_jax(size):
 
 def test_h2o_danube_is_registered_and_three_families_still_wait():
     assert get_arch(ARCH) is ARCHS[ARCH]
-    # whisper-tiny and zamba2-7b are ported since; pixtral-12b waits
-    assert set(NOT_PORTED) == {"pixtral-12b"}
-    for name in ("whisper-tiny", "zamba2-7b"):
+    # whisper-tiny, zamba2-7b and pixtral-12b are ported since: none waits,
+    # and the audio stub outside the encoder-decoder family still raises
+    assert NOT_PORTED == {}
+    for name in ("whisper-tiny", "zamba2-7b", "pixtral-12b"):
         assert get_arch(name) is ARCHS[name]
-    with pytest.raises(NotImplementedError, match="vision frontend"):
-        get_arch("pixtral-12b")
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        build_model(dataclasses.replace(get_arch(ARCH).reduced(),
+                                        frontend="audio", frontend_seq=4))
     full = get_arch(ARCH)
     # 1.83 B parameters, served whole: 3.7 GB of bf16 weights
     assert 1.82e9 < full.param_count() < 1.84e9

@@ -86,10 +86,14 @@ def test_config_copy_matches_jax(size):
 
 
 def test_whisper_is_registered_and_pixtral_still_waits():
+    """pixtral-12b waited for item 8b.6, which ported it: nothing waits,
+    and the audio stub outside the encoder-decoder family still raises."""
     assert get_arch(ARCH) is ARCHS[ARCH]
-    assert set(NOT_PORTED) == {"pixtral-12b"}
-    with pytest.raises(NotImplementedError, match="8b.6"):
-        get_arch("pixtral-12b")
+    assert NOT_PORTED == {}
+    assert get_arch("pixtral-12b") is ARCHS["pixtral-12b"]
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        build_model(dataclasses.replace(get_arch("yi-6b").reduced(),
+                                        frontend="audio", frontend_seq=4))
     full = get_arch(ARCH)
     assert full.padded_vocab == 51968
     # 41.2 M parameters (the analytic count, as the JAX package's)
@@ -400,15 +404,17 @@ def test_paged_pool_and_decoder_only_paths_refused(pair):
 
 
 def test_decoder_archs_refuse_frames_and_the_vision_stub():
+    """A decoder arch without a frontend has no ``frontend_proj``, so
+    frames raise ``ValueError`` (the JAX package fails there on the
+    missing key); a decoder with the vision stub builds and holds one."""
     yi = build_model(get_arch("yi-6b").reduced())
     params = yi.init(0, "cpu")
-    with pytest.raises(NotImplementedError, match="8b.6"):
+    with pytest.raises(ValueError, match="no frontend"):
         yi.prefill(params, torch.zeros(1, 3, dtype=torch.long),
                    frontend_embeds=torch.zeros(1, 2, 64))
     vlm = dataclasses.replace(get_arch("yi-6b").reduced(), family="vlm",
                               frontend="vision", frontend_seq=4)
-    with pytest.raises(NotImplementedError, match="8b.6"):
-        build_model(vlm)
+    assert build_model(vlm).init(0, "cpu")["frontend_proj"].shape == (64, 64)
     # layer norm and GELU belong to the encoder-decoder family alone
     for kw in (dict(norm="ln"), dict(act="gelu"), dict(frontend="audio")):
         with pytest.raises(NotImplementedError, match="encoder-decoder"):
