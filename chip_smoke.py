@@ -309,7 +309,32 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    over its lanes, K3, K6a, K5a and K6b (merged, 8 splits) at both key
    tiles and K4, K6c, K5b and K6d (merged, 8 splits) at every tile of
    the D-160 ladder (block_q 4, 8, 16 by keys 64, 128), against plain and
-   timed beside SDPA and the bound, with their launches from the phase.
+   timed beside SDPA and the bound, with their launches from the phase;
+35. training (``launch/steps.py``'s ``build_train_step``: loss,
+   ``torch.autograd.grad``, AdamW): (a) K1's and K9's
+   ``torch.autograd.Function``s through ``ops.attention`` and
+   ``ops.ssm_scan`` against autograd of their plain versions on the same
+   inputs (output and every input gradient within 2e-2 of its scale): K1
+   at the trainer's shape (B 2, S 1024, 32 q / 4 kv heads of 128,
+   causal), whisper's cross shape (224 x 1500, D 64, G 1) and
+   h2o-danube's D 80 with a window, K9 at B 1, L 128, Di 8192, N 16; each
+   Function's forward + backward timed (L2 flushed) beside the plain
+   route's and, for K1, SDPA's; (b) yi-6b at full width cut to 12 of its
+   32 layers, float32 weights and AdamW moments: 6 steps at B 4, S 1024
+   (a falling loss; step time, tokens/s, peak memory; K1 through its
+   Function once per layer per step; the last step profiled: device
+   time, busy share, the time by kind of kernel and the kernels that
+   take most; the forward and AdamW's update timed alone), then single
+   steps from the same weights and batch through the plain route, 2
+   microbatches and remat ``full``, each held to the kernel route's
+   first step: loss and global grad norm within 1e-3 relative, and the
+   grad norms of the sequence mixer's leaves (attention's wq/wk/wv/wo)
+   and of layer 0's leaves within 1e-2 (peak memory beside the first
+   run's); (b2) falcon-mamba-7b at full width cut to 4 of its 64 layers:
+   2 steps at B 1, S 512 (K9 through its Function once per layer per
+   step) and a plain-route step, held so (the mixer: the scan's leaves);
+   (c) the guard: a paged decode whose q requires grad raises under
+   ``torch.enable_grad()`` and launches nothing.
 
 Then the script's run time by group of phases, one JSON line with every
 kernel's numbers,
@@ -354,6 +379,14 @@ from repro_torch.kernels import matmul as mmk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssm_scan as k9  # noqa: E402
+from repro_torch.kernels import autograd as ag  # noqa: E402
+from repro_torch.kernels.autograd import (FlashAttentionFn,  # noqa: E402
+                                          SelectiveScanFn)
+from repro_torch.data import DataConfig, batch_for_step  # noqa: E402
+from repro_torch.launch.steps import (build_eval_loss,  # noqa: E402
+                                      build_train_step)
+from repro_torch.models import LayoutPlan  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 import repro_torch.launch.serve as serve_mod  # noqa: E402
 from repro_torch.launch.serve import (ServeConfig, draw_prompts,  # noqa: E402
                                       serve_config, serve_engine)
@@ -4904,6 +4937,488 @@ def pixtral_dense_rows(smi: str, by_tile: dict) -> list[dict]:
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 35: training
+# --------------------------------------------------------------------------
+
+AUTOGRAD_SOURCE = "src/repro_torch/kernels/autograd.py"
+#: (b): yi-6b's published widths cut to 12 of 32 layers (float32 weights,
+#: gradients and AdamW moments: 16 B a parameter)
+TRAIN = dict(arch="yi-6b", layers=12, batch=4, seq=1024, steps=6, lr=3e-4,
+             warmup=2)
+#: (b2): falcon-mamba-7b's published widths cut to 4 of 64 layers
+TRAIN_SSM = dict(arch=FM, layers=4, batch=1, seq=512, steps=2, lr=3e-4,
+                 warmup=1)
+FN_TOL = 2e-2          # of each tensor's scale (max |plain|)
+
+
+def fn_errors(got, want) -> list[float]:
+    """Each pair's max |got - want| over max |want|; raises past FN_TOL
+    or on a non-finite value."""
+    torch.cuda.synchronize()
+    errs = []
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        check(bool(torch.isfinite(g).all()), "a gradient is not finite")
+        errs.append(float((g - w).abs().max() / w.abs().max()))
+    check(max(errs) <= FN_TOL, f"Function vs plain autograd: scaled errors "
+          f"{errs} over {FN_TOL}")
+    return errs
+
+
+def grad_leaf(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().clone().requires_grad_(True)
+
+
+def attention_fn_case(label, b, h, hkv, sq, sk, d, kw, seed) -> dict:
+    """K1's Function through ``ops.attention`` (grad on) against autograd
+    through ``ref.attention_ref`` on the same bf16 inputs: the output and
+    dq, dk, dv.  Returns the case's tensors and errors."""
+    q, k, v = (grad_leaf(randn((b, n, s, d), seed + j, BF16))
+               for j, (n, s) in enumerate(((h, sq), (hkv, sk), (hkv, sk))))
+    do = randn((b, h, sq, d), seed + 3, BF16)
+    n0 = FlashAttentionFn.launches
+    out = ops.attention(q, k, v, **kw)
+    check(FlashAttentionFn.launches == n0 + 1
+          and type(out.grad_fn).__name__ == "FlashAttentionFnBackward",
+          f"[35a] {label}: ops.attention did not go through FlashAttentionFn")
+    got = (out, *torch.autograd.grad(out, (q, k, v), do))
+    want_o = ref.attention_ref(q, k, v, **kw)
+    want = (want_o, *torch.autograd.grad(want_o, (q, k, v), do))
+    errs = fn_errors(got, want)
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    return dict(q=q, k=k, v=v, do=do, errs=errs, err=err)
+
+
+def attention_pairs(sq: int, sk: int, kw: dict) -> int:
+    if kw.get("window") is not None:
+        w = kw["window"]
+        return sum(min(i + 1, w) for i in range(sq))
+    return sq * (sq + 1) // 2 if kw.get("causal") else sq * sk
+
+
+def phase_train_functions(smi: str) -> list[dict]:
+    """(a): K1's and K9's Functions against autograd of their plain
+    versions, and their forward + backward timed.  Returns their two
+    rows (launches filled in by (b) and (b2))."""
+    lines = []
+    cases = [("trainer yi-6b B2 S1024", 2, 32, 4, 1024, 1024, 128,
+              dict(causal=True)),
+             ("whisper cross 224x1500", 4, 6, 6, 224, 1500, 64,
+              dict(causal=False)),
+             ("h2o-danube D80 window 512", 2, 32, 8, 1024, 1024, 80,
+              dict(causal=True, window=512))]
+    main = None
+    for i, (label, b, h, hkv, sq, sk, d, kw) in enumerate(cases):
+        c = attention_fn_case(label, b, h, hkv, sq, sk, d, kw, 3500 + 10 * i)
+        lines.append(f"{label}: out, dq, dk, dv within "
+                     + ", ".join(f"{e:.2e}" for e in c["errs"]))
+        if main is None:
+            main, main_kw = c, kw
+    q, k, v, do = main["q"], main["k"], main["v"], main["do"]
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(), (q, k, v), do)
+
+    kern = fwd_bwd(lambda: FlashAttentionFn.apply(q, k, v, True, None, {}))
+    plain = fwd_bwd(lambda: ref.attention_ref(q, k, v, causal=True))
+    sdpa = fwd_bwd(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    times = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+             "library_ms": time_ms(sdpa)}
+    b, h, sq, d = q.shape
+    pairs = attention_pairs(sq, sq, main_kw)
+    # read q, k, v, dO; write O, dq, dk, dv (bf16); 7 products of 2 D
+    # operations per visible (query, key) pair a head: 2 forward, 5 back
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) \
+        + 2 * (q.numel() + k.numel() + v.numel())
+    n_ops = 7 * 2 * b * h * pairs * d
+    r1 = row("FlashAttentionFn[fwd+bwd yi-6b train B2 S1024]",
+             AUTOGRAD_SOURCE, f"{FLASH}:106", main["err"], n_bytes, n_ops,
+             times)
+    r1.update(forward=SOURCE, shape="B 2, 32 q / 4 kv heads of 128, S 1024, "
+              "causal, bf16", backward="closed form, float32 PyTorch ops")
+    lines.append(f"K1 Function fwd+bwd at the trainer's shape: "
+                 f"{fmt_times(times)} (library: SDPA fwd+bwd), bound "
+                 f"{r1['bound_ms']:.5f} ms ({r1['bound_by']}, bf16 peak)")
+    del q, k, v, do, main
+
+    bs, length, di, n = 1, 128, SSM_SHAPE["d_inner"], SSM_SHAPE["d_state"]
+    args = tuple(grad_leaf(t) for t in ssm_case(bs, length, di, n, 3550,
+                                                BF16))
+    gy = randn((bs, length, di), 3560, BF16)
+    n0 = SelectiveScanFn.launches
+    y = ops.ssm_scan(*args)
+    check(SelectiveScanFn.launches == n0 + 1
+          and type(y.grad_fn).__name__ == "SelectiveScanFnBackward",
+          "[35a] ops.ssm_scan did not go through SelectiveScanFn")
+    got = (y, *torch.autograd.grad(y, args, gy))
+    want_y = ref.selective_scan_ref(*args)
+    want = (want_y, *torch.autograd.grad(want_y, args, gy))
+    errs = fn_errors(got, want)
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    lines.append(f"K9 B{bs} L{length} Di{di} N{n}: y, dx, d dt, dA, dB, dC, "
+                 "dD within " + ", ".join(f"{e:.2e}" for e in errs))
+    times = {"ms": time_ms(lambda: torch.autograd.grad(
+                 SelectiveScanFn.apply(*args, {}), args, gy), iters=5),
+             "plain_ms": time_ms(lambda: torch.autograd.grad(
+                 ref.selective_scan_ref(*args), args, gy), iters=3),
+             "library_ms": None}
+    # bytes: x, dt, B, C, D, gy read and y, dx, d dt, dB, dC, dD written
+    # (bf16), A read and dA written (float32); float32 operations: the
+    # forward's 6 N + 2 a (b, t, d), the backward's 20 N + 4 (the states
+    # recomputed, the state gradient, dC, dB, dx, d dt, dA); two exps a
+    # (b, t, d, n), forward and recomputed
+    elems = bs * length * di
+    n_bytes = 2 * (2 * (3 * elems + 2 * bs * length * n + di)) + 8 * di * n
+    n_ops = elems * (26 * n + 6)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    t_exp, rate = exp_floor_ms(2 * elems * n)
+    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= max(t_ops, t_exp)
+                          else (max(t_ops, t_exp), "operations"))
+    r2 = {"name": f"SelectiveScanFn[fwd+bwd B{bs} L{length} Di{di} N{n}]",
+          "route": "cuda", "source": AUTOGRAD_SOURCE,
+          "replaces": "src/repro/kernels/ssm_scan.py:74", "max_abs_err": err,
+          "ms": times["ms"][0], "plain_ms": times["plain_ms"][0],
+          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+          "forward": SSM_SOURCE, "backward": "reverse-time loop over L, "
+          "float32 PyTorch ops"}
+    lines.append(f"K9 Function fwd+bwd: {fmt_times(times)}, bound "
+                 f"{bound_ms:.5f} ms ({bound_by}; bytes {t_bytes:.5f}, "
+                 f"float32 operations {t_ops:.5f}, exps {t_exp:.5f} ({rate}))")
+    del args, gy, y, got, want, want_y
+    print(f"[35a train Functions] against autograd of the plain versions "
+          f"(tol {FN_TOL} of each tensor's scale), device ms (ms per call "
+          f"incl. host) on {smi}: " + "; ".join(lines))
+    return [r1, r2]
+
+
+def train_setup(spec: dict, use_kernel=None, **plan_kw):
+    """The cut config, fresh float32 weights (seed 0), AdamW state, the
+    step function and the batches of ``spec``."""
+    cfg = dataclasses.replace(get_arch(spec["arch"]),
+                              n_layers=spec["layers"])
+    model = build_model(cfg)
+    params = model.init(0, "cuda", dtype=cfg.param_dtype)
+    opt = adamw.init(params)
+    step = build_train_step(
+        model, LayoutPlan(name="smoke", **plan_kw),
+        adamw.AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup"],
+                          total_steps=spec["steps"]), use_kernel=use_kernel)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+                      global_batch=spec["batch"], seed=0)
+    return cfg, params, opt, step, dcfg
+
+
+#: kernel-name patterns of the step's device time by kind, in order
+KERNEL_KINDS = (("K1", ("flash_attention",)),
+                ("K9", ("ssm_scan",)),
+                ("float32 products", ("f32f32", "sgemm")),
+                ("bf16 products", ("gemm", "nvjet", "xmma", "cutlass")),
+                ("elementwise, casts, reductions", ("elementwise", "reduce",
+                                                    "copy", "softmax",
+                                                    "index", "scatter",
+                                                    "gather", "cat")))
+
+
+def device_breakdown(prof, wall_s: float) -> str:
+    """A profiled step's device time: the sum over kernels, the busy
+    share of the step's wall time, the sums by kind (the first pattern a
+    kernel's name holds; K1's float32 backward and the optimizer are in
+    "float32 products" and "elementwise") and the 6 kernels that take
+    most."""
+    us = {e.key: e.self_device_time_total for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.self_device_time_total > 0}
+    total = sum(us.values()) / 1e3
+    check(total > 0, "[35b] the profiled step shows no device time")
+    kinds = collections.Counter()
+    for key, t in us.items():
+        kind = next((k for k, pats in KERNEL_KINDS
+                     if any(p in key.lower() for p in pats)), "other")
+        kinds[kind] += t / 1e3
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+    return (f"device {total:.1f} ms of {wall_s * 1e3:.1f} ms wall (busy "
+            f"share {total / (wall_s * 1e3):.3f}); by kind "
+            + ", ".join(f"{k} {v:.1f}" for k, v in kinds.most_common())
+            + " ms; top kernels: "
+            + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top))
+
+
+def events_ms(fn, n: int = 3) -> float:
+    """Mean device ms of ``fn`` over ``n`` calls after one more, by CUDA
+    events around each (no L2 flush: a step's work is far past 50 MB)."""
+    fn()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for start, end in marks:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks) / n
+
+
+def step_parts(spec: dict, model, params, opt, batch) -> str:
+    """The step's forward (the loss without a graph) and AdamW's update
+    (on gradients of the params' shapes) timed alone; the backward is
+    what the step takes beyond them."""
+    plan = LayoutPlan(name="smoke")
+    forward = build_eval_loss(model, plan)
+    fwd = events_ms(lambda: forward(params, batch))
+    grads = [torch.randn_like(p) for p in adamw.leaves(params)]
+    cfg = adamw.AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup"],
+                            total_steps=spec["steps"])
+    upd = events_ms(lambda: adamw.update(grads, opt, params, cfg))
+    return f"forward (no graph) {fwd:.1f} ms, AdamW update {upd:.1f} ms"
+
+
+def named_leaves(tree: dict, prefix: str = ""):
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            yield from named_leaves(v, f"{prefix}{key}.")
+        else:
+            yield prefix + key, v
+
+
+def group_norm_hooks(params: dict, nmb: int):
+    """Hooks on the layer leaves that gather one step's gradient of two
+    groups, summed over its ``nmb`` microbatches: the sequence mixer's
+    leaves (attention's wq/wk/wv/wo, or the scan's) whole, and layer 0's
+    slice of every layer leaf.  At random init the head and the
+    embedding dominate the global norm, so a route that dropped the
+    mixer's gradient would barely move it; these norms would move by
+    ~1.  Returns (handles, norms): ``norms()`` gives {group: norm} after
+    the step.  With one microbatch a hook keeps a squared norm only;
+    with more it sums float32 copies (~2.5 GB at yi-6b's 12 layers)."""
+    layers = params["layers"]
+    mixer = "attn." if "attn" in layers else "ssm."
+    sums: dict = {}
+
+    def hook(key: tuple, sel):
+        def fn(g):
+            g = sel(g).detach().float()
+            if nmb == 1:
+                sums[key] = torch.linalg.vector_norm(g) ** 2
+            elif key in sums:
+                sums[key].add_(g)
+            else:
+                sums[key] = g.clone()
+        return fn
+
+    handles = []
+    for name, p in named_leaves(layers):
+        p.requires_grad_(True)
+        handles.append(p.register_hook(hook(("layer 0", name),
+                                            lambda g: g[0])))
+        if name.startswith(mixer):
+            handles.append(p.register_hook(hook(("mixer", name),
+                                                lambda g: g)))
+
+    def norms() -> dict:
+        sq = collections.Counter()
+        for (group, _), v in sums.items():
+            sq[group] += float(v if nmb == 1 else
+                               torch.linalg.vector_norm(v / nmb) ** 2)
+        sums.clear()
+        return {group: sq[group] ** 0.5 for group in ("mixer", "layer 0")}
+    return handles, norms
+
+
+def train_run(spec: dict, n_steps: int, use_kernel=None, profile=False,
+              **plan_kw) -> dict:
+    """``n_steps`` steps from fresh weights, every kernel counter zeroed
+    just before and read just after, each step synchronised and timed
+    (with ``profile``, the last under ``torch.profiler``); the first
+    step's group grad norms (``group_norm_hooks``) under ``groups``."""
+    cfg, params, opt, step, dcfg = train_setup(spec, use_kernel, **plan_kw)
+    handles, group_norms = group_norm_hooks(
+        params, plan_kw.get("num_microbatches", 1))
+    batches = [{k: v.cuda() for k, v in batch_for_step(dcfg, s).items()}
+               for s in range(n_steps)]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in KERNELS + ag.FUNCTIONS:
+        kernel.launches = 0
+    losses, norms, times, breakdown = [], [], [], None
+    for i, batch in enumerate(batches):
+        prof = (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+            if profile and i == n_steps - 1 else contextlib.nullcontext())
+        with prof:
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if i == 0:
+            for handle in handles:
+                handle.remove()
+            groups = group_norms()
+    launches = {k.__name__: k.launches
+                for k in KERNELS + ag.FUNCTIONS}
+    peak = torch.cuda.max_memory_allocated()
+    if profile:                 # after the peak: the parts take memory
+        breakdown = (device_breakdown(prof, times[-1]) + "; "
+                     + step_parts(spec, build_model(cfg), params, opt,
+                                  batches[-1]))
+    n_params = sum(t.numel() for t in adamw.leaves(params))
+    del params, opt, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms))
+          and all(np.isfinite(list(groups.values()))),
+          f"[35] {spec['arch']}: a loss or grad norm is not finite: "
+          f"{losses} {norms} {groups}")
+    return dict(losses=losses, norms=norms, groups=groups, times=times,
+                peak=peak, launches=launches, n_params=n_params, cfg=cfg,
+                breakdown=breakdown)
+
+
+AGREE_TOL = 1e-3        # relative: the first step's loss and grad norm
+GROUP_TOL = 1e-2        # relative: the mixer's and layer 0's grad norms
+
+
+def agree(what: str, run: dict, ref_run: dict) -> str:
+    """The first step's loss and global grad norm within AGREE_TOL and
+    its group grad norms within GROUP_TOL, relative to ``ref_run``'s
+    (the same weights and batch)."""
+    def off(a: float, b: float) -> float:
+        return abs(a / b - 1)
+    dl = off(run["losses"][0], ref_run["losses"][0])
+    dn = off(run["norms"][0], ref_run["norms"][0])
+    dg = {g: off(run["groups"][g], ref_run["groups"][g])
+          for g in ref_run["groups"]}
+    check(dl <= AGREE_TOL and dn <= AGREE_TOL
+          and max(dg.values()) <= GROUP_TOL,
+          f"[35] {what}: loss {run['losses'][0]} / grad norm "
+          f"{run['norms'][0]} / groups {run['groups']} against "
+          f"{ref_run['losses'][0]} / {ref_run['norms'][0]} / "
+          f"{ref_run['groups']}")
+    return (f"{what}: loss {run['losses'][0]:.4f} ({dl:.1e} off), grad norm "
+            f"{run['norms'][0]:.4f} ({dn:.1e} off), "
+            + ", ".join(f"{g} {run['groups'][g]:.4f} ({d:.1e} off)"
+                        for g, d in dg.items())
+            + f", peak {run['peak'] / 1e9:.2f} GB")
+
+
+def only_train_kernels(launches: dict, fn, wrapper, per_step: int,
+                       n_steps: int, what: str) -> None:
+    """The run launched ``fn``'s kernel (through ``fn``) once per layer
+    per step and no other kernel."""
+    want = per_step * n_steps
+    check(launches[fn.__name__] == launches[wrapper.__name__] == want,
+          f"[35] {what}: {launches[fn.__name__]} launches through "
+          f"{fn.__name__}, {launches[wrapper.__name__]} of "
+          f"{wrapper.__name__}, expected {want}")
+    others = {k: n for k, n in launches.items()
+              if n and k not in (fn.__name__, wrapper.__name__)}
+    check(not others, f"[35] {what}: other kernels launched: {others}")
+
+
+def phase_train(smi: str) -> dict[str, int]:
+    """(b), (b2) and (c).  Returns the Functions' launches in the main
+    path's runs."""
+    t0 = time.perf_counter()
+    spec = TRAIN
+    main = train_run(spec, spec["steps"], profile=True)
+    cfg, n = main["cfg"], spec["steps"]
+    tokens = spec["batch"] * spec["seq"]
+    only_train_kernels(main["launches"], FlashAttentionFn, fa.flash_attention,
+                       cfg.n_layers, n, "yi-6b")
+    losses = main["losses"]
+    check(np.mean(losses[4:6]) < np.mean(losses[0:2]),
+          f"[35b] yi-6b: the loss did not fall: {losses}")
+    step_s = float(np.median(main["times"][1:5]))
+    per_layer = (main["n_params"] - 2 * cfg.padded_vocab * cfg.d_model) \
+        / cfg.n_layers
+    print(f"[35b train yi-6b] published widths (d_model {cfg.d_model}, 32 q "
+          f"/ 4 kv heads of 128, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) cut "
+          f"to {cfg.n_layers} of 32 layers: {main['n_params'] / 1e9:.3f} B "
+          f"parameters ({per_layer / 1e6:.1f} M a layer), float32 weights, "
+          f"gradients and AdamW moments {16 * main['n_params'] / 1e9:.1f} "
+          f"GB; {n} steps at B {spec['batch']}, S {spec['seq']}, lr "
+          f"{spec['lr']}, warmup {spec['warmup']}: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; grad norms " + ", ".join(f"{x:.3f}" for x in main["norms"])
+          + f"; step time {step_s * 1e3:.1f} ms (median of steps 2-5; all "
+          + ", ".join(f"{x * 1e3:.1f}" for x in main["times"])
+          + f" ms), {tokens / step_s:.0f} tokens/s; peak memory "
+          f"{main['peak'] / 1e9:.2f} GB; K1 through FlashAttentionFn "
+          f"{main['launches']['FlashAttentionFn']} launches; on {smi}; "
+          f"step 6 profiled: {main['breakdown']}")
+    lines = [agree("plain route (use_kernel=False)",
+                   train_run(spec, 1, use_kernel=False), main)]
+    mb = train_run(spec, 1, num_microbatches=2)
+    only_train_kernels(mb["launches"], FlashAttentionFn, fa.flash_attention,
+                       2 * cfg.n_layers, 1, "yi-6b 2 microbatches")
+    lines.append(agree("2 microbatches", mb, main))
+    full = train_run(spec, 1, remat="full")
+    lines.append(agree("remat full", full, main))
+    print(f"[35b train yi-6b] single steps from the same weights and batch "
+          f"against the kernel route's first step (loss "
+          f"{losses[0]:.4f}, grad norm {main['norms'][0]:.4f}, mixer "
+          f"{main['groups']['mixer']:.4f}, layer 0 "
+          f"{main['groups']['layer 0']:.4f}, peak "
+          f"{main['peak'] / 1e9:.2f} GB; tol {AGREE_TOL} and {GROUP_TOL} "
+          f"relative): " + "; ".join(lines))
+
+    spec2 = TRAIN_SSM
+    fm = train_run(spec2, spec2["steps"])
+    only_train_kernels(fm["launches"], SelectiveScanFn, k9.selective_scan,
+                       spec2["layers"], spec2["steps"], "falcon-mamba")
+    fm_plain = train_run(spec2, 1, use_kernel=False)
+    print(f"[35b2 train falcon-mamba-7b] published widths cut to "
+          f"{spec2['layers']} of 64 layers ({fm['n_params'] / 1e9:.3f} B "
+          f"parameters), {spec2['steps']} steps at B {spec2['batch']}, S "
+          f"{spec2['seq']}: losses " + ", ".join(f"{x:.4f}" for x in
+                                                 fm["losses"])
+          + f", step times " + ", ".join(f"{x * 1e3:.1f}" for x in
+                                         fm["times"])
+          + f" ms, peak {fm['peak'] / 1e9:.2f} GB; K9 through "
+          f"SelectiveScanFn {fm['launches']['SelectiveScanFn']} launches; "
+          + agree("plain route", fm_plain, fm))
+
+    kp = torch.zeros((4, 4, 16, 128), dtype=BF16, device="cuda")
+    q = randn((1, 32, 1, 128), 3590, BF16).requires_grad_(True)
+    table = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    kv_len = torch.tensor([5], dtype=torch.int32, device="cuda")
+    before = {k.__name__: k.launches for k in KERNELS}
+    try:
+        with torch.enable_grad():
+            ops.paged_decode(q, ops.PagedPools(kp, kp), table, kv_len)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    check("item 9a" in raised, "[35c] a paged decode with grad did not "
+          f"raise the guard: {raised!r}")
+    check(before == {k.__name__: k.launches for k in KERNELS},
+          "[35c] the refused paged decode launched a kernel")
+    print(f"[35c guard] ops.paged_decode with q requiring grad raises "
+          f"RuntimeError and launches nothing: {raised.split(';')[0]}; "
+          f"phase 35 (b)-(c) in {time.perf_counter() - t0:.1f}s")
+    return {"FlashAttentionFn": main["launches"]["FlashAttentionFn"],
+            "SelectiveScanFn": fm["launches"]["SelectiveScanFn"]}
+
+
+def phase_training(smi: str) -> list[dict]:
+    """Phase 35: (a) the Functions, (b) yi-6b and (b2) falcon-mamba
+    trained, (c) the guard.  Returns the Functions' two rows."""
+    rows = phase_train_functions(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = phase_train(smi)
+    rows[0]["launches"] = launches["FlashAttentionFn"]
+    rows[1]["launches"] = launches["SelectiveScanFn"]
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4988,7 +5503,10 @@ def main() -> int:
     rows += phase_pixtral(smi)
     done("34")
     check(len(rows) == 85, f"{len(rows)} kernel rows, expected 85")
-    print(f"[done] phases 1-34 in {time.perf_counter() - t0:.1f}s; by phase "
+    rows += phase_training(smi)
+    done("35")
+    check(len(rows) == 87, f"{len(rows)} kernel rows, expected 87")
+    print(f"[done] phases 1-35 in {time.perf_counter() - t0:.1f}s; by phase "
           + ", ".join(f"{label} {t - marks[i][1]:.1f}s"
                       for i, (label, t) in enumerate(marks[1:])))
     print(json.dumps({"kernels": rows}))

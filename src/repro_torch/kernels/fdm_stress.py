@@ -11,7 +11,8 @@ the three abs vectors) and returns the six new stresses.
 
 The wrapper takes contiguous float32 CUDA tensors only (other dtypes
 raise), allocates its outputs with ``torch.empty``, launches on the
-current stream without syncing, raises on a launch error and counts its
+current stream without syncing, raises on a launch error (and, before
+anything, where a gradient is asked for: it has no backward) and counts its
 kernel launches in ``fdm_stress.launches`` (two for ``split``).  The
 plain PyTorch version is :func:`.ref.fdm_stress_ref`.
 """
@@ -23,6 +24,7 @@ import functools
 import torch
 
 from . import build
+from .autograd import refuse_grad
 
 #: the grid arrays (lam, rig, q, the nine velocity derivatives), the
 #: abs vectors, and the state, in the kernel's argument order
@@ -82,7 +84,10 @@ def fdm_stress(arrays: dict[str, torch.Tensor],
     ``arrays``: lam, rig, q, dxvx..dzvy (nx, ny, nz) and absx (nx,),
     absy (ny,), absz (nz,); ``state``: sxx..syz (nx, ny, nz).
     ``variant``: ``"fused"`` | ``"split"``.  Returns the new sxx..syz.
+    With grad enabled and an input that requires it, raises
+    ``RuntimeError``: the kernel has no backward.
     """
+    refuse_grad("fdm_stress", *arrays.values(), *state.values())
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
     if min(bx, by, bz) < 1:

@@ -18,6 +18,15 @@ install-time, the ``FlashBlocks`` region), ``flash_decode``
 ``block_k``, ``num_splits``), each overridden by the caller's explicit
 values; an explicit ``None`` is "not given" and leaves a published value
 alone.  The plain versions ignore tiles.
+
+Gradients: when grad is enabled and an input requires it,
+``attention`` and ``ssm_scan`` go through :mod:`.autograd`'s
+``FlashAttentionFn`` and ``SelectiveScanFn`` (K1 and K9 forward, the
+closed-form backward in PyTorch ops; the plain forward on a CPU tensor),
+unless ``use_kernel=False`` asks for the plain version, whose own ops
+autograd differentiates.  Every other entry point raises
+``RuntimeError`` there (:func:`.autograd.refuse_grad`): its kernel has
+no backward.
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ from .. import at
 from . import flash_attention as fa
 from . import paged_attention as pa
 from . import ref
+from .autograd import (FlashAttentionFn, SelectiveScanFn, refuse_grad,
+                       wants_grad)
 from .flash_attention import flash_attention, flash_decode
 from .matmul import matmul
 from .paged_attention import (flash_paged_decode, flash_paged_decode_quant,
@@ -102,6 +113,7 @@ def mm(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None = None,
     overridden by any ``block_m``/``block_n``/``block_k`` in ``pps``; on
     the CPU the plain version.  As in the JAX package, no model code
     calls it: the projections stay on ``@``."""
+    refuse_grad("ops.mm", x, y, bias)
     if _use_kernel(x, use_kernel):
         kw = at.tuned("matmul")
         kw.update(pps)
@@ -117,14 +129,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sk = Sq for self-attention, Sk != Sq for cross attention, which is
     neither causal nor windowed (such a call raises ``ValueError`` on both
     routes).  On the card K1 at the ``block_q`` x ``block_k`` tile
-    published under ``flash_attention`` (or in ``pps``)."""
+    published under ``flash_attention`` (or in ``pps``).  A gradient
+    through it goes through ``FlashAttentionFn`` (unless
+    ``use_kernel=False``)."""
     fa.check_lengths(q.shape[2], k.shape[2], causal, window)
-    if _use_kernel(q, use_kernel):
+    kernel = _use_kernel(q, use_kernel)
+    kw = (_tuned("flash_attention", ("block_q", "block_k", "scale"),
+                 _attention_fits(q), **pps) if kernel else {})
+    if use_kernel is not False and wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window, kw)
+    if kernel:
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, window=window,
-                               **_tuned("flash_attention",
-                                        ("block_q", "block_k", "scale"),
-                                        _attention_fits(q), **pps))
+                               causal=causal, window=window, **kw)
     return ref.attention_ref(q, k, v, causal=causal, window=window)
 
 
@@ -134,6 +150,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One-token decode.  q (B, H, 1, D), caches (B, Hkv, S, D), kv_len (B,).
     On the card K2 at the ``block_k`` published under ``flash_decode``
     (or in ``pps``)."""
+    refuse_grad("ops.decode_attention", q, k, v)
     if _use_kernel(q, use_kernel):
         if kv_len is not None:
             kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
@@ -168,6 +185,10 @@ def _check_pools(pools: PagedPools) -> None:
             "int8 pools quantize both sides, fp pools neither")
 
 
+def _pool_tensors(pools: PagedPools) -> tuple:
+    return (pools.k, pools.v, pools.k_scale, pools.v_scale)
+
+
 def _check_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
@@ -191,6 +212,7 @@ def paged_decode(q: torch.Tensor, pools: PagedPools, page_table: torch.Tensor,
     ``num_splits`` published under ``flash_paged_decode`` unless given.
     The plain version ignores tiles and ``num_splits``, as the JAX
     package's does on the CPU."""
+    refuse_grad("ops.paged_decode", q, *_pool_tensors(pools))
     _check_mesh(mesh)
     _check_pools(pools)
     if _use_kernel(q, use_kernel):
@@ -219,6 +241,8 @@ def _paged_chunk(q: torch.Tensor, pools: PagedPools,
     merge in the split kernel's epilogue), at the tiles published under
     ``tuned_key`` unless given; the plain version ignores tiles and
     ``num_splits``, as the JAX package's does on the CPU."""
+    refuse_grad(f"ops.{tuned_key.removeprefix('flash_')}", q,
+                *_pool_tensors(pools))
     _check_mesh(mesh)
     _check_pools(pools)
     if _use_kernel(q, use_kernel):
@@ -279,10 +303,17 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ``chunk`` in ``pps``; on the CPU the plain scan.  Unlike the JAX
     package's entry, which sends a call that asks for the final state to
     its plain scan, the kernel returns the state itself, so prefill runs
-    on it too."""
-    if _use_kernel(x, use_kernel):
-        kw = at.tuned("ssm_scan")
-        kw.update(pps)
+    on it too.  A gradient through y goes through ``SelectiveScanFn``
+    (unless ``use_kernel=False``); with the final state it raises, as no
+    train forward asks for one."""
+    kernel = _use_kernel(x, use_kernel)
+    kw = {**at.tuned("ssm_scan"), **pps} if kernel else {}
+    if use_kernel is not False and wants_grad(x, dt, a, b, c, d):
+        if return_final_state:
+            refuse_grad("ops.ssm_scan(return_final_state=True)", x, dt, a,
+                        b, c, d)
+        return SelectiveScanFn.apply(x, dt, a, b, c, d, kw)
+    if kernel:
         return selective_scan(
             x.contiguous(), dt.contiguous(), a.contiguous(),
             b.contiguous(), c.contiguous(), d.contiguous(),

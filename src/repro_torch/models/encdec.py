@@ -18,8 +18,11 @@ The parameter tree keeps the JAX names (``frontend_proj``,
 :func:`repro_torch.bridge.params_from_jax` carries it as it is.  The
 serving engine does not take this model (the JAX engine passes no
 frames to prefill): it runs through :func:`prefill` and
-:func:`decode_step`.  ``decode_train`` and ``train_loss`` come with
-training (ROADMAP item 9).
+:func:`decode_step`.  Training runs :func:`train_loss`: the encoder,
+then :func:`decode_train` (the teacher-forced decoder pass, K1 for the
+causal self attention and for the cross attention over the encoder's
+key length) and the chunked cross entropy through the tied head
+``embed.T``, whose gradient joins the embedding's.
 """
 from __future__ import annotations
 
@@ -27,9 +30,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as attn
-from .layers import (apply_mlp, dense_init, embed_init, init_mlp, layer_norm,
-                     sinusoidal_positions)
-from .transformer import _cast, _layer, torch_dtype
+from .layers import (apply_mlp, chunked_cross_entropy, dense_init,
+                     embed_init, init_mlp, layer_norm, sinusoidal_positions)
+from .transformer import (_cast, _layer, _unstack, torch_dtype,
+                          weights_dtype)
 
 #: rows of the decoder's learned position table (a decode position is
 #: taken modulo it)
@@ -52,10 +56,12 @@ def _ln_init(lead: tuple[int, ...], d: int, **kw) -> dict:
             "b": torch.zeros(lead + (d,), **kw)}
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device="cpu") -> dict:
+def init_params(cfg: ArchConfig, seed: int = 0, device="cpu",
+                dtype: torch.dtype | str | None = None) -> dict:
     """Random weights from ``seed`` with the JAX package's distributions,
-    held in ``compute_dtype`` on ``device``."""
-    dtype = torch_dtype(cfg.compute_dtype)
+    held on ``device`` in ``dtype`` (default ``compute_dtype``; a trainer
+    passes ``param_dtype``)."""
+    dtype = weights_dtype(cfg, dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, kw = cfg.d_model, dict(dtype=dtype, device=device)
     enc, dec = (cfg.n_encoder_layers,), (cfg.n_layers,)
@@ -91,9 +97,8 @@ def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig,
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(dtype)
     acfg = _acfg(cfg, False)
-    layers = _cast(params["enc_layers"], dtype)
-    for i in range(cfg.n_encoder_layers):
-        lp = _layer(layers, i)
+    for lp in _unstack(_cast(params["enc_layers"], dtype),
+                       cfg.n_encoder_layers):
         x = x + attn.full(lp["attn"], _ln(lp["ln1"], x), acfg,
                           use_kernel=use_kernel)
         x = x + apply_mlp(lp["mlp"], _ln(lp["ln2"], x), act="gelu")
@@ -106,6 +111,42 @@ def _embed(params: dict, tokens: torch.Tensor, pos: torch.Tensor,
     dtype = torch_dtype(cfg.compute_dtype)
     pe = params["pos_embed"]
     return params["embed"][tokens].to(dtype) + pe[pos % pe.shape[0]].to(dtype)
+
+
+def decode_train(params: dict, tokens: torch.Tensor, enc: torch.Tensor,
+                 cfg: ArchConfig,
+                 use_kernel: bool | None = None) -> torch.Tensor:
+    """The teacher-forced decoder pass: tokens (B, S) over the encoder
+    states ``enc`` (B, Se, d) -> final-normed hidden (B, S, d)."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    s = tokens.shape[1]
+    x = _embed(params, tokens, torch.arange(s, device=tokens.device), cfg)
+    sa, ca = _acfg(cfg, True), _acfg(cfg, False)
+    for lp in _unstack(_cast(params["dec_layers"], dtype), cfg.n_layers):
+        x = x + attn.full(lp["self_attn"], _ln(lp["ln1"], x), sa,
+                          use_kernel=use_kernel)
+        k, v = attn.cross_kv(lp["cross_attn"], enc, ca)
+        x = x + attn.cross_full(lp["cross_attn"], _ln(lp["ln_x"], x), k, v,
+                                ca, use_kernel=use_kernel)
+        x = x + apply_mlp(lp["mlp"], _ln(lp["ln2"], x), act="gelu")
+    return _ln(_cast(params["dec_ln"], dtype), x)
+
+
+def train_loss(params: dict, batch: dict, cfg: ArchConfig,
+               n_loss_chunks: int = 8,
+               use_kernel: bool | None = None) -> torch.Tensor:
+    """batch: frontend_embeds (B, Se, d), tokens and labels (B, S),
+    optional loss_mask (B, S) -> the mean cross entropy of the decoder's
+    next-token logits through the tied head (float32)."""
+    enc = encode(params, batch["frontend_embeds"], cfg, use_kernel)
+    hidden = decode_train(params, batch["tokens"], enc, cfg, use_kernel)
+    b, s, d = hidden.shape
+    w = params["embed"].T.to(torch_dtype(cfg.compute_dtype))
+    mask = batch.get("loss_mask")
+    mask = mask.reshape(-1).float() if mask is not None else None
+    return chunked_cross_entropy(hidden.reshape(b * s, d), w,
+                                 batch["labels"].reshape(-1), mask,
+                                 n_chunks=n_loss_chunks)
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

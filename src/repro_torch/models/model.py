@@ -17,29 +17,48 @@ from . import encdec, transformer
 class Model:
     cfg: ArchConfig
 
-    def init(self, seed: int = 0, device: str | torch.device = "cuda") -> dict:
+    def init(self, seed: int = 0, device: str | torch.device = "cuda",
+             dtype: torch.dtype | str | None = None) -> dict:
         """Random weights from ``seed`` (a ``torch.Generator`` on ``device``;
         they do not equal the JAX package's draws — load those through
-        :func:`repro_torch.bridge.params_from_jax`)."""
+        :func:`repro_torch.bridge.params_from_jax`), held in ``dtype``
+        (default ``compute_dtype``; a trainer passes ``param_dtype``)."""
         init = (encdec.init_params if self.cfg.is_encoder_decoder
                 else transformer.init_params)
-        return init(self.cfg, seed, resolve(device))
+        return init(self.cfg, seed, resolve(device), dtype)
 
-    def _decoder_only(self, what: str) -> None:
+    def train_loss(self, params: dict, batch: dict,
+                   use_kernel: bool | None = None) -> torch.Tensor:
+        """The mean next-token cross entropy of ``batch`` (tokens,
+        labels, optional loss_mask and frontend_embeds), float32, the
+        MoE's aux loss added; differentiable through every route of the
+        kernels it runs (K1, K9)."""
         if self.cfg.is_encoder_decoder:
-            raise ValueError(
-                f"{what} is decoder-only: the encoder-decoder "
-                f"{self.cfg.name!r} runs through prefill(frontend_embeds=) "
-                "and decode_step (its teacher-forced pass comes with "
-                "training, ROADMAP item 9)")
+            return encdec.train_loss(params, batch, self.cfg,
+                                     use_kernel=use_kernel)
+        return transformer.train_loss(params, batch, self.cfg,
+                                      use_kernel=use_kernel)
 
     def forward(self, params: dict, tokens: torch.Tensor,
                 use_kernel: bool | None = None,
                 frontend_embeds: torch.Tensor | None = None):
         """tokens (B, S) -> (final-normed hidden (B, S', d), aux_loss);
         with ``frontend_embeds`` (B, F, d), a vision arch's patches, S' =
-        F + S, else S."""
-        self._decoder_only("forward")
+        F + S, else S.  An encoder-decoder arch takes its encoder's
+        frames (B, Se, d) as ``frontend_embeds`` and returns its decoder's
+        teacher-forced hidden (B, S, d) with a zero aux loss."""
+        if self.cfg.is_encoder_decoder:
+            if frontend_embeds is None:
+                raise ValueError(
+                    "forward without frontend_embeds is decoder-only: the "
+                    f"encoder-decoder {self.cfg.name!r} needs its encoder's "
+                    "frames (frontend_embeds) for its teacher-forced pass")
+            enc = encdec.encode(params, frontend_embeds, self.cfg,
+                                use_kernel)
+            hidden = encdec.decode_train(params, tokens, enc, self.cfg,
+                                         use_kernel)
+            return hidden, torch.zeros((), dtype=torch.float32,
+                                       device=hidden.device)
         return transformer.forward(params, tokens, self.cfg,
                                    use_kernel=use_kernel,
                                    frontend_embeds=frontend_embeds)

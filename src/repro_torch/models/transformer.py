@@ -22,7 +22,9 @@ batch flattened lane-major, idle lanes and chunk padding included.
 Weights may be held in any float dtype: every use casts them to
 ``compute_dtype`` first, which is what the JAX package does, so holding
 them in ``compute_dtype`` already (as :func:`init_params` and the bridge
-do) is the same arithmetic at half the memory for bf16.
+do by default, for serving) is the same arithmetic at half the memory
+for bf16.  A trainer holds them in ``param_dtype`` (``dtype=``), as the
+JAX package does, and the casts carry the gradients back to them.
 
 A vision-language arch (pixtral-12b) also holds ``frontend_proj`` (d x
 d): ``forward`` and ``prefill`` take its stubbed vision tower's patch
@@ -30,7 +32,10 @@ embeddings, ``frontend_embeds`` (B, F, d), project them and put them in
 front of the token embeddings, so the sequence is F + S positions long
 (RoPE runs over all of them, and the caches hold them all).
 
-Modes: ``forward`` (tokens -> final-normed hidden states), ``prefill``
+Modes: ``forward`` (tokens -> final-normed hidden states; each layer
+under the installed plan's remat policy, :func:`remat_wrap`) and
+``train_loss`` (the chunked cross entropy over the tokens, the MoE's aux
+loss added), ``prefill``
 (whole prompt, K/V collected into caches padded to ``max_len``, or each
 Mamba-1 layer's final conv and recurrent state) and ``decode_step`` (one
 token per lane against the caches, written in place); on the paged KV
@@ -47,12 +52,15 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig
 from . import attention as attn
 from . import moe
 from . import ssm
-from .layers import apply_mlp, dense_init, embed_init, init_mlp, rms_norm
+from .layers import (apply_mlp, chunked_cross_entropy, dense_init,
+                     embed_init, init_mlp, rms_norm)
+from .sharding_ctx import current_plan
 
 _OTHER_FAMILIES = "ROADMAP queue 1, item 8 (the other model families)"
 _KINDS = ("attn_mlp", "attn_moe", "mamba1", "mamba2", "encdec_layer")
@@ -123,11 +131,32 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device="cpu") -> dict:
+def _unstack(tree, n: int) -> list:
+    """The (L, ...) stacked leaves as ``n`` per-layer dicts of views, by
+    one ``unbind`` a leaf: its backward stacks the layers' gradients once
+    (indexing layer by layer would add a zero-filled (L, ...) tensor per
+    layer)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def weights_dtype(cfg: ArchConfig, dtype: torch.dtype | str | None):
+    """The dtype weights are held in: ``dtype`` (a name or a torch
+    dtype), else ``compute_dtype``, the serving default."""
+    if dtype is None:
+        return torch_dtype(cfg.compute_dtype)
+    return torch_dtype(dtype) if isinstance(dtype, str) else dtype
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device="cpu",
+                dtype: torch.dtype | str | None = None) -> dict:
     """Random weights from ``seed`` with the JAX package's distributions,
-    held in ``compute_dtype`` on ``device``."""
+    held on ``device`` in ``dtype`` (default ``compute_dtype``; a trainer
+    passes ``param_dtype``)."""
     check_supported(cfg)
-    dtype = torch_dtype(cfg.compute_dtype)
+    dtype = weights_dtype(cfg, dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     lead, d = (cfg.n_layers,), cfg.d_model
     kw = dict(dtype=dtype, device=device)
@@ -246,6 +275,38 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
     return x, aux
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the matrix products' outputs, recompute
+    everything else (``jax.checkpoint_policies.checkpoint_dots``)."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn):
+    """``fn`` under the installed plan's remat policy: ``none`` (as it
+    is), ``full`` (``torch.utils.checkpoint``: only the inputs kept, the
+    body recomputed in the backward) or ``dots`` (selective checkpoint
+    keeping the outputs of ``aten.mm``/``bmm``/``addmm``)."""
+    plan = current_plan()
+    policy = plan.remat if plan is not None else "none"
+    if policy == "none":
+        return fn
+    if policy == "full":
+        context = ckpt.noop_context_fn
+    elif policy == "dots":
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    _save_dots)
+    else:
+        raise ValueError(f"unknown remat policy {policy!r} (none, dots, "
+                         "full)")
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                             context_fn=context)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             use_kernel: bool | None = None,
             frontend_embeds: torch.Tensor | None = None):
@@ -254,19 +315,53 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     ``frontend_embeds`` (B, F, d) in front (:func:`embed_tokens`), else
     S.  A ``mamba1`` stack runs one selective scan (K9 on the card) per
     layer, without the final state; a hybrid stack its shared block after
-    every ``attn_period``-th layer."""
+    every ``attn_period``-th layer.  Each layer (with the shared block
+    after it) runs under :func:`remat_wrap`."""
     check_supported(cfg)
     x = embed_tokens(params, tokens, cfg, frontend_embeds)
     kind = cfg.layer_kinds()[0]
-    layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
+    layers = _unstack(_cast(params["layers"], torch_dtype(cfg.compute_dtype)),
+                      cfg.n_layers)
     shared = _shared(params, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = apply_layer(_layer(layers, i), x, cfg, kind, use_kernel)
-        aux = aux + a
+
+    def body(lp, x, i):
+        x, a = apply_layer(lp, x, cfg, kind, use_kernel)
         if _applies(cfg, i):
             x = _shared_block(shared, x, cfg, use_kernel)[0]
+        return x, a
+
+    body = remat_wrap(body)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, lp in enumerate(layers):
+        x, a = body(lp, x, i)
+        aux = aux + a
     return _final_norm(params, x, cfg), aux
+
+
+def train_loss(params: dict, batch: dict, cfg: ArchConfig,
+               n_loss_chunks: int | None = None,
+               use_kernel: bool | None = None) -> torch.Tensor:
+    """batch: tokens (B, S), labels (B, S), optional loss_mask (B, S) and
+    frontend_embeds (B, F, d) -> the mean next-token cross entropy
+    (float32), the MoE's aux loss added.  The frontend's F prefix
+    positions carry no loss.  ``n_loss_chunks`` defaults to the installed
+    plan's ``loss_chunks`` (8 without a plan)."""
+    if n_loss_chunks is None:
+        plan = current_plan()
+        n_loss_chunks = plan.loss_chunks if plan is not None else 8
+    hidden, aux = forward(params, batch["tokens"], cfg, use_kernel,
+                          batch.get("frontend_embeds"))
+    fs = hidden.shape[1] - batch["labels"].shape[1]
+    if fs > 0:                   # the vision prefix carries no loss
+        hidden = hidden[:, fs:]
+    b, s, d = hidden.shape
+    mask = batch.get("loss_mask")
+    mask = mask.reshape(-1).float() if mask is not None else None
+    w = lm_head_weight(params, cfg).to(torch_dtype(cfg.compute_dtype))
+    loss = chunked_cross_entropy(hidden.reshape(b * s, d), w,
+                                 batch["labels"].reshape(-1), mask,
+                                 n_chunks=n_loss_chunks)
+    return loss + aux
 
 
 def _shared(params: dict, cfg: ArchConfig) -> dict | None:
