@@ -334,7 +334,28 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    2 steps at B 1, S 512 (K9 through its Function once per layer per
    step) and a plain-route step, held so (the mixer: the scan's leaves);
    (c) the guard: a paged decode whose q requires grad raises under
-   ``torch.enable_grad()`` and launches nothing.
+   ``torch.enable_grad()`` and launches nothing;
+36. static AT (``tuning/static.py``, ``launch/analytic.py``, the H100 rows
+   of ``core/cost.py``): (a) the card's row read by its name (an unknown
+   card fails) beside ``nvidia-smi``'s name and power limit;
+   ``analytic_plan_cost`` of every candidate plan of every applicable
+   cell at that row, ``tune_all_layouts`` in a temporary record store
+   (each winner the argmin), and a second ``AutoTuner`` on the store
+   reading every winner back without tuning; (b) ``train(...,
+   autotune=True)`` in a temporary working directory: yi-6b at full
+   width cut to 2 of 32 layers, B 2 x S 1024, 2 steps, the layout plan
+   ``tp``, the loss finite (falling or reported), K1 through
+   ``FlashAttentionFn`` once per layer per step and no other kernel;
+   (c) ``step_for_shape``'s prefill (S 1024, B 4) and decode steps at
+   yi-6b's full width cut to 2 layers (K1 once per layer, K2 once per
+   layer a step, counted) against the same steps with
+   ``use_kernel=False``; (d) K1 against the chunked plain version
+   (``ref.chunked_attention``, the plain route above 2048 queries) at
+   yi-6b's train_4k length, B 1, S 4096, 32 q / 4 kv heads of 128, bf16,
+   causal and with a window of 1024, each timed beside SDPA and the
+   bound; (e) phase 35's train step's share of the card's bf16 peak:
+   ``model_flops`` (6 N D) over its measured step time, beside the
+   analytic count's and the analytic roofline bound of the step.
 
 Then the script's run time by group of phases, one JSON line with every
 kernel's numbers,
@@ -355,6 +376,7 @@ import dataclasses
 import functools
 import gc
 import importlib.util
+import io
 import json
 import re
 import subprocess
@@ -402,6 +424,13 @@ from repro_torch.core.fitting import fit_dspline  # noqa: E402
 from repro_torch.tuning import (register_kernel_regions,  # noqa: E402
                                 run_install_tuning)
 from repro_torch.tuning.install import CHUNK_VALUES  # noqa: E402
+from repro_torch.configs import ShapeConfig, all_cells  # noqa: E402
+from repro_torch.core import cost  # noqa: E402
+from repro_torch.launch.analytic import model_flops, step_costs  # noqa: E402
+from repro_torch.launch.steps import step_for_shape  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.tuning import (analytic_plan_cost,  # noqa: E402
+                                candidate_plans, tune_all_layouts)
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): the least
 # time a kernel could take is the larger of bytes / HBM rate and
@@ -5322,9 +5351,9 @@ def only_train_kernels(launches: dict, fn, wrapper, per_step: int,
     check(not others, f"[35] {what}: other kernels launched: {others}")
 
 
-def phase_train(smi: str) -> dict[str, int]:
+def phase_train(smi: str) -> tuple[dict[str, int], float]:
     """(b), (b2) and (c).  Returns the Functions' launches in the main
-    path's runs."""
+    path's runs and (b)'s step time (s)."""
     t0 = time.perf_counter()
     spec = TRAIN
     main = train_run(spec, spec["steps"], profile=True)
@@ -5404,19 +5433,285 @@ def phase_train(smi: str) -> dict[str, int]:
           f"RuntimeError and launches nothing: {raised.split(';')[0]}; "
           f"phase 35 (b)-(c) in {time.perf_counter() - t0:.1f}s")
     return {"FlashAttentionFn": main["launches"]["FlashAttentionFn"],
-            "SelectiveScanFn": fm["launches"]["SelectiveScanFn"]}
+            "SelectiveScanFn": fm["launches"]["SelectiveScanFn"]}, step_s
 
 
-def phase_training(smi: str) -> list[dict]:
+def phase_training(smi: str) -> tuple[list[dict], float]:
     """Phase 35: (a) the Functions, (b) yi-6b and (b2) falcon-mamba
-    trained, (c) the guard.  Returns the Functions' two rows."""
+    trained, (c) the guard.  Returns the Functions' two rows and (b)'s
+    step time (s, the median of steps 2-5)."""
     rows = phase_train_functions(smi)
     gc.collect()
     torch.cuda.empty_cache()
-    launches = phase_train(smi)
+    launches, step_s = phase_train(smi)
     rows[0]["launches"] = launches["FlashAttentionFn"]
     rows[1]["launches"] = launches["SelectiveScanFn"]
-    return rows
+    return rows, step_s
+
+
+# --------------------------------------------------------------------------
+# phase 36: static AT, train --autotune, step_for_shape, chunked attention
+# --------------------------------------------------------------------------
+
+#: (b) and (c): yi-6b's published widths cut to 2 of 32 layers
+STATIC_TRAIN = dict(arch="yi-6b", layers=2, batch=2, seq=1024, steps=2)
+STEP_SHAPE = dict(batch=4, seq=1024, decode_steps=2)
+#: (d): K1 at yi-6b's train_4k length, against the chunked plain version
+CHUNKED_CASE = dict(b=1, h=32, hkv=4, s=4096, d=128, window=1024)
+
+
+def region_of(arch: str, shape: str) -> str:
+    return f"Layout_{arch}_{shape}".replace("-", "_").replace(".", "_")
+
+
+def static_at_on_the_card(smi: str) -> str:
+    """(a): every applicable cell's plans costed at the card's row, tuned
+    in a temporary record store and read back warm.  Returns the card's
+    name."""
+    name = torch.cuda.get_device_name(0)
+    spec = cost.chip_spec(name)         # KeyError: the card has no row
+    cells = [(a.name, s.name, s.kind) for a, s, _, _ in all_cells()]
+    costs = {(a, s): {p: analytic_plan_cost(a, s, p, chip=name)
+                      for p in candidate_plans(kind)}
+             for a, s, kind in cells}
+    with tempfile.TemporaryDirectory() as workdir:
+        won = tune_all_layouts(at.AutoTuner(workdir), costs, chip=name)
+        for cell, plan in won.items():
+            c = costs[cell]
+            check(plan == min(c, key=c.get),
+                  f"[36a] {cell}: tuned {plan!r}, argmin of {c}")
+        again = at.AutoTuner(workdir)
+        check(tune_all_layouts(again, costs, chip=name) == won,
+              "[36a] a second session read other winners")
+        check(sorted(again.warm_hits) == sorted(
+            ("static", region_of(*cell)) for cell in costs),
+              f"[36a] the second session tuned again: {again.warm_hits}")
+    print(f"[36a static AT] the card {name!r} (nvidia-smi: {smi}) reads "
+          f"the row bf16 {spec.peak_flops_bf16:.4g} FLOP/s, HBM "
+          f"{spec.hbm_bw:.4g} B/s, link {spec.link_bw:.4g} B/s (default "
+          f"row {name == cost.DEFAULT_CHIP}); {len(won)} cells at 256 cards"
+          f", model axis 16, plans' seconds (compute + memory + collective)"
+          f" -> the winner, each the argmin, all read back warm by a second"
+          f" session: " + "; ".join(
+              f"{a} {s}: " + ", ".join(f"{p} {t:.6g}"
+                                       for p, t in costs[a, s].items())
+              + f" -> {won[a, s]}" for a, s in costs))
+    return name
+
+
+def train_autotuned(smi: str, card: str) -> int:
+    """(b): ``train(autotune=True)`` in a temporary working directory (the
+    record store goes there: no ``ckpt_dir``, so no checkpoint is
+    written).  Returns K1's launches."""
+    spec = STATIC_TRAIN
+    out = io.StringIO()
+    for kernel in KERNELS + ag.FUNCTIONS:
+        kernel.launches = 0
+    with tempfile.TemporaryDirectory() as workdir, \
+            contextlib.chdir(workdir), contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        run = train(arch=spec["arch"], steps=spec["steps"], reduced=False,
+                    layers=spec["layers"], batch=spec["batch"],
+                    seq_len=spec["seq"], autotune=True, device="cuda",
+                    log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        static = Path(workdir, "OAT_StaticParam.dat").read_text()
+    launches = {k.__name__: k.launches for k in KERNELS + ag.FUNCTIONS}
+    only_train_kernels(launches, FlashAttentionFn, fa.flash_attention,
+                       spec["layers"], spec["steps"], "[36b] yi-6b")
+    lines = out.getvalue().strip().splitlines()
+    check(run["tuned_plan"] == "tp" and any(
+        "static AT: layout plan for (yi-6b, train_4k) -> 'tp'" in x
+        for x in lines), f"[36b] the plan: {run['tuned_plan']!r}, {lines}")
+    check(region_of("yi-6b", "train_4k") in static,
+          "[36b] the plan is not in the record store")
+    losses = run["losses"]
+    check(len(losses) == spec["steps"] and all(np.isfinite(losses)),
+          f"[36b] losses {losses}")
+    fell = losses[-1] < losses[0]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[36b train --autotune] train(arch='yi-6b', layers="
+          f"{spec['layers']}, batch {spec['batch']}, seq_len {spec['seq']}, "
+          f"{spec['steps']} steps, autotune=True, chip {card!r}) in "
+          f"{wall:.1f}s: " + " | ".join(lines) + f"; the loss "
+          f"{'fell' if fell else 'did NOT fall'} ({losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}); K1 through FlashAttentionFn "
+          f"{launches['FlashAttentionFn']} launches, no other kernel; "
+          f"on {smi}")
+    return launches["flash_attention"]
+
+
+def tree_clone(tree):
+    """A copy of a cache tree (the decode step writes its caches in
+    place)."""
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_clone(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def steps_for_shapes(smi: str) -> int:
+    """(c): the prefill and decode steps of ``step_for_shape`` through the
+    kernels (counted) and through the plain versions, from the same
+    weights, tokens and caches.  Returns K1's launches."""
+    b, s, n_dec = STEP_SHAPE["batch"], STEP_SHAPE["seq"], \
+        STEP_SHAPE["decode_steps"]
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=2)
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    plan = LayoutPlan(name="smoke")
+    pre = ShapeConfig("prefill_1k", s, b, "prefill")
+    dec = ShapeConfig("decode_1k", s + n_dec, b, "decode")
+    _, caches = model.prefill(params, tokens, s + n_dec, use_kernel=False)
+    logits, fed, launches = {}, [], None
+    for use_kernel in (False, True):     # the plain run picks the tokens
+        prefill = step_for_shape(model, pre, plan, use_kernel=use_kernel)
+        decode = step_for_shape(model, dec, plan, use_kernel=use_kernel)
+        c = tree_clone(caches)
+        if use_kernel:
+            for kernel in KERNELS + ag.FUNCTIONS:
+                kernel.launches = 0
+        got = [prefill(params, {"tokens": tokens})[0]]
+        for i in range(n_dec):
+            if not use_kernel:
+                fed.append(got[-1].argmax(-1)[:, None])
+            pos = torch.full((b,), s + i, device="cuda")
+            out, c = decode(params, c, fed[i], pos)
+            got.append(out)
+        torch.cuda.synchronize()
+        if use_kernel:
+            launches = {k.__name__: k.launches
+                        for k in KERNELS + ag.FUNCTIONS}
+        logits[use_kernel] = torch.stack(got)
+    want = {"flash_attention": cfg.n_layers,
+            "flash_decode": cfg.n_layers * n_dec}
+    check({k: n for k, n in launches.items() if n} == want,
+          f"[36c] the steps launched {launches}, expected {want}")
+    check(fa.flash_decode.last_kernel == pa.DECODE_TC_KERNEL,
+          f"[36c] K2 ran {fa.flash_decode.last_kernel}")
+    v = cfg.padded_vocab
+    line = check_logits(logits[False].reshape(-1, 1, v),
+                        logits[True].reshape(-1, 1, v), v, "[36c] logits")
+    del model, params, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[36c step_for_shape] yi-6b published widths cut to "
+          f"{cfg.n_layers} layers, prefill (S {s}, B {b}) + {n_dec} decode "
+          f"steps through the kernels (K1 {launches['flash_attention']}, K2 "
+          f"{launches['flash_decode']} launches, no other) against "
+          f"use_kernel=False, fed the same tokens: {line}; on {smi}")
+    return launches["flash_attention"]
+
+
+def k1_against_chunked(smi: str) -> dict:
+    """(d): K1 against ``ref.chunked_attention`` at S 4096, causal and
+    windowed, each timed beside the chunked plain version, SDPA and the
+    bound.  Returns the causal case's row (the windowed case's numbers
+    under ``window``)."""
+    c = CHUNKED_CASE
+    q, k, v = (randn((c["b"], n, c["s"], c["d"]), 3600 + j, BF16)
+               for j, n in enumerate((c["h"], c["hkv"], c["hkv"])))
+    cases = {"causal": dict(causal=True),
+             "window": dict(causal=True, window=c["window"])}
+    out, lines = {}, []
+    for label, kw in cases.items():
+        want = ref.chunked_attention(q, k, v, **kw)
+        run = functools.partial(fa.flash_attention, q, k, v, **kw)
+        got = run()
+        check(fa.flash_attention.last_kernel == fa.TC_KERNEL,
+              f"[36d] K1 ran {fa.flash_attention.last_kernel}")
+        err = compare(got, want, BF16)
+        if "window" in kw:
+            pairs = sum(min(i + 1, kw["window"]) for i in range(c["s"]))
+            i = torch.arange(c["s"], device="cuda")
+            mask = (i[None, :] <= i[:, None]) \
+                & (i[:, None] - i[None, :] < kw["window"])
+            sdpa_kw = dict(attn_mask=mask)
+        else:
+            pairs = c["s"] * (c["s"] + 1) // 2
+            sdpa_kw = dict(is_causal=True)
+        times = {"ms": time_ms(run),
+                 "plain_ms": time_ms(lambda: ref.chunked_attention(
+                     q, k, v, **kw), iters=5),
+                 "library_ms": time_ms(
+                     lambda: torch.nn.functional.scaled_dot_product_attention(
+                         q, k, v, enable_gqa=True, **sdpa_kw))}
+        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        n_ops = 4 * c["b"] * c["h"] * pairs * c["d"]
+        out[label] = row(
+            f"flash_attention[yi-6b train_4k S {c['s']} vs chunked plain]",
+            SOURCE, f"{FLASH}:106", err, n_bytes, n_ops, times)
+        lines.append(f"{label}: {fmt_times(times)}, bound "
+                     f"{out[label]['bound_ms']:.5f} ms "
+                     f"({out[label]['bound_by']}), err {err:.2e}")
+    r = out["causal"]
+    w = out["window"]
+    r.update(shape=f"B {c['b']}, {c['h']} q / {c['hkv']} kv heads of "
+             f"{c['d']}, S {c['s']}, causal, bf16", tile=list(
+                 fa.TC_DEFAULT_TILE), plain="ref.chunked_attention "
+             "(blocks of 1024)", window={k: w[k] for k in (
+                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "max_abs_err")} | {"window": c["window"]})
+    print(f"[36d K1 vs chunked] B {c['b']}, {c['h']} q / {c['hkv']} kv heads "
+          f"of {c['d']}, S {c['s']}, bf16, against ref.chunked_attention "
+          f"(the plain route above {ops.CHUNKED_THRESHOLD} queries, blocks "
+          f"of 1024; library: SDPA), device ms (ms per call incl. host) on "
+          f"{smi}: " + "; ".join(lines))
+    return r
+
+
+def train_peak_share(smi: str, card: str, step_s: float) -> None:
+    """(e): phase 35's step (yi-6b cut to its layers, B x S) as a
+    ``ShapeConfig``: its MODEL_FLOPS and analytic FLOPs over the measured
+    step time and the card's bf16 peak, and the analytic roofline bound
+    of the step at the card's row."""
+    spec = cost.chip_spec(card)
+    cfg = dataclasses.replace(get_arch(TRAIN["arch"]),
+                              n_layers=TRAIN["layers"])
+    shape = ShapeConfig("phase35", TRAIN["seq"], TRAIN["batch"], "train")
+    mf = model_flops(cfg, shape)
+    ana = step_costs(cfg, shape)
+    terms = cost.roofline_terms(ana.flops, ana.bytes, 0.0, 1,
+                                peak_flops=spec.peak_flops_bf16,
+                                hbm_bw=spec.hbm_bw, ici_bw=spec.link_bw)
+    mfu = mf / step_s / spec.peak_flops_bf16
+    check(0 < mfu < 1, f"[36e] share of the peak {mfu}")
+    print(f"[36e train share of the peak] phase 35's step (yi-6b, "
+          f"{cfg.n_layers} layers, B {shape.global_batch} x S "
+          f"{shape.seq_len}): model_flops (6 N D, N "
+          f"{cfg.active_param_count() / 1e9:.4f} B) {mf / 1e12:.3f} TFLOP "
+          f"over the measured {step_s * 1e3:.1f} ms is "
+          f"{mf / step_s / 1e12:.1f} TFLOP/s, {mfu:.4f} of the card's bf16 "
+          f"peak {spec.peak_flops_bf16 / 1e12:.1f} TFLOP/s; the analytic "
+          f"count (attention and the optimizer in) {ana.flops / 1e12:.3f} "
+          f"TFLOP, {ana.flops / step_s / spec.peak_flops_bf16:.4f}; the "
+          f"analytic roofline bound {terms.bound_s * 1e3:.1f} ms "
+          f"({terms.dominant}: compute {terms.compute_s * 1e3:.1f}, memory "
+          f"{terms.memory_s * 1e3:.1f} ms), the step at "
+          f"{terms.bound_s / step_s:.3f} of it; on {smi}")
+
+
+def phase_static(smi: str, step_s: float) -> list[dict]:
+    """Phase 36: (a) static AT on the card, (b) train --autotune, (c)
+    step_for_shape, (d) K1 against the chunked plain version, (e) the
+    train step's share of the peak.  Returns (d)'s row, its launches
+    those of K1 in (b) and (c)."""
+    t0 = time.perf_counter()
+    card = static_at_on_the_card(smi)
+    k1 = train_autotuned(smi, card)
+    k1 += steps_for_shapes(smi)
+    r = k1_against_chunked(smi)
+    r["launches"] = k1
+    train_peak_share(smi, card, step_s)
+    print(f"[36] phase 36 in {time.perf_counter() - t0:.1f}s")
+    return [r]
 
 
 def main() -> int:
@@ -5503,10 +5798,14 @@ def main() -> int:
     rows += phase_pixtral(smi)
     done("34")
     check(len(rows) == 85, f"{len(rows)} kernel rows, expected 85")
-    rows += phase_training(smi)
+    train_rows, step_s = phase_training(smi)
+    rows += train_rows
     done("35")
     check(len(rows) == 87, f"{len(rows)} kernel rows, expected 87")
-    print(f"[done] phases 1-35 in {time.perf_counter() - t0:.1f}s; by phase "
+    rows += phase_static(smi, step_s)
+    done("36")
+    check(len(rows) == 88, f"{len(rows)} kernel rows, expected 88")
+    print(f"[done] phases 1-36 in {time.perf_counter() - t0:.1f}s; by phase "
           + ", ".join(f"{label} {t - marks[i][1]:.1f}s"
                       for i, (label, t) in enumerate(marks[1:])))
     print(json.dumps({"kernels": rows}))

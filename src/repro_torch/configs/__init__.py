@@ -1,4 +1,5 @@
-from .base import ArchConfig
-from .registry import ARCHS, get_arch
+from .base import SHAPES, ArchConfig, ShapeConfig
+from .registry import ARCHS, all_cells, cell_applicable, get_arch, get_shape
 
-__all__ = ["ArchConfig", "ARCHS", "get_arch"]
+__all__ = ["ARCHS", "SHAPES", "ArchConfig", "ShapeConfig", "all_cells",
+           "cell_applicable", "get_arch", "get_shape"]

@@ -1,11 +1,14 @@
-"""Architecture configuration schema (the port's own copy).
+"""Architecture configuration schema and input-shape registry (the
+port's own copy).
 
 The fields and derived properties follow the JAX package's ``ArchConfig``
 exactly, so a config built here describes the same network; only the
-parts the serving path reads are kept as methods (``param_count`` and
-``active_param_count`` size the weights).  ``reduced()``
-returns the CPU test configuration of the same family, ``draft_config()``
-the speculative draft.
+parts the serving, training and static-AT paths read are kept as methods
+(``param_count`` and ``active_param_count`` size the weights and the
+analytic step costs).  ``reduced()`` returns the CPU test configuration
+of the same family, ``draft_config()`` the speculative draft.
+:data:`SHAPES` holds the four input shapes (``ShapeConfig``) that the
+cells of static AT pair with each arch.
 """
 from __future__ import annotations
 
@@ -79,6 +82,11 @@ class ArchConfig:
     @property
     def is_encoder_decoder(self) -> bool:
         return self.n_encoder_layers > 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run long_500k?  SSM / hybrid / SWA qualify."""
+        return self.ssm_version > 0 or self.window is not None
 
     def layer_kinds(self) -> list[str]:
         """Per-decoder-layer block kind."""
@@ -202,3 +210,19 @@ class ArchConfig:
             compute_dtype="float32",
             cache_dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -1,4 +1,5 @@
-"""Architecture registry: ``--arch <id>`` -> ArchConfig.
+"""Architecture registry: ``--arch <id>`` -> ArchConfig, and the cells
+(arch x shape) of static AT.
 
 Every arch of the JAX package is registered.  ``NOT_PORTED`` is kept for
 an arch the JAX package gains before the port runs it: such an arch is
@@ -7,7 +8,7 @@ of claiming the name does not exist.
 """
 from __future__ import annotations
 
-from .base import ArchConfig
+from .base import SHAPES, ArchConfig, ShapeConfig
 from .deepseek_7b import CONFIG as deepseek_7b
 from .falcon_mamba_7b import CONFIG as falcon_mamba_7b
 from .h2o_danube_1p8b import CONFIG as h2o_danube_1p8b
@@ -37,3 +38,34 @@ def get_arch(name: str) -> ArchConfig:
             f"arch {name!r} is not ported to PyTorch yet; see "
             f"{NOT_PORTED[name]}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+def cell_applicable(arch: ArchConfig, shape: ShapeConfig
+                    ) -> tuple[bool, str]:
+    """Is (arch, shape) a runnable cell?  Returns (ok, reason-if-skipped).
+
+    long_500k needs sub-quadratic attention, so a pure full-attention arch
+    (whisper-tiny's encoder-decoder among them) skips it.
+    """
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, ("long_500k skipped: pure full-attention arch "
+                       "(O(L^2) attention / O(L) KV at 524288 tokens)")
+    return True, ""
+
+
+def all_cells(include_skipped: bool = False):
+    """The 40 (arch x shape) cells as (arch, shape, ok, reason), the
+    skipped ones only with ``include_skipped``."""
+    out = []
+    for a in ARCHS.values():
+        for s in SHAPES.values():
+            ok, reason = cell_applicable(a, s)
+            if ok or include_skipped:
+                out.append((a, s, ok, reason))
+    return out

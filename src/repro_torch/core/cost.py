@@ -128,15 +128,57 @@ class According:
 
 
 # --------------------------------------------------------------------------
-# Built-in roofline cost model (TPU v5e, as in the JAX package; the
-# port's static AT will bring H100 constants) — used as a first-class `estimated`
-# callable by the static-AT tuner and available to user expressions as
-# roofline_seconds(flops, bytes, coll_bytes, chips).
+# Built-in roofline cost model of the NVIDIA H100 — used as a first-class
+# `estimated` callable by the static-AT tuner and available to user
+# expressions as roofline_seconds(flops, bytes, coll_bytes, chips).
 # --------------------------------------------------------------------------
 
-PEAK_FLOPS_BF16 = 197e12      # per chip
-HBM_BW = 819e9                # bytes/s per chip
-ICI_BW = 50e9                 # bytes/s per link
+
+@dataclass(frozen=True)
+class ChipSpec:
+    """One card's roofline rates: dense bf16 tensor-core FLOP/s, HBM
+    bytes/s and the bytes/s each card puts on the collective's link."""
+
+    peak_flops_bf16: float
+    hbm_bw: float
+    link_bw: float
+
+
+# The link: static AT's default mesh is 256 cards with a model axis of
+# 16, which spans two 8-GPU NVLink domains, so every collective crosses
+# the scale-out network: one 400 Gb/s NDR InfiniBand port per GPU, as in
+# a DGX H100, is 50e9 B/s.  NVLink's 450e9 B/s per direction holds only
+# within the 8 GPUs of one node.
+SCALE_OUT_LINK_BW = 50e9
+
+#: keyed by the name ``torch.cuda.get_device_name()`` gives
+CHIPS: dict[str, ChipSpec] = {
+    # H100 SXM5 (NVIDIA H100 Tensor Core GPU datasheet): BF16 tensor core
+    # 1,979 TFLOPS with sparsity = 989.4 dense; HBM3 3.35 TB/s
+    "NVIDIA H100 80GB HBM3": ChipSpec(989.4e12, 3.35e12, SCALE_OUT_LINK_BW),
+    # H100 PCIe (same datasheet): 1,513 TFLOPS with sparsity = 756 dense;
+    # HBM2e 2.0 TB/s
+    "NVIDIA H100 PCIe": ChipSpec(756e12, 2.0e12, SCALE_OUT_LINK_BW),
+    # H100 NVL (same datasheet): 1,671 TFLOPS with sparsity = 835 dense;
+    # HBM3 3.9 TB/s
+    "NVIDIA H100 NVL": ChipSpec(835e12, 3.9e12, SCALE_OUT_LINK_BW),
+}
+#: the port's target card; the module defaults below are its row (a
+#: constant, not a probe of the card this process runs on)
+DEFAULT_CHIP = "NVIDIA H100 80GB HBM3"
+
+PEAK_FLOPS_BF16 = CHIPS[DEFAULT_CHIP].peak_flops_bf16     # per card
+HBM_BW = CHIPS[DEFAULT_CHIP].hbm_bw                       # bytes/s per card
+ICI_BW = CHIPS[DEFAULT_CHIP].link_bw                      # bytes/s per card
+
+
+def chip_spec(name: str) -> ChipSpec:
+    """The row of :data:`CHIPS` for a card's name; an unknown name raises
+    ``KeyError`` (no card is taken for another)."""
+    if name not in CHIPS:
+        raise KeyError(f"no row for the card {name!r} in "
+                       f"repro_torch.core.cost.CHIPS; known: {sorted(CHIPS)}")
+    return CHIPS[name]
 
 
 @dataclass(frozen=True)

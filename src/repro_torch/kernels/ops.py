@@ -17,7 +17,9 @@ install-time, the ``FlashBlocks`` region), ``flash_decode``
 ``flash_paged_prefill`` and ``flash_paged_verify`` (``block_q``,
 ``block_k``, ``num_splits``), each overridden by the caller's explicit
 values; an explicit ``None`` is "not given" and leaves a published value
-alone.  The plain versions ignore tiles.
+alone.  The plain versions ignore tiles, but for ``attention``'s chunked
+route above ``CHUNKED_THRESHOLD`` (``chunked_attention``'s ``block_q``,
+``block_k``).
 
 Gradients: when grad is enabled and an input requires it,
 ``attention`` and ``ssm_scan`` go through :mod:`.autograd`'s
@@ -122,6 +124,15 @@ def mm(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None = None,
     return ref.matmul_ref(x, y, bias, epilogue)
 
 
+#: above this many queries the plain route goes flash-style
+#: (:func:`.ref.chunked_attention`)
+CHUNKED_THRESHOLD = 2048
+
+
+def _any_tile(block_q=None, block_k=None) -> None:
+    """The chunked plain route's tile check: every tile fits."""
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None,
               use_kernel: bool | None = None, **pps) -> torch.Tensor:
@@ -129,9 +140,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sk = Sq for self-attention, Sk != Sq for cross attention, which is
     neither causal nor windowed (such a call raises ``ValueError`` on both
     routes).  On the card K1 at the ``block_q`` x ``block_k`` tile
-    published under ``flash_attention`` (or in ``pps``).  A gradient
-    through it goes through ``FlashAttentionFn`` (unless
-    ``use_kernel=False``)."""
+    published under ``flash_attention`` (or in ``pps``), at any length.
+    A gradient through it goes through ``FlashAttentionFn`` (unless
+    ``use_kernel=False``).  The plain route (``use_kernel=False``, or a
+    CPU tensor without a gradient) takes :func:`.ref.chunked_attention`
+    above ``CHUNKED_THRESHOLD`` queries, at the ``block_q`` x ``block_k``
+    published under ``chunked_attention`` (or in ``pps``), and
+    ``attention_ref`` at or below it, as the JAX package's does."""
     fa.check_lengths(q.shape[2], k.shape[2], causal, window)
     kernel = _use_kernel(q, use_kernel)
     kw = (_tuned("flash_attention", ("block_q", "block_k", "scale"),
@@ -141,6 +156,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kernel:
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, window=window, **kw)
+    if q.shape[2] > CHUNKED_THRESHOLD:
+        return ref.chunked_attention(
+            q, k, v, causal=causal, window=window,
+            **_tuned("chunked_attention", _TILE_KEYS, _any_tile, **pps))
     return ref.attention_ref(q, k, v, causal=causal, window=window)
 
 

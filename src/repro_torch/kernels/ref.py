@@ -14,6 +14,9 @@ softmax states merged by :func:`combine_split_states`;
 cutting each query tile's live key tiles exactly as the kernels K5b/K6d
 do, so their partials compare as well as their output;
 :func:`paged_decode_split_tiles_ref` the split decode cut as K5a cuts it.
+:func:`chunked_attention` is the long-sequence plain route of
+``ops.attention`` (the flash algorithm in plain ops, above
+``ops.CHUNKED_THRESHOLD``).
 
 A row that sees no key at all (``kv_len == 0``) gets a uniform softmax
 over the ``-1e30`` scores here, i.e. the mean of ``v``; the kernels give
@@ -26,6 +29,7 @@ the same names.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 NEG_INF = -1e30
 
@@ -55,6 +59,81 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int | None = None,
+                      scale: float | None = None, block_q: int = 1024,
+                      block_k: int = 1024, remat: bool = True
+                      ) -> torch.Tensor:
+    """Memory-efficient attention in plain ops: the flash algorithm over
+    ``block_q`` query chunks by ``block_k`` key chunks, a float32 online
+    softmax, so the largest intermediate is (B, H, block_q, block_k)
+    instead of (B, H, S, S).  q (B, H, S, D), k, v (B, Hkv, Sk, D).
+
+    As the JAX package's ``ref.chunked_attention``: both sequences are
+    zero-padded to whole chunks, padded keys are masked, the causal and
+    window masks compare unaligned positions (query ``i`` at ``i``), GQA
+    repeats each kv chunk over its G query heads, masked scores are
+    ``-1e30``, and every key chunk is visited (a chunk no query of the
+    tile sees adds nothing once a visible one has set the row's max).
+    Where a gradient is wanted and ``remat``, each key step runs under
+    ``torch.utils.checkpoint``, so the backward recomputes a chunk's
+    probabilities instead of keeping them."""
+    b, h, s, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = float(scale if scale is not None else d ** -0.5)
+    bq, bk = min(block_q, s), min(block_k, sk)
+    pq, pk = (-s) % bq, (-sk) % bk
+    qp = torch.nn.functional.pad(q, (0, 0, 0, pq)) if pq else q
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pk)) if pk else k
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pk)) if pk else v
+    nq, nk = qp.shape[2] // bq, kp.shape[2] // bk
+    rows = torch.arange(bq, device=q.device)[:, None]
+    cols = torch.arange(bk, device=q.device)[None, :]
+
+    def kv_step(m_prev, l_prev, acc, qc, kc, vc, iq: int, ik: int):
+        if g > 1:
+            kc = kc.repeat_interleave(g, dim=1)
+            vc = vc.repeat_interleave(g, dim=1)
+        sco = torch.einsum("bhqd,bhkd->bhqk", qc.float(), kc.float()) * scale
+        qi, kj = iq * bq + rows, ik * bk + cols
+        mask = kj < sk                      # padded keys
+        if causal:
+            mask = mask & (qi >= kj)
+        if window is not None:
+            mask = mask & ((qi - kj) < window)
+        sco = torch.where(mask[None, None], sco, NEG_INF)
+        m_cur = torch.maximum(m_prev, sco.amax(-1))
+        p = torch.exp(sco - m_cur[..., None])
+        alpha = torch.exp(m_prev - m_cur)
+        l_cur = l_prev * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
+                                                    vc.float())
+        return m_cur, l_cur, acc
+
+    remat = remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for iq in range(nq):
+        qc = qp[:, :, iq * bq:(iq + 1) * bq]
+        m = torch.full((b, h, bq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, bq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, bq, d), dtype=torch.float32, device=q.device)
+        for ik in range(nk):
+            kc = kp[:, :, ik * bk:(ik + 1) * bk]
+            vc = vp[:, :, ik * bk:(ik + 1) * bk]
+            if remat:
+                m, l, acc = torch.utils.checkpoint.checkpoint(
+                    kv_step, m, l, acc, qc, kc, vc, iq, ik,
+                    use_reentrant=False)
+            else:
+                m, l, acc = kv_step(m, l, acc, qc, kc, vc, iq, ik)
+        l = torch.where(l == 0.0, 1.0, l)
+        outs.append((acc / l[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=2)[:, :, :s]
 
 
 def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,22 +1,38 @@
-"""Step-function builders of the train path, the JAX package's
-``launch/steps.py``: ``build_train_step`` composes loss -> gradients
-(``torch.autograd.grad``) -> microbatch accumulation -> AdamW;
-``build_eval_loss`` is the loss alone, without a graph.
+"""Step-function builders, the JAX package's ``launch/steps.py``: the
+functions the trainers and servers run.
 
-``step_for_shape`` (and its ``StepBundle``), which picks a step by
-``ShapeConfig``, comes with static AT (ROADMAP queue 1, item 9b), which
-brings the shape schema; ``param_shardings`` comes with the multi-GPU
-layout (item 10).
+``build_train_step`` composes loss -> gradients (``torch.autograd.grad``)
+-> microbatch accumulation -> AdamW; ``build_eval_loss`` is the loss
+alone, without a graph; ``build_prefill_step`` and ``build_decode_step``
+are the serving entry points, run without a graph; ``step_for_shape``
+picks one of them by a ``ShapeConfig``'s kind.  ``param_shardings``
+(the gradient accumulator pinned to a sharded layout) comes with the
+multi-GPU layout (ROADMAP queue 1, item 10) and raises.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
+from ..configs.base import ShapeConfig
 from ..models import Model
 from ..models.sharding_ctx import LayoutPlan, use_plan
 from ..optim import adamw
+
+
+#: the ROADMAP item that brings sharded layouts
+SHARDING_ITEM = "ROADMAP queue 1, item 10"
+
+
+@dataclass(frozen=True)
+class StepBundle:
+    """A step function and the argument positions whose buffers it may
+    reuse (the JAX package's donation list, read by a dry run)."""
+
+    fn: Callable
+    donate: tuple = ()
 
 
 def build_train_step(model: Model, plan: LayoutPlan,
@@ -83,3 +99,48 @@ def build_eval_loss(model: Model, plan: LayoutPlan,
             return model.train_loss(params, batch, use_kernel=use_kernel)
 
     return eval_loss
+
+
+def build_prefill_step(model: Model, plan: LayoutPlan,
+                       use_kernel: bool | None = None) -> Callable:
+    """(params, batch) -> (last-token logits, caches) of
+    ``batch["tokens"]`` (and ``batch["frontend_embeds"]`` where the arch
+    has a frontend), without a graph."""
+    def prefill_step(params: dict, batch: dict):
+        with torch.no_grad(), use_plan(plan):
+            return model.prefill(params, batch["tokens"],
+                                 use_kernel=use_kernel,
+                                 frontend_embeds=batch.get("frontend_embeds"))
+
+    return prefill_step
+
+
+def build_decode_step(model: Model, plan: LayoutPlan,
+                      use_kernel: bool | None = None) -> Callable:
+    """(params, caches, token, pos) -> (logits, caches), one token a
+    lane, without a graph."""
+    def decode_step(params: dict, caches: dict, token: torch.Tensor,
+                    pos: torch.Tensor):
+        with torch.no_grad(), use_plan(plan):
+            return model.decode_step(params, caches, token, pos,
+                                     use_kernel=use_kernel)
+
+    return decode_step
+
+
+def step_for_shape(model: Model, shape: ShapeConfig, plan: LayoutPlan,
+                   opt_cfg: adamw.AdamWConfig | None = None,
+                   param_shardings=None,
+                   use_kernel: bool | None = None) -> Callable:
+    """The step a cell of ``shape.kind`` runs: train, prefill or decode."""
+    if param_shardings is not None:
+        raise NotImplementedError(
+            "param_shardings (a sharded gradient accumulator) is not "
+            f"ported yet: {SHARDING_ITEM}")
+    if shape.kind == "train":
+        return build_train_step(model, plan,
+                                opt_cfg or adamw.AdamWConfig(),
+                                use_kernel=use_kernel)
+    if shape.kind == "prefill":
+        return build_prefill_step(model, plan, use_kernel=use_kernel)
+    return build_decode_step(model, plan, use_kernel=use_kernel)

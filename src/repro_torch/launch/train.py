@@ -8,12 +8,16 @@
   host);
 * weights held in the config's ``param_dtype`` (float32), cast to
   ``compute_dtype`` at use; on the card attention runs K1 and Mamba-1's
-  scan K9, each through its ``torch.autograd.Function``.
+  scan K9, each through its ``torch.autograd.Function``;
+* before-execute-time AT (``--autotune``): the layout plan of
+  ``(--arch, --tune-shape)`` chosen by ``tuning/static.py`` before the
+  first step (the paper's phase order: install -> static -> run), at the
+  rates of the card the run is on (``core.cost.CHIPS``; the default row
+  with ``--device cpu``), and recorded under ``--ckpt-dir`` (or the
+  working directory), so a later launch of the same cell reads it.
 
 ``--layers`` cuts the depth (the width stays the published one), as
 ``chip_smoke.py`` does to fit a model's AdamW state on one card.
-``--autotune`` (static AT of the layout plan) is ROADMAP queue 1, item
-9b, and raises.
 
 Usage::
 
@@ -21,6 +25,8 @@ Usage::
         --arch deepseek-7b --steps 50 --reduced --ckpt-dir "$TMPDIR/ckpt"
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \\
         --full --layers 12 --steps 6 --batch 4 --seq-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --reduced --steps 2 --autotune --ckpt-dir "$TMPDIR/ckpt"
 """
 from __future__ import annotations
 
@@ -28,17 +34,17 @@ import argparse
 import dataclasses
 import time
 
+import torch
 
-from .. import checkpoint
+from .. import at, checkpoint
 from ..configs import get_arch
 from ..data import DataConfig, batch_for_step
 from ..device import resolve
 from ..distributed.fault_tolerance import HeartbeatMonitor, StragglerWatchdog
 from ..models import LayoutPlan, build_model
 from ..optim import adamw
+from ..tuning import tune_layout
 from .steps import build_train_step
-
-STATIC_AT = "ROADMAP queue 1, item 9b (static AT)"
 
 
 def train(arch: str = "deepseek-7b", steps: int = 20, reduced: bool = True,
@@ -51,13 +57,17 @@ def train(arch: str = "deepseek-7b", steps: int = 20, reduced: bool = True,
           layers: int | None = None) -> dict:
     """``steps`` fixes the schedule horizon; ``run_steps`` optionally stops
     this invocation early (simulated preemption for restart tests);
-    ``layers`` cuts the depth.  Returns {"losses",
-    "final_loss", "steps", "wall_s", "params", "opt_state",
+    ``layers`` cuts the depth.
+
+    ``autotune=True`` runs before-execute-time AT through a
+    ``repro_torch.at`` session before the first step: the layout plan for
+    ``(arch, tune_shape)`` on the published config is selected on the
+    roofline estimate at the rates of the card ``device`` names (the
+    default row of ``core.cost.CHIPS`` on the CPU) and persisted in the
+    session record store under ``ckpt_dir`` (or the working directory),
+    so later launches of the same cell skip the selection.  Returns
+    {"losses", "final_loss", "steps", "wall_s", "params", "opt_state",
     "tuned_plan"} as the JAX driver does."""
-    if autotune:
-        raise NotImplementedError(
-            f"train --autotune (the layout plan for ({arch}, {tune_shape})) "
-            f"is not ported yet: {STATIC_AT}")
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -65,6 +75,14 @@ def train(arch: str = "deepseek-7b", steps: int = 20, reduced: bool = True,
         cfg = dataclasses.replace(cfg, n_layers=layers)
     dev = resolve(device)
     model = build_model(cfg)
+    tuned_plan = None
+    if autotune:
+        session = at.AutoTuner(ckpt_dir or ".")
+        chip = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+            else None
+        tuned_plan = tune_layout(session, arch, tune_shape, chip=chip)
+        print(f"[train] static AT: layout plan for ({arch}, {tune_shape}) "
+              f"-> {tuned_plan!r}")
     plan = LayoutPlan(name="host", remat=remat,
                       num_microbatches=num_microbatches)
     opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=max(2, steps // 10),
@@ -119,7 +137,8 @@ def train(arch: str = "deepseek-7b", steps: int = 20, reduced: bool = True,
     wall = time.time() - t_start
     return {"losses": losses, "final_loss": losses[-1] if losses else None,
             "steps": end_step - start_step, "wall_s": wall,
-            "params": params, "opt_state": opt_state, "tuned_plan": None}
+            "params": params, "opt_state": opt_state,
+            "tuned_plan": tuned_plan}
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -140,7 +159,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--remat", default="none", choices=("none", "dots",
                                                           "full"))
     ap.add_argument("--autotune", action="store_true",
-                    help=f"static-AT layout selection ({STATIC_AT})")
+                    help="static-AT layout selection for (--arch, "
+                    "--tune-shape) before step 0, recorded under "
+                    "--ckpt-dir (or the working directory)")
     ap.add_argument("--tune-shape", default="train_4k")
     args = ap.parse_args(argv)
     out = train(arch=args.arch, steps=args.steps, reduced=args.reduced,

@@ -30,13 +30,17 @@ AT = ("backends", "sqlite_backend", "session", "records", "cli", "__main__",
 TUNING = ("dynamic",)
 #: top-level names (or ``import`` lines) the port changes on purpose: the
 #: executor synchronises CUDA devices instead of JAX arrays and adds a
-#: CUDA-event executor; the fingerprint is built from torch; the run-time
+#: CUDA-event executor; the roofline's rates are the H100's, one row a
+#: card; the fingerprint is built from torch; the run-time
 #: tuner adds the Hopper counterpart of ``divisor_block_ks`` (the kernels'
 #: instantiated tiles that are whole pages); the CLI's ``__main__`` runs
 #: only as a script (test_torch_isolation.py imports every module)
 CHANGED = {
     "core/executor.py": {"_block", "_cuda_devices", "CudaEventExecutor",
                          "import torch"},
+    "core/cost.py": {"ChipSpec", "SCALE_OUT_LINK_BW", "CHIPS",
+                     "DEFAULT_CHIP", "PEAK_FLOPS_BF16", "HBM_BW", "ICI_BW",
+                     "chip_spec"},
     "at/records.py": {"machine_fingerprint"},
     "tuning/dynamic.py": {"page_block_ks"},
     "at/__main__.py": {"sys.exit(main())",

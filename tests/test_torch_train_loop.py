@@ -4,18 +4,22 @@ falls (on one repeated batch: see the test), microbatching equals the
 full batch, the remat policies (none, dots, full) equal each other, and
 a checkpoint restart reproduces the uninterrupted run exactly (the
 deterministic (seed, step, shard) data and the checkpointed params and
-AdamW state leave no hidden state).  Also the CLI: ``--device cpu`` trains, ``--autotune`` raises naming ROADMAP item
-9b, and the default device is the card."""
+AdamW state leave no hidden state).  Also the CLI: ``--device cpu``
+trains and resumes, ``--autotune`` selects the layout plan before step 0
+and a second launch reads it back, and the default device is the
+card."""
 import numpy as np
 import pytest
 import torch
 
+import repro_torch.at as at
 from repro_torch.configs import get_arch
 from repro_torch.data import DataConfig, batch_for_step
 from repro_torch.launch.steps import build_eval_loss, build_train_step
 from repro_torch.launch.train import main, train
 from repro_torch.models import LayoutPlan, build_model
 from repro_torch.optim import adamw
+from repro_torch.tuning import tune_layout
 
 torch.set_num_threads(1)
 
@@ -127,8 +131,12 @@ def test_checkpoint_restart_exact(tmp_path):
 
 def test_cli_trains_on_the_cpu_resumes_and_refuses_autotune(capsys,
                                                            tmp_path):
+    """The name is kept from when ``--autotune`` raised; the test now
+    checks that it selects: deepseek-7b's train_4k plan is ``tp`` (the
+    JAX package's winner), recorded under ``--ckpt-dir`` and read back
+    by a second launch and by a later session, which tunes nothing."""
     args = ["--device", "cpu", "--arch", "whisper-tiny", "--batch", "2",
-            "--seq-len", "8", "--ckpt-dir", str(tmp_path)]
+            "--seq-len", "8", "--ckpt-dir", str(tmp_path / "w")]
     main(args + ["--steps", "2"])
     assert "[train] done: 2 steps" in capsys.readouterr().out
     main(args + ["--steps", "2"])       # nothing left to run
@@ -136,8 +144,21 @@ def test_cli_trains_on_the_cpu_resumes_and_refuses_autotune(capsys,
     main(args + ["--steps", "3"])
     out = capsys.readouterr().out
     assert "resumed from step 1" in out and "done: 1 steps" in out
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        main(["--device", "cpu", "--autotune"])
+
+    ck = tmp_path / "at"
+    tune = ["--device", "cpu", "--autotune", "--ckpt-dir", str(ck),
+            "--batch", "2", "--seq-len", "8"]
+    main(tune + ["--steps", "2"])
+    out = capsys.readouterr().out
+    assert ("[train] static AT: layout plan for (deepseek-7b, train_4k) "
+            "-> 'tp'") in out and "done: 2 steps" in out
+    main(tune + ["--steps", "3"])
+    out = capsys.readouterr().out
+    assert "-> 'tp'" in out and "resumed from step 1" in out
+    assert len((ck / "OAT_Records.jsonl").read_text().splitlines()) == 1
+    session = at.AutoTuner(str(ck))
+    assert tune_layout(session, "deepseek-7b", "train_4k") == "tp"
+    assert session.warm_hits == [("static", "Layout_deepseek_7b_train_4k")]
 
 
 def test_default_device_is_the_card():
