@@ -355,7 +355,29 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    causal and with a window of 1024, each timed beside SDPA and the
    bound; (e) phase 35's train step's share of the card's bf16 peak:
    ``model_flops`` (6 N D) over its measured step time, beside the
-   analytic count's and the analytic roofline bound of the step.
+   analytic count's and the analytic roofline bound of the step;
+37. tensor-parallel paged serving (``ServingEngine(mesh=...)`` over
+   ``torch.distributed``): a 1x2 world spawned by ``run_world``, both
+   ranks on the one card over gloo (NCCL refuses two ranks on one
+   device; what gloo cannot carry is staged through the host), each
+   holding yi-6b whole (32 layers, the same seeded weights, checked by a
+   checksum all-reduce) and its half of the KV heads, serving phase 9's
+   requests: (a) the paged pool without chunks (K1 prefill, K3), (b)
+   chunks of 128 (K4, K3), (c) int8 pages at 8 splits (K6c, K6b with
+   K5c merged), (d) speculative at 8 splits (K5b with K5c merged; the
+   draft replicated); rank 0 serves each unsharded first, in the same
+   phase: greedy tokens equal, each admission's first logits bit-equal
+   (or within 5e-2 of their scale), each rank's launches by kernel
+   exactly its serve's, pools half the unsharded bytes; (e) two prompts
+   of 4096 tokens whose prefill takes the ring (float32), held to the
+   unsharded K1 prefill within 5e-2 of the logits' scale, the token
+   agreement printed, and one ring attention timed beside K1; (f)
+   ``compressed_psum`` of CUDA tensors against the exact sum; (g)
+   ``"1x1"`` in a NCCL world of one rank, (b)'s tokens.  Printed:
+   tokens/s, TTFT and ITL against the unsharded serve, launches per rank,
+   pool bytes, the bytes staged through the host and the host ms in the
+   collectives, peak memory a rank.  Two ranks share one card: no time
+   here is a multi-card speed.
 
 Then the script's run time by group of phases, one JSON line with every
 kernel's numbers,
@@ -388,12 +410,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import repro_torch.at as at  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.distributed import (collectives, compressed_psum,  # noqa: E402
+                                     run_world)
 from repro_torch.distributed.compression import quantize_int8_rows  # noqa: E402
+from repro_torch.distributed.sharding import make_serving_mesh  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import fdm_stress as fk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -5714,6 +5740,371 @@ def phase_static(smi: str, step_s: float) -> list[dict]:
     return [r]
 
 
+# --------------------------------------------------------------------------
+# phase 37: tensor-parallel paged serving over torch.distributed
+# --------------------------------------------------------------------------
+
+MESH = "1x2"
+#: (label, what, engine keywords, the serve's kernels)
+MESH_SERVES = (
+    ("a", "paged decode (K1 prefill, K3)", {},
+     (fa.flash_attention, pa.flash_paged_decode)),
+    ("b", "chunks of 128 (K4, K3)", dict(prefill_chunk=128),
+     (pa.flash_paged_prefill, pa.flash_paged_decode)),
+    ("c", "int8, 8 splits (K6c, K6b + K5c)",
+     dict(prefill_chunk=128, kv_dtype="int8", num_splits=8),
+     (pa.flash_paged_prefill_quant, pa.paged_decode_split_quant_merged)),
+    ("d", "speculative, 8 splits (K4, K5b + K5c; the draft's K1, K2)",
+     dict(prefill_chunk=128, draft=True, spec_k=4, num_splits=8),
+     (pa.flash_paged_prefill, pa.paged_prefill_split_merged,
+      fa.flash_attention, fa.flash_decode)))
+MESH_RING_PROMPTS, MESH_RING_LEN = 2, 4096   # (e): prompts the ring takes
+PSUM_SHAPE = (4096, 1024)            # (f)
+
+
+def mesh_engine(model, params, mesh, kw: dict, n_lanes: int,
+                max_len: int) -> tuple[ServingEngine, dict]:
+    """A paged engine (pages of 16) on ``mesh`` (None: unsharded) whose
+    admissions record their first logits, by request id."""
+    kw = dict(kw)
+    if kw.pop("draft", False):
+        draft = model.draft_model()
+        kw.update(draft_model=draft,
+                  draft_params=model.slice_draft_params(params, draft))
+    engine = ServingEngine(model, params, n_lanes=n_lanes, max_len=max_len,
+                           cache="paged", page_size=16, mesh=mesh, **kw)
+    firsts, inner = {}, engine._next_token
+
+    def first(req, logits):
+        firsts.setdefault(req.rid, logits.float().cpu())
+        return inner(req, logits)
+
+    engine._next_token = first
+    return engine, firsts
+
+
+def mesh_serve(model, params, mesh, kw: dict, prompts=None) -> dict:
+    """Phase 5's requests (or ``prompts``, 32 new tokens each) through
+    :func:`mesh_engine`, every launch counter and the collectives' counts
+    zeroed just before and read just after."""
+    scfg = ServeConfig(**SERVE)
+    n_lanes, max_len = SERVE["n_lanes"], SERVE["max_len"]
+    if prompts is not None:
+        n_lanes, max_len = len(prompts), len(prompts[0]) + 64
+    engine, firsts = mesh_engine(model, params, mesh, kw, n_lanes, max_len)
+    for kernel in KERNELS:
+        kernel.launches = 0
+    collectives.reset_counts()
+    drafts, restore = count_draft_calls()
+    try:
+        if prompts is None:
+            report = serve_engine(engine, scfg)
+        else:
+            for rid, p in enumerate(prompts):
+                engine.submit(Request(rid=rid, prompt=p,
+                                      max_new_tokens=SERVE["max_new"]))
+            engine.run(max_steps=4 * SERVE["max_new"])
+            s = engine.metrics.summary()
+            report = {"outputs": {r.rid: list(r.out_tokens)
+                                  for r in engine.finished},
+                      "tokens_per_s": s["tokens_per_s"],
+                      "p50_ttft_s": s["ttft_s"]["p50"],
+                      "p50_itl_s": s["itl_s"]["p50"],
+                      "decode_steps": engine.steps,
+                      "prefill_chunks": engine.prefill_chunks}
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    return {"report": report, "firsts": firsts, "drafts": drafts,
+            "launches": {k.__name__: k.launches for k in KERNELS
+                         if k.launches},
+            "staged": dict(collectives.STAGED),
+            "calls": dict(collectives.CALLS),
+            "seconds": dict(collectives.SECONDS),
+            "pool_bytes": engine.kv.pool_bytes(),
+            "pool_heads": engine.kv.caches["kv"][0].shape[2],
+            "counters_zero": counters_zero()}
+
+
+def first_logits(got: dict, want: dict) -> dict:
+    """Each admission's first logits against the reference's: how many
+    are bit-equal, and the largest difference over the logits' scale."""
+    same = sum(torch.equal(got[r], want[r]) for r in want)
+    worst = max(float((got[r] - want[r]).abs().max())
+                / float(want[r].abs().max()) for r in want)
+    return {"bit_equal": same, "n": len(want), "worst_rel": worst,
+            "argmax": sum(int(got[r].argmax()) == int(want[r].argmax())
+                          for r in want)}
+
+
+def wall_ms(fn, iters: int = 5) -> float:
+    """Host ms a call of ``fn``, from a synchronised start to the device's
+    end (the ring's collectives stage through the host, so its time is
+    the wall's)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def mesh_rank() -> dict:
+    """One rank of phase 37's 1x2 world (both ranks on the one card, over
+    gloo): (a)-(d) served sharded, each after rank 0 served it unsharded
+    (rank 1 waiting); (e) the ring; (f) ``compressed_psum``.  Returns what
+    the parent checks and prints."""
+    mesh = make_serving_mesh(MESH)
+    model = build_model(get_arch("yi-6b"))
+    params = model.init(0, "cuda")
+    serve_mod.check_same_weights(params, mesh)
+    rank0 = mesh.rank == 0
+    out = {"rank": mesh.rank, "backend": dist.get_backend(),
+           "coords": dict(mesh.coords), "serves": {}}
+    for label, _, kw, _ in MESH_SERVES:
+        ref = mesh_serve(model, params, None, kw) if rank0 else None
+        dist.barrier()
+        got = mesh_serve(model, params, mesh, kw)
+        got["rank"] = mesh.rank
+        if rank0:
+            got["ref"] = {k: ref[k] for k in ("report", "pool_bytes",
+                                              "pool_heads")}
+            got["first"] = first_logits(got["firsts"], ref["firsts"])
+            if label == "b":                # (g) holds its serve to these
+                out["b_ref_firsts"] = ref["firsts"]
+        del got["firsts"]
+        out["serves"][label] = got
+    # (e) two prompts of 4096 tokens: the prefill takes the ring
+    rng = np.random.default_rng(SERVE["n_requests"])
+    prompts = rng.integers(0, model.cfg.vocab_size,
+                           size=(MESH_RING_PROMPTS, MESH_RING_LEN)).tolist()
+    ref = mesh_serve(model, params, None, {}, prompts) if rank0 else None
+    dist.barrier()
+    got = mesh_serve(model, params, mesh, {}, prompts)
+    got["rank"] = mesh.rank
+    if rank0:
+        got["ref"] = {"report": ref["report"]}
+        got["first"] = first_logits(got["firsts"], ref["firsts"])
+    del got["firsts"]
+    q = randn((1, 32, MESH_RING_LEN, 128), 37, torch.bfloat16)
+    k, v = (randn((1, 4, MESH_RING_LEN, 128), s, torch.bfloat16)
+            for s in (38, 39))
+    collectives.reset_counts()
+    ring_out = ops.attention(q, k, v, mesh=mesh)
+    got["ring_calls"] = dict(collectives.CALLS)
+    dist.barrier()
+    got["ring_ms"] = wall_ms(lambda: ops.attention(q, k, v, mesh=mesh))
+    dist.barrier()
+    if rank0:
+        k1_out = ops.attention(q, k, v)
+        got["ring_err"] = compare(ring_out, k1_out, torch.bfloat16)
+        got["k1_ms"] = wall_ms(lambda: ops.attention(q, k, v))
+        got["k1_device_ms"] = time_ms(lambda: ops.attention(q, k, v))[0]
+    dist.barrier()
+    out["ring"] = got
+    # (f) compressed_psum on CUDA tensors against the exact sum
+    xs = [torch.randn(PSUM_SHAPE, generator=torch.Generator("cuda")
+                      .manual_seed(100 + r), device="cuda")
+          for r in range(mesh.shape["model"])]
+    collectives.reset_counts()
+    s = compressed_psum(xs[mesh.coords["model"]], mesh.group("model"))
+    exact = xs[0] + xs[1]
+    out["psum"] = {"err": float((s - exact).abs().max()),
+                   "bound": 2 * max(float(x.abs().max()) for x in xs) / 127,
+                   "finite": bool(torch.isfinite(s).all()),
+                   "staged": dict(collectives.STAGED), "on": str(s.device)}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def nccl_rank(ref_tokens: dict, ref_firsts: dict) -> dict:
+    """(g): phase 37b's serve through ``"1x1"`` in a NCCL world of one
+    rank: the unsharded path, no collective in the serve; one all-reduce
+    (the weights' checksum) goes through NCCL."""
+    mesh = make_serving_mesh("1x1")
+    model = build_model(get_arch("yi-6b"))
+    params = model.init(0, "cuda")
+    c = serve_mod.weights_checksum(params)
+    back = collectives.all_reduce(torch.tensor([c], dtype=torch.float64,
+                                               device="cuda"))
+    got = mesh_serve(model, params, mesh, MESH_SERVES[1][2])
+    got["first"] = first_logits(got.pop("firsts"), ref_firsts)
+    got["backend"] = dist.get_backend()
+    got["checksum_same"] = float(back[0]) == c
+    got["tokens_equal"] = got["report"]["outputs"] == ref_tokens
+    return got
+
+
+def mesh_launch_check(label: str, got: dict, kernels, n_layers: int = 32
+                      ) -> None:
+    """Each rank's launches: the serve's kernels and no other, each
+    launched, and the per-layer counts of its chunks, steps and
+    verifies."""
+    what = f"37{label}, rank {got['rank']}"
+    launches, report = got["launches"], got["report"]
+    only_launched(launches, kernels, what)
+    check(all(launches.get(k.__name__, 0) > 0 for k in kernels),
+          f"{what}: a kernel of the serve was not launched: {launches}")
+    check(got["counters_zero"], f"{what}: an arrival counter is not 0")
+    steps = report["decode_steps"]
+    want = {"a": {"flash_attention": n_layers * SERVE["n_requests"],
+                  "flash_paged_decode": n_layers * steps},
+            "b": {"flash_paged_prefill": n_layers * report["prefill_chunks"],
+                  "flash_paged_decode": n_layers * steps},
+            "c": {"flash_paged_prefill_quant":
+                  n_layers * report["prefill_chunks"],
+                  "paged_decode_split_quant_merged": n_layers * steps},
+            "d": {"flash_paged_prefill": n_layers * report["prefill_chunks"],
+                  "paged_prefill_split_merged": n_layers * steps,
+                  "flash_attention": 16 * got["drafts"]["prefill"],
+                  "flash_decode": 16 * got["drafts"]["decode_step"]}}[label]
+    for name, n in want.items():
+        check(launches.get(name, 0) == n,
+              f"{what}: {name} launched {launches.get(name, 0)} times, "
+              f"expected {n}")
+
+
+def phase_mesh(smi: str) -> None:
+    """Phase 37: tensor-parallel paged serving of yi-6b (full width, all
+    32 layers) on a 1x2 mesh, both ranks on the one card over gloo (NCCL
+    refuses two ranks on one device): (a)-(d) greedy tokens equal to the
+    unsharded engine's, served by rank 0 in the same phase, each
+    admission's first logits bit-equal (or within 5e-2 of their scale),
+    per-rank launches by kernel, pools half the unsharded bytes; (e) two
+    prompts of 4096 tokens whose prefill takes the ring, against the
+    unsharded K1 prefill within 5e-2 of the logits' scale; (f)
+    ``compressed_psum`` on CUDA tensors; (g) ``"1x1"`` in a NCCL world of
+    one rank.  Two ranks share the card: no time here is a multi-card
+    speed."""
+    t0 = time.perf_counter()
+    gc.collect()
+    before = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    print(f"[37 mesh] the parent's reserved device memory "
+          f"{before / 1e9:.2f} GB, after freeing its cached blocks "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB; spawning {MESH} "
+          f"(2 ranks on cuda:0, backend gloo)")
+    ranks = run_world(mesh_rank, 2, device="cuda", join_timeout_s=900.0)
+    check([r["rank"] for r in ranks] == [0, 1], "ranks out of order")
+    check(all(r["backend"] == "gloo" for r in ranks), "backend not gloo")
+    r0 = ranks[0]
+    lines = []
+    for label, what, kw, kernels in MESH_SERVES:
+        a, b = (r["serves"][label] for r in ranks)
+        ref = a["ref"]
+        outputs = a["report"]["outputs"]
+        check(b["report"]["outputs"] == outputs,
+              f"37{label}: the ranks' tokens differ")
+        check(len(outputs) == SERVE["n_requests"]
+              and all(len(t) == SERVE["max_new"] for t in outputs.values()),
+              f"37{label}: a request did not get its 32 tokens")
+        check(outputs == ref["report"]["outputs"],
+              f"37{label}: greedy tokens differ from the unsharded "
+              f"engine's: {greedy_agreement(a['report'], ref['report'])}")
+        f = a["first"]
+        check(f["bit_equal"] == f["n"] or f["worst_rel"] <= 5e-2,
+              f"37{label}: first logits {f}")
+        for r in (a, b):
+            mesh_launch_check(label, r, kernels)
+        check(a["pool_heads"] * 2 == ref["pool_heads"]
+              and a["pool_bytes"] * 2 == ref["pool_bytes"],
+              f"37{label}: pools {a['pool_bytes']} B at {a['pool_heads']} "
+              f"heads against {ref['pool_bytes']} B")
+        rep, rref = a["report"], ref["report"]
+        gathers = a["calls"].get("all_gather", 0)
+        gather_s = a["seconds"].get("all_gather", 0.0)
+        lines.append(
+            f"({label}) {what}: greedy tokens equal to the unsharded "
+            f"engine's {greedy_agreement(rep, rref)}, first logits "
+            f"bit-equal {f['bit_equal']}/{f['n']} (worst "
+            f"{f['worst_rel']:.2e} of the scale); sharded "
+            f"{rep['tokens_per_s']:.1f} tok/s, p50 ttft "
+            f"{rep['p50_ttft_s']:.4f}s, p50 itl {rep['p50_itl_s']:.4f}s "
+            f"against unsharded {rref['tokens_per_s']:.1f} tok/s, "
+            f"{rref['p50_ttft_s']:.4f}s, {rref['p50_itl_s']:.4f}s; "
+            f"{rep['prefill_chunks']} chunks, {rep['decode_steps']} ticks; "
+            f"launches rank 0 {a['launches']}, rank 1 {b['launches']}; "
+            f"pool {a['pool_bytes']} B a rank ({a['pool_heads']} of "
+            f"{ref['pool_heads']} KV heads) against {ref['pool_bytes']} B; "
+            f"staged bytes by op {a['staged']}, collectives {a['calls']}; "
+            f"all-gathers {gather_s * 1e3 / max(gathers, 1):.3f} ms a call "
+            f"(host clock), {gather_s * 1e3 / rep['decode_steps']:.2f} ms "
+            f"a tick" + (" (every gather in a decode tick)"
+                         if label == "a" else " (chunks' gathers in)"))
+    print(f"[37 mesh serves] yi-6b full (32 layers), {MESH}, 8 requests of "
+          f"32 tokens, 4 lanes, pages of 16, ranks sharing one card on "
+          f"{smi}: " + "; ".join(lines))
+    a, b = (r["ring"] for r in ranks)
+    rep, rref = a["report"], a["ref"]["report"]
+    check(b["report"]["outputs"] == rep["outputs"],
+          "37e: the ranks' tokens differ")
+    check(all(len(t) == SERVE["max_new"] for t in rep["outputs"].values()),
+          "37e: a request did not get its 32 tokens")
+    f = a["first"]
+    check(f["worst_rel"] <= 5e-2, f"37e: first logits {f}")
+    for r in (a, b):
+        check(r["launches"].get("flash_attention", 0) == 0,
+              f"37e: K1 ran under the ring: {r['launches']}")
+        check(r["ring_calls"].get("ring_send") == 1
+              and r["ring_calls"].get("all_gather") == 1,
+              f"37e: the ring's collectives {r['ring_calls']}")
+        check(r["launches"].get("flash_paged_decode", 0)
+              == 32 * rep["decode_steps"],
+              f"37e: K3 launches {r['launches']}")
+    check(a["ring_err"] <= TOL[torch.bfloat16],
+          f"37e: the ring against K1 {a['ring_err']}")
+    print(f"[37e ring] 2 prompts of {MESH_RING_LEN} tokens, prefill through the "
+          f"ring (float32, 1 block send a layer a rank; no K1 launch): first "
+          f"logits against the unsharded K1 prefill within "
+          f"{f['worst_rel']:.2e} of their scale (tol 5e-2), argmax agrees "
+          f"{f['argmax']}/{f['n']}; greedy tokens equal to the unsharded "
+          f"engine's {greedy_agreement(rep, rref)} (bf16 near-ties may "
+          f"flip); sharded p50 ttft {rep['p50_ttft_s']:.4f}s against "
+          f"{rref['p50_ttft_s']:.4f}s; launches rank 0 {a['launches']}, "
+          f"rank 1 {b['launches']}; staged bytes {a['staged']}, host "
+          f"seconds in the collectives {a['seconds']}; one "
+          f"attention at B 1, 32 q / 4 kv heads of 128, S {MESH_RING_LEN}: the "
+          f"ring {a['ring_ms']:.3f} ms a call (wall, both ranks at once, "
+          f"the K/V blocks and the output staged through the host) against "
+          f"K1 alone {a['k1_ms']:.3f} ms (wall; device "
+          f"{a['k1_device_ms']:.4f} ms), outputs within {a['ring_err']:.2e}"
+          f" (tol {TOL[torch.bfloat16]}); on {smi}")
+    for r in ranks:
+        p = r["psum"]
+        check(p["finite"] and p["err"] <= p["bound"],
+              f"37f: compressed_psum on rank {r['rank']}: {p}")
+    p = r0["psum"]
+    print(f"[37f compressed_psum] {PSUM_SHAPE} float32 on {p['on']}, 2 "
+          f"ranks: max error against the exact sum {p['err']:.4e} (bound "
+          f"2 amax / 127 = {p['bound']:.4e}); staged bytes {p['staged']}")
+    b = r0["serves"]["b"]
+    g = run_world(nccl_rank, 1, device="cuda",
+                  args=(b["ref"]["report"]["outputs"], r0["b_ref_firsts"]),
+                  join_timeout_s=600.0)[0]
+    f = g["first"]
+    check(g["backend"] == "nccl" and g["checksum_same"],
+          f"37g: backend {g['backend']}, checksum {g['checksum_same']}")
+    check(g["tokens_equal"], "37g: 1x1 tokens differ from the unsharded "
+          "engine's")
+    check(f["bit_equal"] == f["n"] or f["worst_rel"] <= 5e-2,
+          f"37g: first logits {f}")
+    g["rank"] = 0
+    mesh_launch_check("b", g, MESH_SERVES[1][3])
+    check(not g["calls"], f"37g: the 1x1 serve made collectives {g['calls']}")
+    print(f"[37g 1x1] phase 37b's serve through make_serving_mesh('1x1') in "
+          f"a NCCL world of one rank (one all-reduce through NCCL, the "
+          f"weights' checksum; none in the serve): greedy tokens equal to "
+          f"the unsharded engine's, first logits bit-equal "
+          f"{f['bit_equal']}/{f['n']} (worst {f['worst_rel']:.2e}; the "
+          f"reference ran in another process), "
+          f"{g['report']['tokens_per_s']:.1f} tok/s, launches "
+          f"{g['launches']}, pool {g['pool_bytes']} B")
+    print(f"[37 peak memory] rank 0 {r0['peak_gb']:.2f} GB, rank 1 "
+          f"{ranks[1]['peak_gb']:.2f} GB; phase 37 in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5805,7 +6196,9 @@ def main() -> int:
     rows += phase_static(smi, step_s)
     done("36")
     check(len(rows) == 88, f"{len(rows)} kernel rows, expected 88")
-    print(f"[done] phases 1-36 in {time.perf_counter() - t0:.1f}s; by phase "
+    phase_mesh(smi)
+    done("37")
+    print(f"[done] phases 1-37 in {time.perf_counter() - t0:.1f}s; by phase "
           + ", ".join(f"{label} {t - marks[i][1]:.1f}s"
                       for i, (label, t) in enumerate(marks[1:])))
     print(json.dumps({"kernels": rows}))

@@ -21,6 +21,21 @@ alone.  The plain versions ignore tiles, but for ``attention``'s chunked
 route above ``CHUNKED_THRESHOLD`` (``chunked_attention``'s ``block_q``,
 ``block_k``).
 
+Tensor parallelism (``mesh=``, a :class:`~repro_torch.distributed.Mesh`
+whose ``"model"`` axis has more than one rank): ``paged_decode``,
+``paged_prefill`` and ``paged_verify`` take q with every head and the
+pools of this rank's KV-head slice; each rank runs its kernel on its
+contiguous slice of q's heads (whole GQA groups, since both head counts
+divide the axis) and the outputs are all-gathered over the model group in
+head order, an exact copy, so the caller's output projection computes
+what the unsharded engine does (the JAX package's ``_head_sharded``
+under ``shard_map``).  The one-pass decode kernel sizes its cluster by
+the unsharded KV-head count (``cluster_hkv``), so a rank launches the
+unsharded math on its heads.  ``attention`` sends a long causal prompt
+around the ring (:mod:`repro_torch.distributed.ring_attention`) under
+the reference's conditions.  A mesh without a model axis, or a 1-rank
+one, takes the unsharded path exactly.
+
 Gradients: when grad is enabled and an input requires it,
 ``attention`` and ``ssm_scan`` go through :mod:`.autograd`'s
 ``FlashAttentionFn`` and ``SelectiveScanFn`` (K1 and K9 forward, the
@@ -37,6 +52,8 @@ import dataclasses
 import torch
 
 from .. import at
+from ..distributed.collectives import all_gather
+from ..distributed.process_mesh import Mesh
 from . import flash_attention as fa
 from . import paged_attention as pa
 from . import ref
@@ -133,8 +150,40 @@ def _any_tile(block_q=None, block_k=None) -> None:
     """The chunked plain route's tile check: every tile fits."""
 
 
+def mesh_model_axis(mesh) -> int:
+    """Size of the tensor-parallel ``"model"`` axis of ``mesh`` (1 == no
+    sharding: no mesh, no model axis, or a 1-rank axis; those all run the
+    unsharded code path and stay bit-identical to it).  A mesh must be the
+    port's :class:`~repro_torch.distributed.Mesh`, whose process groups
+    carry the collectives: any other (an abstract mesh of shapes alone,
+    as a dry run over a fake process group would use) raises
+    ``NotImplementedError`` naming ROADMAP queue 1, item 10b."""
+    if mesh is None:
+        return 1
+    if not isinstance(mesh, Mesh):
+        raise NotImplementedError(
+            f"a mesh of type {type(mesh).__name__} carries no process "
+            "groups: serving takes a repro_torch.distributed.Mesh "
+            "(make_serving_mesh); running over an abstract mesh is the "
+            "dry run of ROADMAP queue 1, item 10b")
+    if "model" not in mesh.axis_names:
+        return 1
+    return int(mesh.shape["model"])
+
+
+def takes_ring(q: torch.Tensor, k: torch.Tensor, causal: bool,
+               window: int | None, mesh) -> bool:
+    """Does :func:`attention` send this call around the ring?  The JAX
+    package's conditions: a model axis of more than one rank, causal, no
+    window, self-attention, a length the axis divides, and longer than
+    ``CHUNKED_THRESHOLD``."""
+    m, seq = mesh_model_axis(mesh), q.shape[2]
+    return (m > 1 and causal and window is None and seq == k.shape[2]
+            and seq % m == 0 and seq > CHUNKED_THRESHOLD)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int | None = None,
+              causal: bool = True, window: int | None = None, mesh=None,
               use_kernel: bool | None = None, **pps) -> torch.Tensor:
     """Full (prefill) attention.  q (B, H, Sq, D), k/v (B, Hkv, Sk, D):
     Sk = Sq for self-attention, Sk != Sq for cross attention, which is
@@ -146,8 +195,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CPU tensor without a gradient) takes :func:`.ref.chunked_attention`
     above ``CHUNKED_THRESHOLD`` queries, at the ``block_q`` x ``block_k``
     published under ``chunked_attention`` (or in ``pps``), and
-    ``attention_ref`` at or below it, as the JAX package's does."""
+    ``attention_ref`` at or below it, as the JAX package's does.  On a
+    ``mesh`` whose model axis has more than one rank a long causal
+    prompt (:func:`takes_ring`) takes the ring instead, its K/V repeated
+    to q's heads under GQA (the ring keeps heads whole and shards the
+    sequence); shorter, windowed and indivisible ones fall through to the
+    paths above, unsharded."""
     fa.check_lengths(q.shape[2], k.shape[2], causal, window)
+    if takes_ring(q, k, causal, window, mesh):
+        from ..distributed.ring_attention import make_ring_attention
+        refuse_grad("ops.attention over the ring", q, k, v)
+        if k.shape[1] != q.shape[1]:
+            g = q.shape[1] // k.shape[1]
+            k = k.repeat_interleave(g, dim=1)
+            v = v.repeat_interleave(g, dim=1)
+        return make_ring_attention(mesh, causal=True)(q, k, v)
     kernel = _use_kernel(q, use_kernel)
     kw = (_tuned("flash_attention", ("block_q", "block_k", "scale"),
                  _attention_fits(q), **pps) if kernel else {})
@@ -208,11 +270,29 @@ def _pool_tensors(pools: PagedPools) -> tuple:
     return (pools.k, pools.v, pools.k_scale, pools.v_scale)
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "tensor-parallel paged attention (mesh) is not ported yet: "
-            "ROADMAP queue 1, item 10")
+def _check_head_sharding(q: torch.Tensor, pools: PagedPools,
+                         m: int) -> None:
+    """q carries every head, the pools this rank's KV-head slice."""
+    h, hkv = q.shape[1], pools.k.shape[1] * m
+    if h % m or (h // m) % pools.k.shape[1]:
+        raise ValueError(
+            f"tensor-parallel paged attention shards the KV-head axis: "
+            f"kv_heads={hkv} (q heads {h}) is not divisible by the mesh's "
+            f"'model' axis of size {m} — pick a mesh whose model axis "
+            f"divides the head counts, or run unsharded")
+
+
+def _head_sharded(mesh, local, q: torch.Tensor, pools: PagedPools):
+    """``local(q_slice, cluster_hkv)`` on this rank's contiguous slice of
+    q's heads (the pools are already its KV-head slice), all-gathered over
+    the mesh's ``"model"`` group in head order: every rank ends with the
+    whole (B, H, C, D) output, exactly as computed."""
+    m = mesh_model_axis(mesh)
+    if m == 1:
+        return local(q, None)
+    _check_head_sharding(q, pools, m)
+    out = local(q[:, mesh.head_slice(q.shape[1])], pools.k.shape[1] * m)
+    return all_gather(out, mesh.group("model"), dim=1)
 
 
 def _int32(x: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -230,23 +310,30 @@ def paged_decode(q: torch.Tensor, pools: PagedPools, page_table: torch.Tensor,
     merge in the split kernel's epilogue), at the ``block_k`` and
     ``num_splits`` published under ``flash_paged_decode`` unless given.
     The plain version ignores tiles and ``num_splits``, as the JAX
-    package's does on the CPU."""
+    package's does on the CPU.  With ``mesh`` the pools are this rank's
+    KV-head slice (module docstring)."""
     refuse_grad("ops.paged_decode", q, *_pool_tensors(pools))
-    _check_mesh(mesh)
     _check_pools(pools)
-    if _use_kernel(q, use_kernel):
-        q, table = q.contiguous(), _int32(page_table, q.device)
-        kv_len = _int32(kv_len, q.device)
+    kernel = _use_kernel(q, use_kernel)
+
+    def local(q: torch.Tensor, cluster_hkv: int | None) -> torch.Tensor:
+        if not kernel:
+            return ref.paged_decode_ref(q, pools.k, pools.v, page_table,
+                                        kv_len, k_scale=pools.k_scale,
+                                        v_scale=pools.v_scale)
+        q = q.contiguous()
+        table, lens = _int32(page_table, q.device), _int32(kv_len, q.device)
         kw = _tuned("flash_paged_decode", ("block_k", "num_splits", "scale"),
                     _decode_fits("flash_paged_decode", q),
                     num_splits=num_splits, **pps)
         if pools.quantized:
             return flash_paged_decode_quant(
                 q, pools.k, pools.v, pools.k_scale, pools.v_scale, table,
-                kv_len, **kw)
-        return flash_paged_decode(q, pools.k, pools.v, table, kv_len, **kw)
-    return ref.paged_decode_ref(q, pools.k, pools.v, page_table, kv_len,
-                                k_scale=pools.k_scale, v_scale=pools.v_scale)
+                lens, cluster_hkv=cluster_hkv, **kw)
+        return flash_paged_decode(q, pools.k, pools.v, table, lens,
+                                  cluster_hkv=cluster_hkv, **kw)
+
+    return _head_sharded(mesh, local, q, pools)
 
 
 def _paged_chunk(q: torch.Tensor, pools: PagedPools,
@@ -262,9 +349,15 @@ def _paged_chunk(q: torch.Tensor, pools: PagedPools,
     ``num_splits``, as the JAX package's does on the CPU."""
     refuse_grad(f"ops.{tuned_key.removeprefix('flash_')}", q,
                 *_pool_tensors(pools))
-    _check_mesh(mesh)
     _check_pools(pools)
-    if _use_kernel(q, use_kernel):
+    kernel = _use_kernel(q, use_kernel)
+
+    def local(q: torch.Tensor, cluster_hkv: int | None) -> torch.Tensor:
+        if not kernel:
+            return ref.paged_prefill_ref(q, pools.k, pools.v, page_table,
+                                         start, kv_len,
+                                         k_scale=pools.k_scale,
+                                         v_scale=pools.v_scale)
         args = (_int32(page_table, q.device), _int32(start, q.device),
                 _int32(kv_len, q.device))
         kw = _tuned(tuned_key, ("block_q", "block_k", "num_splits", "scale"),
@@ -276,9 +369,8 @@ def _paged_chunk(q: torch.Tensor, pools: PagedPools,
                 pools.v_scale, *args, **kw)
         return flash_paged_prefill(q.contiguous(), pools.k, pools.v, *args,
                                    **kw)
-    return ref.paged_prefill_ref(q, pools.k, pools.v, page_table, start,
-                                 kv_len, k_scale=pools.k_scale,
-                                 v_scale=pools.v_scale)
+
+    return _head_sharded(mesh, local, q, pools)
 
 
 def paged_prefill(q: torch.Tensor, pools: PagedPools,

@@ -810,7 +810,8 @@ def paged_decode_split_quant_merged(q: torch.Tensor, k_pool: torch.Tensor,
 def _paged_decode(name: str, wrapper, q: torch.Tensor, pools: tuple,
                   page_table: torch.Tensor, kv_len: torch.Tensor,
                   scale: float | None, num_splits: int | None,
-                  block_k: int | None, cluster: int | None) -> torch.Tensor:
+                  block_k: int | None, cluster: int | None,
+                  cluster_hkv: int | None = None) -> torch.Tensor:
     """The body of :func:`flash_paged_decode` (``pools`` (k, v)) and
     :func:`flash_paged_decode_quant` (``pools`` (k, v, k_scale, v_scale))."""
     quant = len(pools) == 4
@@ -829,7 +830,8 @@ def _paged_decode(name: str, wrapper, q: torch.Tensor, pools: tuple,
         m, l, acc = split(q, *pools, page_table, kv_len, ns, scale=scale,
                           block_k=bk)
         return split_combine(m, l, acc, q.dtype).reshape(b, h, 1, d)
-    fn, kernel, last = _decode_entry(name, q, b, hkv, quant, cluster, bk)
+    fn, kernel, last = _decode_entry(name, q, b, cluster_hkv or hkv, quant,
+                                     cluster, bk)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
@@ -846,6 +848,7 @@ def flash_paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
                        kv_len: torch.Tensor, *, scale: float | None = None,
                        num_splits: int | None = None,
                        block_k: int | None = None,
+                       cluster_hkv: int | None = None,
                        _cluster: int | None = None) -> torch.Tensor:
     """Paged decode: q (B, H, 1, D), pools (P, Hkv, psz, D), page_table
     (B, nblk) and kv_len (B,) int32 on q's device (kv_len is clamped to
@@ -856,11 +859,14 @@ def flash_paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
     (clamped to the table's ``block_k``-key tiles) above 1 runs K5a and
     K5c, else K3: for a bfloat16 q the cluster kernel (K5a and K5c: its
     partials mode merging in its epilogue, one launch), for float32 the
-    SIMT templates (K5a, then K5c).  ``_cluster`` overrides
-    :func:`cluster_size` (tests only)."""
+    SIMT templates (K5a, then K5c).  ``cluster_hkv`` is the KV-head count
+    :func:`cluster_size` sizes the cluster for (default the pools'): a
+    tensor-parallel rank, whose pools hold a slice of the heads, passes
+    the unsharded count, so that it launches the unsharded cluster on its
+    heads.  ``_cluster`` overrides :func:`cluster_size` (tests only)."""
     return _paged_decode("flash_paged_decode", flash_paged_decode, q,
                          (k_pool, v_pool), page_table, kv_len, scale,
-                         num_splits, block_k, _cluster)
+                         num_splits, block_k, _cluster, cluster_hkv)
 
 
 def flash_paged_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
@@ -870,16 +876,18 @@ def flash_paged_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
                              scale: float | None = None,
                              num_splits: int | None = None,
                              block_k: int | None = None,
+                             cluster_hkv: int | None = None,
                              _cluster: int | None = None) -> torch.Tensor:
     """:func:`flash_paged_decode` over int8 pools (P, Hkv, psz, D) with
     float32 per-row scales (P, Hkv, psz); q float32 or bfloat16, output
-    like q, ``block_k`` as there.  K6a (the cluster kernel for bfloat16,
+    like q, ``block_k`` and ``cluster_hkv`` as there.  K6a (the cluster kernel for bfloat16,
     as K3), or K6b and K5c for ``num_splits`` above 1 (bfloat16: the
     cluster kernel's partials mode merging in its epilogue, one launch, as
     K5a; float32: the SIMT template, then K5c)."""
     return _paged_decode("flash_paged_decode_quant", flash_paged_decode_quant,
                          q, (k_pool, v_pool, k_scale, v_scale), page_table,
-                         kv_len, scale, num_splits, block_k, _cluster)
+                         kv_len, scale, num_splits, block_k, _cluster,
+                         cluster_hkv)
 
 
 def _prefill_split(name: str, wrapper, q: torch.Tensor, pools: tuple,

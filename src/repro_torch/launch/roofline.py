@@ -16,7 +16,7 @@ defaults are the SXM card's)::
 A record is one (arch, shape, mesh) cell of a dry run (JSON: ``arch``,
 ``shape``, ``mesh``, ``chips``, ``plan``, ``hlo_dot_flops``,
 ``hlo_collective_bytes``, ``bytes_per_device``, or ``skipped`` with a
-``reason``); the dry run that writes them is ROADMAP queue 1, item 10.
+``reason``); the dry run that writes them is ROADMAP queue 1, item 10b.
 
 Usage::
 

@@ -57,6 +57,17 @@ fp against int8 pages per bucket under a greedy-agreement floor and
 builds the pool in the majority winner.  ``python -m repro_torch.at list
 --workdir DIR`` lists what a workdir has tuned.
 
+``--mesh RxC`` serves tensor-parallel (paged only): the command starts a
+world of R x C ranks itself (:func:`repro_torch.distributed.run_world`:
+NCCL when every rank has a card of its own, else gloo, several ranks
+then sharing one card or the CPU), each rank serves with the weights
+whole and its slice of the KV heads (``ServingEngine(mesh=...)``), and
+rank 0 prints the report, its ``"mesh"`` and ``"outputs"`` (greedy
+tokens by request) as the JAX serve's.  ``"1x1"`` starts no world and is
+the unsharded serve exactly.  With ``--autotune`` a multi-rank mesh keys
+its regions ``..._mesh{R}x{C}`` and rank 0 decides every commit.  The
+gateway over a multi-rank mesh is ROADMAP item 10b and raises.
+
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 8
@@ -85,6 +96,10 @@ Usage::
         --num-splits 8
     PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
         --prefill-chunk 128 --autotune --workdir /tmp/at   # twice: warm
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
+        --prefill-chunk 128 --mesh 1x2     # two ranks sharing the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --cache paged --prefill-chunk 8 --mesh 1x2
 """
 from __future__ import annotations
 
@@ -92,6 +107,7 @@ import argparse
 import asyncio
 import collections
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -101,19 +117,25 @@ from .. import at
 from ..configs import get_arch
 from ..core.executor import _block
 from ..device import resolve
+from ..distributed.collectives import all_reduce
+from ..distributed.process_mesh import run_world
+from ..distributed.sharding import make_serving_mesh, parse_mesh_spec
+from ..kernels import build
 from ..kernels import paged_attention as pa
 from ..models import build_model
 from ..models.transformer import torch_dtype
 from ..serving import REDUCED_BUCKETS, Request, SamplingParams, ServingEngine
 from ..serving.gateway import GatewayServer, PipelinedEngine, sse_generate
 from ..serving.gateway.pipeline import goodput_stats
+from ..tuning.ranks import mesh_session, sync_committed
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The serve run shape as one typed object (the fields of the JAX
-    package's ``ServeConfig`` but ``mesh``, plus ``reduced`` and
-    ``device``)."""
+    package's ``ServeConfig``, plus ``reduced`` and ``device``).
+    ``mesh`` is the tensor-parallel mesh spec (``"RxC"``, data x model,
+    e.g. ``"1x2"``; None: unsharded)."""
 
     arch: str = "yi-6b"
     n_requests: int = 8
@@ -148,6 +170,7 @@ class ServeConfig:
     golden_db: str | None = None
     reduced: bool = True
     device: str = "cuda"
+    mesh: str | None = None
 
     #: argparse dest -> field, for the names that differ
     _ARG_FIELDS = {"requests": "n_requests", "lanes": "n_lanes",
@@ -305,7 +328,7 @@ def tile_ladders(model, page_size: int) -> dict[str, tuple]:
             or decode_ks[:1]}
 
 
-def make_autotuner(model, scfg: ServeConfig):
+def make_autotuner(model, scfg: ServeConfig, mesh=None):
     """The serve's ``DecodeAutoTuner`` (a ``repro_torch.at`` session in
     ``scfg.workdir``) with the JAX serve's region families over the port's
     tile ladders (:func:`tile_ladders`): ``DecodeBucket`` (block_k x
@@ -316,9 +339,15 @@ def make_autotuner(model, scfg: ServeConfig):
     ``KVPrecision`` (fp, int8 x block_k) for ``--kv-dtype auto``,
     ``PrefixPolicy`` (min match 1, 2 x lru, fifo) and ``GatewayPolicy``
     (max_inflight 1, 2 x admit_batch 2, 8).  Its ``waits`` count the
-    measured calls that waited for the device, by region."""
+    measured calls that waited for the device, by region.
+
+    Under a ``mesh`` of more than one rank the variants bind the mesh
+    (they run the engine's sharded steps; the ``KVPrecision`` bench stays
+    unsharded, as the JAX serve's), the regions are keyed ``_mesh{R}x{C}``
+    and rank 0 decides every commit (:mod:`repro_torch.tuning.ranks`)."""
     from ..tuning import DecodeAutoTuner
-    session = at.AutoTuner(scfg.workdir, record_backend=scfg.tuning_backend,
+    session = mesh_session(scfg.workdir, mesh,
+                           record_backend=scfg.tuning_backend,
                            golden_db=scfg.golden_db)
     waits = _Waits()
     tiles = tile_ladders(model, scfg.page_size)
@@ -326,21 +355,23 @@ def make_autotuner(model, scfg: ServeConfig):
         tuner = DecodeAutoTuner(
             session, lambda bk: _variant(waits, model.decode_step,
                                          "flash_decode", block_k=bk),
-            buckets=REDUCED_BUCKETS, block_ks=tiles["dense_block_k"])
+            buckets=REDUCED_BUCKETS, block_ks=tiles["dense_block_k"],
+            mesh_shape=scfg.mesh)
     else:
         splits = ((1, 2, 4) if scfg.num_splits is None
                   else (int(scfg.num_splits),))
         tuner = DecodeAutoTuner(
             session, lambda bk, ns: _variant(
-                waits, model.paged_decode_step, "flash_paged_decode",
-                block_k=bk, num_splits=ns),
+                waits, functools.partial(model.paged_decode_step, mesh=mesh),
+                "flash_paged_decode", block_k=bk, num_splits=ns),
             buckets=REDUCED_BUCKETS, block_ks=tiles["block_k"],
-            num_splits=splits)
+            num_splits=splits, mesh_shape=scfg.mesh)
         if scfg.prefill_chunk is not None:
             tuner.add_prefill(
-                lambda bq, bk: _variant(waits, model.paged_prefill_step,
-                                        "flash_paged_prefill", block_q=bq,
-                                        block_k=bk),
+                lambda bq, bk: _variant(
+                    waits, functools.partial(model.paged_prefill_step,
+                                             mesh=mesh),
+                    "flash_paged_prefill", block_q=bq, block_k=bk),
                 chunk_sizes=(scfg.prefill_chunk,), buckets=REDUCED_BUCKETS,
                 block_qs=tiles["block_q"], block_ks=tiles["prefill_block_k"])
         if scfg.draft:
@@ -357,7 +388,8 @@ def make_autotuner(model, scfg: ServeConfig):
                     logits, caches = waits(variant, model.speculative_step(
                         p, caches, table, tokens[:, :k + 1], start,
                         torch.minimum(kv_len, start + k + 1),
-                        num_splits=scfg.num_splits), measuring=measure)
+                        num_splits=scfg.num_splits, mesh=mesh),
+                        measuring=measure)
                     if not measure:
                         return logits, caches
                     dt = time.perf_counter() - t0
@@ -400,18 +432,50 @@ def make_autotuner(model, scfg: ServeConfig):
                 block_ks=tiles["kv_block_k"], buckets=REDUCED_BUCKETS)
     if scfg.gateway:
         tuner.add_gateway(max_inflights=(1, 2), admit_batches=(2, 8))
+    sync_committed(tuner, mesh)
     waits.tuner = tuner
     tuner.waits = waits
     return tuner
 
 
+def weights_checksum(params: dict) -> float:
+    """The float64 sum of every weight (the same seed must give the same
+    weights on every rank)."""
+    leaves, stack = [], [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        else:
+            leaves.append(node)
+    return float(sum(t.double().sum() for t in leaves))
+
+
+def check_same_weights(params: dict, mesh) -> None:
+    """Raise unless every rank of ``mesh``'s world holds the same weights
+    (their checksums' max and min, from one all-reduce, are equal)."""
+    c = weights_checksum(params)
+    both = all_reduce(torch.tensor([c, -c], dtype=torch.float64,
+                                   device=params["embed"].device),
+                      op=torch.distributed.ReduceOp.MAX)
+    if float(both[0]) != -float(both[1]):
+        raise RuntimeError(
+            f"the ranks' weights differ: checksums from {-float(both[1])!r} "
+            f"to {float(both[0])!r} (rank {mesh.rank}: {c!r})")
+
+
 def serve_config(scfg: ServeConfig) -> dict:
-    """Serve ``scfg.n_requests`` synthetic requests; returns the report."""
+    """Serve ``scfg.n_requests`` synthetic requests; returns the report.
+    A multi-rank ``scfg.mesh`` needs a world of its size: one call a rank
+    inside :func:`repro_torch.distributed.run_world` (as
+    :func:`serve_mesh` makes)."""
     if scfg.kv_dtype not in ("fp", "int8", "auto"):
         raise ValueError(f"unknown kv_dtype {scfg.kv_dtype!r}")
     if scfg.kv_dtype == "auto" and not (scfg.cache == "paged"
                                         and scfg.autotune):
         raise ValueError("--kv-dtype auto needs --cache paged --autotune")
+    _check_mesh_flags(scfg)
+    mesh = make_serving_mesh(scfg.mesh)
     dev = resolve(scfg.device)
     cfg = get_arch(scfg.arch)
     if scfg.reduced:
@@ -431,20 +495,55 @@ def serve_config(scfg: ServeConfig) -> dict:
                     f"{flag} needs the paged KV pool, which arch "
                     f"{cfg.name!r} does not use: it keeps {state} in dense "
                     "lanes (serve it with --cache dense)")
-    return serve_model(model, model.init(scfg.seed, dev), scfg)
+    params = model.init(scfg.seed, dev)
+    if mesh is not None and mesh.size > 1:
+        check_same_weights(params, mesh)
+    return serve_model(model, params, scfg, mesh)
 
 
-def serve_model(model, params: dict, scfg: ServeConfig) -> dict:
+def _check_mesh_flags(scfg: ServeConfig) -> None:
+    dims = parse_mesh_spec(scfg.mesh)
+    if dims is None or dims[0] * dims[1] == 1:
+        return
+    if scfg.gateway:
+        raise ValueError(
+            f"--gateway over the multi-rank mesh {scfg.mesh}: a gateway that "
+            "drives the other ranks is ROADMAP item 10b (serve --mesh "
+            "without --gateway, or the gateway unsharded)")
+    if scfg.cache != "paged":
+        raise ValueError(
+            "tensor-parallel serving shards the paged page pools; use "
+            "--cache paged with --mesh")
+
+
+def serve_mesh(scfg: ServeConfig, join_timeout_s: float = 3600.0) -> dict:
+    """Serve ``scfg`` over its mesh: a world of R x C ranks
+    (:func:`repro_torch.distributed.run_world`, every CUDA kernel built
+    here first, so the ranks only load them), one :func:`serve_config` a
+    rank; returns rank 0's report.  A 1-rank mesh serves in this process."""
+    dims = parse_mesh_spec(scfg.mesh)
+    n = 1 if dims is None else dims[0] * dims[1]
+    if n == 1:
+        return serve_config(scfg)
+    _check_mesh_flags(scfg)
+    if resolve(scfg.device).type == "cuda":
+        build.build_all()
+    return run_world(serve_config, n, device=scfg.device, args=(scfg,),
+                     join_timeout_s=join_timeout_s)[0]
+
+
+def serve_model(model, params: dict, scfg: ServeConfig, mesh=None) -> dict:
     """Serve ``scfg``'s requests with a built model and its weights: the
     run-time tuner (``scfg.autotune``) and ``--kv-dtype auto``'s
-    calibration before the engine is built, then :func:`serve_engine`."""
+    calibration before the engine is built, then :func:`serve_engine`.
+    ``mesh`` is this rank's serving mesh (:func:`make_serving_mesh`)."""
     draft_model = draft_params = None
     if scfg.draft:
         # self-speculative draft: the target's leading layers (views) with
         # the embedding and head shared
         draft_model = model.draft_model()
         draft_params = model.slice_draft_params(params, draft_model)
-    tuner = make_autotuner(model, scfg) if scfg.autotune else None
+    tuner = make_autotuner(model, scfg, mesh) if scfg.autotune else None
     kv_dtype = scfg.kv_dtype
     if kv_dtype == "auto":
         # every (precision x block_k) candidate of every bucket, then one
@@ -467,7 +566,8 @@ def serve_model(model, params: dict, scfg: ServeConfig) -> dict:
                            # split-KV applies to the paged decode and
                            # verify only, as in the JAX package's serve
                            num_splits=(scfg.num_splits
-                                       if scfg.cache == "paged" else None))
+                                       if scfg.cache == "paged" else None),
+                           mesh=mesh)
     return serve_engine(engine, scfg)
 
 
@@ -621,6 +721,8 @@ def serve_engine(engine: ServingEngine, scfg: ServeConfig) -> dict:
         "config": scfg.to_dict(),
         "device": (torch.cuda.get_device_name(engine.device)
                    if engine.device.type == "cuda" else "cpu"),
+        "mesh": scfg.mesh,
+        # rid -> greedy token ids: what the mesh-vs-unsharded checks compare
         "outputs": outputs,
         "finished": len(engine.finished), "requests": scfg.n_requests,
         "decode_steps": engine.steps,
@@ -729,7 +831,11 @@ def main(argv: list[str] | None = None) -> None:
                     help="serve the arch at its published widths")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    out = serve_config(ServeConfig.from_args(ap.parse_args(argv)))
+    ap.add_argument("--mesh", default=None,
+                    help="tensor-parallel mesh 'RxC' (data x model ranks, "
+                         "e.g. '1x2'; paged only): starts a world of R x C "
+                         "ranks; '1x1' is the unsharded serve exactly")
+    out = serve_mesh(ServeConfig.from_args(ap.parse_args(argv)))
 
     def fmt(x, spec):
         return format(x, spec) if x is not None else "n/a"
@@ -741,7 +847,8 @@ def main(argv: list[str] | None = None) -> None:
           f"p99 {fmt(out['p99_ttft_s'], '.4f')}s, "
           f"itl p50 {fmt(out['p50_itl_s'], '.4f')}s, "
           f"preemptions {out['preemptions']}, kv {out['kv_dtype']}) on "
-          f"{out['device']}")
+          f"{out['device']}" + (f", mesh {out['mesh']}" if out["mesh"]
+                                else ""))
     if out["spec"] is not None:
         print(f"[serve] speculative: {out['spec']}")
     if out["prefix_cache"] is not None:

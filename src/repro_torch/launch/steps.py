@@ -7,7 +7,7 @@ alone, without a graph; ``build_prefill_step`` and ``build_decode_step``
 are the serving entry points, run without a graph; ``step_for_shape``
 picks one of them by a ``ShapeConfig``'s kind.  ``param_shardings``
 (the gradient accumulator pinned to a sharded layout) comes with the
-multi-GPU layout (ROADMAP queue 1, item 10) and raises.
+layout tooling (ROADMAP queue 1, item 10b) and raises.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ from ..models.sharding_ctx import LayoutPlan, use_plan
 from ..optim import adamw
 
 
-#: the ROADMAP item that brings sharded layouts
+#: the ROADMAP item that brings sharded layouts (its part b: the layout
+#: tooling; part a, tensor-parallel serving, is ported)
 SHARDING_ITEM = "ROADMAP queue 1, item 10"
 
 
@@ -136,7 +137,7 @@ def step_for_shape(model: Model, shape: ShapeConfig, plan: LayoutPlan,
     if param_shardings is not None:
         raise NotImplementedError(
             "param_shardings (a sharded gradient accumulator) is not "
-            f"ported yet: {SHARDING_ITEM}")
+            f"ported yet: {SHARDING_ITEM}b, the layout tooling")
     if shape.kind == "train":
         return build_train_step(model, plan,
                                 opt_cfg or adamw.AdamWConfig(),

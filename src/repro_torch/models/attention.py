@@ -13,7 +13,11 @@ the encoder-decoder's cross attention.
   on CUDA, K5 with split-KV, K6 over int8 pools).  All write the new
   K/V into the pools in place before they read; int8 pools (``scales``
   given) get it quantized per row, codes into the pools and fp32 scales
-  beside them.
+  beside them.  With a ``mesh`` whose ``"model"`` axis has more than one
+  rank the pools are this rank's KV-head slice: the new K/V's slice is
+  written, and the attention runs head-sharded (:mod:`..kernels.ops`),
+  the output gathered whole before ``wo``; ``full`` sends a long causal
+  prompt around the ring.
 * ``cross_kv`` / ``cross_full`` / ``cross_decode`` — whisper's cross
   attention: K/V made once from the encoder states, then a non-causal
   attention of the decoder's Sq rows over the encoder's Sk keys (K1
@@ -85,14 +89,15 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: AttnConfig,
 
 def full(p: dict, x: torch.Tensor, cfg: AttnConfig,
          positions: torch.Tensor | None = None, return_cache: bool = False,
-         use_kernel: bool | None = None):
-    """Whole-sequence attention.  x: (B, S, d)."""
+         use_kernel: bool | None = None, mesh=None):
+    """Whole-sequence attention.  x: (B, S, d).  ``mesh`` routes long
+    causal prompts through the ring (``ops.attention``)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     out = ops.attention(q, k, v, causal=cfg.causal, window=cfg.window,
-                        use_kernel=use_kernel)
+                        mesh=mesh, use_kernel=use_kernel)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
     out = out @ p["wo"]
     if return_cache:
@@ -133,7 +138,7 @@ def paged_decode(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
                  v_pool: torch.Tensor, page_table: torch.Tensor,
                  pos: torch.Tensor, cfg: AttnConfig, scales=None,
                  num_splits: int | None = None,
-                 use_kernel: bool | None = None) -> torch.Tensor:
+                 use_kernel: bool | None = None, mesh=None) -> torch.Tensor:
     """One-token decode against a paged KV cache.  x: (B, 1, d); pools
     (P, Hkv, psz, Dh); ``page_table`` (B, nblk) int; ``pos`` (B,) the new
     token's absolute position; ``scales`` the (k_scale, v_scale) float32
@@ -146,18 +151,29 @@ def paged_decode(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
     lane-exclusive; idle and masked lanes all write the null page 0,
     whose content nobody reads unmasked).  Returns the output only: the
     pools passed in are the updated ones.  No sliding window: the paged
-    pool serves only archs without one (``supports_paged_cache``)."""
+    pool serves only archs without one (``supports_paged_cache``).  With
+    ``mesh`` the pools hold this rank's KV-head slice (module
+    docstring)."""
     b, one, _ = x.shape
     psz = k_pool.shape[2]
     q, k, v = _project_qkv(p, x, cfg, pos[:, None])
     phys = page_table.long().gather(1, (pos // psz)[:, None].long())[:, 0]
     slot = (pos % psz).long()
-    pools = _write_rows(k_pool, v_pool, scales, phys, slot, k[:, :, 0],
-                        v[:, :, 0])
-    out = ops.paged_decode(q, pools, page_table, pos + 1,
+    heads = _local_heads(cfg, mesh)
+    pools = _write_rows(k_pool, v_pool, scales, phys, slot,
+                        k[:, heads, 0], v[:, heads, 0])
+    out = ops.paged_decode(q, pools, page_table, pos + 1, mesh=mesh,
                            num_splits=num_splits, use_kernel=use_kernel)
     out = out.transpose(1, 2).reshape(b, one, cfg.n_heads * cfg.d_head)
     return out @ p["wo"]
+
+
+def _local_heads(cfg: AttnConfig, mesh) -> slice:
+    """This rank's slice of the KV heads: all of them unless ``mesh``'s
+    model axis shards them."""
+    if ops.mesh_model_axis(mesh) == 1:
+        return slice(None)
+    return mesh.head_slice(cfg.n_kv_heads)
 
 
 def _write_rows(k_pool: torch.Tensor, v_pool: torch.Tensor, scales,
@@ -181,7 +197,7 @@ def _write_rows(k_pool: torch.Tensor, v_pool: torch.Tensor, scales,
 def _paged_chunk_scatter(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, page_table: torch.Tensor,
                          start: torch.Tensor, kv_len: torch.Tensor,
-                         cfg: AttnConfig, scales=None):
+                         cfg: AttnConfig, scales=None, mesh=None):
     """Project a chunk's QKV at absolute positions ``start[b] + i`` and
     write its K/V into the pages in place (quantized per row for int8
     pools); returns (q, the layer's pools bundle).
@@ -200,20 +216,22 @@ def _paged_chunk_scatter(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
     phys = page_table.long().gather(1, blk)
     phys = torch.where(positions < kv_len[:, None], phys, 0)   # null sink
     slot = (positions % psz).long()
-    pools = _write_rows(k_pool, v_pool, scales, phys, slot, k.transpose(1, 2),
-                        v.transpose(1, 2))
+    heads = _local_heads(cfg, mesh)
+    pools = _write_rows(k_pool, v_pool, scales, phys, slot,
+                        k[:, heads].transpose(1, 2),
+                        v[:, heads].transpose(1, 2))
     return q, pools
 
 
 def _paged_chunk(attend, p: dict, x: torch.Tensor, k_pool: torch.Tensor,
                  v_pool: torch.Tensor, page_table: torch.Tensor,
                  start: torch.Tensor, kv_len: torch.Tensor, cfg: AttnConfig,
-                 scales) -> torch.Tensor:
+                 scales, mesh) -> torch.Tensor:
     """Scatter a chunk's K/V into the pages, attend with ``attend`` (an
     ops entry point), project out."""
     q, pools = _paged_chunk_scatter(p, x, k_pool, v_pool, page_table, start,
-                                    kv_len, cfg, scales)
-    out = attend(q, pools, page_table, start, kv_len)
+                                    kv_len, cfg, scales, mesh)
+    out = attend(q, pools, page_table, start, kv_len, mesh=mesh)
     b, c, _ = x.shape
     out = out.transpose(1, 2).reshape(b, c, cfg.n_heads * cfg.d_head)
     return out @ p["wo"]
@@ -222,7 +240,8 @@ def _paged_chunk(attend, p: dict, x: torch.Tensor, k_pool: torch.Tensor,
 def paged_prefill(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
                   v_pool: torch.Tensor, page_table: torch.Tensor,
                   start: torch.Tensor, kv_len: torch.Tensor, cfg: AttnConfig,
-                  scales=None, use_kernel: bool | None = None) -> torch.Tensor:
+                  scales=None, use_kernel: bool | None = None,
+                  mesh=None) -> torch.Tensor:
     """One prompt chunk against a paged KV cache.  x: (B, C, d), first
     token at absolute position ``start[b]``; ``kv_len`` (B,) = ``start +
     valid chunk length``; ``scales`` as in :func:`paged_decode`.  The
@@ -231,14 +250,14 @@ def paged_prefill(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
     output only."""
     return _paged_chunk(
         functools.partial(ops.paged_prefill, use_kernel=use_kernel), p, x,
-        k_pool, v_pool, page_table, start, kv_len, cfg, scales)
+        k_pool, v_pool, page_table, start, kv_len, cfg, scales, mesh)
 
 
 def paged_verify(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
                  v_pool: torch.Tensor, page_table: torch.Tensor,
                  start: torch.Tensor, kv_len: torch.Tensor, cfg: AttnConfig,
                  scales=None, num_splits: int | None = None,
-                 use_kernel: bool | None = None) -> torch.Tensor:
+                 use_kernel: bool | None = None, mesh=None) -> torch.Tensor:
     """Speculative-verify attention: one candidate chunk ``[last committed
     token, draft_1 .. draft_k]`` per sequence against a paged KV cache,
     the math of :func:`paged_prefill` through :func:`ops.paged_verify`
@@ -249,7 +268,7 @@ def paged_verify(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
     return _paged_chunk(
         functools.partial(ops.paged_verify, num_splits=num_splits,
                           use_kernel=use_kernel), p, x, k_pool, v_pool,
-        page_table, start, kv_len, cfg, scales)
+        page_table, start, kv_len, cfg, scales, mesh)
 
 
 def init_paged_pool(n_pages: int, cfg: AttnConfig, page_size: int,

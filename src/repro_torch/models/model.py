@@ -69,13 +69,14 @@ class Model:
 
     def prefill(self, params: dict, tokens: torch.Tensor,
                 max_len: int | None = None, use_kernel: bool | None = None,
-                frontend_embeds: torch.Tensor | None = None):
+                frontend_embeds: torch.Tensor | None = None, mesh=None):
         """(last-token logits, caches).  An encoder-decoder arch takes its
         encoder's input, ``frontend_embeds`` (B, Se, d); a decoder arch
         with a vision frontend (pixtral-12b) may take its patch embeddings
         (B, F, d), put in front of the prompt (the caches then hold F + S
         positions); a decoder arch without a frontend raises
-        ``ValueError`` when given any."""
+        ``ValueError`` when given any.  ``mesh`` sends a decoder's long
+        causal prompts around the ring (tensor-parallel serving)."""
         if self.cfg.is_encoder_decoder:
             if frontend_embeds is None:
                 raise ValueError(f"{self.cfg.name!r} is an encoder-decoder: "
@@ -84,7 +85,8 @@ class Model:
                                   max_len, use_kernel=use_kernel)
         return transformer.prefill(params, tokens, self.cfg, max_len,
                                    use_kernel=use_kernel,
-                                   frontend_embeds=frontend_embeds)
+                                   frontend_embeds=frontend_embeds,
+                                   mesh=mesh)
 
     def decode_step(self, params: dict, caches: dict, token: torch.Tensor,
                     pos: torch.Tensor, use_kernel: bool | None = None):
@@ -107,42 +109,49 @@ class Model:
 
     def init_paged_caches(self, n_pages: int, page_size: int,
                           device: str | torch.device = "cuda",
-                          quantized: bool = False) -> dict:
+                          quantized: bool = False,
+                          model_axis: int = 1) -> dict:
+        """Page pools; ``model_axis`` > 1 allocates one tensor-parallel
+        rank's slice of the KV heads."""
         if self.cfg.is_encoder_decoder:
             raise ValueError("paged KV cache is decoder-only")
         return transformer.init_paged_caches(self.cfg, n_pages, page_size,
-                                             resolve(device), quantized)
+                                             resolve(device), quantized,
+                                             model_axis)
 
     def paged_decode_step(self, params: dict, caches: dict,
                           page_table: torch.Tensor, token: torch.Tensor,
                           pos: torch.Tensor, use_kernel: bool | None = None,
-                          num_splits: int | None = None):
+                          num_splits: int | None = None, mesh=None):
         return transformer.paged_decode_step(params, caches, page_table,
                                              token, pos, self.cfg,
                                              use_kernel=use_kernel,
-                                             num_splits=num_splits)
+                                             num_splits=num_splits,
+                                             mesh=mesh)
 
     def paged_prefill_step(self, params: dict, caches: dict,
                            page_table: torch.Tensor, tokens: torch.Tensor,
                            start: torch.Tensor, kv_len: torch.Tensor,
                            logit_idx: torch.Tensor,
-                           use_kernel: bool | None = None):
+                           use_kernel: bool | None = None, mesh=None):
         return transformer.paged_prefill_step(params, caches, page_table,
                                               tokens, start, kv_len,
                                               logit_idx, self.cfg,
-                                              use_kernel=use_kernel)
+                                              use_kernel=use_kernel,
+                                              mesh=mesh)
 
     # -- speculative decoding (serving) ------------------------------------
     def speculative_step(self, params: dict, caches: dict,
                          page_table: torch.Tensor, tokens: torch.Tensor,
                          start: torch.Tensor, kv_len: torch.Tensor,
                          num_splits: int | None = None,
-                         use_kernel: bool | None = None):
+                         use_kernel: bool | None = None, mesh=None):
         """Verify one candidate chunk per lane; full (B, C, V) logits."""
         return transformer.speculative_step(params, caches, page_table,
                                             tokens, start, kv_len, self.cfg,
                                             num_splits=num_splits,
-                                            use_kernel=use_kernel)
+                                            use_kernel=use_kernel,
+                                            mesh=mesh)
 
     def draft_model(self, depth_frac: float = 0.5,
                     width_frac: float = 1.0) -> "Model":

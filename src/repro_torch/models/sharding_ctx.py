@@ -6,7 +6,9 @@ package's ``models/sharding_ctx.py``.
 reads the installed plan through :func:`current_plan`.  On one device
 there is nothing to shard: ``specs`` and ``layer_specs`` are kept for
 the plan's shape but unused, and :func:`constrain` is the identity.  The
-sharding rules are ROADMAP queue 1, item 10.
+sharding rules are :mod:`repro_torch.distributed.sharding`; pinning a
+layer's parameters to them (``constrain_layer_params``) is ROADMAP queue
+1, item 10b.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ class LayoutPlan:
     remat: str = "none"            # none | dots | full
     num_microbatches: int = 1
     loss_chunks: int = 8           # the cross entropy's token chunks
-    grad_compress: bool = False    # int8 gradient all-reduce (item 10)
+    grad_compress: bool = False    # int8 gradient all-reduce (item 10b)
 
     def spec(self, role: str):
         return self.specs.get(role)

@@ -477,7 +477,7 @@ def decode_step(params: dict, caches: dict, token: torch.Tensor,
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             max_len: int | None = None, use_kernel: bool | None = None,
-            frontend_embeds: torch.Tensor | None = None):
+            frontend_embeds: torch.Tensor | None = None, mesh=None):
     """Forward over the prompt; returns (last-token logits, caches).
 
     With ``frontend_embeds`` (B, F, d) the prompt is the F projected
@@ -497,7 +497,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     in its ring layout, {"shared_kv": (K, V)} each (napp, B, Hkv, W, Dh):
     collected as the block runs, not as the JAX package's zero-padded
     stack of every layer compacted by a 0/1 selector (whose values are
-    the same)."""
+    the same).  ``mesh`` routes an attention stack's long causal prompts
+    through the ring (``ops.attention``); the caches come back whole on
+    every rank."""
     check_supported(cfg)
     x = embed_tokens(params, tokens, cfg, frontend_embeds)
     kind = cfg.layer_kinds()[0]
@@ -514,7 +516,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     for i in range(cfg.n_layers):
         lp = _layer(layers, i)
         h, (k, v) = attn.full(lp["attn"], rms_norm(x, lp["norm1_w"]), acfg,
-                              return_cache=True, use_kernel=use_kernel)
+                              return_cache=True, use_kernel=use_kernel,
+                              mesh=mesh)
         ck[i, :, :, :n] = _ring(k, w)
         cv[i, :, :, :n] = _ring(v, w)
         x = x + h
@@ -575,7 +578,8 @@ def supports_paged_cache(cfg: ArchConfig) -> bool:
 
 
 def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
-                      device="cpu", quantized: bool = False) -> dict:
+                      device="cpu", quantized: bool = False,
+                      model_axis: int = 1) -> dict:
     """Layer-stacked page pools {"kv": (K, V)}, each (L, P, Hkv, psz, Dh)
     in ``cache_dtype``: O(n_pages * page_size) tokens of KV in total,
     which lanes borrow through their page tables.
@@ -583,13 +587,19 @@ def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
     ``quantized=True`` makes int8 pools and adds ``"kv_scale"``: (L, P,
     Hkv, psz) float32 per-row scales for k and v, zeros, with the page
     axis at position 1 like the pools', so page-indexed copies (admit,
-    swap) treat scales and pools alike."""
+    swap) treat scales and pools alike.  ``model_axis`` > 1: the KV heads
+    are split over a tensor-parallel axis of that size, and the pools (and
+    scales) hold one rank's ``Hkv / model_axis`` of them."""
     if not supports_paged_cache(cfg):
         raise ValueError(
             f"arch {cfg.name!r} does not support the paged KV cache "
             "(needs a plain attention stack: no SSM/SWA/shared-attn)")
     check_supported(cfg)
     acfg, lead = attn_config(cfg), (cfg.n_layers,)
+    if cfg.n_kv_heads % model_axis:
+        raise ValueError(f"kv_heads={cfg.n_kv_heads} does not divide a "
+                         f"model axis of {model_axis}")
+    acfg = acfg._replace(n_kv_heads=cfg.n_kv_heads // model_axis)
     if quantized:
         return {"kv": attn.init_paged_pool(n_pages, acfg, page_size,
                                            torch.int8, device, lead=lead),
@@ -611,10 +621,11 @@ def _layer_scales(caches: dict, i: int):
 def paged_decode_step(params: dict, caches: dict, page_table: torch.Tensor,
                       token: torch.Tensor, pos: torch.Tensor,
                       cfg: ArchConfig, use_kernel: bool | None = None,
-                      num_splits: int | None = None):
+                      num_splits: int | None = None, mesh=None):
     """One decode step over the page pools.  token (B, 1) int, pos (B,)
     int, page_table (B, nblk) int32 shared by every layer; ``num_splits``
-    the split-KV degree of every layer's attention (None or 1: one pass).
+    the split-KV degree of every layer's attention (None or 1: one pass);
+    ``mesh`` runs it head-sharded over pools of this rank's KV-head slice.
     Returns (logits (B, V), caches); the pools are updated in place."""
     check_supported(cfg)
     x = embed_tokens(params, token, cfg)
@@ -627,7 +638,7 @@ def paged_decode_step(params: dict, caches: dict, page_table: torch.Tensor,
                                   kp[i], vp[i], page_table, pos, acfg,
                                   _layer_scales(caches, i),
                                   num_splits=num_splits,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, mesh=mesh)
         x = x + _ffn(lp, rms_norm(x, lp["norm2_w"]), cfg, kind)[0]
     return _logits(params, x[:, 0], cfg), caches
 
@@ -656,18 +667,21 @@ def _paged_chunk_layers(params: dict, caches: dict, page_table: torch.Tensor,
 def paged_prefill_step(params: dict, caches: dict, page_table: torch.Tensor,
                        tokens: torch.Tensor, start: torch.Tensor,
                        kv_len: torch.Tensor, logit_idx: torch.Tensor,
-                       cfg: ArchConfig, use_kernel: bool | None = None):
+                       cfg: ArchConfig, use_kernel: bool | None = None,
+                       mesh=None):
     """One prompt chunk of prefill over the page pools.
 
     tokens (B, C) int, a fixed-size chunk whose ragged tail is padding
     (masked by ``kv_len``, its K/V sunk into the null page); start (B,)
     the absolute position of the chunk's first token; kv_len (B,) =
     start + valid chunk length; ``logit_idx`` (B,) the chunk row whose
-    logits come back (the last valid prompt token on the final chunk).
-    Returns (logits (B, V), caches); the pools are updated in place."""
+    logits come back (the last valid prompt token on the final chunk);
+    ``mesh`` as in :func:`paged_decode_step`.  Returns (logits (B, V),
+    caches); the pools are updated in place."""
     x = _paged_chunk_layers(
         params, caches, page_table, tokens, start, kv_len, cfg,
-        functools.partial(attn.paged_prefill, use_kernel=use_kernel))
+        functools.partial(attn.paged_prefill, use_kernel=use_kernel,
+                          mesh=mesh))
     rows = torch.arange(x.shape[0], device=x.device)
     return _logits(params, x[rows, logit_idx.long()], cfg), caches
 
@@ -676,7 +690,7 @@ def speculative_step(params: dict, caches: dict, page_table: torch.Tensor,
                      tokens: torch.Tensor, start: torch.Tensor,
                      kv_len: torch.Tensor, cfg: ArchConfig,
                      num_splits: int | None = None,
-                     use_kernel: bool | None = None):
+                     use_kernel: bool | None = None, mesh=None):
     """Speculative verify: score every position of one candidate chunk
     per lane in one call.
 
@@ -684,14 +698,15 @@ def speculative_step(params: dict, caches: dict, page_table: torch.Tensor,
     absolute positions ``start .. start + C - 1`` (rows at positions
     ``>= kv_len`` are padding, their K/V sunk into the null page); start
     and kv_len (B,); ``num_splits`` the split-KV degree of every layer's
-    verify attention.  The math of :func:`paged_prefill_step`, but the
+    verify attention; ``mesh`` as in :func:`paged_decode_step`.  The math
+    of :func:`paged_prefill_step`, but the
     full logits come back: the accept rule needs the target's
     distribution at every drafted position.  Returns (logits (B, C, V)
     float32, caches); the pools are updated in place."""
     x = _paged_chunk_layers(
         params, caches, page_table, tokens, start, kv_len, cfg,
         functools.partial(attn.paged_verify, num_splits=num_splits,
-                          use_kernel=use_kernel))
+                          use_kernel=use_kernel, mesh=mesh))
     return _logits(params, x, cfg), caches
 
 

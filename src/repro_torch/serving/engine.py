@@ -58,8 +58,21 @@ positions, no device read), each prefill chunk through its
 (measuring only until the bucket commits, drafting no further than the
 committed window) and each prefix-cache admission through
 ``PrefixPolicy``; from ``dispatch`` and ``emit`` too, so the gateway's
-loop routes the same way.  Meshes belong to a later slice (ROADMAP queue
-1, item 10) and raise here.
+loop routes the same way.
+
+Tensor-parallel serving (``mesh``, a
+:class:`~repro_torch.distributed.Mesh` whose ``"model"`` axis has m > 1
+ranks; paged only) runs the engine SPMD, one engine a rank: every rank
+holds the weights whole, its ``Hkv / m`` slice of the page pools, and
+runs the paged decode, prefill chunk and verify steps head-sharded (the
+kernels on its heads, the outputs all-gathered before ``wo``), and a
+long causal monolithic prefill around the ring; the draft runs
+replicated, as in the JAX engine.  Every host decision is taken once:
+rank 0's sampled tokens (admission, decode, the draft's proposals and
+the accept rule's result) are broadcast to every rank, and so are its
+run-time AT commits (:mod:`repro_torch.tuning.ranks`), so the ranks stay
+in step and their collectives meet.  A 1-rank model axis (``"1x1"``)
+takes the unsharded path exactly.
 """
 from __future__ import annotations
 
@@ -70,6 +83,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..distributed.collectives import broadcast_object
+from ..kernels.ops import mesh_model_axis
 from . import sampling
 from .buckets import LENGTH_BUCKETS
 from .kvcache import DenseKVCache, make_kv_cache
@@ -119,10 +134,6 @@ class ServingEngine:
                  prefix_min_match: int = 1, prefix_eviction: str = "lru",
                  kv_dtype: str = "fp", swap_compress: bool = False,
                  num_splits: int | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: tensor-parallel serving (ROADMAP queue 1, item 10) "
-                "is not ported yet")
         if model.cfg.is_encoder_decoder:
             raise ValueError(
                 f"{model.cfg.name!r} is an encoder-decoder: its prefill "
@@ -136,13 +147,18 @@ class ServingEngine:
         self.n_lanes = n_lanes
         self.max_len = max_len
         self.eos_id = eos_id
+        # tensor-parallel serving: a mesh with a multi-rank "model" axis
+        # shards the page pools' KV heads and runs the paged steps
+        # head-sharded; a 1-rank mesh (or None) takes the unsharded paths
+        self.mesh = mesh if mesh_model_axis(mesh) > 1 else None
         self.kv = make_kv_cache(model, cache, n_lanes, max_len, self.device,
                                 n_pages=n_pages, page_size=page_size,
                                 kv_dtype=kv_dtype,
                                 swap_compress=swap_compress,
                                 prefix_cache=prefix_cache,
                                 prefix_min_match=prefix_min_match,
-                                prefix_eviction=prefix_eviction)
+                                prefix_eviction=prefix_eviction,
+                                mesh=self.mesh)
         if num_splits is not None and self.kv.kind != "paged":
             raise ValueError(
                 "num_splits splits the paged decode's page walk; use "
@@ -159,7 +175,8 @@ class ServingEngine:
                 "chunked prefill; pass prefill_chunk")
         self.prefill_chunk = prefill_chunk
         self._decode = (
-            functools.partial(model.paged_decode_step, num_splits=num_splits)
+            functools.partial(model.paged_decode_step, num_splits=num_splits,
+                              mesh=self.mesh)
             if self.kv.kind == "paged" else model.decode_step)
         # -- speculative decoding ------------------------------------------
         self.spec_k = spec_k
@@ -185,10 +202,13 @@ class ServingEngine:
                                          self.device)
             self.draft_pos = [0] * n_lanes   # tokens in the draft's cache
             self._verify = functools.partial(model.speculative_step,
-                                             num_splits=num_splits)
+                                             num_splits=num_splits,
+                                             mesh=self.mesh)
         # run-time AT: a tuning.dynamic.DecodeAutoTuner whose regions take
         # the decode steps, prefill chunks, verifies and prefix admissions
-        # they declare; None keeps the plain paths
+        # they declare (under a mesh, its variants bind the mesh and its
+        # session decides on rank 0: tuning.ranks); None keeps the plain
+        # paths
         self.autotuner = autotuner
         self.scheduler = Scheduler(n_lanes, timeslice=timeslice)
         self.metrics = ServingMetrics()
@@ -263,11 +283,18 @@ class ServingEngine:
         """``eos_id=0`` is a valid stop token; ``None`` disables EOS."""
         return self.eos_id is not None and tok == self.eos_id
 
+    def _decide(self, value):
+        """Rank 0's ``value`` on every rank of the mesh's world (``value``
+        itself without a sharded mesh): every host decision goes through
+        here, so the ranks take the same path and meet in every
+        collective."""
+        return value if self.mesh is None else broadcast_object(value)
+
     def _next_token(self, req: Request, logits: torch.Tensor) -> int:
         """The request's next token from one logits row, keyed by its
         emission index (greedy = exact argmax)."""
-        return sampling.sample_token(logits.cpu().numpy(), req.sampling,
-                                     len(req.out_tokens))
+        return self._decide(sampling.sample_token(
+            logits.cpu().numpy(), req.sampling, len(req.out_tokens)))
 
     def _reset_draft(self, lane_id: int) -> None:
         """Invalidate the draft's cache for a (re)occupied lane; the next
@@ -347,7 +374,8 @@ class ServingEngine:
             tokens = torch.tensor([req.prompt], dtype=torch.long,
                                   device=self.device)
             logits, cache1 = self.model.prefill(
-                self.params, tokens, self.kv.prefill_len(len(req.prompt)))
+                self.params, tokens, self.kv.prefill_len(len(req.prompt)),
+                mesh=self.mesh)
             if not self.kv.admit(lane_id, cache1, len(req.prompt)):
                 self.scheduler.push_back(kind, req)
                 return
@@ -403,7 +431,8 @@ class ServingEngine:
             if self._tuned("prefill_regions"):
                 logits, _ = self.autotuner.prefill(plen, c, *args)
             else:
-                logits, _ = self.model.paged_prefill_step(*args)
+                logits, _ = self.model.paged_prefill_step(*args,
+                                                          mesh=self.mesh)
             self.prefill_chunks += 1
             lane.pos = end
             self.kv.publish_prefix(lane_id, req.prompt, end)
@@ -505,7 +534,7 @@ class ServingEngine:
                 self.draft_pos[i] = len(all_toks)
                 tok, q = sampling.propose_token(logits_d[0].cpu().numpy(),
                                                 sps[i], rngs[i])
-                drafts[i].append(tok)
+                drafts[i].append(self._decide(tok))
                 dprobs[i].append(q)
                 pending[i] = []
             else:
@@ -531,14 +560,18 @@ class ServingEngine:
                 torch.from_numpy(token).to(self.device),
                 torch.from_numpy(pos).to(self.device))
             logits_np = logits_d.cpu().numpy()
+            proposed = {}
             for i in feed:
                 self.draft_pos[i] += 1
                 if pending[i]:
                     pending[i].pop(0)
                     if pending[i]:
                         continue           # still catching up
-                tok, q = sampling.propose_token(logits_np[i], sps[i], rngs[i])
-                drafts[i].append(tok)
+                proposed[i] = sampling.propose_token(logits_np[i], sps[i],
+                                                     rngs[i])
+            toks = self._decide({i: tok for i, (tok, _) in proposed.items()})
+            for i, (_, q) in proposed.items():
+                drafts[i].append(toks[i])
                 dprobs[i].append(q)
         return drafts, dprobs
 
@@ -581,16 +614,18 @@ class ServingEngine:
         # a tuned variant may verify a narrower chunk (its window k): the
         # drafts past it are rejected, their K/V never written
         window_max = logits_np.shape[1] - 1
+        reqs = {i: self.active[self.scheduler.lanes[i].rid] for i in decoding}
+        windows = {i: min(len(drafts[i]), window_max) for i in decoding}
+        accepted = self._decide({i: sampling.speculative_accept(
+            drafts[i][:w], dprobs[i][:w], logits_np[i, :w + 1],
+            reqs[i].sampling, len(reqs[i].out_tokens))
+            for i, w in windows.items()})
         now = time.monotonic()
         self.steps += 1
         self.spec_ticks += 1
         for i in decoding:
-            lane = self.scheduler.lanes[i]
-            req = self.active[lane.rid]
-            w = min(len(drafts[i]), window_max)
-            emitted, n_acc = sampling.speculative_accept(
-                drafts[i][:w], dprobs[i][:w], logits_np[i, :w + 1],
-                req.sampling, len(req.out_tokens))
+            lane, req, w = self.scheduler.lanes[i], reqs[i], windows[i]
+            emitted, n_acc = accepted[i]
             self.drafted_tokens += w
             self.accepted_tokens += n_acc
             committed = lane.pos + n_acc + 1
@@ -686,9 +721,9 @@ class ServingEngine:
         if work is None:
             return
         logits_np = work.logits.cpu().numpy()
-        toks = sampling.sample_batch(
+        toks = self._decide(sampling.sample_batch(
             logits_np[work.decoding], [r.sampling for r in work.reqs],
-            [len(r.out_tokens) for r in work.reqs])
+            [len(r.out_tokens) for r in work.reqs]))
         now = time.monotonic()
         self.steps += 1
         for i, req, tok in zip(work.decoding, work.reqs, toks):

@@ -36,6 +36,15 @@ reclaimed by the allocator under pressure, LRU by last hit or FIFO by
 publish order) and free.  Every release of a page goes through
 ``_unref``, so a shared page is never freed under another lane.
 
+Tensor-parallel serving (``mesh`` with a ``"model"`` axis of m > 1
+ranks) shards the paged pool's KV-head axis: each rank allocates only its
+contiguous ``Hkv / m`` slice of every pool and of an int8 pool's scales
+(head axis 2 of (L, P, Hkv, psz[, D])), so its pool bytes drop by m, and
+admission copies that slice of the prefill caches.  The page tables, the
+allocator, the prefix index and the refcounts are host state, the same on
+every rank; swaps and copy-on-write act on the local slice.  The dense
+lanes do not shard (as in the JAX package).
+
 Both backends are written in place: admission copies into the caches,
 the model's steps append to them, and a copy-on-write copies one page of
 every pool leaf in place.  Swap handles are host numpy copies: float32
@@ -72,6 +81,7 @@ import torch
 
 from ..distributed.compression import (dequantize_int8, quantize_int8,
                                        quantize_int8_rows)
+from ..kernels.ops import mesh_model_axis
 
 NULL_PAGE = 0
 
@@ -262,7 +272,7 @@ class PagedKVCache:
                  page_size: int, device: str | torch.device,
                  kv_dtype: str = "fp", swap_compress: bool = False,
                  prefix_cache: bool = False, prefix_min_match: int = 1,
-                 prefix_eviction: str = "lru"):
+                 prefix_eviction: str = "lru", mesh=None):
         if not model.supports_paged_cache:
             raise ValueError(
                 f"arch {model.cfg.name!r} does not support the paged KV "
@@ -272,6 +282,18 @@ class PagedKVCache:
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
                              f"(choose from {KV_DTYPES})")
+        model_axis = mesh_model_axis(mesh)
+        self.heads = slice(None)          # this rank's KV heads
+        if model_axis > 1:
+            hkv, h = model.cfg.n_kv_heads, model.cfg.n_heads
+            if hkv % model_axis or h % model_axis:
+                raise ValueError(
+                    f"tensor-parallel paged serving shards the KV-head "
+                    f"axis: arch {model.cfg.name!r} has kv_heads={hkv} "
+                    f"(q heads {h}), not divisible by the mesh's 'model' "
+                    f"axis of size {model_axis} — choose a mesh whose "
+                    f"model axis divides the head counts, or drop --mesh")
+            self.heads = mesh.head_slice(hkv)
         self.n_lanes = n_lanes
         self.max_len = max_len
         self.page_size = page_size
@@ -284,7 +306,8 @@ class PagedKVCache:
         self.max_blocks = math.ceil(max_len / page_size)
         self.caches = model.init_paged_caches(n_pages, page_size,
                                               device=device,
-                                              quantized=self.quantized)
+                                              quantized=self.quantized,
+                                              model_axis=model_axis)
         self.device = self.caches["kv"][0].device
         self.table = np.zeros((n_lanes, self.max_blocks), np.int32)
         self.n_blocks = [0] * n_lanes
@@ -402,7 +425,8 @@ class PagedKVCache:
     def admit(self, lane: int, prefill_caches: dict, prompt_len: int) -> bool:
         """Allocate the prompt's pages and copy batch entry 0 of the
         (L, 1, Hkv, nblk * psz, Dh) prefill caches into them (quantized
-        per row, codes and scales, into int8 pools)."""
+        per row, codes and scales, into int8 pools); under a mesh, this
+        rank's slice of the heads."""
         nblk = math.ceil(prompt_len / self.page_size)
         pages = self._alloc(nblk)
         if pages is None:
@@ -411,6 +435,7 @@ class PagedKVCache:
         scales = self.caches.get("kv_scale", (None, None))
         for pool, scale, dense in zip(self.caches["kv"], scales,
                                       prefill_caches["kv"]):
+            dense = dense[:, :, self.heads]
             l, _, hkv, _, d = dense.shape
             rows = dense[:, 0, :, :nblk * self.page_size].reshape(
                 l, hkv, nblk, self.page_size, d).transpose(1, 2)
@@ -686,9 +711,10 @@ def make_kv_cache(model, cache: str, n_lanes: int, max_len: int,
                   device: str | torch.device, n_pages: int | None = None,
                   page_size: int = 16, kv_dtype: str = "fp",
                   swap_compress: bool = False, prefix_cache: bool = False,
-                  prefix_min_match: int = 1,
-                  prefix_eviction: str = "lru") -> DenseKVCache | PagedKVCache:
-    """Build a KV-cache backend by name (``dense`` | ``paged``)."""
+                  prefix_min_match: int = 1, prefix_eviction: str = "lru",
+                  mesh=None) -> DenseKVCache | PagedKVCache:
+    """Build a KV-cache backend by name (``dense`` | ``paged``); ``mesh``
+    shards the paged pool's KV heads (the dense lanes refuse one)."""
     if cache == "dense":
         if prefix_cache:
             raise ValueError("prefix caching shares pages of the paged "
@@ -696,6 +722,10 @@ def make_kv_cache(model, cache: str, n_lanes: int, max_len: int,
         if kv_dtype != "fp":
             raise ValueError("quantized KV storage is a paged-pool feature; "
                              "use cache='paged'")
+        if mesh_model_axis(mesh) > 1:
+            raise ValueError(
+                "tensor-parallel serving shards the paged page pools; "
+                "use cache='paged' with --mesh")
         return DenseKVCache(model, n_lanes, max_len, device,
                             swap_compress=swap_compress)
     if cache == "paged":
@@ -707,5 +737,5 @@ def make_kv_cache(model, cache: str, n_lanes: int, max_len: int,
                             swap_compress=swap_compress,
                             prefix_cache=prefix_cache,
                             prefix_min_match=prefix_min_match,
-                            prefix_eviction=prefix_eviction)
+                            prefix_eviction=prefix_eviction, mesh=mesh)
     raise ValueError(f"unknown cache backend {cache!r} (dense | paged)")

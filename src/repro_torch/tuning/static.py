@@ -9,7 +9,7 @@ and a per-plan collective model, at one card's rates: the row of
 ``core.cost.CHIPS`` named by ``chip`` (``torch.cuda.get_device_name()``),
 the default row (the H100 SXM) when it is None.  The measured path, a
 dry-run compile of each candidate (``compiled_plan_cost``), is ROADMAP
-queue 1, item 10.
+queue 1, item 10b.
 
 Results are recorded per BP tuple in ``OAT_StaticParam.dat`` exactly like
 the paper's ``(OAT_PROBSIZE 1024 (MyMatMul_I 4) ...)`` records, with the
@@ -28,7 +28,7 @@ from ..launch.analytic import step_costs
 TRAIN_PLANS = ("tp", "fsdp")
 DECODE_PLANS = ("tp", "decode_seq", "decode_resident")
 #: the ROADMAP item that brings the measured path
-DRYRUN_ITEM = "ROADMAP queue 1, item 10"
+DRYRUN_ITEM = "ROADMAP queue 1, item 10b"
 
 
 def candidate_plans(kind: str) -> tuple[str, ...]:
