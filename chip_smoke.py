@@ -377,7 +377,26 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    tokens/s, TTFT and ITL against the unsharded serve, launches per rank,
    pool bytes, the bytes staged through the host and the host ms in the
    collectives, peak memory a rank.  Two ranks share one card: no time
-   here is a multi-card speed.
+   here is a multi-card speed;
+38. the layout tooling: (a) phase 26a's gateway serve through ``serve
+   --gateway --mesh 1x2`` (two ranks on the one card over gloo; rank 0's
+   gateway broadcasts each tick's admissions, rank 1 follows): greedy
+   tokens equal to rank 0's unsharded gateway serve in the phase, each
+   rank's K4 and K3 launches equal to it and to each other, tokens/s,
+   TTFT, ITL and the loop's host ms a tick beside the unsharded
+   gateway's; (b) the same with ``--autotune`` (``GatewayPolicy`` windows
+   of one request), twice in one workdir: the warm run measures nothing
+   and both ranks hold rank 0's winners, its greedy tokens at least 90%
+   equal to the unsharded serve's; (c)
+   ``dryrun_cell`` (fake tensors over fake worlds of 256 and 512 ranks,
+   on the host's CPU) for yi-6b decode_32k (all 32 layers; its per-rank
+   FLOPs within 10% of ``step_costs``' share) and train_4k
+   (depth cut to 2 layers) on 16x16 and 2x16x16 at full width: per-rank
+   dot FLOPs against ``step_costs``' over the ranks, bytes a rank,
+   collective bytes by kind, seconds a cell; (d) ``tune_layout`` for
+   yi-6b train_4k with ``compiled_plan_cost`` (at 2 layers), beside the
+   analytic winner, read back warm.  (c) and (d) need no device: they
+   run in a process of their own, started before phase 37.
 
 Then the script's run time by group of phases, one JSON line with every
 kernel's numbers,
@@ -400,6 +419,7 @@ import gc
 import importlib.util
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -450,7 +470,7 @@ from repro_torch.core.fitting import fit_dspline  # noqa: E402
 from repro_torch.tuning import (register_kernel_regions,  # noqa: E402
                                 run_install_tuning)
 from repro_torch.tuning.install import CHUNK_VALUES  # noqa: E402
-from repro_torch.configs import ShapeConfig, all_cells  # noqa: E402
+from repro_torch.configs import ShapeConfig, all_cells, get_shape  # noqa: E402
 from repro_torch.core import cost  # noqa: E402
 from repro_torch.launch.analytic import model_flops, step_costs  # noqa: E402
 from repro_torch.launch.steps import step_for_shape  # noqa: E402
@@ -6105,6 +6125,331 @@ def phase_mesh(smi: str) -> None:
           f"{time.perf_counter() - t0:.1f}s")
 
 
+# --------------------------------------------------------------------------
+# phase 38: the layout tooling: the gateway over a 1x2 mesh, the dry run
+# over a fake world of 256 and 512 ranks, static AT by the dry run's bound
+# --------------------------------------------------------------------------
+
+#: phase 26a's gateway serve: the paged pool, chunks of 128, max_inflight 2
+GATEWAY_26A = dict(cache="paged", page_size=16, prefill_chunk=128,
+                   gateway=True)
+#: (38c) the dry run's cells: (shape, multi_pod, layers of yi-6b's 32; None:
+#: all of them)
+DRY_CELLS = (("decode_32k", False, None), ("train_4k", False, 2),
+             ("train_4k", True, 2))
+DRY_LAYERS = 2                      # (38d) the depth the plans are run at
+
+
+def gateway_serve_counts(model, params, scfg: ServeConfig, mesh) -> dict:
+    """One serve of ``scfg`` (through its gateway) on this rank, every
+    launch counter zeroed just before and read just after."""
+    for kernel in KERNELS:
+        kernel.launches = 0
+    report = serve_mod.serve_model(model, params, scfg, mesh)
+    torch.cuda.synchronize()
+    return {"report": report, "launches": {k.__name__: k.launches
+                                           for k in KERNELS if k.launches}}
+
+
+def gateway_rank(workdir: str) -> dict:
+    """One rank of phase 38's 1x2 world (both ranks on the one card over
+    gloo): (a) rank 0 serves phase 26a's gateway unsharded (rank 1
+    waiting), then rank 0's gateway serves it over the mesh with rank 1
+    following; (b) the same with ``--autotune`` in ``workdir``, twice."""
+    mesh = make_serving_mesh(MESH)
+    model = build_model(get_arch("yi-6b"))
+    params = model.init(0, "cuda")
+    serve_mod.check_same_weights(params, mesh)
+    base = ServeConfig(**{**SERVE, **GATEWAY_26A})
+    out = {"rank": mesh.rank}
+    if mesh.rank == 0:
+        out["ref"] = gateway_serve_counts(model, params, base, None)
+    dist.barrier()
+    out["a"] = gateway_serve_counts(
+        model, params, dataclasses.replace(base, mesh=MESH), mesh)
+    for run in ("cold", "warm"):
+        # GatewayPolicy windows of one request, as phase 27c: its four
+        # candidates commit within the 8 requests
+        out[run] = gateway_serve_counts(model, params, dataclasses.replace(
+            base, mesh=MESH, autotune=True, workdir=workdir,
+            policy_window=1), mesh)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def mesh_gateway_line(label: str, report: dict) -> str:
+    """Throughput, TTFT, ITL and the gateway loop's host ms a tick."""
+    def ms(x):
+        return f"{x * 1e3:.1f}" if x is not None else "n/a"
+
+    g = report["gateway"]
+    per_tick = {k: v / max(g["ticks"], 1) for k, v in g["host_ms"].items()}
+    return (f"{label} {report['tokens_per_s']:.1f} tok/s, ttft p50 "
+            f"{ms(report['p50_ttft_s'])} p99 {ms(report['p99_ttft_s'])} ms, "
+            f"itl p50 {ms(report['p50_itl_s'])} p99 "
+            f"{ms(report['p99_itl_s'])} ms, {g['ticks']} ticks "
+            f"({g['overlapped_ticks']} overlapped), host ms a tick: "
+            f"schedule+dispatch {per_tick['schedule_dispatch']:.2f}, wait "
+            f"{per_tick['wait']:.2f}, emit {per_tick['emit']:.2f}")
+
+
+def gateway_mesh_checks(label: str, lead: dict, follow: dict,
+                        ref: dict | None, tuned: bool = False) -> None:
+    """Both ranks finished the same requests with the same tokens, every
+    stream ended in ``done``, each rank launched K4 and K3 (``tuned``: K4
+    and the decode tiles' kernels, K3 or K5a with K5c merged, as the
+    ``DecodeBucket`` regions' split counts pick) and no other, the same
+    counts on both (and, against ``ref``, the unsharded serve's counts
+    and tokens)."""
+    what = f"38{label}"
+    rep = lead["report"]
+    check(rep["gateway"]["streams"] == {"done": SERVE["n_requests"]},
+          f"{what}: the streams ended {rep['gateway']['streams']}")
+    check(all(len(t) == SERVE["max_new"] for t in rep["outputs"].values()),
+          f"{what}: a request did not get its 32 tokens")
+    check(follow["report"]["gateway"]["by_rid"] == rep["gateway"]["by_rid"],
+          f"{what}: the ranks' tokens differ")
+    kernels = (pa.flash_paged_prefill, pa.flash_paged_decode)
+    allowed = kernels + ((pa.paged_decode_split_merged,) if tuned else ())
+    for r in (lead, follow):
+        only_launched(r["launches"], allowed, f"{what}, a rank")
+        check(r["launches"].get(kernels[0].__name__, 0) > 0
+              and any(r["launches"].get(k.__name__, 0) > 0
+                      for k in allowed[1:]),
+              f"{what}: K4 or the decode kernel not launched: "
+              f"{r['launches']}")
+    check(lead["launches"] == follow["launches"],
+          f"{what}: launches differ by rank: {lead['launches']} against "
+          f"{follow['launches']}")
+    if ref is not None:
+        check(rep["outputs"] == ref["report"]["outputs"],
+              f"{what}: greedy tokens differ from the unsharded gateway's "
+              f"{greedy_agreement(rep, ref['report'])}")
+        check(lead["launches"] == ref["launches"],
+              f"{what}: launches a rank {lead['launches']} against the "
+              f"unsharded serve's {ref['launches']}")
+
+
+@contextlib.contextmanager
+def dry_depth(layers: int | None):
+    """The dry run, the roofline and static AT read yi-6b cut to
+    ``layers`` of its 32 layers (None: whole); the widths stay."""
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.tuning import static
+
+    def cut(name: str):
+        cfg = get_arch(name)
+        return cfg if layers is None else dataclasses.replace(
+            cfg, n_layers=layers)
+
+    mods = (dryrun, roofline, static)
+    saved = [m.get_arch for m in mods]
+    for m in mods:
+        m.get_arch = cut
+    try:
+        yield cut
+    finally:
+        for m, f in zip(mods, saved):
+            m.get_arch = f
+
+
+def dry_run_cells() -> tuple[list[str], dict]:
+    """(c): ``dryrun_cell`` on the fake 16x16 and 2x16x16 worlds at yi-6b's
+    full width: each record's per-rank dot FLOPs against ``step_costs``'
+    over the ranks, argument and peak bytes a rank, collective bytes by
+    kind and the cell's seconds.  Returns the lines and the 16x16
+    train_4k cell's bound by plan."""
+    from repro_torch.distributed.process_mesh import world_size
+    from repro_torch.launch.dryrun import dryrun_cell
+    from repro_torch.launch.roofline import from_artifact
+    lines, bounds = [], {}
+    for shape, multi, layers in DRY_CELLS:
+        with dry_depth(layers) as cut:
+            t0 = time.perf_counter()
+            rec = dryrun_cell("yi-6b", shape, multi_pod=multi, verbose=False)
+            secs = time.perf_counter() - t0
+            ana = step_costs(cut("yi-6b"), get_shape(shape)).flops
+            bound = from_artifact(rec)
+        check(world_size() == 1, "38c: the fake world outlived its cell")
+        check(rec["mesh"] == ("2x16x16" if multi else "16x16")
+              and rec["chips"] == (512 if multi else 256),
+              f"38c: mesh {rec['mesh']}")
+        flops = rec["hlo_dot_flops"]
+        check(flops > 0 and rec["memory"]["argument_bytes"] > 0
+              and math.isfinite(bound.bound_s),
+              f"38c: {shape} record {rec['memory']}, {flops}")
+        # the decode step runs on the plan's shards: a rank's share of
+        # step_costs' FLOPs (0.9931 in the CPU rehearsal)
+        check(rec["kind"] != "decode"
+              or 0.9 <= flops * rec["chips"] / ana <= 1.1,
+              f"38c: decode FLOPs a rank x{flops * rec['chips'] / ana:.3f} "
+              f"of step_costs' share")
+        coll = {k: f"{v:.4g}" for k, v in
+                rec["hlo_collective_bytes"].items() if v}
+        lines.append(
+            f"yi-6b {shape} on {rec['mesh']} ({rec['plan']}, remat "
+            f"{rec['remat']}, {rec['num_microbatches']} microbatches"
+            + (f"; depth cut to {layers} of 32 layers" if layers else
+               "; all 32 layers") + f"): dot FLOPs a rank {flops:.4g} "
+            f"against step_costs' {ana / rec['chips']:.4g} over the ranks "
+            f"(x{flops * rec['chips'] / ana:.3f}); bytes a rank: arguments "
+            f"{rec['memory']['argument_bytes']:.4g}, made at the peak "
+            f"{rec['memory']['temp_bytes']:.4g}, in all "
+            f"{rec['bytes_per_device']:.4g}; collective bytes a rank {coll}; "
+            f"roofline bound {bound.bound_s:.4g} s ({bound.dominant}); "
+            f"{secs:.1f} s on the host's CPU")
+        if (shape, multi, layers) == ("train_4k", False, DRY_LAYERS):
+            bounds[rec["plan"]] = bound.bound_s
+    return lines, bounds
+
+
+def layout_by_dry_run(card: str, known: dict) -> str:
+    """(d): ``tune_layout`` for yi-6b train_4k with ``cost_fn`` the dry
+    run's bound (``compiled_plan_cost``; a plan in ``known``, (c)'s 16x16
+    cell, is not run again: its bound is what ``compiled_plan_cost``
+    returns for it), beside the analytic winner at the same depth; a
+    second session reads the winner back warm (the costs already known,
+    no dry run)."""
+    from repro_torch.tuning import static
+    with dry_depth(DRY_LAYERS), tempfile.TemporaryDirectory() as workdir:
+        known, runs = dict(known), []
+
+        def cost_fn(plan: str) -> float:
+            if plan not in known:
+                runs.append(plan)
+                known[plan] = static.compiled_plan_cost("yi-6b", "train_4k",
+                                                        plan)
+            return known[plan]
+
+        t0 = time.perf_counter()
+        won = static.tune_layout(at.AutoTuner(workdir), "yi-6b", "train_4k",
+                                 cost_fn=cost_fn)
+        secs = time.perf_counter() - t0
+        check(won == min(known, key=known.get),
+              f"38d: tuned {won!r}, the argmin of {known}")
+        again = at.AutoTuner(workdir)
+        check(static.tune_layout(again, "yi-6b", "train_4k",
+                                 cost_fn=cost_fn) == won,
+              "38d: a second session read another winner")
+        check(("static", region_of("yi-6b", "train_4k")) in again.warm_hits
+              and set(known) == set(candidate_plans("train")),
+              f"38d: not read back warm: {again.warm_hits}, runs {runs}")
+        analytic = {p: analytic_plan_cost("yi-6b", "train_4k", p, chip=card)
+                    for p in candidate_plans("train")}
+    return (f"tune_layout(yi-6b, train_4k, cost_fn=compiled_plan_cost) at "
+            f"{DRY_LAYERS} of 32 layers, 16x16: dry-run bounds "
+            + ", ".join(f"{p} {c:.6g} s" for p, c in known.items())
+            + f" -> {won!r} ({len(runs)} dry runs here, {runs}; the "
+            f"other from (c); {secs:.1f} s), read back "
+            f"warm with no dry run; the analytic costs at the same depth "
+            + ", ".join(f"{p} {c:.6g} s" for p, c in analytic.items())
+            + f" -> {min(analytic, key=analytic.get)!r} (phase 36, all 32 "
+            f"layers: 'tp')")
+
+
+DRY_CHILD = r'''
+import json, sys, time
+import chip_smoke as cs
+t0 = time.perf_counter()
+lines, bounds = cs.dry_run_cells()
+line_d = cs.layout_by_dry_run(sys.argv[1], bounds)
+print("DRY" + json.dumps({"c": lines, "d": line_d,
+                          "s": time.perf_counter() - t0}))
+'''
+
+
+def start_dry_runs():
+    """Phase 38 (c) and (d) in a process of their own, started before
+    phase 37: fake tensors on the host's CPU need no device, so they run
+    beside the card's phases 37 and 38a-b.  Returns (the process, its
+    stdout and stderr files)."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRY_CHILD, torch.cuda.get_device_name(0)],
+        cwd=str(Path(__file__).resolve().parent), stdout=out, stderr=err,
+        text=True)
+    return proc, out, err
+
+
+def phase_layout(smi: str, dry) -> None:
+    """Phase 38: (a) phase 26a's gateway serve (yi-6b full, paged, chunks
+    of 128, max_inflight 2) through ``serve --gateway --mesh 1x2``: two
+    ranks on the one card over gloo, rank 0's gateway broadcasting each
+    tick's admissions to rank 1; greedy tokens equal to rank 0's unsharded
+    gateway serve in the phase, per-rank launches of K4 and K3 equal to it
+    and to each other; (b) the same with ``--autotune``, twice in one
+    workdir: the warm run measures nothing and commits rank 0's winners;
+    (c) the dry run at full width over fake worlds; (d) static AT by the
+    dry run's bound ((c) and (d) run in ``dry``, :func:`start_dry_runs`'s
+    process, which this phase waits for)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        ranks = run_world(gateway_rank, 2, device="cuda", args=(workdir,),
+                          join_timeout_s=900.0)
+    lead, follow = ranks
+    check([r["rank"] for r in ranks] == [0, 1], "ranks out of order")
+    ref = lead["ref"]
+    gateway_mesh_checks("a", lead["a"], follow["a"], ref)
+    cold, warm = lead["cold"]["report"], lead["warm"]["report"]
+    gateway_mesh_checks("b cold", lead["cold"], follow["cold"], None, True)
+    gateway_mesh_checks("b warm", lead["warm"], follow["warm"], None, True)
+    ca, wa = cold["autotune"], warm["autotune"]
+    check(ca["measurements"] > 0 and wa["measurements"] == 0,
+          f"38b: measurements cold {ca['measurements']}, warm "
+          f"{wa['measurements']} (in {wa['measured_regions']})")
+    check(all(n.endswith("_mesh1x2") for n in ca["measured_regions"]),
+          f"38b: regions {ca['measured_regions']}")
+    check(wa["committed"] == ca["committed"]
+          == follow["warm"]["report"]["autotune"]["committed"],
+          "38b: the ranks' or the runs' winners differ")
+    # a tuned tile rounds otherwise than the untuned one, so a near-tie
+    # may flip a token and the request's later tokens with it: the
+    # prediction's floor, 90% of the tokens equal position by position
+    same, total = (int(n) for n in
+                   greedy_agreement(warm, ref["report"]).split("/"))
+    check(same >= 0.9 * total,
+          f"38b: greedy tokens {same}/{total} equal to the unsharded "
+          f"serve's, under the 90% floor")
+    print(f"[38a gateway over 1x2] yi-6b full (32 layers), phase 26a's 8 "
+          f"requests of 32 tokens as TCP clients of rank 0's gateway, ranks "
+          f"sharing one card (gloo) on {smi}: greedy tokens equal to rank "
+          f"0's unsharded gateway serve; launches a rank "
+          f"{lead['a']['launches']} (both ranks, the unsharded serve's "
+          f"{ref['launches']}); "
+          + mesh_gateway_line("sharded", lead["a"]["report"]) + "; "
+          + mesh_gateway_line("unsharded", ref["report"])
+          + f"; {lead['a']['report']['gateway']['syncs']} tick messages")
+    print(f"[38b autotuned gateway over 1x2] cold: {ca['measurements']} "
+          f"measurements in {len(ca['measured_regions'])} regions, "
+          f"committed {ca['committed']}; warm: 0 measurements, "
+          f"{len(wa['warm_regions'])} regions warm-loaded, rank 0's winners "
+          f"on both ranks; greedy tokens against the unsharded serve "
+          f"{greedy_agreement(warm, ref['report'])}; "
+          + mesh_gateway_line("cold", cold) + "; "
+          + mesh_gateway_line("warm", warm)
+          + f"; peak memory rank 0 {lead['peak_gb']:.2f} GB, rank 1 "
+          f"{follow['peak_gb']:.2f} GB; launches a rank cold "
+          f"{lead['cold']['launches']}, warm {lead['warm']['launches']}")
+    t1 = time.perf_counter()
+    proc, out, err = dry
+    proc.wait(timeout=1200)
+    out.seek(0)
+    err.seek(0)
+    check(proc.returncode == 0,
+          f"38c/d: the dry-run process exited {proc.returncode}: "
+          f"{err.read()[-3000:]}")
+    res = json.loads(next(x for x in out.read().splitlines()
+                          if x.startswith("DRY"))[3:])
+    print("[38c dry run] fake tensors over fake worlds (no device work): "
+          + "; ".join(res["c"]))
+    print("[38d static AT by the dry run] " + res["d"])
+    print(f"[38 layout] the gateway (a, b) in {t1 - t0:.1f}s; the dry runs "
+          f"(c, d) took {res['s']:.1f}s in their own process beside phases "
+          f"37-38b, {time.perf_counter() - t1:.1f}s waited for here")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6196,9 +6541,17 @@ def main() -> int:
     rows += phase_static(smi, step_s)
     done("36")
     check(len(rows) == 88, f"{len(rows)} kernel rows, expected 88")
-    phase_mesh(smi)
-    done("37")
-    print(f"[done] phases 1-37 in {time.perf_counter() - t0:.1f}s; by phase "
+    dry = start_dry_runs()
+    try:
+        phase_mesh(smi)
+        done("37")
+        phase_layout(smi, dry)
+        done("38")
+    finally:
+        if dry[0].poll() is None:      # a phase failed before 38 waited
+            dry[0].kill()
+            dry[0].wait()
+    print(f"[done] phases 1-38 in {time.perf_counter() - t0:.1f}s; by phase "
           + ", ".join(f"{label} {t - marks[i][1]:.1f}s"
                       for i, (label, t) in enumerate(marks[1:])))
     print(json.dumps({"kernels": rows}))

@@ -2,10 +2,11 @@
 (:mod:`.process_mesh`), the collectives of tensor-parallel serving
 (:mod:`.collectives`), int8 quantizers and ``compressed_psum``
 (:mod:`.compression`), ring attention (:mod:`.ring_attention`), the
-layout plans' sharding rules (:mod:`.sharding`) and the fault tolerance
-state machines the trainer drives (:mod:`.fault_tolerance`).  The dry run
-that consumes the sharding rules over a mesh of hundreds of ranks is
-ROADMAP item 10b."""
+layout plans' sharding rules and their ``DTensor`` placements
+(:mod:`.sharding`) and the fault tolerance state machines the trainer
+drives (:mod:`.fault_tolerance`).  :func:`.process_mesh.fake_world`
+starts the fake world of hundreds of ranks that the dry run
+(:mod:`repro_torch.launch.dryrun`) places the rules' layouts in."""
 from .compression import (compress_roundtrip_error, compressed_psum,
                           dequantize_int8, quantize_int8)
 from .fault_tolerance import (HeartbeatMonitor, RemeshPlan,

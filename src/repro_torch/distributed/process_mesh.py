@@ -22,11 +22,21 @@ Backends: NCCL when every rank has a card of its own, gloo otherwise (the
 CPU, or several ranks on one card: NCCL refuses two ranks on one
 device).  What a backend cannot carry is staged through the host by
 :mod:`.collectives`.
+
+A mesh also carries a ``torch.distributed.device_mesh.DeviceMesh`` over
+the same ranks and axis names (:attr:`Mesh.device_mesh`, built on first
+use), on which the layout plans place ``DTensor`` parameters, batches
+and caches (:mod:`.sharding`).  :func:`fake_world` starts a world of
+hundreds of ranks in this one process over PyTorch's fake process group
+(its collectives move nothing), which is what the dry run
+(:mod:`repro_torch.launch.dryrun`) builds the production meshes in.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import functools
 import math
 import os
 import pickle
@@ -43,6 +53,10 @@ import torch.multiprocessing as mp
 #: seconds a collective may wait for the other ranks before it fails
 GROUP_TIMEOUT_S = 300.0
 
+#: the collective timeout of the world this process joined through
+#: :func:`run_world` (:data:`GROUP_TIMEOUT_S` in any other world)
+_world_timeout_s = GROUP_TIMEOUT_S
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
@@ -52,13 +66,15 @@ class Mesh:
     them (a JAX ``Mesh`` has both); ``coords`` maps each axis to this
     rank's position on it; ``groups`` maps each axis of size > 1 to the
     process group along it (None for an axis of size 1); ``rank`` is
-    this rank's in the world."""
+    this rank's in the world; ``timeout_s`` the seconds its collectives
+    wait for the other ranks before they fail (the world's timeout)."""
 
     shape: dict
     axis_names: tuple
     coords: dict
     groups: dict
     rank: int = 0
+    timeout_s: float = GROUP_TIMEOUT_S
 
     @property
     def size(self) -> int:
@@ -67,6 +83,24 @@ class Mesh:
     def group(self, axis: str):
         """The process group along ``axis`` (None on a 1-rank axis)."""
         return self.groups.get(axis)
+
+    @functools.cached_property
+    def device_mesh(self):
+        """The ``DeviceMesh`` of this mesh's ranks, with its axis names:
+        built on first use (every rank of the world must build it, in the
+        same order, as it makes a process group per axis).  It needs a
+        world (:func:`run_world`, :func:`fake_world`).  Its device type is
+        ``cuda`` over NCCL, else ``cpu``."""
+        from torch.distributed.device_mesh import DeviceMesh
+        if not dist.is_initialized():
+            raise RuntimeError(f"{self!r}: a DeviceMesh needs a world of "
+                               f"{self.size} ranks (run_world, fake_world)")
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        grid = np.arange(self.size).reshape(
+            [self.shape[a] for a in self.axis_names])
+        with unset_fake_temporarily():   # its rank grid is a real tensor
+            return DeviceMesh(device, grid, mesh_dim_names=self.axis_names)
 
     def head_slice(self, n: int, axis: str = "model") -> slice:
         """This rank's contiguous share of ``n`` heads along ``axis``."""
@@ -91,6 +125,28 @@ def world_size() -> int:
 
 def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    """A world of ``world`` ranks in this process, over PyTorch's fake
+    process group: this process is rank 0, and every collective returns
+    at once without moving a byte (tensors keep what they held).
+    Meshes of the world's size build in it, the production meshes too
+    (:func:`repro_torch.launch.mesh.make_production_mesh`).  The world is
+    destroyed on exit, whatever happens inside, so it never outlives the
+    block; a world already up raises ``RuntimeError``."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already up "
+                           f"({dist.get_world_size()} ranks)")
+    # PyTorch's own test module: the fake backend and its store
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
@@ -124,11 +180,12 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
         # every row of ranks that differ only along axis i
         for ranks in np.moveaxis(grid, i, -1).reshape(-1, dims[i]).tolist():
             g = dist.new_group(ranks, timeout=datetime.timedelta(
-                seconds=GROUP_TIMEOUT_S))
+                seconds=_world_timeout_s))
             if me in ranks:
                 groups[a] = g
     coords = {a: int(c) for a, c in zip(axes, np.unravel_index(me, dims))}
-    return Mesh(dict(zip(axes, dims)), axes, coords, groups, me)
+    return Mesh(dict(zip(axes, dims)), axes, coords, groups, me,
+                _world_timeout_s)
 
 
 # --------------------------------------------------------------------------
@@ -149,7 +206,10 @@ def _write(path: str, result: tuple) -> None:
 
 
 def _rank_main(fn, rank_: int, world: int, backend: str, device: str,
-               init: str, outdir: str, args: tuple) -> None:
+               init: str, outdir: str, args: tuple,
+               timeout_s: float = GROUP_TIMEOUT_S) -> None:
+    global _world_timeout_s
+    _world_timeout_s = timeout_s
     out = os.path.join(outdir, f"rank{rank_}.pkl")
     try:
         torch.set_num_threads(1)
@@ -157,7 +217,7 @@ def _rank_main(fn, rank_: int, world: int, backend: str, device: str,
             torch.cuda.set_device(rank_ % torch.cuda.device_count())
         dist.init_process_group(
             backend, init_method=init, world_size=world, rank=rank_,
-            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+            timeout=datetime.timedelta(seconds=timeout_s))
         try:
             result = fn(*args)
         finally:
@@ -169,7 +229,8 @@ def _rank_main(fn, rank_: int, world: int, backend: str, device: str,
 
 
 def run_world(fn: Callable, world: int, *, device: str | torch.device = "cpu",
-              args: tuple = (), join_timeout_s: float = 900.0) -> list:
+              args: tuple = (), join_timeout_s: float = 900.0,
+              group_timeout_s: float = GROUP_TIMEOUT_S) -> list:
     """Run ``fn(*args)`` on ``world`` spawned ranks and return their
     results in rank order.
 
@@ -177,7 +238,7 @@ def run_world(fn: Callable, world: int, *, device: str | torch.device = "cpu",
     forked, and import it by name).  Each rank runs one torch thread, sits
     on ``device`` (rank ``r`` of a CUDA world on card ``r % count``) and
     joins a :func:`default_backend` world whose collectives time out after
-    :data:`GROUP_TIMEOUT_S`.  The call fails with every failing rank's
+    ``group_timeout_s`` (:data:`GROUP_TIMEOUT_S`).  The call fails with every failing rank's
     traceback, or when the ranks have not all ended within
     ``join_timeout_s`` (every rank still alive is then killed)."""
     backend = default_backend(world, device)
@@ -186,7 +247,7 @@ def run_world(fn: Callable, world: int, *, device: str | torch.device = "cpu",
         init = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_rank_main,
                              args=(fn, r, world, backend, str(device), init,
-                                   tmp, args))
+                                   tmp, args, group_timeout_s))
                  for r in range(world)]
         for p in procs:
             p.start()

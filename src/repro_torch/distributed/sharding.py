@@ -20,8 +20,13 @@ The rules are pure functions of the arch, the shapes and the mesh's
 one entry a dimension.  The port serves with head-sharded paged
 attention on every rank's slice of the pools and whole weights on every
 rank (:mod:`repro_torch.kernels.ops`), which is what the JAX engine's
-replicated parameters amount to; these rules are what the dry run over
-a mesh of hundreds of ranks consumes (ROADMAP item 10b).
+replicated parameters amount to.  The trainer's sharded step and the dry
+run place tensors by these rules as PyTorch's ``DTensor``, the
+counterpart of a JAX ``NamedSharding``: :func:`dtensor_placements` turns
+a :class:`P` into the placements of a ``DeviceMesh`` with the same axis
+names (:attr:`Mesh.device_mesh`), :func:`place` puts each leaf of a tree
+of real or fake tensors on it (each rank keeps its own shard, without a
+collective), and :func:`local_shape` is a shard's shape.
 
 :func:`make_serving_mesh` builds the serving mesh from ``--mesh RxC`` in
 the current ``torch.distributed`` world.
@@ -29,6 +34,9 @@ the current ``torch.distributed`` world.
 from __future__ import annotations
 
 import math
+import types
+
+import torch
 
 from ..configs.base import ArchConfig
 from ..models.sharding_ctx import LayoutPlan
@@ -289,6 +297,115 @@ def cache_shardings(abstract_caches, cfg: ArchConfig, plan: LayoutPlan,
         return _sanitize(spec, shp, mesh)
 
     return _tree_map(one, abstract_caches)
+
+
+def _spec_axes(entry) -> tuple:
+    return () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+
+
+def dtensor_placements(spec, axis_names: tuple, shape: tuple | None = None,
+                       mesh_shape: dict | None = None) -> tuple:
+    """The ``DTensor`` placements of ``spec`` on a ``DeviceMesh`` whose
+    dimensions are named ``axis_names``: ``Shard(i)`` on every mesh
+    dimension that a tensor dimension ``i`` names, ``Replicate()`` on
+    the rest.  A dimension named by several axes is split over them in
+    mesh order, major first (as JAX splits it over a tuple of names).
+    With ``shape`` and ``mesh_shape`` an axis that does not divide its
+    dimension is dropped first (:func:`_sanitize`)."""
+    from torch.distributed.tensor import Replicate, Shard
+    if spec is None:
+        spec = P()
+    if shape is not None:
+        spec = _sanitize(spec, tuple(shape),
+                         types.SimpleNamespace(shape=mesh_shape))
+    out = [Replicate()] * len(axis_names)
+    for dim, entry in enumerate(spec):
+        axes = _spec_axes(entry)
+        idx = [axis_names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec!r}: the axes of a dimension go in the "
+                             f"mesh's order {axis_names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def local_shape(shape: tuple, spec, mesh) -> tuple:
+    """The shape of one rank's shard of a ``shape`` tensor laid out by
+    ``spec`` (whose axes divide their dimensions)."""
+    out = list(shape)
+    for dim, entry in enumerate(spec or ()):
+        for a in _spec_axes(entry):
+            out[dim] //= mesh.shape[a]
+    return tuple(out)
+
+
+def _local_chunk(t, spec, mesh):
+    """This rank's shard of ``t`` under ``spec`` (a copy)."""
+    for dim, entry in enumerate(spec or ()):
+        axes = _spec_axes(entry)
+        if not axes:
+            continue
+        n = math.prod(mesh.shape[a] for a in axes)
+        idx = 0
+        for a in axes:                   # major first, as the placements
+            idx = idx * mesh.shape[a] + mesh.coords[a]
+        size = t.shape[dim] // n
+        t = t.narrow(dim, idx * size, size)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def place(tree, specs, mesh):
+    """Each tensor leaf of ``tree`` as a ``DTensor`` on ``mesh``'s
+    ``DeviceMesh``, laid out by the matching :class:`P` of ``specs`` (a
+    tree of the same structure, as :func:`param_shardings` makes).  Every
+    rank holds the whole tensor (the same seed) and keeps its own shard:
+    no collective runs.  A leaf that already is a ``DTensor`` is
+    redistributed.  Fake tensors place as real ones."""
+    from torch.distributed.tensor import DTensor
+    dm = mesh.device_mesh
+    axes = tuple(dm.mesh_dim_names)
+
+    def one(t, spec):
+        pl = dtensor_placements(spec, axes)
+        if isinstance(t, DTensor):
+            return t.redistribute(dm, pl)
+        return DTensor.from_local(_local_chunk(t, spec, mesh), dm, pl,
+                                  run_check=False, shape=t.shape,
+                                  stride=contiguous_stride(t.shape))
+
+    return _zip_map(one, tree, specs)
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def spec_leaves(tree) -> list:
+    """The :class:`P` leaves of a spec tree (dicts, lists), in the order
+    of ``adamw.leaves`` over the matching tensor tree."""
+    if isinstance(tree, P):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in spec_leaves(v)]
+    return [tree]
+
+
+def _zip_map(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return type(tree)(_zip_map(fn, v, o) for v, o in zip(tree, other))
+    return fn(tree, other)
 
 
 def batch_shardings(specs: dict, mesh):

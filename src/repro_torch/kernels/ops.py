@@ -142,7 +142,8 @@ def mm(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None = None,
 
 
 #: above this many queries the plain route goes flash-style
-#: (:func:`.ref.chunked_attention`)
+#: (:func:`.ref.chunked_attention`), and above this many steps the plain
+#: Mamba-1 scan goes by chunks (:func:`.ref.selective_scan_chunked`)
 CHUNKED_THRESHOLD = 2048
 
 
@@ -411,7 +412,9 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     On the card K9 runs, with or without the final state, with the chunk
     install-time AT published (``at.tuned("ssm_scan")``), overridden by a
-    ``chunk`` in ``pps``; on the CPU the plain scan.  Unlike the JAX
+    ``chunk`` in ``pps``; on the CPU the plain scan, step by step, or in
+    chunks (``ref.selective_scan_chunked``) above ``CHUNKED_THRESHOLD``
+    steps, where the step loop runs for minutes.  Unlike the JAX
     package's entry, which sends a call that asks for the final state to
     its plain scan, the kernel returns the state itself, so prefill runs
     on it too.  A gradient through y goes through ``SelectiveScanFn``
@@ -429,4 +432,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             x.contiguous(), dt.contiguous(), a.contiguous(),
             b.contiguous(), c.contiguous(), d.contiguous(),
             return_final_state=return_final_state, **kw)
+    if x.shape[1] > CHUNKED_THRESHOLD:
+        return ref.selective_scan_chunked(x, dt, a, b, c, d,
+                                          return_final_state)
     return ref.selective_scan_ref(x, dt, a, b, c, d, return_final_state)

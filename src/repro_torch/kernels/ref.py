@@ -442,3 +442,46 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if return_final_state:
         return y, h
     return y
+
+
+#: the steps a chunk of :func:`selective_scan_chunked` composes at once
+SCAN_CHUNK = 1024
+
+
+def selective_scan_chunked(x: torch.Tensor, dt: torch.Tensor,
+                           a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                           d: torch.Tensor, return_final_state: bool = False,
+                           chunk: int = SCAN_CHUNK):
+    """:func:`selective_scan_ref`'s recurrence in chunks of ``chunk``
+    steps, K9's time partition in PyTorch operations: within a chunk the
+    steps' affine maps ``h -> exp(dt A) h + dt x B`` compose by a
+    log-depth (Hillis-Steele) scan, and the chunks carry the state in
+    order.  Float32, the same values as the step loop up to rounding, in
+    ``2 log2(chunk)`` operations a chunk where the loop takes a few a
+    step (the plain route of a long sequence: ``ops.ssm_scan``)."""
+    bsz, length, di = x.shape
+    a32, d32 = a.float(), d.float()
+    xs, dts, bs, cs = x.float(), dt.float(), b.float(), c.float()
+    h = torch.zeros((bsz, di, a.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for lo in range(0, length, chunk):
+        t = slice(lo, lo + chunk)
+        decay = torch.exp(dts[:, t, :, None] * a32)          # (Bt, T, Di, N)
+        u = (dts[:, t] * xs[:, t])[..., None] * bs[:, t, None, :]
+        k, steps = 1, decay.shape[1]
+        while k < steps:
+            # step s takes the composition of steps s - k .. s: the map
+            # k steps back (the identity before the chunk) comes first
+            u = u + decay * torch.cat([torch.zeros_like(u[:, :k]),
+                                       u[:, :-k]], dim=1)
+            decay = decay * torch.cat([torch.ones_like(decay[:, :k]),
+                                       decay[:, :-k]], dim=1)
+            k *= 2
+        hs = decay * h[:, None] + u
+        ys.append((hs * cs[:, t, None, :]).sum(-1) + d32 * xs[:, t])
+        h = hs[:, -1]
+    y = torch.cat(ys, dim=1).to(x.dtype)
+    if return_final_state:
+        return y, h
+    return y

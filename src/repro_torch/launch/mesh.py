@@ -3,7 +3,9 @@
 Functions, not module-level constants, so importing this module touches
 no process group.  A mesh of more than one rank lives in a
 ``torch.distributed`` world of exactly its size
-(:func:`repro_torch.distributed.run_world` starts one).
+(:func:`repro_torch.distributed.run_world` starts one of real ranks,
+:func:`repro_torch.distributed.process_mesh.fake_world` one of fake
+ranks in this process, where the dry run builds the production meshes).
 """
 from __future__ import annotations
 
@@ -19,16 +21,18 @@ PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16x16 ("data", "model") single pod; 2x16x16 ("pod", "data",
-    "model") for the 2-pod, 512-rank layout.  Raises ``ValueError``
-    naming the world size it needs when the world is smaller (the dry run
-    over a fake process group of that size is ROADMAP item 10b)."""
+    "model") for the 2-pod, 512-rank layout, in a world of exactly that
+    many ranks: a ``fake_world(256)`` or ``fake_world(512)``, as the dry
+    run starts.  Raises ``ValueError`` naming the world size it needs in a
+    smaller world."""
     shape, axes = PRODUCTION_SHAPES[multi_pod]
     need = math.prod(shape)
     if world_size() < need:
         raise ValueError(
             f"the production mesh {'x'.join(map(str, shape))} {axes} needs "
             f"a world of {need} ranks, but the world has {world_size()} "
-            "(its dry run over a fake process group is ROADMAP item 10b)")
+            f"(the dry run builds it in fake_world({need}): python -m "
+            "repro_torch.launch.dryrun)")
     return make_mesh(shape, axes)
 
 

@@ -16,12 +16,14 @@ defaults are the SXM card's)::
 A record is one (arch, shape, mesh) cell of a dry run (JSON: ``arch``,
 ``shape``, ``mesh``, ``chips``, ``plan``, ``hlo_dot_flops``,
 ``hlo_collective_bytes``, ``bytes_per_device``, or ``skipped`` with a
-``reason``); the dry run that writes them is ROADMAP queue 1, item 10b.
+``reason``), as :mod:`repro_torch.launch.dryrun` writes them.
 
 Usage::
 
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
+        --out build/artifacts
     PYTHONPATH=src python -m repro_torch.launch.roofline \\
-        --artifacts experiments/artifacts --mesh single
+        --artifacts build/artifacts --mesh single
 """
 from __future__ import annotations
 

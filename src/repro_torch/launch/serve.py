@@ -65,8 +65,10 @@ whole and its slice of the KV heads (``ServingEngine(mesh=...)``), and
 rank 0 prints the report, its ``"mesh"`` and ``"outputs"`` (greedy
 tokens by request) as the JAX serve's.  ``"1x1"`` starts no world and is
 the unsharded serve exactly.  With ``--autotune`` a multi-rank mesh keys
-its regions ``..._mesh{R}x{C}`` and rank 0 decides every commit.  The
-gateway over a multi-rank mesh is ROADMAP item 10b and raises.
+its regions ``..._mesh{R}x{C}`` and rank 0 decides every commit.  With
+``--gateway`` rank 0 runs the gateway, its clients and its policy, and
+broadcasts each tick's admissions and cancellations to the other ranks,
+which follow it tick for tick (:meth:`PipelinedEngine.follow`).
 
 Usage::
 
@@ -100,6 +102,8 @@ Usage::
         --prefill-chunk 128 --mesh 1x2     # two ranks sharing the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --cache paged --prefill-chunk 8 --mesh 1x2
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --cache paged \
+        --prefill-chunk 128 --gateway --mesh 1x2
 """
 from __future__ import annotations
 
@@ -505,11 +509,6 @@ def _check_mesh_flags(scfg: ServeConfig) -> None:
     dims = parse_mesh_spec(scfg.mesh)
     if dims is None or dims[0] * dims[1] == 1:
         return
-    if scfg.gateway:
-        raise ValueError(
-            f"--gateway over the multi-rank mesh {scfg.mesh}: a gateway that "
-            "drives the other ranks is ROADMAP item 10b (serve --mesh "
-            "without --gateway, or the gateway unsharded)")
     if scfg.cache != "paged":
         raise ValueError(
             "tensor-parallel serving shards the paged page pools; use "
@@ -568,7 +567,7 @@ def serve_model(model, params: dict, scfg: ServeConfig, mesh=None) -> dict:
                            num_splits=(scfg.num_splits
                                        if scfg.cache == "paged" else None),
                            mesh=mesh)
-    return serve_engine(engine, scfg)
+    return serve_engine(engine, scfg, mesh)
 
 
 def autotune_report(tuner) -> dict:
@@ -628,14 +627,31 @@ def draw_prompts(scfg: ServeConfig, vocab_size: int) -> list[list[int]]:
 
 
 def _serve_gateway(engine: ServingEngine, prompts: list[list[int]],
-                   scfg: ServeConfig) -> tuple[dict, dict]:
+                   scfg: ServeConfig, mesh=None) -> tuple[dict, dict]:
     """Serve ``prompts`` through the HTTP/SSE gateway: every request is a
     real TCP client on 127.0.0.1 streaming SSE frames (a 429 bounce waits
     ``Retry-After`` and retries), the engine ticks in the pipelined
     asyncio loop.  Returns the tokens each client received, keyed by its
     prompt's index (the synchronous serve's rid), and the gateway report:
-    the pipeline's counters, goodput under the SLOs, the retries and the
-    count of the streams' final events by kind."""
+    the pipeline's counters, goodput under the SLOs, the retries, the
+    count of the streams' final events by kind and the engine's tokens by
+    the gateway's rids (``by_rid``).  On ranks 1.. of a multi-rank
+    ``mesh`` the engine follows rank 0's gateway instead: no server and
+    no clients, the outputs by rid, and the pipeline's counters."""
+    pipe = PipelinedEngine(engine, queue_limit=scfg.queue_limit,
+                           tuner=engine.autotuner,
+                           policy_window=scfg.policy_window,
+                           slo_ttft_s=scfg.slo_ttft_s,
+                           slo_itl_s=scfg.slo_itl_s, mesh=mesh)
+    if pipe.mesh is not None and pipe.mesh.rank != 0:
+        t0 = time.monotonic()
+        pipe.follow()
+        by_rid = {int(r.rid): [int(t) for t in r.out_tokens]
+                  for r in engine.finished}
+        return by_rid, {"requests": len(prompts), "by_rid": by_rid,
+                        "wall_s": time.monotonic() - t0,
+                        **{k: v for k, v in pipe.stats().items()
+                           if k != "draining"}}
     sampling = None
     if scfg.temperature > 0.0 or scfg.top_k or scfg.top_p < 1.0:
         sampling = {"temperature": scfg.temperature, "top_k": scfg.top_k,
@@ -661,11 +677,6 @@ def _serve_gateway(engine: ServingEngine, prompts: list[list[int]],
             return tokens, bounced, final
 
     async def run():
-        pipe = PipelinedEngine(engine, queue_limit=scfg.queue_limit,
-                               tuner=engine.autotuner,
-                               policy_window=scfg.policy_window,
-                               slo_ttft_s=scfg.slo_ttft_s,
-                               slo_itl_s=scfg.slo_itl_s)
         srv = GatewayServer(pipe, port=scfg.port)
         await srv.start()
         t0 = time.monotonic()
@@ -673,11 +684,13 @@ def _serve_gateway(engine: ServingEngine, prompts: list[list[int]],
             *[one(srv.port, i, p) for i, p in enumerate(prompts)])
         wall = time.monotonic() - t0
         await srv.drain()
-        return pipe, results, wall
+        return results, wall
 
-    pipe, results, wall = asyncio.run(run())
+    results, wall = asyncio.run(run())
     outputs = {i: tokens for i, (tokens, _, _) in enumerate(results)}
     report = {
+        "by_rid": {int(r.rid): [int(t) for t in r.out_tokens]
+                   for r in engine.finished},
         "requests": len(prompts),
         "wall_s": wall,
         "client_retries_429": sum(r[1] for r in results),
@@ -690,14 +703,17 @@ def _serve_gateway(engine: ServingEngine, prompts: list[list[int]],
     return outputs, report
 
 
-def serve_engine(engine: ServingEngine, scfg: ServeConfig) -> dict:
+def serve_engine(engine: ServingEngine, scfg: ServeConfig,
+                 mesh=None) -> dict:
     """Submit the requests ``scfg`` describes to ``engine`` (through the
     gateway with ``scfg.gateway``), run them to the end and return the
-    report."""
+    report.  ``mesh`` is this rank's serving mesh: over more than one
+    rank, rank 0's gateway leads the others'."""
     prompts = draw_prompts(scfg, engine.model.cfg.vocab_size)
     gateway_report = None
     if scfg.gateway:
-        outputs, gateway_report = _serve_gateway(engine, prompts, scfg)
+        outputs, gateway_report = _serve_gateway(engine, prompts, scfg,
+                                                 mesh)
     else:
         for rid, prompt in enumerate(prompts):
             engine.submit(Request(rid=rid, prompt=prompt,

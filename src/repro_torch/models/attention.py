@@ -27,7 +27,11 @@ the encoder-decoder's cross attention.
   decoder's self-attention adds them).
 
 Layouts follow the JAX package: projections are ``x @ W`` with W of shape
-(in, out), heads are (B, H, S, D) after the projection.
+(in, out), heads are (B, H, S, D) after the projection.  Under a layout
+plan with ``DTensor`` weights (the sharded train step, the dry run),
+``full`` pins q, k, v and the output to the plan's ``heads`` and
+``kv_heads`` layouts, as the JAX package does, and runs the attention on
+each rank's shard of batch and heads (:func:`_attention_local`).
 """
 from __future__ import annotations
 
@@ -38,7 +42,10 @@ import torch
 
 from ..distributed.compression import quantize_int8_rows
 from ..kernels import ops
-from .layers import apply_rope, dense_init
+from .layers import apply_rope, dense_init, split_last
+from .sharding_ctx import (batch_spec, constrain, from_local, is_dtensor,
+                           layout, local, split_dims, split_dims_by_axis,
+                           whole_if_split_past)
 
 
 class AttnConfig(NamedTuple):
@@ -78,13 +85,20 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: AttnConfig,
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.d_head).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    q = _heads(q, b, s, cfg.n_heads, cfg.d_head)
+    k = _heads(k, b, s, cfg.n_kv_heads, cfg.d_head)
+    v = _heads(v, b, s, cfg.n_kv_heads, cfg.d_head)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _heads(t: torch.Tensor, b: int, s: int, n: int, d: int) -> torch.Tensor:
+    """(B, S, n x d) -> (B, n, S, d), a transposed view; a ``DTensor``
+    split finer than its ``n`` heads is gathered first."""
+    t = whole_if_split_past(split_last(t), -1, n)
+    return t.reshape(b, s, n, d).transpose(1, 2)
 
 
 def full(p: dict, x: torch.Tensor, cfg: AttnConfig,
@@ -96,13 +110,48 @@ def full(p: dict, x: torch.Tensor, cfg: AttnConfig,
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = ops.attention(q, k, v, causal=cfg.causal, window=cfg.window,
-                        mesh=mesh, use_kernel=use_kernel)
+    q = constrain(q, "heads")
+    k = constrain(k, "kv_heads")
+    v = constrain(v, "kv_heads")
+    out = _attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                     mesh=mesh, use_kernel=use_kernel)
+    out = constrain(out, "heads")
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
-    out = out @ p["wo"]
+    out = split_last(out) @ p["wo"]
     if return_cache:
         return out, (k, v)
     return out
+
+
+def _attention(q, k, v, **kw):
+    """``ops.attention``, on each rank's shard when q is a ``DTensor``."""
+    if is_dtensor(q):
+        return _attention_local(q, k, v, **kw)
+    return ops.attention(q, k, v, **kw)
+
+
+def _attention_local(q, k, v, mesh=None, **kw):
+    """The attention of ``DTensor`` q (B, H, S, D) and k, v (B, Hkv, Sk,
+    D) on this rank's shard: batch over the batch axes and, where the
+    plan shards them (``heads``, ``kv_heads``), heads over ``model``.
+    Where q's heads are split and the KV heads are not (fewer KV heads
+    than ranks), each rank expands the KV heads to its q heads' (the
+    same values GQA reads) and their gradient is a partial sum over
+    ``model``.  The output has q's layout."""
+    q_spec, kv_spec = layout(q, "heads"), layout(k, "kv_heads")
+    ql = local(q, q_spec)
+    h, hkv = q.shape[1], k.shape[1]
+    if 1 in split_dims(q, q_spec) and 1 not in split_dims(k, kv_spec):
+        kv_spec = batch_spec(k)
+        g, hl = h // hkv, ql.shape[1]
+        first = q.device_mesh.get_local_rank("model") * hl
+        kl, vl = (local(t, kv_spec, partial_over=("model",))
+                  .repeat_interleave(g, dim=1)[:, first:first + hl]
+                  for t in (k, v))
+    else:
+        kl, vl = local(k, kv_spec), local(v, kv_spec)
+    out = ops.attention(ql, kl, vl, **kw)
+    return from_local(out, q, q_spec, q.shape)
 
 
 def decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
@@ -124,14 +173,113 @@ def decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     w = cache_k.shape[2]
     q, k, v = _project_qkv(p, x, cfg, pos[:, None])
     slot = pos % w if cfg.window is not None else pos
-    bidx = torch.arange(b, device=x.device)
-    cache_k[bidx, :, slot] = k[:, :, 0].to(cache_k.dtype)
-    cache_v[bidx, :, slot] = v[:, :, 0].to(cache_v.dtype)
     kv_len = torch.clamp(pos + 1, max=w).to(torch.int32)
-    out = ops.decode_attention(q, cache_k, cache_v, kv_len,
-                               use_kernel=use_kernel)
+    if is_dtensor(q):
+        out = _decode_local(q, k, v, cache_k, cache_v, slot, kv_len,
+                            use_kernel)
+    else:
+        _write_slot(cache_k, cache_v, k, v, slot)
+        out = ops.decode_attention(q, cache_k, cache_v, kv_len,
+                                   use_kernel=use_kernel)
     out = out.transpose(1, 2).reshape(b, one, cfg.n_heads * cfg.d_head)
-    return out @ p["wo"], cache_k, cache_v
+    return split_last(out) @ p["wo"], cache_k, cache_v
+
+
+def _write_slot(cache_k, cache_v, k, v, slot, keep=None) -> None:
+    """The new token's K/V (B, Hkv, 1, D) into slot ``slot`` (B,) of each
+    lane's caches (B, Hkv, W, D), in place; where ``keep`` (B,) is given,
+    only the lanes it marks (the others keep what they held)."""
+    bidx = torch.arange(k.shape[0], device=k.device)
+    for c, t in ((cache_k, k), (cache_v, v)):
+        new = t[:, :, 0].to(c.dtype)
+        if keep is not None:
+            new = torch.where(keep[:, None, None], new, c[bidx, :, slot])
+        c[bidx, :, slot] = new
+
+
+def _decode_local(q, k, v, cache_k, cache_v, slot, kv_len, use_kernel):
+    """One decode token of ``DTensor`` q (B, H, 1, D), k, v (B, Hkv, 1,
+    D) against ``DTensor`` caches (B, Hkv, W, D) laid out as the plan's
+    cache rules place them (``distributed.sharding.cache_shardings``):
+    each rank writes and reads its own shard, in place.  With ``k`` None
+    nothing is written and every key is read (the cross caches).
+
+    * Heads split over ``model``: each rank attends with its q heads to
+      its KV heads.
+    * Heads whole (fewer KV heads than ranks): each rank writes the whole
+      new K/V into its copy and attends with its q heads (split where
+      the plan's ``heads`` layout splits them) to the KV heads they read.
+    * Sequence split over ``model`` (``decode_seq``): the rank that holds
+      a lane's slot writes it; each rank attends with every head to its
+      keys, and the float32 partial maxima, sums and outputs are merged
+      over ``model`` (two all-reduces, the log-sum-exp merge).
+
+    Returns the output in q's layout (batch split, heads as above)."""
+    splits = split_dims_by_axis(cache_k)
+    spec = batch_spec(q, {1: "model"} if 1 in splits else None)
+    ck, cv = cache_k.to_local(), cache_v.to_local()
+    kl = vl = sl = ll = None
+    if k is not None:
+        kl, vl = local(k, spec), local(v, spec)
+        sl = local(slot, batch_spec(slot))
+        ll = local(kv_len, batch_spec(kv_len))
+    if 2 in splits:                      # the sequence over ``model``
+        return _decode_seq_local(q, kl, vl, ck, cv, sl, ll)
+    if k is not None:
+        _write_slot(ck, cv, kl, vl, sl)
+    q_spec = layout(q, "heads")
+    if 1 not in splits and 1 in split_dims(q, q_spec):
+        # q's heads split, the KV heads whole: this rank's q heads read
+        # the KV heads of their groups
+        ql = local(q, q_spec)
+        g, hl = q.shape[1] // cache_k.shape[1], ql.shape[1]
+        first = q.device_mesh.get_local_rank("model") * hl
+        lo, hi = first // g, (first + hl - 1) // g + 1
+        ck, cv = ck[:, lo:hi], cv[:, lo:hi]
+        if hl % g or first % g:          # a group across two ranks
+            ck, cv = (c.repeat_interleave(g, dim=1)[:, first - lo * g:
+                                                    first - lo * g + hl]
+                      for c in (ck, cv))
+    else:
+        q_spec = spec
+        ql = local(q, q_spec)
+    out = ops.decode_attention(ql, ck, cv, ll, use_kernel=use_kernel)
+    return from_local(out, q, q_spec, q.shape)
+
+
+def _decode_seq_local(q, kl, vl, ck, cv, slot, kv_len):
+    """:func:`_decode_local` over caches whose sequence is split over
+    ``model``: this rank holds slots ``[c W', (c + 1) W')``."""
+    import torch.distributed._functional_collectives as fc
+    dm = q.device_mesh
+    spec = batch_spec(q)
+    ql = local(q, spec)
+    wl = ck.shape[2]
+    first = dm.get_local_rank("model") * wl
+    b, h, _, d = ql.shape
+    keys = torch.arange(wl, device=ql.device) + first
+    if kl is not None:
+        mine = (slot >= first) & (slot < first + wl)
+        _write_slot(ck, cv, kl, vl, (slot - first).clamp(0, wl - 1),
+                    keep=mine)
+        valid = keys[None] < kv_len[:, None]
+    else:
+        valid = torch.ones((b, wl), dtype=torch.bool, device=ql.device)
+    valid = valid[:, None, None, :]
+    hkv = ck.shape[1]
+    qg = ql.float().reshape(b, hkv, h // hkv, d) * d ** -0.5
+    s = torch.einsum("bkgd,bksd->bkgs", qg, ck.float())
+    s = s.masked_fill(~valid, -1e30)
+    m = s.amax(-1, keepdim=True)
+    pr = torch.exp(s - m) * valid
+    group = (dm, tuple(dm.mesh_dim_names).index("model"))
+    top = fc.all_reduce(m, "max", group)
+    f = torch.exp(m - top)
+    acc = torch.einsum("bkgs,bksd->bkgd", pr, cv.float()) * f
+    l_ = pr.sum(-1, keepdim=True) * f
+    tot = fc.all_reduce(torch.cat([acc, l_], -1), "sum", group)
+    out = (tot[..., :d] / tot[..., d:]).reshape(b, h, 1, d).to(q.dtype)
+    return from_local(out, q, spec, q.shape)
 
 
 def paged_decode(p: dict, x: torch.Tensor, k_pool: torch.Tensor,
@@ -300,9 +448,8 @@ def cross_kv(p: dict, enc: torch.Tensor, cfg: AttnConfig):
     """Cross-attention K/V (B, Hkv, Se, D) from encoder states (B, Se, d),
     without biases."""
     b, se, _ = enc.shape
-    k = (enc @ p["wk"]).reshape(b, se, cfg.n_kv_heads, cfg.d_head)
-    v = (enc @ p["wv"]).reshape(b, se, cfg.n_kv_heads, cfg.d_head)
-    return k.transpose(1, 2), v.transpose(1, 2)
+    return (_heads(enc @ p["wk"], b, se, cfg.n_kv_heads, cfg.d_head),
+            _heads(enc @ p["wv"], b, se, cfg.n_kv_heads, cfg.d_head))
 
 
 def cross_full(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -311,10 +458,14 @@ def cross_full(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Cross attention of x (B, Sd, d) over the cross K/V (B, Hkv, Se, D):
     no RoPE, not causal, no bias (K1 with Sk = Se on the card)."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head).transpose(1, 2)
-    out = ops.attention(q, k, v, causal=False, use_kernel=use_kernel)
+    q = _heads(x @ p["wq"], b, s, cfg.n_heads, cfg.d_head)
+    q = constrain(q, "heads")
+    k = constrain(k, "kv_heads")
+    v = constrain(v, "kv_heads")
+    out = _attention(q, k, v, causal=False, use_kernel=use_kernel)
+    out = constrain(out, "heads")
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
-    return out @ p["wo"]
+    return split_last(out) @ p["wo"]
 
 
 def cross_decode(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -323,11 +474,13 @@ def cross_decode(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One decode token x (B, 1, d) over the whole cross cache (B, Hkv, Se,
     D), no ``kv_len`` (K2 on the card)."""
     b, one, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, one, cfg.n_heads,
-                              cfg.d_head).transpose(1, 2)
-    out = ops.decode_attention(q, k, v, use_kernel=use_kernel)
+    q = _heads(x @ p["wq"], b, one, cfg.n_heads, cfg.d_head)
+    if is_dtensor(q):
+        out = _decode_local(q, None, None, k, v, None, None, use_kernel)
+    else:
+        out = ops.decode_attention(q, k, v, use_kernel=use_kernel)
     out = out.transpose(1, 2).reshape(b, one, cfg.n_heads * cfg.d_head)
-    return out @ p["wo"]
+    return split_last(out) @ p["wo"]
 
 
 def init_cache(batch: int, cfg: AttnConfig, max_len: int,

@@ -27,11 +27,14 @@ key length) and the chunked cross entropy through the tied head
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from . import attention as attn
 from .layers import (apply_mlp, chunked_cross_entropy, dense_init,
                      embed_init, init_mlp, layer_norm, sinusoidal_positions)
+from .sharding_ctx import (constrain, constrain_layer_params, for_compute,
+                           is_dtensor, stack_layers, take_rows)
 from .transformer import (_cast, _layer, _unstack, torch_dtype,
                           weights_dtype)
 
@@ -93,15 +96,18 @@ def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig,
            use_kernel: bool | None = None) -> torch.Tensor:
     """frames (B, Se, d) stub embeddings -> encoder states (B, Se, d)."""
     dtype = torch_dtype(cfg.compute_dtype)
-    x = frames.to(dtype) @ params["frontend_proj"].to(dtype)
+    x = frames.to(dtype) @ for_compute(params["frontend_proj"]).to(dtype)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(dtype)
+    x = constrain(x, "hidden")
     acfg = _acfg(cfg, False)
     for lp in _unstack(_cast(params["enc_layers"], dtype),
                        cfg.n_encoder_layers):
-        x = x + attn.full(lp["attn"], _ln(lp["ln1"], x), acfg,
-                          use_kernel=use_kernel)
-        x = x + apply_mlp(lp["mlp"], _ln(lp["ln2"], x), act="gelu")
+        lp = constrain_layer_params(lp)
+        x = x + constrain(attn.full(lp["attn"], _ln(lp["ln1"], x), acfg,
+                                    use_kernel=use_kernel), "hidden")
+        x = x + constrain(apply_mlp(lp["mlp"], _ln(lp["ln2"], x),
+                                    act="gelu"), "hidden")
     return _ln(_cast(params["enc_ln"], dtype), x)
 
 
@@ -110,7 +116,8 @@ def _embed(params: dict, tokens: torch.Tensor, pos: torch.Tensor,
     """Token embeddings plus the learned positions ``pos % POS_ROWS``."""
     dtype = torch_dtype(cfg.compute_dtype)
     pe = params["pos_embed"]
-    return params["embed"][tokens].to(dtype) + pe[pos % pe.shape[0]].to(dtype)
+    return (take_rows(params["embed"], tokens).to(dtype)
+            + take_rows(pe, pos % pe.shape[0]).to(dtype))
 
 
 def decode_train(params: dict, tokens: torch.Tensor, enc: torch.Tensor,
@@ -121,14 +128,18 @@ def decode_train(params: dict, tokens: torch.Tensor, enc: torch.Tensor,
     dtype = torch_dtype(cfg.compute_dtype)
     s = tokens.shape[1]
     x = _embed(params, tokens, torch.arange(s, device=tokens.device), cfg)
+    x = constrain(x, "hidden")
     sa, ca = _acfg(cfg, True), _acfg(cfg, False)
     for lp in _unstack(_cast(params["dec_layers"], dtype), cfg.n_layers):
-        x = x + attn.full(lp["self_attn"], _ln(lp["ln1"], x), sa,
-                          use_kernel=use_kernel)
+        lp = constrain_layer_params(lp)
+        x = x + constrain(attn.full(lp["self_attn"], _ln(lp["ln1"], x), sa,
+                                    use_kernel=use_kernel), "hidden")
         k, v = attn.cross_kv(lp["cross_attn"], enc, ca)
-        x = x + attn.cross_full(lp["cross_attn"], _ln(lp["ln_x"], x), k, v,
-                                ca, use_kernel=use_kernel)
-        x = x + apply_mlp(lp["mlp"], _ln(lp["ln2"], x), act="gelu")
+        x = x + constrain(attn.cross_full(
+            lp["cross_attn"], _ln(lp["ln_x"], x), k, v, ca,
+            use_kernel=use_kernel), "hidden")
+        x = x + constrain(apply_mlp(lp["mlp"], _ln(lp["ln2"], x),
+                                    act="gelu"), "hidden")
     return _ln(_cast(params["dec_ln"], dtype), x)
 
 
@@ -141,10 +152,11 @@ def train_loss(params: dict, batch: dict, cfg: ArchConfig,
     enc = encode(params, batch["frontend_embeds"], cfg, use_kernel)
     hidden = decode_train(params, batch["tokens"], enc, cfg, use_kernel)
     b, s, d = hidden.shape
-    w = params["embed"].T.to(torch_dtype(cfg.compute_dtype))
+    w = for_compute(params["embed"].T).to(torch_dtype(cfg.compute_dtype))
     mask = batch.get("loss_mask")
     mask = mask.reshape(-1).float() if mask is not None else None
-    return chunked_cross_entropy(hidden.reshape(b * s, d), w,
+    return chunked_cross_entropy(constrain(hidden.reshape(b * s, d),
+                                           "logits_hidden"), w,
                                  batch["labels"].reshape(-1), mask,
                                  n_chunks=n_loss_chunks)
 
@@ -153,7 +165,7 @@ def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """The final LayerNorm and the tied head on (B, d) -> float32 (B, V)."""
     dtype = torch_dtype(cfg.compute_dtype)
     x = _ln(_cast(params["dec_ln"], dtype), x)
-    return (x @ params["embed"].T.to(dtype)).float()
+    return (x @ for_compute(params["embed"].T).to(dtype)).float()
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
@@ -182,27 +194,45 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     b, s = tokens.shape
     max_len = max(max_len or s, s)
     enc = encode(params, frontend_embeds, cfg, use_kernel)
-    x = _embed(params, tokens, torch.arange(s, device=tokens.device), cfg)
+    x = constrain(_embed(params, tokens, torch.arange(s, device=tokens.device),
+                         cfg), "hidden")
     sa, ca = _acfg(cfg, True), _acfg(cfg, False)
     dtype, cdt = torch_dtype(cfg.compute_dtype), torch_dtype(cfg.cache_dtype)
-    sk, sv = attn.init_cache(b, sa, max_len, cdt, tokens.device,
-                             lead=(cfg.n_layers,))
-    cross = (cfg.n_layers, b, cfg.n_kv_heads, enc.shape[1], cfg.head_dim)
-    xk = torch.empty(cross, dtype=cdt, device=tokens.device)
-    xv = torch.empty_like(xk)
+    sharded = is_dtensor(x)
+    if sharded:             # over a mesh: each layer's K/V kept, then stacked
+        kept = {"k": [], "v": [], "xk": [], "xv": []}
+    else:
+        sk, sv = attn.init_cache(b, sa, max_len, cdt, tokens.device,
+                                 lead=(cfg.n_layers,))
+        cross = (cfg.n_layers, b, cfg.n_kv_heads, enc.shape[1], cfg.head_dim)
+        xk = torch.empty(cross, dtype=cdt, device=tokens.device)
+        xv = torch.empty_like(xk)
     layers = _cast(params["dec_layers"], dtype)
     for i in range(cfg.n_layers):
-        lp = _layer(layers, i)
+        lp = constrain_layer_params(_layer(layers, i))
         h, (k, v) = attn.full(lp["self_attn"], _ln(lp["ln1"], x), sa,
                               return_cache=True, use_kernel=use_kernel)
-        x = x + h
-        sk[i, :, :, :s] = k
-        sv[i, :, :, :s] = v
+        x = x + constrain(h, "hidden")
         ck, cv = attn.cross_kv(lp["cross_attn"], enc, ca)
-        x = x + attn.cross_full(lp["cross_attn"], _ln(lp["ln_x"], x), ck, cv,
-                                ca, use_kernel=use_kernel)
-        xk[i], xv[i] = ck, cv
-        x = x + apply_mlp(lp["mlp"], _ln(lp["ln2"], x), act="gelu")
+        if sharded:
+            for key, t in (("k", k), ("v", v), ("xk", ck), ("xv", cv)):
+                kept[key].append(t)
+        else:
+            sk[i, :, :, :s] = k
+            sv[i, :, :, :s] = v
+            xk[i], xv[i] = ck, cv
+        x = x + constrain(attn.cross_full(
+            lp["cross_attn"], _ln(lp["ln_x"], x), ck, cv, ca,
+            use_kernel=use_kernel), "hidden")
+        x = x + constrain(apply_mlp(lp["mlp"], _ln(lp["ln2"], x),
+                                    act="gelu"), "hidden")
+    if sharded:
+        def slots(t):
+            return F.pad(t.to(cdt), (0, 0, 0, max_len - t.shape[2]))
+
+        sk, sv = (stack_layers(kept[key], slots) for key in ("k", "v"))
+        xk, xv = (stack_layers(kept[key], lambda t: t.to(cdt))
+                  for key in ("xk", "xv"))
     return _logits(params, x[:, -1], cfg), {"kv": (sk, sv),
                                              "cross_kv": (xk, xv)}
 
@@ -213,17 +243,19 @@ def decode_step(params: dict, caches: dict, token: torch.Tensor,
     """token (B, 1) int, pos (B,) int -> (logits (B, V) float32, caches).
     The self caches get slot ``pos`` in place (``kv_len = pos + 1``); the
     cross caches are read whole."""
-    x = _embed(params, token, pos[:, None], cfg)
+    x = constrain(_embed(params, token, pos[:, None], cfg), "hidden")
     sa, ca = _acfg(cfg, True), _acfg(cfg, False)
     sk, sv = caches["kv"]
     xk, xv = caches["cross_kv"]
     layers = _cast(params["dec_layers"], torch_dtype(cfg.compute_dtype))
     for i in range(cfg.n_layers):
-        lp = _layer(layers, i)
+        lp = constrain_layer_params(_layer(layers, i))
         h, _, _ = attn.decode(lp["self_attn"], _ln(lp["ln1"], x), sk[i],
                               sv[i], pos, sa, use_kernel=use_kernel)
-        x = x + h
-        x = x + attn.cross_decode(lp["cross_attn"], _ln(lp["ln_x"], x),
-                                  xk[i], xv[i], ca, use_kernel=use_kernel)
-        x = x + apply_mlp(lp["mlp"], _ln(lp["ln2"], x), act="gelu")
+        x = x + constrain(h, "hidden")
+        x = x + constrain(attn.cross_decode(
+            lp["cross_attn"], _ln(lp["ln_x"], x), xk[i], xv[i], ca,
+            use_kernel=use_kernel), "hidden")
+        x = x + constrain(apply_mlp(lp["mlp"], _ln(lp["ln2"], x),
+                                    act="gelu"), "hidden")
     return _logits(params, x[:, 0], cfg), caches

@@ -15,6 +15,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .sharding_ctx import (batch_axes_of, batch_spec, constrain_to,
+                           from_local, is_dtensor, local, split_dims,
+                           split_rows)
+
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
                lead: tuple[int, ...] = (), dtype=torch.float32,
@@ -101,11 +105,25 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
 def apply_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """``(act(x @ w_gate) * (x @ w_up)) @ w_down`` when the MLP is gated
     (it has ``w_gate``), else ``act(x @ w_up) @ w_down``; ``act`` is
-    ``"silu"`` or ``"gelu"``."""
-    up = x @ p["w_up"]
+    ``"silu"`` or ``"gelu"``.  Over a mesh the hidden width stays split
+    over ``model`` (:func:`split_last`), forward and backward."""
+    up = split_last(x @ p["w_up"])
     if "w_gate" in p:
-        return (_act(x @ p["w_gate"], act) * up) @ p["w_down"]
-    return _act(up, act) @ p["w_down"]
+        hidden = _act(split_last(x @ p["w_gate"]), act) * up
+    else:
+        hidden = _act(up, act)
+    return split_last(hidden) @ p["w_down"]
+
+
+def split_last(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` activation laid out with its batch over the batch
+    axes and its last dimension (a column-parallel product's) over
+    ``model``: pinned there, its gradient comes back there too, so the
+    backward's products stay split (``DTensor`` would otherwise pick
+    their layouts by its own costs).  A plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    return constrain_to(t, batch_spec(t, {t.dim() - 1: "model"}))
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
@@ -121,6 +139,53 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         out = out + b
     return out
+
+
+def head_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w``: hidden rows (T, d) through the LM head (d, V).  Over a
+    mesh the product runs on each rank's shard as the head is laid out
+    on ``model`` (its d split: partial logits, summed where they are
+    used; its V split: this rank's vocab slice; neither: whole), so the
+    backward's products are split alike whatever ``DTensor``'s own
+    costs would pick."""
+    if not is_dtensor(w):
+        return h @ w
+    from ..distributed.sharding import P
+    names = tuple(w.device_mesh.mesh_dim_names)
+    on_model = w.placements[names.index("model")] if "model" in names \
+        else None
+    split = next((d for d in (0, 1)
+                  if on_model is not None and on_model.is_shard(d)), None)
+    ax = batch_axes_of(h)
+    hl = local(h, batch_spec(h, {1: "model"} if split == 0 else None),
+               partial_over=("model",) if split == 1 else ())
+    wl = local(w, P(*["model" if d == split else None for d in (0, 1)]),
+               partial_over=ax)
+    out = hl @ wl
+    shape = (h.shape[0], w.shape[1])
+    spec = batch_spec(h, {1: "model"} if split == 1 else None)
+    return from_local(out, h, spec, shape,
+                      partial_over=("model",) if split == 0 else ())
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each row's logit at its label.  Over a mesh (``DTensor`` logits,
+    the vocab split over ``model``) each rank picks the labels in its own
+    vocab slice and the rows are a partial sum over ``model``."""
+    if not is_dtensor(logits):
+        return logits.gather(1, labels[:, None].long())[:, 0]
+    spec = batch_spec(logits, {1: "model"})
+    lg = local(logits, spec)
+    vl = lg.shape[1]
+    first = (logits.device_mesh.get_local_rank("model") * vl
+             if 1 in split_dims(logits, spec) else 0)
+    lab = local(labels, batch_spec(labels)).long() - first
+    mine = (lab >= 0) & (lab < vl)
+    g = lg.gather(1, torch.where(mine, lab, 0)[:, None])[:, 0]
+    g = torch.where(mine, g, 0.0)
+    partial = ("model",) if 1 in split_dims(logits, spec) else ()
+    return from_local(g, logits, batch_spec(labels), tuple(labels.shape),
+                      partial_over=partial)
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, w_vocab: torch.Tensor,
@@ -149,12 +214,17 @@ def chunked_cross_entropy(hidden: torch.Tensor, w_vocab: torch.Tensor,
         mask = F.pad(mask, (0, pad))
     tc = hidden.shape[0] // n_chunks
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    if is_dtensor(hidden):      # over a mesh: chunks cut rank by rank
+        parts = [split_rows(t, n_chunks) for t in (hidden, labels, mask)]
     for i in range(n_chunks):
-        rows = slice(i * tc, (i + 1) * tc)
-        logits = (hidden[rows] @ w_vocab).float()            # (tc, V)
+        if is_dtensor(hidden):
+            h, lab, m = (p[i] for p in parts)
+        else:
+            rows = slice(i * tc, (i + 1) * tc)
+            h, lab, m = hidden[rows], labels[rows], mask[rows]
+        logits = head_product(h, w_vocab).float()            # (tc, V)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(1, labels[rows, None].long())[:, 0]
-        m = mask[rows]
+        gold = _gold(logits, lab)
         nll = (lse - gold) * m
         z = (lse ** 2) * m * z_weight
         total = total + nll.sum() + z.sum()

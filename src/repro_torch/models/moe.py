@@ -22,16 +22,26 @@ it counts dropped pairs as the reference's running count does.  Every
 expert is computed over its whole buffer, the slots no pair filled
 included (zeros in, zeros out): the product reads all E experts' weights
 on every step.
+
+Under a layout plan with ``DTensor`` weights (the sharded train step, the
+dry run) each rank routes its own batch shard's tokens over every expert
+and runs only its ``model`` slice of the experts (the JAX package pins
+the expert buffer to ``moe_experts``: experts over ``model``); the
+output is a partial sum over ``model``, all-reduced where the layer
+joins the residual.  A shard must hold whole routing groups.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from .layers import apply_mlp, dense_init
+from .sharding_ctx import (batch_axes_of, batch_spec, constrain, from_local,
+                           is_dtensor, local)
 
 
 class MoEConfig(NamedTuple):
@@ -128,6 +138,61 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: MoEConfig,
     """x (B, S, d) -> (out (B, S, d), aux_loss): the B x S tokens, in
     that (lane-major) order, are the step's token set.  ``with_aux=False``
     skips the aux loss (returned as None), which serving discards."""
+    if is_dtensor(x):
+        return _apply_moe_sharded(p, x, cfg, with_aux)
+    out, aux = _moe(p, x, cfg, with_aux)
+    if cfg.n_shared_experts:
+        out = out + apply_mlp(p["shared"], x.reshape(-1, x.shape[-1]))
+    return out.reshape(x.shape), aux
+
+
+def _apply_moe_sharded(p: dict, x, cfg: MoEConfig, with_aux: bool):
+    """:func:`apply_moe` of a ``DTensor`` x: the routed experts on this
+    rank's batch shard and ``model`` slice of the experts (all of them
+    where ``model`` does not divide their count), the shared experts as
+    ``DTensor`` products.  The router is used whole by every rank, so its
+    gradient is a partial sum over every axis; the aux loss is each
+    rank's share of the mean."""
+    from ..distributed.sharding import P
+    dm = x.device_mesh
+    names = tuple(dm.mesh_dim_names)
+    m = dm.size(names.index("model")) if "model" in names else 1
+    e = cfg.n_experts
+    ch = "model" if m > 1 and e % m == 0 else None
+    b, s, d = x.shape
+    g = max(min(cfg.group_size, b * s), 1)     # the whole batch's groups
+    spec, ax = batch_spec(x), batch_axes_of(x)
+    parts = math.prod(dm.size(names.index(a)) for a in ax)
+    if (b // parts) * s % g:
+        # a batch shard holds no whole routing group (a decode step's few
+        # tokens): every rank routes the whole batch
+        spec, ax = P(*(None,) * x.dim()), ()
+    # each rank's tokens feed only its experts: their gradient is a
+    # partial sum over "model" where the experts are split
+    xl = local(x, spec, partial_over=("model",) if ch else ())
+    everywhere = tuple(names)
+    lp = {"router": local(p["router"], P(), partial_over=everywhere)}
+    for k in ("w_gate", "w_up", "w_down"):
+        lp[k] = local(p[k], P(ch, None, None), partial_over=ax)
+    el = lp["w_gate"].shape[0]
+    lo = dm.get_local_rank("model") * el if ch else 0
+    out, aux = _moe(lp, xl, cfg._replace(group_size=g), with_aux, lo, el)
+    out = from_local(out.reshape(xl.shape), x, spec, tuple(x.shape),
+                     partial_over=("model",) if ch else ())
+    if aux is not None:
+        # every rank's mean over its tokens, summed over the mesh
+        aux = from_local(aux / dm.size(), x, P(), (), partial_over=everywhere)
+    if cfg.n_shared_experts:
+        out = out + apply_mlp(p["shared"], x.reshape(-1, d)).reshape(x.shape)
+    return out, aux
+
+
+def _moe(p: dict, x: torch.Tensor, cfg: MoEConfig, with_aux: bool,
+         lo: int = 0, n_local: int | None = None):
+    """The routed experts of :func:`apply_moe` on plain tensors: (out (B x
+    S, d), aux).  Every token routes over all E experts; only experts
+    ``lo .. lo + n_local`` (``p``'s expert weights, all E by default) take
+    pairs, and ``out`` sums their share of each token's output."""
     b, s, d = x.shape
     tokens = x.reshape(-1, d)
     t = tokens.shape[0]
@@ -139,6 +204,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: MoEConfig,
         tokens = torch.cat([tokens, tokens.new_zeros(pad, d)])
         valid = torch.arange(n_groups * g, device=x.device) < t
     e, k = cfg.n_experts, cfg.top_k
+    el = e if n_local is None else n_local
     c = capacity(cfg, g)
 
     logits = (tokens @ p["router"]).float()                 # (T', E)
@@ -171,20 +237,24 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: MoEConfig,
     keep = pos < c
     if valid is not None:
         keep = keep & vpair
+    if el < e:                         # another rank's experts take these
+        keep = keep & (idx >= lo) & (idx < lo + el)
     # kept pairs -> rows of the (E, G x C) expert buffer; dropped pairs
     # -> its last row, a sink no expert reads
-    slot = idx * (n_groups * c) + pos
+    slot = (idx - lo) * (n_groups * c) + pos
     if n_groups > 1:
         slot = slot + (torch.arange(n_groups, device=x.device) * c)[:, None]
-    sink = e * n_groups * c
+    sink = el * n_groups * c
     src = tokens.view(n_groups, 1, g, d).expand(n_groups, k, g, d)
     buf = tokens.new_zeros(sink + 1, d)
     buf.index_copy_(0, torch.where(keep, slot, sink).reshape(-1),
                     src.reshape(-1, d))
-    expert_in = buf[:sink].view(e, n_groups * c, d)
+    expert_in = constrain(buf[:sink].view(el, n_groups * c, d),
+                          "moe_experts")
     act = F.silu(torch.bmm(expert_in, p["w_gate"])) \
         * torch.bmm(expert_in, p["w_up"])
-    expert_out = torch.bmm(act, p["w_down"]).view(sink, d)
+    expert_out = constrain(torch.bmm(act, p["w_down"]),
+                           "moe_experts").view(sink, d)
 
     # combine: each token's kept outputs weighted by its gate, in x's
     # dtype as the reference's ``comb.astype(x.dtype)``; a dropped pair
@@ -199,7 +269,4 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: MoEConfig,
         records.append({"top_i": top_i[:t], "keep": keep_tk[:t],
                         **({"x": x} if with_x else {})})
 
-    out = out[:t]
-    if cfg.n_shared_experts:
-        out = out + apply_mlp(p["shared"], x.reshape(-1, d))
-    return out.reshape(b, s, d), aux
+    return out[:t], aux

@@ -32,6 +32,9 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from .layers import causal_conv1d, dense_init, rms_norm
+from .sharding_ctx import (batch_axes_of, batch_spec, constrain_to,
+                           from_local, is_dtensor, local, split_dims,
+                           whole_if_split_past)
 
 
 class Mamba1Config(NamedTuple):
@@ -76,6 +79,51 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(dtype) @ w.to(dtype)
 
 
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None):
+    """``causal_conv1d``; on a ``DTensor`` x (B, L, C), on this rank's
+    shard of batch and, where ``model`` divides them, channels (each
+    channel's taps are its own)."""
+    if not is_dtensor(x):
+        return causal_conv1d(x, w, b)
+    from ..distributed.sharding import P
+    spec = batch_spec(x, {2: "model"})
+    ch = "model" if 2 in split_dims(x, spec) else None
+    ax = batch_axes_of(x)
+    out = causal_conv1d(local(x, spec), local(w, P(None, ch), partial_over=ax),
+                        None if b is None
+                        else local(b, P(ch), partial_over=ax))
+    return from_local(out, x, spec, tuple(x.shape))
+
+
+def _scan_local(fn, x, per_channel: tuple, weights: tuple, shared: tuple,
+                dim: int):
+    """``fn(x, *per_channel, *weights, *shared)`` on this rank's shard of a
+    ``DTensor`` x: batch over the batch axes and, where ``model`` divides
+    it, x's dimension ``dim`` (Mamba-1's channels, Mamba-2's heads), which
+    ``per_channel`` (batch-major, that dimension at ``dim`` too) and
+    ``weights`` (that dimension first) share; ``shared`` (B, L, N) every
+    channel reads, so their gradient is a partial sum over ``model``.
+    The result has x's layout; a (result, final state) pair gives the
+    state (B, that dimension, ...) batch- and channel-split alike."""
+    from ..distributed.sharding import P
+    spec = batch_spec(x, {dim: "model"})
+    ch = "model" if dim in split_dims(x, spec) else None
+    ax = batch_axes_of(x)
+    args = [local(x, spec)]
+    args += [local(t, batch_spec(t, {dim: ch})) for t in per_channel]
+    args += [local(w, P(ch, *(None,) * (w.dim() - 1)), partial_over=ax)
+             for w in weights]
+    args += [local(t, batch_spec(t), partial_over=("model",) if ch else ())
+             for t in shared]
+    out = fn(*args)
+    if not isinstance(out, tuple):
+        return from_local(out, x, spec, tuple(x.shape))
+    y, state = out
+    glob = (x.shape[0], x.shape[dim], *state.shape[2:])
+    return (from_local(y, x, spec, tuple(x.shape)),
+            from_local(state, x, P(spec[0], ch), glob))
+
+
 def apply_mamba1(p: dict, x: torch.Tensor, cfg: Mamba1Config,
                  return_state: bool = False,
                  use_kernel: bool | None = None):
@@ -84,19 +132,49 @@ def apply_mamba1(p: dict, x: torch.Tensor, cfg: Mamba1Config,
     One selective scan per call: K9 on the card, with the final state when
     ``return_state`` asks for it."""
     di, n, r = cfg.d_inner, cfg.d_state, m1_dt_rank(cfg)
-    xin_raw, z = (x @ p["in_proj"]).split(di, dim=-1)
-    xin = F.silu(causal_conv1d(xin_raw, p["conv_w"], p["conv_b"]))
-    dt, bmat, cmat = (xin @ p["x_proj"]).split([r, n, n], dim=-1)
+    xin_raw, z = _in_proj(x, p["in_proj"], [di, di])
+    xin = F.silu(_conv(xin_raw, p["conv_w"], p["conv_b"]))
+    dt, bmat, cmat = _row_parallel(xin, p["x_proj"]).split([r, n, n], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
     a = -torch.exp(p["a_log"].float())
-    out = ops.ssm_scan(xin, dt, a, bmat, cmat, p["d_skip"],
-                       return_final_state=return_state,
-                       use_kernel=use_kernel)
+    if is_dtensor(xin):
+        out = _scan_local(
+            lambda xl, dtl, al, dl, bl, cl: ops.ssm_scan(
+                xl, dtl, al, bl, cl, dl, return_final_state=return_state,
+                use_kernel=use_kernel),
+            xin, (dt,), (a, p["d_skip"]), (bmat, cmat), 2)
+    else:
+        out = ops.ssm_scan(xin, dt, a, bmat, cmat, p["d_skip"],
+                           return_final_state=return_state,
+                           use_kernel=use_kernel)
     y, hf = out if return_state else (out, None)
     out = (y * F.silu(z)) @ p["out_proj"]
     if return_state:
         return out, {"conv": _conv_tail(xin_raw, cfg.d_conv), "h": hf}
     return out
+
+
+def _in_proj(x: torch.Tensor, w: torch.Tensor, sizes: list) -> tuple:
+    """``(x @ w).split(sizes, dim=-1)``.  Over a mesh the weight is split
+    into its column blocks first (gathered whole over ``model`` for it)
+    and each block split over ``model`` again where it divides, so each
+    product stays column-parallel."""
+    if not is_dtensor(w):
+        return (x @ w).split(sizes, dim=-1)
+    from ..distributed.sharding import P
+    return tuple(x @ constrain_to(blk, P(None, "model"))
+                 for blk in w.split(sizes, dim=-1))
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; over a mesh, with ``w``'s rows split over ``model`` as x's
+    channels are and the partial sums all-reduced into x's batch layout
+    (the small projection every channel shard feeds)."""
+    if not is_dtensor(x):
+        return x @ w
+    from ..distributed.sharding import P
+    out = x @ constrain_to(w, P("model", None))
+    return constrain_to(out, batch_spec(out))
 
 
 def _conv_tail(raw: torch.Tensor, d_conv: int) -> torch.Tensor:
@@ -252,17 +330,27 @@ def apply_mamba2(p: dict, x: torch.Tensor, cfg: Mamba2Config,
     """x (B, L, d) -> (B, L, d) [, the final decode state {"conv": (B,
     d_conv - 1, Di + 2N), "h": (B, H, N, P) float32}]."""
     di, n, h, pd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
-    z, xbc_raw, dt = (x @ p["in_proj"]).split([di, di + 2 * n, h], dim=-1)
-    xbc = F.silu(causal_conv1d(xbc_raw, p["conv_w"], p["conv_b"]))
+    z, xbc_raw, dt = _in_proj(x, p["in_proj"], [di, di + 2 * n, h])
+    xbc = F.silu(_conv(xbc_raw, p["conv_w"], p["conv_b"]))
     xin, bmat, cmat = xbc.split([di, n, n], dim=-1)
     dt = F.softplus(dt + p["dt_bias"])                   # (B, L, H)
     a_head = -torch.exp(p["a_log"].float())              # (H,)
     bsz, length, _ = x.shape
-    out = ssd_chunked(xin.reshape(bsz, length, h, pd), dt, a_head, bmat,
-                      cmat, p["d_skip"], cfg.chunk,
-                      return_final_state=return_state)
+    xh = whole_if_split_past(xin, -1, h).reshape(bsz, length, h, pd)
+    if is_dtensor(xh):
+        out = _scan_local(
+            lambda xl, dtl, al, dl, bl, cl: ssd_chunked(
+                xl, dtl, al, bl, cl, dl, cfg.chunk,
+                return_final_state=return_state),
+            xh, (dt,), (a_head, p["d_skip"]), (bmat, cmat), 2)
+    else:
+        out = ssd_chunked(xh, dt, a_head, bmat, cmat, p["d_skip"],
+                          cfg.chunk, return_final_state=return_state)
     y, hf = out if return_state else (out, None)
-    y = rms_norm(y.reshape(bsz, length, di) * F.silu(z), p["norm_w"])
+    y = y.reshape(bsz, length, di) * F.silu(z)
+    # the gated norm runs over whole rows (gathered over a mesh)
+    y = rms_norm(constrain_to(y, batch_spec(y)) if is_dtensor(y) else y,
+                 p["norm_w"])
     out = y @ p["out_proj"]
     if return_state:
         return out, {"conv": _conv_tail(xbc_raw, cfg.d_conv), "h": hf}

@@ -52,6 +52,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig
@@ -60,7 +61,8 @@ from . import moe
 from . import ssm
 from .layers import (apply_mlp, chunked_cross_entropy, dense_init,
                      embed_init, init_mlp, rms_norm)
-from .sharding_ctx import current_plan
+from .sharding_ctx import (constrain, constrain_layer_params, current_plan,
+                           for_compute, is_dtensor, stack_layers, take_rows)
 
 _OTHER_FAMILIES = "ROADMAP queue 1, item 8 (the other model families)"
 _KINDS = ("attn_mlp", "attn_moe", "mamba1", "mamba2", "encdec_layer")
@@ -206,15 +208,15 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     arch without a frontend has no ``frontend_proj`` and raises
     ``ValueError``."""
     dtype = torch_dtype(cfg.compute_dtype)
-    x = params["embed"][tokens].to(dtype)
+    x = take_rows(params["embed"], tokens).to(dtype)
     if frontend_embeds is None:
-        return x
+        return constrain(x, "hidden")
     if "frontend_proj" not in params:
         raise ValueError(
             f"{cfg.name!r} has no frontend (frontend={cfg.frontend!r}): it "
             "takes no frontend_embeds")
     fe = frontend_embeds.to(dtype) @ params["frontend_proj"].to(dtype)
-    return torch.cat([fe, x], dim=1)
+    return constrain(torch.cat([fe, x], dim=1), "hidden")
 
 
 def lm_head_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -231,7 +233,8 @@ def head_logits(params: dict, hidden: torch.Tensor,
                 cfg: ArchConfig) -> torch.Tensor:
     """LM head on final-normed hidden states (``forward``'s output) ->
     float32 logits over ``padded_vocab``."""
-    w = lm_head_weight(params, cfg).to(torch_dtype(cfg.compute_dtype))
+    w = for_compute(lm_head_weight(params, cfg)).to(
+        torch_dtype(cfg.compute_dtype))
     return (hidden @ w).float()
 
 
@@ -256,23 +259,28 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
     Returns (x, aux_loss): the MoE's load-balancing loss, 0 for the other
     kinds."""
     aux = None
+    # each branch's output joins the residual in the "hidden" layout (over
+    # a mesh: a row-parallel product's partial sums all-reduced there)
     if kind in ("attn_mlp", "attn_moe"):
-        x = x + attn.full(p["attn"], rms_norm(x, p["norm1_w"]),
-                          attn_config(cfg), use_kernel=use_kernel)
+        x = x + constrain(attn.full(p["attn"], rms_norm(x, p["norm1_w"]),
+                                    attn_config(cfg), use_kernel=use_kernel),
+                          "hidden")
         out, aux = _ffn(p, rms_norm(x, p["norm2_w"]), cfg, kind,
                         with_aux=True)
-        x = x + out
+        x = x + constrain(out, "hidden")
     elif kind == "mamba1":
-        x = x + ssm.apply_mamba1(p["ssm"], rms_norm(x, p["norm1_w"]),
-                                 mamba1_config(cfg), use_kernel=use_kernel)
+        x = x + constrain(ssm.apply_mamba1(
+            p["ssm"], rms_norm(x, p["norm1_w"]), mamba1_config(cfg),
+            use_kernel=use_kernel), "hidden")
     elif kind == "mamba2":
-        x = x + ssm.apply_mamba2(p["ssm"], rms_norm(x, p["norm1_w"]),
-                                 mamba2_config(cfg))
+        x = x + constrain(ssm.apply_mamba2(
+            p["ssm"], rms_norm(x, p["norm1_w"]), mamba2_config(cfg)),
+            "hidden")
     else:
         raise ValueError(kind)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux
+    return constrain(x, "hidden"), aux
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -325,7 +333,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     shared = _shared(params, cfg)
 
     def body(lp, x, i):
-        x, a = apply_layer(lp, x, cfg, kind, use_kernel)
+        x, a = apply_layer(constrain_layer_params(lp), x, cfg, kind,
+                           use_kernel)
         if _applies(cfg, i):
             x = _shared_block(shared, x, cfg, use_kernel)[0]
         return x, a
@@ -357,8 +366,10 @@ def train_loss(params: dict, batch: dict, cfg: ArchConfig,
     b, s, d = hidden.shape
     mask = batch.get("loss_mask")
     mask = mask.reshape(-1).float() if mask is not None else None
-    w = lm_head_weight(params, cfg).to(torch_dtype(cfg.compute_dtype))
-    loss = chunked_cross_entropy(hidden.reshape(b * s, d), w,
+    w = for_compute(lm_head_weight(params, cfg)).to(
+        torch_dtype(cfg.compute_dtype))
+    loss = chunked_cross_entropy(constrain(hidden.reshape(b * s, d),
+                                           "logits_hidden"), w,
                                  batch["labels"].reshape(-1), mask,
                                  n_chunks=n_loss_chunks)
     return loss + aux
@@ -387,11 +398,13 @@ def _shared_block(sp: dict, x: torch.Tensor, cfg: ArchConfig,
     """The shared transformer block over a whole sequence: windowed
     causal attention (K1 on the card), then the gated MLP, each with a
     residual.  Returns (x, (k, v)): the K/V the attention made."""
+    sp = for_compute(sp)
     h, kv = attn.full(sp["attn"], rms_norm(x, sp["norm1_w"]),
                       attn_config(cfg), return_cache=True,
                       use_kernel=use_kernel)
-    x = x + h
-    return x + apply_mlp(sp["mlp"], rms_norm(x, sp["norm2_w"])), kv
+    x = x + constrain(h, "hidden")
+    return x + constrain(apply_mlp(sp["mlp"], rms_norm(x, sp["norm2_w"])),
+                         "hidden"), kv
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
@@ -444,15 +457,15 @@ def decode_step(params: dict, caches: dict, token: torch.Tensor,
         step, mcfg = ((ssm.step_mamba1, mamba1_config(cfg))
                       if kind == "mamba1" else
                       (ssm.step_mamba2, mamba2_config(cfg)))
-        state, shared = caches["ssm"], _shared(params, cfg)
+        state, shared = caches["ssm"], for_compute(_shared(params, cfg))
         acfg = attn_config(cfg)
         for i in range(cfg.n_layers):
-            lp = _layer(layers, i)
+            lp = constrain_layer_params(_layer(layers, i))
             h, new = step(lp["ssm"], rms_norm(x, lp["norm1_w"]),
                           _layer(state, i), mcfg)
             for key, t in new.items():
                 state[key][i].copy_(t)
-            x = x + h
+            x = x + constrain(h, "hidden")
             if _applies(cfg, i):
                 a = _app_index(cfg, i)
                 sk, sv = caches["shared_kv"]
@@ -460,18 +473,20 @@ def decode_step(params: dict, caches: dict, token: torch.Tensor,
                                       rms_norm(x, shared["norm1_w"]),
                                       sk[a], sv[a], pos, acfg,
                                       use_kernel=use_kernel)
-                x = x + h
-                x = x + apply_mlp(shared["mlp"],
-                                  rms_norm(x, shared["norm2_w"]))
+                x = x + constrain(h, "hidden")
+                x = x + constrain(apply_mlp(shared["mlp"],
+                                            rms_norm(x, shared["norm2_w"])),
+                                  "hidden")
         return _logits(params, x[:, 0], cfg), caches
     acfg = attn_config(cfg)
     ck, cv = caches["kv"]
     for i in range(cfg.n_layers):
-        lp = _layer(layers, i)
+        lp = constrain_layer_params(_layer(layers, i))
         h, _, _ = attn.decode(lp["attn"], rms_norm(x, lp["norm1_w"]),
                               ck[i], cv[i], pos, acfg, use_kernel=use_kernel)
-        x = x + h
-        x = x + _ffn(lp, rms_norm(x, lp["norm2_w"]), cfg, kind)[0]
+        x = x + constrain(h, "hidden")
+        x = x + constrain(_ffn(lp, rms_norm(x, lp["norm2_w"]), cfg, kind)[0],
+                          "hidden")
     return _logits(params, x[:, 0], cfg), caches
 
 
@@ -505,6 +520,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     kind = cfg.layer_kinds()[0]
     if kind in ("mamba1", "mamba2"):
         return _prefill_ssm(params, x, cfg, max_len, use_kernel)
+    if is_dtensor(x):
+        return _prefill_sharded(params, x, cfg, max_len, use_kernel)
     b, s, _ = x.shape
     acfg = attn_config(cfg)
     max_len = max(max_len or s, s)
@@ -523,6 +540,37 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         x = x + h
         x = x + _ffn(lp, rms_norm(x, lp["norm2_w"]), cfg, kind)[0]
     return _logits(params, x[:, -1], cfg), caches
+
+
+def _prefill_sharded(params: dict, x, cfg: ArchConfig,
+                     max_len: int | None, use_kernel: bool | None):
+    """:func:`prefill` of an attention stack over a mesh (``DTensor``
+    weights and prompt): the layers as ``forward`` runs them, each
+    layer's K/V kept in the plan's ``kv_heads`` layout, ringed and padded
+    to the cache's slots on each rank's shard."""
+    s = x.shape[1]
+    kind = cfg.layer_kinds()[0]
+    acfg = attn_config(cfg)
+    w = min(max(max_len or s, s), cfg.window or max(max_len or s, s))
+    ks, vs = [], []
+    for lp in _unstack(_cast(params["layers"],
+                             torch_dtype(cfg.compute_dtype)), cfg.n_layers):
+        lp = constrain_layer_params(lp)
+        h, (k, v) = attn.full(lp["attn"], rms_norm(x, lp["norm1_w"]), acfg,
+                              return_cache=True, use_kernel=use_kernel)
+        x = x + constrain(h, "hidden")
+        x = x + constrain(_ffn(lp, rms_norm(x, lp["norm2_w"]), cfg,
+                               kind)[0], "hidden")
+        ks.append(k)
+        vs.append(v)
+    cdt = torch_dtype(cfg.cache_dtype)
+
+    def slots(t):          # (L-less) local (B, Hkv, S, D) -> W slots
+        t = _ring(t, w).to(cdt)
+        return F.pad(t, (0, 0, 0, w - t.shape[2]))
+
+    return _logits(params, x[:, -1], cfg), {
+        "kv": (stack_layers(ks, slots), stack_layers(vs, slots))}
 
 
 def _ring(k: torch.Tensor, w: int) -> torch.Tensor:
@@ -547,24 +595,38 @@ def _prefill_ssm(params: dict, x: torch.Tensor, cfg: ArchConfig,
         apply, mcfg = ssm.apply_mamba2, mamba2_config(cfg)
     layers = _cast(params["layers"], torch_dtype(cfg.compute_dtype))
     shared = _shared(params, cfg)
-    if shared is not None:
+    sharded = is_dtensor(x)
+    if shared is not None and not sharded:
         sk, sv = shared_kv = _init_shared_kv(cfg, b, max(max_len or s, s),
                                              x.device)
         n = min(s, sk.shape[3])
-    states = []
+    w = min(max(max_len or s, s), cfg.window or max(max_len or s, s))
+    states, ring_k, ring_v = [], [], []
     for i in range(cfg.n_layers):
-        lp = _layer(layers, i)
+        lp = constrain_layer_params(_layer(layers, i))
         h, st = apply(lp["ssm"], rms_norm(x, lp["norm1_w"]), mcfg,
                       return_state=True)
-        x = x + h
+        x = x + constrain(h, "hidden")
         states.append(st)
         if _applies(cfg, i):
             x, (k, v) = _shared_block(shared, x, cfg, use_kernel)
+            if sharded:
+                ring_k.append(k)
+                ring_v.append(v)
+                continue
             a = _app_index(cfg, i)
             sk[a, :, :, :n] = _ring(k, sk.shape[3])
             sv[a, :, :, :n] = _ring(v, sk.shape[3])
     caches = {"ssm": {key: torch.stack([st[key] for st in states])
                       for key in ("conv", "h")}}
+    if shared is not None and sharded:
+        cdt = torch_dtype(cfg.cache_dtype)
+
+        def slots(t):
+            t = _ring(t, w).to(cdt)
+            return F.pad(t, (0, 0, 0, w - t.shape[2]))
+
+        shared_kv = (stack_layers(ring_k, slots), stack_layers(ring_v, slots))
     if shared is not None:
         caches["shared_kv"] = shared_kv
     return _logits(params, x[:, -1], cfg), caches

@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..models.sharding_ctx import from_local, is_dtensor
+
 
 class AdamWConfig(NamedTuple):
     lr: float = 3e-4
@@ -57,11 +59,17 @@ def leaves(tree) -> list:
 
 
 def init(params: dict) -> AdamWState:
+    """Zero moments in float32, laid out as their parameters (``DTensor``
+    parameters give ``DTensor`` moments of the same placements), and a
+    zero step: a replicated ``DTensor`` on the parameters' mesh where they
+    are ``DTensor``."""
     zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                      params)
-    device = leaves(params)[0].device
-    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
-                      m=zeros, v=tree_map(torch.clone, zeros))
+    first = leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if is_dtensor(first):
+        step = from_local(step, first, (), ())
+    return AdamWState(step=step, m=zeros, v=tree_map(torch.clone, zeros))
 
 
 def schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:

@@ -50,6 +50,22 @@ it), as the JAX package's gateway does.  ``stats()`` also reports the loop's hos
 spent in schedule + dispatch, the ms from the await on the tick's event
 to its return, and the ms in emit (with ``max_inflight=1`` the wait is
 inside emit).
+
+Over a serving mesh of more than one rank (``mesh``, every rank one
+engine of a tensor-parallel world) rank 0 alone owns the gateway: its
+server, its clients, its queue and its policy.  Before each tick's
+schedule it broadcasts the tick's inputs (``collectives.broadcast_object``):
+the requests it moved into its engine and the cancellations it applied,
+in the order it applied them.  Ranks 1.. run :meth:`follow` instead of
+:meth:`run`: they apply the same inputs to their engines and step them
+through the same ``schedule`` / ``dispatch`` / ``emit``, whose own
+broadcasts (``ServingEngine._decide``) keep their tokens rank 0's.  A
+``GatewayPolicy`` window's statistics go to every rank before its region
+runs, so each rank's region takes rank 0's measurement and commits rank
+0's winner.  An idle rank 0 sends an empty message every tenth of the
+mesh's collective timeout (``Mesh.timeout_s``, the world's), so the
+followers' waits never time out, and a stop message when it drains,
+which ends the followers' loops.
 """
 from __future__ import annotations
 
@@ -58,6 +74,7 @@ import time
 from collections import deque
 from dataclasses import dataclass
 
+from ...distributed.collectives import broadcast_object
 from ..metrics import percentile
 from ..scheduler import Request
 
@@ -162,8 +179,17 @@ class PipelinedEngine:
     def __init__(self, engine, *, queue_limit: int = 64,
                  knobs: GatewayPolicyKnobs | None = None, tuner=None,
                  policy_window: int = 4, slo_ttft_s: float = 2.0,
-                 slo_itl_s: float = 0.5):
+                 slo_itl_s: float = 0.5, mesh=None):
         self.engine = engine
+        # a serving mesh of more than one rank: rank 0 leads, the others
+        # follow its broadcast tick inputs
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        # the followers' heartbeat, well inside their collectives' timeout
+        self.heartbeat_s = (self.mesh.timeout_s / 10 if self.mesh is not None
+                            else None)
+        self._ops: list[tuple] = []        # inputs the followers lack yet
+        self._last_sync = time.monotonic()
+        self.syncs = 0                     # messages sent or received
         self.queue_limit = queue_limit
         self.knobs = knobs or GatewayPolicyKnobs()
         self.tuner = tuner
@@ -233,10 +259,16 @@ class PipelinedEngine:
             return
         stats = goodput_stats(self._window_reqs, now - self._window_t0,
                               self.slo_ttft_s, self.slo_itl_s)
-        self.tuner.gateway_policy(stats)
-        self.policy_windows += 1
+        self._sync(policy=stats)
+        self._run_policy(stats)
         self._window_t0 = now
         self._window_reqs = []
+
+    def _run_policy(self, stats: dict) -> None:
+        """One measurement of the ``GatewayPolicy`` region, then the knobs
+        it wants next (every rank, on rank 0's statistics)."""
+        self.tuner.gateway_policy(stats)
+        self.policy_windows += 1
         self._apply_policy_candidate()
 
     # -- submission / cancellation --------------------------------------
@@ -287,6 +319,7 @@ class PipelinedEngine:
                     break
             else:
                 self.engine.cancel_request(rid)
+                self._ops.append(("cancel", rid))
             self.cancels += 1
             if stream is not None:
                 stream.push("cancelled", {"rid": rid})
@@ -297,7 +330,53 @@ class PipelinedEngine:
         into the scheduler's ready queue.  Pure host mutation — safe to
         run while a dispatched tick's device work is still in flight."""
         for _ in range(min(self.knobs.admit_batch, len(self.arrivals))):
-            self.engine.submit(self.arrivals.popleft())
+            req = self.arrivals.popleft()
+            self.engine.submit(req)
+            self._ops.append(("submit", req.rid, req.prompt,
+                              req.max_new_tokens, req.sampling))
+
+    # -- the followers' inputs (a multi-rank mesh) -------------------------
+    def _sync(self, **msg) -> None:
+        """Rank 0: broadcast the inputs applied since the last message
+        (with ``msg``: ``tick``, ``policy``, ``stop``) to the followers."""
+        if self.mesh is None:
+            self._ops.clear()
+            return
+        broadcast_object({"ops": self._ops, **msg})
+        self._ops = []
+        self._last_sync = time.monotonic()
+        self.syncs += 1
+
+    def _apply_ops(self, ops: list[tuple]) -> None:
+        """A follower: rank 0's submissions and cancellations, in order."""
+        for op in ops:
+            if op[0] == "submit":
+                _, rid, prompt, max_new, sampling = op
+                self.engine.submit(Request(rid=rid, prompt=list(prompt),
+                                           max_new_tokens=max_new,
+                                           sampling=sampling))
+            else:
+                self.engine.cancel_request(op[1])
+                self.cancels += 1
+
+    def follow(self) -> None:
+        """The tick loop of ranks 1.. of a multi-rank mesh: receive rank
+        0's messages and do what it did, until its stop message."""
+        if self.mesh is None or self.mesh.rank == 0:
+            raise RuntimeError("follow() runs on ranks 1.. of a multi-rank "
+                               "mesh; rank 0 runs the gateway (run())")
+        while True:
+            msg = broadcast_object(None)
+            self.syncs += 1
+            self._apply_ops(msg["ops"])
+            if msg.get("policy") is not None:
+                self._run_policy(msg["policy"])
+            if msg.get("stop"):
+                return
+            if msg.get("tick"):
+                self.engine.schedule()
+                self.engine.emit(self.engine.dispatch())
+                self.ticks += 1
 
     # -- token routing ---------------------------------------------------
     def _flush_streams(self) -> None:
@@ -338,6 +417,9 @@ class PipelinedEngine:
                 if not self._has_work():
                     if self._draining:
                         break
+                    if (self.mesh is not None and time.monotonic()
+                            - self._last_sync >= self.heartbeat_s):
+                        self._sync()       # the followers' heartbeat
                     await asyncio.sleep(_IDLE_SLEEP_S)
                     continue
                 self._drain_arrivals()
@@ -345,6 +427,7 @@ class PipelinedEngine:
                           len(self.engine.finished),
                           len(self.engine.cancelled))
                 t0 = time.perf_counter()
+                self._sync(tick=True)
                 self.engine.schedule()
                 work = self.engine.dispatch()
                 t1 = time.perf_counter()
@@ -374,6 +457,7 @@ class PipelinedEngine:
                         "lane or pages (page pool smaller than one "
                         "sequence?)")
                 await asyncio.sleep(0)     # handlers run between ticks
+            self._sync(stop=True)
         except BaseException as e:
             self._loop_error = e
             for stream in self.streams.values():
@@ -409,6 +493,7 @@ class PipelinedEngine:
             "cancelled": len(eng.cancelled),
             "cancels": self.cancels,
             "rejected_429": self.rejected,
+            "syncs": self.syncs,
             "draining": self._draining,
             "policy": {"max_inflight": self.knobs.max_inflight,
                        "admit_batch": self.knobs.admit_batch},

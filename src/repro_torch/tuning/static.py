@@ -7,9 +7,11 @@ cost definition function is the three-term roofline (``core/cost.py``'s
 ``roofline_terms``) over :func:`repro_torch.launch.analytic.step_costs`
 and a per-plan collective model, at one card's rates: the row of
 ``core.cost.CHIPS`` named by ``chip`` (``torch.cuda.get_device_name()``),
-the default row (the H100 SXM) when it is None.  The measured path, a
-dry-run compile of each candidate (``compiled_plan_cost``), is ROADMAP
-queue 1, item 10b.
+the default row (the H100 SXM) when it is None.  The measured path,
+``compiled_plan_cost``, scores a candidate by the port's dry run of it
+(:func:`repro_torch.launch.dryrun.dryrun_cell`: one step on fake tensors
+over the production mesh, its per-rank FLOPs and collective bytes
+counted) through the roofline of :mod:`repro_torch.launch.roofline`.
 
 Results are recorded per BP tuple in ``OAT_StaticParam.dat`` exactly like
 the paper's ``(OAT_PROBSIZE 1024 (MyMatMul_I 4) ...)`` records, with the
@@ -27,8 +29,6 @@ from ..launch.analytic import step_costs
 
 TRAIN_PLANS = ("tp", "fsdp")
 DECODE_PLANS = ("tp", "decode_seq", "decode_resident")
-#: the ROADMAP item that brings the measured path
-DRYRUN_ITEM = "ROADMAP queue 1, item 10b"
 
 
 def candidate_plans(kind: str) -> tuple[str, ...]:
@@ -101,12 +101,15 @@ def analytic_plan_cost(arch_name: str, shape_name: str, plan: str,
 
 def compiled_plan_cost(arch_name: str, shape_name: str, plan: str,
                        multi_pod: bool = False, **overrides) -> float:
-    """The measured path: dry-run compile the candidate and score it.
-    The port's dry run is not written yet."""
-    raise NotImplementedError(
-        f"compiled_plan_cost ({arch_name}, {shape_name}, {plan!r}) needs "
-        f"the port's dry run (launch/dryrun.py), which is not ported yet: "
-        f"{DRYRUN_ITEM}")
+    """The measured path: the roofline bound (s) of the port's dry run of
+    the candidate (``from_artifact(dryrun_cell(...)).bound_s``, as the
+    JAX package's); ``overrides`` go to ``dryrun_cell`` (``remat``,
+    ``num_microbatches``, ``loss_chunks``)."""
+    from ..launch.dryrun import dryrun_cell
+    from ..launch.roofline import from_artifact
+    rec = dryrun_cell(arch_name, shape_name, multi_pod=multi_pod,
+                      plan_name=plan, verbose=False, **overrides)
+    return from_artifact(rec).bound_s
 
 
 def tune_layout(session: "at.AutoTuner | ATContext", arch_name: str,

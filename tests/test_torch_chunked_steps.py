@@ -173,9 +173,13 @@ def test_step_for_shape_dispatches_by_kind():
     assert names == {"train": "train_step", "prefill": "prefill_step",
                      "decode": "decode_step"}
     assert StepBundle(fn=len).donate == ()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        step_for_shape(model, ShapeConfig("t", 16, 2, "train"),
-                       LayoutPlan(), param_shardings={})
+    # param_shardings is taken (the layouts the gradients are pinned to:
+    # {} pins each to its parameter's own); plain tensors pass untouched
+    step = step_for_shape(model, ShapeConfig("t", 16, 2, "train"),
+                          LayoutPlan(), param_shardings={})
+    assert step.__name__ == "train_step"
+    grads = [torch.ones(2), torch.zeros(3)]
+    assert steps.pin_grads(grads, grads, {}) == grads
     assert steps.SHARDING_ITEM == "ROADMAP queue 1, item 10"
 
 

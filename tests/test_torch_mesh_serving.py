@@ -16,8 +16,8 @@ package's unsharded engine (mirrors ``test_mesh_serving.py``).
   ``kv_heads=2`` and "not divisible";
 * ``serve --mesh 1x2`` (the CLI's world) equals the unsharded serve, and
   with ``--autotune`` keys its regions ``_mesh1x2``, rank 0 deciding, a
-  second serve warm-loading every region; the gateway and dense lanes
-  refuse a multi-rank mesh.
+  second serve warm-loading every region; the gateway over a multi-rank
+  mesh equals the unsharded gateway, and dense lanes refuse one.
 """
 import jax
 import numpy as np
@@ -121,7 +121,8 @@ def test_mesh_spec_validation():
     assert host.axis_names == ("data", "model") and launch_mesh.chips(host) == 1
     for multi_pod, need in ((False, 256), (True, 512)):
         with pytest.raises(ValueError, match=f"needs a world of {need} "
-                                             "ranks.*item 10b"):
+                                             f"ranks.*fake_world\\({need}\\)"
+                                             ".*launch.dryrun"):
             launch_mesh.make_production_mesh(multi_pod=multi_pod)
 
 
@@ -189,8 +190,15 @@ def test_serve_mesh_cli_path_and_its_tuning(tmp_path):
 
 
 def test_multi_rank_mesh_refuses_the_gateway_and_dense_lanes():
-    with pytest.raises(ValueError, match="ROADMAP item 10b"):
-        serve_mesh(ServeConfig(device="cpu", cache="paged", gateway=True,
-                               mesh="1x2"))
+    """The gateway is served over a multi-rank mesh (rank 0 leads, the
+    other ranks follow it) and equals the unsharded gateway; dense lanes
+    stay refused."""
+    base = dict(device="cpu", cache="paged", page_size=8, max_len=64,
+                n_requests=4, max_new=6, prefill_chunk=8, gateway=True)
+    want = serve_config(ServeConfig(**base))
+    got = serve_mesh(ServeConfig(**base, mesh="1x2"))
+    assert got["outputs"] == want["outputs"] and got["mesh"] == "1x2"
+    assert got["gateway"]["streams"] == {"done": 4}
+    assert got["gateway"]["syncs"] > 0
     with pytest.raises(ValueError, match="--cache paged with --mesh"):
         serve_mesh(ServeConfig(device="cpu", mesh="1x2"))

@@ -275,9 +275,62 @@ def test_every_cell_tuned_at_a_card_is_the_argmin_and_warm_loads(
         for a, s in cells)
 
 
+_COMPILED_COST = '''
+import functools, json, sys, tempfile
+import repro_torch.at as at
+from repro_torch.configs import ShapeConfig, get_arch
+from repro_torch.distributed.process_mesh import fake_world, make_mesh
+from repro_torch.launch import dryrun, roofline
+from repro_torch.tuning import static
+small = ShapeConfig("train_4k", 64, 16, "train")
+# in this child only: reduced yi-6b, a small train shape, a 2x4 mesh
+for mod in (dryrun, roofline, static):
+    mod.get_arch = lambda n: get_arch(n).reduced()
+    mod.get_shape = lambda n: small
+dryrun.make_production_mesh = lambda multi_pod=False: make_mesh(
+    (2, 4), ("data", "model"))
+kw = dict(num_microbatches=2, remat="none")
+with fake_world(8):
+    costs = {p: static.compiled_plan_cost("yi-6b", "train_4k", p, **kw)
+             for p in static.candidate_plans("train")}
+    bound = roofline.from_artifact(dryrun.dryrun_cell(
+        "yi-6b", "train_4k", plan_name="tp", verbose=False, **kw)).bound_s
+    work = tempfile.mkdtemp()
+    cost_fn = functools.partial(static.compiled_plan_cost, "yi-6b",
+                                "train_4k", **kw)
+    first = static.tune_layout(at.AutoTuner(work), "yi-6b", "train_4k",
+                               cost_fn=cost_fn, chips=8)
+    again = at.AutoTuner(work)
+    second = static.tune_layout(again, "yi-6b", "train_4k",
+                                cost_fn=cost_fn, chips=8)
+print("COSTS" + json.dumps({"costs": costs, "bound": bound, "first": first,
+                            "second": second,
+                            "warm": sorted(map(list, again.warm_hits))}))
+'''
+
+
 def test_compiled_plan_cost_names_item_10():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        static.compiled_plan_cost("yi-6b", "train_4k", "tp")
+    """``compiled_plan_cost`` is the roofline bound of the port's dry run
+    of the plan (``from_artifact(dryrun_cell(...)).bound_s``), and
+    ``tune_layout`` with it as ``cost_fn`` commits the cheapest plan and
+    reads it back warm.  In a child process (the dry run's fake world),
+    at reduced yi-6b on a 2x4 mesh."""
+    import os
+    import subprocess
+    import sys
+    out = subprocess.run([sys.executable, "-c", _COMPILED_COST], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(next(x for x in out.stdout.splitlines()
+                          if x.startswith("COSTS"))[len("COSTS"):])
+    costs = got["costs"]
+    assert set(costs) == set(static.candidate_plans("train"))
+    assert all(c > 0 and c == c and c != float("inf")
+               for c in costs.values())
+    assert costs["tp"] == got["bound"]
+    assert got["first"] == got["second"] == min(costs, key=costs.get)
+    assert ["static", "Layout_yi_6b_train_4k"] in got["warm"]
 
 
 # --------------------------------------------------------------------------
