@@ -6,7 +6,10 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
-   all in parallel; the instances of the tensor-core kernels (K1 in
+   all in parallel, each source's seconds from its log; the instances
+   of the tensor-core kernels, those of their own and the padded ones
+   (each kernel's default tile at the widths of
+   ``fa.PADDED_HEAD_DIMS``) apart (K1 in
    ``flash_attention.cu``, at block_q 64 and 128 by block_k 64 and 128 at
    D 128, D 80, D 112 and D 160; K4, K6c and the partials modes K5b and
    K6d in ``paged_prefill.cu``, at every tile: rows 16, 32, 48, 64 and 80
@@ -397,6 +400,31 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    yi-6b train_4k with ``compiled_plan_cost`` (at 2 layers), beside the
    analytic winner, read back warm.  (c) and (d) need no device: they
    run in a process of their own, started before phase 37.
+39. every head dim and group size the Pallas attention kernels take: K1-K6d
+   against plain at D 24, 36, 37, 80, 90, 96, 100, 112, 160 and 256 (28 q
+   / 4 kv heads: G 7; 37 and 90 give bf16 and int8 rows that are no
+   multiple of 4 bytes), bf16 on the tensor cores and float32 on the SIMT
+   templates, each launch on its route and on the instance ``fa.route``
+   (``pa.prefill_route`` for a prefill) names (the head dim's own, or the
+   padded one of the smallest width of ``fa.PADDED_HEAD_DIMS`` at or
+   above it), and the prefill kernel's flattened (position, head) rows,
+   on the padded instances, at G 3 and 5 (D 160), 7 (D 128), 9 (D 64) and
+   96; D 264 refused; (d) the padded instances, forced by the private
+   ``fa._forced_width``, bit-equal to the head dims' own (K1, K2,
+   K3 and K5a, K4 and K5b; bf16 and float32); (a) float32 serves of 4
+   requests: h2o-danube-1.8b whole at D 80 on dense lanes, zamba2-7b cut
+   to 13 layers (the shared block twice) at D 112, pixtral-12b cut to 10
+   of 40 layers at D 160 dense, paged, at 8 splits, over int8 pages in
+   one pass and at 8 splits, and speculative over fp and int8 pages, all
+   on the SIMT templates, logits within 1e-3 of their scale of plain;
+   (b) yi-6b's widths cut to 8 layers at d_head 96, 256 and 100 (a bf16
+   row of 200 bytes: 4-byte copies), dense, paged, int8 at 8 splits and
+   speculative on the padded instances, logits, and K1, K2, K3 and K4 at
+   D 96 and 256 timed beside plain, SDPA and the bound; (c) Qwen2-7B's
+   28 q / 4 kv heads (G 7, D 128) and 24 / 8 (G 3) at D 160 on yi-6b's
+   widths, paged, int8 at 8 splits and speculative over fp and int8
+   pages on the flattened rows, logits, and K4, K6c, K5b and K6d at G 7
+   timed.
 
 Then the script's run time by group of phases, one JSON line with every
 kernel's numbers,
@@ -575,15 +603,16 @@ def phase_card() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     paths = build.build_all()
-    fa._lib()
-    pa._lib()
-    pa._tc_lib()
-    pa._dec_lib()
+    for padded in (False, True):
+        fa._lib(padded)
+        pa._lib(padded)
+        pa._tc_lib(padded)
+        pa._dec_lib(padded)
     mmk._lib()
     fk._lib()
     k9._lib()
     dt = time.perf_counter() - t0
-    print(f"[2 build] {len(paths)} source(s) built and loaded in {dt:.1f}s: "
+    print(f"[2 build] {len(paths)} libraries built and loaded in {dt:.1f}s: "
           + ", ".join(p.name for p in paths.values()))
     for p in paths.values():
         log = p.with_suffix(".log")
@@ -592,33 +621,46 @@ def phase_build() -> None:
             regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
             spills = [int(r) for r in
                       re.findall(r"(\d+) bytes spill stores", text)]
-            print(f"    ptxas {p.name}: {len(regs)} kernels, registers "
+            secs = re.match(r"nvcc seconds: ([\d.]+)", text)
+            print(f"    ptxas {p.name}: "
+                  + (f"nvcc {secs.group(1)} s, " if secs else "")
+                  + f"{len(regs)} kernels, registers "
                   f"max {max(regs, default=0)}, spill stores "
                   f"{sum(spills)} bytes in {sum(1 for x in spills if x)} "
                   f"kernels (full report in {log.name})")
+    # instances of their own (19, 76, 39, as before the padded ones) and
+    # padded ones (pad=1: 6 widths; the prefill kernel's 4 kinds and the
+    # decode kernel's 5 modes at each)
     for source, kernel, pattern, info, n in (
             ("flash_attention", fa.TC_KERNEL,
-             r"ILi(?P<d>\d+)ELi(?P<bq>\d+)ELi(?P<bk>\d+)EE",
-             lambda d, kind, t: fa.tc_info(d, t["bq"], t["bk"]), 19),
+             r"ILi(?P<d>\d+)ELi(?P<bq>\d+)ELi(?P<bk>\d+)ELb(?P<pad>[01])EE",
+             lambda d, kind, t: fa.tc_info(d, t["bq"], t["bk"],
+                                           dp=d * t["pad"]), (19, 6)),
             ("paged_prefill", TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELb(?P<split>[01])"
-             r"ELi(?P<slabs>\d)ELi(?P<bk>\d+)EE",
+             r"ELi(?P<slabs>\d)ELi(?P<bk>\d+)ELb(?P<pad>[01])EE",
              lambda d, kind, t: pa.tc_info(d, kind, 64, rows=16 * t["slabs"],
-                                           block_k=t["bk"]), 76),
+                                           block_k=t["bk"], dp=d * t["pad"]),
+             (76, 24)),
             ("paged_decode", pa.DECODE_TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELi(?P<mode>\d)"
-             r"ELi(?P<bk>\d+)EE",
+             r"ELi(?P<bk>\d+)ELb(?P<pad>[01])EE",
              lambda d, kind, t: pa.decode_tc_info(d, kind, 64,
-                                                  block_k=t["bk"]), 39)):
-        log = paths[source].with_suffix(".log")
-        if not log.exists():
+                                                  block_k=t["bk"],
+                                                  dp=d * t["pad"]),
+             (39, 30))):
+        logs = [paths[name].with_suffix(".log")
+                for name in (source, source + build.PADDED)]
+        if not all(log.exists() for log in logs):
             continue
-        lines = []
-        for kind, d, regs, spill, tile in tc_instances(log.read_text(),
-                                                       kernel, pattern):
+        lines, pads = [], []
+        for kind, d, regs, spill, tile in tc_instances(
+                "".join(log.read_text() for log in logs), kernel, pattern):
             card = info(d, kind, tile)
-            shape = "".join(f" {k}={v}" for k, v in tile.items())
-            lines.append(f"{kind + ' ' if kind else ''}D={d}{shape}: {regs} "
+            shape = "".join(f" {k}={v}" for k, v in tile.items()
+                            if k != "pad")
+            out = pads if tile.get("pad") else lines
+            out.append(f"{kind + ' ' if kind else ''}D={d}{shape}: {regs} "
                          f"registers, {spill} B spill stores, "
                          f"{card['smem_bytes']} B shared"
                          + (" at 64 table entries" if kind
@@ -627,10 +669,12 @@ def phase_build() -> None:
                          + (f", clusters of c held at once (c: n) "
                             f"{card['clusters']}" if "clusters" in card
                             else ""))
-        check(len(lines) == n, f"{len(lines)} {kernel} instances in the "
-              f"ptxas log, expected {n}")
+        check((len(lines), len(pads)) == n,
+              f"{len(lines)} {kernel} instances of their own and "
+              f"{len(pads)} padded in the ptxas log, expected {n}")
         print(f"    {kernel} instances (ptxas -v and the card's "
               f"occupancy): " + "; ".join(lines))
+        print(f"    {kernel} padded instances (width D): " + "; ".join(pads))
 
 
 def tc_instances(log: str, kernel: str,
@@ -658,7 +702,7 @@ def tc_instances(log: str, kernel: str,
             kind = ("" if "int8" not in args else
                     ("int8" if args["int8"] else "bf16")
                     + (" split" if args.get("split") == "1" else ""))
-        tile = {k: int(args[k]) for k in ("slabs", "bq", "bk")
+        tile = {k: int(args[k]) for k in ("slabs", "bq", "bk", "pad")
                 if args.get(k)}
         out.append((kind, int(args["d"]), int(regs.group(1)) if regs else -1,
                     int(spill.group(1)) if spill else 0, tile))
@@ -1347,7 +1391,7 @@ def paged_logits(model, params, quantized: bool = False,
 
 
 def check_logits(plain: torch.Tensor, kern: torch.Tensor, vocab: int,
-                 what: str) -> str:
+                 what: str, rel: float = 5e-2) -> str:
     """Kernel against plain logits of the same steps (phases 6, 10, 14,
     18).
 
@@ -1360,18 +1404,19 @@ def check_logits(plain: torch.Tensor, kern: torch.Tensor, vocab: int,
     largest |v|.  So they
     differ by about an ulp of bf16 (2^-8 relative) per attention output
     element, and 32 layers of bf16 matmuls carry that into the logits.
-    The check allows 5e-2 of the logits' own scale (their max magnitude),
-    and reports the argmax agreement beside it."""
+    The check allows 5e-2 of the logits' own scale (their max magnitude;
+    ``rel`` another share: phase 39's float32 runs, 1e-3), and reports the
+    argmax agreement beside it."""
     check(tuple(kern.shape) == (plain.shape[0], 1, vocab), f"{what} shape")
     check(bool(torch.isfinite(kern).all() and torch.isfinite(plain).all()),
           f"{what} are not finite")
     scale = float(plain.abs().max())
     err = float((kern - plain).abs().max())
     agree = int((kern.argmax(-1) == plain.argmax(-1)).sum())
-    check(err <= 5e-2 * scale,
-          f"{what} differ by {err:.3e}, over 5e-2 x scale {scale:.3e}")
+    check(err <= rel * scale,
+          f"{what} differ by {err:.3e}, over {rel} x scale {scale:.3e}")
     return (f"kernels vs plain max abs diff {err:.3e} (logit scale "
-            f"{scale:.3e}, tol {5e-2 * scale:.3e}), argmax agrees "
+            f"{scale:.3e}, tol {rel * scale:.3e}), argmax agrees "
             f"{agree}/{plain.shape[0]}")
 
 
@@ -3669,7 +3714,8 @@ def dense_arch_serves(model, params, smi: str, tag: str, title: str,
 
 def tile_rows(tag: str, g: int, what: str, chunk: tuple, verify: tuple,
               by_tile: dict, seed: int, served=None,
-              d: int = 128) -> list[dict]:
+              d: int = 128, tiles=None,
+              kinds=("K4", "K6c", "K5b+K5c", "K6d+K5c")) -> list[dict]:
     """The kernels line's rows of the prefill kernel at group size ``g``
     (phase 28: phi4-mini's G 3; phase 30: llama4-scout's G 5): K4 and K6c
     at the arch's chunk of 128 at 384, K5b and K6d with K5c merged at its
@@ -3679,15 +3725,18 @@ def tile_rows(tag: str, g: int, what: str, chunk: tuple, verify: tuple,
     launches from the phase's serves, by tile, which must have launched
     each kernel at every tile of ``served`` (None: every tile).  ``d`` is
     the head dim whose ladder the tiles come from (phase 34: pixtral's
-    160)."""
-    tiles = [(bq, bk) for bq in pa.prefill_tiles(BF16, d, g)[0]
-             for bk in pa.TC_BLOCK_KS]
+    160); ``tiles`` (default: that ladder by both key tiles) and ``kinds``
+    narrow the rows (phase 39: the default tile)."""
+    if tiles is None:
+        tiles = [(bq, bk) for bq in pa.prefill_tiles(BF16, d, g)[0]
+                 for bk in pa.TC_BLOCK_KS]
     rows, lines = [], []
     for label, case, quant, ns, line in (
-            ("K4", chunk, False, 1, 733),
-            ("K6c", chunk, True, 1, 1186),
-            ("K5b+K5c", verify, False, 8, 779),
-            ("K6d+K5c", verify, True, 8, 1239)):
+            (label, case, quant, ns, line) for label, case, quant, ns, line
+            in (("K4", chunk, False, 1, 733),
+                ("K6c", chunk, True, 1, 1186),
+                ("K5b+K5c", verify, False, 8, 779),
+                ("K6d+K5c", verify, True, 8, 1239)) if label in kinds):
         _, h, hkv, d, psz, nblk, starts, valid, c, _ = case
         q, pools, table, start, lens = split_case(case, seed + line, quant)
         kw = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
@@ -4230,7 +4279,7 @@ def ring_kernel_rows(smi: str, arch: str, phase: int,
     q = randn((b, h, 1, d), seed + 10, BF16)
     k = randn((b, hkv, w, d), seed + 11, BF16)
     v = randn((b, hkv, w, d), seed + 12, BF16)
-    for bk in pa.decode_block_ks(BF16, d):
+    for bk in pa.decode_block_ks(BF16, d, dense=True):
         r, line = k2_kernel_row(f"D{d} {bk}", q, k, v, kv_len,
                                 f"{arch} decode B={b} ring {w}", bk)
         rows.append(r)
@@ -4830,21 +4879,29 @@ def vision_serve(model, params, smi: str) -> dict[str, int]:
     return launches
 
 
-def pixtral_decode_rows(by_tile: dict, seed: int) -> list[dict]:
+def pixtral_decode_rows(by_tile: dict, seed: int, h: int = 32, hkv: int = 8,
+                        d: int = 160, tag: str = "[34 pixtral-12b kernels]",
+                        shape: str = "pixtral decode",
+                        kinds=("K3", "K6a", "K5a+K5c", "K6b+K5c")
+                        ) -> list[dict]:
     """The kernels line's rows of the decode kernel at pixtral's shapes (4
-    lanes of the phase-7 lengths, pages of 16, 32 q / 8 kv heads of 160):
+    lanes of the phase-7 lengths, pages of 16, 32 q / 8 kv heads of 160;
+    ``h``, ``hkv`` and ``d`` another geometry, phase 39's): of ``kinds``,
     K3 and K6a in one pass, K5a and K6b with K5c merged at 8 splits, at
     each key tile, against plain, timed beside the plain version, SDPA on
     the pre-gathered (int8: pre-dequantized bf16) K/V with a kv_len mask,
     and the bound; launches from the phase's serves, by tile."""
-    b, h, hkv, d, psz, nblk = 4, 32, 8, 160, 16, 64
+    b, psz, nblk = 4, 16, 64
     kv_len = PIXTRAL_DECODE
     rows, lines = [], []
     for label, quant, ns, line, wrapper in (
+            (label, quant, ns, line, wrapper) for label, quant, ns, line,
+            wrapper in (
             ("K3", False, 1, 491, pa.flash_paged_decode),
             ("K6a", True, 1, 951, pa.flash_paged_decode_quant),
             ("K5a+K5c", False, 8, 535, pa.paged_decode_split_merged),
-            ("K6b+K5c", True, 8, 1001, pa.paged_decode_split_quant_merged)):
+            ("K6b+K5c", True, 8, 1001, pa.paged_decode_split_quant_merged))
+            if label in kinds):
         q, kp, vp, table, lens = paged_case(b, h, hkv, d, psz, nblk, kv_len,
                                             BF16, seed + line)
         pools, _ = decode_pools(kp, vp, quant)
@@ -4878,7 +4935,7 @@ def pixtral_decode_rows(by_tile: dict, seed: int) -> list[dict]:
             got = run()
             check(wrapper.by_tile[bk] == n + 1
                   and wrapper.last_kernel == pa.DECODE_TC_KERNEL,
-                  f"[34] {label} block_k {bk}: {wrapper.__name__} did not "
+                  f"{tag} {label} block_k {bk}: {wrapper.__name__} did not "
                   f"launch at the tile on {pa.DECODE_TC_KERNEL}")
             err = compare(got, want, BF16)
             times = {"ms": time_ms(run), "plain_ms": plain,
@@ -4887,12 +4944,12 @@ def pixtral_decode_rows(by_tile: dict, seed: int) -> list[dict]:
                     DECODE_SOURCE, f"{FLASH}:{line}", err, n_bytes, n_ops,
                     times)
             r.update(launches=by_tile.get(wrapper.__name__, {}).get(bk, 0),
-                     shape=f"pixtral decode B={b} kv_len {kv_len}",
+                     shape=f"{shape} B={b} kv_len {kv_len}",
                      tile=[bk])
             if ns > 1:
                 r["merges"] = f"{FLASH}:315"
             check(r["launches"] > 0 or bk != pa.DECODE_TILE_KEYS,
-                  f"[34] {label} block_k {bk}: no launch in the serves")
+                  f"{tag} {label} block_k {bk}: no launch in the serves")
             rows.append(r)
             c = ""
             if ns == 1:     # the rule's cluster size, and each one timed
@@ -4905,8 +4962,8 @@ def pixtral_decode_rows(by_tile: dict, seed: int) -> list[dict]:
             lines.append(f"{label} block_k {bk}{c}: {fmt_times(times)}, bound "
                          f"{r['bound_ms']:.5f} ms ({r['bound_by']}), err "
                          f"{err:.2e}, {r['launches']} launches in the serves")
-    check(counters_zero(), "[34 pixtral kernels] an arrival counter is not 0")
-    print(f"[34 pixtral-12b kernels] the decode kernel at D 160, G 4 (4 "
+    check(counters_zero(), f"{tag} an arrival counter is not 0")
+    print(f"{tag} the decode kernel at D {d}, G {h // hkv} (4 "
           f"lanes of {kv_len} keys in pages of 16), against plain (tol "
           f"{TOL[BF16]}), device ms (ms per call incl. host; library: SDPA "
           f"on the pre-gathered K/V): " + "; ".join(lines))
@@ -4997,7 +5054,7 @@ def pixtral_dense_rows(smi: str, by_tile: dict) -> list[dict]:
     q = randn((b, h, 1, d), 3410, BF16)
     k = randn((b, hkv, slots, d), 3411, BF16)
     v = randn((b, hkv, slots, d), 3412, BF16)
-    for bk in pa.decode_block_ks(BF16, d):
+    for bk in pa.decode_block_ks(BF16, d, dense=True):
         r, line = k2_kernel_row(f"D{d} {bk}", q, k, v, kv_len,
                                 f"pixtral decode B={b} strips of {slots}",
                                 bk)
@@ -6450,6 +6507,504 @@ def phase_layout(smi: str, dry) -> None:
           f"37-38b, {time.perf_counter() - t1:.1f}s waited for here")
 
 
+# --------------------------------------------------------------------------
+# phase 39: every head dim and group size the Pallas kernels take
+# --------------------------------------------------------------------------
+
+#: (a) the float32 serves: (arch, layers kept or None for the whole, modes)
+P39_FP32 = (("h2o-danube-1.8b", None, ("dense",)),
+            ("zamba2-7b", 13, ("dense",)),
+            ("pixtral-12b", 10, ("dense", "paged", "split", "int8",
+                                 "int8 split", "spec", "spec int8")))
+#: (b) the bf16 head dims on yi-6b's widths: Phi-3-mini's 96, Gemma-7B's
+#: 256, and 100 (a bf16 row of 200 bytes, no multiple of 16)
+P39_DIMS = (96, 256, 100)
+P39_LAYERS = 8
+#: (c) group sizes on yi-6b's widths: (label, q heads, kv heads, D)
+P39_GROUPS = (("Qwen2-7B's G 7", 28, 4, 128), ("G 3 at D 160", 24, 8, 160))
+#: the phase's serves: 4 requests of 8 tokens after 200-token prompts
+P39_SERVE = dict(n_requests=4, n_lanes=4, prompt_len=200, max_new=8,
+                 max_len=512)
+P39_PAGED = dict(cache="paged", page_size=16, prefill_chunk=128)
+#: the kernel checks: head dims of the padded route (and 80, 112, 160 in
+#: float32) at G 7, 37 and 90 among them for rows of bf16 and int8 that
+#: are no multiple of 4 bytes (byte copies, the stores' odd and 2-column
+#: tails), group sizes of the flattened prefill rows
+P39_CHECK_DIMS = (24, 36, 37, 80, 90, 96, 100, 112, 160, 256)
+P39_CHECK_GROUPS = ((3, 8, 160), (5, 4, 160), (7, 4, 128), (9, 2, 64),
+                    (96, 1, 128))                       # (G, Hkv, D)
+#: (d) a padded instance forced at a head dim with an instance of its own:
+#: (d, width)
+P39_BIT_EQUAL = ((80, 96), (112, 128), (64, 96), (128, 160))
+
+F32 = torch.float32
+#: the kernel a launch runs, by query type: K1, K2, the paged decode and
+#: the paged prefill
+P39_ROUTES = {BF16: (fa.TC_KERNEL, pa.DECODE_TC_KERNEL, pa.DECODE_TC_KERNEL,
+                     TC_KERNEL),
+              F32: ("flash_attention_kernel", fa.DECODE_SIMT_KERNEL,
+                    pa.DECODE_SIMT_KERNEL, "paged_prefill_kernel")}
+
+
+def p39_kernel(wrapper, dtype) -> str:
+    """The kernel ``wrapper`` must have run for a query of ``dtype``."""
+    k1, k2, dec, pre = P39_ROUTES[dtype]
+    if wrapper is fa.flash_attention:
+        return k1
+    if wrapper is fa.flash_decode:
+        return k2
+    return dec if "decode" in wrapper.__name__ else pre
+
+
+def p39_route(wrapper, dtype, d: int, g: int):
+    """The instance a launch of ``wrapper`` takes: ``pa.prefill_route``'s
+    for a prefill or verify kernel at group size ``g``, else
+    ``fa.route``'s."""
+    if "prefill" in wrapper.__name__:
+        return pa.prefill_route(wrapper.__name__, dtype, d, g)
+    return fa.route(wrapper.__name__, dtype, d)
+
+
+def p39_launch(wrapper, dtype, d: int, g: int, fn, want, what: str,
+               live=None) -> float:
+    """``fn()`` must launch ``wrapper`` once on the kernel of ``dtype``'s
+    route, on the padded instance :func:`p39_route` names where it names
+    one (a head dim with none of its own, or a prefill whose G ``g``
+    divides none of the own instance's row tiles), and agree with
+    ``want`` on the rows ``live`` selects (a decode's lanes with keys:
+    the kernels give exactly 0 where kv_len is 0, which the caller
+    checks)."""
+    n, w = wrapper.launches, dict(wrapper.by_width)
+    got = fn()
+    rt = p39_route(wrapper, dtype, d, g)
+    padded = {k: v - w.get(k, 0) for k, v in wrapper.by_width.items()
+              if v != w.get(k, 0)}
+    check(wrapper.launches == n + 1
+          and wrapper.last_kernel == p39_kernel(wrapper, dtype)
+          and padded == ({rt.width: 1} if rt.padded else {}),
+          f"[39] {what}: {wrapper.__name__} launched "
+          f"{wrapper.launches - n} times on {wrapper.last_kernel}, padded "
+          f"launches by width {padded}, expected {rt}")
+    if live is not None:
+        check(live is not P39_LIVE or bool((got[3] == 0).all()),
+              f"[39] {what}: the lane without keys is not exactly 0")
+        got, want = got[live], want[live]
+    return compare(got, want, dtype)
+
+
+#: the lanes with keys of the phase's decode cases (kv_len 200, 97, 1, 0)
+P39_LIVE = slice(0, 3)
+
+
+def p39_paged_checks(dtype, h: int, hkv: int, d: int, seed: int,
+                     decode: bool = True) -> float:
+    """K3/K6a, the split decode (K5a/K6b with K5c) at 8 splits, K4/K6c on
+    a chunk of 40 at 60 and one at 0 with 33 rows, and the split prefill
+    (K5b/K6d with K5c) at 4 splits, over fp and int8 pools, against
+    plain; returns the largest error."""
+    errs = []
+    g = h // hkv
+    for quant in (False, True):
+        if decode:
+            q, kp, vp, table, lens = paged_case(4, h, hkv, d, 16, 16,
+                                                [200, 97, 1, 0], dtype, seed)
+            pools, one = decode_pools(kp, vp, quant)
+            want = plain_decode(q, pools, table, lens)
+            for ns in (1, 8):
+                if ns == 1:
+                    wrapper = one
+                elif dtype == BF16:
+                    wrapper = (pa.paged_decode_split_quant_merged if quant
+                               else pa.paged_decode_split_merged)
+                else:
+                    wrapper = (pa.paged_decode_split_quant if quant
+                               else pa.paged_decode_split)
+                errs.append(p39_launch(
+                    wrapper, dtype, d, g, lambda ns=ns: one(
+                        q, *pools, table, lens, num_splits=ns), want,
+                    f"decode G {g} D {d} {dtype} int8 {quant} ns {ns}",
+                    P39_LIVE))
+        case = ("p39", h, hkv, d, 16, 16, [60, 0], [40, 33], 40, dtype)
+        q, pp, table, start, lens = split_case(case, seed + 7, quant)
+        want = ref.paged_prefill_ref(q, pp.k, pp.v, table, start, lens,
+                                     k_scale=pp.k_scale, v_scale=pp.v_scale)
+        live = torch.zeros(q.shape, dtype=torch.bool, device="cuda")
+        for b, v in enumerate(case[7]):     # rows past kv_len are padding
+            live[b, :, :v] = True
+        for ns in (1, 4):
+            if ns == 1:
+                wrapper = (pa.flash_paged_prefill_quant if quant
+                           else pa.flash_paged_prefill)
+            elif dtype == BF16:
+                wrapper = (pa.paged_prefill_split_quant_merged if quant
+                           else pa.paged_prefill_split_merged)
+            else:
+                wrapper = (pa.paged_prefill_split_quant if quant
+                           else pa.paged_prefill_split)
+            errs.append(p39_launch(
+                wrapper, dtype, d, g, lambda ns=ns: ops.paged_prefill(
+                    q, pp, table, start, lens, num_splits=ns), want,
+                f"prefill G {g} D {d} {dtype} int8 {quant} ns {ns}", live))
+    check(counters_zero(), "[39] an arrival counter is not 0")
+    return max(errs)
+
+
+def p39_kernel_checks() -> str:
+    """39 (kernels): K1-K6d against plain at every head dim of
+    :data:`P39_CHECK_DIMS` in bf16 and float32 (G 7: 28 q / 4 kv heads),
+    each launch checked on its route (tensor cores or the SIMT template)
+    and instance (its own, or the padded one :func:`p39_route` names); the
+    prefill kernel's flattened rows at :data:`P39_CHECK_GROUPS`; a head
+    dim above 256 refused.  Returns the summary."""
+    t0 = time.perf_counter()
+    errs = collections.defaultdict(float)
+    for dtype in (BF16, F32):
+        for i, d in enumerate(P39_CHECK_DIMS):
+            seed = 39000 + 100 * i + (50 if dtype == F32 else 0)
+            h, hkv = 28, 4
+            q = randn((2, h, 200, d), seed, dtype)
+            k = randn((2, hkv, 200, d), seed + 1, dtype)
+            v = randn((2, hkv, 200, d), seed + 2, dtype)
+            errs["K1", dtype] = max(errs["K1", dtype], p39_launch(
+                fa.flash_attention, dtype, d, h // hkv,
+                lambda: fa.flash_attention(q, k, v, causal=True),
+                ref.attention_ref(q, k, v, causal=True), f"K1 D {d}"))
+            kv_len = torch.tensor([200, 97, 1, 0], dtype=torch.int32,
+                                  device="cuda")
+            q1 = randn((4, h, 1, d), seed + 3, dtype)
+            k1 = randn((4, hkv, 200, d), seed + 4, dtype)
+            errs["K2", dtype] = max(errs["K2", dtype], p39_launch(
+                fa.flash_decode, dtype, d, h // hkv,
+                lambda: fa.flash_decode(q1, k1, k1, kv_len),
+                ref.decode_ref(q1, k1, k1, kv_len), f"K2 D {d}", P39_LIVE))
+            errs["K3-K6d", dtype] = max(errs["K3-K6d", dtype],
+                                        p39_paged_checks(dtype, h, hkv, d,
+                                                         seed + 10))
+    for i, (g, hkv, d) in enumerate(P39_CHECK_GROUPS):
+        errs["K4-K6d G", BF16] = max(errs["K4-K6d G", BF16], p39_paged_checks(
+            BF16, g * hkv, hkv, d, 39500 + 10 * i, decode=False))
+    q = torch.zeros((1, 2, 8, 264), dtype=BF16, device="cuda")
+    try:
+        fa.flash_attention(q, q, q)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "256" in refused,
+          f"[39] a head dim of 264 was not refused: {refused!r}")
+    return (f"K1-K6d against plain at D {P39_CHECK_DIMS} (28 q / 4 kv "
+            f"heads, bf16 and float32) and the prefill kernel at (G, Hkv, D) "
+            f"{P39_CHECK_GROUPS}, max abs err "
+            + ", ".join(f"{k} {'bf16' if t == BF16 else 'fp32'} {e:.2e}"
+                        for (k, t), e in errs.items())
+            + f"; D 264 refused ({refused!r}); {time.perf_counter() - t0:.1f}s")
+
+
+def p39_bit_equal() -> str:
+    """39 (d): at a head dim with an instance of its own, the padded
+    instance of a wider rung, forced by the private ``fa._forced_width``,
+    must give the same bits: K1, K2, K3 (and K5a with K5c at 8 splits)
+    and K4 (and K5b with K5c at 4 splits), bf16 and float32, at the
+    (d, width) pairs of :data:`P39_BIT_EQUAL` that have an instance of
+    their own."""
+    n = 0
+    for dtype in (BF16, F32):
+        for i, (d, width) in enumerate(P39_BIT_EQUAL):
+            seed = 39700 + 10 * i
+            q = randn((1, 8, 150, d), seed, dtype)
+            k = randn((1, 2, 150, d), seed + 1, dtype)
+            q1 = randn((4, 8, 1, d), seed + 2, dtype)
+            kv_len = torch.tensor([150, 70, 1, 0], dtype=torch.int32,
+                                  device="cuda")
+            k1 = randn((4, 2, 150, d), seed + 3, dtype)
+            pq, kp, vp, table, lens = paged_case(4, 8, 2, d, 16, 16,
+                                                 [200, 97, 1, 0], dtype,
+                                                 seed + 4)
+            case = ("p39", 8, 2, d, 16, 16, [60, 0], [40, 33], 40, dtype)
+            cq, pp, ctable, start, clens = split_case(case, seed + 5, False)
+            calls = []
+            if d in fa.head_dims("flash_attention", dtype):
+                calls.append(("K1", lambda: fa.flash_attention(
+                    q, k, k, causal=True)))
+            # the same cluster size for both: the rule reads the instance
+            # it launches, and another c cuts the keys at other places
+            if d in fa.head_dims("flash_decode", dtype):
+                calls.append(("K2", lambda: fa.flash_decode(
+                    q1, k1, k1, kv_len, _cluster=2)))
+            if d in fa.head_dims("flash_paged_decode", dtype):
+                for ns in (1, 8):
+                    calls.append((f"K3 ns {ns}", lambda ns=ns:
+                                  pa.flash_paged_decode(
+                                      pq, kp, vp, table, lens,
+                                      num_splits=ns, _cluster=2)))
+                for ns in (1, 4):
+                    calls.append((f"K4 ns {ns}", lambda ns=ns:
+                                  pa.flash_paged_prefill(
+                                      cq, pp.k, pp.v, ctable, start, clens,
+                                      num_splits=ns)))
+            for label, call in calls:
+                own = call()
+                with fa._forced_width(width):
+                    padded = call()
+                torch.cuda.synchronize()
+                check(torch.equal(own, padded),
+                      f"[39 (d)] {label} {dtype} at D {d}: the padded "
+                      f"instance of width {width} is not bit-equal to D "
+                      f"{d}'s own (max abs diff "
+                      f"{float((own.float() - padded.float()).abs().max()):.3e})")
+                n += 1
+    check(counters_zero(), "[39 (d)] an arrival counter is not 0")
+    return (f"{n} launches of a padded instance bit-equal to the head dim's "
+            f"own at (D, width) {P39_BIT_EQUAL}, bf16 and float32")
+
+
+def p39_modes(dtype) -> dict:
+    """The phase's serve modes: (serve keywords, the kernels that serve
+    them and no other)."""
+    bf16 = dtype == BF16
+    split = ((pa.paged_decode_split_merged,) if bf16 else
+             (pa.paged_decode_split, pa.split_combine))
+    split8 = ((pa.paged_decode_split_quant_merged,) if bf16 else
+              (pa.paged_decode_split_quant, pa.split_combine))
+    verify = ((pa.paged_prefill_split_merged,) if bf16 else
+              (pa.paged_prefill_split, pa.split_combine))
+    verify8 = ((pa.paged_prefill_split_quant_merged,) if bf16 else
+               (pa.paged_prefill_split_quant, pa.split_combine))
+    draft = (fa.flash_attention, fa.flash_decode)
+    return {
+        "dense": ({}, (fa.flash_attention, fa.flash_decode)),
+        "paged": (P39_PAGED, (pa.flash_paged_prefill, pa.flash_paged_decode)),
+        "split": (dict(P39_PAGED, num_splits=8),
+                  (pa.flash_paged_prefill,) + split),
+        "int8": (dict(P39_PAGED, kv_dtype="int8"),
+                 (pa.flash_paged_prefill_quant, pa.flash_paged_decode_quant)),
+        "int8 split": (dict(P39_PAGED, kv_dtype="int8", num_splits=8),
+                       (pa.flash_paged_prefill_quant,) + split8),
+        "spec": (dict(SPEC), (pa.flash_paged_prefill,) + verify + draft),
+        "spec int8": (dict(SPEC, kv_dtype="int8"),
+                      (pa.flash_paged_prefill_quant,) + verify8 + draft),
+    }
+
+
+def p39_serves(model, params, tag: str, modes, n_attn: int) -> tuple[dict, str]:
+    """The serves of ``modes`` (:func:`p39_modes`) of a model built at
+    full width, each with the launch, tile and width counters zeroed just
+    before and read just after: every request finishes with its tokens;
+    exactly the mode's kernels launch, each on its query type's route and,
+    where the head dim has no instance of its own, on the padded one;
+    outside the speculative modes K1 once an attention layer an admission
+    and every other kernel once an attention layer a chunk or a step.
+    Returns the launches by tile over the serves and their line."""
+    cfg = model.cfg
+    dtype = BF16 if cfg.compute_dtype == "bfloat16" else F32
+    d = cfg.head_dim
+    table = p39_modes(dtype)
+    by_tile = collections.defaultdict(collections.Counter)
+    lines = []
+    for mode in modes:
+        kw, kernels = table[mode]
+        at.clear_published()
+        for kernel in KERNELS:
+            kernel.launches = 0
+            if hasattr(kernel, "by_width"):
+                kernel.by_width.clear()
+        for kernel in PHI4_TILED:
+            kernel.by_tile.clear()
+        report = serve_mod.serve_model(model, params, ServeConfig(
+            **{**SERVE, **P39_SERVE, "arch": cfg.name, **kw}))
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in KERNELS}
+        what = f"{tag} {mode}"
+        check(report["finished"] == P39_SERVE["n_requests"]
+              and all(len(t) == P39_SERVE["max_new"]
+                      for t in report["outputs"].values()),
+              f"{what}: {report['finished']} requests finished")
+        only_launched(launches, kernels, what)
+        for kernel in kernels:
+            n = launches[kernel.__name__]
+            check(n > 0, f"{what}: {kernel.__name__} never launched")
+            if kernel is not pa.split_combine:
+                check(kernel.last_kernel == p39_kernel(kernel, dtype),
+                      f"{what}: {kernel.__name__} ran {kernel.last_kernel}")
+                rt = p39_route(kernel, dtype, d,
+                               cfg.n_heads // cfg.n_kv_heads)
+                check(dict(kernel.by_width) == ({rt.width: n} if rt.padded
+                                                else {}),
+                      f"{what}: {kernel.__name__}'s padded launches by "
+                      f"width {dict(kernel.by_width)} of {n}, route {rt}")
+        if not mode.startswith("spec"):
+            steps = {kernels[0]: (report["prefill_chunks"] if "paged" in kw
+                                  .get("cache", "") else
+                                  P39_SERVE["n_requests"]),
+                     kernels[1]: report["decode_steps"]}
+            for kernel, count in steps.items():
+                check(launches[kernel.__name__] == n_attn * count,
+                      f"{what}: {kernel.__name__} launched "
+                      f"{launches[kernel.__name__]} times, expected "
+                      f"{n_attn} x {count}")
+        check(counters_zero(), f"{what}: an arrival counter is not 0")
+        for kernel in PHI4_TILED:
+            by_tile[kernel.__name__].update(kernel.by_tile)
+        lines.append(f"{mode} {report['tokens_per_s']:.1f} tok/s, launches "
+                     f"{ {k: n for k, n in launches.items() if n} }")
+    at.clear_published()
+    return by_tile, "; ".join(lines)
+
+
+def p39_logits(model, params, tag: str, paged: bool) -> str:
+    """Prefill + 4 decode steps on dense lanes (and, with ``paged``, phase
+    10's paged run and phase 14's int8 run at 8 splits), kernels against
+    plain: within 5e-2 of the logits' scale in bf16 (check_logits), 1e-3
+    in float32, whose kernels take every product in fp32."""
+    vocab = model.cfg.padded_vocab
+    rel = 1e-3 if model.cfg.compute_dtype == "float32" else 5e-2
+    runs = [("dense", dense_logits(model, params))]
+    if paged:
+        runs += [("paged", paged_logits(model, params)),
+                 ("int8 pages, 8 splits", paged_logits(
+                     model, params, quantized=True, splits=(8, 8, 8, 8)))]
+    return "; ".join(f"{label} logits: " + check_logits(
+        plain, kern, vocab, f"{tag} {label} logits", rel)
+        for label, (plain, kern) in runs)
+
+
+def p39_model(name: str, dtype: str, layers: int | None, **widths):
+    """The arch ``name`` at published widths (``widths`` replacing fields:
+    another head geometry), cut to ``layers`` (None: whole), in ``dtype``
+    compute and caches; random weights from seed 0."""
+    cfg = get_arch(name)
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype, cache_dtype=dtype,
+                              n_layers=layers or cfg.n_layers, **widths)
+    model = build_model(cfg)
+    return model, model.init(0, "cuda")
+
+
+def p39_free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_shapes(smi: str) -> list[dict]:
+    """Phase 39: every head dim and group size the Pallas attention kernels
+    take.  (kernels) K1-K6d at the padded route's head dims and the
+    flattened prefill rows' group sizes against plain; (a) float32 serves
+    at D 80 (h2o-danube-1.8b whole, dense lanes), 112 (zamba2-7b cut to
+    13 layers: the shared block twice) and 160 (pixtral-12b cut to 10 of
+    40 layers: every serve mode), all on the SIMT templates, logits
+    against plain; (b) yi-6b's widths cut to 8 layers at d_head 96, 256
+    and 100, dense, paged, int8 at 8 splits and speculative, on the
+    padded instances, logits, and K1-K4 at D 96 and 256 timed beside
+    plain, SDPA and the bound; (c) Qwen2-7B's 28 q / 4 kv heads (G 7, D
+    128) and 24 / 8 (G 3) at D 160 on yi-6b's widths, paged, int8 at 8
+    splits and speculative on the flattened rows, and K4, K6c, K5b and
+    K6d at G 7 timed; (d) the padded instances bit-equal to the head dims'
+    own."""
+    t0 = time.perf_counter()
+    print(f"[39 kernels] {p39_kernel_checks()}")
+    print(f"[39 (d) bit-equality] {p39_bit_equal()}")
+    rows = []
+    # (a) float32 serves on the SIMT templates
+    for name, layers, modes in P39_FP32:
+        model, params = p39_model(name, "float32", layers)
+        cfg = model.cfg
+        n_attn = (cfg.n_shared_attn_applications() if cfg.attn_period
+                  else cfg.n_layers)
+        _, line = p39_serves(model, params, f"[39 (a) {name} float32]",
+                             modes, n_attn)
+        logits = p39_logits(model, params, f"[39 (a) {name}]",
+                            paged="paged" in modes)
+        print(f"[39 (a) {name} float32] {cfg.n_layers} of "
+              f"{get_arch(name).n_layers} layers, D {cfg.head_dim}, "
+              f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads (route "
+              f"{fa.route('flash_attention', F32, cfg.head_dim)} for K1, "
+              f"{fa.route('flash_paged_decode', F32, cfg.head_dim)} for the "
+              f"paged kernels), on {smi}: {line}; {logits}")
+        del model, params
+        p39_free()
+    # (b) bf16 at the padded head dims, on yi-6b's widths
+    for d in P39_DIMS:
+        model, params = p39_model("yi-6b", "bfloat16", P39_LAYERS, d_head=d)
+        by_tile, line = p39_serves(model, params, f"[39 (b) D {d}]",
+                                   ("dense", "paged", "int8 split", "spec"),
+                                   P39_LAYERS)
+        logits = p39_logits(model, params, f"[39 (b) D {d}]", paged=True)
+        print(f"[39 (b) yi-6b widths, d_head {d}] {P39_LAYERS} of 32 layers, "
+              f"32 q / 4 kv heads, routes K1 "
+              f"{fa.route('flash_attention', BF16, d)}, paged "
+              f"{fa.route('flash_paged_decode', BF16, d)}, on {smi}: {line}; "
+              f"{logits}")
+        del model, params
+        p39_free()
+        if d in (96, 256):
+            rows += p39_dense_rows(d, by_tile)
+            rows += pixtral_decode_rows(by_tile, 3900 + d, 32, 4, d,
+                                        f"[39 (b) D {d} kernels]",
+                                        "yi-6b widths decode", ("K3",))
+            default = (pa.default_block_q(d, 8),
+                       pa.default_block_k(BF16, d))
+            rows += tile_rows(f"[39 (b) D {d} kernels]", 8,
+                              f"32 q / 4 kv heads of {d}",
+                              ("p39 chunk at 384", 32, 4, d, 16, 32, [384],
+                               [128], 128, BF16), None, by_tile, 3950 + d,
+                              d=d, tiles=[default], kinds=("K4",))
+    # (c) group sizes on the flattened rows
+    for label, h, hkv, d in P39_GROUPS:
+        model, params = p39_model("yi-6b", "bfloat16", P39_LAYERS,
+                                  n_heads=h, n_kv_heads=hkv, d_head=d)
+        by_tile, line = p39_serves(model, params, f"[39 (c) {label}]",
+                                   ("paged", "int8 split", "spec",
+                                    "spec int8"), P39_LAYERS)
+        logits = p39_logits(model, params, f"[39 (c) {label}]", paged=True)
+        g = h // hkv
+        default = (pa.default_block_q(d, g), pa.default_block_k(BF16, d))
+        print(f"[39 (c) {label}] yi-6b widths, {P39_LAYERS} layers, {h} q / "
+              f"{hkv} kv heads of {d} (G {g}: prefill tiles "
+              f"{pa.prefill_tiles(BF16, d, g)}, flattened "
+              f"{pa.flattened(d, g)} on "
+              f"{pa.prefill_route('flash_paged_prefill', BF16, d, g)}, "
+              f"default {default}), on {smi}: {line}; "
+              f"{logits}")
+        del model, params
+        p39_free()
+        if g == 7:
+            rows += tile_rows(
+                f"[39 (c) {label} kernels]", g, f"{h} q / {hkv} kv heads of "
+                f"{d}, flattened rows",
+                ("G 7 chunk at 384", h, hkv, d, 16, 32, [384], [128], 128,
+                 BF16),
+                ("G 7 verify", h, hkv, d, 16, 64, [839, 720, 190, 544, 0],
+                 [5, 5, 5, 5, 0], 5, BF16), by_tile, 3990, d=d,
+                tiles=[default])
+    print(f"[39] phase 39 in {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
+def p39_dense_rows(d: int, by_tile: dict) -> list[dict]:
+    """K1 (causal prefill of 512, 32 q / 4 kv heads) and K2 (4 lanes of
+    the phase-7 lengths in strips of 1024) at head dim ``d`` on the padded
+    instance, against plain, timed beside SDPA and the bound, with the
+    launches of the phase's serves."""
+    rows = []
+    q = randn((1, 32, 512, d), 3960 + d, BF16)
+    k = randn((1, 4, 512, d), 3961 + d, BF16)
+    v = randn((1, 4, 512, d), 3962 + d, BF16)
+    r, line1 = k1_kernel_row(f"D{d}", q, k, v, dict(causal=True), None,
+                             f"yi-6b widths prefill S=512 D {d}")
+    r["launches"] = sum(by_tile.get("flash_attention", {}).values())
+    rows.append(r)
+    kv_len = torch.tensor(PIXTRAL_DECODE, dtype=torch.int32, device="cuda")
+    q1 = randn((4, 32, 1, d), 3963 + d, BF16)
+    k1 = randn((4, 4, 1024, d), 3964 + d, BF16)
+    v1 = randn((4, 4, 1024, d), 3965 + d, BF16)
+    r, line2 = k2_kernel_row(f"D{d}", q1, k1, v1, kv_len,
+                             f"yi-6b widths decode D {d}")
+    r["launches"] = sum(by_tile.get("flash_decode", {}).values())
+    rows.append(r)
+    check(all(r["launches"] > 0 for r in rows),
+          f"[39 (b) D {d}] K1 or K2 not launched in the serves")
+    print(f"[39 (b) D {d} kernels] {line1}; {line2}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6551,7 +7106,10 @@ def main() -> int:
         if dry[0].poll() is None:      # a phase failed before 38 waited
             dry[0].kill()
             dry[0].wait()
-    print(f"[done] phases 1-38 in {time.perf_counter() - t0:.1f}s; by phase "
+    rows += phase_shapes(smi)
+    done("39")
+    check(len(rows) == 100, f"{len(rows)} kernel rows, expected 100")
+    print(f"[done] phases 1-39 in {time.perf_counter() - t0:.1f}s; by phase "
           + ", ".join(f"{label} {t - marks[i][1]:.1f}s"
                       for i, (label, t) in enumerate(marks[1:])))
     print(json.dumps({"kernels": rows}))

@@ -4,8 +4,12 @@ Each ``csrc/*.cu`` file is compiled on its own into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes), named by a hash of its source, the shared ``csrc/*.cuh``
 headers and the flags, under ``<checkout>/build/repro_torch_kernels/``.
-A library is rebuilt when any of those change and is reused otherwise.  Sources that need a
-build are compiled in parallel, one nvcc process each.
+The attention sources of :data:`PADDED_SOURCES` build twice, into
+``<name>`` (the instances of their own) and ``<name>_padded`` (the padded
+ones, ``-DREPRO_PADDED=1``: ``csrc/common.cuh``), so that the two halves
+compile side by side.  A library is rebuilt when any of those change and
+is reused otherwise.  Libraries that need a build are compiled in
+parallel, one nvcc process each.
 
 Nothing here runs at import: the CPU tests import every module of the
 port, and this machine's CPU-only install has no nvcc.
@@ -17,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -24,7 +29,25 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: the sources whose padded instances build into a library of their own
+PADDED_SOURCES = ("flash_attention", "paged_attention", "paged_decode",
+                  "paged_prefill")
+PADDED = "_padded"
+
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _source(name: str) -> tuple[Path, tuple[str, ...]]:
+    """The source of library ``name`` and the flags it adds."""
+    if name.endswith(PADDED):
+        return CSRC / f"{name[:-len(PADDED)]}.cu", ("-DREPRO_PADDED=1",)
+    return CSRC / f"{name}.cu", ()
+
+
+def library_names() -> list[str]:
+    """Every library the sources build into."""
+    stems = sorted(p.stem for p in CSRC.glob("*.cu"))
+    return stems + [s + PADDED for s in stems if s in PADDED_SOURCES]
 
 
 def _nvcc() -> str:
@@ -37,22 +60,25 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its source, every
-    header of ``csrc`` (a source may include any of them) and the flags."""
-    data = (CSRC / f"{name}.cu").read_bytes()
+    """Where library ``name`` builds to, keyed by its source, every header
+    of ``csrc`` (a source may include any of them) and the flags."""
+    source, extra = _source(name)
+    data = source.read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
         data += header.name.encode() + header.read_bytes()
-    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS + extra)
+    digest = hashlib.sha256(data + flags.encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:
-    """Compile every named source (default: all of ``csrc``) whose library
-    is missing, all nvcc processes started together.  Raises with nvcc's
+    """Compile every named library (default: all, :func:`library_names`)
+    that is missing, all nvcc processes started together.  Raises with nvcc's
     output if any fails.  The compiler's ``-Xptxas -v`` report (registers,
-    shared memory, spills) is kept beside each library as ``.log``."""
+    shared memory, spills) is kept beside each library as ``.log``, after a
+    first line with the source's seconds of nvcc."""
     if names is None:
-        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+        names = library_names()
     paths = {n: library_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
@@ -62,16 +88,33 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     procs = {}
     for n, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        # the report goes to a file, not a pipe: nvcc would block on a full
+        # pipe while the loop below polls it
+        out = open(p.with_suffix(f".{os.getpid()}.out"), "w+")
+        source, extra = _source(n)
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(source)]
+        procs[n] = (subprocess.Popen(cmd, stdout=out,
                                      stderr=subprocess.STDOUT, text=True),
-                    tmp)
+                    tmp, out)
     failed = []
-    for n, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
-        todo[n].with_suffix(".log").write_text(out)
+    t0 = time.monotonic()
+    # each source's seconds: poll, since they run side by side and finish
+    # in any order (the log's first line)
+    seconds: dict[str, float] = {}
+    while len(seconds) < len(procs):
+        for n, (proc, _, _) in procs.items():
+            if n not in seconds and proc.poll() is not None:
+                seconds[n] = time.monotonic() - t0
+        time.sleep(0.05)
+    for n, (proc, tmp, out) in procs.items():
+        out.seek(0)
+        text = out.read()
+        out.close()
+        os.unlink(out.name)
+        todo[n].with_suffix(".log").write_text(
+            f"nvcc seconds: {seconds[n]:.1f}\n{text}")
         if proc.returncode != 0:
-            failed.append(f"--- nvcc {n}.cu (exit {proc.returncode}) ---\n{out}")
+            failed.append(f"--- nvcc {n} (exit {proc.returncode}) ---\n{text}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, todo[n])     # atomic: concurrent builds agree
@@ -81,7 +124,8 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library ``name`` (``<source>`` or ``<source>_padded``),
+    built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build_all([name])[name]))

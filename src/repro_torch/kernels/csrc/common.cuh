@@ -18,6 +18,72 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// The padded instances (PAD = true in a kernel's template): the template's
+// head dim D is the instance's width DP, one of the rungs below, and a
+// run-time head dim d <= DP gives the row strides of q, k, v, o, the pools
+// and the partials.  Columns at and past d load as zero (shared memory keeps
+// DP columns) and are never stored, so zero columns add exact zeros to
+// Q.K^T and P.V's extra columns are dropped: at a d with an instance of its
+// own the padded one gives the same bits.  A head dim with no instance of
+// its own runs on the smallest rung at or above it (kernels/
+// flash_attention.py's PADDED_HEAD_DIMS and route()).  f(Int<DP>) for a
+// rung, else cudaErrorInvalidValue.
+//
+// Each attention source builds into two libraries, side by side
+// (kernels/build.py): one with the instances of their own (REPRO_PADDED
+// 0) and one with the padded ones (REPRO_PADDED 1); a library asked for an
+// instance of the other half returns cudaErrorInvalidValue.
+#ifndef REPRO_PADDED
+#define REPRO_PADDED 0
+#endif
+constexpr bool kPaddedBuild = REPRO_PADDED != 0;
+
+template <typename F>
+cudaError_t with_pad_width(int dp, int d, F&& f) {
+  if constexpr (!kPaddedBuild) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (d < 1 || d > dp) return cudaErrorInvalidValue;
+    switch (dp) {
+      case 64: return f(Int<64>{});
+      case 96: return f(Int<96>{});
+      case 128: return f(Int<128>{});
+      case 160: return f(Int<160>{});
+      case 192: return f(Int<192>{});
+      case 256: return f(Int<256>{});
+      default: return cudaErrorInvalidValue;
+    }
+  }
+}
+
+// The first n < 4 (or all 4) floats of p, zeros after: a partial's row of a
+// padded instance, whose width d need not keep float4 alignment.
+__device__ __forceinline__ float4 ldcg_part4(const float* p, int n) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n > 0) v.x = __ldcg(p);
+  if (n > 1) v.y = __ldcg(p + 1);
+  if (n > 2) v.z = __ldcg(p + 2);
+  if (n > 3) v.w = __ldcg(p + 3);
+  return v;
+}
+__device__ __forceinline__ void st_part4(float* p, float4 v, int n) {
+  if (n > 0) p[0] = v.x;
+  if (n > 1) p[1] = v.y;
+  if (n > 2) p[2] = v.z;
+  if (n > 3) p[3] = v.w;
+}
+// the first n of the 4 bf16 roundings of v at p
+__device__ __forceinline__ void st_bf16_part4(__nv_bfloat16* p, float4 v,
+                                              int n) {
+  if (n > 0) p[0] = __float2bfloat16(v.x);
+  if (n > 1) p[1] = __float2bfloat16(v.y);
+  if (n > 2) p[2] = __float2bfloat16(v.z);
+  if (n > 3) p[3] = __float2bfloat16(v.w);
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -85,13 +151,19 @@ __device__ __forceinline__ float split_out(float a, float l_star) {
 // weights and l* in split order through shuffles; then the CTA's threads own 4 columns of a row each and load
 // the acc rows of U splits of all their rows at once before summing them
 // in split order.  `scratch` holds 1 + 33 * MAXR words of shared memory
-// that no thread reads or writes after it has called this function.
-template <int D, int THREADS, int MAXR, typename RowFn, typename OutFn>
+// that no thread reads or writes after it has called this function.  A
+// padded instance (PAD) reads and writes rows of d <= D columns: where d <
+// D the chunks at and past d are skipped and a chunk that d cuts is read
+// and stored element by element; at d = D it runs the full-row code.
+template <int D, int THREADS, int MAXR, bool PAD = false, typename RowFn,
+          typename OutFn>
 __device__ __forceinline__ void merge_splits_if_last(
     int* cnt, int ns, int rows, const float* pm, const float* pl,
     const float* pacc, size_t sstride, RowFn prow, OutFn orow,
-    float* scratch) {
+    float* scratch, int d = D) {
   constexpr int C4 = D / 4;                            // 4-column chunks
+  const int W = PAD ? d : D;                           // a row's columns
+  const bool part = PAD && W != D;                     // narrower rows
   constexpr int PER = (MAXR * C4 + THREADS - 1) / THREADS;
   constexpr int NW = THREADS / 32;
   constexpr int RPW = (MAXR + NW - 1) / NW;            // rows per warp
@@ -176,8 +248,9 @@ __device__ __forceinline__ void merge_splits_if_last(
     for (int k = 0; k < PER; ++k) {
       const int e = tid + k * THREADS;
       const int r = e / C4;
-      src[k] = e < rows * C4
-                   ? pacc + (prow(r) + (size_t)s0 * sstride) * D + (e - r * C4) * 4
+      const int col = (e - r * C4) * 4;
+      src[k] = e < rows * C4 && (!part || col < W)
+                   ? pacc + (prow(r) + (size_t)s0 * sstride) * W + col
                    : nullptr;
     }
     for (int j0 = 0; j0 < n; j0 += U) {
@@ -186,9 +259,13 @@ __device__ __forceinline__ void merge_splits_if_last(
       for (int u = 0; u < U; ++u)
 #pragma unroll
         for (int k = 0; k < PER; ++k)
-          if (src[k] && j0 + u < n)
-            v[u][k] = __ldcg(reinterpret_cast<const float4*>(
-                src[k] + (size_t)(j0 + u) * sstride * D));
+          if (src[k] && j0 + u < n) {
+            const float* p = src[k] + (size_t)(j0 + u) * sstride * W;
+            if (part)
+              v[u][k] = ldcg_part4(p, W - ((tid + k * THREADS) % C4) * 4);
+            else
+              v[u][k] = __ldcg(reinterpret_cast<const float4*>(p));
+          }
 #pragma unroll
       for (int u = 0; u < U; ++u)
 #pragma unroll
@@ -215,7 +292,17 @@ __device__ __forceinline__ void merge_splits_if_last(
     if (e < rows * C4) {
       const int r = e / C4;
       const int col = (e - r * C4) * 4;
+      if (part && col >= W) continue;
       const float l_star = lst[r];
+      if (part) {
+        st_bf16_part4(orow(r) + col,
+                      make_float4(split_out(a[k].x, l_star),
+                                  split_out(a[k].y, l_star),
+                                  split_out(a[k].z, l_star),
+                                  split_out(a[k].w, l_star)),
+                      W - col);
+        continue;
+      }
       const __nv_bfloat162 lo = __floats2bfloat162_rn(
           split_out(a[k].x, l_star), split_out(a[k].y, l_star));
       const __nv_bfloat162 hi = __floats2bfloat162_rn(

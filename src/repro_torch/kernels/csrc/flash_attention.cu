@@ -142,15 +142,16 @@ constexpr size_t smem_bytes() {
 }
 }  // namespace k1
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(k1::THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int H,
                        int Hkv, int S, int Sk, int causal, int window,
-                       float scale) {
+                       float scale, int d_run) {
   using namespace k1;
   constexpr int NC = (D + 31) / 32;  // output columns per lane
   constexpr int KS = D + 1;
+  const int d = PAD ? d_run : D;     // the row stride (common.cuh)
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
   float* ks = qs + BQ * D;
@@ -161,15 +162,20 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const size_t qoff = ((size_t)b * H + h) * S * D;
-  const size_t koff = ((size_t)b * Hkv + hk) * Sk * D;
+  const size_t qoff = ((size_t)b * H + h) * S * d;
+  const size_t koff = ((size_t)b * Hkv + hk) * Sk * d;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int r0 = (tid >> 5) * RPW;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int qi = q_start + i / D;
-    qs[i] = qi < S ? to_float(q[qoff + (size_t)q_start * D + i]) : 0.f;
+    if constexpr (PAD) {
+      const int c = i % D;
+      qs[i] = qi < S && c < d ? to_float(q[qoff + (size_t)qi * d + c]) : 0.f;
+    } else {
+      qs[i] = qi < S ? to_float(q[qoff + (size_t)q_start * D + i]) : 0.f;
+    }
   }
 
   // live key tiles: causal needs k_start <= the tile's last query; the
@@ -197,8 +203,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * D; i += THREADS) {
       const int j = i / D;
       const int c = i - j * D;
-      const bool in = k_start + j < Sk;
-      const size_t g = koff + (size_t)k_start * D + i;
+      const bool in = k_start + j < Sk && (!PAD || c < d);
+      const size_t g = PAD ? koff + (size_t)(k_start + j) * d + c
+                           : koff + (size_t)k_start * D + i;
       ks[j * KS + c] = in ? to_float(k[g]) : 0.f;
       vs[i] = in ? to_float(v[g]) : 0.f;
     }
@@ -266,7 +273,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = lane + 32 * c;
-      if (col < D) o[qoff + (size_t)qi * D + col] = from_float<T>(acc[r][c] / denom);
+      if (col < d) o[qoff + (size_t)qi * d + col] = from_float<T>(acc[r][c] / denom);
     }
   }
 }
@@ -319,7 +326,7 @@ constexpr int min_blocks() {
 }
 }  // namespace k1tc
 
-template <int D, int BM, int BN>
+template <int D, int BM, int BN, bool PAD>
 __global__ void __launch_bounds__(k1tc::Tile<BM, BN>::THREADS,
                                   k1tc::min_blocks<D, BM, BN>())
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
@@ -327,7 +334,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ o, int H, int Hkv,
                           int S, int Sk, int causal, int window,
-                          float scale_log2) {
+                          float scale_log2, int d_run) {
   using namespace k1tc;
   using L = Smem<D, BM, BN>;
   constexpr int THREADS = Tile<BM, BN>::THREADS;
@@ -343,11 +350,12 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* k_ring = reinterpret_cast<__nv_bfloat16*>(tc_smem + L::k_off);
   __nv_bfloat16* v_ring = reinterpret_cast<__nv_bfloat16*>(tc_smem + L::v_off);
 
+  const int d = PAD ? d_run : D;        // the row stride (common.cuh)
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // heavy tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const __nv_bfloat16* qh = q + ((size_t)b * H + h) * S * D;
-  const size_t kv_off = ((size_t)b * Hkv + h / (H / Hkv)) * Sk * D;
+  const __nv_bfloat16* qh = q + ((size_t)b * H + h) * S * d;
+  const size_t kv_off = ((size_t)b * Hkv + h / (H / Hkv)) * Sk * d;
   const __nv_bfloat16* kh = k + kv_off;
   const __nv_bfloat16* vh = v + kv_off;
   const int tid = threadIdx.x;
@@ -370,8 +378,12 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = i / CPR;
     const int c = i - r * CPR;
     const bool in = q0 + r < S;
-    cp_async16(smem_addr(qs + r * ROW + c * 8),
-               in ? qh + (size_t)(q0 + r) * D + c * 8 : qh, in ? 16 : 0);
+    if constexpr (PAD)
+      cp_async16_part(qs + r * ROW + c * 8, qh + (size_t)(q0 + r) * d, c,
+                      d * 2, in, qh);
+    else
+      cp_async16(smem_addr(qs + r * ROW + c * 8),
+                 in ? qh + (size_t)(q0 + r) * D + c * 8 : qh, in ? 16 : 0);
   }
 
   // key tile t into ring stage `stage`; keys past Sk are zero-filled
@@ -383,9 +395,15 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const int j = i / CPR;
       const int c = i - j * CPR;
       const bool in = k0 + j < Sk;
-      const size_t off = in ? (size_t)(k0 + j) * D + c * 8 : 0;
-      cp_async16(smem_addr(kd + j * ROW + c * 8), kh + off, in ? 16 : 0);
-      cp_async16(smem_addr(vd + j * ROW + c * 8), vh + off, in ? 16 : 0);
+      if constexpr (PAD) {
+        const size_t row = (size_t)(k0 + j) * d;
+        cp_async16_part(kd + j * ROW + c * 8, kh + row, c, d * 2, in, kh);
+        cp_async16_part(vd + j * ROW + c * 8, vh + row, c, d * 2, in, vh);
+      } else {
+        const size_t off = in ? (size_t)(k0 + j) * D + c * 8 : 0;
+        cp_async16(smem_addr(kd + j * ROW + c * 8), kh + off, in ? 16 : 0);
+        cp_async16(smem_addr(vd + j * ROW + c * 8), vh + off, in ? 16 : 0);
+      }
     }
   };
 
@@ -531,11 +549,19 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int qi = q0 + row0 + g + 8 * r;
     if (qi >= S) continue;
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-    __nv_bfloat16* dst = o + (((size_t)b * H + h) * S + qi) * D + 2 * t4;
+    __nv_bfloat16* dst = o + (((size_t)b * H + h) * S + qi) * d + 2 * t4;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(dst + dt * 8) =
-          pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+    for (int dt = 0; dt < DT; ++dt) {
+      if constexpr (PAD) {     // the columns below d, one at a time
+        const int col = dt * 8 + 2 * t4;
+        if (col < d) dst[dt * 8] = __float2bfloat16(acc[dt][2 * r] * inv);
+        if (col + 1 < d)
+          dst[dt * 8 + 1] = __float2bfloat16(acc[dt][2 * r + 1] * inv);
+      } else {
+        *reinterpret_cast<uint32_t*>(dst + dt * 8) =
+            pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+      }
+    }
   }
 }
 
@@ -549,12 +575,14 @@ constexpr int NWARPS = 8;
 constexpr int THREADS = NWARPS * 32;
 }  // namespace k2
 
-template <typename T, int D, int GR>
+template <typename T, int D, int GR, bool PAD>
 __global__ void __launch_bounds__(k2::THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_len,
-                    T* __restrict__ o, int H, int Hkv, int S, float scale) {
+                    T* __restrict__ o, int H, int Hkv, int S, float scale,
+                    int d_run) {
   using namespace k2;
+  const int d = PAD ? d_run : D;          // the row stride (common.cuh)
   constexpr int NC = (D + 31) / 32;       // contiguous columns per lane
   constexpr int VN = 16 / sizeof(T);      // elements per 16-byte load
   __shared__ __align__(16) float qs[GR * D];
@@ -565,13 +593,20 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.x / Hkv;
   const int hk = blockIdx.x - b * Hkv;
   const int h0 = hk * (H / Hkv) + blockIdx.y * GR;  // first query row's head
-  const size_t qoff = ((size_t)b * H + h0) * D;
-  const size_t koff = ((size_t)b * Hkv + hk) * S * D;
+  const size_t qoff = ((size_t)b * H + h0) * d;
+  const size_t koff = ((size_t)b * Hkv + hk) * S * d;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  for (int i = tid; i < GR * D; i += THREADS) qs[i] = to_float(q[qoff + i]);
+  for (int i = tid; i < GR * D; i += THREADS) {
+    if constexpr (PAD) {
+      const int c = i % D;
+      qs[i] = c < d ? to_float(q[qoff + (size_t)(i / D) * d + c]) : 0.f;
+    } else {
+      qs[i] = to_float(q[qoff + i]);
+    }
+  }
   __syncthreads();
   const int len = min(max(kv_len[b], 0), S);
 
@@ -591,11 +626,17 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int g = 0; g < GR; ++g) s[g] = 0.f;
     if (live) {
-      const T* kr = k + koff + (size_t)j * D;
+      const T* kr = k + koff + (size_t)j * d;
 #pragma unroll 4
       for (int c = 0; c < D; c += VN) {
         float kf[VN];
-        load_f32<VN>(kr + c, kf);
+        if constexpr (PAD) {
+#pragma unroll
+          for (int e = 0; e < VN; ++e)
+            kf[e] = c + e < d ? to_float(kr[c + e]) : 0.f;
+        } else {
+          load_f32<VN>(kr + c, kf);
+        }
 #pragma unroll
         for (int g = 0; g < GR; ++g)
 #pragma unroll
@@ -621,10 +662,14 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     const int n = min(BK, len - t * BK);
-    const T* vb = v + koff + (size_t)t * BK * D + lane * NC;
+    const T* vb = v + koff + (size_t)t * BK * d + lane * NC;
     for (int jj = 0; jj < n; ++jj) {
       float vv[NC];
-      if (lane * NC < D) {
+      if constexpr (PAD) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          vv[c] = lane * NC + c < d ? to_float(vb[(size_t)jj * d + c]) : 0.f;
+      } else if (lane * NC < D) {
         load_f32<NC>(vb + (size_t)jj * D, vv);
       } else {
 #pragma unroll
@@ -656,7 +701,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   for (int i = tid; i < GR * D; i += THREADS) {
     const int g = i / D;
-    const int d = i - g * D;
+    const int dd = i - g * D;
     float m_star = kNegInf;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) m_star = fmaxf(m_star, ms[w][g]);
@@ -665,23 +710,30 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int w = 0; w < NWARPS; ++w) {
       const float e = expf(ms[w][g] - m_star);
       l_star += ls[w][g] * e;
-      a += accs[w][g][d] * e;
+      a += accs[w][g][dd] * e;
     }
-    o[qoff + i] = from_float<T>(a / (l_star == 0.f ? 1.f : l_star));
+    const float out = a / (l_star == 0.f ? 1.f : l_star);
+    if constexpr (PAD) {
+      if (dd < d) o[qoff + (size_t)g * d + dd] = from_float<T>(out);
+    } else {
+      o[qoff + i] = from_float<T>(out);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// host-side launchers
+// host-side launchers.  PAD instances take the head dim d as an argument
+// (the row stride; d <= D, the instance's width); the others are built for
+// d = D and ignore it.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 cudaError_t launch_attention(const void* q, const void* k, const void* v,
                              void* o, int B, int H, int Hkv, int S, int Sk,
-                             int causal, int window, float scale,
+                             int causal, int window, float scale, int d,
                              cudaStream_t stream) {
   constexpr size_t smem = k1::smem_bytes<D>();
-  auto kern = flash_attention_kernel<T, D>;
+  auto kern = flash_attention_kernel<T, D, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -689,40 +741,41 @@ cudaError_t launch_attention(const void* q, const void* k, const void* v,
   kern<<<grid, k1::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, S, Sk, causal,
-      window, scale);
+      window, scale, d);
   return cudaGetLastError();
 }
 
-template <typename T, int D, int GR>
+template <typename T, int D, int GR, bool PAD>
 cudaError_t launch_decode_gr(const void* q, const void* k, const void* v,
                              const int* kv_len, void* o, int B, int H,
-                             int Hkv, int S, float scale,
+                             int Hkv, int S, float scale, int d,
                              cudaStream_t stream) {
   const dim3 grid(B * Hkv, (H / Hkv) / GR);
-  flash_decode_kernel<T, D, GR><<<grid, k2::THREADS, 0, stream>>>(
+  flash_decode_kernel<T, D, GR, PAD><<<grid, k2::THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_len, static_cast<T*>(o), H, Hkv, S,
-      scale);
+      scale, d);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           const int* kv_len, void* o, int B, int H, int Hkv,
-                          int S, float scale, cudaStream_t stream) {
-  // rows per block: the largest of 8, 4, 2, 1 dividing the group size G
+                          int S, float scale, int d, cudaStream_t stream) {
+  // rows per block: the largest of 8, 4, 2, 1 dividing the group size G;
+  // a padded instance's largest is 4, so that its static shared memory
+  // (qs and the warps' accs, 36 KB at D = 256) stays under 48 KB
   const int G = H / Hkv;
-  if (G % 8 == 0)
-    return launch_decode_gr<T, D, 8>(q, k, v, kv_len, o, B, H, Hkv, S, scale, stream);
+  if constexpr (!PAD) {
+    if (G % 8 == 0)
+      return launch_decode_gr<T, D, 8, PAD>(q, k, v, kv_len, o, B, H, Hkv, S, scale, d, stream);
+  }
   if (G % 4 == 0)
-    return launch_decode_gr<T, D, 4>(q, k, v, kv_len, o, B, H, Hkv, S, scale, stream);
+    return launch_decode_gr<T, D, 4, PAD>(q, k, v, kv_len, o, B, H, Hkv, S, scale, d, stream);
   if (G % 2 == 0)
-    return launch_decode_gr<T, D, 2>(q, k, v, kv_len, o, B, H, Hkv, S, scale, stream);
-  return launch_decode_gr<T, D, 1>(q, k, v, kv_len, o, B, H, Hkv, S, scale, stream);
+    return launch_decode_gr<T, D, 2, PAD>(q, k, v, kv_len, o, B, H, Hkv, S, scale, d, stream);
+  return launch_decode_gr<T, D, 1, PAD>(q, k, v, kv_len, o, B, H, Hkv, S, scale, d, stream);
 }
-
-template <int N>
-using Int = std::integral_constant<int, N>;
 
 // f(Int<BM>, Int<BN>) for the instantiated K1 tile of bm query rows and
 // bn keys at head dim D, else cudaErrorInvalidValue: rows 64 and 128 by
@@ -730,12 +783,12 @@ using Int = std::integral_constant<int, N>;
 // h2o-danube-1.8b's 80, zamba2-7b's 112 and pixtral-12b's 160
 // (ops.attention hands K1 the
 // tile FlashBlocks published whatever the head dim), the default 64 x 64
-// at the others.
-template <int D, typename F>
+// at the others and at every padded instance.
+template <int D, bool PAD, typename F>
 cudaError_t k1_with_tile(int bm, int bn, F&& f) {
   if (bm == k1tc::DEFAULT_BM && bn == k1tc::DEFAULT_BN)
     return f(Int<k1tc::DEFAULT_BM>{}, Int<k1tc::DEFAULT_BN>{});
-  if constexpr (D == 128 || D == 80 || D == 112 || D == 160) {
+  if constexpr (!PAD && (D == 128 || D == 80 || D == 112 || D == 160)) {
     if ((bm == 64 || bm == 128) && (bn == 64 || bn == 128)) {
       auto keys = [&](auto rows) {
         return bn == 64 ? f(rows, Int<64>{}) : f(rows, Int<128>{});
@@ -746,13 +799,13 @@ cudaError_t k1_with_tile(int bm, int bn, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-template <int D, int BM, int BN>
+template <int D, int BM, int BN, bool PAD>
 cudaError_t launch_attention_tc(const void* q, const void* k, const void* v,
                                 void* o, int B, int H, int Hkv, int S,
                                 int Sk, int causal, int window, float scale,
-                                cudaStream_t stream) {
+                                int d, cudaStream_t stream) {
   constexpr size_t smem = k1tc::Smem<D, BM, BN>::bytes;
-  auto kern = flash_attention_tc_kernel<D, BM, BN>;
+  auto kern = flash_attention_tc_kernel<D, BM, BN, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -761,31 +814,46 @@ cudaError_t launch_attention_tc(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H, Hkv, S, Sk, causal, window, scale * kLog2e);
+      H, Hkv, S, Sk, causal, window, scale * kLog2e, d);
   return cudaGetLastError();
 }
 
-template <int D, int BM, int BN>
+template <int D, int BM, int BN, bool PAD>
 cudaError_t attention_tc_info(int* out) {
-  return instance_info(flash_attention_tc_kernel<D, BM, BN>,
+  return instance_info(flash_attention_tc_kernel<D, BM, BN, PAD>,
                        k1tc::Tile<BM, BN>::THREADS,
                        k1tc::Smem<D, BM, BN>::bytes, out);
 }
 
-// f(Int<D>) for the head dims K1 is built for: 80 is h2o-danube-1.8b's,
-// 112 zamba2-7b's, 160 pixtral-12b's (the float32 K2 has none of them:
-// see decode_by_dim)
-template <typename F>
-cudaError_t with_dim(int d, F&& f) {
-  switch (d) {
-    case 16: return f(Int<16>{});
-    case 32: return f(Int<32>{});
-    case 64: return f(Int<64>{});
-    case 80: return f(Int<80>{});
-    case 112: return f(Int<112>{});
-    case 128: return f(Int<128>{});
-    case 160: return f(Int<160>{});
-    default: return cudaErrorInvalidValue;
+// f(Int<D>, pad) for the instance of head dim d: with dp = 0 the head
+// dim's own (K1 and the float32 K2's SIMT templates are built for D = 16,
+// 32, 64 and 128, K1 also for h2o-danube-1.8b's 80, zamba2-7b's 112 and
+// pixtral-12b's 160), else the padded instance of width dp (common.cuh's
+// with_pad_width)
+template <bool DECODE, typename F>
+cudaError_t with_dim(int d, int dp, F&& f) {
+  if (dp > 0)
+    return with_pad_width(dp, d, [&](auto w) {
+      return f(w, std::true_type{});
+    });
+  if constexpr (kPaddedBuild) {
+    return cudaErrorInvalidValue;
+  } else {
+    const auto own = std::false_type{};
+    switch (d) {
+      case 16: return f(Int<16>{}, own);
+      case 32: return f(Int<32>{}, own);
+      case 64: return f(Int<64>{}, own);
+      case 128: return f(Int<128>{}, own);
+    }
+    if constexpr (!DECODE) {
+      switch (d) {
+        case 80: return f(Int<80>{}, own);
+        case 112: return f(Int<112>{}, own);
+        case 160: return f(Int<160>{}, own);
+      }
+    }
+    return cudaErrorInvalidValue;
   }
 }
 
@@ -795,39 +863,39 @@ cudaError_t with_dim(int d, F&& f) {
 template <typename T>
 cudaError_t attention_by_dim(const void* q, const void* k, const void* v,
                              void* o, int B, int H, int Hkv, int S, int Sk,
-                             int D, int causal, int window, float scale,
-                             int block_q, int block_k, cudaStream_t st) {
-  return with_dim(D, [&](auto d) {
-    constexpr int DD = decltype(d)::value;
+                             int D, int dp, int causal, int window,
+                             float scale, int block_q, int block_k,
+                             cudaStream_t st) {
+  return with_dim<false>(D, dp, [&](auto w, auto pad) {
+    constexpr int DD = decltype(w)::value;
+    constexpr bool PAD = decltype(pad)::value;
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-      return k1_with_tile<DD>(block_q, block_k, [&](auto bm, auto bn) {
+      return k1_with_tile<DD, PAD>(block_q, block_k, [&](auto bm, auto bn) {
         return launch_attention_tc<DD, decltype(bm)::value,
-                                   decltype(bn)::value>(
-            q, k, v, o, B, H, Hkv, S, Sk, causal, window, scale, st);
+                                   decltype(bn)::value, PAD>(
+            q, k, v, o, B, H, Hkv, S, Sk, causal, window, scale, D, st);
       });
     } else {
-      return launch_attention<T, DD>(q, k, v, o, B, H, Hkv, S, Sk, causal,
-                                     window, scale, st);
+      return launch_attention<T, DD, PAD>(q, k, v, o, B, H, Hkv, S, Sk,
+                                          causal, window, scale, D, st);
     }
   });
 }
 
-// The float32 K2 at the head dims of paged_attention.cu's kernels: a lane
-// owns D / 32 contiguous columns of a V row (NC), which at D = 80 or 112
-// would not split the row into 32 whole runs, so neither has an instance
-// here; nor has D = 160, whose archs the card serves in bf16 (the bf16
-// K2, paged_decode.cu's dense mode, has all three)
+// The float32 K2: a lane owns D / 32 contiguous columns of a V row (NC), so
+// its own instances are at D = 16, 32, 64 and 128; h2o-danube-1.8b's 80,
+// zamba2-7b's 112 and pixtral-12b's 160 (and every other head dim) run on
+// the padded instances (96, 128, 160: 3, 4, 5 columns a lane, those at
+// and past d zero).  A bf16 query runs paged_decode.cu's dense mode.
 template <typename T>
 cudaError_t decode_by_dim(const void* q, const void* k, const void* v,
                           const int* kv_len, void* o, int B, int H, int Hkv,
-                          int S, int D, float scale, cudaStream_t st) {
-  switch (D) {
-    case 16: return launch_decode<T, 16>(q, k, v, kv_len, o, B, H, Hkv, S, scale, st);
-    case 32: return launch_decode<T, 32>(q, k, v, kv_len, o, B, H, Hkv, S, scale, st);
-    case 64: return launch_decode<T, 64>(q, k, v, kv_len, o, B, H, Hkv, S, scale, st);
-    case 128: return launch_decode<T, 128>(q, k, v, kv_len, o, B, H, Hkv, S, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+                          int S, int D, int dp, float scale,
+                          cudaStream_t st) {
+  return with_dim<true>(D, dp, [&](auto w, auto pad) {
+    return launch_decode<T, decltype(w)::value, decltype(pad)::value>(
+        q, k, v, kv_len, o, B, H, Hkv, S, scale, D, st);
+  });
 }
 
 }  // namespace
@@ -835,52 +903,59 @@ cudaError_t decode_by_dim(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16 (K1 of bfloat16 runs on the tensor
 // cores at the tile of block_q query rows and block_k keys, which must
 // have an instance (see k1_with_tile), of float32 on the SIMT template,
-// which reads no tile).  window <= 0 means no sliding window.  S query
+// which reads no tile).  dp: 0 for the head dim D's own instance, else the
+// width of the padded instance to run (kernels/flash_attention.py's
+// route()).  window <= 0 means no sliding window.  S query
 // rows attend to Sk keys; Sk != S only without a causal mask or a window
 // (cross attention), else cudaErrorInvalidValue.
-// Returns the launch's cudaError_t (0 = success; a tile without an
-// instance returns cudaErrorInvalidValue and launches nothing).  The
+// Returns the launch's cudaError_t (0 = success; a tile or head dim without
+// an instance returns cudaErrorInvalidValue and launches nothing).  The
 // caller validates shapes, contiguity and alignment; the kernels never
 // allocate or sync.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int H,
-                                     int Hkv, int S, int Sk, int D, int dtype,
-                                     int causal, int window, float scale,
-                                     int block_q, int block_k, void* stream) {
+                                     int Hkv, int S, int Sk, int D, int dp,
+                                     int dtype, int causal, int window,
+                                     float scale, int block_q, int block_k,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S < 1 || Sk < 1 || (Sk != S && (causal || window > 0)))
     return cudaErrorInvalidValue;
   if (dtype == 0)
-    return attention_by_dim<float>(q, k, v, o, B, H, Hkv, S, Sk, D, causal,
-                                   window, scale, block_q, block_k, st);
+    return attention_by_dim<float>(q, k, v, o, B, H, Hkv, S, Sk, D, dp,
+                                   causal, window, scale, block_q, block_k,
+                                   st);
   if (dtype == 1)
     return attention_by_dim<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, Sk, D,
-                                           causal, window, scale, block_q,
-                                           block_k, st);
+                                           dp, causal, window, scale,
+                                           block_q, block_k, st);
   return cudaErrorInvalidValue;
 }
 
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* kv_len, void* o, int B, int H,
-                                  int Hkv, int S, int D, int dtype,
+                                  int Hkv, int S, int D, int dp, int dtype,
                                   float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_len);
   if (dtype == 0)   // bf16: paged_decode.cu's repro_flash_decode_tc
-    return decode_by_dim<float>(q, k, v, lens, o, B, H, Hkv, S, D, scale, st);
+    return decode_by_dim<float>(q, k, v, lens, o, B, H, Hkv, S, D, dp, scale,
+                                st);
   return cudaErrorInvalidValue;
 }
 
-// The bf16 K1 instance for head dim D at the tile of block_q query rows
-// and block_k keys: out[0..3] = registers per thread, local-memory
-// (spill) bytes, dynamic shared memory in bytes, resident blocks per SM.
-extern "C" int repro_flash_attention_tc_info(int D, int block_q, int block_k,
-                                             int* out) {
-  return with_dim(D, [&](auto d) {
-    constexpr int DD = decltype(d)::value;
-    return k1_with_tile<DD>(block_q, block_k, [&](auto bm, auto bn) {
-      return attention_tc_info<DD, decltype(bm)::value, decltype(bn)::value>(
-          out);
+// The bf16 K1 instance for head dim D (dp as repro_flash_attention's) at
+// the tile of block_q query rows and block_k keys: out[0..3] = registers
+// per thread, local-memory (spill) bytes, dynamic shared memory in bytes,
+// resident blocks per SM.
+extern "C" int repro_flash_attention_tc_info(int D, int dp, int block_q,
+                                             int block_k, int* out) {
+  return with_dim<false>(D, dp, [&](auto w, auto pad) {
+    constexpr int DD = decltype(w)::value;
+    constexpr bool PAD = decltype(pad)::value;
+    return k1_with_tile<DD, PAD>(block_q, block_k, [&](auto bm, auto bn) {
+      return attention_tc_info<DD, decltype(bm)::value, decltype(bn)::value,
+                               PAD>(out);
     });
   });
 }

@@ -34,6 +34,36 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
+// Chunk c (16 bytes) of a padded instance's row into shared memory at dst
+// (16-byte aligned): the row's bytes c * 16 .. c * 16 + 15 that lie below
+// its end (rb bytes from row, or none when !in), zeros after.  Every row of
+// the tensor starts at a multiple of rb from a 16-byte aligned base, so a
+// 16-byte cp.async takes the chunk where rb % 16 == 0, four 4-byte ones
+// where rb % 4 == 0 (a bf16 row of d = 100: 200 bytes), and plain loads and
+// stores otherwise (an odd bf16 d); the copies' zero-fill pads past the end.
+// `base` is any valid address, named by a copy that reads nothing.
+__device__ __forceinline__ void cp_async16_part(void* dst, const void* row,
+                                                int c, int rb, bool in,
+                                                const void* base) {
+  const int n = in ? max(0, min(16, rb - c * 16)) : 0;
+  const unsigned char* src = static_cast<const unsigned char*>(row) + c * 16;
+  const uint32_t sa = smem_addr(dst);
+  if (rb % 16 == 0) {
+    cp_async16(sa, n ? static_cast<const void*>(src) : base, n);
+  } else if (rb % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ni = max(0, min(4, n - 4 * i));
+      cp_async4(sa + 4 * i, ni ? static_cast<const void*>(src + 4 * i) : base,
+                ni);
+    }
+  } else {
+    unsigned char* out = static_cast<unsigned char*>(dst);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) out[i] = i < n ? src[i] : 0;
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -116,7 +116,7 @@ constexpr int NWARPS = 8;
 constexpr int THREADS = NWARPS * 32;
 }  // namespace k3
 
-template <typename T, typename S, int D, int GR, bool SPLIT>
+template <typename T, typename S, int D, int GR, bool SPLIT, bool PAD>
 __global__ void __launch_bounds__(k3::THREADS)
 paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ kp,
                     const S* __restrict__ vp, const float* __restrict__ ksc,
@@ -125,8 +125,9 @@ paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ kp,
                     const int* __restrict__ kv_len, T* __restrict__ o,
                     float* __restrict__ pm, float* __restrict__ pl,
                     float* __restrict__ pacc, int H, int Hkv, int psz,
-                    int nblk, float scale) {
+                    int nblk, float scale, int d_run) {
   using namespace k3;
+  const int d = PAD ? d_run : D;          // the row stride (common.cuh)
   constexpr bool QUANT = std::is_same_v<S, int8_t>;
   constexpr int NC = (D + 31) / 32;       // contiguous columns per lane
   constexpr int VN = 16 / sizeof(S);      // elements per 16-byte load
@@ -139,7 +140,7 @@ paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ kp,
   const int b = blockIdx.x / Hkv;
   const int hk = blockIdx.x - b * Hkv;
   const int h0 = hk * (H / Hkv) + blockIdx.y * GR;  // first query row's head
-  const size_t qoff = ((size_t)b * H + h0) * D;
+  const size_t qoff = ((size_t)b * H + h0) * d;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -155,7 +156,14 @@ paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ kp,
     t_hi = min(t_hi, t_lo + per);
   }
   for (int i = tid; i < n_live; i += THREADS) tbl[i] = table[(size_t)b * nblk + i];
-  for (int i = tid; i < GR * D; i += THREADS) qs[i] = to_float(q[qoff + i]);
+  for (int i = tid; i < GR * D; i += THREADS) {
+    if constexpr (PAD) {
+      const int c = i % D;
+      qs[i] = c < d ? to_float(q[qoff + (size_t)(i / D) * d + c]) : 0.f;
+    } else {
+      qs[i] = to_float(q[qoff + i]);
+    }
+  }
   __syncthreads();
 
   float m[GR], l[GR], acc[GR][NC];
@@ -183,11 +191,17 @@ paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ kp,
 #pragma unroll
     for (int g = 0; g < GR; ++g) s[g] = 0.f;
     if (live) {
-      const S* kr = kp + row * D;
+      const S* kr = kp + row * d;
 #pragma unroll 4
       for (int c = 0; c < D; c += VN) {
         float kf[VN];
-        load_f32<VN>(kr + c, kf);
+        if constexpr (PAD) {
+#pragma unroll
+          for (int e = 0; e < VN; ++e)
+            kf[e] = c + e < d ? to_float(kr[c + e]) : 0.f;
+        } else {
+          load_f32<VN>(kr + c, kf);
+        }
         if constexpr (QUANT) {
 #pragma unroll
           for (int e = 0; e < VN; ++e) kf[e] *= k_scale;
@@ -218,11 +232,16 @@ paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ kp,
 
     const int n = min(BK, len - t * BK);
     for (int jj = 0; jj < n; ++jj) {
-      const unsigned long long vo = __shfl_sync(kFull, row, jj) * D;
+      const unsigned long long vo = __shfl_sync(kFull, row, jj) * d;
       float vs = 1.f;
       if constexpr (QUANT) vs = __shfl_sync(kFull, v_scale, jj);
       float vv[NC];
-      if (lane * NC < D) {
+      if constexpr (PAD) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          vv[c] = lane * NC + c < d ? to_float(vp[vo + lane * NC + c]) * vs
+                                    : 0.f;
+      } else if (lane * NC < D) {
         load_f32<NC>(vp + vo + lane * NC, vv);
         if constexpr (QUANT) {
 #pragma unroll
@@ -258,7 +277,8 @@ paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ kp,
   __syncthreads();
   for (int i = tid; i < GR * D; i += THREADS) {
     const int g = i / D;
-    const int d = i - g * D;
+    const int dd = i - g * D;
+    if (PAD && dd >= d) continue;
     float m_star = kNegInf;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) m_star = fmaxf(m_star, ms[w][g]);
@@ -267,7 +287,7 @@ paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ kp,
     for (int w = 0; w < NWARPS; ++w) {
       const float e = expf(ms[w][g] - m_star);
       l_star += ls[w][g] * e;
-      a += accs[w][g][d] * e;
+      a += accs[w][g][dd] * e;
     }
     if constexpr (SPLIT) {
       // unnormalised state of (b, hk, split, row): an empty split leaves
@@ -275,11 +295,14 @@ paged_decode_kernel(const T* __restrict__ q, const S* __restrict__ kp,
       const int G = H / Hkv;
       const size_t prow =
           ((size_t)blockIdx.x * gridDim.z + blockIdx.z) * G + blockIdx.y * GR + g;
-      pacc[prow * D + d] = a;
-      if (d == 0) {
+      pacc[prow * d + dd] = a;
+      if (dd == 0) {
         pm[prow] = m_star;
         pl[prow] = l_star;
       }
+    } else if constexpr (PAD) {
+      o[qoff + (size_t)g * d + dd] =
+          from_float<T>(a / (l_star == 0.f ? 1.f : l_star));
     } else {
       o[qoff + i] = from_float<T>(a / (l_star == 0.f ? 1.f : l_star));
     }
@@ -341,7 +364,7 @@ constexpr size_t smem_bytes() {
 }
 }  // namespace k4
 
-template <typename T, typename S, int D, bool SPLIT>
+template <typename T, typename S, int D, bool SPLIT, bool PAD>
 __global__ void __launch_bounds__(k4::THREADS)
 paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
                      const S* __restrict__ vp, const float* __restrict__ ksc,
@@ -351,8 +374,9 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
                      const int* __restrict__ kv_len, T* __restrict__ o,
                      float* __restrict__ pm, float* __restrict__ pl,
                      float* __restrict__ pacc, int H, int Hkv, int C,
-                     int psz, int nblk, int ns, float scale) {
+                     int psz, int nblk, int ns, float scale, int d_run) {
   using namespace k4;
+  const int d = PAD ? d_run : D;     // the row stride (common.cuh)
   constexpr bool QUANT = std::is_same_v<S, int8_t>;
   constexpr int NC = (D + 31) / 32;  // output columns per lane
   constexpr int KS = D + 1;
@@ -372,7 +396,7 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const size_t qoff = ((size_t)b * H + h) * C * D;
+  const size_t qoff = ((size_t)b * H + h) * C * d;
   const int* tbl = table + (size_t)b * nblk;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -382,7 +406,12 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int qi = i0 + i / D;
-    qs[i] = qi < C ? to_float(q[qoff + (size_t)i0 * D + i]) : 0.f;
+    if constexpr (PAD) {
+      const int c = i % D;
+      qs[i] = qi < C && c < d ? to_float(q[qoff + (size_t)qi * d + c]) : 0.f;
+    } else {
+      qs[i] = qi < C ? to_float(q[qoff + (size_t)i0 * D + i]) : 0.f;
+    }
   }
 
   // live key tiles: committed (k_start < kv_len) and causally visible to
@@ -411,7 +440,7 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
     if (tid < BK) {
       const int kj = k_start + tid;
       const size_t row = kj < len ? row_index(tbl, kj, hk, Hkv, psz) : 0;
-      roffs[tid] = row * D;
+      roffs[tid] = row * d;
       if constexpr (QUANT) {
         k_scales[tid] = kj < len ? ksc[row] : 0.f;
         v_scales[tid] = kj < len ? vsc[row] : 0.f;
@@ -421,7 +450,7 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
     for (int i = tid; i < BK * D; i += THREADS) {
       const int j = i / D;
       const int c = i - j * D;
-      const bool in = k_start + j < len;
+      const bool in = k_start + j < len && (!PAD || c < d);
       const size_t g = roffs[j] + c;
       float kf = in ? to_float(kp[g]) : 0.f;
       float vf = in ? to_float(vp[g]) : 0.f;
@@ -506,14 +535,14 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int col = lane + 32 * c;
-        if (col < D) pacc[prow * D + col] = acc[r][c];
+        if (col < d) pacc[prow * d + col] = acc[r][c];
       }
     } else {
       const float denom = l[r] == 0.f ? 1.f : l[r];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int col = lane + 32 * c;
-        if (col < D) o[qoff + (size_t)i * D + col] = from_float<T>(acc[r][c] / denom);
+        if (col < d) o[qoff + (size_t)i * d + col] = from_float<T>(acc[r][c] / denom);
       }
     }
   }
@@ -538,11 +567,12 @@ struct DecodeArgs {
   int B, H, Hkv, psz, nblk, ns, D;
   float scale;
   cudaStream_t st;
+  int dp = 0;            // the padded instance's width (0: D's own)
 };
 
-template <typename T, typename S, int D, int GR, bool SPLIT>
+template <typename T, typename S, int D, int GR, bool SPLIT, bool PAD>
 cudaError_t launch_decode(const DecodeArgs& a) {
-  auto kern = paged_decode_kernel<T, S, D, GR, SPLIT>;
+  auto kern = paged_decode_kernel<T, S, D, GR, SPLIT, PAD>;
   const int smem = a.nblk * (int)sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -552,29 +582,54 @@ cudaError_t launch_decode(const DecodeArgs& a) {
       static_cast<const T*>(a.q), static_cast<const S*>(a.kp),
       static_cast<const S*>(a.vp), a.ksc, a.vsc, a.table, a.kv_len,
       static_cast<T*>(a.o), a.pm, a.pl, a.pacc, a.H, a.Hkv, a.psz, a.nblk,
-      a.scale);
+      a.scale, a.D);
   return cudaGetLastError();
 }
 
-template <typename T, typename S, int D, bool SPLIT>
+template <typename T, typename S, int D, bool SPLIT, bool PAD>
 cudaError_t decode_by_group(const DecodeArgs& a) {
-  // rows per block: the largest of 8, 4, 2, 1 dividing the group size G
+  // rows per block: the largest of 8, 4, 2, 1 dividing the group size G; a
+  // padded instance's largest is 4, so that its static shared memory (qs
+  // and the warps' accs, 36 KB at D = 256) stays under 48 KB
   const int G = a.H / a.Hkv;
-  if (G % 8 == 0) return launch_decode<T, S, D, 8, SPLIT>(a);
-  if (G % 4 == 0) return launch_decode<T, S, D, 4, SPLIT>(a);
-  if (G % 2 == 0) return launch_decode<T, S, D, 2, SPLIT>(a);
-  return launch_decode<T, S, D, 1, SPLIT>(a);
+  if constexpr (!PAD) {
+    if (G % 8 == 0) return launch_decode<T, S, D, 8, SPLIT, PAD>(a);
+  }
+  if (G % 4 == 0) return launch_decode<T, S, D, 4, SPLIT, PAD>(a);
+  if (G % 2 == 0) return launch_decode<T, S, D, 2, SPLIT, PAD>(a);
+  return launch_decode<T, S, D, 1, SPLIT, PAD>(a);
+}
+
+// f(Int<D>, pad) for the instance of head dim d: with dp = 0 the head
+// dim's own (D = 16, 32, 64 and 128: a decode lane owns D / 32 contiguous
+// columns of a V row), else the padded instance of width dp (common.cuh's
+// with_pad_width; h2o-danube-1.8b's 80, zamba2-7b's 112 and pixtral-12b's
+// 160 run on the rungs 96, 128 and 160)
+template <typename F>
+cudaError_t with_dim(int d, int dp, F&& f) {
+  if (dp > 0)
+    return with_pad_width(dp, d, [&](auto w) {
+      return f(w, std::true_type{});
+    });
+  if constexpr (kPaddedBuild) {
+    return cudaErrorInvalidValue;
+  } else {
+    switch (d) {
+      case 16: return f(Int<16>{}, std::false_type{});
+      case 32: return f(Int<32>{}, std::false_type{});
+      case 64: return f(Int<64>{}, std::false_type{});
+      case 128: return f(Int<128>{}, std::false_type{});
+      default: return cudaErrorInvalidValue;
+    }
+  }
 }
 
 template <typename T, typename S, bool SPLIT>
 cudaError_t decode_by_dim(const DecodeArgs& a) {
-  switch (a.D) {
-    case 16: return decode_by_group<T, S, 16, SPLIT>(a);
-    case 32: return decode_by_group<T, S, 32, SPLIT>(a);
-    case 64: return decode_by_group<T, S, 64, SPLIT>(a);
-    case 128: return decode_by_group<T, S, 128, SPLIT>(a);
-    default: return cudaErrorInvalidValue;
-  }
+  return with_dim(a.D, a.dp, [&](auto w, auto pad) {
+    return decode_by_group<T, S, decltype(w)::value, SPLIT,
+                           decltype(pad)::value>(a);
+  });
 }
 
 // dtype of q (and of fp pools): 0 = float32 only (bf16: paged_decode.cu)
@@ -601,12 +656,13 @@ struct PrefillArgs {
   int B, H, Hkv, C, psz, nblk, ns, D;
   float scale;
   cudaStream_t st;
+  int dp = 0;            // the padded instance's width (0: D's own)
 };
 
-template <typename T, typename S, int D, bool SPLIT>
+template <typename T, typename S, int D, bool SPLIT, bool PAD>
 cudaError_t launch_prefill(const PrefillArgs& a) {
   constexpr size_t smem = k4::smem_bytes<D>();
-  auto kern = paged_prefill_kernel<T, S, D, SPLIT>;
+  auto kern = paged_prefill_kernel<T, S, D, SPLIT, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -616,19 +672,16 @@ cudaError_t launch_prefill(const PrefillArgs& a) {
       static_cast<const T*>(a.q), static_cast<const S*>(a.kp),
       static_cast<const S*>(a.vp), a.ksc, a.vsc, a.table, a.start, a.kv_len,
       static_cast<T*>(a.o), a.pm, a.pl, a.pacc, a.H, a.Hkv, a.C, a.psz,
-      a.nblk, SPLIT ? a.ns : 1, a.scale);
+      a.nblk, SPLIT ? a.ns : 1, a.scale, a.D);
   return cudaGetLastError();
 }
 
 template <typename T, typename S, bool SPLIT>
 cudaError_t prefill_by_dim(const PrefillArgs& a) {
-  switch (a.D) {
-    case 16: return launch_prefill<T, S, 16, SPLIT>(a);
-    case 32: return launch_prefill<T, S, 32, SPLIT>(a);
-    case 64: return launch_prefill<T, S, 64, SPLIT>(a);
-    case 128: return launch_prefill<T, S, 128, SPLIT>(a);
-    default: return cudaErrorInvalidValue;
-  }
+  return with_dim(a.D, a.dp, [&](auto w, auto pad) {
+    return launch_prefill<T, S, decltype(w)::value, SPLIT,
+                          decltype(pad)::value>(a);
+  });
 }
 
 // K4, K5b, K6c and K6d take a float32 query only (bf16: paged_prefill.cu)
@@ -644,11 +697,12 @@ cudaError_t prefill(const PrefillArgs& a, int dtype) {
 }  // namespace
 
 // dtype: the type of q and of the output (and of fp pools): 0 = float32,
-// 1 = bfloat16.  Each entry point returns the launch's cudaError_t
-// (0 = success).  The caller validates shapes, contiguity, alignment and
-// that every table entry below ceil(kv_len / psz) names a page of the
-// pools, and allocates the outputs and partials; the kernels never
-// allocate or sync.
+// 1 = bfloat16.  dp: 0 for the head dim D's own instance, else the width
+// of the padded instance to run (kernels/flash_attention.py's route()).
+// Each entry point returns the launch's cudaError_t (0 = success).  The
+// caller validates shapes, contiguity, alignment and that every table
+// entry below ceil(kv_len / psz) names a page of the pools, and allocates
+// the outputs and partials; the kernels never allocate or sync.
 
 // K3 with a float32 query (dtype 0 only): float32 pools, normalised output
 // o (B, H, 1, D).
@@ -657,13 +711,14 @@ extern "C" int repro_flash_paged_decode(const void* q, const void* k_pool,
                                         const void* page_table,
                                         const void* kv_len, void* o, int B,
                                         int H, int Hkv, int psz, int nblk,
-                                        int D, int dtype, float scale,
+                                        int D, int dp, int dtype, float scale,
                                         void* stream) {
-  const DecodeArgs a{q, k_pool, v_pool, nullptr, nullptr,
-                     static_cast<const int*>(page_table),
-                     static_cast<const int*>(kv_len), o, nullptr, nullptr,
-                     nullptr, B, H, Hkv, psz, nblk, 1, D, scale,
-                     static_cast<cudaStream_t>(stream)};
+  DecodeArgs a{q, k_pool, v_pool, nullptr, nullptr,
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(kv_len), o, nullptr, nullptr,
+               nullptr, B, H, Hkv, psz, nblk, 1, D, scale,
+               static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   return decode<false, false>(a, dtype);
 }
 
@@ -673,13 +728,14 @@ extern "C" int repro_flash_paged_decode_quant(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* kv_len, void* o, int B, int H, int Hkv, int psz, int nblk,
-    int D, int dtype, float scale, void* stream) {
-  const DecodeArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
-                     static_cast<const float*>(v_scale),
-                     static_cast<const int*>(page_table),
-                     static_cast<const int*>(kv_len), o, nullptr, nullptr,
-                     nullptr, B, H, Hkv, psz, nblk, 1, D, scale,
-                     static_cast<cudaStream_t>(stream)};
+    int D, int dp, int dtype, float scale, void* stream) {
+  DecodeArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(kv_len), o, nullptr, nullptr,
+               nullptr, B, H, Hkv, psz, nblk, 1, D, scale,
+               static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   return decode<true, false>(a, dtype);
 }
 
@@ -688,14 +744,15 @@ extern "C" int repro_flash_paged_decode_quant(
 extern "C" int repro_paged_decode_split(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* kv_len, void* m, void* l, void* acc,
-    int B, int H, int Hkv, int psz, int nblk, int ns, int D, int dtype,
+    int B, int H, int Hkv, int psz, int nblk, int ns, int D, int dp, int dtype,
     float scale, void* stream) {
-  const DecodeArgs a{q, k_pool, v_pool, nullptr, nullptr,
-                     static_cast<const int*>(page_table),
-                     static_cast<const int*>(kv_len), nullptr,
-                     static_cast<float*>(m), static_cast<float*>(l),
-                     static_cast<float*>(acc), B, H, Hkv, psz, nblk, ns, D,
-                     scale, static_cast<cudaStream_t>(stream)};
+  DecodeArgs a{q, k_pool, v_pool, nullptr, nullptr,
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(kv_len), nullptr,
+               static_cast<float*>(m), static_cast<float*>(l),
+               static_cast<float*>(acc), B, H, Hkv, psz, nblk, ns, D,
+               scale, static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   return decode<false, true>(a, dtype);
 }
 
@@ -705,14 +762,15 @@ extern "C" int repro_paged_decode_split_quant(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* kv_len, void* m, void* l, void* acc, int B, int H, int Hkv,
-    int psz, int nblk, int ns, int D, int dtype, float scale, void* stream) {
-  const DecodeArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
-                     static_cast<const float*>(v_scale),
-                     static_cast<const int*>(page_table),
-                     static_cast<const int*>(kv_len), nullptr,
-                     static_cast<float*>(m), static_cast<float*>(l),
-                     static_cast<float*>(acc), B, H, Hkv, psz, nblk, ns, D,
-                     scale, static_cast<cudaStream_t>(stream)};
+    int psz, int nblk, int ns, int D, int dp, int dtype, float scale, void* stream) {
+  DecodeArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(kv_len), nullptr,
+               static_cast<float*>(m), static_cast<float*>(l),
+               static_cast<float*>(acc), B, H, Hkv, psz, nblk, ns, D,
+               scale, static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   return decode<true, true>(a, dtype);
 }
 
@@ -744,14 +802,15 @@ extern "C" int repro_paged_prefill_f32(const void* q, const void* k_pool,
                                        const void* page_table,
                                        const void* start, const void* kv_len,
                                        void* o, int B, int H, int Hkv, int C,
-                                       int psz, int nblk, int D, int dtype,
+                                       int psz, int nblk, int D, int dp, int dtype,
                                        float scale, void* stream) {
-  const PrefillArgs a{q, k_pool, v_pool, nullptr, nullptr,
-                      static_cast<const int*>(page_table),
-                      static_cast<const int*>(start),
-                      static_cast<const int*>(kv_len), o, nullptr, nullptr,
-                      nullptr, B, H, Hkv, C, psz, nblk, 1, D, scale,
-                      static_cast<cudaStream_t>(stream)};
+  PrefillArgs a{q, k_pool, v_pool, nullptr, nullptr,
+                static_cast<const int*>(page_table),
+                static_cast<const int*>(start),
+                static_cast<const int*>(kv_len), o, nullptr, nullptr,
+                nullptr, B, H, Hkv, C, psz, nblk, 1, D, scale,
+                static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   return prefill<false, false>(a, dtype);
 }
 
@@ -761,14 +820,15 @@ extern "C" int repro_paged_prefill_f32_quant(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* start, const void* kv_len, void* o, int B, int H, int Hkv,
-    int C, int psz, int nblk, int D, int dtype, float scale, void* stream) {
-  const PrefillArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
-                      static_cast<const float*>(v_scale),
-                      static_cast<const int*>(page_table),
-                      static_cast<const int*>(start),
-                      static_cast<const int*>(kv_len), o, nullptr, nullptr,
-                      nullptr, B, H, Hkv, C, psz, nblk, 1, D, scale,
-                      static_cast<cudaStream_t>(stream)};
+    int C, int psz, int nblk, int D, int dp, int dtype, float scale, void* stream) {
+  PrefillArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+                static_cast<const float*>(v_scale),
+                static_cast<const int*>(page_table),
+                static_cast<const int*>(start),
+                static_cast<const int*>(kv_len), o, nullptr, nullptr,
+                nullptr, B, H, Hkv, C, psz, nblk, 1, D, scale,
+                static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   return prefill<true, false>(a, dtype);
 }
 
@@ -778,14 +838,15 @@ extern "C" int repro_paged_prefill_split(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* start, const void* kv_len, void* m,
     void* l, void* acc, int B, int H, int Hkv, int C, int psz, int nblk,
-    int ns, int D, int dtype, float scale, void* stream) {
-  const PrefillArgs a{q, k_pool, v_pool, nullptr, nullptr,
-                      static_cast<const int*>(page_table),
-                      static_cast<const int*>(start),
-                      static_cast<const int*>(kv_len), nullptr,
-                      static_cast<float*>(m), static_cast<float*>(l),
-                      static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns,
-                      D, scale, static_cast<cudaStream_t>(stream)};
+    int ns, int D, int dp, int dtype, float scale, void* stream) {
+  PrefillArgs a{q, k_pool, v_pool, nullptr, nullptr,
+                static_cast<const int*>(page_table),
+                static_cast<const int*>(start),
+                static_cast<const int*>(kv_len), nullptr,
+                static_cast<float*>(m), static_cast<float*>(l),
+                static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns,
+                D, scale, static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   return prefill<false, true>(a, dtype);
 }
 
@@ -795,15 +856,16 @@ extern "C" int repro_paged_prefill_split_quant(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* start, const void* kv_len, void* m, void* l, void* acc,
-    int B, int H, int Hkv, int C, int psz, int nblk, int ns, int D,
+    int B, int H, int Hkv, int C, int psz, int nblk, int ns, int D, int dp,
     int dtype, float scale, void* stream) {
-  const PrefillArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
-                      static_cast<const float*>(v_scale),
-                      static_cast<const int*>(page_table),
-                      static_cast<const int*>(start),
-                      static_cast<const int*>(kv_len), nullptr,
-                      static_cast<float*>(m), static_cast<float*>(l),
-                      static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns,
-                      D, scale, static_cast<cudaStream_t>(stream)};
+  PrefillArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+                static_cast<const float*>(v_scale),
+                static_cast<const int*>(page_table),
+                static_cast<const int*>(start),
+                static_cast<const int*>(kv_len), nullptr,
+                static_cast<float*>(m), static_cast<float*>(l),
+                static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns,
+                D, scale, static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   return prefill<true, true>(a, dtype);
 }

@@ -68,9 +68,12 @@
 // (tuning/dynamic.py's DecodeBucket regions, KVPrecision): 64 keys (the
 // default: 4 warps of 16 keys), and at D = 128 and 160 also 32 (2 warps
 // of 16).  D = 80 (h2o-danube-1.8b) and D = 112 (zamba2-7b's shared
-// block) have the DENSE mode (K2) alone, at both tiles: their sliding
-// windows keep a ring of 4096 slots a lane in a dense strip and never
-// page.  D = 160 (pixtral-12b) pages and has every mode.  The body takes
+// block) have their own DENSE mode (K2) alone, at both tiles: their
+// sliding windows keep a ring of 4096 slots a lane in a dense strip and
+// never page (a paged D 80 or 112 runs on the padded instances of widths
+// 96 and 128, which every mode has at every width of common.cuh's
+// with_pad_width, 64 keys a tile).  D = 160 (pixtral-12b) pages and has
+// every mode.  The body takes
 // them as they are: 5 (7, 10) k-steps of m16n8k16 for S, 10 (14, 20)
 // n-tiles for P.V, rows of 176 (240, 336) bytes, 11 (15, 21) 16-byte
 // chunks apart, 20 (28, 40) float4 columns a row in the merge.  At D =
@@ -229,7 +232,7 @@ struct Smem {
 // exp2.
 // ---------------------------------------------------------------------------
 
-template <typename S, int D, int MODE, int BN>
+template <typename S, int D, int MODE, int BN, bool PAD>
 __global__ void __launch_bounds__(dec::Tile<BN>::THREADS)
 paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const S* __restrict__ kp, const S* __restrict__ vp,
@@ -240,8 +243,9 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ pm,
                        float* __restrict__ pl, float* __restrict__ pacc,
                        int* __restrict__ cnt, int H, int Hkv, int psz,
-                       int nblk, int ns, float scale_log2) {
+                       int nblk, int ns, float scale_log2, int d_run) {
   using namespace dec;
+  const int d = PAD ? d_run : D;     // the row stride (common.cuh)
   using L = Smem<S, D, BN>;
   constexpr int NWARPS = Tile<BN>::NWARPS;
   constexpr int THREADS = Tile<BN>::THREADS;
@@ -274,7 +278,7 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int G = H / Hkv;
   const int r0 = blockIdx.y * ROWS;            // the CTA's first query row
   const int rows = min(ROWS, G - r0);
-  const size_t qoff = ((size_t)b * H + hk * G + r0) * D;
+  const size_t qoff = ((size_t)b * H + hk * G + r0) * d;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -298,7 +302,14 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = i / CH;
     const int cc = i - r * CH;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) v = *reinterpret_cast<const uint4*>(q + qoff + (size_t)r * D + cc * 8);
+    if constexpr (PAD) {
+      __nv_bfloat16* e8 = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (r < rows && cc * 8 + e < d) e8[e] = q[qoff + (size_t)r * d + cc * 8 + e];
+    } else {
+      if (r < rows) v = *reinterpret_cast<const uint4*>(q + qoff + (size_t)r * D + cc * 8);
+    }
     *reinterpret_cast<uint4*>(qs + r * ROW + cc * 8) = v;
   }
   __syncthreads();
@@ -337,9 +348,16 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const int cc = e - j * CPR;
       const int key = k0 + j;
       const bool in = key < len;
-      const size_t off = in ? pool_row(key) * D + cc * (16 / (int)sizeof(S)) : 0;
-      cp_async16(smem_addr(kd + j * KV_ROW + cc * 16), kp + off, in ? 16 : 0);
-      cp_async16(smem_addr(vd + j * KV_ROW + cc * 16), vp + off, in ? 16 : 0);
+      if constexpr (PAD) {
+        const size_t row = in ? pool_row(key) * d : 0;
+        constexpr int ES = (int)sizeof(S);
+        cp_async16_part(kd + j * KV_ROW + cc * 16, kp + row, cc, d * ES, in, kp);
+        cp_async16_part(vd + j * KV_ROW + cc * 16, vp + row, cc, d * ES, in, vp);
+      } else {
+        const size_t off = in ? pool_row(key) * D + cc * (16 / (int)sizeof(S)) : 0;
+        cp_async16(smem_addr(kd + j * KV_ROW + cc * 16), kp + off, in ? 16 : 0);
+        cp_async16(smem_addr(vd + j * KV_ROW + cc * 16), vp + off, in ? 16 : 0);
+      }
     }
     if constexpr (QUANT) {
       if (lane < KN) {
@@ -533,7 +551,11 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
     if constexpr (MODE == PARTIALS) {
       // the split's state of query row r0 + row: (B, Hkv, ns, G) rows
       const size_t prow = (size_t)blockIdx.x * G + r0 + row;
-      *reinterpret_cast<float4*>(pacc + prow * D + col) = a;
+      if constexpr (PAD) {
+        if (col < d) st_part4(pacc + prow * d + col, a, d - col);
+      } else {
+        *reinterpret_cast<float4*>(pacc + prow * D + col) = a;
+      }
       if (col == 0) {
         pm[prow] = m_star == kNegInf ? kNegInf : m_star * kLn2;
         pl[prow] = l_star;
@@ -550,10 +572,10 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // K5c: with the arrival counters, the last of the ns splits of this
     // (lane, kv head, slab) to finish merges their partials into o
     if (cnt != nullptr)
-      merge_splits_if_last<D, THREADS, ROWS>(
+      merge_splits_if_last<D, THREADS, ROWS, PAD>(
           cnt + (size_t)bh * gridDim.y + blockIdx.y, ns, rows, pm, pl, pacc,
           (size_t)G, [&](int r) { return (size_t)bh * ns * G + r0 + r; },
-          [&](int r) { return o + qoff + (size_t)r * D; }, st);
+          [&](int r) { return o + qoff + (size_t)r * d; }, st, d);
     return;
   }
   cluster.sync();    // every rank's state is in its shared memory
@@ -606,10 +628,14 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
         a.w += v.w * w;
       }
     }
-    uint2 out;
-    out.x = pack_bf16(a.x, a.y);
-    out.y = pack_bf16(a.z, a.w);
-    *reinterpret_cast<uint2*>(o + qoff + (size_t)row * D + col) = out;
+    if constexpr (PAD) {
+      if (col < d) st_bf16_part4(o + qoff + (size_t)row * d + col, a, d - col);
+    } else {
+      uint2 out;
+      out.x = pack_bf16(a.x, a.y);
+      out.y = pack_bf16(a.z, a.w);
+      *reinterpret_cast<uint2*>(o + qoff + (size_t)row * D + col) = out;
+    }
   }
   cluster.sync();    // no CTA leaves while a peer still reads its state
 }
@@ -637,49 +663,61 @@ struct Args {
   cudaStream_t st;
   int bn = DEFAULT_BN;   // keys per tile
   int* cnt = nullptr;    // PARTIALS with K5c's merge: arrival counters
+  int dp = 0;            // the padded instance's width (0: D's own)
 };
-
-template <int N>
-using Int = std::integral_constant<int, N>;
 
 // f(Int<BN>) for the instantiated key tile bn of head dim D, else
 // cudaErrorInvalidValue: 32 and 64 keys at D = 128 and 160 (the head
 // dims of the paged archs the card serves; 160 is pixtral-12b's) and at D
 // = 80 and 112 (K2's, the dense mode only: flash_decode hands it the tile
 // DecodeBucket published whatever the head dim), 64 at the other head
-// dims (their builds stay one instance a mode).  No 128-key tile: its ring (213 KB of bf16 shared
+// dims and at every padded instance (their builds stay one instance a
+// mode).  No 128-key tile: its ring (213 KB of bf16 shared
 // memory) leaves one CTA an SM, and it won in no mode of chip_smoke.py's
 // tile sweep.
-template <int D, typename F>
+template <int D, bool PAD, typename F>
 cudaError_t with_tile(int bn, F&& f) {
   if (bn == DEFAULT_BN) return f(Int<DEFAULT_BN>{});
-  if constexpr (D == 128 || D == 80 || D == 112 || D == 160) {
+  if constexpr (!PAD && (D == 128 || D == 80 || D == 112 || D == 160)) {
     if (bn == 32) return f(Int<32>{});
   }
   return cudaErrorInvalidValue;
 }
 
-// the head dims with instances of every mode; D = 80 (h2o-danube-1.8b)
-// and D = 112 (zamba2-7b's shared block), whose sliding windows serve
-// from dense lanes and never page, have the DENSE mode (K2) only
+// the head dims whose own instances have every mode; D = 80
+// (h2o-danube-1.8b) and D = 112 (zamba2-7b's shared block), whose sliding
+// windows serve from dense lanes, have their own DENSE mode (K2) only, and
+// page, where a caller pages them, on the padded rungs 96 and 128
 constexpr bool paged_dim(int d) { return d != 80 && d != 112; }
 
-// f(Int<D>) for the head dims the kernel is built for in mode MODE
+// f(Int<D>, pad) for the instance of head dim d in mode MODE: with dp = 0
+// the head dim's own, else the padded instance of width dp (common.cuh's
+// with_pad_width), which every mode has at every rung (a paged D = 80 or
+// 112 runs on the rungs 96 and 128)
 template <int MODE, typename F>
-cudaError_t with_dim(int d, F&& f) {
-  switch (d) {
-    case 16: return f(Int<16>{});
-    case 32: return f(Int<32>{});
-    case 64: return f(Int<64>{});
-    case 80:
-      if constexpr (MODE == DENSE) return f(Int<80>{});
-      else return cudaErrorInvalidValue;
-    case 112:
-      if constexpr (MODE == DENSE) return f(Int<112>{});
-      else return cudaErrorInvalidValue;
-    case 128: return f(Int<128>{});
-    case 160: return f(Int<160>{});
-    default: return cudaErrorInvalidValue;
+cudaError_t with_dim(int d, int dp, F&& f) {
+  if (dp > 0)
+    return with_pad_width(dp, d, [&](auto w) {
+      return f(w, std::true_type{});
+    });
+  if constexpr (kPaddedBuild) {
+    return cudaErrorInvalidValue;
+  } else {
+    const auto own = std::false_type{};
+    switch (d) {
+      case 16: return f(Int<16>{}, own);
+      case 32: return f(Int<32>{}, own);
+      case 64: return f(Int<64>{}, own);
+      case 80:
+        if constexpr (MODE == DENSE) return f(Int<80>{}, own);
+        else return cudaErrorInvalidValue;
+      case 112:
+        if constexpr (MODE == DENSE) return f(Int<112>{}, own);
+        else return cudaErrorInvalidValue;
+      case 128: return f(Int<128>{}, own);
+      case 160: return f(Int<160>{}, own);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -709,14 +747,14 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int threads, size_t smem, int c,
 
 bool cluster_ok(int c) { return c == 1 || c == 2 || c == 4 || c == 8; }
 
-template <typename S, int D, int MODE, int BN>
+template <typename S, int D, int MODE, int BN, bool PAD>
 cudaError_t launch(const Args& a) {
   if (a.B < 1 || a.Hkv < 1 || a.H < a.Hkv || a.H % a.Hkv || a.psz < 1 ||
       a.nblk < 1 || (MODE == PARTIALS ? a.ns < 1 : !cluster_ok(a.cluster)) ||
       (a.cnt != nullptr && a.o == nullptr))
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes<S, D, MODE, BN>(a.nblk);
-  auto kern = paged_decode_tc_kernel<S, D, MODE, BN>;
+  auto kern = paged_decode_tc_kernel<S, D, MODE, BN, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -731,25 +769,27 @@ cudaError_t launch(const Args& a) {
       &cfg, kern, static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const S*>(a.kp), static_cast<const S*>(a.vp), a.ksc, a.vsc,
       a.table, a.kv_len, static_cast<__nv_bfloat16*>(a.o), a.pm, a.pl,
-      a.pacc, a.cnt, a.H, a.Hkv, a.psz, a.nblk, a.ns, a.scale * kLog2e);
+      a.pacc, a.cnt, a.H, a.Hkv, a.psz, a.nblk, a.ns, a.scale * kLog2e, a.D);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename S, int MODE>
 cudaError_t by_dim(const Args& a) {
-  return with_dim<MODE>(a.D, [&](auto d) {
-    return with_tile<decltype(d)::value>(a.bn, [&](auto t) {
-      return launch<S, decltype(d)::value, MODE, decltype(t)::value>(a);
+  return with_dim<MODE>(a.D, a.dp, [&](auto w, auto pad) {
+    constexpr int DD = decltype(w)::value;
+    constexpr bool PAD = decltype(pad)::value;
+    return with_tile<DD, PAD>(a.bn, [&](auto t) {
+      return launch<S, DD, MODE, decltype(t)::value, PAD>(a);
     });
   });
 }
 
 // out[0..3] as instance_info; out[4..7] the clusters of 1, 2, 4 and 8
 // CTAs the card co-schedules (cudaOccupancyMaxActiveClusters)
-template <typename S, int D, int MODE, int BN>
+template <typename S, int D, int MODE, int BN, bool PAD>
 cudaError_t info(int nblk, int* out) {
-  auto kern = paged_decode_tc_kernel<S, D, MODE, BN>;
+  auto kern = paged_decode_tc_kernel<S, D, MODE, BN, PAD>;
   const size_t smem = smem_bytes<S, D, MODE, BN>(nblk);
   cudaError_t err = instance_info(kern, Tile<BN>::THREADS, smem, out);
   for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
@@ -764,18 +804,18 @@ cudaError_t info(int nblk, int* out) {
   return err;
 }
 
-template <int D, int BN>
+template <int D, int BN, bool PAD>
 cudaError_t info_by_kind(int kind, int nblk, int* out) {
-  if constexpr (!paged_dim(D)) {
+  if constexpr (!PAD && !paged_dim(D)) {
     if (kind != 2) return cudaErrorInvalidValue;
-    return info<__nv_bfloat16, D, DENSE, BN>(nblk, out);
+    return info<__nv_bfloat16, D, DENSE, BN, PAD>(nblk, out);
   } else {
     switch (kind) {
-      case 0: return info<__nv_bfloat16, D, PAGED, BN>(nblk, out);
-      case 1: return info<int8_t, D, PAGED, BN>(nblk, out);
-      case 2: return info<__nv_bfloat16, D, DENSE, BN>(nblk, out);
-      case 3: return info<__nv_bfloat16, D, PARTIALS, BN>(nblk, out);
-      case 4: return info<int8_t, D, PARTIALS, BN>(nblk, out);
+      case 0: return info<__nv_bfloat16, D, PAGED, BN, PAD>(nblk, out);
+      case 1: return info<int8_t, D, PAGED, BN, PAD>(nblk, out);
+      case 2: return info<__nv_bfloat16, D, DENSE, BN, PAD>(nblk, out);
+      case 3: return info<__nv_bfloat16, D, PARTIALS, BN, PAD>(nblk, out);
+      case 4: return info<int8_t, D, PARTIALS, BN, PAD>(nblk, out);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -786,8 +826,10 @@ cudaError_t info_by_kind(int kind, int nblk, int* out) {
 // A bf16 query and output only (float32 goes to paged_attention.cu and
 // flash_attention.cu).  `cluster` is c, the CTAs per (lane, kv head): 1,
 // 2, 4 or 8.  `block_k` is the key tile, keys per ring stage: 64, or at
-// D = 128 (and in the dense mode at D = 80 and 112) also 32 (any other value: cudaErrorInvalidValue, nothing
-// launched).  Each entry point returns the launch's cudaError_t (0 =
+// D = 128 and 160 (and in the dense mode at D = 80 and 112) also 32 (any
+// other value: cudaErrorInvalidValue, nothing launched).  dp: 0 for the
+// head dim D's own instance, else the width of the padded instance to run
+// (kernels/flash_attention.py's route()), whose one key tile is 64.  Each entry point returns the launch's cudaError_t (0 =
 // success).  The caller validates shapes, contiguity, alignment and that
 // every table entry below ceil(kv_len / psz) names a page of the pools,
 // and allocates o or the partials; the kernel never allocates or syncs.
@@ -798,13 +840,14 @@ extern "C" int repro_flash_paged_decode_tc(const void* q, const void* k_pool,
                                            const void* page_table,
                                            const void* kv_len, void* o, int B,
                                            int H, int Hkv, int psz, int nblk,
-                                           int D, int cluster, int block_k,
+                                           int D, int dp, int cluster, int block_k,
                                            float scale, void* stream) {
   Args a{q, k_pool, v_pool, nullptr, nullptr,
          static_cast<const int*>(page_table),
          static_cast<const int*>(kv_len), o, nullptr, nullptr, nullptr,
          B, H, Hkv, psz, nblk, D, cluster, 1, scale,
          static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   a.bn = block_k;
   return by_dim<__nv_bfloat16, PAGED>(a);
 }
@@ -814,13 +857,14 @@ extern "C" int repro_flash_paged_decode_quant_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* kv_len, void* o, int B, int H, int Hkv, int psz, int nblk,
-    int D, int cluster, int block_k, float scale, void* stream) {
+    int D, int dp, int cluster, int block_k, float scale, void* stream) {
   Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
          static_cast<const float*>(v_scale),
          static_cast<const int*>(page_table),
          static_cast<const int*>(kv_len), o, nullptr, nullptr, nullptr,
          B, H, Hkv, psz, nblk, D, cluster, 1, scale,
          static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   a.bn = block_k;
   return by_dim<int8_t, PAGED>(a);
 }
@@ -829,12 +873,13 @@ extern "C" int repro_flash_paged_decode_quant_tc(
 extern "C" int repro_flash_decode_tc(const void* q, const void* k,
                                      const void* v, const void* kv_len,
                                      void* o, int B, int H, int Hkv, int S,
-                                     int D, int cluster, int block_k,
+                                     int D, int dp, int cluster, int block_k,
                                      float scale, void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr,
          static_cast<const int*>(kv_len), o, nullptr, nullptr, nullptr,
          B, H, Hkv, S, 1, D, cluster, 1, scale,
          static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   a.bn = block_k;
   return by_dim<__nv_bfloat16, DENSE>(a);
 }
@@ -844,7 +889,7 @@ extern "C" int repro_flash_decode_tc(const void* q, const void* k,
 extern "C" int repro_paged_decode_split_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* kv_len, void* m, void* l, void* acc,
-    int B, int H, int Hkv, int psz, int nblk, int ns, int D, int block_k,
+    int B, int H, int Hkv, int psz, int nblk, int ns, int D, int dp, int block_k,
     float scale, void* stream) {
   Args a{q, k_pool, v_pool, nullptr, nullptr,
          static_cast<const int*>(page_table),
@@ -852,6 +897,7 @@ extern "C" int repro_paged_decode_split_tc(
          static_cast<float*>(m), static_cast<float*>(l),
          static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
          static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   a.bn = block_k;
   return by_dim<__nv_bfloat16, PARTIALS>(a);
 }
@@ -861,7 +907,7 @@ extern "C" int repro_paged_decode_split_quant_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* kv_len, void* m, void* l, void* acc, int B, int H, int Hkv,
-    int psz, int nblk, int ns, int D, int block_k, float scale,
+    int psz, int nblk, int ns, int D, int dp, int block_k, float scale,
     void* stream) {
   Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
          static_cast<const float*>(v_scale),
@@ -870,6 +916,7 @@ extern "C" int repro_paged_decode_split_quant_tc(
          static_cast<float*>(m), static_cast<float*>(l),
          static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
          static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   a.bn = block_k;
   return by_dim<int8_t, PARTIALS>(a);
 }
@@ -882,12 +929,13 @@ extern "C" int repro_paged_decode_split_merged_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* kv_len, void* m, void* l, void* acc,
     void* o, void* counters, int B, int H, int Hkv, int psz, int nblk,
-    int ns, int D, int block_k, float scale, void* stream) {
+    int ns, int D, int dp, int block_k, float scale, void* stream) {
   Args a{q, k_pool, v_pool, nullptr, nullptr,
          static_cast<const int*>(page_table), static_cast<const int*>(kv_len),
          o, static_cast<float*>(m), static_cast<float*>(l),
          static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
          static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   a.bn = block_k;
   a.cnt = static_cast<int*>(counters);
   if (a.cnt == nullptr) return cudaErrorInvalidValue;
@@ -900,7 +948,7 @@ extern "C" int repro_paged_decode_split_quant_merged_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* kv_len, void* m, void* l, void* acc, void* o, void* counters,
-    int B, int H, int Hkv, int psz, int nblk, int ns, int D, int block_k,
+    int B, int H, int Hkv, int psz, int nblk, int ns, int D, int dp, int block_k,
     float scale, void* stream) {
   Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
          static_cast<const float*>(v_scale),
@@ -908,6 +956,7 @@ extern "C" int repro_paged_decode_split_quant_merged_tc(
          o, static_cast<float*>(m), static_cast<float*>(l),
          static_cast<float*>(acc), B, H, Hkv, psz, nblk, D, 1, ns, scale,
          static_cast<cudaStream_t>(stream)};
+  a.dp = dp;
   a.bn = block_k;
   a.cnt = static_cast<int*>(counters);
   if (a.cnt == nullptr) return cudaErrorInvalidValue;
@@ -920,12 +969,13 @@ extern "C" int repro_paged_decode_split_quant_merged_tc(
 // = registers per thread, local-memory (spill) bytes, dynamic shared
 // memory in bytes at nblk table entries (K2: none), resident CTAs per SM,
 // and the clusters of 1, 2, 4 and 8 CTAs the card holds at once.
-extern "C" int repro_paged_decode_tc_info(int D, int kind, int nblk,
+extern "C" int repro_paged_decode_tc_info(int D, int dp, int kind, int nblk,
                                           int block_k, int* out) {
-  return with_dim<DENSE>(D, [&](auto d) {
-    return with_tile<decltype(d)::value>(block_k, [&](auto t) {
-      return info_by_kind<decltype(d)::value, decltype(t)::value>(
-          kind, nblk, out);
+  return with_dim<DENSE>(D, dp, [&](auto w, auto pad) {
+    constexpr int DD = decltype(w)::value;
+    constexpr bool PAD = decltype(pad)::value;
+    return with_tile<DD, PAD>(block_k, [&](auto t) {
+      return info_by_kind<DD, decltype(t)::value, PAD>(kind, nblk, out);
     });
   });
 }

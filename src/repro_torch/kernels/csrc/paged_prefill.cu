@@ -109,6 +109,26 @@
 // a power of two: the 48-row tile holds 16 chunk rows of phi4-mini's G = 3
 // heads and the 80-row tile 16 of llama4-scout's G = 5, the fold's row r
 // being chunk row r / G of head r % G.
+// Any G: the padded instances (below) flatten the rows.  A kv head's
+// chunk is C x G (position, head) rows, row f being chunk row f / G of
+// head f % G, and tile t holds its rows t * BM .. t * BM + BM - 1, so K/V
+// is still read once a tile for every head the tile holds.  Where G
+// divides BM that is the fold above, the same rows, tiles and launches bit
+// for bit; where it does not (G 7 of Qwen2-7B's 28 heads over 4, G 3 or 5
+// at D = 160, G above 80) a tile spans no whole number of positions, each
+// row takes the causal mask of its own position, the tile's live key
+// tiles are those its last row sees, and the rows past C x G in the last
+// tile are masked and never stored.  Such a G runs on the padded instance
+// of the smallest rung at or above its head dim (kernels/
+// paged_attention.py's prefill_route: at D = 128 the rung 128), whose
+// arithmetic at d = DP is the own instance's.
+// Head dims: the instances of their own at D = 16, 32, 64, 128 and 160,
+// and the padded ones (PAD, common.cuh) at the rungs 64, 96, 128, 160, 192
+// and 256, each with one tile: 32 rows by 128 keys, 64 keys at 256 (a
+// 128-key ring of 528-byte rows would not fit).  A padded row of d
+// elements that is not a multiple of 16 bytes arrives by 4-byte copies
+// (d * sizeof(S) % 4 == 0) or plain loads; the pools keep d elements a
+// row.
 // Left for later: wgmma and TMA.
 
 #include "mma.cuh"
@@ -215,7 +235,7 @@ struct Smem {
 // scale_log2 = scale * log2(e), so the softmax runs on exp2.
 // ---------------------------------------------------------------------------
 
-template <typename S, int D, bool SPLIT, int SLABS, int BN>
+template <typename S, int D, bool SPLIT, int SLABS, int BN, bool PAD>
 __global__ void __launch_bounds__(tc::Tile<SLABS, BN>::BOUND,
                                   tc::min_blocks<D>())
 paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
@@ -228,8 +248,16 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         __nv_bfloat16* __restrict__ o, float* __restrict__ pm,
                         float* __restrict__ pl, float* __restrict__ pacc,
                         int* __restrict__ cnt, int H, int Hkv, int C, int psz,
-                        int nblk, int ns, int G, float scale_log2) {
+                        int nblk, int ns, int G, float scale_log2,
+                        int d_run) {
   using namespace tc;
+  const int d = PAD ? d_run : D;        // the row stride (common.cuh)
+  // rows narrower than the instance take the partial copies and stores; a
+  // padded instance at d = D runs an own instance's full-row code (16-byte
+  // copies, packed stores), which on an H100 keeps a G that divides no own
+  // row tile (flattened onto the padded instance of its own width) as fast
+  // as a flattened own instance would be
+  const bool part = PAD && d != D;
   using T = Tile<SLABS, BN>;
   using L = Smem<S, D, SLABS, BN>;
   constexpr int BM = T::BM;
@@ -256,22 +284,28 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   float* vs_ring = reinterpret_cast<float*>(smem + L::vs_off);
   int* tbl = reinterpret_cast<int*>(smem + L::tbl_off);
 
+  // PAD (the padded instances take the flattened rows): the tile is rows
+  // f0 .. f0 + BM - 1 of the kv head's C x G (position, head) rows, row f
+  // being chunk row f / G of head f % G; else (G divides BM) RQ chunk rows
+  // from i0 of all G heads, row r being chunk row i0 + r / G of head r % G:
+  // the same rows where G divides BM
   const int RQ = BM / G;                // chunk rows per tile
   const int tile = SPLIT ? blockIdx.x / ns : blockIdx.x;
   const int split = SPLIT ? blockIdx.x - tile * ns : 0;
-  const int i0 = tile * RQ;             // the tile's first chunk row
+  const int f0 = tile * BM;             // the tile's first (position, head) row
+  const int i0 = PAD ? f0 / G : tile * RQ;   // and its first chunk row
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int len = min(max(kv_len[b], 0), nblk * psz);
-  const int q_start = start[b] + i0;    // absolute position of row i0
+  const int q_start = start[b] + i0;   // absolute position of row i0
   // live key tiles: committed and causally visible to the tile's last
   // row; a split walks tiles t_lo .. t_end - 1, ceil(live / ns) of them
-  // (the partition of ref.paged_prefill_split_ref at block_q = RQ,
-  // block_k = BN), the last splits possibly none
-  const int last = q_start + RQ - 1;
+  // (the partition of ref.paged_prefill_split_ref at rows = BM, block_k =
+  // BN: block_q = BM / G where G divides BM), the last splits possibly none
+  const int last = PAD ? start[b] + (f0 + BM - 1) / G : q_start + RQ - 1;
   const int t_live = last < 0 ? 0 : min((len + BN - 1) / BN, last / BN + 1);
   int t_lo = 0, t_end = t_live;
   if constexpr (SPLIT) {
@@ -282,17 +316,24 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_tiles = t_end - t_lo;
   const int n_pages = (min(len, t_end * BN) + psz - 1) / psz;
 
-  // Q tile: row r is chunk row i0 + r / G of head hk * G + r % G; rows
-  // past the chunk are zeros, never stored
+  // Q tile: row r is chunk row qi of head hk * G + hq (above); rows past
+  // the chunk are zeros, never stored
   for (int i = tid; i < BM * QCPR; i += THREADS) {
     const int r = i / QCPR;
     const int c = i - r * QCPR;
-    const int qi = i0 + r / G;
+    const int qi = PAD ? (f0 + r) / G : i0 + r / G;
+    const int hq = PAD ? (f0 + r) % G : r % G;
     const bool in = qi < C;
-    const __nv_bfloat16* src =
-        in ? q + (((size_t)b * H + hk * G + r % G) * C + qi) * D + c * 8
-           : q;
-    cp_async16(smem_addr(qs + r * ROW + c * 8), src, in ? 16 : 0);
+    if (part) {
+      cp_async16_part(qs + r * ROW + c * 8,
+                      q + (((size_t)b * H + hk * G + hq) * C + qi) * d, c,
+                      d * 2, in, q);
+    } else {
+      const __nv_bfloat16* src =
+          in ? q + (((size_t)b * H + hk * G + hq) * C + qi) * D + c * 8
+             : q;
+      cp_async16(smem_addr(qs + r * ROW + c * 8), src, in ? 16 : 0);
+    }
   }
   for (int i = tid; i < n_pages; i += THREADS) tbl[i] = table[(size_t)b * nblk + i];
   __syncthreads();
@@ -308,14 +349,25 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const int c = i - j * CPR;
       const int key = k0 + j;
       const bool in = key < len;
-      size_t off = 0;
-      if (in) {
-        const int blk = key / psz;
-        off = (((size_t)tbl[blk] * Hkv + hk) * psz + (key - blk * psz)) * D +
-              c * (16 / (int)sizeof(S));
+      if (part) {
+        size_t row = 0;
+        if (in) {
+          const int blk = key / psz;
+          row = (((size_t)tbl[blk] * Hkv + hk) * psz + (key - blk * psz)) * d;
+        }
+        constexpr int ES = (int)sizeof(S);
+        cp_async16_part(kd + j * KV_ROW + c * 16, kp + row, c, d * ES, in, kp);
+        cp_async16_part(vd + j * KV_ROW + c * 16, vp + row, c, d * ES, in, vp);
+      } else {
+        size_t off = 0;
+        if (in) {
+          const int blk = key / psz;
+          off = (((size_t)tbl[blk] * Hkv + hk) * psz + (key - blk * psz)) * D +
+                c * (16 / (int)sizeof(S));
+        }
+        cp_async16(smem_addr(kd + j * KV_ROW + c * 16), kp + off, in ? 16 : 0);
+        cp_async16(smem_addr(vd + j * KV_ROW + c * 16), vp + off, in ? 16 : 0);
       }
-      cp_async16(smem_addr(kd + j * KV_ROW + c * 16), kp + off, in ? 16 : 0);
-      cp_async16(smem_addr(vd + j * KV_ROW + c * 16), vp + off, in ? 16 : 0);
     }
     if constexpr (QUANT) {
       if (tid < BN) {
@@ -344,9 +396,12 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int kg = warp / SLABS;          // and its keys kg * KN .. + KN - 1
   const int g = lane >> 2;              // the thread's rows: row0 + g, + 8
   const int t4 = lane & 3;              // and columns 2 * t4, + 1 of each tile
-  const int pos0 = q_start + (row0 + g) / G;
-  const int pos1 = q_start + (row0 + g + 8) / G;
-  const int warp_pos = q_start + row0 / G;   // the slab's first row
+  const int pos0 = PAD ? start[b] + (f0 + row0 + g) / G
+                        : q_start + (row0 + g) / G;
+  const int pos1 = PAD ? start[b] + (f0 + row0 + g + 8) / G
+                        : q_start + (row0 + g + 8) / G;
+  const int warp_pos = PAD ? start[b] + (f0 + row0) / G   // the slab's
+                            : q_start + row0 / G;          // first row
 
   float m[2] = {kNegInf, kNegInf};      // running max, log2 domain
   float l[2] = {0.f, 0.f};              // this thread's share of the row sums
@@ -545,29 +600,45 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
       l[r] += __shfl_xor_sync(kFull, l[r], 1);
       l[r] += __shfl_xor_sync(kFull, l[r], 2);
       const int row = row0 + g + 8 * r;
-      const int qi = i0 + row / G;
+      const int qi = PAD ? (f0 + row) / G : i0 + row / G;
+      const int hr = PAD ? (f0 + row) % G : row % G;
       if (qi >= C) continue;
       if constexpr (SPLIT) {
         const size_t prow =
-            (((size_t)b * H + hk * G + row % G) * ns + split) * C + qi;
+            (((size_t)b * H + hk * G + hr) * ns + split) * C + qi;
         if (t4 == 0) {
           pm[prow] = m[r] == kNegInf ? kNegInf : m[r] * (1.f / kLog2e);
           pl[prow] = l[r];
         }
-        float* dst = pacc + prow * D + 2 * t4;
+        float* dst = pacc + prow * d + 2 * t4;
 #pragma unroll
-        for (int dt = 0; dt < DT; ++dt)
-          *reinterpret_cast<float2*>(dst + dt * 8) =
-              make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
+        for (int dt = 0; dt < DT; ++dt) {
+          if (part) {
+            const int col = dt * 8 + 2 * t4;
+            if (col < d) dst[dt * 8] = acc[dt][2 * r];
+            if (col + 1 < d) dst[dt * 8 + 1] = acc[dt][2 * r + 1];
+          } else {
+            *reinterpret_cast<float2*>(dst + dt * 8) =
+                make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
+          }
+        }
         continue;
       }
       const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
       __nv_bfloat16* dst =
-          o + (((size_t)b * H + hk * G + row % G) * C + qi) * D + 2 * t4;
+          o + (((size_t)b * H + hk * G + hr) * C + qi) * d + 2 * t4;
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt)
-        *reinterpret_cast<uint32_t*>(dst + dt * 8) =
-            pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+      for (int dt = 0; dt < DT; ++dt) {
+        if (part) {
+          const int col = dt * 8 + 2 * t4;
+          if (col < d) dst[dt * 8] = __float2bfloat16(acc[dt][2 * r] * inv);
+          if (col + 1 < d)
+            dst[dt * 8 + 1] = __float2bfloat16(acc[dt][2 * r + 1] * inv);
+        } else {
+          *reinterpret_cast<uint32_t*>(dst + dt * 8) =
+              pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+        }
+      }
     }
   }
   if constexpr (SPLIT) {
@@ -576,12 +647,25 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     if (cnt != nullptr) {
       const int tiles = gridDim.x / ns;
       const size_t head0 = (size_t)b * H + hk * G;
-      merge_splits_if_last<D, THREADS, BM>(
-          cnt + ((size_t)b * Hkv + hk) * tiles + tile, ns,
-          min(BM, (C - i0) * G), pm, pl, pacc, (size_t)C,
-          [&](int r) { return (head0 + r % G) * ns * C + i0 + r / G; },
-          [&](int r) { return o + ((head0 + r % G) * C + i0 + r / G) * D; },
-          reinterpret_cast<float*>(smem));
+      if constexpr (PAD) {
+        merge_splits_if_last<D, THREADS, BM, PAD>(
+            cnt + ((size_t)b * Hkv + hk) * tiles + tile, ns,
+            min(BM, C * G - f0), pm, pl, pacc, (size_t)C,
+            [&](int r) {
+              return (head0 + (f0 + r) % G) * ns * C + (f0 + r) / G;
+            },
+            [&](int r) {
+              return o + ((head0 + (f0 + r) % G) * C + (f0 + r) / G) * d;
+            },
+            reinterpret_cast<float*>(smem), d);
+      } else {
+        merge_splits_if_last<D, THREADS, BM>(
+            cnt + ((size_t)b * Hkv + hk) * tiles + tile, ns,
+            min(BM, (C - i0) * G), pm, pl, pacc, (size_t)C,
+            [&](int r) { return (head0 + r % G) * ns * C + i0 + r / G; },
+            [&](int r) { return o + ((head0 + r % G) * C + i0 + r / G) * D; },
+            reinterpret_cast<float*>(smem));
+      }
     }
   }
 }
@@ -608,13 +692,17 @@ struct Args {
   int B, H, Hkv, C, psz, nblk, ns, D;
   float scale;
   cudaStream_t st;
-  int block_q = 0;       // chunk rows per query tile (0: the default 32 / G)
+  int rows = 0;          // query rows per tile (0: the default, 32)
   int bn = DEFAULT_BN;   // keys per K/V tile
   int* cnt = nullptr;    // split with K5c's merge: arrival counters
+  int dp = 0;            // the padded instance's width (0: D's own)
 };
 
-template <int N>
-using Int = std::integral_constant<int, N>;
+// The key tile of a padded instance: 128, but 64 at D = 256, whose 128-key
+// ring (four stages of 128 rows of 528 bytes, 270,336 B) would not fit the
+// 227 KB a block may hold
+template <int D>
+constexpr int pad_bn() { return D > 192 ? 64 : DEFAULT_BN; }
 
 // f(Int<SLABS>, Int<BN>) for the instantiated tile of bm query rows and bn
 // keys at head dim D, else cudaErrorInvalidValue: rows 16, 32, 48, 64 and
@@ -626,47 +714,57 @@ using Int = std::integral_constant<int, N>;
 // before the table.  Shared
 // memory at 80 rows (tc::Smem at 64 table entries): 91,648 B (bf16, 64
 // keys), 161,280 (bf16, 128), 94,720 (int8, 64) and 167,424 (int8, 128),
-// all under the 227 KB a block may hold.
-template <int D, typename F>
+// all under the 227 KB a block may hold.  A padded instance has one tile,
+// 32 rows by pad_bn<D>() keys.
+template <int D, bool PAD, typename F>
 cudaError_t with_tile(int bm, int bn, F&& f) {
-  if (bm == 16 * DEFAULT_SLABS && bn == DEFAULT_BN)
-    return f(Int<DEFAULT_SLABS>{}, Int<DEFAULT_BN>{});
-  if constexpr (D == 128 || D == 160) {
-    if (bn == 64 || bn == 128) {
-      auto keys = [&](auto slabs) {
-        return bn == 64 ? f(slabs, Int<64>{}) : f(slabs, Int<128>{});
-      };
-      if (bm == 16) return keys(Int<1>{});
-      if (bm == 32) return keys(Int<2>{});
-      if (bm == 64) return keys(Int<4>{});
-      if constexpr (D == 128) {
-        if (bm == 48) return keys(Int<3>{});
-        if (bm == 80) return keys(Int<5>{});
+  if constexpr (PAD) {
+    if (bm == 16 * DEFAULT_SLABS && bn == pad_bn<D>())
+      return f(Int<DEFAULT_SLABS>{}, Int<pad_bn<D>()>{});
+  } else {
+    if (bm == 16 * DEFAULT_SLABS && bn == DEFAULT_BN)
+      return f(Int<DEFAULT_SLABS>{}, Int<DEFAULT_BN>{});
+    if constexpr (D == 128 || D == 160) {
+      if (bn == 64 || bn == 128) {
+        auto keys = [&](auto slabs) {
+          return bn == 64 ? f(slabs, Int<64>{}) : f(slabs, Int<128>{});
+        };
+        if (bm == 16) return keys(Int<1>{});
+        if (bm == 32) return keys(Int<2>{});
+        if (bm == 64) return keys(Int<4>{});
+        if constexpr (D == 128) {
+          if (bm == 48) return keys(Int<3>{});
+          if (bm == 80) return keys(Int<5>{});
+        }
       }
     }
   }
   return cudaErrorInvalidValue;
 }
 
-// f(Int<D>) for the head dims the kernel is built for
+// f(Int<D>, pad) for the instance of head dim d: with dp = 0 the head
+// dim's own (16, 32, 64, 128 and 160, the fold: G divides the tile), else
+// the padded instance of width dp (common.cuh's with_pad_width), which
+// takes the flattened rows and so any G.
 template <typename F>
-cudaError_t with_dim(int d, F&& f) {
-  switch (d) {
-    case 16: return f(Int<16>{});
-    case 32: return f(Int<32>{});
-    case 64: return f(Int<64>{});
-    case 128: return f(Int<128>{});
-    case 160: return f(Int<160>{});
-    default: return cudaErrorInvalidValue;
+cudaError_t with_dim(int d, int dp, F&& f) {
+  if (dp > 0)
+    return with_pad_width(dp, d, [&](auto w) {
+      return f(w, std::true_type{});
+    });
+  if constexpr (kPaddedBuild) {
+    return cudaErrorInvalidValue;
+  } else {
+    const auto own = std::false_type{};
+    switch (d) {
+      case 16: return f(Int<16>{}, own);
+      case 32: return f(Int<32>{}, own);
+      case 64: return f(Int<64>{}, own);
+      case 128: return f(Int<128>{}, own);
+      case 160: return f(Int<160>{}, own);
+      default: return cudaErrorInvalidValue;
+    }
   }
-}
-
-// the group size G = H / Hkv, or -1 when it does not divide a query tile
-// of bm rows
-int group_size(int H, int Hkv, int bm) {
-  if (Hkv < 1 || H % Hkv) return -1;
-  const int G = H / Hkv;
-  return bm % G == 0 ? G : -1;
 }
 
 template <typename S, int D, int SLABS, int BN>
@@ -674,60 +772,66 @@ size_t smem_bytes(int nblk) {
   return Smem<S, D, SLABS, BN>::tbl_off + (size_t)nblk * sizeof(int);
 }
 
-template <typename S, int D, bool SPLIT, int SLABS, int BN>
+template <typename S, int D, bool SPLIT, int SLABS, int BN, bool PAD>
 cudaError_t launch(const Args& a, int G) {
   if (a.B < 1 || a.C < 1 || a.psz < 1 || a.nblk < 1 ||
       (SPLIT && a.ns < 1) || (a.cnt != nullptr && (!SPLIT || a.o == nullptr)))
     return cudaErrorInvalidValue;
   using T = Tile<SLABS, BN>;
   const size_t smem = smem_bytes<S, D, SLABS, BN>(a.nblk);
-  auto kern = paged_prefill_tc_kernel<S, D, SPLIT, SLABS, BN>;
+  auto kern = paged_prefill_tc_kernel<S, D, SPLIT, SLABS, BN, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int rows = T::BM / G;
+  // query tiles of BM consecutive rows of each kv head's C x G (position,
+  // head) rows: ceil(C / (BM / G)) of them when G divides BM
+  const int tiles = (a.C * G + T::BM - 1) / T::BM;
   const int ns = SPLIT ? a.ns : 1;
-  const dim3 grid((a.C + rows - 1) / rows * ns, a.Hkv, a.B);
+  const dim3 grid(tiles * ns, a.Hkv, a.B);
   kern<<<grid, T::THREADS, smem, a.st>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const S*>(a.kp),
       static_cast<const S*>(a.vp), a.ksc, a.vsc, a.table, a.start, a.kv_len,
       static_cast<__nv_bfloat16*>(a.o), a.pm, a.pl, a.pacc, a.cnt, a.H,
-      a.Hkv, a.C, a.psz, a.nblk, ns, G, a.scale * kLog2e);
+      a.Hkv, a.C, a.psz, a.nblk, ns, G, a.scale * kLog2e, a.D);
   return cudaGetLastError();
 }
 
-// the launch at the tile of a.block_q chunk rows (a query tile of
-// block_q x G rows) and a.bn keys
+// the launch at the tile of a.rows query rows (block_q x G rows where G
+// divides them; on a padded instance, where a G that divides no row tile
+// runs, a run of rows that may span no whole number of positions) and
+// a.bn keys
 template <typename S, bool SPLIT>
 cudaError_t by_dim(const Args& a) {
-  if (a.Hkv < 1 || a.H % a.Hkv) return cudaErrorInvalidValue;
+  if (a.Hkv < 1 || a.H < a.Hkv || a.H % a.Hkv) return cudaErrorInvalidValue;
   const int G = a.H / a.Hkv;
-  const int bm = a.block_q > 0 ? a.block_q * G : 16 * DEFAULT_SLABS;
-  if (group_size(a.H, a.Hkv, bm) < 0) return cudaErrorInvalidValue;
-  return with_dim(a.D, [&](auto d) {
-    return with_tile<decltype(d)::value>(bm, a.bn, [&](auto sl, auto bn) {
-      return launch<S, decltype(d)::value, SPLIT, decltype(sl)::value,
-                    decltype(bn)::value>(a, G);
+  const int bm = a.rows > 0 ? a.rows : 16 * DEFAULT_SLABS;
+  if (a.dp == 0 && bm % G != 0) return cudaErrorInvalidValue;
+  return with_dim(a.D, a.dp, [&](auto w, auto pad) {
+    constexpr int DD = decltype(w)::value;
+    constexpr bool PAD = decltype(pad)::value;
+    return with_tile<DD, PAD>(bm, a.bn, [&](auto sl, auto bn) {
+      return launch<S, DD, SPLIT, decltype(sl)::value, decltype(bn)::value,
+                    PAD>(a, G);
     });
   });
 }
 
-template <int D, int SLABS, int BN>
+template <int D, int SLABS, int BN, bool PAD>
 cudaError_t info_by_kind(int kind, int nblk, int* out) {
   constexpr int THREADS = Tile<SLABS, BN>::THREADS;
   switch (kind) {
     case 0: return instance_info(
-        paged_prefill_tc_kernel<__nv_bfloat16, D, false, SLABS, BN>, THREADS,
-        smem_bytes<__nv_bfloat16, D, SLABS, BN>(nblk), out);
+        paged_prefill_tc_kernel<__nv_bfloat16, D, false, SLABS, BN, PAD>,
+        THREADS, smem_bytes<__nv_bfloat16, D, SLABS, BN>(nblk), out);
     case 1: return instance_info(
-        paged_prefill_tc_kernel<int8_t, D, false, SLABS, BN>, THREADS,
-        smem_bytes<int8_t, D, SLABS, BN>(nblk), out);
+        paged_prefill_tc_kernel<int8_t, D, false, SLABS, BN, PAD>,
+        THREADS, smem_bytes<int8_t, D, SLABS, BN>(nblk), out);
     case 2: return instance_info(
-        paged_prefill_tc_kernel<__nv_bfloat16, D, true, SLABS, BN>, THREADS,
-        smem_bytes<__nv_bfloat16, D, SLABS, BN>(nblk), out);
+        paged_prefill_tc_kernel<__nv_bfloat16, D, true, SLABS, BN, PAD>,
+        THREADS, smem_bytes<__nv_bfloat16, D, SLABS, BN>(nblk), out);
     case 3: return instance_info(
-        paged_prefill_tc_kernel<int8_t, D, true, SLABS, BN>, THREADS,
-        smem_bytes<int8_t, D, SLABS, BN>(nblk), out);
+        paged_prefill_tc_kernel<int8_t, D, true, SLABS, BN, PAD>,
+        THREADS, smem_bytes<int8_t, D, SLABS, BN>(nblk), out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -735,11 +839,14 @@ cudaError_t info_by_kind(int kind, int nblk, int* out) {
 }  // namespace
 
 // dtype: the type of q and of the output; only 1 (bfloat16) is taken here
-// (float32 goes to paged_attention.cu).  block_q is the query tile's chunk
-// rows (0: the default, 32 / G), the tile itself block_q x G query rows of
-// one kv head's G heads; block_k its keys per K/V tile.  A tile with no
-// instance (see with_tile) returns cudaErrorInvalidValue and launches
-// nothing.  Each entry point returns the launch's cudaError_t (0 =
+// (float32 goes to paged_attention.cu).  rows is the query tile's rows
+// (0: the default, 32): consecutive rows of one kv head's C x G (position,
+// head) rows, block_q positions of its G heads where G divides them;
+// block_k its keys per K/V tile.  dp: 0 for the head dim D's own instance,
+// else the width of the padded instance to run (kernels/
+// paged_attention.py's prefill_route()).  A tile with no instance (see
+// with_tile), or an own instance's tile that G does not divide, returns
+// cudaErrorInvalidValue and launches nothing.  Each entry point returns the launch's cudaError_t (0 =
 // success).  The caller validates shapes, contiguity, alignment and that
 // every table entry below ceil(kv_len / psz) names a page of the pools,
 // and allocates o or the partials; the kernels never allocate or sync.
@@ -751,7 +858,7 @@ extern "C" int repro_flash_paged_prefill(const void* q, const void* k_pool,
                                          const void* start,
                                          const void* kv_len, void* o, int B,
                                          int H, int Hkv, int C, int psz,
-                                         int nblk, int D, int block_q,
+                                         int nblk, int D, int dp, int rows,
                                          int block_k, int dtype, float scale,
                                          void* stream) {
   if (dtype != 1) return cudaErrorInvalidValue;
@@ -759,7 +866,8 @@ extern "C" int repro_flash_paged_prefill(const void* q, const void* k_pool,
          static_cast<const int*>(page_table),
          static_cast<const int*>(start), static_cast<const int*>(kv_len),
          o, nullptr, nullptr, nullptr, B, H, Hkv, C, psz, nblk, 1, D,
-         scale, static_cast<cudaStream_t>(stream), block_q, block_k};
+         scale, static_cast<cudaStream_t>(stream), rows, block_k};
+  a.dp = dp;
   return by_dim<__nv_bfloat16, false>(a);
 }
 
@@ -768,7 +876,7 @@ extern "C" int repro_flash_paged_prefill_quant(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* start, const void* kv_len, void* o, int B, int H, int Hkv,
-    int C, int psz, int nblk, int D, int block_q, int block_k, int dtype,
+    int C, int psz, int nblk, int D, int dp, int rows, int block_k, int dtype,
     float scale, void* stream) {
   if (dtype != 1) return cudaErrorInvalidValue;
   Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
@@ -776,7 +884,8 @@ extern "C" int repro_flash_paged_prefill_quant(
          static_cast<const int*>(page_table),
          static_cast<const int*>(start), static_cast<const int*>(kv_len),
          o, nullptr, nullptr, nullptr, B, H, Hkv, C, psz, nblk, 1, D,
-         scale, static_cast<cudaStream_t>(stream), block_q, block_k};
+         scale, static_cast<cudaStream_t>(stream), rows, block_k};
+  a.dp = dp;
   return by_dim<int8_t, false>(a);
 }
 
@@ -785,7 +894,7 @@ extern "C" int repro_paged_prefill_split_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* start, const void* kv_len, void* m,
     void* l, void* acc, int B, int H, int Hkv, int C, int psz, int nblk,
-    int ns, int D, int block_q, int block_k, int dtype, float scale,
+    int ns, int D, int dp, int rows, int block_k, int dtype, float scale,
     void* stream) {
   if (dtype != 1) return cudaErrorInvalidValue;
   Args a{q, k_pool, v_pool, nullptr, nullptr,
@@ -793,7 +902,8 @@ extern "C" int repro_paged_prefill_split_tc(
          static_cast<const int*>(start), static_cast<const int*>(kv_len),
          nullptr, static_cast<float*>(m), static_cast<float*>(l),
          static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns, D,
-         scale, static_cast<cudaStream_t>(stream), block_q, block_k};
+         scale, static_cast<cudaStream_t>(stream), rows, block_k};
+  a.dp = dp;
   return by_dim<__nv_bfloat16, true>(a);
 }
 
@@ -802,8 +912,8 @@ extern "C" int repro_paged_prefill_split_quant_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* start, const void* kv_len, void* m, void* l, void* acc,
-    int B, int H, int Hkv, int C, int psz, int nblk, int ns, int D,
-    int block_q, int block_k, int dtype, float scale, void* stream) {
+    int B, int H, int Hkv, int C, int psz, int nblk, int ns, int D, int dp,
+    int rows, int block_k, int dtype, float scale, void* stream) {
   if (dtype != 1) return cudaErrorInvalidValue;
   Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
          static_cast<const float*>(v_scale),
@@ -811,29 +921,31 @@ extern "C" int repro_paged_prefill_split_quant_tc(
          static_cast<const int*>(start), static_cast<const int*>(kv_len),
          nullptr, static_cast<float*>(m), static_cast<float*>(l),
          static_cast<float*>(acc), B, H, Hkv, C, psz, nblk, ns, D,
-         scale, static_cast<cudaStream_t>(stream), block_q, block_k};
+         scale, static_cast<cudaStream_t>(stream), rows, block_k};
+  a.dp = dp;
   return by_dim<int8_t, true>(a);
 }
 
 // K5b with K5c's merge in its epilogue: as repro_paged_prefill_split_tc,
 // and the last split of each (lane, kv head, q tile) to finish writes o
-// (B, H, C, D) bf16.  counters: B * Hkv * ceil(C / block_q) int32, all
+// (B, H, C, D) bf16.  counters: B * Hkv * ceil(C * G / rows) int32, all
 // zero on entry, all zero again when the launch has run; one set per
 // stream.
 extern "C" int repro_paged_prefill_split_merged_tc(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* start, const void* kv_len, void* m,
     void* l, void* acc, void* o, void* counters, int B, int H, int Hkv, int C,
-    int psz, int nblk, int ns, int D, int block_q, int block_k, float scale,
+    int psz, int nblk, int ns, int D, int dp, int rows, int block_k, float scale,
     void* stream) {
   Args a{q, k_pool, v_pool, nullptr, nullptr,
          static_cast<const int*>(page_table), static_cast<const int*>(start),
          static_cast<const int*>(kv_len), o, static_cast<float*>(m),
          static_cast<float*>(l), static_cast<float*>(acc), B, H, Hkv, C, psz,
-         nblk, ns, D, scale, static_cast<cudaStream_t>(stream), block_q,
+         nblk, ns, D, scale, static_cast<cudaStream_t>(stream), rows,
          block_k};
   a.cnt = static_cast<int*>(counters);
   if (a.cnt == nullptr) return cudaErrorInvalidValue;
+  a.dp = dp;
   return by_dim<__nv_bfloat16, true>(a);
 }
 
@@ -844,16 +956,17 @@ extern "C" int repro_paged_prefill_split_quant_merged_tc(
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* start, const void* kv_len, void* m, void* l, void* acc,
     void* o, void* counters, int B, int H, int Hkv, int C, int psz, int nblk,
-    int ns, int D, int block_q, int block_k, float scale, void* stream) {
+    int ns, int D, int dp, int rows, int block_k, float scale, void* stream) {
   Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
          static_cast<const float*>(v_scale),
          static_cast<const int*>(page_table), static_cast<const int*>(start),
          static_cast<const int*>(kv_len), o, static_cast<float*>(m),
          static_cast<float*>(l), static_cast<float*>(acc), B, H, Hkv, C, psz,
-         nblk, ns, D, scale, static_cast<cudaStream_t>(stream), block_q,
+         nblk, ns, D, scale, static_cast<cudaStream_t>(stream), rows,
          block_k};
   a.cnt = static_cast<int*>(counters);
   if (a.cnt == nullptr) return cudaErrorInvalidValue;
+  a.dp = dp;
   return by_dim<int8_t, true>(a);
 }
 
@@ -862,12 +975,14 @@ extern "C" int repro_paged_prefill_split_quant_merged_tc(
 // bf16 pools, partials) or 3 (K6d: int8 pools, partials): out[0..3] =
 // registers per thread, local-memory (spill) bytes, dynamic shared memory
 // in bytes at nblk table entries, resident blocks per SM.
-extern "C" int repro_paged_prefill_tc_info(int D, int kind, int nblk, int bm,
-                                           int block_k, int* out) {
-  return with_dim(D, [&](auto d) {
-    return with_tile<decltype(d)::value>(bm, block_k, [&](auto sl, auto bn) {
-      return info_by_kind<decltype(d)::value, decltype(sl)::value,
-                          decltype(bn)::value>(kind, nblk, out);
+extern "C" int repro_paged_prefill_tc_info(int D, int dp, int kind, int nblk,
+                                           int bm, int block_k, int* out) {
+  return with_dim(D, dp, [&](auto w, auto pad) {
+    constexpr int DD = decltype(w)::value;
+    constexpr bool PAD = decltype(pad)::value;
+    return with_tile<DD, PAD>(bm, block_k, [&](auto sl, auto bn) {
+      return info_by_kind<DD, decltype(sl)::value, decltype(bn)::value, PAD>(
+          kind, nblk, out);
     });
   });
 }

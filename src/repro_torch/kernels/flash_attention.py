@@ -22,32 +22,45 @@
 Each wrapper takes CUDA tensors only, checks them, allocates its output
 with ``torch.empty``, launches on the current stream without syncing,
 raises on a launch error, and counts its launches in ``.launches`` (a
-plain integer on the function).  The plain PyTorch versions live in
+plain integer on the function), by tile in ``.by_tile`` and, where a
+head dim with no instance of its own ran on a padded one (:func:`route`),
+by that instance's width in ``.by_width``.  The plain PyTorch versions live in
 :mod:`.ref`; :mod:`.ops` picks between the two by the tensor's device.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
-#: head dims of the float32 SIMT templates of K2 and of the paged kernels
-#: (K3-K6 with a float32 query)
+#: head dims with instances of their own in the float32 SIMT templates
+#: of K2 and of the paged kernels (K3-K6 with a float32 query)
 HEAD_DIMS = (16, 32, 64, 128)
-#: head dims of the paged kernels with a bf16 query (K3-K6d on the tensor
-#: cores): the SIMT templates' and pixtral-12b's 160, which the card
-#: serves in bf16 (the float32 templates have no D-160 instance)
+#: head dims with instances of their own in the paged kernels with a bf16
+#: query (K3-K6d on the tensor cores): the SIMT templates' and
+#: pixtral-12b's 160
 PAGED_HEAD_DIMS = HEAD_DIMS + (160,)
-#: head dims of K1 (both query types) and of the bf16 K2 (the cluster
-#: kernel's dense mode): the paged ones, h2o-danube-1.8b's 80 and
-#: zamba2-7b's 112, whose sliding windows serve from dense lanes only (the
-#: float32 K2's SIMT template splits D into whole 32-lane column runs: not
-#: at 80 or 112), and pixtral-12b's 160
+#: head dims with instances of their own in K1 (both query types) and the
+#: bf16 K2 (the cluster kernel's dense mode): the paged ones,
+#: h2o-danube-1.8b's 80 and zamba2-7b's 112, whose sliding windows serve
+#: from dense lanes, and pixtral-12b's 160
 DENSE_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160)
+#: the widths of the padded instances, which every attention kernel (K1-K6d,
+#: both query types) has: a head dim d with no instance of its own runs on
+#: the instance of the smallest of these at or above it, its columns at and
+#: past d zero in shared memory and never stored (``csrc/common.cuh``).
+#: Multiples of 32, so that a float32 decode lane owns DP / 32 whole
+#: columns: 80, 112 and 160 in float32 (h2o-danube, zamba2, pixtral) take
+#: 96, 128 and 160; Phi-3-mini's 96 and Gemma's 256 have rungs of their own
+MAX_HEAD_DIM = 256
+PADDED_HEAD_DIMS = (64, 96, 128, 160, 192, MAX_HEAD_DIM)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the bf16 K1 kernel's name, as ``flash_attention.last_kernel`` gives it
@@ -72,30 +85,111 @@ DECODE_SIMT_KERNEL = "flash_decode_kernel"
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """The built library with its C signatures declared (once)."""
-    lib = build.load("flash_attention")
+def _lib(padded: bool = False) -> ctypes.CDLL:
+    """The built library with its C signatures declared (once): the
+    instances of their own, or with ``padded`` the padded ones."""
+    lib = build.load("flash_attention" + (build.PADDED if padded else ""))
     lib.repro_flash_attention.argtypes = [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+        _P]
     lib.repro_flash_attention.restype = _I
     lib.repro_flash_decode.argtypes = [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
     lib.repro_flash_decode.restype = _I
-    lib.repro_flash_attention_tc_info.argtypes = [_I, _I, _I, _P]
+    lib.repro_flash_attention_tc_info.argtypes = [_I, _I, _I, _I, _P]
     lib.repro_flash_attention_tc_info.restype = _I
     return lib
 
 
 def head_dims(name: str, dtype: torch.dtype) -> tuple[int, ...]:
-    """The head dims the kernel of wrapper ``name`` has an instance for at
-    a query of ``dtype``: :data:`DENSE_HEAD_DIMS` for K1 and the bf16 K2,
-    :data:`PAGED_HEAD_DIMS` for the paged kernels with a bf16 query,
-    :data:`HEAD_DIMS` for the float32 K2 and the paged kernels' float32
-    templates."""
+    """The head dims with instances of their own in the kernel of wrapper
+    ``name`` at a query of ``dtype``: :data:`DENSE_HEAD_DIMS` for K1 and
+    the bf16 K2, :data:`PAGED_HEAD_DIMS` for the paged kernels with a bf16
+    query, :data:`HEAD_DIMS` for the float32 K2 and the paged kernels'
+    float32 templates.  Every other head dim up to :data:`MAX_HEAD_DIM`
+    runs on a padded instance (:func:`route`)."""
     if name == "flash_attention" or (name == "flash_decode"
                                      and dtype == torch.bfloat16):
         return DENSE_HEAD_DIMS
     return PAGED_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS
+
+
+#: why no head dim above MAX_HEAD_DIM runs: the next rung would be 288
+#: (a multiple of 32), where the bf16 decode kernel's default tile (64 keys
+#: in a ring of 3 stages of K and V rows of 288 x 2 + 16 bytes, and a
+#: 16-row Q slab of rows of 296 bf16) needs 236,800 bytes of shared memory,
+#: more than the 232,448 (227 KB) a block may hold, and a thread of its
+#: 16-row mma slab would hold 144 fp32 accumulators and 72 Q fragments
+#: registers of the 255 it may have
+LIMIT_REASON = (
+    f"no instance above {MAX_HEAD_DIM}: at the next rung, 288, the bf16 "
+    "decode kernel's 64-key tile needs 236,800 B of shared memory, more "
+    "than the 232,448 B (227 KB) a block may hold")
+
+
+class Route(NamedTuple):
+    """The instance a launch takes: ``width`` its head dim (DP), and
+    ``padded`` whether it is a padded instance (the C entries' ``dp``
+    argument is then ``width``, else 0)."""
+    width: int
+    padded: bool
+
+    @property
+    def dp(self) -> int:
+        return self.width if self.padded else 0
+
+
+#: the padded width every launch in a :func:`_forced_width` block takes
+_FORCED_WIDTH: contextvars.ContextVar[int | None] = contextvars.ContextVar(
+    "forced_width", default=None)
+
+
+@contextlib.contextmanager
+def _forced_width(width: int):
+    """Within the block :func:`route` answers the padded instance of
+    ``width`` for every head dim up to it, so every wrapper launches, and
+    every tile table answers for, that instance: the tests' and the card's
+    check that a padded instance gives the bits of a head dim's own.  Not
+    a user option."""
+    if width not in PADDED_HEAD_DIMS:
+        raise ValueError(f"no padded instance of width {width}; the widths "
+                         f"are {PADDED_HEAD_DIMS}")
+    token = _FORCED_WIDTH.set(width)
+    try:
+        yield
+    finally:
+        _FORCED_WIDTH.reset(token)
+
+
+def padded_width(d: int) -> int:
+    """The smallest rung of :data:`PADDED_HEAD_DIMS` at or above ``d``."""
+    return min(w for w in PADDED_HEAD_DIMS if w >= d)
+
+
+def route(name: str, dtype: torch.dtype, d: int) -> Route:
+    """Which instance a launch of wrapper ``name`` (``flash_attention``,
+    ``flash_decode``, or any paged wrapper's name) with a query of
+    ``dtype`` takes at head dim ``d``: its own where the kernel has one
+    (:func:`head_dims`), else the padded instance of :func:`padded_width`
+    (inside a :func:`_forced_width` block, that block's).  Every caller's
+    tables derive from this: the tiles of a padded instance are its
+    defaults alone.  A bf16 prefill whose group size divides none of its
+    own instance's row tiles takes a padded one too
+    (``paged_attention.prefill_route``).  ``ValueError`` for ``d`` outside
+    1 .. :data:`MAX_HEAD_DIM` (:data:`LIMIT_REASON`), or above the forced
+    width."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} not in 1..{MAX_HEAD_DIM}: "
+                         + LIMIT_REASON)
+    width = _FORCED_WIDTH.get()
+    if width is not None:
+        if width < d:
+            raise ValueError(f"{name}: no padded instance of width {width} "
+                             f"for head dim {d}")
+        return Route(width, True)
+    if d in head_dims(name, dtype):
+        return Route(d, False)
+    return Route(padded_width(d), True)
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -122,10 +216,7 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} do not match")
-    dims = head_dims(name, q.dtype)
-    if d not in dims:
-        raise ValueError(f"{name}: head dim {d} not in {dims}: no instance "
-                         f"for a {q.dtype} query")
+    route(name, q.dtype, d)            # raises above MAX_HEAD_DIM
     if h % k.shape[1]:
         raise ValueError(f"{name}: {h} query heads are not a multiple of "
                          f"{k.shape[1]} kv heads")
@@ -140,12 +231,15 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def attention_tiles(dtype: torch.dtype, d: int) -> tuple[tuple[int, int], ...]:
+def attention_tiles(dtype: torch.dtype,
+                    d: int) -> tuple[tuple[int, int], ...]:
     """The (block_q, block_k) tiles K1 has an instance for, for a query
-    of ``dtype`` at head dim ``d``."""
+    of ``dtype`` at head dim ``d`` (on the instance of :func:`route`); a
+    padded instance has the default tile alone."""
     if dtype != torch.bfloat16:
         return (SIMT_TILE,)
-    if d not in TILED_HEAD_DIMS:
+    if d not in TILED_HEAD_DIMS or route("flash_attention", dtype,
+                                         d).padded:
         return (TC_DEFAULT_TILE,)
     return tuple((bq, bk) for bq in TILE_VALUES for bk in TILE_VALUES)
 
@@ -201,7 +295,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     which pads S to a multiple of the tile and clamps the tile to S, the
     card's kernel masks the keys and rows past S in the last tile, so a
     tile larger than S runs as it is; the query rows and the keys have a
-    limit each."""
+    limit each.  A head dim with no instance of its own (any up to
+    :data:`MAX_HEAD_DIM`) runs on a padded one (:func:`route`)."""
     tile = attention_tile("flash_attention", q, block_q, block_k)
     _check("flash_attention", q, k, v)
     b, h, s, d = q.shape
@@ -210,30 +305,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     scale = float(scale if scale is not None else d ** -0.5)
+    rt = route("flash_attention", q.dtype, d)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _lib().repro_flash_attention(
+        err = _lib(rt.padded).repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, k.shape[1], s, sk, d, _DTYPES[q.dtype], int(causal),
+            b, h, k.shape[1], s, sk, d, rt.dp, _DTYPES[q.dtype], int(causal),
             -1 if window is None else int(window), scale, *tile,
             _stream(q))
     _raise_on("flash_attention", err)
     flash_attention.launches += 1
     flash_attention.by_tile[tile] += 1
+    if rt.padded:
+        flash_attention.by_width[rt.width] += 1
     flash_attention.last_kernel = (TC_KERNEL if q.dtype == torch.bfloat16
                                    else "flash_attention_kernel")
     return out
 
 
 def tc_info(d: int, block_q: int = TC_DEFAULT_TILE[0],
-            block_k: int = TC_DEFAULT_TILE[1]) -> dict[str, int]:
+            block_k: int = TC_DEFAULT_TILE[1], dp: int = 0) -> dict[str, int]:
     """What the card makes of the tensor-core K1 instance for head dim
-    ``d`` at the tile ``block_q`` x ``block_k``: registers per thread,
-    local (spill) bytes, dynamic shared memory, and resident blocks per
-    SM.  Needs the card."""
+    ``d`` (``dp`` 0), or of the padded one of width ``dp``, at the tile
+    ``block_q`` x ``block_k``: registers per thread, local (spill) bytes,
+    dynamic shared memory, and resident blocks per SM.  Needs the card."""
     out = (ctypes.c_int * 4)()
-    _raise_on("tc_info", _lib().repro_flash_attention_tc_info(
-        d, block_q, block_k, ctypes.addressof(out)))
+    _raise_on("tc_info", _lib(dp > 0).repro_flash_attention_tc_info(
+        d, dp, block_q, block_k, ctypes.addressof(out)))
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
 
@@ -250,9 +348,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``_cluster`` overrides (tests only), at ``block_k`` keys a tile (one of
     ``paged_attention.decode_block_ks``, 64 by default; the run-time AT's
     ``DecodeBucket`` tile); a float32 q the SIMT template, whose one tile
-    is 32 keys.  A tile with no instance raises ``ValueError``."""
+    is 32 keys.  A tile with no instance raises ``ValueError``.  A head
+    dim with no instance of its own runs on a padded one (:func:`route`)."""
     from . import paged_attention as pa    # it imports this module
     _check("flash_decode", q, k, v)
+    rt = route("flash_decode", q.dtype, q.shape[-1])
     bk = pa.decode_tile("flash_decode", q, block_k)
     b, h, one, d = q.shape
     if one != 1:
@@ -268,20 +368,22 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv = k.shape[1]
     out = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), b, h, hkv, s, d)
+            out.data_ptr(), b, h, hkv, s, d, rt.dp)
     with torch.cuda.device(q.device):
         if q.dtype == torch.bfloat16:
             c = pa.decode_cluster("flash_decode", q, b, hkv, _cluster, bk)
-            err = pa._dec_lib().repro_flash_decode_tc(*args, c, bk, scale,
-                                                      _stream(q))
+            lib = pa._dec_lib(rt.padded)
+            err = lib.repro_flash_decode_tc(*args, c, bk, scale, _stream(q))
             kernel = pa.DECODE_TC_KERNEL
         else:
-            err = _lib().repro_flash_decode(*args, _DTYPES[q.dtype], scale,
-                                            _stream(q))
+            err = _lib(rt.padded).repro_flash_decode(
+                *args, _DTYPES[q.dtype], scale, _stream(q))
             kernel = DECODE_SIMT_KERNEL
     _raise_on("flash_decode", err)
     flash_decode.launches += 1
     flash_decode.by_tile[bk] += 1
+    if rt.padded:
+        flash_decode.by_width[rt.width] += 1
     flash_decode.last_kernel = kernel
     return out
 
@@ -289,9 +391,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention.last_kernel = None
 flash_attention.by_tile = collections.Counter()
+flash_attention.by_width = collections.Counter()
 flash_decode.launches = 0
 flash_decode.last_kernel = None
 flash_decode.by_tile = collections.Counter()
+flash_decode.by_width = collections.Counter()
 
 #: the kernels of this module, for counters and reports
 KERNELS = (flash_attention, flash_decode)

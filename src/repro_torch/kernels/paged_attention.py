@@ -54,12 +54,12 @@ pass or split).
 
 Tiles (the run-time AT's parameters, read by :mod:`.ops` from
 ``at.tuned``): the decode kernel takes ``block_k``, keys per K/V tile
-(:data:`DECODE_BLOCK_KS` at head dim 128, :data:`DECODE_TILE_KEYS`
-elsewhere); the tensor-core prefill kernel ``block_q`` (query positions
-per tile, as in the JAX package: the kernel's row tile is ``block_q`` x G
-query rows of one kv head, so G must divide it) and ``block_k``
-(:func:`prefill_tiles`: ``block_q`` a power of two whose row tile
-``block_q`` x G the kernel has).  On the card a tile spans whole pages
+(:data:`DECODE_BLOCK_KS` at the head dims of ``TILED_HEAD_DIMS``,
+:data:`DECODE_TILE_KEYS` elsewhere); the tensor-core prefill kernel
+``block_q`` (query positions per tile, as in the JAX package: the
+kernel's row tile is ``block_q`` x G query rows of one kv head; where G
+divides no row tile, the tile's rows) and ``block_k``
+(:func:`prefill_tiles`).  On the card a tile spans whole pages
 where the TPU kernel's ``block_k`` was a sub-page tile that had to divide
 the page.
 A float32 query keeps the SIMT templates' one tile.  A tile the kernel has
@@ -76,17 +76,19 @@ and its siblings keep returning the partials (tests, the phase-1 sweep).
 Table entries past ``ceil(kv_len / psz)`` are never read and may point
 anywhere (page 0 by convention); entries below it must name pages of the
 pools.  The tensor-core kernel (K4, K5b, K6c and K6d with a bf16 query)
-takes a group size G = H / Hkv that gives it a row tile (at D 128: G a
-power of two up to 64, G 3, 6, 12 and 24 through the 48-row tile, or G
-5, 10, 20, 40 and 80 through the 80-row tile; at D 160 G a power of two
-up to 64; at the other head dims G dividing 32); its wrappers raise
-otherwise.  The paged kernels take the head dims of
-:data:`PAGED_HEAD_DIMS` with a bf16 query (D 160 is pixtral-12b's) and
-of :data:`HEAD_DIMS` with a float32 one (D 80 and 112 are K1's and K2's:
-their archs, h2o-danube-1.8b and zamba2-7b, have sliding windows and
-never page).  The
-decode kernel of a bf16 query takes any G: its query rows come in 16-row
-slabs, one cluster each.
+takes any group size G = H / Hkv: a row tile is a run of a kv head's
+(position, head) rows, ``block_q`` positions of the G heads where G
+divides one of its row tiles (at D 128: G a power of two up to 64, G 3,
+6, 12 and 24 through the 48-row tile, or G 5, 10, 20, 40 and 80 through
+the 80-row tile; at D 160 G a power of two up to 64; elsewhere G
+dividing 32), else the padded instances' one tile of 32 flattened rows
+(:func:`flattened`, :func:`prefill_route`).  Every kernel takes every head dim up to
+:data:`~.flash_attention.MAX_HEAD_DIM`: the head dims of
+:data:`~.flash_attention.PAGED_HEAD_DIMS` (bf16) and
+:data:`~.flash_attention.HEAD_DIMS` (float32) have
+instances of their own, the others run on the padded instances
+(:func:`~.flash_attention.route`).  The decode kernel of a bf16 query
+takes any G: its query rows come in 16-row slabs, one cluster each.
 The wrappers follow the contract of :mod:`.flash_attention`:
 CUDA tensors only, checked; outputs and partials from ``torch.empty``;
 launch on the current stream without syncing; raise on a launch error;
@@ -102,13 +104,14 @@ import functools
 import torch
 
 from . import build
-from .flash_attention import (_DTYPES, HEAD_DIMS, PAGED_HEAD_DIMS,
-                              TILED_HEAD_DIMS, _raise_on, _stream)
+from .flash_attention import (_DTYPES, PADDED_HEAD_DIMS, TILED_HEAD_DIMS,
+                              Route, _raise_on, _stream, padded_width, route)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-#: query rows of the tensor-core prefill kernel's tile: the G query heads
-#: of a kv head are stacked into it, so G must divide it
+#: query rows of the tensor-core prefill kernel's default tile: a run of
+#: a kv head's (position, head) rows, block_q positions of its G heads
+#: where G divides it
 TC_TILE_ROWS = 32
 #: keys per K/V tile of the tensor-core kernel
 TC_TILE_KEYS = 128
@@ -163,40 +166,113 @@ SIMT_DECODE_TILE_KEYS = 32
 SIMT_PREFILL_TILE = (64, 32)
 
 
-def decode_block_ks(dtype: torch.dtype, d: int) -> tuple[int, ...]:
-    """The key tiles the decode kernels have an instance for, for a query
-    of ``dtype`` at head dim ``d`` (at D 80 and 112 the dense mode's, K2:
-    the paged modes have no instance there, :data:`PAGED_HEAD_DIMS`)."""
+def decode_block_ks(dtype: torch.dtype, d: int,
+                    dense: bool = False) -> tuple[int, ...]:
+    """The key tiles the decode kernel has an instance for, for a query
+    of ``dtype`` at head dim ``d``, in its dense mode (K2) with ``dense``,
+    else its paged ones (at D 80 and 112 the dense mode has instances of
+    its own, the paged modes run on padded ones), on the instance of
+    :func:`~.flash_attention.route`: a padded instance has
+    :data:`DECODE_TILE_KEYS` alone."""
     if dtype != torch.bfloat16:
         return (SIMT_DECODE_TILE_KEYS,)
-    return DECODE_BLOCK_KS if d in TILED_HEAD_DIMS else (DECODE_TILE_KEYS,)
+    rt = route("flash_decode" if dense else "flash_paged_decode", dtype, d)
+    return (DECODE_BLOCK_KS if d in TILED_HEAD_DIMS and not rt.padded
+            else (DECODE_TILE_KEYS,))
 
 
-def prefill_tiles(dtype: torch.dtype, d: int,
-                  g: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+def _row_tiles(rt: Route, d: int) -> tuple[int, ...]:
+    """The query-row tiles of the tensor-core prefill instance ``rt`` at
+    head dim ``d``: a padded instance has :data:`TC_TILE_ROWS` alone."""
+    if rt.padded:
+        return (TC_TILE_ROWS,)
+    return TC_ROW_TILES_BY_D.get(d, (TC_TILE_ROWS,))
+
+
+def _folds(rows: tuple[int, ...], g: int) -> bool:
+    """Whether ``g`` divides one of the row tiles ``rows`` with a
+    power-of-two quotient (``block_q`` positions of all ``g`` heads)."""
+    return any(r % g == 0 and (r // g) & (r // g - 1) == 0 for r in rows)
+
+
+def flattened(d: int, g: int) -> bool:
+    """Whether ``g`` divides none of the row tiles of the bf16 prefill
+    kernel's instance at head dim ``d`` with a power-of-two quotient: the
+    tile then spans no whole number of positions, so the launch takes a
+    padded instance, whose rows are flattened (:func:`prefill_route`), and
+    the ladder calls its tile by its rows (:func:`prefill_tiles`)."""
+    rt = route("flash_paged_prefill", torch.bfloat16, d)
+    return not _folds(_row_tiles(rt, d), g)
+
+
+def prefill_route(name: str, dtype: torch.dtype, d: int, g: int) -> Route:
+    """The instance of a prefill or verify launch of wrapper ``name`` at
+    head dim ``d`` and group size ``g``: :func:`~.flash_attention.route`'s,
+    but for a bf16 query whose ``g`` is :func:`flattened` at a head dim's
+    own instance, the padded one of
+    :func:`~.flash_attention.padded_width` (at D 128, the rung 128), which
+    takes any G: only the padded instances flatten the rows."""
+    rt = route(name, dtype, d)
+    if dtype == torch.bfloat16 and not rt.padded and flattened(d, g):
+        return Route(padded_width(d), True)
+    return rt
+
+
+def prefill_tiles(dtype: torch.dtype, d: int, g: int
+                  ) -> tuple[tuple[int, ...], tuple[int, ...]]:
     """(block_qs, block_ks) the prefill kernels have an instance for, for a
-    query of ``dtype`` at head dim ``d`` and group size ``g``: a row tile
-    of the tensor-core kernel holds ``block_q`` positions of all ``g``
-    heads, and ``block_q`` is a power of two, as the JAX package's tiles
-    are (so the 48-row tile serves G 3 at block_q 16, not G 8 at 6, and
-    the 80-row tile G 5 at 16, not G 8 at 10).  A head dim outside
-    :data:`PAGED_HEAD_DIMS` (bf16) or :data:`HEAD_DIMS` (float32) has
-    none: ((), ())."""
-    bf16 = dtype == torch.bfloat16
-    if d not in (PAGED_HEAD_DIMS if bf16 else HEAD_DIMS):
+    query of ``dtype`` at head dim ``d`` and group size ``g``, on the
+    instance of :func:`prefill_route`: a padded instance has the default
+    tile alone, 32 rows by :func:`padded_block_k` keys.
+
+    A row tile of the tensor-core kernel holds consecutive rows of a kv
+    head's C x G (position, head) rows.  Where ``g`` divides one of the
+    row tiles with a power-of-two quotient, the ladder calls a tile by
+    ``block_q``, the positions of all ``g`` heads it holds, as the JAX
+    package's tiles are (so the 48-row tile serves G 3 at block_q 16, not
+    G 8 at 6, and the 80-row tile G 5 at 16, not G 8 at 10).  Where ``g``
+    divides none (:func:`flattened`: G 7, 9, 11, ..., G 3 and 5 at D 160,
+    G above 80), a tile spans no whole number of positions and runs on a
+    padded instance, whose one tile the ladder calls by its rows,
+    ``block_q`` 32, which :func:`prefill_rows` hands the kernel as it is.
+    ``d`` outside 1 .. :data:`~.flash_attention.MAX_HEAD_DIM` has none:
+    ((), ())."""
+    try:
+        rt = prefill_route("flash_paged_prefill", dtype, d, g)
+    except ValueError:
         return (), ()
-    if not bf16:
+    if dtype != torch.bfloat16:
         return (SIMT_PREFILL_TILE[0],), (SIMT_PREFILL_TILE[1],)
-    rows = tc_row_tiles(d)
-    keys = TC_BLOCK_KS if d in TC_ROW_TILES_BY_D else (TC_TILE_KEYS,)
-    block_qs = (r // g for r in rows if g >= 1 and r % g == 0)
-    return tuple(bq for bq in block_qs if bq & (bq - 1) == 0), keys
+    rows = _row_tiles(rt, d)
+    if rt.padded:
+        keys = (padded_block_k(rt.width),)
+    else:
+        keys = TC_BLOCK_KS if d in TC_ROW_TILES_BY_D else (TC_TILE_KEYS,)
+    if not _folds(rows, g):
+        return (TC_TILE_ROWS,), keys
+    return tuple(r // g for r in rows
+                 if r % g == 0 and (r // g) & (r // g - 1) == 0), keys
+
+
+def prefill_rows(d: int, g: int, block_q: int) -> int:
+    """The query rows of the bf16 prefill tile the ladder calls
+    ``block_q`` at head dim ``d`` and group size ``g``: ``block_q`` x
+    ``g``, or ``block_q`` itself where ``g`` divides no row tile."""
+    return block_q if flattened(d, g) else block_q * g
+
+
+def padded_block_k(width: int) -> int:
+    """The keys of a padded prefill instance's one tile:
+    :data:`TC_TILE_KEYS`, but 64 at width 256, whose 128-key ring would
+    not fit a block's shared memory (``paged_prefill.cu``'s pad_bn)."""
+    return 64 if width > 192 else TC_TILE_KEYS
 
 
 def tc_row_tiles(d: int) -> tuple[int, ...]:
-    """The query-row tiles of the tensor-core prefill kernel at head dim
-    ``d`` (whatever the group size)."""
-    return TC_ROW_TILES_BY_D.get(d, (TC_TILE_ROWS,))
+    """The query-row tiles of the tensor-core prefill kernel's instance at
+    head dim ``d`` (:func:`~.flash_attention.route`'s, whatever the group
+    size); a padded instance has :data:`TC_TILE_ROWS` alone."""
+    return _row_tiles(route("flash_paged_prefill", torch.bfloat16, d), d)
 
 
 def default_block_q(d: int, g: int) -> int:
@@ -204,19 +280,29 @@ def default_block_q(d: int, g: int) -> int:
     and group size ``g``: that of the largest row tile up to
     :data:`TC_TILE_ROWS` (32 // G for G 1, 2, 4, 8), else of the smallest
     row tile ``g`` has (G 3: 16, the 48-row tile; G 5: 16, the 80-row
-    tile).  ``ValueError`` when ``g`` has none."""
+    tile); where ``g`` divides no row tile, :data:`TC_TILE_ROWS` rows."""
+    if flattened(d, g):
+        return TC_TILE_ROWS
     block_qs = prefill_tiles(torch.bfloat16, d, g)[0]
-    if not block_qs:
-        raise ValueError(f"group size {g} at head dim {d} has no row tile "
-                         "of the tensor-core prefill kernel")
     fits = [bq for bq in block_qs if bq * g <= TC_TILE_ROWS]
     return max(fits) if fits else min(block_qs)
 
 
+def default_block_k(dtype: torch.dtype, d: int) -> int:
+    """The ``block_k`` of an untuned prefill launch: :data:`TC_TILE_KEYS`
+    for a bf16 query where the instance has it (else its one tile's), the
+    SIMT template's for float32."""
+    keys = prefill_tiles(dtype, d, 1)[1]
+    if dtype != torch.bfloat16:
+        return keys[0]
+    return TC_TILE_KEYS if TC_TILE_KEYS in keys else keys[0]
+
+
 def decode_tile(name: str, q: torch.Tensor, block_k: int | None) -> int:
-    """The key tile of a decode launch: ``block_k``, which must have an
-    instance (else ``ValueError`` naming those that do), or the default."""
-    tiles = decode_block_ks(q.dtype, q.shape[-1])
+    """The key tile of a decode launch (K2 where ``name`` is
+    ``flash_decode``): ``block_k``, which must have an instance (else
+    ``ValueError`` naming those that do), or the default."""
+    tiles = decode_block_ks(q.dtype, q.shape[-1], name == "flash_decode")
     if block_k is None:
         return DECODE_TILE_KEYS if q.dtype == torch.bfloat16 else tiles[0]
     if block_k not in tiles:
@@ -233,12 +319,15 @@ def prefill_tile(name: str, q: torch.Tensor, hkv: int,
     instance at q's type, head dim and group size (else ``ValueError``
     naming those that do); ``None`` is the default."""
     g = q.shape[1] // hkv
-    block_qs, block_ks = prefill_tiles(q.dtype, q.shape[-1], g)
+    d = q.shape[-1]
+    block_qs, block_ks = prefill_tiles(q.dtype, d, g)
+    if not block_qs:
+        route(name, q.dtype, d)             # raises: no head dim above 256
     bf16 = q.dtype == torch.bfloat16
     if block_q is None:
-        block_q = default_block_q(q.shape[-1], g) if bf16 else block_qs[0]
+        block_q = default_block_q(d, g) if bf16 else block_qs[0]
     if block_k is None:
-        block_k = TC_TILE_KEYS if bf16 else block_ks[0]
+        block_k = default_block_k(q.dtype, d)
     if block_q not in block_qs or block_k not in block_ks:
         raise ValueError(
             f"{name}: no instance for block_q={block_q!r}, block_k="
@@ -276,11 +365,14 @@ def decode_ctas_per_sm(d: int, block_k: int, quant: bool) -> int:
     return max(1, min(DECODE_CTAS_PER_SM, fits))
 
 
-#: the host's table of :func:`decode_ctas_per_sm` by (head dim, key tile,
-#: int8 pools) over the bf16 decode kernel's instances
+#: the host's table of :func:`decode_ctas_per_sm` by (instance width, key
+#: tile, int8 pools) over the bf16 decode kernel's instances: those of
+#: their own and the padded ones (:data:`PADDED_HEAD_DIMS`, 64 keys)
 DECODE_CTAS = {(d, bk, quant): decode_ctas_per_sm(d, bk, quant)
-               for d in PAGED_HEAD_DIMS + TILED_HEAD_DIMS
-               for bk in decode_block_ks(torch.bfloat16, d)
+               for d in sorted(set(PADDED_HEAD_DIMS + TILED_HEAD_DIMS
+                                   + (16, 32, 64)))
+               for bk in ((DECODE_TILE_KEYS,) if d not in TILED_HEAD_DIMS
+                          else DECODE_BLOCK_KS)
                for quant in (False, True)}
 
 
@@ -289,8 +381,9 @@ def cluster_size(b: int, hkv: int, sm_count: int, d: int = 128,
                  quant: bool = False) -> int:
     """The CTAs per (lane, kv head) cluster of the bf16 decode kernel: the
     largest of :data:`CLUSTER_SIZES` with ``b * hkv * c`` at most the CTAs
-    the card holds at once (:data:`DECODE_CTAS` an SM for the instance at
-    head dim ``d``, ``block_k`` keys and int8 pools with ``quant``), so
+    the card holds at once (:data:`DECODE_CTAS` an SM for the instance of
+    width ``d`` that the launch takes, ``block_k`` keys and int8 pools
+    with ``quant``), so
     that every CTA runs in one wave (1 when even that does not fit).  From
     the shapes alone: it never reads ``kv_len``, which would sync the
     decode step with the host."""
@@ -305,20 +398,26 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _library(name: str, padded: bool) -> ctypes.CDLL:
+    """The loaded library of source ``name``: its instances of their own,
+    or with ``padded`` its padded ones (``build.PADDED_SOURCES``)."""
+    return build.load(name + (build.PADDED if padded else ""))
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
+def _lib(padded: bool = False) -> ctypes.CDLL:
     """The built library with its C signatures declared (once)."""
-    lib = build.load("paged_attention")
+    lib = _library("paged_attention", padded)
     signatures = {
-        "repro_flash_paged_decode": [_P] * 6 + [_I] * 7 + [_F, _P],
-        "repro_flash_paged_decode_quant": [_P] * 8 + [_I] * 7 + [_F, _P],
-        "repro_paged_decode_split": [_P] * 8 + [_I] * 8 + [_F, _P],
-        "repro_paged_decode_split_quant": [_P] * 10 + [_I] * 8 + [_F, _P],
+        "repro_flash_paged_decode": [_P] * 6 + [_I] * 8 + [_F, _P],
+        "repro_flash_paged_decode_quant": [_P] * 8 + [_I] * 8 + [_F, _P],
+        "repro_paged_decode_split": [_P] * 8 + [_I] * 9 + [_F, _P],
+        "repro_paged_decode_split_quant": [_P] * 10 + [_I] * 9 + [_F, _P],
         "repro_split_combine": [_P] * 4 + [_I] * 5 + [_P],
-        "repro_paged_prefill_f32": [_P] * 7 + [_I] * 8 + [_F, _P],
-        "repro_paged_prefill_f32_quant": [_P] * 9 + [_I] * 8 + [_F, _P],
-        "repro_paged_prefill_split": [_P] * 9 + [_I] * 9 + [_F, _P],
-        "repro_paged_prefill_split_quant": [_P] * 11 + [_I] * 9 + [_F, _P],
+        "repro_paged_prefill_f32": [_P] * 7 + [_I] * 9 + [_F, _P],
+        "repro_paged_prefill_f32_quant": [_P] * 9 + [_I] * 9 + [_F, _P],
+        "repro_paged_prefill_split": [_P] * 9 + [_I] * 10 + [_F, _P],
+        "repro_paged_prefill_split_quant": [_P] * 11 + [_I] * 10 + [_F, _P],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -328,22 +427,22 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _tc_lib() -> ctypes.CDLL:
+def _tc_lib(padded: bool = False) -> ctypes.CDLL:
     """The tensor-core prefill library (``csrc/paged_prefill.cu``)."""
-    lib = build.load("paged_prefill")
+    lib = _library("paged_prefill", padded)
     for name, argtypes in (
-            ("repro_flash_paged_prefill", [_P] * 7 + [_I] * 10 + [_F, _P]),
+            ("repro_flash_paged_prefill", [_P] * 7 + [_I] * 11 + [_F, _P]),
             ("repro_flash_paged_prefill_quant",
-             [_P] * 9 + [_I] * 10 + [_F, _P]),
-            ("repro_paged_prefill_split_tc",
              [_P] * 9 + [_I] * 11 + [_F, _P]),
+            ("repro_paged_prefill_split_tc",
+             [_P] * 9 + [_I] * 12 + [_F, _P]),
             ("repro_paged_prefill_split_quant_tc",
-             [_P] * 11 + [_I] * 11 + [_F, _P]),
+             [_P] * 11 + [_I] * 12 + [_F, _P]),
             ("repro_paged_prefill_split_merged_tc",
-             [_P] * 11 + [_I] * 10 + [_F, _P]),
+             [_P] * 11 + [_I] * 11 + [_F, _P]),
             ("repro_paged_prefill_split_quant_merged_tc",
-             [_P] * 13 + [_I] * 10 + [_F, _P]),
-            ("repro_paged_prefill_tc_info", [_I] * 5 + [_P])):
+             [_P] * 13 + [_I] * 11 + [_F, _P]),
+            ("repro_paged_prefill_tc_info", [_I] * 6 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _I
@@ -351,22 +450,22 @@ def _tc_lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _dec_lib() -> ctypes.CDLL:
+def _dec_lib(padded: bool = False) -> ctypes.CDLL:
     """The one-pass decode library of a bf16 query (``csrc/paged_decode.cu``)."""
-    lib = build.load("paged_decode")
+    lib = _library("paged_decode", padded)
     for name, argtypes in (
-            ("repro_flash_paged_decode_tc", [_P] * 6 + [_I] * 8 + [_F, _P]),
+            ("repro_flash_paged_decode_tc", [_P] * 6 + [_I] * 9 + [_F, _P]),
             ("repro_flash_paged_decode_quant_tc",
-             [_P] * 8 + [_I] * 8 + [_F, _P]),
-            ("repro_flash_decode_tc", [_P] * 5 + [_I] * 7 + [_F, _P]),
-            ("repro_paged_decode_split_tc", [_P] * 8 + [_I] * 8 + [_F, _P]),
+             [_P] * 8 + [_I] * 9 + [_F, _P]),
+            ("repro_flash_decode_tc", [_P] * 5 + [_I] * 8 + [_F, _P]),
+            ("repro_paged_decode_split_tc", [_P] * 8 + [_I] * 9 + [_F, _P]),
             ("repro_paged_decode_split_quant_tc",
-             [_P] * 10 + [_I] * 8 + [_F, _P]),
+             [_P] * 10 + [_I] * 9 + [_F, _P]),
             ("repro_paged_decode_split_merged_tc",
-             [_P] * 10 + [_I] * 8 + [_F, _P]),
+             [_P] * 10 + [_I] * 9 + [_F, _P]),
             ("repro_paged_decode_split_quant_merged_tc",
-             [_P] * 12 + [_I] * 8 + [_F, _P]),
-            ("repro_paged_decode_tc_info", [_I] * 4 + [_P])):
+             [_P] * 12 + [_I] * 9 + [_F, _P]),
+            ("repro_paged_decode_tc_info", [_I] * 5 + [_P])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _I
@@ -375,37 +474,36 @@ def _dec_lib() -> ctypes.CDLL:
 
 def check_tc_shape(name: str, h: int, hkv: int, d: int) -> None:
     """Raise on a shape the tensor-core prefill kernel does not take: a
-    head dim outside :data:`PAGED_HEAD_DIMS`, or a group size G = H / Hkv that
-    gives no row tile (:func:`prefill_tiles`: G must divide one of the
-    kernel's row tiles at head dim ``d``, with ``block_q`` a power of
-    two: G 1, 2, 4, 8, 16, 32, 64; at D 128 also 3, 6, 12 and 24 by the
-    48-row tile and 5, 10, 20, 40 and 80 by the 80-row tile)."""
-    if d not in PAGED_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {PAGED_HEAD_DIMS}: "
-                         "the paged kernels have no other instance")
-    g = h // hkv if hkv and h % hkv == 0 else 0
-    if g < 1 or not prefill_tiles(torch.bfloat16, d, g)[0]:
-        rows = tc_row_tiles(d)
-        raise ValueError(f"{name}: {h} query heads over {hkv} kv heads: the "
-                         f"group size must divide one of the query tiles "
-                         f"{rows} of the tensor-core kernel at head dim {d}")
+    head dim outside 1 .. :data:`~.flash_attention.MAX_HEAD_DIM` (those
+    without an instance of their own run on a padded one), or H not a
+    multiple of Hkv.  Every group size G = H / Hkv has a row tile: the
+    kernel's tiles are runs of a kv head's (position, head) rows
+    (:func:`prefill_tiles`)."""
+    route(name, torch.bfloat16, d)
+    if hkv < 1 or h < hkv or h % hkv:
+        raise ValueError(f"{name}: {h} query heads are not a multiple of "
+                         f"{hkv} kv heads")
 
 
 def _prefill_entry(name: str, q: torch.Tensor, hkv: int, quant: bool,
-                   block_q: int, block_k: int):
+                   block_q: int, block_k: int, rt: Route):
     """The C entry of K4 (K6c with ``quant``) for q's type, the name of
     the kernel it launches and its trailing arguments after D: the
-    tensor-core kernel for bfloat16 (its shape checked) with its tile, the
-    SIMT template for float32; then the dtype code."""
+    instance's ``dp``, then for bfloat16 (the tensor-core kernel, its
+    shape checked) the tile's rows and keys, and the dtype code (the SIMT
+    template for float32)."""
     if q.dtype == torch.bfloat16:
-        check_tc_shape(name, q.shape[1], hkv, q.shape[3])
-        lib, entry = _tc_lib(), "repro_flash_paged_prefill"
-        kernel, tile = TC_KERNEL, (block_q, block_k)
+        h, d = q.shape[1], q.shape[3]
+        check_tc_shape(name, h, hkv, d)
+        lib = _tc_lib(rt.padded)
+        entry = "repro_flash_paged_prefill"
+        kernel = TC_KERNEL
+        tile = (prefill_rows(d, h // hkv, block_q), block_k)
     else:
-        lib, entry = _lib(), "repro_paged_prefill_f32"
+        lib, entry = _lib(rt.padded), "repro_paged_prefill_f32"
         kernel, tile = "paged_prefill_kernel", ()
     return (getattr(lib, entry + ("_quant" if quant else "")), kernel,
-            (*tile, _DTYPES[q.dtype]))
+            (rt.dp, *tile, _DTYPES[q.dtype]))
 
 
 #: the instances of the tensor-core prefill kernel, by kind: K4 (bf16
@@ -415,16 +513,17 @@ TC_KINDS = ("bf16", "int8", "bf16 split", "int8 split")
 
 
 def tc_info(d: int, kind: str, nblk: int = 0, *, rows: int = TC_TILE_ROWS,
-            block_k: int = TC_TILE_KEYS) -> dict[str, int]:
+            block_k: int = TC_TILE_KEYS, dp: int = 0) -> dict[str, int]:
     """What the card makes of the tensor-core prefill instance for head
-    dim ``d`` of ``kind`` (one of :data:`TC_KINDS`) at a tile of ``rows``
-    query rows (block_q x G) and ``block_k`` keys: registers per thread,
-    local (spill) bytes, dynamic shared memory at ``nblk`` table entries,
-    and resident blocks per SM.  Needs the card."""
+    dim ``d`` (``dp`` 0), or of the padded one of width ``dp``, of
+    ``kind`` (one of :data:`TC_KINDS`) at a tile of
+    ``rows`` query rows and ``block_k`` keys: registers per thread, local
+    (spill) bytes, dynamic shared memory at ``nblk`` table entries, and
+    resident blocks per SM.  Needs the card."""
     out = (ctypes.c_int * 4)()
-    err = _tc_lib().repro_paged_prefill_tc_info(d, TC_KINDS.index(kind), nblk,
-                                                rows, block_k,
-                                                ctypes.addressof(out))
+    err = _tc_lib(dp > 0).repro_paged_prefill_tc_info(
+        d, dp, TC_KINDS.index(kind), nblk, rows, block_k,
+        ctypes.addressof(out))
     _raise_on("tc_info", err)
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
@@ -437,16 +536,17 @@ DECODE_KINDS = ("bf16", "int8", "bf16 dense", "bf16 split", "int8 split")
 
 
 def decode_tc_info(d: int, kind: str, nblk: int = 0, *,
-                   block_k: int = DECODE_TILE_KEYS) -> dict:
+                   block_k: int = DECODE_TILE_KEYS, dp: int = 0) -> dict:
     """What the card makes of the bf16 decode instance for head dim ``d``
-    of ``kind`` (one of :data:`DECODE_KINDS`) at ``block_k`` keys a tile:
+    (``dp`` 0), or of the padded one of width ``dp``, of ``kind`` (one of
+    :data:`DECODE_KINDS`) at ``block_k`` keys a tile:
     registers per thread, local (spill) bytes, dynamic shared memory at
     ``nblk`` table entries (the dense mode stages none), resident CTAs per
     SM, and under ``clusters`` the clusters of each of
     :data:`CLUSTER_SIZES` CTAs the card holds at once.  Needs the card."""
     out = (ctypes.c_int * 8)()
-    err = _dec_lib().repro_paged_decode_tc_info(
-        d, DECODE_KINDS.index(kind), nblk, block_k, ctypes.addressof(out))
+    err = _dec_lib(dp > 0).repro_paged_decode_tc_info(
+        d, dp, DECODE_KINDS.index(kind), nblk, block_k, ctypes.addressof(out))
     _raise_on("decode_tc_info", err)
     info = dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out[:4]))
@@ -458,14 +558,15 @@ def decode_cluster(name: str, q: torch.Tensor, b: int, hkv: int,
                    cluster: int | None, block_k: int = DECODE_TILE_KEYS,
                    quant: bool = False) -> int:
     """The cluster size of a bf16 decode launch (K3, K6a, K2) on q's card
-    at ``block_k`` keys a tile over int8 pools with ``quant``: ``cluster``
-    if given (one of :data:`CLUSTER_SIZES`, else raise), else
-    :func:`cluster_size` of the card."""
+    at ``block_k`` keys a tile over int8 pools with ``quant``, on the
+    instance of :func:`~.flash_attention.route`: ``cluster`` if given (one
+    of :data:`CLUSTER_SIZES`, else raise), else :func:`cluster_size` of the
+    card for that instance's width."""
     if cluster is None:
         index = q.device.index
         cluster = cluster_size(b, hkv, sm_count(
             torch.cuda.current_device() if index is None else index),
-            q.shape[-1], block_k, quant)
+            route(name, q.dtype, q.shape[-1]).width, block_k, quant)
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"{name}: cluster size {cluster!r} not in "
                          f"{CLUSTER_SIZES}")
@@ -473,32 +574,35 @@ def decode_cluster(name: str, q: torch.Tensor, b: int, hkv: int,
 
 
 def _decode_entry(name: str, q: torch.Tensor, b: int, hkv: int, quant: bool,
-                  cluster: int | None, block_k: int):
+                  cluster: int | None, block_k: int, rt: Route):
     """The C entry of K3 (K6a with ``quant``) for q's type, the name of the
-    kernel it launches and its trailing arguments: for bfloat16 the
-    cluster kernel, its cluster size (:func:`decode_cluster`) and key
-    tile, for float32 the SIMT template and the dtype code."""
+    kernel it launches and its trailing arguments: the instance's ``dp``,
+    then for bfloat16 the cluster kernel, its cluster size
+    (:func:`decode_cluster`) and key tile, for float32 the SIMT template
+    and the dtype code."""
     suffix = "_quant" if quant else ""
     if q.dtype == torch.bfloat16:
-        fn = getattr(_dec_lib(), f"repro_flash_paged_decode{suffix}_tc")
-        return fn, DECODE_TC_KERNEL, (
-            decode_cluster(name, q, b, hkv, cluster, block_k, quant),
-            block_k)
-    fn = getattr(_lib(), f"repro_flash_paged_decode{suffix}")
-    return fn, DECODE_SIMT_KERNEL, (_DTYPES[q.dtype],)
+        fn = getattr(_dec_lib(rt.padded),
+                     f"repro_flash_paged_decode{suffix}_tc")
+        return fn, DECODE_TC_KERNEL, (rt.dp, decode_cluster(
+            name, q, b, hkv, cluster, block_k, quant), block_k)
+    fn = getattr(_lib(rt.padded), f"repro_flash_paged_decode{suffix}")
+    return fn, DECODE_SIMT_KERNEL, (rt.dp, _DTYPES[q.dtype])
 
 
-def _split_decode_entry(q: torch.Tensor, quant: bool, block_k: int):
+def _split_decode_entry(q: torch.Tensor, quant: bool, block_k: int,
+                        rt: Route):
     """The C entry of K5a (K6b with ``quant``) for q's type, the name of the
-    kernel it launches and its extra trailing arguments: for bfloat16 the
-    cluster kernel's partials mode and its key tile, for float32 the SIMT
-    template and the dtype code."""
+    kernel it launches and its extra trailing arguments: the instance's
+    ``dp``, then for bfloat16 the cluster kernel's partials mode and its
+    key tile, for float32 the SIMT template and the dtype code."""
     suffix = "_quant" if quant else ""
     if q.dtype == torch.bfloat16:
-        return (getattr(_dec_lib(), f"repro_paged_decode_split{suffix}_tc"),
-                DECODE_TC_KERNEL, (block_k,))
-    return (getattr(_lib(), f"repro_paged_decode_split{suffix}"),
-            DECODE_SIMT_KERNEL, (_DTYPES[q.dtype],))
+        return (getattr(_dec_lib(rt.padded),
+                        f"repro_paged_decode_split{suffix}_tc"),
+                DECODE_TC_KERNEL, (rt.dp, block_k))
+    return (getattr(_lib(rt.padded), f"repro_paged_decode_split{suffix}"),
+            DECODE_SIMT_KERNEL, (rt.dp, _DTYPES[q.dtype]))
 
 
 def _check(name: str, q: torch.Tensor, k_pool: torch.Tensor,
@@ -546,11 +650,7 @@ def _check(name: str, q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k_pool "
                          f"{tuple(k_pool.shape)} v_pool "
                          f"{tuple(v_pool.shape)} do not match")
-    dims = PAGED_HEAD_DIMS if q.dtype == torch.bfloat16 else HEAD_DIMS
-    if d not in dims:
-        raise ValueError(f"{name}: head dim {d} not in {dims}: the paged "
-                         f"kernels have no other instance for a {q.dtype} "
-                         "query")
+    route(name, q.dtype, d)            # raises above MAX_HEAD_DIM
     if h % k_pool.shape[1]:
         raise ValueError(f"{name}: {h} query heads are not a multiple of "
                          f"{k_pool.shape[1]} kv heads")
@@ -678,11 +778,14 @@ def split_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     return out
 
 
-def _count(wrapper, kernel: str, tile) -> None:
-    """One launch of ``wrapper``'s kernel at ``tile``."""
+def _count(wrapper, kernel: str, tile, rt: Route) -> None:
+    """One launch of ``wrapper``'s kernel at ``tile`` on the instance
+    ``rt`` (``by_width`` counts the launches on padded instances)."""
     wrapper.launches += 1
     wrapper.by_tile[tile] += 1
     wrapper.last_kernel = kernel
+    if rt.padded:
+        wrapper.by_width[rt.width] += 1
 
 
 def paged_decode_split(q: torch.Tensor, k_pool: torch.Tensor,
@@ -697,19 +800,20 @@ def paged_decode_split(q: torch.Tensor, k_pool: torch.Tensor,
     live ``block_k``-key tiles, 64 by default), a float32 q the SIMT
     template (32-key tiles); ``last_kernel`` names the one launched
     last."""
-    b, h, hkv, psz, d, scale = _decode_shape("paged_decode_split", q, k_pool,
-                                             scale)
-    bk = decode_tile("paged_decode_split", q, block_k)
+    name = "paged_decode_split"
+    b, h, hkv, psz, d, scale = _decode_shape(name, q, k_pool, scale)
+    rt = route(name, q.dtype, q.shape[-1])
+    bk = decode_tile(name, q, block_k)
     m, l, acc = _partials(q, hkv, num_splits)
-    fn, kernel, extra = _split_decode_entry(q, False, bk)
+    fn, kernel, extra = _split_decode_entry(q, False, bk, rt)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  page_table.data_ptr(), kv_len.data_ptr(), m.data_ptr(),
                  l.data_ptr(), acc.data_ptr(), b, h, hkv, psz,
                  page_table.shape[1], num_splits, d, *extra, scale,
                  _stream(q))
-    _raise_on("paged_decode_split", err)
-    _count(paged_decode_split, kernel, bk)
+    _raise_on(name, err)
+    _count(paged_decode_split, kernel, bk, rt)
     return m, l, acc
 
 
@@ -724,11 +828,12 @@ def paged_decode_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
     (split s the s-th contiguous share of the lane's live ``block_k``-key
     tiles, as K5a), a float32 q the SIMT template (32-key tiles);
     ``last_kernel`` names the one launched last."""
-    b, h, hkv, psz, d, scale = _decode_shape("paged_decode_split_quant", q,
-                                             k_pool, scale)
-    bk = decode_tile("paged_decode_split_quant", q, block_k)
+    name = "paged_decode_split_quant"
+    b, h, hkv, psz, d, scale = _decode_shape(name, q, k_pool, scale)
+    rt = route(name, q.dtype, q.shape[-1])
+    bk = decode_tile(name, q, block_k)
     m, l, acc = _partials(q, hkv, num_splits)
-    fn, kernel, extra = _split_decode_entry(q, True, bk)
+    fn, kernel, extra = _split_decode_entry(q, True, bk, rt)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  k_scale.data_ptr(), v_scale.data_ptr(),
@@ -736,15 +841,15 @@ def paged_decode_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
                  l.data_ptr(), acc.data_ptr(), b, h, hkv, psz,
                  page_table.shape[1], num_splits, d, *extra, scale,
                  _stream(q))
-    _raise_on("paged_decode_split_quant", err)
-    _count(paged_decode_split_quant, kernel, bk)
+    _raise_on(name, err)
+    _count(paged_decode_split_quant, kernel, bk, rt)
     return m, l, acc
 
 
 def _decode_merged(name: str, fn, q: torch.Tensor, pools: tuple,
                    page_table: torch.Tensor, kv_len: torch.Tensor,
                    num_splits: int, scale: float | None,
-                   return_partials: bool, block_k: int):
+                   return_partials: bool, block_k: int, rt: Route):
     """One launch of the cluster kernel's partials mode with K5c's merge
     in its epilogue: ``pools`` is (k, v) or (k, v, k_scale, v_scale)."""
     b, h, hkv, psz, d, scale = _decode_shape(name, q, pools[0], scale)
@@ -756,7 +861,7 @@ def _decode_merged(name: str, fn, q: torch.Tensor, pools: tuple,
                  page_table.data_ptr(), kv_len.data_ptr(), m.data_ptr(),
                  l.data_ptr(), acc.data_ptr(), out.data_ptr(),
                  counters.data_ptr(), b, h, hkv, psz, page_table.shape[1],
-                 num_splits, d, block_k, scale, _stream(q))
+                 num_splits, d, rt.dp, block_k, scale, _stream(q))
     _raise_merged(name, err, counters)
     return (out, (m, l, acc)) if return_partials else out
 
@@ -776,11 +881,12 @@ def paged_decode_split_merged(q: torch.Tensor, k_pool: torch.Tensor,
     ``return_partials`` returns them beside o, ``(o, (m, l, acc))``."""
     name = "paged_decode_split_merged"
     _check_bf16(name, q)
+    rt = route(name, q.dtype, q.shape[-1])
     bk = decode_tile(name, q, block_k)
-    out = _decode_merged(name, _dec_lib().repro_paged_decode_split_merged_tc,
-                         q, (k_pool, v_pool), page_table, kv_len, num_splits,
-                         scale, return_partials, bk)
-    _count(paged_decode_split_merged, DECODE_TC_KERNEL, bk)
+    out = _decode_merged(name, _dec_lib(
+        rt.padded).repro_paged_decode_split_merged_tc, q, (k_pool, v_pool),
+        page_table, kv_len, num_splits, scale, return_partials, bk, rt)
+    _count(paged_decode_split_merged, DECODE_TC_KERNEL, bk, rt)
     return out
 
 
@@ -798,12 +904,13 @@ def paged_decode_split_quant_merged(q: torch.Tensor, k_pool: torch.Tensor,
     :func:`paged_decode_split_quant`), one launch, bfloat16 q only."""
     name = "paged_decode_split_quant_merged"
     _check_bf16(name, q)
+    rt = route(name, q.dtype, q.shape[-1])
     bk = decode_tile(name, q, block_k)
-    out = _decode_merged(name,
-                         _dec_lib().repro_paged_decode_split_quant_merged_tc,
-                         q, (k_pool, v_pool, k_scale, v_scale), page_table,
-                         kv_len, num_splits, scale, return_partials, bk)
-    _count(paged_decode_split_quant_merged, DECODE_TC_KERNEL, bk)
+    out = _decode_merged(name, _dec_lib(
+        rt.padded).repro_paged_decode_split_quant_merged_tc, q,
+        (k_pool, v_pool, k_scale, v_scale), page_table, kv_len, num_splits,
+        scale, return_partials, bk, rt)
+    _count(paged_decode_split_quant_merged, DECODE_TC_KERNEL, bk, rt)
     return out
 
 
@@ -818,6 +925,7 @@ def _paged_decode(name: str, wrapper, q: torch.Tensor, pools: tuple,
     _check(name, q, pools[0], pools[1], page_table, (kv_len,),
            pools[2:] or None)
     b, h, hkv, psz, d, scale = _decode_shape(name, q, pools[0], scale)
+    rt = route(name, q.dtype, q.shape[-1])
     bk = decode_tile(name, q, block_k)
     ns = _num_splits(num_splits, page_table.shape[1] * psz, bk)
     if ns > 1 and q.dtype == torch.bfloat16:
@@ -831,7 +939,7 @@ def _paged_decode(name: str, wrapper, q: torch.Tensor, pools: tuple,
                           block_k=bk)
         return split_combine(m, l, acc, q.dtype).reshape(b, h, 1, d)
     fn, kernel, last = _decode_entry(name, q, b, cluster_hkv or hkv, quant,
-                                     cluster, bk)
+                                     cluster, bk, rt)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
@@ -839,7 +947,7 @@ def _paged_decode(name: str, wrapper, q: torch.Tensor, pools: tuple,
                  h, hkv, psz, page_table.shape[1], d, *last, scale,
                  _stream(q))
     _raise_on(name, err)
-    _count(wrapper, kernel, bk)
+    _count(wrapper, kernel, bk, rt)
     return out
 
 
@@ -863,7 +971,9 @@ def flash_paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
     :func:`cluster_size` sizes the cluster for (default the pools'): a
     tensor-parallel rank, whose pools hold a slice of the heads, passes
     the unsharded count, so that it launches the unsharded cluster on its
-    heads.  ``_cluster`` overrides :func:`cluster_size` (tests only)."""
+    heads.  A head dim with no instance of its own runs on a padded one
+    (:func:`~.flash_attention.route`).  ``_cluster`` overrides
+    :func:`cluster_size` (tests only)."""
     return _paged_decode("flash_paged_decode", flash_paged_decode, q,
                          (k_pool, v_pool), page_table, kv_len, scale,
                          num_splits, block_k, _cluster, cluster_hkv)
@@ -902,24 +1012,26 @@ def _prefill_split(name: str, wrapper, q: torch.Tensor, pools: tuple,
     _check_splits(name, num_splits)
     b, h, hkv, c, psz, d, scale = _prefill_shape(q, pools[0], scale)
     suffix = "_quant" if len(pools) == 4 else ""
+    rt = prefill_route(name, q.dtype, d, h // hkv)
+    tile = prefill_tile(name, q, hkv, block_q, block_k)
     if q.dtype == torch.bfloat16:
         check_tc_shape(name, h, hkv, d)
-        tile = prefill_tile(name, q, hkv, block_q, block_k)
-        fn = getattr(_tc_lib(), f"repro_paged_prefill_split{suffix}_tc")
-        kernel, extra = TC_KERNEL, tile
+        fn = getattr(_tc_lib(rt.padded),
+                     f"repro_paged_prefill_split{suffix}_tc")
+        kernel = TC_KERNEL
+        extra = (prefill_rows(d, h // hkv, tile[0]), tile[1])
     else:
-        tile = prefill_tile(name, q, hkv, block_q, block_k)
-        fn = getattr(_lib(), f"repro_paged_prefill_split{suffix}")
+        fn = getattr(_lib(rt.padded), f"repro_paged_prefill_split{suffix}")
         kernel, extra = "paged_prefill_kernel", ()
     m, l, acc = _prefill_partials(q, num_splits)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
                  page_table.data_ptr(), start.data_ptr(), kv_len.data_ptr(),
                  m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, h, hkv, c,
-                 psz, page_table.shape[1], num_splits, d, *extra,
+                 psz, page_table.shape[1], num_splits, d, rt.dp, *extra,
                  _DTYPES[q.dtype], scale, _stream(q))
     _raise_on(name, err)
-    _count(wrapper, kernel, tile)
+    _count(wrapper, kernel, tile, rt)
     return m, l, acc
 
 
@@ -957,7 +1069,8 @@ def paged_prefill_split_quant(q: torch.Tensor, k_pool: torch.Tensor,
                           start, kv_len, num_splits, scale, block_q, block_k)
 
 
-def _prefill_merged(name: str, wrapper, fn, q: torch.Tensor, pools: tuple,
+def _prefill_merged(name: str, wrapper, entry: str, q: torch.Tensor,
+                    pools: tuple,
                     page_table: torch.Tensor, start: torch.Tensor,
                     kv_len: torch.Tensor, num_splits: int,
                     scale: float | None, return_partials: bool,
@@ -970,18 +1083,22 @@ def _prefill_merged(name: str, wrapper, fn, q: torch.Tensor, pools: tuple,
     _check_bf16(name, q)
     b, h, hkv, c, psz, d, scale = _prefill_shape(q, pools[0], scale)
     check_tc_shape(name, h, hkv, d)
+    rt = prefill_route(name, q.dtype, d, h // hkv)
     bq, bk = prefill_tile(name, q, hkv, block_q, block_k)
+    rows = prefill_rows(d, h // hkv, bq)
+    fn = getattr(_tc_lib(rt.padded), entry)
     m, l, acc = _prefill_partials(q, num_splits)
     out = torch.empty_like(q)
-    counters = _arrivals(q, b * hkv * -(-c // bq))    # q tiles of bq rows
+    # a counter per query tile: rows of the kv head's C x G rows
+    counters = _arrivals(q, b * hkv * -(-c * (h // hkv) // rows))
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
                  page_table.data_ptr(), start.data_ptr(), kv_len.data_ptr(),
                  m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
                  counters.data_ptr(), b, h, hkv, c, psz, page_table.shape[1],
-                 num_splits, d, bq, bk, scale, _stream(q))
+                 num_splits, d, rt.dp, rows, bk, scale, _stream(q))
     _raise_merged(name, err, counters)
-    _count(wrapper, TC_KERNEL, (bq, bk))
+    _count(wrapper, TC_KERNEL, (bq, bk), rt)
     return (out, (m, l, acc)) if return_partials else out
 
 
@@ -1000,7 +1117,7 @@ def paged_prefill_split_merged(q: torch.Tensor, k_pool: torch.Tensor,
     returns the partials beside o, ``(o, (m, l, acc))``."""
     return _prefill_merged("paged_prefill_split_merged",
                            paged_prefill_split_merged,
-                           _tc_lib().repro_paged_prefill_split_merged_tc, q,
+                           "repro_paged_prefill_split_merged_tc", q,
                            (k_pool, v_pool), page_table, start, kv_len,
                            num_splits, scale, return_partials, block_q,
                            block_k)
@@ -1021,7 +1138,7 @@ def paged_prefill_split_quant_merged(q: torch.Tensor, k_pool: torch.Tensor,
     over int8 pools and their scales, one launch, bfloat16 q only."""
     return _prefill_merged("paged_prefill_split_quant_merged",
                            paged_prefill_split_quant_merged,
-                           _tc_lib().repro_paged_prefill_split_quant_merged_tc,
+                           "repro_paged_prefill_split_quant_merged_tc",
                            q, (k_pool, v_pool, k_scale, v_scale), page_table,
                            start, kv_len, num_splits, scale, return_partials,
                            block_q, block_k)
@@ -1037,8 +1154,8 @@ def _paged_prefill(name: str, wrapper, q: torch.Tensor, pools: tuple,
     quant = len(pools) == 4
     psz = pools[0].shape[2] if pools[0].dim() == 4 else 1
     keys = page_table.shape[-1] * psz
-    bk = block_k if block_k is not None else (
-        TC_TILE_KEYS if q.dtype == torch.bfloat16 else SIMT_PREFILL_TILE[1])
+    bk = block_k if block_k is not None else default_block_k(
+        q.dtype, q.shape[-1])
     ns = _num_splits(num_splits, keys, bk)
     if ns > 1 and q.dtype == torch.bfloat16:     # checks its inputs
         merged = (paged_prefill_split_quant_merged if quant
@@ -1053,8 +1170,9 @@ def _paged_prefill(name: str, wrapper, q: torch.Tensor, pools: tuple,
     _check(name, q, pools[0], pools[1], page_table, (start, kv_len),
            pools[2:] or None)
     b, h, hkv, c, psz, d, scale = _prefill_shape(q, pools[0], scale)
+    rt = prefill_route(name, q.dtype, d, h // hkv)
     tile = prefill_tile(name, q, hkv, block_q, block_k)
-    fn, kernel, extra = _prefill_entry(name, q, hkv, quant, *tile)
+    fn, kernel, extra = _prefill_entry(name, q, hkv, quant, *tile, rt)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
@@ -1062,7 +1180,7 @@ def _paged_prefill(name: str, wrapper, q: torch.Tensor, pools: tuple,
                  out.data_ptr(), b, h, hkv, c, psz, page_table.shape[1], d,
                  *extra, scale, _stream(q))
     _raise_on(name, err)
-    _count(wrapper, kernel, tile)
+    _count(wrapper, kernel, tile, rt)
     return out
 
 
@@ -1076,16 +1194,20 @@ def flash_paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
     """Paged chunked prefill: q (B, H, C, D), pools (P, Hkv, psz, D),
     page_table (B, nblk), start and kv_len (B,) int32 on q's device.
     Output like q; rows at positions ``>= kv_len`` are padding.
-    ``block_q`` counts query positions per tile (the kernel's row tile is
-    ``block_q`` x G query rows, G = H / Hkv) and ``block_k`` keys per K/V
-    tile (whole pages): one of :func:`prefill_tiles` each,
-    :func:`default_block_q` and 128 by default for a bfloat16 q, the SIMT
-    template's 64 and 32 for float32; another raises ``ValueError``.
+    ``block_q`` names the tile (:func:`prefill_tiles`: query positions per
+    tile, the kernel's row tile ``block_q`` x G query rows, G = H / Hkv;
+    where G divides no row tile, the tile's rows) and ``block_k`` counts
+    keys per K/V tile (whole pages): one of :func:`prefill_tiles` each,
+    :func:`default_block_q` and :func:`default_block_k` by default (128
+    keys for a bfloat16 q at its own head dims), the SIMT template's 64
+    and 32 for float32; another raises ``ValueError``.
     ``num_splits`` (clamped to the table's ``block_k``-key tiles) above 1
     runs K5b and K5c (for a bfloat16 q in one launch,
     :func:`paged_prefill_split_merged`), else K4: on the tensor cores for
-    a bfloat16 q (G = H / Hkv must give a row tile,
-    :func:`check_tc_shape`), the SIMT template for float32."""
+    a bfloat16 q, the SIMT template for float32.  A head dim with no
+    instance of its own, or a group size that divides none of the row
+    tiles of the head dim's own instance, runs on a padded one
+    (:func:`prefill_route`)."""
     return _paged_prefill("flash_paged_prefill", flash_paged_prefill, q,
                           (k_pool, v_pool), page_table, start, kv_len, scale,
                           num_splits, block_q, block_k)
@@ -1126,3 +1248,4 @@ for _kernel in KERNELS:
     if _kernel is not split_combine:      # one kernel: no route to name
         _kernel.last_kernel = None
         _kernel.by_tile = collections.Counter()
+        _kernel.by_width = collections.Counter()

@@ -306,7 +306,8 @@ def paged_prefill_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
                             num_splits: int, *, scale: float | None = None,
                             k_scale: torch.Tensor | None = None,
                             v_scale: torch.Tensor | None = None,
-                            block_q: int = 64, block_k: int = 32):
+                            block_q: int = 64, block_k: int = 32,
+                            rows: int | None = None):
     """Chunked prefill as ``num_splits`` segments of each query tile's
     live key tiles: the two phases of K5b/K6d + K5c, in plain PyTorch.
 
@@ -317,6 +318,12 @@ def paged_prefill_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
     * per, t_hi))``, ``per = ceil(t_hi / num_splits)``, masked causally
     and by ``kv_len`` as :func:`paged_prefill_ref`.  A split with no key
     visible to a row gives that row (m, l, acc) = (-1e30, 0, 0).
+
+    ``rows`` takes the bf16 kernel's flattened tiles instead: a kv head's
+    chunk is C x G (position, head) rows, row ``f = i * G + h % G``, and a
+    tile holds ``rows`` consecutive ones, so row (h, i)'s tile ends at
+    ``last = start + ((f // rows + 1) * rows - 1) // G``; where G divides
+    ``rows`` that is ``block_q = rows // G``'s partition.
 
     Returns ``(out, (m, l, acc))``: the merged output like q (a row with
     no key at all gives exactly 0) and the fp32 partials, (B, H, ns, C)
@@ -333,21 +340,26 @@ def paged_prefill_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
     vv = torch.repeat_interleave(v, g, dim=1)
     dev = q.device
     start, kv_len = start.to(dev).long(), kv_len.to(dev).long()
-    rows = torch.arange(c, device=dev)
-    qi = start[:, None] + rows                                   # (B, C)
-    last = start[:, None] + (rows // block_q + 1) * block_q - 1
+    pos = torch.arange(c, device=dev)
+    qi = start[:, None] + pos                                    # (B, C)
+    if rows is None:
+        last = (start[:, None] + (pos // block_q + 1) * block_q - 1)[:, None]
+    else:                                                        # (B, H, C)
+        f = pos[None] * g + torch.arange(h, device=dev)[:, None] % g
+        last = start[:, None, None] + ((f // rows + 1) * rows - 1) // g
     n_live = -(-kv_len.clamp(min=0, max=sk) // block_k)           # (B,)
-    t_hi = torch.minimum(n_live[:, None],
+    t_hi = torch.minimum(n_live[:, None, None],
                          torch.div(last, block_k, rounding_mode="floor") + 1)
-    t_hi = torch.where(last < 0, 0, t_hi)                        # (B, C)
+    t_hi = torch.where(last < 0, 0, t_hi)                  # (B, 1 or H, C)
     per = -(-t_hi // ns)
-    split = torch.arange(ns, device=dev)[:, None, None]          # (ns,1,1)
-    lo = torch.minimum(split * per, t_hi) * block_k              # (ns, B, C)
+    split = torch.arange(ns, device=dev)[:, None, None, None]    # (ns,1,1,1)
+    lo = torch.minimum(split * per, t_hi) * block_k        # (ns, B, ., C)
     hi = torch.minimum(t_hi, split * per + per) * block_k
     kj = torch.arange(sk, device=dev)
-    visible = (kj <= qi[..., None]) & (kj < kv_len[:, None, None])  # (B,C,S)
-    mask = visible & (kj >= lo[..., None]) & (kj < hi[..., None])   # (ns,B,C,S)
-    mask = mask.permute(1, 0, 2, 3)[:, None]                     # (B,1,ns,C,S)
+    visible = ((kj <= qi[..., None])
+               & (kj < kv_len[:, None, None]))[:, None]          # (B,1,C,S)
+    mask = visible & (kj >= lo[..., None]) & (kj < hi[..., None])
+    mask = mask.permute(1, 2, 0, 3, 4)                       # (B,.,ns,C,S)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
     s = torch.where(mask, s[:, :, None], NEG_INF)                # (B,H,ns,C,S)
     m = s.amax(dim=-1)              # -1e30 where the split sees no key

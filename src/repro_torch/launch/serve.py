@@ -318,13 +318,12 @@ def tile_ladders(model, page_size: int) -> dict[str, tuple]:
     from ..tuning import page_block_ks
     cfg = model.cfg
     dtype = torch_dtype(cfg.compute_dtype)
-    dense_ks = pa.decode_block_ks(dtype, cfg.head_dim)
+    dense_ks = pa.decode_block_ks(dtype, cfg.head_dim, dense=True)
     block_qs, prefill_ks = pa.prefill_tiles(dtype, cfg.head_dim,
                                             cfg.n_heads // cfg.n_kv_heads)
-    decode_ks = page_block_ks(page_size, dense_ks)
-    # a head dim the paged kernels do not take (h2o-danube's 80: dense
-    # lanes only) has no prefill tile
-    prefill_ks = page_block_ks(page_size, prefill_ks) if prefill_ks else ()
+    decode_ks = page_block_ks(page_size, pa.decode_block_ks(dtype,
+                                                            cfg.head_dim))
+    prefill_ks = page_block_ks(page_size, prefill_ks)
     return {"dense_block_k": dense_ks, "block_k": decode_ks,
             "block_q": block_qs, "prefill_block_k": prefill_ks,
             # the calibration bench publishes one tile to both kernels

@@ -66,6 +66,7 @@ from repro_torch.distributed.compression import quantize_int8_rows
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from test_torch_prefill_tc import kstep_scores, pad_cols
 
 torch.set_num_threads(1)
 
@@ -129,18 +130,25 @@ def normalise(l, acc):
 # --------------------------------------------------------------------------
 
 
-def k1_emulate(q, k, v, causal=True, window=None, block_q=64, block_k=64):
+def k1_emulate(q, k, v, causal=True, window=None, block_q=64, block_k=64,
+               width=None):
     """The bf16 K1's arithmetic and tiling in plain torch at the tile
     ``block_q`` x ``block_k``; output like q.  A block's query rows only
     choose which steps are skipped (nothing), and a ``block_k``-key copy
     is walked in ``K1_STEP_KEYS``-key steps, up to the keys' own length
-    (which differs from the rows' in cross attention)."""
+    (which differs from the rows' in cross attention).  ``width`` runs it
+    as the padded instance of that width does (test_torch_prefill_tc's
+    ``tc_emulate``)."""
     b, h, s_len, d = q.shape
     sk = k.shape[2]
     g = h // k.shape[1]
     kk = torch.repeat_interleave(k.float(), g, dim=1)
     vv = torch.repeat_interleave(v.float(), g, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk)
+    if width is None:
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk)
+    else:
+        q, kk, vv = (pad_cols(x, width) for x in (q, kk, vv))
+        s = kstep_scores("bhqd,bhkd->bhqk", q.float(), kk)
     s = s * np.float32(d ** -0.5 * LOG2E)
     qi = torch.arange(s_len)[:, None]
     kj = torch.arange(sk)[None, :]
@@ -156,7 +164,7 @@ def k1_emulate(q, k, v, causal=True, window=None, block_q=64, block_k=64):
              for j in range(0, block_k, K1_STEP_KEYS)
              if t0 + j < sk]     # a step past Sk is skipped
     _, l, acc = online_softmax(s, vv, steps)
-    return normalise(l, acc).to(q.dtype)
+    return normalise(l, acc)[..., :d].to(q.dtype)
 
 
 # (label, H, Hkv, D, S, causal, window): yi-6b's prefill and phase 3's

@@ -190,8 +190,8 @@ def test_decode_kernel_kv_len_zero_row_is_exactly_zero(cuda_device):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
-    q = rand((1, 2, 8, 48), 28, cuda_device, torch.float32)
-    with pytest.raises(ValueError, match="head dim"):
+    q = rand((1, 2, 8, 264), 28, cuda_device, torch.float32)
+    with pytest.raises(ValueError, match="head dim 264"):
         fa.flash_attention(q, q, q)
     q = rand((1, 2, 8, 32), 29, cuda_device, torch.float16)
     with pytest.raises(ValueError, match="dtype"):
@@ -297,9 +297,10 @@ def test_paged_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         pa.flash_paged_decode(q, kp.bfloat16(), vp.bfloat16(), table, lens)
     with pytest.raises(ValueError, match="one query token"):
         pa.flash_paged_decode(torch.cat([q, q], 2), kp, vp, table, lens)
-    with pytest.raises(ValueError, match="head dim"):
-        pa.flash_paged_decode(q[..., :24].contiguous(), kp[..., :24].contiguous(),
-                              vp[..., :24].contiguous(), table, lens)
+    wide = [torch.cat([t] * 9, -1)[..., :264].contiguous()
+            for t in (q, kp, vp)]
+    with pytest.raises(ValueError, match="head dim 264"):
+        pa.flash_paged_decode(*wide, table, lens)
     with pytest.raises(ValueError, match="start and kv_len"):
         pa.flash_paged_prefill(q, kp, vp, table, lens[:1], lens)
 
@@ -605,9 +606,10 @@ def test_split_prefill_wrappers_reject_what_the_kernels_do_not_take(
         split(q, kp, vp, table[:1], start, kv_len, 2)
     with pytest.raises(ValueError, match="num_splits"):
         split(q, kp, vp, table, start, kv_len, 0)
-    with pytest.raises(ValueError, match="head dim"):
-        split(q[..., :24].contiguous(), kp[..., :24].contiguous(),
-              vp[..., :24].contiguous(), table, start, kv_len, 2)
+    wide = [torch.cat([t] * 9, -1)[..., :264].contiguous()
+            for t in (q, kp, vp)]
+    with pytest.raises(ValueError, match="head dim 264"):
+        split(*wide, table, start, kv_len, 2)
     (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
     quant = pa.paged_prefill_split_quant
     with pytest.raises(ValueError, match="int8"):
@@ -1249,19 +1251,29 @@ def test_tc_prefill_kernel_at_the_verify_shape(cuda_device, quant):
 
 def test_tc_prefill_wrappers_reject_group_sizes_the_tile_does_not_take(
         cuda_device):
-    """G = H / Hkv must divide the 32-row query tile (G 3 does not); the
-    float32 query of the same shape goes to the SIMT template instead."""
+    """G 3 divides no row tile at D 64 (32 rows only) and was refused; it
+    now runs on the flattened (position, head) rows of the padded instance
+    of width 64, its tile named by its rows, K4, K6c and K6d's partials
+    merged against plain; the float32 query of the same shape goes to
+    the SIMT template."""
     q, kp, vp, table, lens = paged_inputs(1, 12, 4, 64, 8, 2, [9],
                                           torch.bfloat16, cuda_device, 310,
                                           c=4)
     start = torch.tensor([5], dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="group size"):
-        pa.flash_paged_prefill(q, kp, vp, table, start, lens)
+    assert pa.flattened(64, 3)
+    want = ref.paged_prefill_ref(q, kp, vp, table, start, lens)
+    close(padded_launch(pa.flash_paged_prefill, 64, lambda:
+                        pa.flash_paged_prefill(q, kp, vp, table, start,
+                                               lens)), want, torch.bfloat16)
+    assert pa.flash_paged_prefill.by_tile[(32, 128)] > 0
     (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
-    with pytest.raises(ValueError, match="group size"):
-        pa.flash_paged_prefill_quant(q, k8, v8, ks, vs, table, start, lens)
-    with pytest.raises(ValueError, match="group size"):
-        pa.paged_prefill_split_quant(q, k8, v8, ks, vs, table, start, lens, 2)
+    want8 = ref.paged_prefill_ref(q, k8, v8, table, start, lens,
+                                  k_scale=ks, v_scale=vs)
+    close(pa.flash_paged_prefill_quant(q, k8, v8, ks, vs, table, start,
+                                       lens), want8, torch.bfloat16)
+    m, l, acc = pa.paged_prefill_split_quant(q, k8, v8, ks, vs, table, start,
+                                             lens, 2)
+    close(pa.split_combine(m, l, acc, torch.bfloat16), want8, torch.bfloat16)
     out = pa.flash_paged_prefill(q.float(), kp.float(), vp.float(), table,
                                  start, lens)
     assert pa.flash_paged_prefill.last_kernel == "paged_prefill_kernel"
@@ -1728,25 +1740,95 @@ def test_tc_dense_decode_d80_instances_fit_the_card(cuda_device, block_k):
                 pa.decode_tc_info(80, kind, 64, block_k=block_k)
 
 
+def padded_launch(wrapper, width: int, fn):
+    """``fn()``, which must launch ``wrapper`` once on its padded
+    instance of ``width``."""
+    n = wrapper.by_width[width]
+    out = fn()
+    assert wrapper.by_width[width] == n + 1
+    return out
+
+
 def test_d80_routes_without_an_instance_raise_on_the_card(cuda_device):
-    """The float32 K2 and every paged kernel refuse D 80 by name before
-    anything launches."""
+    """The float32 K2 and every paged kernel, which refused D 80, run on
+    the padded instances of width 96, against plain."""
     q = rand((2, 8, 1, 80), 530, cuda_device, torch.float32)
     k = rand((2, 2, 64, 80), 531, cuda_device, torch.float32)
-    n = fa.flash_decode.launches
-    with pytest.raises(ValueError, match="head dim 80"):
-        fa.flash_decode(q, k, k)
-    assert fa.flash_decode.launches == n
+    close(padded_launch(fa.flash_decode, 96, lambda: fa.flash_decode(q, k, k)),
+          ref.decode_ref(q, k, k), torch.float32)
     qb, kp, vp, table, lens = paged_inputs(2, 8, 2, 80, 16, 4, [20, 40],
                                            torch.bfloat16, cuda_device, 532)
-    with pytest.raises(ValueError, match="head dim 80"):
-        pa.flash_paged_decode(qb, kp, vp, table, lens)
+    close(padded_launch(pa.flash_paged_decode, 96, lambda:
+                        pa.flash_paged_decode(qb, kp, vp, table, lens)),
+          ref.paged_decode_ref(qb, kp, vp, table, lens), torch.bfloat16)
     qc, kpc, vpc, tablec, lensc = paged_inputs(2, 8, 2, 80, 16, 4, [20, 40],
                                                torch.bfloat16, cuda_device,
                                                533, c=5)
     start = torch.zeros(2, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="head dim 80"):
-        pa.flash_paged_prefill(qc, kpc, vpc, tablec, start, lensc)
+    close(padded_launch(pa.flash_paged_prefill, 96, lambda:
+                        pa.flash_paged_prefill(qc, kpc, vpc, tablec, start,
+                                               lensc)),
+          ref.paged_prefill_ref(qc, kpc, vpc, tablec, start, lensc),
+          torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [37, 90])
+def test_head_dims_of_odd_rows_match_plain(cuda_device, dtype, d):
+    """Head dims whose rows take the padded instances' narrow paths: d 37
+    (bf16 rows of 74 bytes and int8 rows of 37, copied byte by byte; an
+    odd last column, stored alone) and d 90 (bf16 rows of 180 bytes, by
+    4-byte copies; int8 rows of 90, d % 4 == 2, and the merge's 2-column
+    tail).  K1, K2, K3/K6a at 1 and 8 splits and K4/K6c at 1 and 4
+    splits, each one launch on the padded instance of width 64 or 96,
+    against plain."""
+    width = fa.padded_width(d)
+    h, hkv = 8, 2
+    q = rand((2, h, 70, d), 550, cuda_device, dtype)
+    k = rand((2, hkv, 70, d), 551, cuda_device, dtype)
+    v = rand((2, hkv, 70, d), 552, cuda_device, dtype)
+    close(padded_launch(fa.flash_attention, width, lambda:
+                        fa.flash_attention(q, k, v, causal=True)),
+          ref.attention_ref(q, k, v, causal=True), dtype)
+    q1 = rand((2, h, 1, d), 553, cuda_device, dtype)
+    kv_len = torch.tensor([70, 33], dtype=torch.int32, device=cuda_device)
+    close(padded_launch(fa.flash_decode, width, lambda:
+                        fa.flash_decode(q1, k, v, kv_len)),
+          ref.decode_ref(q1, k, v, kv_len), dtype)
+    bf16 = dtype == torch.bfloat16
+    qd, kp, vp, table, lens = paged_inputs(2, h, hkv, d, 16, 20, [250, 41],
+                                           dtype, cuda_device, 554)
+    qc = rand((2, h, 9, d), 555, cuda_device, dtype, 0.4)
+    start = lens - 9
+    (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
+    for pools, scales in (((kp, vp), {}),
+                          ((k8, v8, ks, vs), dict(k_scale=ks, v_scale=vs))):
+        quant = bool(scales)
+        want = ref.paged_decode_ref(qd, *pools[:2], table, lens, **scales)
+        for ns in (1, 8):
+            wrapper = (pa.flash_paged_decode_quant if quant
+                       else pa.flash_paged_decode) if ns == 1 else (
+                (pa.paged_decode_split_quant_merged if quant
+                 else pa.paged_decode_split_merged) if bf16 else
+                (pa.paged_decode_split_quant if quant
+                 else pa.paged_decode_split))
+            one = (pa.flash_paged_decode_quant if quant
+                   else pa.flash_paged_decode)
+            close(padded_launch(wrapper, width, lambda: one(
+                qd, *pools, table, lens, num_splits=ns)), want, dtype)
+        want = ref.paged_prefill_ref(qc, *pools[:2], table, start, lens,
+                                     **scales)
+        for ns in (1, 4):
+            wrapper = (pa.flash_paged_prefill_quant if quant
+                       else pa.flash_paged_prefill) if ns == 1 else (
+                (pa.paged_prefill_split_quant_merged if quant
+                 else pa.paged_prefill_split_merged) if bf16 else
+                (pa.paged_prefill_split_quant if quant
+                 else pa.paged_prefill_split))
+            one = (pa.flash_paged_prefill_quant if quant
+                   else pa.flash_paged_prefill)
+            close(padded_launch(wrapper, width, lambda: one(
+                qc, *pools, table, start, lens, num_splits=ns)), want, dtype)
 
 
 # --------------------------------------------------------------------------
@@ -1901,18 +1983,18 @@ def test_tc_dense_decode_d112_instances_fit_the_card(cuda_device, block_k):
 
 
 def test_d112_routes_without_an_instance_raise_on_the_card(cuda_device):
-    """The float32 K2 and the paged kernels refuse D 112 by name before
-    anything launches."""
+    """The float32 K2 and the paged kernels, which refused D 112, run on
+    the padded instances of width 128, against plain."""
     q = rand((2, 4, 1, 112), 570, cuda_device, torch.float32)
     k = rand((2, 4, 64, 112), 571, cuda_device, torch.float32)
-    n = fa.flash_decode.launches
-    with pytest.raises(ValueError, match="head dim 112"):
-        fa.flash_decode(q, k, k)
-    assert fa.flash_decode.launches == n
+    close(padded_launch(fa.flash_decode, 128,
+                        lambda: fa.flash_decode(q, k, k)),
+          ref.decode_ref(q, k, k), torch.float32)
     qb, kp, vp, table, lens = paged_inputs(2, 4, 4, 112, 16, 4, [20, 40],
                                            torch.bfloat16, cuda_device, 572)
-    with pytest.raises(ValueError, match="head dim 112"):
-        pa.flash_paged_decode(qb, kp, vp, table, lens)
+    close(padded_launch(pa.flash_paged_decode, 128, lambda:
+                        pa.flash_paged_decode(qb, kp, vp, table, lens)),
+          ref.paged_decode_ref(qb, kp, vp, table, lens), torch.bfloat16)
 
 
 # --------------------------------------------------------------------------
@@ -2143,23 +2225,28 @@ def test_tc_prefill_d160_instances_fit_the_card(cuda_device, kind, tile):
 
 
 def test_d160_routes_without_an_instance_raise_on_the_card(cuda_device):
-    """The float32 K2 and the paged kernels' float32 templates refuse D 160
-    by name, and the prefill kernel a D 160 tile off its ladder (48 rows),
-    before anything launches."""
+    """The float32 K2 and the paged kernels' float32 templates, which
+    refused D 160, run on the padded instances of width 160, and the
+    prefill kernel takes G 3 at D 160 (no 48-row tile there) on the
+    flattened rows of the padded instance of width 160, against plain."""
     q = rand((2, 4, 1, 160), 596, cuda_device, torch.float32)
     k = rand((2, 4, 64, 160), 597, cuda_device, torch.float32)
-    n = fa.flash_decode.launches
-    with pytest.raises(ValueError, match="head dim 160"):
-        fa.flash_decode(q, k, k)
-    assert fa.flash_decode.launches == n
+    close(padded_launch(fa.flash_decode, 160,
+                        lambda: fa.flash_decode(q, k, k)),
+          ref.decode_ref(q, k, k), torch.float32)
     qf, kp, vp, table, lens = paged_inputs(2, 8, 2, 160, 16, 4, [20, 40],
                                            torch.float32, cuda_device, 598)
-    with pytest.raises(ValueError, match="head dim 160"):
-        pa.flash_paged_decode(qf, kp, vp, table, lens)
+    close(padded_launch(pa.flash_paged_decode, 160, lambda:
+                        pa.flash_paged_decode(qf, kp, vp, table, lens)),
+          ref.paged_decode_ref(qf, kp, vp, table, lens), torch.float32)
     qb, kp, vp, table, lens = paged_inputs(2, 12, 4, 160, 16, 4, [20, 40],
                                            torch.bfloat16, cuda_device, 599,
                                            c=8)
     start = torch.zeros(2, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="group size"):
-        pa.flash_paged_prefill(qb, kp, vp, table, start, lens)
+    assert pa.flattened(160, 3)
+    close(padded_launch(pa.flash_paged_prefill, 160, lambda:
+                        pa.flash_paged_prefill(qb, kp, vp, table, start,
+                                               lens))[:, :, :8],
+          ref.paged_prefill_ref(qb, kp, vp, table, start, lens)[:, :, :8],
+          torch.bfloat16)
     assert counters_all_zero()

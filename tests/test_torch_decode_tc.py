@@ -65,6 +65,7 @@ from repro.kernels.flash_attention import \
 from repro_torch.distributed.compression import quantize_int8_rows
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from test_torch_prefill_tc import kstep_scores, pad_cols
 
 torch.set_num_threads(1)
 
@@ -93,7 +94,7 @@ def _merge(states):
 
 
 def emulate_strips(q, k, v, ks, vs, kv_len, parts, partials=False,
-                   block_k=TILE):
+                   block_k=TILE, width=None):
     """The decode kernel's arithmetic and partition in plain torch over
     strips k, v (B, Hkv, S, D) (bf16 values or int8 codes) with row
     scales ks, vs (B, Hkv, S) or None: ``parts`` CTAs per (lane, kv head),
@@ -101,13 +102,17 @@ def emulate_strips(q, k, v, ks, vs, kv_len, parts, partials=False,
     ``block_k`` keys, each split among :func:`tile_warps` key groups.
     Returns the states merged across the CTAs (output like q) or, with
     ``partials``, each CTA's state (m in natural-log units, l, acc) as
-    (B, Hkv, parts, G) and (.., D)."""
+    (B, Hkv, parts, G) and (.., D).  ``width`` runs it as the padded
+    instance of that width does (test_torch_prefill_tc's ``tc_emulate``;
+    the partials keep the d columns of q)."""
     tile, warps = block_k, tile_warps(block_k)
     group = tile // warps
     b, h, _, d = q.shape
     hkv = k.shape[1]
     g = h // hkv
     k, v = k.float(), v.float()
+    if width is not None:
+        q, k, v = pad_cols(q, width), pad_cols(k, width), pad_cols(v, width)
     sk = k.shape[2]
     ones = torch.ones(b, hkv, sk)
     ks = ones if ks is None else ks
@@ -121,12 +126,16 @@ def emulate_strips(q, k, v, ks, vs, kv_len, parts, partials=False,
     ks = torch.repeat_interleave(ks, g, dim=1)
     vs = torch.nn.functional.pad(torch.repeat_interleave(vs, g, dim=1),
                                  (0, pad))
-    s = torch.einsum("bhd,bhkd->bhk", q[:, :, 0].float(), kk)
+    if width is None:
+        s = torch.einsum("bhd,bhkd->bhk", q[:, :, 0].float(), kk)
+    else:
+        s = kstep_scores("bhd,bhkd->bhk", q[:, :, 0].float(), kk)
     s = s * ks * np.float32(d ** -0.5 * LOG2E)
     lens = kv_len.clamp(0, sk)
     s = torch.where(torch.arange(sk) < lens[:, None, None], s, ref.NEG_INF)
     s = torch.nn.functional.pad(s, (0, pad), value=ref.NEG_INF)
-    out = torch.zeros(b, h, d)
+    dp = q.shape[-1]
+    out = torch.zeros(b, h, dp)
     states = []
     for i in range(b):
         n_all = -(-int(lens[i]) // tile)
@@ -139,7 +148,7 @@ def emulate_strips(q, k, v, ks, vs, kv_len, parts, partials=False,
             for w in range(warps):
                 m = torch.full((h,), ref.NEG_INF)
                 l = torch.zeros(h)
-                acc = torch.zeros(h, d)
+                acc = torch.zeros(h, dp)
                 for t in range(t_lo, t_hi):
                     j = slice(t * tile + w * group, t * tile + (w + 1) * group)
                     st = s[i, :, j]
@@ -160,17 +169,17 @@ def emulate_strips(q, k, v, ks, vs, kv_len, parts, partials=False,
         _, l, acc = _merge(ranks)                    # across the cluster
         out[i] = acc / torch.where(l == 0, 1.0, l)[:, None]
     if not partials:
-        return out[:, :, None].to(q.dtype)
+        return out[:, :, None, :d].to(q.dtype)
     m, l, acc = (torch.stack([torch.stack([st[j] for st in ranks])
                               for ranks in states]) for j in range(3))
     m = torch.where(m == ref.NEG_INF, ref.NEG_INF, m * math.log(2.0))
     # (B, parts, H[, D]) -> (B, Hkv, parts, G[, D])
     m, l = (x.reshape(b, parts, hkv, g).transpose(1, 2) for x in (m, l))
-    return m, l, acc.reshape(b, parts, hkv, g, d).transpose(1, 2)
+    return m, l, acc[..., :d].reshape(b, parts, hkv, g, d).transpose(1, 2)
 
 
 def decode_tc_emulate(q, k_pool, v_pool, table, kv_len, k_scale=None,
-                      v_scale=None, cluster=1, block_k=TILE):
+                      v_scale=None, cluster=1, block_k=TILE, width=None):
     """K3 / K6a: the pools seen through the table, ``cluster`` CTAs per
     (lane, kv head), ``block_k`` keys a tile; output like q."""
     ks, vs = (None if sc is None else ref.gather_pages(sc[..., None],
@@ -178,13 +187,13 @@ def decode_tc_emulate(q, k_pool, v_pool, table, kv_len, k_scale=None,
               for sc in (k_scale, v_scale))
     return emulate_strips(q, ref.gather_pages(k_pool, table),
                           ref.gather_pages(v_pool, table), ks, vs, kv_len,
-                          cluster, block_k=block_k)
+                          cluster, block_k=block_k, width=width)
 
 
-def dense_tc_emulate(q, k, v, kv_len, cluster=1, block_k=TILE):
+def dense_tc_emulate(q, k, v, kv_len, cluster=1, block_k=TILE, width=None):
     """K2, the dense mode: the strips (B, Hkv, S, D) themselves."""
     return emulate_strips(q, k, v, None, None, kv_len, cluster,
-                          block_k=block_k)
+                          block_k=block_k, width=width)
 
 
 def split_tc_emulate(q, k_pool, v_pool, table, kv_len, num_splits,

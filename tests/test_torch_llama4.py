@@ -51,6 +51,7 @@ from repro_torch.launch.serve import ServeConfig, serve_config, tile_ladders
 from repro_torch.models import build_model
 from repro_torch.models import moe
 from repro_torch.serving import Request, ServingEngine
+from test_torch_phi4 import plain_prefill_matches_jax
 
 torch.set_num_threads(1)
 
@@ -324,9 +325,16 @@ def test_prefill_tiles_and_default_by_group_size(g, block_qs, default):
                                      (20, 4, 32)])
 def test_g5_at_other_head_dims_and_g7_raise(h, hkv, d):
     """The 80-row tile is a D 128 instance: G 5 at D 64 or 32 has no row
-    tile, and G 7 divides no tile."""
-    with pytest.raises(ValueError, match="group size"):
-        pa.check_tc_shape("k", h, hkv, d)
+    tile of whole positions, and G 7 divides no tile; both were refused
+    and now run on the flattened (position, head) rows, their tiles named
+    by their rows (32 by default), the plain prefill at the shape within
+    1e-5 of the JAX kernel in interpret mode."""
+    g = h // hkv
+    pa.check_tc_shape("k", h, hkv, d)
+    assert pa.flattened(d, g) and pa.default_block_q(d, g) == 32
+    q = torch.zeros(1, h, 5, d, dtype=BF16)
+    assert pa.prefill_tile("k", q, hkv, None, None) == (32, 128)
+    plain_prefill_matches_jax(h, hkv, d, seed=h + d)
 
 
 class _Model:

@@ -203,11 +203,38 @@ def test_prefill_tiles_and_default_by_group_size(g, block_qs, default):
 def test_group_sizes_without_a_row_tile_raise(h, hkv, d):
     """G 3 at head dims other than 128 (32-row tiles only) and G 7 (which
     divides no row tile; llama4-scout's G 5 has the 80-row tile since
-    it was ported) have no row tile."""
-    with pytest.raises(ValueError, match="group size"):
-        pa.check_tc_shape("k", h, hkv, d)
-    with pytest.raises(ValueError, match="group size"):
-        pa.default_block_q(d, h // hkv)
+    it was ported) have no row tile of whole positions, and were refused;
+    they now run on the flattened (position, head) rows: the ladder names
+    their one tile by its rows, 32, and the plain prefill at the
+    shape agrees with the JAX kernel in interpret mode within 1e-5."""
+    g = h // hkv
+    pa.check_tc_shape("k", h, hkv, d)
+    assert pa.flattened(d, g)
+    assert pa.default_block_q(d, g) == pa.TC_TILE_ROWS
+    assert pa.prefill_tiles(BF16, d, g)[0] == (pa.TC_TILE_ROWS,)
+    assert pa.prefill_rows(d, g, pa.default_block_q(d, g)) == 32
+    plain_prefill_matches_jax(h, hkv, d)
+
+
+def plain_prefill_matches_jax(h, hkv, d, seed=0):
+    """The port's plain prefill (what its wrappers run on a CPU tensor) at
+    (H, Hkv, D) against the JAX ``flash_paged_prefill`` in interpret mode:
+    two lanes, chunks of 5 at 12 and of 3 at 0, pages of 8."""
+    from repro.kernels.flash_attention import flash_paged_prefill
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, h, 5, d)).astype(np.float32)
+    kp, vp = (rng.standard_normal((9, hkv, 8, d)).astype(np.float32)
+              for _ in range(2))
+    table = np.arange(1, 9, dtype=np.int32).reshape(2, 4)
+    start, lens = np.array([12, 0], np.int32), np.array([17, 3], np.int32)
+    got = ref.paged_prefill_ref(*(torch.from_numpy(x) for x in (
+        q, kp, vp, table, start, lens))).numpy()
+    want = np.asarray(flash_paged_prefill(q, kp, vp, table, start, lens,
+                                          block_q=8, interpret=True))
+    for i, n in enumerate((5, 3)):
+        np.testing.assert_allclose(got[i, :, :n], want[i, :, :n],
+                                   rtol=1e-5, atol=1e-5)
 
 
 class _Model:

@@ -268,31 +268,37 @@ def test_serve_config_runs_pixtral_on_cpu():
 
 
 def test_d160_routes_and_tiles():
-    """K1 (both query types), the bf16 K2 and the bf16 paged kernels take
-    D 160; the float32 K2 and the paged kernels' float32 templates do not.
-    K1 has D 128's four tiles, the decode kernels key tiles 32 and 64, the
-    prefill kernels rows 16, 32 and 64 (block_q 4, 8 and 16 at G 4) by
-    keys 64 and 128; G 3 and 5, whose 48- and 80-row tiles exist at D 128
-    only, have none."""
+    """K1 (both query types), the bf16 K2 and the bf16 paged kernels have
+    instances of their own at D 160; the float32 K2 and the paged kernels'
+    float32 templates, which were refused, run on the padded instances of
+    width 160 (5 columns a decode lane).  K1 has D 128's four tiles, the
+    decode kernels key tiles 32 and 64, the prefill kernels rows 16, 32
+    and 64 (block_q 4, 8 and 16 at G 4) by keys 64 and 128; G 3 and 5,
+    whose 48- and 80-row tiles exist at D 128 only, take the flattened
+    instances, whose one tile (32 rows by 128 keys) the ladder names by
+    its rows."""
     assert 160 in fa.DENSE_HEAD_DIMS and 160 in fa.TILED_HEAD_DIMS
     assert 160 in fa.PAGED_HEAD_DIMS and 160 not in fa.HEAD_DIMS
     assert fa.head_dims("flash_attention", torch.float32) == \
         fa.DENSE_HEAD_DIMS
     assert 160 in fa.head_dims("flash_paged_decode", BF16)
-    assert 160 not in fa.head_dims("flash_decode", torch.float32)
-    assert 160 not in fa.head_dims("flash_paged_decode", torch.float32)
+    for name in ("flash_decode", "flash_paged_decode"):
+        assert 160 not in fa.head_dims(name, torch.float32)
+        assert fa.route(name, torch.float32, 160) == (160, True)
     assert fa.attention_tiles(BF16, 160) == fa.attention_tiles(BF16, 128)
     assert fa.smem_bytes(64, 64, 160) == 107_520
     assert fa.smem_bytes(128, 128, 160) == 215_040
     assert pa.decode_block_ks(BF16, 160) == pa.DECODE_BLOCK_KS == (32, 64)
     assert pa.prefill_tiles(BF16, 160, 4) == ((4, 8, 16), pa.TC_BLOCK_KS)
     assert pa.prefill_tiles(BF16, 160, 1) == ((16, 32, 64), pa.TC_BLOCK_KS)
-    assert pa.prefill_tiles(torch.float32, 160, 4) == ((), ())
+    assert pa.prefill_tiles(torch.float32, 160, 4) == ((64,), (32,))
     assert pa.default_block_q(160, 4) == 8
     pa.check_tc_shape("k", 32, 8, 160)
     for h in (24, 40):
-        with pytest.raises(ValueError, match="group size"):
-            pa.check_tc_shape("k", h, 8, 160)
+        pa.check_tc_shape("k", h, 8, 160)
+        assert pa.flattened(160, h // 8)
+        assert pa.prefill_tiles(BF16, 160, h // 8) == ((32,), (128,))
+        assert pa.default_block_q(160, h // 8) == 32
     q = torch.zeros(1, 32, 5, 160, dtype=BF16)
     assert pa.prefill_tile("k", q, 8, None, None) == (8, 128)
     for bq in (4, 8, 16):
@@ -311,7 +317,8 @@ def test_decode_shared_memory_and_ctas_per_sm_at_d160():
     """``decode_smem_bytes`` reckons ``dec::Smem``: 108,800 B at D 128 and
     64 keys (two CTAs an SM), 134,400 at D 160 (one: 64 keys of bf16 rows
     of 336 bytes in a ring of 3), 117,504 over int8 pools (one), 69,888 at
-    32 keys (three, of which the rule counts two)."""
+    32 keys (three, of which the rule counts two).  The padded instances
+    of widths 192 and 256 hold one CTA an SM too, the others two."""
     assert pa.decode_smem_bytes(128, 64, False, 0) == 108_800
     assert pa.decode_smem_bytes(128, 64, True, 0) == 96_000
     assert pa.decode_smem_bytes(160, 64, False, 0) == 134_400
@@ -322,7 +329,7 @@ def test_decode_shared_memory_and_ctas_per_sm_at_d160():
     assert pa.DECODE_CTAS[(160, 32, False)] == 2
     assert pa.DECODE_CTAS[(160, 32, True)] == 2
     for (d, bk, _), n in pa.DECODE_CTAS.items():
-        assert n == (1 if (d, bk) == (160, 64) else 2)
+        assert n == (1 if d > 160 or (d, bk) == (160, 64) else 2)
 
 
 class _Model:

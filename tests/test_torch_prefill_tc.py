@@ -38,6 +38,7 @@ from repro.kernels.flash_attention import flash_paged_prefill as jax_paged_prefi
 from repro.kernels.flash_attention import \
     flash_paged_prefill_quant as jax_paged_prefill_quant
 from repro_torch.distributed.compression import quantize_int8_rows
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 
@@ -56,17 +57,36 @@ def key_groups(rows: int) -> int:
     return 2 if rows >= 48 else 4
 
 
+def pad_cols(x, width):
+    """x with zero columns appended up to ``width`` (a padded instance's
+    shared-memory rows)."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def kstep_scores(eq, q, k):
+    """Q.K^T as the mma's 16-deep steps over the head dim, summed in
+    order in fp32: a step of zero columns (a padded instance's) adds
+    exactly nothing."""
+    return sum(torch.einsum(eq, q[..., i:i + 16], k[..., i:i + 16])
+               for i in range(0, q.shape[-1], 16))
+
+
 def tc_emulate(q, k_pool, v_pool, table, start, kv_len, k_scale=None,
-               v_scale=None, block_k=BLOCK_N, groups=KEY_GROUPS):
+               v_scale=None, block_k=BLOCK_N, groups=KEY_GROUPS,
+               width=None):
     """The tensor-core kernel's arithmetic and tiling in plain torch, at
     ``block_k`` keys a tile split among ``groups`` key groups; output like
     q (the one-pass kernel's query tile changes nothing else: a key tile
-    a row does not see adds exactly nothing)."""
+    a row does not see adds exactly nothing).  ``width`` runs it as the
+    instance of that width does: q, K and V zero-padded to it, Q.K^T in
+    16-deep steps (:func:`kstep_scores`), the columns past d dropped."""
     b, h, c, d = q.shape
     hkv = k_pool.shape[1]
     g = h // hkv
     k = ref.gather_pages(k_pool, table).float()     # bf16 values or codes
     v = ref.gather_pages(v_pool, table).float()
+    if width is not None:
+        q, k, v = pad_cols(q, width), pad_cols(k, width), pad_cols(v, width)
     sk = k.shape[2]
     ones = torch.ones(b, hkv, sk)
     ks = ones if k_scale is None else ref.gather_pages(
@@ -77,7 +97,10 @@ def tc_emulate(q, k_pool, v_pool, table, start, kv_len, k_scale=None,
     vv = torch.repeat_interleave(v, g, dim=1)
     ks = torch.repeat_interleave(ks, g, dim=1)[:, :, None, :]
     vs = torch.repeat_interleave(vs, g, dim=1)[:, :, None, :]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk)
+    if width is None:
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk)
+    else:
+        s = kstep_scores("bhqd,bhkd->bhqk", q.float(), kk)
     s = s * ks * np.float32(d ** -0.5 * LOG2E)
     qi = start[:, None] + torch.arange(c)
     kj = torch.arange(sk)
@@ -88,7 +111,7 @@ def tc_emulate(q, k_pool, v_pool, table, start, kv_len, k_scale=None,
     for group in range(groups):         # keys group * kn .. + kn - 1 of a tile
         m = torch.full((b, h, c), ref.NEG_INF)
         l = torch.zeros(b, h, c)
-        acc = torch.zeros(b, h, c, d)
+        acc = torch.zeros(b, h, c, q.shape[-1])
         for t0 in range(group * kn, sk, block_k):
             st = s[..., t0:t0 + kn]
             mx = torch.maximum(m, st.amax(-1))
@@ -107,7 +130,7 @@ def tc_emulate(q, k_pool, v_pool, table, start, kv_len, k_scale=None,
     acc = sum(acc * torch.exp2(m - m_star)[..., None]
               for m, _, acc in states)
     out = acc / torch.where(l == 0, 1.0, l)[..., None]
-    return out.to(q.dtype)
+    return out[..., :d].to(q.dtype)
 
 
 def shuffled_table(b, nblk, kv_len, psz, seed):
@@ -214,15 +237,38 @@ def test_emulated_kernel_against_jax_kernels_in_interpret_mode(case, h, hkv,
     (20, 4, 128, True), (28, 4, 128, False), (64, 1, 64, False),
     (32, 4, 24, False)])
 def test_tensor_core_kernel_shape_check(h, hkv, d, ok):
-    """G = H / Hkv must divide one of the row tiles at D (at D 128 the
-    48-row tile takes G 3 and the 80-row tile G 5; at D 64 only the
-    32-row tile, which takes neither G 3 nor G 64; G 7 has none); D in
-    HEAD_DIMS."""
-    if ok:
-        pa.check_tc_shape("k", h, hkv, d)
-    else:
-        with pytest.raises(ValueError, match="group size|head dim"):
-            pa.check_tc_shape("k", h, hkv, d)
+    """Every shape is taken.  Where G = H / Hkv divides one of the row
+    tiles at D with a power-of-two quotient (``ok``: at D 128 the 48-row
+    tile takes G 3 and the 80-row tile G 5), the ladder names a tile by
+    its positions, as before; the shapes that were refused run too: G 3
+    and G 64 at D 64 (32-row tiles only) and G 7 on the flattened (position,
+    head) rows (one tile, named by its 32 rows), and D 24 on
+    the padded instance of width 64.  Each shape's plain prefill (what the
+    wrapper runs on a CPU tensor) agrees with the JAX kernel in interpret
+    mode within 1e-5."""
+    pa.check_tc_shape("k", h, hkv, d)
+    g = h // hkv
+    rt = fa.route("flash_paged_prefill", torch.bfloat16, d)
+    flat = pa.flattened(d, g)
+    assert rt.padded == (d == 24) and flat == (not ok and d != 24)
+    block_qs, _ = pa.prefill_tiles(torch.bfloat16, d, g)
+    assert block_qs == ((32,) if flat else tuple(
+        r // g for r in pa.tc_row_tiles(d) if r % g == 0
+        and (r // g) & (r // g - 1) == 0))
+    assert pa.default_block_q(d, g) in block_qs
+    rows = pa.prefill_rows(d, g, pa.default_block_q(d, g))
+    assert rows in pa.tc_row_tiles(d) and (flat or rows % g == 0)
+    q, (kp, vp, _, _), table, start, lens = case_inputs(
+        h, hkv, d, 8, 4, [12, 0], [5, 3], 5, 23 + h + d, False)
+    q, kp, vp = q.float(), kp.float(), vp.float()
+    got = ref.paged_prefill_ref(q, kp, vp, table, start, lens)
+    want = np.asarray(jax_paged_prefill(
+        *(np.asarray(x) for x in (q, kp, vp)), jnp.asarray(table.numpy()),
+        jnp.asarray(start.numpy()), jnp.asarray(lens.numpy()), block_q=8,
+        interpret=True))
+    for i, n in enumerate((5, 3)):
+        np.testing.assert_allclose(got[i, :, :n].numpy(), want[i, :, :n],
+                                   rtol=1e-5, atol=1e-5)
 
 
 # the tiles of the D = 128 instances that G 8 (and G 4) takes: (query

@@ -261,31 +261,39 @@ def test_dense_caches_are_window_wide(max_len, width):
 
 
 def test_d80_routes_and_tiles():
-    """K1 (both query types) and the bf16 K2 take D 80; K1's bf16 tiles are
-    D 128's four (``FlashBlocks`` publishes one whatever the head dim), K2's
-    key tiles 32 and 64; the float32 K2 and the paged kernels have no D 80
-    instance."""
+    """K1 (both query types) and the bf16 K2 have instances of their own at
+    D 80; K1's bf16 tiles are D 128's four, K2's key tiles 32 and 64.  The
+    float32 K2 and the paged kernels, which were refused at D 80, run on
+    the padded instances of width 96, each with its default tile alone (a
+    float32 lane of the decode template then owns 3 of its columns)."""
     assert fa.head_dims("flash_attention", BF16) == fa.DENSE_HEAD_DIMS
     assert fa.head_dims("flash_attention", torch.float32) == \
         fa.DENSE_HEAD_DIMS
     assert fa.head_dims("flash_decode", BF16) == fa.DENSE_HEAD_DIMS
     assert 80 in fa.DENSE_HEAD_DIMS
-    assert 80 not in fa.head_dims("flash_decode", torch.float32)
-    assert 80 not in fa.head_dims("flash_paged_decode", BF16)
+    assert fa.route("flash_attention", BF16, 80) == (80, False)
+    for name, dtype in (("flash_decode", torch.float32),
+                        ("flash_paged_decode", BF16),
+                        ("flash_paged_prefill", torch.float32)):
+        assert 80 not in fa.head_dims(name, dtype)
+        assert fa.route(name, dtype, 80) == (96, True)
     assert fa.attention_tiles(BF16, 80) == fa.attention_tiles(BF16, 128) \
         == ((64, 64), (64, 128), (128, 64), (128, 128))
     assert fa.attention_tiles(torch.float32, 80) == (fa.SIMT_TILE,)
-    assert pa.decode_block_ks(BF16, 80) == pa.DECODE_BLOCK_KS == (32, 64)
-    assert pa.prefill_tiles(BF16, 80, 4) == ((), ())
-    assert pa.prefill_tiles(torch.float32, 80, 4) == ((), ())
-    with pytest.raises(ValueError, match="head dim 80"):
-        pa.check_tc_shape("flash_paged_prefill", 32, 8, 80)
+    assert pa.decode_block_ks(BF16, 80, dense=True) == pa.DECODE_BLOCK_KS \
+        == (32, 64)
+    assert pa.decode_block_ks(BF16, 80) == (pa.DECODE_TILE_KEYS,)
+    assert pa.prefill_tiles(BF16, 80, 4) == ((8,), (pa.TC_TILE_KEYS,))
+    assert pa.prefill_tiles(torch.float32, 80, 4) == ((64,), (32,))
+    pa.check_tc_shape("flash_paged_prefill", 32, 8, 80)
     q = torch.zeros(1, 32, 1, 80, dtype=BF16)
     assert pa.decode_tile("flash_decode", q, 32) == 32
     for tile in fa.attention_tiles(BF16, 80):
         assert fa.attention_tile("flash_attention", q, *tile) == tile
     with pytest.raises(ValueError, match="block_k=128"):
         pa.decode_tile("flash_decode", q, 128)
+    with pytest.raises(ValueError, match="block_k=32"):
+        pa.decode_tile("flash_paged_decode", q, 32)
 
 
 class _Model:
@@ -295,8 +303,12 @@ class _Model:
 
 def test_run_time_ladders_at_d80():
     """The run-time AT's ladders for h2o-danube at published widths (bf16,
-    D 80): ``DecodeBucket``'s dense key tiles 32 and 64 (K2), and no
-    prefill tile (the paged kernels, which the arch never reaches)."""
+    D 80): ``DecodeBucket``'s dense key tiles 32 and 64 (K2), and the
+    padded instances' defaults for the paged kernels."""
     ladders = tile_ladders(_Model(get_arch(ARCH)), 16)
     assert ladders["dense_block_k"] == (32, 64)
-    assert ladders["block_q"] == () and ladders["prefill_block_k"] == ()
+    # the paged kernels, which the arch never reaches, would run on the
+    # padded instances (width 96), each with its default tile alone
+    assert ladders["block_q"] == (8,) and ladders["prefill_block_k"] == (
+        pa.TC_TILE_KEYS,)
+    assert ladders["block_k"] == (pa.DECODE_TILE_KEYS,)

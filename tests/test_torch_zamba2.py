@@ -449,22 +449,26 @@ def test_serve_config_runs_zamba2_on_cpu_past_the_window():
 
 
 def test_d112_routes_and_tiles():
-    """K1 (both query types) and the bf16 K2 take D 112; K1's bf16 tiles are
-    D 128's four, K2's key tiles 32 and 64; the float32 K2 and the paged
-    kernels have no D 112 instance."""
+    """K1 (both query types) and the bf16 K2 have instances of their own at
+    D 112; K1's bf16 tiles are D 128's four, K2's key tiles 32 and 64.  The
+    float32 K2 and the paged kernels, which were refused at D 112, run on
+    the padded instances of width 128, each with its default tile alone."""
     assert 112 in fa.DENSE_HEAD_DIMS and 112 in fa.TILED_HEAD_DIMS
     assert 112 not in fa.HEAD_DIMS
     assert fa.head_dims("flash_attention", torch.float32) == \
         fa.DENSE_HEAD_DIMS
-    assert 112 not in fa.head_dims("flash_decode", torch.float32)
-    assert 112 not in fa.head_dims("flash_paged_decode", BF16)
+    for name, dtype in (("flash_decode", torch.float32),
+                        ("flash_paged_decode", BF16)):
+        assert 112 not in fa.head_dims(name, dtype)
+        assert fa.route(name, dtype, 112) == (128, True)
     assert fa.attention_tiles(BF16, 112) == fa.attention_tiles(BF16, 128) \
         == ((64, 64), (64, 128), (128, 64), (128, 128))
     assert fa.smem_bytes(128, 128, 112) == 153_600
-    assert pa.decode_block_ks(BF16, 112) == pa.DECODE_BLOCK_KS == (32, 64)
-    assert pa.prefill_tiles(BF16, 112, 1) == ((), ())
-    with pytest.raises(ValueError, match="head dim 112"):
-        pa.check_tc_shape("flash_paged_prefill", 32, 32, 112)
+    assert pa.decode_block_ks(BF16, 112, dense=True) == \
+        pa.DECODE_BLOCK_KS == (32, 64)
+    assert pa.decode_block_ks(BF16, 112) == (pa.DECODE_TILE_KEYS,)
+    assert pa.prefill_tiles(BF16, 112, 1) == ((32,), (pa.TC_TILE_KEYS,))
+    pa.check_tc_shape("flash_paged_prefill", 32, 32, 112)
     q = torch.zeros(1, 32, 1, 112, dtype=BF16)
     assert pa.decode_tile("flash_decode", q, 32) == 32
     for tile in fa.attention_tiles(BF16, 112):
@@ -478,8 +482,11 @@ class _Model:
 
 def test_run_time_ladders_at_d112():
     """The run-time AT's ladders for zamba2 at published widths (bf16, D
-    112): ``DecodeBucket``'s dense key tiles 32 and 64 (K2), and no
-    prefill tile (the paged kernels, which the arch never reaches)."""
+    112): ``DecodeBucket``'s dense key tiles 32 and 64 (K2), and the
+    padded instances' defaults for the paged kernels."""
     ladders = tile_ladders(_Model(get_arch(ARCH)), 16)
     assert ladders["dense_block_k"] == (32, 64)
-    assert ladders["block_q"] == () and ladders["prefill_block_k"] == ()
+    # the paged kernels, which the arch never reaches, would run on the
+    # padded instances (width 128), each with its default tile alone
+    assert ladders["block_q"] == (32,) and ladders["prefill_block_k"] == (
+        pa.TC_TILE_KEYS,)
