@@ -7,9 +7,10 @@ non-zero; nothing falls back to the CPU or to the plain versions):
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
    all in parallel, each source's seconds from its log; the instances
-   of the tensor-core kernels, those of their own and the padded ones
-   (each kernel's default tile at the widths of
-   ``fa.PADDED_HEAD_DIMS``) apart (K1 in
+   of the tensor-core kernels, those of their own, the padded ones
+   (each kernel's default tile at the widths of ``fa.PADDED_HEAD_DIMS``
+   up to 256) and the wide ones (their one tile at 384 and 512) apart
+   (K1 in
    ``flash_attention.cu``, at block_q 64 and 128 by block_k 64 and 128 at
    D 128, D 80, D 112 and D 160; K4, K6c and the partials modes K5b and
    K6d in ``paged_prefill.cu``, at every tile: rows 16, 32, 48, 64 and 80
@@ -409,7 +410,8 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    padded one of the smallest width of ``fa.PADDED_HEAD_DIMS`` at or
    above it), and the prefill kernel's flattened (position, head) rows,
    on the padded instances, at G 3 and 5 (D 160), 7 (D 128), 9 (D 64) and
-   96; D 264 refused; (d) the padded instances, forced by the private
+   96; D 520 (above the limit) refused; (d) the padded instances, forced
+   by the private
    ``fa._forced_width``, bit-equal to the head dims' own (K1, K2,
    K3 and K5a, K4 and K5b; bf16 and float32); (a) float32 serves of 4
    requests: h2o-danube-1.8b whole at D 80 on dense lanes, zamba2-7b cut
@@ -425,6 +427,21 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    widths, paged, int8 at 8 splits and speculative over fp and int8
    pages on the flattened rows, logits, and K4, K6c, K5b and K6d at G 7
    timed.
+40. head dims above 256, on the wide instances (384 and 512: a 16-row
+   slab served by one warp per 128 columns, ``csrc/common.cuh``): K1-K6d
+   against plain at D 264, 300, 384 and 512, bf16 and float32 (28 q / 4
+   kv heads, the prefill on the flattened rows), each launch on the wide
+   instance ``fa.route`` names; the wide rung forced at D 128 and 256
+   against the head dims' own instances (within the type's tolerance:
+   the slices' partial sums change the order); (a) yi-6b's widths at
+   d_head 512, all 32 layers (9.7 B parameters), dense and paged serves;
+   (b) the same cut to 8 layers: bf16 pages at 8 splits, int8 pages in
+   one pass and at 8 splits, speculative over bf16 and int8 pages; (c)
+   float32 at d_head 512, 8 layers, on the SIMT templates; (d) d_head 300
+   (a bf16 row of 600 bytes: 4-byte copies); (e) Qwen2-7B's 28 q / 4 kv
+   heads at d_head 384 on the flattened rows; logits of each against
+   plain; (f) K1's autograd Function at D 512 against the plain
+   autograd; K1-K6d at D 512 timed beside plain, SDPA and the bound.
 
 Then the script's run time by group of phases, one JSON line with every
 kernel's numbers,
@@ -603,11 +620,11 @@ def phase_card() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     paths = build.build_all()
-    for padded in (False, True):
-        fa._lib(padded)
-        pa._lib(padded)
-        pa._tc_lib(padded)
-        pa._dec_lib(padded)
+    for lib_part in ("", build.PADDED, build.WIDE):
+        fa._lib(lib_part)
+        pa._lib(lib_part)
+        pa._tc_lib(lib_part)
+        pa._dec_lib(lib_part)
     mmk._lib()
     fk._lib()
     k9._lib()
@@ -628,38 +645,41 @@ def phase_build() -> None:
                   f"max {max(regs, default=0)}, spill stores "
                   f"{sum(spills)} bytes in {sum(1 for x in spills if x)} "
                   f"kernels (full report in {log.name})")
-    # instances of their own (19, 76, 39, as before the padded ones) and
+    # instances of their own (19, 76, 39, as before the padded ones),
     # padded ones (pad=1: 6 widths; the prefill kernel's 4 kinds and the
-    # decode kernel's 5 modes at each)
+    # decode kernel's 5 modes at each) and wide ones (the 2 rungs above
+    # 256, one tile each)
     for source, kernel, pattern, info, n in (
             ("flash_attention", fa.TC_KERNEL,
              r"ILi(?P<d>\d+)ELi(?P<bq>\d+)ELi(?P<bk>\d+)ELb(?P<pad>[01])EE",
              lambda d, kind, t: fa.tc_info(d, t["bq"], t["bk"],
-                                           dp=d * t["pad"]), (19, 6)),
+                                           dp=d * t["pad"]), (19, 6, 2)),
             ("paged_prefill", TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELb(?P<split>[01])"
              r"ELi(?P<slabs>\d)ELi(?P<bk>\d+)ELb(?P<pad>[01])EE",
              lambda d, kind, t: pa.tc_info(d, kind, 64, rows=16 * t["slabs"],
                                            block_k=t["bk"], dp=d * t["pad"]),
-             (76, 24)),
+             (76, 24, 8)),
             ("paged_decode", pa.DECODE_TC_KERNEL,
              r"I(?:13__nv_bfloat16|(?P<int8>a))Li(?P<d>\d+)ELi(?P<mode>\d)"
              r"ELi(?P<bk>\d+)ELb(?P<pad>[01])EE",
              lambda d, kind, t: pa.decode_tc_info(d, kind, 64,
                                                   block_k=t["bk"],
                                                   dp=d * t["pad"]),
-             (39, 30))):
+             (39, 30, 10))):
         logs = [paths[name].with_suffix(".log")
-                for name in (source, source + build.PADDED)]
+                for name in (source, source + build.PADDED,
+                             source + build.WIDE)]
         if not all(log.exists() for log in logs):
             continue
-        lines, pads = [], []
+        lines, pads, wides = [], [], []
         for kind, d, regs, spill, tile in tc_instances(
                 "".join(log.read_text() for log in logs), kernel, pattern):
             card = info(d, kind, tile)
             shape = "".join(f" {k}={v}" for k, v in tile.items()
                             if k != "pad")
-            out = pads if tile.get("pad") else lines
+            out = (lines if not tile.get("pad") else
+                   wides if d in fa.WIDE_HEAD_DIMS else pads)
             out.append(f"{kind + ' ' if kind else ''}D={d}{shape}: {regs} "
                          f"registers, {spill} B spill stores, "
                          f"{card['smem_bytes']} B shared"
@@ -669,12 +689,15 @@ def phase_build() -> None:
                          + (f", clusters of c held at once (c: n) "
                             f"{card['clusters']}" if "clusters" in card
                             else ""))
-        check((len(lines), len(pads)) == n,
-              f"{len(lines)} {kernel} instances of their own and "
-              f"{len(pads)} padded in the ptxas log, expected {n}")
+        check((len(lines), len(pads), len(wides)) == n,
+              f"{len(lines)} {kernel} instances of their own, "
+              f"{len(pads)} padded and {len(wides)} wide in the ptxas log, "
+              f"expected {n}")
         print(f"    {kernel} instances (ptxas -v and the card's "
               f"occupancy): " + "; ".join(lines))
         print(f"    {kernel} padded instances (width D): " + "; ".join(pads))
+        print(f"    {kernel} wide instances (width D, the head dim across "
+              f"D / 128 warps): " + "; ".join(wides))
 
 
 def tc_instances(log: str, kernel: str,
@@ -4525,9 +4548,10 @@ def k2_kernel_row(name: str, q, k, v, kv_len, shape: str,
     n_ops = 4 * (h // hkv) * hkv * keys * d
     r = row(f"flash_decode[{name}]", DECODE_SOURCE, f"{FLASH}:203", err,
             n_bytes, n_ops, times)
-    bk = pa.DECODE_TILE_KEYS if block_k is None else block_k
+    bk = pa.decode_tile("flash_decode", q, block_k)
     r.update(shape=shape, tile=[bk])
-    c = pa.cluster_size(b, hkv, pa.sm_count(0), d, bk)
+    c = pa.cluster_size(b, hkv, pa.sm_count(0),
+                        fa.route("flash_decode", q.dtype, d).width, bk)
     return r, (f"K2 {name} (block_k {bk}, c={c}): {fmt_times(times)}, "
                f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), err "
                f"{err:.2e}")
@@ -6566,7 +6590,7 @@ def p39_route(wrapper, dtype, d: int, g: int):
 
 
 def p39_launch(wrapper, dtype, d: int, g: int, fn, want, what: str,
-               live=None) -> float:
+               live=None, tag: str = "[39]") -> float:
     """``fn()`` must launch ``wrapper`` once on the kernel of ``dtype``'s
     route, on the padded instance :func:`p39_route` names where it names
     one (a head dim with none of its own, or a prefill whose G ``g``
@@ -6582,12 +6606,12 @@ def p39_launch(wrapper, dtype, d: int, g: int, fn, want, what: str,
     check(wrapper.launches == n + 1
           and wrapper.last_kernel == p39_kernel(wrapper, dtype)
           and padded == ({rt.width: 1} if rt.padded else {}),
-          f"[39] {what}: {wrapper.__name__} launched "
+          f"{tag} {what}: {wrapper.__name__} launched "
           f"{wrapper.launches - n} times on {wrapper.last_kernel}, padded "
           f"launches by width {padded}, expected {rt}")
     if live is not None:
         check(live is not P39_LIVE or bool((got[3] == 0).all()),
-              f"[39] {what}: the lane without keys is not exactly 0")
+              f"{tag} {what}: the lane without keys is not exactly 0")
         got, want = got[live], want[live]
     return compare(got, want, dtype)
 
@@ -6597,7 +6621,7 @@ P39_LIVE = slice(0, 3)
 
 
 def p39_paged_checks(dtype, h: int, hkv: int, d: int, seed: int,
-                     decode: bool = True) -> float:
+                     decode: bool = True, tag: str = "[39]") -> float:
     """K3/K6a, the split decode (K5a/K6b with K5c) at 8 splits, K4/K6c on
     a chunk of 40 at 60 and one at 0 with 33 rows, and the split prefill
     (K5b/K6d with K5c) at 4 splits, over fp and int8 pools, against
@@ -6623,7 +6647,7 @@ def p39_paged_checks(dtype, h: int, hkv: int, d: int, seed: int,
                     wrapper, dtype, d, g, lambda ns=ns: one(
                         q, *pools, table, lens, num_splits=ns), want,
                     f"decode G {g} D {d} {dtype} int8 {quant} ns {ns}",
-                    P39_LIVE))
+                    P39_LIVE, tag))
         case = ("p39", h, hkv, d, 16, 16, [60, 0], [40, 33], 40, dtype)
         q, pp, table, start, lens = split_case(case, seed + 7, quant)
         want = ref.paged_prefill_ref(q, pp.k, pp.v, table, start, lens,
@@ -6644,8 +6668,9 @@ def p39_paged_checks(dtype, h: int, hkv: int, d: int, seed: int,
             errs.append(p39_launch(
                 wrapper, dtype, d, g, lambda ns=ns: ops.paged_prefill(
                     q, pp, table, start, lens, num_splits=ns), want,
-                f"prefill G {g} D {d} {dtype} int8 {quant} ns {ns}", live))
-    check(counters_zero(), "[39] an arrival counter is not 0")
+                f"prefill G {g} D {d} {dtype} int8 {quant} ns {ns}", live,
+                tag))
+    check(counters_zero(), f"{tag} an arrival counter is not 0")
     return max(errs)
 
 
@@ -6683,20 +6708,22 @@ def p39_kernel_checks() -> str:
     for i, (g, hkv, d) in enumerate(P39_CHECK_GROUPS):
         errs["K4-K6d G", BF16] = max(errs["K4-K6d G", BF16], p39_paged_checks(
             BF16, g * hkv, hkv, d, 39500 + 10 * i, decode=False))
-    q = torch.zeros((1, 2, 8, 264), dtype=BF16, device="cuda")
+    over = fa.MAX_HEAD_DIM + 8
+    q = torch.zeros((1, 2, 8, over), dtype=BF16, device="cuda")
     try:
         fa.flash_attention(q, q, q)
         refused = None
     except ValueError as e:
         refused = str(e)
-    check(refused is not None and "256" in refused,
-          f"[39] a head dim of 264 was not refused: {refused!r}")
+    check(refused is not None and str(fa.MAX_HEAD_DIM) in refused,
+          f"[39] a head dim of {over} was not refused: {refused!r}")
     return (f"K1-K6d against plain at D {P39_CHECK_DIMS} (28 q / 4 kv "
             f"heads, bf16 and float32) and the prefill kernel at (G, Hkv, D) "
             f"{P39_CHECK_GROUPS}, max abs err "
             + ", ".join(f"{k} {'bf16' if t == BF16 else 'fp32'} {e:.2e}"
                         for (k, t), e in errs.items())
-            + f"; D 264 refused ({refused!r}); {time.perf_counter() - t0:.1f}s")
+            + f"; D {over} refused ({refused!r}); "
+            f"{time.perf_counter() - t0:.1f}s")
 
 
 def p39_bit_equal() -> str:
@@ -6978,7 +7005,8 @@ def phase_shapes(smi: str) -> list[dict]:
     return rows
 
 
-def p39_dense_rows(d: int, by_tile: dict) -> list[dict]:
+def p39_dense_rows(d: int, by_tile: dict, phase: str = "39 (b)"
+                   ) -> list[dict]:
     """K1 (causal prefill of 512, 32 q / 4 kv heads) and K2 (4 lanes of
     the phase-7 lengths in strips of 1024) at head dim ``d`` on the padded
     instance, against plain, timed beside SDPA and the bound, with the
@@ -6988,7 +7016,8 @@ def p39_dense_rows(d: int, by_tile: dict) -> list[dict]:
     k = randn((1, 4, 512, d), 3961 + d, BF16)
     v = randn((1, 4, 512, d), 3962 + d, BF16)
     r, line1 = k1_kernel_row(f"D{d}", q, k, v, dict(causal=True), None,
-                             f"yi-6b widths prefill S=512 D {d}")
+                             f"yi-6b widths prefill S=512 D {d}",
+                             fa.attention_tiles(BF16, d)[0])
     r["launches"] = sum(by_tile.get("flash_attention", {}).values())
     rows.append(r)
     kv_len = torch.tensor(PIXTRAL_DECODE, dtype=torch.int32, device="cuda")
@@ -7000,8 +7029,212 @@ def p39_dense_rows(d: int, by_tile: dict) -> list[dict]:
     r["launches"] = sum(by_tile.get("flash_decode", {}).values())
     rows.append(r)
     check(all(r["launches"] > 0 for r in rows),
-          f"[39 (b) D {d}] K1 or K2 not launched in the serves")
-    print(f"[39 (b) D {d} kernels] {line1}; {line2}")
+          f"[{phase} D {d}] K1 or K2 not launched in the serves")
+    print(f"[{phase} D {d} kernels] {line1}; {line2}")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 40: head dims above 256, on the wide instances
+# --------------------------------------------------------------------------
+
+#: the kernel checks' head dims: 264 and 300 (a bf16 row of 600 bytes, no
+#: multiple of 16: the 4-byte copies) on the rung 384, and the rungs' own
+#: widths 384 and 512
+P40_CHECK_DIMS = (264, 300, 384, 512)
+#: the forced wide rung at a head dim with an instance of its own: (d, width)
+P40_FORCED = ((128, 384), (256, 512))
+#: yi-6b's widths at d_head 512: (a) every layer, (b) cut to P40_LAYERS
+P40_D = 512
+P40_LAYERS = 8
+#: (c) float32 at d_head 512 on the SIMT templates: the serve modes
+P40_FP32_MODES = ("dense", "paged", "int8 split", "spec", "spec int8")
+#: (d) d_head 300 (the 4-byte copies); (e) Qwen2-7B's 28 q / 4 kv heads (G
+#: 7) at d_head 384, on the flattened rows
+P40_D300 = 300
+P40_G7 = ("Qwen2-7B's G 7 at D 384", 28, 4, 384)
+
+
+def p40_kernel_checks() -> str:
+    """40 (kernels): K1-K6d (K5c merged for a bf16 query, standalone for
+    float32) against plain at every head dim of :data:`P40_CHECK_DIMS`, bf16
+    and float32, 28 q / 4 kv heads (G 7, the prefill on the flattened
+    rows), each launch on the route and wide instance ``fa.route`` and
+    ``pa.prefill_route`` name; then the wide rung forced at D 128 and 256
+    (:data:`P40_FORCED`) against the head dim's own instance, within the
+    type's tolerance (the slices' partial sums change the order of Q.K^T's
+    sums, so not bit for bit).  Returns the summary."""
+    t0 = time.perf_counter()
+    errs = collections.defaultdict(float)
+    for dtype in (BF16, F32):
+        for i, d in enumerate(P40_CHECK_DIMS):
+            seed = 40000 + 100 * i + (50 if dtype == F32 else 0)
+            h, hkv = 28, 4
+            check(fa.route("flash_attention", dtype, d).wide,
+                  f"[40] D {d} does not route to a wide instance")
+            q = randn((2, h, 200, d), seed, dtype)
+            k = randn((2, hkv, 200, d), seed + 1, dtype)
+            v = randn((2, hkv, 200, d), seed + 2, dtype)
+            errs["K1", dtype] = max(errs["K1", dtype], p39_launch(
+                fa.flash_attention, dtype, d, h // hkv,
+                lambda: fa.flash_attention(q, k, v, causal=True),
+                ref.attention_ref(q, k, v, causal=True), f"K1 D {d}",
+                tag="[40]"))
+            kv_len = torch.tensor([200, 97, 1, 0], dtype=torch.int32,
+                                  device="cuda")
+            q1 = randn((4, h, 1, d), seed + 3, dtype)
+            k1 = randn((4, hkv, 200, d), seed + 4, dtype)
+            v1 = randn((4, hkv, 200, d), seed + 5, dtype)
+            errs["K2", dtype] = max(errs["K2", dtype], p39_launch(
+                fa.flash_decode, dtype, d, h // hkv,
+                lambda: fa.flash_decode(q1, k1, v1, kv_len),
+                ref.decode_ref(q1, k1, v1, kv_len), f"K2 D {d}", P39_LIVE,
+                tag="[40]"))
+            errs["K3-K6d", dtype] = max(errs["K3-K6d", dtype],
+                                        p39_paged_checks(dtype, h, hkv, d,
+                                                         seed + 10,
+                                                         tag="[40]"))
+    forced = collections.defaultdict(float)
+    for dtype in (BF16, F32):
+        for i, (d, width) in enumerate(P40_FORCED):
+            seed = 40700 + 10 * i
+            q = randn((1, 8, 150, d), seed, dtype)
+            k = randn((1, 2, 150, d), seed + 1, dtype)
+            q1 = randn((4, 8, 1, d), seed + 2, dtype)
+            kv_len = torch.tensor([150, 70, 1, 0], dtype=torch.int32,
+                                  device="cuda")
+            k1 = randn((4, 2, 150, d), seed + 3, dtype)
+            pq, kp, vp, table, lens = paged_case(4, 8, 2, d, 16, 16,
+                                                 [200, 97, 1, 0], dtype,
+                                                 seed + 4)
+            case = ("p40", 8, 2, d, 16, 16, [60, 0], [40, 33], 40, dtype)
+            cq, pp, ctable, start, clens = split_case(case, seed + 5, False)
+            calls = [("K1", fa.flash_attention, None,
+                      lambda: fa.flash_attention(q, k, k, causal=True)),
+                     ("K2", fa.flash_decode, P39_LIVE,
+                      lambda: fa.flash_decode(q1, k1, k1, kv_len,
+                                              _cluster=2))]
+            split = ((pa.paged_decode_split_merged,
+                      pa.paged_prefill_split_merged) if dtype == BF16 else
+                     (pa.paged_decode_split, pa.paged_prefill_split))
+            for ns in (1, 8):
+                calls.append((f"K3 ns {ns}", pa.flash_paged_decode if ns == 1
+                              else split[0], P39_LIVE,
+                              lambda ns=ns: pa.flash_paged_decode(
+                                  pq, kp, vp, table, lens, num_splits=ns,
+                                  _cluster=2)))
+            chunk = torch.zeros(cq.shape, dtype=torch.bool, device="cuda")
+            for b, n in enumerate(case[7]):   # rows past the chunk: padding
+                chunk[b, :, :n] = True
+            for ns in (1, 4):
+                calls.append((f"K4 ns {ns}", pa.flash_paged_prefill if ns == 1
+                              else split[1], chunk,
+                              lambda ns=ns: pa.flash_paged_prefill(
+                                  cq, pp.k, pp.v, ctable, start, clens,
+                                  num_splits=ns)))
+            for label, wrapper, live, call in calls:
+                own = call()
+                with fa._forced_width(width):
+                    forced[label.split()[0], dtype] = max(
+                        forced[label.split()[0], dtype], p39_launch(
+                            wrapper, dtype, d, 4, call, own,
+                            f"{label} {dtype} D {d} forced to {width}",
+                            live, tag="[40 forced]"))
+    check(counters_zero(), "[40] an arrival counter is not 0")
+    return (f"K1-K6d against plain at D {P40_CHECK_DIMS} (28 q / 4 kv heads, "
+            f"bf16 and float32, each on its wide instance), max abs err "
+            + ", ".join(f"{k} {'bf16' if t == BF16 else 'fp32'} {e:.2e}"
+                        for (k, t), e in errs.items())
+            + f"; the wide rung forced at (D, width) {P40_FORCED} against the "
+            "head dim's own instance, max abs diff "
+            + ", ".join(f"{k} {'bf16' if t == BF16 else 'fp32'} {e:.2e}"
+                        for (k, t), e in forced.items())
+            + f"; {time.perf_counter() - t0:.1f}s")
+
+
+def p40_function(smi: str) -> str:
+    """40 (f): K1's autograd Function (forward on the wide instance, the
+    backward in PyTorch ops) at D 512 against the plain autograd: the
+    output and dq, dk, dv within FN_TOL of each tensor's scale."""
+    n0 = fa.flash_attention.by_width[P40_D]
+    case = attention_fn_case("D 512", 1, 8, 2, 256, 256, P40_D,
+                             dict(causal=True), 40900)
+    check(fa.flash_attention.by_width[P40_D] == n0 + 1,
+          "[40 (f)] the Function's forward did not run the wide instance")
+    return (f"FlashAttentionFn at D {P40_D} (8 q / 2 kv heads, S 256, "
+            f"causal) vs the plain autograd on {smi}: scaled errors (o, dq, "
+            f"dk, dv) {[f'{e:.2e}' for e in case['errs']]}")
+
+
+def p40_serve(smi: str, tag: str, name_dtype: str, layers: int | None,
+              modes, **widths) -> dict:
+    """The serves of ``modes`` and the logits of yi-6b's widths with
+    ``widths`` replaced, in ``name_dtype`` compute, cut to ``layers``;
+    returns the launches by tile over the serves."""
+    model, params = p39_model("yi-6b", name_dtype, layers, **widths)
+    cfg = model.cfg
+    by_tile, line = p39_serves(model, params, tag, modes, cfg.n_layers)
+    logits = p39_logits(model, params, tag,
+                        paged=any(m != "dense" for m in modes))
+    dtype = BF16 if name_dtype == "bfloat16" else F32
+    g = cfg.n_heads // cfg.n_kv_heads
+    print(f"{tag} {cfg.n_layers} of 32 layers, {cfg.n_heads} q / "
+          f"{cfg.n_kv_heads} kv heads of {cfg.head_dim}, {name_dtype}, "
+          f"routes K1 {fa.route('flash_attention', dtype, cfg.head_dim)}, "
+          f"paged {fa.route('flash_paged_decode', dtype, cfg.head_dim)}, "
+          f"prefill "
+          f"{pa.prefill_route('flash_paged_prefill', dtype, cfg.head_dim, g)}"
+          f" at tiles {pa.prefill_tiles(dtype, cfg.head_dim, g)}, on {smi}: "
+          f"{line}; {logits}")
+    del model, params
+    p39_free()
+    return by_tile
+
+
+def phase_wide(smi: str) -> list[dict]:
+    """Phase 40: head dims above 256, on the wide instances (the head dim
+    split across warps, ``csrc/common.cuh``).  (kernels) every wide kernel
+    against plain and the forced wide rung against the own instances
+    (:func:`p40_kernel_checks`); (a) yi-6b's widths at d_head 512, all 32
+    layers (9.7 B parameters), dense and paged serves and logits; (b) the
+    same cut to 8 layers: bf16 pages at 8 splits (K5a with K5c merged),
+    int8 pages in one pass (K6a) and at 8 splits (K6c, K6b with K5c
+    merged), speculative over bf16 and int8 pages (K5b, K6d with K5c
+    merged); (c) float32 at d_head 512, 8 layers, on the SIMT templates;
+    (d) d_head 300; (e) Qwen2-7B's G 7 at d_head 384 on the flattened
+    rows; (f) K1's autograd Function at D 512; K1-K6d at D 512 timed
+    beside plain, SDPA and the bound, with the launches of (a) and (b)
+    (the kernel rows)."""
+    t0 = time.perf_counter()
+    print(f"[40 kernels] {p40_kernel_checks()}")
+    by_tile = p40_serve(smi, "[40 (a) yi-6b widths, d_head 512]",
+                        "bfloat16", None, ("dense", "paged"), d_head=P40_D)
+    for name, tiles in p40_serve(
+            smi, f"[40 (b) d_head {P40_D}]", "bfloat16", P40_LAYERS,
+            ("split", "int8", "int8 split", "spec", "spec int8"),
+            d_head=P40_D).items():
+        by_tile[name].update(tiles)
+    p40_serve(smi, f"[40 (c) d_head {P40_D} float32]", "float32", P40_LAYERS,
+              P40_FP32_MODES, d_head=P40_D)
+    p40_serve(smi, f"[40 (d) d_head {P40_D300}]", "bfloat16", P40_LAYERS,
+              ("dense", "paged", "int8 split", "spec"), d_head=P40_D300)
+    label, h, hkv, d = P40_G7
+    p40_serve(smi, f"[40 (e) {label}]", "bfloat16", P40_LAYERS,
+              ("paged", "int8 split", "spec", "spec int8"), n_heads=h,
+              n_kv_heads=hkv, d_head=d)
+    print(f"[40 (f)] {p40_function(smi)}")
+    d = P40_D
+    rows = p39_dense_rows(d, by_tile, phase="40 (a)")
+    rows += pixtral_decode_rows(by_tile, 4000 + d, 32, 4, d,
+                                f"[40 D {d} kernels]", "yi-6b widths decode")
+    rows += tile_rows(f"[40 D {d} kernels]", 8, f"32 q / 4 kv heads of {d}",
+                      ("p40 chunk at 384", 32, 4, d, 16, 32, [384], [128],
+                       128, BF16),
+                      ("p40 verify", 32, 4, d, 16, 64, [839, 720, 190, 544, 0],
+                       [5, 5, 5, 5, 0], 5, BF16), by_tile, 4050 + d, d=d,
+                      tiles=[(pa.default_block_q(d, 8),
+                              pa.default_block_k(BF16, d))])
+    print(f"[40] phase 40 in {time.perf_counter() - t0:.1f}s")
     return rows
 
 
@@ -7109,7 +7342,10 @@ def main() -> int:
     rows += phase_shapes(smi)
     done("39")
     check(len(rows) == 100, f"{len(rows)} kernel rows, expected 100")
-    print(f"[done] phases 1-39 in {time.perf_counter() - t0:.1f}s; by phase "
+    rows += phase_wide(smi)
+    done("40")
+    check(len(rows) == 110, f"{len(rows)} kernel rows, expected 110")
+    print(f"[done] phases 1-40 in {time.perf_counter() - t0:.1f}s; by phase "
           + ", ".join(f"{label} {t - marks[i][1]:.1f}s"
                       for i, (label, t) in enumerate(marks[1:])))
     print(json.dumps({"kernels": rows}))

@@ -4,12 +4,13 @@ Each ``csrc/*.cu`` file is compiled on its own into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes), named by a hash of its source, the shared ``csrc/*.cuh``
 headers and the flags, under ``<checkout>/build/repro_torch_kernels/``.
-The attention sources of :data:`PADDED_SOURCES` build twice, into
-``<name>`` (the instances of their own) and ``<name>_padded`` (the padded
-ones, ``-DREPRO_PADDED=1``: ``csrc/common.cuh``), so that the two halves
-compile side by side.  A library is rebuilt when any of those change and
-is reused otherwise.  Libraries that need a build are compiled in
-parallel, one nvcc process each.
+The attention sources of :data:`PADDED_SOURCES` build three times, into
+``<name>`` (the instances of their own), ``<name>_padded`` (the padded
+ones up to 256, ``-DREPRO_PADDED=1``: ``csrc/common.cuh``) and
+``<name>_wide`` (the wide rungs 384 and 512, ``-DREPRO_WIDE=1``), so that
+the three parts compile side by side.  A library is rebuilt when any of
+those change and is reused otherwise.  Libraries that need a build are
+compiled in parallel, one nvcc process each.
 
 Nothing here runs at import: the CPU tests import every module of the
 port, and this machine's CPU-only install has no nvcc.
@@ -29,25 +30,31 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: the sources whose padded instances build into a library of their own
+#: the sources whose padded and wide instances build into libraries of
+#: their own
 PADDED_SOURCES = ("flash_attention", "paged_attention", "paged_decode",
                   "paged_prefill")
 PADDED = "_padded"
+WIDE = "_wide"
+#: the library suffix of each part and the flags it adds
+PARTS = {"": (), PADDED: ("-DREPRO_PADDED=1",), WIDE: ("-DREPRO_WIDE=1",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
 def _source(name: str) -> tuple[Path, tuple[str, ...]]:
     """The source of library ``name`` and the flags it adds."""
-    if name.endswith(PADDED):
-        return CSRC / f"{name[:-len(PADDED)]}.cu", ("-DREPRO_PADDED=1",)
+    for suffix, flags in PARTS.items():
+        if suffix and name.endswith(suffix):
+            return CSRC / f"{name[:-len(suffix)]}.cu", flags
     return CSRC / f"{name}.cu", ()
 
 
 def library_names() -> list[str]:
     """Every library the sources build into."""
     stems = sorted(p.stem for p in CSRC.glob("*.cu"))
-    return stems + [s + PADDED for s in stems if s in PADDED_SOURCES]
+    return stems + [s + suffix for suffix in PARTS if suffix for s in stems
+                    if s in PADDED_SOURCES]
 
 
 def _nvcc() -> str:
@@ -124,8 +131,8 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (``<source>`` or ``<source>_padded``),
-    built first if needed."""
+    """The loaded library ``name`` (``<source>``, ``<source>_padded`` or
+    ``<source>_wide``), built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build_all([name])[name]))

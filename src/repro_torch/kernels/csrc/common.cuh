@@ -32,19 +32,48 @@ using Int = std::integral_constant<int, N>;
 // flash_attention.py's PADDED_HEAD_DIMS and route()).  f(Int<DP>) for a
 // rung, else cudaErrorInvalidValue.
 //
-// Each attention source builds into two libraries, side by side
+// Each attention source builds into three libraries, side by side
 // (kernels/build.py): one with the instances of their own (REPRO_PADDED
-// 0) and one with the padded ones (REPRO_PADDED 1); a library asked for an
-// instance of the other half returns cudaErrorInvalidValue.
+// 0), one with the padded ones up to 256 (REPRO_PADDED 1) and one with the
+// wide rungs 384 and 512 (REPRO_WIDE 1, below); a library asked for an
+// instance of another part returns cudaErrorInvalidValue.
+//
+// The wide instances (D > 256: every head dim from 257 to 512) are padded
+// instances whose head dim is split across warps: a 16-row mma slab is
+// served by NS = D / 128 warps, warp `slice` holding the Q fragments and
+// the O accumulator of columns slice * 128 .. + 127 (64 fp32 a thread,
+// where one warp holding all 512 columns would need 256).  Each warp
+// computes its slice's partial Q.K^T; the NS partials meet in shared
+// memory and every warp of the slab sums them in slice order (sum_slices,
+// mma.cuh), so all hold the same S, run the same online softmax, and add
+// P.V_slice into their own O columns.  Key tiles are 32 keys.  Why no rung
+// above 512: kernels/flash_attention.py's LIMIT_REASON.
 #ifndef REPRO_PADDED
 #define REPRO_PADDED 0
 #endif
-constexpr bool kPaddedBuild = REPRO_PADDED != 0;
+#ifndef REPRO_WIDE
+#define REPRO_WIDE 0
+#endif
+constexpr bool kWideBuild = REPRO_WIDE != 0;
+constexpr bool kPaddedBuild = REPRO_PADDED != 0 || kWideBuild;
+
+// column slices (warps) of a slab at head dim D: D / 128 above 256, else 1
+template <int D>
+__host__ __device__ constexpr int head_slices() {
+  return D > 256 ? D / 128 : 1;
+}
 
 template <typename F>
 cudaError_t with_pad_width(int dp, int d, F&& f) {
   if constexpr (!kPaddedBuild) {
     return cudaErrorInvalidValue;
+  } else if constexpr (kWideBuild) {
+    if (d < 1 || d > dp) return cudaErrorInvalidValue;
+    switch (dp) {
+      case 384: return f(Int<384>{});
+      case 512: return f(Int<512>{});
+      default: return cudaErrorInvalidValue;
+    }
   } else {
     if (d < 1 || d > dp) return cudaErrorInvalidValue;
     switch (dp) {

@@ -101,12 +101,15 @@
 //    168 bf16 (336 bytes: 21 chunks, odd, so 8 rows of an ldmatrix start
 //    in distinct bank quads), 107,520, 193,536, 129,024 and 215,040 B; a
 //    thread holds its slab's Q fragments (40 registers) and O (80 fp32).
+//    Above 256 the wide rungs 384 and 512: one 32 x 32 tile, each 16-row
+//    slab served by D / 128 warps, one per 128 columns (k1tc's notes,
+//    common.cuh).
 //  * K1 float32 (flash_attention_kernel): SIMT fp32, one block of 4 warps
-//    per (batch, head, 64-row query tile); K/V tiles of 32 keys staged in
-//    shared memory as fp32 (lane j of a warp owns key j of the tile, so
-//    the row max and sum are warp shuffles); each warp owns 16 query rows
-//    and keeps their output rows in registers.  A TF32 product would break
-//    the fp32 tolerance.
+//    per (batch, head, 64-row query tile; 8 warps of 32 rows above 256);
+//    K/V tiles of 32 keys staged in shared memory as fp32 (lane j of a
+//    warp owns key j of the tile, so the row max and sum are warp
+//    shuffles); each warp owns 16 query rows and keeps their output rows
+//    in registers.  A TF32 product would break the fp32 tolerance.
 //  * K2 float32: one block of 8 warps per (batch, kv head) holding the G
 //    grouped query rows (the same fold as the TPU kernel), so each K/V
 //    element is read from device memory once for all G rows (a group of
@@ -134,21 +137,38 @@ constexpr int NWARPS = 4;
 constexpr int THREADS = NWARPS * 32;
 constexpr int RPW = BQ / NWARPS;   // query rows per warp
 
+// The wide instances (D > 256) take 32 query rows in 8 warps, 4 rows a
+// warp: a lane's O is then 4 x D / 32 fp32 (64 at D = 512, where 16 rows
+// a warp would hold 256), and the block's shared memory 200,832 B at D =
+// 512 (151,680 at 384), where 64 rows would need 270,464, more than the
+// 232,448 a block may hold.  One block an SM; the products stay fp32
+// (ptxas: 220 registers at 512, 132 at 384, no spill).
+template <int D>
+__host__ __device__ constexpr int bq() { return D > 256 ? 32 : BQ; }
+template <int D>
+__host__ __device__ constexpr int nwarps() { return D > 256 ? 8 : NWARPS; }
+template <int D>
+__host__ __device__ constexpr int threads() { return nwarps<D>() * 32; }
+
 template <int D>
 constexpr size_t smem_bytes() {
   // Q tile, K tile (rows padded to D + 1 so lane j reading key j's column
   // c hits bank (j + c) % 32), V tile, the warps' softmax numerators
-  return sizeof(float) * (BQ * D + BK * (D + 1) + BK * D + BQ * BK);
+  return sizeof(float) *
+         (bq<D>() * D + BK * (D + 1) + BK * D + bq<D>() * BK);
 }
 }  // namespace k1
 
 template <typename T, int D, bool PAD>
-__global__ void __launch_bounds__(k1::THREADS)
+__global__ void __launch_bounds__(k1::threads<D>())
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int H,
                        int Hkv, int S, int Sk, int causal, int window,
                        float scale, int d_run) {
   using namespace k1;
+  constexpr int BQ = bq<D>();        // query rows per block
+  constexpr int THREADS = threads<D>();
+  constexpr int RPW = BQ / nwarps<D>();   // query rows per warp
   constexpr int NC = (D + 31) / 32;  // output columns per lane
   constexpr int KS = D + 1;
   const int d = PAD ? d_run : D;     // the row stride (common.cuh)
@@ -292,6 +312,12 @@ constexpr int STAGES = 2;               // ring of K/V tiles in flight
 constexpr int STEP = 64;                // keys per online-softmax step
 constexpr int DEFAULT_BM = 64;          // the tile of an untuned launch
 constexpr int DEFAULT_BN = 64;
+// The wide instances (D > 256, common.cuh): one tile, 32 rows (2 slabs of
+// D / 128 warps each) by 32 keys, walked in one 32-key step
+constexpr int WIDE_BM = 32;
+constexpr int WIDE_BN = 32;
+template <int D>
+__host__ __device__ constexpr int step() { return D > 256 ? WIDE_BN : STEP; }
 
 template <int BM_, int BN_>
 struct Tile {
@@ -301,8 +327,20 @@ struct Tile {
   static constexpr int THREADS = NWARPS * 32;
 };
 
+// The warps of a block: one a 16-row slab, times the slab's column slices
+// at the wide instances
+template <int D, int BM, int BN>
+__host__ __device__ constexpr int threads() {
+  return Tile<BM, BN>::THREADS * head_slices<D>();
+}
+
 // Dynamic shared memory of one block: the Q tile and the ring of K and V
-// tiles, bf16 rows of D + 8 elements.
+// tiles, bf16 rows of D + 8 elements; at the wide instances then the
+// slices' partial S of each slab (sum_slices), fp32.  At D = 512 (384):
+// 33,280 (25,088) + 133,120 (100,352) + 16,384 (12,288) = 182,784
+// (137,728) B, one block an SM; a thread holds its slice's 32 Q fragment
+// registers and 64 fp32 of O (ptxas: 188 registers at both rungs, no
+// spill).
 template <int D, int BM, int BN>
 struct Smem {
   static constexpr int ROW = D + 8;
@@ -310,7 +348,10 @@ struct Smem {
   static constexpr size_t stage_bytes = (size_t)BN * ROW * 2;
   static constexpr size_t k_off = q_bytes;
   static constexpr size_t v_off = k_off + STAGES * stage_bytes;
-  static constexpr size_t bytes = v_off + STAGES * stage_bytes;
+  static constexpr size_t sp_off = v_off + STAGES * stage_bytes;
+  static constexpr size_t sp_bytes =
+      D > 256 ? (size_t)(BM / 16) * head_slices<D>() * step<D>() * 16 * 4 : 0;
+  static constexpr size_t bytes = sp_off + sp_bytes;
 };
 
 // Resident blocks an SM that the launch bounds ask for: 2 for a 4-warp
@@ -327,7 +368,7 @@ constexpr int min_blocks() {
 }  // namespace k1tc
 
 template <int D, int BM, int BN, bool PAD>
-__global__ void __launch_bounds__(k1tc::Tile<BM, BN>::THREADS,
+__global__ void __launch_bounds__(k1tc::threads<D, BM, BN>(),
                                   k1tc::min_blocks<D, BM, BN>())
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -337,13 +378,17 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           float scale_log2, int d_run) {
   using namespace k1tc;
   using L = Smem<D, BM, BN>;
-  constexpr int THREADS = Tile<BM, BN>::THREADS;
+  constexpr bool WIDE = D > 256;    // the head dim split across warps
+  constexpr int NS = head_slices<D>();   // column slices of a slab
+  constexpr int SW = D / NS;        // a slice's columns
+  constexpr int SK = step<D>();     // keys per online-softmax step
+  constexpr int THREADS = threads<D, BM, BN>();
   constexpr int ROW = L::ROW;
   constexpr int CPR = D * 2 / 16;   // 16-byte copies per row
-  constexpr int NT = STEP / 8;      // 8-key column tiles of S
-  constexpr int DT = D / 8;         // 8-wide column tiles of O
-  constexpr int KT = D / 16;        // 16-deep steps of QK^T
-  static_assert(D % 16 == 0 && BM % 16 == 0 && BN % STEP == 0, "tile shape");
+  constexpr int NT = SK / 8;        // 8-key column tiles of S
+  constexpr int DT = SW / 8;        // 8-wide column tiles of O
+  constexpr int KT = SW / 16;       // 16-deep steps of QK^T
+  static_assert(D % 16 == 0 && BM % 16 == 0 && BN % SK == 0, "tile shape");
 
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
@@ -415,7 +460,10 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  const int row0 = warp * 16;           // the warp's 16-row slab
+  const int slab = WIDE ? warp / NS : warp;
+  const int slice = WIDE ? warp % NS : 0;
+  const int c0 = slice * SW;            // the warp's first column
+  const int row0 = slab * 16;           // the warp's 16-row slab
   const int g = lane >> 2;              // the thread's rows: row0 + g, + 8
   const int t4 = lane & 3;              // and columns 2 * t4, + 1 of each tile
   const int r_lo = q0 + row0;           // the slab's first and last rows
@@ -439,7 +487,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     if (i == 0) {   // Q landed with the first tile: its fragments, once
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk)
-        ldsm4(smem_addr(qs + (row0 + (lane & 15)) * ROW + kk * 16 + (lane >> 4) * 8),
+        ldsm4(smem_addr(qs + (row0 + (lane & 15)) * ROW + c0 + kk * 16 +
+                        (lane >> 4) * 8),
               qf[kk]);
     }
     const int stage = i % STAGES;
@@ -447,17 +496,17 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // the tile's keys in steps of STEP: the same steps, in the same order,
     // whatever BN, so every tile gives the same bits
 #pragma unroll 1
-    for (int st = 0; st < BN / STEP; ++st) {
+    for (int st = 0; st < BN / SK; ++st) {
       // a step none of whose keys the warp's slab sees is skipped
-      const int k_lo = t * BN + st * STEP;
-      const int k_hi = k_lo + STEP - 1;
+      const int k_lo = t * BN + st * SK;
+      const int k_hi = k_lo + SK - 1;
       if (k_lo >= Sk || (causal && k_lo > r_hi) ||
           (window > 0 && r_lo - k_hi >= window))
         continue;
       const bool need_mask = k_hi >= Sk || (causal && k_hi > r_lo) ||
                              (window > 0 && r_hi - k_lo >= window);
-      const __nv_bfloat16* kt = k_ring + (stage * BN + st * STEP) * ROW;
-      const __nv_bfloat16* vt = v_ring + (stage * BN + st * STEP) * ROW;
+      const __nv_bfloat16* kt = k_ring + (stage * BN + st * SK) * ROW;
+      const __nv_bfloat16* vt = v_ring + (stage * BN + st * SK) * ROW;
 
       // S = Q K^T for the slab's 16 rows and the step's keys
       float s[NT][4];
@@ -469,11 +518,18 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         for (int np = 0; np < NT / 2; ++np) {
           uint32_t bk[4];
           const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
-          const int col = kk * 16 + (((lane >> 3) & 1) << 3);
+          const int col = c0 + kk * 16 + (((lane >> 3) & 1) << 3);
           ldsm4(smem_addr(kt + key * ROW + col), bk);
           mma16816(s[2 * np], qf[kk], bk[0], bk[1]);
           mma16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
         }
+      }
+      // the wide instances: the slab's slices' partials summed in slice
+      // order (one step a tile: the next tile's block barrier frees them)
+      if constexpr (WIDE) {
+        float* sp = reinterpret_cast<float*>(tc_smem + L::sp_off);
+        sum_slices<NS, NT>(s, sp + slab * NS * NT * 128, slice, lane,
+                           1 + slab);
       }
 
       // scale, mask, online softmax in fp32
@@ -530,10 +586,10 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int kk = 0; kk < NT / 2; ++kk) {
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < SW / 16; ++dp) {
           uint32_t bv[4];
           const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-          const int col = dp * 16 + ((lane >> 4) << 3);
+          const int col = c0 + dp * 16 + ((lane >> 4) << 3);
           ldsm4_trans(smem_addr(vt + key * ROW + col), bv);
           mma16816(acc[2 * dp], pa[kk], bv[0], bv[1]);
           mma16816(acc[2 * dp + 1], pa[kk], bv[2], bv[3]);
@@ -549,11 +605,11 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int qi = q0 + row0 + g + 8 * r;
     if (qi >= S) continue;
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-    __nv_bfloat16* dst = o + (((size_t)b * H + h) * S + qi) * d + 2 * t4;
+    __nv_bfloat16* dst = o + (((size_t)b * H + h) * S + qi) * d + c0 + 2 * t4;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
       if constexpr (PAD) {     // the columns below d, one at a time
-        const int col = dt * 8 + 2 * t4;
+        const int col = c0 + dt * 8 + 2 * t4;
         if (col < d) dst[dt * 8] = __float2bfloat16(acc[dt][2 * r] * inv);
         if (col + 1 < d)
           dst[dt * 8 + 1] = __float2bfloat16(acc[dt][2 * r + 1] * inv);
@@ -733,12 +789,13 @@ cudaError_t launch_attention(const void* q, const void* k, const void* v,
                              int causal, int window, float scale, int d,
                              cudaStream_t stream) {
   constexpr size_t smem = k1::smem_bytes<D>();
+  constexpr int BQ = k1::bq<D>();
   auto kern = flash_attention_kernel<T, D, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + k1::BQ - 1) / k1::BQ, H, B);
-  kern<<<grid, k1::THREADS, smem, stream>>>(
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  kern<<<grid, k1::threads<D>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, S, Sk, causal,
       window, scale, d);
@@ -763,15 +820,20 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           const int* kv_len, void* o, int B, int H, int Hkv,
                           int S, float scale, int d, cudaStream_t stream) {
   // rows per block: the largest of 8, 4, 2, 1 dividing the group size G;
-  // a padded instance's largest is 4, so that its static shared memory
-  // (qs and the warps' accs, 36 KB at D = 256) stays under 48 KB
+  // a padded instance's largest is 4, and a wide one's (D > 256) 2, so
+  // that its static shared memory (qs and the warps' accs, 36 KB at D =
+  // 256 and 4 rows, 36.9 KB at D = 512 and 2; 48-80 registers) stays under
+  // 48 KB
   const int G = H / Hkv;
   if constexpr (!PAD) {
     if (G % 8 == 0)
       return launch_decode_gr<T, D, 8, PAD>(q, k, v, kv_len, o, B, H, Hkv, S, scale, d, stream);
   }
-  if (G % 4 == 0)
-    return launch_decode_gr<T, D, 4, PAD>(q, k, v, kv_len, o, B, H, Hkv, S, scale, d, stream);
+  if constexpr (D <= 256) {
+    if (G % 4 == 0)
+      return launch_decode_gr<T, D, 4, PAD>(q, k, v, kv_len, o, B, H, Hkv, S,
+                                            scale, d, stream);
+  }
   if (G % 2 == 0)
     return launch_decode_gr<T, D, 2, PAD>(q, k, v, kv_len, o, B, H, Hkv, S, scale, d, stream);
   return launch_decode_gr<T, D, 1, PAD>(q, k, v, kv_len, o, B, H, Hkv, S, scale, d, stream);
@@ -783,20 +845,27 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
 // h2o-danube-1.8b's 80, zamba2-7b's 112 and pixtral-12b's 160
 // (ops.attention hands K1 the
 // tile FlashBlocks published whatever the head dim), the default 64 x 64
-// at the others and at every padded instance.
+// at the others and at every padded instance up to 256; a wide instance
+// (D > 256) has 32 x 32 alone.
 template <int D, bool PAD, typename F>
 cudaError_t k1_with_tile(int bm, int bn, F&& f) {
-  if (bm == k1tc::DEFAULT_BM && bn == k1tc::DEFAULT_BN)
-    return f(Int<k1tc::DEFAULT_BM>{}, Int<k1tc::DEFAULT_BN>{});
-  if constexpr (!PAD && (D == 128 || D == 80 || D == 112 || D == 160)) {
-    if ((bm == 64 || bm == 128) && (bn == 64 || bn == 128)) {
-      auto keys = [&](auto rows) {
-        return bn == 64 ? f(rows, Int<64>{}) : f(rows, Int<128>{});
-      };
-      return bm == 64 ? keys(Int<64>{}) : keys(Int<128>{});
+  if constexpr (D > 256) {
+    if (bm == k1tc::WIDE_BM && bn == k1tc::WIDE_BN)
+      return f(Int<k1tc::WIDE_BM>{}, Int<k1tc::WIDE_BN>{});
+    return cudaErrorInvalidValue;
+  } else {
+    if (bm == k1tc::DEFAULT_BM && bn == k1tc::DEFAULT_BN)
+      return f(Int<k1tc::DEFAULT_BM>{}, Int<k1tc::DEFAULT_BN>{});
+    if constexpr (!PAD && (D == 128 || D == 80 || D == 112 || D == 160)) {
+      if ((bm == 64 || bm == 128) && (bn == 64 || bn == 128)) {
+        auto keys = [&](auto rows) {
+          return bn == 64 ? f(rows, Int<64>{}) : f(rows, Int<128>{});
+        };
+        return bm == 64 ? keys(Int<64>{}) : keys(Int<128>{});
+      }
     }
+    return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 template <int D, int BM, int BN, bool PAD>
@@ -810,7 +879,7 @@ cudaError_t launch_attention_tc(const void* q, const void* k, const void* v,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BM - 1) / BM, H, B);
-  kern<<<grid, k1tc::Tile<BM, BN>::THREADS, smem, stream>>>(
+  kern<<<grid, k1tc::threads<D, BM, BN>(), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -821,7 +890,7 @@ cudaError_t launch_attention_tc(const void* q, const void* k, const void* v,
 template <int D, int BM, int BN, bool PAD>
 cudaError_t attention_tc_info(int* out) {
   return instance_info(flash_attention_tc_kernel<D, BM, BN, PAD>,
-                       k1tc::Tile<BM, BN>::THREADS,
+                       k1tc::threads<D, BM, BN>(),
                        k1tc::Smem<D, BM, BN>::bytes, out);
 }
 

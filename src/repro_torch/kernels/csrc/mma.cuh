@@ -132,6 +132,36 @@ __device__ __forceinline__ void widen8(const int8_t* src, __nv_bfloat16* dst) {
   *reinterpret_cast<uint4*>(dst) = out;
 }
 
+// The wide instances' Q.K^T (common.cuh): the NS warps of one slab and one
+// key set (a group, meeting at named barrier `bar`, 1 ..) each hold in s
+// their slice's partial sums in the mma's fragment layout.  Each stores its
+// part at buf + slice * NT * 128 (NS * NT * 128 floats, lane-major, so a
+// store or load of the warp is one conflict-free row), the group meets,
+// and every warp sums the NS parts in slice order 0, 1, ..: all hold the
+// same S, bit for bit.  buf may be rewritten only after every warp of the
+// group has passed a later barrier (a caller that reuses it at the next
+// key step without a block barrier between keeps two and alternates).
+template <int NS, int NT>
+__device__ __forceinline__ void sum_slices(float (&s)[NT][4], float* buf,
+                                           int slice, int lane, int bar) {
+  float* mine = buf + slice * (NT * 128);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mine[(n * 4 + e) * 32 + lane] = s[n][e];
+  asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(NS * 32) : "memory");
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = (n * 4 + e) * 32 + lane;
+      float x = buf[i];
+#pragma unroll
+      for (int k = 1; k < NS; ++k) x += buf[k * (NT * 128) + i];
+      s[n][e] = x;
+    }
+}
+
 // What the card makes of one kernel instance launched with `threads`
 // threads and `smem` bytes of dynamic shared memory: out[0..3] =
 // registers per thread, local-memory (spill) bytes, the shared memory,

@@ -356,16 +356,29 @@ constexpr int NWARPS = 4;
 constexpr int THREADS = NWARPS * 32;
 constexpr int RPW = BQ / NWARPS;   // query rows per warp
 
+// The wide instances (D > 256) take 32 chunk rows in 8 warps, 4 rows a
+// warp, as flash_attention.cu's float32 K1 does: a lane's O is 4 x D / 32
+// fp32, and the block's shared memory 200,832 B at D = 512 (151,680 at
+// 384), where 64 rows would need 270,464.  One block an SM (ptxas:
+// 127-224 registers; the split instances at 384 spill 20 B).
+template <int D>
+__host__ __device__ constexpr int bq() { return D > 256 ? 32 : BQ; }
+template <int D>
+__host__ __device__ constexpr int nwarps() { return D > 256 ? 8 : NWARPS; }
+template <int D>
+__host__ __device__ constexpr int threads() { return nwarps<D>() * 32; }
+
 template <int D>
 constexpr size_t smem_bytes() {
   // Q tile, K tile (rows padded to D + 1 so lane j reading key j's column
   // c hits bank (j + c) % 32), V tile, the warps' softmax numerators
-  return sizeof(float) * (BQ * D + BK * (D + 1) + BK * D + BQ * BK);
+  return sizeof(float) *
+         (bq<D>() * D + BK * (D + 1) + BK * D + bq<D>() * BK);
 }
 }  // namespace k4
 
 template <typename T, typename S, int D, bool SPLIT, bool PAD>
-__global__ void __launch_bounds__(k4::THREADS)
+__global__ void __launch_bounds__(k4::threads<D>())
 paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
                      const S* __restrict__ vp, const float* __restrict__ ksc,
                      const float* __restrict__ vsc,
@@ -376,6 +389,9 @@ paged_prefill_kernel(const T* __restrict__ q, const S* __restrict__ kp,
                      float* __restrict__ pacc, int H, int Hkv, int C,
                      int psz, int nblk, int ns, float scale, int d_run) {
   using namespace k4;
+  constexpr int BQ = bq<D>();        // chunk rows per block
+  constexpr int THREADS = threads<D>();
+  constexpr int RPW = BQ / nwarps<D>();   // chunk rows per warp
   const int d = PAD ? d_run : D;     // the row stride (common.cuh)
   constexpr bool QUANT = std::is_same_v<S, int8_t>;
   constexpr int NC = (D + 31) / 32;  // output columns per lane
@@ -589,13 +605,16 @@ cudaError_t launch_decode(const DecodeArgs& a) {
 template <typename T, typename S, int D, bool SPLIT, bool PAD>
 cudaError_t decode_by_group(const DecodeArgs& a) {
   // rows per block: the largest of 8, 4, 2, 1 dividing the group size G; a
-  // padded instance's largest is 4, so that its static shared memory (qs
-  // and the warps' accs, 36 KB at D = 256) stays under 48 KB
+  // padded instance's largest is 4, and a wide one's (D > 256) 2, so that
+  // its static shared memory (qs and the warps' accs, 36 KB at D = 256
+  // and 4 rows, 36.9 KB at D = 512 and 2) stays under 48 KB
   const int G = a.H / a.Hkv;
   if constexpr (!PAD) {
     if (G % 8 == 0) return launch_decode<T, S, D, 8, SPLIT, PAD>(a);
   }
-  if (G % 4 == 0) return launch_decode<T, S, D, 4, SPLIT, PAD>(a);
+  if constexpr (D <= 256) {
+    if (G % 4 == 0) return launch_decode<T, S, D, 4, SPLIT, PAD>(a);
+  }
   if (G % 2 == 0) return launch_decode<T, S, D, 2, SPLIT, PAD>(a);
   return launch_decode<T, S, D, 1, SPLIT, PAD>(a);
 }
@@ -666,9 +685,9 @@ cudaError_t launch_prefill(const PrefillArgs& a) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_tiles = (a.C + k4::BQ - 1) / k4::BQ;
+  const int n_tiles = (a.C + k4::bq<D>() - 1) / k4::bq<D>();
   const dim3 grid(n_tiles * (SPLIT ? a.ns : 1), a.H, a.B);
-  kern<<<grid, k4::THREADS, smem, a.st>>>(
+  kern<<<grid, k4::threads<D>(), smem, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const S*>(a.kp),
       static_cast<const S*>(a.vp), a.ksc, a.vsc, a.table, a.start, a.kv_len,
       static_cast<T*>(a.o), a.pm, a.pl, a.pacc, a.H, a.Hkv, a.C, a.psz,

@@ -73,7 +73,8 @@
 // never page (a paged D 80 or 112 runs on the padded instances of widths
 // 96 and 128, which every mode has at every width of common.cuh's
 // with_pad_width, 64 keys a tile).  D = 160 (pixtral-12b) pages and has
-// every mode.  The body takes
+// every mode.  Above 256 the wide rungs 384 and 512 (32 keys, the head
+// dim split across warps; dec's notes below, common.cuh).  The body takes
 // them as they are: 5 (7, 10) k-steps of m16n8k16 for S, 10 (14, 20)
 // n-tiles for P.V, rows of 176 (240, 336) bytes, 11 (15, 21) 16-byte
 // chunks apart, 20 (28, 40) float4 columns a row in the merge.  At D =
@@ -189,6 +190,25 @@ struct Tile {
   static_assert(BN % KN == 0, "a tile is whole 16-key mma steps");
 };
 
+// The wide instances (D > 256, common.cuh): each key group is served by
+// head_slices<D>() warps, one per 128 columns, each copying, widening and
+// multiplying its own columns of the group's rows (so a warp still reads
+// only what it copied); their partial S meet in shared memory at the
+// group's named barrier, in one of two buffers by key step (no block
+// barrier frees them between steps).  One tile, 32 keys (2 groups), and a
+// ring of 2 stages, so that the CTA fits: 166,144 B of shared memory at D
+// = 512 over bf16 pools (169,216 over int8; 125,184 and 127,744 at 384)
+// before the table, one CTA an SM, 256 (192) threads of 32 Q fragment
+// registers and 64 fp32 of O each (ptxas: 157-167 registers in the one-
+// pass and dense modes, 210-214 in the partials mode, no spill).
+constexpr int WIDE_BN = 32;
+template <int D>
+__host__ __device__ constexpr int stages() { return D > 256 ? 2 : STAGES; }
+template <int D, int BN>
+__host__ __device__ constexpr int threads() {
+  return Tile<BN>::THREADS * head_slices<D>();
+}
+
 // Dynamic shared memory of one CTA, in bytes: the ring of K and V stages
 // as the copies land them (rows of D * sizeof(S) + 16 bytes), for int8
 // pools the K and V tiles widened to bf16 rows of D + 8, the Q slab, for
@@ -199,17 +219,25 @@ struct Tile {
 // [MAX_CLUSTER][ROWS].
 template <typename S, int D, int BN>
 struct Smem {
-  static constexpr int NWARPS = Tile<BN>::NWARPS;
+  static constexpr int NWARPS = Tile<BN>::NWARPS;            // key groups
+  static constexpr int NS = head_slices<D>();
+  static constexpr int NSTG = stages<D>();
   static constexpr bool QUANT = std::is_same_v<S, int8_t>;
   static constexpr int ROW = D + 8;                          // bf16 elements
   static constexpr int KV_ROW = D * (int)sizeof(S) + 16;     // bytes
   static constexpr size_t stage_bytes = (size_t)BN * KV_ROW; // K or V
   static constexpr size_t wide_bytes = QUANT ? (size_t)BN * ROW * 2 : 0;
-  static constexpr size_t kw_off = 2 * STAGES * stage_bytes;
+  static constexpr size_t kw_off = 2 * NSTG * stage_bytes;
   static constexpr size_t vw_off = kw_off + wide_bytes;
   static constexpr size_t q_off = vw_off + wide_bytes;
   static constexpr size_t sc_off = q_off + (size_t)ROWS * ROW * 2;
-  static constexpr size_t tbl_off = sc_off + (QUANT ? STAGES * 2 * BN * 4 : 0);
+  // the ring's scales, one copy a slice; then (wide) the slices' partial S
+  // of each key group, two buffers (sum_slices)
+  static constexpr size_t sp_off =
+      sc_off + (QUANT ? (size_t)NS * NSTG * 2 * BN * 4 : 0);
+  static constexpr size_t sp_bytes =
+      D > 256 ? (size_t)2 * NWARPS * NS * Tile<BN>::KN * 16 * 4 : 0;
+  static constexpr size_t tbl_off = sp_off + sp_bytes;
   static constexpr int SROW = D + 4;
   static constexpr int STATE = ROWS * (2 + SROW);            // floats
   static_assert(((size_t)(NWARPS + 1) * STATE + MAX_CLUSTER * ROWS) * 4 <=
@@ -233,7 +261,7 @@ struct Smem {
 // ---------------------------------------------------------------------------
 
 template <typename S, int D, int MODE, int BN, bool PAD>
-__global__ void __launch_bounds__(dec::Tile<BN>::THREADS)
+__global__ void __launch_bounds__(dec::threads<D, BN>())
 paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const S* __restrict__ kp, const S* __restrict__ vp,
                        const float* __restrict__ ksc,
@@ -247,16 +275,21 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   using namespace dec;
   const int d = PAD ? d_run : D;     // the row stride (common.cuh)
   using L = Smem<S, D, BN>;
-  constexpr int NWARPS = Tile<BN>::NWARPS;
-  constexpr int THREADS = Tile<BN>::THREADS;
+  constexpr bool WIDE = D > 256;     // the head dim split across warps
+  constexpr int NS = L::NS;          // column slices of a key group
+  constexpr int SW = D / NS;         // a slice's columns
+  constexpr int NSTG = L::NSTG;      // ring stages
+  constexpr int NWARPS = Tile<BN>::NWARPS;   // key groups
+  constexpr int THREADS = threads<D, BN>();
   constexpr int KN = Tile<BN>::KN;   // keys per key group (a warp's)
   constexpr int NT = Tile<BN>::NT;   // 8-key column tiles of a group's S
   constexpr bool QUANT = L::QUANT;
   constexpr int ROW = L::ROW;
   constexpr int SROW = L::SROW;
   constexpr int CH = D / 8;          // 8-element chunks of a row
-  constexpr int DT = D / 8;          // 8-wide column tiles of O
-  constexpr int KT = D / 16;         // 16-deep steps of Q.K^T
+  constexpr int CHS = SW / 8;        // and of a slice
+  constexpr int DT = SW / 8;         // 8-wide column tiles of O
+  constexpr int KT = SW / 16;        // 16-deep steps of Q.K^T
   static_assert(D % 16 == 0, "tile shape");
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -264,7 +297,7 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   float* sc = reinterpret_cast<float*>(smem + L::sc_off);
   int* tbl = reinterpret_cast<int*>(smem + L::tbl_off);
   constexpr int KV_ROW = L::KV_ROW;
-  constexpr int CPR = D * (int)sizeof(S) / 16;   // 16-byte copies per row
+  constexpr int CPS = SW * (int)sizeof(S) / 16;  // 16-byte copies per slice
 
   cg::cluster_group cluster = cg::this_cluster();
   // the CTAs that share a (lane, kv head) and this one's share: a
@@ -282,6 +315,9 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int kg = WIDE ? warp / NS : warp;      // the warp's key group
+  const int slice = WIDE ? warp % NS : 0;     // and its columns c0 ..
+  const int c0 = slice * SW;
 
   // the rank's share of the lane's live tiles, and the pages they touch
   const int len = min(max(kv_len[b], 0), nblk * psz);
@@ -326,11 +362,13 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   uint32_t qf[KT][4];
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk)
-    ldsm4(smem_addr(qs + (lane & 15) * ROW + kk * 16 + (lane >> 4) * 8), qf[kk]);
+    ldsm4(smem_addr(qs + (lane & 15) * ROW + c0 + kk * 16 + (lane >> 4) * 8),
+          qf[kk]);
 
   const int g = lane >> 2;           // the thread's rows g, g + 8
   const int t4 = lane & 3;           // and columns 2 * t4, + 1 of each tile
-  const int kb = warp * KN;          // the warp's keys kb .. kb + KN - 1 of a tile
+  const int kb = kg * KN;            // the warp's keys kb .. kb + KN - 1
+  float* scw = sc + slice * (NSTG * 2 * BN);   // the slice's copy of the scales
   float m[2] = {kNegInf, kNegInf};   // running max, log2 domain
   float l[2] = {0.f, 0.f};           // this thread's share of the row sums
   float acc[DT][4];
@@ -343,9 +381,9 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = t * BN + kb;
     unsigned char* kd = smem + (size_t)(2 * stage) * L::stage_bytes + kb * KV_ROW;
     unsigned char* vd = kd + L::stage_bytes;
-    for (int e = lane; e < KN * CPR; e += 32) {
-      const int j = e / CPR;
-      const int cc = e - j * CPR;
+    for (int e = lane; e < KN * CPS; e += 32) {
+      const int j = e / CPS;
+      const int cc = e - j * CPS + slice * CPS;
       const int key = k0 + j;
       const bool in = key < len;
       if constexpr (PAD) {
@@ -364,42 +402,46 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
         const int key = k0 + lane;
         const bool in = key < len;
         const size_t row = in ? pool_row(key) : 0;
-        cp_async4(smem_addr(sc + (2 * stage) * BN + kb + lane), ksc + row, in ? 4 : 0);
-        cp_async4(smem_addr(sc + (2 * stage + 1) * BN + kb + lane), vsc + row, in ? 4 : 0);
+        cp_async4(smem_addr(scw + (2 * stage) * BN + kb + lane), ksc + row,
+                  in ? 4 : 0);
+        cp_async4(smem_addr(scw + (2 * stage + 1) * BN + kb + lane),
+                  vsc + row, in ? 4 : 0);
       }
     }
   };
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
+  for (int s = 0; s < NSTG - 1; ++s) {
     if (s < n_tiles) load(t_lo + s, s);
     cp_async_commit();
   }
 
-  // a warp reads only the rows it copied itself: the walk waits on the
-  // warp's own copy groups, never on a block-wide barrier
+  // a warp reads only the rows (of a wide instance: the columns of its
+  // rows) it copied itself: the walk waits on the warp's own copy groups,
+  // never on a block-wide barrier
   for (int i = 0; i < n_tiles; ++i) {
     const int t = t_lo + i;
-    const int stage = i % STAGES;
+    const int stage = i % NSTG;
     const int k0 = t * BN;
     const int kw = k0 + kb;            // the warp's first key
-    cp_async_wait<STAGES - 2>();
+    cp_async_wait<NSTG - 2>();
     __syncwarp();      // the warp's rows of tile t have landed
-    // tile t + 2 into the stage of tile t - 1, which the warp is done with
-    if (i + STAGES - 1 < n_tiles) load(t + STAGES - 1, (i + STAGES - 1) % STAGES);
+    // tile t + NSTG - 1 into the stage of tile t - 1, which the warp is
+    // done with
+    if (i + NSTG - 1 < n_tiles) load(t + NSTG - 1, (i + NSTG - 1) % NSTG);
     cp_async_commit();
     const __nv_bfloat16* kt;
     const __nv_bfloat16* vt;
     const unsigned char* kr = smem + (size_t)(2 * stage) * L::stage_bytes;
     const unsigned char* vr = kr + L::stage_bytes;
-    const float* k_sc = sc + (2 * stage) * BN;
+    const float* k_sc = scw + (2 * stage) * BN;
     const float* v_sc = k_sc + BN;
     if constexpr (QUANT) {
       __nv_bfloat16* kw8 = reinterpret_cast<__nv_bfloat16*>(smem + L::kw_off);
       __nv_bfloat16* vw8 = reinterpret_cast<__nv_bfloat16*>(smem + L::vw_off);
 #pragma unroll
-      for (int e = lane; e < KN * CH; e += 32) {
-        const int j = kb + e / CH;
-        const int cc = e % CH;
+      for (int e = lane; e < KN * CHS; e += 32) {
+        const int j = kb + e / CHS;
+        const int cc = e % CHS + slice * CHS;
         widen8(reinterpret_cast<const int8_t*>(kr + j * KV_ROW + cc * 8), kw8 + j * ROW + cc * 8);
         widen8(reinterpret_cast<const int8_t*>(vr + j * KV_ROW + cc * 8), vw8 + j * ROW + cc * 8);
       }
@@ -421,12 +463,18 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bk[4];
         const int key = kb + np * 16 + (lane & 7) + ((lane >> 4) << 3);
-        const int col = kk * 16 + (((lane >> 3) & 1) << 3);
+        const int col = c0 + kk * 16 + (((lane >> 3) & 1) << 3);
         ldsm4(smem_addr(kt + key * ROW + col), bk);
         mma16816(s[2 * np], qf[kk], bk[0], bk[1]);
         mma16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
       }
     }
+    // the wide instances: the group's slices' partials summed in slice
+    // order, in the buffer of this step's parity
+    if constexpr (WIDE)
+      sum_slices<NS, NT>(s, reinterpret_cast<float*>(smem + L::sp_off) +
+                                ((i & 1) * NWARPS + kg) * NS * NT * 128,
+                         slice, lane, 1 + kg);
 
     // scale (and key scales), mask past kv_len, online softmax in fp32
     const bool need_mask = kw + KN > len;
@@ -488,10 +536,10 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk) {
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < SW / 16; ++dp) {
         uint32_t bv[4];
         const int key = kb + kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-        const int col = dp * 16 + ((lane >> 4) << 3);
+        const int col = c0 + dp * 16 + ((lane >> 4) << 3);
         ldsm4_trans(smem_addr(vt + key * ROW + col), bv);
         mma16816(acc[2 * dp], pa[kk], bv[0], bv[1]);
         mma16816(acc[2 * dp + 1], pa[kk], bv[2], bv[3]);
@@ -509,15 +557,15 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   float* st = reinterpret_cast<float*>(smem);
   __syncthreads();   // every warp is done with the tiles (the space is reused)
   {
-    float* mine = st + warp * L::STATE;
+    float* mine = st + kg * L::STATE;   // the key group's state
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = g + 8 * r;
-      if (t4 == 0) {
+      if (t4 == 0 && (!WIDE || slice == 0)) {
         mine[row] = m[r];
         mine[ROWS + row] = l[r];
       }
-      float* ar = mine + 2 * ROWS + row * SROW + 2 * t4;
+      float* ar = mine + 2 * ROWS + row * SROW + c0 + 2 * t4;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt)
         *reinterpret_cast<float2*>(ar + dt * 8) =
@@ -677,11 +725,16 @@ struct Args {
 // tile sweep.
 template <int D, bool PAD, typename F>
 cudaError_t with_tile(int bn, F&& f) {
-  if (bn == DEFAULT_BN) return f(Int<DEFAULT_BN>{});
-  if constexpr (!PAD && (D == 128 || D == 80 || D == 112 || D == 160)) {
-    if (bn == 32) return f(Int<32>{});
+  if constexpr (D > 256) {           // a wide instance: 32 keys alone
+    if (bn == WIDE_BN) return f(Int<WIDE_BN>{});
+    return cudaErrorInvalidValue;
+  } else {
+    if (bn == DEFAULT_BN) return f(Int<DEFAULT_BN>{});
+    if constexpr (!PAD && (D == 128 || D == 80 || D == 112 || D == 160)) {
+      if (bn == 32) return f(Int<32>{});
+    }
+    return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 // the head dims whose own instances have every mode; D = 80
@@ -763,7 +816,7 @@ cudaError_t launch(const Args& a) {
   const int per = MODE == PARTIALS ? a.ns : a.cluster;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
-      dim3(a.B * a.Hkv * per, (G + ROWS - 1) / ROWS), Tile<BN>::THREADS,
+      dim3(a.B * a.Hkv * per, (G + ROWS - 1) / ROWS), threads<D, BN>(),
       smem, MODE == PARTIALS ? 1 : a.cluster, &attr, a.st);
   err = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const __nv_bfloat16*>(a.q),
@@ -791,12 +844,12 @@ template <typename S, int D, int MODE, int BN, bool PAD>
 cudaError_t info(int nblk, int* out) {
   auto kern = paged_decode_tc_kernel<S, D, MODE, BN, PAD>;
   const size_t smem = smem_bytes<S, D, MODE, BN>(nblk);
-  cudaError_t err = instance_info(kern, Tile<BN>::THREADS, smem, out);
+  cudaError_t err = instance_info(kern, threads<D, BN>(), smem, out);
   for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
     const int c = 1 << i;
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = cluster_config(
-        dim3(c * 16), Tile<BN>::THREADS, smem, c, &attr, nullptr);
+        dim3(c * 16), threads<D, BN>(), smem, c, &attr, nullptr);
     int n = 0;
     err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
     out[4 + i] = n;

@@ -125,7 +125,9 @@
 // Head dims: the instances of their own at D = 16, 32, 64, 128 and 160,
 // and the padded ones (PAD, common.cuh) at the rungs 64, 96, 128, 160, 192
 // and 256, each with one tile: 32 rows by 128 keys, 64 keys at 256 (a
-// 128-key ring of 528-byte rows would not fit).  A padded row of d
+// 128-key ring of 528-byte rows would not fit); above 256 the wide rungs
+// 384 and 512 (32 rows by 32 keys, the head dim split across warps: Tile's
+// notes below, common.cuh).  A padded row of d
 // elements that is not a multiple of 16 bytes arrives by 4-byte copies
 // (d * sizeof(S) % 4 == 0) or plain loads; the pools keep d elements a
 // row.
@@ -190,6 +192,30 @@ struct Tile {
 template <int D>
 constexpr int min_blocks() { return D > 128 ? 1 : 0; }
 
+// The wide instances (D > 256, common.cuh): one tile, 32 rows by 32 keys,
+// one key group, each of the 2 slabs served by head_slices<D>() warps (8
+// at D = 512, 6 at 384), one per 128 columns; the block copies and widens
+// whole rows as before, each warp multiplies its own columns, and the
+// slab's partial S meet in shared memory (one step a tile: the next
+// tile's block barrier frees them).  Shared memory before the table at D
+// = 512: 182,784 B over bf16 pools, 184,320 over int8 (137,728 and
+// 139,136 at 384), one block an SM; a thread holds 32 Q fragment registers
+// and 64 fp32 of O (ptxas: 183-201 registers in one pass, 233-248 in the
+// partials mode with the merge, no spill).
+constexpr int WIDE_BN = 32;
+template <int D, int SLABS, int BN>
+__host__ __device__ constexpr int kgroups() {
+  return D > 256 ? 1 : Tile<SLABS, BN>::KGROUPS;
+}
+template <int D, int SLABS, int BN>
+__host__ __device__ constexpr int threads() {
+  return D > 256 ? SLABS * head_slices<D>() * 32 : Tile<SLABS, BN>::THREADS;
+}
+template <int D, int SLABS, int BN>
+__host__ __device__ constexpr int bound() {
+  return D > 256 ? threads<D, SLABS, BN>() : Tile<SLABS, BN>::BOUND;
+}
+
 // Dynamic shared memory of one block, in bytes: the Q tile (bf16 rows of
 // D + 8), the ring of K and V tiles as stored (rows of D * sizeof(S) + 16
 // bytes), for int8 pools the bf16 K and V tiles the codes widen to and the
@@ -197,7 +223,7 @@ constexpr int min_blocks() { return D > 128 ? 1 : 0; }
 template <typename S, int D, int SLABS, int BN>
 struct Smem {
   static constexpr int BM = Tile<SLABS, BN>::BM;
-  static constexpr int KGROUPS = Tile<SLABS, BN>::KGROUPS;
+  static constexpr int KGROUPS = kgroups<D, SLABS, BN>();
   static constexpr bool QUANT = std::is_same_v<S, int8_t>;
   static constexpr int ROW = D + 8;                               // bf16 elements
   static constexpr int KV_ROW = (int)(D * sizeof(S)) + 16;        // bytes
@@ -211,7 +237,11 @@ struct Smem {
   static constexpr size_t vw_off = kw_off + wide_bytes;
   static constexpr size_t ks_off = vw_off + wide_bytes;
   static constexpr size_t vs_off = ks_off + scale_bytes;
-  static constexpr size_t tbl_off = vs_off + scale_bytes;
+  // the wide instances' partial S of each slab's slices (sum_slices)
+  static constexpr size_t sp_off = vs_off + scale_bytes;
+  static constexpr size_t sp_bytes =
+      D > 256 ? (size_t)SLABS * head_slices<D>() * BN * 16 * 4 : 0;
+  static constexpr size_t tbl_off = sp_off + sp_bytes;
   // after the walk the ring (and the widened tiles) hold the softmax
   // states of key groups 1.., in the fragment layout: per (group, slab,
   // lane) m[2], l[2], acc[D / 8][4]
@@ -236,7 +266,7 @@ struct Smem {
 // ---------------------------------------------------------------------------
 
 template <typename S, int D, bool SPLIT, int SLABS, int BN, bool PAD>
-__global__ void __launch_bounds__(tc::Tile<SLABS, BN>::BOUND,
+__global__ void __launch_bounds__(tc::bound<D, SLABS, BN>(),
                                   tc::min_blocks<D>())
 paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const S* __restrict__ kp, const S* __restrict__ vp,
@@ -260,19 +290,22 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const bool part = PAD && d != D;
   using T = Tile<SLABS, BN>;
   using L = Smem<S, D, SLABS, BN>;
+  constexpr bool WIDE = D > 256;                // the head dim across warps
+  constexpr int NS = head_slices<D>();          // column slices of a slab
+  constexpr int SW = D / NS;                    // a slice's columns
   constexpr int BM = T::BM;
-  constexpr int KGROUPS = T::KGROUPS;
-  constexpr int KN = T::KN;
-  constexpr int THREADS = T::THREADS;
+  constexpr int KGROUPS = L::KGROUPS;
+  constexpr int KN = WIDE ? BN : T::KN;
+  constexpr int THREADS = threads<D, SLABS, BN>();
   constexpr bool QUANT = L::QUANT;
   constexpr int ROW = L::ROW;
   constexpr int KV_ROW = L::KV_ROW;
   constexpr int CPR = D * (int)sizeof(S) / 16;  // 16-byte copies per K/V row
   constexpr int QCPR = D * 2 / 16;              // and per q row
-  constexpr int KS = T::KS;                     // keys of a softmax step
+  constexpr int KS = WIDE ? BN : T::KS;         // keys of a softmax step
   constexpr int NT = KS / 8;                    // 8-key column tiles of S
-  constexpr int DT = D / 8;                     // 8-wide column tiles of O
-  constexpr int KT = D / 16;                    // 16-deep steps of QK^T
+  constexpr int DT = SW / 8;                    // 8-wide column tiles of O
+  constexpr int KT = SW / 16;                   // 16-deep steps of QK^T
   static_assert(THREADS >= BN && D % 16 == 0 && KS % 16 == 0 &&
                 KN % KS == 0, "tile shape");
 
@@ -392,8 +425,11 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  const int row0 = (warp % SLABS) * 16; // the warp's 16-row slab
-  const int kg = warp / SLABS;          // and its keys kg * KN .. + KN - 1
+  const int wq = WIDE ? warp / NS : warp;  // the warp's slab and key group
+  const int slice = WIDE ? warp % NS : 0;  // and its columns c0 ..
+  const int c0 = slice * SW;
+  const int row0 = (wq % SLABS) * 16;   // the warp's 16-row slab
+  const int kg = wq / SLABS;            // and its keys kg * KN .. + KN - 1
   const int g = lane >> 2;              // the thread's rows: row0 + g, + 8
   const int t4 = lane & 3;              // and columns 2 * t4, + 1 of each tile
   const int pos0 = PAD ? start[b] + (f0 + row0 + g) / G
@@ -444,7 +480,8 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     if (i == 0) {
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk)
-        ldsm4(smem_addr(qs + (row0 + (lane & 15)) * ROW + kk * 16 + (lane >> 4) * 8),
+        ldsm4(smem_addr(qs + (row0 + (lane & 15)) * ROW + c0 + kk * 16 +
+                        (lane >> 4) * 8),
               qf[kk]);
     }
 
@@ -462,12 +499,18 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
         for (int np = 0; np < NT / 2; ++np) {
           uint32_t bk[4];
           const int key = kb + np * 16 + (lane & 7) + ((lane >> 4) << 3);
-          const int col = kk * 16 + (((lane >> 3) & 1) << 3);
+          const int col = c0 + kk * 16 + (((lane >> 3) & 1) << 3);
           ldsm4(smem_addr(kt + key * ROW + col), bk);
           mma16816(s[2 * np], qf[kk], bk[0], bk[1]);
           mma16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
         }
       }
+      // the wide instances: the slab's slices' partials summed in slice
+      // order
+      if constexpr (WIDE)
+        sum_slices<NS, NT>(s, reinterpret_cast<float*>(smem + L::sp_off) +
+                                  (row0 / 16) * NS * NT * 128,
+                           slice, lane, 1 + row0 / 16);
 
       // scale (and key scales), mask, online softmax in fp32
       const int k0 = t * BN + kb;           // the step's first key
@@ -535,10 +578,10 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int kk = 0; kk < NT / 2; ++kk) {
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < SW / 16; ++dp) {
           uint32_t bv[4];
           const int key = kb + kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-          const int col = dp * 16 + ((lane >> 4) << 3);
+          const int col = c0 + dp * 16 + ((lane >> 4) << 3);
           ldsm4_trans(smem_addr(vt + key * ROW + col), bv);
           mma16816(acc[2 * dp], pa[kk], bv[0], bv[1]);
           mma16816(acc[2 * dp + 1], pa[kk], bv[2], bv[3]);
@@ -606,15 +649,15 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
       if constexpr (SPLIT) {
         const size_t prow =
             (((size_t)b * H + hk * G + hr) * ns + split) * C + qi;
-        if (t4 == 0) {
+        if (t4 == 0 && (!WIDE || slice == 0)) {
           pm[prow] = m[r] == kNegInf ? kNegInf : m[r] * (1.f / kLog2e);
           pl[prow] = l[r];
         }
-        float* dst = pacc + prow * d + 2 * t4;
+        float* dst = pacc + prow * d + c0 + 2 * t4;
 #pragma unroll
         for (int dt = 0; dt < DT; ++dt) {
           if (part) {
-            const int col = dt * 8 + 2 * t4;
+            const int col = c0 + dt * 8 + 2 * t4;
             if (col < d) dst[dt * 8] = acc[dt][2 * r];
             if (col + 1 < d) dst[dt * 8 + 1] = acc[dt][2 * r + 1];
           } else {
@@ -626,11 +669,11 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
       }
       const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
       __nv_bfloat16* dst =
-          o + (((size_t)b * H + hk * G + hr) * C + qi) * d + 2 * t4;
+          o + (((size_t)b * H + hk * G + hr) * C + qi) * d + c0 + 2 * t4;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
         if (part) {
-          const int col = dt * 8 + 2 * t4;
+          const int col = c0 + dt * 8 + 2 * t4;
           if (col < d) dst[dt * 8] = __float2bfloat16(acc[dt][2 * r] * inv);
           if (col + 1 < d)
             dst[dt * 8 + 1] = __float2bfloat16(acc[dt][2 * r + 1] * inv);
@@ -700,9 +743,11 @@ struct Args {
 
 // The key tile of a padded instance: 128, but 64 at D = 256, whose 128-key
 // ring (four stages of 128 rows of 528 bytes, 270,336 B) would not fit the
-// 227 KB a block may hold
+// 227 KB a block may hold, and 32 at the wide instances (D > 256)
 template <int D>
-constexpr int pad_bn() { return D > 192 ? 64 : DEFAULT_BN; }
+constexpr int pad_bn() {
+  return D > 256 ? WIDE_BN : D > 192 ? 64 : DEFAULT_BN;
+}
 
 // f(Int<SLABS>, Int<BN>) for the instantiated tile of bm query rows and bn
 // keys at head dim D, else cudaErrorInvalidValue: rows 16, 32, 48, 64 and
@@ -778,6 +823,7 @@ cudaError_t launch(const Args& a, int G) {
       (SPLIT && a.ns < 1) || (a.cnt != nullptr && (!SPLIT || a.o == nullptr)))
     return cudaErrorInvalidValue;
   using T = Tile<SLABS, BN>;
+  constexpr int THREADS = threads<D, SLABS, BN>();
   const size_t smem = smem_bytes<S, D, SLABS, BN>(a.nblk);
   auto kern = paged_prefill_tc_kernel<S, D, SPLIT, SLABS, BN, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -788,7 +834,7 @@ cudaError_t launch(const Args& a, int G) {
   const int tiles = (a.C * G + T::BM - 1) / T::BM;
   const int ns = SPLIT ? a.ns : 1;
   const dim3 grid(tiles * ns, a.Hkv, a.B);
-  kern<<<grid, T::THREADS, smem, a.st>>>(
+  kern<<<grid, THREADS, smem, a.st>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const S*>(a.kp),
       static_cast<const S*>(a.vp), a.ksc, a.vsc, a.table, a.start, a.kv_len,
       static_cast<__nv_bfloat16*>(a.o), a.pm, a.pl, a.pacc, a.cnt, a.H,
@@ -818,7 +864,7 @@ cudaError_t by_dim(const Args& a) {
 
 template <int D, int SLABS, int BN, bool PAD>
 cudaError_t info_by_kind(int kind, int nblk, int* out) {
-  constexpr int THREADS = Tile<SLABS, BN>::THREADS;
+  constexpr int THREADS = threads<D, SLABS, BN>();
   switch (kind) {
     case 0: return instance_info(
         paged_prefill_tc_kernel<__nv_bfloat16, D, false, SLABS, BN, PAD>,

@@ -52,15 +52,21 @@ PAGED_HEAD_DIMS = HEAD_DIMS + (160,)
 #: h2o-danube-1.8b's 80 and zamba2-7b's 112, whose sliding windows serve
 #: from dense lanes, and pixtral-12b's 160
 DENSE_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160)
+#: the wide rungs: instances whose head dim is split across warps, a
+#: 16-row slab served by one warp per 128 columns (``csrc/common.cuh``),
+#: with one tile each (:data:`WIDE_TILE`, :data:`WIDE_BLOCK_K`); every head
+#: dim from 257 to 512 runs on one of them
+WIDE_HEAD_DIMS = (384, 512)
 #: the widths of the padded instances, which every attention kernel (K1-K6d,
 #: both query types) has: a head dim d with no instance of its own runs on
 #: the instance of the smallest of these at or above it, its columns at and
 #: past d zero in shared memory and never stored (``csrc/common.cuh``).
 #: Multiples of 32, so that a float32 decode lane owns DP / 32 whole
 #: columns: 80, 112 and 160 in float32 (h2o-danube, zamba2, pixtral) take
-#: 96, 128 and 160; Phi-3-mini's 96 and Gemma's 256 have rungs of their own
-MAX_HEAD_DIM = 256
-PADDED_HEAD_DIMS = (64, 96, 128, 160, 192, MAX_HEAD_DIM)
+#: 96, 128 and 160; Phi-3-mini's 96 and Gemma's 256 have rungs of their
+#: own; above 256 the wide rungs
+MAX_HEAD_DIM = WIDE_HEAD_DIMS[-1]
+PADDED_HEAD_DIMS = (64, 96, 128, 160, 192, 256) + WIDE_HEAD_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the bf16 K1 kernel's name, as ``flash_attention.last_kernel`` gives it
@@ -79,16 +85,31 @@ TILE_VALUES = (64, 128)
 TILED_HEAD_DIMS = (80, 112, 128, 160)
 #: the float32 SIMT template's one tile: query rows and keys
 SIMT_TILE = (64, 32)
+#: K1's one tile at a wide rung, both query types: 2 slabs of 16 rows (of
+#: D / 128 warps each on the tensor cores; 8 warps of 4 rows in float32)
+#: by 32 keys
+WIDE_TILE = (32, 32)
+#: the one key tile of the decode and prefill kernels at a wide rung
+WIDE_BLOCK_K = 32
 #: the float32 K2 kernel's name, as ``flash_decode.last_kernel`` gives it
 #: (a bf16 K2 runs ``paged_attention.DECODE_TC_KERNEL``)
 DECODE_SIMT_KERNEL = "flash_decode_kernel"
 
 
+def part(dp: int) -> str:
+    """The library part (``build``'s suffix) that holds the instance of
+    ``dp``, a C entry's argument: 0 the head dims' own, a wide rung the
+    wide part, any other width the padded one."""
+    if dp == 0:
+        return ""
+    return build.WIDE if dp in WIDE_HEAD_DIMS else build.PADDED
+
+
 @functools.cache
-def _lib(padded: bool = False) -> ctypes.CDLL:
+def _lib(lib_part: str = "") -> ctypes.CDLL:
     """The built library with its C signatures declared (once): the
-    instances of their own, or with ``padded`` the padded ones."""
-    lib = build.load("flash_attention" + (build.PADDED if padded else ""))
+    instances of their own, or of the part ``lib_part`` (:func:`part`)."""
+    lib = build.load("flash_attention" + lib_part)
     lib.repro_flash_attention.argtypes = [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
         _P]
@@ -114,29 +135,52 @@ def head_dims(name: str, dtype: torch.dtype) -> tuple[int, ...]:
     return PAGED_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS
 
 
-#: why no head dim above MAX_HEAD_DIM runs: the next rung would be 288
-#: (a multiple of 32), where the bf16 decode kernel's default tile (64 keys
-#: in a ring of 3 stages of K and V rows of 288 x 2 + 16 bytes, and a
-#: 16-row Q slab of rows of 296 bf16) needs 236,800 bytes of shared memory,
-#: more than the 232,448 (227 KB) a block may hold, and a thread of its
-#: 16-row mma slab would hold 144 fp32 accumulators and 72 Q fragments
-#: registers of the 255 it may have
+def simt_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block of the float32 K1 (and of the
+    paged prefill's SIMT template) at instance width ``d``: its query rows
+    (64, 32 at a wide width) as fp32 rows of d, a 32-key K tile of rows of
+    d + 1, the V tile, and the warps' 32 softmax numerators a row
+    (``k1::smem_bytes``)."""
+    bq = WIDE_TILE[0] if d > 256 else SIMT_TILE[0]
+    return 4 * (bq * d + 32 * (d + 1) + 32 * d + bq * 32)
+
+
+#: the shared memory a block may hold on an H100 (227 KB, the opt-in limit)
+BLOCK_SMEM_BYTES = 232_448
+#: the wide rung after the last one (five 128-column slices)
+NEXT_WIDE_RUNG = MAX_HEAD_DIM + 128
+
+#: why no head dim above MAX_HEAD_DIM runs: at the next wide rung the
+#: float32 K1's and paged prefill's 32-row tile needs more shared memory
+#: (simt_smem_bytes) than a block may hold; 16 rows would fit but halve
+#: the rows each copied key tile serves, and no model of the repo needs it
 LIMIT_REASON = (
-    f"no instance above {MAX_HEAD_DIM}: at the next rung, 288, the bf16 "
-    "decode kernel's 64-key tile needs 236,800 B of shared memory, more "
-    "than the 232,448 B (227 KB) a block may hold")
+    f"no instance above {MAX_HEAD_DIM}: at the next rung, {NEXT_WIDE_RUNG}, "
+    f"the float32 attention kernels' {WIDE_TILE[0]}-row tile needs "
+    f"{simt_smem_bytes(NEXT_WIDE_RUNG):,} B of shared memory, more than "
+    f"the {BLOCK_SMEM_BYTES:,} B (227 KB) a block may hold")
 
 
 class Route(NamedTuple):
     """The instance a launch takes: ``width`` its head dim (DP), and
     ``padded`` whether it is a padded instance (the C entries' ``dp``
-    argument is then ``width``, else 0)."""
+    argument is then ``width``, else 0), a wide one where ``width`` is a
+    wide rung."""
     width: int
     padded: bool
 
     @property
     def dp(self) -> int:
         return self.width if self.padded else 0
+
+    @property
+    def wide(self) -> bool:
+        return self.padded and self.width in WIDE_HEAD_DIMS
+
+    @property
+    def library(self) -> str:
+        """The library part holding the instance (:func:`part`)."""
+        return part(self.dp)
 
 
 #: the padded width every launch in a :func:`_forced_width` block takes
@@ -235,7 +279,10 @@ def attention_tiles(dtype: torch.dtype,
                     d: int) -> tuple[tuple[int, int], ...]:
     """The (block_q, block_k) tiles K1 has an instance for, for a query
     of ``dtype`` at head dim ``d`` (on the instance of :func:`route`); a
-    padded instance has the default tile alone."""
+    padded instance has the default tile alone, a wide one
+    :data:`WIDE_TILE`."""
+    if route("flash_attention", dtype, d).wide:
+        return (WIDE_TILE,)
     if dtype != torch.bfloat16:
         return (SIMT_TILE,)
     if d not in TILED_HEAD_DIMS or route("flash_attention", dtype,
@@ -275,8 +322,11 @@ def check_lengths(sq: int, sk: int, causal: bool,
 def smem_bytes(block_q: int, block_k: int, d: int) -> int:
     """Dynamic shared memory of one block of the bf16 K1 at a tile: the
     Q tile and a 2-stage ring of K and V tiles, bf16 rows of d + 8
-    (``k1tc::Smem``)."""
-    return (block_q + 2 * 2 * block_k) * (d + 8) * 2
+    (``k1tc::Smem``); at a wide width d also each slab's slices' partial
+    scores, d / 128 of 16 rows by block_k keys in fp32."""
+    partials = ((block_q // 16) * (d // 128) * 16 * block_k * 4 if d > 256
+                else 0)
+    return (block_q + 2 * 2 * block_k) * (d + 8) * 2 + partials
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -308,7 +358,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rt = route("flash_attention", q.dtype, d)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _lib(rt.padded).repro_flash_attention(
+        err = _lib(rt.library).repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, k.shape[1], s, sk, d, rt.dp, _DTYPES[q.dtype], int(causal),
             -1 if window is None else int(window), scale, *tile,
@@ -330,7 +380,7 @@ def tc_info(d: int, block_q: int = TC_DEFAULT_TILE[0],
     ``block_q`` x ``block_k``: registers per thread, local (spill) bytes,
     dynamic shared memory, and resident blocks per SM.  Needs the card."""
     out = (ctypes.c_int * 4)()
-    _raise_on("tc_info", _lib(dp > 0).repro_flash_attention_tc_info(
+    _raise_on("tc_info", _lib(part(dp)).repro_flash_attention_tc_info(
         d, dp, block_q, block_k, ctypes.addressof(out)))
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
@@ -372,11 +422,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         if q.dtype == torch.bfloat16:
             c = pa.decode_cluster("flash_decode", q, b, hkv, _cluster, bk)
-            lib = pa._dec_lib(rt.padded)
+            lib = pa._dec_lib(rt.library)
             err = lib.repro_flash_decode_tc(*args, c, bk, scale, _stream(q))
             kernel = pa.DECODE_TC_KERNEL
         else:
-            err = _lib(rt.padded).repro_flash_decode(
+            err = _lib(rt.library).repro_flash_decode(
                 *args, _DTYPES[q.dtype], scale, _stream(q))
             kernel = DECODE_SIMT_KERNEL
     _raise_on("flash_decode", err)

@@ -105,7 +105,8 @@ import torch
 
 from . import build
 from .flash_attention import (_DTYPES, PADDED_HEAD_DIMS, TILED_HEAD_DIMS,
-                              Route, _raise_on, _stream, padded_width, route)
+                              WIDE_BLOCK_K, WIDE_HEAD_DIMS, WIDE_TILE, Route,
+                              _raise_on, _stream, padded_width, part, route)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -173,11 +174,20 @@ def decode_block_ks(dtype: torch.dtype, d: int,
     else its paged ones (at D 80 and 112 the dense mode has instances of
     its own, the paged modes run on padded ones), on the instance of
     :func:`~.flash_attention.route`: a padded instance has
-    :data:`DECODE_TILE_KEYS` alone."""
+    :data:`DECODE_TILE_KEYS` alone, a wide one
+    :data:`~.flash_attention.WIDE_BLOCK_K`."""
     if dtype != torch.bfloat16:
         return (SIMT_DECODE_TILE_KEYS,)
     rt = route("flash_decode" if dense else "flash_paged_decode", dtype, d)
-    return (DECODE_BLOCK_KS if d in TILED_HEAD_DIMS and not rt.padded
+    return _instance_block_ks(rt.width, rt.padded)
+
+
+def _instance_block_ks(width: int, padded: bool) -> tuple[int, ...]:
+    """The key tiles of the bf16 decode instance of ``width`` (a padded
+    one with ``padded``)."""
+    if width in WIDE_HEAD_DIMS:
+        return (WIDE_BLOCK_K,)
+    return (DECODE_BLOCK_KS if width in TILED_HEAD_DIMS and not padded
             else (DECODE_TILE_KEYS,))
 
 
@@ -242,7 +252,8 @@ def prefill_tiles(dtype: torch.dtype, d: int, g: int
     except ValueError:
         return (), ()
     if dtype != torch.bfloat16:
-        return (SIMT_PREFILL_TILE[0],), (SIMT_PREFILL_TILE[1],)
+        rows, keys = simt_prefill_tile(d)
+        return (rows,), (keys,)
     rows = _row_tiles(rt, d)
     if rt.padded:
         keys = (padded_block_k(rt.width),)
@@ -264,8 +275,19 @@ def prefill_rows(d: int, g: int, block_q: int) -> int:
 def padded_block_k(width: int) -> int:
     """The keys of a padded prefill instance's one tile:
     :data:`TC_TILE_KEYS`, but 64 at width 256, whose 128-key ring would
-    not fit a block's shared memory (``paged_prefill.cu``'s pad_bn)."""
+    not fit a block's shared memory, and 32 at a wide rung
+    (``paged_prefill.cu``'s pad_bn)."""
+    if width in WIDE_HEAD_DIMS:
+        return WIDE_BLOCK_K
     return 64 if width > 192 else TC_TILE_KEYS
+
+
+def simt_prefill_tile(d: int) -> tuple[int, int]:
+    """(chunk rows, keys) of the float32 prefill SIMT template's one tile
+    at head dim ``d``: :data:`SIMT_PREFILL_TILE`, or at a wide rung
+    :data:`~.flash_attention.WIDE_TILE` (``k4::bq``)."""
+    return (WIDE_TILE if route("flash_paged_prefill", torch.float32, d).wide
+            else SIMT_PREFILL_TILE)
 
 
 def tc_row_tiles(d: int) -> tuple[int, ...]:
@@ -304,7 +326,7 @@ def decode_tile(name: str, q: torch.Tensor, block_k: int | None) -> int:
     ``ValueError`` naming those that do), or the default."""
     tiles = decode_block_ks(q.dtype, q.shape[-1], name == "flash_decode")
     if block_k is None:
-        return DECODE_TILE_KEYS if q.dtype == torch.bfloat16 else tiles[0]
+        return DECODE_TILE_KEYS if DECODE_TILE_KEYS in tiles else tiles[0]
     if block_k not in tiles:
         raise ValueError(f"{name}: no instance for block_k={block_k!r}; a "
                          f"{q.dtype} query at head dim {q.shape[-1]} has "
@@ -344,13 +366,18 @@ def decode_smem_bytes(d: int, block_k: int, quant: bool,
     (``dec::Smem`` of ``csrc/paged_decode.cu``): the ring of 3 K and V
     stages (rows of D x the pool's element size + 16 bytes), for int8 the
     K and V tiles widened to bf16 rows of D + 8 and the ring's scales, the
-    16-row Q slab, then ``nblk`` page-table entries."""
-    row, stages, slab = d + 8, 3, 16
+    16-row Q slab, then ``nblk`` page-table entries.  A wide width (d
+    above 256) has a ring of 2 stages, a copy of the scales for each of its
+    d / 128 column slices, and the slices' partial scores of each 16-key
+    group in two buffers (fp32 16 x 16 each)."""
+    slices = d // 128 if d > 256 else 1
+    row, stages, slab = d + 8, 2 if d > 256 else 3, 16
     kv_row = d * (1 if quant else 2) + 16
     ring = 2 * stages * block_k * kv_row
-    wide = 2 * block_k * row * 2 if quant else 0
-    scales = stages * 2 * block_k * 4 if quant else 0
-    return ring + wide + slab * row * 2 + scales + 4 * nblk
+    widened = 2 * block_k * row * 2 if quant else 0
+    scales = slices * stages * 2 * block_k * 4 if quant else 0
+    partials = 2 * (block_k // 16) * slices * 16 * 16 * 4 if d > 256 else 0
+    return ring + widened + slab * row * 2 + scales + partials + 4 * nblk
 
 
 def decode_ctas_per_sm(d: int, block_k: int, quant: bool) -> int:
@@ -358,8 +385,8 @@ def decode_ctas_per_sm(d: int, block_k: int, quant: bool) -> int:
     ``block_k``, int8 pools with ``quant``) that the cluster rule counts
     on: those its shared memory (:func:`decode_smem_bytes`) allows, at
     most :data:`DECODE_CTAS_PER_SM`.  1 at D 160 and 64 keys (bf16 and
-    int8), 2 at every other instance; the card's ``decode_tc_info``
-    confirms it."""
+    int8) and at the wide rungs, 2 at every other instance; the card's
+    ``decode_tc_info`` confirms it."""
     fits = SM_SHARED_BYTES // (decode_smem_bytes(d, block_k, quant)
                                + BLOCK_RESERVED_BYTES)
     return max(1, min(DECODE_CTAS_PER_SM, fits))
@@ -367,12 +394,13 @@ def decode_ctas_per_sm(d: int, block_k: int, quant: bool) -> int:
 
 #: the host's table of :func:`decode_ctas_per_sm` by (instance width, key
 #: tile, int8 pools) over the bf16 decode kernel's instances: those of
-#: their own and the padded ones (:data:`PADDED_HEAD_DIMS`, 64 keys)
+#: their own and the padded ones (:data:`PADDED_HEAD_DIMS`, 64 keys; the
+#: wide rungs 32)
 DECODE_CTAS = {(d, bk, quant): decode_ctas_per_sm(d, bk, quant)
                for d in sorted(set(PADDED_HEAD_DIMS + TILED_HEAD_DIMS
                                    + (16, 32, 64)))
-               for bk in ((DECODE_TILE_KEYS,) if d not in TILED_HEAD_DIMS
-                          else DECODE_BLOCK_KS)
+               for bk in (DECODE_BLOCK_KS if d in TILED_HEAD_DIMS
+                          else _instance_block_ks(d, True))
                for quant in (False, True)}
 
 
@@ -398,16 +426,12 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _library(name: str, padded: bool) -> ctypes.CDLL:
-    """The loaded library of source ``name``: its instances of their own,
-    or with ``padded`` its padded ones (``build.PADDED_SOURCES``)."""
-    return build.load(name + (build.PADDED if padded else ""))
-
-
 @functools.cache
-def _lib(padded: bool = False) -> ctypes.CDLL:
-    """The built library with its C signatures declared (once)."""
-    lib = _library("paged_attention", padded)
+def _lib(lib_part: str = "") -> ctypes.CDLL:
+    """The built library with its C signatures declared (once): the
+    instances of their own, or of the part ``lib_part``
+    (:func:`~.flash_attention.part`)."""
+    lib = build.load("paged_attention" + lib_part)
     signatures = {
         "repro_flash_paged_decode": [_P] * 6 + [_I] * 8 + [_F, _P],
         "repro_flash_paged_decode_quant": [_P] * 8 + [_I] * 8 + [_F, _P],
@@ -427,9 +451,9 @@ def _lib(padded: bool = False) -> ctypes.CDLL:
 
 
 @functools.cache
-def _tc_lib(padded: bool = False) -> ctypes.CDLL:
+def _tc_lib(lib_part: str = "") -> ctypes.CDLL:
     """The tensor-core prefill library (``csrc/paged_prefill.cu``)."""
-    lib = _library("paged_prefill", padded)
+    lib = build.load("paged_prefill" + lib_part)
     for name, argtypes in (
             ("repro_flash_paged_prefill", [_P] * 7 + [_I] * 11 + [_F, _P]),
             ("repro_flash_paged_prefill_quant",
@@ -450,9 +474,9 @@ def _tc_lib(padded: bool = False) -> ctypes.CDLL:
 
 
 @functools.cache
-def _dec_lib(padded: bool = False) -> ctypes.CDLL:
+def _dec_lib(lib_part: str = "") -> ctypes.CDLL:
     """The one-pass decode library of a bf16 query (``csrc/paged_decode.cu``)."""
-    lib = _library("paged_decode", padded)
+    lib = build.load("paged_decode" + lib_part)
     for name, argtypes in (
             ("repro_flash_paged_decode_tc", [_P] * 6 + [_I] * 9 + [_F, _P]),
             ("repro_flash_paged_decode_quant_tc",
@@ -495,12 +519,12 @@ def _prefill_entry(name: str, q: torch.Tensor, hkv: int, quant: bool,
     if q.dtype == torch.bfloat16:
         h, d = q.shape[1], q.shape[3]
         check_tc_shape(name, h, hkv, d)
-        lib = _tc_lib(rt.padded)
+        lib = _tc_lib(rt.library)
         entry = "repro_flash_paged_prefill"
         kernel = TC_KERNEL
         tile = (prefill_rows(d, h // hkv, block_q), block_k)
     else:
-        lib, entry = _lib(rt.padded), "repro_paged_prefill_f32"
+        lib, entry = _lib(rt.library), "repro_paged_prefill_f32"
         kernel, tile = "paged_prefill_kernel", ()
     return (getattr(lib, entry + ("_quant" if quant else "")), kernel,
             (rt.dp, *tile, _DTYPES[q.dtype]))
@@ -521,7 +545,7 @@ def tc_info(d: int, kind: str, nblk: int = 0, *, rows: int = TC_TILE_ROWS,
     (spill) bytes, dynamic shared memory at ``nblk`` table entries, and
     resident blocks per SM.  Needs the card."""
     out = (ctypes.c_int * 4)()
-    err = _tc_lib(dp > 0).repro_paged_prefill_tc_info(
+    err = _tc_lib(part(dp)).repro_paged_prefill_tc_info(
         d, dp, TC_KINDS.index(kind), nblk, rows, block_k,
         ctypes.addressof(out))
     _raise_on("tc_info", err)
@@ -545,7 +569,7 @@ def decode_tc_info(d: int, kind: str, nblk: int = 0, *,
     SM, and under ``clusters`` the clusters of each of
     :data:`CLUSTER_SIZES` CTAs the card holds at once.  Needs the card."""
     out = (ctypes.c_int * 8)()
-    err = _dec_lib(dp > 0).repro_paged_decode_tc_info(
+    err = _dec_lib(part(dp)).repro_paged_decode_tc_info(
         d, dp, DECODE_KINDS.index(kind), nblk, block_k, ctypes.addressof(out))
     _raise_on("decode_tc_info", err)
     info = dict(zip(("registers", "local_bytes", "smem_bytes",
@@ -582,11 +606,11 @@ def _decode_entry(name: str, q: torch.Tensor, b: int, hkv: int, quant: bool,
     and the dtype code."""
     suffix = "_quant" if quant else ""
     if q.dtype == torch.bfloat16:
-        fn = getattr(_dec_lib(rt.padded),
+        fn = getattr(_dec_lib(rt.library),
                      f"repro_flash_paged_decode{suffix}_tc")
         return fn, DECODE_TC_KERNEL, (rt.dp, decode_cluster(
             name, q, b, hkv, cluster, block_k, quant), block_k)
-    fn = getattr(_lib(rt.padded), f"repro_flash_paged_decode{suffix}")
+    fn = getattr(_lib(rt.library), f"repro_flash_paged_decode{suffix}")
     return fn, DECODE_SIMT_KERNEL, (rt.dp, _DTYPES[q.dtype])
 
 
@@ -598,10 +622,10 @@ def _split_decode_entry(q: torch.Tensor, quant: bool, block_k: int,
     key tile, for float32 the SIMT template and the dtype code."""
     suffix = "_quant" if quant else ""
     if q.dtype == torch.bfloat16:
-        return (getattr(_dec_lib(rt.padded),
+        return (getattr(_dec_lib(rt.library),
                         f"repro_paged_decode_split{suffix}_tc"),
                 DECODE_TC_KERNEL, (rt.dp, block_k))
-    return (getattr(_lib(rt.padded), f"repro_paged_decode_split{suffix}"),
+    return (getattr(_lib(rt.library), f"repro_paged_decode_split{suffix}"),
             DECODE_SIMT_KERNEL, (rt.dp, _DTYPES[q.dtype]))
 
 
@@ -884,7 +908,7 @@ def paged_decode_split_merged(q: torch.Tensor, k_pool: torch.Tensor,
     rt = route(name, q.dtype, q.shape[-1])
     bk = decode_tile(name, q, block_k)
     out = _decode_merged(name, _dec_lib(
-        rt.padded).repro_paged_decode_split_merged_tc, q, (k_pool, v_pool),
+        rt.library).repro_paged_decode_split_merged_tc, q, (k_pool, v_pool),
         page_table, kv_len, num_splits, scale, return_partials, bk, rt)
     _count(paged_decode_split_merged, DECODE_TC_KERNEL, bk, rt)
     return out
@@ -907,7 +931,7 @@ def paged_decode_split_quant_merged(q: torch.Tensor, k_pool: torch.Tensor,
     rt = route(name, q.dtype, q.shape[-1])
     bk = decode_tile(name, q, block_k)
     out = _decode_merged(name, _dec_lib(
-        rt.padded).repro_paged_decode_split_quant_merged_tc, q,
+        rt.library).repro_paged_decode_split_quant_merged_tc, q,
         (k_pool, v_pool, k_scale, v_scale), page_table, kv_len, num_splits,
         scale, return_partials, bk, rt)
     _count(paged_decode_split_quant_merged, DECODE_TC_KERNEL, bk, rt)
@@ -1016,12 +1040,12 @@ def _prefill_split(name: str, wrapper, q: torch.Tensor, pools: tuple,
     tile = prefill_tile(name, q, hkv, block_q, block_k)
     if q.dtype == torch.bfloat16:
         check_tc_shape(name, h, hkv, d)
-        fn = getattr(_tc_lib(rt.padded),
+        fn = getattr(_tc_lib(rt.library),
                      f"repro_paged_prefill_split{suffix}_tc")
         kernel = TC_KERNEL
         extra = (prefill_rows(d, h // hkv, tile[0]), tile[1])
     else:
-        fn = getattr(_lib(rt.padded), f"repro_paged_prefill_split{suffix}")
+        fn = getattr(_lib(rt.library), f"repro_paged_prefill_split{suffix}")
         kernel, extra = "paged_prefill_kernel", ()
     m, l, acc = _prefill_partials(q, num_splits)
     with torch.cuda.device(q.device):
@@ -1086,7 +1110,7 @@ def _prefill_merged(name: str, wrapper, entry: str, q: torch.Tensor,
     rt = prefill_route(name, q.dtype, d, h // hkv)
     bq, bk = prefill_tile(name, q, hkv, block_q, block_k)
     rows = prefill_rows(d, h // hkv, bq)
-    fn = getattr(_tc_lib(rt.padded), entry)
+    fn = getattr(_tc_lib(rt.library), entry)
     m, l, acc = _prefill_partials(q, num_splits)
     out = torch.empty_like(q)
     # a counter per query tile: rows of the kv head's C x G rows

@@ -173,9 +173,14 @@ def register_kernel_regions(session: "at.AutoTuner | ATContext", *,
         return matmul_blocks_cost(bm, bn, bk, m=m, n=n, k=k,
                                   smem_limit=smem_limit)
 
+    # a head dim on a wide rung has one K1 tile, whose values stand alone
+    flash_values = (tuple(sorted(set(k1.WIDE_TILE)))
+                    if k1.route("flash_attention", torch.bfloat16,
+                                d_head).wide else k1.TILE_VALUES)
+
     @session.autotune(
         "install", "variable", name="FlashBlocks",
-        varied=Varied(("block_q", "block_k"), values=k1.TILE_VALUES),
+        varied=Varied(("block_q", "block_k"), values=flash_values),
         search="ad-hoc", executor="analytic-cost",
         publish=("flash_attention", {"block_q": "block_q",
                                      "block_k": "block_k"}),

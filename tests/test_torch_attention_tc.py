@@ -131,14 +131,14 @@ def normalise(l, acc):
 
 
 def k1_emulate(q, k, v, causal=True, window=None, block_q=64, block_k=64,
-               width=None):
+               width=None, step=K1_STEP_KEYS):
     """The bf16 K1's arithmetic and tiling in plain torch at the tile
     ``block_q`` x ``block_k``; output like q.  A block's query rows only
     choose which steps are skipped (nothing), and a ``block_k``-key copy
-    is walked in ``K1_STEP_KEYS``-key steps, up to the keys' own length
+    is walked in ``step``-key steps, up to the keys' own length
     (which differs from the rows' in cross attention).  ``width`` runs it
     as the padded instance of that width does (test_torch_prefill_tc's
-    ``tc_emulate``)."""
+    ``tc_emulate``; a wide one's steps are 32 keys)."""
     b, h, s_len, d = q.shape
     sk = k.shape[2]
     g = h // k.shape[1]
@@ -158,10 +158,10 @@ def k1_emulate(q, k, v, causal=True, window=None, block_q=64, block_k=64,
     if window is not None:
         mask &= (qi - kj) < window
     s = torch.where(mask, s, ref.NEG_INF)
-    assert block_q % 16 == 0 and block_k % K1_STEP_KEYS == 0
-    steps = [slice(t0 + j, t0 + j + K1_STEP_KEYS)
+    assert block_q % 16 == 0 and block_k % step == 0
+    steps = [slice(t0 + j, t0 + j + step)
              for t0 in range(0, sk, block_k)
-             for j in range(0, block_k, K1_STEP_KEYS)
+             for j in range(0, block_k, step)
              if t0 + j < sk]     # a step past Sk is skipped
     _, l, acc = online_softmax(s, vv, steps)
     return normalise(l, acc)[..., :d].to(q.dtype)

@@ -190,8 +190,8 @@ def test_decode_kernel_kv_len_zero_row_is_exactly_zero(cuda_device):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
-    q = rand((1, 2, 8, 264), 28, cuda_device, torch.float32)
-    with pytest.raises(ValueError, match="head dim 264"):
+    q = rand((1, 2, 8, 520), 28, cuda_device, torch.float32)
+    with pytest.raises(ValueError, match="head dim 520"):
         fa.flash_attention(q, q, q)
     q = rand((1, 2, 8, 32), 29, cuda_device, torch.float16)
     with pytest.raises(ValueError, match="dtype"):
@@ -297,9 +297,9 @@ def test_paged_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         pa.flash_paged_decode(q, kp.bfloat16(), vp.bfloat16(), table, lens)
     with pytest.raises(ValueError, match="one query token"):
         pa.flash_paged_decode(torch.cat([q, q], 2), kp, vp, table, lens)
-    wide = [torch.cat([t] * 9, -1)[..., :264].contiguous()
+    wide = [torch.cat([t] * 17, -1)[..., :520].contiguous()
             for t in (q, kp, vp)]
-    with pytest.raises(ValueError, match="head dim 264"):
+    with pytest.raises(ValueError, match="head dim 520"):
         pa.flash_paged_decode(*wide, table, lens)
     with pytest.raises(ValueError, match="start and kv_len"):
         pa.flash_paged_prefill(q, kp, vp, table, lens[:1], lens)
@@ -606,9 +606,9 @@ def test_split_prefill_wrappers_reject_what_the_kernels_do_not_take(
         split(q, kp, vp, table[:1], start, kv_len, 2)
     with pytest.raises(ValueError, match="num_splits"):
         split(q, kp, vp, table, start, kv_len, 0)
-    wide = [torch.cat([t] * 9, -1)[..., :264].contiguous()
+    wide = [torch.cat([t] * 17, -1)[..., :520].contiguous()
             for t in (q, kp, vp)]
-    with pytest.raises(ValueError, match="head dim 264"):
+    with pytest.raises(ValueError, match="head dim 520"):
         split(*wide, table, start, kv_len, 2)
     (k8, ks), (v8, vs) = quantize(kp), quantize(vp)
     quant = pa.paged_prefill_split_quant

@@ -5,13 +5,14 @@ The card's attention kernels (K1-K6d, ``csrc/*.cu``) have instances of
 their own at a few head dims (``fa.head_dims``) and padded instances at the
 widths of ``fa.PADDED_HEAD_DIMS``: a head dim d with no instance of its own
 runs on the smallest width DP >= d, its columns past d zero in shared
-memory and never stored (``fa.route``).  Up to 256 every d has a route; 257
-and above raise ``ValueError`` naming the limit.  Here, where the kernels
+memory and never stored (``fa.route``).  Up to 512 every d has a route
+(above 256 on the wide rungs, ``tests/test_torch_wide_heads.py``); 513 and
+above raise ``ValueError`` naming the limit.  Here, where the kernels
 cannot run:
 
-* the tables: every d from 1 to 256 has a route and tiles for every
+* the tables: every d from 1 to 512 has a route and tiles for every
   kernel and query type, the tiles of a padded instance are its defaults,
-  and d 257 raises;
+  and d 513 raises;
 * the port's plain versions (what its wrappers run on a CPU tensor, and
   the phase-1 partials of the split routes cut at the kernels' tiles)
   against the JAX kernels in interpret mode at d 8, 24, 36, 80, 96, 100,
@@ -112,8 +113,8 @@ def paged_inputs(d, c, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("name", KERNEL_NAMES)
-def test_every_head_dim_to_256_has_a_route_and_tiles(name, dtype):
-    """d 1 .. 256: the head dim's own instance where the kernel has one,
+def test_every_head_dim_to_512_has_a_route_and_tiles(name, dtype):
+    """d 1 .. 512: the head dim's own instance where the kernel has one,
     else the padded instance of the smallest width at or above it, whose
     tiles are the defaults alone; every tile the tables publish has an
     instance (the tile checks take it)."""
@@ -141,19 +142,19 @@ def test_every_head_dim_to_256_has_a_route_and_tiles(name, dtype):
                 assert pa.decode_tile(name, q, bk) == bk
 
 
-@pytest.mark.parametrize("d", [257, 288, 512])
-def test_head_dims_above_256_raise_naming_the_limit(d):
-    """Above 256 there is no instance: the tables and the checks raise
-    ``ValueError`` naming the limit and its reason (the decode kernel's
-    shared memory at the next rung)."""
+@pytest.mark.parametrize("d", [513, 544, 640])
+def test_head_dims_above_512_raise_naming_the_limit(d):
+    """Above the wide rungs (512) there is no instance: the tables and the
+    checks raise ``ValueError`` naming the limit and its reason (the
+    float32 templates' shared memory at the next rung, 640)."""
     for name in KERNEL_NAMES:
-        with pytest.raises(ValueError, match="1..256.*shared memory"):
+        with pytest.raises(ValueError, match="1..512.*shared memory"):
             fa.route(name, BF16, d)
-    with pytest.raises(ValueError, match="1..256"):
+    with pytest.raises(ValueError, match="1..512"):
         pa.check_tc_shape("flash_paged_prefill", 8, 1, d)
     assert pa.prefill_tiles(BF16, d, 8) == ((), ())
-    # the reason: the decode kernel's default tile at the next rung
-    assert pa.decode_smem_bytes(288, 64, False, 0) == 236_800 > 227 * 1024
+    # the reason: the float32 templates' 32-row tile at the next rung
+    assert fa.simt_smem_bytes(640) == 249_984 > 227 * 1024
 
 
 @pytest.mark.parametrize("width", [None, 64, 96, 128, 192, 256])

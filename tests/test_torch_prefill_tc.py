@@ -66,7 +66,12 @@ def pad_cols(x, width):
 def kstep_scores(eq, q, k):
     """Q.K^T as the mma's 16-deep steps over the head dim, summed in
     order in fp32: a step of zero columns (a padded instance's) adds
-    exactly nothing."""
+    exactly nothing.  A width above 256 is a wide instance's: each
+    128-column slice's steps summed in order, then the slices' partial
+    sums in slice order (``mma.cuh``'s ``sum_slices``)."""
+    if q.shape[-1] > 256:
+        return sum(kstep_scores(eq, q[..., i:i + 128], k[..., i:i + 128])
+                   for i in range(0, q.shape[-1], 128))
     return sum(torch.einsum(eq, q[..., i:i + 16], k[..., i:i + 16])
                for i in range(0, q.shape[-1], 16))
 
