@@ -5,8 +5,9 @@ Phases, one line each (a failed check raises and the script exits
 non-zero; nothing falls back to the CPU or to the plain versions):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``),
-   all in parallel, each source's seconds from its log; the instances
+2. build: nvcc compiles every CUDA source of the port (``csrc/*.cu``)
+   into its 16 libraries (``build.library_names``), one nvcc a CPU core,
+   the slowest first, each library's seconds from its log; the instances
    of the tensor-core kernels, those of their own, the padded ones
    (each kernel's default tile at the widths of ``fa.PADDED_HEAD_DIMS``
    up to 256) and the wide ones (their one tile at 384 and 512) apart
@@ -364,8 +365,9 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    ``torch.distributed``): a 1x2 world spawned by ``run_world``, both
    ranks on the one card over gloo (NCCL refuses two ranks on one
    device; what gloo cannot carry is staged through the host), each
-   holding yi-6b whole (32 layers, the same seeded weights, checked by a
-   checksum all-reduce) and its half of the KV heads, serving phase 9's
+   holding yi-6b at full width, depth cut to 8 of its 32 layers
+   (``MESH_LAYERS``; the same seeded weights, checked by a checksum
+   all-reduce) and its half of the KV heads, serving phase 9's
    requests: (a) the paged pool without chunks (K1 prefill, K3), (b)
    chunks of 128 (K4, K3), (c) int8 pages at 8 splits (K6c, K6b with
    K5c merged), (d) speculative at 8 splits (K5b with K5c merged; the
@@ -382,16 +384,23 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    pool bytes, the bytes staged through the host and the host ms in the
    collectives, peak memory a rank.  Two ranks share one card: no time
    here is a multi-card speed;
-38. the layout tooling: (a) phase 26a's gateway serve through ``serve
+38. the layout tooling: (a) phase 26a's gateway serve, yi-6b at full
+   width cut to 8 of 32 layers as in phase 37, through ``serve
    --gateway --mesh 1x2`` (two ranks on the one card over gloo; rank 0's
    gateway broadcasts each tick's admissions, rank 1 follows): greedy
    tokens equal to rank 0's unsharded gateway serve in the phase, each
-   rank's K4 and K3 launches equal to it and to each other, tokens/s,
-   TTFT, ITL and the loop's host ms a tick beside the unsharded
-   gateway's; (b) the same with ``--autotune`` (``GatewayPolicy`` windows
-   of one request), twice in one workdir: the warm run measures nothing
-   and both ranks hold rank 0's winners, its greedy tokens at least 90%
-   equal to the unsharded serve's; (c)
+   admission's first logits bit-equal to it (or within 5e-2 of their
+   scale), each rank's K4 and K3 launches equal to it and to each other,
+   tokens/s, TTFT, ITL and the loop's host ms a tick beside the
+   unsharded gateway's; (b) the same with ``--autotune``
+   (``GatewayPolicy`` windows of one request), twice in one workdir: the
+   warm run measures nothing and both ranks hold rank 0's winners, and
+   is held to rank 0's unsharded gateway serve over the same records (a
+   tuner of the mesh's region names binding no mesh, which warm-loads
+   the same winners: the same tiles and splits) exactly: every greedy
+   token, every first logit bit for bit, the launches; its agreement
+   with the untuned unsharded serve (other tiles, other rounding) is
+   printed; (c)
    ``dryrun_cell`` (fake tensors over fake worlds of 256 and 512 ranks,
    on the host's CPU) for yi-6b decode_32k (all 32 layers; its per-rank
    FLOPs within 10% of ``step_costs``' share) and train_4k
@@ -399,8 +408,9 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    dot FLOPs against ``step_costs``' over the ranks, bytes a rank,
    collective bytes by kind, seconds a cell; (d) ``tune_layout`` for
    yi-6b train_4k with ``compiled_plan_cost`` (at 2 layers), beside the
-   analytic winner, read back warm.  (c) and (d) need no device: they
-   run in a process of their own, started before phase 37.
+   analytic winner, read back warm, the bound of (c)'s plan equal to
+   (c)'s.  (c) and (d) need no device: each runs in a process of its
+   own (one core each), both started before phase 37.
 39. every head dim and group size the Pallas attention kernels take: K1-K6d
    against plain at D 24, 36, 37, 80, 90, 96, 100, 112, 160 and 256 (28 q
    / 4 kv heads: G 7; 37 and 90 give bf16 and int8 rows that are no
@@ -625,6 +635,7 @@ def phase_build() -> None:
         pa._lib(lib_part)
         pa._tc_lib(lib_part)
         pa._dec_lib(lib_part)
+    pa._tc_lib(build.INT8_POOLS)
     mmk._lib()
     fk._lib()
     k9._lib()
@@ -669,7 +680,9 @@ def phase_build() -> None:
              (39, 30, 10))):
         logs = [paths[name].with_suffix(".log")
                 for name in (source, source + build.PADDED,
-                             source + build.WIDE)]
+                             source + build.WIDE,
+                             *(source + p for p in build.OWN_PARTS.get(
+                                 source, ())))]
         if not all(log.exists() for log in logs):
             continue
         lines, pads, wides = [], [], []
@@ -5861,6 +5874,26 @@ MESH_SERVES = (
       fa.flash_attention, fa.flash_decode)))
 MESH_RING_PROMPTS, MESH_RING_LEN = 2, 4096   # (e): prompts the ring takes
 PSUM_SHAPE = (4096, 1024)            # (f)
+#: phases 37 and 38 (a, b) serve yi-6b at full width cut to this many of
+#: its 32 layers: two ranks sharing one card check the mechanism, not a
+#: speed, and every check holds at any depth (the launch counts scale
+#: with the layers)
+MESH_LAYERS = 8
+
+
+def mesh_cut(layers: int) -> str:
+    """The depth of a phase 37 or 38 serve, as its line prints it."""
+    full = get_arch("yi-6b").n_layers
+    return (f"depth cut: {layers} of {full} layers" if layers < full
+            else f"all {full} layers")
+
+
+def mesh_model(layers: int):
+    """yi-6b at full width cut to ``layers`` of its 32 layers, random bf16
+    weights from seed 0 on the card."""
+    model = build_model(dataclasses.replace(get_arch("yi-6b"),
+                                            n_layers=layers))
+    return model, model.init(0, "cuda")
 
 
 def mesh_engine(model, params, mesh, kw: dict, n_lanes: int,
@@ -5951,18 +5984,18 @@ def wall_ms(fn, iters: int = 5) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def mesh_rank() -> dict:
+def mesh_rank(layers: int) -> dict:
     """One rank of phase 37's 1x2 world (both ranks on the one card, over
-    gloo): (a)-(d) served sharded, each after rank 0 served it unsharded
-    (rank 1 waiting); (e) the ring; (f) ``compressed_psum``.  Returns what
-    the parent checks and prints."""
+    gloo), yi-6b cut to ``layers``: (a)-(d) served sharded, each after
+    rank 0 served it unsharded (rank 1 waiting); (e) the ring; (f)
+    ``compressed_psum``.  Returns what the parent checks and prints."""
     mesh = make_serving_mesh(MESH)
-    model = build_model(get_arch("yi-6b"))
-    params = model.init(0, "cuda")
+    model, params = mesh_model(layers)
     serve_mod.check_same_weights(params, mesh)
     rank0 = mesh.rank == 0
     out = {"rank": mesh.rank, "backend": dist.get_backend(),
-           "coords": dict(mesh.coords), "serves": {}}
+           "coords": dict(mesh.coords), "serves": {},
+           "draft_layers": model.draft_model().cfg.n_layers}
     for label, _, kw, _ in MESH_SERVES:
         ref = mesh_serve(model, params, None, kw) if rank0 else None
         dist.barrier()
@@ -6019,13 +6052,12 @@ def mesh_rank() -> dict:
     return out
 
 
-def nccl_rank(ref_tokens: dict, ref_firsts: dict) -> dict:
+def nccl_rank(ref_tokens: dict, ref_firsts: dict, layers: int) -> dict:
     """(g): phase 37b's serve through ``"1x1"`` in a NCCL world of one
     rank: the unsharded path, no collective in the serve; one all-reduce
     (the weights' checksum) goes through NCCL."""
     mesh = make_serving_mesh("1x1")
-    model = build_model(get_arch("yi-6b"))
-    params = model.init(0, "cuda")
+    model, params = mesh_model(layers)
     c = serve_mod.weights_checksum(params)
     back = collectives.all_reduce(torch.tensor([c], dtype=torch.float64,
                                                device="cuda"))
@@ -6037,11 +6069,11 @@ def nccl_rank(ref_tokens: dict, ref_firsts: dict) -> dict:
     return got
 
 
-def mesh_launch_check(label: str, got: dict, kernels, n_layers: int = 32
-                      ) -> None:
+def mesh_launch_check(label: str, got: dict, kernels, n_layers: int,
+                      n_draft: int) -> None:
     """Each rank's launches: the serve's kernels and no other, each
-    launched, and the per-layer counts of its chunks, steps and
-    verifies."""
+    launched, and the per-layer counts of its chunks, steps and verifies
+    (``n_layers`` the target's, ``n_draft`` the draft's)."""
     what = f"37{label}, rank {got['rank']}"
     launches, report = got["launches"], got["report"]
     only_launched(launches, kernels, what)
@@ -6058,18 +6090,20 @@ def mesh_launch_check(label: str, got: dict, kernels, n_layers: int = 32
                   "paged_decode_split_quant_merged": n_layers * steps},
             "d": {"flash_paged_prefill": n_layers * report["prefill_chunks"],
                   "paged_prefill_split_merged": n_layers * steps,
-                  "flash_attention": 16 * got["drafts"]["prefill"],
-                  "flash_decode": 16 * got["drafts"]["decode_step"]}}[label]
+                  "flash_attention": n_draft * got["drafts"]["prefill"],
+                  "flash_decode": n_draft * got["drafts"]["decode_step"]}
+            }[label]
     for name, n in want.items():
         check(launches.get(name, 0) == n,
               f"{what}: {name} launched {launches.get(name, 0)} times, "
               f"expected {n}")
 
 
-def phase_mesh(smi: str) -> None:
-    """Phase 37: tensor-parallel paged serving of yi-6b (full width, all
-    32 layers) on a 1x2 mesh, both ranks on the one card over gloo (NCCL
-    refuses two ranks on one device): (a)-(d) greedy tokens equal to the
+def phase_mesh(smi: str, layers: int = MESH_LAYERS) -> None:
+    """Phase 37: tensor-parallel paged serving of yi-6b (full width, cut
+    to ``layers`` of 32) on a 1x2 mesh, both ranks on the one card over
+    gloo (NCCL refuses two ranks on one device): (a)-(d) greedy tokens
+    equal to the
     unsharded engine's, served by rank 0 in the same phase, each
     admission's first logits bit-equal (or within 5e-2 of their scale),
     per-rank launches by kernel, pools half the unsharded bytes; (e) two
@@ -6086,10 +6120,13 @@ def phase_mesh(smi: str) -> None:
           f"{before / 1e9:.2f} GB, after freeing its cached blocks "
           f"{torch.cuda.memory_reserved() / 1e9:.2f} GB; spawning {MESH} "
           f"(2 ranks on cuda:0, backend gloo)")
-    ranks = run_world(mesh_rank, 2, device="cuda", join_timeout_s=900.0)
+    ranks = run_world(mesh_rank, 2, device="cuda", args=(layers,),
+                      join_timeout_s=900.0)
     check([r["rank"] for r in ranks] == [0, 1], "ranks out of order")
     check(all(r["backend"] == "gloo" for r in ranks), "backend not gloo")
     r0 = ranks[0]
+    n_draft = r0["draft_layers"]
+    cut = mesh_cut(layers)
     lines = []
     for label, what, kw, kernels in MESH_SERVES:
         a, b = (r["serves"][label] for r in ranks)
@@ -6107,7 +6144,7 @@ def phase_mesh(smi: str) -> None:
         check(f["bit_equal"] == f["n"] or f["worst_rel"] <= 5e-2,
               f"37{label}: first logits {f}")
         for r in (a, b):
-            mesh_launch_check(label, r, kernels)
+            mesh_launch_check(label, r, kernels, layers, n_draft)
         check(a["pool_heads"] * 2 == ref["pool_heads"]
               and a["pool_bytes"] * 2 == ref["pool_bytes"],
               f"37{label}: pools {a['pool_bytes']} B at {a['pool_heads']} "
@@ -6133,9 +6170,9 @@ def phase_mesh(smi: str) -> None:
             f"(host clock), {gather_s * 1e3 / rep['decode_steps']:.2f} ms "
             f"a tick" + (" (every gather in a decode tick)"
                          if label == "a" else " (chunks' gathers in)"))
-    print(f"[37 mesh serves] yi-6b full (32 layers), {MESH}, 8 requests of "
-          f"32 tokens, 4 lanes, pages of 16, ranks sharing one card on "
-          f"{smi}: " + "; ".join(lines))
+    print(f"[37 mesh serves] yi-6b at full width, {cut} (a draft of "
+          f"{n_draft}), {MESH}, 8 requests of 32 tokens, 4 lanes, pages of "
+          f"16, ranks sharing one card on {smi}: " + "; ".join(lines))
     a, b = (r["ring"] for r in ranks)
     rep, rref = a["report"], a["ref"]["report"]
     check(b["report"]["outputs"] == rep["outputs"],
@@ -6151,11 +6188,12 @@ def phase_mesh(smi: str) -> None:
               and r["ring_calls"].get("all_gather") == 1,
               f"37e: the ring's collectives {r['ring_calls']}")
         check(r["launches"].get("flash_paged_decode", 0)
-              == 32 * rep["decode_steps"],
+              == layers * rep["decode_steps"],
               f"37e: K3 launches {r['launches']}")
     check(a["ring_err"] <= TOL[torch.bfloat16],
           f"37e: the ring against K1 {a['ring_err']}")
-    print(f"[37e ring] 2 prompts of {MESH_RING_LEN} tokens, prefill through the "
+    print(f"[37e ring] yi-6b, {cut}: 2 prompts of {MESH_RING_LEN} tokens, "
+          f"prefill through the "
           f"ring (float32, 1 block send a layer a rank; no K1 launch): first "
           f"logits against the unsharded K1 prefill within "
           f"{f['worst_rel']:.2e} of their scale (tol 5e-2), argmax agrees "
@@ -6181,7 +6219,8 @@ def phase_mesh(smi: str) -> None:
           f"2 amax / 127 = {p['bound']:.4e}); staged bytes {p['staged']}")
     b = r0["serves"]["b"]
     g = run_world(nccl_rank, 1, device="cuda",
-                  args=(b["ref"]["report"]["outputs"], r0["b_ref_firsts"]),
+                  args=(b["ref"]["report"]["outputs"], r0["b_ref_firsts"],
+                        layers),
                   join_timeout_s=600.0)[0]
     f = g["first"]
     check(g["backend"] == "nccl" and g["checksum_same"],
@@ -6191,9 +6230,10 @@ def phase_mesh(smi: str) -> None:
     check(f["bit_equal"] == f["n"] or f["worst_rel"] <= 5e-2,
           f"37g: first logits {f}")
     g["rank"] = 0
-    mesh_launch_check("b", g, MESH_SERVES[1][3])
+    mesh_launch_check("b", g, MESH_SERVES[1][3], layers, n_draft)
     check(not g["calls"], f"37g: the 1x1 serve made collectives {g['calls']}")
-    print(f"[37g 1x1] phase 37b's serve through make_serving_mesh('1x1') in "
+    print(f"[37g 1x1] yi-6b, {cut}: phase 37b's serve through "
+          f"make_serving_mesh('1x1') in "
           f"a NCCL world of one rank (one all-reduce through NCCL, the "
           f"weights' checksum; none in the serve): greedy tokens equal to "
           f"the unsharded engine's, first logits bit-equal "
@@ -6221,25 +6261,53 @@ DRY_CELLS = (("decode_32k", False, None), ("train_4k", False, 2),
 DRY_LAYERS = 2                      # (38d) the depth the plans are run at
 
 
-def gateway_serve_counts(model, params, scfg: ServeConfig, mesh) -> dict:
+@contextlib.contextmanager
+def first_logits_by_prompt():
+    """While open, every engine's admissions record their first logits,
+    keyed by the prompt (a gateway's request ids follow the clients'
+    arrival order, which may differ from serve to serve)."""
+    firsts, inner = {}, ServingEngine._next_token
+
+    def first(self, req, logits):
+        key = tuple(int(t) for t in req.prompt)
+        if key not in firsts:
+            firsts[key] = logits.float().cpu()
+        return inner(self, req, logits)
+
+    ServingEngine._next_token = first
+    try:
+        yield firsts
+    finally:
+        ServingEngine._next_token = inner
+
+
+def gateway_serve_counts(model, params, scfg: ServeConfig, mesh,
+                         tuner=None) -> dict:
     """One serve of ``scfg`` (through its gateway) on this rank, every
-    launch counter zeroed just before and read just after."""
+    launch counter zeroed just before and read just after, and each
+    admission's first logits by prompt (``tuner``: ``serve_model``'s)."""
     for kernel in KERNELS:
         kernel.launches = 0
-    report = serve_mod.serve_model(model, params, scfg, mesh)
+    with first_logits_by_prompt() as firsts:
+        report = serve_mod.serve_model(model, params, scfg, mesh, tuner)
     torch.cuda.synchronize()
-    return {"report": report, "launches": {k.__name__: k.launches
-                                           for k in KERNELS if k.launches}}
+    return {"report": report, "firsts": firsts,
+            "launches": {k.__name__: k.launches
+                         for k in KERNELS if k.launches}}
 
 
-def gateway_rank(workdir: str) -> dict:
+def gateway_rank(workdir: str, layers: int) -> dict:
     """One rank of phase 38's 1x2 world (both ranks on the one card over
-    gloo): (a) rank 0 serves phase 26a's gateway unsharded (rank 1
-    waiting), then rank 0's gateway serves it over the mesh with rank 1
-    following; (b) the same with ``--autotune`` in ``workdir``, twice."""
+    gloo), yi-6b cut to ``layers``: (a) rank 0 serves phase 26a's gateway
+    unsharded (rank 1 waiting), then rank 0's gateway serves it over the
+    mesh with rank 1 following; (b) the same with ``--autotune`` in
+    ``workdir``, twice, and then rank 0 (rank 1 waiting) serves it
+    unsharded with the winners the mesh serves committed: its tuner
+    declares the mesh's regions (``_mesh1x2``) in ``workdir`` and binds
+    no mesh, so it warm-loads them and runs the unsharded steps at the
+    same tiles and splits."""
     mesh = make_serving_mesh(MESH)
-    model = build_model(get_arch("yi-6b"))
-    params = model.init(0, "cuda")
+    model, params = mesh_model(layers)
     serve_mod.check_same_weights(params, mesh)
     base = ServeConfig(**{**SERVE, **GATEWAY_26A})
     out = {"rank": mesh.rank}
@@ -6248,12 +6316,21 @@ def gateway_rank(workdir: str) -> dict:
     dist.barrier()
     out["a"] = gateway_serve_counts(
         model, params, dataclasses.replace(base, mesh=MESH), mesh)
+    # GatewayPolicy windows of one request, as phase 27c: its four
+    # candidates commit within the 8 requests
+    tuned = dataclasses.replace(base, mesh=MESH, autotune=True,
+                                workdir=workdir, policy_window=1)
     for run in ("cold", "warm"):
-        # GatewayPolicy windows of one request, as phase 27c: its four
-        # candidates commit within the 8 requests
-        out[run] = gateway_serve_counts(model, params, dataclasses.replace(
-            base, mesh=MESH, autotune=True, workdir=workdir,
-            policy_window=1), mesh)
+        out[run] = gateway_serve_counts(model, params, tuned, mesh)
+    if mesh.rank == 0:
+        like = serve_mod.make_autotuner(model, tuned, None)
+        out["like"] = gateway_serve_counts(
+            model, params, dataclasses.replace(tuned, mesh=None), None,
+            like)
+    dist.barrier()
+    if mesh.rank != 0:                 # rank 0's logits are the ones held
+        for run in ("a", "cold", "warm"):
+            del out[run]["firsts"]
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
@@ -6384,16 +6461,15 @@ def dry_run_cells() -> tuple[list[str], dict]:
     return lines, bounds
 
 
-def layout_by_dry_run(card: str, known: dict) -> str:
+def layout_by_dry_run(card: str) -> tuple[str, dict]:
     """(d): ``tune_layout`` for yi-6b train_4k with ``cost_fn`` the dry
-    run's bound (``compiled_plan_cost``; a plan in ``known``, (c)'s 16x16
-    cell, is not run again: its bound is what ``compiled_plan_cost``
-    returns for it), beside the analytic winner at the same depth; a
-    second session reads the winner back warm (the costs already known,
-    no dry run)."""
+    run's bound (``compiled_plan_cost``, each plan run once), beside the
+    analytic winner at the same depth; a second session reads the winner
+    back warm (the costs already known, no dry run).  Returns the line
+    and the bound by plan."""
     from repro_torch.tuning import static
     with dry_depth(DRY_LAYERS), tempfile.TemporaryDirectory() as workdir:
-        known, runs = dict(known), []
+        known, runs = {}, []
 
         def cost_fn(plan: str) -> float:
             if plan not in known:
@@ -6420,115 +6496,177 @@ def layout_by_dry_run(card: str, known: dict) -> str:
     return (f"tune_layout(yi-6b, train_4k, cost_fn=compiled_plan_cost) at "
             f"{DRY_LAYERS} of 32 layers, 16x16: dry-run bounds "
             + ", ".join(f"{p} {c:.6g} s" for p, c in known.items())
-            + f" -> {won!r} ({len(runs)} dry runs here, {runs}; the "
-            f"other from (c); {secs:.1f} s), read back "
-            f"warm with no dry run; the analytic costs at the same depth "
+            + f" -> {won!r} ({len(runs)} dry runs, {runs}; {secs:.1f} s), "
+            f"read back warm with no dry run; the analytic costs at the "
+            f"same depth "
             + ", ".join(f"{p} {c:.6g} s" for p, c in analytic.items())
             + f" -> {min(analytic, key=analytic.get)!r} (phase 36, all 32 "
-            f"layers: 'tp')")
+            f"layers: 'tp')"), known
 
 
 DRY_CHILD = r'''
 import json, sys, time
 import chip_smoke as cs
 t0 = time.perf_counter()
-lines, bounds = cs.dry_run_cells()
-line_d = cs.layout_by_dry_run(sys.argv[1], bounds)
-print("DRY" + json.dumps({"c": lines, "d": line_d,
-                          "s": time.perf_counter() - t0}))
+if sys.argv[2] == "c":
+    lines, bounds = cs.dry_run_cells()
+    out = {"lines": lines, "bounds": bounds}
+else:
+    line, bounds = cs.layout_by_dry_run(sys.argv[1])
+    out = {"line": line, "bounds": bounds}
+print("DRY" + json.dumps({**out, "s": time.perf_counter() - t0}))
 '''
 
 
-def start_dry_runs():
-    """Phase 38 (c) and (d) in a process of their own, started before
+def start_dry_runs() -> dict:
+    """Phase 38 (c) and (d), each in a process of its own, started before
     phase 37: fake tensors on the host's CPU need no device, so they run
-    beside the card's phases 37 and 38a-b.  Returns (the process, its
-    stdout and stderr files)."""
-    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-    proc = subprocess.Popen(
-        [sys.executable, "-c", DRY_CHILD, torch.cuda.get_device_name(0)],
-        cwd=str(Path(__file__).resolve().parent), stdout=out, stderr=err,
-        text=True)
-    return proc, out, err
+    beside the card's phases 37 and 38a-b, one core each (a dry run runs
+    one thread).  Returns {part: (the process, its stdout and stderr
+    files)}."""
+    dry = {}
+    for part in ("c", "d"):
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        dry[part] = (subprocess.Popen(
+            [sys.executable, "-c", DRY_CHILD, torch.cuda.get_device_name(0),
+             part], cwd=str(Path(__file__).resolve().parent), stdout=out,
+            stderr=err, text=True), out, err)
+    return dry
 
 
-def phase_layout(smi: str, dry) -> None:
-    """Phase 38: (a) phase 26a's gateway serve (yi-6b full, paged, chunks
-    of 128, max_inflight 2) through ``serve --gateway --mesh 1x2``: two
-    ranks on the one card over gloo, rank 0's gateway broadcasting each
-    tick's admissions to rank 1; greedy tokens equal to rank 0's unsharded
-    gateway serve in the phase, per-rank launches of K4 and K3 equal to it
-    and to each other; (b) the same with ``--autotune``, twice in one
-    workdir: the warm run measures nothing and commits rank 0's winners;
-    (c) the dry run at full width over fake worlds; (d) static AT by the
-    dry run's bound ((c) and (d) run in ``dry``, :func:`start_dry_runs`'s
-    process, which this phase waits for)."""
+def stop_dry_runs(dry: dict) -> None:
+    """Kill the dry runs' processes still running (a phase failed before
+    phase 38 waited for them)."""
+    for proc, _, _ in dry.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dry_result(dry: dict, part: str) -> dict:
+    """What the dry runs' process ``part`` printed, once it has ended."""
+    proc, out, err = dry[part]
+    proc.wait(timeout=1200)
+    out.seek(0)
+    err.seek(0)
+    check(proc.returncode == 0,
+          f"38{part}: the dry-run process exited {proc.returncode}: "
+          f"{err.read()[-3000:]}")
+    return json.loads(next(x for x in out.read().splitlines()
+                           if x.startswith("DRY"))[3:])
+
+
+def firsts_agree(got: dict, want: dict) -> dict:
+    """:func:`first_logits` of two serves' first logits by prompt."""
+    check(set(got) == set(want), "the serves admitted other prompts")
+    return first_logits(got, want)
+
+
+def phase_gateway_mesh(smi: str, layers: int = MESH_LAYERS) -> None:
+    """Phase 38 (a) and (b) (:func:`phase_layout`) with yi-6b cut to
+    ``layers`` of its 32 layers."""
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
+    cut = mesh_cut(layers)
     with tempfile.TemporaryDirectory() as workdir:
-        ranks = run_world(gateway_rank, 2, device="cuda", args=(workdir,),
-                          join_timeout_s=900.0)
+        ranks = run_world(gateway_rank, 2, device="cuda",
+                          args=(workdir, layers), join_timeout_s=900.0)
     lead, follow = ranks
     check([r["rank"] for r in ranks] == [0, 1], "ranks out of order")
-    ref = lead["ref"]
+    ref, like = lead["ref"], lead["like"]
     gateway_mesh_checks("a", lead["a"], follow["a"], ref)
+    fa_ = firsts_agree(lead["a"]["firsts"], ref["firsts"])
+    check(fa_["bit_equal"] == fa_["n"] or fa_["worst_rel"] <= 5e-2,
+          f"38a: first logits {fa_}")
     cold, warm = lead["cold"]["report"], lead["warm"]["report"]
     gateway_mesh_checks("b cold", lead["cold"], follow["cold"], None, True)
-    gateway_mesh_checks("b warm", lead["warm"], follow["warm"], None, True)
     ca, wa = cold["autotune"], warm["autotune"]
-    check(ca["measurements"] > 0 and wa["measurements"] == 0,
+    la = like["report"]["autotune"]
+    check(ca["measurements"] > 0 and wa["measurements"] == 0
+          and la["measurements"] == 0,
           f"38b: measurements cold {ca['measurements']}, warm "
-          f"{wa['measurements']} (in {wa['measured_regions']})")
+          f"{wa['measurements']} (in {wa['measured_regions']}), unsharded "
+          f"over the mesh's records {la['measurements']} (in "
+          f"{la['measured_regions']})")
     check(all(n.endswith("_mesh1x2") for n in ca["measured_regions"]),
           f"38b: regions {ca['measured_regions']}")
-    check(wa["committed"] == ca["committed"]
+    check(wa["committed"] == ca["committed"] == la["committed"]
           == follow["warm"]["report"]["autotune"]["committed"],
-          "38b: the ranks' or the runs' winners differ")
-    # a tuned tile rounds otherwise than the untuned one, so a near-tie
-    # may flip a token and the request's later tokens with it: the
-    # prediction's floor, 90% of the tokens equal position by position
-    same, total = (int(n) for n in
-                   greedy_agreement(warm, ref["report"]).split("/"))
-    check(same >= 0.9 * total,
-          f"38b: greedy tokens {same}/{total} equal to the unsharded "
-          f"serve's, under the 90% floor")
-    print(f"[38a gateway over 1x2] yi-6b full (32 layers), phase 26a's 8 "
-          f"requests of 32 tokens as TCP clients of rank 0's gateway, ranks "
-          f"sharing one card (gloo) on {smi}: greedy tokens equal to rank "
-          f"0's unsharded gateway serve; launches a rank "
+          "38b: the ranks', the runs' or the unsharded serve's winners "
+          "differ")
+    fl = firsts_agree(lead["warm"]["firsts"], like["firsts"])
+    print(f"[38a gateway over 1x2] yi-6b at full width, {cut}, phase 26a's "
+          f"8 requests of 32 tokens as TCP clients of rank 0's gateway, "
+          f"ranks sharing one card (gloo) on {smi}: greedy tokens equal to "
+          f"rank 0's unsharded gateway serve "
+          f"{greedy_agreement(lead['a']['report'], ref['report'])}, first "
+          f"logits bit-equal {fa_['bit_equal']}/{fa_['n']}; launches a rank "
           f"{lead['a']['launches']} (both ranks, the unsharded serve's "
           f"{ref['launches']}); "
           + mesh_gateway_line("sharded", lead["a"]["report"]) + "; "
           + mesh_gateway_line("unsharded", ref["report"])
           + f"; {lead['a']['report']['gateway']['syncs']} tick messages")
-    print(f"[38b autotuned gateway over 1x2] cold: {ca['measurements']} "
-          f"measurements in {len(ca['measured_regions'])} regions, "
-          f"committed {ca['committed']}; warm: 0 measurements, "
+    print(f"[38b autotuned gateway over 1x2] yi-6b, {cut}: cold: "
+          f"{ca['measurements']} measurements in "
+          f"{len(ca['measured_regions'])} regions, committed "
+          f"{ca['committed']}; warm: 0 measurements, "
           f"{len(wa['warm_regions'])} regions warm-loaded, rank 0's winners "
-          f"on both ranks; greedy tokens against the unsharded serve "
-          f"{greedy_agreement(warm, ref['report'])}; "
-          + mesh_gateway_line("cold", cold) + "; "
-          + mesh_gateway_line("warm", warm)
+          f"on both ranks; against rank 0's unsharded gateway serve over "
+          f"the same records (0 measurements, {len(la['warm_regions'])} "
+          f"regions warm-loaded, the same winners): greedy tokens equal "
+          f"{greedy_agreement(warm, like['report'])}, first logits "
+          f"bit-equal {fl['bit_equal']}/{fl['n']} (worst "
+          f"{fl['worst_rel']:.2e} of the scale), launches unsharded "
+          f"{like['launches']}; against the untuned unsharded serve "
+          f"(other tiles, other rounding) {greedy_agreement(warm, ref['report'])}"
+          f" tokens equal; " + mesh_gateway_line("cold", cold) + "; "
+          + mesh_gateway_line("warm", warm) + "; "
+          + mesh_gateway_line("unsharded, same winners", like["report"])
           + f"; peak memory rank 0 {lead['peak_gb']:.2f} GB, rank 1 "
           f"{follow['peak_gb']:.2f} GB; launches a rank cold "
-          f"{lead['cold']['launches']}, warm {lead['warm']['launches']}")
+          f"{lead['cold']['launches']}, warm {lead['warm']['launches']}; "
+          f"38a-b in {time.perf_counter() - t0:.1f}s")
+    # like for like: the unsharded serve at the warm run's committed tiles
+    # and splits; each head's attention is independent of the sharding,
+    # so every greedy token and every first logit is the same
+    gateway_mesh_checks("b warm", lead["warm"], follow["warm"], like, True)
+    check(fl["bit_equal"] == fl["n"],
+          f"38b: first logits against the unsharded serve at the same "
+          f"winners {fl}")
+
+
+def phase_layout(smi: str, dry, layers: int = MESH_LAYERS) -> None:
+    """Phase 38: (a) phase 26a's gateway serve (yi-6b at full width cut to
+    ``layers`` of its 32 layers, paged, chunks of 128, max_inflight 2)
+    through ``serve --gateway --mesh 1x2``: two ranks on the one card over
+    gloo, rank 0's gateway broadcasting each tick's admissions to rank 1;
+    greedy tokens equal to rank 0's unsharded gateway serve in the phase
+    and each admission's first logits bit-equal to it, per-rank launches
+    of K4 and K3 equal to it and to each other; (b) the same with
+    ``--autotune``, twice in one workdir: the warm run measures nothing
+    and commits rank 0's winners, and is held to rank 0's unsharded
+    gateway serve over the same records (the same winners, warm-loaded:
+    the same tiles and splits) exactly: every greedy token, every first
+    logit bit for bit, the launches; (c) the dry run at full width over
+    fake worlds; (d) static AT by the dry run's bound ((c) and (d) run in
+    ``dry``, :func:`start_dry_runs`'s processes, which this phase waits
+    for)."""
+    t0 = time.perf_counter()
+    phase_gateway_mesh(smi, layers)
     t1 = time.perf_counter()
-    proc, out, err = dry
-    proc.wait(timeout=1200)
-    out.seek(0)
-    err.seek(0)
-    check(proc.returncode == 0,
-          f"38c/d: the dry-run process exited {proc.returncode}: "
-          f"{err.read()[-3000:]}")
-    res = json.loads(next(x for x in out.read().splitlines()
-                          if x.startswith("DRY"))[3:])
+    c, d = dry_result(dry, "c"), dry_result(dry, "d")
+    # (d) ran (c)'s 16x16 train_4k cell again at its plan: the same bound
+    check(all(d["bounds"][p] == b for p, b in c["bounds"].items()),
+          f"38d: bounds {d['bounds']} against (c)'s {c['bounds']}")
     print("[38c dry run] fake tensors over fake worlds (no device work): "
-          + "; ".join(res["c"]))
-    print("[38d static AT by the dry run] " + res["d"])
+          + "; ".join(c["lines"]))
+    print("[38d static AT by the dry run] " + d["line"] + "; the bound of "
+          f"(c)'s plan equal to (c)'s")
     print(f"[38 layout] the gateway (a, b) in {t1 - t0:.1f}s; the dry runs "
-          f"(c, d) took {res['s']:.1f}s in their own process beside phases "
-          f"37-38b, {time.perf_counter() - t1:.1f}s waited for here")
+          f"took (c) {c['s']:.1f}s and (d) {d['s']:.1f}s in processes of "
+          f"their own beside phases 37-38b, {time.perf_counter() - t1:.1f}s "
+          f"waited for here")
 
 
 # --------------------------------------------------------------------------
@@ -7336,9 +7474,7 @@ def main() -> int:
         phase_layout(smi, dry)
         done("38")
     finally:
-        if dry[0].poll() is None:      # a phase failed before 38 waited
-            dry[0].kill()
-            dry[0].wait()
+        stop_dry_runs(dry)
     rows += phase_shapes(smi)
     done("39")
     check(len(rows) == 100, f"{len(rows)} kernel rows, expected 100")

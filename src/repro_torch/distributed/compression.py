@@ -78,3 +78,9 @@ def compress_roundtrip_error(x: torch.Tensor) -> torch.Tensor:
     """Quantization round-trip error (tests / telemetry)."""
     q, s = quantize_int8(x)
     return (dequantize_int8(q, s) - x.float()).abs().max()
+
+
+def compress_roundtrip_error_rows(x: torch.Tensor) -> torch.Tensor:
+    """Per-row quantization round-trip error (tests / telemetry)."""
+    q, s = quantize_int8_rows(x)
+    return (dequantize_int8_rows(q, s) - x.float()).abs().max()

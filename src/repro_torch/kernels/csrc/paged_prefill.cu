@@ -842,6 +842,19 @@ cudaError_t launch(const Args& a, int G) {
   return cudaGetLastError();
 }
 
+// The own instances build into two libraries (kernels/build.py's
+// OWN_PARTS): those over bf16 pools (K4, K5b) without REPRO_INT8_POOLS and
+// those over int8 pools (K6c, K6d) with it, so that the two compile side
+// by side; the padded and wide parts hold both.  A library asked for an
+// own instance over the other pools returns cudaErrorInvalidValue.
+#ifndef REPRO_INT8_POOLS
+#define REPRO_INT8_POOLS 0
+#endif
+template <typename S, bool PAD>
+constexpr bool holds_pools() {
+  return PAD || std::is_same_v<S, int8_t> == (REPRO_INT8_POOLS != 0);
+}
+
 // the launch at the tile of a.rows query rows (block_q x G rows where G
 // divides them; on a padded instance, where a G that divides no row tile
 // runs, a run of rows that may span no whole number of positions) and
@@ -855,29 +868,35 @@ cudaError_t by_dim(const Args& a) {
   return with_dim(a.D, a.dp, [&](auto w, auto pad) {
     constexpr int DD = decltype(w)::value;
     constexpr bool PAD = decltype(pad)::value;
-    return with_tile<DD, PAD>(bm, a.bn, [&](auto sl, auto bn) {
-      return launch<S, DD, SPLIT, decltype(sl)::value, decltype(bn)::value,
-                    PAD>(a, G);
-    });
+    if constexpr (!holds_pools<S, PAD>()) {
+      return cudaErrorInvalidValue;
+    } else {
+      return with_tile<DD, PAD>(bm, a.bn, [&](auto sl, auto bn) {
+        return launch<S, DD, SPLIT, decltype(sl)::value, decltype(bn)::value,
+                      PAD>(a, G);
+      });
+    }
   });
+}
+
+template <typename S, bool SPLIT, int D, int SLABS, int BN, bool PAD>
+cudaError_t info_of(int nblk, int* out) {
+  if constexpr (!holds_pools<S, PAD>()) {
+    return cudaErrorInvalidValue;
+  } else {
+    return instance_info(paged_prefill_tc_kernel<S, D, SPLIT, SLABS, BN, PAD>,
+                         threads<D, SLABS, BN>(),
+                         smem_bytes<S, D, SLABS, BN>(nblk), out);
+  }
 }
 
 template <int D, int SLABS, int BN, bool PAD>
 cudaError_t info_by_kind(int kind, int nblk, int* out) {
-  constexpr int THREADS = threads<D, SLABS, BN>();
   switch (kind) {
-    case 0: return instance_info(
-        paged_prefill_tc_kernel<__nv_bfloat16, D, false, SLABS, BN, PAD>,
-        THREADS, smem_bytes<__nv_bfloat16, D, SLABS, BN>(nblk), out);
-    case 1: return instance_info(
-        paged_prefill_tc_kernel<int8_t, D, false, SLABS, BN, PAD>,
-        THREADS, smem_bytes<int8_t, D, SLABS, BN>(nblk), out);
-    case 2: return instance_info(
-        paged_prefill_tc_kernel<__nv_bfloat16, D, true, SLABS, BN, PAD>,
-        THREADS, smem_bytes<__nv_bfloat16, D, SLABS, BN>(nblk), out);
-    case 3: return instance_info(
-        paged_prefill_tc_kernel<int8_t, D, true, SLABS, BN, PAD>,
-        THREADS, smem_bytes<int8_t, D, SLABS, BN>(nblk), out);
+    case 0: return info_of<__nv_bfloat16, false, D, SLABS, BN, PAD>(nblk, out);
+    case 1: return info_of<int8_t, false, D, SLABS, BN, PAD>(nblk, out);
+    case 2: return info_of<__nv_bfloat16, true, D, SLABS, BN, PAD>(nblk, out);
+    case 3: return info_of<int8_t, true, D, SLABS, BN, PAD>(nblk, out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -69,6 +69,17 @@ from .ssm_scan import selective_scan
 _TILE_KEYS = ("block_q", "block_k")
 
 
+def set_tuned(name: str, **pps) -> None:
+    """Deprecated, as in the JAX package: use ``repro_torch.at.publish``
+    (kept as a thin shim)."""
+    at.publish(name, **pps)
+
+
+def tuned(name: str, **bps) -> dict:
+    """What ``at.tuned(name, **bps)`` publishes for the kernel ``name``."""
+    return at.tuned(name, **bps)
+
+
 def _tuned(key: str, names: tuple[str, ...], fits, **explicit) -> dict:
     """What ``at.tuned(key)`` publishes, updated by the explicit keyword
     arguments that are not None, filtered to the ``names`` the kernel

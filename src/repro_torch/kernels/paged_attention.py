@@ -450,9 +450,21 @@ def _lib(lib_part: str = "") -> ctypes.CDLL:
     return lib
 
 
+def prefill_part(dp: int, quant: bool) -> str:
+    """The library part (``build``'s suffix) of ``csrc/paged_prefill.cu``
+    that holds the tensor-core instance of ``dp`` (a C entry's argument)
+    over int8 (``quant``) or bf16 pools: the padded and wide parts hold
+    both, the own instances build apart by their pools
+    (``build.OWN_PARTS``)."""
+    if dp or not quant:
+        return part(dp)
+    return build.INT8_POOLS
+
+
 @functools.cache
 def _tc_lib(lib_part: str = "") -> ctypes.CDLL:
-    """The tensor-core prefill library (``csrc/paged_prefill.cu``)."""
+    """The tensor-core prefill library (``csrc/paged_prefill.cu``) of the
+    part ``lib_part`` (:func:`prefill_part`)."""
     lib = build.load("paged_prefill" + lib_part)
     for name, argtypes in (
             ("repro_flash_paged_prefill", [_P] * 7 + [_I] * 11 + [_F, _P]),
@@ -519,7 +531,7 @@ def _prefill_entry(name: str, q: torch.Tensor, hkv: int, quant: bool,
     if q.dtype == torch.bfloat16:
         h, d = q.shape[1], q.shape[3]
         check_tc_shape(name, h, hkv, d)
-        lib = _tc_lib(rt.library)
+        lib = _tc_lib(prefill_part(rt.dp, quant))
         entry = "repro_flash_paged_prefill"
         kernel = TC_KERNEL
         tile = (prefill_rows(d, h // hkv, block_q), block_k)
@@ -545,7 +557,8 @@ def tc_info(d: int, kind: str, nblk: int = 0, *, rows: int = TC_TILE_ROWS,
     (spill) bytes, dynamic shared memory at ``nblk`` table entries, and
     resident blocks per SM.  Needs the card."""
     out = (ctypes.c_int * 4)()
-    err = _tc_lib(part(dp)).repro_paged_prefill_tc_info(
+    lib = _tc_lib(prefill_part(dp, kind.startswith("int8")))
+    err = lib.repro_paged_prefill_tc_info(
         d, dp, TC_KINDS.index(kind), nblk, rows, block_k,
         ctypes.addressof(out))
     _raise_on("tc_info", err)
@@ -1040,7 +1053,7 @@ def _prefill_split(name: str, wrapper, q: torch.Tensor, pools: tuple,
     tile = prefill_tile(name, q, hkv, block_q, block_k)
     if q.dtype == torch.bfloat16:
         check_tc_shape(name, h, hkv, d)
-        fn = getattr(_tc_lib(rt.library),
+        fn = getattr(_tc_lib(prefill_part(rt.dp, bool(suffix))),
                      f"repro_paged_prefill_split{suffix}_tc")
         kernel = TC_KERNEL
         extra = (prefill_rows(d, h // hkv, tile[0]), tile[1])
@@ -1110,7 +1123,7 @@ def _prefill_merged(name: str, wrapper, entry: str, q: torch.Tensor,
     rt = prefill_route(name, q.dtype, d, h // hkv)
     bq, bk = prefill_tile(name, q, hkv, block_q, block_k)
     rows = prefill_rows(d, h // hkv, bq)
-    fn = getattr(_tc_lib(rt.library), entry)
+    fn = getattr(_tc_lib(prefill_part(rt.dp, len(pools) == 4)), entry)
     m, l, acc = _prefill_partials(q, num_splits)
     out = torch.empty_like(q)
     # a counter per query tile: rows of the kv head's C x G rows

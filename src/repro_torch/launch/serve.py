@@ -467,6 +467,13 @@ def check_same_weights(params: dict, mesh) -> None:
             f"to {float(both[0])!r} (rank {mesh.rank}: {c!r})")
 
 
+def serve(**kwargs) -> dict:
+    """Back-compat wrapper, as in the JAX package: build a
+    :class:`ServeConfig` from keyword arguments and delegate to
+    :func:`serve_config`."""
+    return serve_config(ServeConfig(**kwargs))
+
+
 def serve_config(scfg: ServeConfig) -> dict:
     """Serve ``scfg.n_requests`` synthetic requests; returns the report.
     A multi-rank ``scfg.mesh`` needs a world of its size: one call a rank
@@ -530,18 +537,24 @@ def serve_mesh(scfg: ServeConfig, join_timeout_s: float = 3600.0) -> dict:
                      join_timeout_s=join_timeout_s)[0]
 
 
-def serve_model(model, params: dict, scfg: ServeConfig, mesh=None) -> dict:
+def serve_model(model, params: dict, scfg: ServeConfig, mesh=None,
+                tuner=None) -> dict:
     """Serve ``scfg``'s requests with a built model and its weights: the
     run-time tuner (``scfg.autotune``) and ``--kv-dtype auto``'s
     calibration before the engine is built, then :func:`serve_engine`.
-    ``mesh`` is this rank's serving mesh (:func:`make_serving_mesh`)."""
+    ``mesh`` is this rank's serving mesh (:func:`make_serving_mesh`).
+    ``tuner``, a run-time tuner built beforehand, is used in place of the
+    :func:`make_autotuner` one that ``scfg.autotune`` asks for: through a
+    tuner of a mesh's region names that binds no mesh, an unsharded serve
+    reads the winners the mesh serve committed."""
     draft_model = draft_params = None
     if scfg.draft:
         # self-speculative draft: the target's leading layers (views) with
         # the embedding and head shared
         draft_model = model.draft_model()
         draft_params = model.slice_draft_params(params, draft_model)
-    tuner = make_autotuner(model, scfg, mesh) if scfg.autotune else None
+    if tuner is None and scfg.autotune:
+        tuner = make_autotuner(model, scfg, mesh)
     kv_dtype = scfg.kv_dtype
     if kv_dtype == "auto":
         # every (precision x block_k) candidate of every bucket, then one

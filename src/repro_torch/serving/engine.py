@@ -50,6 +50,17 @@ prefill (``None`` leaves what run-time AT publishes to the kernels).
 ``prefix_min_match`` and ``prefix_eviction`` are the ``PrefixPolicy``
 knobs as plain arguments.
 
+The model's steps are the engine's attributes, as in the JAX engine:
+``_decode`` (each tick's batched step), ``_prefill`` (an admission's
+monolithic prefill), ``_prefill_step`` (a prompt chunk), ``_verify`` (a
+speculative verify), ``_draft_prefill`` and ``_draft_decode`` (the
+draft's).  ``decode_fn`` and ``prefill_fn`` replace the first two, with
+the JAX engine's calls: ``decode_fn(params, caches, *extra, token,
+pos)`` (``extra``: the page table on the paged pool) and
+``prefill_fn(params, tokens, frontend_embeds, max_len)``, each returning
+(logits, caches).  ``greedy`` is taken and changes nothing, as in the
+JAX engine: every request samples by its own ``SamplingParams``.
+
 Run-time AT (``autotuner``, a :class:`~repro_torch.tuning.DecodeAutoTuner`)
 routes as the JAX engine does: each decode step through its length
 bucket's ``DecodeBucket`` region (the bucket from the lanes' host-side
@@ -79,6 +90,7 @@ from __future__ import annotations
 import functools
 import time
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -126,10 +138,13 @@ class TickWork:
 class ServingEngine:
     def __init__(self, model, params: dict, n_lanes: int = 4,
                  max_len: int = 512, eos_id: int | None = None,
-                 cache: str = "dense", n_pages: int | None = None,
-                 page_size: int = 16, timeslice: int | None = None,
-                 autotuner=None, prefill_chunk: int | None = None,
-                 draft_model=None, draft_params: dict | None = None,
+                 decode_fn: Callable | None = None,
+                 prefill_fn: Callable | None = None,
+                 greedy: bool = True, cache: str = "dense",
+                 n_pages: int | None = None, page_size: int = 16,
+                 timeslice: int | None = None, autotuner=None,
+                 prefill_chunk: int | None = None, draft_model=None,
+                 draft_params: dict | None = None,
                  spec_k: int | None = None, prefix_cache: bool = False,
                  prefix_min_match: int = 1, prefix_eviction: str = "lru",
                  kv_dtype: str = "fp", swap_compress: bool = False,
@@ -174,10 +189,20 @@ class ServingEngine:
                 "prefix caching admits at the first uncached token via "
                 "chunked prefill; pass prefill_chunk")
         self.prefill_chunk = prefill_chunk
-        self._decode = (
+        self._decode = decode_fn or (
             functools.partial(model.paged_decode_step, num_splits=num_splits,
                               mesh=self.mesh)
             if self.kv.kind == "paged" else model.decode_step)
+        # the steps close over the model and the mesh, never over the
+        # engine: a cycle through it would keep its KV pools alive until
+        # the cycle collector runs
+        mesh = self.mesh
+        self._prefill = prefill_fn or (
+            lambda p, tokens, frontend_embeds, max_len: model.prefill(
+                p, tokens, max_len, frontend_embeds=frontend_embeds,
+                mesh=mesh))
+        self._prefill_step = functools.partial(model.paged_prefill_step,
+                                               mesh=mesh)
         # -- speculative decoding ------------------------------------------
         self.spec_k = spec_k
         self.draft_model = draft_model
@@ -204,6 +229,15 @@ class ServingEngine:
             self._verify = functools.partial(model.speculative_step,
                                              num_splits=num_splits,
                                              mesh=self.mesh)
+            # the draft's methods are looked up at each call, so that a
+            # wrapper of the model class's methods set after the engine
+            # is built sees them (chip_smoke.py counts the draft's calls)
+            self._draft_decode = (
+                lambda *args: draft_model.decode_step(*args))
+            self._draft_prefill = (
+                lambda p, tokens, frontend_embeds, max_len:
+                draft_model.prefill(p, tokens, max_len,
+                                    frontend_embeds=frontend_embeds))
         # run-time AT: a tuning.dynamic.DecodeAutoTuner whose regions take
         # the decode steps, prefill chunks, verifies and prefix admissions
         # they declare (under a mesh, its variants bind the mesh and its
@@ -373,9 +407,9 @@ class ServingEngine:
                 req.admit_t = time.monotonic()   # queue wait ends here
             tokens = torch.tensor([req.prompt], dtype=torch.long,
                                   device=self.device)
-            logits, cache1 = self.model.prefill(
-                self.params, tokens, self.kv.prefill_len(len(req.prompt)),
-                mesh=self.mesh)
+            logits, cache1 = self._prefill(
+                self.params, tokens, None,
+                self.kv.prefill_len(len(req.prompt)))
             if not self.kv.admit(lane_id, cache1, len(req.prompt)):
                 self.scheduler.push_back(kind, req)
                 return
@@ -431,8 +465,7 @@ class ServingEngine:
             if self._tuned("prefill_regions"):
                 logits, _ = self.autotuner.prefill(plen, c, *args)
             else:
-                logits, _ = self.model.paged_prefill_step(*args,
-                                                          mesh=self.mesh)
+                logits, _ = self._prefill_step(*args)
             self.prefill_chunks += 1
             lane.pos = end
             self.kv.publish_prefix(lane_id, req.prompt, end)
@@ -526,10 +559,10 @@ class ServingEngine:
             rngs[i] = sampling.draft_rng(req.sampling, len(req.out_tokens))
             all_toks = req.prompt + req.out_tokens   # len == lane.pos + 1
             if self.draft_pos[i] == 0 or len(all_toks) - self.draft_pos[i] > 2:
-                logits_d, dcache = self.draft_model.prefill(
+                logits_d, dcache = self._draft_prefill(
                     self.draft_params,
                     torch.tensor([all_toks], dtype=torch.long,
-                                 device=self.device), self.max_len)
+                                 device=self.device), None, self.max_len)
                 self.draft_kv.admit(i, dcache, len(all_toks))
                 self.draft_pos[i] = len(all_toks)
                 tok, q = sampling.propose_token(logits_d[0].cpu().numpy(),
@@ -555,7 +588,7 @@ class ServingEngine:
             for i, t in feed.items():
                 token[i, 0] = t
                 pos[i] = self.draft_pos[i]
-            logits_d, _ = self.draft_model.decode_step(
+            logits_d, _ = self._draft_decode(
                 self.draft_params, self.draft_kv.caches,
                 torch.from_numpy(token).to(self.device),
                 torch.from_numpy(pos).to(self.device))

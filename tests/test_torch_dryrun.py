@@ -40,6 +40,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.core.cost import HBM_BW, ICI_BW, PEAK_FLOPS_BF16
 from repro_torch.launch import op_analysis
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -67,6 +68,15 @@ FLOP_RATIO = {("falcon-mamba-7b", "train_4k"): (0.7, 1.0),
               ("zamba2-7b", "train_4k"): (1.0, 2.5),
               ("zamba2-7b", "prefill_32k"): (1.0, 2.5),
               ("zamba2-7b", "decode_32k"): (1.0, 2.5)}
+#: (arch, shape) -> (the port's plan, the JAX package's) where static AT
+#: by the dry run picks otherwise (ROADMAP queue 3): the port gathers
+#: split weights where GSPMD all-reduces partial products, so its "fsdp"
+#: train bound is 1.8-2.6x the JAX package's and its "tp" decode bound
+#: 1.3-16x, while its "decode_resident" bound is 0.04-0.06x JAX's
+OTHER_PICK = {(arch, shape): pick for arch in
+              ("yi-6b", "moonshot-v1-16b-a3b", "whisper-tiny")
+              for shape, pick in (("train_4k", ("tp", "fsdp")),
+                                  ("decode_32k", ("decode_resident", "tp")))}
 
 _SMALL = '''
 SMALL = {"train_4k": ShapeConfig("train_4k", 64, 16, "train"),
@@ -74,13 +84,44 @@ SMALL = {"train_4k": ShapeConfig("train_4k", 64, 16, "train"),
          "decode_32k": ShapeConfig("decode_32k", 128, 8, "decode")}
 '''
 
+#: static AT by the dry run, in each child after its records: every
+#: candidate plan of a cell costs ``from_artifact(record).bound_s`` (the
+#: cell's own record for its plan, ``compiled_plan_cost`` for the others;
+#: the roofline and static AT read the child's configs), and
+#: ``tune_layout`` picks among them in a temporary workdir
+_PLANS = '''
+import tempfile
+for mod in (rl, st):
+    mod.get_arch, mod.get_shape = dr.get_arch, dr.get_shape
+plans = {}
+for arch, shape in json.loads(sys.argv[1]):
+    rec = out[arch + "/" + shape]
+    known = {rec["plan"]: rl.from_artifact(rec).bound_s}
+
+    def cost(plan):
+        if plan not in known:
+            with world():
+                known[plan] = st.compiled_plan_cost(
+                    arch, shape, plan, remat="none",
+                    num_microbatches=2 if shape == "train_4k" else None)
+        return known[plan]
+
+    with tempfile.TemporaryDirectory() as workdir:
+        won = st.tune_layout(at.AutoTuner(workdir), arch, shape,
+                             cost_fn=cost)
+    plans[arch + "/" + shape] = {"costs": known, "won": won}
+'''
+
 _JAX_CHILD = '''
-import json, sys
+import contextlib, json, sys
 import jax
 jax.devices()                  # 8 host devices, before the module's flag
 from jax.sharding import AxisType
 from repro.configs import ARCHS, ShapeConfig
+import repro.at as at
 import repro.launch.dryrun as dr
+import repro.launch.roofline as rl
+import repro.tuning.static as st
 ''' + _SMALL + '''
 dr.make_production_mesh = lambda multi_pod=False: jax.make_mesh(
     (2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
@@ -91,7 +132,12 @@ for arch, shape in json.loads(sys.argv[1]):
     out[arch + "/" + shape] = dr.dryrun_cell(
         arch, shape, remat="none", verbose=False,
         num_microbatches=2 if shape == "train_4k" else None)
-print("RECORDS" + json.dumps(out))
+# the port's rates (its default card's row), so that a plan's cost
+# differs between the packages by the partition alone
+rl.PEAK_FLOPS, rl.HBM_BW, rl.ICI_BW = json.loads(sys.argv[2])
+world = contextlib.nullcontext
+''' + _PLANS + '''
+print("RECORDS" + json.dumps({"records": out, "plans": plans}))
 '''
 
 _PORT_CHILD = '''
@@ -104,7 +150,10 @@ before = FAKE in sys.modules
 import torch.distributed as dist
 from repro_torch.configs import ShapeConfig, get_arch
 from repro_torch.distributed.process_mesh import fake_world, make_mesh
+import repro_torch.at as at
 import repro_torch.launch.dryrun as dr
+import repro_torch.launch.roofline as rl
+import repro_torch.tuning.static as st
 ''' + _SMALL + '''
 dr.get_arch = lambda n: get_arch(n).reduced()
 dr.get_shape = lambda n: SMALL[n]
@@ -117,16 +166,21 @@ for arch, shape in json.loads(sys.argv[1]):
             arch, shape, remat="none", verbose=False,
             num_microbatches=2 if shape == "train_4k" else None)
     left_up |= dist.is_initialized()
-print("RECORDS" + json.dumps({"records": out, "fake_pg_at_import": before,
+world = lambda: fake_world(8)
+''' + _PLANS + '''
+left_up |= dist.is_initialized()
+print("RECORDS" + json.dumps({"records": out, "plans": plans,
+                              "fake_pg_at_import": before,
                               "fake_pg_after": FAKE in sys.modules,
                               "world_left_up": left_up}))
 '''
 
 
 def _child(code: str, env: dict) -> subprocess.Popen:
+    rates = [PEAK_FLOPS_BF16, HBM_BW, ICI_BW]
     return subprocess.Popen(
-        [sys.executable, "-c", code, json.dumps(CELLS)], cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), **env},
+        [sys.executable, "-c", code, json.dumps(CELLS), json.dumps(rates)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src"), **env},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -150,7 +204,7 @@ def both():
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_record_matches_the_jax_dry_run(arch, shape, both):
     jax_recs, port = both
-    want = jax_recs[f"{arch}/{shape}"]
+    want = jax_recs["records"][f"{arch}/{shape}"]
     got = port["records"][f"{arch}/{shape}"]
     assert set(got) == set(want)
     assert set(got["memory"]) == set(want["memory"])
@@ -163,6 +217,22 @@ def test_record_matches_the_jax_dry_run(arch, shape, both):
     ratio = got["hlo_dot_flops"] / want["hlo_dot_flops"]
     lo, hi = FLOP_RATIO.get((arch, shape), (0.9, 1.1))
     assert lo <= ratio <= hi, (got["hlo_dot_flops"], want["hlo_dot_flops"])
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_static_at_by_the_dry_run_picks_the_jax_plan(arch, shape, both):
+    """``tune_layout`` over ``compiled_plan_cost`` (every candidate plan's
+    dry-run bound, at the same rates in both packages) picks the JAX
+    package's plan; in a cell of :data:`OTHER_PICK`, the recorded other
+    plan instead."""
+    jax_recs, port = both
+    got = port["plans"][f"{arch}/{shape}"]
+    want = jax_recs["plans"][f"{arch}/{shape}"]
+    assert set(got["costs"]) == set(want["costs"]) and len(got["costs"]) > 1
+    assert got["won"] == min(got["costs"], key=got["costs"].get)
+    assert want["won"] == min(want["costs"], key=want["costs"].get)
+    assert (got["won"], want["won"]) == OTHER_PICK.get(
+        (arch, shape), (want["won"], want["won"])), (got, want)
 
 
 def test_the_fake_world_is_the_dry_runs_alone(both):

@@ -146,3 +146,32 @@ def test_the_autotuned_gateway_is_warm_on_the_second_run(tmp_path):
     assert warm["autotune"]["committed"]["gateway"] == winner
     assert warm["gateway"]["policy"]["max_inflight"] == winner["max_inflight"]
     assert cold["outputs"] == warm["outputs"]
+
+
+def test_an_unsharded_serve_reads_the_mesh_serves_winners(tmp_path):
+    """A tuner of the mesh's region names (``_mesh1x2``) that binds no
+    mesh warm-loads the winners a ``--mesh 1x2 --autotune`` serve
+    committed, so ``serve_model(..., tuner=)`` serves unsharded at the
+    same tiles and splits, measuring nothing, with the mesh serve's
+    tokens (``chip_smoke.py`` phase 38b's like-for-like yardstick)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import make_autotuner, serve_model
+    from repro_torch.models import build_model
+    base = ServeConfig(device="cpu", cache="paged", page_size=8, max_len=64,
+                       n_requests=8, max_new=4, prefill_chunk=8,
+                       gateway=True, policy_window=1, mesh="1x2",
+                       autotune=True, workdir=str(tmp_path))
+    mesh = serve_mesh(base)
+    assert mesh["autotune"]["measurements"] > 0
+    model = build_model(get_arch(base.arch).reduced())
+    params = model.init(base.seed, "cpu")
+    tuner = make_autotuner(model, base, None)
+    like = serve_model(model, params, ServeConfig(**{**base.to_dict(),
+                                                     "mesh": None}),
+                       None, tuner)
+    a = like["autotune"]
+    assert like["mesh"] is None and a["measurements"] == 0
+    assert set(mesh["autotune"]["measured_regions"]) <= set(a["warm_regions"])
+    assert all(n.endswith("_mesh1x2") for n in a["warm_regions"])
+    assert a["committed"] == mesh["autotune"]["committed"]
+    assert like["outputs"] == mesh["outputs"]
