@@ -453,6 +453,16 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    plain; (f) K1's autograd Function at D 512 against the plain
    autograd; K1-K6d at D 512 timed beside plain, SDPA and the bound.
 
+Phases 5, 9, 13a-c, 17a-b and 26a serve graphed (the engine's compiled
+steps, CUDA graphs replayed: ``serving/compiled.py``) and then eager on
+the same weights (the decode through ``decode_fn=``, the chunk, verify
+and draft decode through the engine's step attributes): every greedy
+token, the first logits (each admission's and the first decode tick's)
+bit for bit or within 5e-2 of their scale, and every launch count equal;
+each prints both serves' tokens/s, p50 TTFT and ITL, captures, replays
+and peak memory.  Every other serve runs graphed, as the engine does by
+default; phases 37-38's sharded engines keep eager steps.
+
 Then the script's run time by group of phases, one JSON line with every
 kernel's numbers,
 and as the last line
@@ -517,6 +527,8 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.serving import compiled  # noqa: E402
+from repro_torch.serving.compiled import CompiledStep  # noqa: E402
 from repro_torch.serving.kvcache import tree_leaves  # noqa: E402
 from repro_torch.serving.gateway import (GatewayPolicyKnobs,  # noqa: E402
                                          GatewayServer, PipelinedEngine,
@@ -981,16 +993,30 @@ class _RouteCount:
 
 
 @contextlib.contextmanager
+def replayed(tally: collections.Counter):
+    """While the block runs, a compiled step's replay adds to ``tally``
+    what its capture counted there (``compiled.EXTRA_TALLIES``): a count
+    taken by a Python wrapper reads as if every step ran eagerly."""
+    compiled.EXTRA_TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        compiled.EXTRA_TALLIES.remove(tally)
+
+
+@contextlib.contextmanager
 def kernels_by_route(module, name: str):
     """Count, by ``last_kernel``, the kernels that the wrapper
     ``module.name`` launches while the block runs: the serving path looks
     the wrapper up there at each call (``ops.flash_decode``,
-    ``pa.paged_decode_split``), so every launch passes through the count."""
+    ``pa.paged_decode_split``), so every launch passes through the count
+    (a replay's through :func:`replayed`)."""
     fn = getattr(module, name)
     tally = collections.Counter()
     setattr(module, name, _RouteCount(fn, tally))
     try:
-        yield tally
+        with replayed(tally):
+            yield tally
     finally:
         setattr(module, name, fn)
 
@@ -1010,7 +1036,8 @@ def clusters_used():
 
     pa.decode_cluster = counted
     try:
-        yield tally
+        with replayed(tally):
+            yield tally
     finally:
         pa.decode_cluster = fn
 
@@ -1027,9 +1054,14 @@ def serve_with_counts(engine: ServingEngine | None = None,
         if kernel is not pa.split_combine:    # one kernel: no route to name
             kernel.last_kernel = None
     scfg = ServeConfig(**{**SERVE, **kw})
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     report = (serve_config(scfg) if engine is None
               else serve_engine(engine, scfg))
     torch.cuda.synchronize()
+    report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["peak_over_start_gb"] = (torch.cuda.max_memory_allocated()
+                                    - start) / 1e9
     launches = {k.__name__: k.launches for k in KERNELS}
     n_requests, max_new = SERVE["n_requests"], SERVE["max_new"]
     check(report["finished"] == n_requests,
@@ -1039,9 +1071,116 @@ def serve_with_counts(engine: ServingEngine | None = None,
     return report, launches
 
 
-def phase_serve(smi: str) -> tuple[dict, dict[str, int]]:
+#: the steps an engine compiles beside its decode (``decode_fn=``)
+STEP_ATTRS = ("_prefill_step", "_verify", "_draft_decode")
+AB_TOL = 5e-2        # the serves' logits bound (phases 6, 10, 14, 18)
+
+
+def eager_engine(model, params, **kw) -> ServingEngine:
+    """The engine ``serve_config`` builds for phase 5's requests with
+    ``kw`` (untuned), on ``model`` and ``params`` (the same seed's
+    weights), its steps eager: the decode through ``decode_fn=``, the
+    prompt chunk, the verify and the draft's decode through the engine's
+    step attributes (each compiled step's ``fn``)."""
+    scfg = ServeConfig(**{**SERVE, **kw})
+    paged = scfg.cache == "paged"
+    splits = scfg.num_splits if paged else None
+    extra = {}
+    if scfg.draft:
+        draft = model.draft_model()
+        extra = dict(draft_model=draft, spec_k=scfg.spec_k,
+                     draft_params=model.slice_draft_params(params, draft))
+    engine = ServingEngine(
+        model, params, n_lanes=scfg.n_lanes, max_len=scfg.max_len,
+        cache=scfg.cache, n_pages=scfg.n_pages, page_size=scfg.page_size,
+        timeslice=scfg.timeslice, prefill_chunk=scfg.prefill_chunk,
+        prefix_cache=scfg.prefix_cache, kv_dtype=scfg.kv_dtype,
+        num_splits=splits,
+        decode_fn=(functools.partial(model.paged_decode_step,
+                                     num_splits=splits)
+                   if paged else model.decode_step), **extra)
+    for name in STEP_ATTRS:
+        step = getattr(engine, name, None)
+        if isinstance(step, CompiledStep):
+            setattr(engine, name, step.fn)
+    return engine
+
+
+@contextlib.contextmanager
+def first_logits_and_tick():
+    """While open, every engine records each admission's first logits by
+    prompt (:func:`first_logits_by_prompt`) and, under ``"tick"``, the
+    logits of the first decode tick it emits."""
+    inner = ServingEngine.emit
+
+    def emit(self, work):
+        if work is not None and "tick" not in firsts:
+            firsts["tick"] = work.logits.float().cpu()
+        return inner(self, work)
+
+    with first_logits_by_prompt() as firsts:
+        ServingEngine.emit = emit
+        try:
+            yield firsts
+        finally:
+            ServingEngine.emit = inner
+
+
+def serve_ab_line(label: str, report: dict) -> str:
+    g = report["graphs"]
+    return (f"{label} {report['tokens_per_s']:.1f} tok/s, p50 ttft "
+            f"{report['p50_ttft_s']:.4f}s, p50 itl {report['p50_itl_s']:.4f}s,"
+            f" wall {report['wall_s']:.3f}s, captures {g['captures']}, replays "
+            f"{g['replays']}, recaptures {g['recaptures']}, graphs by step "
+            f"{g['graphs']}, peak {report['peak_gb']:.2f} GB "
+            f"({report['peak_over_start_gb']:.2f} over the serve's start)")
+
+
+def graph_ab(what: str, graphed: tuple, eager: tuple) -> str:
+    """The graphed serve (report, launches, first logits) against the
+    eager one of the same requests on the same weights: every greedy
+    token equal, the same launches, the first logits (each admission's and
+    the first decode tick's) bit-equal or within ``AB_TOL`` of their scale;
+    returns the line that reports both."""
+    (g, g_launches, g_firsts), (e, e_launches, e_firsts) = graphed, eager
+    check(g["graphs"]["replays"] > 0 and e["graphs"]["captures"] == 0,
+          f"{what}: graphed {g['graphs']}, eager {e['graphs']}")
+    check(g["outputs"] == e["outputs"],
+          f"{what}: graphed greedy tokens {greedy_agreement(g, e)} equal to "
+          "the eager serve's")
+    check(g_launches == e_launches,
+          f"{what}: launches graphed {g_launches}, eager {e_launches}")
+    check(g_firsts.keys() == e_firsts.keys(),
+          f"{what}: first logits of {len(g_firsts)} and {len(e_firsts)}")
+    logits = first_logits(g_firsts, e_firsts)
+    if logits["bit_equal"] < logits["n"]:
+        check(logits["worst_rel"] <= AB_TOL,
+              f"{what}: graphed first logits {logits} against eager's")
+    return (f"{what}: " + serve_ab_line("graphed", g) + "; "
+            + serve_ab_line("eager", e) + f"; greedy tokens "
+            f"{greedy_agreement(g, e)} equal, first logits "
+            f"{logits['bit_equal']}/{logits['n']} bit-equal (worst "
+            f"{logits['worst_rel']:.3g} of scale), launches equal")
+
+
+def eager_twin(what: str, graphed: tuple, model, params,
+               run: Callable = serve_with_counts,
+               probe: Callable = first_logits_and_tick, **kw) -> str:
+    """Serve ``kw`` again on :func:`eager_engine` through ``run`` (which
+    takes the engine and ``kw`` and returns the report and the launches
+    first), its first logits recorded by ``probe`` as the graphed serve's
+    were, and hold the graphed serve ``graphed`` to it
+    (:func:`graph_ab`)."""
+    with probe() as firsts:
+        report, launches, *_ = run(engine=eager_engine(model, params, **kw),
+                                   **kw)
+    return graph_ab(what, graphed, (report, launches, firsts))
+
+
+def phase_serve(smi: str, model, params) -> tuple[dict, dict[str, int]]:
     n_layers, n_requests = 32, SERVE["n_requests"]
-    with kernels_by_route(ops, "flash_decode") as k2_routes:
+    with kernels_by_route(ops, "flash_decode") as k2_routes, \
+            first_logits_and_tick() as firsts:
         report, launches = serve_with_counts()
     check(all(launches[k.__name__] == 0 for k in pa.KERNELS),
           f"the dense serve launched paged kernels: {launches}")
@@ -1062,6 +1201,8 @@ def phase_serve(smi: str) -> tuple[dict, dict[str, int]]:
           f"{report['p50_ttft_s']:.4f}s, p50 itl {report['p50_itl_s']:.4f}s, "
           f"{report['decode_steps']} decode steps, launches {launches}, "
           f"K2 launches by kernel {dict(k2_routes)}, on {smi}")
+    print("[5 graphed against eager] " + eager_twin(
+        "phase 5", (report, launches, firsts), model, params))
     return report, launches
 
 
@@ -1353,10 +1494,14 @@ def only_launched(launches: dict[str, int], kernels, what: str) -> None:
     check(not stray, f"{what} launched other kernels: {stray}")
 
 
-def phase_paged_serve(smi: str, dense: dict) -> tuple[dict, dict[str, int]]:
+PAGED = dict(cache="paged", page_size=16, prefill_chunk=128)
+
+
+def phase_paged_serve(smi: str, dense: dict, model, params
+                      ) -> tuple[dict, dict[str, int]]:
     n_layers = 32
-    report, launches = serve_with_counts(cache="paged", page_size=16,
-                                         prefill_chunk=128)
+    with first_logits_and_tick() as firsts:
+        report, launches = serve_with_counts(**PAGED)
     check(launches["flash_paged_prefill"] == n_layers * report["prefill_chunks"],
           f"K4 launched {launches['flash_paged_prefill']} times, expected "
           f"{n_layers} x {report['prefill_chunks']} prefill chunks")
@@ -1381,6 +1526,8 @@ def phase_paged_serve(smi: str, dense: dict) -> tuple[dict, dict[str, int]]:
           f"{json.dumps(report['cache'])}; greedy tokens equal to the dense "
           f"serve's (reported only: bf16 sums differ in order) "
           f"{greedy_agreement(report, dense)}, on {smi}")
+    print("[9 graphed against eager] " + eager_twin(
+        "phase 9", (report, launches, firsts), model, params, **PAGED))
     return report, launches
 
 
@@ -1890,7 +2037,7 @@ def k6b_checks() -> str:
             f"splits, every arrival counter 0 after each call")
 
 
-def phase_split_int8_serves(smi: str, paged: dict
+def phase_split_int8_serves(smi: str, paged: dict, model, params
                             ) -> tuple[dict[str, int], dict[str, dict]]:
     """The phase-9 serve with int8 pages and split-KV: (a) int8 with 8
     splits, (b) int8 in one pass, (c) fp with 8 splits.  The split serves
@@ -1906,13 +2053,15 @@ def phase_split_int8_serves(smi: str, paged: dict
                (pa.flash_paged_prefill_quant, pa.flash_paged_decode_quant)),
               ("fp, 8 splits", dict(num_splits=8),
                (pa.flash_paged_prefill, pa.paged_decode_split_merged))]
-    counts, lines, reports = {}, [], {}
-    for label, kw, (prefill, *decode) in serves:
+    counts, lines, reports, abs_ = {}, [], {}, []
+    for n, (label, kw, (prefill, *decode)) in enumerate(serves):
         with kernels_by_route(pa, "paged_decode_split_merged") as k5a_routes, \
                 kernels_by_route(pa, "paged_decode_split_quant_merged") \
-                as k6b_routes:
-            report, launches = serve_with_counts(cache="paged", page_size=16,
-                                                 prefill_chunk=128, **kw)
+                as k6b_routes, first_logits_and_tick() as firsts:
+            report, launches = serve_with_counts(**PAGED, **kw)
+        abs_.append(eager_twin(f"13{'abc'[n]} ({label})",
+                               (report, launches, firsts), model, params,
+                               **PAGED, **kw))
         reports[label] = report
         what = f"the {label} serve"
         only_launched(launches, (prefill, *decode), what)
@@ -1964,6 +2113,7 @@ def phase_split_int8_serves(smi: str, paged: dict
             f"serve's {greedy_agreement(report, paged)}")
     print(f"[13 split-KV and int8 serves] yi-6b full, pages of 16, chunks of "
           f"128, on {smi}: " + "; ".join(lines))
+    print("[13 graphed against eager] " + " | ".join(abs_))
     return {k.__name__: counts[k.__name__] for k in
             (pa.paged_decode_split_merged, pa.flash_paged_decode_quant,
              pa.paged_decode_split_quant_merged,
@@ -2307,9 +2457,11 @@ def phase_k6d() -> list[dict]:
 
 def count_draft_calls() -> tuple[dict, Callable[[], None]]:
     """Wrap ``Model.prefill`` and ``Model.decode_step`` to count the calls
-    made on a draft model (config name ending in ``-draft``); returns the
-    counts and a function that restores the methods."""
-    counts = {"prefill": 0, "decode_step": 0}
+    made on a draft model (config name ending in ``-draft``; a replay of
+    the engine's compiled draft decode counts as its capture did); returns
+    the counts and a function that restores the methods."""
+    counts = collections.Counter({"prefill": 0, "decode_step": 0})
+    compiled.EXTRA_TALLIES.append(counts)
     originals = {name: getattr(Model, name) for name in counts}
 
     def wrap(name):
@@ -2323,6 +2475,7 @@ def count_draft_calls() -> tuple[dict, Callable[[], None]]:
         setattr(Model, name, wrap(name))
 
     def restore():
+        compiled.EXTRA_TALLIES.remove(counts)
         for name, fn in originals.items():
             setattr(Model, name, fn)
     return counts, restore
@@ -2386,7 +2539,7 @@ def phase_spec_prefix_serves(smi: str, paged: dict, int8_reports: dict,
                              model, params) -> tuple[dict[str, int], dict]:
     """Phase 17; returns the new kernels' launches and serve (a)'s report."""
     n_layers = 32
-    lines, counts = [], {}
+    lines, counts, abs_ = [], {}, []
     for label, kw, n_draft, verify, prefill in (
             ("(a) speculative, 8 splits", SPEC, 16,
              pa.paged_prefill_split_merged, pa.flash_paged_prefill),
@@ -2397,8 +2550,15 @@ def phase_spec_prefix_serves(smi: str, paged: dict, int8_reports: dict,
              dict(SPEC, engine=self_draft_engine(model, params)), n_layers,
              pa.paged_prefill_split_merged, pa.flash_paged_prefill)):
         what = f"serve {label}"
-        report, launches, drafts, k2_routes = spec_serve(
-            what, n_draft, verify, prefill, **kw)
+        with first_logits_and_tick() as firsts:
+            report, launches, drafts, k2_routes = spec_serve(
+                what, n_draft, verify, prefill, **kw)
+        if "engine" not in kw:        # (a), (b): then eager
+            abs_.append(eager_twin(
+                f"17{label[1]} ({label[4:]})", (report, launches, firsts),
+                model, params, run=functools.partial(
+                    spec_serve, f"{what}, eager", n_draft, verify, prefill),
+                **kw))
         if label.startswith("(a)"):
             spec_a = report
         spec, verifies = report["spec"], report["spec"]["spec_ticks"]
@@ -2461,6 +2621,7 @@ def phase_spec_prefix_serves(smi: str, paged: dict, int8_reports: dict,
                if report is on else ""))
     print(f"[17 speculative and prefix-cache serves] yi-6b full, pages of "
           f"16, chunks of 128, on {smi}: " + "; ".join(lines))
+    print("[17 graphed against eager] " + " | ".join(abs_))
     return counts, spec_a
 
 
@@ -3293,8 +3454,18 @@ def phase_gateway(smi: str, paged: dict, spec_a: dict) -> None:
                          ("(b) paged, max_inflight 1",
                           {"max_inflight": 1})):
         what = f"gateway {label[:3]}"
-        with gateway_knobs(**knobs):
+        # by prompt alone: a gateway's first tick holds the lanes its
+        # clients' arrivals filled
+        with gateway_knobs(**knobs), first_logits_by_prompt() as firsts:
             report, launches = serve_with_counts(**paged_kw)
+        if not knobs:                 # (a): then eager, on the same weights
+            model = build_model(get_arch("yi-6b"))
+            params = model.init(0, "cuda")
+            with gateway_knobs():
+                ab = eager_twin("26a", (report, launches, firsts), model,
+                                params, probe=first_logits_by_prompt,
+                                **paged_kw)
+            del model, params
         g = gateway_checks(what, report, paged, "phase 9")
         check(g["policy"]["max_inflight"] == knobs.get("max_inflight", 2),
               f"{what}: knobs {g['policy']}")
@@ -3325,6 +3496,7 @@ def phase_gateway(smi: str, paged: dict, spec_a: dict) -> None:
                  f"{drafts['decode_step']} (K2 by kernel {k2_routes}), "
                  f"launches { {k: n for k, n in launches.items() if n} }")
     lines.append(gateway_backpressure(smi, paged))
+    lines.append(f"graphed against eager: {ab}")
     print(f"[26 gateway] yi-6b full, pages of 16, chunks of 128, 8 requests "
           f"of 32 tokens as TCP clients of 127.0.0.1, in "
           f"{time.perf_counter() - t0:.1f}s, on {smi}: " + "; ".join(lines))
@@ -3893,7 +4065,9 @@ def routing_line(calls: list[dict]) -> str:
         n[0] += 1
         n[1] += c["keep"].numel()
         n[2] += int((~c["keep"]).sum())
-    return "routing by T (calls, pairs, dropped) " + ", ".join(
+    return ("routing by T (calls, pairs, dropped) of the Python calls "
+            "(eager steps, a compiled step's warm-up and capture; a "
+            "replay records none) ") + ", ".join(
         f"{t}: {tuple(v)}" for t, v in sorted(by_t.items()))
 
 
@@ -4481,7 +4655,8 @@ def calls_by_shape(module, name: str, key):
     tally = collections.Counter()
     setattr(module, name, _ShapeCount(fn, tally, key))
     try:
-        yield tally
+        with replayed(tally):
+            yield tally
     finally:
         setattr(module, name, fn)
 
@@ -4788,17 +4963,23 @@ def phase_zamba(smi: str) -> list[dict]:
     torch.cuda.empty_cache()
     prof = profile_decode(ZAMBA, reduced=False, max_len=RING_MAX_LEN,
                           prompt_len=4094, steps=4)
-    check(prof["device_ms_per_tick"] > 0,
+    eager = prof["eager"]
+    check(prof["device_ms_per_tick"] > 0 and eager["device_ms_per_tick"] > 0,
           "the zamba2 profile saw no device time")
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[33 zamba2] --cache paged raises ValueError: {refusal!r}; peak "
           f"memory {peak / 1e9:.2f} GB; one decode tick profiled "
           f"(profile_decode --arch {ZAMBA} --full, 4 lanes at prompts of "
-          f"4093, rings wrapping): host {prof['host_ms_per_tick']:.3f} ms, "
-          f"device {prof['device_ms_per_tick']:.3f} ms, busy share "
+          f"4093, rings wrapping), graphed: host "
+          f"{prof['host_ms_per_tick']:.3f} ms, device "
+          f"{prof['device_ms_per_tick']:.3f} ms, busy share "
           f"{prof['busy_share']:.3f}, {prof['launches_per_tick']:.1f} device "
-          f"operations a tick; top: "
+          f"operations a tick, graphs {prof['graphs']}; eager: host "
+          f"{eager['host_ms_per_tick']:.3f} ms, device "
+          f"{eager['device_ms_per_tick']:.3f} ms, busy share "
+          f"{eager['busy_share']:.3f}, {eager['launches_per_tick']:.1f} "
+          f"device operations a tick; top (graphed): "
           + ", ".join(f"{n[:48]} {ms:.3f} ms x{c:.0f}"
                       for n, ms, c in prof["kernels"][:5])
           + f"; phase 33 in {time.perf_counter() - t0:.1f}s")
@@ -7394,17 +7575,17 @@ def main() -> int:
     done("1-2")
     k1_row, k1_sweep = phase_k1()
     rows = [k1_row, phase_k2()]
-    dense, launches = phase_serve(smi)
     model = build_model(get_arch("yi-6b"))
     params = model.init(0, "cuda")
+    dense, launches = phase_serve(smi, model, params)
     phase_logits(model, params)
     rows += [phase_k3(), phase_k4()]
-    paged, paged_launches = phase_paged_serve(smi, dense)
+    paged, paged_launches = phase_paged_serve(smi, dense, model, params)
     launches.update({k: paged_launches[k] for k in
                      ("flash_paged_decode", "flash_paged_prefill")})
     phase_paged_logits(model, params)
     rows += phase_k5() + phase_k6()
-    counts, int8_reports = phase_split_int8_serves(smi, paged)
+    counts, int8_reports = phase_split_int8_serves(smi, paged, model, params)
     launches.update(counts)
     launches.update(phase_fp32_split_serve(smi, model.cfg))
     phase_int8_logits(model, params)

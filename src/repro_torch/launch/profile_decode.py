@@ -2,7 +2,10 @@
 
 Fills every lane of the engine with a request (one prefill each, or
 chunk by chunk with ``--prefill-chunk``), runs ticks until every lane is
-decoding and one more, then traces ``--steps`` decode ticks and prints:
+decoding and one more, then traces ``--steps`` decode ticks of the
+engine's compiled steps (CUDA graphs replayed), switches the same engine
+to its eager steps (the step attributes' ``fn``), runs one tick and
+traces ``--steps`` more, and prints for each:
 the host time per tick, the device time per tick (sum of the kernels'
 own times), the device busy share (device time / host time), the device
 operations (kernels, copies, memsets) launched per tick, and the kernels
@@ -11,7 +14,8 @@ paged decode tick, ``--kv-dtype int8`` over int8 pages and
 ``--num-splits N`` with split-KV decode (and verify); ``--draft --spec-k
 K`` traces speculative ticks (draft proposals, one verify, the accept
 rule) and adds the tokens they emitted per tick.  With ``--trace`` it
-also writes a Chrome trace.
+also writes a Chrome trace of the graphed ticks, and one of the eager
+ticks beside it (``.eager`` before the suffix).
 
 Usage (on the card)::
 
@@ -43,6 +47,7 @@ from ..configs import get_arch
 from ..device import resolve
 from ..models import build_model
 from ..serving import Request, ServingEngine
+from ..serving.compiled import CompiledStep
 
 
 def _device_us(event) -> float:
@@ -51,6 +56,37 @@ def _device_us(event) -> float:
         if hasattr(event, name):
             return float(getattr(event, name))
     return 0.0
+
+
+def _trace_ticks(engine, steps: int, activities, trace: str | None,
+                 top: int) -> dict:
+    """Trace ``steps`` ticks of ``engine``: host and device ms a tick,
+    the busy share, device operations and tokens a tick, the top
+    kernels."""
+    def emitted() -> int:
+        return sum(len(r.out_tokens)
+                   for r in [*engine.active.values(), *engine.finished])
+
+    tokens0 = emitted()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    tokens = emitted() - tokens0
+    if trace:
+        prof.export_chrome_trace(trace)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=_device_us, reverse=True)
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
+    rows = [(e.key, _device_us(e) / 1e3 / steps, e.count / steps)
+            for e in kernels[:top]]
+    return {"host_ms_per_tick": host_ms, "device_ms_per_tick": device_ms,
+            "busy_share": device_ms / host_ms if host_ms else 0.0,
+            "launches_per_tick": sum(e.count for e in kernels) / steps,
+            "tokens_per_tick": tokens / steps, "spec": engine.spec_stats(),
+            "kernels": rows}
 
 
 def profile_decode(arch: str = "yi-6b", reduced: bool = True,
@@ -79,9 +115,11 @@ def profile_decode(arch: str = "yi-6b", reduced: bool = True,
     rng = np.random.default_rng(0)
     for rid in range(n_lanes):
         prompt = rng.integers(0, cfg.vocab_size, size=prompt_len - 1)
-        # room for every traced tick to emit its most tokens
+        # room for every traced tick (graphed, then eager) to emit its
+        # most tokens
         engine.submit(Request(rid=rid, prompt=prompt.tolist(),
-                              max_new_tokens=(steps + 4) * (1 + (spec_k or 0))))
+                              max_new_tokens=(2 * steps + 6)
+                              * (1 + (spec_k or 0))))
     engine.step()                  # admissions (prefill) + the first tick
     while engine.scheduler.prefill_lanes():
         engine.step()              # the rest of a chunked prefill
@@ -91,30 +129,23 @@ def profile_decode(arch: str = "yi-6b", reduced: bool = True,
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    def emitted() -> int:
-        return sum(len(r.out_tokens)
-                   for r in [*engine.active.values(), *engine.finished])
-
-    tokens0 = emitted()
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()
-        host_ms = (time.perf_counter() - t0) * 1e3 / steps
-    tokens = emitted() - tokens0
+    out = _trace_ticks(engine, steps, activities, trace, top)
+    out["graphs"] = engine.graph_stats()
+    # the same engine on its eager steps, one untraced tick first
+    for name in ("_decode", "_prefill_step", "_verify", "_draft_decode"):
+        step = getattr(engine, name, None)
+        if isinstance(step, CompiledStep):
+            setattr(engine, name, step.fn)
+    engine.step()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    eager_trace = None
     if trace:
-        prof.export_chrome_trace(trace)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels.sort(key=_device_us, reverse=True)
-    device_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
-    rows = [(e.key, _device_us(e) / 1e3 / steps, e.count / steps)
-            for e in kernels[:top]]
-    return {"host_ms_per_tick": host_ms, "device_ms_per_tick": device_ms,
-            "busy_share": device_ms / host_ms if host_ms else 0.0,
-            "launches_per_tick": sum(e.count for e in kernels) / steps,
-            "tokens_per_tick": tokens / steps, "spec": engine.spec_stats(),
-            "kernels": rows}
+        stem, dot, suffix = trace.rpartition(".")
+        eager_trace = (f"{stem}.eager.{suffix}" if dot
+                       else f"{trace}.eager")
+    out["eager"] = _trace_ticks(engine, steps, activities, eager_trace, top)
+    return out
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -143,16 +174,20 @@ def main(argv: list[str] | None = None) -> None:
                          prefill_chunk=args.prefill_chunk,
                          kv_dtype=args.kv_dtype, num_splits=args.num_splits,
                          spec_k=args.spec_k if args.draft else None)
-    print(f"[profile] {args.arch} {'reduced' if args.reduced else 'full'}, "
-          f"{args.lanes} lanes, {args.cache} cache, kv {args.kv_dtype}, "
-          f"num_splits {args.num_splits}: host {out['host_ms_per_tick']:.3f} ms/tick, "
-          f"device {out['device_ms_per_tick']:.3f} ms/tick, busy share "
-          f"{out['busy_share']:.3f}, {out['launches_per_tick']:.1f} device "
-          f"operations/tick, {out['tokens_per_tick']:.2f} tokens "
-          f"per tick" + (f", speculative {out['spec']}" if args.draft
-                         else ""))
-    for name, ms, count in out["kernels"]:
-        print(f"  {ms:9.4f} ms/tick  x{count:5.1f}  {name[:100]}")
+    for label, res in (("graphed", out), ("eager", out["eager"])):
+        print(f"[profile] {args.arch} "
+              f"{'reduced' if args.reduced else 'full'}, {args.lanes} lanes, "
+              f"{args.cache} cache, kv {args.kv_dtype}, num_splits "
+              f"{args.num_splits}, {label}: host "
+              f"{res['host_ms_per_tick']:.3f} ms/tick, device "
+              f"{res['device_ms_per_tick']:.3f} ms/tick, busy share "
+              f"{res['busy_share']:.3f}, {res['launches_per_tick']:.1f} "
+              f"device operations/tick, {res['tokens_per_tick']:.2f} tokens "
+              f"per tick" + (f", speculative {res['spec']}" if args.draft
+                             else "")
+              + (f", graphs {out['graphs']}" if label == "graphed" else ""))
+        for name, ms, count in res["kernels"]:
+            print(f"  {ms:9.4f} ms/tick  x{count:5.1f}  {name[:100]}")
 
 
 if __name__ == "__main__":

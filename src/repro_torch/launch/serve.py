@@ -126,9 +126,11 @@ from ..distributed.process_mesh import run_world
 from ..distributed.sharding import make_serving_mesh, parse_mesh_spec
 from ..kernels import build
 from ..kernels import paged_attention as pa
+from ..kernels.ops import mesh_model_axis
 from ..models import build_model
 from ..models.transformer import torch_dtype
 from ..serving import REDUCED_BUCKETS, Request, SamplingParams, ServingEngine
+from ..serving.compiled import compile_step
 from ..serving.gateway import GatewayServer, PipelinedEngine, sse_generate
 from ..serving.gateway.pipeline import goodput_stats
 from ..tuning.ranks import mesh_session, sync_committed
@@ -247,7 +249,8 @@ def _variant(waits: _Waits, step, kernel: str, **tiles):
 
 
 def _make_kv_precision_bench(model, page_size: int, device: torch.device,
-                             lanes: int = 2, decode_steps: int = 3):
+                             lanes: int = 2, decode_steps: int = 3,
+                             steps: list | None = None):
     """The calibration bench of the ``KVPrecision`` regions, as the JAX
     serve's: ``make_variant(bucket, kv_dtype, block_k)`` builds one
     candidate, a throwaway paged pool of that precision, one prefill of a
@@ -255,15 +258,26 @@ def _make_kv_precision_bench(model, page_size: int, device: torch.device,
     greedy decode steps at ``block_k``, timed end to end (each step's
     token comes to the host, so the time includes the device's).  It
     reports ``time_per_token`` and ``agreement``, the share of its greedy
-    tokens equal to the fp candidate's for the bucket (fp: 1.0)."""
+    tokens equal to the fp candidate's for the bucket (fp: 1.0).  Its
+    prefill and decode are compiled once for every candidate, as the JAX
+    serve jits them once (each published ``block_k`` keys its own
+    graphs), and appended to ``steps``; a pool is made once a (prompt
+    length, precision), so that its graphs replay."""
     ref_tokens: dict[int, list] = {}
+    prefill = compile_step(model.paged_prefill_step, "kv_bench_prefill")
+    decode = compile_step(model.paged_decode_step, "kv_bench_decode")
+    if steps is not None:
+        steps += [prefill, decode]
+    pools: dict[tuple, dict] = {}
 
     def run(bucket, kv_dtype, block_k, params):
         plen = min(bucket, 4 * page_size)
         blocks = -(-(plen + decode_steps) // page_size)
-        caches = model.init_paged_caches(lanes * blocks + 1, page_size,
-                                         device,
-                                         quantized=kv_dtype == "int8")
+        caches = pools.get((plen, kv_dtype))
+        if caches is None:
+            caches = pools[plen, kv_dtype] = model.init_paged_caches(
+                lanes * blocks + 1, page_size, device,
+                quantized=kv_dtype == "int8")
         table = torch.from_numpy(
             (np.arange(lanes)[:, None] * blocks + np.arange(blocks)[None, :]
              + 1).astype(np.int32)).to(device)
@@ -276,14 +290,13 @@ def _make_kv_precision_bench(model, page_size: int, device: torch.device,
         at.publish("flash_paged_decode", block_k=block_k)
         at.publish("flash_paged_prefill", block_k=block_k)
         t0 = time.perf_counter()
-        logits, _ = model.paged_prefill_step(params, caches, table, prompt,
-                                             start, kv_len, kv_len - 1)
+        logits, _ = prefill(params, caches, table, prompt, start, kv_len,
+                            kv_len - 1)
         tok = logits.argmax(-1)
         toks = [int(tok[0])]
         pos = kv_len
         for _ in range(decode_steps):
-            logits, _ = model.paged_decode_step(params, caches, table,
-                                                tok[:, None], pos)
+            logits, _ = decode(params, caches, table, tok[:, None], pos)
             tok = logits.argmax(-1)
             toks.append(int(tok[0]))
             pos = pos + 1
@@ -354,9 +367,21 @@ def make_autotuner(model, scfg: ServeConfig, mesh=None):
                            golden_db=scfg.golden_db)
     waits = _Waits()
     tiles = tile_ladders(model, scfg.page_size)
+    steps: list = []          # the variants' compiled steps
+
+    def compiled(fn, name: str):
+        """A candidate's own compiled step, as the JAX serve jits each
+        (eager under a sharded mesh, as the engine's steps)."""
+        if mesh_model_axis(mesh) > 1:
+            return fn
+        steps.append(compile_step(fn, name))
+        return steps[-1]
+
     if scfg.cache != "paged":
         tuner = DecodeAutoTuner(
-            session, lambda bk: _variant(waits, model.decode_step,
+            session, lambda bk: _variant(waits,
+                                         compiled(model.decode_step,
+                                                  "decode"),
                                          "flash_decode", block_k=bk),
             buckets=REDUCED_BUCKETS, block_ks=tiles["dense_block_k"],
             mesh_shape=scfg.mesh)
@@ -365,15 +390,17 @@ def make_autotuner(model, scfg: ServeConfig, mesh=None):
                   else (int(scfg.num_splits),))
         tuner = DecodeAutoTuner(
             session, lambda bk, ns: _variant(
-                waits, functools.partial(model.paged_decode_step, mesh=mesh),
+                waits, compiled(functools.partial(model.paged_decode_step,
+                                                  mesh=mesh), "decode"),
                 "flash_paged_decode", block_k=bk, num_splits=ns),
             buckets=REDUCED_BUCKETS, block_ks=tiles["block_k"],
             num_splits=splits, mesh_shape=scfg.mesh)
         if scfg.prefill_chunk is not None:
             tuner.add_prefill(
                 lambda bq, bk: _variant(
-                    waits, functools.partial(model.paged_prefill_step,
-                                             mesh=mesh),
+                    waits, compiled(functools.partial(
+                        model.paged_prefill_step, mesh=mesh),
+                        "prefill_step"),
                     "flash_paged_prefill", block_q=bq, block_k=bk),
                 chunk_sizes=(scfg.prefill_chunk,), buckets=REDUCED_BUCKETS,
                 block_qs=tiles["block_q"], block_ks=tiles["prefill_block_k"])
@@ -383,15 +410,18 @@ def make_autotuner(model, scfg: ServeConfig, mesh=None):
                            default=max(tiles["block_q"]))
 
             def make_verify(k, block_q, block_k):
+                verify = compiled(functools.partial(
+                    model.speculative_step, num_splits=scfg.num_splits,
+                    mesh=mesh), "verify")
+
                 def variant(p, caches, table, tokens, start, kv_len,
                             measure=True):
                     at.publish("flash_paged_verify", block_q=block_q,
                                block_k=block_k)
                     t0 = time.perf_counter()
-                    logits, caches = waits(variant, model.speculative_step(
+                    logits, caches = waits(variant, verify(
                         p, caches, table, tokens[:, :k + 1], start,
-                        torch.minimum(kv_len, start + k + 1),
-                        num_splits=scfg.num_splits, mesh=mesh),
+                        torch.minimum(kv_len, start + k + 1)),
                         measuring=measure)
                     if not measure:
                         return logits, caches
@@ -431,13 +461,14 @@ def make_autotuner(model, scfg: ServeConfig, mesh=None):
         if scfg.kv_dtype == "auto":
             tuner.add_kv_precision(
                 _make_kv_precision_bench(model, scfg.page_size,
-                                         resolve(scfg.device)),
+                                         resolve(scfg.device), steps=steps),
                 block_ks=tiles["kv_block_k"], buckets=REDUCED_BUCKETS)
     if scfg.gateway:
         tuner.add_gateway(max_inflights=(1, 2), admit_batches=(2, 8))
     sync_committed(tuner, mesh)
     waits.tuner = tuner
     tuner.waits = waits
+    tuner.compiled_steps = steps
     return tuner
 
 
@@ -774,6 +805,8 @@ def serve_engine(engine: ServingEngine, scfg: ServeConfig,
         "autotune": (autotune_report(engine.autotuner)
                      if engine.autotuner is not None else None),
         "tuning_db": engine.tuning_db(),
+        # the compiled steps' captures, replays and graphs (CUDA only)
+        "graphs": engine.graph_stats(),
     }
 
 

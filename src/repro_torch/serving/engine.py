@@ -58,8 +58,19 @@ draft's).  ``decode_fn`` and ``prefill_fn`` replace the first two, with
 the JAX engine's calls: ``decode_fn(params, caches, *extra, token,
 pos)`` (``extra``: the page table on the paged pool) and
 ``prefill_fn(params, tokens, frontend_embeds, max_len)``, each returning
-(logits, caches).  ``greedy`` is taken and changes nothing, as in the
-JAX engine: every request samples by its own ``SamplingParams``.
+(logits, caches), and are called as given.  Where the JAX engine jits a
+step the port compiles it (:mod:`.compiled`): ``_decode``,
+``_prefill_step``, ``_verify`` and ``_draft_decode`` are
+:class:`~repro_torch.serving.compiled.CompiledStep` wrappers, captured
+once per shape as CUDA graphs and replayed (on the CPU they call the
+step); ``_prefill`` and ``_draft_prefill``, one shape per prompt length,
+and every step of an engine with a sharded ``mesh`` stay eager.  A
+compiled step returns its graph's own output buffers, so the engine
+reads a step's logits before it calls that step again (``emit`` before
+the next ``dispatch``; the draft's and the verify's at once);
+:meth:`graph_stats` counts the captures and replays.  ``greedy`` is
+taken and changes nothing, as in the JAX engine: every request samples
+by its own ``SamplingParams``.
 
 Run-time AT (``autotuner``, a :class:`~repro_torch.tuning.DecodeAutoTuner`)
 routes as the JAX engine does: each decode step through its length
@@ -99,6 +110,7 @@ from ..distributed.collectives import broadcast_object
 from ..kernels.ops import mesh_model_axis
 from . import sampling
 from .buckets import LENGTH_BUCKETS
+from .compiled import compile_step, graph_stats
 from .kvcache import DenseKVCache, make_kv_cache
 from .metrics import ServingMetrics
 from .scheduler import LaneState, Request, Scheduler
@@ -189,20 +201,33 @@ class ServingEngine:
                 "prefix caching admits at the first uncached token via "
                 "chunked prefill; pass prefill_chunk")
         self.prefill_chunk = prefill_chunk
-        self._decode = decode_fn or (
+        # the steps every tick calls are compiled (CUDA graphs on the
+        # card, serving/compiled.py), as the JAX engine jits them.  Under
+        # a sharded mesh they stay eager: on one card the collectives go
+        # through gloo, which stages CUDA tensors through the host, and a
+        # graph cannot capture that
+        compiled = (lambda fn, name: fn) if self.mesh is not None \
+            else compile_step
+        self._decode = decode_fn or compiled(
             functools.partial(model.paged_decode_step, num_splits=num_splits,
                               mesh=self.mesh)
-            if self.kv.kind == "paged" else model.decode_step)
+            if self.kv.kind == "paged" else model.decode_step, "decode")
         # the steps close over the model and the mesh, never over the
         # engine: a cycle through it would keep its KV pools alive until
         # the cycle collector runs
         mesh = self.mesh
+        # the monolithic prefill stays eager: it has one shape per prompt
+        # length (the JAX engine traces it per length), and a graph per
+        # length would hold a memory pool per length
         self._prefill = prefill_fn or (
             lambda p, tokens, frontend_embeds, max_len: model.prefill(
                 p, tokens, max_len, frontend_embeds=frontend_embeds,
                 mesh=mesh))
-        self._prefill_step = functools.partial(model.paged_prefill_step,
-                                               mesh=mesh)
+        # a prompt chunk is padded to prefill_chunk tokens: one shape, one
+        # graph a serve (a tuned chunk's tiles key their own)
+        self._prefill_step = compiled(
+            functools.partial(model.paged_prefill_step, mesh=mesh),
+            "prefill_step")
         # -- speculative decoding ------------------------------------------
         self.spec_k = spec_k
         self.draft_model = draft_model
@@ -226,14 +251,16 @@ class ServingEngine:
             self.draft_kv = DenseKVCache(draft_model, n_lanes, max_len,
                                          self.device)
             self.draft_pos = [0] * n_lanes   # tokens in the draft's cache
-            self._verify = functools.partial(model.speculative_step,
-                                             num_splits=num_splits,
-                                             mesh=self.mesh)
+            self._verify = compiled(
+                functools.partial(model.speculative_step,
+                                  num_splits=num_splits, mesh=self.mesh),
+                "verify")
             # the draft's methods are looked up at each call, so that a
             # wrapper of the model class's methods set after the engine
-            # is built sees them (chip_smoke.py counts the draft's calls)
-            self._draft_decode = (
-                lambda *args: draft_model.decode_step(*args))
+            # is built sees them (chip_smoke.py counts the draft's calls);
+            # its prefill, one shape per length, stays eager
+            self._draft_decode = compiled(
+                lambda *args: draft_model.decode_step(*args), "draft_decode")
             self._draft_prefill = (
                 lambda p, tokens, frontend_embeds, max_len:
                 draft_model.prefill(p, tokens, max_len,
@@ -592,6 +619,7 @@ class ServingEngine:
                 self.draft_params, self.draft_kv.caches,
                 torch.from_numpy(token).to(self.device),
                 torch.from_numpy(pos).to(self.device))
+            # read now: the next draft decode replays into this buffer
             logits_np = logits_d.cpu().numpy()
             proposed = {}
             for i in feed:
@@ -690,6 +718,14 @@ class ServingEngine:
                             if self.drafted_tokens else 0.0),
         }
 
+    def graph_stats(self) -> dict:
+        """The captures, replays, recaptures and graphs (by step) of this
+        engine's compiled steps and of its tuner's variants."""
+        return graph_stats([
+            self._decode, self._prefill_step, getattr(self, "_verify", None),
+            getattr(self, "_draft_decode", None),
+            *getattr(self.autotuner, "compiled_steps", ())])
+
     def tuning_db(self) -> dict | None:
         """Which tuning DB feeds this engine's regions (backend, path,
         record count, golden overlay), None when serving untuned."""
@@ -753,6 +789,8 @@ class ServingEngine:
         No-op for ``None``."""
         if work is None:
             return
+        # the decode graph's own buffer: read before the next dispatch
+        # replays the graph into it
         logits_np = work.logits.cpu().numpy()
         toks = self._decide(sampling.sample_batch(
             logits_np[work.decoding], [r.sampling for r in work.reqs],
