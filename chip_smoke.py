@@ -324,22 +324,38 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    causal), whisper's cross shape (224 x 1500, D 64, G 1) and
    h2o-danube's D 80 with a window, K9 at B 1, L 128, Di 8192, N 16; each
    Function's forward + backward timed (L2 flushed) beside the plain
-   route's and, for K1, SDPA's; (b) yi-6b at full width cut to 12 of its
-   32 layers, float32 weights and AdamW moments: 6 steps at B 4, S 1024
-   (a falling loss; step time, tokens/s, peak memory; K1 through its
-   Function once per layer per step; the last step profiled: device
-   time, busy share, the time by kind of kernel and the kernels that
-   take most; the forward and AdamW's update timed alone), then single
-   steps from the same weights and batch through the plain route, 2
-   microbatches and remat ``full``, each held to the kernel route's
-   first step: loss and global grad norm within 1e-3 relative, and the
-   grad norms of the sequence mixer's leaves (attention's wq/wk/wv/wo)
-   and of layer 0's leaves within 1e-2 (peak memory beside the first
-   run's); (b2) falcon-mamba-7b at full width cut to 4 of its 64 layers:
-   2 steps at B 1, S 512 (K9 through its Function once per layer per
-   step) and a plain-route step, held so (the mixer: the scan's leaves);
-   (c) the guard: a paged decode whose q requires grad raises under
-   ``torch.enable_grad()`` and launches nothing;
+   route's and, for K1, SDPA's, K9's also as a CUDA graph (captured
+   once, replayed) beside the eager time; (b) yi-6b at full width cut
+   to 12 of its 32 layers, float32 weights and AdamW moments: 6 steps at
+   B 4, S 1024 through the compiled step, as ``launch/train.py`` runs it
+   (one CUDA graph captured at the first step, replayed at the others:
+   1 capture, 5 replays, 0 recaptures; a falling loss; step time,
+   tokens/s, peak memory; K1 through its Function once per layer per
+   step; the last step profiled: device time, busy share, the time by
+   kind of kernel and the kernels that take most), beside an eager twin
+   on the same weights and batches (every step's loss and grad norm
+   within 1e-3 relative, the launches equal, the last parameters'
+   largest difference beside a second eager run's, the step time, busy
+   share, peak and reserved memory of both; the eager one's forward and
+   AdamW's update timed alone), then single steps from the same weights
+   and batch through the plain route, and 2 microbatches and remat
+   ``full`` (3 steps, each graphed beside its eager twin), each held to
+   the kernel route's first step: loss and global grad norm within 1e-3
+   relative, and the grad norms of the sequence mixer's leaves
+   (attention's wq/wk/wv/wo) and of layer 0's leaves within 1e-2 (peak
+   memory beside the first run's); (b2) falcon-mamba-7b at full width
+   cut to 4 of its 64 layers: 3 steps at B 1, S 512 graphed beside
+   eager (K9 through its Function once per layer per step) and a
+   plain-route step, held so (the mixer: the scan's leaves); (c) the
+   guard: a paged decode whose q requires grad raises under
+   ``torch.enable_grad()`` and launches nothing; (d) one train step
+   graphed (2 steps: the second a replay) against eager, loss and grad
+   norm within 1e-3 relative, for each family (b) and (b2) do not
+   train, at published widths: moonshot-v1-16b-a3b cut to 2 of 48
+   layers (MoE), zamba2-7b to 6 of 81 (the shared block once),
+   pixtral-12b to 2 of 40 (1024 patches in front), h2o-danube-1.8b to 2
+   of 24, whisper-tiny whole (llama4-scout is left out: one of its
+   layers is ~36 GB of float32 state; moonshot covers MoE);
 36. static AT (``tuning/static.py``, ``launch/analytic.py``, the H100 rows
    of ``core/cost.py``): (a) the card's row read by its name (an unknown
    card fails) beside ``nvidia-smi``'s name and power limit;
@@ -350,7 +366,8 @@ non-zero; nothing falls back to the CPU or to the plain versions):
    autotune=True)`` in a temporary working directory: yi-6b at full
    width cut to 2 of 32 layers, B 2 x S 1024, 2 steps, the layout plan
    ``tp``, the loss finite (falling or reported), K1 through
-   ``FlashAttentionFn`` once per layer per step and no other kernel;
+   ``FlashAttentionFn`` once per layer per step and no other kernel, the
+   compiled step captured once and replayed once;
    (c) ``step_for_shape``'s prefill (S 1024, B 4) and decode steps at
    yi-6b's full width cut to 2 layers (K1 once per layer, K2 once per
    layer a step, counted) against the same steps with
@@ -528,7 +545,8 @@ from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.serving import compiled  # noqa: E402
-from repro_torch.serving.compiled import CompiledStep  # noqa: E402
+from repro_torch.serving.compiled import (CompiledStep,  # noqa: E402
+                                         compile_step)
 from repro_torch.serving.kvcache import tree_leaves  # noqa: E402
 from repro_torch.serving.gateway import (GatewayPolicyKnobs,  # noqa: E402
                                          GatewayServer, PipelinedEngine,
@@ -5297,8 +5315,26 @@ AUTOGRAD_SOURCE = "src/repro_torch/kernels/autograd.py"
 TRAIN = dict(arch="yi-6b", layers=12, batch=4, seq=1024, steps=6, lr=3e-4,
              warmup=2)
 #: (b2): falcon-mamba-7b's published widths cut to 4 of 64 layers
-TRAIN_SSM = dict(arch=FM, layers=4, batch=1, seq=512, steps=2, lr=3e-4,
+TRAIN_SSM = dict(arch=FM, layers=4, batch=1, seq=512, steps=3, lr=3e-4,
                  warmup=1)
+#: the steps of the microbatch and remat pairs of (b): a warm-up (and the
+#: capture), a timed step, a profiled step
+PAIR_STEPS = 3
+#: (d): one family each that (b) and (b2) do not train, at published
+#: widths, cut in depth (``layers`` None: whole); 2 steps, graphed (the
+#: second a replay) against eager
+TRAIN_FAMILIES = (
+    dict(arch="moonshot-v1-16b-a3b", layers=2, batch=1, seq=512,
+         cut="cut to 2 of 48 layers (MoE: 64 experts, top 6)"),
+    dict(arch="zamba2-7b", layers=6, batch=1, seq=512,
+         cut="cut to 6 of 81 layers (the shared block applied once, after "
+             "layer 6)"),
+    dict(arch="pixtral-12b", layers=2, batch=1, seq=256,
+         cut="cut to 2 of 40 layers (1024 patches in front: S' 1280)"),
+    dict(arch="h2o-danube-1.8b", layers=2, batch=2, seq=512,
+         cut="cut to 2 of 24 layers (window 4096)"),
+    dict(arch="whisper-tiny", layers=None, batch=2, seq=256,
+         cut="whole (4 encoder + 4 decoder layers, 1500 frames)"))
 FN_TOL = 2e-2          # of each tensor's scale (max |plain|)
 
 
@@ -5429,17 +5465,39 @@ def phase_train_functions(smi: str) -> list[dict]:
     t_exp, rate = exp_floor_ms(2 * elems * n)
     bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= max(t_ops, t_exp)
                           else (max(t_ops, t_exp), "operations"))
+    # the same forward + backward captured once as a CUDA graph (the
+    # inputs persistent, gy per-tick) and replayed: the reverse loop's
+    # launches leave the host.  Fresh leaves: ``y`` keeps the eager
+    # graph of ``args`` alive, its AccumulateGrad nodes on the default
+    # stream, which a capture on another stream cannot wait for
+    def k9_fwd_bwd(xs, g):
+        return torch.autograd.grad(SelectiveScanFn.apply(*xs, {}), xs, g)
+    leaves = tuple(grad_leaf(t) for t in args)
+    graphed = compile_step(k9_fwd_bwd, "K9 fwd+bwd")
+    g_times = time_ms(lambda: graphed(leaves, gy), iters=5)
+    g_out = [t.clone() for t in graphed(leaves, gy)]
+    e_out = k9_fwd_bwd(leaves, gy)
+    fn_errors(g_out, e_out)
+    g_bits = all(torch.equal(a, b) for a, b in zip(g_out, e_out))
+    check(graphed.captures == 1 and graphed.recaptures == 0
+          and graphed.replays >= 5, f"[35a] K9 graphed: {graphed.captures} "
+          f"captures, {graphed.replays} replays")
     r2 = {"name": f"SelectiveScanFn[fwd+bwd B{bs} L{length} Di{di} N{n}]",
           "route": "cuda", "source": AUTOGRAD_SOURCE,
           "replaces": "src/repro/kernels/ssm_scan.py:74", "max_abs_err": err,
           "ms": times["ms"][0], "plain_ms": times["plain_ms"][0],
           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+          "graphed_ms": g_times[0],
           "forward": SSM_SOURCE, "backward": "reverse-time loop over L, "
           "float32 PyTorch ops"}
     lines.append(f"K9 Function fwd+bwd: {fmt_times(times)}, bound "
                  f"{bound_ms:.5f} ms ({bound_by}; bytes {t_bytes:.5f}, "
-                 f"float32 operations {t_ops:.5f}, exps {t_exp:.5f} ({rate}))")
-    del args, gy, y, got, want, want_y
+                 f"float32 operations {t_ops:.5f}, exps {t_exp:.5f} ({rate}))"
+                 f"; graphed (one capture, {graphed.replays} replays) "
+                 f"{g_times[0]:.4f} ms ({g_times[1]:.4f}) against eager "
+                 f"{times['ms'][0]:.4f} ({times['ms'][1]:.4f}), gradients "
+                 f"{'bit-equal' if g_bits else 'within the tolerance'}")
+    del args, gy, y, got, want, want_y, graphed, g_out, e_out, leaves
     print(f"[35a train Functions] against autograd of the plain versions "
           f"(tol {FN_TOL} of each tensor's scale), device ms (ms per call "
           f"incl. host) on {smi}: " + "; ".join(lines))
@@ -5449,17 +5507,24 @@ def phase_train_functions(smi: str) -> list[dict]:
 def train_setup(spec: dict, use_kernel=None, **plan_kw):
     """The cut config, fresh float32 weights (seed 0), AdamW state, the
     step function and the batches of ``spec``."""
-    cfg = dataclasses.replace(get_arch(spec["arch"]),
-                              n_layers=spec["layers"])
+    cfg = get_arch(spec["arch"])
+    if spec.get("layers") is not None:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
     model = build_model(cfg)
     params = model.init(0, "cuda", dtype=cfg.param_dtype)
     opt = adamw.init(params)
     step = build_train_step(
         model, LayoutPlan(name="smoke", **plan_kw),
-        adamw.AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup"],
-                          total_steps=spec["steps"]), use_kernel=use_kernel)
+        adamw.AdamWConfig(lr=spec.get("lr", 3e-4),
+                          warmup_steps=spec.get("warmup", 1),
+                          total_steps=spec.get("steps", 2)),
+        use_kernel=use_kernel)
+    # a frontend's frames or patches in the batch, as launch/train.py's
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
-                      global_batch=spec["batch"], seed=0)
+                      global_batch=spec["batch"], seed=0,
+                      frontend_seq=cfg.frontend_seq if cfg.frontend != "none"
+                      or cfg.is_encoder_decoder else 0,
+                      d_model=cfg.d_model)
     return cfg, params, opt, step, dcfg
 
 
@@ -5474,12 +5539,12 @@ KERNEL_KINDS = (("K1", ("flash_attention",)),
                                                     "gather", "cat")))
 
 
-def device_breakdown(prof, wall_s: float) -> str:
+def device_breakdown(prof, wall_s: float) -> tuple[str, float]:
     """A profiled step's device time: the sum over kernels, the busy
     share of the step's wall time, the sums by kind (the first pattern a
     kernel's name holds; K1's float32 backward and the optimizer are in
     "float32 products" and "elementwise") and the 6 kernels that take
-    most."""
+    most; and the busy share."""
     us = {e.key: e.self_device_time_total for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and e.self_device_time_total > 0}
@@ -5491,11 +5556,12 @@ def device_breakdown(prof, wall_s: float) -> str:
                      if any(p in key.lower() for p in pats)), "other")
         kinds[kind] += t / 1e3
     top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+    busy = total / (wall_s * 1e3)
     return (f"device {total:.1f} ms of {wall_s * 1e3:.1f} ms wall (busy "
-            f"share {total / (wall_s * 1e3):.3f}); by kind "
+            f"share {busy:.3f}); by kind "
             + ", ".join(f"{k} {v:.1f}" for k, v in kinds.most_common())
             + " ms; top kernels: "
-            + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top))
+            + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top)), busy
 
 
 def events_ms(fn, n: int = 3) -> float:
@@ -5578,23 +5644,81 @@ def group_norm_hooks(params: dict, nmb: int):
     return handles, norms
 
 
+def pool_bytes() -> tuple[int, int]:
+    """The caching allocator's reserved bytes: (the default pool's, the
+    graphs' private pools')."""
+    default = private = 0
+    for seg in torch.cuda.memory_snapshot():
+        if tuple(seg.get("segment_pool_id", (0, 0))) == (0, 0):
+            default += seg["total_size"]
+        else:
+            private += seg["total_size"]
+    return default, private
+
+
+class HooksOff(compiled.CudaGraphs):
+    """The capture seam with ``group_norm_hooks``' handles removed just
+    before the capture: the warm-up (the first step, a real one) feeds
+    the hooks; a hook left in would run inside the capture and record
+    writes to buffers that the replays never compute.  Also records what
+    the capture reserved in the default pool and in the private pools
+    (``pools``): the backward runs on autograd's device thread, and
+    every allocation the capture makes, the backward's included, must
+    land in the graph's pool."""
+
+    def __init__(self, handles: list):
+        self.handles = handles
+        self.pools = None
+
+    def capture(self, call, stream, device):
+        for handle in self.handles:
+            handle.remove()
+        torch.cuda.empty_cache()
+        before = pool_bytes()
+        out = super().capture(call, stream, device)
+        after = pool_bytes()
+        self.pools = tuple(b - a for a, b in zip(before, after))
+        return out
+
+
+def host_leaves(params: dict) -> list[torch.Tensor]:
+    return [p.detach().cpu() for p in adamw.leaves(params)]
+
+
+def leaves_diff(params: dict, host: list[torch.Tensor]) -> float:
+    """The largest |param - host| over every leaf."""
+    return max(float((p.detach() - h.to(p.device)).abs().max())
+               for p, h in zip(adamw.leaves(params), host))
+
+
 def train_run(spec: dict, n_steps: int, use_kernel=None, profile=False,
-              **plan_kw) -> dict:
+              graphed=False, hooks=True, parts=False, against=None,
+              keep=False, **plan_kw) -> dict:
     """``n_steps`` steps from fresh weights, every kernel counter zeroed
     just before and read just after, each step synchronised and timed
-    (with ``profile``, the last under ``torch.profiler``); the first
-    step's group grad norms (``group_norm_hooks``) under ``groups``."""
+    (with ``profile``, the last under ``torch.profiler``; with ``parts``
+    the forward and AdamW's update timed alone after it); the first
+    step's group grad norms (``group_norm_hooks``, with ``hooks``) under
+    ``groups``.  ``graphed``: the step compiled as the trainer compiles
+    it (``compile_step(..., per_tick=("batch",))``), its graphs under
+    ``graphs``.  ``against``: host leaves to hold the last parameters to
+    (``diff``); ``keep``: the last parameters' host leaves (``host``)."""
     cfg, params, opt, step, dcfg = train_setup(spec, use_kernel, **plan_kw)
-    handles, group_norms = group_norm_hooks(
-        params, plan_kw.get("num_microbatches", 1))
+    handles, group_norms = (group_norm_hooks(
+        params, plan_kw.get("num_microbatches", 1)) if hooks
+        else ([], dict))
+    seam = HooksOff(handles)
+    if graphed:
+        step = compile_step(step, "train", backend=seam, per_tick=("batch",))
     batches = [{k: v.cuda() for k, v in batch_for_step(dcfg, s).items()}
                for s in range(n_steps)]
     gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for kernel in KERNELS + ag.FUNCTIONS:
         kernel.launches = 0
-    losses, norms, times, breakdown = [], [], [], None
+    losses, norms, times, breakdown, busy = [], [], [], None, None
     for i, batch in enumerate(batches):
         prof = (torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -5614,11 +5738,16 @@ def train_run(spec: dict, n_steps: int, use_kernel=None, profile=False,
     launches = {k.__name__: k.launches
                 for k in KERNELS + ag.FUNCTIONS}
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    graphs = compiled.graph_stats([step])
     if profile:                 # after the peak: the parts take memory
-        breakdown = (device_breakdown(prof, times[-1]) + "; "
-                     + step_parts(spec, build_model(cfg), params, opt,
-                                  batches[-1]))
+        breakdown, busy = device_breakdown(prof, times[-1])
+        if parts:
+            breakdown += "; " + step_parts(spec, build_model(cfg), params,
+                                           opt, batches[-1])
     n_params = sum(t.numel() for t in adamw.leaves(params))
+    diff = None if against is None else leaves_diff(params, against)
+    host = host_leaves(params) if keep else None
     del params, opt, step, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -5627,8 +5756,9 @@ def train_run(spec: dict, n_steps: int, use_kernel=None, profile=False,
           f"[35] {spec['arch']}: a loss or grad norm is not finite: "
           f"{losses} {norms} {groups}")
     return dict(losses=losses, norms=norms, groups=groups, times=times,
-                peak=peak, launches=launches, n_params=n_params, cfg=cfg,
-                breakdown=breakdown)
+                peak=peak, reserved=reserved, launches=launches,
+                n_params=n_params, cfg=cfg, breakdown=breakdown, busy=busy,
+                graphs=graphs, diff=diff, host=host, pools=seam.pools)
 
 
 AGREE_TOL = 1e-3        # relative: the first step's loss and grad norm
@@ -5672,20 +5802,93 @@ def only_train_kernels(launches: dict, fn, wrapper, per_step: int,
     check(not others, f"[35] {what}: other kernels launched: {others}")
 
 
+def step_ms(run: dict) -> float:
+    """The run's step time (ms): the median of the steps after the first
+    (the warm-up and, graphed, the capture) and before a profiled last."""
+    times = run["times"][1:-1] if run["breakdown"] else run["times"][1:]
+    return float(np.median(times)) * 1e3
+
+
+def rel_off(a: list[float], b: list[float]) -> float:
+    return max(abs(x / y - 1) for x, y in zip(a, b))
+
+
+def train_pair(spec: dict, n_steps: int, what: str, noise: bool = True,
+               profile: bool = True, parts: bool = False,
+               hooks: bool = True, **plan_kw) -> tuple[dict, dict, str]:
+    """``n_steps`` steps eager (its last parameters kept on the host),
+    the same steps graphed (the trainer's compiled step) from the same
+    weights and batches, held to it, and with ``noise`` the eager steps
+    again, their last parameters held to the first eager run's (the
+    backward's atomics): every step's loss and grad norm within
+    AGREE_TOL relative, one capture and a replay every later step, the
+    launches equal.  Returns (graphed, eager, the line that reports
+    both)."""
+    kw = dict(profile=profile, hooks=hooks, **plan_kw)
+    eager = train_run(spec, n_steps, keep=True, parts=parts, **kw)
+    graphed = train_run(spec, n_steps, graphed=True, against=eager["host"],
+                        **kw)
+    again = (train_run(spec, n_steps, hooks=False, against=eager["host"],
+                       **plan_kw)["diff"] if noise else None)
+    eager["host"] = None
+    g, e = graphed["graphs"], eager["graphs"]
+    check((g["captures"], g["replays"], g["recaptures"])
+          == (1, n_steps - 1, 0) and e["captures"] == 0,
+          f"[35] {what}: graphed {g}, eager {e}")
+    dl = rel_off(graphed["losses"], eager["losses"])
+    dn = rel_off(graphed["norms"], eager["norms"])
+    check(dl <= AGREE_TOL and dn <= AGREE_TOL,
+          f"[35] {what}: graphed losses {graphed['losses']} / grad norms "
+          f"{graphed['norms']} against eager {eager['losses']} / "
+          f"{eager['norms']}")
+    check(graphed["launches"] == eager["launches"],
+          f"[35] {what}: launches graphed {graphed['launches']}, eager "
+          f"{eager['launches']}")
+    fns = {f.__name__: graphed["launches"][f.__name__] for f in ag.FUNCTIONS
+           if graphed["launches"][f.__name__]}
+
+    def busy(run):
+        return "not profiled" if run["busy"] is None else f"{run['busy']:.3f}"
+    line = (f"{what}: {g['captures']} capture, {g['replays']} replays, "
+            f"{g['recaptures']} recaptures; losses graphed "
+            + ", ".join(f"{x:.6f}" for x in graphed["losses"])
+            + " / eager " + ", ".join(f"{x:.6f}" for x in eager["losses"])
+            + f" ({dl:.1e} off), grad norms graphed "
+            + ", ".join(f"{x:.6f}" for x in graphed["norms"])
+            + " / eager " + ", ".join(f"{x:.6f}" for x in eager["norms"])
+            + f" ({dn:.1e} off); the last parameters' largest difference "
+            f"graphed - eager {graphed['diff']:.3e}"
+            + ("" if again is None else f" (eager - eager {again:.3e})")
+            + f"; step {step_ms(graphed):.1f} ms graphed / "
+            f"{step_ms(eager):.1f} eager (first step, with the warm-up and "
+            f"the capture, {graphed['times'][0] * 1e3:.1f} / "
+            f"{eager['times'][0] * 1e3:.1f}); busy share {busy(graphed)} / "
+            f"{busy(eager)}; peak allocated {graphed['peak'] / 1e9:.2f} / "
+            f"{eager['peak'] / 1e9:.2f} GB, reserved "
+            f"{graphed['reserved'] / 1e9:.2f} / {eager['reserved'] / 1e9:.2f}"
+            f" GB; the capture reserved {graphed['pools'][1] / 1e9:.2f} GB "
+            f"in its private pool, {graphed['pools'][0] / 1e9:.2f} GB in the "
+            f"default pool; launches equal ({fns})")
+    check(graphed["pools"][0] <= 0, f"[35] {what}: the capture reserved "
+          f"{graphed['pools'][0]} bytes in the default pool")
+    return graphed, eager, line
+
+
 def phase_train(smi: str) -> tuple[dict[str, int], float]:
     """(b), (b2) and (c).  Returns the Functions' launches in the main
-    path's runs and (b)'s step time (s)."""
+    path's (graphed) runs and (b)'s graphed step time (s)."""
     t0 = time.perf_counter()
     spec = TRAIN
-    main = train_run(spec, spec["steps"], profile=True)
-    cfg, n = main["cfg"], spec["steps"]
+    n = spec["steps"]
+    main, main_eager, main_line = train_pair(spec, n, "yi-6b", parts=True)
+    cfg = main["cfg"]
     tokens = spec["batch"] * spec["seq"]
     only_train_kernels(main["launches"], FlashAttentionFn, fa.flash_attention,
                        cfg.n_layers, n, "yi-6b")
     losses = main["losses"]
     check(np.mean(losses[4:6]) < np.mean(losses[0:2]),
           f"[35b] yi-6b: the loss did not fall: {losses}")
-    step_s = float(np.median(main["times"][1:5]))
+    step_s = step_ms(main) / 1e3
     per_layer = (main["n_params"] - 2 * cfg.padded_vocab * cfg.d_model) \
         / cfg.n_layers
     print(f"[35b train yi-6b] published widths (d_model {cfg.d_model}, 32 q "
@@ -5694,23 +5897,34 @@ def phase_train(smi: str) -> tuple[dict[str, int], float]:
           f"parameters ({per_layer / 1e6:.1f} M a layer), float32 weights, "
           f"gradients and AdamW moments {16 * main['n_params'] / 1e9:.1f} "
           f"GB; {n} steps at B {spec['batch']}, S {spec['seq']}, lr "
-          f"{spec['lr']}, warmup {spec['warmup']}: losses "
+          f"{spec['lr']}, warmup {spec['warmup']}, through the compiled "
+          f"step (a CUDA graph captured once, replayed): losses "
           + ", ".join(f"{x:.4f}" for x in losses)
           + f"; grad norms " + ", ".join(f"{x:.3f}" for x in main["norms"])
           + f"; step time {step_s * 1e3:.1f} ms (median of steps 2-5; all "
           + ", ".join(f"{x * 1e3:.1f}" for x in main["times"])
-          + f" ms), {tokens / step_s:.0f} tokens/s; peak memory "
+          + f" ms), {tokens / step_s:.0f} tokens/s (eager "
+          f"{step_ms(main_eager):.1f} ms, "
+          f"{tokens / step_ms(main_eager) * 1e3:.0f} tokens/s); peak memory "
           f"{main['peak'] / 1e9:.2f} GB; K1 through FlashAttentionFn "
           f"{main['launches']['FlashAttentionFn']} launches; on {smi}; "
-          f"step 6 profiled: {main['breakdown']}")
+          f"step 6 profiled, graphed: {main['breakdown']}; eager: "
+          f"{main_eager['breakdown']}")
+    print(f"[35b graphed yi-6b] against the eager step on the same weights "
+          f"and batches (tol {AGREE_TOL} relative), on {smi}: {main_line}")
     lines = [agree("plain route (use_kernel=False)",
                    train_run(spec, 1, use_kernel=False), main)]
-    mb = train_run(spec, 1, num_microbatches=2)
+    pair_lines = []
+    mb, mb_eager, line = train_pair(spec, PAIR_STEPS, "2 microbatches",
+                                    num_microbatches=2)
     only_train_kernels(mb["launches"], FlashAttentionFn, fa.flash_attention,
-                       2 * cfg.n_layers, 1, "yi-6b 2 microbatches")
-    lines.append(agree("2 microbatches", mb, main))
-    full = train_run(spec, 1, remat="full")
-    lines.append(agree("remat full", full, main))
+                       2 * cfg.n_layers, PAIR_STEPS, "yi-6b 2 microbatches")
+    lines.append(agree("2 microbatches", mb_eager, main))
+    pair_lines.append(line)
+    full, full_eager, line = train_pair(spec, PAIR_STEPS, "remat full",
+                                        remat="full")
+    lines.append(agree("remat full", full_eager, main))
+    pair_lines.append(line)
     print(f"[35b train yi-6b] single steps from the same weights and batch "
           f"against the kernel route's first step (loss "
           f"{losses[0]:.4f}, grad norm {main['norms'][0]:.4f}, mixer "
@@ -5718,22 +5932,27 @@ def phase_train(smi: str) -> tuple[dict[str, int], float]:
           f"{main['groups']['layer 0']:.4f}, peak "
           f"{main['peak'] / 1e9:.2f} GB; tol {AGREE_TOL} and {GROUP_TOL} "
           f"relative): " + "; ".join(lines))
+    print(f"[35b graphed yi-6b] the microbatch and remat runs, each graphed "
+          f"against its eager twin ({PAIR_STEPS} steps) on {smi}: "
+          + "; ".join(pair_lines))
 
     spec2 = TRAIN_SSM
-    fm = train_run(spec2, spec2["steps"])
+    n2 = spec2["steps"]
+    fm, fm_eager, fm_line = train_pair(spec2, n2, "falcon-mamba-7b")
     only_train_kernels(fm["launches"], SelectiveScanFn, k9.selective_scan,
-                       spec2["layers"], spec2["steps"], "falcon-mamba")
+                       spec2["layers"], n2, "falcon-mamba")
     fm_plain = train_run(spec2, 1, use_kernel=False)
     print(f"[35b2 train falcon-mamba-7b] published widths cut to "
           f"{spec2['layers']} of 64 layers ({fm['n_params'] / 1e9:.3f} B "
-          f"parameters), {spec2['steps']} steps at B {spec2['batch']}, S "
-          f"{spec2['seq']}: losses " + ", ".join(f"{x:.4f}" for x in
-                                                 fm["losses"])
+          f"parameters), {n2} steps at B {spec2['batch']}, S "
+          f"{spec2['seq']} through the compiled step: losses "
+          + ", ".join(f"{x:.4f}" for x in fm["losses"])
           + f", step times " + ", ".join(f"{x * 1e3:.1f}" for x in
                                          fm["times"])
           + f" ms, peak {fm['peak'] / 1e9:.2f} GB; K9 through "
           f"SelectiveScanFn {fm['launches']['SelectiveScanFn']} launches; "
-          + agree("plain route", fm_plain, fm))
+          + agree("plain route", fm_plain, fm) + f"; graphed against eager "
+          f"on {smi}: {fm_line}")
 
     kp = torch.zeros((4, 4, 16, 128), dtype=BF16, device="cuda")
     q = randn((1, 32, 1, 128), 3590, BF16).requires_grad_(True)
@@ -5757,14 +5976,38 @@ def phase_train(smi: str) -> tuple[dict[str, int], float]:
             "SelectiveScanFn": fm["launches"]["SelectiveScanFn"]}, step_s
 
 
+def train_families(smi: str) -> None:
+    """(d): one train step graphed against eager for each family that (b)
+    and (b2) do not train (``TRAIN_FAMILIES``): 2 steps each, the second
+    a replay, every step's loss and grad norm within AGREE_TOL relative
+    of the eager run's on the same weights and batches."""
+    t0 = time.perf_counter()
+    lines = []
+    for spec in TRAIN_FAMILIES:
+        graphed, _, line = train_pair(spec, 2, spec["arch"], noise=False,
+                                      profile=False, hooks=False)
+        check(sum(graphed["launches"][f.__name__] for f in ag.FUNCTIONS)
+              > 0, f"[35d] {spec['arch']}: no launch through a Function")
+        lines.append(f"{line} [{graphed['n_params'] / 1e9:.3f} B "
+                     f"parameters, {spec['cut']}, B {spec['batch']} x S "
+                     f"{spec['seq']}]")
+    print(f"[35d graphed families] one train step graphed (the second, a "
+          f"replay) against eager from the same weights and batches, at "
+          f"published widths, on {smi}: " + "; ".join(lines)
+          + f"; in {time.perf_counter() - t0:.1f}s")
+
+
 def phase_training(smi: str) -> tuple[list[dict], float]:
     """Phase 35: (a) the Functions, (b) yi-6b and (b2) falcon-mamba
-    trained, (c) the guard.  Returns the Functions' two rows and (b)'s
-    step time (s, the median of steps 2-5)."""
+    trained through the compiled step, each beside its eager twin, (c)
+    the guard, (d) one graphed step of each other family.  Returns the
+    Functions' two rows and (b)'s graphed step time (s, the median of
+    steps 2-5)."""
     rows = phase_train_functions(smi)
     gc.collect()
     torch.cuda.empty_cache()
     launches, step_s = phase_train(smi)
+    train_families(smi)
     rows[0]["launches"] = launches["FlashAttentionFn"]
     rows[1]["launches"] = launches["SelectiveScanFn"]
     return rows, step_s
@@ -5850,6 +6093,9 @@ def train_autotuned(smi: str, card: str) -> int:
     losses = run["losses"]
     check(len(losses) == spec["steps"] and all(np.isfinite(losses)),
           f"[36b] losses {losses}")
+    graphs = run["graphs"]
+    check((graphs["captures"], graphs["replays"], graphs["recaptures"])
+          == (1, spec["steps"] - 1, 0), f"[36b] the compiled step: {graphs}")
     fell = losses[-1] < losses[0]
     del run
     gc.collect()
@@ -5860,8 +6106,8 @@ def train_autotuned(smi: str, card: str) -> int:
           f"{wall:.1f}s: " + " | ".join(lines) + f"; the loss "
           f"{'fell' if fell else 'did NOT fall'} ({losses[0]:.4f} -> "
           f"{losses[-1]:.4f}); K1 through FlashAttentionFn "
-          f"{launches['FlashAttentionFn']} launches, no other kernel; "
-          f"on {smi}")
+          f"{launches['FlashAttentionFn']} launches, no other kernel; the "
+          f"compiled step {graphs}; on {smi}")
     return launches["flash_attention"]
 
 

@@ -128,7 +128,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             if remat:
                 m, l, acc = torch.utils.checkpoint.checkpoint(
                     kv_step, m, l, acc, qc, kc, vc, iq, ik,
-                    use_reentrant=False)
+                    use_reentrant=False, preserve_rng_state=False)
             else:
                 m, l, acc = kv_step(m, l, acc, qc, kc, vc, iq, ik)
         l = torch.where(l == 0.0, 1.0, l)

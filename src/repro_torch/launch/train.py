@@ -9,6 +9,16 @@
 * weights held in the config's ``param_dtype`` (float32), cast to
   ``compute_dtype`` at use; on the card attention runs K1 and Mamba-1's
   scan K9, each through its ``torch.autograd.Function``;
+* on the card the step is compiled (``serving/compiled.py``'s
+  :class:`CompiledStep`, the JAX driver's ``jax.jit`` of the step): the
+  first step runs eagerly and is then captured as one CUDA graph, which
+  every later step replays with its batch copied in; the parameters and
+  the AdamW state are updated in place by the replay.  A restored
+  checkpoint's new tensors get one new capture.  The returned
+  ``"graphs"`` counts the captures, replays and recaptures
+  (:func:`~repro_torch.serving.compiled.graph_stats`).  A step over
+  ``DTensor`` leaves stays eager (gloo stages every collective through
+  the host, as the mesh engine's steps do);
 * before-execute-time AT (``--autotune``): the layout plan of
   ``(--arch, --tune-shape)`` chosen by ``tuning/static.py`` before the
   first step (the paper's phase order: install -> static -> run), at the
@@ -42,7 +52,9 @@ from ..data import DataConfig, batch_for_step
 from ..device import resolve
 from ..distributed.fault_tolerance import HeartbeatMonitor, StragglerWatchdog
 from ..models import LayoutPlan, build_model
+from ..models.sharding_ctx import is_dtensor
 from ..optim import adamw
+from ..serving.compiled import compile_step, graph_stats
 from ..tuning import tune_layout
 from .steps import build_train_step
 
@@ -67,7 +79,8 @@ def train(arch: str = "deepseek-7b", steps: int = 20, reduced: bool = True,
     session record store under ``ckpt_dir`` (or the working directory),
     so later launches of the same cell skip the selection.  Returns
     {"losses", "final_loss", "steps", "wall_s", "params", "opt_state",
-    "tuned_plan"} as the JAX driver does."""
+    "tuned_plan"} as the JAX driver does, and "graphs": the compiled
+    step's captures, replays and recaptures (all 0 on the CPU)."""
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -87,7 +100,7 @@ def train(arch: str = "deepseek-7b", steps: int = 20, reduced: bool = True,
                       num_microbatches=num_microbatches)
     opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=max(2, steps // 10),
                                 total_steps=steps)
-    step_fn = build_train_step(model, plan, opt_cfg)
+    train_step = build_train_step(model, plan, opt_cfg)
 
     dcfg = DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=batch,
@@ -106,6 +119,8 @@ def train(arch: str = "deepseek-7b", steps: int = 20, reduced: bool = True,
         params, opt_state = restored["params"], restored["opt"]
         start_step = int(meta["step"]) + 1
         print(f"[train] resumed from step {meta['step']}")
+    step_fn = (train_step if is_dtensor(adamw.leaves(params)[0]) else
+               compile_step(train_step, "train", per_tick=("batch",)))
 
     hb = HeartbeatMonitor(n_hosts=1, timeout_s=600)
     watchdog = StragglerWatchdog(n_hosts=1)
@@ -138,7 +153,7 @@ def train(arch: str = "deepseek-7b", steps: int = 20, reduced: bool = True,
     return {"losses": losses, "final_loss": losses[-1] if losses else None,
             "steps": end_step - start_step, "wall_s": wall,
             "params": params, "opt_state": opt_state,
-            "tuned_plan": tuned_plan}
+            "tuned_plan": tuned_plan, "graphs": graph_stats([step_fn])}
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -170,10 +185,12 @@ def main(argv: list[str] | None = None) -> None:
                 remat=args.remat, num_microbatches=args.microbatches,
                 autotune=args.autotune, tune_shape=args.tune_shape,
                 device=args.device, layers=args.layers)
-    final = out["final_loss"]
+    final, graphs = out["final_loss"], out["graphs"]
     print(f"[train] done: {out['steps']} steps, final loss "
           f"{'n/a' if final is None else f'{final:.4f}'}, "
-          f"{out['wall_s']:.1f}s")
+          f"{out['wall_s']:.1f}s; graphs: {graphs['captures']} captured, "
+          f"{graphs['replays']} replayed, {graphs['recaptures']} "
+          "recaptured")
 
 
 if __name__ == "__main__":

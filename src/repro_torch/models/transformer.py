@@ -311,8 +311,11 @@ def remat_wrap(fn):
     else:
         raise ValueError(f"unknown remat policy {policy!r} (none, dots, "
                          "full)")
+    # no layer draws a random number, so the recompute needs no saved RNG
+    # state (saving it reads the CUDA generator, which a graph capture of
+    # the train step does not allow)
     return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
-                             context_fn=context)
+                             context_fn=context, preserve_rng_state=False)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,

@@ -1,19 +1,25 @@
-"""Compiled serving steps: each step captured once per shape as a CUDA
-graph and replayed, the port's counterpart of the JAX engine's
-``jax.jit``.
+"""Compiled steps: each step captured once per shape as a CUDA graph and
+replayed, the port's counterpart of ``jax.jit``: the serving engine's
+every-tick steps (the JAX engine's jitted decode, verify, draft decode
+and prompt chunk) and the trainer's step (the JAX trainer's
+``jax.jit(build_train_step(...))``: forward, ``torch.autograd.grad``
+through K1's and K9's Functions, the float32 microbatch sums, the clip
+and AdamW's in-place update, in one graph).
 
-``compile_step(fn, name)`` returns a :class:`CompiledStep`, a callable
-with ``fn``'s signature:
+``compile_step(fn, name, per_tick=...)`` returns a :class:`CompiledStep`,
+a callable with ``fn``'s signature:
 
 * on CUDA tensors the first call of a key runs ``fn`` itself on the
-  step's own capture stream (the warm-up: the call's result, its
-  launches counted as an eager call's), then captures ``fn`` into a
-  ``torch.cuda.CUDAGraph`` with a private memory pool; every later call
-  of that key copies its per-tick inputs into the graph's buffers and
-  replays the graph on the current stream.  Warm-up first, so that what
-  a kernel makes at its first launch on a stream (the merged split
-  routes' arrival counters, cuBLAS' workspace, a library's load) exists
-  before the capture and is not made inside the graph's pool;
+  step's own capture stream (the warm-up: a real step, its result
+  returned and its launches counted as an eager call's), then captures
+  ``fn`` into a ``torch.cuda.CUDAGraph`` with a private memory pool (the
+  capture executes nothing: a train step's warm-up is its one update);
+  every later call of that key copies its per-tick inputs into the
+  graph's buffers and replays the graph on the current stream.  Warm-up
+  first, so that what a kernel makes at its first launch on a stream
+  (the merged split routes' arrival counters, cuBLAS' workspace, a
+  library's load) exists before the capture and is not made inside the
+  graph's pool;
 * on CPU tensors it calls ``fn``: the port's CPU route, chosen by the
   tensor's device as ``kernels.ops`` chooses the kernel or its plain
   version.  A capture that fails raises, naming the step; nothing falls
@@ -28,42 +34,64 @@ new graph, never a stale one) and a ``_forced_width`` block's width.
 
 **Per-tick inputs and persistent tensors.**  A tensor passed as an
 argument itself (the engine's ``token``, ``pos``, page table, ``start``,
-``kv_len``, a chunk's tokens) is a per-tick input: the graph owns a
-copy, which each call overwrites.  A tensor inside a container argument
-(the weights' and caches' dicts: weights, page pools, scales, rings,
-recurrent state) is persistent: the graph reads and writes it where it
-was at capture.  Every call checks those addresses; a moved tensor gets
-a new capture of the key (counted in ``recaptures``), so a replay never
-runs over memory that has moved.
+``kv_len``, a chunk's tokens), and every tensor at any depth of an
+argument named in ``per_tick`` (the trainer's ``batch`` dict, made anew
+every step), is a per-tick input: the graph owns a copy, which each call
+overwrites.  Any other tensor inside a container argument (the weights'
+and caches' dicts: weights, page pools, scales, rings, recurrent state;
+the trainer's parameters and ``AdamWState``'s moments and int32 step) is
+persistent: the graph reads and writes it where it was at capture.
+Every call checks those addresses; a moved tensor (a restored
+checkpoint's) gets a new capture of the key (counted in
+``recaptures``), so a replay never runs over memory that has moved.
 
 **Outputs are the graph's own buffers** (an output that is a persistent
-input, as the caches a step returns, is that input): a replay overwrites
-the previous replay's.  Invariant of the serving engine: it reads a
-graph's logits before it replays that graph again (``emit`` before the
-next ``dispatch``; ``_draft_propose`` and ``_spec_tick`` copy theirs to
-the host at once).
+input, as the caches or the parameters a step returns, is that input):
+a replay overwrites the previous replay's.  Invariant of the callers:
+each reads a graph's outputs before it replays that graph again (the
+serving engine's ``emit`` before the next ``dispatch``, ``_draft_propose``
+and ``_spec_tick`` copying theirs to the host at once; the trainer's
+``float(metrics["loss"])`` after every step).
 
 **Counts.**  A replay calls no kernel wrapper, so the capture records
 what the wrappers counted while it ran (every ``launches``, the
-``Counter`` tallies such as ``by_tile``, ``last_kernel``, and the
-counters of :data:`EXTRA_TALLIES`), takes it back (a capture launches
-nothing) and adds it again at every replay: the counters read as if the
-step had run eagerly.
+autograd Functions' ``launches`` among them, the ``Counter`` tallies such
+as ``by_tile``, ``last_kernel``, and the counters of
+:data:`EXTRA_TALLIES`), takes it back (a capture launches nothing) and
+adds it again at every replay: the counters read as if the step had run
+eagerly.
+
+**Autograd under capture.**  The backward of a captured
+``torch.autograd.grad`` runs on autograd's device thread, on the stream
+of the forward it differentiates, which is the capturing stream: its
+kernels join the graph, and its allocations land in the graph's pool
+(the caching allocator routes every allocation made on a stream that
+this capture is capturing, whichever thread makes it, into the pool:
+``chip_smoke.py`` phase 35 checks that a train step's capture reserves
+nothing in the default pool).  ``capture_error_mode="thread_local"``
+only keeps other threads' unsafe calls from invalidating the capture.
+A leaf whose AccumulateGrad node an eager graph still alive made on
+another stream cannot be differentiated inside the capture (CUDA
+invalidates it); the trainer's parameters are first used by the
+warm-up, on the capture stream.
 
 **Lifetime.**  The graphs, their pools and their streams belong to the
-:class:`CompiledStep` (held by the engine or the tuning variant that
-made it) and die with it; nothing at module level keeps them.
+:class:`CompiledStep` (held by the engine, the tuning variant or the
+trainer that made it) and die with it; nothing at module level keeps
+them.
 """
 from __future__ import annotations
 
 import collections
 import gc
+import inspect
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
 
 from .. import at
+from ..kernels import autograd as ag
 from ..kernels import flash_attention as fa
 from ..kernels import matmul as mmk
 from ..kernels import paged_attention as pa
@@ -84,7 +112,8 @@ EXTRA_TALLIES: list[collections.Counter] = []
 
 
 def _kernels() -> tuple:
-    return (*fa.KERNELS, *pa.KERNELS, *mmk.KERNELS, *k9.KERNELS)
+    return (*fa.KERNELS, *pa.KERNELS, *mmk.KERNELS, *k9.KERNELS,
+            *ag.FUNCTIONS)
 
 
 def _snapshot() -> list:
@@ -144,19 +173,23 @@ def _add(delta: list) -> None:
             setattr(holder, attr, getattr(holder, attr) + gain)
 
 
-def _spec(x: Any, top: bool, per_tick: list, persistent: list):
+def _spec(x: Any, top: bool, per_tick: list, persistent: list,
+          deep: bool = False):
     """The hashable structure of ``x`` for the key, collecting its
-    tensors: ``top`` (an argument itself) ones as per-tick inputs, the
-    rest as persistent."""
+    tensors: ``top`` (an argument itself) ones and every one under a
+    ``deep`` (per-tick) argument as per-tick inputs, the rest as
+    persistent."""
     if isinstance(x, torch.Tensor):
-        (per_tick if top else persistent).append(x)
-        return (tuple(x.shape), x.stride(), x.dtype, x.device, top)
+        tick = top or deep
+        (per_tick if tick else persistent).append(x)
+        return (tuple(x.shape), x.stride(), x.dtype, x.device, tick)
     if isinstance(x, dict):
-        return ("dict",) + tuple((k, _spec(v, False, per_tick, persistent))
-                                 for k, v in x.items())
+        return ("dict",) + tuple(
+            (k, _spec(v, False, per_tick, persistent, deep))
+            for k, v in x.items())
     if isinstance(x, (list, tuple)):
         return (type(x).__name__,) + tuple(
-            _spec(v, False, per_tick, persistent) for v in x)
+            _spec(v, False, per_tick, persistent, deep) for v in x)
     hash(x)          # a non-tensor argument must be hashable
     return x
 
@@ -166,15 +199,20 @@ def _tuned_state() -> tuple:
             fa._FORCED_WIDTH.get())
 
 
-def _substitute(args: tuple, kwargs: dict, static: list):
-    """``args``/``kwargs`` with their top-level tensors replaced, in
-    order, by ``static``."""
-    it = iter(static)
-    args = tuple(next(it) if isinstance(a, torch.Tensor) else a
-                 for a in args)
-    kwargs = {k: next(it) if isinstance(v, torch.Tensor) else v
-              for k, v in kwargs.items()}
-    return args, kwargs
+def _put(x: Any, deep: bool, it):
+    """``x`` with its per-tick tensors (itself if a tensor, every tensor
+    under it if ``deep``) replaced, in :func:`_spec`'s order, from
+    ``it``."""
+    if isinstance(x, torch.Tensor):
+        return next(it)
+    if not deep:
+        return x
+    if isinstance(x, dict):
+        return {k: _put(v, True, it) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        vals = [_put(v, True, it) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
+    return x
 
 
 class CudaGraphs:
@@ -202,6 +240,10 @@ class CudaGraphs:
         """(graph, outputs) of ``call`` captured on ``stream`` into a
         graph with a pool of its own."""
         graph = torch.cuda.CUDAGraph()
+        # the warm-up's temporaries stay cached in the default pool, which
+        # the graph's pool cannot take: released first, so a train step's
+        # activations are not held twice
+        torch.cuda.empty_cache()
         # no cycle collection while capturing: it may free a finished
         # engine's graphs, and destroying a graph is not permitted while
         # a stream of this thread captures (the capture is invalidated)
@@ -236,10 +278,13 @@ class CompiledStep:
     ``graphs`` holds its graphs by key; ``fn`` is the eager step."""
 
     def __init__(self, fn: Callable, name: str,
-                 backend: CudaGraphs | None = None):
+                 backend: CudaGraphs | None = None, per_tick: tuple = ()):
         self.fn = fn
         self.name = name
         self.backend = backend or CudaGraphs()
+        names = list(inspect.signature(fn).parameters) if per_tick else []
+        #: the per-tick container arguments, by position and by keyword
+        self._deep = {*per_tick, *(names.index(n) for n in per_tick)}
         self.graphs: dict[tuple, _Graph] = {}
         self.captures = self.replays = self.recaptures = 0
         self._streams: dict[torch.device, Any] = {}
@@ -247,8 +292,10 @@ class CompiledStep:
     def __call__(self, *args, **kwargs):
         per_tick: list = []
         persistent: list = []
-        spec = (tuple(_spec(a, True, per_tick, persistent) for a in args),
-                tuple((k, _spec(v, True, per_tick, persistent))
+        spec = (tuple(_spec(a, True, per_tick, persistent, i in self._deep)
+                      for i, a in enumerate(args)),
+                tuple((k, _spec(v, True, per_tick, persistent,
+                                k in self._deep))
                       for k, v in kwargs.items()))
         tensors = per_tick or persistent
         if not tensors or not self.backend.takes(tensors[0].device):
@@ -277,15 +324,19 @@ class CompiledStep:
         out = self.backend.warm_up(lambda: self.fn(*args, **kwargs), stream,
                                    device)
         inputs = [x.clone() for x in per_tick]
-        s_args, s_kwargs = _substitute(args, kwargs, inputs)
+        it = iter(inputs)
+        s_args = tuple(_put(a, i in self._deep, it)
+                       for i, a in enumerate(args))
+        s_kwargs = {k: _put(v, k in self._deep, it)
+                    for k, v in kwargs.items()}
         before = _snapshot()
         try:
             graph, g_out = self.backend.capture(
                 lambda: self.fn(*s_args, **s_kwargs), stream, device)
         except Exception as err:
             raise RuntimeError(
-                f"capturing the serving step {self.name!r} as a CUDA graph "
-                f"failed: {err}") from err
+                f"capturing the step {self.name!r} as a CUDA graph failed: "
+                f"{err}") from err
         finally:
             counts = _delta(before)
             _restore(before)
@@ -296,10 +347,14 @@ class CompiledStep:
 
 
 def compile_step(fn: Callable, name: str | None = None,
-                 backend: CudaGraphs | None = None) -> CompiledStep:
+                 backend: CudaGraphs | None = None,
+                 per_tick: tuple = ()) -> CompiledStep:
     """``fn`` as a :class:`CompiledStep` named ``name`` (its
-    ``__name__`` when not given)."""
-    return CompiledStep(fn, name or getattr(fn, "__name__", "step"), backend)
+    ``__name__`` when not given).  ``per_tick``: the names of ``fn``'s
+    arguments whose tensors, at any depth, are per-tick inputs (module
+    docstring)."""
+    return CompiledStep(fn, name or getattr(fn, "__name__", "step"), backend,
+                        per_tick)
 
 
 def graph_stats(steps) -> dict:
